@@ -1,0 +1,403 @@
+// Per-step building blocks shared by the encoder (K1), greedy (K5) and
+// beam (K6) kernels: the LSTM cell step, the row-wise linear layer and
+// Luong attention.
+//
+// Replaces the in-kernel products of ast_tpu/ops/fused_lstm.py
+// (_fwd_kernel) and ast_tpu/ops/fused_infer.py (_lstm_stack, _step_core,
+// _context_out).  On the TPU those kernels kept all weights in one core's
+// VMEM for the whole sequence; here blocks run in parallel, so each
+// kernel covers one (step, layer) or one step phase, and the time loop
+// runs on the host (see k1/k5/k6).
+//
+// What bounds them on the H100: at decode batch sizes (32 to 160 rows)
+// every step re-reads the weights (encoder 4 MB, decoder about 32 MB per
+// step in f32), which fit in the 50 MB L2, and each output column's
+// products are a few hundred FMAs per row -- the kernels are bound by
+// the latency of dependent weight loads from L2 and by launch latency,
+// not by FLOPs.  Design: a block owns COLS = 32 output columns (one
+// hidden unit j per lane for the LSTM, computing all four gate columns
+// j, H+j, 2H+j, 3H+j so the gate math fuses into the epilogue) and
+// ROWS = 8 rows, so each weight value loaded serves 8 rows (4 rows when
+// 8 would leave SMs without a block, as at B = 32).  Its KSPLIT = 16
+// warps split the input axis, so each thread walks only 1/16 of it in
+// one unrolled loop with many loads in flight.  The block's input rows
+// are staged whole in shared memory once (one barrier, not one per
+// tile); the same memory then holds the warps' partial sums, where warp
+// w finishes row w.  Attention scores TU = 4 encoder rows per warp at a
+// time, for independent load streams.  Weight loads are coalesced along
+// the column axis.  No tensor cores yet (f32 FMA); wgmma/TMA tiling is
+// later work.
+#include <math.h>
+
+#include "common.cuh"
+
+namespace ast {
+namespace {
+
+constexpr int KSPLIT = 16;  // warps per block, splitting the input axis
+constexpr int COLS = 32;    // output columns per block, one per lane
+constexpr int THREADS = COLS * KSPLIT;
+constexpr unsigned FULL = 0xffffffffu;
+
+__device__ __forceinline__ float sigmoidf(float x) {
+  return 1.f / (1.f + expf(-x));
+}
+
+// xs[rr * ld + off + k] = seg[r0 + rr, k] (0 past the last row)
+template <int ROWS>
+__device__ __forceinline__ void stage(float* xs, int ld, int off,
+                                      const Seg& sg, int g, int r0, int R) {
+  if (sg.src == nullptr || sg.K == 0) return;
+  const float* base = sg.src + g * sg.g_stride;
+  const int tid = threadIdx.y * COLS + threadIdx.x;
+  for (int i = tid; i < ROWS * sg.K; i += THREADS) {
+    const int rr = i / sg.K, k = i % sg.K, r = r0 + rr;
+    float v = 0.f;
+    if (r < R) {
+      const long row = sg.idx ? (long)sg.idx[r] : (long)r;
+      v = base[row * sg.K + k];
+    }
+    xs[rr * ld + off + k] = v;
+  }
+}
+
+// acc[rr][q] += sum over this warp's share of k < K of
+//               xs[rr * ld + off + k] * W[k, col + q * qstride]
+template <int ROWS, int NQ>
+__device__ __forceinline__ void accumulate(
+    float (&acc)[ROWS][NQ], const float* xs, int ld, int off, int K,
+    const float* W, long ldw, long qstride, int col) {
+#pragma unroll 4
+  for (int k = threadIdx.y; k < K; k += KSPLIT) {
+    const float* wrow = W + (long)k * ldw + col;
+    float w[NQ];
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) w[q] = __ldg(wrow + q * qstride);
+#pragma unroll
+    for (int rr = 0; rr < ROWS; ++rr) {
+      const float x = xs[rr * ld + off + k];
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) acc[rr][q] = fmaf(x, w[q], acc[rr][q]);
+    }
+  }
+}
+
+// Sums the KSPLIT warps' partial sums: warp w < ROWS gets row w's NQ
+// values for column threadIdx.x.  red: [KSPLIT][ROWS][NQ][COLS] floats,
+// reusing the staged inputs' memory (hence the leading barrier).
+template <int ROWS, int NQ>
+__device__ __forceinline__ void reduce_split(const float (&acc)[ROWS][NQ],
+                                             float* red, float (&out)[NQ]) {
+  const int w = threadIdx.y, lane = threadIdx.x;
+  __syncthreads();
+#pragma unroll
+  for (int rr = 0; rr < ROWS; ++rr)
+#pragma unroll
+    for (int q = 0; q < NQ; ++q)
+      red[((w * ROWS + rr) * NQ + q) * COLS + lane] = acc[rr][q];
+  __syncthreads();
+  if (w >= ROWS) return;
+#pragma unroll
+  for (int q = 0; q < NQ; ++q) {
+    float s = 0.f;
+#pragma unroll
+    for (int k = 0; k < KSPLIT; ++k)
+      s += red[((k * ROWS + w) * NQ + q) * COLS + lane];
+    out[q] = s;
+  }
+}
+
+// Dynamic shared memory of a block: the staged input rows, or the
+// partial sums, whichever is larger.
+template <int ROWS, int NQ>
+size_t smem_bytes(int k_total) {
+  const size_t in = (size_t)ROWS * k_total;
+  const size_t red = (size_t)KSPLIT * ROWS * NQ * COLS;
+  return (in > red ? in : red) * sizeof(float);
+}
+
+template <int ROWS>
+__global__ void __launch_bounds__(THREADS) lstm_cell_kernel(CellArgs a) {
+  if (a.done && *a.done) return;
+  extern __shared__ float smem[];
+  const int g = blockIdx.z, H = a.H;
+  const long H4 = 4L * H;
+  const int j = blockIdx.x * COLS + threadIdx.x;
+  const int r0 = blockIdx.y * ROWS;
+  const int ka = a.xa.src ? a.xa.K : 0, kb = a.xb.src ? a.xb.K : 0;
+  const int ld = ka + kb + H;
+  stage<ROWS>(smem, ld, 0, a.xa, g, r0, a.R);
+  stage<ROWS>(smem, ld, ka, a.xb, g, r0, a.R);
+  stage<ROWS>(smem, ld, ka + kb, a.hp, g, r0, a.R);
+  __syncthreads();
+
+  float acc[ROWS][4];
+#pragma unroll
+  for (int rr = 0; rr < ROWS; ++rr)
+#pragma unroll
+    for (int q = 0; q < 4; ++q) acc[rr][q] = 0.f;
+  if (j < H) {
+    const float* wx = a.wx + g * a.wx_g;
+    if (ka + kb) accumulate<ROWS, 4>(acc, smem, ld, 0, ka + kb, wx, H4, H, j);
+    accumulate<ROWS, 4>(acc, smem, ld, ka + kb, H, a.wh + g * a.wh_g, H4, H,
+                        j);
+  }
+  float z[4];
+  reduce_split<ROWS, 4>(acc, smem, z);
+  const int r = r0 + threadIdx.y;
+  if (threadIdx.y >= ROWS || j >= H || r >= a.R) return;
+
+  const float* bias = a.bias + g * a.b_g;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    z[q] += bias[q * H + j];
+    if (a.pre) z[q] += a.pre[g * a.pre_g + (long)r * H4 + q * H + j];
+  }
+  const float ig = sigmoidf(z[0]), fg = sigmoidf(z[1]);
+  const float gg = tanhf(z[2]), og = sigmoidf(z[3]);
+  const long ci = g * a.c_g + (long)r * H + j;
+  const float c = fg * a.c_in[ci] + ig * gg;
+  const float h = og * tanhf(c);
+  a.c_out[ci] = c;
+  a.h_out[g * a.h_g + (long)r * H + j] = h;
+  if (a.y_out) a.y_out[g * a.y_g + (long)r * H + j] = h;
+}
+
+template <int ROWS>
+__global__ void __launch_bounds__(THREADS) linear_kernel(LinearArgs a) {
+  if (a.done && *a.done) return;
+  extern __shared__ float smem[];
+  const int n = blockIdx.x * COLS + threadIdx.x;
+  const int r0 = blockIdx.y * ROWS;
+  const int ka = a.xa.K, kb = a.xb.src ? a.xb.K : 0;
+  const int ld = ka + kb;
+  stage<ROWS>(smem, ld, 0, a.xa, 0, r0, a.R);
+  stage<ROWS>(smem, ld, ka, a.xb, 0, r0, a.R);
+  __syncthreads();
+  float acc[ROWS][1];
+#pragma unroll
+  for (int rr = 0; rr < ROWS; ++rr) acc[rr][0] = 0.f;
+  if (n < a.N) accumulate<ROWS, 1>(acc, smem, ld, 0, ld, a.w, a.N, 0, n);
+  float v[1];
+  reduce_split<ROWS, 1>(acc, smem, v);
+  const int r = r0 + threadIdx.y;
+  if (threadIdx.y >= ROWS || n >= a.N || r >= a.R) return;
+  float y = v[0] + a.bias[n];
+  if (a.act_tanh) y = tanhf(y);
+  a.out[(long)r * a.N + n] = y;
+}
+
+// Rows per block: 8 (each weight load serves 8 rows) when that still
+// gives at least one block per SM, else 4, so small batches fill the card.
+bool few_blocks(long col_blocks, int R, int groups) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return col_blocks * ((R + 7) / 8) * groups < sms;
+}
+
+// Launch kernel<ROWS> with `bytes` of dynamic shared memory, opting in
+// above the 48 KB default.
+template <typename Kernel, typename Args>
+cudaError_t launch(Kernel kernel, dim3 grid, size_t bytes, const Args& a,
+                   cudaStream_t s) {
+  if (bytes > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (e != cudaSuccess) return e;
+  }
+  kernel<<<grid, dim3(COLS, KSPLIT), bytes, s>>>(a);
+  return cudaGetLastError();
+}
+
+__device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
+  return v;
+}
+
+__device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
+  return v;
+}
+
+// Block-wide max or sum; every thread gets the result.  red: 32 floats.
+__device__ float block_reduce(float v, bool is_max, float* red) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int nw = (blockDim.x + 31) >> 5;
+  v = is_max ? warp_max(v) : warp_sum(v);
+  __syncthreads();
+  if (lane == 0) red[w] = v;
+  __syncthreads();
+  if (w == 0) {
+    v = lane < nw ? red[lane] : (is_max ? -INFINITY : 0.f);
+    v = is_max ? warp_max(v) : warp_sum(v);
+    if (lane == 0) red[0] = v;
+  }
+  __syncthreads();
+  return red[0];
+}
+
+// One block per row r: scores over its utterance's T encoder rows,
+// softmax, and the context vector.  Dynamic shared memory: H + T floats.
+__global__ void attention_kernel(const float* enc, const float* q, float* cv,
+                                 int R, int per, int T, int H,
+                                 const int* done) {
+  if (done && *done) return;
+  extern __shared__ float sm[];
+  __shared__ float red[32];
+  float* qs = sm;
+  float* p = sm + H;
+  const int r = blockIdx.x;
+  const float* E = enc + (long)(r / per) * T * H;
+  for (int h = threadIdx.x; h < H; h += blockDim.x) qs[h] = q[(long)r * H + h];
+  __syncthreads();
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int nw = blockDim.x >> 5;
+  // each warp scores TU encoder rows at a time: TU independent load
+  // streams per lane instead of one dependent chain
+  constexpr int TU = 4;
+  static_assert(TU == 4, "the context sum below adds four partials");
+  for (int t0 = w * TU; t0 < T; t0 += nw * TU) {
+    const int tn = min(TU, T - t0);
+    float s[TU] = {};
+    for (int h = lane; h < H; h += 32) {
+      const float qv = qs[h];
+#pragma unroll
+      for (int u = 0; u < TU; ++u)
+        if (u < tn) s[u] = fmaf(E[(long)(t0 + u) * H + h], qv, s[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < TU; ++u) {
+      const float su = warp_sum(s[u]);
+      if (lane == 0 && u < tn) p[t0 + u] = su;
+    }
+  }
+  __syncthreads();
+  float m = -INFINITY;
+  for (int t = threadIdx.x; t < T; t += blockDim.x) m = fmaxf(m, p[t]);
+  m = block_reduce(m, true, red);
+  float sum = 0.f;
+  for (int t = threadIdx.x; t < T; t += blockDim.x) {
+    const float e = expf(p[t] - m);
+    p[t] = e;
+    sum += e;
+  }
+  sum = block_reduce(sum, false, red);  // its barriers publish p[]
+  const float inv = 1.f / sum;
+  for (int h = threadIdx.x; h < H; h += blockDim.x) {
+    float acc[TU] = {};
+    int t = 0;
+    for (; t + TU <= T; t += TU) {
+#pragma unroll
+      for (int u = 0; u < TU; ++u)
+        acc[u] = fmaf(p[t + u] * inv, E[(long)(t + u) * H + h], acc[u]);
+    }
+    for (; t < T; ++t) acc[0] = fmaf(p[t] * inv, E[(long)t * H + h], acc[0]);
+    cv[(long)r * H + h] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
+  }
+}
+
+constexpr int ATTN_THREADS = 512;
+
+}  // namespace
+
+cudaError_t launch_lstm_cell(const CellArgs& a, int groups, cudaStream_t s) {
+  const int col_blocks = (a.H + COLS - 1) / COLS;
+  const int k_total = (a.xa.src ? a.xa.K : 0) + (a.xb.src ? a.xb.K : 0) + a.H;
+  if (few_blocks(col_blocks, a.R, groups))
+    return launch(lstm_cell_kernel<4>, dim3(col_blocks, (a.R + 3) / 4, groups),
+                  smem_bytes<4, 4>(k_total), a, s);
+  return launch(lstm_cell_kernel<8>, dim3(col_blocks, (a.R + 7) / 8, groups),
+                smem_bytes<8, 4>(k_total), a, s);
+}
+
+cudaError_t launch_linear(const LinearArgs& a, cudaStream_t s) {
+  const int col_blocks = (a.N + COLS - 1) / COLS;
+  const int k_total = a.xa.K + (a.xb.src ? a.xb.K : 0);
+  if (few_blocks(col_blocks, a.R, 1))
+    return launch(linear_kernel<4>, dim3(col_blocks, (a.R + 3) / 4),
+                  smem_bytes<4, 1>(k_total), a, s);
+  return launch(linear_kernel<8>, dim3(col_blocks, (a.R + 7) / 8),
+                smem_bytes<8, 1>(k_total), a, s);
+}
+
+cudaError_t launch_attention(const float* enc, const float* q, float* cv,
+                             int R, int rows_per_utt, int T, int H,
+                             const int* done, cudaStream_t s) {
+  const size_t smem = (size_t)(H + T) * sizeof(float);
+  attention_kernel<<<R, ATTN_THREADS, smem, s>>>(enc, q, cv, R, rows_per_utt,
+                                                 T, H, done);
+  return cudaGetLastError();
+}
+
+cudaError_t decoder_step(const DecoderWeights& w, const float* enc, int T,
+                         int rows_per_utt, const DecoderStep& st, int R,
+                         const int* done, cudaStream_t s) {
+  const int H = w.H;
+  const long H4 = 4L * H, RH = (long)R * H;
+  for (int l = 0; l < w.L; ++l) {
+    CellArgs a = {};
+    if (l == 0) {
+      a.xa = Seg{w.embed, 0, st.tok, w.E};   // embedding row gather
+      a.xb = Seg{st.ht_in, 0, nullptr, w.A};  // input feeding
+      a.wx = w.wx0;
+    } else {
+      a.xa = Seg{st.h_out + (l - 1) * RH, 0, nullptr, H};
+      a.wx = w.wx_rest + (long)(l - 1) * H * H4;
+    }
+    a.hp = Seg{st.h_in + l * RH, 0, nullptr, H};
+    a.wh = w.wh + (long)l * H * H4;
+    a.bias = w.bias + l * H4;
+    a.c_in = st.c_in + l * RH;
+    a.c_out = st.c_out + l * RH;
+    a.h_out = st.h_out + l * RH;
+    a.R = R;
+    a.H = H;
+    a.done = done;
+    cudaError_t e = launch_lstm_cell(a, 1, s);
+    if (e != cudaSuccess) return e;
+  }
+  const float* top = st.h_out + (w.L - 1) * RH;
+
+  LinearArgs q = {};
+  q.xa = Seg{top, 0, nullptr, H};
+  q.w = w.wa;
+  q.bias = w.wa_b;
+  q.out = st.q;
+  q.R = R;
+  q.N = H;
+  q.done = done;
+  cudaError_t e = launch_linear(q, s);
+  if (e != cudaSuccess) return e;
+
+  e = launch_attention(enc, st.q, st.cv, R, rows_per_utt, T, H, done, s);
+  if (e != cudaSuccess) return e;
+
+  LinearArgs c = {};
+  c.xa = Seg{st.cv, 0, nullptr, H};
+  c.xb = Seg{top, 0, nullptr, H};
+  c.w = w.ctx_w;
+  c.bias = w.ctx_b;
+  c.out = st.ht_out;
+  c.R = R;
+  c.N = w.A;
+  c.act_tanh = 1;
+  c.done = done;
+  e = launch_linear(c, s);
+  if (e != cudaSuccess) return e;
+
+  LinearArgs o = {};
+  o.xa = Seg{st.ht_out, 0, nullptr, w.A};
+  o.w = w.out_w;
+  o.bias = w.out_b;
+  o.out = st.logits;
+  o.R = R;
+  o.N = w.V;
+  o.done = done;
+  return launch_linear(o, s);
+}
+
+}  // namespace ast

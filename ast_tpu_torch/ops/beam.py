@@ -1,0 +1,48 @@
+"""Batched beam search and host-side reranking.
+
+The counterpart of ``ast_tpu/ops/beam.py``: the decoder keeps the same
+``(hyps, scores, lengths)`` contract, with the frontier loop in the K6
+kernel (``ops/fused_infer.beam_decode_fused``), and hypotheses are
+reranked by ``score / (len - 2)^W`` on the host.
+"""
+
+from ast_tpu_torch.models import seq2seq
+from ast_tpu_torch.ops.fused_infer import (
+    beam_decode_fused, require_decode_variant)
+
+
+def make_beam_decoder(mcfg, N, K, stop_limit):
+    """Build ``(params, state, X) -> (hyps, scores, lengths)``.
+
+    hyps: (B, N, stop_limit+1) int32 token ids beginning with GO;
+    scores: (B, N) summed log-probs; lengths: (B, N) valid token counts."""
+    V = mcfg["rnn_config"]["dec_vocab_size"]
+    if K > V:
+        raise ValueError(
+            f"beam width K={K} exceeds the decoder vocabulary "
+            f"({V} tokens) — at most V continuations exist per step")
+    if N < 1 or K < 1:
+        raise ValueError(f"beam sizes must be >= 1 (got N={N}, K={K})")
+    require_decode_variant(mcfg)
+
+    def decode(params, state, X):
+        enc_states, dec_h0, dec_c0 = seq2seq.encode(params, state, mcfg, X)
+        return beam_decode_fused(enc_states, dec_h0, dec_c0,
+                                 seq2seq.pack_decoder_weights(params),
+                                 N, K, stop_limit)
+
+    return decode
+
+
+def rerank_hypothesis(beam_hyps, weight):
+    """[(hyp_ids, score[, ...])] -> sorted [(hyp_ids, norm_score, len)]."""
+    return sorted(
+        [(e[0], e[1] / (max(1, len(e[0]) - 2) ** weight), len(e[0]))
+         for e in beam_hyps],
+        reverse=True, key=lambda t: t[1])
+
+
+def get_best_hyps(utts_beam, W):
+    """{utt: [(hyp_ids, score)]} -> {utt: best hyp_ids} after length-norm."""
+    return {u: list(rerank_hypothesis(hyps, W)[0][0])
+            for u, hyps in utts_beam.items()}
