@@ -19,13 +19,13 @@ import os
 import numpy as np
 import torch
 
+from ast_tpu.config import Config
+from ast_tpu.symbols import SYMBOLS
 from ast_tpu_torch.checkpoint import latest_checkpoint, load_checkpoint
-from ast_tpu_torch.config import Config
-from ast_tpu_torch.detok import get_hyps
+from ast_tpu_torch.detok import dec_i2w, get_hyps
 from ast_tpu_torch.models import seq2seq
 from ast_tpu_torch.ops import beam as beam_ops
 from ast_tpu_torch.params import from_jax_numpy
-from ast_tpu_torch.symbols import SYMBOLS
 
 AUDIO_TODO = ("audio input needs the fbank front-end and the wav/sph "
               "loader, which are not ported yet (ROADMAP.md queue 1, "
@@ -155,7 +155,7 @@ def main(argv=None):
                         preds[utt] = (p[j][:eos[0]] if eos.size
                                       else p[j]).tolist()
 
-    hyps = get_hyps(preds.items(), cfg.dec_i2w, data_cfg["dec_key"])
+    hyps = get_hyps(preds.items(), dec_i2w(cfg.train), data_cfg["dec_key"])
     lines = []
     for utt, _ in feats:
         lines.append(f"{utt}\t{' '.join(hyps[utt])}")

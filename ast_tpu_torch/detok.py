@@ -3,7 +3,22 @@
 they occur, tokens after EOS are kept, ``*_w`` units join with spaces
 and char units join bare, and ``bpe_w`` merges the ``@@ `` joiner."""
 
-from ast_tpu_torch.symbols import SYMBOLS
+import pickle
+
+from ast_tpu.symbols import SYMBOLS
+
+
+def dec_i2w(train_cfg):
+    """Decoder id -> token bytes table of an experiment's vocab pickle,
+    ``limit_vocab``-aware, as ``FisherDataLoader.dec_i2w`` reads it.
+    ``train_cfg``: the ``train`` dict of ``ast_tpu.config.Config``."""
+    data = train_cfg["data"]
+    with open(data["vocab_path"], "rb") as f:
+        vocab = pickle.load(f)
+    if data.get("limit_vocab", False):
+        return vocab["i2w"]
+    return vocab[data["dec_key"]]["i2w"]
+
 
 
 def ids_to_text(ids, lookup, dec_key):

@@ -9,13 +9,13 @@ ast_tpu's layout (see ``ast_tpu_torch.params``).
 import numpy as np
 import torch
 
+from ast_tpu.symbols import SYMBOLS
 from ast_tpu_torch.ops.cnn import conv_frontend
 from ast_tpu_torch.ops.fused_infer import (
     greedy_decode_fused, require_decode_variant)
 from ast_tpu_torch.ops.fused_lstm import (
     fused_stacked_lstm, pack_encoder_weights)
 from ast_tpu_torch.params import from_jax_numpy
-from ast_tpu_torch.symbols import SYMBOLS
 
 
 def init_model(mcfg, seed=0, device="cpu"):

@@ -14,10 +14,10 @@ TPU's vocab padding.
 
 import torch
 
+from ast_tpu.symbols import SYMBOLS
 from ast_tpu_torch.kernels import build
 from ast_tpu_torch.ops.attention import luong_attention
 from ast_tpu_torch.ops.lstm import lstm_gates
-from ast_tpu_torch.symbols import SYMBOLS
 
 NEG_INF = -1e30
 # attention keeps H + T floats of one row in shared memory (48 KB
@@ -68,15 +68,12 @@ def decode_step_reference(w, enc_rows, h, c, ht, tok):
     return logits, torch.stack(new_h), torch.stack(new_c), ht
 
 
-def greedy_reference(enc, h0, c0, w, stop_limit, return_gaps=False):
+def greedy_reference(enc, h0, c0, w, stop_limit):
     """Greedy decode with early exit once every row has produced EOS;
-    unvisited steps stay PAD.  Returns preds (B, stop_limit) int32, and
-    with ``return_gaps`` also each step's top-2 logit gap (B, stop_limit)
-    (inf where no step ran)."""
+    unvisited steps stay PAD.  Returns preds (B, stop_limit) int32."""
     B = enc.shape[0]
     out = torch.full((B, stop_limit), SYMBOLS.PAD_ID, dtype=torch.int32,
                      device=enc.device)
-    gaps = torch.full((B, stop_limit), float("inf"), device=enc.device)
     word = torch.full((B,), SYMBOLS.GO_ID, dtype=torch.long,
                       device=enc.device)
     fin = torch.zeros(B, dtype=torch.bool, device=enc.device)
@@ -87,12 +84,34 @@ def greedy_reference(enc, h0, c0, w, stop_limit, return_gaps=False):
             break
         logits, h, c, ht = decode_step_reference(w, enc, h, c, ht, word)
         word = torch.argmax(logits, dim=-1)
-        if return_gaps:
-            top2 = torch.topk(logits, 2, dim=-1).values
-            gaps[:, step] = top2[:, 0] - top2[:, 1]
         out[:, step] = word.to(torch.int32)
         fin |= word == SYMBOLS.EOS_ID
-    return (out, gaps) if return_gaps else out
+    return out
+
+
+def greedy_follow(enc, h0, c0, w, preds):
+    """The plain decoder stepped along a given greedy decode ``preds``
+    (B, stop_limit), e.g. a kernel's: each row is fed its own given
+    tokens.  Returns (short (B, stop_limit): how far each given token's
+    logit falls below the step's largest, 0 for the argmax; n_run: the
+    steps a greedy decode runs on this path, after which every given
+    token must be PAD)."""
+    B, stop_limit = preds.shape
+    short = torch.zeros((B, stop_limit), device=enc.device)
+    word = torch.full((B,), SYMBOLS.GO_ID, dtype=torch.long,
+                      device=enc.device)
+    fin = torch.zeros(B, dtype=torch.bool, device=enc.device)
+    h, c = h0, c0
+    ht = enc.new_zeros((B, w["ctx_w"].shape[1]))
+    for step in range(stop_limit):
+        if bool(fin.all()):
+            return short, step
+        logits, h, c, ht = decode_step_reference(w, enc, h, c, ht, word)
+        word = preds[:, step].long()
+        short[:, step] = (logits.amax(dim=-1)
+                          - logits.gather(1, word[:, None])[:, 0])
+        fin |= word == SYMBOLS.EOS_ID
+    return short, stop_limit
 
 
 def _topk(x, k):
@@ -102,15 +121,58 @@ def _topk(x, k):
     return vals[..., :k], idx[..., :k]
 
 
-def _min_gap(sorted_vals, n):
-    """Smallest gap between neighbours among the first n+1 sorted values
-    whose lower value is a live score; inf if none."""
-    n = min(n, sorted_vals.shape[-1] - 1)
-    if n <= 0:
-        return sorted_vals.new_full(sorted_vals.shape[:-1], float("inf"))
-    d = sorted_vals[..., :n] - sorted_vals[..., 1:n + 1]
-    live = sorted_vals[..., 1:n + 1] > NEG_INF / 2
-    return torch.where(live, d, torch.inf).amin(dim=-1)
+class _BeamState:
+    """The frontier of a batched beam search over B utterances x N slots:
+    decoder state of the R = B * N rows, scores, finished flags and the
+    last tokens, with the plain decoder step and the candidate scores."""
+
+    def __init__(self, enc, h0, c0, w, N, K):
+        B = enc.shape[0]
+        dev = enc.device
+        self.w, self.N, self.K = w, N, K
+        self.enc = enc.repeat_interleave(N, dim=0)
+        self.h = h0.repeat_interleave(N, dim=1)
+        self.c = c0.repeat_interleave(N, dim=1)
+        self.ht = enc.new_zeros((B * N, w["ctx_w"].shape[1]))
+        self.scores = torch.full((B, N), NEG_INF, device=dev)
+        self.scores[:, 0] = 0.0
+        self.finished = torch.zeros((B, N), dtype=torch.bool, device=dev)
+        self.last = torch.full((B, N), SYMBOLS.GO_ID, dtype=torch.long,
+                               device=dev)
+        self.k0 = torch.arange(K, device=dev) == 0
+
+    def candidates(self):
+        """Run the decoder step; returns (logp (B, N, V), the top-K
+        log-probs and tokens of each slot (B, N, K) -- one EOS candidate
+        with the score unchanged for a finished slot -- and the N * K
+        candidate scores (B, N * K))."""
+        B, N = self.scores.shape
+        logits, self.h2, self.c2, self.ht2 = decode_step_reference(
+            self.w, self.enc, self.h, self.c, self.ht,
+            self.last.reshape(B * N))
+        logp = torch.log_softmax(logits, dim=-1).reshape(B, N, -1)
+        top_logp, top_tok = _topk(logp, self.K)
+        fin = self.finished[..., None]
+        cand_logp = torch.where(
+            fin, torch.where(self.k0, 0.0, NEG_INF).to(top_logp.dtype),
+            top_logp)
+        top_tok = torch.where(fin, SYMBOLS.EOS_ID, top_tok)
+        cand = (self.scores[..., None] + cand_logp).reshape(B, -1)
+        return logp, top_logp, top_tok, cand
+
+    def advance(self, parent, tok, new_scores):
+        """Take the selected (parent slot, token, score) of every slot
+        (B, N); returns the parents' finished flags."""
+        B, N = parent.shape
+        p_fin = self.finished.gather(1, parent)
+        rows = (torch.arange(B, device=parent.device)[:, None] * N
+                + parent).reshape(B * N)
+        self.h, self.c, self.ht = (self.h2[:, rows], self.c2[:, rows],
+                                   self.ht2[rows])
+        self.finished = p_fin | (tok == SYMBOLS.EOS_ID)
+        self.last = tok
+        self.scores = new_scores
+        return p_fin
 
 
 def beam_reference(enc, h0, c0, w, N, K, stop_limit, trace=False):
@@ -120,79 +182,95 @@ def beam_reference(enc, h0, c0, w, N, K, stop_limit, trace=False):
     (B, N), lengths (B, N) int32).  With ``trace`` also returns the
     per-step chosen tokens, parent slots and validity (stop_limit, B, N)
     -- EOS, identity and 0 after the loop ends, as the kernel streams
-    them -- and per step and utterance (stop_limit, B) the smallest
-    margin between neighbouring log-probs of a live row's top K+1, and
-    between neighbouring candidates of the top N+1 selection (inf where
-    none)."""
-    B, T, _ = enc.shape
+    them."""
+    B = enc.shape[0]
     dev = enc.device
-    V = w["out_w"].shape[1]
-    R, NK, max_len = B * N, N * K, stop_limit + 1
-    enc_t = enc.repeat_interleave(N, dim=0)
-    h = h0.repeat_interleave(N, dim=1)
-    c = c0.repeat_interleave(N, dim=1)
-    ht = enc.new_zeros((R, w["ctx_w"].shape[1]))
-    scores = torch.full((B, N), NEG_INF, device=dev)
-    scores[:, 0] = 0.0
+    max_len = stop_limit + 1
+    st = _BeamState(enc, h0, c0, w, N, K)
     tokens = torch.full((B, N, max_len), SYMBOLS.PAD_ID, dtype=torch.int32,
                         device=dev)
     tokens[:, :, 0] = SYMBOLS.GO_ID
     lengths = torch.ones((B, N), dtype=torch.int32, device=dev)
-    finished = torch.zeros((B, N), dtype=torch.bool, device=dev)
-    last = torch.full((B, N), SYMBOLS.GO_ID, dtype=torch.long, device=dev)
-    slot = torch.arange(N, device=dev)
     pos = torch.arange(max_len, device=dev)
-    k0 = torch.arange(K, device=dev) == 0
+    slot = torch.arange(N, device=dev)
     tok_tr = torch.full((stop_limit, B, N), SYMBOLS.EOS_ID, dtype=torch.int32,
                         device=dev)
     par_tr = slot.to(torch.int32).expand(stop_limit, B, N).clone()
     val_tr = torch.zeros((stop_limit, B, N), dtype=torch.int32, device=dev)
-    row_gaps = torch.full((stop_limit, B), float("inf"), device=dev)
-    sel_gaps = torch.full((stop_limit, B), float("inf"), device=dev)
     for step in range(stop_limit):
-        if bool(finished.all()):
+        if bool(st.finished.all()):
             break
-        logits, h2, c2, ht2 = decode_step_reference(
-            w, enc_t, h, c, ht, last.reshape(R))
-        logp = torch.log_softmax(logits, dim=-1).reshape(B, N, V)
-        top_logp, top_tok = _topk(logp, K)
-        if trace:
-            full_sorted = torch.sort(logp, dim=-1, descending=True).values
-            live = ~finished & (scores > NEG_INF / 2)
-            row_gap = torch.where(live, _min_gap(full_sorted, K), torch.inf)
-        top_logp = torch.where(
-            finished[..., None],
-            torch.where(k0, 0.0, NEG_INF).to(top_logp.dtype), top_logp)
-        top_tok = torch.where(finished[..., None], SYMBOLS.EOS_ID, top_tok)
-        cand = (scores[..., None] + top_logp).reshape(B, NK)
+        _, _, top_tok, cand = st.candidates()
         new_scores, flat_idx = _topk(cand, N)
         parent = flat_idx // K
-        tok = top_tok.reshape(B, NK).gather(1, flat_idx)
-        if trace:
-            cand_sorted = torch.sort(cand, dim=-1, descending=True).values
-            row_gaps[step] = row_gap.amin(dim=1)
-            sel_gaps[step] = _min_gap(cand_sorted, N)
-            tok_tr[step] = tok.to(torch.int32)
-            par_tr[step] = parent.to(torch.int32)
-
-        p_tokens = tokens.gather(1, parent[..., None].expand(-1, -1, max_len))
+        tok = top_tok.reshape(B, N * K).gather(1, flat_idx)
         p_len = lengths.gather(1, parent)
-        p_fin = finished.gather(1, parent)
-        if trace:
-            val_tr[step] = (~p_fin).to(torch.int32)
+        p_tokens = tokens.gather(1, parent[..., None].expand(-1, -1, max_len))
+        p_fin = st.advance(parent, tok, new_scores)
         write = (pos == p_len[..., None]) & ~p_fin[..., None]
         tokens = torch.where(write, tok[..., None].to(torch.int32), p_tokens)
         lengths = p_len + (~p_fin).to(torch.int32)
-        finished = p_fin | (tok == SYMBOLS.EOS_ID)
-
-        rows = (torch.arange(B, device=dev)[:, None] * N + parent).reshape(R)
-        h, c, ht = h2[:, rows], c2[:, rows], ht2[rows]
-        last = tok
-        scores = new_scores
+        if trace:
+            tok_tr[step] = tok.to(torch.int32)
+            par_tr[step] = parent.to(torch.int32)
+            val_tr[step] = (~p_fin).to(torch.int32)
     if trace:
-        return (tokens, scores, lengths, tok_tr, par_tr, val_tr, row_gaps,
-                sel_gaps)
-    return tokens, scores, lengths
+        return tokens, st.scores, lengths, tok_tr, par_tr, val_tr
+    return tokens, st.scores, lengths
+
+
+def beam_follow(enc, h0, c0, w, N, K, tok, par, val):
+    """The plain beam step along a given search's per-step streams tok,
+    par (parent slot) and val (stop_limit, B, N), e.g. a kernel's: each
+    step recomputes the candidates of the given frontier and holds the
+    given selection against them.
+
+    Returns (scores (B, N): the given hypotheses' summed log-probs under
+    the plain step; topk_short (stop_limit, B): how far a chosen token's
+    log-prob falls below its slot's K-th best, 0 inside the top K;
+    sel_err (stop_limit, B): the largest difference between the chosen
+    scores and the best N candidates, both sorted; bad (stop_limit, B):
+    a frozen slot not continued by EOS with valid 0, a live slot with
+    valid 0, a candidate chosen twice, or -- once every slot has
+    finished -- anything but EOS, the identity parent and valid 0)."""
+    stop_limit, B, _ = tok.shape
+    dev = enc.device
+    st = _BeamState(enc, h0, c0, w, N, K)
+    slot = torch.arange(N, device=dev)
+    topk_short = torch.zeros((stop_limit, B), device=dev)
+    sel_err = torch.zeros((stop_limit, B), device=dev)
+    bad = torch.zeros((stop_limit, B), dtype=torch.bool, device=dev)
+    for step in range(stop_limit):
+        if bool(st.finished.all()):
+            bad[step:] = ((tok[step:] != SYMBOLS.EOS_ID) | (par[step:] != slot)
+                          | (val[step:] != 0)).any(dim=-1)
+            break
+        logp, top_logp, _, cand = st.candidates()
+        best = _topk(cand, N)[0]
+        parent, t, v = par[step].long(), tok[step].long(), val[step]
+        p_fin = st.finished.gather(1, parent)
+        lp = logp.gather(1, parent[..., None].expand(-1, -1, logp.shape[-1]))
+        lp = lp.gather(2, t[..., None])[..., 0]
+        # earlier slots holding the same parent (and the same token); a
+        # frozen parent's first pick is its k = 0 candidate, later picks
+        # its NEG_INF ones
+        same = ((parent[:, :, None] == parent[:, None, :])
+                & (slot[:, None] > slot[None, :]))
+        rank = same.sum(dim=-1)
+        twice = (same & (t[:, :, None] == t[:, None, :])).any(dim=-1)
+        frozen_lp = torch.where(rank == 0, 0.0, NEG_INF)
+        chosen = st.scores.gather(1, parent) + torch.where(p_fin, frozen_lp,
+                                                           lp)
+        kth = top_logp[..., -1].gather(1, parent)
+        topk_short[step] = torch.where(p_fin, 0.0, kth - lp).clamp(
+            min=0).amax(dim=1)
+        sel_err[step] = (torch.sort(chosen, dim=1, descending=True).values
+                         - best).abs().amax(dim=1)
+        bad[step] = torch.where(
+            p_fin, (t != SYMBOLS.EOS_ID) | (v != 0) | (rank >= K),
+            (v != 1) | twice).any(dim=1)
+        st.advance(parent, t, chosen)
+    return st.scores, topk_short, sel_err, bad
 
 
 # ---------------------------------------------------------------------------

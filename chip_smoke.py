@@ -10,22 +10,36 @@ Phases, each printing a line:
    this checkout;
 3. each kernel against its plain PyTorch version on the card, at the
    full width of experiments/es_en_20h (B=32, 640 frames, stop 175,
-   float32, seeded random weights): K1 outputs within 1e-4; K5 tokens
-   equal, a row diverging only at a step where the plain version's top-2
-   logit gap is under 1e-4; K6 the same rule on the beam's per-step
-   tokens and parents -- a top-K log-prob margin under 1e-4, or a
-   selection margin between summed scores under 1e-3, the scores'
-   own tolerance -- and scores within 1e-3;
+   float32, seeded random weights): K1 outputs within 1e-4.  K5 and K6
+   are compared twice: free-running (rows or utterances whose tokens
+   agree with the plain decode must agree exactly, scores within 1e-3),
+   and with the plain decoder step run along the kernel's own tokens, so
+   every step of every row is checked even after a near-tie has sent the
+   two apart: each K5 token within 1e-4 of the step's largest logit and
+   PAD once every row has ended; each K6 token within 1e-4 of its
+   slot's top K, the chosen scores within 1e-3 of the best N candidates
+   (beam scores are sums of ~1e3 in magnitude: an f32 ulp is 6e-5), the
+   beam's rules for frozen slots, distinct candidates and the ended
+   search, and final scores within 1e-3.  Both run again with an EOS
+   logit bias picked so that rows end at staggered steps before the
+   stop limit, which drives the kernels' early exit;
 4. the serving path through its entry point, ast_tpu_torch.cli.infer,
    on a synthetic es_en_20h experiment (seeded checkpoint, 1098-entry
    BPE vocab, 64 feature files of mixed lengths): after a warm-up call,
    greedy, then beam 5,5, each timed over the whole CLI call (checkpoint
    and file loading included); one output line per input, and every
-   kernel's launch count above 0.
+   kernel's count above 0.
 
-Then a JSON line with each kernel's launches, error and times, and last
-{"ok": true, "device": {...}}.  Any failure raises (exit code 1, no
-result line); with no CUDA device it exits 2.
+Then a JSON line with each kernel's count, error and times, and last
+{"ok": true, "device": {...}}.  A kernel's count ("launches") is the
+number of calls of its wrapper during the greedy and beam passes of
+phase 4 (not the warm-up): each call runs the whole kernel -- every
+step and layer, many CUDA launches.  "max_abs_err" is K1's largest
+state difference, K5's largest shortfall of a chosen token's logit
+below the plain step's best, and K6's largest score difference.  Any
+failure raises (exit code 1, no result line); with no CUDA device it
+exits 2.  Of ast_tpu, the port loads only its JAX-free config and
+symbols modules; the script checks that JAX was not imported.
 """
 
 import json
@@ -64,11 +78,10 @@ def cuda_ms(fn, reps):
 def make_experiment(root, seed=0):
     """Synthetic es_en_20h experiment: model_cfg.json from the repo, a
     generated BPE vocab, a seeded checkpoint and feature files."""
+    from ast_tpu_torch import SYMBOLS, Config
     from ast_tpu_torch.checkpoint import save_checkpoint, unflatten
-    from ast_tpu_torch.config import Config
     from ast_tpu_torch.models import seq2seq
     from ast_tpu_torch.params import to_flat
-    from ast_tpu_torch.symbols import SYMBOLS
 
     exp = os.path.join(root, "exp")
     feats = os.path.join(root, "feats")
@@ -108,17 +121,133 @@ def make_experiment(root, seed=0):
     return exp, cfg, paths
 
 
-def first_divergence(a, b):
-    """Index of the first step where rows of a and b differ (-1 if none);
-    a, b: (rows, steps, ...) arrays."""
-    diff = (a != b).reshape(a.shape[0], a.shape[1], -1).any(axis=2)
-    return np.where(diff.any(axis=1), diff.argmax(axis=1), -1)
+def eos_bias(enc, h0, c0, w):
+    """An EOS logit bias under which the rows' greedy decodes end at
+    staggered steps, all within 3/4 of STOP.  A row's decode is unchanged
+    up to the first step where its EOS logit comes within the bias of the
+    largest, so one unbiased plain decode gives every row's finishing step
+    under any bias; of the biases 1e-3 above a gap on that path, the one
+    with the most distinct finishing steps is taken (None if none ends
+    every row in time)."""
+    import torch
+
+    from ast_tpu_torch import SYMBOLS
+    from ast_tpu_torch.ops import fused_infer
+
+    nb = enc.shape[0]
+    word = torch.full((nb,), SYMBOLS.GO_ID, device=enc.device)
+    h, c, ht = h0, c0, enc.new_zeros((nb, w["ctx_w"].shape[1]))
+    gaps = []
+    for _ in range(STOP):
+        logits, h, c, ht = fused_infer.decode_step_reference(
+            w, enc, h, c, ht, word)
+        word = logits.argmax(dim=-1)
+        gaps.append(logits.amax(dim=-1) - logits[:, SYMBOLS.EOS_ID])
+    least = torch.stack(gaps, 1).cummin(dim=1).values.cpu().numpy()
+    last = STOP * 3 // 4
+    best, best_n = None, 1
+    for beta in np.unique(least[:, :last]) + 1e-3:
+        ended = least[:, :last] < beta
+        n = len(np.unique(ended.argmax(axis=1)))
+        if ended[:, -1].all() and n > best_n:
+            best, best_n = float(beta), n
+    return best
+
+
+def beam_ends(val):
+    """(steps run, steps where some utterance has ended and another has
+    not) of a beam search's valid stream (stop, B, N)."""
+    live = val != 0
+    return (int(live.any(dim=(1, 2)).sum()),
+            int(((~live).all(dim=2).any(dim=1) & live.any(dim=(1, 2))).sum()))
+
+
+def with_eos_bias(w, beta):
+    """The decoder weights with ``beta`` added to the EOS logit."""
+    from ast_tpu_torch import SYMBOLS
+
+    w = dict(w)
+    w["out_b"] = w["out_b"].clone()
+    w["out_b"][SYMBOLS.EOS_ID] += beta
+    return w
+
+
+def check_greedy(enc, h0, c0, w):
+    """K5 against its plain version, both free-running and stepped along
+    the kernel's own tokens: every kernel token within TOK_TOL of the
+    plain step's largest logit, and PAD from the step after which every
+    row has emitted EOS.  Returns (preds, numbers)."""
+    from ast_tpu_torch import SYMBOLS
+    from ast_tpu_torch.ops import fused_infer
+
+    tok = fused_infer.greedy_decode_fused(enc, h0, c0, w, STOP)
+    ref = fused_infer.greedy_reference(enc, h0, c0, w, STOP)
+    short, n_run = fused_infer.greedy_follow(enc, h0, c0, w, tok)
+    short = float(short.max())
+    assert short <= TOK_TOL, (
+        f"K5 chose a token whose logit is {short} below the plain step's "
+        f"largest")
+    assert (tok[:, n_run:] == SYMBOLS.PAD_ID).all(), (
+        f"K5 wrote other than PAD after step {n_run}, where every row has "
+        f"finished")
+    return tok, dict(shortfall=short, steps=n_run,
+                     rows_equal=int((tok == ref).all(dim=1).sum()))
+
+
+def check_beam(enc, h0, c0, w):
+    """K6 against its plain version, free-running (utterances whose
+    streams are equal must give equal hypotheses, lengths and scores) and
+    stepped along the kernel's own streams, where every step of every
+    utterance is held to the beam's rules: chosen tokens within TOK_TOL of
+    their slot's top K, the chosen scores within SCORE_TOL of the best N
+    candidates, frozen slots continued by EOS with valid 0, no candidate
+    twice, and EOS / identity parents / valid 0 once every slot has
+    finished; final scores within SCORE_TOL.  Returns (valid stream,
+    numbers)."""
+    from ast_tpu_torch.ops import fused_infer
+
+    k_tok, k_par, k_val, k_scores = fused_infer.beam_search_streams(
+        enc, h0, c0, w, N_BEAM, K_BEAM, STOP)
+    f_scores, topk_short, sel_err, bad = fused_infer.beam_follow(
+        enc, h0, c0, w, N_BEAM, K_BEAM, k_tok, k_par, k_val)
+    assert not bad.any(), (
+        f"K6 streams break the beam's rules at (step, utterance) "
+        f"{bad.nonzero().tolist()[:8]}")
+    topk_short, sel_err = float(topk_short.max()), float(sel_err.max())
+    assert topk_short <= TOK_TOL, (
+        f"K6 chose a token {topk_short} below its slot's top K")
+    assert sel_err <= SCORE_TOL, (
+        f"K6's selection is {sel_err} off the best N candidates")
+    live = f_scores > fused_infer.NEG_INF / 2
+    s_err = float((k_scores - f_scores).abs()[live].max())
+    assert s_err <= SCORE_TOL, f"K6 scores disagree: {s_err}"
+
+    r_hyps, r_scores, r_lens, r_tok, r_par, r_val = \
+        fused_infer.beam_reference(enc, h0, c0, w, N_BEAM, K_BEAM, STOP,
+                                   trace=True)
+    pair_eq = ((k_tok == r_tok) & (k_par == r_par)
+               & (k_val == r_val)).all(dim=2)          # (step, utterance)
+    same = pair_eq.all(dim=0)
+    k_hyps, k_lens = fused_infer.backtrack(k_tok, k_par, k_val)
+    assert (k_lens[same] == r_lens[same]).all(), "K6 lengths disagree"
+    assert (k_hyps[same] == r_hyps[same]).all(), "K6 hypotheses disagree"
+    free_err = float((k_scores - r_scores).abs()[same].max())
+    assert free_err <= SCORE_TOL, f"K6 scores disagree: {free_err}"
+    return k_val, dict(
+        score_err=max(s_err, free_err), topk_short=topk_short,
+        sel_err=sel_err, utts_equal=int(same.sum()),
+        pairs_equal=int(pair_eq.sum()), pairs=pair_eq.numel(),
+        steps=beam_ends(k_val)[0])
 
 
 def check_kernels(cfg, device):
-    """Phase 3: each kernel vs its plain version at es_en_20h width."""
+    """Phase 3: each kernel vs its plain version at es_en_20h width, and
+    K5 / K6 again with an EOS bias, so that rows finish at staggered
+    steps and the early exit (post-EOS tokens, PAD tail; frozen slots,
+    EOS placeholders, identity parents, valid 0) runs on the card."""
     import torch
 
+    from ast_tpu_torch import SYMBOLS
     from ast_tpu_torch.models import seq2seq
     from ast_tpu_torch.ops import fused_infer, fused_lstm
 
@@ -143,63 +272,65 @@ def check_kernels(cfg, device):
 
     enc, h0, c0 = seq2seq.encoder_outputs(*ref)
     w = seq2seq.pack_decoder_weights(params)
+    beta = eos_bias(enc, h0, c0, w)
+    assert beta is not None, "no EOS bias staggers the greedy decode"
+    w_eos = with_eos_bias(w, beta)
 
-    tok = fused_infer.greedy_decode_fused(enc, h0, c0, w, STOP)
-    ref_tok, gaps = fused_infer.greedy_reference(enc, h0, c0, w, STOP,
-                                                 return_gaps=True)
-    tok, ref_tok, gaps = (t.cpu().numpy() for t in (tok, ref_tok, gaps))
-    div = first_divergence(tok[:, :, None], ref_tok[:, :, None])
-    near_tie = 0
-    for r in np.nonzero(div >= 0)[0]:
-        assert gaps[r, div[r]] < TOK_TOL, (
-            f"K5 row {r} diverges at step {div[r]} where the plain "
-            f"version's top-2 gap is {gaps[r, div[r]]}")
-        near_tie += 1
-    steps = int(np.sum(tok != 0))
-    print(f"K5 greedy: {B} rows x {STOP} steps, {steps} non-PAD tokens, "
-          f"{near_tie} rows diverge at a near-tie (gap < {TOK_TOL})",
-          flush=True)
+    _, g = check_greedy(enc, h0, c0, w)
+    tok, g_eos = check_greedy(enc, h0, c0, w_eos)
+    is_eos = tok == SYMBOLS.EOS_ID
+    first_eos = torch.where(is_eos.any(dim=1), is_eos.int().argmax(dim=1),
+                            STOP)
+    n_finish = len(set(first_eos.tolist()))
+    assert g_eos["steps"] < STOP and n_finish > 1, (
+        f"the EOS-biased greedy pass ended at step {g_eos['steps']} with "
+        f"{n_finish} distinct finishing steps: no staggered early exit")
+    for name, r in (("K5 greedy", g), ("K5 greedy, EOS bias", g_eos)):
+        print(f"{name}: {B} rows, {r['steps']} of {STOP} steps run, "
+              f"{r['rows_equal']} rows equal to the free-running plain "
+              f"decode; on the kernel's path every token within "
+              f"{r['shortfall']:.3e} of the plain step's best logit (tol "
+              f"{TOK_TOL})", flush=True)
+    print(f"  EOS bias {beta:.4f}: rows finish at {n_finish} distinct "
+          f"steps from {int(first_eos.min())} to {int(first_eos.max())}, "
+          f"PAD after step {g_eos['steps']}", flush=True)
     results["k5"] = dict(
-        max_abs_err=float(np.abs(tok - ref_tok)[div < 0].max(initial=0)),
-        near_tie_rows=near_tie,
+        max_abs_err=max(g["shortfall"], g_eos["shortfall"]),
+        rows_equal=g["rows_equal"], rows_equal_eos_bias=g_eos["rows_equal"],
         ms=cuda_ms(lambda: fused_infer.greedy_decode_fused(
             enc, h0, c0, w, STOP), 3),
         plain_ms=cuda_ms(lambda: fused_infer.greedy_reference(
             enc, h0, c0, w, STOP), 2))
 
-    k_tok, k_par, k_val, k_scores = fused_infer.beam_search_streams(
-        enc, h0, c0, w, N_BEAM, K_BEAM, STOP)
-    k_hyps, k_lens = fused_infer.backtrack(k_tok, k_par, k_val)
-    r_hyps, r_scores, r_lens, r_tok, r_par, _, row_gaps, sel_gaps = \
-        fused_infer.beam_reference(enc, h0, c0, w, N_BEAM, K_BEAM, STOP,
-                                   trace=True)
-    kt = np.stack([k_tok.cpu().numpy(), k_par.cpu().numpy()], -1)
-    rt = np.stack([r_tok.cpu().numpy(), r_par.cpu().numpy()], -1)
-    div = first_divergence(kt.transpose(1, 0, 2, 3), rt.transpose(1, 0, 2, 3))
-    row_gaps, sel_gaps = row_gaps.cpu().numpy(), sel_gaps.cpu().numpy()
-    near_tie = 0
-    ok = div < 0
-    for b in np.nonzero(~ok)[0]:
-        t = div[b]
-        # a candidate is a summed score, itself held only to SCORE_TOL
-        assert row_gaps[t, b] < TOK_TOL or sel_gaps[t, b] < SCORE_TOL, (
-            f"K6 utterance {b} diverges at step {t} where the plain "
-            f"version's top-K margin is {row_gaps[t, b]} and its "
-            f"selection margin {sel_gaps[t, b]}")
-        near_tie += 1
-    k_hyps, k_lens, r_hyps, r_lens = (t.cpu().numpy() for t in
-                                      (k_hyps, k_lens, r_hyps, r_lens))
-    assert (k_lens[ok] == r_lens[ok]).all(), "K6 lengths disagree"
-    assert (k_hyps[ok] == r_hyps[ok]).all(), "K6 hypotheses disagree"
-    s_err = float((k_scores - r_scores).abs().cpu().numpy()[ok].max(
-        initial=0))
-    assert s_err <= SCORE_TOL, f"K6 scores disagree: {s_err}"
-    print(f"K6 beam {N_BEAM},{K_BEAM}: {B} utterances, score max abs err "
-          f"{s_err:.3e} (tol {SCORE_TOL}), {near_tie} utterances diverge "
-          f"at a near-tie (top-K margin < {TOK_TOL} or selection margin "
-          f"< {SCORE_TOL})", flush=True)
+    _, bm = check_beam(enc, h0, c0, w)
+    # the beam ends early only once every slot of every utterance is
+    # frozen: the first of these biases under which the plain search does
+    for scale in (1, 1.5, 2, 3, 4, 6, 8):
+        w_eos = with_eos_bias(w, beta * scale)
+        val = fused_infer.beam_reference(enc, h0, c0, w_eos, N_BEAM, K_BEAM,
+                                         STOP, trace=True)[5]
+        steps, mixed = beam_ends(val)
+        if steps < STOP and mixed > 0:
+            break
+    val, bm_eos = check_beam(enc, h0, c0, w_eos)
+    steps, mixed = beam_ends(val)
+    assert steps < STOP and mixed > 0, (
+        f"the EOS-biased beam pass ran {steps} steps with {mixed} steps "
+        f"holding an utterance already ended: no staggered early exit")
+    for name, r in (("K6 beam", bm), ("K6 beam, EOS bias", bm_eos)):
+        print(f"{name} {N_BEAM},{K_BEAM}: {B} utterances, {r['steps']} of "
+              f"{STOP} steps run; {r['utts_equal']} utterances and "
+              f"{r['pairs_equal']} of {r['pairs']} (step, utterance) pairs "
+              f"equal to the free-running plain search; on the kernel's "
+              f"path every step of every utterance checked: top-K "
+              f"shortfall {r['topk_short']:.3e} (tol {TOK_TOL}), selection "
+              f"{r['sel_err']:.3e} and score {r['score_err']:.3e} max abs "
+              f"err (tol {SCORE_TOL})", flush=True)
+    print(f"  EOS bias {beta * scale:.4f}: {mixed} steps hold an utterance "
+          f"already ended, valid 0 for all after step {steps}", flush=True)
     results["k6"] = dict(
-        max_abs_err=s_err, near_tie_utts=near_tie,
+        max_abs_err=max(bm["score_err"], bm_eos["score_err"]),
+        utts_equal=bm["utts_equal"], utts_equal_eos_bias=bm_eos["utts_equal"],
         ms=cuda_ms(lambda: fused_infer.beam_decode_fused(
             enc, h0, c0, w, N_BEAM, K_BEAM, STOP), 3),
         plain_ms=cuda_ms(lambda: fused_infer.beam_reference(
@@ -217,12 +348,12 @@ def run_slice(exp, paths, out_dir):
     counters = {"k1": fused_lstm.fused_stacked_lstm,
                 "k5": fused_infer.greedy_decode_fused,
                 "k6": fused_infer.beam_search_streams}
-    for fn in counters.values():
-        fn.launches = 0
     # first call: CUDA context, library and cuBLAS start-up stay out of
-    # the timed passes
+    # the timed passes and out of the counts
     infer.main(["-m", exp, "--device", "cuda", "-o",
                 os.path.join(out_dir, "warmup.txt")] + paths[:2])
+    for fn in counters.values():
+        fn.launches = 0
     rates = {}
     for name, extra in (("greedy", []),
                         ("beam", ["--beam", f"{N_BEAM},{K_BEAM}"])):
@@ -260,7 +391,7 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True, timeout=60).stdout.strip().splitlines()[0]
-    print(f"device: {smi}", flush=True)
+    print(smi, flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
 
@@ -302,6 +433,8 @@ def main():
             source=f"ast_tpu_torch/kernels/csrc/{src}", replaces=replaces,
             launches=launches[key], max_abs_err=r["max_abs_err"],
             ms=r["ms"], plain_ms=r["plain_ms"]))
+    assert not [m for m in sys.modules if m.split(".")[0] in
+                ("jax", "jaxlib")], "JAX was imported"
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,28 +1,29 @@
-"""ast_tpu_torch: weight bridge, checkpoints, config, detokenisation, and
-the rule that the port never imports JAX or ast_tpu.
+"""ast_tpu_torch: weight bridge, checkpoints, vocab, detokenisation, and
+the rule that the port never imports JAX.
 
 Parameters made by ast_tpu's init_model go through numpy into the port
 and back; checkpoints written by either package load in the other.
 """
 
 import os
+import pickle
 import subprocess
 import sys
+from types import SimpleNamespace
 
 import jax
 import numpy as np
 import pytest
 
-from ast_tpu.config import Config as JaxConfig
+from ast_tpu.data.dataloader import FisherDataLoader
 from ast_tpu.data.detok import ids_to_text as jax_ids_to_text
 from ast_tpu.models import seq2seq as jax_seq2seq
 from ast_tpu.train import checkpoint as jax_ckpt
 from ast_tpu_torch import checkpoint as port_ckpt
-from ast_tpu_torch.config import Config
-from ast_tpu_torch.detok import get_hyps, ids_to_text
+from ast_tpu_torch.detok import dec_i2w, get_hyps, ids_to_text
 from ast_tpu_torch.models import seq2seq
 from ast_tpu_torch.params import from_flat, from_jax_numpy, to_flat
-from tests.conftest import TINY_MODEL_CFG, make_tiny_experiment
+from tests.conftest import TINY_MODEL_CFG
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -94,11 +95,20 @@ def test_port_checkpoint_loads_in_jax(tmp_path, jax_model):
         to_flat(tp, ts))
 
 
-def test_config_matches_ast_tpu(tmp_path):
-    exp = make_tiny_experiment(str(tmp_path))
-    mine, ref = Config(exp), JaxConfig(exp)
-    assert mine.model == ref.model
-    assert mine.dec_i2w == mine.vocab["en_w"]["i2w"]
+@pytest.mark.parametrize("limit_vocab", [False, True])
+def test_dec_i2w_matches_ast_tpu(tmp_path, limit_vocab):
+    vocab = {"i2w": {0: b"_PAD", 4: b"top"},
+             "bpe_w": {"i2w": {0: b"_PAD", 4: b"bp@@"}},
+             "en_w": {"i2w": {0: b"_PAD", 4: b"en"}}}
+    path = str(tmp_path / "v.vocab")
+    with open(path, "wb") as f:
+        pickle.dump(vocab, f)
+    data = {"vocab_path": path, "dec_key": "bpe_w",
+            "limit_vocab": limit_vocab}
+    # FisherDataLoader.dec_i2w reads only .vocab and .data_cfg
+    ref = FisherDataLoader.dec_i2w.fget(
+        SimpleNamespace(vocab=vocab, data_cfg=data))
+    assert dec_i2w({"data": data}) == ref
 
 
 @pytest.mark.parametrize("dec_key", ["en_w", "bpe_w", "en_c"])
@@ -114,12 +124,14 @@ def test_detok_matches_ast_tpu(dec_key):
 
 
 def test_port_imports_no_jax():
+    """Of ast_tpu the port loads only its two JAX-free modules."""
     code = ("import sys\n"
             "import ast_tpu_torch, ast_tpu_torch.cli.infer, "
             "ast_tpu_torch.ops.beam\n"
+            "ok = {'ast_tpu', 'ast_tpu.config', 'ast_tpu.symbols'}\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
-            "m.startswith('jax.') or m == 'ast_tpu' or "
-            "m.startswith('ast_tpu.')]\n"
+            "m.startswith('jax.') or m.startswith('jaxlib') or "
+            "(m.split('.')[0] == 'ast_tpu' and m not in ok)]\n"
             "assert not bad, bad\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,

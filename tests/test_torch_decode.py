@@ -139,9 +139,8 @@ def test_backtrack_rebuilds_reference_hyps(model, N, K):
     _, _, X, tp, ts = model
     enc, h0, c0 = seq2seq.encode(tp, ts, _mcfg(), torch.from_numpy(X))
     w = seq2seq.pack_decoder_weights(tp)
-    hyps, _, lens, tok, par, val, row_gaps, sel_gaps = \
-        fused_infer.beam_reference(
-            enc, h0, c0, w, N, K, STOP, trace=True)
+    hyps, _, lens, tok, par, val = fused_infer.beam_reference(
+        enc, h0, c0, w, N, K, STOP, trace=True)
     b_hyps, b_lens = fused_infer.backtrack(tok, par, val)
     np.testing.assert_array_equal(b_lens.numpy(), lens.numpy())
     for b in range(hyps.shape[0]):
@@ -149,8 +148,58 @@ def test_backtrack_rebuilds_reference_hyps(model, N, K):
             L = int(lens[b, n])
             np.testing.assert_array_equal(b_hyps[b, n, :L].numpy(),
                                           hyps[b, n, :L].numpy())
-    for g in (row_gaps[0], sel_gaps[0]):
-        assert torch.isfinite(g).all() and (g >= 0).all()
+    # the EOS bias ends every search before STOP: the streams' tail
+    assert (val[-1] == 0).all() and (tok[-1] == SYMBOLS.EOS_ID).all()
+
+
+def _decoder_inputs(model):
+    _, _, X, tp, ts = model
+    enc, h0, c0 = seq2seq.encode(tp, ts, _mcfg(), torch.from_numpy(X))
+    return enc, h0, c0, seq2seq.pack_decoder_weights(tp)
+
+
+def test_greedy_follow_scores_decodes(model):
+    """greedy_follow (chip_smoke's check of K5 on its own path) passes the
+    plain decode with zero shortfall and PAD after it, and measures a
+    token that is not the argmax."""
+    enc, h0, c0, w = _decoder_inputs(model)
+    preds = fused_infer.greedy_reference(enc, h0, c0, w, 40)
+    short, n_run = fused_infer.greedy_follow(enc, h0, c0, w, preds)
+    assert int(short.abs().max()) == 0 and 0 < n_run < 40
+    assert (preds[:, n_run:] == SYMBOLS.PAD_ID).all()
+    bad = preds.clone()
+    bad[1, 0] = (int(bad[1, 0]) + 1) % V
+    short, _ = fused_infer.greedy_follow(enc, h0, c0, w, bad)
+    assert float(short[1, 0]) > 0 and int(short[0, 0]) == 0
+
+
+@pytest.mark.parametrize("N,K", [(3, 3), (4, 2)])
+def test_beam_follow_scores_searches(model, N, K):
+    """beam_follow (chip_smoke's check of K6 on its own path) passes the
+    plain search's streams exactly, and flags a token outside the top K
+    and a candidate chosen twice."""
+    enc, h0, c0, w = _decoder_inputs(model)
+    _, scores, _, tok, par, val = fused_infer.beam_reference(
+        enc, h0, c0, w, N, K, STOP, trace=True)
+    f_scores, topk_short, sel_err, bad = fused_infer.beam_follow(
+        enc, h0, c0, w, N, K, tok, par, val)
+    assert torch.equal(f_scores, scores)
+    assert not bad.any() and float(topk_short.max()) == 0
+    assert float(sel_err.max()) == 0
+    # step 1: slot 0 continues its parent with the lowest-ranked token
+    worst = tok.clone()
+    logits = fused_infer.decode_step_reference(
+        w, enc, h0, c0, enc.new_zeros((enc.shape[0], w["ctx_w"].shape[1])),
+        torch.full((enc.shape[0],), SYMBOLS.GO_ID))[0]
+    worst[0, :, 0] = torch.argmin(logits, dim=-1).to(torch.int32)
+    _, topk_short, sel_err, _ = fused_infer.beam_follow(
+        enc, h0, c0, w, N, K, worst, par, val)
+    assert (topk_short[0] > 0).all() and (sel_err[0] > 0).all()
+    twice = tok.clone(), par.clone()
+    for a in twice:
+        a[0, :, 1] = a[0, :, 0]
+    assert fused_infer.beam_follow(enc, h0, c0, w, N, K, *twice,
+                                   val)[3][0].all()
 
 
 def test_cpu_tensors_take_the_plain_versions(model):
