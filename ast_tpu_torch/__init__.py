@@ -1,16 +1,22 @@
-"""ast_tpu_torch — the PyTorch + CUDA (Hopper) port of ast_tpu's serving path.
+"""ast_tpu_torch — the PyTorch + CUDA (Hopper) port of ast_tpu's serving
+and training paths.
 
-Loose ``(T, 13)`` feature files go through the conv front-end, the fused
-biLSTM encoder and fused greedy or beam decoding, and come out as text
-(``python -m ast_tpu_torch.cli.infer``).  Every Pallas kernel on that
-path is a hand-written CUDA kernel here (``kernels/csrc``); each sits
+Serving: loose ``(T, 13)`` feature files go through the conv front-end,
+the fused biLSTM encoder and fused greedy or beam decoding, and come out
+as text (``python -m ast_tpu_torch.cli.infer``).  Training: bucketed
+batches go through the same front-end and encoder in train mode, the
+fused scheduled-sampling decoder, a CE loss, their fused backwards and
+AMSGrad, epoch by epoch with greedy dev BLEU
+(``python -m ast_tpu_torch.cli.train``).  Every Pallas kernel on those
+paths is a hand-written CUDA kernel here (``kernels/csrc``); each sits
 beside a plain PyTorch version that CPU tensors take.
 
 The JAX package ``ast_tpu`` is the reference this port is tested
 against.  The port never imports JAX: of ``ast_tpu`` it uses only the
-two JAX-free modules ``ast_tpu.symbols`` and ``ast_tpu.config``, so an
-experiment directory means the same to both.  Parameters keep ast_tpu's
-layout and its flat-NPZ checkpoint format, so weights move both ways.
+JAX-free modules ``ast_tpu.symbols``, ``ast_tpu.config`` and
+``ast_tpu.eval.bleu``, so an experiment directory means the same to
+both.  Parameters, BN state and optimizer state keep ast_tpu's layout
+and its flat-NPZ checkpoint format, so weights and runs move both ways.
 """
 
 from ast_tpu.config import Config

@@ -3,8 +3,10 @@
 The same on-disk format as ``ast_tpu.train.checkpoint``: nested dicts
 and lists flatten to ``a/b/0/c`` keys, a list leaves ``__len__``, an
 empty dict ``__emptydict__`` and ``None`` ``__none__``.  Files are
-``seq2seq_<epoch>.model.npz`` in the experiment directory; the port
-reads ``params`` and ``state`` and ignores optimizer state and extras.
+``seq2seq_<epoch>.model.npz`` in the experiment directory.  A snapshot
+holds ``params``, BN ``state``, and from training the optimizer state
+``opt`` under the keys ``ast_tpu`` writes for it (see
+``train/optimizer.py``), so either package resumes the other's runs.
 """
 
 import os
@@ -57,9 +59,12 @@ def unflatten(flat):
     return materialize(root)
 
 
-def save_checkpoint(path, params, state):
-    """Write numpy ``params`` and BN ``state`` to ``path`` atomically."""
+def save_checkpoint(path, params, state, opt_state=None):
+    """Write numpy ``params``, BN ``state`` and, when given, the
+    optimizer state to ``path`` atomically."""
     tree = {"params": params, "state": state}
+    if opt_state is not None:
+        tree["opt"] = opt_state
     if not path.endswith(".npz"):
         path = path + ".npz"
     tmp = path[:-len(".npz")] + ".tmp.npz"
@@ -68,8 +73,9 @@ def save_checkpoint(path, params, state):
 
 
 def load_checkpoint(path):
-    """Read a snapshot -> dict with ``params`` and optional ``state``
-    (numpy leaves)."""
+    """Read a snapshot -> dict with ``params`` and optional ``state``,
+    ``opt`` and any other top-level key ``ast_tpu`` wrote, such as
+    ``extra`` (numpy leaves)."""
     if not os.path.exists(path) and os.path.exists(path + ".npz"):
         path = path + ".npz"
     with np.load(path, allow_pickle=False) as f:
@@ -80,6 +86,10 @@ def load_checkpoint(path):
             "reference checkpoints load through ast_tpu's copy_params "
             "first)")
     return unflatten(flat)
+
+
+def checkpoint_path(model_dir, epoch):
+    return os.path.join(model_dir, f"seq2seq_{epoch}.model.npz")
 
 
 _CKPT_RE = re.compile(r"seq2seq_(\d+)\.model(\.npz)?$")

@@ -25,7 +25,7 @@ from ast_tpu_torch.checkpoint import latest_checkpoint, load_checkpoint
 from ast_tpu_torch.detok import dec_i2w, get_hyps
 from ast_tpu_torch.models import seq2seq
 from ast_tpu_torch.ops import beam as beam_ops
-from ast_tpu_torch.params import from_jax_numpy
+from ast_tpu_torch.params import from_jax_numpy, torch_device
 
 AUDIO_TODO = ("audio input needs the fbank front-end and the wav/sph "
               "loader, which are not ported yet (ROADMAP.md queue 1, "
@@ -40,15 +40,6 @@ def _read_features(path):
     if x.ndim != 2:
         raise NotImplementedError(f"{path}: shape {x.shape}: {AUDIO_TODO}")
     return x
-
-
-def _device(name):
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda requested but no CUDA device is "
-                           "available (pass --device cpu for the plain "
-                           "PyTorch path)")
-    return dev
 
 
 def main(argv=None):
@@ -82,7 +73,7 @@ def main(argv=None):
                 raise ValueError
         except ValueError:
             parser.error(f"--beam expects N,K (got {args.beam!r})")
-    device = _device(args.device)
+    device = torch_device(args.device)
 
     cfg = Config(args.cfg_path)
     mcfg = cfg.model

@@ -1,6 +1,7 @@
 """Build the hand-written CUDA kernels at first use and load them.
 
-``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` into one shared
+``nvcc`` compiles every ``csrc/*.cu`` for ``sm_90a`` -- one process per
+source, all started together -- and links the objects into one shared
 library with a plain C interface, loaded through ``ctypes``.  The
 library lives in ``build/`` at the root of the checkout, named by a
 hash of the sources and flags, so an edited source rebuilds and an
@@ -19,15 +20,22 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v"]
+ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC",
+                     "-Xptxas=-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_U = ctypes.c_uint
+_F = ctypes.c_float
 # argtypes of each exported entry point (pointers and the stream as
 # c_void_p, so 64-bit addresses are never cut to an int)
 _SIGNATURES = {
     "k1_encoder_forward": [_P] * 7 + [_I] * 5 + [_P],
+    "k1_encoder_forward_train": [_P] * 10 + [_I] * 5 + [_U, _U, _F, _P],
+    "k2_encoder_backward": [_P] * 7 + [_I] * 5 + [_U, _U, _F, _P],
+    "k3_decoder_forward": [_P] * 28 + [_I] * 8 + [_U, _U, _F, _U, _F, _P],
+    "k4_decoder_backward": [_P] * 19 + [_I] * 7 + [_U, _U, _F, _U, _F, _P],
     "k5_greedy_decode": [_P] * 22 + [_I] * 8 + [_P],
     "k6_beam_decode": [_P] * 28 + [_I] * 10 + [_P],
 }
@@ -54,18 +62,38 @@ def library_path():
     so = BUILD_DIR / f"ast_tpu_torch_kernels_{h.hexdigest()[:16]}.so"
     if so.exists():
         return so
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    obj_dir = BUILD_DIR / f"{so.stem}.{os.getpid()}.obj"
+    obj_dir.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *[str(p) for p in sorted(CSRC.glob("*.cu"))]]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    jobs = []
+    for src in sorted(CSRC.glob("*.cu")):
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o",
+               str(obj_dir / f"{src.stem}.o"), str(src)]
+        jobs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    link = [nvcc, *ARCH, "-shared", "-o", str(tmp),
+            *[str(obj_dir / f"{Path(c[-1]).stem}.o") for c, _ in jobs]]
+    logs, failed = [], []
+    for cmd, proc in jobs:
+        out = proc.communicate()[0]
+        logs.append(" ".join(cmd) + "\n" + out)
+        if proc.returncode != 0:
+            failed.append(out)
+    if not failed:
+        res = subprocess.run(link, capture_output=True, text=True)
+        logs.append(" ".join(link) + "\n" + res.stdout + res.stderr)
+        if res.returncode != 0:
+            failed.append(res.stderr)
     seconds = time.perf_counter() - t0
     log = so.with_suffix(".log")
-    log.write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed (exit {res.returncode}), see "
-                           f"{log}:\n{res.stderr[-4000:]}")
+    log.write_text("\n".join(logs))
+    shutil.rmtree(obj_dir, ignore_errors=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed, see {log}:\n"
+                           + "\n".join(f[-4000:] for f in failed))
     os.replace(tmp, so)
     last_build.update(seconds=seconds, path=str(so), log=str(log))
     return so

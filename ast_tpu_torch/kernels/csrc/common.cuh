@@ -1,12 +1,13 @@
 // Shared declarations of the hand-written Hopper kernels (sm_90a).
 //
 // The per-step building blocks live in step_kernels.cu: an LSTM cell
-// step with its gate math fused into the epilogue, a row-wise linear
-// layer, and Luong attention of each row against its own encoder rows.
-// k1_encoder.cu, k5_greedy.cu and k6_beam.cu drive them from a host-side
-// time loop and add the decode-specific kernels (argmax, top-K, beam
-// selection, parent gather).  Everything is float32 with FMA
-// accumulation; no library GEMM is called.
+// step with its gate math fused into the epilogue (and, for training,
+// hash dropout and the residual streams), the elementwise LSTM cell
+// backward, a row-wise linear layer, and Luong attention of each row
+// against its own encoder rows.  k1_encoder.cu, k2_encoder_bwd.cu,
+// k3_decoder_fwd.cu, k4_decoder_bwd.cu, k5_greedy.cu and k6_beam.cu drive
+// them from a host-side time loop and add their own small kernels.
+// Everything is float32 with FMA accumulation; no library GEMM is called.
 //
 // Every exported entry point launches on the caller's stream, never
 // synchronises, allocates nothing, and returns cudaGetLastError() as an
@@ -14,6 +15,7 @@
 #pragma once
 
 #include <cuda_runtime.h>
+#include <math.h>
 
 #define AST_EXPORT extern "C" __attribute__((visibility("default")))
 
@@ -29,6 +31,76 @@ constexpr float NEG_INF = -1e30f;
 constexpr int PAD_ID = 0;
 constexpr int GO_ID = 1;
 constexpr int EOS_ID = 2;
+constexpr unsigned FULL_MASK = 0xffffffffu;
+
+// The counter hash of ast_tpu's dropout (ops/fused_lstm.py _drop_mask),
+// in uint32: an element with flat index `flat` is kept when
+// drop_hash(flat, seed) >= int(rate * 2**32).
+static __device__ __forceinline__ unsigned drop_hash(unsigned flat,
+                                                     unsigned seed) {
+  unsigned x = flat + seed * 2654435761u;
+  x ^= x >> 16;
+  x *= 0x7FEB352Du;
+  x ^= x >> 15;
+  x *= 0x846CA68Bu;
+  x ^= x >> 16;
+  return x;
+}
+
+static __device__ __forceinline__ float warp_max(float v) {
+  for (int o = 16; o > 0; o >>= 1)
+    v = fmaxf(v, __shfl_xor_sync(FULL_MASK, v, o));
+  return v;
+}
+
+static __device__ __forceinline__ float warp_sum(float v) {
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL_MASK, v, o);
+  return v;
+}
+
+// Row argmax by one warp: the largest of x[0 .. V-1], ties to the lowest
+// index, in every lane; 0 for an all-NaN row, so a gather by it stays in
+// bounds.
+static __device__ __forceinline__ int warp_argmax(const float* x, int V) {
+  const int lane = threadIdx.x & 31;
+  float bv = -INFINITY;
+  int bi = 0x7fffffff;
+  for (int v = lane; v < V; v += 32) {
+    const float xv = x[v];
+    if (xv > bv) {
+      bv = xv;
+      bi = v;
+    }
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    const float ov = __shfl_xor_sync(FULL_MASK, bv, o);
+    const int oi = __shfl_xor_sync(FULL_MASK, bi, o);
+    if (ov > bv || (ov == bv && oi < bi)) {
+      bv = ov;
+      bi = oi;
+    }
+  }
+  return bi < V ? bi : 0;
+}
+
+// Block-wide max or sum; every thread gets the result.  red: 32 floats
+// of shared memory.
+static __device__ __forceinline__ float block_reduce(float v, bool is_max,
+                                                     float* red) {
+  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
+  const int nw = (blockDim.x + 31) >> 5;
+  v = is_max ? warp_max(v) : warp_sum(v);
+  __syncthreads();
+  if (lane == 0) red[w] = v;
+  __syncthreads();
+  if (w == 0) {
+    v = lane < nw ? red[lane] : (is_max ? -INFINITY : 0.f);
+    v = is_max ? warp_max(v) : warp_sum(v);
+    if (lane == 0) red[0] = v;
+  }
+  __syncthreads();
+  return red[0];
+}
 
 // One input segment of a row-wise product.  Row r of the segment is
 // src + g * g_stride + row(r) * K, with row(r) = idx ? idx[r] : r and g
@@ -59,12 +131,50 @@ struct CellArgs {
   const int* done;               // skip the launch when *done != 0
 };
 
-// out = act([xa | xb] @ w + bias), act = tanh or identity.
+// The train mode of an LSTM step (a separate kernel, so the eval launch
+// is unchanged): acts_out (R, 4H) gets the post-activation gates
+// [i|f|g|o]; the output x = dropout(h) goes to x_out and, instead of h,
+// to y_out.  Hash dropout when threshold != 0: element (g, r, j) is kept
+// when drop_hash(g * mask_g + r * H + j, seed) >= threshold, and then
+// x = h * keep_scale, or h / keep_scale with drop_div (the decoder).
+struct CellTrain {
+  float* acts_out; long acts_g;  // (R, 4H) or nullptr
+  float* x_out; long x_g;        // (R, H) or nullptr
+  unsigned seed, threshold;
+  float keep_scale;
+  int drop_div;
+  long mask_g;
+};
+
+// Backward of one LSTM cell step, elementwise over (R, H) in each of
+// gridDim.y groups (ast_tpu/ops/fused_lstm.py _bwd_kernel's gate
+// backward):  cons = dropout(cons) (the same mask as the forward, kept
+// values times keep_scale), dh = dh_carry + cons,
+//   dc = dc + dh * o * (1 - tanh(c)^2),  dz = [dc g i(1-i) |
+//   dc c_prev f(1-f) | dc i (1-g^2) | dh tanh(c) o(1-o)],  dc <- dc * f.
+// cons and dh are read from rows of `ld` floats (column 0 .. H-1).
+struct CellBwdArgs {
+  const float* cons; long cons_g; int cons_ld;  // nullptr = 0
+  const float* dh; long dh_g; int dh_ld;
+  const float* acts; long acts_g;     // (R, 4H)
+  const float* c_new; long c_g;       // (R, H)
+  const float* c_prev; long cp_g;     // (R, H); nullptr = 0
+  float* dc; long dc_g;               // (R, H) carry, in place
+  float* dz; long dz_g;               // (R, 4H)
+  unsigned seed, threshold;
+  float keep_scale;
+  long mask_g;
+  int R, H;
+};
+
+// out = act([xa | xb] @ w + bias), act = tanh or identity.  With several
+// groups, group g reads its segments at g * g_stride and w + g * w_g, and
+// writes out + g * out_g.
 struct LinearArgs {
   Seg xa, xb;
-  const float* w;     // (xa.K + xb.K, N)
-  const float* bias;  // (N)
-  float* out;         // (R, N)
+  const float* w; long w_g;      // (xa.K + xb.K, N)
+  const float* bias;             // (N) or nullptr
+  float* out; long out_g;        // (R, N)
   int R, N;
   int act_tanh;
   const int* done;
@@ -101,12 +211,22 @@ struct DecoderStep {
   float* logits;       // (R, V)
 };
 
-cudaError_t launch_lstm_cell(const CellArgs& a, int groups, cudaStream_t s);
-cudaError_t launch_linear(const LinearArgs& a, cudaStream_t s);
+// With `train`, the train-mode kernel (see CellTrain).
+cudaError_t launch_lstm_cell(const CellArgs& a, int groups, cudaStream_t s,
+                             const CellTrain* train = nullptr);
+cudaError_t launch_lstm_cell_bwd(const CellBwdArgs& a, int groups,
+                                 cudaStream_t s);
+cudaError_t launch_linear(const LinearArgs& a, cudaStream_t s,
+                          int groups = 1);
 // cv[r] = softmax(enc[r / rows_per_utt] @ q[r]) @ enc[r / rows_per_utt]
 cudaError_t launch_attention(const float* enc, const float* q, float* cv,
                              int R, int rows_per_utt, int T, int H,
                              const int* done, cudaStream_t s);
+// The same for rows_per_utt 1, also writing the softmax weights to
+// alphas (R, T).
+cudaError_t launch_attention_alphas(const float* enc, const float* q,
+                                    float* cv, float* alphas, int R, int T,
+                                    int H, cudaStream_t s);
 // One decoder step for R rows: embedding gather + input feeding, the
 // L-layer LSTM stack, attention, ht = tanh(ctx([cv; h])), logits.
 cudaError_t decoder_step(const DecoderWeights& w, const float* enc, int T,

@@ -16,9 +16,6 @@
 // replaces the host's early exit: every kernel of a step reads it and
 // returns at once after the last row's EOS, so the host loop never
 // synchronises.
-#include <limits.h>
-#include <math.h>
-
 #include "common.cuh"
 
 namespace {
@@ -36,25 +33,7 @@ __global__ void greedy_argmax_kernel(const float* logits, int B, int V,
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
   for (int r = w; r < B; r += nw) {
-    const float* x = logits + (long)r * V;
-    float bv = -INFINITY;
-    int bi = INT_MAX;
-    for (int v = lane; v < V; v += 32) {
-      const float xv = x[v];
-      if (xv > bv) {
-        bv = xv;
-        bi = v;
-      }
-    }
-    for (int o = 16; o > 0; o >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
-      const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
-      if (ov > bv || (ov == bv && oi < bi)) {
-        bv = ov;
-        bi = oi;
-      }
-    }
-    if (bi >= V) bi = 0;  // all-NaN row: keep the next gather in bounds
+    const int bi = ast::warp_argmax(logits + (long)r * V, V);
     if (lane == 0) {
       tok_out[r] = bi;
       tok_in[r] = bi;

@@ -1,9 +1,11 @@
-// Per-step building blocks shared by the encoder (K1), greedy (K5) and
-// beam (K6) kernels: the LSTM cell step, the row-wise linear layer and
-// Luong attention.
+// Per-step building blocks shared by the encoder (K1, K2), decoder
+// training (K3, K4), greedy (K5) and beam (K6) kernels: the LSTM cell
+// step, its elementwise backward, the row-wise linear layer and Luong
+// attention.
 //
 // Replaces the in-kernel products of ast_tpu/ops/fused_lstm.py
-// (_fwd_kernel) and ast_tpu/ops/fused_infer.py (_lstm_stack, _step_core,
+// (_fwd_kernel, _bwd_kernel), ast_tpu/ops/fused_decoder.py (_fwd_kernel,
+// _bwd_kernel) and ast_tpu/ops/fused_infer.py (_lstm_stack, _step_core,
 // _context_out).  On the TPU those kernels kept all weights in one core's
 // VMEM for the whole sequence; here blocks run in parallel, so each
 // kernel covers one (step, layer) or one step phase, and the time loop
@@ -26,7 +28,9 @@
 // w finishes row w.  Attention scores TU = 4 encoder rows per warp at a
 // time, for independent load streams.  Weight loads are coalesced along
 // the column axis.  No tensor cores yet (f32 FMA); wgmma/TMA tiling is
-// later work.
+// later work.  A backward product x @ W^T runs as the same linear layer
+// on a transposed copy of W that the wrapper makes once per call, so its
+// weight loads stay coalesced.
 #include <math.h>
 
 #include "common.cuh"
@@ -37,7 +41,6 @@ namespace {
 constexpr int KSPLIT = 16;  // warps per block, splitting the input axis
 constexpr int COLS = 32;    // output columns per block, one per lane
 constexpr int THREADS = COLS * KSPLIT;
-constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float sigmoidf(float x) {
   return 1.f / (1.f + expf(-x));
@@ -116,8 +119,11 @@ size_t smem_bytes(int k_total) {
   return (in > red ? in : red) * sizeof(float);
 }
 
-template <int ROWS>
-__global__ void __launch_bounds__(THREADS) lstm_cell_kernel(CellArgs a) {
+// The LSTM step; TRAIN adds the residual stores and dropout of CellTrain
+// to the epilogue.
+template <int ROWS, bool TRAIN>
+__device__ __forceinline__ void lstm_cell_body(const CellArgs& a,
+                                               const CellTrain& tr) {
   if (a.done && *a.done) return;
   extern __shared__ float smem[];
   const int g = blockIdx.z, H = a.H;
@@ -160,31 +166,92 @@ __global__ void __launch_bounds__(THREADS) lstm_cell_kernel(CellArgs a) {
   const float h = og * tanhf(c);
   a.c_out[ci] = c;
   a.h_out[g * a.h_g + (long)r * H + j] = h;
-  if (a.y_out) a.y_out[g * a.y_g + (long)r * H + j] = h;
+  float x = h;
+  if constexpr (TRAIN) {
+    if (tr.acts_out) {
+      float* ao = tr.acts_out + g * tr.acts_g + (long)r * H4 + j;
+      ao[0] = ig;
+      ao[H] = fg;
+      ao[2 * H] = gg;
+      ao[3 * H] = og;
+    }
+    if (tr.threshold) {
+      const unsigned flat = (unsigned)(g * tr.mask_g + (long)r * H + j);
+      x = drop_hash(flat, tr.seed) < tr.threshold ? 0.f
+          : tr.drop_div ? h / tr.keep_scale : h * tr.keep_scale;
+    }
+    if (tr.x_out) tr.x_out[g * tr.x_g + (long)r * H + j] = x;
+  }
+  if (a.y_out) a.y_out[g * a.y_g + (long)r * H + j] = x;
 }
 
 template <int ROWS>
+__global__ void __launch_bounds__(THREADS) lstm_cell_kernel(CellArgs a) {
+  lstm_cell_body<ROWS, false>(a, CellTrain{});
+}
+
+template <int ROWS>
+__global__ void __launch_bounds__(THREADS)
+    lstm_cell_train_kernel(CellArgs a, CellTrain tr) {
+  lstm_cell_body<ROWS, true>(a, tr);
+}
+
+// One thread per (row, unit) of one group (blockIdx.y).
+__global__ void lstm_cell_bwd_kernel(CellBwdArgs a) {
+  const int g = blockIdx.y, H = a.H;
+  const long idx = (long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (long)a.R * H) return;
+  const int r = (int)(idx / H), j = (int)(idx % H);
+  const long H4 = 4L * H;
+  float cons = a.cons ? a.cons[g * a.cons_g + (long)r * a.cons_ld + j] : 0.f;
+  if (a.threshold) {
+    const unsigned flat = (unsigned)(g * a.mask_g + (long)r * H + j);
+    cons = drop_hash(flat, a.seed) < a.threshold ? 0.f : cons * a.keep_scale;
+  }
+  const float dh = a.dh[g * a.dh_g + (long)r * a.dh_ld + j] + cons;
+  const float* ac = a.acts + g * a.acts_g + (long)r * H4 + j;
+  const float ig = ac[0], fg = ac[H], gg = ac[2 * H], og = ac[3 * H];
+  const float tc = tanhf(a.c_new[g * a.c_g + (long)r * H + j]);
+  const float cp = a.c_prev ? a.c_prev[g * a.cp_g + (long)r * H + j] : 0.f;
+  float* dcp = a.dc + g * a.dc_g + (long)r * H + j;
+  const float dc = *dcp + dh * og * (1.f - tc * tc);
+  *dcp = dc * fg;
+  float* dz = a.dz + g * a.dz_g + (long)r * H4 + j;
+  dz[0] = dc * gg * ig * (1.f - ig);
+  dz[H] = dc * cp * fg * (1.f - fg);
+  dz[2 * H] = dc * ig * (1.f - gg * gg);
+  dz[3 * H] = dh * tc * og * (1.f - og);
+}
+
+// The row-wise linear layer; GROUPED runs group blockIdx.z at the strides
+// of LinearArgs.  The group index is a template flag, not read at run
+// time for one group: that read alone cost the decoders' one-group
+// launches 0.5 % (K5 / K6 on the H100).
+template <int ROWS, bool GROUPED>
 __global__ void __launch_bounds__(THREADS) linear_kernel(LinearArgs a) {
   if (a.done && *a.done) return;
   extern __shared__ float smem[];
+  const int g = GROUPED ? blockIdx.z : 0;
   const int n = blockIdx.x * COLS + threadIdx.x;
   const int r0 = blockIdx.y * ROWS;
   const int ka = a.xa.K, kb = a.xb.src ? a.xb.K : 0;
   const int ld = ka + kb;
-  stage<ROWS>(smem, ld, 0, a.xa, 0, r0, a.R);
-  stage<ROWS>(smem, ld, ka, a.xb, 0, r0, a.R);
+  stage<ROWS>(smem, ld, 0, a.xa, g, r0, a.R);
+  stage<ROWS>(smem, ld, ka, a.xb, g, r0, a.R);
   __syncthreads();
   float acc[ROWS][1];
 #pragma unroll
   for (int rr = 0; rr < ROWS; ++rr) acc[rr][0] = 0.f;
-  if (n < a.N) accumulate<ROWS, 1>(acc, smem, ld, 0, ld, a.w, a.N, 0, n);
+  if (n < a.N)
+    accumulate<ROWS, 1>(acc, smem, ld, 0, ld, a.w + g * a.w_g, a.N, 0, n);
   float v[1];
   reduce_split<ROWS, 1>(acc, smem, v);
   const int r = r0 + threadIdx.y;
   if (threadIdx.y >= ROWS || n >= a.N || r >= a.R) return;
-  float y = v[0] + a.bias[n];
+  float y = v[0];
+  if (a.bias) y += a.bias[n];
   if (a.act_tanh) y = tanhf(y);
-  a.out[(long)r * a.N + n] = y;
+  a.out[g * a.out_g + (long)r * a.N + n] = y;
 }
 
 // Rows per block: 8 (each weight load serves 8 rows) when that still
@@ -201,50 +268,27 @@ bool few_blocks(long col_blocks, int R, int groups) {
 
 // Launch kernel<ROWS> with `bytes` of dynamic shared memory, opting in
 // above the 48 KB default.
-template <typename Kernel, typename Args>
-cudaError_t launch(Kernel kernel, dim3 grid, size_t bytes, const Args& a,
-                   cudaStream_t s) {
+template <typename Kernel, typename... Args>
+cudaError_t launch(Kernel kernel, dim3 grid, size_t bytes, cudaStream_t s,
+                   const Args&... args) {
   if (bytes > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
     if (e != cudaSuccess) return e;
   }
-  kernel<<<grid, dim3(COLS, KSPLIT), bytes, s>>>(a);
+  kernel<<<grid, dim3(COLS, KSPLIT), bytes, s>>>(args...);
   return cudaGetLastError();
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(FULL, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(FULL, v, o);
-  return v;
-}
-
-// Block-wide max or sum; every thread gets the result.  red: 32 floats.
-__device__ float block_reduce(float v, bool is_max, float* red) {
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int nw = (blockDim.x + 31) >> 5;
-  v = is_max ? warp_max(v) : warp_sum(v);
-  __syncthreads();
-  if (lane == 0) red[w] = v;
-  __syncthreads();
-  if (w == 0) {
-    v = lane < nw ? red[lane] : (is_max ? -INFINITY : 0.f);
-    v = is_max ? warp_max(v) : warp_sum(v);
-    if (lane == 0) red[0] = v;
-  }
-  __syncthreads();
-  return red[0];
-}
-
 // One block per row r: scores over its utterance's T encoder rows,
-// softmax, and the context vector.  Dynamic shared memory: H + T floats.
-__global__ void attention_kernel(const float* enc, const float* q, float* cv,
-                                 int R, int per, int T, int H,
-                                 const int* done) {
+// softmax (into alphas with ALPHAS), and the context vector.  Dynamic
+// shared memory: H + T floats.
+template <bool ALPHAS>
+__device__ __forceinline__ void attention_body(const float* enc,
+                                               const float* q, float* cv,
+                                               int per, int T, int H,
+                                               const int* done,
+                                               float* alphas) {
   if (done && *done) return;
   extern __shared__ float sm[];
   __shared__ float red[32];
@@ -287,6 +331,9 @@ __global__ void attention_kernel(const float* enc, const float* q, float* cv,
   }
   sum = block_reduce(sum, false, red);  // its barriers publish p[]
   const float inv = 1.f / sum;
+  if constexpr (ALPHAS)
+    for (int t = threadIdx.x; t < T; t += blockDim.x)
+      alphas[(long)r * T + t] = p[t] * inv;
   for (int h = threadIdx.x; h < H; h += blockDim.x) {
     float acc[TU] = {};
     int t = 0;
@@ -300,28 +347,58 @@ __global__ void attention_kernel(const float* enc, const float* q, float* cv,
   }
 }
 
+__global__ void attention_kernel(const float* enc, const float* q, float* cv,
+                                 int R, int per, int T, int H,
+                                 const int* done) {
+  attention_body<false>(enc, q, cv, per, T, H, done, nullptr);
+}
+
+__global__ void attention_alphas_kernel(const float* enc, const float* q,
+                                        float* cv, float* alphas, int T,
+                                        int H) {
+  attention_body<true>(enc, q, cv, 1, T, H, nullptr, alphas);
+}
+
 constexpr int ATTN_THREADS = 512;
 
 }  // namespace
 
-cudaError_t launch_lstm_cell(const CellArgs& a, int groups, cudaStream_t s) {
+cudaError_t launch_lstm_cell(const CellArgs& a, int groups, cudaStream_t s,
+                             const CellTrain* train) {
   const int col_blocks = (a.H + COLS - 1) / COLS;
   const int k_total = (a.xa.src ? a.xa.K : 0) + (a.xb.src ? a.xb.K : 0) + a.H;
-  if (few_blocks(col_blocks, a.R, groups))
-    return launch(lstm_cell_kernel<4>, dim3(col_blocks, (a.R + 3) / 4, groups),
-                  smem_bytes<4, 4>(k_total), a, s);
-  return launch(lstm_cell_kernel<8>, dim3(col_blocks, (a.R + 7) / 8, groups),
-                smem_bytes<8, 4>(k_total), a, s);
+  const bool four = few_blocks(col_blocks, a.R, groups);
+  const dim3 grid(col_blocks, four ? (a.R + 3) / 4 : (a.R + 7) / 8, groups);
+  const size_t bytes = four ? smem_bytes<4, 4>(k_total)
+                            : smem_bytes<8, 4>(k_total);
+  if (train)
+    return four ? launch(lstm_cell_train_kernel<4>, grid, bytes, s, a, *train)
+                : launch(lstm_cell_train_kernel<8>, grid, bytes, s, a, *train);
+  return four ? launch(lstm_cell_kernel<4>, grid, bytes, s, a)
+              : launch(lstm_cell_kernel<8>, grid, bytes, s, a);
 }
 
-cudaError_t launch_linear(const LinearArgs& a, cudaStream_t s) {
+cudaError_t launch_lstm_cell_bwd(const CellBwdArgs& a, int groups,
+                                 cudaStream_t s) {
+  constexpr int kThreads = 256;
+  const long n = (long)a.R * a.H;
+  lstm_cell_bwd_kernel<<<dim3((unsigned)((n + kThreads - 1) / kThreads),
+                              groups), kThreads, 0, s>>>(a);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_linear(const LinearArgs& a, cudaStream_t s, int groups) {
   const int col_blocks = (a.N + COLS - 1) / COLS;
   const int k_total = a.xa.K + (a.xb.src ? a.xb.K : 0);
-  if (few_blocks(col_blocks, a.R, 1))
-    return launch(linear_kernel<4>, dim3(col_blocks, (a.R + 3) / 4),
-                  smem_bytes<4, 1>(k_total), a, s);
-  return launch(linear_kernel<8>, dim3(col_blocks, (a.R + 7) / 8),
-                smem_bytes<8, 1>(k_total), a, s);
+  const bool four = few_blocks(col_blocks, a.R, groups);
+  const dim3 grid(col_blocks, four ? (a.R + 3) / 4 : (a.R + 7) / 8, groups);
+  const size_t bytes = four ? smem_bytes<4, 1>(k_total)
+                            : smem_bytes<8, 1>(k_total);
+  if (groups > 1)
+    return four ? launch(linear_kernel<4, true>, grid, bytes, s, a)
+                : launch(linear_kernel<8, true>, grid, bytes, s, a);
+  return four ? launch(linear_kernel<4, false>, grid, bytes, s, a)
+              : launch(linear_kernel<8, false>, grid, bytes, s, a);
 }
 
 cudaError_t launch_attention(const float* enc, const float* q, float* cv,
@@ -330,6 +407,15 @@ cudaError_t launch_attention(const float* enc, const float* q, float* cv,
   const size_t smem = (size_t)(H + T) * sizeof(float);
   attention_kernel<<<R, ATTN_THREADS, smem, s>>>(enc, q, cv, R, rows_per_utt,
                                                  T, H, done);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_attention_alphas(const float* enc, const float* q,
+                                    float* cv, float* alphas, int R, int T,
+                                    int H, cudaStream_t s) {
+  const size_t smem = (size_t)(H + T) * sizeof(float);
+  attention_alphas_kernel<<<R, ATTN_THREADS, smem, s>>>(enc, q, cv, alphas,
+                                                        T, H);
   return cudaGetLastError();
 }
 

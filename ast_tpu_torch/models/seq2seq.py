@@ -1,20 +1,27 @@
-"""Speech encoder-decoder with Luong attention, decode path.
+"""Speech encoder-decoder with Luong attention: decode path and the
+training loss.
 
-The counterpart of ``ast_tpu/models/seq2seq.py`` for serving: conv
-front-end -> direction-stacked biLSTM encoder (K1) -> greedy (K5) or beam
-(K6) decoding.  Parameters are nested dicts of float32 tensors in
-ast_tpu's layout (see ``ast_tpu_torch.params``).
+The counterpart of ``ast_tpu/models/seq2seq.py``: conv front-end ->
+direction-stacked biLSTM encoder (K1) -> greedy (K5) or beam (K6)
+decoding, and for training the scheduled-sampling decoder (K3) with the
+PAD-masked cross-entropy, differentiable through K2 and K4.  Parameters
+are nested dicts of float32 tensors in ast_tpu's layout (see
+``ast_tpu_torch.params``).
 """
+
+import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 
 from ast_tpu.symbols import SYMBOLS
 from ast_tpu_torch.ops.cnn import conv_frontend
+from ast_tpu_torch.ops.fused_decoder import W_NAMES, FusedDecoder
 from ast_tpu_torch.ops.fused_infer import (
     greedy_decode_fused, require_decode_variant)
 from ast_tpu_torch.ops.fused_lstm import (
-    fused_stacked_lstm, pack_encoder_weights)
+    FusedStackedLSTM, fused_stacked_lstm, pack_encoder_weights)
 from ast_tpu_torch.params import from_jax_numpy
 
 
@@ -78,16 +85,17 @@ def init_model(mcfg, seed=0, device="cpu"):
     return from_jax_numpy(params, state, device)
 
 
-def encoder_inputs(params, state, mcfg, X):
+def encoder_inputs(params, state, mcfg, X, train=False):
     """Conv front-end, direction stacking and the hoisted layer-0
     projection: everything of :func:`encode` before the K1 recurrence.
 
     X: (B, T, D) float32.  Returns the arguments of
-    ``fused_stacked_lstm``: (x0_proj (T', 2, B, 4H_e), wx_rest, wh, b)."""
+    ``fused_stacked_lstm``: (x0_proj (T', 2, B, 4H_e), wx_rest, wh, b);
+    with ``train`` (batch-statistics BatchNorm) also the new BN state."""
     require_decode_variant(mcfg)
     rnn = mcfg["rnn_config"]
-    h_cnn = conv_frontend(params["cnn"], state["cnn_bn"], mcfg["cnn_config"],
-                          X)
+    h_cnn, cnn_state = conv_frontend(params["cnn"], state["cnn_bn"],
+                                     mcfg["cnn_config"], X, train)
     seq = h_cnn.transpose(0, 1)                          # (T', B, C)
     if rnn.get("ref_rev_quirk", False):
         # the reference's reverse stack consumes X[-i]:
@@ -99,7 +107,11 @@ def encoder_inputs(params, state, mcfg, X):
     layers = params["enc"]["lstm"]
     # hoisted layer-0 projection: one large matmul for every step
     x0_proj = torch.matmul(xs, layers[0]["wx"]).contiguous()
-    return (x0_proj,) + pack_encoder_weights(layers)
+    out = (x0_proj,) + pack_encoder_weights(layers)
+    if train:
+        return out + ({"cnn_bn": cnn_state,
+                       "enc_proj_bn": state["enc_proj_bn"]},)
+    return out
 
 
 def encoder_outputs(outs, h_fin, c_fin):
@@ -152,3 +164,81 @@ def predict_greedy(params, state, mcfg, X, stop_limit):
     per_row = torch.where(is_eos.any(dim=1),
                           is_eos.int().argmax(dim=1) + 1, stop_limit)
     return preds, per_row.max().to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# training
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Draws:
+    """The random numbers of one training step, made outside the model so
+    that a test can hand ``ast_tpu`` and the port the same ones.
+
+    noise: X-shaped ``speech_noise * N(0, 1)`` (None without noise);
+    enc_seed / dec_seed: dropout hash seeds, ints in [0, 2**31 - 1);
+    coins: (U-1,) int32 on X's device, 1 = teacher-forced, first and
+    last steps forced."""
+    noise: Optional[torch.Tensor]
+    enc_seed: int
+    dec_seed: int
+    coins: torch.Tensor
+
+
+def make_draws(seed, X, steps, teach_ratio, add_noise):
+    """Draws for one step from an int ``seed``: the noise from a
+    generator on X's device, the seeds and coins from one on the host
+    (no device sync), so a run is deterministic on one device."""
+    host = torch.Generator().manual_seed(seed)
+    noise = None
+    if add_noise > 0:
+        dev = torch.Generator(device=X.device).manual_seed(seed)
+        noise = add_noise * torch.randn(X.shape, generator=dev,
+                                        device=X.device)
+    enc_seed, dec_seed = torch.randint(0, 2 ** 31 - 1, (2,),
+                                       generator=host).tolist()
+    idx = torch.arange(steps)
+    coins = ((idx == 0) | (idx >= steps - 1)
+             | (torch.rand(steps, generator=host) < teach_ratio))
+    return Draws(noise, enc_seed, dec_seed,
+                 coins.to(torch.int32).to(X.device))
+
+
+def encode_train(params, state, mcfg, X, draws):
+    """Conv front-end + stacked biLSTM encoder in train mode: speech
+    noise, batch-statistics BatchNorm, hash dropout seeded by
+    ``draws.enc_seed`` (K1 forward, K2 backward).
+    Returns (enc_states, dec_h0, dec_c0, new_state)."""
+    if draws.noise is not None:
+        X = X * (1.0 + draws.noise)
+    x0_proj, wx_rest, wh, b, new_state = encoder_inputs(
+        params, state, mcfg, X, train=True)
+    out = FusedStackedLSTM.apply(x0_proj, wx_rest, wh, b, draws.enc_seed,
+                                 True, float(mcfg["dropout"]["rnn"]))
+    return encoder_outputs(*out) + (new_state,)
+
+
+def sequence_loss(ht, out_w, out_b, target, n_real):
+    """One (U*B, A) @ (A, V) logits GEMM, log-softmax and the PAD-masked
+    cross-entropy summed over steps and rows, divided by ``n_real``."""
+    logp = torch.log_softmax(torch.matmul(ht, out_w) + out_b, dim=-1)
+    nll = -logp.gather(-1, target[..., None].long())[..., 0]
+    return (nll * (target != SYMBOLS.PAD_ID)).sum() / n_real
+
+
+def forward_loss(params, state, mcfg, X, y, n_real, draws):
+    """Scheduled-sampling sequence loss (``ast_tpu``'s ``forward_loss``,
+    train mode, fused path).  X (B, T, D); y (B, U) int targets with
+    GO / EOS, PAD-padded; n_real the true rows.  Returns (loss,
+    new_state)."""
+    enc, h0, c0, new_state = encode_train(params, state, mcfg, X, draws)
+    drop = mcfg["dropout"]
+    w = pack_decoder_weights(params)
+    yT = y.t()
+    y_in = yT[:-1].to(torch.int32).contiguous()
+    ht, _ = FusedDecoder.apply(
+        enc, h0, c0, *(w[k] for k in W_NAMES), y_in, draws.coins,
+        draws.dec_seed, float(drop["embed"]), float(drop["rnn"]))
+    dec = params["dec"]
+    loss = sequence_loss(ht, dec["out_w"], dec["out_b"], yT[1:], n_real)
+    return loss, new_state

@@ -1,14 +1,18 @@
-"""Conv front-end in eval mode, in its im2col form.
+"""Conv front-end in its im2col form.
 
 The counterpart of ``ast_tpu/ops/cnn.py`` ``_conv_frontend_matmul``:
 each layer is a window gather of ``kh`` strided time slices followed by
-one ``(B*T', kh*C_in) @ (kh*C_in, C_out)`` matmul, then BatchNorm on the
-running statistics (eps 2e-5) and ReLU.  Weights stay OIHW.  This stage
-is plain PyTorch: it has no Pallas counterpart on the TPU either.
+one ``(B*T', kh*C_in) @ (kh*C_in, C_out)`` matmul, then BatchNorm (eps
+2e-5) and ReLU.  In eval mode BatchNorm uses the running statistics; in
+train mode the batch statistics over all ``B*T'`` rows (padding
+included, population variance), and the running statistics move with
+decay 0.9.  Weights stay OIHW.  This stage is plain PyTorch with
+autograd: it has no Pallas counterpart on the TPU either.
 """
 
 import torch
 
+BN_DECAY = 0.9
 BN_EPS = 2e-5
 
 
@@ -27,14 +31,17 @@ def im2col_eligible(cnn_config, in_dim):
                for l in layers[1:])
 
 
-def conv_frontend(params, state, cnn_config, X):
-    """X: (B, T, D) float32 -> (B, T', C_out), eval mode."""
+def conv_frontend(params, state, cnn_config, X, train=False):
+    """X: (B, T, D) float32 -> ((B, T', C_out), new BN state).  The new
+    state is the old one in eval mode; in train mode it holds the moved
+    running statistics (detached: they take no gradient)."""
     if not im2col_eligible(cnn_config, X.shape[-1]):
         raise NotImplementedError(
             "conv front-end: only the im2col-eligible layer family "
             "(feature axis collapsed by layer 0, 1-D later layers) is "
             "ported")
     h = X
+    new_state = []
     for i, (p, s, layer) in enumerate(zip(params, state,
                                           cnn_config["cnn_layers"])):
         if layer.get("max_pool") or layer.get("leaky_relu"):
@@ -54,12 +61,22 @@ def conv_frontend(params, state, cnn_config, X):
             w2 = w[..., 0].permute(2, 1, 0).reshape(-1, w.shape[0])
         out = torch.matmul(win, w2)
         if "bn_gamma" in p:
-            out = (out - s["bn_mean"]) * torch.rsqrt(s["bn_var"] + BN_EPS)
+            if train:
+                mean = out.mean(dim=(0, 1))
+                var = out.var(dim=(0, 1), correction=0)
+                s = {"bn_mean": (BN_DECAY * s["bn_mean"]
+                                 + (1 - BN_DECAY) * mean).detach(),
+                     "bn_var": (BN_DECAY * s["bn_var"]
+                                + (1 - BN_DECAY) * var).detach()}
+            else:
+                mean, var = s["bn_mean"], s["bn_var"]
+            out = (out - mean) * torch.rsqrt(var + BN_EPS)
             out = out * p["bn_gamma"] + p["bn_beta"]
         else:
             out = out + p["b"]
+        new_state.append(s)
         h = torch.relu(out)
-    return h
+    return h, new_state
 
 
 def conv_out_len(cnn_config, t):

@@ -45,6 +45,40 @@ def require_decode_variant(mcfg):
             "'the variants the gate refuses')")
 
 
+def require_train_variant(mcfg, train_cfg):
+    """The gate of the ported training path: the decode gate's variant,
+    plus the options the fused train kernels and the ported trainer
+    implement (no output dropout -- ``seq2seq.py``'s fused-decoder
+    condition --, float32, one step per dispatch, host-fed precomputed
+    features).  ``train_cfg`` is ``Config(...).train``.  Raises
+    NotImplementedError for anything else, on every device."""
+    require_decode_variant(mcfg)
+    extras, opt = train_cfg["extras"], train_cfg["optimizer"]
+    data = train_cfg["data"]
+    refused = [name for name, bad in (
+        ("dropout.out", mcfg["dropout"].get("out", 0) > 0),
+        ("random_out", extras.get("random_out", 0) > 0),
+        ("label_smoothing", extras.get("label_smoothing", 0) > 0),
+        ("spec_augment", bool(data.get("spec_augment"))),
+        ("weight_noise_iter", bool(extras.get("weight_noise_iter", 0))),
+        ("grad_noise_eta", opt.get("grad_noise_eta", 0) > 0),
+        ("moments_dtype", bool(opt.get("moments_dtype"))),
+        ("compute_dtype", extras.get("compute_dtype",
+                                     "float32") != "float32"),
+        ("steps_per_dispatch", int(extras.get("steps_per_dispatch", 1))
+         != 1),
+        ("hbm_cache", bool(extras.get("hbm_cache", False))),
+        ("transfer_dtype", extras.get("transfer_dtype",
+                                      "float32") != "float32"),
+        ("wav features", data.get("features", "precomputed") == "wav"),
+    ) if bad]
+    if refused:
+        raise NotImplementedError(
+            f"ast_tpu_torch trains only the variant its kernels implement; "
+            f"not ported: {', '.join(refused)} (see ROADMAP.md queue 1, "
+            f"'training options not ported')")
+
+
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
@@ -281,7 +315,7 @@ _WEIGHT_ORDER = ("embed", "wx0", "wx_rest", "wh", "b", "wa", "wa_b",
                  "ctx_w", "ctx_b", "out_w", "out_b")
 
 
-def _check_inputs(enc, h0, c0, w):
+def check_decoder_inputs(enc, h0, c0, w):
     """Validate the kernel inputs; returns (B, T, H, L, E, A, V)."""
     B, T, H = enc.shape
     L = h0.shape[0]
@@ -309,7 +343,7 @@ def greedy_decode_fused(enc, dec_h0, dec_c0, w, stop_limit):
     EOS, and PAD after the step where every row has finished."""
     if not enc.is_cuda:
         return greedy_reference(enc, dec_h0, dec_c0, w, stop_limit)
-    B, T, H, L, E, A, V = _check_inputs(enc, dec_h0, dec_c0, w)
+    B, T, H, L, E, A, V = check_decoder_inputs(enc, dec_h0, dec_c0, w)
     dev = enc.device
     i32 = dict(dtype=torch.int32, device=dev)
     hbuf = torch.empty((2, L, B, H), device=dev)
@@ -341,7 +375,7 @@ greedy_decode_fused.launches = 0
 def beam_search_streams(enc, dec_h0, dec_c0, w, N, K, stop_limit):
     """Run the K6 kernel.  Returns its per-step streams tok, parent slot
     and valid (stop_limit, B, N) int32, and the final scores (B, N)."""
-    B, T, H, L, E, A, V = _check_inputs(enc, dec_h0, dec_c0, w)
+    B, T, H, L, E, A, V = check_decoder_inputs(enc, dec_h0, dec_c0, w)
     if not 1 <= N <= 32 or not 1 <= K <= V:
         raise ValueError(f"beam kernel takes 1 <= N <= 32 and 1 <= K <= V "
                          f"(got N={N}, K={K}, V={V})")

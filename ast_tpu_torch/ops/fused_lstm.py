@@ -1,21 +1,31 @@
-"""K1: the fused stacked-(bi)LSTM encoder recurrence, inference variant.
+"""K1 and K2: the fused stacked-(bi)LSTM encoder recurrence and its
+backward.
 
-The counterpart of ``ast_tpu/ops/fused_lstm.py`` ``fused_stacked_lstm``
-with ``train=False``: every layer and direction of the recurrence from
-the hoisted layer-0 projection.  A CUDA tensor runs the hand kernel
-(``kernels/csrc/k1_encoder.cu``); a CPU tensor runs
-:func:`stacked_lstm_reference`, the plain version of the same function
-(the encoder ``lax.scan`` of ``ast_tpu/models/seq2seq.py``).
+The counterparts of ``ast_tpu/ops/fused_lstm.py``: ``fused_stacked_lstm``
+(K1, ``_fwd_kernel``, in eval and train mode) and the reverse-time pass
+of its custom VJP (K2, ``_bwd_kernel``).  A CUDA tensor runs the hand
+kernels (``kernels/csrc/k1_encoder.cu``, ``k2_encoder_bwd.cu``); a CPU
+tensor runs the plain versions :func:`stacked_lstm_reference` and
+:func:`encoder_backward_reference`, written from the JAX kernel bodies'
+math.  :class:`FusedStackedLSTM` is the differentiable call: its
+backward is K2 for ``dz``, then the weight gradients as time-batched
+GEMMs, as ``_bwd_rule`` does.
 
 Layout (D2 directions, H units per direction):
   x0_proj (T, D2, B, 4H), wx_rest (L-1, D2, H, 4H), wh (L, D2, H, 4H),
   b (L, D2, 4H)  ->  outs (T, D2, B, H), h_fin / c_fin (L, D2, B, H).
+Train mode adds hash dropout at ``rate`` on every layer's output (mask
+seed ``seed + t*L + l`` over (D2, B, H)) and the residual streams
+acts (T, L, D2, B, 4H) ``[i|f|g|o]``, c_all, h_pre (pre-dropout) and
+x_drop (post-dropout) (T, L, D2, B, H).
 """
 
 import torch
 
 from ast_tpu_torch.kernels import build
-from ast_tpu_torch.ops.lstm import lstm_gates
+from ast_tpu_torch.ops.dropout import drop_mask, drop_threshold
+from ast_tpu_torch.ops.lstm import (
+    lstm_gate_acts, lstm_gates, lstm_gates_backward)
 
 
 def pack_encoder_weights(enc_layers):
@@ -29,32 +39,90 @@ def pack_encoder_weights(enc_layers):
     return wx_rest.contiguous(), wh.contiguous(), b.contiguous()
 
 
-def stacked_lstm_reference(x0_proj, wx_rest, wh, b):
-    """Plain PyTorch recurrence; same contract as :func:`fused_stacked_lstm`."""
+def _inv_keep(rate):
+    return 1.0 / (1.0 - rate) if rate > 0 else 1.0
+
+
+def _enc_mask(rate, seed, t, l, L, D2, B, H, device):
+    return drop_mask((D2, B, H), rate, seed + t * L + l, row_axis=1,
+                     global_rows=B, device=device)
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def stacked_lstm_reference(x0_proj, wx_rest, wh, b, train=False, seed=0,
+                           rate=0.0):
+    """Plain PyTorch recurrence; same contract as
+    :func:`fused_stacked_lstm` (eval) and :func:`fused_stacked_lstm_train`
+    (``train=True``: also returns acts, c_all, h_pre, x_drop)."""
     T, D2, B, H4 = x0_proj.shape
     H = H4 // 4
     L = wh.shape[0]
-    h = x0_proj.new_zeros((L, D2, B, H))
-    c = x0_proj.new_zeros((L, D2, B, H))
-    outs = []
+    h = [x0_proj.new_zeros((D2, B, H))] * L
+    c = [x0_proj.new_zeros((D2, B, H))] * L
+    outs, acts, c_all, h_pre, x_drop = [], [], [], [], []
     for t in range(T):
         x = None
-        new_h, new_c = [], []
+        res = ([], [], [], [])
         for l in range(L):
             z = x0_proj[t] if l == 0 else torch.bmm(x, wx_rest[l - 1])
             z = z + torch.bmm(h[l], wh[l]) + b[l][:, None, :]
-            x, c_l = lstm_gates(z, c[l], H)
-            new_h.append(x)
-            new_c.append(c_l)
-        h, c = torch.stack(new_h), torch.stack(new_c)
+            if not train:
+                h[l], c[l] = lstm_gates(z, c[l], H)
+                x = h[l]
+                continue
+            a, h[l], c[l] = lstm_gate_acts(z, c[l], H)
+            x = h[l]
+            if rate > 0:
+                keep = _enc_mask(rate, seed, t, l, L, D2, B, H, z.device)
+                x = torch.where(keep, x * _inv_keep(rate), 0.0)
+            for r, v in zip(res, (a, c[l], h[l], x)):
+                r.append(v)
         outs.append(x)
-    return torch.stack(outs), h, c
+        if train:
+            for r, v in zip((acts, c_all, h_pre, x_drop), res):
+                r.append(torch.stack(v))
+    out = (torch.stack(outs), torch.stack(h), torch.stack(c))
+    if not train:
+        return out
+    return out + tuple(torch.stack(r) for r in (acts, c_all, h_pre, x_drop))
 
 
-def fused_stacked_lstm(x0_proj, wx_rest, wh, b):
-    """Encoder recurrence.  Returns (outs, h_fin, c_fin)."""
-    if not x0_proj.is_cuda:
-        return stacked_lstm_reference(x0_proj, wx_rest, wh, b)
+def encoder_backward_reference(acts, c_all, wx_rest, wh, douts, dh_fin,
+                               dc_fin, seed, rate):
+    """Plain version of K2: the reverse-time pass giving ``dz`` (T, L,
+    D2, B, 4H) at every cell's pre-activations, from the residuals, the
+    cotangents of (outs, h_fin, c_fin) and the dropout ``rate`` the
+    forward ran with (the masks are regenerated from ``seed``)."""
+    T, L, D2, B, H4 = acts.shape
+    H = H4 // 4
+    dh, dc = list(dh_fin), list(dc_fin)
+    dz_all = []
+    for t in reversed(range(T)):
+        dz_t = [None] * L
+        cons = douts[t]
+        for l in reversed(range(L)):
+            if rate > 0:
+                keep = _enc_mask(rate, seed, t, l, L, D2, B, H, acts.device)
+                cons = torch.where(keep, cons * _inv_keep(rate), 0.0)
+            c_prev = c_all[t - 1, l] if t > 0 else torch.zeros_like(dc[l])
+            dz, dc[l] = lstm_gates_backward(acts[t, l], c_all[t, l], c_prev,
+                                            dh[l] + cons, dc[l])
+            dz_t[l] = dz
+            dh[l] = torch.bmm(dz, wh[l].transpose(1, 2))
+            if l > 0:
+                cons = torch.bmm(dz, wx_rest[l - 1].transpose(1, 2))
+        dz_all.append(torch.stack(dz_t))
+    return torch.stack(dz_all[::-1])
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+def _check_weights(x0_proj, wx_rest, wh, b):
     T, D2, B, H4 = x0_proj.shape
     H = H4 // 4
     L = wh.shape[0]
@@ -62,6 +130,14 @@ def fused_stacked_lstm(x0_proj, wx_rest, wh, b):
     build.check_tensor(wx_rest, "wx_rest", (L - 1, D2, H, 4 * H))
     build.check_tensor(wh, "wh", (L, D2, H, 4 * H))
     build.check_tensor(b, "b", (L, D2, 4 * H))
+    return T, L, D2, B, H
+
+
+def fused_stacked_lstm(x0_proj, wx_rest, wh, b):
+    """Encoder recurrence, eval mode.  Returns (outs, h_fin, c_fin)."""
+    if not x0_proj.is_cuda:
+        return stacked_lstm_reference(x0_proj, wx_rest, wh, b)
+    T, L, D2, B, H = _check_weights(x0_proj, wx_rest, wh, b)
     dev = x0_proj.device
     outs = torch.empty((T, D2, B, H), device=dev)
     hbuf = torch.zeros((2, L, D2, B, H), device=dev)
@@ -77,3 +153,118 @@ def fused_stacked_lstm(x0_proj, wx_rest, wh, b):
 
 
 fused_stacked_lstm.launches = 0
+
+
+def fused_stacked_lstm_train(x0_proj, wx_rest, wh, b, seed, rate):
+    """Encoder recurrence, train mode: hash dropout at ``rate`` (0 keeps
+    every element) and the residual streams.  Returns (outs, h_fin,
+    c_fin, acts, c_all, h_pre, x_drop)."""
+    if not x0_proj.is_cuda:
+        return stacked_lstm_reference(x0_proj, wx_rest, wh, b, True, seed,
+                                      rate)
+    T, L, D2, B, H = _check_weights(x0_proj, wx_rest, wh, b)
+    dev = x0_proj.device
+    outs = torch.empty((T, D2, B, H), device=dev)
+    acts = torch.empty((T, L, D2, B, 4 * H), device=dev)
+    c_all, h_pre, x_drop = (torch.empty((T, L, D2, B, H), device=dev)
+                            for _ in range(3))
+    zero = torch.zeros((D2, B, H), device=dev)      # h and c before t = 0
+    lib = build.library()
+    fused_stacked_lstm_train.launches += 1
+    build.check_launch("k1_encoder_forward_train",
+                       lib.k1_encoder_forward_train(
+        x0_proj.data_ptr(), wx_rest.data_ptr(), wh.data_ptr(), b.data_ptr(),
+        outs.data_ptr(), acts.data_ptr(), c_all.data_ptr(),
+        h_pre.data_ptr(), x_drop.data_ptr(), zero.data_ptr(),
+        T, L, D2, B, H, seed & 0xFFFFFFFF, drop_threshold(rate),
+        _inv_keep(rate), torch.cuda.current_stream(dev).cuda_stream))
+    return (outs, h_pre[-1].clone(), c_all[-1].clone(), acts, c_all, h_pre,
+            x_drop)
+
+
+fused_stacked_lstm_train.launches = 0
+
+
+def encoder_backward(acts, c_all, wx_rest, wh, douts, dh_fin, dc_fin, seed,
+                     rate):
+    """K2: ``dz`` (T, L, D2, B, 4H); see :func:`encoder_backward_reference`."""
+    if not acts.is_cuda:
+        return encoder_backward_reference(acts, c_all, wx_rest, wh, douts,
+                                          dh_fin, dc_fin, seed, rate)
+    T, L, D2, B, H4 = acts.shape
+    H = H4 // 4
+    build.check_tensor(acts, "acts", (T, L, D2, B, 4 * H))
+    build.check_tensor(c_all, "c_all", (T, L, D2, B, H))
+    build.check_tensor(wx_rest, "wx_rest", (L - 1, D2, H, 4 * H))
+    build.check_tensor(wh, "wh", (L, D2, H, 4 * H))
+    build.check_tensor(douts, "douts", (T, D2, B, H))
+    build.check_tensor(dh_fin, "dh_fin", (L, D2, B, H))
+    build.check_tensor(dc_fin, "dc_fin", (L, D2, B, H))
+    dev = acts.device
+    # transposed weights, once per call (a layout copy): layer l's
+    # [wh^T | wx^T] (D2, 4H, H or 2H) turns dz into [dh_prev | dx_below]
+    # in one row-wise product
+    w_t = [wh[0].transpose(1, 2)] + [
+        torch.cat([wh[l].transpose(1, 2), wx_rest[l - 1].transpose(1, 2)],
+                  dim=2) for l in range(1, L)]
+    w_t = torch.cat([w.reshape(-1) for w in w_t])
+    # per layer (D2, B, H or 2H): [dh carry | dx for the layer below];
+    # the carry starts as dh_fin
+    carry = [torch.zeros((D2, B, H if l == 0 else 2 * H), device=dev)
+             for l in range(L)]
+    for l in range(L):
+        carry[l][..., :H] = dh_fin[l]
+    carry = torch.cat([c.reshape(-1) for c in carry])
+    dc = dc_fin.clone()
+    dz = torch.empty((T, L, D2, B, 4 * H), device=dev)
+    lib = build.library()
+    encoder_backward.launches += 1
+    build.check_launch("k2_encoder_backward", lib.k2_encoder_backward(
+        acts.data_ptr(), c_all.data_ptr(), w_t.data_ptr(), douts.data_ptr(),
+        carry.data_ptr(), dc.data_ptr(), dz.data_ptr(),
+        T, L, D2, B, H, seed & 0xFFFFFFFF, drop_threshold(rate),
+        _inv_keep(rate), torch.cuda.current_stream(dev).cuda_stream))
+    return dz
+
+
+encoder_backward.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# differentiable call
+# ---------------------------------------------------------------------------
+
+def _grad_or_zeros(g, like):
+    return torch.zeros_like(like) if g is None else g.contiguous()
+
+
+class FusedStackedLSTM(torch.autograd.Function):
+    """Differentiable fused encoder (``ast_tpu``'s ``fused_stacked_lstm``
+    custom VJP).  ``apply(x0_proj, wx_rest, wh, b, seed, train, rate)``
+    -> (outs, h_fin, c_fin).  When gradients are needed in eval mode the
+    forward still keeps its residuals, with rate 0."""
+
+    @staticmethod
+    def forward(ctx, x0_proj, wx_rest, wh, b, seed, train, rate):
+        rate = float(rate) if train else 0.0
+        if not train and not any(ctx.needs_input_grad[:4]):
+            return fused_stacked_lstm(x0_proj, wx_rest, wh, b)
+        (outs, h_fin, c_fin, acts, c_all, h_pre,
+         x_drop) = fused_stacked_lstm_train(x0_proj, wx_rest, wh, b, seed,
+                                            rate)
+        ctx.save_for_backward(wx_rest, wh, acts, c_all, h_pre, x_drop)
+        ctx.seed, ctx.rate = seed, rate
+        return outs, h_fin, c_fin
+
+    @staticmethod
+    def backward(ctx, douts, dh_fin, dc_fin):
+        wx_rest, wh, acts, c_all, h_pre, x_drop = ctx.saved_tensors
+        dz = encoder_backward(
+            acts, c_all, wx_rest, wh, _grad_or_zeros(douts, x_drop[:, -1]),
+            _grad_or_zeros(dh_fin, h_pre[-1]),
+            _grad_or_zeros(dc_fin, c_all[-1]), ctx.seed, ctx.rate)
+        # weight gradients as time-batched GEMMs
+        h_prev = torch.cat([torch.zeros_like(h_pre[:1]), h_pre[:-1]])
+        dwh = torch.einsum("tldbh,tldbk->ldhk", h_prev, dz)
+        dwx = torch.einsum("tldbh,tldbk->ldhk", x_drop[:, :-1], dz[:, 1:])
+        return (dz[:, 0], dwx, dwh, dz.sum(dim=(0, 3)), None, None, None)

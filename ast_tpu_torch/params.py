@@ -14,6 +14,16 @@ import torch
 from ast_tpu_torch.checkpoint import flatten, unflatten
 
 
+def torch_device(name):
+    """``torch.device(name)``; a CUDA device must exist (no silent CPU)."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda requested but no CUDA device is "
+                           "available (pass --device cpu for the plain "
+                           "PyTorch path)")
+    return dev
+
+
 def tree_map(fn, tree):
     """Apply ``fn`` to every leaf of a nested dict/list tree."""
     if isinstance(tree, dict):

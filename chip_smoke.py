@@ -28,23 +28,53 @@ Phases, each printing a line:
    BPE vocab, 64 feature files of mixed lengths): after a warm-up call,
    greedy, then beam 5,5, each timed over the whole CLI call (checkpoint
    and file loading included); one output line per input, and every
-   kernel's count above 0.
+   kernel's count above 0;
+5. the training kernels against their plain versions at es_en_20h width
+   (B=32, 640 frames -> T'=160, random targets of U=64, dropout 0.3 /
+   0.3, seeded teacher-ratio-0.8 coins, fixed hash seeds): K1 in train
+   mode, outputs and residuals within 1e-4 and its dropout zero pattern
+   equal to the torch hash mask; K3, with the plain forward run along
+   K3's own selected inputs: every sampled id within 1e-4 of the plain
+   step's largest logit, the teacher's ids on forced steps, ht and the
+   residual streams within 1e-4; K2 and K4 fed the same residuals and
+   the cross-entropy loss's own cotangents as their plain versions, every
+   output stream within 1e-3 * max|plain| (reverse-time sums over up to
+   160 or 63 steps in another order); the whole step's gradient of every
+   parameter leaf, through the kernels and through the plain versions
+   (along K3's ids), within the same relative 1e-3; and each kernel's
+   time beside its plain version's;
+6. the training path through its entry point, ast_tpu_torch.cli.train,
+   on a synthetic es_en_20h experiment (96 train and 32 dev utterances
+   of 100-1,200 frames, Zipf-like targets of 5-40 tokens, es_en_20h's
+   train_cfg): two epochs, falling loss, two dev.log rows, a checkpoint
+   that decodes through ast_tpu_torch.cli.infer, and every training
+   kernel's count above 0; then train utts/s, one step's time split
+   into its kernels, the optimizer and the rest (CUDA events), and the
+   step's device busy time by kernel group and idle share
+   (torch.profiler).
 
 Then a JSON line with each kernel's count, error and times, and last
 {"ok": true, "device": {...}}.  A kernel's count ("launches") is the
-number of calls of its wrapper during the greedy and beam passes of
-phase 4 (not the warm-up): each call runs the whole kernel -- every
-step and layer, many CUDA launches.  "max_abs_err" is K1's largest
-state difference, K5's largest shortfall of a chosen token's logit
-below the plain step's best, and K6's largest score difference.  Any
-failure raises (exit code 1, no result line); with no CUDA device it
-exits 2.  Of ast_tpu, the port loads only its JAX-free config and
-symbols modules; the script checks that JAX was not imported.
+number of calls of its wrapper while its path was driven: K1 (eval), K5
+and K6 over the greedy and beam passes of phase 4 (not the warm-up), K1
+(train), K2, K3 and K4 over phase 6's two epochs.  Each call runs the
+whole kernel -- every step and layer, many CUDA launches.
+"max_abs_err" is K1's largest state difference, K5's largest shortfall
+of a chosen token's logit below the plain step's best, K6's largest
+score difference, and for the training kernels the largest difference
+over their output streams.  Any failure raises (exit code 1, no result
+line); with no CUDA device it exits 2.  Of ast_tpu, the port loads only
+its JAX-free config, symbols and BLEU modules; the script checks that
+JAX was not imported.
 """
 
+import contextlib
+import io
 import json
 import os
 import pickle
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -58,6 +88,10 @@ N_BEAM, K_BEAM = 5, 5
 N_UTTS = 64
 VOCAB = 1098
 TOK_TOL, ENC_TOL, SCORE_TOL = 1e-4, 1e-4, 1e-3
+U_TRAIN, DROP, TEACH, NOISE = 64, 0.3, 0.8, 0.25
+ENC_SEED, DEC_SEED = 2 ** 31 - 1000, 1234567
+BWD_TOL = 1e-3          # relative to max|plain| (reverse-time sums)
+N_TRAIN, N_DEV = 96, 32
 
 
 def cuda_ms(fn, reps):
@@ -92,14 +126,8 @@ def make_experiment(root, seed=0):
         model_cfg = json.load(f)
     with open(os.path.join(exp, "model_cfg.json"), "w") as f:
         json.dump(model_cfg, f)
-    words = [(f"w{i}@@" if i % 3 == 0 else f"w{i}").encode()
-             for i in range(VOCAB - SYMBOLS.N_SPECIAL)]
-    w2i = {w: i for i, w in enumerate(SYMBOLS.START_VOCAB + words)}
-    vocab = {"bpe_w": {"w2i": w2i, "i2w": {i: w for w, i in w2i.items()},
-                       "freq": {w: 1 for w in words}}}
     vocab_path = os.path.join(root, "fisher.vocab")
-    with open(vocab_path, "wb") as f:
-        pickle.dump(vocab, f)
+    write_vocab(vocab_path)
     train_cfg = {"seed": "chip-smoke", "batch_size": B,
                  "data": {"enc_key": "sp", "dec_key": "bpe_w",
                           "vocab_path": vocab_path, "max_pred": STOP,
@@ -119,6 +147,21 @@ def make_experiment(root, seed=0):
         np.save(path, rng.standard_normal((T, 13)).astype(np.float32))
         paths.append(path)
     return exp, cfg, paths
+
+
+def write_vocab(path):
+    """A 1098-entry BPE vocab pickle (every third word a joiner); returns
+    its words, id 4 onwards."""
+    from ast_tpu_torch import SYMBOLS
+
+    words = [(f"w{i}@@" if i % 3 == 0 else f"w{i}").encode()
+             for i in range(VOCAB - SYMBOLS.N_SPECIAL)]
+    w2i = {w: i for i, w in enumerate(SYMBOLS.START_VOCAB + words)}
+    vocab = {"bpe_w": {"w2i": w2i, "i2w": {i: w for w, i in w2i.items()},
+                       "freq": {w: 1 for w in words}}}
+    with open(path, "wb") as f:
+        pickle.dump(vocab, f)
+    return words
 
 
 def eos_bias(enc, h0, c0, w):
@@ -338,6 +381,15 @@ def check_kernels(cfg, device):
     return results
 
 
+def quiet(main, argv):
+    """A CLI's ``main(argv)`` with its stdout (one line per file or epoch
+    report) captured; returns (main's result, the captured text)."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        res = main(argv)
+    return res, out.getvalue()
+
+
 def run_slice(exp, paths, out_dir):
     """Phase 4: greedy then beam through the CLI, with launch counts."""
     import torch
@@ -350,8 +402,8 @@ def run_slice(exp, paths, out_dir):
                 "k6": fused_infer.beam_search_streams}
     # first call: CUDA context, library and cuBLAS start-up stay out of
     # the timed passes and out of the counts
-    infer.main(["-m", exp, "--device", "cuda", "-o",
-                os.path.join(out_dir, "warmup.txt")] + paths[:2])
+    quiet(infer.main, ["-m", exp, "--device", "cuda", "-o",
+                       os.path.join(out_dir, "warmup.txt")] + paths[:2])
     for fn in counters.values():
         fn.launches = 0
     rates = {}
@@ -360,8 +412,8 @@ def run_slice(exp, paths, out_dir):
         out = os.path.join(out_dir, f"{name}.txt")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        hyps = infer.main(["-m", exp, "--device", "cuda", "-o", out]
-                          + extra + paths)
+        hyps, _ = quiet(infer.main, ["-m", exp, "--device", "cuda", "-o",
+                                     out] + extra + paths)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         with open(out) as f:
@@ -375,6 +427,427 @@ def run_slice(exp, paths, out_dir):
     for k, n in launches.items():
         assert n > 0, f"the main path never launched {k}"
     return rates, launches
+
+
+def rel_err(got, want):
+    """max |got - want| / max |want| and max |got - want|."""
+    d = float((got - want).abs().max())
+    return d / max(float(want.abs().max()), 1e-30), d
+
+
+def train_batch(device, seed=3):
+    """Phase 5's batch: B x FRAMES features, B x U_TRAIN targets (GO,
+    random ids, EOS at random lengths, PAD after)."""
+    import torch
+
+    from ast_tpu_torch import SYMBOLS
+
+    rng = np.random.default_rng(seed)
+    X = rng.standard_normal((B, FRAMES, 13)).astype(np.float32)
+    y = np.full((B, U_TRAIN), SYMBOLS.PAD_ID, np.int64)
+    for r in range(B):
+        n = int(rng.integers(5, U_TRAIN - 1))
+        y[r, 0] = SYMBOLS.GO_ID
+        y[r, 1:n] = rng.integers(SYMBOLS.N_SPECIAL, VOCAB, n - 1)
+        y[r, n] = SYMBOLS.EOS_ID
+    return torch.from_numpy(X).to(device), torch.from_numpy(y).to(device)
+
+
+def leaf_names(tree, prefix=""):
+    """Flat-NPZ style names of a tree's leaves, in leaf order."""
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items()
+                for n in leaf_names(v, f"{prefix}{k}/")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in leaf_names(v, f"{prefix}{i}/")]
+    return [prefix[:-1]]
+
+
+def step_loss(params, state, mcfg, X, y, n_real, draws, sel=None):
+    """The train step's loss, built from the public pieces that
+    ``seq2seq.forward_loss`` chains.  Without ``sel``: through the
+    kernels (K1 train, K3; K2 and K4 under autograd); returns (loss,
+    K3's sampled ids).  With ``sel``: through the plain versions with
+    autograd, the decoder along those ids; returns (loss, sel)."""
+    import torch
+
+    from ast_tpu_torch.models import seq2seq
+    from ast_tpu_torch.ops import fused_decoder as fd
+    from ast_tpu_torch.ops import fused_lstm as fl
+
+    x0, wxr, wh, b, _ = seq2seq.encoder_inputs(
+        params, state, mcfg, X * (1.0 + draws.noise), train=True)
+    w = seq2seq.pack_decoder_weights(params)
+    y_in = y.t()[:-1].to(torch.int32).contiguous()
+    if sel is None:
+        enc_out = fl.FusedStackedLSTM.apply(x0, wxr, wh, b, draws.enc_seed,
+                                            True, DROP)
+        enc, h0, c0 = seq2seq.encoder_outputs(*enc_out)
+        ht, sel = fd.FusedDecoder.apply(
+            enc, h0, c0, *(w[k] for k in fd.W_NAMES), y_in, draws.coins,
+            draws.dec_seed, DROP, DROP)
+    else:
+        enc_out = fl.stacked_lstm_reference(x0, wxr, wh, b, True,
+                                            draws.enc_seed, DROP)[:3]
+        enc, h0, c0 = seq2seq.encoder_outputs(*enc_out)
+        ht = fd.decoder_forward_reference(enc, h0, c0, w, y_in, draws.coins,
+                                          draws.dec_seed, DROP, DROP,
+                                          forced_ids=sel)[0]
+    dec = params["dec"]
+    return seq2seq.sequence_loss(ht, dec["out_w"], dec["out_b"], y.t()[1:],
+                                 n_real), sel
+
+
+def check_train_kernels(cfg, device):
+    """Phase 5: K1 train, K2, K3, K4 and the whole step's gradient
+    against the plain versions; returns per-kernel numbers."""
+    import torch
+
+    from ast_tpu_torch.models import seq2seq
+    from ast_tpu_torch.ops import fused_decoder as fd
+    from ast_tpu_torch.ops import fused_lstm as fl
+    from ast_tpu_torch.ops.dropout import drop_mask
+    from ast_tpu_torch.train.optimizer import tree_leaves
+
+    mcfg = cfg.model
+    assert mcfg["dropout"]["rnn"] == DROP and mcfg["dropout"]["embed"] == DROP
+    params, state = seq2seq.init_model(mcfg, seed=0, device=device)
+    X, y = train_batch(device)
+    n_real = float(B)
+    draws = seq2seq.make_draws(7, X, U_TRAIN - 1, TEACH, NOISE)
+    draws.enc_seed, draws.dec_seed = ENC_SEED, DEC_SEED
+    results = {}
+
+    with torch.no_grad():
+        x0, wxr, wh, b, _ = seq2seq.encoder_inputs(
+            params, state, mcfg, X * (1.0 + draws.noise), train=True)
+        enc_args = (x0, wxr, wh, b, ENC_SEED, DROP)
+        got = fl.fused_stacked_lstm_train(*enc_args)
+        ref = fl.stacked_lstm_reference(*enc_args[:4], True, ENC_SEED, DROP)
+        err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+        T, L = got[3].shape[:2]
+        seeds = (ENC_SEED + torch.arange(T * L, device=device)).view(
+            T, L, 1, 1, 1)
+        keep = drop_mask(tuple(got[0].shape[1:]), DROP, seeds, row_axis=1,
+                         device=device)
+        mask_ok = bool(((got[6] == 0) == ~keep).all())
+        print(f"K1 train: x0_proj {tuple(x0.shape)}, outputs and residuals "
+              f"max abs err {err:.3e} (tol {ENC_TOL}); dropout zero pattern "
+              f"{'equals' if mask_ok else 'DIFFERS from'} the hash mask "
+              f"({float((~keep).float().mean()):.3f} dropped)", flush=True)
+        assert err <= ENC_TOL and mask_ok, "K1 train disagrees"
+        results["k1t"] = dict(
+            max_abs_err=err, ms=cuda_ms(lambda: fl.fused_stacked_lstm_train(
+                *enc_args), 5),
+            plain_ms=cuda_ms(lambda: fl.stacked_lstm_reference(
+                *enc_args[:4], True, ENC_SEED, DROP), 2))
+
+        enc, h0, c0 = seq2seq.encoder_outputs(*ref[:3])
+        w = seq2seq.pack_decoder_weights(params)
+        y_in = y.t()[:-1].to(torch.int32).contiguous()
+        dec_args = (enc, h0, c0, w, y_in, draws.coins, DEC_SEED, DROP, DROP)
+        ht_k, res_k = fd.decoder_forward(*dec_args)
+        sel = res_k["sel"]
+        ht_p, res_p = fd.decoder_forward_reference(*dec_args,
+                                                   forced_ids=sel)
+        short = float(fd.sampled_shortfall(ht_p, w, sel, draws.coins).max())
+        forced = draws.coins.bool()
+        teacher_ok = bool((sel[forced] == y_in[forced]).all())
+        err = float((ht_k - ht_p).abs().max())
+        for k in fd.RES_NAMES[1:]:
+            err = max(err, float((res_k[k] - res_p[k]).abs().max()))
+        n_sampled = int((~forced).sum())
+        print(f"K3 decoder: {U_TRAIN - 1} steps, {n_sampled} sampled; every "
+              f"sampled id within {short:.3e} of the plain step's best logit "
+              f"(tol {TOK_TOL}), teacher ids on forced steps "
+              f"{'equal' if teacher_ok else 'DIFFER'}; ht and residuals max "
+              f"abs err {err:.3e} (tol {ENC_TOL})", flush=True)
+        assert n_sampled > 0 and short <= TOK_TOL and teacher_ok \
+            and err <= ENC_TOL, "K3 disagrees"
+        results["k3"] = dict(
+            max_abs_err=err, sampled_shortfall=short,
+            ms=cuda_ms(lambda: fd.decoder_forward(*dec_args), 5),
+            plain_ms=cuda_ms(lambda: fd.decoder_forward_reference(
+                *dec_args), 2))
+
+    # the loss's own cotangents at the encoder outputs and at ht
+    enc_out = [t.detach().requires_grad_(True) for t in ref[:3]]
+    enc, h0, c0 = seq2seq.encoder_outputs(*enc_out)
+    ht = fd.decoder_forward_reference(enc, h0, c0, w, y_in, draws.coins,
+                                      DEC_SEED, DROP, DROP,
+                                      forced_ids=sel)[0]
+    loss = seq2seq.sequence_loss(ht, params["dec"]["out_w"],
+                                 params["dec"]["out_b"], y.t()[1:], n_real)
+    cot = torch.autograd.grad(loss, enc_out + [ht])
+    d_enc_out, d_ht = [c.contiguous() for c in cot[:3]], cot[3].contiguous()
+
+    with torch.no_grad():
+        bwd = (got[3], got[4], wxr, wh, *d_enc_out, ENC_SEED, DROP)
+        rel, err = rel_err(fl.encoder_backward(*bwd),
+                           fl.encoder_backward_reference(*bwd))
+        print(f"K2 encoder backward: dz max abs err {err:.3e}, {rel:.3e} of "
+              f"max|plain| (tol {BWD_TOL})", flush=True)
+        assert rel <= BWD_TOL, "K2 disagrees"
+        results["k2"] = dict(
+            max_abs_err=err, rel_err=rel,
+            ms=cuda_ms(lambda: fl.encoder_backward(*bwd), 5),
+            plain_ms=cuda_ms(lambda: fl.encoder_backward_reference(*bwd), 2))
+
+        enc, h0, c0 = seq2seq.encoder_outputs(*ref[:3])
+        bwd = (res_k, ht_k, enc, c0, w, d_ht, DEC_SEED, DROP, DROP)
+        g_k = fd.decoder_backward(*bwd)
+        g_p = fd.decoder_backward_reference(*bwd)
+        worst = max((rel_err(g_k[k], g_p[k]) + (k,) for k in fd.GRAD_NAMES))
+        err = max(rel_err(g_k[k], g_p[k])[1] for k in fd.GRAD_NAMES)
+        print(f"K4 decoder backward: {len(fd.GRAD_NAMES)} streams, worst "
+              f"{worst[2]} at {worst[0]:.3e} of max|plain| (tol {BWD_TOL}); "
+              f"max abs err {err:.3e}", flush=True)
+        assert worst[0] <= BWD_TOL, "K4 disagrees"
+        results["k4"] = dict(
+            max_abs_err=err, rel_err=worst[0],
+            ms=cuda_ms(lambda: fd.decoder_backward(*bwd), 5),
+            plain_ms=cuda_ms(lambda: fd.decoder_backward_reference(*bwd), 2))
+
+    # the whole step: every parameter's gradient, kernels vs plain
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss_k, sel = step_loss(params, state, mcfg, X, y, n_real, draws)
+    g_k = torch.autograd.grad(loss_k, leaves)
+    loss_p, _ = step_loss(params, state, mcfg, X, y, n_real, draws, sel)
+    g_p = torch.autograd.grad(loss_p, leaves)
+    with torch.no_grad():
+        loss_f = seq2seq.forward_loss(params, state, mcfg, X, y, n_real,
+                                      draws)[0].item()
+    names = leaf_names(params)
+    worst = max(rel_err(a, b) + (n,) for a, b, n in zip(g_k, g_p, names))
+    loss_err = abs(loss_k.item() - loss_p.item())
+    print(f"train step: loss {loss_k.item():.6f} (plain {loss_p.item():.6f}"
+          f", forward_loss {loss_f:.6f}); {len(leaves)} parameter "
+          f"gradients, worst leaf {worst[2]} at {worst[0]:.3e} of max|plain| "
+          f"(tol {BWD_TOL})", flush=True)
+    assert worst[0] <= BWD_TOL and loss_err <= 1e-4 * abs(loss_p.item()), \
+        "the step's gradients disagree"
+    assert abs(loss_f - loss_k.item()) <= 1e-6 * abs(loss_k.item()), \
+        "forward_loss disagrees with its pieces"
+    results["step"] = dict(worst_leaf=worst[2], rel_err=worst[0])
+    return results
+
+
+def make_train_experiment(root, seed=5):
+    """Synthetic es_en_20h training experiment: es_en_20h's model_cfg and
+    train_cfg with paths rewritten, the 1098-entry BPE vocab, N_TRAIN /
+    N_DEV .npy utterances of 100-1,200 frames with Zipf-like targets of
+    5-40 tokens, map / info pickles and four dev references."""
+    exp = os.path.join(root, "train_exp")
+    data = os.path.join(root, "train_data")
+    speech = os.path.join(root, "train_speech")
+    refs = os.path.join(data, "refs")
+    os.makedirs(exp)
+    es_en = os.path.join(REPO, "experiments", "es_en_20h")
+    shutil.copy(os.path.join(es_en, "model_cfg.json"), exp)
+    with open(os.path.join(es_en, "train_cfg.json")) as f:
+        train_cfg = json.load(f)
+    os.makedirs(refs)
+    words = write_vocab(os.path.join(data, "fisher.vocab"))
+    rng = np.random.default_rng(seed)
+    zipf = 1.0 / np.arange(1, len(words) + 1)
+    zipf /= zipf.sum()
+    sets = {train_cfg["train_set"]: N_TRAIN, train_cfg["dev_set"]: N_DEV}
+    map_dict, info = {}, {}
+    for set_key, n in sets.items():
+        map_dict[set_key], info[set_key] = {}, {}
+        os.makedirs(os.path.join(speech, set_key))
+        for i in range(n):
+            utt = f"{set_key}_utt{i:03d}"
+            T = int(rng.integers(100, 1200))
+            np.save(os.path.join(speech, set_key, f"{utt}.npy"),
+                    rng.standard_normal((T, 13)).astype(np.float32))
+            toks = [words[j] for j in rng.choice(
+                len(words), int(rng.integers(5, 41)), p=zipf)]
+            map_dict[set_key][utt] = {"bpe_w": toks}
+            info[set_key][utt] = {"sp": T, "bpe_w": len(toks)}
+    for name, obj in (("fisher.map", map_dict), ("fisher.info", info)):
+        with open(os.path.join(data, name), "wb") as f:
+            pickle.dump(obj, f)
+    dev = train_cfg["dev_set"]
+    dev_refs = os.path.join(refs, dev)
+    os.makedirs(dev_refs)
+    utts = sorted(map_dict[dev])
+    with open(os.path.join(dev_refs, "eval.ids"), "w") as f:
+        f.write("\n".join(utts) + "\n")
+    for k in range(train_cfg["data"]["n_evals"]):
+        with open(os.path.join(dev_refs, f"ref.en{k}"), "w") as f:
+            for u in utts:
+                text = " ".join(w.decode() for w in map_dict[dev][u]["bpe_w"])
+                f.write(text.replace("@@ ", "") + "\n")
+    train_cfg["data"].update(
+        speech_path=speech, map_path=os.path.join(data, "fisher.map"),
+        vocab_path=os.path.join(data, "fisher.vocab"),
+        info_path=os.path.join(data, "fisher.info"), refs_path=refs)
+    with open(os.path.join(exp, "train_cfg.json"), "w") as f:
+        json.dump(train_cfg, f)
+    dev_paths = [os.path.join(speech, dev, f"{u}.npy") for u in utts]
+    return exp, dev_paths
+
+
+def run_train_slice(root, smi, device="cuda"):
+    """Phase 6: two epochs through ast_tpu_torch.cli.train, with launch
+    counts, then the checkpoint through cli.infer and one step's time."""
+    import torch
+
+    from ast_tpu_torch.cli import infer, train
+    from ast_tpu_torch.ops import fused_decoder as fd
+    from ast_tpu_torch.ops import fused_infer, fused_lstm as fl
+    from ast_tpu_torch.train.trainer import NN
+
+    exp, dev_paths = make_train_experiment(root)
+    counters = {"k1t": fl.fused_stacked_lstm_train, "k2": fl.encoder_backward,
+                "k3": fd.decoder_forward, "k4": fd.decoder_backward,
+                "k5": fused_infer.greedy_decode_fused}
+    for fn in counters.values():
+        fn.launches = 0
+    t0 = time.perf_counter()
+    _, report = quiet(train.main, ["-m", exp, "-e", "2", "--device", device])
+    if device == "cuda":
+        torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    rates = [float(v) for v in re.findall(
+        r"train throughput = ([0-9.]+) utts/sec", report)]
+    with open(os.path.join(exp, "train.log")) as f:
+        losses = [float(line.split(", ")[1]) for line in f]
+    with open(os.path.join(exp, "dev.log")) as f:
+        bleus = [line.strip() for line in f]
+    print(f"train slice ({N_TRAIN} train / {N_DEV} dev utts, 2 epochs, "
+          f"{wall:.1f} s through the CLI): train.log losses {losses}, "
+          f"dev.log {bleus}; train {rates} utts/s ({smi}); launches "
+          f"{launches}", flush=True)
+    assert len(losses) == 2 and all(np.isfinite(losses)), losses
+    assert losses[1] < losses[0], f"the loss did not fall: {losses}"
+    assert len(bleus) == 2 and len(rates) == 2
+    for k, n in launches.items():
+        assert n > 0, f"the training path never launched {k}"
+    files = dev_paths[:8]
+    hyps, _ = quiet(infer.main, ["-m", exp, "--device", device, "-o",
+                                 os.path.join(root, "train_hyps.txt")]
+                    + files)
+    assert len(hyps) == len(files)
+    print(f"  seq2seq_2.model.npz decodes through the infer CLI: "
+          f"{sum(len(h.split()) for h in hyps.values())} words for "
+          f"{len(files)} files", flush=True)
+
+    # one step at phase 5's shapes, split by CUDA events recorded around
+    # each kernel wrapper and the optimizer inside a real train_step
+    nn = NN(exp, device)
+    X, y = train_batch(torch.device(device))
+    batch = {"X": X.cpu().numpy(), "y": y.cpu().numpy(), "n_real": B,
+             "utts": [""] * B}
+    split = step_split(nn, batch, 3)
+    fwd, bwd = split["k1t"] + split["k3"], split["k2"] + split["k4"]
+    rest = split["step"] - fwd - bwd - split["opt"]
+    print(f"one step (B={B}, {FRAMES} frames, U={U_TRAIN}; {smi}): "
+          f"{split['step']:.2f} ms = forward kernels {fwd:.2f} (K1 train "
+          f"{split['k1t']:.2f}, K3 {split['k3']:.2f}) + backward kernels "
+          f"{bwd:.2f} (K4 {split['k4']:.2f}, K2 {split['k2']:.2f}) + "
+          f"optimizer {split['opt']:.2f} + GEMMs, loss, conv and the rest "
+          f"{rest:.2f}", flush=True)
+    if device == "cuda":
+        wall, busy, groups = step_profile(nn, batch, 2)
+        print(f"  under torch.profiler: {wall:.2f} ms a step, device busy "
+              f"{busy:.2f} ms (idle share {1 - busy / wall:.3f}); busy by "
+              f"kernel: " + ", ".join(f"{k} {v:.2f}" for k, v in groups),
+              flush=True)
+    return launches, dict(utts_per_s=rates, split=split, losses=losses)
+
+
+# kernel-name fragments -> group, first match wins
+KERNEL_GROUPS = (("lstm_cell_bwd", "cell backward"),
+                 ("lstm_cell", "LSTM cell"),
+                 ("linear", "row-wise linear"),
+                 ("attention", "attention"),
+                 ("select_embed", "small step kernels"),
+                 ("argmax", "small step kernels"),
+                 ("head_kernel", "small step kernels"),
+                 ("foreach", "optimizer (foreach)"),
+                 ("gemm", "cuBLAS GEMM"), ("sm90", "cuBLAS GEMM"),
+                 ("cutlass", "cuBLAS GEMM"))
+
+
+def step_profile(nn, batch, reps):
+    """``reps`` train steps under torch.profiler: (wall ms a step, device
+    busy ms a step -- the union of kernel intervals --, [(kernel group,
+    busy ms a step)] largest first)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    nn.train_step(batch, 0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(reps):
+            nn.train_step(batch, 1 + i)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / reps
+    spans = sorted((e.time_range.start, e.time_range.end, e.name)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, end, groups = 0.0, -np.inf, {}
+    for a, b, name in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+        g = next((g for k, g in KERNEL_GROUPS if k in name), "other torch")
+        groups[g] = groups.get(g, 0.0) + (b - a) / 1e3 / reps
+    return (wall, busy / 1e3 / reps,
+            sorted(groups.items(), key=lambda kv: -kv[1]))
+
+
+def step_split(nn, batch, reps):
+    """Mean device time (ms) of ``nn.train_step`` on ``batch`` and of the
+    parts of it that run in K1 train, K2, K3, K4 and the optimizer's
+    update, from CUDA events recorded around each (after one warm-up
+    step)."""
+    import torch
+
+    from ast_tpu_torch.ops import fused_decoder as fd
+    from ast_tpu_torch.ops import fused_lstm as fl
+
+    spans = {k: [] for k in ("k1t", "k2", "k3", "k4", "opt", "step")}
+
+    def timed(key, fn):
+        def run(*args, **kw):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = fn(*args, **kw)
+            b.record()
+            spans[key].append((a, b))
+            return out
+        # a wrapper bumps its count under its module-level name, which is
+        # this function while the patch holds
+        run.launches = getattr(fn, "launches", 0)
+        return run
+
+    patches = [(fl, "fused_stacked_lstm_train", "k1t"),
+               (fl, "encoder_backward", "k2"), (fd, "decoder_forward", "k3"),
+               (fd, "decoder_backward", "k4"), (nn.opt, "update", "opt")]
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    nn.train_step(batch, 0)
+    try:
+        for obj, name, key in patches:
+            setattr(obj, name, timed(key, getattr(obj, name)))
+        step = timed("step", nn.train_step)
+        for i in range(reps):
+            step(batch, 1 + i)
+        torch.cuda.synchronize()
+    finally:
+        for obj, name, fn in saved:
+            setattr(obj, name, fn)
+    return {k: sum(a.elapsed_time(b) for a, b in v) / reps
+            for k, v in spans.items()}
 
 
 def main():
@@ -413,13 +886,24 @@ def main():
         with torch.inference_mode():
             results = check_kernels(cfg, device)
         rates, launches = run_slice(exp, paths, root)
-    print(f"slice ({N_UTTS} utts, {smi}): greedy {rates['greedy']:.1f} "
-          f"utts/s, beam {N_BEAM},{K_BEAM} {rates['beam']:.1f} utts/s",
-          flush=True)
+        print(f"slice ({N_UTTS} utts, {smi}): greedy {rates['greedy']:.1f} "
+              f"utts/s, beam {N_BEAM},{K_BEAM} {rates['beam']:.1f} utts/s",
+              flush=True)
+        results.update(check_train_kernels(cfg, device))
+        train_launches, _ = run_train_slice(root, smi)
+    launches.update({k: v for k, v in train_launches.items() if k != "k5"})
 
     meta = {
         "k1": ("K1 fused biLSTM encoder", "k1_encoder.cu",
                "ast_tpu/ops/fused_lstm.py:275"),
+        "k1t": ("K1 fused biLSTM encoder, train mode", "k1_encoder.cu",
+                "ast_tpu/ops/fused_lstm.py:275"),
+        "k2": ("K2 fused biLSTM encoder backward", "k2_encoder_bwd.cu",
+               "ast_tpu/ops/fused_lstm.py:348"),
+        "k3": ("K3 fused attention decoder, train forward",
+               "k3_decoder_fwd.cu", "ast_tpu/ops/fused_decoder.py:284"),
+        "k4": ("K4 fused attention decoder backward", "k4_decoder_bwd.cu",
+               "ast_tpu/ops/fused_decoder.py:484"),
         "k5": ("K5 fused greedy decode", "k5_greedy.cu",
                "ast_tpu/ops/fused_infer.py:251"),
         "k6": ("K6 fused beam decode", "k6_beam.cu",

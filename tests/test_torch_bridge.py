@@ -124,11 +124,14 @@ def test_detok_matches_ast_tpu(dec_key):
 
 
 def test_port_imports_no_jax():
-    """Of ast_tpu the port loads only its two JAX-free modules."""
+    """Of ast_tpu the port loads only its JAX-free modules: config,
+    symbols and the BLEU scorer."""
     code = ("import sys\n"
             "import ast_tpu_torch, ast_tpu_torch.cli.infer, "
-            "ast_tpu_torch.ops.beam\n"
-            "ok = {'ast_tpu', 'ast_tpu.config', 'ast_tpu.symbols'}\n"
+            "ast_tpu_torch.ops.beam, ast_tpu_torch.cli.train, "
+            "ast_tpu_torch.train.trainer, ast_tpu_torch.data.dataloader\n"
+            "ok = {'ast_tpu', 'ast_tpu.config', 'ast_tpu.symbols', "
+            "'ast_tpu.eval', 'ast_tpu.eval.bleu', 'ast_tpu.eval.metrics'}\n"
             "bad = [m for m in sys.modules if m == 'jax' or "
             "m.startswith('jax.') or m.startswith('jaxlib') or "
             "(m.split('.')[0] == 'ast_tpu' and m not in ok)]\n"

@@ -62,8 +62,8 @@ def test_conv_frontend_matches_jax(model):
     params, state, X, tp, ts = model
     ref, _ = jax_conv_frontend(params["cnn"], state["cnn_bn"],
                                _mcfg()["cnn_config"], jnp.asarray(X), False)
-    got = conv_frontend(tp["cnn"], ts["cnn_bn"], _mcfg()["cnn_config"],
-                        torch.from_numpy(X))
+    got, _ = conv_frontend(tp["cnn"], ts["cnn_bn"], _mcfg()["cnn_config"],
+                           torch.from_numpy(X))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
                                atol=ATOL)
 
