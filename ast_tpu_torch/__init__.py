@@ -12,15 +12,15 @@ paths is a hand-written CUDA kernel here (``kernels/csrc``); each sits
 beside a plain PyTorch version that CPU tensors take.
 
 The JAX package ``ast_tpu`` is the reference this port is tested
-against.  The port never imports JAX: of ``ast_tpu`` it uses only the
-JAX-free modules ``ast_tpu.symbols``, ``ast_tpu.config`` and
-``ast_tpu.eval.bleu``, so an experiment directory means the same to
-both.  Parameters, BN state and optimizer state keep ast_tpu's layout
+against.  The port imports neither JAX nor any module of ``ast_tpu``: it
+keeps its own copies of what it shares with it (``config``, ``symbols``,
+``eval.bleu``), so an experiment directory means the same to both.
+Parameters, BN state and optimizer state keep ast_tpu's layout
 and its flat-NPZ checkpoint format, so weights and runs move both ways.
 """
 
-from ast_tpu.config import Config
-from ast_tpu.symbols import SYMBOLS
+from ast_tpu_torch.config import Config
+from ast_tpu_torch.symbols import SYMBOLS
 
 __version__ = "0.1.0"
 

@@ -19,8 +19,8 @@ import os
 import numpy as np
 import torch
 
-from ast_tpu.config import Config
-from ast_tpu.symbols import SYMBOLS
+from ast_tpu_torch.config import Config
+from ast_tpu_torch.symbols import SYMBOLS
 from ast_tpu_torch.checkpoint import latest_checkpoint, load_checkpoint
 from ast_tpu_torch.detok import dec_i2w, get_hyps
 from ast_tpu_torch.models import seq2seq

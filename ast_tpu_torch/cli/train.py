@@ -5,7 +5,7 @@
 
 The counterpart of ``ast_tpu/cli/train.py``, with the same epoch cycle:
 train one epoch, append ``epoch, loss`` to ``train.log``, greedy-decode
-the dev split, detokenise, score BLEU with ``ast_tpu.eval.bleu.Eval``,
+the dev split, detokenise, score BLEU with ``ast_tpu_torch.eval.bleu.Eval``,
 append ``epoch, bleu`` to ``dev.log``, and save
 ``seq2seq_<epoch>.model.npz`` every ``iters_save`` epochs and at the
 last one.  It resumes from the latest checkpoint (``max_epoch + 1``).
@@ -16,7 +16,7 @@ kernel; ``--device cpu`` runs their plain versions.
 import argparse
 import os
 
-from ast_tpu.eval.bleu import Eval
+from ast_tpu_torch.eval.bleu import Eval
 from ast_tpu_torch.train.trainer import NN
 
 

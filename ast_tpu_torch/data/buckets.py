@@ -1,5 +1,5 @@
-"""Duration bucketing, a copy of ``ast_tpu/data/buckets.py`` (which
-cannot be imported here: ``ast_tpu.data`` pulls in JAX).
+"""Duration bucketing, a copy of ``ast_tpu/data/buckets.py`` (the port
+imports no module of ``ast_tpu``).
 
 Batches are formed only from utterances of similar speech duration.  The
 same semantics, seeds and pickle as ``ast_tpu`` (reference:

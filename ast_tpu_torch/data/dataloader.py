@@ -1,6 +1,6 @@
 """Bucketed, statically shaped batches: the counterpart of
-``ast_tpu/data/dataloader.py`` (which cannot be imported here:
-``ast_tpu.data`` pulls in JAX), numpy only.
+``ast_tpu/data/dataloader.py`` (the port imports no module of
+``ast_tpu``), numpy only.
 
 The batch stream equals ``ast_tpu``'s element for element: the same
 bucketing, the same RNGs derived from ``(seed, set_key, epoch)``, the same
@@ -20,7 +20,7 @@ import random
 
 import numpy as np
 
-from ast_tpu.symbols import SYMBOLS
+from ast_tpu_torch.symbols import SYMBOLS
 from ast_tpu_torch.data import buckets as prep_buckets
 from ast_tpu_torch.detok import get_hyps
 from ast_tpu_torch.utils.seeding import stable_seed

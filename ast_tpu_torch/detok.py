@@ -5,7 +5,7 @@ and char units join bare, and ``bpe_w`` merges the ``@@ `` joiner."""
 
 import pickle
 
-from ast_tpu.symbols import SYMBOLS
+from ast_tpu_torch.symbols import SYMBOLS
 
 
 def dec_i2w(train_cfg):

@@ -1,13 +1,14 @@
 // Shared declarations of the hand-written Hopper kernels (sm_90a).
 //
-// The per-step building blocks live in step_kernels.cu: an LSTM cell
-// step with its gate math fused into the epilogue (and, for training,
-// hash dropout and the residual streams), the elementwise LSTM cell
-// backward, a row-wise linear layer, and Luong attention of each row
-// against its own encoder rows.  k1_encoder.cu, k2_encoder_bwd.cu,
-// k3_decoder_fwd.cu, k4_decoder_bwd.cu, k5_greedy.cu and k6_beam.cu drive
-// them from a host-side time loop and add their own small kernels.
-// Everything is float32 with FMA accumulation; no library GEMM is called.
+// step_kernels.cu holds the per-step building blocks of the encoder and
+// of decoder training (K1-K4): an LSTM cell step with its gate math fused
+// into the epilogue (and, for training, hash dropout and the residual
+// streams), the elementwise LSTM cell backward, a row-wise linear layer,
+// and Luong attention with its weights.  k1_encoder.cu, k2_encoder_bwd.cu,
+// k3_decoder_fwd.cu and k4_decoder_bwd.cu drive them from a host-side
+// time loop.  decode_step.cu holds the decode step of K5 (k5_greedy.cu)
+// and K6 (k6_beam.cu).  Everything is float32 with FMA accumulation; no
+// library GEMM is called.
 //
 // Every exported entry point launches on the caller's stream, never
 // synchronises, allocates nothing, and returns cudaGetLastError() as an
@@ -16,6 +17,8 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include <utility>
 
 #define AST_EXPORT extern "C" __attribute__((visibility("default")))
 
@@ -180,34 +183,40 @@ struct LinearArgs {
   const int* done;
 };
 
-// Decoder weights in ast_tpu's layout (models/seq2seq.pack_decoder_weights
-// without the vocab padding).
-struct DecoderWeights {
+// The decoder weights of the decode step (decode_step.cu), the products'
+// matrices packed by ops/fused_infer.pack_step_weights as (column
+// blocks, K, 64): the cell's [wx; wh] of layer l (K = E + A + H for layer
+// 0, 2H after; packed column q * 16 + u of block cb is gate q of unit
+// 16 cb + u), one layer after another, and wa (H, H), ctx_w (2H, A),
+// out_w (A, V) with their columns padded to a multiple of 64.
+struct StepWeights {
   const float* embed;    // (V, E)
-  const float* wx0;      // (E + A, 4H)
-  const float* wx_rest;  // (L - 1, H, 4H)
-  const float* wh;       // (L, H, 4H)
+  const float* cell;     // the L packed cell matrices
   const float* bias;     // (L, 4H)
-  const float* wa;       // (H, H)
+  const float* wa;       // packed (H, H)
   const float* wa_b;     // (H)
-  const float* ctx_w;    // (2H, A)
+  const float* ctx_w;    // packed (2H, A)
   const float* ctx_b;    // (A)
-  const float* out_w;    // (A, V)
+  const float* out_w;    // packed (A, V)
   const float* out_b;    // (V)
   int L, H, E, A, V;
 };
 
-// Per-step scratch and state of a decoder run over R rows.
+// Per-step scratch and state of a decoder run over R rows.  Row r
+// continues the state of row parent[r] of the previous step (nullptr:
+// of row r), so no state is copied between steps; the outputs must not
+// alias the inputs.
 struct DecoderStep {
-  const int* tok;    // (R) input token of this step
+  const int* tok;      // (R) input token of this step
+  const int* parent;   // (R) or nullptr
   const float* ht_in;  // (R, A) attentional state of the previous step
   const float* h_in;   // (L, R, H)
   const float* c_in;   // (L, R, H)
-  float* h_out;        // (L, R, H), must not alias h_in
-  float* c_out;        // (L, R, H), may alias c_in
+  float* h_out;        // (L, R, H)
+  float* c_out;        // (L, R, H)
   float* q;            // (R, H) attention query
   float* cv;           // (R, H) context vector
-  float* ht_out;       // (R, A), may alias ht_in
+  float* ht_out;       // (R, A)
   float* logits;       // (R, V)
 };
 
@@ -218,19 +227,51 @@ cudaError_t launch_lstm_cell_bwd(const CellBwdArgs& a, int groups,
                                  cudaStream_t s);
 cudaError_t launch_linear(const LinearArgs& a, cudaStream_t s,
                           int groups = 1);
-// cv[r] = softmax(enc[r / rows_per_utt] @ q[r]) @ enc[r / rows_per_utt]
-cudaError_t launch_attention(const float* enc, const float* q, float* cv,
-                             int R, int rows_per_utt, int T, int H,
-                             const int* done, cudaStream_t s);
-// The same for rows_per_utt 1, also writing the softmax weights to
-// alphas (R, T).
+// cv[r] = softmax(enc[r] @ q[r]) @ enc[r], also writing the softmax
+// weights to alphas (R, T).
 cudaError_t launch_attention_alphas(const float* enc, const float* q,
                                     float* cv, float* alphas, int R, int T,
                                     int H, cudaStream_t s);
-// One decoder step for R rows: embedding gather + input feeding, the
-// L-layer LSTM stack, attention, ht = tanh(ctx([cv; h])), logits.
-cudaError_t decoder_step(const DecoderWeights& w, const float* enc, int T,
-                         int rows_per_utt, const DecoderStep& st, int R,
-                         const int* done, cudaStream_t s);
+// One decoder step for R rows, rows_per_utt of them per utterance of enc
+// (decode_step.cu): embedding gather + input feeding, the L-layer LSTM
+// stack, attention, ht = tanh(ctx([cv; h])), logits.  E, A and H must be
+// multiples of 32.  Every kernel returns at once while *done != 0.
+cudaError_t decode_step(const StepWeights& w, const float* enc, int T,
+                        int rows_per_utt, const DecoderStep& st, int R,
+                        const int* done, bool pdl, cudaStream_t s);
+
+// Programmatic dependent launch: wait for the grids this one depends on
+// (their writes visible), and let the next grid launch.  Both are no-ops
+// in a launch made without the attribute.
+static __device__ __forceinline__ void grid_dep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
+static __device__ __forceinline__ void grid_dep_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// kernel<<<grid, block, smem, s>>>(args...) in clusters of `cluster`
+// blocks along x, as a programmatic dependent launch when pdl.
+template <typename... KArgs, typename... Args>
+cudaError_t launch_ex(void (*kernel)(KArgs...), dim3 grid, dim3 block,
+                      size_t smem, int cluster, bool pdl, cudaStream_t s,
+                      Args&&... args) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = block;
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = s;
+  cudaLaunchAttribute at[2];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = cluster;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  at[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  at[1].val.programmaticStreamSerializationAllowed = pdl ? 1 : 0;
+  cfg.attrs = at;
+  cfg.numAttrs = 2;
+  return cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);
+}
 
 }  // namespace ast

@@ -57,7 +57,8 @@ __global__ void argmax_kernel(const float* logits, int B, int V, int* prev,
 
 }  // namespace
 
-// enc (B, T, H); weights in ast::DecoderWeights' layout; h0 / c0 (L, B, H).
+// enc (B, T, H); weights as models/seq2seq.pack_decoder_weights packs
+// them (no vocab padding); h0 / c0 (L, B, H).
 // y_in (U, B) teacher ids, coins (U) int (1 = teacher-forced, coins[0] ==
 // 1).  Scratch: prev (B) int, zero on entry; logits (B, V).
 // Outputs: ht (U, B, A); sel (U, B) int; acts (U, L, B, 4H); c_all, h_all

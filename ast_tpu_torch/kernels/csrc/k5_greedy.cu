@@ -1,21 +1,28 @@
 // K5: fused greedy decoding.
 //
 // Replaces ast_tpu/ops/fused_infer.py _greedy_kernel (via
-// greedy_decode_fused): per output step, embedding -> L-layer LSTM ->
-// Luong attention -> ht = tanh(ctx([cv; h])) -> logits -> argmax (ties to
-// the first index) -> next input.  Each row keeps emitting after its own
+// greedy_decode_fused; its step is _lstm_stack, _step_core and
+// _context_out): per output step, embedding -> L-layer LSTM -> Luong
+// attention -> ht = tanh(ctx([cv; h])) -> logits -> argmax (ties to the
+// first index) -> next input.  Each row keeps emitting after its own
 // EOS; once every row has finished, the remaining steps write PAD.
 //
-// What bounds it on the H100: B rows per step against about 32 MB of f32
+// What bounds it on the H100: B = 32 rows a step against 31.6 MB of f32
 // decoder weights (L2-resident), stop_limit dependent steps of L + 5
-// launches each -- weight reads from L2 and launch latency, not FLOPs.
-// Design: the step phases are the shared kernels of step_kernels.cu;
-// the embedding is a row gather by token id (not the TPU's one-hot
-// matmul) and attention runs each row against its own encoder rows (not
-// the all-pairs-plus-diagonal-mask form).  A device-side finished flag
-// replaces the host's early exit: every kernel of a step reads it and
-// returns at once after the last row's EOS, so the host loop never
-// synchronises.
+// launches each.  A step moves about 68 MB through L2 (decode_step.cu's
+// note) for 0.15 GFLOP of FMA: the bytes in flight per SM, the cluster
+// barriers of its products and launch latency bound it, not FLOPs.
+// Design: the step is decode_step.cu's -- products that read each weight
+// once a step, K split over thread-block clusters (3 blocks for the
+// cells, 8 for q and ctx on the H100), reduced in distributed shared
+// memory; attention by one cluster of 3 blocks per utterance -- and the
+// embedding a row gather by token id (not the TPU's one-hot matmul).
+// State ping-pongs between two slots, since a step's products read the
+// previous step's state while other blocks write the new one.  A
+// device-side finished flag replaces the host's early exit: every kernel
+// of a step reads it and returns at once after the last row's EOS, so the
+// host loop never synchronises.  With pdl the launches are programmatic
+// dependent launches.
 #include "common.cuh"
 
 namespace {
@@ -26,10 +33,12 @@ namespace {
 __global__ void greedy_argmax_kernel(const float* logits, int B, int V,
                                      int* tok_in, int* fin, int* tok_out,
                                      int* done) {
+  ast::grid_dep_wait();
   if (*done) {
     for (int r = threadIdx.x; r < B; r += blockDim.x) tok_out[r] = ast::PAD_ID;
     return;
   }
+  ast::grid_dep_launch();
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
   const int nw = blockDim.x >> 5;
   for (int r = w; r < B; r += nw) {
@@ -50,40 +59,42 @@ __global__ void greedy_argmax_kernel(const float* logits, int B, int V,
 
 }  // namespace
 
-// enc: (B, T, H); weights as in ast::DecoderWeights.
-// State, initialised by the caller: hbuf (2, L, B, H) with h0 in slot 0,
-// c (L, B, H) = c0, ht (B, A) = 0, tok_in (B) = GO, fin (B) = 0,
-// done (1) = 0.  Scratch: q, cv (B, H), logits (B, V).
+// enc: (B, T, H); weights as in ast::StepWeights.
+// State, initialised by the caller: hbuf and cbuf (2, L, B, H) with h0 /
+// c0 in slot 0, htbuf (2, B, A) with 0 in slot 0, tok_in (B) = GO, fin
+// (B) = 0, done (1) = 0.  Scratch: q, cv (B, H), logits (B, V).
 // Output: tok_out (stop, B) int32.
 AST_EXPORT int k5_greedy_decode(
-    const float* enc, const float* embed, const float* wx0,
-    const float* wx_rest, const float* wh, const float* bias,
-    const float* wa, const float* wa_b, const float* ctx_w,
-    const float* ctx_b, const float* out_w, const float* out_b, float* hbuf,
-    float* c, float* ht, int* tok_in, int* fin, int* done, float* q,
+    const float* enc, const float* embed, const float* cell,
+    const float* bias, const float* wa, const float* wa_b,
+    const float* ctx_w, const float* ctx_b, const float* out_w,
+    const float* out_b, float* hbuf,
+    float* cbuf, float* htbuf, int* tok_in, int* fin, int* done, float* q,
     float* cv, float* logits, int* tok_out, int B, int T, int H, int L,
-    int E, int A, int V, int stop, void* stream) {
+    int E, int A, int V, int stop, int pdl, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const ast::DecoderWeights w = {embed, wx0,   wx_rest, wh,    bias, wa,
-                                 wa_b,  ctx_w, ctx_b,   out_w, out_b, L,
-                                 H,     E,     A,       V};
+  const ast::StepWeights w = {embed, cell,  bias,  wa, wa_b, ctx_w,
+                              ctx_b, out_w, out_b, L,  H,    E,
+                              A,     V};
   const long state = (long)L * B * H;
   for (int t = 0; t < stop; ++t) {
+    const int i = t & 1, o = i ^ 1;
     ast::DecoderStep st = {};
     st.tok = tok_in;
-    st.ht_in = ht;
-    st.h_in = hbuf + (t & 1) * state;
-    st.c_in = c;
-    st.h_out = hbuf + ((t + 1) & 1) * state;
-    st.c_out = c;
+    st.ht_in = htbuf + i * (long)B * A;
+    st.h_in = hbuf + i * state;
+    st.c_in = cbuf + i * state;
+    st.h_out = hbuf + o * state;
+    st.c_out = cbuf + o * state;
     st.q = q;
     st.cv = cv;
-    st.ht_out = ht;
+    st.ht_out = htbuf + o * (long)B * A;
     st.logits = logits;
-    AST_RETURN_IF_ERR(ast::decoder_step(w, enc, T, 1, st, B, done, s));
-    greedy_argmax_kernel<<<1, 1024, 0, s>>>(logits, B, V, tok_in, fin,
-                                            tok_out + (long)t * B, done);
-    AST_RETURN_IF_ERR(cudaGetLastError());
+    AST_RETURN_IF_ERR(ast::decode_step(w, enc, T, 1, st, B, done, pdl, s));
+    AST_RETURN_IF_ERR(ast::launch_ex(greedy_argmax_kernel, dim3(1),
+                                     dim3(1024), 0, 1, pdl, s, logits, B, V,
+                                     tok_in, fin, tok_out + (long)t * B,
+                                     done));
   }
   return (int)cudaGetLastError();
 }

@@ -1,34 +1,33 @@
-// Per-step building blocks shared by the encoder (K1, K2), decoder
-// training (K3, K4), greedy (K5) and beam (K6) kernels: the LSTM cell
-// step, its elementwise backward, the row-wise linear layer and Luong
-// attention.
+// Per-step building blocks shared by the encoder (K1, K2) and decoder
+// training (K3, K4) kernels: the LSTM cell step, its elementwise
+// backward, the row-wise linear layer and Luong attention with its
+// weights.  (The decode step of K5 and K6 has its own kernels, in
+// decode_step.cu.)
 //
 // Replaces the in-kernel products of ast_tpu/ops/fused_lstm.py
-// (_fwd_kernel, _bwd_kernel), ast_tpu/ops/fused_decoder.py (_fwd_kernel,
-// _bwd_kernel) and ast_tpu/ops/fused_infer.py (_lstm_stack, _step_core,
-// _context_out).  On the TPU those kernels kept all weights in one core's
-// VMEM for the whole sequence; here blocks run in parallel, so each
-// kernel covers one (step, layer) or one step phase, and the time loop
-// runs on the host (see k1/k5/k6).
+// (_fwd_kernel, _bwd_kernel) and ast_tpu/ops/fused_decoder.py
+// (_fwd_kernel, _bwd_kernel).  On the TPU those kernels kept all weights
+// in one core's VMEM for the whole sequence; here blocks run in
+// parallel, so each kernel covers one (step, layer) or one step phase,
+// and the time loop runs on the host (see k1-k4).
 //
-// What bounds them on the H100: at decode batch sizes (32 to 160 rows)
-// every step re-reads the weights (encoder 4 MB, decoder about 32 MB per
-// step in f32), which fit in the 50 MB L2, and each output column's
-// products are a few hundred FMAs per row -- the kernels are bound by
-// the latency of dependent weight loads from L2 and by launch latency,
-// not by FLOPs.  Design: a block owns COLS = 32 output columns (one
-// hidden unit j per lane for the LSTM, computing all four gate columns
-// j, H+j, 2H+j, 3H+j so the gate math fuses into the epilogue) and
-// ROWS = 8 rows, so each weight value loaded serves 8 rows (4 rows when
-// 8 would leave SMs without a block, as at B = 32).  Its KSPLIT = 16
-// warps split the input axis, so each thread walks only 1/16 of it in
-// one unrolled loop with many loads in flight.  The block's input rows
-// are staged whole in shared memory once (one barrier, not one per
-// tile); the same memory then holds the warps' partial sums, where warp
-// w finishes row w.  Attention scores TU = 4 encoder rows per warp at a
-// time, for independent load streams.  Weight loads are coalesced along
-// the column axis.  No tensor cores yet (f32 FMA); wgmma/TMA tiling is
-// later work.  A backward product x @ W^T runs as the same linear layer
+// What bounds them on the H100: at batch 32 every step re-reads the
+// weights (encoder 4 MB, decoder about 32 MB per step in f32), which fit
+// in the 50 MB L2, and each output column's products are a few hundred
+// FMAs per row -- the kernels are bound by the latency of dependent
+// weight loads from L2 and by launch latency, not by FLOPs.  Design: a
+// block owns COLS = 32 output columns (one hidden unit j per lane for
+// the LSTM, computing all four gate columns j, H+j, 2H+j, 3H+j so the
+// gate math fuses into the epilogue) and ROWS = 8 rows, so each weight
+// value loaded serves 8 rows (4 rows when 8 would leave SMs without a
+// block, as at B = 32).  Its KSPLIT = 16 warps split the input axis, so
+// each thread walks only 1/16 of it in one unrolled loop with many loads
+// in flight.  The block's input rows are staged whole in shared memory
+// once (one barrier, not one per tile); the same memory then holds the
+// warps' partial sums, where warp w finishes row w.  Attention scores
+// TU = 4 encoder rows per warp at a time, for independent load streams.
+// Weight loads are coalesced along the column axis.  No tensor cores yet
+// (f32 FMA).  A backward product x @ W^T runs as the same linear layer
 // on a transposed copy of W that the wrapper makes once per call, so its
 // weight loads stay coalesced.
 #include <math.h>
@@ -280,22 +279,17 @@ cudaError_t launch(Kernel kernel, dim3 grid, size_t bytes, cudaStream_t s,
   return cudaGetLastError();
 }
 
-// One block per row r: scores over its utterance's T encoder rows,
-// softmax (into alphas with ALPHAS), and the context vector.  Dynamic
-// shared memory: H + T floats.
-template <bool ALPHAS>
-__device__ __forceinline__ void attention_body(const float* enc,
-                                               const float* q, float* cv,
-                                               int per, int T, int H,
-                                               const int* done,
-                                               float* alphas) {
-  if (done && *done) return;
+// One block per row r: scores over its T encoder rows, softmax into
+// alphas, and the context vector.  Dynamic shared memory: H + T floats.
+__global__ void attention_alphas_kernel(const float* enc, const float* q,
+                                        float* cv, float* alphas, int T,
+                                        int H) {
   extern __shared__ float sm[];
   __shared__ float red[32];
   float* qs = sm;
   float* p = sm + H;
   const int r = blockIdx.x;
-  const float* E = enc + (long)(r / per) * T * H;
+  const float* E = enc + (long)r * T * H;
   for (int h = threadIdx.x; h < H; h += blockDim.x) qs[h] = q[(long)r * H + h];
   __syncthreads();
   const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
@@ -331,9 +325,8 @@ __device__ __forceinline__ void attention_body(const float* enc,
   }
   sum = block_reduce(sum, false, red);  // its barriers publish p[]
   const float inv = 1.f / sum;
-  if constexpr (ALPHAS)
-    for (int t = threadIdx.x; t < T; t += blockDim.x)
-      alphas[(long)r * T + t] = p[t] * inv;
+  for (int t = threadIdx.x; t < T; t += blockDim.x)
+    alphas[(long)r * T + t] = p[t] * inv;
   for (int h = threadIdx.x; h < H; h += blockDim.x) {
     float acc[TU] = {};
     int t = 0;
@@ -345,18 +338,6 @@ __device__ __forceinline__ void attention_body(const float* enc,
     for (; t < T; ++t) acc[0] = fmaf(p[t] * inv, E[(long)t * H + h], acc[0]);
     cv[(long)r * H + h] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
   }
-}
-
-__global__ void attention_kernel(const float* enc, const float* q, float* cv,
-                                 int R, int per, int T, int H,
-                                 const int* done) {
-  attention_body<false>(enc, q, cv, per, T, H, done, nullptr);
-}
-
-__global__ void attention_alphas_kernel(const float* enc, const float* q,
-                                        float* cv, float* alphas, int T,
-                                        int H) {
-  attention_body<true>(enc, q, cv, 1, T, H, nullptr, alphas);
 }
 
 constexpr int ATTN_THREADS = 512;
@@ -401,15 +382,6 @@ cudaError_t launch_linear(const LinearArgs& a, cudaStream_t s, int groups) {
               : launch(linear_kernel<8, false>, grid, bytes, s, a);
 }
 
-cudaError_t launch_attention(const float* enc, const float* q, float* cv,
-                             int R, int rows_per_utt, int T, int H,
-                             const int* done, cudaStream_t s) {
-  const size_t smem = (size_t)(H + T) * sizeof(float);
-  attention_kernel<<<R, ATTN_THREADS, smem, s>>>(enc, q, cv, R, rows_per_utt,
-                                                 T, H, done);
-  return cudaGetLastError();
-}
-
 cudaError_t launch_attention_alphas(const float* enc, const float* q,
                                     float* cv, float* alphas, int R, int T,
                                     int H, cudaStream_t s) {
@@ -417,73 +389,6 @@ cudaError_t launch_attention_alphas(const float* enc, const float* q,
   attention_alphas_kernel<<<R, ATTN_THREADS, smem, s>>>(enc, q, cv, alphas,
                                                         T, H);
   return cudaGetLastError();
-}
-
-cudaError_t decoder_step(const DecoderWeights& w, const float* enc, int T,
-                         int rows_per_utt, const DecoderStep& st, int R,
-                         const int* done, cudaStream_t s) {
-  const int H = w.H;
-  const long H4 = 4L * H, RH = (long)R * H;
-  for (int l = 0; l < w.L; ++l) {
-    CellArgs a = {};
-    if (l == 0) {
-      a.xa = Seg{w.embed, 0, st.tok, w.E};   // embedding row gather
-      a.xb = Seg{st.ht_in, 0, nullptr, w.A};  // input feeding
-      a.wx = w.wx0;
-    } else {
-      a.xa = Seg{st.h_out + (l - 1) * RH, 0, nullptr, H};
-      a.wx = w.wx_rest + (long)(l - 1) * H * H4;
-    }
-    a.hp = Seg{st.h_in + l * RH, 0, nullptr, H};
-    a.wh = w.wh + (long)l * H * H4;
-    a.bias = w.bias + l * H4;
-    a.c_in = st.c_in + l * RH;
-    a.c_out = st.c_out + l * RH;
-    a.h_out = st.h_out + l * RH;
-    a.R = R;
-    a.H = H;
-    a.done = done;
-    cudaError_t e = launch_lstm_cell(a, 1, s);
-    if (e != cudaSuccess) return e;
-  }
-  const float* top = st.h_out + (w.L - 1) * RH;
-
-  LinearArgs q = {};
-  q.xa = Seg{top, 0, nullptr, H};
-  q.w = w.wa;
-  q.bias = w.wa_b;
-  q.out = st.q;
-  q.R = R;
-  q.N = H;
-  q.done = done;
-  cudaError_t e = launch_linear(q, s);
-  if (e != cudaSuccess) return e;
-
-  e = launch_attention(enc, st.q, st.cv, R, rows_per_utt, T, H, done, s);
-  if (e != cudaSuccess) return e;
-
-  LinearArgs c = {};
-  c.xa = Seg{st.cv, 0, nullptr, H};
-  c.xb = Seg{top, 0, nullptr, H};
-  c.w = w.ctx_w;
-  c.bias = w.ctx_b;
-  c.out = st.ht_out;
-  c.R = R;
-  c.N = w.A;
-  c.act_tanh = 1;
-  c.done = done;
-  e = launch_linear(c, s);
-  if (e != cudaSuccess) return e;
-
-  LinearArgs o = {};
-  o.xa = Seg{st.ht_out, 0, nullptr, w.A};
-  o.w = w.out_w;
-  o.bias = w.out_b;
-  o.out = st.logits;
-  o.R = R;
-  o.N = w.V;
-  o.done = done;
-  return launch_linear(o, s);
 }
 
 }  // namespace ast

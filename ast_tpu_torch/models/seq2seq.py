@@ -15,7 +15,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ast_tpu.symbols import SYMBOLS
+from ast_tpu_torch.symbols import SYMBOLS
 from ast_tpu_torch.ops.cnn import conv_frontend
 from ast_tpu_torch.ops.fused_decoder import W_NAMES, FusedDecoder
 from ast_tpu_torch.ops.fused_infer import (

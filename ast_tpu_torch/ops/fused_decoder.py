@@ -38,6 +38,9 @@ RES_NAMES = ("sel", "acts", "c_all", "h_all", "x_drop", "alphas", "q", "cv",
              "emb")
 GRAD_NAMES = ("dz", "d_pre", "d_scores", "d_cv", "d_q", "d_emb", "dh0",
               "dc0")
+# K3's attention keeps H + T floats of one row in shared memory (48 KB
+# without the opt-in attribute)
+_ATTN_SMEM_FLOATS = 48 * 1024 // 4
 
 
 def _emb_mask(rate, seed, t, B, E, device):
@@ -181,6 +184,9 @@ def decoder_forward(enc, h0, c0, w, y_in, coins, seed, drop_emb, drop_rnn):
         return decoder_forward_reference(enc, h0, c0, w, y_in, coins, seed,
                                          drop_emb, drop_rnn)
     B, T, H, L, E, A, V = check_decoder_inputs(enc, h0, c0, w)
+    if H + T > _ATTN_SMEM_FLOATS:
+        raise ValueError(f"attention kernel: H + T = {H + T} floats exceed "
+                         f"its {_ATTN_SMEM_FLOATS}-float shared memory")
     U = y_in.shape[0]
     for name, t, shape in (("y_in", y_in, (U, B)), ("coins", coins, (U,))):
         if (not t.is_cuda or t.dtype != torch.int32

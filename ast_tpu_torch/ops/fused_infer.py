@@ -2,7 +2,8 @@
 
 The counterparts of ``ast_tpu/ops/fused_infer.py`` ``greedy_decode_fused``
 and ``beam_decode_fused``.  A CUDA tensor runs the hand kernels
-(``kernels/csrc/k5_greedy.cu``, ``k6_beam.cu``); a CPU tensor runs the
+(``kernels/csrc/k5_greedy.cu``, ``k6_beam.cu``, both on the step kernels
+of ``decode_step.cu``); a CPU tensor runs the
 plain versions :func:`greedy_reference` and :func:`beam_reference`,
 written from ast_tpu's XLA decode loops (``seq2seq.predict_greedy``'s
 ``lax.while_loop`` and ``ops/beam.py``'s frontier loop).
@@ -14,15 +15,19 @@ TPU's vocab padding.
 
 import torch
 
-from ast_tpu.symbols import SYMBOLS
+from ast_tpu_torch.symbols import SYMBOLS
 from ast_tpu_torch.kernels import build
 from ast_tpu_torch.ops.attention import luong_attention
 from ast_tpu_torch.ops.lstm import lstm_gates
 
 NEG_INF = -1e30
-# attention keeps H + T floats of one row in shared memory (48 KB
-# without the opt-in attribute)
-_ATTN_SMEM_FLOATS = 48 * 1024 // 4
+# the decode step's tiles (decode_step.cu): the input axis in tiles of 32
+_DECODE_TILE = 32
+# shared memory a block may use on the H100
+_SMEM_BYTES = 227 * 1024
+# launch the decode steps' kernels as programmatic dependent launches
+# (chip_smoke.py times K5 and K6 with it on and off; see PERF.md)
+PDL = True
 
 
 def require_decode_variant(mcfg):
@@ -331,10 +336,59 @@ def check_decoder_inputs(enc, h0, c0, w):
               "out_b": (V,)}
     for k in _WEIGHT_ORDER:
         build.check_tensor(w[k], k, shapes[k])
-    if H + T > _ATTN_SMEM_FLOATS:
-        raise ValueError(f"attention kernel: H + T = {H + T} floats exceed "
-                         f"its {_ATTN_SMEM_FLOATS}-float shared memory")
     return B, T, H, L, E, A, V
+
+
+def _pack_columns(w, block):
+    """(K, N) -> (ceil(N / block), K, block): column block c of w, its
+    rows contiguous, zero columns past N."""
+    K, N = w.shape
+    nb = -(-N // block)
+    if nb * block != N:
+        w = torch.cat([w, w.new_zeros((K, nb * block - N))], dim=1)
+    return w.view(K, nb, block).permute(1, 0, 2).contiguous()
+
+
+def pack_step_weights(w):
+    """The decode step kernels' weights (``ast::StepWeights``): each
+    product's matrix as (column blocks, K, 64), so a block's tile of
+    input rows is one contiguous copy.  A cell's [wx; wh] (K, 4H) is
+    packed by hidden unit: column q * 16 + u of block c is gate q of
+    unit 16 c + u, so a block holds all four gates of its units.  A
+    layout copy of the decoder weights, made once per decode call."""
+    L, H = w["wh"].shape[0], w["wh"].shape[1]
+    cells = []
+    for l in range(L):
+        wx = w["wx0"] if l == 0 else w["wx_rest"][l - 1]
+        cat = torch.cat([wx, w["wh"][l]])                   # (K, 4H)
+        K = cat.shape[0]
+        cells.append(cat.view(K, 4, H // 16, 16).permute(2, 0, 1, 3)
+                     .reshape(-1))
+    return {"embed": w["embed"], "cell": torch.cat(cells), "b": w["b"],
+            "wa": _pack_columns(w["wa"], 64), "wa_b": w["wa_b"],
+            "ctx_w": _pack_columns(w["ctx_w"], 64), "ctx_b": w["ctx_b"],
+            "out_w": _pack_columns(w["out_w"], 64), "out_b": w["out_b"]}
+
+
+_STEP_ORDER = ("embed", "cell", "b", "wa", "wa_b", "ctx_w", "ctx_b",
+               "out_w", "out_b")
+
+
+def check_decode_shapes(B, T, H, E, A, N, K=1):
+    """Raise unless the decode step's kernels take these shapes: E, A, H
+    multiples of its 32-wide input tiles, attention's and the beam
+    selection's shared memory within a block's."""
+    if E % _DECODE_TILE or A % _DECODE_TILE or H % _DECODE_TILE:
+        raise ValueError(f"decode kernels take E, A, H that are multiples "
+                         f"of {_DECODE_TILE} (got {E}, {A}, {H})")
+    # attention: 2 N H + N T floats at most (one block per utterance)
+    attn = 4 * (2 * N * H + N * T + 2 * N)
+    if attn > _SMEM_BYTES:
+        raise ValueError(f"decode attention needs {attn} bytes of shared "
+                         f"memory at N={N}, T={T}, H={H}")
+    if 8 * N * K > 48 * 1024:
+        raise ValueError(f"beam selection keeps N * K = {N * K} candidates "
+                         f"in 48 KB of shared memory")
 
 
 def greedy_decode_fused(enc, dec_h0, dec_c0, w, stop_limit):
@@ -344,12 +398,15 @@ def greedy_decode_fused(enc, dec_h0, dec_c0, w, stop_limit):
     if not enc.is_cuda:
         return greedy_reference(enc, dec_h0, dec_c0, w, stop_limit)
     B, T, H, L, E, A, V = check_decoder_inputs(enc, dec_h0, dec_c0, w)
+    check_decode_shapes(B, T, H, E, A, 1)
     dev = enc.device
     i32 = dict(dtype=torch.int32, device=dev)
+    # state ping-pongs between two slots a step
     hbuf = torch.empty((2, L, B, H), device=dev)
     hbuf[0] = dec_h0
-    c = dec_c0.clone()
-    ht = torch.zeros((B, A), device=dev)
+    cbuf = torch.empty((2, L, B, H), device=dev)
+    cbuf[0] = dec_c0
+    htbuf = torch.zeros((2, B, A), device=dev)
     tok_in = torch.full((B,), SYMBOLS.GO_ID, **i32)
     fin = torch.zeros((B,), **i32)
     done = torch.zeros((1,), **i32)
@@ -357,14 +414,15 @@ def greedy_decode_fused(enc, dec_h0, dec_c0, w, stop_limit):
     cv = torch.empty((B, H), device=dev)
     logits = torch.empty((B, V), device=dev)
     tok_out = torch.empty((stop_limit, B), **i32)
+    packed = pack_step_weights(w)
     lib = build.library()
     greedy_decode_fused.launches += 1
     build.check_launch("k5_greedy_decode", lib.k5_greedy_decode(
-        enc.data_ptr(), *(w[k].data_ptr() for k in _WEIGHT_ORDER),
-        hbuf.data_ptr(), c.data_ptr(), ht.data_ptr(), tok_in.data_ptr(),
-        fin.data_ptr(), done.data_ptr(), q.data_ptr(), cv.data_ptr(),
-        logits.data_ptr(), tok_out.data_ptr(),
-        B, T, H, L, E, A, V, stop_limit,
+        enc.data_ptr(), *(packed[k].data_ptr() for k in _STEP_ORDER),
+        hbuf.data_ptr(), cbuf.data_ptr(), htbuf.data_ptr(),
+        tok_in.data_ptr(), fin.data_ptr(), done.data_ptr(), q.data_ptr(),
+        cv.data_ptr(), logits.data_ptr(), tok_out.data_ptr(),
+        B, T, H, L, E, A, V, stop_limit, int(PDL),
         torch.cuda.current_stream(dev).cuda_stream))
     return tok_out.t().contiguous()
 
@@ -379,9 +437,12 @@ def beam_search_streams(enc, dec_h0, dec_c0, w, N, K, stop_limit):
     if not 1 <= N <= 32 or not 1 <= K <= V:
         raise ValueError(f"beam kernel takes 1 <= N <= 32 and 1 <= K <= V "
                          f"(got N={N}, K={K}, V={V})")
+    check_decode_shapes(B, T, H, E, A, N, K)
     dev = enc.device
     R = B * N
     i32 = dict(dtype=torch.int32, device=dev)
+    # state ping-pongs between two slots a step; row r of a step continues
+    # row parent[r] of the step before
     hbuf = torch.empty((2, L, R, H), device=dev)
     hbuf[0] = dec_h0.repeat_interleave(N, dim=1)
     cbuf = torch.empty((2, L, R, H), device=dev)
@@ -392,25 +453,25 @@ def beam_search_streams(enc, dec_h0, dec_c0, w, N, K, stop_limit):
     score[:, 0] = 0.0
     fin = torch.zeros((R,), **i32)
     done = torch.zeros((1,), **i32)
-    parent = torch.empty((R,), **i32)
+    parent = torch.arange(R, **i32)
+    count = torch.zeros((2,), **i32)
     q = torch.empty((R, H), device=dev)
     cv = torch.empty((R, H), device=dev)
     logits = torch.empty((R, V), device=dev)
-    cand_val = torch.empty((R, K), device=dev)
-    cand_tok = torch.empty((R, K), **i32)
     tok = torch.empty((stop_limit, R), **i32)
     par = torch.empty((stop_limit, R), **i32)
     valid = torch.empty((stop_limit, R), **i32)
+    packed = pack_step_weights(w)
     lib = build.library()
     beam_search_streams.launches += 1
     build.check_launch("k6_beam_decode", lib.k6_beam_decode(
-        enc.data_ptr(), *(w[k].data_ptr() for k in _WEIGHT_ORDER),
+        enc.data_ptr(), *(packed[k].data_ptr() for k in _STEP_ORDER),
         hbuf.data_ptr(), cbuf.data_ptr(), htbuf.data_ptr(),
         tok_in.data_ptr(), score.data_ptr(), fin.data_ptr(),
-        done.data_ptr(), parent.data_ptr(), q.data_ptr(), cv.data_ptr(),
-        logits.data_ptr(), cand_val.data_ptr(), cand_tok.data_ptr(),
-        tok.data_ptr(), par.data_ptr(), valid.data_ptr(),
-        B, N, K, T, H, L, E, A, V, stop_limit,
+        done.data_ptr(), parent.data_ptr(), count.data_ptr(), q.data_ptr(),
+        cv.data_ptr(), logits.data_ptr(), tok.data_ptr(), par.data_ptr(),
+        valid.data_ptr(), B, N, K, T, H, L, E, A, V, stop_limit,
+        int(PDL),
         torch.cuda.current_stream(dev).cuda_stream))
     shape = (stop_limit, B, N)
     return tok.view(shape), par.view(shape), valid.view(shape), score

@@ -19,7 +19,7 @@ leaves of the moment trees are ``[]``.
 
 import torch
 
-from ast_tpu.config import OPT_ADAM
+from ast_tpu_torch.config import OPT_ADAM
 from ast_tpu_torch.params import tree_map
 
 B1, B2, EPS = 0.9, 0.999, 1e-8

@@ -27,7 +27,7 @@ import time
 import numpy as np
 import torch
 
-from ast_tpu.config import Config
+from ast_tpu_torch.config import Config
 from ast_tpu_torch.checkpoint import (
     checkpoint_path, flatten, latest_checkpoint, load_checkpoint,
     save_checkpoint, unflatten)

@@ -57,15 +57,26 @@ Then a JSON line with each kernel's count, error and times, and last
 {"ok": true, "device": {...}}.  A kernel's count ("launches") is the
 number of calls of its wrapper while its path was driven: K1 (eval), K5
 and K6 over the greedy and beam passes of phase 4 (not the warm-up), K1
-(train), K2, K3 and K4 over phase 6's two epochs.  Each call runs the
-whole kernel -- every step and layer, many CUDA launches.
-"max_abs_err" is K1's largest state difference, K5's largest shortfall
-of a chosen token's logit below the plain step's best, K6's largest
-score difference, and for the training kernels the largest difference
-over their output streams.  Any failure raises (exit code 1, no result
-line); with no CUDA device it exits 2.  Of ast_tpu, the port loads only
-its JAX-free config, symbols and BLEU modules; the script checks that
-JAX was not imported.
+(train), K2, K3 and K4 over phase 6's two epochs; "launches_per_unit"
+is that count over the served batches (K1 eval, K5, K6) or the train
+steps (K1 train, K2, K3, K4) of those runs.  Each call runs the whole
+kernel -- every step and layer, many CUDA launches.  "max_abs_err" is
+K1's largest state difference, K5's largest shortfall of a chosen
+token's logit below the plain step's best, K6's largest score
+difference, and for the training kernels the largest difference over
+their output streams.  "ms" and "plain_ms" are phase 3's and phase 5's
+times.  "bound_ms" is the least time the card could take for the same
+call: the larger of its matrix products' FLOPs over 67 TFLOP/s (f32
+outside the tensor cores) and its bytes -- each input read once, each
+output written once -- over 3.35 TB/s, from kernel_cost at the call's
+shapes and, for K5 / K6, the steps the timed call ran; "bound_by" says
+which ("operations" or "bytes").  "library_ms" is one PyTorch call of
+the same function where one exists: for K1 eval two cuDNN torch.nn.LSTM
+calls, one per direction stack, on the conv output (so they include the
+hoisted layer-0 GEMM), checked against K1's outputs first; null for the
+others, which no one library call computes.  Any failure raises (exit
+code 1, no result line); with no CUDA device it exits 2.  The script
+checks that neither JAX nor any module of ast_tpu was imported.
 """
 
 import contextlib
@@ -92,6 +103,67 @@ U_TRAIN, DROP, TEACH, NOISE = 64, 0.3, 0.8, 0.25
 ENC_SEED, DEC_SEED = 2 ** 31 - 1000, 1234567
 BWD_TOL = 1e-3          # relative to max|plain| (reverse-time sums)
 N_TRAIN, N_DEV = 96, 32
+# the H100 SXM's published peaks (NVIDIA's data sheet, 700 W): float32
+# outside the tensor cores, and HBM3
+PEAK_F32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+
+
+def kernel_cost(key, d):
+    """(FLOPs of the matrix products, bytes moved) of one call of kernel
+    ``key`` ("k1", "k1t", "k2", "k3", "k4", "k5", "k6") at the dims ``d``:
+    B, H, L and, for the encoder, T and D2 (directions, H a direction's
+    units), for the decoder T, E, A, V and U (K3, K4), n (the steps a K5 /
+    K6 call ran), stop, N (K6) and n_logits (K3: the steps whose next
+    input is sampled, the only ones that compute logits).  Bytes count
+    each input read once and each output written once, 4 bytes an
+    element.  Elementwise work (gates, softmax, dropout, top-K) is left
+    out of the FLOPs."""
+    B, H, L = d["B"], d["H"], d["L"]
+    if key in ("k1", "k1t", "k2"):
+        T, D2 = d["T"], d["D2"]
+        flops = 2 * T * D2 * B * 4 * H * H * (2 * L - 1)
+        w = (2 * L - 1) * D2 * H * 4 * H + L * D2 * 4 * H
+        if key == "k2":
+            ins = w - L * D2 * 4 * H + T * L * D2 * B * 5 * H \
+                + T * D2 * B * H + 2 * L * D2 * B * H
+            outs = T * L * D2 * B * 4 * H
+        else:
+            ins = w + T * D2 * B * 4 * H
+            outs = T * D2 * B * H + (2 * L * D2 * B * H if key == "k1"
+                                     else T * L * D2 * B * 7 * H)
+        return flops, 4 * (ins + outs)
+    T, E, A, V = d["T"], d["E"], d["A"], d["V"]
+    cell = 4 * H * (E + A + H) + (L - 1) * 4 * H * 2 * H
+    attn = H * H + 2 * T * H + 2 * H * A
+    dec_w = (V * E + (E + A) * 4 * H + (2 * L - 1) * H * 4 * H + L * 4 * H
+             + H * H + H + 2 * H * A + A + A * V + V)
+    enc_state = B * T * H + 2 * L * B * H
+    if key == "k3":
+        U = d["U"]
+        flops = 2 * U * B * (cell + attn) + 2 * d["n_logits"] * B * A * V
+        outs = U * B * (A + 1 + L * 7 * H + T + 2 * H + E)
+        return flops, 4 * (enc_state + dec_w + U * B + U + outs)
+    if key == "k4":
+        U = d["U"]
+        flops = 2 * U * B * (2 * H * A + 2 * T * H + H * H
+                             + (2 * L - 1) * 4 * H * H + 4 * H * (E + A))
+        ins = (U * L * B * 5 * H + L * B * H + U * B * T + 2 * U * B * A
+               + B * T * H + 2 * H * A + H * H + (2 * L - 1) * H * 4 * H
+               + (E + A) * 4 * H)
+        outs = U * B * (L * 4 * H + A + T + 2 * H + E) + 2 * L * B * H
+        return flops, 4 * (ins + outs)
+    R = B * d.get("N", 1)
+    flops = 2 * d["n"] * R * (cell + attn + A * V)
+    outs = d["stop"] * R * (3 if key == "k6" else 1) + (R if key == "k6"
+                                                          else 0)
+    return flops, 4 * (enc_state + dec_w + outs)
+
+
+def bound(flops, nbytes):
+    """(bound_ms, bound_by): the larger of the two least times."""
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    return (max(t_ops, t_bytes) * 1e3,
+            "operations" if t_ops >= t_bytes else "bytes")
 
 
 def cuda_ms(fn, reps):
@@ -307,11 +379,20 @@ def check_kernels(cfg, device):
     print(f"K1 encoder: x0_proj {tuple(enc_in[0].shape)}, max abs err "
           f"{err:.3e} (tol {ENC_TOL})", flush=True)
     assert err <= ENC_TOL, f"K1 disagrees with its plain version: {err}"
+    T_enc, D2, _, H4e = enc_in[0].shape
+    lstms, xs = cudnn_pair(params, state, mcfg, X)
+    lib_err = cudnn_pair_err(lstms, xs, got)
+    print(f"  cuDNN pair (two torch.nn.LSTM, one per direction stack, from "
+          f"the conv output): max abs err {lib_err:.3e} against K1 (tol "
+          f"{ENC_TOL})", flush=True)
+    assert lib_err <= ENC_TOL, "the cuDNN pair computes another function"
     results["k1"] = dict(
         max_abs_err=err,
         ms=cuda_ms(lambda: fused_lstm.fused_stacked_lstm(*enc_in), 5),
         plain_ms=cuda_ms(lambda: fused_lstm.stacked_lstm_reference(*enc_in),
-                         2))
+                         2),
+        library_ms=cuda_ms(lambda: [m(x) for m, x in zip(lstms, xs)], 5),
+        dims=dict(T=T_enc, D2=D2, B=B, H=H4e // 4, L=enc_in[2].shape[0]))
 
     enc, h0, c0 = seq2seq.encoder_outputs(*ref)
     w = seq2seq.pack_decoder_weights(params)
@@ -337,13 +418,18 @@ def check_kernels(cfg, device):
     print(f"  EOS bias {beta:.4f}: rows finish at {n_finish} distinct "
           f"steps from {int(first_eos.min())} to {int(first_eos.max())}, "
           f"PAD after step {g_eos['steps']}", flush=True)
+    dec_dims = dict(B=B, T=enc.shape[1], H=enc.shape[2], L=h0.shape[0],
+                    E=w["embed"].shape[1], A=w["ctx_w"].shape[1],
+                    V=w["embed"].shape[0], stop=STOP)
+    k5_ms = pdl_ab(lambda: fused_infer.greedy_decode_fused(
+        enc, h0, c0, w, STOP), 3)
     results["k5"] = dict(
         max_abs_err=max(g["shortfall"], g_eos["shortfall"]),
         rows_equal=g["rows_equal"], rows_equal_eos_bias=g_eos["rows_equal"],
-        ms=cuda_ms(lambda: fused_infer.greedy_decode_fused(
-            enc, h0, c0, w, STOP), 3),
+        ms=k5_ms[fused_infer.PDL], pdl_ab=k5_ms,
         plain_ms=cuda_ms(lambda: fused_infer.greedy_reference(
-            enc, h0, c0, w, STOP), 2))
+            enc, h0, c0, w, STOP), 2),
+        dims=dict(dec_dims, n=g["steps"]))
 
     _, bm = check_beam(enc, h0, c0, w)
     # the beam ends early only once every slot of every utterance is
@@ -371,14 +457,82 @@ def check_kernels(cfg, device):
               f"err (tol {SCORE_TOL})", flush=True)
     print(f"  EOS bias {beta * scale:.4f}: {mixed} steps hold an utterance "
           f"already ended, valid 0 for all after step {steps}", flush=True)
+    k6_ms = pdl_ab(lambda: fused_infer.beam_decode_fused(
+        enc, h0, c0, w, N_BEAM, K_BEAM, STOP), 3)
     results["k6"] = dict(
         max_abs_err=max(bm["score_err"], bm_eos["score_err"]),
         utts_equal=bm["utts_equal"], utts_equal_eos_bias=bm_eos["utts_equal"],
-        ms=cuda_ms(lambda: fused_infer.beam_decode_fused(
-            enc, h0, c0, w, N_BEAM, K_BEAM, STOP), 3),
+        ms=k6_ms[fused_infer.PDL], pdl_ab=k6_ms,
         plain_ms=cuda_ms(lambda: fused_infer.beam_reference(
-            enc, h0, c0, w, N_BEAM, K_BEAM, STOP), 1))
+            enc, h0, c0, w, N_BEAM, K_BEAM, STOP), 1),
+        dims=dict(dec_dims, n=bm["steps"], N=N_BEAM))
+    for key, name in (("k5", "K5"), ("k6", "K6")):
+        ab = results[key]["pdl_ab"]
+        print(f"{name}: {ab[True]:.3f} ms with programmatic dependent "
+              f"launch, {ab[False]:.3f} ms without (same call, in turns)",
+              flush=True)
     return results
+
+
+def pdl_ab(fn, reps):
+    """Device ms of ``fn`` with the decode steps' programmatic dependent
+    launch on and off, in turns (on, off, off, on); {True: ms, False: ms},
+    each the mean of its two turns.  The setting is left as it was."""
+    from ast_tpu_torch.ops import fused_infer
+
+    keep = fused_infer.PDL
+    ms = {True: 0.0, False: 0.0}
+    try:
+        for on in (True, False, False, True):
+            fused_infer.PDL = on
+            ms[on] += cuda_ms(fn, reps) / 2
+    finally:
+        fused_infer.PDL = keep
+    return ms
+
+
+def cudnn_pair(params, state, mcfg, X):
+    """K1's yardstick: per direction stack one cuDNN torch.nn.LSTM (3
+    layers, the port's weights, b_ih = its bias, b_hh = 0), and its input,
+    the conv output (the reverse stack's time-reversed).  Returns
+    (lstms, inputs)."""
+    import torch
+
+    from ast_tpu_torch.ops.cnn import conv_frontend
+
+    h_cnn, _ = conv_frontend(params["cnn"], state["cnn_bn"],
+                             mcfg["cnn_config"], X)
+    seq = h_cnn.transpose(0, 1).contiguous()              # (T', B, C)
+    if mcfg["rnn_config"].get("ref_rev_quirk", False):
+        rev = torch.cat([seq[:1], seq[1:].flip(0)])
+    else:
+        rev = seq.flip(0)
+    layers = params["enc"]["lstm"]
+    H = layers[0]["wh"].shape[-2]
+    lstms = []
+    for d in range(2):
+        m = torch.nn.LSTM(seq.shape[-1], H, num_layers=len(layers)).to(
+            seq.device)
+        with torch.no_grad():
+            for l, p in enumerate(layers):
+                getattr(m, f"weight_ih_l{l}").copy_(p["wx"][d].t())
+                getattr(m, f"weight_hh_l{l}").copy_(p["wh"][d].t())
+                getattr(m, f"bias_ih_l{l}").copy_(p["b"][d])
+                getattr(m, f"bias_hh_l{l}").zero_()
+        lstms.append(m)
+    return lstms, (seq, rev.contiguous())
+
+
+def cudnn_pair_err(lstms, xs, k1_out):
+    """Largest difference of the cuDNN pair's outputs, final h and final c
+    from K1's (outs (T, 2, B, H), h_fin, c_fin (L, 2, B, H))."""
+    err = 0.0
+    for d, (m, x) in enumerate(zip(lstms, xs)):
+        y, (h, c) = m(x)
+        for a, b in ((y, k1_out[0][:, d]), (h, k1_out[1][:, d]),
+                     (c, k1_out[2][:, d])):
+            err = max(err, float((a - b).abs().max()))
+    return err
 
 
 def quiet(main, argv):
@@ -395,6 +549,7 @@ def run_slice(exp, paths, out_dir):
     import torch
 
     from ast_tpu_torch.cli import infer
+    from ast_tpu_torch.models import seq2seq
     from ast_tpu_torch.ops import fused_infer, fused_lstm
 
     counters = {"k1": fused_lstm.fused_stacked_lstm,
@@ -406,14 +561,17 @@ def run_slice(exp, paths, out_dir):
                        os.path.join(out_dir, "warmup.txt")] + paths[:2])
     for fn in counters.values():
         fn.launches = 0
-    rates = {}
+    rates, batches = {}, {}
     for name, extra in (("greedy", []),
                         ("beam", ["--beam", f"{N_BEAM},{K_BEAM}"])):
         out = os.path.join(out_dir, f"{name}.txt")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        hyps, _ = quiet(infer.main, ["-m", exp, "--device", "cuda", "-o",
-                                     out] + extra + paths)
+        # every served batch is encoded once
+        with counting(seq2seq, "encode") as calls:
+            hyps, _ = quiet(infer.main, ["-m", exp, "--device", "cuda",
+                                         "-o", out] + extra + paths)
+        batches[name] = calls[0]
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
         with open(out) as f:
@@ -426,7 +584,27 @@ def run_slice(exp, paths, out_dir):
     launches = {k: fn.launches for k, fn in counters.items()}
     for k, n in launches.items():
         assert n > 0, f"the main path never launched {k}"
-    return rates, launches
+    units = {"k1": batches["greedy"] + batches["beam"],
+             "k5": batches["greedy"], "k6": batches["beam"]}
+    return rates, launches, units
+
+
+@contextlib.contextmanager
+def counting(owner, name):
+    """Count the calls of ``owner.name`` inside the block; yields a
+    one-element list holding the count."""
+    fn = getattr(owner, name)
+    calls = [0]
+
+    def counted(*args, **kw):
+        calls[0] += 1
+        return fn(*args, **kw)
+
+    setattr(owner, name, counted)
+    try:
+        yield calls
+    finally:
+        setattr(owner, name, fn)
 
 
 def rel_err(got, want):
@@ -537,11 +715,13 @@ def check_train_kernels(cfg, device):
               f"{'equals' if mask_ok else 'DIFFERS from'} the hash mask "
               f"({float((~keep).float().mean()):.3f} dropped)", flush=True)
         assert err <= ENC_TOL and mask_ok, "K1 train disagrees"
+        enc_dims = dict(T=T, D2=x0.shape[1], B=B, H=x0.shape[3] // 4, L=L)
         results["k1t"] = dict(
             max_abs_err=err, ms=cuda_ms(lambda: fl.fused_stacked_lstm_train(
                 *enc_args), 5),
             plain_ms=cuda_ms(lambda: fl.stacked_lstm_reference(
-                *enc_args[:4], True, ENC_SEED, DROP), 2))
+                *enc_args[:4], True, ENC_SEED, DROP), 2),
+            dims=enc_dims)
 
         enc, h0, c0 = seq2seq.encoder_outputs(*ref[:3])
         w = seq2seq.pack_decoder_weights(params)
@@ -565,11 +745,15 @@ def check_train_kernels(cfg, device):
               f"abs err {err:.3e} (tol {ENC_TOL})", flush=True)
         assert n_sampled > 0 and short <= TOK_TOL and teacher_ok \
             and err <= ENC_TOL, "K3 disagrees"
+        dec_dims = dict(B=B, T=enc.shape[1], H=enc.shape[2], L=h0.shape[0],
+                        E=w["embed"].shape[1], A=w["ctx_w"].shape[1],
+                        V=w["embed"].shape[0], U=U_TRAIN - 1)
         results["k3"] = dict(
             max_abs_err=err, sampled_shortfall=short,
             ms=cuda_ms(lambda: fd.decoder_forward(*dec_args), 5),
             plain_ms=cuda_ms(lambda: fd.decoder_forward_reference(
-                *dec_args), 2))
+                *dec_args), 2),
+            dims=dict(dec_dims, n_logits=n_sampled))
 
     # the loss's own cotangents at the encoder outputs and at ht
     enc_out = [t.detach().requires_grad_(True) for t in ref[:3]]
@@ -592,7 +776,8 @@ def check_train_kernels(cfg, device):
         results["k2"] = dict(
             max_abs_err=err, rel_err=rel,
             ms=cuda_ms(lambda: fl.encoder_backward(*bwd), 5),
-            plain_ms=cuda_ms(lambda: fl.encoder_backward_reference(*bwd), 2))
+            plain_ms=cuda_ms(lambda: fl.encoder_backward_reference(*bwd), 2),
+            dims=enc_dims)
 
         enc, h0, c0 = seq2seq.encoder_outputs(*ref[:3])
         bwd = (res_k, ht_k, enc, c0, w, d_ht, DEC_SEED, DROP, DROP)
@@ -607,7 +792,8 @@ def check_train_kernels(cfg, device):
         results["k4"] = dict(
             max_abs_err=err, rel_err=worst[0],
             ms=cuda_ms(lambda: fd.decoder_backward(*bwd), 5),
-            plain_ms=cuda_ms(lambda: fd.decoder_backward_reference(*bwd), 2))
+            plain_ms=cuda_ms(lambda: fd.decoder_backward_reference(*bwd), 2),
+            dims=dec_dims)
 
     # the whole step: every parameter's gradient, kernels vs plain
     leaves = tree_leaves(params)
@@ -709,7 +895,9 @@ def run_train_slice(root, smi, device="cuda"):
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
-    _, report = quiet(train.main, ["-m", exp, "-e", "2", "--device", device])
+    with counting(NN, "train_step") as steps:
+        _, report = quiet(train.main, ["-m", exp, "-e", "2", "--device",
+                                       device])
     if device == "cuda":
         torch.cuda.synchronize()
     wall = time.perf_counter() - t0
@@ -759,7 +947,8 @@ def run_train_slice(root, smi, device="cuda"):
               f"{busy:.2f} ms (idle share {1 - busy / wall:.3f}); busy by "
               f"kernel: " + ", ".join(f"{k} {v:.2f}" for k, v in groups),
               flush=True)
-    return launches, dict(utts_per_s=rates, split=split, losses=losses)
+    return launches, dict(utts_per_s=rates, split=split, losses=losses,
+                          steps=steps[0])
 
 
 # kernel-name fragments -> group, first match wins
@@ -850,6 +1039,25 @@ def step_split(nn, batch, reps):
             for k, v in spans.items()}
 
 
+def print_registers(log):
+    """Each kernel's registers and spills, from the build's ptxas lines
+    (the mangled name holds the source of a kernel in an anonymous
+    namespace, e.g. decode_step_cu ... prod_kernel ILi8ELi4ELb1E for
+    prod_kernel<8, 4, true>)."""
+    fn, spill = "", ""
+    with open(log) as f:
+        for line in f:
+            m = re.search(r"Compiling entry function '(\S+)'", line)
+            if m:
+                fn = re.sub(r"^_ZN(3ast)?\d*_GLOBAL__N_+\w*?_\d+_", "",
+                            m.group(1))
+            if "spill" in line:
+                spill = line.strip()
+            if "registers" in line:
+                print(f"  {fn[:64]}: {line.strip().split(': ')[-1]}; "
+                      f"{spill}")
+
+
 def main():
     import torch
 
@@ -875,23 +1083,21 @@ def main():
           + (f" (nvcc {built['seconds']:.1f} s, {built['path']})"
              if built else " (library already built)"), flush=True)
     if built:
-        with open(built["log"]) as f:
-            for line in f:
-                if "registers" in line or "spill" in line:
-                    print("  " + line.strip())
+        print_registers(built["log"])
 
     device = torch.device("cuda")
     with tempfile.TemporaryDirectory() as root:
         exp, cfg, paths = make_experiment(root)
         with torch.inference_mode():
             results = check_kernels(cfg, device)
-        rates, launches = run_slice(exp, paths, root)
+        rates, launches, units = run_slice(exp, paths, root)
         print(f"slice ({N_UTTS} utts, {smi}): greedy {rates['greedy']:.1f} "
-              f"utts/s, beam {N_BEAM},{K_BEAM} {rates['beam']:.1f} utts/s",
-              flush=True)
+              f"utts/s, beam {N_BEAM},{K_BEAM} {rates['beam']:.1f} utts/s; "
+              f"served batches {units}", flush=True)
         results.update(check_train_kernels(cfg, device))
-        train_launches, _ = run_train_slice(root, smi)
+        train_launches, train = run_train_slice(root, smi)
     launches.update({k: v for k, v in train_launches.items() if k != "k5"})
+    units.update({k: train["steps"] for k in ("k1t", "k2", "k3", "k4")})
 
     meta = {
         "k1": ("K1 fused biLSTM encoder", "k1_encoder.cu",
@@ -912,13 +1118,24 @@ def main():
     kernels = []
     for key, (name, src, replaces) in meta.items():
         r = results[key]
+        bound_ms, bound_by = bound(*kernel_cost(key, r["dims"]))
         kernels.append(dict(
             name=name, route="cuda",
             source=f"ast_tpu_torch/kernels/csrc/{src}", replaces=replaces,
-            launches=launches[key], max_abs_err=r["max_abs_err"],
-            ms=r["ms"], plain_ms=r["plain_ms"]))
-    assert not [m for m in sys.modules if m.split(".")[0] in
-                ("jax", "jaxlib")], "JAX was imported"
+            launches=launches[key],
+            launches_per_unit=launches[key] / units[key],
+            max_abs_err=r["max_abs_err"], ms=r["ms"],
+            plain_ms=r["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=r.get("library_ms")))
+        unit = ("train step" if key in ("k1t", "k2", "k3", "k4")
+                else "served batch")
+        print(f"{name}: {r['ms']:.3f} ms, bound {bound_ms:.3f} ms "
+              f"({bound_by}; {bound_ms / r['ms']:.3f} of it reached), "
+              f"{launches[key] / units[key]:.2f} launches per {unit} "
+              f"({smi})", flush=True)
+    loaded = [m for m in sys.modules
+              if m.split(".")[0] in ("jax", "jaxlib", "ast_tpu")]
+    assert not loaded, f"JAX or ast_tpu was imported: {loaded[:5]}"
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

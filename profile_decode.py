@@ -7,7 +7,12 @@ On chip_smoke.py's synthetic es_en_20h experiment (seeded weights, 64
 feature files of 100-1,200 frames):
 1. kernels: one call each of K1, K5 and K6 at chip_smoke's shapes (B=32,
    640 frames, stop 175, beam 5,5) under torch.profiler -- each CUDA
-   kernel's launches, mean and share of the call's device time;
+   kernel's launches, mean and share of the call's device time, and the
+   call split by phase: LSTM cells, row-wise linears (q, ctx, logits),
+   attention, selection and argmax, and the launch gaps (the span from
+   the first kernel's start to the last one's end, less the busy time),
+   with the decodes' programmatic dependent launch off, so each kernel's
+   span is its own;
 2. slice: the entry point ast_tpu_torch.cli.infer, greedy and beam 5,5,
    under torch.profiler after a warm-up call -- wall time, device busy
    time (the union of kernel intervals) and the idle share
@@ -78,6 +83,25 @@ def profiled(fn):
     return prof, wall
 
 
+# kernel-name fragments -> phase of a decode step, first match wins
+PHASES = (("lstm_cell", "LSTM cell"), (", true>", "LSTM cell"),
+          ("prod_kernel", "linears"), ("attention", "attention"),
+          ("argmax", "selection / argmax"),
+          ("beam_step", "selection / argmax"))
+
+
+def phase_split(intervals):
+    """[(phase, ms)] of a call's kernels, with the launch gaps last."""
+    by = {}
+    for name, a, b in intervals:
+        ph = next((p for k, p in PHASES if k in name), "other")
+        by[ph] = by.get(ph, 0.0) + (b - a) / 1e3
+    span = (max(b for _, _, b in intervals)
+            - min(a for _, a, _ in intervals)) / 1e3
+    return sorted(by.items(), key=lambda kv: -kv[1]) + [
+        ("launch gaps", span - busy_us(intervals) / 1e3)]
+
+
 def short(name, width=48):
     return name if len(name) <= width else name[:width - 3] + "..."
 
@@ -105,6 +129,9 @@ def profile_kernels(cfg, device, out):
                 enc, h0, c0, w, chip_smoke.N_BEAM, chip_smoke.K_BEAM,
                 chip_smoke.STOP),
         }
+        # programmatic dependent launch off: under it a kernel's span
+        # includes its wait for the one before, and the phases overlap
+        fused_infer.PDL = False
         for name, fn in calls.items():
             fn()  # warm-up
             prof, wall = profiled(fn)
@@ -115,10 +142,16 @@ def profile_kernels(cfg, device, out):
             for kname, n, t, mean, share in rows[:8]:
                 print(f"  {short(kname):48s} {n:5d} x {mean:8.2f} us "
                       f"= {t / 1e3:7.2f} ms  {share * 100:5.1f} %")
+            print("  by phase: " + ", ".join(
+                f"{ph} {ms:.2f} ms" for ph, ms in phase_split(
+                    [iv for iv in device_intervals(prof)
+                     if "at::" not in iv[0] and "Memcpy" not in iv[0]
+                     and "Memset" not in iv[0]])), flush=True)
             if out:
                 with open(os.path.join(out, f"kernels_{name}.txt"), "w") as f:
                     f.write(prof.key_averages().table(
                         sort_by="self_device_time_total", row_limit=40))
+        fused_infer.PDL = True
 
 
 def profile_slice(cfg, exp, paths, root, out):
