@@ -1,34 +1,41 @@
 #!/usr/bin/env python3
-"""Time the port's kernels in two checkouts on one NVIDIA GPU, in turns.
+"""Time the port's kernels and its decode slice in two checkouts on one
+NVIDIA GPU, in turns.
 
     python3 ab_kernels.py PARENT_DIR [CHANGE_DIR]
 
 Runs ``python3 ab_kernels.py --tree DIR`` as a fresh process for the
 parent, the change, the change again and the parent again (CHANGE_DIR
-defaults to this script's checkout), and prints each kernel's device
-time per run and the change's mean against the parent's.  One run, in
-the checkout it is given: K1 (eval and train mode), K2, K3, K4, K5 and
-K6 at chip_smoke.py's shapes (es_en_20h width, B=32, 640 frames -> T'=160,
-U=64 targets, stop 175, beam 5,5, seeded random weights and inputs;
-dropout 0.3), each timed with CUDA events, mean of several calls after a
-warm-up, float32 with TF32 off.  Only the port's public entry points are
-called, so any two checkouts of the port compare.  Each checkout builds
-its kernels into its own build/.  Needs a CUDA device; exits 2 without
-one.
+defaults to this script's checkout), and prints each number per run and
+the change's mean against the parent's.  One run, in the checkout it is
+given, at chip_smoke.py's shapes and with its timer (this script's own
+chip_smoke.py, so both checkouts run the same shapes): K1 (eval and
+train mode), K2, K3, K4, K5 and K6 (es_en_20h width, B=32, 640 frames ->
+T'=160, U=64 targets, stop 175, beam 5,5, seeded random weights and
+inputs; dropout 0.3), each timed with CUDA events, mean of several calls
+after a warm-up, float32 with TF32 off; then chip_smoke's phase 4, the
+infer CLI on 64 files, greedy and beam 5,5, three times, in utts/s (the
+median).  Only the port's public entry points are called, so any two
+checkouts of the port compare.  Each checkout builds its kernels into
+its own build/.  Needs a CUDA device; exits 2 without one.
 """
 
 import json
 import os
+import statistics
 import subprocess
 import sys
+import tempfile
 
-B, FRAMES, STOP, N_BEAM, K_BEAM, U, DROP = 32, 640, 175, 5, 5, 64, 0.3
-VOCAB = 1098
-ORDER = ("k1", "k1t", "k2", "k3", "k4", "k5", "k6")
+import chip_smoke as cs
+
+ORDER = ("k1", "k1t", "k2", "k3", "k4", "k5", "k6", "greedy_utts_s",
+         "beam_utts_s")
+SLICE_PASSES = 3
 
 
 def time_tree(tree):
-    """{kernel: ms} for the checkout at ``tree``."""
+    """{kernel: ms, slice: utts/s} for the checkout at ``tree``."""
     sys.path.insert(0, tree)
     import numpy as np
     import torch
@@ -41,55 +48,51 @@ def time_tree(tree):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    with open(os.path.join(tree, "experiments", "es_en_20h",
-                           "model_cfg.json")) as f:
-        mcfg = json.load(f)
-    mcfg["rnn_config"]["dec_vocab_size"] = VOCAB
-
-    def ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(reps):
-            fn()
-        b.record()
-        b.synchronize()
-        return a.elapsed_time(b) / reps
-
-    rng = np.random.default_rng(0)
-    params, state = seq2seq.init_model(mcfg, seed=0, device=dev)
-    X = torch.from_numpy(rng.standard_normal((B, FRAMES, 13)).astype(
-        np.float32)).to(dev)
-    y = rng.integers(4, VOCAB, (U, B)).astype(np.int32)
-    y[0] = 1
-    y_in = torch.from_numpy(y[:-1].copy()).to(dev)
-    coins = torch.from_numpy(
-        (rng.random(U - 1) < 0.8).astype(np.int32)).to(dev)
-    coins[0] = 1
     out = {}
-    with torch.inference_mode():
-        enc_in = seq2seq.encoder_inputs(params, state, mcfg, X)
-        out["k1"] = ms(lambda: fl.fused_stacked_lstm(*enc_in), 20)
-        tr = (*enc_in[:4], 12345, DROP)
-        res = fl.fused_stacked_lstm_train(*tr)
-        out["k1t"] = ms(lambda: fl.fused_stacked_lstm_train(*tr), 10)
-        d_out = [torch.randn_like(t) for t in res[:3]]
-        bwd = (res[3], res[4], enc_in[1], enc_in[2], *d_out, 12345, DROP)
-        out["k2"] = ms(lambda: fl.encoder_backward(*bwd), 10)
-        enc, h0, c0 = seq2seq.encoder_outputs(*res[:3])
-        w = seq2seq.pack_decoder_weights(params)
-        dec = (enc, h0, c0, w, y_in, coins, 777, DROP, DROP)
-        ht, r = fd.decoder_forward(*dec)
-        out["k3"] = ms(lambda: fd.decoder_forward(*dec), 10)
-        d_ht = torch.randn_like(ht)
-        db = (r, ht, enc, c0, w, d_ht, 777, DROP, DROP)
-        out["k4"] = ms(lambda: fd.decoder_backward(*db), 10)
-        out["k5"] = ms(lambda: fi.greedy_decode_fused(enc, h0, c0, w, STOP),
-                       5)
-        out["k6"] = ms(lambda: fi.beam_decode_fused(enc, h0, c0, w, N_BEAM,
-                                                    K_BEAM, STOP), 3)
+    with tempfile.TemporaryDirectory() as root:
+        exp, cfg, paths = cs.make_experiment(root)
+        mcfg = cfg.model
+        rng = np.random.default_rng(0)
+        params, state = seq2seq.init_model(mcfg, seed=0, device=dev)
+        X = torch.from_numpy(rng.standard_normal(
+            (cs.B, cs.FRAMES, 13)).astype(np.float32)).to(dev)
+        y = rng.integers(4, cs.VOCAB, (cs.U_TRAIN, cs.B)).astype(np.int32)
+        y[0] = 1
+        y_in = torch.from_numpy(y[:-1].copy()).to(dev)
+        coins = torch.from_numpy(
+            (rng.random(cs.U_TRAIN - 1) < 0.8).astype(np.int32)).to(dev)
+        coins[0] = 1
+        with torch.inference_mode():
+            enc_in = seq2seq.encoder_inputs(params, state, mcfg, X)
+            out["k1"] = cs.cuda_ms(lambda: fl.fused_stacked_lstm(*enc_in),
+                                   20)
+            tr = (*enc_in[:4], 12345, cs.DROP)
+            res = fl.fused_stacked_lstm_train(*tr)
+            out["k1t"] = cs.cuda_ms(lambda: fl.fused_stacked_lstm_train(*tr),
+                                    10)
+            d_out = [torch.randn_like(t) for t in res[:3]]
+            bwd = (res[3], res[4], enc_in[1], enc_in[2], *d_out, 12345,
+                   cs.DROP)
+            out["k2"] = cs.cuda_ms(lambda: fl.encoder_backward(*bwd), 10)
+            enc, h0, c0 = seq2seq.encoder_outputs(*res[:3])
+            w = seq2seq.pack_decoder_weights(params)
+            dec = (enc, h0, c0, w, y_in, coins, 777, cs.DROP, cs.DROP)
+            ht, r = fd.decoder_forward(*dec)
+            out["k3"] = cs.cuda_ms(lambda: fd.decoder_forward(*dec), 10)
+            d_ht = torch.randn_like(ht)
+            db = (r, ht, enc, c0, w, d_ht, 777, cs.DROP, cs.DROP)
+            out["k4"] = cs.cuda_ms(lambda: fd.decoder_backward(*db), 10)
+            # a checkout without decode_weights packs inside the wrappers
+            w_dec = getattr(seq2seq, "decode_weights",
+                            seq2seq.pack_decoder_weights)(params)
+            out["k5"] = cs.cuda_ms(lambda: fi.greedy_decode_fused(
+                enc, h0, c0, w_dec, cs.STOP), 5)
+            out["k6"] = cs.cuda_ms(lambda: fi.beam_decode_fused(
+                enc, h0, c0, w_dec, cs.N_BEAM, cs.K_BEAM, cs.STOP), 3)
+        rates = [cs.run_slice(exp, paths, root)[0]
+                 for _ in range(SLICE_PASSES)]
+    for name in ("greedy", "beam"):
+        out[f"{name}_utts_s"] = statistics.median(r[name] for r in rates)
     return out
 
 
@@ -121,7 +124,8 @@ def main():
             for n in ("parent", "change")}
     for k in ORDER:
         p, c = mean["parent"][k], mean["change"][k]
-        print(f"{k}: parent {p:.3f} ms, change {c:.3f} ms, "
+        unit = "utts/s" if k.endswith("utts_s") else "ms"
+        print(f"{k}: parent {p:.3f} {unit}, change {c:.3f} {unit}, "
               f"{(c / p - 1) * 100:+.1f} %")
     return 0
 

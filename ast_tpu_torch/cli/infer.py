@@ -119,6 +119,7 @@ def main(argv=None):
                                             stop_limit=stop_limit)
     preds = {}
     with torch.inference_mode():
+        w = seq2seq.decode_weights(params)      # once for every batch
         for T in sorted(groups):
             items = groups[T]
             for i in range(0, len(items), batch_size):
@@ -130,7 +131,8 @@ def main(argv=None):
                 X = torch.from_numpy(X).to(device)
                 if beam_nk is not None:
                     hyps, scores, lengths = (
-                        a.cpu().numpy() for a in decode(params, state, X))
+                        a.cpu().numpy() for a in decode(params, state, X,
+                                                        w))
                     entries = {
                         utt: [(hyps[j, n, :int(lengths[j, n])].tolist(),
                                float(scores[j, n]))
@@ -139,7 +141,7 @@ def main(argv=None):
                     preds.update(beam_ops.get_best_hyps(entries, args.W))
                 else:
                     p = seq2seq.predict_greedy(params, state, mcfg, X,
-                                               stop_limit)[0].cpu().numpy()
+                                               stop_limit, w)[0].cpu().numpy()
                     for j, (utt, _) in enumerate(chunk):
                         # cut each file's ids at its own first EOS
                         eos = np.nonzero(p[j] == SYMBOLS.EOS_ID)[0]

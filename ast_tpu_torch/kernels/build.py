@@ -36,8 +36,8 @@ _SIGNATURES = {
     "k2_encoder_backward": [_P] * 7 + [_I] * 5 + [_U, _U, _F, _P],
     "k3_decoder_forward": [_P] * 28 + [_I] * 8 + [_U, _U, _F, _U, _F, _P],
     "k4_decoder_backward": [_P] * 19 + [_I] * 7 + [_U, _U, _F, _U, _F, _P],
-    "k5_greedy_decode": [_P] * 20 + [_I] * 9 + [_P],
-    "k6_beam_decode": [_P] * 25 + [_I] * 11 + [_P],
+    "k5_greedy_decode": [_P] * 20 + [_I] * 8 + [_P],
+    "k6_beam_decode": [_P] * 25 + [_I] * 10 + [_P],
 }
 
 _lib = None

@@ -238,7 +238,7 @@ cudaError_t launch_attention_alphas(const float* enc, const float* q,
 // multiples of 32.  Every kernel returns at once while *done != 0.
 cudaError_t decode_step(const StepWeights& w, const float* enc, int T,
                         int rows_per_utt, const DecoderStep& st, int R,
-                        const int* done, bool pdl, cudaStream_t s);
+                        const int* done, cudaStream_t s);
 
 // Programmatic dependent launch: wait for the grids this one depends on
 // (their writes visible), and let the next grid launch.  Both are no-ops
@@ -252,10 +252,12 @@ static __device__ __forceinline__ void grid_dep_launch() {
 }
 
 // kernel<<<grid, block, smem, s>>>(args...) in clusters of `cluster`
-// blocks along x, as a programmatic dependent launch when pdl.
+// blocks along x, as a programmatic dependent launch: the grid may start
+// while the one before it in the stream runs, and waits for it in
+// grid_dep_wait().
 template <typename... KArgs, typename... Args>
 cudaError_t launch_ex(void (*kernel)(KArgs...), dim3 grid, dim3 block,
-                      size_t smem, int cluster, bool pdl, cudaStream_t s,
+                      size_t smem, int cluster, cudaStream_t s,
                       Args&&... args) {
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
@@ -268,7 +270,7 @@ cudaError_t launch_ex(void (*kernel)(KArgs...), dim3 grid, dim3 block,
   at[0].val.clusterDim.y = 1;
   at[0].val.clusterDim.z = 1;
   at[1].id = cudaLaunchAttributeProgrammaticStreamSerialization;
-  at[1].val.programmaticStreamSerializationAllowed = pdl ? 1 : 0;
+  at[1].val.programmaticStreamSerializationAllowed = 1;
   cfg.attrs = at;
   cfg.numAttrs = 2;
   return cudaLaunchKernelEx(&cfg, kernel, std::forward<Args>(args)...);

@@ -21,9 +21,10 @@
 // linears).  A block owns NC = 64 output columns -- for a cell, all four
 // gates of 16 hidden units, so the gate epilogue stays fused -- for ALL
 // R rows of the step (up to 256; more in 256-row chunks).  The weights
-// are packed once per decode call (ops/fused_infer.pack_step_weights) as
-// [column block][k][64], so a block's tile of KT = 32 input rows is one
-// contiguous 8 KB bulk copy; the input rows are gathered through each
+// are packed once per model (ops/fused_infer.pack_step_weights, through
+// models/seq2seq.decode_weights) as [column block][k][64], so a block's
+// tile of KT = 32 input rows is one contiguous 8 KB bulk copy; the input
+// rows are gathered through each
 // segment's row index by the threads' 16-byte cp.async.  The ring holds
 // 8 tiles at 32 rows, 4 at 64, 3 from 128 (ProdShape).  Register tile:
 // TR rows x 4 columns a thread, 16 column groups x RGN row groups x KGN
@@ -62,10 +63,11 @@
 // search): the products read h, c and ht of the previous step at the
 // parent row, so no gather runs between steps.
 //
-// With pdl, every launch allows programmatic dependent launch: each
-// kernel waits for its predecessor (griddepcontrol.wait) before it reads
-// anything, then lets its successor launch, so launch latency hides
-// behind the previous kernel's tail.
+// Every launch is a programmatic dependent launch: each kernel waits for
+// its predecessor (griddepcontrol.wait) before it reads anything, then
+// lets its successor launch, so launch latency hides behind the previous
+// kernel's tail (K5 -12.7 %, K6 -2.6 % against plain launches, measured
+// on the H100 when this was chosen; PERF.md).
 #include <cooperative_groups.h>
 #include <math.h>
 
@@ -582,8 +584,7 @@ int cluster_size(Kernel kernel, size_t smem, int blocks, int limit) {
 }
 
 template <int TR, int RGN, bool CELL>
-cudaError_t launch_prod_tile(const Prod& a, int col_blocks, bool pdl,
-                             cudaStream_t s) {
+cudaError_t launch_prod_tile(const Prod& a, int col_blocks, cudaStream_t s) {
   using S = ProdShape<TR, RGN>;
   static bool opted = false;
   if (!opted) {
@@ -599,28 +600,28 @@ cudaError_t launch_prod_tile(const Prod& a, int col_blocks, bool pdl,
                               col_blocks * row_chunks, ktot / KT);
   return launch_ex(prod_kernel<TR, RGN, CELL>,
                    dim3(col_blocks * cs, row_chunks), dim3(THREADS),
-                   S::BYTES, cs, pdl, s, a);
+                   S::BYTES, cs, s, a);
 }
 
 // Rows per thread and row groups by R: all rows in one block up to 256,
 // the input quads of a tile split over KGN = 16 / RGN thread groups.
 template <bool CELL>
-cudaError_t launch_prod(const Prod& a, bool pdl, cudaStream_t s) {
+cudaError_t launch_prod(const Prod& a, cudaStream_t s) {
   const int cols = CELL ? a.N / UNITS : (a.N + NC - 1) / NC;
   const int R = a.R;
-  if (R <= 16) return launch_prod_tile<4, 4, CELL>(a, cols, pdl, s);
-  if (R <= 32) return launch_prod_tile<8, 4, CELL>(a, cols, pdl, s);
-  if (R <= 64) return launch_prod_tile<8, 8, CELL>(a, cols, pdl, s);
-  if (R <= 128) return launch_prod_tile<8, 16, CELL>(a, cols, pdl, s);
-  if (R <= 160) return launch_prod_tile<10, 16, CELL>(a, cols, pdl, s);
-  return launch_prod_tile<16, 16, CELL>(a, cols, pdl, s);
+  if (R <= 16) return launch_prod_tile<4, 4, CELL>(a, cols, s);
+  if (R <= 32) return launch_prod_tile<8, 4, CELL>(a, cols, s);
+  if (R <= 64) return launch_prod_tile<8, 8, CELL>(a, cols, s);
+  if (R <= 128) return launch_prod_tile<8, 16, CELL>(a, cols, s);
+  if (R <= 160) return launch_prod_tile<10, 16, CELL>(a, cols, s);
+  return launch_prod_tile<16, 16, CELL>(a, cols, s);
 }
 
 }  // namespace
 
 cudaError_t decode_step(const StepWeights& w, const float* enc, int T,
                         int rows_per_utt, const DecoderStep& st, int R,
-                        const int* done, bool pdl, cudaStream_t s) {
+                        const int* done, cudaStream_t s) {
   const int H = w.H;
   const long H4 = 4L * H, RH = (long)R * H;
   const float* cell_w = w.cell;
@@ -649,7 +650,7 @@ cudaError_t decode_step(const StepWeights& w, const float* enc, int T,
     a.c_idx = st.parent;
     a.c_out = st.c_out + l * RH;
     a.done = done;
-    STEP_RETURN_IF_ERR(launch_prod<true>(a, pdl, s));
+    STEP_RETURN_IF_ERR(launch_prod<true>(a, s));
   }
   const float* top = st.h_out + (w.L - 1) * RH;
 
@@ -662,7 +663,7 @@ cudaError_t decode_step(const StepWeights& w, const float* enc, int T,
   q.N = H;
   q.out = st.q;
   q.done = done;
-  STEP_RETURN_IF_ERR(launch_prod<false>(q, pdl, s));
+  STEP_RETURN_IF_ERR(launch_prod<false>(q, s));
 
   const int N = rows_per_utt, B = R / N;
   // shared memory for one block per utterance, the most any cluster
@@ -678,7 +679,7 @@ cudaError_t decode_step(const StepWeights& w, const float* enc, int T,
   }
   const int cs = cluster_size(attention_kernel, bytes, B, T);
   STEP_RETURN_IF_ERR(launch_ex(attention_kernel, dim3(B * cs), dim3(THREADS),
-                               bytes, cs, pdl, s,
+                               bytes, cs, s,
                                Attn{enc, st.q, st.cv, N, T, H, done}));
 
   Prod c = {};
@@ -692,7 +693,7 @@ cudaError_t decode_step(const StepWeights& w, const float* enc, int T,
   c.act_tanh = 1;
   c.out = st.ht_out;
   c.done = done;
-  STEP_RETURN_IF_ERR(launch_prod<false>(c, pdl, s));
+  STEP_RETURN_IF_ERR(launch_prod<false>(c, s));
 
   Prod o = {};
   o.seg[0] = Seg{st.ht_out, 0, nullptr, w.A};
@@ -703,7 +704,7 @@ cudaError_t decode_step(const StepWeights& w, const float* enc, int T,
   o.N = w.V;
   o.out = st.logits;
   o.done = done;
-  return launch_prod<false>(o, pdl, s);
+  return launch_prod<false>(o, s);
 }
 
 }  // namespace ast

@@ -21,8 +21,8 @@
 // previous step's state while other blocks write the new one.  A
 // device-side finished flag replaces the host's early exit: every kernel
 // of a step reads it and returns at once after the last row's EOS, so the
-// host loop never synchronises.  With pdl the launches are programmatic
-// dependent launches.
+// host loop never synchronises.  Every launch is a programmatic dependent
+// launch.
 #include "common.cuh"
 
 namespace {
@@ -71,7 +71,7 @@ AST_EXPORT int k5_greedy_decode(
     const float* out_b, float* hbuf,
     float* cbuf, float* htbuf, int* tok_in, int* fin, int* done, float* q,
     float* cv, float* logits, int* tok_out, int B, int T, int H, int L,
-    int E, int A, int V, int stop, int pdl, void* stream) {
+    int E, int A, int V, int stop, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const ast::StepWeights w = {embed, cell,  bias,  wa, wa_b, ctx_w,
                               ctx_b, out_w, out_b, L,  H,    E,
@@ -90,9 +90,9 @@ AST_EXPORT int k5_greedy_decode(
     st.cv = cv;
     st.ht_out = htbuf + o * (long)B * A;
     st.logits = logits;
-    AST_RETURN_IF_ERR(ast::decode_step(w, enc, T, 1, st, B, done, pdl, s));
+    AST_RETURN_IF_ERR(ast::decode_step(w, enc, T, 1, st, B, done, s));
     AST_RETURN_IF_ERR(ast::launch_ex(greedy_argmax_kernel, dim3(1),
-                                     dim3(1024), 0, 1, pdl, s, logits, B, V,
+                                     dim3(1024), 0, 1, s, logits, B, V,
                                      tok_in, fin, tok_out + (long)t * B,
                                      done));
   }

@@ -28,8 +28,8 @@
 // candidates without a taken-mask, even when N > K.  The device-side
 // done flag ends the work once every hypothesis has finished (the last
 // block of a step counts the utterances whose slots have all finished);
-// later steps stream EOS, identity parents and valid = 0.  With pdl the
-// launches are programmatic dependent launches.
+// later steps stream EOS, identity parents and valid = 0.  Every launch
+// is a programmatic dependent launch.
 #include <limits.h>
 #include <math.h>
 
@@ -198,7 +198,7 @@ AST_EXPORT int k6_beam_decode(
     float* cbuf, float* htbuf, int* tok_in, float* score, int* fin,
     int* done, int* parent, int* count, float* q, float* cv, float* logits,
     int* tok_out, int* par_out, int* val_out, int B, int N, int K, int T,
-    int H, int L, int E, int A, int V, int stop, int pdl, void* stream) {
+    int H, int L, int E, int A, int V, int stop, void* stream) {
   if (N > 32) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const ast::StepWeights w = {embed, cell,  bias,  wa, wa_b, ctx_w,
@@ -221,10 +221,10 @@ AST_EXPORT int k6_beam_decode(
     st.cv = cv;
     st.ht_out = htbuf + o * (long)R * A;
     st.logits = logits;
-    AST_RETURN_IF_ERR(ast::decode_step(w, enc, T, N, st, R, done, pdl, s));
+    AST_RETURN_IF_ERR(ast::decode_step(w, enc, T, N, st, R, done, s));
     const long off = (long)t * R;
     AST_RETURN_IF_ERR(ast::launch_ex(
-        beam_step_kernel, dim3(B), dim3(32 * N), cand_bytes, 1, pdl, s,
+        beam_step_kernel, dim3(B), dim3(32 * N), cand_bytes, 1, s,
         logits, V, N, K, score, fin, tok_in, parent, tok_out + off,
         par_out + off, val_out + off, count, done));
   }

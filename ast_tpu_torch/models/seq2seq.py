@@ -19,7 +19,7 @@ from ast_tpu_torch.symbols import SYMBOLS
 from ast_tpu_torch.ops.cnn import conv_frontend
 from ast_tpu_torch.ops.fused_decoder import W_NAMES, FusedDecoder
 from ast_tpu_torch.ops.fused_infer import (
-    greedy_decode_fused, require_decode_variant)
+    greedy_decode_fused, pack_step_weights, require_decode_variant)
 from ast_tpu_torch.ops.fused_lstm import (
     FusedStackedLSTM, fused_stacked_lstm, pack_encoder_weights)
 from ast_tpu_torch.params import from_jax_numpy
@@ -153,13 +153,26 @@ def pack_decoder_weights(params):
     return {k: v.contiguous() for k, v in w.items()}
 
 
-def predict_greedy(params, state, mcfg, X, stop_limit):
+def decode_weights(params):
+    """The decoder weights that greedy and beam decoding take:
+    :func:`pack_decoder_weights` plus, under ``"step"``, the decode step
+    kernels' layout (``fused_infer.pack_step_weights``).  Made once per
+    model -- a caller decoding many batches with the same params passes
+    it to every batch."""
+    w = pack_decoder_weights(params)
+    w["step"] = pack_step_weights(w)
+    return w
+
+
+def predict_greedy(params, state, mcfg, X, stop_limit, w=None):
     """Batched greedy decode.  Returns (preds (B, stop_limit) int32,
     n_steps 0-d int32): the steps until every row has produced its first EOS,
-    capped at stop_limit."""
+    capped at stop_limit.  ``w``: :func:`decode_weights` of ``params``,
+    made here when not given."""
     enc_states, dec_h0, dec_c0 = encode(params, state, mcfg, X)
-    preds = greedy_decode_fused(enc_states, dec_h0, dec_c0,
-                                pack_decoder_weights(params), stop_limit)
+    if w is None:
+        w = decode_weights(params)
+    preds = greedy_decode_fused(enc_states, dec_h0, dec_c0, w, stop_limit)
     is_eos = preds == SYMBOLS.EOS_ID
     per_row = torch.where(is_eos.any(dim=1),
                           is_eos.int().argmax(dim=1) + 1, stop_limit)

@@ -12,7 +12,9 @@ from ast_tpu_torch.ops.fused_infer import (
 
 
 def make_beam_decoder(mcfg, N, K, stop_limit):
-    """Build ``(params, state, X) -> (hyps, scores, lengths)``.
+    """Build ``(params, state, X, w=None) -> (hyps, scores, lengths)``;
+    ``w`` is ``seq2seq.decode_weights(params)``, made per call when not
+    given.
 
     hyps: (B, N, stop_limit+1) int32 token ids beginning with GO;
     scores: (B, N) summed log-probs; lengths: (B, N) valid token counts."""
@@ -25,11 +27,12 @@ def make_beam_decoder(mcfg, N, K, stop_limit):
         raise ValueError(f"beam sizes must be >= 1 (got N={N}, K={K})")
     require_decode_variant(mcfg)
 
-    def decode(params, state, X):
+    def decode(params, state, X, w=None):
         enc_states, dec_h0, dec_c0 = seq2seq.encode(params, state, mcfg, X)
-        return beam_decode_fused(enc_states, dec_h0, dec_c0,
-                                 seq2seq.pack_decoder_weights(params),
-                                 N, K, stop_limit)
+        if w is None:
+            w = seq2seq.decode_weights(params)
+        return beam_decode_fused(enc_states, dec_h0, dec_c0, w, N, K,
+                                 stop_limit)
 
     return decode
 

@@ -10,7 +10,9 @@ written from ast_tpu's XLA decode loops (``seq2seq.predict_greedy``'s
 
 ``w`` is the packed decoder weight dict of
 ``models.seq2seq.pack_decoder_weights``: ast_tpu's layout without the
-TPU's vocab padding.
+TPU's vocab padding.  The kernels take it with the decode step's own
+layout under ``"step"`` (:func:`pack_step_weights`), which
+``models.seq2seq.decode_weights`` adds once per model.
 """
 
 import torch
@@ -25,9 +27,6 @@ NEG_INF = -1e30
 _DECODE_TILE = 32
 # shared memory a block may use on the H100
 _SMEM_BYTES = 227 * 1024
-# launch the decode steps' kernels as programmatic dependent launches
-# (chip_smoke.py times K5 and K6 with it on and off; see PERF.md)
-PDL = True
 
 
 def require_decode_variant(mcfg):
@@ -355,7 +354,8 @@ def pack_step_weights(w):
     input rows is one contiguous copy.  A cell's [wx; wh] (K, 4H) is
     packed by hidden unit: column q * 16 + u of block c is gate q of
     unit 16 c + u, so a block holds all four gates of its units.  A
-    layout copy of the decoder weights, made once per decode call."""
+    layout copy of the decoder weights, made once per model
+    (``models.seq2seq.decode_weights``), not per decode call."""
     L, H = w["wh"].shape[0], w["wh"].shape[1]
     cells = []
     for l in range(L):
@@ -372,6 +372,25 @@ def pack_step_weights(w):
 
 _STEP_ORDER = ("embed", "cell", "b", "wa", "wa_b", "ctx_w", "ctx_b",
                "out_w", "out_b")
+
+
+def step_weights(w, H, L, E, A, V):
+    """``w["step"]``, the packed form the decode step kernels take,
+    checked against the decoder's dims.  Raises ValueError if ``w`` lacks
+    it (make ``w`` with ``models.seq2seq.decode_weights``)."""
+    if "step" not in w:
+        raise ValueError("the decode kernels take the weights of "
+                         "seq2seq.decode_weights (packed once per model, "
+                         "under 'step')")
+    shapes = {"embed": (V, E),
+              "cell": (4 * H * (E + A + H + (L - 1) * 2 * H),),
+              "b": (L, 4 * H), "wa": (-(-H // 64), H, 64), "wa_b": (H,),
+              "ctx_w": (-(-A // 64), 2 * H, 64), "ctx_b": (A,),
+              "out_w": (-(-V // 64), A, 64), "out_b": (V,)}
+    step = w["step"]
+    for k in _STEP_ORDER:
+        build.check_tensor(step[k], f"step {k}", shapes[k])
+    return step
 
 
 def check_decode_shapes(B, T, H, E, A, N, K=1):
@@ -414,7 +433,7 @@ def greedy_decode_fused(enc, dec_h0, dec_c0, w, stop_limit):
     cv = torch.empty((B, H), device=dev)
     logits = torch.empty((B, V), device=dev)
     tok_out = torch.empty((stop_limit, B), **i32)
-    packed = pack_step_weights(w)
+    packed = step_weights(w, H, L, E, A, V)
     lib = build.library()
     greedy_decode_fused.launches += 1
     build.check_launch("k5_greedy_decode", lib.k5_greedy_decode(
@@ -422,7 +441,7 @@ def greedy_decode_fused(enc, dec_h0, dec_c0, w, stop_limit):
         hbuf.data_ptr(), cbuf.data_ptr(), htbuf.data_ptr(),
         tok_in.data_ptr(), fin.data_ptr(), done.data_ptr(), q.data_ptr(),
         cv.data_ptr(), logits.data_ptr(), tok_out.data_ptr(),
-        B, T, H, L, E, A, V, stop_limit, int(PDL),
+        B, T, H, L, E, A, V, stop_limit,
         torch.cuda.current_stream(dev).cuda_stream))
     return tok_out.t().contiguous()
 
@@ -461,7 +480,7 @@ def beam_search_streams(enc, dec_h0, dec_c0, w, N, K, stop_limit):
     tok = torch.empty((stop_limit, R), **i32)
     par = torch.empty((stop_limit, R), **i32)
     valid = torch.empty((stop_limit, R), **i32)
-    packed = pack_step_weights(w)
+    packed = step_weights(w, H, L, E, A, V)
     lib = build.library()
     beam_search_streams.launches += 1
     build.check_launch("k6_beam_decode", lib.k6_beam_decode(
@@ -471,7 +490,6 @@ def beam_search_streams(enc, dec_h0, dec_c0, w, N, K, stop_limit):
         done.data_ptr(), parent.data_ptr(), count.data_ptr(), q.data_ptr(),
         cv.data_ptr(), logits.data_ptr(), tok.data_ptr(), par.data_ptr(),
         valid.data_ptr(), B, N, K, T, H, L, E, A, V, stop_limit,
-        int(PDL),
         torch.cuda.current_stream(dev).cuda_stream))
     shape = (stop_limit, B, N)
     return tok.view(shape), par.view(shape), valid.view(shape), score

@@ -170,12 +170,13 @@ class NN:
         stop_limit = tcfg["data"]["max_pred"]
         preds = []
         with torch.inference_mode():
+            w = seq2seq.decode_weights(self.params)   # once for the split
             for batch in self.data_loader.get_batch(
                     tcfg["batch_size"], set_key, train=False, labels=False,
                     tail_shrink=self.tail_shrink):
                 X = torch.from_numpy(batch["X"]).to(self.device)
                 p, _ = seq2seq.predict_greedy(self.params, self.state,
-                                              self.mcfg, X, stop_limit)
+                                              self.mcfg, X, stop_limit, w)
                 p = p[:len(batch["utts"])].cpu().numpy()
                 preds.extend(zip(batch["utts"], p.tolist()))
         return preds

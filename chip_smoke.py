@@ -22,7 +22,10 @@ Phases, each printing a line:
    beam's rules for frozen slots, distinct candidates and the ended
    search, and final scores within 1e-3.  Both run again with an EOS
    logit bias picked so that rows end at staggered steps before the
-   stop limit, which drives the kernels' early exit;
+   stop limit, which drives the kernels' early exit, and along their own
+   tokens at the partial batches of PARTIAL (5 to 64 utterances, T' of
+   20 to 140, stop 60), which reach every row tiling of the decode
+   step's products and attention clusters of 2 to 8 blocks;
 4. the serving path through its entry point, ast_tpu_torch.cli.infer,
    on a synthetic es_en_20h experiment (seeded checkpoint, 1098-entry
    BPE vocab, 64 feature files of mixed lengths): after a warm-up call,
@@ -103,6 +106,13 @@ U_TRAIN, DROP, TEACH, NOISE = 64, 0.3, 0.8, 0.25
 ENC_SEED, DEC_SEED = 2 ** 31 - 1000, 1234567
 BWD_TOL = 1e-3          # relative to max|plain| (reverse-time sums)
 N_TRAIN, N_DEV = 96, 32
+# (utterances, T') of the partial-batch decode checks, at T' of the
+# infer CLI's length buckets (multiples of 20): with greedy R = B rows
+# and beam R = 5 B, these reach every row tiling of decode_step.cu's
+# launch_prod (R <= 16: 5, 11; <= 32: 20, 25; <= 64: 55, 64; <= 128:
+# 100; > 160: 320, in two 256-row chunks) besides the full batch's R =
+# 32 and 160, and attention clusters from 8 blocks (B = 5) down to 2
+PARTIAL, PARTIAL_STOP = ((5, 20), (11, 60), (20, 100), (64, 140)), 60
 # the H100 SXM's published peaks (NVIDIA's data sheet, 700 W): float32
 # outside the tensor cores, and HBM3
 PEAK_F32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
@@ -278,16 +288,19 @@ def beam_ends(val):
 
 
 def with_eos_bias(w, beta):
-    """The decoder weights with ``beta`` added to the EOS logit."""
+    """The decoder weights with ``beta`` added to the EOS logit, the
+    decode step's layout packed anew."""
     from ast_tpu_torch import SYMBOLS
+    from ast_tpu_torch.ops import fused_infer
 
     w = dict(w)
     w["out_b"] = w["out_b"].clone()
     w["out_b"][SYMBOLS.EOS_ID] += beta
+    w["step"] = fused_infer.pack_step_weights(w)
     return w
 
 
-def check_greedy(enc, h0, c0, w):
+def check_greedy(enc, h0, c0, w, stop=STOP):
     """K5 against its plain version, both free-running and stepped along
     the kernel's own tokens: every kernel token within TOK_TOL of the
     plain step's largest logit, and PAD from the step after which every
@@ -295,8 +308,8 @@ def check_greedy(enc, h0, c0, w):
     from ast_tpu_torch import SYMBOLS
     from ast_tpu_torch.ops import fused_infer
 
-    tok = fused_infer.greedy_decode_fused(enc, h0, c0, w, STOP)
-    ref = fused_infer.greedy_reference(enc, h0, c0, w, STOP)
+    tok = fused_infer.greedy_decode_fused(enc, h0, c0, w, stop)
+    ref = fused_infer.greedy_reference(enc, h0, c0, w, stop)
     short, n_run = fused_infer.greedy_follow(enc, h0, c0, w, tok)
     short = float(short.max())
     assert short <= TOK_TOL, (
@@ -309,7 +322,7 @@ def check_greedy(enc, h0, c0, w):
                      rows_equal=int((tok == ref).all(dim=1).sum()))
 
 
-def check_beam(enc, h0, c0, w):
+def check_beam(enc, h0, c0, w, stop=STOP):
     """K6 against its plain version, free-running (utterances whose
     streams are equal must give equal hypotheses, lengths and scores) and
     stepped along the kernel's own streams, where every step of every
@@ -322,7 +335,7 @@ def check_beam(enc, h0, c0, w):
     from ast_tpu_torch.ops import fused_infer
 
     k_tok, k_par, k_val, k_scores = fused_infer.beam_search_streams(
-        enc, h0, c0, w, N_BEAM, K_BEAM, STOP)
+        enc, h0, c0, w, N_BEAM, K_BEAM, stop)
     f_scores, topk_short, sel_err, bad = fused_infer.beam_follow(
         enc, h0, c0, w, N_BEAM, K_BEAM, k_tok, k_par, k_val)
     assert not bad.any(), (
@@ -338,7 +351,7 @@ def check_beam(enc, h0, c0, w):
     assert s_err <= SCORE_TOL, f"K6 scores disagree: {s_err}"
 
     r_hyps, r_scores, r_lens, r_tok, r_par, r_val = \
-        fused_infer.beam_reference(enc, h0, c0, w, N_BEAM, K_BEAM, STOP,
+        fused_infer.beam_reference(enc, h0, c0, w, N_BEAM, K_BEAM, stop,
                                    trace=True)
     pair_eq = ((k_tok == r_tok) & (k_par == r_par)
                & (k_val == r_val)).all(dim=2)          # (step, utterance)
@@ -346,7 +359,8 @@ def check_beam(enc, h0, c0, w):
     k_hyps, k_lens = fused_infer.backtrack(k_tok, k_par, k_val)
     assert (k_lens[same] == r_lens[same]).all(), "K6 lengths disagree"
     assert (k_hyps[same] == r_hyps[same]).all(), "K6 hypotheses disagree"
-    free_err = float((k_scores - r_scores).abs()[same].max())
+    free_err = (float((k_scores - r_scores).abs()[same].max())
+                if same.any() else 0.0)
     assert free_err <= SCORE_TOL, f"K6 scores disagree: {free_err}"
     return k_val, dict(
         score_err=max(s_err, free_err), topk_short=topk_short,
@@ -395,7 +409,7 @@ def check_kernels(cfg, device):
         dims=dict(T=T_enc, D2=D2, B=B, H=H4e // 4, L=enc_in[2].shape[0]))
 
     enc, h0, c0 = seq2seq.encoder_outputs(*ref)
-    w = seq2seq.pack_decoder_weights(params)
+    w = seq2seq.decode_weights(params)
     beta = eos_bias(enc, h0, c0, w)
     assert beta is not None, "no EOS bias staggers the greedy decode"
     w_eos = with_eos_bias(w, beta)
@@ -421,12 +435,11 @@ def check_kernels(cfg, device):
     dec_dims = dict(B=B, T=enc.shape[1], H=enc.shape[2], L=h0.shape[0],
                     E=w["embed"].shape[1], A=w["ctx_w"].shape[1],
                     V=w["embed"].shape[0], stop=STOP)
-    k5_ms = pdl_ab(lambda: fused_infer.greedy_decode_fused(
-        enc, h0, c0, w, STOP), 3)
     results["k5"] = dict(
         max_abs_err=max(g["shortfall"], g_eos["shortfall"]),
         rows_equal=g["rows_equal"], rows_equal_eos_bias=g_eos["rows_equal"],
-        ms=k5_ms[fused_infer.PDL], pdl_ab=k5_ms,
+        ms=cuda_ms(lambda: fused_infer.greedy_decode_fused(
+            enc, h0, c0, w, STOP), 3),
         plain_ms=cuda_ms(lambda: fused_infer.greedy_reference(
             enc, h0, c0, w, STOP), 2),
         dims=dict(dec_dims, n=g["steps"]))
@@ -457,38 +470,46 @@ def check_kernels(cfg, device):
               f"err (tol {SCORE_TOL})", flush=True)
     print(f"  EOS bias {beta * scale:.4f}: {mixed} steps hold an utterance "
           f"already ended, valid 0 for all after step {steps}", flush=True)
-    k6_ms = pdl_ab(lambda: fused_infer.beam_decode_fused(
-        enc, h0, c0, w, N_BEAM, K_BEAM, STOP), 3)
     results["k6"] = dict(
         max_abs_err=max(bm["score_err"], bm_eos["score_err"]),
         utts_equal=bm["utts_equal"], utts_equal_eos_bias=bm_eos["utts_equal"],
-        ms=k6_ms[fused_infer.PDL], pdl_ab=k6_ms,
+        ms=cuda_ms(lambda: fused_infer.beam_decode_fused(
+            enc, h0, c0, w, N_BEAM, K_BEAM, STOP), 3),
         plain_ms=cuda_ms(lambda: fused_infer.beam_reference(
             enc, h0, c0, w, N_BEAM, K_BEAM, STOP), 1),
         dims=dict(dec_dims, n=bm["steps"], N=N_BEAM))
-    for key, name in (("k5", "K5"), ("k6", "K6")):
-        ab = results[key]["pdl_ab"]
-        print(f"{name}: {ab[True]:.3f} ms with programmatic dependent "
-              f"launch, {ab[False]:.3f} ms without (same call, in turns)",
-              flush=True)
+    for nb, t_enc in PARTIAL:
+        g, bm = check_partial(params, state, mcfg, w, nb, t_enc, device)
+        results["k5"]["max_abs_err"] = max(results["k5"]["max_abs_err"],
+                                           g["shortfall"])
+        results["k6"]["max_abs_err"] = max(results["k6"]["max_abs_err"],
+                                           bm["score_err"])
     return results
 
 
-def pdl_ab(fn, reps):
-    """Device ms of ``fn`` with the decode steps' programmatic dependent
-    launch on and off, in turns (on, off, off, on); {True: ms, False: ms},
-    each the mean of its two turns.  The setting is left as it was."""
-    from ast_tpu_torch.ops import fused_infer
+def check_partial(params, state, mcfg, w, nb, t_enc, device):
+    """K5 and K6 against their plain versions (check_greedy, check_beam)
+    on a partial batch of ``nb`` utterances of T' = ``t_enc``, encoded
+    from seeded features, to PARTIAL_STOP steps; returns their numbers."""
+    import torch
 
-    keep = fused_infer.PDL
-    ms = {True: 0.0, False: 0.0}
-    try:
-        for on in (True, False, False, True):
-            fused_infer.PDL = on
-            ms[on] += cuda_ms(fn, reps) / 2
-    finally:
-        fused_infer.PDL = keep
-    return ms
+    from ast_tpu_torch.models import seq2seq
+
+    X = torch.from_numpy(np.random.default_rng(nb).standard_normal(
+        (nb, 4 * t_enc, 13)).astype(np.float32)).to(device)
+    enc, h0, c0 = seq2seq.encode(params, state, mcfg, X)
+    assert enc.shape[1] == t_enc, (enc.shape, t_enc)
+    _, g = check_greedy(enc, h0, c0, w, PARTIAL_STOP)
+    _, bm = check_beam(enc, h0, c0, w, PARTIAL_STOP)
+    print(f"K5 / K6 partial batch of {nb} utterances, T' {t_enc}, "
+          f"{g['steps']} / {bm['steps']} of {PARTIAL_STOP} steps run: greedy "
+          f"{nb} rows, every token within {g['shortfall']:.3e} of the plain "
+          f"step's best logit, {g['rows_equal']} rows equal free-running; "
+          f"beam {N_BEAM},{K_BEAM} {nb * N_BEAM} rows, top-K shortfall "
+          f"{bm['topk_short']:.3e}, selection {bm['sel_err']:.3e}, score "
+          f"{bm['score_err']:.3e}, {bm['utts_equal']} utterances equal "
+          f"free-running", flush=True)
+    return g, bm
 
 
 def cudnn_pair(params, state, mcfg, X):

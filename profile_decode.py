@@ -10,9 +10,11 @@ feature files of 100-1,200 frames):
    kernel's launches, mean and share of the call's device time, and the
    call split by phase: LSTM cells, row-wise linears (q, ctx, logits),
    attention, selection and argmax, and the launch gaps (the span from
-   the first kernel's start to the last one's end, less the busy time),
-   with the decodes' programmatic dependent launch off, so each kernel's
-   span is its own;
+   the first kernel's start to the last one's end, less the busy time).
+   The decodes' kernels are programmatic dependent launches, so a
+   kernel's span may start while its predecessor runs and wait for it:
+   the split gives each kernel only the part of its span past the end
+   of the ones before it (its share of the busy time);
 2. slice: the entry point ast_tpu_torch.cli.infer, greedy and beam 5,5,
    under torch.profiler after a warm-up call -- wall time, device busy
    time (the union of kernel intervals) and the idle share
@@ -46,22 +48,28 @@ def device_intervals(prof):
             for e in prof.events() if e.device_type == DeviceType.CUDA]
 
 
+def exclusive_us(intervals):
+    """[(name, µs)]: each interval's part past the end of every interval
+    that started before it; these add up to the length of the union."""
+    out, end = [], -np.inf
+    for name, a, b in sorted(intervals, key=lambda x: x[1]):
+        out.append((name, max(0.0, b - max(a, end))))
+        end = max(end, b)
+    return out
+
+
 def busy_us(intervals):
     """Length of the union of the intervals."""
-    total, end = 0.0, -np.inf
-    for _, a, b in sorted(intervals, key=lambda x: x[1]):
-        if b > end:
-            total += b - max(a, end)
-            end = b
-    return total
+    return sum(t for _, t in exclusive_us(intervals))
 
 
 def kernel_table(intervals):
-    """Per kernel name: launches, total and mean µs, share of the sum."""
+    """Per kernel name: launches, total and mean exclusive µs, share of
+    the sum (the busy time)."""
     by = {}
-    for name, a, b in intervals:
+    for name, dt in exclusive_us(intervals):
         n, t = by.get(name, (0, 0.0))
-        by[name] = (n + 1, t + b - a)
+        by[name] = (n + 1, t + dt)
     total = sum(t for _, t in by.values()) or 1.0
     rows = sorted(by.items(), key=lambda kv: -kv[1][1])
     return total, [(name, n, t, t / n, t / total) for name, (n, t) in rows]
@@ -91,11 +99,12 @@ PHASES = (("lstm_cell", "LSTM cell"), (", true>", "LSTM cell"),
 
 
 def phase_split(intervals):
-    """[(phase, ms)] of a call's kernels, with the launch gaps last."""
+    """[(phase, ms)] of a call's kernels, by each kernel's exclusive
+    time, with the launch gaps last."""
     by = {}
-    for name, a, b in intervals:
+    for name, t in exclusive_us(intervals):
         ph = next((p for k, p in PHASES if k in name), "other")
-        by[ph] = by.get(ph, 0.0) + (b - a) / 1e3
+        by[ph] = by.get(ph, 0.0) + t / 1e3
     span = (max(b for _, _, b in intervals)
             - min(a for _, a, _ in intervals)) / 1e3
     return sorted(by.items(), key=lambda kv: -kv[1]) + [
@@ -120,7 +129,7 @@ def profile_kernels(cfg, device, out):
         enc_in = seq2seq.encoder_inputs(params, state, cfg.model, X)
         enc, h0, c0 = seq2seq.encoder_outputs(
             *fused_lstm.fused_stacked_lstm(*enc_in))
-        w = seq2seq.pack_decoder_weights(params)
+        w = seq2seq.decode_weights(params)
         calls = {
             "K1": lambda: fused_lstm.fused_stacked_lstm(*enc_in),
             "K5": lambda: fused_infer.greedy_decode_fused(
@@ -129,16 +138,13 @@ def profile_kernels(cfg, device, out):
                 enc, h0, c0, w, chip_smoke.N_BEAM, chip_smoke.K_BEAM,
                 chip_smoke.STOP),
         }
-        # programmatic dependent launch off: under it a kernel's span
-        # includes its wait for the one before, and the phases overlap
-        fused_infer.PDL = False
         for name, fn in calls.items():
             fn()  # warm-up
             prof, wall = profiled(fn)
             total, rows = kernel_table(device_intervals(prof))
-            print(f"{name}: wall {wall * 1e3:.2f} ms, device {total / 1e3:.2f}"
-                  f" ms in {sum(r[1] for r in rows)} kernel launches",
-                  flush=True)
+            print(f"{name}: wall {wall * 1e3:.2f} ms, device busy "
+                  f"{total / 1e3:.2f} ms in {sum(r[1] for r in rows)} kernel "
+                  f"launches", flush=True)
             for kname, n, t, mean, share in rows[:8]:
                 print(f"  {short(kname):48s} {n:5d} x {mean:8.2f} us "
                       f"= {t / 1e3:7.2f} ms  {share * 100:5.1f} %")
@@ -151,7 +157,6 @@ def profile_kernels(cfg, device, out):
                 with open(os.path.join(out, f"kernels_{name}.txt"), "w") as f:
                     f.write(prof.key_averages().table(
                         sort_by="self_device_time_total", row_limit=40))
-        fused_infer.PDL = True
 
 
 def profile_slice(cfg, exp, paths, root, out):
@@ -167,14 +172,16 @@ def profile_slice(cfg, exp, paths, root, out):
     n_batches = sum(-(-n // chip_smoke.B) for n in sizes.values())
     print(f"slice: {len(paths)} files in {len(sizes)} length buckets, "
           f"{n_batches} batches", flush=True)
-    infer.main(["-m", exp, "--device", "cuda", "-o",
-                os.path.join(root, "warmup.txt")] + paths[:2])
+    # the CLI's one line per file goes to its -o file only
+    chip_smoke.quiet(infer.main, ["-m", exp, "--device", "cuda", "-o",
+                                  os.path.join(root, "warmup.txt")]
+                     + paths[:2])
     for name, extra in (("greedy", []),
                         ("beam", ["--beam", f"{chip_smoke.N_BEAM},"
                                             f"{chip_smoke.K_BEAM}"])):
         argv = ["-m", exp, "--device", "cuda", "-o",
                 os.path.join(root, f"{name}.txt")] + extra + paths
-        prof, wall = profiled(lambda: infer.main(argv))
+        prof, wall = profiled(lambda: chip_smoke.quiet(infer.main, argv))
         iv = device_intervals(prof)
         busy = busy_us(iv) / 1e6
         total, rows = kernel_table(iv)

@@ -232,3 +232,31 @@ def test_gate_refuses_unported_variants(model, variant):
 def test_beam_rejects_k_above_vocab():
     with pytest.raises(ValueError, match="exceeds the decoder vocabulary"):
         beam_ops.make_beam_decoder(_mcfg(), 2, V + 1, STOP)
+
+
+def test_decode_weights_are_packed_once(model):
+    """decode_weights adds the decode step's layout to the packed dict;
+    decoding with it given (as the infer CLI and the dev decode pass it
+    to every batch) equals decoding with it made per call."""
+    _, _, X, tp, ts = model
+    w = seq2seq.decode_weights(tp)
+    step = fused_infer.pack_step_weights(seq2seq.pack_decoder_weights(tp))
+    assert set(w["step"]) == set(step)
+    for k, v in step.items():
+        assert torch.equal(w["step"][k], v), k
+    x = torch.from_numpy(X)
+    got = seq2seq.predict_greedy(tp, ts, _mcfg(), x, STOP, w)
+    ref = seq2seq.predict_greedy(tp, ts, _mcfg(), x, STOP)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+    decode = beam_ops.make_beam_decoder(_mcfg(), 3, 3, STOP)
+    got, ref = decode(tp, ts, x, w), decode(tp, ts, x)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
+def test_kernel_wrappers_refuse_weights_without_step_layout(model):
+    """The kernels take only decode_weights' dict: the step layout is not
+    rebuilt per call."""
+    _, _, _, tp, _ = model
+    with pytest.raises(ValueError, match="decode_weights"):
+        fused_infer.step_weights(seq2seq.pack_decoder_weights(tp),
+                                 8, 2, 8, 8, V)
