@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Time the port's kernels and its decode slice in two checkouts on one
-NVIDIA GPU, in turns.
+"""Time the port's kernels, one train step and its decode slice in two
+checkouts on one NVIDIA GPU, in turns.
 
     python3 ab_kernels.py PARENT_DIR [CHANGE_DIR]
 
@@ -12,8 +12,14 @@ given, at chip_smoke.py's shapes and with its timer (this script's own
 chip_smoke.py, so both checkouts run the same shapes): K1 (eval and
 train mode), K2, K3, K4, K5 and K6 (es_en_20h width, B=32, 640 frames ->
 T'=160, U=64 targets, stop 175, beam 5,5, seeded random weights and
-inputs; dropout 0.3), each timed with CUDA events, mean of several calls
-after a warm-up, float32 with TF32 off; then chip_smoke's phase 4, the
+inputs; dropout 0.3), and K3 and K4 again on the first 8 and 16 rows of
+that batch (the sizes of the trainer's shrunk tail batches), each timed
+with CUDA events, mean of several calls
+after a warm-up, float32 with TF32 off; then one train step, the
+trainer's ``NN.train_step`` on chip_smoke's phase 5 batch (B=32, 640
+frames, U=64) of its synthetic es_en_20h training experiment, as the
+host's clock sees it around 10 steps that end in a synchronize, after two
+warm-up steps; then chip_smoke's phase 4, the
 infer CLI on 64 files, greedy and beam 5,5, three times, in utts/s (the
 median).  Only the port's public entry points are called, so any two
 checkouts of the port compare.  Each checkout builds its kernels into
@@ -29,14 +35,18 @@ import tempfile
 
 import chip_smoke as cs
 
-ORDER = ("k1", "k1t", "k2", "k3", "k4", "k5", "k6", "greedy_utts_s",
-         "beam_utts_s")
+ORDER = ("k1", "k1t", "k2", "k3", "k4", "k3_b8", "k4_b8", "k3_b16",
+         "k4_b16", "k5", "k6", "train_step",
+         "greedy_utts_s", "beam_utts_s")
 SLICE_PASSES = 3
+TRAIN_STEPS = 10
 
 
 def time_tree(tree):
     """{kernel: ms, slice: utts/s} for the checkout at ``tree``."""
     sys.path.insert(0, tree)
+    import time
+
     import numpy as np
     import torch
 
@@ -44,6 +54,7 @@ def time_tree(tree):
     from ast_tpu_torch.ops import fused_decoder as fd
     from ast_tpu_torch.ops import fused_infer as fi
     from ast_tpu_torch.ops import fused_lstm as fl
+    from ast_tpu_torch.train.trainer import NN
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -82,6 +93,18 @@ def time_tree(tree):
             d_ht = torch.randn_like(ht)
             db = (r, ht, enc, c0, w, d_ht, 777, cs.DROP, cs.DROP)
             out["k4"] = cs.cuda_ms(lambda: fd.decoder_backward(*db), 10)
+            for nb in (8, 16):
+                dec_nb = (enc[:nb].contiguous(), h0[:, :nb].contiguous(),
+                          c0[:, :nb].contiguous(), w,
+                          y_in[:, :nb].contiguous(), coins, 777, cs.DROP,
+                          cs.DROP)
+                ht_nb, r_nb = fd.decoder_forward(*dec_nb)
+                out[f"k3_b{nb}"] = cs.cuda_ms(
+                    lambda: fd.decoder_forward(*dec_nb), 10)
+                db_nb = (r_nb, ht_nb, dec_nb[0], dec_nb[2], w,
+                         torch.randn_like(ht_nb), 777, cs.DROP, cs.DROP)
+                out[f"k4_b{nb}"] = cs.cuda_ms(
+                    lambda: fd.decoder_backward(*db_nb), 10)
             # a checkout without decode_weights packs inside the wrappers
             w_dec = getattr(seq2seq, "decode_weights",
                             seq2seq.pack_decoder_weights)(params)
@@ -89,6 +112,18 @@ def time_tree(tree):
                 enc, h0, c0, w_dec, cs.STOP), 5)
             out["k6"] = cs.cuda_ms(lambda: fi.beam_decode_fused(
                 enc, h0, c0, w_dec, cs.N_BEAM, cs.K_BEAM, cs.STOP), 3)
+        nn = NN(cs.make_train_experiment(root)[0], "cuda")
+        Xb, yb = cs.train_batch(dev)
+        batch = {"X": Xb.cpu().numpy(), "y": yb.cpu().numpy(),
+                 "n_real": cs.B, "utts": [""] * cs.B}
+        for i in range(2):
+            nn.train_step(batch, i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(TRAIN_STEPS):
+            nn.train_step(batch, 2 + i)
+        torch.cuda.synchronize()
+        out["train_step"] = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
         rates = [cs.run_slice(exp, paths, root)[0]
                  for _ in range(SLICE_PASSES)]
     for name in ("greedy", "beam"):

@@ -34,10 +34,12 @@ _SIGNATURES = {
     "k1_encoder_forward": [_P] * 7 + [_I] * 5 + [_P],
     "k1_encoder_forward_train": [_P] * 10 + [_I] * 5 + [_U, _U, _F, _P],
     "k2_encoder_backward": [_P] * 7 + [_I] * 5 + [_U, _U, _F, _P],
-    "k3_decoder_forward": [_P] * 28 + [_I] * 8 + [_U, _U, _F, _U, _F, _P],
-    "k4_decoder_backward": [_P] * 19 + [_I] * 7 + [_U, _U, _F, _U, _F, _P],
+    "k3_decoder_forward": [_P] * 26 + [_I] * 8 + [_U, _U, _F, _U, _F, _P],
+    "k4_decoder_backward": [_P] * 18 + [_I] * 7 + [_U, _U, _F, _U, _F, _P],
     "k5_greedy_decode": [_P] * 20 + [_I] * 8 + [_P],
     "k6_beam_decode": [_P] * 25 + [_I] * 10 + [_P],
+    # not a launch: fills records, returns their number (cluster_choices)
+    "ast_cluster_choices": [_P, _I],
 }
 
 _lib = None
@@ -110,6 +112,30 @@ def library():
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+_CLUSTER_KINDS = ("linear product", "cell product", "train cell product",
+                  "backward product", "attention", "train attention",
+                  "attention backward")
+
+
+def cluster_choices():
+    """The thread-block cluster sizes the decoder kernels' launches have
+    taken so far in this process (decode_step.cu chooses one per launch
+    shape with cudaOccupancyMaxActiveClusters): a list of dicts with kind,
+    rows (of a product's block; 0 for attention), clusters (column slices
+    or utterances), tiles (32-row input tiles, or T' for attention),
+    smem_kb, cluster and sms (clusters * cluster)."""
+    cap = 256
+    buf = (ctypes.c_int * (7 * cap))()
+    n = min(library().ast_cluster_choices(buf, cap), cap)
+    keys = ("kind", "rows", "clusters", "tiles", "smem_kb", "cluster", "sms")
+    out = []
+    for i in range(n):
+        rec = dict(zip(keys, buf[7 * i:7 * i + 7]))
+        rec["kind"] = _CLUSTER_KINDS[rec["kind"]]
+        out.append(rec)
+    return out
 
 
 def check_tensor(t, name, shape=None):

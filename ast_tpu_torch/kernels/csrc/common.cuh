@@ -1,14 +1,18 @@
 // Shared declarations of the hand-written Hopper kernels (sm_90a).
 //
-// step_kernels.cu holds the per-step building blocks of the encoder and
-// of decoder training (K1-K4): an LSTM cell step with its gate math fused
-// into the epilogue (and, for training, hash dropout and the residual
-// streams), the elementwise LSTM cell backward, a row-wise linear layer,
-// and Luong attention with its weights.  k1_encoder.cu, k2_encoder_bwd.cu,
-// k3_decoder_fwd.cu and k4_decoder_bwd.cu drive them from a host-side
-// time loop.  decode_step.cu holds the decode step of K5 (k5_greedy.cu)
-// and K6 (k6_beam.cu).  Everything is float32 with FMA accumulation; no
-// library GEMM is called.
+// step_kernels.cu holds the per-step building blocks of the encoder (K1,
+// K2): an LSTM cell step with its gate math fused into the epilogue (and,
+// for training, hash dropout and the residual streams), the elementwise
+// LSTM cell backward and a row-wise linear layer; k1_encoder.cu and
+// k2_encoder_bwd.cu drive them from a host-side time loop.
+// decode_step.cu holds the decoder's products (each weight read once a
+// step: packed tiles by bulk copy, the input axis split over a thread-block
+// cluster) and its attention by a cluster per utterance: the decode step
+// of K5 (k5_greedy.cu) and K6 (k6_beam.cu), and, through the launchers
+// declared below, the products and attention of decoder training
+// (k3_decoder_fwd.cu, k4_decoder_bwd.cu), whose time loops also run on the
+// host.  Everything is float32 with FMA accumulation; no library GEMM is
+// called.
 //
 // Every exported entry point launches on the caller's stream, never
 // synchronises, allocates nothing, and returns cudaGetLastError() as an
@@ -86,25 +90,6 @@ static __device__ __forceinline__ int warp_argmax(const float* x, int V) {
   return bi < V ? bi : 0;
 }
 
-// Block-wide max or sum; every thread gets the result.  red: 32 floats
-// of shared memory.
-static __device__ __forceinline__ float block_reduce(float v, bool is_max,
-                                                     float* red) {
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int nw = (blockDim.x + 31) >> 5;
-  v = is_max ? warp_max(v) : warp_sum(v);
-  __syncthreads();
-  if (lane == 0) red[w] = v;
-  __syncthreads();
-  if (w == 0) {
-    v = lane < nw ? red[lane] : (is_max ? -INFINITY : 0.f);
-    v = is_max ? warp_max(v) : warp_sum(v);
-    if (lane == 0) red[0] = v;
-  }
-  __syncthreads();
-  return red[0];
-}
-
 // One input segment of a row-wise product.  Row r of the segment is
 // src + g * g_stride + row(r) * K, with row(r) = idx ? idx[r] : r and g
 // the block's group (the direction, for the encoder).  src == nullptr or
@@ -139,13 +124,12 @@ struct CellArgs {
 // [i|f|g|o]; the output x = dropout(h) goes to x_out and, instead of h,
 // to y_out.  Hash dropout when threshold != 0: element (g, r, j) is kept
 // when drop_hash(g * mask_g + r * H + j, seed) >= threshold, and then
-// x = h * keep_scale, or h / keep_scale with drop_div (the decoder).
+// x = h * keep_scale.
 struct CellTrain {
   float* acts_out; long acts_g;  // (R, 4H) or nullptr
   float* x_out; long x_g;        // (R, H) or nullptr
   unsigned seed, threshold;
   float keep_scale;
-  int drop_div;
   long mask_g;
 };
 
@@ -181,6 +165,64 @@ struct LinearArgs {
   int R, N;
   int act_tanh;
   const int* done;
+};
+
+// One product of decode_step.cu:  z = [seg0 | seg1 | seg2] @ W, W packed
+// as (column blocks, ktot, 64) with its columns zero-padded to a multiple
+// of 64.  A linear layer writes out = act(z + bias) (R, N), bias nullptr
+// = none.  A cell (N = H; packed column q * 16 + u of block cb is gate q
+// of unit 16 cb + u) takes the gates [i, f, g, o] of z + bias, c_out =
+// f * c_in[c_idx[r]] + i * g, out = h = o * tanh(c_out).  Every segment's
+// K is a multiple of 32, every source 16-byte aligned; out and c_out must
+// not alias an input.  The launch returns at once while *done != 0.
+struct Prod {
+  Seg seg[3];
+  int nseg;
+  const float* w;
+  const float* bias;
+  int R, N, act_tanh;
+  float* out;
+  const float* c_in;
+  const int* c_idx;  // nullptr = row r
+  float* c_out;
+  const int* done;
+};
+
+// The train mode of a cell product (a separate kernel, so the eval launch
+// is unchanged): acts (R, 4H) gets the post-activation gates [i|f|g|o],
+// Prod::out the pre-dropout h, and x_drop (R, H) the layer's output
+// x = drop_hash(r * H + j, seed) < threshold ? 0 : h / div (threshold 0:
+// x = h).
+struct CellTrainOut {
+  float* acts;
+  float* x_drop;
+  unsigned seed, threshold;
+  float div;
+};
+
+// The backward mode of a linear product (K4; no bias, no activation),
+// which finishes in its epilogue what the summed row z feeds, element by
+// element, so nothing takes a second pass over memory.  Columns [0,
+// n_carry) go to Prod::out (R, n_carry): the dh carry.  The columns after
+// them are the gradient arriving at the layer below.  With cell.dz set
+// they are H wide and the `cons` of that layer's cell backward `cell`
+// (CellBwdArgs of one group; cell.cons is not read), run here.  Else
+// (layer 0's
+// product) the next E columns, through the step's embedding dropout mask
+// (seed over (R, E), kept values times inv), go to d_emb (R, E), and the
+// A columns after them, the input-feeding gradient, give the step
+// before's d_pre = (d_ht + z) (1 - ht^2) (R, A) -- unless d_pre is
+// nullptr (step 0).
+struct BwdEpilogue {
+  int n_carry;
+  CellBwdArgs cell;
+  float* d_emb;
+  int E, A;
+  unsigned seed, threshold;
+  float inv;
+  const float* d_ht;
+  const float* ht;
+  float* d_pre;
 };
 
 // The decoder weights of the decode step (decode_step.cu), the products'
@@ -227,11 +269,27 @@ cudaError_t launch_lstm_cell_bwd(const CellBwdArgs& a, int groups,
                                  cudaStream_t s);
 cudaError_t launch_linear(const LinearArgs& a, cudaStream_t s,
                           int groups = 1);
-// cv[r] = softmax(enc[r] @ q[r]) @ enc[r], also writing the softmax
-// weights to alphas (R, T).
-cudaError_t launch_attention_alphas(const float* enc, const float* q,
-                                    float* cv, float* alphas, int R, int T,
-                                    int H, cudaStream_t s);
+// The products and attention of decoder training (decode_step.cu), all
+// programmatic dependent launches.  A linear product, a cell product in
+// train mode, and a linear product in backward mode:
+cudaError_t launch_linear_prod(const Prod& a, cudaStream_t s);
+cudaError_t launch_cell_train_prod(const Prod& a, const CellTrainOut& tr,
+                                   cudaStream_t s);
+cudaError_t launch_bwd_prod(const Prod& a, const BwdEpilogue& e,
+                            cudaStream_t s);
+// cv[r] = softmax(enc[r] @ q[r]) @ enc[r] for the R rows of enc (R, T, H),
+// also writing the softmax weights to alphas (R, T); a cluster of blocks
+// per row splits T.
+cudaError_t launch_attention_train(const float* enc, const float* q,
+                                   float* cv, float* alphas, int R, int T,
+                                   int H, cudaStream_t s);
+// Its backward by the same clusters: d_alphas[t] = enc[r, t] . d_cv[r],
+// d_scores = alphas (d_alphas - <d_alphas, alphas>) (R, T), d_q =
+// d_scores @ enc[r] (R, H).
+cudaError_t launch_attention_bwd(const float* enc, const float* alphas,
+                                 const float* d_cv, float* d_scores,
+                                 float* d_q, int R, int T, int H,
+                                 cudaStream_t s);
 // One decoder step for R rows, rows_per_utt of them per utterance of enc
 // (decode_step.cu): embedding gather + input feeding, the L-layer LSTM
 // stack, attention, ht = tanh(ctx([cv; h])), logits.  E, A and H must be

@@ -1,6 +1,11 @@
-// The decode step of K5 (greedy) and K6 (beam): one decoder step for R
-// rows -- embedding gather + input feeding, the L-layer LSTM stack, the
-// attention query, Luong attention, ht = tanh(ctx([cv; h])), logits.
+// The decoder's step kernels.  The decode step of K5 (greedy) and K6
+// (beam): one decoder step for R rows -- embedding gather + input
+// feeding, the L-layer LSTM stack, the attention query, Luong attention,
+// ht = tanh(ctx([cv; h])), logits.  And, launched one by one from the
+// host loops of k3_decoder_fwd.cu and k4_decoder_bwd.cu, the same
+// products and attention for decoder training: the cell with a train
+// epilogue (gates, c, h and the dropped h to the residual streams),
+// attention that also writes its weights, and its backward.
 //
 // Replaces the per-step body that ast_tpu/ops/fused_infer.py's
 // _greedy_kernel and _beam_kernel share (_lstm_stack, _step_core,
@@ -22,10 +27,12 @@
 // gates of 16 hidden units, so the gate epilogue stays fused -- for ALL
 // R rows of the step (up to 256; more in 256-row chunks).  The weights
 // are packed once per model (ops/fused_infer.pack_step_weights, through
-// models/seq2seq.decode_weights) as [column block][k][64], so a block's
-// tile of KT = 32 input rows is one contiguous 8 KB bulk copy; the input
-// rows are gathered through each
-// segment's row index by the threads' 16-byte cp.async.  The ring holds
+// models/seq2seq.decode_weights; in training, where they change every
+// step, once per K3 call, and K4's transposed matrices once per K4 call
+// by ops/fused_decoder.pack_backward_weights) as [column block][k][64],
+// so a block's tile of KT = 32 input rows is one contiguous 8 KB bulk
+// copy; the input rows are gathered through each segment's row index by
+// the threads' 16-byte cp.async.  The ring holds
 // 8 tiles at 32 rows, 4 at 64, 3 from 128 (ProdShape).  Register tile:
 // TR rows x 4 columns a thread, 16 column groups x RGN row groups x KGN
 // input-axis groups = 256 threads (R = 32: 8 rows, 4 row groups, 4
@@ -171,25 +178,6 @@ __device__ __forceinline__ void cp_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-// The products of one launch:  z = [seg0 | seg1 | seg2] @ W, W packed as
-// (column blocks, ktot, NC).  A linear layer writes out = act(z + bias)
-// (R, N); a cell (N = H; packed column q * UNITS + u of block cb is gate
-// q of unit cb * UNITS + u) takes the gates [i, f, g, o] of z + bias,
-// c_out = f * c_in[c_idx[r]] + i * g, out = h = o * tanh(c_out).  Every
-// segment's K is a multiple of KT.
-struct Prod {
-  Seg seg[3];
-  int nseg;
-  const float* w;
-  const float* bias;
-  int R, N, act_tanh;
-  float* out;
-  const float* c_in;
-  const int* c_idx;  // nullptr = row r
-  float* c_out;
-  const int* done;
-};
-
 // A block's tiles: a ring of 8 stages up to 32 rows (latency is what a
 // few rows run into), 4 up to 64, 3 from 128 (160 rows: 94 KB).
 template <int TR, int RGN>
@@ -207,8 +195,45 @@ struct ProdShape {
       NEED > EXCLUSIVE_SMEM ? NEED : EXCLUSIVE_SMEM;
 };
 
-template <int TR, int RGN, bool CELL>
-__global__ void __launch_bounds__(THREADS) prod_kernel(Prod a) {
+// What a product's epilogue does with the summed rows (see Prod,
+// CellTrainOut and BwdEpilogue in common.cuh).
+enum { PROD_LINEAR = 0, PROD_CELL = 1, PROD_CELL_TRAIN = 2, PROD_BWD = 3 };
+
+struct NoExtra {};
+
+// Element (r, j) of the cell backward `a` (CellBwdArgs, one group) given
+// the gradient `cons` arriving from above, before its dropout mask; the
+// thread that owns the element reads and writes its dc.  The arithmetic
+// of step_kernels.cu's lstm_cell_bwd_kernel, which stays a kernel of its
+// own for the encoder: sharing this function with it cost K2 1.7-2.0 %
+// (H100, same-call A/B).
+__device__ __forceinline__ void cell_bwd_element(const CellBwdArgs& a, int r,
+                                                 int j, float cons) {
+  const int H = a.H;
+  const long H4 = 4L * H;
+  if (a.threshold)
+    cons = drop_hash((unsigned)(r * H + j), a.seed) < a.threshold
+               ? 0.f
+               : cons * a.keep_scale;
+  const float dh = a.dh[(long)r * a.dh_ld + j] + cons;
+  const float* ac = a.acts + (long)r * H4 + j;
+  const float ig = ac[0], fg = ac[H], gg = ac[2 * H], og = ac[3 * H];
+  const float tc = tanhf(a.c_new[(long)r * H + j]);
+  const float cp = a.c_prev ? a.c_prev[(long)r * H + j] : 0.f;
+  float* dcp = a.dc + (long)r * H + j;
+  const float dc = *dcp + dh * og * (1.f - tc * tc);
+  *dcp = dc * fg;
+  float* dz = a.dz + (long)r * H4 + j;
+  dz[0] = dc * gg * ig * (1.f - ig);
+  dz[H] = dc * cp * fg * (1.f - fg);
+  dz[2 * H] = dc * ig * (1.f - gg * gg);
+  dz[3 * H] = dh * tc * og * (1.f - og);
+}
+
+// ex: the CellTrainOut of PROD_CELL_TRAIN, the BwdEpilogue of PROD_BWD.
+template <int TR, int RGN, int MODE, typename Extra>
+__device__ __forceinline__ void prod_body(const Prod& a, const Extra& ex) {
+  constexpr bool CELL = MODE == PROD_CELL || MODE == PROD_CELL_TRAIN;
   using S = ProdShape<TR, RGN>;
   constexpr int KGN = S::KGN, RB = S::RB, STAGES = S::STAGES;
   grid_dep_wait();
@@ -327,6 +352,39 @@ __global__ void __launch_bounds__(THREADS) prod_kernel(Prod a) {
   cluster.sync();
 
   const int e0 = rank * rows / cs, e1 = (rank + 1) * rows / cs;
+  if constexpr (MODE == PROD_BWD) {
+    // one column a thread: an element's loads (the cell backward's gates,
+    // c, dc and carry) wait on no other element's stores
+    for (int it = tid; it < (e1 - e0) * NC; it += THREADS) {
+      const int rr = e0 + it / NC, n = cb * NC + it % NC;
+      if (n >= a.N) continue;
+      float z = 0.f;
+      for (int s = 0; s < cs; ++s) {
+        const float* ps = cluster.map_shared_rank(smem, s);
+#pragma unroll
+        for (int q = 0; q < KGN; ++q) z += ps[(q * RB + rr) * NC + it % NC];
+      }
+      const int r = r0 + rr;
+      const int m = n - ex.n_carry;  // column of the gradient below
+      if (m < 0) {
+        a.out[(long)r * ex.n_carry + n] = z;
+      } else if (ex.cell.dz) {
+        cell_bwd_element(ex.cell, r, m, z);
+      } else if (m < ex.E) {
+        if (ex.threshold)
+          z = drop_hash((unsigned)(r * ex.E + m), ex.seed) < ex.threshold
+                  ? 0.f
+                  : z * ex.inv;
+        ex.d_emb[(long)r * ex.E + m] = z;
+      } else if (ex.d_pre) {
+        const long i = (long)r * ex.A + m - ex.E;
+        const float h = ex.ht[i];
+        ex.d_pre[i] = (ex.d_ht[i] + z) * (1.f - h * h);
+      }
+    }
+    cluster.sync();  // no block leaves while another reads its partials
+    return;
+  }
   for (int it = tid; it < (e1 - e0) * (NC / 4); it += THREADS) {
     const int rr = e0 + it / (NC / 4), c4 = it % (NC / 4);
     float4 z = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -351,8 +409,22 @@ __global__ void __launch_bounds__(THREADS) prod_kernel(Prod a) {
       const float og = sigmoidf(z.w + a.bias[3 * H + j]);
       const long prow = a.c_idx ? (long)a.c_idx[r] : (long)r;
       const float c = fg * a.c_in[prow * H + j] + ig * gg;
+      const float h = og * tanhf(c);
       a.c_out[(long)r * H + j] = c;
-      a.out[(long)r * H + j] = og * tanhf(c);
+      a.out[(long)r * H + j] = h;
+      if constexpr (MODE == PROD_CELL_TRAIN) {
+        float* ao = ex.acts + (long)r * 4 * H + j;
+        ao[0] = ig;
+        ao[H] = fg;
+        ao[2 * H] = gg;
+        ao[3 * H] = og;
+        float xd = h;
+        if (ex.threshold)
+          xd = drop_hash((unsigned)(r * H + j), ex.seed) < ex.threshold
+                   ? 0.f
+                   : h / ex.div;
+        ex.x_drop[(long)r * H + j] = xd;
+      }
     } else {
       const float zv[4] = {z.x, z.y, z.z, z.w};
 #pragma unroll
@@ -369,6 +441,23 @@ __global__ void __launch_bounds__(THREADS) prod_kernel(Prod a) {
   cluster.sync();  // no block leaves while another reads its partials
 }
 
+template <int TR, int RGN, bool CELL>
+__global__ void __launch_bounds__(THREADS) prod_kernel(Prod a) {
+  prod_body<TR, RGN, CELL ? PROD_CELL : PROD_LINEAR>(a, NoExtra{});
+}
+
+template <int TR, int RGN>
+__global__ void __launch_bounds__(THREADS)
+    prod_train_kernel(Prod a, CellTrainOut tr) {
+  prod_body<TR, RGN, PROD_CELL_TRAIN>(a, tr);
+}
+
+template <int TR, int RGN>
+__global__ void __launch_bounds__(THREADS)
+    prod_bwd_kernel(Prod a, BwdEpilogue e) {
+  prod_body<TR, RGN, PROD_BWD>(a, e);
+}
+
 // cv[b N + n] = softmax(enc[b] @ q[b N + n]) @ enc[b] for the N rows of
 // utterance b, by the cluster of blocks blockIdx.x / CS; block c of it
 // takes encoder rows [c Tc, (c+1) Tc), read straight from L2 with many
@@ -376,6 +465,14 @@ __global__ void __launch_bounds__(THREADS) prod_kernel(Prod a) {
 // scores, TC rows per thread for the context).  Dynamic shared memory:
 // the queries, later the first half's context partials (N H), the
 // second half's (N H), scores (N Tc), max and sum (2 N).
+//
+// Training (N = 1, a cluster per row) runs two more modes of the same
+// body.  ATTN_TRAIN also writes the softmax weights, alphas (B N, T).
+// ATTN_BWD is the backward: q holds d_cv, the "scores" are d_alphas[t] =
+// enc[b, t] . d_cv, their inner product with alphas is summed over the
+// cluster where the forward takes the max, d_scores = alphas (d_alphas -
+// inner) is stored and takes the place of the softmax numerators, and cv
+// gets d_q = d_scores @ enc[b], not normalised.
 struct Attn {
   const float* enc;  // (B, T, H)
   const float* q;    // (B N, H)
@@ -384,7 +481,18 @@ struct Attn {
   const int* done;
 };
 
-__global__ void __launch_bounds__(THREADS) attention_kernel(Attn a) {
+enum { ATTN_EVAL = 0, ATTN_TRAIN = 1, ATTN_BWD = 2 };
+
+// Training's streams (B N, T): alphas, read by ATTN_BWD; and t_out,
+// ATTN_TRAIN's alphas or ATTN_BWD's d_scores.
+struct AttnAux {
+  const float* alphas;
+  float* t_out;
+};
+
+template <int MODE>
+__device__ __forceinline__ void attention_body(const Attn& a,
+                                               const AttnAux& x) {
   grid_dep_wait();
   if (a.done && *a.done) return;
   grid_dep_launch();
@@ -451,25 +559,48 @@ __global__ void __launch_bounds__(THREADS) attention_kernel(Attn a) {
     }
   }
   __syncthreads();
-  for (int n = w; n < N; n += NW) {
-    float m = -INFINITY;
-    for (int t = lane; t < tc; t += 32) m = fmaxf(m, S[n * tcf + t]);
-    m = warp_max(m);
-    if (lane == 0) mx[n] = m;
-  }
-  cluster.sync();
-  for (int n = w; n < N; n += NW) {
-    float m = -INFINITY;
-    for (int s = 0; s < cs; ++s)
-      m = fmaxf(m, *cluster.map_shared_rank(mx + n, s));
-    float sum = 0.f;
-    for (int t = lane; t < tc; t += 32) {
-      const float e = expf(S[n * tcf + t] - m);
-      S[n * tcf + t] = e;
-      sum += e;
+  if constexpr (MODE == ATTN_BWD) {
+    for (int n = w; n < N; n += NW) {
+      const float* al = x.alphas + ((long)b * N + n) * a.T + t0;
+      float p = 0.f;
+      for (int t = lane; t < tc; t += 32) p = fmaf(S[n * tcf + t], al[t], p);
+      p = warp_sum(p);
+      if (lane == 0) mx[n] = p;
     }
-    sum = warp_sum(sum);
-    if (lane == 0) sm[n] = sum;
+    cluster.sync();
+    for (int n = w; n < N; n += NW) {
+      float inner = 0.f;
+      for (int s = 0; s < cs; ++s)
+        inner += *cluster.map_shared_rank(mx + n, s);
+      const float* al = x.alphas + ((long)b * N + n) * a.T + t0;
+      float* ds = x.t_out + ((long)b * N + n) * a.T + t0;
+      for (int t = lane; t < tc; t += 32) {
+        const float v = al[t] * (S[n * tcf + t] - inner);
+        S[n * tcf + t] = v;
+        ds[t] = v;
+      }
+    }
+  } else {
+    for (int n = w; n < N; n += NW) {
+      float m = -INFINITY;
+      for (int t = lane; t < tc; t += 32) m = fmaxf(m, S[n * tcf + t]);
+      m = warp_max(m);
+      if (lane == 0) mx[n] = m;
+    }
+    cluster.sync();
+    for (int n = w; n < N; n += NW) {
+      float m = -INFINITY;
+      for (int s = 0; s < cs; ++s)
+        m = fmaxf(m, *cluster.map_shared_rank(mx + n, s));
+      float sum = 0.f;
+      for (int t = lane; t < tc; t += 32) {
+        const float e = expf(S[n * tcf + t] - m);
+        S[n * tcf + t] = e;
+        sum += e;
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) sm[n] = sum;
+    }
   }
   __syncthreads();
   // unnormalised context partials: the two halves of the block take
@@ -515,16 +646,40 @@ __global__ void __launch_bounds__(THREADS) attention_kernel(Attn a) {
     if (h >= H) continue;
     float z = 0.f, v = 0.f;
     for (int s = 0; s < cs; ++s) {
-      z += *cluster.map_shared_rank(sm + n, s);
+      if constexpr (MODE != ATTN_BWD) z += *cluster.map_shared_rank(sm + n, s);
       const float* p0 = reinterpret_cast<const float*>(
           cluster.map_shared_rank(qs, s));
       const float* p1 = reinterpret_cast<const float*>(
           cluster.map_shared_rank(pc1, s));
       v += p0[n * H + h] + p1[n * H + h];
     }
-    a.cv[((long)b * N + n) * H + h] = v * (1.f / z);
+    if constexpr (MODE != ATTN_BWD) v *= 1.f / z;
+    a.cv[((long)b * N + n) * H + h] = v;
+  }
+  if constexpr (MODE == ATTN_TRAIN) {
+    // this block's part of the normalised weights
+    for (int i = tid; i < N * tc; i += THREADS) {
+      const int n = i / tc, t = i % tc;
+      float z = 0.f;
+      for (int s = 0; s < cs; ++s) z += *cluster.map_shared_rank(sm + n, s);
+      x.t_out[((long)b * N + n) * a.T + t0 + t] = S[n * tcf + t] * (1.f / z);
+    }
   }
   cluster.sync();
+}
+
+__global__ void __launch_bounds__(THREADS) attention_kernel(Attn a) {
+  attention_body<ATTN_EVAL>(a, AttnAux{});
+}
+
+__global__ void __launch_bounds__(THREADS)
+    attention_train_kernel(Attn a, AttnAux x) {
+  attention_body<ATTN_TRAIN>(a, x);
+}
+
+__global__ void __launch_bounds__(THREADS)
+    attention_bwd_kernel(Attn a, AttnAux x) {
+  attention_body<ATTN_BWD>(a, x);
 }
 
 int sm_count() {
@@ -537,6 +692,19 @@ int sm_count() {
   return sms;
 }
 
+// A cluster size chosen for a launch shape, kept for the next launch of
+// the same shape and for ast_cluster_choices.  kind: the product's
+// PROD_* mode, or 4 + the attention's ATTN_* mode; rows: a product
+// block's rows (0 for attention).
+struct ClusterChoice {
+  const void* k;
+  size_t smem;
+  int blocks, limit, cs, kind, rows;
+};
+constexpr int MAX_CHOICES = 256;
+ClusterChoice g_choices[MAX_CHOICES];
+int g_n_choices = 0;
+
 // The largest cluster, up to MAX_CLUSTER blocks and `limit`, of which
 // `blocks` clusters run at once, one block per SM (the shared memory a
 // block asks for is at least EXCLUSIVE_SMEM), so that no SM runs two
@@ -544,16 +712,10 @@ int sm_count() {
 // clusters fit the H100's GPCs, so 32 column slices take clusters of 3.
 // Cached per (kernel, shared memory, blocks, limit).
 template <typename Kernel>
-int cluster_size(Kernel kernel, size_t smem, int blocks, int limit) {
-  struct Entry {
-    const void* k;
-    size_t smem;
-    int blocks, limit, cs;
-  };
-  static Entry cache[64];
-  static int n_cached = 0;
-  for (int i = 0; i < n_cached; ++i) {
-    const Entry& e = cache[i];
+int cluster_size(Kernel kernel, size_t smem, int blocks, int limit, int kind,
+                 int rows) {
+  for (int i = 0; i < g_n_choices; ++i) {
+    const ClusterChoice& e = g_choices[i];
     if (e.k == (const void*)kernel && e.smem == smem && e.blocks == blocks &&
         e.limit == limit)
       return e.cs;
@@ -578,43 +740,86 @@ int cluster_size(Kernel kernel, size_t smem, int blocks, int limit) {
       break;
   }
   cudaGetLastError();  // a refused query leaves no error behind
-  if (n_cached < 64)
-    cache[n_cached++] = Entry{(const void*)kernel, smem, blocks, limit, cs};
+  if (g_n_choices < MAX_CHOICES)
+    g_choices[g_n_choices++] = ClusterChoice{
+        (const void*)kernel, smem, blocks, limit, cs, kind, rows};
   return cs;
 }
 
-template <int TR, int RGN, bool CELL>
-cudaError_t launch_prod_tile(const Prod& a, int col_blocks, cudaStream_t s) {
-  using S = ProdShape<TR, RGN>;
-  static bool opted = false;
-  if (!opted) {
+// kernel<<<(slices * cs, grid_y), THREADS, bytes>>>(args...) as a
+// programmatic dependent launch in clusters of cs blocks along x, cs
+// chosen by cluster_size for slices * grid_y clusters.  *opted: the
+// dynamic shared memory this kernel has been opted in for.
+template <typename... KArgs, typename... Args>
+cudaError_t launch_clustered(void (*kernel)(KArgs...), size_t* opted,
+                             int kind, int rows, size_t bytes, int slices,
+                             int grid_y, int limit, cudaStream_t s,
+                             const Args&... args) {
+  if (bytes > *opted) {
     STEP_RETURN_IF_ERR(cudaFuncSetAttribute(
-        prod_kernel<TR, RGN, CELL>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)S::BYTES));
-    opted = true;
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes));
+    *opted = bytes;
   }
+  const int cs =
+      cluster_size(kernel, bytes, slices * grid_y, limit, kind, rows);
+  return launch_ex(kernel, dim3(slices * cs, grid_y), dim3(THREADS), bytes,
+                   cs, s, args...);
+}
+
+// extra: the CellTrainOut of a PROD_CELL_TRAIN launch, the BwdEpilogue of
+// a PROD_BWD one, else nothing.
+template <int TR, int RGN, int MODE, typename... Extra>
+cudaError_t launch_prod_tile(const Prod& a, int col_blocks, cudaStream_t s,
+                             const Extra&... extra) {
+  using S = ProdShape<TR, RGN>;
+  static size_t opted = 0;  // of this (tile, mode)'s one kernel
   int ktot = 0;
   for (int i = 0; i < a.nseg; ++i) ktot += a.seg[i].K;
   const int row_chunks = (a.R + S::RB - 1) / S::RB;
-  const int cs = cluster_size(prod_kernel<TR, RGN, CELL>, S::BYTES,
-                              col_blocks * row_chunks, ktot / KT);
-  return launch_ex(prod_kernel<TR, RGN, CELL>,
-                   dim3(col_blocks * cs, row_chunks), dim3(THREADS),
-                   S::BYTES, cs, s, a);
+  if constexpr (MODE == PROD_CELL_TRAIN)
+    return launch_clustered(prod_train_kernel<TR, RGN>, &opted, MODE, S::RB,
+                            S::BYTES, col_blocks, row_chunks, ktot / KT, s, a,
+                            extra...);
+  else if constexpr (MODE == PROD_BWD)
+    return launch_clustered(prod_bwd_kernel<TR, RGN>, &opted, MODE, S::RB,
+                            S::BYTES, col_blocks, row_chunks, ktot / KT, s, a,
+                            extra...);
+  else
+    return launch_clustered(prod_kernel<TR, RGN, MODE == PROD_CELL>, &opted,
+                            MODE, S::RB, S::BYTES, col_blocks, row_chunks,
+                            ktot / KT, s, a);
 }
 
 // Rows per thread and row groups by R: all rows in one block up to 256,
 // the input quads of a tile split over KGN = 16 / RGN thread groups.
-template <bool CELL>
-cudaError_t launch_prod(const Prod& a, cudaStream_t s) {
-  const int cols = CELL ? a.N / UNITS : (a.N + NC - 1) / NC;
+template <int MODE, typename... Extra>
+cudaError_t launch_prod(const Prod& a, cudaStream_t s,
+                        const Extra&... extra) {
+  const int cols = MODE == PROD_CELL || MODE == PROD_CELL_TRAIN
+                       ? a.N / UNITS
+                       : (a.N + NC - 1) / NC;
   const int R = a.R;
-  if (R <= 16) return launch_prod_tile<4, 4, CELL>(a, cols, s);
-  if (R <= 32) return launch_prod_tile<8, 4, CELL>(a, cols, s);
-  if (R <= 64) return launch_prod_tile<8, 8, CELL>(a, cols, s);
-  if (R <= 128) return launch_prod_tile<8, 16, CELL>(a, cols, s);
-  if (R <= 160) return launch_prod_tile<10, 16, CELL>(a, cols, s);
-  return launch_prod_tile<16, 16, CELL>(a, cols, s);
+  if (R <= 16) return launch_prod_tile<4, 4, MODE>(a, cols, s, extra...);
+  if (R <= 32) return launch_prod_tile<8, 4, MODE>(a, cols, s, extra...);
+  if (R <= 64) return launch_prod_tile<8, 8, MODE>(a, cols, s, extra...);
+  if (R <= 128) return launch_prod_tile<8, 16, MODE>(a, cols, s, extra...);
+  if (R <= 160) return launch_prod_tile<10, 16, MODE>(a, cols, s, extra...);
+  return launch_prod_tile<16, 16, MODE>(a, cols, s, extra...);
+}
+
+// Attention for B utterances of N rows each, in mode MODE; extra: the
+// AttnAux of the training modes.  Shared memory for one block per
+// utterance, the most any cluster size needs.
+template <int MODE, typename... KArgs, typename... Extra>
+cudaError_t launch_attention_mode(void (*kernel)(KArgs...), const Attn& a,
+                                  int B, cudaStream_t s,
+                                  const Extra&... extra) {
+  static size_t opted = 0;  // of this mode's one kernel
+  size_t bytes =
+      ((size_t)2 * a.N * a.H + (size_t)a.N * a.T + 2 * a.N) * sizeof(float);
+  if (bytes < EXCLUSIVE_SMEM) bytes = EXCLUSIVE_SMEM;
+  return launch_clustered(kernel, &opted, 4 + MODE, 0, bytes, B, 1, a.T, s,
+                          a, extra...);
 }
 
 }  // namespace
@@ -650,7 +855,7 @@ cudaError_t decode_step(const StepWeights& w, const float* enc, int T,
     a.c_idx = st.parent;
     a.c_out = st.c_out + l * RH;
     a.done = done;
-    STEP_RETURN_IF_ERR(launch_prod<true>(a, s));
+    STEP_RETURN_IF_ERR(launch_prod<PROD_CELL>(a, s));
   }
   const float* top = st.h_out + (w.L - 1) * RH;
 
@@ -663,24 +868,11 @@ cudaError_t decode_step(const StepWeights& w, const float* enc, int T,
   q.N = H;
   q.out = st.q;
   q.done = done;
-  STEP_RETURN_IF_ERR(launch_prod<false>(q, s));
+  STEP_RETURN_IF_ERR(launch_prod<PROD_LINEAR>(q, s));
 
-  const int N = rows_per_utt, B = R / N;
-  // shared memory for one block per utterance, the most any cluster
-  // size needs
-  size_t bytes = ((size_t)2 * N * H + (size_t)N * T + 2 * N) * sizeof(float);
-  if (bytes < EXCLUSIVE_SMEM) bytes = EXCLUSIVE_SMEM;
-  static size_t opted = 0;
-  if (bytes > opted) {
-    STEP_RETURN_IF_ERR(cudaFuncSetAttribute(
-        attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes));
-    opted = bytes;
-  }
-  const int cs = cluster_size(attention_kernel, bytes, B, T);
-  STEP_RETURN_IF_ERR(launch_ex(attention_kernel, dim3(B * cs), dim3(THREADS),
-                               bytes, cs, s,
-                               Attn{enc, st.q, st.cv, N, T, H, done}));
+  const int N = rows_per_utt;
+  STEP_RETURN_IF_ERR(launch_attention_mode<ATTN_EVAL>(
+      attention_kernel, Attn{enc, st.q, st.cv, N, T, H, done}, R / N, s));
 
   Prod c = {};
   c.seg[0] = Seg{st.cv, 0, nullptr, H};
@@ -693,7 +885,7 @@ cudaError_t decode_step(const StepWeights& w, const float* enc, int T,
   c.act_tanh = 1;
   c.out = st.ht_out;
   c.done = done;
-  STEP_RETURN_IF_ERR(launch_prod<false>(c, s));
+  STEP_RETURN_IF_ERR(launch_prod<PROD_LINEAR>(c, s));
 
   Prod o = {};
   o.seg[0] = Seg{st.ht_out, 0, nullptr, w.A};
@@ -704,7 +896,56 @@ cudaError_t decode_step(const StepWeights& w, const float* enc, int T,
   o.N = w.V;
   o.out = st.logits;
   o.done = done;
-  return launch_prod<false>(o, s);
+  return launch_prod<PROD_LINEAR>(o, s);
+}
+
+cudaError_t launch_linear_prod(const Prod& a, cudaStream_t s) {
+  return launch_prod<PROD_LINEAR>(a, s);
+}
+
+cudaError_t launch_cell_train_prod(const Prod& a, const CellTrainOut& tr,
+                                   cudaStream_t s) {
+  return launch_prod<PROD_CELL_TRAIN>(a, s, tr);
+}
+
+cudaError_t launch_bwd_prod(const Prod& a, const BwdEpilogue& e,
+                            cudaStream_t s) {
+  return launch_prod<PROD_BWD>(a, s, e);
+}
+
+cudaError_t launch_attention_train(const float* enc, const float* q,
+                                   float* cv, float* alphas, int R, int T,
+                                   int H, cudaStream_t s) {
+  return launch_attention_mode<ATTN_TRAIN>(
+      attention_train_kernel, Attn{enc, q, cv, 1, T, H, nullptr}, R, s,
+      AttnAux{nullptr, alphas});
+}
+
+cudaError_t launch_attention_bwd(const float* enc, const float* alphas,
+                                 const float* d_cv, float* d_scores,
+                                 float* d_q, int R, int T, int H,
+                                 cudaStream_t s) {
+  return launch_attention_mode<ATTN_BWD>(
+      attention_bwd_kernel, Attn{enc, d_cv, d_q, 1, T, H, nullptr}, R, s,
+      AttnAux{alphas, d_scores});
 }
 
 }  // namespace ast
+
+// The cluster sizes chosen so far in this process, one record of 7 ints a
+// launch shape: kind (0 linear product, 1 cell, 2 train cell, 3 backward
+// product, 4 attention, 5 train attention, 6 attention backward), a
+// product block's rows, the
+// clusters of a launch, the input tiles (attention: T'), the shared
+// memory in KB, the cluster size, and clusters * size (the SMs a launch
+// fills).  Writes up to `cap` records to out; returns how many exist.
+AST_EXPORT int ast_cluster_choices(int* out, int cap) {
+  const int n = ast::g_n_choices;
+  for (int i = 0; i < n && i < cap; ++i) {
+    const ast::ClusterChoice& e = ast::g_choices[i];
+    const int rec[7] = {e.kind,   e.rows, e.blocks, e.limit, (int)(e.smem >> 10),
+                        e.cs,     e.blocks * e.cs};
+    for (int j = 0; j < 7; ++j) out[i * 7 + j] = rec[j];
+  }
+  return n;
+}

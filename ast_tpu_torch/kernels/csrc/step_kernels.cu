@@ -1,35 +1,31 @@
-// Per-step building blocks shared by the encoder (K1, K2) and decoder
-// training (K3, K4) kernels: the LSTM cell step, its elementwise
-// backward, the row-wise linear layer and Luong attention with its
-// weights.  (The decode step of K5 and K6 has its own kernels, in
-// decode_step.cu.)
+// Per-step building blocks of the encoder kernels (K1, K2): the LSTM cell
+// step, its elementwise backward and the row-wise linear layer.  (The
+// decoder's products and attention, for decoding and for training, are
+// decode_step.cu's.)
 //
 // Replaces the in-kernel products of ast_tpu/ops/fused_lstm.py
-// (_fwd_kernel, _bwd_kernel) and ast_tpu/ops/fused_decoder.py
 // (_fwd_kernel, _bwd_kernel).  On the TPU those kernels kept all weights
 // in one core's VMEM for the whole sequence; here blocks run in
-// parallel, so each kernel covers one (step, layer) or one step phase,
-// and the time loop runs on the host (see k1-k4).
+// parallel, so each kernel covers one (step, layer), and the time loop
+// runs on the host (see k1_encoder.cu, k2_encoder_bwd.cu).
 //
 // What bounds them on the H100: at batch 32 every step re-reads the
-// weights (encoder 4 MB, decoder about 32 MB per step in f32), which fit
-// in the 50 MB L2, and each output column's products are a few hundred
-// FMAs per row -- the kernels are bound by the latency of dependent
-// weight loads from L2 and by launch latency, not by FLOPs.  Design: a
-// block owns COLS = 32 output columns (one hidden unit j per lane for
-// the LSTM, computing all four gate columns j, H+j, 2H+j, 3H+j so the
-// gate math fuses into the epilogue) and ROWS = 8 rows, so each weight
-// value loaded serves 8 rows (4 rows when 8 would leave SMs without a
-// block, as at B = 32).  Its KSPLIT = 16 warps split the input axis, so
-// each thread walks only 1/16 of it in one unrolled loop with many loads
-// in flight.  The block's input rows are staged whole in shared memory
-// once (one barrier, not one per tile); the same memory then holds the
-// warps' partial sums, where warp w finishes row w.  Attention scores
-// TU = 4 encoder rows per warp at a time, for independent load streams.
-// Weight loads are coalesced along the column axis.  No tensor cores yet
-// (f32 FMA).  A backward product x @ W^T runs as the same linear layer
-// on a transposed copy of W that the wrapper makes once per call, so its
-// weight loads stay coalesced.
+// encoder's weights (4 MB in f32, L2-resident), and each output column's
+// products are a few hundred FMAs per row -- the kernels are bound by
+// the latency of dependent weight loads from L2 and by launch latency,
+// not by FLOPs.  Design: a block owns COLS = 32 output columns (one
+// hidden unit j per lane for the LSTM, computing all four gate columns
+// j, H+j, 2H+j, 3H+j so the gate math fuses into the epilogue) and ROWS
+// = 8 rows, so each weight value loaded serves 8 rows (4 rows when 8
+// would leave SMs without a block, as at B = 32).  Its KSPLIT = 16 warps
+// split the input axis, so each thread walks only 1/16 of it in one
+// unrolled loop with many loads in flight.  The block's input rows are
+// staged whole in shared memory once (one barrier, not one per tile);
+// the same memory then holds the warps' partial sums, where warp w
+// finishes row w.  Weight loads are coalesced along the column axis.  No
+// tensor cores yet (f32 FMA).  A backward product x @ W^T runs as the
+// same linear layer on a transposed copy of W that the wrapper makes
+// once per call, so its weight loads stay coalesced.
 #include <math.h>
 
 #include "common.cuh"
@@ -176,8 +172,7 @@ __device__ __forceinline__ void lstm_cell_body(const CellArgs& a,
     }
     if (tr.threshold) {
       const unsigned flat = (unsigned)(g * tr.mask_g + (long)r * H + j);
-      x = drop_hash(flat, tr.seed) < tr.threshold ? 0.f
-          : tr.drop_div ? h / tr.keep_scale : h * tr.keep_scale;
+      x = drop_hash(flat, tr.seed) < tr.threshold ? 0.f : h * tr.keep_scale;
     }
     if (tr.x_out) tr.x_out[g * tr.x_g + (long)r * H + j] = x;
   }
@@ -279,69 +274,6 @@ cudaError_t launch(Kernel kernel, dim3 grid, size_t bytes, cudaStream_t s,
   return cudaGetLastError();
 }
 
-// One block per row r: scores over its T encoder rows, softmax into
-// alphas, and the context vector.  Dynamic shared memory: H + T floats.
-__global__ void attention_alphas_kernel(const float* enc, const float* q,
-                                        float* cv, float* alphas, int T,
-                                        int H) {
-  extern __shared__ float sm[];
-  __shared__ float red[32];
-  float* qs = sm;
-  float* p = sm + H;
-  const int r = blockIdx.x;
-  const float* E = enc + (long)r * T * H;
-  for (int h = threadIdx.x; h < H; h += blockDim.x) qs[h] = q[(long)r * H + h];
-  __syncthreads();
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int nw = blockDim.x >> 5;
-  // each warp scores TU encoder rows at a time: TU independent load
-  // streams per lane instead of one dependent chain
-  constexpr int TU = 4;
-  static_assert(TU == 4, "the context sum below adds four partials");
-  for (int t0 = w * TU; t0 < T; t0 += nw * TU) {
-    const int tn = min(TU, T - t0);
-    float s[TU] = {};
-    for (int h = lane; h < H; h += 32) {
-      const float qv = qs[h];
-#pragma unroll
-      for (int u = 0; u < TU; ++u)
-        if (u < tn) s[u] = fmaf(E[(long)(t0 + u) * H + h], qv, s[u]);
-    }
-#pragma unroll
-    for (int u = 0; u < TU; ++u) {
-      const float su = warp_sum(s[u]);
-      if (lane == 0 && u < tn) p[t0 + u] = su;
-    }
-  }
-  __syncthreads();
-  float m = -INFINITY;
-  for (int t = threadIdx.x; t < T; t += blockDim.x) m = fmaxf(m, p[t]);
-  m = block_reduce(m, true, red);
-  float sum = 0.f;
-  for (int t = threadIdx.x; t < T; t += blockDim.x) {
-    const float e = expf(p[t] - m);
-    p[t] = e;
-    sum += e;
-  }
-  sum = block_reduce(sum, false, red);  // its barriers publish p[]
-  const float inv = 1.f / sum;
-  for (int t = threadIdx.x; t < T; t += blockDim.x)
-    alphas[(long)r * T + t] = p[t] * inv;
-  for (int h = threadIdx.x; h < H; h += blockDim.x) {
-    float acc[TU] = {};
-    int t = 0;
-    for (; t + TU <= T; t += TU) {
-#pragma unroll
-      for (int u = 0; u < TU; ++u)
-        acc[u] = fmaf(p[t + u] * inv, E[(long)(t + u) * H + h], acc[u]);
-    }
-    for (; t < T; ++t) acc[0] = fmaf(p[t] * inv, E[(long)t * H + h], acc[0]);
-    cv[(long)r * H + h] = (acc[0] + acc[1]) + (acc[2] + acc[3]);
-  }
-}
-
-constexpr int ATTN_THREADS = 512;
-
 }  // namespace
 
 cudaError_t launch_lstm_cell(const CellArgs& a, int groups, cudaStream_t s,
@@ -380,15 +312,6 @@ cudaError_t launch_linear(const LinearArgs& a, cudaStream_t s, int groups) {
                 : launch(linear_kernel<8, true>, grid, bytes, s, a);
   return four ? launch(linear_kernel<4, false>, grid, bytes, s, a)
               : launch(linear_kernel<8, false>, grid, bytes, s, a);
-}
-
-cudaError_t launch_attention_alphas(const float* enc, const float* q,
-                                    float* cv, float* alphas, int R, int T,
-                                    int H, cudaStream_t s) {
-  const size_t smem = (size_t)(H + T) * sizeof(float);
-  attention_alphas_kernel<<<R, ATTN_THREADS, smem, s>>>(enc, q, cv, alphas,
-                                                        T, H);
-  return cudaGetLastError();
 }
 
 }  // namespace ast

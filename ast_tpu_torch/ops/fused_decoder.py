@@ -7,11 +7,18 @@ embedding with dropout, the L-layer LSTM with dropout, Luong attention,
 ``ht = tanh(ctx([cv; h_top]))`` and the argmax feed) and the
 reverse-time kernel of its custom VJP (K4, ``_bwd_kernel``).  A CUDA
 tensor runs the hand kernels (``kernels/csrc/k3_decoder_fwd.cu``,
-``k4_decoder_bwd.cu``); a CPU tensor runs the plain versions
+``k4_decoder_bwd.cu``, both on the products and attention of
+``decode_step.cu``); a CPU tensor runs the plain versions
 :func:`decoder_forward_reference` and :func:`decoder_backward_reference`,
 written from the JAX kernel bodies' math.  :class:`FusedDecoder` is the
 differentiable call; its backward is K4, then ``d_enc`` and the weight
 gradients as time-batched GEMMs, as ``_fd_bwd`` does.
+
+The kernels' products read their weights as (column blocks, K, 64)
+tiles.  In training the weights change every step, so each wrapper packs
+them once per call: K3 the forward layout
+(``fused_infer.pack_step_weights``), K4 the transposed matrices of its
+backward products (:func:`pack_backward_weights`).
 
 The selected inputs are int ids (``sel``), not one-hot rows: the
 embedding is a row gather and its gradient an ``index_add_``.  The
@@ -28,7 +35,8 @@ import torch
 
 from ast_tpu_torch.kernels import build
 from ast_tpu_torch.ops.dropout import drop_mask, drop_threshold
-from ast_tpu_torch.ops.fused_infer import check_decoder_inputs
+from ast_tpu_torch.ops.fused_infer import (
+    STEP_ORDER, check_decoder_inputs, pack_step_weights)
 from ast_tpu_torch.ops.lstm import lstm_gate_acts, lstm_gates_backward
 
 W_NAMES = ("wx0", "wx_rest", "wh", "b", "wa", "wa_b", "ctx_w", "ctx_b",
@@ -38,9 +46,10 @@ RES_NAMES = ("sel", "acts", "c_all", "h_all", "x_drop", "alphas", "q", "cv",
              "emb")
 GRAD_NAMES = ("dz", "d_pre", "d_scores", "d_cv", "d_q", "d_emb", "dh0",
               "dc0")
-# K3's attention keeps H + T floats of one row in shared memory (48 KB
-# without the opt-in attribute)
-_ATTN_SMEM_FLOATS = 48 * 1024 // 4
+# the products' tiles (decode_step.cu): 32 input rows by 64 columns
+_TILE_K, _TILE_N = 32, 64
+# shared memory a block may use on the H100
+_SMEM_BYTES = 227 * 1024
 
 
 def _emb_mask(rate, seed, t, B, E, device):
@@ -176,6 +185,73 @@ def decoder_backward_reference(res, ht, enc, c0, w, d_ht, seed, drop_emb,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
+def check_train_shapes(T, H, E, A):
+    """Raise unless the training decoder's kernels take these shapes: E, A
+    and H multiples of the products' 32-wide input tiles, and the
+    attention's shared memory (one row's query, two context partials and
+    T scores) within a block's."""
+    if E % _TILE_K or A % _TILE_K or H % _TILE_K:
+        raise ValueError(f"training decoder kernels take E, A, H that are "
+                         f"multiples of {_TILE_K} (got {E}, {A}, {H})")
+    attn = 4 * (2 * H + T + 2)
+    if attn > _SMEM_BYTES:
+        raise ValueError(f"training attention needs {attn} bytes of shared "
+                         f"memory at T={T}, H={H}; a block has "
+                         f"{_SMEM_BYTES}")
+
+
+def _put_transposed(out, n0, m):
+    """Write m^T into packed columns n0 .. n0 + n - 1 of ``out`` (column
+    blocks, K, 64), m (n, K): whole blocks in one strided copy, a ragged
+    head or tail in one more each."""
+    n, i = m.shape[0], 0
+    while i < n:
+        blk, c = divmod(n0 + i, _TILE_N)
+        if c == 0 and n - i >= _TILE_N:
+            nb = (n - i) // _TILE_N
+            out[blk:blk + nb].copy_(m[i:i + nb * _TILE_N]
+                                    .view(nb, _TILE_N, -1).transpose(1, 2))
+            i += nb * _TILE_N
+        else:
+            take = min(_TILE_N - c, n - i)
+            out[blk, :, c:c + take].copy_(m[i:i + take].t())
+            i += take
+
+
+def pack_backward_weights(w):
+    """The transposed matrices of K4's products, each as (column blocks,
+    K, 64) with zero columns past N, views of one buffer (``flat``):
+
+      ``cv``    ctx_w[:H]^T              (A, H):      d_cv = d_pre @ cv
+      ``top``   [wa^T ; ctx_w[H:]^T]     (H + A, H):  d_top = [d_q | d_pre] @ top
+      ``layer`` per layer [wh^T | wx^T]  (4H, H + E + A, or 2H above layer 0):
+                [dh_prev | dx] = dz @ layer[l]; back to back in ``flat``
+
+    A matrix goes in by one strided copy when its columns start and end on
+    a block (8 copies at L = 3), with up to two more for a ragged edge.
+    Made once per backward call: the weights change every step."""
+    L, H = w["wh"].shape[0], w["wh"].shape[1]
+    A = w["ctx_w"].shape[1]
+    wxs = [w["wx0"]] + [w["wx_rest"][l] for l in range(L - 1)]
+    shapes = [(A, H), (H + A, H)] + [(4 * H, H + wx.shape[0]) for wx in wxs]
+    sizes = [-(-N // _TILE_N) * K * _TILE_N for K, N in shapes]
+    ragged = any(N % _TILE_N for _, N in shapes)
+    flat = (torch.zeros if ragged else torch.empty)(
+        (sum(sizes),), dtype=w["wh"].dtype, device=w["wh"].device)
+    views, off = [], 0
+    for (K, _), size in zip(shapes, sizes):
+        views.append(flat[off:off + size].view(-1, K, _TILE_N))
+        off += size
+    cv, top, layers = views[0], views[1], views[2:]
+    _put_transposed(cv, 0, w["ctx_w"][:H])
+    _put_transposed(top[:, :H], 0, w["wa"])
+    _put_transposed(top[:, H:], 0, w["ctx_w"][H:])
+    for lay, wh, wx in zip(layers, w["wh"], wxs):
+        _put_transposed(lay, 0, wh)
+        _put_transposed(lay, H, wx)
+    return {"flat": flat, "cv": cv, "top": top, "layer": layers}
+
+
 def decoder_forward(enc, h0, c0, w, y_in, coins, seed, drop_emb, drop_rnn):
     """K3; the contract of :func:`decoder_forward_reference` without
     ``forced_ids``.  ``y_in`` (U, B) and ``coins`` (U,) are int32 on the
@@ -184,9 +260,7 @@ def decoder_forward(enc, h0, c0, w, y_in, coins, seed, drop_emb, drop_rnn):
         return decoder_forward_reference(enc, h0, c0, w, y_in, coins, seed,
                                          drop_emb, drop_rnn)
     B, T, H, L, E, A, V = check_decoder_inputs(enc, h0, c0, w)
-    if H + T > _ATTN_SMEM_FLOATS:
-        raise ValueError(f"attention kernel: H + T = {H + T} floats exceed "
-                         f"its {_ATTN_SMEM_FLOATS}-float shared memory")
+    check_train_shapes(T, H, E, A)
     U = y_in.shape[0]
     for name, t, shape in (("y_in", y_in, (U, B)), ("coins", coins, (U,))):
         if (not t.is_cuda or t.dtype != torch.int32
@@ -195,6 +269,7 @@ def decoder_forward(enc, h0, c0, w, y_in, coins, seed, drop_emb, drop_rnn):
                              f"CUDA tensor of shape {shape}")
     dev = enc.device
     f32 = dict(device=dev)
+    packed = pack_step_weights(w)
     res = {"sel": torch.empty((U, B), dtype=torch.int32, device=dev),
            "acts": torch.empty((U, L, B, 4 * H), **f32),
            "c_all": torch.empty((U, L, B, H), **f32),
@@ -205,14 +280,16 @@ def decoder_forward(enc, h0, c0, w, y_in, coins, seed, drop_emb, drop_rnn):
            "cv": torch.empty((U, B, H), **f32),
            "emb": torch.empty((U, B, E), **f32)}
     ht = torch.empty((U, B, A), **f32)
-    prev = torch.zeros((B,), dtype=torch.int32, device=dev)
-    logits = torch.empty((B, V), **f32)
+    # zero logits: a step that samples before any logits were computed
+    # (coins[0] == 0, outside the contract) takes id 0
+    logits = torch.zeros((B, V), **f32)
+    ht0 = torch.zeros((B, A), **f32)
     lib = build.library()
     decoder_forward.launches += 1
     build.check_launch("k3_decoder_forward", lib.k3_decoder_forward(
-        enc.data_ptr(), *(w[k].data_ptr() for k in W_NAMES),
+        enc.data_ptr(), *(packed[k].data_ptr() for k in STEP_ORDER),
         h0.data_ptr(), c0.data_ptr(), y_in.data_ptr(), coins.data_ptr(),
-        prev.data_ptr(), logits.data_ptr(), ht.data_ptr(),
+        logits.data_ptr(), ht0.data_ptr(), ht.data_ptr(),
         *(res[k].data_ptr() for k in RES_NAMES),
         B, T, H, L, E, A, V, U, seed & 0xFFFFFFFF,
         drop_threshold(drop_emb), 1.0 - drop_emb, drop_threshold(drop_rnn),
@@ -240,21 +317,15 @@ def decoder_backward(res, ht, enc, c0, w, d_ht, seed, drop_emb, drop_rnn):
     for k, shape in (("acts", (U, L, B, 4 * H)), ("c_all", (U, L, B, H)),
                      ("alphas", (U, B, T))):
         build.check_tensor(res[k], k, shape)
+    for k, shape in (("wx0", (E + A, 4 * H)), ("wx_rest", (L - 1, H, 4 * H)),
+                     ("wh", (L, H, 4 * H)), ("wa", (H, H)),
+                     ("ctx_w", (2 * H, A))):
+        build.check_tensor(w[k], k, shape)
+    check_train_shapes(T, H, E, A)
     dev = enc.device
-    # transposed weights, once per call (layout copies):
-    #   d_cv  = d_pre @ ctx_w[:H]^T                      (A, H)
-    #   d_top = [d_q | d_pre] @ [wa^T ; ctx_w[H:]^T]      (H + A, H)
-    #   layer l: dz @ [wh^T | wx^T] -> [dh_prev | dx]     (4H, H + K_l)
-    ctx_w = w["ctx_w"]
-    w_cv = ctx_w[:H].t().contiguous()
-    w_top = torch.cat([w["wa"].t(), ctx_w[H:].t()]).contiguous()
-    wx = [w["wx0"]] + [w["wx_rest"][l] for l in range(L - 1)]
-    w_t = torch.cat([torch.cat([w["wh"][l].t(), wx[l].t()], dim=1)
-                     .reshape(-1) for l in range(L)])
-    n = [H + (E + A if l == 0 else H) for l in range(L)]
-    carry = torch.zeros((sum(n) * B,), device=dev)
+    packed = pack_backward_weights(w)
+    dh = torch.zeros((L, B, H), device=dev)     # carries, in place
     dc = torch.zeros((L, B, H), device=dev)
-    d_top = torch.empty((B, H), device=dev)
     g = {"dz": torch.empty((U, L, B, 4 * H), device=dev),
          "d_pre": torch.empty((U, B, A), device=dev),
          "d_scores": torch.empty((U, B, T), device=dev),
@@ -266,16 +337,13 @@ def decoder_backward(res, ht, enc, c0, w, d_ht, seed, drop_emb, drop_rnn):
     build.check_launch("k4_decoder_backward", lib.k4_decoder_backward(
         res["acts"].data_ptr(), res["c_all"].data_ptr(), c0.data_ptr(),
         res["alphas"].data_ptr(), ht.data_ptr(), d_ht.data_ptr(),
-        enc.data_ptr(), w_cv.data_ptr(), w_top.data_ptr(), w_t.data_ptr(),
-        carry.data_ptr(), dc.data_ptr(), d_top.data_ptr(),
+        enc.data_ptr(), packed["cv"].data_ptr(), packed["top"].data_ptr(),
+        packed["layer"][0].data_ptr(), dh.data_ptr(), dc.data_ptr(),
         *(g[k].data_ptr() for k in GRAD_NAMES[:6]),
         B, T, H, L, E, A, U, seed & 0xFFFFFFFF, drop_threshold(drop_emb),
         1.0 / (1.0 - drop_emb), drop_threshold(drop_rnn),
         1.0 / (1.0 - drop_rnn), torch.cuda.current_stream(dev).cuda_stream))
-    offs = [sum(n[:l]) * B for l in range(L)]
-    g["dh0"] = torch.stack([carry[o:o + B * k].view(B, k)[:, :H]
-                            for o, k in zip(offs, n)])
-    g["dc0"] = dc
+    g["dh0"], g["dc0"] = dh, dc
     return g
 
 

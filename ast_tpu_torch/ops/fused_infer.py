@@ -354,23 +354,28 @@ def pack_step_weights(w):
     input rows is one contiguous copy.  A cell's [wx; wh] (K, 4H) is
     packed by hidden unit: column q * 16 + u of block c is gate q of
     unit 16 c + u, so a block holds all four gates of its units.  A
-    layout copy of the decoder weights, made once per model
-    (``models.seq2seq.decode_weights``), not per decode call."""
+    layout copy of the decoder weights (two strided copies a cell, no
+    intermediate), made once per model for decoding
+    (``models.seq2seq.decode_weights``) and once per forward call in
+    training, where the weights change every step."""
     L, H = w["wh"].shape[0], w["wh"].shape[1]
-    cells = []
-    for l in range(L):
-        wx = w["wx0"] if l == 0 else w["wx_rest"][l - 1]
-        cat = torch.cat([wx, w["wh"][l]])                   # (K, 4H)
-        K = cat.shape[0]
-        cells.append(cat.view(K, 4, H // 16, 16).permute(2, 0, 1, 3)
-                     .reshape(-1))
-    return {"embed": w["embed"], "cell": torch.cat(cells), "b": w["b"],
+    wxs = [w["wx0"]] + [w["wx_rest"][l] for l in range(L - 1)]
+    cell = w["wh"].new_empty((4 * H * sum(wx.shape[0] + H for wx in wxs),))
+    off = 0
+    for wx, wh in zip(wxs, w["wh"]):
+        Kx = wx.shape[0]
+        n = (Kx + H) * 4 * H
+        blk = cell[off:off + n].view(H // 16, Kx + H, 4, 16)
+        blk[:, :Kx].copy_(wx.view(Kx, 4, H // 16, 16).permute(2, 0, 1, 3))
+        blk[:, Kx:].copy_(wh.view(H, 4, H // 16, 16).permute(2, 0, 1, 3))
+        off += n
+    return {"embed": w["embed"], "cell": cell, "b": w["b"],
             "wa": _pack_columns(w["wa"], 64), "wa_b": w["wa_b"],
             "ctx_w": _pack_columns(w["ctx_w"], 64), "ctx_b": w["ctx_b"],
             "out_w": _pack_columns(w["out_w"], 64), "out_b": w["out_b"]}
 
 
-_STEP_ORDER = ("embed", "cell", "b", "wa", "wa_b", "ctx_w", "ctx_b",
+STEP_ORDER = ("embed", "cell", "b", "wa", "wa_b", "ctx_w", "ctx_b",
                "out_w", "out_b")
 
 
@@ -388,7 +393,7 @@ def step_weights(w, H, L, E, A, V):
               "ctx_w": (-(-A // 64), 2 * H, 64), "ctx_b": (A,),
               "out_w": (-(-V // 64), A, 64), "out_b": (V,)}
     step = w["step"]
-    for k in _STEP_ORDER:
+    for k in STEP_ORDER:
         build.check_tensor(step[k], f"step {k}", shapes[k])
     return step
 
@@ -437,7 +442,7 @@ def greedy_decode_fused(enc, dec_h0, dec_c0, w, stop_limit):
     lib = build.library()
     greedy_decode_fused.launches += 1
     build.check_launch("k5_greedy_decode", lib.k5_greedy_decode(
-        enc.data_ptr(), *(packed[k].data_ptr() for k in _STEP_ORDER),
+        enc.data_ptr(), *(packed[k].data_ptr() for k in STEP_ORDER),
         hbuf.data_ptr(), cbuf.data_ptr(), htbuf.data_ptr(),
         tok_in.data_ptr(), fin.data_ptr(), done.data_ptr(), q.data_ptr(),
         cv.data_ptr(), logits.data_ptr(), tok_out.data_ptr(),
@@ -484,7 +489,7 @@ def beam_search_streams(enc, dec_h0, dec_c0, w, N, K, stop_limit):
     lib = build.library()
     beam_search_streams.launches += 1
     build.check_launch("k6_beam_decode", lib.k6_beam_decode(
-        enc.data_ptr(), *(packed[k].data_ptr() for k in _STEP_ORDER),
+        enc.data_ptr(), *(packed[k].data_ptr() for k in STEP_ORDER),
         hbuf.data_ptr(), cbuf.data_ptr(), htbuf.data_ptr(),
         tok_in.data_ptr(), score.data_ptr(), fin.data_ptr(),
         done.data_ptr(), parent.data_ptr(), count.data_ptr(), q.data_ptr(),

@@ -44,8 +44,16 @@ Phases, each printing a line:
    output stream within 1e-3 * max|plain| (reverse-time sums over up to
    160 or 63 steps in another order); the whole step's gradient of every
    parameter leaf, through the kernels and through the plain versions
-   (along K3's ids), within the same relative 1e-3; and each kernel's
-   time beside its plain version's;
+   (along K3's ids), within the same relative 1e-3; each kernel's time
+   beside its plain version's; then K3 and K4 again at the partial
+   batches of TRAIN_PARTIAL (5 to 40 rows, T' of 20 to 140, 12 steps of
+   which 5 sample, dropout 0.3), the sizes the trainer's shrunk tail
+   batches have and two that fill a row tiling only in part, under the
+   same tolerances; the thread-block cluster size every launch of K3
+   and K4 took at each of these shapes; and K3 and K4 called REPEATS
+   times more at each, every output bit-equal to the first call's (their
+   sums run in a fixed order, so a difference would be a launch that
+   read or wrote before the one it depends on had ended);
 6. the training path through its entry point, ast_tpu_torch.cli.train,
    on a synthetic es_en_20h experiment (96 train and 32 dev utterances
    of 100-1,200 frames, Zipf-like targets of 5-40 tokens, es_en_20h's
@@ -113,6 +121,14 @@ N_TRAIN, N_DEV = 96, 32
 # 100; > 160: 320, in two 256-row chunks) besides the full batch's R =
 # 32 and 160, and attention clusters from 8 blocks (B = 5) down to 2
 PARTIAL, PARTIAL_STOP = ((5, 20), (11, 60), (20, 100), (64, 140)), 60
+# (rows, T') of the training decoder's partial-batch checks: the trainer
+# shrinks a tail batch to 8 or 16 rows (data/dataloader.py tail_rows); 5
+# and 11 leave rows of the products' 16-row tile empty, 40 takes the
+# 64-row tile.  TRAIN_PARTIAL_COINS: the steps' coins (0 = the step's
+# input is sampled).
+TRAIN_PARTIAL = ((5, 20), (8, 60), (11, 100), (16, 140), (40, 60))
+TRAIN_PARTIAL_COINS = (1, 1, 0, 1, 0, 0, 1, 1, 0, 1, 1, 0)
+REPEATS = 20
 # the H100 SXM's published peaks (NVIDIA's data sheet, 700 W): float32
 # outside the tensor cores, and HBM3
 PEAK_F32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
@@ -628,6 +644,27 @@ def counting(owner, name):
         setattr(owner, name, fn)
 
 
+def tensors(out):
+    """The tensors of a kernel wrapper's result (a tensor, or tuples and
+    dicts of them), in a fixed order."""
+    if isinstance(out, dict):
+        return [t for k in sorted(out) for t in tensors(out[k])]
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in tensors(o)]
+    return [out]
+
+
+def check_repeats(fn, first, name):
+    """Call ``fn`` REPEATS times; every tensor of each result must be
+    bit-equal to ``first``, an earlier call's result."""
+    import torch
+
+    for i in range(REPEATS):
+        assert all(torch.equal(a, b)
+                   for a, b in zip(tensors(fn()), tensors(first))), (
+            f"{name}: call {i + 2} differs from the first")
+
+
 def rel_err(got, want):
     """max |got - want| / max |want| and max |got - want|."""
     d = float((got - want).abs().max())
@@ -815,6 +852,22 @@ def check_train_kernels(cfg, device):
             ms=cuda_ms(lambda: fd.decoder_backward(*bwd), 5),
             plain_ms=cuda_ms(lambda: fd.decoder_backward_reference(*bwd), 2),
             dims=dec_dims)
+        print(f"  clusters at {B} rows, T' {enc.shape[1]}: "
+              f"{train_clusters(B, enc.shape[1], w)}", flush=True)
+        check_repeats(lambda: fd.decoder_forward(*dec_args), (ht_k, res_k),
+                      f"K3 at {B} rows")
+        check_repeats(lambda: fd.decoder_backward(*bwd), g_k,
+                      f"K4 at {B} rows")
+        print(f"  K3 and K4 called {REPEATS} times more, here and at every "
+              f"partial batch below: every output bit-equal to the first "
+              f"call's", flush=True)
+        for nb, t_enc in TRAIN_PARTIAL:
+            err3, err4 = check_train_partial(params, state, mcfg, nb, t_enc,
+                                             device)
+            results["k3"]["max_abs_err"] = max(results["k3"]["max_abs_err"],
+                                               err3)
+            results["k4"]["max_abs_err"] = max(results["k4"]["max_abs_err"],
+                                               err4)
 
     # the whole step: every parameter's gradient, kernels vs plain
     leaves = tree_leaves(params)
@@ -840,6 +893,98 @@ def check_train_kernels(cfg, device):
         "forward_loss disagrees with its pieces"
     results["step"] = dict(worst_leaf=worst[2], rel_err=worst[0])
     return results
+
+
+def check_train_partial(params, state, mcfg, nb, t_enc, device):
+    """K3 and K4 against their plain versions on a partial batch of
+    ``nb`` rows of T' = ``t_enc`` (encoded from seeded features), random
+    teacher ids, TRAIN_PARTIAL_COINS and a random cotangent: K3 along its
+    own selected ids as in phase 5 (sampled ids within TOK_TOL of the
+    plain step's best logit, streams within ENC_TOL), K4's streams within
+    BWD_TOL of max|plain|, and both bit-equal over REPEATS more calls.
+    Returns (K3 max abs err, K4 max abs err)."""
+    import torch
+
+    from ast_tpu_torch.models import seq2seq
+    from ast_tpu_torch.ops import fused_decoder as fd
+
+    rng = np.random.default_rng(100 + nb)
+    X = torch.from_numpy(rng.standard_normal(
+        (nb, 4 * t_enc, 13)).astype(np.float32)).to(device)
+    enc, h0, c0 = seq2seq.encode(params, state, mcfg, X)
+    assert enc.shape[1] == t_enc, (enc.shape, t_enc)
+    w = seq2seq.pack_decoder_weights(params)
+    U = len(TRAIN_PARTIAL_COINS)
+    y_in = torch.from_numpy(rng.integers(
+        4, VOCAB, (U, nb)).astype(np.int32)).to(device)
+    coins = torch.tensor(TRAIN_PARTIAL_COINS, dtype=torch.int32,
+                         device=device)
+    args = (enc, h0, c0, w, y_in, coins, DEC_SEED + nb, DROP, DROP)
+    ht_k, res_k = fd.decoder_forward(*args)
+    sel = res_k["sel"]
+    ht_p, res_p = fd.decoder_forward_reference(*args, forced_ids=sel)
+    short = float(fd.sampled_shortfall(ht_p, w, sel, coins).max())
+    forced = coins.bool()
+    assert (sel[forced] == y_in[forced]).all(), "K3 teacher ids differ"
+    err3 = max([float((ht_k - ht_p).abs().max())]
+               + [float((res_k[k] - res_p[k]).abs().max())
+                  for k in fd.RES_NAMES[1:]])
+    assert short <= TOK_TOL and err3 <= ENC_TOL, (
+        f"K3 disagrees at {nb} rows, T' {t_enc}: sampled shortfall {short}, "
+        f"streams {err3}")
+    d_ht = torch.from_numpy(rng.standard_normal(
+        tuple(ht_k.shape)).astype(np.float32) * 0.1).to(device)
+    bwd = (res_k, ht_k, enc, c0, w, d_ht, DEC_SEED + nb, DROP, DROP)
+    g_k = fd.decoder_backward(*bwd)
+    g_p = fd.decoder_backward_reference(*bwd)
+    errs = {k: rel_err(g_k[k], g_p[k]) for k in fd.GRAD_NAMES}
+    worst = max(errs, key=lambda k: errs[k][0])
+    assert errs[worst][0] <= BWD_TOL, (
+        f"K4 disagrees at {nb} rows, T' {t_enc}: {worst} at "
+        f"{errs[worst][0]} of max|plain|")
+    check_repeats(lambda: fd.decoder_forward(*args), (ht_k, res_k),
+                  f"K3 at {nb} rows")
+    check_repeats(lambda: fd.decoder_backward(*bwd), g_k, f"K4 at {nb} rows")
+    cl = train_clusters(nb, t_enc, w)
+    print(f"K3 / K4 partial batch of {nb} rows, T' {t_enc}, {U} steps "
+          f"({int((~forced).sum())} sampled): K3 sampled ids within "
+          f"{short:.3e} of the plain step's best logit, streams max abs err "
+          f"{err3:.3e}; K4 worst stream {worst} at {errs[worst][0]:.3e} of "
+          f"max|plain|; clusters {cl}", flush=True)
+    return err3, max(e[1] for e in errs.values())
+
+
+def train_clusters(nb, t_enc, w):
+    """The thread-block cluster size each launch of a K3 / K4 step took at
+    ``nb`` rows and T' = ``t_enc`` with the decoder weights ``w`` (a
+    KeyError if one never ran), from the choices the kernel library
+    recorded."""
+    from ast_tpu_torch.kernels import build
+
+    (V, E), H, A = w["embed"].shape, w["wh"].shape[1], w["ctx_w"].shape[1]
+    rows = next(r for r in (16, 32, 64, 128, 160, 256) if nb <= r)
+
+    def blocks(n):
+        return -(-n // 64)
+
+    got = {(c["kind"], c["rows"], c["clusters"], c["tiles"]): c["cluster"]
+           for c in build.cluster_choices()}
+    want = {
+        "K3 cell 0": ("train cell product", rows, H // 16,
+                      (E + A + H) // 32),
+        "cells 1+": ("train cell product", rows, H // 16, 2 * H // 32),
+        "q": ("linear product", rows, blocks(H), H // 32),
+        "attention": ("train attention", 0, nb, t_enc),
+        "ctx": ("linear product", rows, blocks(A), 2 * H // 32),
+        "logits": ("linear product", rows, blocks(V), A // 32),
+        "K4 d_cv": ("linear product", rows, blocks(H), A // 32),
+        "attention bwd": ("attention backward", 0, nb, t_enc),
+        "d_top": ("backward product", rows, blocks(H), (H + A) // 32),
+        "layer 0": ("backward product", rows, blocks(H + E + A),
+                    4 * H // 32),
+        "layers 1+": ("backward product", rows, blocks(2 * H), 4 * H // 32),
+    }
+    return {name: got[key] for name, key in want.items()}
 
 
 def make_train_experiment(root, seed=5):
@@ -973,9 +1118,12 @@ def run_train_slice(root, smi, device="cuda"):
 
 
 # kernel-name fragments -> group, first match wins
-KERNEL_GROUPS = (("lstm_cell_bwd", "cell backward"),
-                 ("lstm_cell", "LSTM cell"),
-                 ("linear", "row-wise linear"),
+KERNEL_GROUPS = (("lstm_cell_bwd", "encoder cell backward"),
+                 ("lstm_cell", "encoder LSTM cell"),
+                 ("prod_train_kernel", "decoder cell product"),
+                 ("prod_bwd_kernel", "decoder backward products"),
+                 ("linear_kernel", "encoder row-wise linear"),
+                 ("prod_kernel", "decoder linear products"),
                  ("attention", "attention"),
                  ("select_embed", "small step kernels"),
                  ("argmax", "small step kernels"),
@@ -988,7 +1136,11 @@ KERNEL_GROUPS = (("lstm_cell_bwd", "cell backward"),
 def step_profile(nn, batch, reps):
     """``reps`` train steps under torch.profiler: (wall ms a step, device
     busy ms a step -- the union of kernel intervals --, [(kernel group,
-    busy ms a step)] largest first)."""
+    busy ms a step)] largest first).  The decoder's kernels are
+    programmatic dependent launches, whose spans start while the kernel
+    before them runs: a kernel counts for the part of its span past the
+    end of every span that started before it, so the groups add up to
+    the busy time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1006,11 +1158,11 @@ def step_profile(nn, batch, reps):
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
     busy, end, groups = 0.0, -np.inf, {}
     for a, b, name in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
+        own = max(0.0, b - max(a, end))
+        busy += own
+        end = max(end, b)
         g = next((g for k, g in KERNEL_GROUPS if k in name), "other torch")
-        groups[g] = groups.get(g, 0.0) + (b - a) / 1e3 / reps
+        groups[g] = groups.get(g, 0.0) + own / 1e3 / reps
     return (wall, busy / 1e3 / reps,
             sorted(groups.items(), key=lambda kv: -kv[1]))
 

@@ -6,12 +6,15 @@
 On chip_smoke.py's synthetic es_en_20h experiment (seeded weights, 64
 feature files of 100-1,200 frames):
 1. kernels: one call each of K1, K5 and K6 at chip_smoke's shapes (B=32,
-   640 frames, stop 175, beam 5,5) under torch.profiler -- each CUDA
-   kernel's launches, mean and share of the call's device time, and the
-   call split by phase: LSTM cells, row-wise linears (q, ctx, logits),
-   attention, selection and argmax, and the launch gaps (the span from
-   the first kernel's start to the last one's end, less the busy time).
-   The decodes' kernels are programmatic dependent launches, so a
+   640 frames, stop 175, beam 5,5), and of the training decoder's K3 and
+   K4 (U=64 targets, dropout 0.3, teacher ratio 0.8), under
+   torch.profiler -- each CUDA kernel's launches, mean and share of the
+   call's device time, and the call split by phase: LSTM cells, row-wise
+   linears (q, ctx, logits; K4's transposed products), attention, the
+   cell backward, selection and argmax, the wrapper's torch ops (K3's
+   and K4's weight packs), and the launch gaps (the span from the first
+   kernel's start to the last one's end, less the busy time).
+   The decoders' kernels are programmatic dependent launches, so a
    kernel's span may start while its predecessor runs and wait for it:
    the split gives each kernel only the part of its span past the end
    of the ones before it (its share of the busy time);
@@ -92,10 +95,17 @@ def profiled(fn):
 
 
 # kernel-name fragments -> phase of a decode step, first match wins
-PHASES = (("lstm_cell", "LSTM cell"), (", true>", "LSTM cell"),
-          ("prod_kernel", "linears"), ("attention", "attention"),
+PHASES = (("cell_bwd", "cell backward"), ("lstm_cell", "LSTM cell"),
+          (", true>", "LSTM cell"), ("prod_train_kernel", "LSTM cell"),
+          ("prod_bwd_kernel", "linears + cell backward"),
+          ("prod_kernel", "linears"), ("linear_kernel", "linears"),
+          ("attention", "attention"),
           ("argmax", "selection / argmax"),
-          ("beam_step", "selection / argmax"))
+          ("beam_step", "selection / argmax"),
+          ("select_embed", "input selection / head"),
+          ("head_kernel", "input selection / head"),
+          ("at::", "torch ops"), ("Memcpy", "torch ops"),
+          ("Memset", "torch ops"))
 
 
 def phase_split(intervals):
@@ -120,17 +130,33 @@ def profile_kernels(cfg, device, out):
     import torch
 
     from ast_tpu_torch.models import seq2seq
-    from ast_tpu_torch.ops import fused_infer, fused_lstm
+    from ast_tpu_torch.ops import fused_decoder, fused_infer, fused_lstm
 
     params, state = seq2seq.init_model(cfg.model, seed=0, device=device)
-    X = torch.from_numpy(np.random.default_rng(2).standard_normal(
+    rng = np.random.default_rng(2)
+    X = torch.from_numpy(rng.standard_normal(
         (chip_smoke.B, chip_smoke.FRAMES, 13)).astype(np.float32)).to(device)
+    U = chip_smoke.U_TRAIN - 1
+    y_in = rng.integers(4, chip_smoke.VOCAB, (U, chip_smoke.B))
+    y_in[0] = 1
+    coins = (rng.random(U) < chip_smoke.TEACH).astype(np.int32)
+    coins[0] = 1
+    y_in = torch.from_numpy(y_in.astype(np.int32)).to(device)
+    coins = torch.from_numpy(coins).to(device)
     with torch.inference_mode():
         enc_in = seq2seq.encoder_inputs(params, state, cfg.model, X)
         enc, h0, c0 = seq2seq.encoder_outputs(
             *fused_lstm.fused_stacked_lstm(*enc_in))
         w = seq2seq.decode_weights(params)
+        w_train = seq2seq.pack_decoder_weights(params)
+        k3 = (enc, h0, c0, w_train, y_in, coins, 777, chip_smoke.DROP,
+              chip_smoke.DROP)
+        ht, res = fused_decoder.decoder_forward(*k3)
+        k4 = (res, ht, enc, c0, w_train, torch.randn_like(ht), 777,
+              chip_smoke.DROP, chip_smoke.DROP)
         calls = {
+            "K3": lambda: fused_decoder.decoder_forward(*k3),
+            "K4": lambda: fused_decoder.decoder_backward(*k4),
             "K1": lambda: fused_lstm.fused_stacked_lstm(*enc_in),
             "K5": lambda: fused_infer.greedy_decode_fused(
                 enc, h0, c0, w, chip_smoke.STOP),
@@ -150,9 +176,7 @@ def profile_kernels(cfg, device, out):
                       f"= {t / 1e3:7.2f} ms  {share * 100:5.1f} %")
             print("  by phase: " + ", ".join(
                 f"{ph} {ms:.2f} ms" for ph, ms in phase_split(
-                    [iv for iv in device_intervals(prof)
-                     if "at::" not in iv[0] and "Memcpy" not in iv[0]
-                     and "Memset" not in iv[0]])), flush=True)
+                    device_intervals(prof))), flush=True)
             if out:
                 with open(os.path.join(out, f"kernels_{name}.txt"), "w") as f:
                     f.write(prof.key_averages().table(
