@@ -12,8 +12,9 @@ given, at chip_smoke.py's shapes and with its timer (this script's own
 chip_smoke.py, so both checkouts run the same shapes): K1 (eval and
 train mode), K2, K3, K4, K5 and K6 (es_en_20h width, B=32, 640 frames ->
 T'=160, U=64 targets, stop 175, beam 5,5, seeded random weights and
-inputs; dropout 0.3), and K3 and K4 again on the first 8 and 16 rows of
-that batch (the sizes of the trainer's shrunk tail batches), each timed
+inputs; dropout 0.3), and K1 train, K2, K3 and K4 again on the first 8
+and 16 rows of that batch (the sizes of the trainer's shrunk tail
+batches), each timed
 with CUDA events, mean of several calls
 after a warm-up, float32 with TF32 off; then one train step, the
 trainer's ``NN.train_step`` on chip_smoke's phase 5 batch (B=32, 640
@@ -35,8 +36,8 @@ import tempfile
 
 import chip_smoke as cs
 
-ORDER = ("k1", "k1t", "k2", "k3", "k4", "k3_b8", "k4_b8", "k3_b16",
-         "k4_b16", "k5", "k6", "train_step",
+ORDER = ("k1", "k1t", "k2", "k3", "k4", "k1t_b8", "k2_b8", "k3_b8", "k4_b8",
+         "k1t_b16", "k2_b16", "k3_b16", "k4_b16", "k5", "k6", "train_step",
          "greedy_utts_s", "beam_utts_s")
 SLICE_PASSES = 3
 TRAIN_STEPS = 10
@@ -94,6 +95,16 @@ def time_tree(tree):
             db = (r, ht, enc, c0, w, d_ht, 777, cs.DROP, cs.DROP)
             out["k4"] = cs.cuda_ms(lambda: fd.decoder_backward(*db), 10)
             for nb in (8, 16):
+                tr_nb = (enc_in[0][:, :, :nb].contiguous(), *enc_in[1:4],
+                         12345, cs.DROP)
+                res_nb = fl.fused_stacked_lstm_train(*tr_nb)
+                out[f"k1t_b{nb}"] = cs.cuda_ms(
+                    lambda: fl.fused_stacked_lstm_train(*tr_nb), 10)
+                bwd_nb = (res_nb[3], res_nb[4], enc_in[1], enc_in[2],
+                          *(torch.randn_like(t) for t in res_nb[:3]), 12345,
+                          cs.DROP)
+                out[f"k2_b{nb}"] = cs.cuda_ms(
+                    lambda: fl.encoder_backward(*bwd_nb), 10)
                 dec_nb = (enc[:nb].contiguous(), h0[:, :nb].contiguous(),
                           c0[:, :nb].contiguous(), w,
                           y_in[:, :nb].contiguous(), coins, 777, cs.DROP,

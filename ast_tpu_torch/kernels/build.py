@@ -31,9 +31,9 @@ _F = ctypes.c_float
 # argtypes of each exported entry point (pointers and the stream as
 # c_void_p, so 64-bit addresses are never cut to an int)
 _SIGNATURES = {
-    "k1_encoder_forward": [_P] * 7 + [_I] * 5 + [_P],
-    "k1_encoder_forward_train": [_P] * 10 + [_I] * 5 + [_U, _U, _F, _P],
-    "k2_encoder_backward": [_P] * 7 + [_I] * 5 + [_U, _U, _F, _P],
+    "k1_encoder_forward": [_P] * 8 + [_I] * 5 + [_P],
+    "k1_encoder_forward_train": [_P] * 11 + [_I] * 5 + [_U, _U, _F, _P],
+    "k2_encoder_backward": [_P] * 9 + [_I] * 5 + [_U, _U, _F, _P],
     "k3_decoder_forward": [_P] * 26 + [_I] * 8 + [_U, _U, _F, _U, _F, _P],
     "k4_decoder_backward": [_P] * 18 + [_I] * 7 + [_U, _U, _F, _U, _F, _P],
     "k5_greedy_decode": [_P] * 20 + [_I] * 8 + [_P],
@@ -116,17 +116,18 @@ def library():
 
 _CLUSTER_KINDS = ("linear product", "cell product", "train cell product",
                   "backward product", "attention", "train attention",
-                  "attention backward")
+                  "attention backward", "encoder cell wave",
+                  "encoder train cell wave", "encoder backward wave")
 
 
 def cluster_choices():
-    """The thread-block cluster sizes the decoder kernels' launches have
+    """The thread-block cluster sizes the kernels' launches have
     taken so far in this process (decode_step.cu chooses one per launch
     shape with cudaOccupancyMaxActiveClusters): a list of dicts with kind,
     rows (of a product's block; 0 for attention), clusters (column slices
     or utterances), tiles (32-row input tiles, or T' for attention),
     smem_kb, cluster and sms (clusters * cluster)."""
-    cap = 256
+    cap = 1024
     buf = (ctypes.c_int * (7 * cap))()
     n = min(library().ast_cluster_choices(buf, cap), cap)
     keys = ("kind", "rows", "clusters", "tiles", "smem_kb", "cluster", "sms")

@@ -1,18 +1,17 @@
 // Shared declarations of the hand-written Hopper kernels (sm_90a).
 //
-// step_kernels.cu holds the per-step building blocks of the encoder (K1,
-// K2): an LSTM cell step with its gate math fused into the epilogue (and,
-// for training, hash dropout and the residual streams), the elementwise
-// LSTM cell backward and a row-wise linear layer; k1_encoder.cu and
-// k2_encoder_bwd.cu drive them from a host-side time loop.
-// decode_step.cu holds the decoder's products (each weight read once a
-// step: packed tiles by bulk copy, the input axis split over a thread-block
-// cluster) and its attention by a cluster per utterance: the decode step
-// of K5 (k5_greedy.cu) and K6 (k6_beam.cu), and, through the launchers
-// declared below, the products and attention of decoder training
-// (k3_decoder_fwd.cu, k4_decoder_bwd.cu), whose time loops also run on the
-// host.  Everything is float32 with FMA accumulation; no library GEMM is
-// called.
+// decode_step.cu holds the one product every kernel runs on (each weight
+// read once a launch: packed tiles by bulk copy, the input axis split over
+// a thread-block cluster, the cell's gate math or a linear layer's bias
+// and activation in the epilogue) and attention by a cluster per utterance.
+// It is launched three ways: as the decode step of K5 (k5_greedy.cu) and
+// K6 (k6_beam.cu); one product at a time, through the launchers declared
+// below, by the host time loops of decoder training (k3_decoder_fwd.cu,
+// k4_decoder_bwd.cu); and as a wave -- up to MAX_WAVE_GROUPS independent
+// products of one launch -- by the encoder (k1_encoder.cu,
+// k2_encoder_bwd.cu), whose cells (step t, layer l) with equal t + l do
+// not depend on one another.  Everything is float32 with FMA accumulation;
+// no library GEMM is called.
 //
 // Every exported entry point launches on the caller's stream, never
 // synchronises, allocates nothing, and returns cudaGetLastError() as an
@@ -91,80 +90,31 @@ static __device__ __forceinline__ int warp_argmax(const float* x, int V) {
 }
 
 // One input segment of a row-wise product.  Row r of the segment is
-// src + g * g_stride + row(r) * K, with row(r) = idx ? idx[r] : r and g
-// the block's group (the direction, for the encoder).  src == nullptr or
-// K == 0 means the segment is absent.
+// src + row(r) * K, with row(r) = idx ? idx[r] : r.
 struct Seg {
   const float* src;
-  long g_stride;
   const int* idx;
   int K;
 };
 
-// One LSTM step for R rows and H units in each of gridDim.z groups:
-//   z = [xa | xb] @ wx + hp @ wh + bias (+ pre),  gates [i, f, g, o],
-//   c_out = f * c_in + i * g,  h_out = o * tanh(c_out)  (+ y_out copy).
-// c_in may equal c_out (each element is read and written by one
-// thread); h_out must not alias hp, which other blocks still read.
-struct CellArgs {
-  Seg xa, xb, hp;
-  const float* wx;  long wx_g;   // (xa.K + xb.K, 4H)
-  const float* wh;  long wh_g;   // (H, 4H)
-  const float* bias; long b_g;   // (4H)
-  const float* pre; long pre_g;  // (R, 4H) or nullptr
-  const float* c_in; float* c_out; long c_g;  // (R, H)
-  float* h_out; long h_g;        // (R, H)
-  float* y_out; long y_g;        // (R, H) or nullptr
-  int R, H;
-  const int* done;               // skip the launch when *done != 0
-};
-
-// The train mode of an LSTM step (a separate kernel, so the eval launch
-// is unchanged): acts_out (R, 4H) gets the post-activation gates
-// [i|f|g|o]; the output x = dropout(h) goes to x_out and, instead of h,
-// to y_out.  Hash dropout when threshold != 0: element (g, r, j) is kept
-// when drop_hash(g * mask_g + r * H + j, seed) >= threshold, and then
-// x = h * keep_scale.
-struct CellTrain {
-  float* acts_out; long acts_g;  // (R, 4H) or nullptr
-  float* x_out; long x_g;        // (R, H) or nullptr
-  unsigned seed, threshold;
-  float keep_scale;
-  long mask_g;
-};
-
-// Backward of one LSTM cell step, elementwise over (R, H) in each of
-// gridDim.y groups (ast_tpu/ops/fused_lstm.py _bwd_kernel's gate
-// backward):  cons = dropout(cons) (the same mask as the forward, kept
+// Backward of one LSTM cell step, elementwise over (R, H)
+// (ast_tpu/ops/fused_decoder.py _bwd_kernel's gate backward), as the
+// epilogue of K4's products runs it (BwdEpilogue):  cons, the gradient
+// arriving from above, goes through the forward's dropout mask (kept
 // values times keep_scale), dh = dh_carry + cons,
 //   dc = dc + dh * o * (1 - tanh(c)^2),  dz = [dc g i(1-i) |
 //   dc c_prev f(1-f) | dc i (1-g^2) | dh tanh(c) o(1-o)],  dc <- dc * f.
-// cons and dh are read from rows of `ld` floats (column 0 .. H-1).
+// dh is read from rows of dh_ld floats (column 0 .. H-1).
 struct CellBwdArgs {
-  const float* cons; long cons_g; int cons_ld;  // nullptr = 0
-  const float* dh; long dh_g; int dh_ld;
-  const float* acts; long acts_g;     // (R, 4H)
-  const float* c_new; long c_g;       // (R, H)
-  const float* c_prev; long cp_g;     // (R, H); nullptr = 0
-  float* dc; long dc_g;               // (R, H) carry, in place
-  float* dz; long dz_g;               // (R, 4H)
+  const float* dh; int dh_ld;
+  const float* acts;      // (R, 4H)
+  const float* c_new;     // (R, H)
+  const float* c_prev;    // (R, H); nullptr = 0
+  float* dc;              // (R, H) carry, in place
+  float* dz;              // (R, 4H)
   unsigned seed, threshold;
   float keep_scale;
-  long mask_g;
   int R, H;
-};
-
-// out = act([xa | xb] @ w + bias), act = tanh or identity.  With several
-// groups, group g reads its segments at g * g_stride and w + g * w_g, and
-// writes out + g * out_g.
-struct LinearArgs {
-  Seg xa, xb;
-  const float* w; long w_g;      // (xa.K + xb.K, N)
-  const float* bias;             // (N) or nullptr
-  float* out; long out_g;        // (R, N)
-  int R, N;
-  int act_tanh;
-  const int* done;
 };
 
 // One product of decode_step.cu:  z = [seg0 | seg1 | seg2] @ W, W packed
@@ -206,10 +156,9 @@ struct CellTrainOut {
 // n_carry) go to Prod::out (R, n_carry): the dh carry.  The columns after
 // them are the gradient arriving at the layer below.  With cell.dz set
 // they are H wide and the `cons` of that layer's cell backward `cell`
-// (CellBwdArgs of one group; cell.cons is not read), run here.  Else
-// (layer 0's
-// product) the next E columns, through the step's embedding dropout mask
-// (seed over (R, E), kept values times inv), go to d_emb (R, E), and the
+// (CellBwdArgs), run here.  Else (layer 0's product) the next E columns,
+// through the step's embedding dropout mask (seed over (R, E), kept
+// values times inv), go to d_emb (R, E), and the
 // A columns after them, the input-feeding gradient, give the step
 // before's d_pre = (d_ht + z) (1 - ht^2) (R, A) -- unless d_pre is
 // nullptr (step 0).
@@ -223,6 +172,41 @@ struct BwdEpilogue {
   const float* d_ht;
   const float* ht;
   float* d_pre;
+};
+
+// What an encoder cell's epilogue adds to a cell product (K1; a kernel of
+// its own for eval and for train mode, so the decoders' cells compile
+// without it): `pre` (R, 4H, gates [i|f|g|o] as in the unpacked weights)
+// joins z + bias -- layer 0's input projection, hoisted out of the
+// recurrence -- and the layer's output also goes to y_out (R, H), the top
+// layer's row of `outs`.  Eval: the output is h, and c_in may be c_out
+// (one thread reads and writes an element).  Train: acts (R, 4H) gets the
+// gates, Prod::out the pre-dropout h, and x_drop (R, H) the output
+// x = drop_hash(flat0 + r * H + j, seed) < threshold ? 0 : h * keep_scale
+// (threshold 0: x = h); flat0 places the rows in the mask's flat index
+// (the direction's d * B * H).
+struct EncCell {
+  const float* pre;  // nullptr = none
+  float* y_out;      // nullptr = none
+  float* acts;
+  float* x_drop;
+  unsigned seed, threshold, flat0;
+  float keep_scale;
+};
+
+struct NoExtra {};
+
+// One launch's independent products: product g is p[g] with the epilogue
+// extra x[g], all of one kind and with equal R.  The launcher fills
+// cb_end (the column blocks of products 0 .. g), by which a block finds
+// its product.
+constexpr int MAX_WAVE_GROUPS = 8;
+template <typename Extra>
+struct Wave {
+  int n;
+  int cb_end[MAX_WAVE_GROUPS];
+  Prod p[MAX_WAVE_GROUPS];
+  Extra x[MAX_WAVE_GROUPS];
 };
 
 // The decoder weights of the decode step (decode_step.cu), the products'
@@ -262,13 +246,11 @@ struct DecoderStep {
   float* logits;       // (R, V)
 };
 
-// With `train`, the train-mode kernel (see CellTrain).
-cudaError_t launch_lstm_cell(const CellArgs& a, int groups, cudaStream_t s,
-                             const CellTrain* train = nullptr);
-cudaError_t launch_lstm_cell_bwd(const CellBwdArgs& a, int groups,
-                                 cudaStream_t s);
-cudaError_t launch_linear(const LinearArgs& a, cudaStream_t s,
-                          int groups = 1);
+// The encoder's waves (decode_step.cu), programmatic dependent launches:
+// w.n <= MAX_WAVE_GROUPS cell products in eval or train mode (K1), or
+// linear products without bias (K2).
+cudaError_t launch_cell_wave(Wave<EncCell>& w, bool train, cudaStream_t s);
+cudaError_t launch_linear_wave(Wave<NoExtra>& w, cudaStream_t s);
 // The products and attention of decoder training (decode_step.cu), all
 // programmatic dependent launches.  A linear product, a cell product in
 // train mode, and a linear product in backward mode:

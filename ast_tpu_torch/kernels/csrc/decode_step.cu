@@ -1,11 +1,18 @@
-// The decoder's step kernels.  The decode step of K5 (greedy) and K6
-// (beam): one decoder step for R rows -- embedding gather + input
-// feeding, the L-layer LSTM stack, the attention query, Luong attention,
-// ht = tanh(ctx([cv; h])), logits.  And, launched one by one from the
-// host loops of k3_decoder_fwd.cu and k4_decoder_bwd.cu, the same
-// products and attention for decoder training: the cell with a train
-// epilogue (gates, c, h and the dropped h to the residual streams),
-// attention that also writes its weights, and its backward.
+// The step kernels of K1-K6: one product design and attention.  The
+// decode step of K5 (greedy) and K6 (beam): one decoder step for R rows --
+// embedding gather + input feeding, the L-layer LSTM stack, the attention
+// query, Luong attention, ht = tanh(ctx([cv; h])), logits.  Launched one
+// by one from the host loops of k3_decoder_fwd.cu and k4_decoder_bwd.cu,
+// the same products and attention for decoder training: the cell with a
+// train epilogue (gates, c, h and the dropped h to the residual streams),
+// attention that also writes its weights, and its backward.  And for the
+// encoder (k1_encoder.cu, k2_encoder_bwd.cu) the same product as a wave
+// (wave_kernel): one launch runs up to MAX_WAVE_GROUPS independent
+// products -- the cells (step t, layer l, direction d) of equal t + l,
+// each with its own inputs, packed weights, state and epilogue (eval or
+// train cell with layer 0's hoisted projection added in, or the backward's
+// linear product) -- whose column blocks lie side by side in the grid; a
+// block finds its product from its index in a table passed by value.
 //
 // Replaces the per-step body that ast_tpu/ops/fused_infer.py's
 // _greedy_kernel and _beam_kernel share (_lstm_stack, _step_core,
@@ -196,17 +203,25 @@ struct ProdShape {
 };
 
 // What a product's epilogue does with the summed rows (see Prod,
-// CellTrainOut and BwdEpilogue in common.cuh).
-enum { PROD_LINEAR = 0, PROD_CELL = 1, PROD_CELL_TRAIN = 2, PROD_BWD = 3 };
-
-struct NoExtra {};
+// CellTrainOut, BwdEpilogue and EncCell in common.cuh).  The PROD_WAVE_*
+// modes are one product of a wave (Wave): the encoder's cell in eval and
+// train mode, and a linear product.
+enum {
+  PROD_LINEAR = 0,
+  PROD_CELL = 1,
+  PROD_CELL_TRAIN = 2,
+  PROD_BWD = 3,
+  PROD_WAVE_CELL = 4,
+  PROD_WAVE_CELL_TRAIN = 5,
+  PROD_WAVE_LINEAR = 6
+};
 
 // Element (r, j) of the cell backward `a` (CellBwdArgs, one group) given
 // the gradient `cons` arriving from above, before its dropout mask; the
-// thread that owns the element reads and writes its dc.  The arithmetic
-// of step_kernels.cu's lstm_cell_bwd_kernel, which stays a kernel of its
-// own for the encoder: sharing this function with it cost K2 1.7-2.0 %
-// (H100, same-call A/B).
+// thread that owns the element reads and writes its dc.  The encoder's
+// cell backward (k2_encoder_bwd.cu) is a kernel of its own with the same
+// arithmetic: sharing this function with it cost K2 1.7-2.0 % (H100,
+// same-call A/B).
 __device__ __forceinline__ void cell_bwd_element(const CellBwdArgs& a, int r,
                                                  int j, float cons) {
   const int H = a.H;
@@ -230,10 +245,17 @@ __device__ __forceinline__ void cell_bwd_element(const CellBwdArgs& a, int r,
   dz[3 * H] = dh * tc * og * (1.f - og);
 }
 
-// ex: the CellTrainOut of PROD_CELL_TRAIN, the BwdEpilogue of PROD_BWD.
+// ex: the CellTrainOut of PROD_CELL_TRAIN, the BwdEpilogue of PROD_BWD,
+// the EncCell of the wave's cells.  wave_cb: in a wave, the block's column
+// block within its product (else the block index gives it).
 template <int TR, int RGN, int MODE, typename Extra>
-__device__ __forceinline__ void prod_body(const Prod& a, const Extra& ex) {
-  constexpr bool CELL = MODE == PROD_CELL || MODE == PROD_CELL_TRAIN;
+__device__ __forceinline__ void prod_body(const Prod& a, const Extra& ex,
+                                          int wave_cb = 0) {
+  constexpr bool WAVE = MODE >= PROD_WAVE_CELL;
+  constexpr bool ENC_CELL =
+      MODE == PROD_WAVE_CELL || MODE == PROD_WAVE_CELL_TRAIN;
+  constexpr bool CELL =
+      MODE == PROD_CELL || MODE == PROD_CELL_TRAIN || ENC_CELL;
   using S = ProdShape<TR, RGN>;
   constexpr int KGN = S::KGN, RB = S::RB, STAGES = S::STAGES;
   grid_dep_wait();
@@ -246,7 +268,7 @@ __device__ __forceinline__ void prod_body(const Prod& a, const Extra& ex) {
   float* smem = reinterpret_cast<float*>(smem4);
   __shared__ unsigned long long full[STAGES];
   const int tid = threadIdx.x;
-  const int cb = blockIdx.x / cs;            // column block
+  const int cb = WAVE ? wave_cb : blockIdx.x / cs;  // column block
   const int r0 = blockIdx.y * RB;
   const int rows = min(RB, a.R - r0);
   int ktot = 0;
@@ -403,15 +425,45 @@ __device__ __forceinline__ void prod_body(const Prod& a, const Extra& ex) {
     const int r = r0 + rr;
     if constexpr (CELL) {
       const int H = a.N, j = cb * UNITS + c4;
-      const float ig = sigmoidf(z.x + a.bias[j]);
-      const float fg = sigmoidf(z.y + a.bias[H + j]);
-      const float gg = tanhf(z.z + a.bias[2 * H + j]);
-      const float og = sigmoidf(z.w + a.bias[3 * H + j]);
+      z.x += a.bias[j];
+      z.y += a.bias[H + j];
+      z.z += a.bias[2 * H + j];
+      z.w += a.bias[3 * H + j];
+      if constexpr (ENC_CELL) {
+        if (ex.pre) {
+          const float* pre = ex.pre + (long)r * 4 * H + j;
+          z.x += pre[0];
+          z.y += pre[H];
+          z.z += pre[2 * H];
+          z.w += pre[3 * H];
+        }
+      }
+      const float ig = sigmoidf(z.x);
+      const float fg = sigmoidf(z.y);
+      const float gg = tanhf(z.z);
+      const float og = sigmoidf(z.w);
       const long prow = a.c_idx ? (long)a.c_idx[r] : (long)r;
       const float c = fg * a.c_in[prow * H + j] + ig * gg;
       const float h = og * tanhf(c);
       a.c_out[(long)r * H + j] = c;
       a.out[(long)r * H + j] = h;
+      if constexpr (ENC_CELL) {
+        float x = h;
+        if constexpr (MODE == PROD_WAVE_CELL_TRAIN) {
+          float* ao = ex.acts + (long)r * 4 * H + j;
+          ao[0] = ig;
+          ao[H] = fg;
+          ao[2 * H] = gg;
+          ao[3 * H] = og;
+          if (ex.threshold)
+            x = drop_hash(ex.flat0 + (unsigned)(r * H + j), ex.seed) <
+                        ex.threshold
+                    ? 0.f
+                    : h * ex.keep_scale;
+          ex.x_drop[(long)r * H + j] = x;
+        }
+        if (ex.y_out) ex.y_out[(long)r * H + j] = x;
+      }
       if constexpr (MODE == PROD_CELL_TRAIN) {
         float* ao = ex.acts + (long)r * 4 * H + j;
         ao[0] = ig;
@@ -456,6 +508,18 @@ template <int TR, int RGN>
 __global__ void __launch_bounds__(THREADS)
     prod_bwd_kernel(Prod a, BwdEpilogue e) {
   prod_body<TR, RGN, PROD_BWD>(a, e);
+}
+
+// A wave: the cluster's slot among the launch's column blocks gives its
+// product (the first whose cb_end lies past it) and its column block
+// there.
+template <int TR, int RGN, int MODE, typename Extra>
+__global__ void __launch_bounds__(THREADS) wave_kernel(Wave<Extra> w) {
+  const int slot = blockIdx.x / (int)cg::this_cluster().num_blocks();
+  int g = 0;
+  while (slot >= w.cb_end[g]) ++g;
+  prod_body<TR, RGN, MODE>(w.p[g], w.x[g],
+                           slot - (g ? w.cb_end[g - 1] : 0));
 }
 
 // cv[b N + n] = softmax(enc[b] @ q[b N + n]) @ enc[b] for the N rows of
@@ -693,15 +757,15 @@ int sm_count() {
 }
 
 // A cluster size chosen for a launch shape, kept for the next launch of
-// the same shape and for ast_cluster_choices.  kind: the product's
-// PROD_* mode, or 4 + the attention's ATTN_* mode; rows: a product
-// block's rows (0 for attention).
+// the same shape and for ast_cluster_choices.  kind: a product's PROD_*
+// mode (a wave's + 3), or 4 + the attention's ATTN_* mode; rows: a
+// product block's rows (0 for attention).
 struct ClusterChoice {
   const void* k;
   size_t smem;
   int blocks, limit, cs, kind, rows;
 };
-constexpr int MAX_CHOICES = 256;
+constexpr int MAX_CHOICES = 1024;
 ClusterChoice g_choices[MAX_CHOICES];
 int g_n_choices = 0;
 
@@ -807,6 +871,40 @@ cudaError_t launch_prod(const Prod& a, cudaStream_t s,
   return launch_prod_tile<16, 16, MODE>(a, cols, s, extra...);
 }
 
+// A wave in mode MODE at the row tiling <TR, RGN>: `cols` column blocks
+// over all its products, whose shortest input axis has `tiles` tiles.
+template <int TR, int RGN, int MODE, typename Extra>
+cudaError_t launch_wave_tile(const Wave<Extra>& w, int cols, int tiles,
+                             cudaStream_t s) {
+  using S = ProdShape<TR, RGN>;
+  static size_t opted = 0;  // of this (tile, mode)'s one kernel
+  const int row_chunks = (w.p[0].R + S::RB - 1) / S::RB;
+  return launch_clustered(wave_kernel<TR, RGN, MODE, Extra>, &opted, MODE + 3,
+                          S::RB, S::BYTES, cols, row_chunks, tiles, s, w);
+}
+
+// The wave's column blocks counted into cb_end, then launch_prod's row
+// tilings.
+template <int MODE, typename Extra>
+cudaError_t launch_wave(Wave<Extra>& w, cudaStream_t s) {
+  int cols = 0, tiles = 1 << 30;
+  for (int g = 0; g < w.n; ++g) {
+    const Prod& a = w.p[g];
+    cols += MODE == PROD_WAVE_LINEAR ? (a.N + NC - 1) / NC : a.N / UNITS;
+    w.cb_end[g] = cols;
+    int ktot = 0;
+    for (int i = 0; i < a.nseg; ++i) ktot += a.seg[i].K;
+    tiles = min(tiles, ktot / KT);
+  }
+  const int R = w.p[0].R;
+  if (R <= 16) return launch_wave_tile<4, 4, MODE>(w, cols, tiles, s);
+  if (R <= 32) return launch_wave_tile<8, 4, MODE>(w, cols, tiles, s);
+  if (R <= 64) return launch_wave_tile<8, 8, MODE>(w, cols, tiles, s);
+  if (R <= 128) return launch_wave_tile<8, 16, MODE>(w, cols, tiles, s);
+  if (R <= 160) return launch_wave_tile<10, 16, MODE>(w, cols, tiles, s);
+  return launch_wave_tile<16, 16, MODE>(w, cols, tiles, s);
+}
+
 // Attention for B utterances of N rows each, in mode MODE; extra: the
 // AttnAux of the training modes.  Shared memory for one block per
 // utterance, the most any cluster size needs.
@@ -834,14 +932,14 @@ cudaError_t decode_step(const StepWeights& w, const float* enc, int T,
     // inputs [emb | ht_prev | h_prev] (layer 0) or [h_below | h_prev];
     // the previous step's state at the parent row
     Prod a = {};
-    const Seg hp = Seg{st.h_in + l * RH, 0, st.parent, H};
+    const Seg hp = Seg{st.h_in + l * RH, st.parent, H};
     if (l == 0) {
-      a.seg[0] = Seg{w.embed, 0, st.tok, w.E};
-      a.seg[1] = Seg{st.ht_in, 0, st.parent, w.A};
+      a.seg[0] = Seg{w.embed, st.tok, w.E};
+      a.seg[1] = Seg{st.ht_in, st.parent, w.A};
       a.seg[2] = hp;
       a.nseg = 3;
     } else {
-      a.seg[0] = Seg{st.h_out + (l - 1) * RH, 0, nullptr, H};
+      a.seg[0] = Seg{st.h_out + (l - 1) * RH, nullptr, H};
       a.seg[1] = hp;
       a.nseg = 2;
     }
@@ -860,7 +958,7 @@ cudaError_t decode_step(const StepWeights& w, const float* enc, int T,
   const float* top = st.h_out + (w.L - 1) * RH;
 
   Prod q = {};
-  q.seg[0] = Seg{top, 0, nullptr, H};
+  q.seg[0] = Seg{top, nullptr, H};
   q.nseg = 1;
   q.w = w.wa;
   q.bias = w.wa_b;
@@ -875,8 +973,8 @@ cudaError_t decode_step(const StepWeights& w, const float* enc, int T,
       attention_kernel, Attn{enc, st.q, st.cv, N, T, H, done}, R / N, s));
 
   Prod c = {};
-  c.seg[0] = Seg{st.cv, 0, nullptr, H};
-  c.seg[1] = Seg{top, 0, nullptr, H};
+  c.seg[0] = Seg{st.cv, nullptr, H};
+  c.seg[1] = Seg{top, nullptr, H};
   c.nseg = 2;
   c.w = w.ctx_w;
   c.bias = w.ctx_b;
@@ -888,7 +986,7 @@ cudaError_t decode_step(const StepWeights& w, const float* enc, int T,
   STEP_RETURN_IF_ERR(launch_prod<PROD_LINEAR>(c, s));
 
   Prod o = {};
-  o.seg[0] = Seg{st.ht_out, 0, nullptr, w.A};
+  o.seg[0] = Seg{st.ht_out, nullptr, w.A};
   o.nseg = 1;
   o.w = w.out_w;
   o.bias = w.out_b;
@@ -913,6 +1011,15 @@ cudaError_t launch_bwd_prod(const Prod& a, const BwdEpilogue& e,
   return launch_prod<PROD_BWD>(a, s, e);
 }
 
+cudaError_t launch_cell_wave(Wave<EncCell>& w, bool train, cudaStream_t s) {
+  return train ? launch_wave<PROD_WAVE_CELL_TRAIN>(w, s)
+               : launch_wave<PROD_WAVE_CELL>(w, s);
+}
+
+cudaError_t launch_linear_wave(Wave<NoExtra>& w, cudaStream_t s) {
+  return launch_wave<PROD_WAVE_LINEAR>(w, s);
+}
+
 cudaError_t launch_attention_train(const float* enc, const float* q,
                                    float* cv, float* alphas, int R, int T,
                                    int H, cudaStream_t s) {
@@ -934,8 +1041,9 @@ cudaError_t launch_attention_bwd(const float* enc, const float* alphas,
 
 // The cluster sizes chosen so far in this process, one record of 7 ints a
 // launch shape: kind (0 linear product, 1 cell, 2 train cell, 3 backward
-// product, 4 attention, 5 train attention, 6 attention backward), a
-// product block's rows, the
+// product, 4 attention, 5 train attention, 6 attention backward, 7 a wave
+// of encoder cells, 8 of train-mode encoder cells, 9 of linear products),
+// a product block's rows, the
 // clusters of a launch, the input tiles (attention: T'), the shared
 // memory in KB, the cluster size, and clusters * size (the SMs a launch
 // fills).  Writes up to `cap` records to out; returns how many exist.

@@ -1,95 +1,174 @@
 // K2: reverse-time backward of the fused stacked (bi)LSTM encoder.
 //
-// Replaces ast_tpu/ops/fused_lstm.py _bwd_kernel (via _bwd_rule): walking
-// t from T-1 to 0 and l from L-1 to 0, it regenerates each layer's
+// Replaces ast_tpu/ops/fused_lstm.py _bwd_kernel (via _bwd_rule): for
+// every cell (step t, layer l, direction d) it regenerates the layer's
 // dropout mask, applies it to the gradient arriving from above (douts
 // for the top layer, dz_{l+1} @ wx^T below it), runs the gate backward
-// with the carried dh / dc, and writes dz for every (t, l, d).  The
-// weight gradients are time-batched GEMMs outside, as on the TPU.
+// with the carried dh / dc, and writes dz.  The weight gradients are
+// time-batched GEMMs outside, as on the TPU.
 //
-// What bounds it on the H100: like K1, T * L dependent steps of small
-// products -- per (t, l) and direction, B rows x 4H inputs x (H or 2H)
-// outputs -- bound by launch latency and by re-reading the transposed
-// weights (2-4 MB a layer, L2-resident), not by FLOPs.  Design: two
-// launches per (t, l), both directions side by side: the elementwise
-// cell backward, then one row-wise product dz @ [wh^T | wx^T] that gives
-// the next step's dh carry and the layer below's input gradient at once.
-// The transposed copy is made once per call by the wrapper, so the
-// product is the shared coalesced linear kernel.  Each layer's product
-// writes its own [dh | dx] buffer, which the cell backward of the same
-// layer (next step) and of the layer below (this step) read; stream
-// order separates the reads from the next write, so nothing ping-pongs.
+// What bounds it on the H100: like K1, a chain of dependent steps of small
+// products -- per cell B rows x 4H inputs x (H or 2H) outputs -- bound by
+// launch latency and by what a launch pulls from L2 (the transposed
+// weights are L2-resident), not by FLOPs.  Design: cell (t, l) needs only
+// the products of (t + 1, l) and (t, l + 1), so the cells with
+// (T - 1 - t) + (L - 1 - l) = v are independent: wave v, T + L - 1 of
+// them, in the order ops/fused_lstm.wave_schedule gives.  A wave is two
+// launches over all its cells and directions: the elementwise cell
+// backward (cell_bwd_kernel below), then one grouped product dz @ [wh^T |
+// wx^T] (decode_step.cu's product as a Wave of linear products) that
+// yields each layer's next dh carry and the layer below's input gradient
+// at once.  The transposed matrices are packed once per call by
+// ops/fused_lstm.pack_encoder_backward_weights as [layer][direction]
+// [column block][k][64], so a block reads its weight tiles as 8 KB bulk
+// copies and each weight once a wave; the input axis (4H) is split over a
+// thread-block cluster.  Each layer's product writes its own [dh | dx]
+// carry, which the next wave's cell backwards of the same layer (at
+// t - 1) and of the layer below (at t) read before that wave's product
+// rewrites it.  Every launch is a programmatic dependent launch and waits
+// for the one before it before its first global access, so stream order
+// separates them.
 #include "common.cuh"
 
+namespace {
+
+constexpr int kThreads = 256;
+
+// One cell's backward, elementwise over (R, H); cons and dh are read from
+// rows of `ld` floats (column 0 .. H - 1).
+struct BwdCell {
+  const float* cons; int cons_ld;   // the gradient from above
+  const float* dh; int dh_ld;       // the carried dh
+  const float* acts;                // (R, 4H)
+  const float* c_new;               // (R, H)
+  const float* c_prev;              // (R, H); nullptr = 0
+  float* dc;                        // (R, H) carry, in place
+  float* dz;                        // (R, 4H)
+  unsigned seed, flat0;             // the mask's seed and first flat index
+};
+
+struct BwdCells {
+  BwdCell g[ast::MAX_WAVE_GROUPS];
+  unsigned threshold;
+  float keep_scale;
+  int R, H;
+};
+
+// Cell blockIdx.y of the wave, one thread per (row, unit):  cons =
+// dropout(cons) (the forward's mask, kept values times keep_scale), dh =
+// dh_carry + cons,
+//   dc = dc + dh * o * (1 - tanh(c)^2),  dz = [dc g i(1-i) |
+//   dc c_prev f(1-f) | dc i (1-g^2) | dh tanh(c) o(1-o)],  dc <- dc * f.
+__global__ void __launch_bounds__(kThreads) cell_bwd_kernel(BwdCells w) {
+  ast::grid_dep_wait();
+  ast::grid_dep_launch();
+  const BwdCell& a = w.g[blockIdx.y];
+  const int H = w.H;
+  const long idx = (long)blockIdx.x * kThreads + threadIdx.x;
+  if (idx >= (long)w.R * H) return;
+  const int r = (int)(idx / H), j = (int)(idx % H);
+  const long H4 = 4L * H;
+  float cons = a.cons[(long)r * a.cons_ld + j];
+  if (w.threshold)
+    cons = ast::drop_hash(a.flat0 + (unsigned)idx, a.seed) < w.threshold
+               ? 0.f
+               : cons * w.keep_scale;
+  const float dh = a.dh[(long)r * a.dh_ld + j] + cons;
+  const float* ac = a.acts + (long)r * H4 + j;
+  const float ig = ac[0], fg = ac[H], gg = ac[2 * H], og = ac[3 * H];
+  const float tc = tanhf(a.c_new[idx]);
+  const float cp = a.c_prev ? a.c_prev[idx] : 0.f;
+  const float dc = a.dc[idx] + dh * og * (1.f - tc * tc);
+  a.dc[idx] = dc * fg;
+  float* dz = a.dz + (long)r * H4 + j;
+  dz[0] = dc * gg * ig * (1.f - ig);
+  dz[H] = dc * cp * fg * (1.f - fg);
+  dz[2 * H] = dc * ig * (1.f - gg * gg);
+  dz[3 * H] = dh * tc * og * (1.f - og);
+}
+
+}  // namespace
+
 // acts (T, L, D2, B, 4H), c_all (T, L, D2, B, H): K1's residuals.
-// w_t: layer 0's wh^T (D2, 4H, H), then for l >= 1 [wh^T | wx^T]
-//      (D2, 4H, 2H), back to back.
+// w_t: per (layer, direction) [wh^T | wx^T] as (column blocks, 4H, 64),
+//      H columns for layer 0 and 2H above, zero-padded to whole blocks.
 // douts (T, D2, B, H): cotangent of the top layer's (post-dropout) output.
 // carry: per layer (D2, B, H) for l = 0 and (D2, B, 2H) above, back to
 //        back; columns 0..H-1 hold dh_fin on entry.
 // dc (L, D2, B, H): dc_fin on entry.  dz (T, L, D2, B, 4H): output.
+// cells, wave_start, n_waves: the reverse wave schedule (host memory).
 AST_EXPORT int k2_encoder_backward(const float* acts, const float* c_all,
                                    const float* w_t, const float* douts,
                                    float* carry, float* dc, float* dz,
-                                   int T, int L, int D2, int B, int H,
+                                   const int* cells, const int* wave_start,
+                                   int n_waves, int L, int D2, int B, int H,
                                    unsigned seed, unsigned threshold,
                                    float keep_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long H4 = 4L * H, BH = (long)B * H, DBH = D2 * BH;
+  const long H4 = 4L * H, BH = (long)B * H;
   auto width = [H](int l) { return l ? 2 * H : H; };
-  long w_off[64], c_off[64];
-  if (L > 64) return (int)cudaErrorInvalidValue;
-  for (long l = 0, wo = 0, co = 0; l < L; ++l) {
-    w_off[l] = wo;
-    c_off[l] = co;
-    wo += D2 * H4 * width(l);
-    co += (long)D2 * B * width(l);
-  }
-  for (int t = T - 1; t >= 0; --t) {
-    for (int l = L - 1; l >= 0; --l) {
+  // layer l's carry and transposed weights in direction d
+  auto carry_at = [=](int l, int d) {
+    return carry + (l ? D2 * BH + ((long)(l - 1) * D2 + d) * 2 * BH : d * BH);
+  };
+  auto weight_at = [=](int l, int d) {
+    const long blk = H4 * 64, b0 = (H + 63) / 64, b1 = (2 * H + 63) / 64;
+    return w_t + blk * (l ? D2 * b0 + ((long)(l - 1) * D2 + d) * b1 : d * b0);
+  };
+  BwdCells cw = {};
+  cw.threshold = threshold;
+  cw.keep_scale = keep_scale;
+  cw.R = B;
+  cw.H = H;
+  ast::Wave<ast::NoExtra> pw;
+  pw.n = 0;
+  const unsigned blocks = (unsigned)((BH + kThreads - 1) / kThreads);
+  auto flush = [&]() -> cudaError_t {
+    if (pw.n == 0) return cudaSuccess;
+    cudaError_t err = ast::launch_ex(cell_bwd_kernel, dim3(blocks, pw.n),
+                                     dim3(kThreads), 0, 1, s, cw);
+    if (err == cudaSuccess) err = ast::launch_linear_wave(pw, s);
+    pw.n = 0;
+    return err;
+  };
+  for (int i = 0; i < n_waves; ++i) {
+    for (int k = wave_start[i]; k < wave_start[i + 1]; ++k) {
+      const int t = cells[2 * k], l = cells[2 * k + 1];
       const long tl = (long)t * L + l;
-      const int n = width(l);
-      ast::CellBwdArgs c = {};
-      if (l == L - 1) {
-        c.cons = douts + (long)t * DBH;
-        c.cons_g = BH;
-        c.cons_ld = H;
-      } else {
-        c.cons = carry + c_off[l + 1] + H;   // dx of the layer above
-        c.cons_g = (long)B * width(l + 1);
-        c.cons_ld = width(l + 1);
-      }
-      c.dh = carry + c_off[l];
-      c.dh_g = (long)B * n;
-      c.dh_ld = n;
-      c.acts = acts + tl * D2 * B * H4;
-      c.acts_g = (long)B * H4;
-      c.c_new = c_all + tl * DBH;
-      c.c_g = BH;
-      c.c_prev = t ? c_all + (tl - L) * DBH : nullptr;
-      c.cp_g = BH;
-      c.dc = dc + (long)l * DBH;
-      c.dc_g = BH;
-      c.dz = dz + tl * D2 * B * H4;
-      c.dz_g = (long)B * H4;
-      c.seed = seed + (unsigned)tl;
-      c.threshold = threshold;
-      c.keep_scale = keep_scale;
-      c.mask_g = BH;
-      c.R = B;
-      c.H = H;
-      AST_RETURN_IF_ERR(ast::launch_lstm_cell_bwd(c, D2, s));
+      for (int d = 0; d < D2; ++d) {
+        const long at = (tl * D2 + d) * BH;  // in a (T, L, D2, B, H)
+        BwdCell& c = cw.g[pw.n];
+        c = BwdCell{};
+        if (l == L - 1) {
+          c.cons = douts + ((long)t * D2 + d) * BH;
+          c.cons_ld = H;
+        } else {
+          c.cons = carry_at(l + 1, d) + H;   // dx of the layer above
+          c.cons_ld = 2 * H;
+        }
+        c.dh = carry_at(l, d);
+        c.dh_ld = width(l);
+        c.acts = acts + at * 4;
+        c.c_new = c_all + at;
+        c.c_prev = t ? c_all + at - (long)L * D2 * BH : nullptr;
+        c.dc = dc + ((long)l * D2 + d) * BH;
+        c.dz = dz + at * 4;
+        c.seed = seed + (unsigned)tl;
+        c.flat0 = (unsigned)(d * BH);
 
-      ast::LinearArgs g = {};
-      g.xa = ast::Seg{c.dz, (long)B * H4, nullptr, (int)H4};
-      g.w = w_t + w_off[l];
-      g.w_g = H4 * n;
-      g.out = carry + c_off[l];
-      g.out_g = (long)B * n;
-      g.R = B;
-      g.N = n;
-      AST_RETURN_IF_ERR(ast::launch_linear(g, s, D2));
+        ast::Prod& g = pw.p[pw.n];
+        g = ast::Prod{};
+        g.seg[0] = ast::Seg{c.dz, nullptr, (int)H4};
+        g.nseg = 1;
+        g.w = weight_at(l, d);
+        g.R = B;
+        g.N = width(l);
+        g.out = carry_at(l, d);
+        if (++pw.n == ast::MAX_WAVE_GROUPS)  // a wide wave takes several
+          AST_RETURN_IF_ERR(flush());
+      }
     }
+    AST_RETURN_IF_ERR(flush());
   }
   return (int)cudaGetLastError();
 }

@@ -103,16 +103,16 @@ AST_EXPORT int k3_decoder_forward(
       // inputs [emb | ht of the step before (0 at t = 0) | h_prev] (layer
       // 0) or [x_drop of the layer below | h_prev]
       ast::Prod a = {};
-      const ast::Seg hp = {t ? h_all + (tl - L) * BH : h0 + l * BH, 0,
-                           nullptr, H};
+      const ast::Seg hp = {t ? h_all + (tl - L) * BH : h0 + l * BH, nullptr,
+                           H};
       if (l == 0) {
-        a.seg[0] = ast::Seg{emb_t, 0, nullptr, E};
-        a.seg[1] = ast::Seg{t ? ht + (long)(t - 1) * B * A : ht0, 0, nullptr,
+        a.seg[0] = ast::Seg{emb_t, nullptr, E};
+        a.seg[1] = ast::Seg{t ? ht + (long)(t - 1) * B * A : ht0, nullptr,
                             A};
         a.seg[2] = hp;
         a.nseg = 3;
       } else {
-        a.seg[0] = ast::Seg{x_drop + (tl - 1) * BH, 0, nullptr, H};
+        a.seg[0] = ast::Seg{x_drop + (tl - 1) * BH, nullptr, H};
         a.seg[1] = hp;
         a.nseg = 2;
       }
@@ -135,7 +135,7 @@ AST_EXPORT int k3_decoder_forward(
     float* ht_t = ht + (long)t * B * A;
 
     ast::Prod qa = {};
-    qa.seg[0] = ast::Seg{top, 0, nullptr, H};
+    qa.seg[0] = ast::Seg{top, nullptr, H};
     qa.nseg = 1;
     qa.w = wa;
     qa.bias = wa_b;
@@ -146,8 +146,8 @@ AST_EXPORT int k3_decoder_forward(
     AST_RETURN_IF_ERR(ast::launch_attention_train(
         enc, q_t, cv_t, alphas + (long)t * B * T, B, T, H, s));
     ast::Prod ca = {};
-    ca.seg[0] = ast::Seg{cv_t, 0, nullptr, H};
-    ca.seg[1] = ast::Seg{top, 0, nullptr, H};
+    ca.seg[0] = ast::Seg{cv_t, nullptr, H};
+    ca.seg[1] = ast::Seg{top, nullptr, H};
     ca.nseg = 2;
     ca.w = ctx_w;
     ca.bias = ctx_b;
@@ -159,7 +159,7 @@ AST_EXPORT int k3_decoder_forward(
 
     if (t + 1 < U) {  // the argmax feed, skipped unless step t+1 samples
       ast::Prod oa = {};
-      oa.seg[0] = ast::Seg{ht_t, 0, nullptr, A};
+      oa.seg[0] = ast::Seg{ht_t, nullptr, A};
       oa.nseg = 1;
       oa.w = out_w;
       oa.bias = out_b;

@@ -106,7 +106,7 @@ AST_EXPORT int k4_decoder_backward(
     float* d_q_t = d_q + (long)t * BH;
 
     ast::Prod cv = {};
-    cv.seg[0] = ast::Seg{d_pre_t, 0, nullptr, A};
+    cv.seg[0] = ast::Seg{d_pre_t, nullptr, A};
     cv.nseg = 1;
     cv.w = w_cv;
     cv.R = B;
@@ -119,8 +119,8 @@ AST_EXPORT int k4_decoder_backward(
     // d_top = [d_q | d_pre] @ [wa^T ; ctx_w[H:]^T], into the top layer's
     // cell backward
     ast::Prod tp = {};
-    tp.seg[0] = ast::Seg{d_q_t, 0, nullptr, H};
-    tp.seg[1] = ast::Seg{d_pre_t, 0, nullptr, A};
+    tp.seg[0] = ast::Seg{d_q_t, nullptr, H};
+    tp.seg[1] = ast::Seg{d_pre_t, nullptr, A};
     tp.nseg = 2;
     tp.w = w_top;
     tp.R = B;
@@ -136,7 +136,7 @@ AST_EXPORT int k4_decoder_backward(
       // cell backward of the layer below or, from layer 0, into d_emb and
       // the step before's d_pre
       ast::Prod g = {};
-      g.seg[0] = ast::Seg{dz + ((long)t * L + l) * B * H4, 0, nullptr,
+      g.seg[0] = ast::Seg{dz + ((long)t * L + l) * B * H4, nullptr,
                           (int)H4};
       g.nseg = 1;
       g.w = w_l;

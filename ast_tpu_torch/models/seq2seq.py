@@ -21,7 +21,8 @@ from ast_tpu_torch.ops.fused_decoder import W_NAMES, FusedDecoder
 from ast_tpu_torch.ops.fused_infer import (
     greedy_decode_fused, pack_step_weights, require_decode_variant)
 from ast_tpu_torch.ops.fused_lstm import (
-    FusedStackedLSTM, fused_stacked_lstm, pack_encoder_weights)
+    ENCODER_TILE, FusedStackedLSTM, fused_stacked_lstm,
+    pack_encoder_step_weights, pack_encoder_weights)
 from ast_tpu_torch.params import from_jax_numpy
 
 
@@ -85,13 +86,29 @@ def init_model(mcfg, seed=0, device="cpu"):
     return from_jax_numpy(params, state, device)
 
 
-def encoder_inputs(params, state, mcfg, X, train=False):
+def encoder_weights(params):
+    """The encoder recurrence's weights as K1 takes them, (wx_rest, wh, b,
+    packed): the direction-stacked layers and the layout its products
+    read (``fused_lstm.pack_encoder_step_weights``; None at a width the
+    kernel does not take, which only the plain version runs).  Made once
+    per model for decoding (:func:`decode_weights`)."""
+    wx_rest, wh, b = pack_encoder_weights(params["enc"]["lstm"])
+    packed = None
+    if wh.shape[2] % ENCODER_TILE == 0:
+        packed = pack_encoder_step_weights(wx_rest, wh)
+    return wx_rest, wh, b, packed
+
+
+def encoder_inputs(params, state, mcfg, X, train=False, enc_w=None):
     """Conv front-end, direction stacking and the hoisted layer-0
     projection: everything of :func:`encode` before the K1 recurrence.
 
     X: (B, T, D) float32.  Returns the arguments of
-    ``fused_stacked_lstm``: (x0_proj (T', 2, B, 4H_e), wx_rest, wh, b);
-    with ``train`` (batch-statistics BatchNorm) also the new BN state."""
+    ``fused_stacked_lstm``: (x0_proj (T', 2, B, 4H_e), wx_rest, wh, b),
+    the last three stacked here or, with ``enc_w``
+    (:func:`encoder_weights`), taken from it together with the packed
+    layout; with ``train`` (batch-statistics BatchNorm) also the new BN
+    state."""
     require_decode_variant(mcfg)
     rnn = mcfg["rnn_config"]
     h_cnn, cnn_state = conv_frontend(params["cnn"], state["cnn_bn"],
@@ -107,7 +124,8 @@ def encoder_inputs(params, state, mcfg, X, train=False):
     layers = params["enc"]["lstm"]
     # hoisted layer-0 projection: one large matmul for every step
     x0_proj = torch.matmul(xs, layers[0]["wx"]).contiguous()
-    out = (x0_proj,) + pack_encoder_weights(layers)
+    out = (x0_proj,) + (pack_encoder_weights(layers) if enc_w is None
+                        else tuple(enc_w))
     if train:
         return out + ({"cnn_bn": cnn_state,
                        "enc_proj_bn": state["enc_proj_bn"]},)
@@ -123,13 +141,14 @@ def encoder_outputs(outs, h_fin, c_fin):
     return enc_states.transpose(0, 1).contiguous(), dec_h0, dec_c0
 
 
-def encode(params, state, mcfg, X):
+def encode(params, state, mcfg, X, w=None):
     """Conv front-end + stacked biLSTM encoder in eval mode.
 
-    X: (B, T, D) float32.  Returns (enc_states (B, T', 2H_e),
-    dec_h0 (L, B, 2H_e), dec_c0 (L, B, 2H_e))."""
-    return encoder_outputs(*fused_stacked_lstm(
-        *encoder_inputs(params, state, mcfg, X)))
+    X: (B, T, D) float32.  ``w``: :func:`decode_weights` of ``params``,
+    whose encoder weights are then not packed again.  Returns (enc_states
+    (B, T', 2H_e), dec_h0 (L, B, 2H_e), dec_c0 (L, B, 2H_e))."""
+    return encoder_outputs(*fused_stacked_lstm(*encoder_inputs(
+        params, state, mcfg, X, enc_w=None if w is None else w["enc"])))
 
 
 def pack_decoder_weights(params):
@@ -154,13 +173,15 @@ def pack_decoder_weights(params):
 
 
 def decode_weights(params):
-    """The decoder weights that greedy and beam decoding take:
+    """The weights that greedy and beam decoding take:
     :func:`pack_decoder_weights` plus, under ``"step"``, the decode step
-    kernels' layout (``fused_infer.pack_step_weights``).  Made once per
+    kernels' layout (``fused_infer.pack_step_weights``) and, under
+    ``"enc"``, the encoder's (:func:`encoder_weights`).  Made once per
     model -- a caller decoding many batches with the same params passes
     it to every batch."""
     w = pack_decoder_weights(params)
     w["step"] = pack_step_weights(w)
+    w["enc"] = encoder_weights(params)
     return w
 
 
@@ -169,9 +190,9 @@ def predict_greedy(params, state, mcfg, X, stop_limit, w=None):
     n_steps 0-d int32): the steps until every row has produced its first EOS,
     capped at stop_limit.  ``w``: :func:`decode_weights` of ``params``,
     made here when not given."""
-    enc_states, dec_h0, dec_c0 = encode(params, state, mcfg, X)
     if w is None:
         w = decode_weights(params)
+    enc_states, dec_h0, dec_c0 = encode(params, state, mcfg, X, w)
     preds = greedy_decode_fused(enc_states, dec_h0, dec_c0, w, stop_limit)
     is_eos = preds == SYMBOLS.EOS_ID
     per_row = torch.where(is_eos.any(dim=1),

@@ -28,9 +28,10 @@ def make_beam_decoder(mcfg, N, K, stop_limit):
     require_decode_variant(mcfg)
 
     def decode(params, state, X, w=None):
-        enc_states, dec_h0, dec_c0 = seq2seq.encode(params, state, mcfg, X)
         if w is None:
             w = seq2seq.decode_weights(params)
+        enc_states, dec_h0, dec_c0 = seq2seq.encode(params, state, mcfg, X,
+                                                    w)
         return beam_decode_fused(enc_states, dec_h0, dec_c0, w, N, K,
                                  stop_limit)
 

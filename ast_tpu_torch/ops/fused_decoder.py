@@ -36,7 +36,7 @@ import torch
 from ast_tpu_torch.kernels import build
 from ast_tpu_torch.ops.dropout import drop_mask, drop_threshold
 from ast_tpu_torch.ops.fused_infer import (
-    STEP_ORDER, check_decoder_inputs, pack_step_weights)
+    STEP_ORDER, check_decoder_inputs, pack_step_weights, put_transposed)
 from ast_tpu_torch.ops.lstm import lstm_gate_acts, lstm_gates_backward
 
 W_NAMES = ("wx0", "wx_rest", "wh", "b", "wa", "wa_b", "ctx_w", "ctx_b",
@@ -200,24 +200,6 @@ def check_train_shapes(T, H, E, A):
                          f"{_SMEM_BYTES}")
 
 
-def _put_transposed(out, n0, m):
-    """Write m^T into packed columns n0 .. n0 + n - 1 of ``out`` (column
-    blocks, K, 64), m (n, K): whole blocks in one strided copy, a ragged
-    head or tail in one more each."""
-    n, i = m.shape[0], 0
-    while i < n:
-        blk, c = divmod(n0 + i, _TILE_N)
-        if c == 0 and n - i >= _TILE_N:
-            nb = (n - i) // _TILE_N
-            out[blk:blk + nb].copy_(m[i:i + nb * _TILE_N]
-                                    .view(nb, _TILE_N, -1).transpose(1, 2))
-            i += nb * _TILE_N
-        else:
-            take = min(_TILE_N - c, n - i)
-            out[blk, :, c:c + take].copy_(m[i:i + take].t())
-            i += take
-
-
 def pack_backward_weights(w):
     """The transposed matrices of K4's products, each as (column blocks,
     K, 64) with zero columns past N, views of one buffer (``flat``):
@@ -243,12 +225,12 @@ def pack_backward_weights(w):
         views.append(flat[off:off + size].view(-1, K, _TILE_N))
         off += size
     cv, top, layers = views[0], views[1], views[2:]
-    _put_transposed(cv, 0, w["ctx_w"][:H])
-    _put_transposed(top[:, :H], 0, w["wa"])
-    _put_transposed(top[:, H:], 0, w["ctx_w"][H:])
+    put_transposed(cv, 0, w["ctx_w"][:H])
+    put_transposed(top[:, :H], 0, w["wa"])
+    put_transposed(top[:, H:], 0, w["ctx_w"][H:])
     for lay, wh, wx in zip(layers, w["wh"], wxs):
-        _put_transposed(lay, 0, wh)
-        _put_transposed(lay, H, wx)
+        put_transposed(lay, 0, wh)
+        put_transposed(lay, H, wx)
     return {"flat": flat, "cv": cv, "top": top, "layer": layers}
 
 

@@ -348,6 +348,26 @@ def _pack_columns(w, block):
     return w.view(K, nb, block).permute(1, 0, 2).contiguous()
 
 
+def put_transposed(out, n0, m):
+    """Write m^T into packed columns n0 .. n0 + n - 1 of ``out`` (...,
+    column blocks, K, 64), m (..., n, K) with the same leading dims: whole
+    blocks in one strided copy, a ragged head or tail in one more each."""
+    n, i = m.shape[-2], 0
+    while i < n:
+        blk, c = divmod(n0 + i, 64)
+        if c == 0 and n - i >= 64:
+            nb = (n - i) // 64
+            out[..., blk:blk + nb, :, :].copy_(
+                m[..., i:i + nb * 64, :].unflatten(-2, (nb, 64))
+                .transpose(-1, -2))
+            i += nb * 64
+        else:
+            take = min(64 - c, n - i)
+            out[..., blk, :, c:c + take].copy_(
+                m[..., i:i + take, :].transpose(-1, -2))
+            i += take
+
+
 def pack_step_weights(w):
     """The decode step kernels' weights (``ast::StepWeights``): each
     product's matrix as (column blocks, K, 64), so a block's tile of

@@ -11,6 +11,14 @@ math.  :class:`FusedStackedLSTM` is the differentiable call: its
 backward is K2 for ``dz``, then the weight gradients as time-batched
 GEMMs, as ``_bwd_rule`` does.
 
+On the card a cell (step t, layer l) runs as one product of a *wave*:
+the cells of equal t + l do not depend on one another, so
+:func:`wave_schedule` orders the T * L cells into T + L - 1 waves and a
+wave is one launch (K1) or two (K2).  The products read the weights in
+the layouts of :func:`pack_encoder_step_weights` and
+:func:`pack_encoder_backward_weights`, made once per wrapper call (K1 in
+eval mode also takes the first from a caller that keeps it per model).
+
 Layout (D2 directions, H units per direction):
   x0_proj (T, D2, B, 4H), wx_rest (L-1, D2, H, 4H), wh (L, D2, H, 4H),
   b (L, D2, 4H)  ->  outs (T, D2, B, H), h_fin / c_fin (L, D2, B, H).
@@ -20,12 +28,20 @@ acts (T, L, D2, B, 4H) ``[i|f|g|o]``, c_all, h_pre (pre-dropout) and
 x_drop (post-dropout) (T, L, D2, B, H).
 """
 
+import ctypes
+import functools
+
+import numpy as np
 import torch
 
 from ast_tpu_torch.kernels import build
 from ast_tpu_torch.ops.dropout import drop_mask, drop_threshold
+from ast_tpu_torch.ops.fused_infer import put_transposed
 from ast_tpu_torch.ops.lstm import (
     lstm_gate_acts, lstm_gates, lstm_gates_backward)
+
+# the input-axis tile of the kernels' products: H must be a multiple
+ENCODER_TILE = 32
 
 
 def pack_encoder_weights(enc_layers):
@@ -37,6 +53,80 @@ def pack_encoder_weights(enc_layers):
     else:
         wx_rest = wh.new_zeros((0,) + tuple(wh.shape[1:]))
     return wx_rest.contiguous(), wh.contiguous(), b.contiguous()
+
+
+@functools.lru_cache(maxsize=64)
+def wave_schedule(T, L, reverse=False):
+    """The order in which the kernels run the T * L cells: (cells, starts)
+    as int32 arrays, cells (T * L, 2) of (t, l) and wave i the rows
+    starts[i] .. starts[i + 1] - 1, by ascending layer.  Forward, wave w
+    holds the cells with t + l = w: cell (t, l) reads the state of
+    (t - 1, l) and the output of (t, l - 1), both of wave w - 1.  Reverse
+    (K2), wave v holds those with (T - 1 - t) + (L - 1 - l) = v: the cell
+    backward of (t, l) reads the products of (t + 1, l) and (t, l + 1)."""
+    cells, starts = [], [0]
+    for w in range(T + L - 1):
+        for l in range(L):
+            t = T - 1 - (w - (L - 1 - l)) if reverse else w - l
+            if 0 <= t < T:
+                cells.append((t, l))
+        starts.append(len(cells))
+    out = (np.asarray(cells, np.int32).reshape(-1, 2),
+           np.asarray(starts, np.int32))
+    for a in out:
+        a.flags.writeable = False       # shared by every caller
+    return out
+
+
+def _schedule_args(T, L, reverse=False):
+    """The schedule as the entry points take it: two host pointers and
+    the number of waves (the arrays live in wave_schedule's cache)."""
+    cells, starts = wave_schedule(T, L, reverse)
+    return (cells.ctypes.data_as(ctypes.c_void_p),
+            starts.ctypes.data_as(ctypes.c_void_p), len(starts) - 1)
+
+
+def pack_encoder_step_weights(wx_rest, wh):
+    """K1's weights as its products read them: per (layer, direction) the
+    cell's [wx; wh] (K, 4H) -- K = H for layer 0, whose input arrives
+    projected, 2H above -- as (H / 16 column blocks, K, 64), packed column
+    q * 16 + u of block c being gate q of unit 16 c + u, so a block holds
+    all four gates of its units and a tile of 32 input rows is one
+    contiguous 8 KB; layer 0's directions first, then (layer, direction)
+    above, in one flat buffer.  Three strided copies."""
+    L, D2, H, _ = wh.shape
+    flat = wh.new_empty(((2 * L - 1) * D2 * H * 4 * H,))
+    n0 = D2 * H * 4 * H
+
+    def by_unit(w):        # (..., K, 4H) -> (..., H / 16, K, 4, 16)
+        return w.unflatten(-1, (4, H // 16, 16)).movedim(-2, -4)
+
+    flat[:n0].view(D2, H // 16, H, 4, 16).copy_(by_unit(wh[0]))
+    if L > 1:
+        rest = flat[n0:].view(L - 1, D2, H // 16, 2 * H, 4, 16)
+        rest[..., :H, :, :].copy_(by_unit(wx_rest))
+        rest[..., H:, :, :].copy_(by_unit(wh[1:]))
+    return flat
+
+
+def pack_encoder_backward_weights(wx_rest, wh):
+    """K2's weights: per (layer, direction) the transposed [wh^T | wx^T]
+    (4H, N) -- N = H for layer 0, 2H above -- as (ceil(N / 64) column
+    blocks, 4H, 64) with zero columns past N, so that dz @ it is the
+    layer's [dh carry | dx]; layer 0's directions first, then (layer,
+    direction) above, in one flat buffer.  Three strided copies when H is
+    a multiple of 64."""
+    L, D2, H, H4 = wh.shape
+    b0, b1 = -(-H // 64), -(-2 * H // 64)
+    n0 = D2 * b0 * H4 * 64
+    flat = (torch.zeros if H % 64 else torch.empty)(
+        (n0 + (L - 1) * D2 * b1 * H4 * 64,), dtype=wh.dtype, device=wh.device)
+    put_transposed(flat[:n0].view(D2, b0, H4, 64), 0, wh[0])
+    if L > 1:
+        rest = flat[n0:].view(L - 1, D2, b1, H4, 64)
+        put_transposed(rest, 0, wh[1:])
+        put_transposed(rest, H, wx_rest)
+    return flat
 
 
 def _inv_keep(rate):
@@ -130,26 +220,43 @@ def _check_weights(x0_proj, wx_rest, wh, b):
     build.check_tensor(wx_rest, "wx_rest", (L - 1, D2, H, 4 * H))
     build.check_tensor(wh, "wh", (L, D2, H, 4 * H))
     build.check_tensor(b, "b", (L, D2, 4 * H))
+    check_encoder_shapes(H)
     return T, L, D2, B, H
 
 
-def fused_stacked_lstm(x0_proj, wx_rest, wh, b):
-    """Encoder recurrence, eval mode.  Returns (outs, h_fin, c_fin)."""
+def check_encoder_shapes(H):
+    """Raise unless the encoder kernels take H units a direction: their
+    products walk the input axis in ENCODER_TILE-row tiles."""
+    if H % ENCODER_TILE:
+        raise ValueError(f"encoder kernels take H that is a multiple of "
+                         f"{ENCODER_TILE} (got {H})")
+
+
+def fused_stacked_lstm(x0_proj, wx_rest, wh, b, packed=None):
+    """Encoder recurrence, eval mode.  Returns (outs, h_fin, c_fin).
+    ``packed``: :func:`pack_encoder_step_weights` of the weights, for a
+    caller that keeps it over many calls; made here when not given."""
     if not x0_proj.is_cuda:
         return stacked_lstm_reference(x0_proj, wx_rest, wh, b)
     T, L, D2, B, H = _check_weights(x0_proj, wx_rest, wh, b)
     dev = x0_proj.device
+    if packed is None:
+        w = pack_encoder_step_weights(wx_rest, wh)
+    else:
+        w = packed
+        build.check_tensor(w, "packed", ((2 * L - 1) * D2 * H * 4 * H,))
     outs = torch.empty((T, D2, B, H), device=dev)
+    # layer l's h at step t in slot t % 2; both start as the zero state
     hbuf = torch.zeros((2, L, D2, B, H), device=dev)
     c = torch.zeros((L, D2, B, H), device=dev)
     lib = build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
     fused_stacked_lstm.launches += 1
     build.check_launch("k1_encoder_forward", lib.k1_encoder_forward(
-        x0_proj.data_ptr(), wx_rest.data_ptr(), wh.data_ptr(), b.data_ptr(),
-        outs.data_ptr(), hbuf.data_ptr(), c.data_ptr(),
-        T, L, D2, B, H, stream))
-    return outs, hbuf[T % 2], c
+        x0_proj.data_ptr(), w.data_ptr(), b.data_ptr(), outs.data_ptr(),
+        hbuf.data_ptr(), c.data_ptr(), *_schedule_args(T, L),
+        L, D2, B, H, stream))
+    return outs, hbuf[(T - 1) % 2], c
 
 
 fused_stacked_lstm.launches = 0
@@ -164,6 +271,7 @@ def fused_stacked_lstm_train(x0_proj, wx_rest, wh, b, seed, rate):
                                       rate)
     T, L, D2, B, H = _check_weights(x0_proj, wx_rest, wh, b)
     dev = x0_proj.device
+    w = pack_encoder_step_weights(wx_rest, wh)
     outs = torch.empty((T, D2, B, H), device=dev)
     acts = torch.empty((T, L, D2, B, 4 * H), device=dev)
     c_all, h_pre, x_drop = (torch.empty((T, L, D2, B, H), device=dev)
@@ -173,11 +281,12 @@ def fused_stacked_lstm_train(x0_proj, wx_rest, wh, b, seed, rate):
     fused_stacked_lstm_train.launches += 1
     build.check_launch("k1_encoder_forward_train",
                        lib.k1_encoder_forward_train(
-        x0_proj.data_ptr(), wx_rest.data_ptr(), wh.data_ptr(), b.data_ptr(),
+        x0_proj.data_ptr(), w.data_ptr(), b.data_ptr(),
         outs.data_ptr(), acts.data_ptr(), c_all.data_ptr(),
         h_pre.data_ptr(), x_drop.data_ptr(), zero.data_ptr(),
-        T, L, D2, B, H, seed & 0xFFFFFFFF, drop_threshold(rate),
-        _inv_keep(rate), torch.cuda.current_stream(dev).cuda_stream))
+        *_schedule_args(T, L), L, D2, B, H, seed & 0xFFFFFFFF,
+        drop_threshold(rate), _inv_keep(rate),
+        torch.cuda.current_stream(dev).cuda_stream))
     return (outs, h_pre[-1].clone(), c_all[-1].clone(), acts, c_all, h_pre,
             x_drop)
 
@@ -200,21 +309,16 @@ def encoder_backward(acts, c_all, wx_rest, wh, douts, dh_fin, dc_fin, seed,
     build.check_tensor(douts, "douts", (T, D2, B, H))
     build.check_tensor(dh_fin, "dh_fin", (L, D2, B, H))
     build.check_tensor(dc_fin, "dc_fin", (L, D2, B, H))
+    check_encoder_shapes(H)
     dev = acts.device
-    # transposed weights, once per call (a layout copy): layer l's
-    # [wh^T | wx^T] (D2, 4H, H or 2H) turns dz into [dh_prev | dx_below]
-    # in one row-wise product
-    w_t = [wh[0].transpose(1, 2)] + [
-        torch.cat([wh[l].transpose(1, 2), wx_rest[l - 1].transpose(1, 2)],
-                  dim=2) for l in range(1, L)]
-    w_t = torch.cat([w.reshape(-1) for w in w_t])
-    # per layer (D2, B, H or 2H): [dh carry | dx for the layer below];
-    # the carry starts as dh_fin
-    carry = [torch.zeros((D2, B, H if l == 0 else 2 * H), device=dev)
-             for l in range(L)]
-    for l in range(L):
-        carry[l][..., :H] = dh_fin[l]
-    carry = torch.cat([c.reshape(-1) for c in carry])
+    w_t = pack_encoder_backward_weights(wx_rest, wh)
+    # per layer (D2, B, H or 2H): [dh carry | dx for the layer below]; the
+    # carry starts as dh_fin, dx is written before it is read
+    n0 = D2 * B * H
+    carry = torch.empty((n0 + (L - 1) * D2 * B * 2 * H,), device=dev)
+    carry[:n0].view(D2, B, H).copy_(dh_fin[0])
+    if L > 1:
+        carry[n0:].view(L - 1, D2, B, 2 * H)[..., :H].copy_(dh_fin[1:])
     dc = dc_fin.clone()
     dz = torch.empty((T, L, D2, B, 4 * H), device=dev)
     lib = build.library()
@@ -222,8 +326,9 @@ def encoder_backward(acts, c_all, wx_rest, wh, douts, dh_fin, dc_fin, seed,
     build.check_launch("k2_encoder_backward", lib.k2_encoder_backward(
         acts.data_ptr(), c_all.data_ptr(), w_t.data_ptr(), douts.data_ptr(),
         carry.data_ptr(), dc.data_ptr(), dz.data_ptr(),
-        T, L, D2, B, H, seed & 0xFFFFFFFF, drop_threshold(rate),
-        _inv_keep(rate), torch.cuda.current_stream(dev).cuda_stream))
+        *_schedule_args(T, L, True), L, D2, B, H, seed & 0xFFFFFFFF,
+        drop_threshold(rate), _inv_keep(rate),
+        torch.cuda.current_stream(dev).cuda_stream))
     return dz
 
 

@@ -10,7 +10,12 @@ Phases, each printing a line:
    this checkout;
 3. each kernel against its plain PyTorch version on the card, at the
    full width of experiments/es_en_20h (B=32, 640 frames, stop 175,
-   float32, seeded random weights): K1 outputs within 1e-4.  K5 and K6
+   float32, seeded random weights): K1 outputs within 1e-4, again at the
+   partial batches of ENC_PARTIAL and ENC_EVAL_PARTIAL (5 to 64 rows, T'
+   of 3 to 140, even and odd) and on DEEP_ENCODER's five-layer stack,
+   whose waves take two launches each, and REPEATS more calls at each
+   size bit-equal to the first, with the cluster size each wave took.  K5
+   and K6
    are compared twice: free-running (rows or utterances whose tokens
    agree with the plain decode must agree exactly, scores within 1e-3),
    and with the plain decoder step run along the kernel's own tokens, so
@@ -45,7 +50,11 @@ Phases, each printing a line:
    160 or 63 steps in another order); the whole step's gradient of every
    parameter leaf, through the kernels and through the plain versions
    (along K3's ids), within the same relative 1e-3; each kernel's time
-   beside its plain version's; then K3 and K4 again at the partial
+   beside its plain version's; K1 train and K2 again at the partial
+   batches of ENC_PARTIAL and on DEEP_ENCODER's stack under the same
+   tolerances, masks bit-equal, and
+   REPEATS more calls at every size bit-equal to the first; then K3 and
+   K4 again at the partial
    batches of TRAIN_PARTIAL (5 to 40 rows, T' of 20 to 140, 12 steps of
    which 5 sample, dropout 0.3), the sizes the trainer's shrunk tail
    batches have and two that fill a row tiling only in part, under the
@@ -128,6 +137,15 @@ PARTIAL, PARTIAL_STOP = ((5, 20), (11, 60), (20, 100), (64, 140)), 60
 # input is sampled).
 TRAIN_PARTIAL = ((5, 20), (8, 60), (11, 100), (16, 140), (40, 60))
 TRAIN_PARTIAL_COINS = (1, 1, 0, 1, 0, 0, 1, 1, 0, 1, 1, 0)
+# (rows, T') of the encoder's partial-batch checks (K1 eval, K1 train,
+# K2): TRAIN_PARTIAL's, a T' below L + 1 (no wave holds every layer) and
+# an odd T' (the eval state's slot parity); for K1 eval, which the infer
+# CLI sends any count up to its batch, also the 64-row tile filled
+ENC_PARTIAL = TRAIN_PARTIAL + ((8, 3), (16, 41))
+ENC_EVAL_PARTIAL = ((64, 140),)
+# a stack whose full waves (L layers x 2 directions = 10 cells) exceed the
+# 8 products one launch takes, so each takes two: (L, H, rows, T')
+DEEP_ENCODER = (5, 64, 6, 9)
 REPEATS = 20
 # the H100 SXM's published peaks (NVIDIA's data sheet, 700 W): float32
 # outside the tensor cores, and HBM3
@@ -416,6 +434,13 @@ def check_kernels(cfg, device):
           f"the conv output): max abs err {lib_err:.3e} against K1 (tol "
           f"{ENC_TOL})", flush=True)
     assert lib_err <= ENC_TOL, "the cuDNN pair computes another function"
+    check_repeats(lambda: fused_lstm.fused_stacked_lstm(*enc_in), got,
+                  f"K1 at {B} rows")
+    print(f"  clusters at {B} rows: {encoder_clusters(B)}", flush=True)
+    for nb, t_enc in ENC_PARTIAL + ENC_EVAL_PARTIAL:
+        err = max(err, check_encoder_partial(
+            encoder_case(params, nb, t_enc, device)))
+    err = max(err, check_encoder_partial(deep_encoder_case(device)))
     results["k1"] = dict(
         max_abs_err=err,
         ms=cuda_ms(lambda: fused_lstm.fused_stacked_lstm(*enc_in), 5),
@@ -501,6 +526,130 @@ def check_kernels(cfg, device):
         results["k6"]["max_abs_err"] = max(results["k6"]["max_abs_err"],
                                            bm["score_err"])
     return results
+
+
+def encoder_case(params, nb, t_enc, device):
+    """Inputs of a partial-batch encoder check: a seeded x0_proj (T', D2,
+    nb, 4H) and the model's (wx_rest, wh, b)."""
+    import torch
+
+    from ast_tpu_torch.ops import fused_lstm
+
+    wxr, wh, b = fused_lstm.pack_encoder_weights(params["enc"]["lstm"])
+    _, D2, _, H4 = wh.shape
+    x0 = torch.from_numpy(np.random.default_rng(1000 * nb + t_enc)
+                          .standard_normal((t_enc, D2, nb, H4))
+                          .astype(np.float32)).to(device)
+    return x0, wxr, wh, b
+
+
+def deep_encoder_case(device):
+    """The same for DEEP_ENCODER's stack, with seeded random weights."""
+    import torch
+
+    L, H, nb, t_enc = DEEP_ENCODER
+    rng = np.random.default_rng(L)
+    return tuple(
+        torch.from_numpy((rng.standard_normal(shape) * scale).astype(
+            np.float32)).to(device)
+        for shape, scale in (((t_enc, 2, nb, 4 * H), 1.0),
+                             ((L - 1, 2, H, 4 * H), 0.2),
+                             ((L, 2, H, 4 * H), 0.2), ((L, 2, 4 * H), 0.1)))
+
+
+def encoder_clusters(nb):
+    """{kind: {column blocks of a wave: cluster size}} of the encoder
+    waves launched so far at the row tiling ``nb`` rows take."""
+    from ast_tpu_torch.kernels import build
+
+    rows = next(r for r in (16, 32, 64, 128, 160, 256) if nb <= r)
+    out = {}
+    for c in build.cluster_choices():
+        if c["kind"].startswith("encoder") and c["rows"] == rows:
+            out.setdefault(c["kind"], {})[c["clusters"]] = c["cluster"]
+    return out
+
+
+def check_encoder_partial(args):
+    """K1 eval against its plain version on ``args`` (x0_proj, wx_rest,
+    wh, b) within ENC_TOL, and bit-equal over REPEATS more calls; returns
+    the max abs err."""
+    from ast_tpu_torch.ops import fused_lstm
+
+    t_enc, _, nb, _ = args[0].shape
+    L = args[2].shape[0]
+    got = fused_lstm.fused_stacked_lstm(*args)
+    ref = fused_lstm.stacked_lstm_reference(*args)
+    err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    assert err <= ENC_TOL, (
+        f"K1 disagrees at {nb} rows, T' {t_enc}, {L} layers: {err}")
+    check_repeats(lambda: fused_lstm.fused_stacked_lstm(*args), got,
+                  f"K1 at {nb} rows, T' {t_enc}, {L} layers")
+    print(f"K1 partial batch of {nb} rows, T' {t_enc}, {L} layers: max abs "
+          f"err "
+          f"{err:.3e}, {REPEATS} more calls bit-equal; clusters "
+          f"{encoder_clusters(nb).get('encoder cell wave')}", flush=True)
+    return err
+
+
+def hash_mask_equal(x_drop, seed, rate, device):
+    """(whether the zero pattern of K1 train's x_drop (T, L, D2, B, H) is
+    the torch hash mask's, the mask's dropped share)."""
+    import torch
+
+    from ast_tpu_torch.ops.dropout import drop_mask
+
+    T, L = x_drop.shape[:2]
+    seeds = (seed + torch.arange(T * L, device=device)).view(T, L, 1, 1, 1)
+    keep = drop_mask(tuple(x_drop.shape[2:]), rate, seeds, row_axis=1,
+                     device=device)
+    return (bool(((x_drop == 0) == ~keep).all()),
+            float((~keep).float().mean()))
+
+
+def check_encoder_train_partial(x0, wxr, wh, b):
+    """K1 train and K2 against their plain versions on these encoder
+    inputs with dropout DROP: K1's outputs and residuals within
+    ENC_TOL, its zero pattern the hash mask; K2, fed K1's residuals and
+    random cotangents, within BWD_TOL of max|plain|; both bit-equal over
+    REPEATS more calls.  Returns (K1 train max abs err, K2 max abs err)."""
+    import torch
+
+    from ast_tpu_torch.ops import fused_lstm as fl
+
+    t_enc, _, nb, _ = x0.shape
+    L, device = wh.shape[0], x0.device
+    seed = ENC_SEED + nb
+    args = (x0, wxr, wh, b, seed, DROP)
+    got = fl.fused_stacked_lstm_train(*args)
+    ref = fl.stacked_lstm_reference(x0, wxr, wh, b, True, seed, DROP)
+    err1 = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    mask_ok, _ = hash_mask_equal(got[6], seed, DROP, device)
+    assert err1 <= ENC_TOL and mask_ok, (
+        f"K1 train disagrees at {nb} rows, T' {t_enc}, {L} layers: {err1}, "
+        f"mask "
+        f"{'equal' if mask_ok else 'differs'}")
+    rng = np.random.default_rng(7000 + nb)
+    cot = [torch.from_numpy(rng.standard_normal(tuple(t.shape)).astype(
+        np.float32) * 0.1).to(device) for t in got[:3]]
+    bwd = (got[3], got[4], wxr, wh, *cot, seed, DROP)
+    dz = fl.encoder_backward(*bwd)
+    rel, err2 = rel_err(dz, fl.encoder_backward_reference(*bwd))
+    assert rel <= BWD_TOL, (
+        f"K2 disagrees at {nb} rows, T' {t_enc}, {L} layers: {rel} of "
+        f"max|plain|")
+    check_repeats(lambda: fl.fused_stacked_lstm_train(*args), got,
+                  f"K1 train at {nb} rows, T' {t_enc}")
+    check_repeats(lambda: fl.encoder_backward(*bwd), dz,
+                  f"K2 at {nb} rows, T' {t_enc}")
+    cl = encoder_clusters(nb)
+    print(f"K1 train / K2 partial batch of {nb} rows, T' {t_enc}, {L} "
+          f"layers: K1 train "
+          f"max abs err {err1:.3e}, mask equal; K2 dz {rel:.3e} of "
+          f"max|plain|; {REPEATS} more calls of each bit-equal; clusters "
+          f"{ {k: v for k, v in cl.items() if k != 'encoder cell wave'} }",
+          flush=True)
+    return err1, err2
 
 
 def check_partial(params, state, mcfg, w, nb, t_enc, device):
@@ -743,7 +892,6 @@ def check_train_kernels(cfg, device):
     from ast_tpu_torch.models import seq2seq
     from ast_tpu_torch.ops import fused_decoder as fd
     from ast_tpu_torch.ops import fused_lstm as fl
-    from ast_tpu_torch.ops.dropout import drop_mask
     from ast_tpu_torch.train.optimizer import tree_leaves
 
     mcfg = cfg.model
@@ -763,16 +911,14 @@ def check_train_kernels(cfg, device):
         ref = fl.stacked_lstm_reference(*enc_args[:4], True, ENC_SEED, DROP)
         err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
         T, L = got[3].shape[:2]
-        seeds = (ENC_SEED + torch.arange(T * L, device=device)).view(
-            T, L, 1, 1, 1)
-        keep = drop_mask(tuple(got[0].shape[1:]), DROP, seeds, row_axis=1,
-                         device=device)
-        mask_ok = bool(((got[6] == 0) == ~keep).all())
+        mask_ok, dropped = hash_mask_equal(got[6], ENC_SEED, DROP, device)
         print(f"K1 train: x0_proj {tuple(x0.shape)}, outputs and residuals "
               f"max abs err {err:.3e} (tol {ENC_TOL}); dropout zero pattern "
               f"{'equals' if mask_ok else 'DIFFERS from'} the hash mask "
-              f"({float((~keep).float().mean()):.3f} dropped)", flush=True)
+              f"({dropped:.3f} dropped)", flush=True)
         assert err <= ENC_TOL and mask_ok, "K1 train disagrees"
+        check_repeats(lambda: fl.fused_stacked_lstm_train(*enc_args), got,
+                      f"K1 train at {B} rows")
         enc_dims = dict(T=T, D2=x0.shape[1], B=B, H=x0.shape[3] // 4, L=L)
         results["k1t"] = dict(
             max_abs_err=err, ms=cuda_ms(lambda: fl.fused_stacked_lstm_train(
@@ -826,11 +972,15 @@ def check_train_kernels(cfg, device):
 
     with torch.no_grad():
         bwd = (got[3], got[4], wxr, wh, *d_enc_out, ENC_SEED, DROP)
-        rel, err = rel_err(fl.encoder_backward(*bwd),
-                           fl.encoder_backward_reference(*bwd))
+        dz = fl.encoder_backward(*bwd)
+        rel, err = rel_err(dz, fl.encoder_backward_reference(*bwd))
         print(f"K2 encoder backward: dz max abs err {err:.3e}, {rel:.3e} of "
               f"max|plain| (tol {BWD_TOL})", flush=True)
         assert rel <= BWD_TOL, "K2 disagrees"
+        check_repeats(lambda: fl.encoder_backward(*bwd), dz, f"K2 at {B} rows")
+        print(f"  K1 train and K2 called {REPEATS} times more: every output "
+              f"bit-equal to the first call's; clusters at {B} rows: "
+              f"{encoder_clusters(B)}", flush=True)
         results["k2"] = dict(
             max_abs_err=err, rel_err=rel,
             ms=cuda_ms(lambda: fl.encoder_backward(*bwd), 5),
@@ -861,6 +1011,14 @@ def check_train_kernels(cfg, device):
         print(f"  K3 and K4 called {REPEATS} times more, here and at every "
               f"partial batch below: every output bit-equal to the first "
               f"call's", flush=True)
+        cases = [encoder_case(params, nb, t_enc, device)
+                 for nb, t_enc in ENC_PARTIAL] + [deep_encoder_case(device)]
+        for case in cases:
+            err1, err2 = check_encoder_train_partial(*case)
+            results["k1t"]["max_abs_err"] = max(
+                results["k1t"]["max_abs_err"], err1)
+            results["k2"]["max_abs_err"] = max(results["k2"]["max_abs_err"],
+                                               err2)
         for nb, t_enc in TRAIN_PARTIAL:
             err3, err4 = check_train_partial(params, state, mcfg, nb, t_enc,
                                              device)
@@ -1118,11 +1276,11 @@ def run_train_slice(root, smi, device="cuda"):
 
 
 # kernel-name fragments -> group, first match wins
-KERNEL_GROUPS = (("lstm_cell_bwd", "encoder cell backward"),
-                 ("lstm_cell", "encoder LSTM cell"),
+KERNEL_GROUPS = (("cell_bwd_kernel", "encoder cell backward"),
+                 ("EncCell", "encoder cell waves"),
+                 ("wave_kernel", "encoder backward product waves"),
                  ("prod_train_kernel", "decoder cell product"),
                  ("prod_bwd_kernel", "decoder backward products"),
-                 ("linear_kernel", "encoder row-wise linear"),
                  ("prod_kernel", "decoder linear products"),
                  ("attention", "attention"),
                  ("select_embed", "small step kernels"),

@@ -6,15 +6,17 @@
 On chip_smoke.py's synthetic es_en_20h experiment (seeded weights, 64
 feature files of 100-1,200 frames):
 1. kernels: one call each of K1, K5 and K6 at chip_smoke's shapes (B=32,
-   640 frames, stop 175, beam 5,5), and of the training decoder's K3 and
-   K4 (U=64 targets, dropout 0.3, teacher ratio 0.8), under
-   torch.profiler -- each CUDA kernel's launches, mean and share of the
-   call's device time, and the call split by phase: LSTM cells, row-wise
-   linears (q, ctx, logits; K4's transposed products), attention, the
-   cell backward, selection and argmax, the wrapper's torch ops (K3's
-   and K4's weight packs), and the launch gaps (the span from the first
+   640 frames, stop 175, beam 5,5), of the training decoder's K3 and
+   K4 (U=64 targets, dropout 0.3, teacher ratio 0.8), and of the
+   training encoder's K1 train and K2 (dropout 0.3; also at 8 rows),
+   under torch.profiler -- each CUDA kernel's launches, mean and share of
+   the call's device time, and the call split by phase: LSTM cells
+   (the encoder's waves among them), row-wise
+   linears (q, ctx, logits; K4's and K2's transposed products), attention,
+   the cell backward, selection and argmax, the wrapper's torch ops (the
+   weight packs of K1-K4), and the launch gaps (the span from the first
    kernel's start to the last one's end, less the busy time).
-   The decoders' kernels are programmatic dependent launches, so a
+   The kernels are programmatic dependent launches, so a
    kernel's span may start while its predecessor runs and wait for it:
    the split gives each kernel only the part of its span past the end
    of the ones before it (its share of the busy time);
@@ -95,10 +97,11 @@ def profiled(fn):
 
 
 # kernel-name fragments -> phase of a decode step, first match wins
-PHASES = (("cell_bwd", "cell backward"), ("lstm_cell", "LSTM cell"),
+PHASES = (("cell_bwd", "cell backward"), ("EncCell", "LSTM cell"),
+          ("wave_kernel", "linears"),
           (", true>", "LSTM cell"), ("prod_train_kernel", "LSTM cell"),
           ("prod_bwd_kernel", "linears + cell backward"),
-          ("prod_kernel", "linears"), ("linear_kernel", "linears"),
+          ("prod_kernel", "linears"),
           ("attention", "attention"),
           ("argmax", "selection / argmax"),
           ("beam_step", "selection / argmax"),
@@ -123,6 +126,24 @@ def phase_split(intervals):
 
 def short(name, width=48):
     return name if len(name) <= width else name[:width - 3] + "..."
+
+
+def encoder_train_calls(enc_in, nb):
+    """K1 train and K2 on the first ``nb`` rows of the batch behind
+    ``enc_in`` (K2 fed K1's residuals and random cotangents)."""
+    import torch
+
+    from ast_tpu_torch.ops import fused_lstm
+
+    tr = (enc_in[0][:, :, :nb].contiguous(), *enc_in[1:4], 12345,
+          chip_smoke.DROP)
+    res = fused_lstm.fused_stacked_lstm_train(*tr)
+    bwd = (res[3], res[4], enc_in[1], enc_in[2],
+           *(torch.randn_like(t) for t in res[:3]), 12345, chip_smoke.DROP)
+    tag = "" if nb == chip_smoke.B else f" at {nb} rows"
+    return {f"K1 train{tag}": lambda: fused_lstm.fused_stacked_lstm_train(
+                *tr),
+            f"K2{tag}": lambda: fused_lstm.encoder_backward(*bwd)}
 
 
 def profile_kernels(cfg, device, out):
@@ -158,6 +179,8 @@ def profile_kernels(cfg, device, out):
             "K3": lambda: fused_decoder.decoder_forward(*k3),
             "K4": lambda: fused_decoder.decoder_backward(*k4),
             "K1": lambda: fused_lstm.fused_stacked_lstm(*enc_in),
+            **encoder_train_calls(enc_in, chip_smoke.B),
+            **encoder_train_calls(enc_in, 8),
             "K5": lambda: fused_infer.greedy_decode_fused(
                 enc, h0, c0, w, chip_smoke.STOP),
             "K6": lambda: fused_infer.beam_decode_fused(
@@ -178,7 +201,8 @@ def profile_kernels(cfg, device, out):
                 f"{ph} {ms:.2f} ms" for ph, ms in phase_split(
                     device_intervals(prof))), flush=True)
             if out:
-                with open(os.path.join(out, f"kernels_{name}.txt"), "w") as f:
+                table = f"kernels_{name.replace(' ', '_')}.txt"
+                with open(os.path.join(out, table), "w") as f:
                     f.write(prof.key_averages().table(
                         sort_by="self_device_time_total", row_limit=40))
 

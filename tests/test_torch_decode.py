@@ -253,6 +253,30 @@ def test_decode_weights_are_packed_once(model):
     assert all(torch.equal(a, b) for a, b in zip(got, ref))
 
 
+def test_decode_weights_hold_the_encoder_pack(model):
+    """decode_weights carries the encoder's stacked weights and, at a
+    width K1 takes (32 units a direction here), its packed layout, so
+    encode does not pack them again per batch; encoding with it given
+    equals encoding without.  The tiny model's 8 units get no pack."""
+    _, _, X, tp, ts = model
+    assert seq2seq.decode_weights(tp)["enc"][3] is None
+    mcfg = _mcfg(hidden_units=64)
+    tp, ts = seq2seq.init_model(mcfg, seed=1)
+    w = seq2seq.decode_weights(tp)
+    stacked = fused_lstm.pack_encoder_weights(tp["enc"]["lstm"])
+    assert len(w["enc"]) == 4
+    for a, b in zip(w["enc"], stacked):
+        assert torch.equal(a, b)
+    assert torch.equal(w["enc"][3], fused_lstm.pack_encoder_step_weights(
+        stacked[0], stacked[1]))
+    x = torch.from_numpy(X)
+    enc_in = seq2seq.encoder_inputs(tp, ts, mcfg, x, enc_w=w["enc"])
+    assert len(enc_in) == 5 and enc_in[4] is w["enc"][3]
+    got = seq2seq.encode(tp, ts, mcfg, x, w)
+    ref = seq2seq.encode(tp, ts, mcfg, x)
+    assert all(torch.equal(a, b) for a, b in zip(got, ref))
+
+
 def test_kernel_wrappers_refuse_weights_without_step_layout(model):
     """The kernels take only decode_weights' dict: the step layout is not
     rebuilt per call."""
