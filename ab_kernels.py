@@ -20,7 +20,10 @@ after a warm-up, float32 with TF32 off; then one train step, the
 trainer's ``NN.train_step`` on chip_smoke's phase 5 batch (B=32, 640
 frames, U=64) of its synthetic es_en_20h training experiment, as the
 host's clock sees it around 10 steps that end in a synchronize, after two
-warm-up steps; then chip_smoke's phase 4, the
+warm-up steps; then that experiment's two first epochs through
+``NN.train_epoch`` (96 utterances, the trainer's own utts/s) and its dev
+split through ``NN.predict`` (32 utterances, the median of three passes
+after a warm-up); then chip_smoke's phase 4, the
 infer CLI on 64 files, greedy and beam 5,5, three times, in utts/s (the
 median).  Only the port's public entry points are called, so any two
 checkouts of the port compare.  Each checkout builds its kernels into
@@ -38,6 +41,7 @@ import chip_smoke as cs
 
 ORDER = ("k1", "k1t", "k2", "k3", "k4", "k1t_b8", "k2_b8", "k3_b8", "k4_b8",
          "k1t_b16", "k2_b16", "k3_b16", "k4_b16", "k5", "k6", "train_step",
+         "epoch1_utts_s", "epoch2_utts_s", "predict_utts_s",
          "greedy_utts_s", "beam_utts_s")
 SLICE_PASSES = 3
 TRAIN_STEPS = 10
@@ -135,6 +139,18 @@ def time_tree(tree):
             nn.train_step(batch, 2 + i)
         torch.cuda.synchronize()
         out["train_step"] = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+        tcfg = nn.cfg.train
+        for epoch in (1, 2):
+            nn.timer.reset()
+            nn.train_epoch(tcfg["train_set"], epoch=epoch)
+            out[f"epoch{epoch}_utts_s"] = nn.timer.items_per_sec
+        passes = []
+        for _ in range(SLICE_PASSES + 1):       # the first warms up
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n_utts = len(nn.predict(tcfg["dev_set"]))
+            passes.append(n_utts / (time.perf_counter() - t0))
+        out["predict_utts_s"] = statistics.median(passes[1:])
         rates = [cs.run_slice(exp, paths, root)[0]
                  for _ in range(SLICE_PASSES)]
     for name in ("greedy", "beam"):

@@ -7,6 +7,9 @@ empty dict ``__emptydict__`` and ``None`` ``__none__``.  Files are
 holds ``params``, BN ``state``, and from training the optimizer state
 ``opt`` under the keys ``ast_tpu`` writes for it (see
 ``train/optimizer.py``), so either package resumes the other's runs.
+A mid-epoch snapshot, ``seq2seq_inflight.npz``, also holds ``extra``:
+``{epoch, step, g}`` (int64), "epoch ``epoch`` has consumed ``step``
+batches at ``g`` steps per dispatch".
 """
 
 import os
@@ -15,22 +18,22 @@ import re
 import numpy as np
 
 
-def flatten(tree, prefix=""):
-    """Nested dict/list tree of arrays -> {flat key: np.ndarray}."""
+def flatten(tree, prefix="", leaf=np.asarray):
+    """Nested dict/list tree of arrays -> {flat key: ``leaf(array)``}."""
     flat = {}
     if isinstance(tree, dict):
         if not tree:
             flat[f"{prefix}__emptydict__"] = np.asarray(0)
         for k, v in tree.items():
-            flat.update(flatten(v, f"{prefix}{k}/"))
+            flat.update(flatten(v, f"{prefix}{k}/", leaf))
     elif isinstance(tree, (list, tuple)):
         flat[f"{prefix}__len__"] = np.asarray(len(tree))
         for i, v in enumerate(tree):
-            flat.update(flatten(v, f"{prefix}{i}/"))
+            flat.update(flatten(v, f"{prefix}{i}/", leaf))
     elif tree is None:
         flat[f"{prefix}__none__"] = np.asarray(0)
     else:
-        flat[prefix[:-1]] = np.asarray(tree)
+        flat[prefix[:-1]] = leaf(tree)
     return flat
 
 
@@ -59,12 +62,14 @@ def unflatten(flat):
     return materialize(root)
 
 
-def save_checkpoint(path, params, state, opt_state=None):
+def save_checkpoint(path, params, state, opt_state=None, extra=None):
     """Write numpy ``params``, BN ``state`` and, when given, the
-    optimizer state to ``path`` atomically."""
+    optimizer state and an ``extra`` subtree to ``path`` atomically."""
     tree = {"params": params, "state": state}
     if opt_state is not None:
         tree["opt"] = opt_state
+    if extra is not None:
+        tree["extra"] = extra
     if not path.endswith(".npz"):
         path = path + ".npz"
     tmp = path[:-len(".npz")] + ".tmp.npz"

@@ -1,23 +1,43 @@
 """Train an experiment on a GPU.
 
 ``python -m ast_tpu_torch.cli.train -m <exp_dir> -e <epochs>
-[--device cuda|cpu]``
+[--profile LOGDIR] [--device cuda|cpu]``
 
 The counterpart of ``ast_tpu/cli/train.py``, with the same epoch cycle:
 train one epoch, append ``epoch, loss`` to ``train.log``, greedy-decode
 the dev split, detokenise, score BLEU with ``ast_tpu_torch.eval.bleu.Eval``,
 append ``epoch, bleu`` to ``dev.log``, and save
 ``seq2seq_<epoch>.model.npz`` every ``iters_save`` epochs and at the
-last one.  It resumes from the latest checkpoint (``max_epoch + 1``).
+last one.  It resumes from the latest checkpoint (``max_epoch + 1``) or,
+after a run that SIGTERM stopped, in the middle of that run's epoch: the
+signal makes the epoch write ``seq2seq_inflight.npz`` at the next batch
+boundary and the run exit cleanly.  ``--profile`` writes a
+``torch.profiler`` Chrome trace of the first training epoch into LOGDIR.
 On ``--device cuda`` every kernel of the path is a hand-written CUDA
 kernel; ``--device cpu`` runs their plain versions.
 """
 
 import argparse
+import contextlib
 import os
+import signal
 
 from ast_tpu_torch.eval.bleu import Eval
-from ast_tpu_torch.train.trainer import NN
+from ast_tpu_torch.train.trainer import NN, PreemptedError
+
+
+def _install_preempt_handler(nn):
+    """SIGTERM => snapshot at the next batch boundary and exit cleanly;
+    the next run resumes mid-epoch."""
+    def handler(signum, frame):
+        print("SIGTERM received: snapshotting at next batch boundary",
+              flush=True)
+        nn.request_preempt()
+
+    try:
+        signal.signal(signal.SIGTERM, handler)
+    except ValueError:
+        pass  # not the main thread (e.g. under a test runner)
 
 
 def main(argv=None):
@@ -26,6 +46,9 @@ def main(argv=None):
                         help="experiment directory")
     parser.add_argument("-e", "--epochs", required=True, type=int,
                         help="number of epochs")
+    parser.add_argument("--profile", default=None, metavar="LOGDIR",
+                        help="write a torch.profiler trace of the first "
+                             "training epoch into LOGDIR")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda; cpu runs the "
                              "plain PyTorch versions of the kernels)")
@@ -33,6 +56,7 @@ def main(argv=None):
     print(f"number of epochs={args.epochs:d}")
 
     nn = NN(args.cfg_path, args.device)
+    _install_preempt_handler(nn)
     tcfg = nn.cfg.train
     train_key, dev_key = tcfg["train_set"], tcfg["dev_set"]
     metrics = Eval(os.path.join(tcfg["data"]["refs_path"], dev_key),
@@ -44,9 +68,29 @@ def main(argv=None):
         print("-" * 80)
         print(f"Experiment: {args.cfg_path:s} epoch: {epoch:d}")
         print("-" * 80)
-        loss = nn.train_epoch(train_key, epoch=epoch)
+        trace = contextlib.nullcontext()
+        if args.profile and epoch == start_epoch:
+            from ast_tpu_torch.utils.profiling import profile_trace
+            trace = profile_trace(args.profile)
+        try:
+            with trace:
+                loss = nn.train_epoch(train_key, epoch=epoch)
+        except PreemptedError as e:
+            print(str(e))
+            print("exiting cleanly; rerun to resume mid-epoch")
+            return
         with open(nn.train_log, mode="a") as f:
             f.write(f"{epoch:d}, {loss:.4f}\n")
+
+        # a SIGTERM between the batch loop and the dev decode: keep the
+        # finished epoch (nothing else holds it when no in-epoch
+        # snapshots are written and no periodic save is due)
+        if nn.preempt_pending():
+            print("preempted after training phase; saving epoch "
+                  "checkpoint and exiting cleanly")
+            nn.save(epoch)
+            return
+
         hyps = nn.data_loader.get_hyps(nn.predict(dev_key))
         bleu = metrics.calc_bleu(hyps) * 100
         with open(nn.dev_log, mode="a") as f:
@@ -55,10 +99,17 @@ def main(argv=None):
         print(f"train throughput = {nn.timer.items_per_sec:.1f} utts/sec")
         nn.timer.reset()
         print("-" * 80)
-        if epoch % tcfg["iters_save"] == 0 or epoch == max_epoch - 1:
+        saved = epoch % tcfg["iters_save"] == 0 or epoch == max_epoch - 1
+        if saved:
             print("Saving model")
             nn.save(epoch)
             print("Finished saving model")
+
+        if nn.preempt_pending():
+            if not saved:
+                nn.save(epoch)      # keep the epoch just trained
+            print("preempted after eval phase; exiting cleanly")
+            return
 
 
 if __name__ == "__main__":

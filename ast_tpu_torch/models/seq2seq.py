@@ -23,6 +23,8 @@ from ast_tpu_torch.ops.fused_infer import (
 from ast_tpu_torch.ops.fused_lstm import (
     ENCODER_TILE, FusedStackedLSTM, fused_stacked_lstm,
     pack_encoder_step_weights, pack_encoder_weights)
+from ast_tpu_torch.ops.specaugment import (
+    SpecMasks, apply_spec_masks, draw_spec_masks)
 from ast_tpu_torch.params import from_jax_numpy
 
 
@@ -55,12 +57,18 @@ def init_model(mcfg, seed=0, device="cpu"):
     for layer in cnn["cnn_layers"]:
         out_ch = layer["out_channels"]
         kh, kw = layer["ksize"]
-        conv.append({"w": normal((out_ch, in_ch, kh, kw),
-                                 np.sqrt(2.0 / (in_ch * kh * kw))),
-                     "bn_gamma": np.ones(out_ch, np.float32),
-                     "bn_beta": np.zeros(out_ch, np.float32)})
-        conv_state.append({"bn_mean": np.zeros(out_ch, np.float32),
-                           "bn_var": np.ones(out_ch, np.float32)})
+        p = {"w": normal((out_ch, in_ch, kh, kw),
+                         np.sqrt(2.0 / (in_ch * kh * kw)))}
+        s = {}
+        if cnn.get("bn", True):
+            p["bn_gamma"] = np.ones(out_ch, np.float32)
+            p["bn_beta"] = np.zeros(out_ch, np.float32)
+            s["bn_mean"] = np.zeros(out_ch, np.float32)
+            s["bn_var"] = np.ones(out_ch, np.float32)
+        else:                   # a bias instead of BatchNorm, no state
+            p["b"] = np.zeros(out_ch, np.float32)
+        conv.append(p)
+        conv_state.append(s)
         in_ch = out_ch
 
     enc = []
@@ -212,17 +220,28 @@ class Draws:
     noise: X-shaped ``speech_noise * N(0, 1)`` (None without noise);
     enc_seed / dec_seed: dropout hash seeds, ints in [0, 2**31 - 1);
     coins: (U-1,) int32 on X's device, 1 = teacher-forced, first and
-    last steps forced."""
+    last steps forced; replace / rand_ids (``random_out``, else None):
+    (U-1, B) bool, the draw ``uniform > random_out``, and (U-1, B) int64
+    ids uniform in [N_SPECIAL, V) -- a target that is no special symbol
+    becomes its random id where the draw holds; spec (``spec_augment``,
+    else None): the SpecAugment masks' starts and widths."""
     noise: Optional[torch.Tensor]
     enc_seed: int
     dec_seed: int
     coins: torch.Tensor
+    replace: Optional[torch.Tensor] = None
+    rand_ids: Optional[torch.Tensor] = None
+    spec: Optional[SpecMasks] = None
 
 
-def make_draws(seed, X, steps, teach_ratio, add_noise):
+def make_draws(seed, X, steps, teach_ratio, add_noise, random_out=0.0,
+               vocab=0, spec_cfg=None, frame_len=None):
     """Draws for one step from an int ``seed``: the noise from a
-    generator on X's device, the seeds and coins from one on the host
-    (no device sync), so a run is deterministic on one device."""
+    generator on X's device, everything else from one on the host (no
+    device sync), so a run is deterministic on one device.  The optional
+    draws (``random_out`` with the vocabulary size ``vocab``; SpecAugment
+    with its config block and the rows' true frame counts) come after
+    the others in the host stream, which is the same without them."""
     host = torch.Generator().manual_seed(seed)
     noise = None
     if add_noise > 0:
@@ -234,15 +253,26 @@ def make_draws(seed, X, steps, teach_ratio, add_noise):
     idx = torch.arange(steps)
     coins = ((idx == 0) | (idx >= steps - 1)
              | (torch.rand(steps, generator=host) < teach_ratio))
-    return Draws(noise, enc_seed, dec_seed,
-                 coins.to(torch.int32).to(X.device))
+    draws = Draws(noise, enc_seed, dec_seed,
+                  coins.to(torch.int32).to(X.device))
+    if random_out > 0:
+        B = X.shape[0]
+        draws.replace = (torch.rand((steps, B), generator=host)
+                         > random_out).to(X.device)
+        draws.rand_ids = torch.randint(SYMBOLS.N_SPECIAL, vocab, (steps, B),
+                                       generator=host).to(X.device)
+    if spec_cfg:
+        draws.spec = draw_spec_masks(host, X.shape, spec_cfg, frame_len, X)
+    return draws
 
 
 def encode_train(params, state, mcfg, X, draws):
-    """Conv front-end + stacked biLSTM encoder in train mode: speech
-    noise, batch-statistics BatchNorm, hash dropout seeded by
-    ``draws.enc_seed`` (K1 forward, K2 backward).
+    """Conv front-end + stacked biLSTM encoder in train mode: SpecAugment
+    masks, then speech noise, batch-statistics BatchNorm, hash dropout
+    seeded by ``draws.enc_seed`` (K1 forward, K2 backward).
     Returns (enc_states, dec_h0, dec_c0, new_state)."""
+    if draws.spec is not None:
+        X = apply_spec_masks(X, draws.spec)
     if draws.noise is not None:
         X = X * (1.0 + draws.noise)
     x0_proj, wx_rest, wh, b, new_state = encoder_inputs(
@@ -252,27 +282,84 @@ def encode_train(params, state, mcfg, X, draws):
     return encoder_outputs(*out) + (new_state,)
 
 
-def sequence_loss(ht, out_w, out_b, target, n_real):
+def sequence_loss(ht, out_w, out_b, target, n_real, label_smoothing=0.0,
+                  replace=None, rand_ids=None):
     """One (U*B, A) @ (A, V) logits GEMM, log-softmax and the PAD-masked
-    cross-entropy summed over steps and rows, divided by ``n_real``."""
+    cross-entropy summed over steps and rows, divided by ``n_real``.
+
+    ``replace`` / ``rand_ids`` (see :class:`Draws`) corrupt the targets
+    first: the PAD weight is the corrupted target's.  ``label_smoothing``
+    eps mixes each token's loss as (1 - eps) * nll + eps * mean over the
+    vocabulary of -log p."""
+    if replace is not None:
+        target = torch.where(replace & (target >= SYMBOLS.N_SPECIAL),
+                             rand_ids.to(target.dtype), target)
     logp = torch.log_softmax(torch.matmul(ht, out_w) + out_b, dim=-1)
     nll = -logp.gather(-1, target[..., None].long())[..., 0]
+    if label_smoothing > 0:
+        nll = ((1.0 - label_smoothing) * nll
+               + label_smoothing * -logp.mean(dim=-1))
     return (nll * (target != SYMBOLS.PAD_ID)).sum() / n_real
 
 
-def forward_loss(params, state, mcfg, X, y, n_real, draws):
-    """Scheduled-sampling sequence loss (``ast_tpu``'s ``forward_loss``,
-    train mode, fused path).  X (B, T, D); y (B, U) int targets with
-    GO / EOS, PAD-padded; n_real the true rows.  Returns (loss,
-    new_state)."""
-    enc, h0, c0, new_state = encode_train(params, state, mcfg, X, draws)
+def forward_loss(params, state, mcfg, X, y, n_real, draws=None, train=True,
+                 label_smoothing=0.0, enc_w=None):
+    """Sequence loss on the fused path (``ast_tpu``'s ``forward_loss``).
+    X (B, T, D); y (B, U) int targets with GO / EOS, PAD-padded; n_real
+    the true rows.  Returns (loss, new_state).
+
+    ``train``: scheduled sampling, dropout, noise and target corruption
+    from ``draws``, batch-statistics BN, ``label_smoothing``.  Without it
+    (the dev loss): the eval-mode encoder (K1 eval, running statistics;
+    ``enc_w`` = :func:`encoder_weights` saves packing them per call), K3
+    teacher-forced at every step with no dropout, the plain
+    cross-entropy; ``draws`` is not read and the state comes back as it
+    was."""
     drop = mcfg["dropout"]
-    w = pack_decoder_weights(params)
     yT = y.t()
     y_in = yT[:-1].to(torch.int32).contiguous()
-    ht, _ = FusedDecoder.apply(
-        enc, h0, c0, *(w[k] for k in W_NAMES), y_in, draws.coins,
-        draws.dec_seed, float(drop["embed"]), float(drop["rnn"]))
+    if train:
+        enc, h0, c0, new_state = encode_train(params, state, mcfg, X, draws)
+        coins, seed = draws.coins, draws.dec_seed
+        rates = float(drop["embed"]), float(drop["rnn"])
+        corrupt = dict(label_smoothing=label_smoothing,
+                       replace=draws.replace, rand_ids=draws.rand_ids)
+    else:
+        enc, h0, c0 = encoder_outputs(*fused_stacked_lstm(*encoder_inputs(
+            params, state, mcfg, X, enc_w=enc_w)))
+        coins = torch.ones(y_in.shape[0], dtype=torch.int32, device=X.device)
+        new_state, seed, rates, corrupt = state, 0, (0.0, 0.0), {}
+    w = pack_decoder_weights(params)
+    ht, _ = FusedDecoder.apply(enc, h0, c0, *(w[k] for k in W_NAMES), y_in,
+                               coins, seed, *rates)
     dec = params["dec"]
-    loss = sequence_loss(ht, dec["out_w"], dec["out_b"], yT[1:], n_real)
+    loss = sequence_loss(ht, dec["out_w"], dec["out_b"], yT[1:], n_real,
+                         **corrupt)
     return loss, new_state
+
+
+def weight_noise_targets(params):
+    """The leaves that weight noise moves (``ast_tpu``'s
+    ``add_weight_noise``): the encoder's LSTM leaves, the decoder's, each
+    layer's by sorted name (b, wh, wx: the order JAX flattens a dict
+    in), then the decoder embedding."""
+    out = []
+    for lstm in (params["enc"]["lstm"], params["dec"]["lstm"]):
+        for layer in lstm:
+            out.extend(layer[k] for k in sorted(layer))
+    return out + [params["dec"]["embed"]]
+
+
+def add_weight_noise(params, mean, sigma, noise):
+    """Add ``mean + sigma * n`` in place to each leaf of
+    :func:`weight_noise_targets`, ``n`` the N(0, 1) tensor of ``noise``
+    at its place.  The trainer does it once an epoch from
+    ``extras.weight_noise_iter`` on; the noise stays in the weights."""
+    targets = weight_noise_targets(params)
+    if len(noise) != len(targets):
+        raise ValueError(f"weight noise: {len(noise)} noise tensors for "
+                         f"{len(targets)} leaves")
+    with torch.no_grad():
+        for p, n in zip(targets, noise):
+            p.copy_(p + mean + sigma * n.to(p.device))
+    return params

@@ -57,16 +57,9 @@ def require_train_variant(mcfg, train_cfg):
     features).  ``train_cfg`` is ``Config(...).train``.  Raises
     NotImplementedError for anything else, on every device."""
     require_decode_variant(mcfg)
-    extras, opt = train_cfg["extras"], train_cfg["optimizer"]
-    data = train_cfg["data"]
+    extras, data = train_cfg["extras"], train_cfg["data"]
     refused = [name for name, bad in (
         ("dropout.out", mcfg["dropout"].get("out", 0) > 0),
-        ("random_out", extras.get("random_out", 0) > 0),
-        ("label_smoothing", extras.get("label_smoothing", 0) > 0),
-        ("spec_augment", bool(data.get("spec_augment"))),
-        ("weight_noise_iter", bool(extras.get("weight_noise_iter", 0))),
-        ("grad_noise_eta", opt.get("grad_noise_eta", 0) > 0),
-        ("moments_dtype", bool(opt.get("moments_dtype"))),
         ("compute_dtype", extras.get("compute_dtype",
                                      "float32") != "float32"),
         ("steps_per_dispatch", int(extras.get("steps_per_dispatch", 1))
@@ -80,7 +73,7 @@ def require_train_variant(mcfg, train_cfg):
         raise NotImplementedError(
             f"ast_tpu_torch trains only the variant its kernels implement; "
             f"not ported: {', '.join(refused)} (see ROADMAP.md queue 1, "
-            f"'training options not ported')")
+            f"items 1 and 2)")
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,7 @@
 """The optimizer chain of ``ast_tpu/train/optimizer.py``, in PyTorch.
 
 L2 weight decay added to the gradient -> global-norm clipping ->
-AMSGrad (optax's ``scale_by_amsgrad(0.9, 0.999, eps=1e-8)``) or nothing
+annealed gradient noise (``grad_noise_eta``) -> AMSGrad (optax's ``scale_by_amsgrad(0.9, 0.999, eps=1e-8)``) or nothing
 (SGD) -> ``-lr * lr_scale``.  optax's AMSGrad keeps the running maximum
 of the *bias-corrected* second moment, which ``torch.optim.Adam(amsgrad=
 True)`` does not, so the chain is written out on lists of tensors here
@@ -11,18 +11,40 @@ the Adam step is plain XLA in JAX too).
 ``freeze`` follows ``optax.masked``: frozen leaves skip the whole chain
 (out of the global norm and the L2 term) and get zero updates.  The
 state mirrors optax's pytree as ``ast_tpu.train.checkpoint`` flattens
-it, so the flat-NPZ keys are the same in both packages: one list per
-chain link (``[]`` for the stateless ones, ``[count, mu, nu, nu_max]``
-for AMSGrad), wrapped as ``[[chain]]`` under a freeze, where frozen
-leaves of the moment trees are ``[]``.
+it, so the flat-NPZ keys are the same in both packages: one entry per
+chain link (``[]`` for the stateless ones, ``{"count", "key"}`` for the
+gradient noise, ``[count, mu, nu, nu_max]`` for AMSGrad), wrapped as
+``[[chain]]`` under a freeze, where frozen leaves of the moment trees
+are ``[]``.
+
+Gradient noise is N(0, eta / (1 + t)^0.55) with t the link's ``count``.
+Its schedule and its state's layout are ``ast_tpu``'s; the noise itself
+is not: ``key`` (JAX's threefry key of the run's seed, uint32 (2,)) is
+carried as initialised or loaded, and each step draws from a torch
+generator seeded from the run's seed and ``count``, so a resumed run
+draws what an uninterrupted one would.
+
+``moments_dtype: "bfloat16"`` keeps AMSGrad's first moment in bfloat16
+as optax's ``mu_dtype`` does: the stored ``mu`` decays in bfloat16
+(``b1`` rounded to it), the new gradient is added in float32, the
+update is made from that float32 value, and only then is ``mu`` rounded
+for storage.  ``nu`` and ``nu_max`` stay float32.
 """
 
+import numpy as np
 import torch
 
 from ast_tpu_torch.config import OPT_ADAM
 from ast_tpu_torch.params import tree_map
+from ast_tpu_torch.utils.seeding import stable_seed
 
 B1, B2, EPS = 0.9, 0.999, 1e-8
+NOISE_GAMMA = 0.55
+
+
+def noise_sigma(eta, t):
+    """Standard deviation of the gradient noise at step ``t``."""
+    return float(np.sqrt(eta / (1.0 + t) ** NOISE_GAMMA))
 
 
 def tree_leaves(tree):
@@ -58,12 +80,17 @@ class Optimizer:
     """``update(grads, state, params) -> (updates, new_state)``, as an
     optax ``GradientTransformation``; the caller adds the updates."""
 
-    def __init__(self, opt_cfg, params):
-        if opt_cfg.get("grad_noise_eta", 0) > 0 or opt_cfg.get(
-                "moments_dtype"):
-            raise NotImplementedError(
-                "gradient noise and bf16 moments are not ported (ROADMAP.md "
-                "queue 1, 'training options not ported')")
+    def __init__(self, opt_cfg, params, seed=0):
+        mu_dtype = opt_cfg.get("moments_dtype") or "float32"
+        if mu_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"optimizer.moments_dtype={mu_dtype!r}: "
+                             "float32 | bfloat16")
+        self.mu_dtype = getattr(torch, mu_dtype)
+        self.noise_eta = opt_cfg.get("grad_noise_eta", 0)
+        self.seed = seed
+        # the noise link's step, kept on the host beside the ``count``
+        # tensor it was read from (no device sync per step)
+        self._noise_step, self._noise_count = 0, None
         self.l2 = opt_cfg.get("l2", 0)
         self.clip = opt_cfg.get("grad_clip", 0)
         self.adam = opt_cfg.get("type", OPT_ADAM) == OPT_ADAM
@@ -72,21 +99,44 @@ class Optimizer:
         self.mask = freeze_mask(params, opt_cfg.get("freeze", []))
         self.trainable = tree_leaves(self.mask)
 
-    def _moments_like(self, params):
+    def _moments_like(self, params, dtype=torch.float32):
         """Zero moments of the trainable leaves, ``[]`` for frozen ones."""
         return tree_unflatten(params, [
-            torch.zeros_like(p) if m else []
+            torch.zeros_like(p, dtype=dtype) if m else []
             for p, m in zip(tree_leaves(params), self.trainable)])
 
     def init(self, params):
+        device = tree_leaves(params)[0].device
         chain = [[]] * ((self.l2 > 0) + (self.clip > 0))
+        if self.noise_eta > 0:
+            key = np.array([self.seed >> 32, self.seed & 0xFFFFFFFF],
+                           np.uint32)
+            chain.append({"count": torch.zeros((), dtype=torch.int32,
+                                               device=device),
+                          "key": torch.from_numpy(key).to(device)})
         if self.adam:
-            count = torch.zeros((), dtype=torch.int32,
-                                device=tree_leaves(params)[0].device)
-            chain.append([count] + [self._moments_like(params)
-                                    for _ in range(3)])
+            count = torch.zeros((), dtype=torch.int32, device=device)
+            chain.append([count, self._moments_like(params, self.mu_dtype)]
+                         + [self._moments_like(params) for _ in range(2)])
         chain.append([])
         return [[chain]] if self.frozen else chain
+
+    def _add_noise(self, g, link):
+        """``g`` plus this step's noise, and the link's new state."""
+        count = link["count"]
+        if count is not self._noise_count:      # a fresh or loaded state
+            self._noise_step = int(count)
+        sigma = noise_sigma(self.noise_eta, self._noise_step)
+        gen = torch.Generator(device=g[0].device).manual_seed(stable_seed(
+            f"{self.seed}|grad_noise|{self._noise_step}"))
+        noise = torch.randn(sum(x.numel() for x in g), generator=gen,
+                            device=g[0].device)
+        noise = [n.view_as(x) for n, x in zip(
+            noise.split([x.numel() for x in g]), g)]
+        self._noise_step += 1
+        self._noise_count = count + 1
+        return (torch._foreach_add(g, noise, alpha=sigma),
+                {"count": self._noise_count, "key": link["key"]})
 
     def update(self, grads, state, params):
         chain = state[0][0] if self.frozen else state
@@ -101,10 +151,21 @@ class Optimizer:
             scale = torch.where(norm < self.clip, 1.0, self.clip / norm)
             g = torch._foreach_mul(g, scale)
         new_chain = [[] for _ in chain]
+        if self.noise_eta > 0:
+            at = (self.l2 > 0) + (self.clip > 0)
+            g, new_chain[at] = self._add_noise(g, chain[at])
         if self.adam:
             count, mu, nu, nu_max = chain[-2]
-            mu = torch._foreach_add(torch._foreach_mul(g, 1 - B1),
-                                    torch._foreach_mul(tree_leaves(mu), B1))
+            old = tree_leaves(mu)
+            if self.mu_dtype == torch.bfloat16:
+                # the stored moment times b1, both in bfloat16, as optax's
+                # weakly typed ``decay * mu``
+                b1 = float(torch.tensor(B1).bfloat16())
+                old = [m.bfloat16().float() for m in torch._foreach_mul(
+                    [m.float() for m in old], b1)]
+            else:
+                old = torch._foreach_mul(old, B1)
+            mu = torch._foreach_add(torch._foreach_mul(g, 1 - B1), old)
             nu = torch._foreach_add(
                 torch._foreach_mul(torch._foreach_mul(g, g), 1 - B2),
                 torch._foreach_mul(tree_leaves(nu), B2))
@@ -118,6 +179,7 @@ class Optimizer:
                 torch._foreach_div(mu, bc1),
                 torch._foreach_add(torch._foreach_sqrt(nu_max), EPS))
             like = chain[-2][1]
+            mu = [m.to(self.mu_dtype) for m in mu]
             new_chain[-2] = [count] + [tree_unflatten(like, t)
                                        for t in (mu, nu, nu_max)]
         it = iter(torch._foreach_mul(g, -self.lr))
@@ -127,7 +189,8 @@ class Optimizer:
         return updates, ([[new_chain]] if self.frozen else new_chain)
 
 
-def build_optimizer(opt_cfg, params):
-    """Returns (optimizer, initial state), as ``ast_tpu``'s."""
-    opt = Optimizer(opt_cfg, params)
+def build_optimizer(opt_cfg, params, seed=0):
+    """Returns (optimizer, initial state), as ``ast_tpu``'s; ``seed``
+    (the run's, an int) seeds the gradient noise."""
+    opt = Optimizer(opt_cfg, params, seed)
     return opt, opt.init(params)

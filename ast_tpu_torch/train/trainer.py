@@ -1,27 +1,45 @@
 """Training harness: the ``NN`` facade of ``ast_tpu/train/trainer.py``.
 
-``NN(cfg_path, device)`` builds the config, the bucketed data loader,
-the model and the optimizer for one experiment directory and resumes
-from its latest checkpoint; ``train_epoch`` runs one epoch of training
-steps, ``predict`` greedy-decodes a split, ``save`` writes the epoch's
+``NN(cfg_path, device, ckpt)`` builds the config, the bucketed data
+loader, the model and the optimizer for one experiment directory and
+resumes from its latest checkpoint or, when newer, from the mid-epoch
+snapshot ``seq2seq_inflight.npz``; an explicit ``ckpt`` loads exactly
+that file instead.  ``train_epoch`` runs one epoch of training steps,
+``eval_loss`` the teacher-forced dev loss, ``predict`` greedy-decodes a
+split, ``decode_beam_set`` beam-decodes one, ``save`` writes the epoch's
 snapshot (params, BN state and optimizer state, in ``ast_tpu``'s
 flat-NPZ layout).
 
-One step: the host batch goes to the device; its random numbers
-(speech noise, dropout seeds, scheduled-sampling coins) are drawn from
-generators seeded by ``stable_seed(f"{seed}|{epoch}|{batch}")``, so a
-rerun or a resumed epoch replays the same draws.  The gradients need not
-be bit-equal between runs on a GPU: the embedding gradient's
-``index_add_`` and cuDNN's conv backward sum with atomics, in no fixed
-order.  ``forward_loss`` runs the conv front-end, K1 (train), K3 and the
-loss, autograd runs K4, K2 and the weight-gradient GEMMs; the update is
-added to the parameters in place.  Losses stay on the device until the
-epoch's end.  Not ported (ROADMAP.md queue 1): multi-step dispatch,
-prefetch threads, in-flight snapshots and preemption, data parallelism
-and ``eval_loss``.
+One step: a worker thread assembles the host batch and copies it to the
+device (:class:`Prefetcher`); the step's random numbers (SpecAugment
+masks, speech noise, dropout seeds, scheduled-sampling coins, target
+corruption) are drawn from generators seeded by
+``stable_seed(f"{seed}|{epoch}|{batch}")``, so a rerun or a resumed
+epoch replays the same draws.  The gradients need not be bit-equal
+between runs on a GPU: the embedding gradient's ``index_add_`` and
+cuDNN's conv backward sum with atomics, in no fixed order.
+``forward_loss`` runs the conv front-end, K1 (train), K3 and the loss,
+autograd runs K4, K2 and the weight-gradient GEMMs; the update is added
+to the parameters in place.  Losses stay on the device until the epoch's
+end.
+
+Every ``checkpoint_steps`` batches, and when :meth:`NN.request_preempt`
+was called (the train CLI wires SIGTERM to it), the epoch writes
+``seq2seq_inflight.npz`` with ``extra = {epoch, step, g}``: "epoch
+``epoch`` has consumed ``step`` batches"; a preempted epoch then raises
+:class:`PreemptedError`.  The epoch's batch stream is a function of
+``(seed, set, epoch)``, so the next run skips exactly the consumed
+batches.  Either package resumes the other's snapshot.
+
+Not ported (ROADMAP.md queue 1): multi-step dispatch
+(``steps_per_dispatch``), the device feature cache, narrow transfer
+dtypes, rematerialisation, data parallelism and ``save_attn``.
 """
 
+import collections
+import itertools
 import os
+import threading
 import time
 
 import numpy as np
@@ -33,78 +51,213 @@ from ast_tpu_torch.checkpoint import (
     save_checkpoint, unflatten)
 from ast_tpu_torch.data.dataloader import make_dataloader
 from ast_tpu_torch.models import seq2seq
+from ast_tpu_torch.ops import beam as beam_ops
 from ast_tpu_torch.ops.fused_infer import require_train_variant
 from ast_tpu_torch.params import torch_device, tree_map
 from ast_tpu_torch.train.optimizer import (
     build_optimizer, tree_leaves, tree_unflatten)
+from ast_tpu_torch.utils.profiling import StepTimer
 from ast_tpu_torch.utils.seeding import stable_seed
+
+INFLIGHT = "seq2seq_inflight.npz"
 
 
 def to_numpy(tree):
-    return tree_map(lambda t: t.detach().cpu().numpy(), tree)
+    """Torch tree -> numpy tree.  bfloat16 leaves (AMSGrad's first moment
+    under ``moments_dtype``), which NPZ cannot hold, go up to float32 as
+    ``ast_tpu``'s checkpoints store them; :func:`merge` casts them back."""
+    def conv(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return tree_map(conv, tree)
 
 
 def merge(template, loaded, what):
     """``loaded`` (numpy tree) as torch tensors in ``template``'s place:
-    the same flat keys, shapes and dtypes, or ValueError."""
-    want = flatten(to_numpy(template))
+    the same flat keys and shapes, each leaf on its template leaf's
+    device in its dtype, or ValueError."""
+    want = flatten(template, leaf=lambda t: t)
     got = flatten(loaded)
     if sorted(want) != sorted(got):
         raise ValueError(f"{what}: keys differ from this model's "
                          f"({sorted(set(want) ^ set(got))[:4]} ...)")
-    for k, a in want.items():
-        if np.shape(a) != np.shape(got[k]):
+    out = {}
+    for k, t in want.items():
+        if not torch.is_tensor(t):      # a list length or empty-dict mark
+            out[k] = got[k]
+            continue
+        if tuple(t.shape) != np.shape(got[k]):
             raise ValueError(f"{what}: {k} has shape {np.shape(got[k])}, "
-                             f"not {np.shape(a)}")
-    device = tree_leaves(template)[0].device
-    return tree_map(lambda a: torch.as_tensor(a).to(device),
-                    unflatten({k: np.asarray(v, want[k].dtype)
-                               for k, v in got.items()}))
+                             f"not {tuple(t.shape)}")
+        out[k] = torch.tensor(np.asarray(got[k])).to(
+            device=t.device, dtype=t.dtype)
+    return unflatten(out)
 
 
-class StepTimer:
-    """Wall time and items over externally timed regions."""
+class Prefetcher:
+    """Run ``prepare`` (host-to-device staging) over the items of ``gen``
+    on ``workers`` threads, at most ``depth`` items ahead of the consumer,
+    and yield the results in the generator's exact order.  The generator
+    (batch assembly) is pulled under a lock, one item at a time; only
+    ``prepare`` runs concurrently.  An exception of the generator or of
+    ``prepare`` is raised at its item's place in the stream."""
 
-    def __init__(self):
-        self.reset()
+    def __init__(self, gen, prepare, depth=2, workers=1):
+        self._closed = False
+        self._err = None
+        self._buf = {}
+        self._next_read = 0        # next index to pull from gen
+        self._next_yield = 0       # next index the consumer gets
+        self._done_reading = False
+        self._cond = threading.Condition()
+        self._gen = iter(gen)
+        self._prepare = prepare
+        self._depth = max(int(depth), int(workers))
+        self.threads = [threading.Thread(target=self._worker, daemon=True)
+                        for _ in range(max(1, int(workers)))]
+        for t in self.threads:
+            t.start()
 
-    def reset(self):
-        self.total_time, self.total_items = 0.0, 0
+    def _worker(self):
+        while True:
+            with self._cond:
+                while (not self._closed and not self._done_reading
+                       and self._next_read - self._next_yield
+                       >= self._depth):
+                    self._cond.wait()
+                if self._closed or self._done_reading:
+                    return
+                idx = self._next_read
+                try:
+                    item = next(self._gen)
+                except StopIteration:
+                    self._done_reading = True
+                    self._cond.notify_all()
+                    return
+                except BaseException as e:  # raised again by the consumer
+                    self._err = e
+                    self._done_reading = True
+                    self._cond.notify_all()
+                    return
+                self._next_read += 1
+            try:
+                out = self._prepare(item)
+            except BaseException as e:      # raised again by the consumer
+                out = e
+            with self._cond:
+                self._buf[idx] = out
+                self._cond.notify_all()
 
-    def add(self, dt, n_items):
-        self.total_time += dt
-        self.total_items += n_items
+    def __iter__(self):
+        try:
+            while True:
+                with self._cond:
+                    while (self._next_yield not in self._buf
+                           and not (self._done_reading
+                                    and self._next_yield >= self._next_read)
+                           and not self._closed):
+                        self._cond.wait()
+                    if self._closed:
+                        return
+                    if self._next_yield in self._buf:
+                        item = self._buf.pop(self._next_yield)
+                        self._next_yield += 1
+                        self._cond.notify_all()
+                    else:               # stream drained
+                        if self._err is not None:
+                            err, self._err = self._err, None
+                            raise err
+                        return
+                if isinstance(item, BaseException):
+                    raise item
+                yield item
+        finally:
+            # the consumer left the stream (preemption, an exception, an
+            # early break): release the workers
+            self.close()
 
-    @property
-    def items_per_sec(self):
-        return self.total_items / self.total_time if self.total_time else 0.0
+    def close(self):
+        """Release the workers and drop anything buffered."""
+        with self._cond:
+            self._closed = True
+            self._buf.clear()
+            self._cond.notify_all()
+        for t in self.threads:
+            if t.is_alive():
+                t.join(timeout=1.0)
+
+
+class PreemptedError(RuntimeError):
+    """Raised by ``train_epoch`` after it wrote an in-flight snapshot
+    because preemption was requested.  The next run resumes the same
+    epoch at the same batch."""
 
 
 class NN:
     """Model, optimizer and data of one experiment directory."""
 
-    def __init__(self, cfg_path, device="cuda"):
+    def __init__(self, cfg_path, device="cuda", ckpt=None):
+        """``ckpt``: load exactly this checkpoint file instead of the
+        latest epoch's; the in-flight snapshot is then not looked at, and
+        ``max_epoch`` is 0."""
         self.device = torch_device(device)
         self.cfg = Config(cfg_path)
         self.model_dir = self.cfg.model["model_dir"]
         self.mcfg = self.cfg.model
         tcfg = self.cfg.train
         require_train_variant(self.mcfg, tcfg)
+        ignored = [name for name, on in (
+            ("extras.remat", tcfg["extras"].get("remat", False)),
+            ("parallel", any(tcfg["parallel"].get(k, d) != d for k, d in
+                             (("data_axis", 0), ("model_axis", 1)))),
+        ) if on]
+        if ignored:
+            print(f"set and ignored (not ported, see ROADMAP.md queue 1): "
+                  f"{', '.join(ignored)}", flush=True)
         self.seed = stable_seed(tcfg["seed"], bits=31)
         self.data_loader = make_dataloader(tcfg, self.model_dir)
         self.params, self.state = seq2seq.init_model(
             self.mcfg, seed=self.seed, device=self.device)
-        self.opt, self.opt_state = build_optimizer(tcfg["optimizer"],
-                                                   self.params)
-        ckpt, epoch = latest_checkpoint(self.model_dir)
+        self.opt, self.opt_state = build_optimizer(
+            tcfg["optimizer"], self.params, seed=self.seed)
         self.max_epoch = 0
+        explicit_ckpt = ckpt
+        if explicit_ckpt is None:
+            ckpt, epoch = latest_checkpoint(self.model_dir)
+        else:
+            epoch = 0
         if ckpt is not None:
             self._load_snapshot(load_checkpoint(ckpt))
             self.max_epoch = epoch
+        self.loaded_ckpt = ckpt     # the file loaded, None = fresh init
+
+        # a newer mid-epoch snapshot wins over the latest epoch's file
+        self.inflight_resume = None
+        inflight = os.path.join(self.model_dir, INFLIGHT)
+        if explicit_ckpt is None and os.path.exists(inflight):
+            snap = load_checkpoint(inflight)
+            extra = snap.get("extra") or {}
+            in_epoch = int(extra.get("epoch", 0))
+            in_step = int(extra.get("step", 0))
+            in_g = int(extra.get("g", 1))
+            if in_epoch >= 1 and in_epoch - 1 >= self.max_epoch:
+                self._load_snapshot(snap)
+                self.max_epoch = in_epoch - 1
+                if in_step > 0 and in_g != 1:
+                    # ast_tpu's stream at steps_per_dispatch = g is in
+                    # another order: its position means nothing here
+                    print(f"inflight snapshot was written with "
+                          f"steps_per_dispatch={in_g}, which is not "
+                          f"ported; restarting epoch {in_epoch} from the "
+                          f"beginning", flush=True)
+                elif in_step > 0:
+                    self.inflight_resume = (in_epoch, in_step)
+
         for p in tree_leaves(self.params):
             p.requires_grad_(True)
         self.train_log = os.path.join(self.model_dir, "train.log")
         self.dev_log = os.path.join(self.model_dir, "dev.log")
+        self._preempt = False
         # tail batches pad to a repeated half of the batch size, kept a
         # multiple of 8 rows (ast_tpu on one device)
         self.tail_shrink = (8 if tcfg["extras"].get("shrink_tail_batches",
@@ -122,17 +275,60 @@ class NN:
                 print(f"warning: optimizer state not restored ({e}); "
                       "restarting moments")
 
+    # ------------------------------------------------------------------
+    # batches
+    # ------------------------------------------------------------------
+    def _device_batch(self, batch, labels=True):
+        """A host batch with ``X`` (and ``y`` with ``labels``) as tensors
+        on the device: through pinned memory and an asynchronous copy on a
+        card.  A batch already there passes through."""
+        if torch.is_tensor(batch["X"]):
+            return batch
+        cuda = self.device.type == "cuda"
+
+        def put(a):
+            t = torch.from_numpy(np.ascontiguousarray(a))
+            if cuda:
+                t = t.pin_memory()
+            return t.to(self.device, non_blocking=cuda)
+
+        out = dict(batch, X=put(batch["X"]))
+        if labels:
+            out["y"] = put(batch["y"]).long()
+        return out
+
+    def _prefetch(self, gen, labels):
+        workers = max(1, int(self.cfg.train["extras"].get(
+            "prefetch_workers", 2)))
+        return Prefetcher(gen, lambda b: self._device_batch(b, labels),
+                          depth=2 * workers, workers=workers)
+
+    def _decode_pipeline_depth(self):
+        """Decode batches kept in flight before the copy to the host that
+        waits for the oldest: ``extras.decode_pipeline``, 2 when unset."""
+        depth = self.cfg.train["extras"].get("decode_pipeline")
+        return 2 if depth is None else max(1, int(depth))
+
+    # ------------------------------------------------------------------
+    # training
+    # ------------------------------------------------------------------
     def train_step(self, batch, seed):
-        """One update from a host batch; returns the loss (on device)."""
-        extras = self.cfg.train["extras"]
-        X = torch.from_numpy(batch["X"]).to(self.device)
-        y = torch.from_numpy(batch["y"]).to(self.device).long()
-        draws = seq2seq.make_draws(seed, X, y.shape[1] - 1,
-                                   extras["teach_ratio"],
-                                   extras["speech_noise"])
+        """One update from a batch (host or device); returns the loss (on
+        device)."""
+        tcfg = self.cfg.train
+        extras = tcfg["extras"]
+        batch = self._device_batch(batch)
+        X, y = batch["X"], batch["y"]
+        draws = seq2seq.make_draws(
+            seed, X, y.shape[1] - 1, extras["teach_ratio"],
+            extras["speech_noise"], random_out=extras["random_out"],
+            vocab=self.mcfg["rnn_config"]["dec_vocab_size"],
+            spec_cfg=tcfg["data"].get("spec_augment") or None,
+            frame_len=batch.get("frame_len"))
         loss, new_state = seq2seq.forward_loss(
             self.params, self.state, self.mcfg, X, y,
-            float(batch["n_real"]), draws)
+            float(batch["n_real"]), draws,
+            label_smoothing=extras["label_smoothing"])
         leaves = tree_leaves(self.params)
         grads = torch.autograd.grad(loss, leaves)
         with torch.no_grad():
@@ -143,25 +339,134 @@ class NN:
         self.state = new_state
         return loss.detach()
 
+    def add_weight_noise(self, epoch):
+        """``extras.weight_noise_*``: N(mean, sigma) added to the LSTM
+        weights and the decoder embedding, drawn from the run's seed and
+        the epoch."""
+        extras = self.cfg.train["extras"]
+        gen = torch.Generator().manual_seed(
+            stable_seed(f"{self.seed}|weight_noise|{epoch}"))
+        noise = [torch.randn(p.shape, generator=gen)
+                 for p in seq2seq.weight_noise_targets(self.params)]
+        seq2seq.add_weight_noise(self.params, extras["weight_noise_mean"],
+                                 extras["weight_noise_sigma"], noise)
+
     def train_epoch(self, set_key, epoch=0):
-        """One epoch over ``set_key`` in the loader's order for ``epoch``;
-        returns the mean over batches of loss / real rows."""
+        """One epoch over ``set_key`` in the loader's order for ``epoch``,
+        or the rest of it after an in-flight snapshot of this epoch;
+        returns the mean over the batches trained of loss / real rows."""
         tcfg = self.cfg.train
+        skip = 0
+        if self.inflight_resume and self.inflight_resume[0] == epoch:
+            skip = self.inflight_resume[1]
+            self.inflight_resume = None
+        # once an epoch, and the noise stays in the weights: a snapshot of
+        # this epoch already holds it
+        wn_iter = tcfg["extras"].get("weight_noise_iter", 0)
+        if wn_iter and epoch >= wn_iter and not skip:
+            self.add_weight_noise(epoch)
+
         gen = self.data_loader.get_batch(
             tcfg["batch_size"], set_key, train=True, labels=True,
             curriculum=tcfg.get("curriculum", False), epoch=epoch,
             tail_shrink=self.tail_shrink)
+        if skip:
+            gen = itertools.islice(gen, skip, None)
+        ckpt_steps = tcfg.get("checkpoint_steps", 0)
         losses, sizes = [], []
+        consumed = last_snap = skip
         t0 = time.perf_counter()
-        for i, batch in enumerate(gen):
+        for batch in self._prefetch(gen, labels=True):
+            # the step's seed is the batch's place in the whole epoch
             losses.append(self.train_step(
-                batch, stable_seed(f"{self.seed}|{epoch}|{i}")))
+                batch, stable_seed(f"{self.seed}|{epoch}|{consumed}")))
             sizes.append(max(1, len(batch["utts"])))
+            consumed += 1
+            if ckpt_steps and consumed - last_snap >= ckpt_steps:
+                self.save_inflight(epoch, consumed)
+                last_snap = consumed
+            if self._preempt:
+                self.save_inflight(epoch, consumed)
+                raise PreemptedError(
+                    f"preempted: epoch {epoch} snapshotted after "
+                    f"{consumed} batches")
+        if ckpt_steps:
+            # the epoch is complete: "epoch + 1 has consumed 0 batches"
+            self.save_inflight(epoch + 1, 0)
         if not losses:
             return 0.0
         vals = torch.stack(losses).cpu().numpy()     # the epoch's one sync
-        self.timer.add(time.perf_counter() - t0, sum(sizes))
+        self.timer.add(time.perf_counter() - t0, sum(sizes), len(vals))
         return float(sum(v / s for v, s in zip(vals, sizes)) / len(vals))
+
+    def request_preempt(self):
+        """Ask the running epoch to snapshot and stop at the next batch
+        boundary (safe in a signal handler: it only sets a flag)."""
+        self._preempt = True
+
+    def preempt_pending(self):
+        """Whether preemption was requested: the train CLI asks between
+        an epoch's phases."""
+        return self._preempt
+
+    def save_inflight(self, epoch, step):
+        """The mid-epoch snapshot, written atomically; ``g`` is
+        ``ast_tpu``'s steps per dispatch, always 1 here."""
+        save_checkpoint(
+            os.path.join(self.model_dir, INFLIGHT), to_numpy(self.params),
+            to_numpy(self.state), to_numpy(self.opt_state),
+            extra={"epoch": np.int64(epoch), "step": np.int64(step),
+                   "g": np.int64(1)})
+
+    # ------------------------------------------------------------------
+    # evaluation
+    # ------------------------------------------------------------------
+    def eval_loss(self, set_key):
+        """Teacher-forced loss on a split, nothing updated (K1 eval, K3
+        with every step forced and no dropout): the mean over batches of
+        loss / real rows."""
+        tcfg = self.cfg.train
+        gen = self.data_loader.get_batch(
+            tcfg["batch_size"], set_key, train=False, labels=True,
+            tail_shrink=self.tail_shrink)
+        losses, sizes = [], []
+        with torch.no_grad():
+            enc_w = seq2seq.encoder_weights(self.params)
+            for batch in self._prefetch(gen, labels=True):
+                loss, _ = seq2seq.forward_loss(
+                    self.params, self.state, self.mcfg, batch["X"],
+                    batch["y"], float(batch["n_real"]), train=False,
+                    enc_w=enc_w)
+                losses.append(loss)
+                sizes.append(max(1, len(batch["utts"])))
+        if not losses:
+            return 0.0
+        vals = torch.stack(losses).cpu().numpy()
+        return float(sum(v / s for v, s in zip(vals, sizes)) / len(vals))
+
+    def _decode_set(self, set_key, batch_size, decode, collect):
+        """Run ``decode(X)`` over a split's batches, keeping
+        ``decode_pipeline`` of them in flight: the copy to the host waits
+        for its batch, so ``collect(batch, output on the host)`` of one
+        batch runs while the device decodes the next.  Outputs are
+        collected in the batches' order."""
+        inflight = collections.deque()
+
+        def drain():
+            batch, out = inflight.popleft()
+            collect(batch, [a.cpu().numpy() for a in out])
+
+        depth = self._decode_pipeline_depth()
+        with torch.inference_mode():
+            gen = self.data_loader.get_batch(
+                batch_size, set_key, train=False, labels=False,
+                tail_shrink=self.tail_shrink)
+            for batch in self._prefetch(gen, labels=False):
+                inflight.append((batch, decode(batch["X"])))
+                if len(inflight) >= depth:
+                    drain()
+            while inflight:
+                drain()
 
     def predict(self, set_key):
         """Greedy-decode a split (K1 eval + K5): [(utt, ids)] with each
@@ -171,15 +476,43 @@ class NN:
         preds = []
         with torch.inference_mode():
             w = seq2seq.decode_weights(self.params)   # once for the split
-            for batch in self.data_loader.get_batch(
-                    tcfg["batch_size"], set_key, train=False, labels=False,
-                    tail_shrink=self.tail_shrink):
-                X = torch.from_numpy(batch["X"]).to(self.device)
-                p, _ = seq2seq.predict_greedy(self.params, self.state,
-                                              self.mcfg, X, stop_limit, w)
-                p = p[:len(batch["utts"])].cpu().numpy()
-                preds.extend(zip(batch["utts"], p.tolist()))
+
+        def decode(X):
+            return seq2seq.predict_greedy(self.params, self.state,
+                                          self.mcfg, X, stop_limit, w)[:1]
+
+        def collect(batch, out):
+            preds.extend(zip(batch["utts"],
+                             out[0][:len(batch["utts"])].tolist()))
+
+        self._decode_set(set_key, tcfg["batch_size"], decode, collect)
         return preds
+
+    def decode_beam_set(self, set_key, N, K, batch_size=None):
+        """Beam-decode a whole split (K1 eval + K6).  Returns {utt:
+        [(hyp_ids, score)]}: N hypotheses an utterance, ids from GO up to
+        each hypothesis's length."""
+        tcfg = self.cfg.train
+        if batch_size is None:
+            batch_size = tcfg["batch_size"]
+        beam = beam_ops.make_beam_decoder(
+            self.mcfg, N=N, K=K, stop_limit=tcfg["data"]["max_pred"])
+        results = {}
+        with torch.inference_mode():
+            w = seq2seq.decode_weights(self.params)   # once for the split
+
+        def decode(X):
+            return beam(self.params, self.state, X, w)
+
+        def collect(batch, out):
+            hyps, scores, lengths = out
+            for j, utt in enumerate(batch["utts"]):
+                results[utt] = [
+                    (hyps[j, n, :int(lengths[j, n])].tolist(),
+                     float(scores[j, n])) for n in range(hyps.shape[1])]
+
+        self._decode_set(set_key, batch_size, decode, collect)
+        return results
 
     def save(self, epoch):
         save_checkpoint(checkpoint_path(self.model_dir, epoch),

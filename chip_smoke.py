@@ -62,7 +62,11 @@ Phases, each printing a line:
    and K4 took at each of these shapes; and K3 and K4 called REPEATS
    times more at each, every output bit-equal to the first call's (their
    sums run in a fixed order, so a difference would be a launch that
-   read or wrote before the one it depends on had ended);
+   read or wrote before the one it depends on had ended); then the dev
+   loss's settings: K3 with every step teacher-forced and both dropout
+   rates 0 against its plain version (ht and streams within 1e-4), and
+   seq2seq.forward_loss(train=False) through K1 eval and K3 against the
+   same loss through the plain versions, within 1e-4 relative;
 6. the training path through its entry point, ast_tpu_torch.cli.train,
    on a synthetic es_en_20h experiment (96 train and 32 dev utterances
    of 100-1,200 frames, Zipf-like targets of 5-40 tokens, es_en_20h's
@@ -71,7 +75,27 @@ Phases, each printing a line:
    kernel's count above 0; then train utts/s, one step's time split
    into its kernels, the optimizer and the rest (CUDA events), and the
    step's device busy time by kernel group and idle share
-   (torch.profiler).
+   (torch.profiler);
+7. the beam CLI, ast_tpu_torch.cli.beam -n 5 -k 5 -w 0.6, over phase 6's
+   32 dev utterances: a pickle with one entry an utterance of 5
+   hypotheses that begin with GO, one .en line a reference line, a BLEU
+   line, K1 eval and K6 launched; --resume launches no kernel and gives
+   the same BLEU and .en bytes; --ckpt of phase 6's checkpoint writes the
+   _ckpt- files with equal text; --save-attn raises by name; beam utts/s
+   over the whole call;
+8. the trainer's machinery on the same experiment: NN.eval_loss(dev)
+   through K1 eval and K3 within 1e-4 relative of the same through the
+   plain versions; predict and decode_beam_set at decode_pipeline 1 and
+   2 (utts/s, and predict's device idle share under torch.profiler); an
+   epoch with checkpoint_steps 4 that request_preempt() stops after 5
+   batches (PreemptedError, seq2seq_inflight.npz with extra/epoch and
+   extra/step), a fresh NN that resumes at that batch, trains exactly the
+   rest and saves a checkpoint that loads; two epochs under
+   label_smoothing 0.1, random_out 0.1, spec_augment, grad_noise_eta 0.01
+   and moments_dtype bfloat16 together: finite, falling-or-level loss,
+   K1 train / K2 / K3 / K4 launched, the saved first moment bfloat16
+   values that load as bfloat16.  Phases 7 and 8 set every count to 0
+   before each path and read it after.
 
 Then a JSON line with each kernel's count, error and times, and last
 {"ok": true, "device": {...}}.  A kernel's count ("launches") is the
@@ -122,6 +146,7 @@ TOK_TOL, ENC_TOL, SCORE_TOL = 1e-4, 1e-4, 1e-3
 U_TRAIN, DROP, TEACH, NOISE = 64, 0.3, 0.8, 0.25
 ENC_SEED, DEC_SEED = 2 ** 31 - 1000, 1234567
 BWD_TOL = 1e-3          # relative to max|plain| (reverse-time sums)
+EVAL_TOL = 1e-4         # the dev loss, kernels against plain, relative
 N_TRAIN, N_DEV = 96, 32
 # (utterances, T') of the partial-batch decode checks, at T' of the
 # infer CLI's length buckets (multiples of 20): with greedy R = B rows
@@ -1027,6 +1052,8 @@ def check_train_kernels(cfg, device):
             results["k4"]["max_abs_err"] = max(results["k4"]["max_abs_err"],
                                                err4)
 
+    results["dev_loss"] = check_dev_loss(params, state, mcfg, X, y, n_real)
+
     # the whole step: every parameter's gradient, kernels vs plain
     leaves = tree_leaves(params)
     for p in leaves:
@@ -1051,6 +1078,68 @@ def check_train_kernels(cfg, device):
         "forward_loss disagrees with its pieces"
     results["step"] = dict(worst_leaf=worst[2], rel_err=worst[0])
     return results
+
+
+def plain_dev_loss(params, state, mcfg, X, y, n_real):
+    """``seq2seq.forward_loss(train=False)`` through the plain versions:
+    (loss, the decoder call's arguments -- every step teacher-forced, no
+    dropout --, the plain decoder's ht and streams)."""
+    import torch
+
+    from ast_tpu_torch.models import seq2seq
+    from ast_tpu_torch.ops import fused_decoder as fd
+    from ast_tpu_torch.ops import fused_lstm as fl
+
+    x0, wxr, wh, b = seq2seq.encoder_inputs(params, state, mcfg, X)
+    enc, h0, c0 = seq2seq.encoder_outputs(
+        *fl.stacked_lstm_reference(x0, wxr, wh, b)[:3])
+    w = seq2seq.pack_decoder_weights(params)
+    y_in = y.t()[:-1].to(torch.int32).contiguous()
+    coins = torch.ones(y_in.shape[0], dtype=torch.int32, device=X.device)
+    args = (enc, h0, c0, w, y_in, coins, 0, 0.0, 0.0)
+    ht, res = fd.decoder_forward_reference(*args)
+    dec = params["dec"]
+    loss = seq2seq.sequence_loss(ht, dec["out_w"], dec["out_b"], y.t()[1:],
+                                 n_real)
+    return loss, args, ht, res
+
+
+def check_dev_loss(params, state, mcfg, X, y, n_real):
+    """Phase 5, the dev loss's settings: K3 with every step teacher-forced
+    and both dropout rates 0 (its "threshold 0 = none" branch) against its
+    plain version, and ``forward_loss(train=False)`` through K1 eval and
+    K3 against the same loss through the plain versions."""
+    import torch
+
+    from ast_tpu_torch.models import seq2seq
+    from ast_tpu_torch.ops import fused_decoder as fd
+
+    with torch.no_grad():
+        loss_p, args, ht_p, res_p = plain_dev_loss(params, state, mcfg, X, y,
+                                                   n_real)
+        y_in = args[4]
+        ht_k, res_k = fd.decoder_forward(*args)
+        err = float((ht_k - ht_p).abs().max())
+        for k in fd.RES_NAMES[1:]:
+            err = max(err, float((res_k[k] - res_p[k]).abs().max()))
+        ids_ok = torch.equal(res_k["sel"], y_in)
+        undropped = torch.equal(res_k["x_drop"], res_k["h_all"])
+        loss_p = loss_p.item()
+        loss_k = seq2seq.forward_loss(params, state, mcfg, X, y, n_real,
+                                      train=False)[0].item()
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"K3 with every coin 1 and rates 0: ht and residuals max abs err "
+          f"{err:.3e} (tol {ENC_TOL}), fed ids "
+          f"{'equal' if ids_ok else 'DIFFER from'} the teacher's, the "
+          f"undropped stream {'equals' if undropped else 'DIFFERS from'} "
+          f"h; forward_loss(train=False) {loss_k:.6f} through the kernels, "
+          f"{loss_p:.6f} through the plain versions ({rel:.3e} apart, tol "
+          f"{EVAL_TOL})", flush=True)
+    assert err <= ENC_TOL and ids_ok and undropped, \
+        "K3 disagrees at the dev loss's settings"
+    assert np.isfinite(loss_k) and rel <= EVAL_TOL, \
+        "forward_loss(train=False) disagrees"
+    return dict(max_abs_err=err, rel_err=rel)
 
 
 def check_train_partial(params, state, mcfg, nb, t_enc, device):
@@ -1272,7 +1361,270 @@ def run_train_slice(root, smi, device="cuda"):
               f"kernel: " + ", ".join(f"{k} {v:.2f}" for k, v in groups),
               flush=True)
     return launches, dict(utts_per_s=rates, split=split, losses=losses,
-                          steps=steps[0])
+                          steps=steps[0], exp=exp)
+
+
+def edit_train_cfg(exp, fn):
+    """Rewrite ``exp``'s train_cfg.json through ``fn(cfg)``."""
+    path = os.path.join(exp, "train_cfg.json")
+    with open(path) as f:
+        cfg = json.load(f)
+    fn(cfg)
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+
+
+def all_counters():
+    """Every kernel wrapper by its key in the ``kernels`` line."""
+    from ast_tpu_torch.ops import fused_decoder as fd
+    from ast_tpu_torch.ops import fused_infer, fused_lstm as fl
+
+    return {"k1": fl.fused_stacked_lstm, "k1t": fl.fused_stacked_lstm_train,
+            "k2": fl.encoder_backward, "k3": fd.decoder_forward,
+            "k4": fd.decoder_backward,
+            "k5": fused_infer.greedy_decode_fused,
+            "k6": fused_infer.beam_search_streams}
+
+
+def zero_counts():
+    for fn in all_counters().values():
+        fn.launches = 0
+
+
+def counts():
+    return {k: fn.launches for k, fn in all_counters().items()}
+
+
+def run_beam_cli(exp, smi):
+    """Phase 7: ast_tpu_torch.cli.beam over phase 6's dev split, with
+    --resume, --ckpt and --save-attn."""
+    import torch
+
+    from ast_tpu_torch import SYMBOLS, Config
+    from ast_tpu_torch.cli import beam
+    from ast_tpu_torch.train.trainer import NN
+
+    tcfg = Config(exp).train
+    dev = tcfg["dev_set"]
+    args = ["-m", exp, "-n", str(N_BEAM), "-k", str(K_BEAM), "-w", "0.6",
+            "-s", dev, "--device", "cuda"]
+    stem = os.path.join(exp, f"{dev}_beam_N-{N_BEAM}_K-{K_BEAM}")
+
+    def read(tag=""):
+        with open(f"{stem}{tag}.p", "rb") as f:
+            beams = pickle.load(f)
+        with open(f"{stem}_W-0.60{tag}.en", "rb") as f:
+            return beams, f.read()
+
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    bleu, out = quiet(beam.main, args)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = counts()
+    assert n["k1"] > 0 and n["k6"] > 0, f"cli.beam never launched K1 / K6: {n}"
+    assert re.search(r"^BLEU = [0-9.]+$", out, re.M), out
+    beams, text = read()
+    with open(os.path.join(tcfg["data"]["refs_path"], dev, "ref.en0")) as f:
+        n_refs = len(f.read().splitlines())
+    assert len(beams) == N_DEV == n_refs == len(text.splitlines())
+    for utt, hyps in beams.items():
+        assert len(hyps) == N_BEAM, utt
+        for ids, score in hyps:
+            assert ids[0] == SYMBOLS.GO_ID and np.isfinite(score), utt
+            assert type(ids) is list and type(score) is float
+    t0 = time.perf_counter()
+    NN(exp, "cuda")
+    torch.cuda.synchronize()
+    dt_nn = time.perf_counter() - t0
+    print(f"beam CLI ({N_DEV} dev utts in {n['k6']} batches, N {N_BEAM}, K "
+          f"{K_BEAM}, {smi}): {N_DEV / dt:.1f} utts/s over the whole call of "
+          f"{dt:.2f} s (config, checkpoint, data loader and BLEU included; "
+          f"building NN alone takes {dt_nn:.2f} s), BLEU {bleu:.2f}; "
+          f"launches K1 eval {n['k1']}, K6 {n['k6']}", flush=True)
+
+    zero_counts()
+    bleu2, out = quiet(beam.main, args + ["--resume"])
+    n2 = counts()
+    assert "Loading saved beam results" in out
+    assert n2["k6"] == 0 and n2["k1"] == 0, f"--resume decoded again: {n2}"
+    assert bleu2 == bleu and read()[1] == text, "--resume changed the result"
+
+    ckpt = os.path.join(exp, "seq2seq_2.model.npz")     # phase 6's
+    bleu3, _ = quiet(beam.main, args + ["--ckpt", ckpt])
+    beams3, text3 = read("_ckpt-seq2seq_2.model")
+    assert text3 == text and bleu3 == bleu and list(beams3) == list(beams)
+    try:
+        quiet(beam.main, args + ["--save-attn"])
+    except NotImplementedError as e:
+        assert "--save-attn" in str(e), e
+    else:
+        raise AssertionError("--save-attn did not raise")
+    print(f"  --resume: K6 launched 0 times, the same BLEU and .en bytes; "
+          f"--ckpt seq2seq_2.model.npz: the _ckpt- files with equal text; "
+          f"--save-attn raises by name", flush=True)
+    return dict(utts_per_s=N_DEV / dt, launches=n)
+
+
+def run_trainer_machinery(exp, smi):
+    """Phase 8: eval_loss, a preempted epoch and its resume, epochs under
+    the loss / optimizer / augmentation options, the decode pipeline."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from ast_tpu_torch.checkpoint import load_checkpoint
+    from ast_tpu_torch.train.optimizer import tree_leaves
+    from ast_tpu_torch.train.trainer import NN, PreemptedError
+
+    nn = NN(exp, "cuda")
+    tcfg = nn.cfg.train
+    train_set, dev = tcfg["train_set"], tcfg["dev_set"]
+    assert nn.max_epoch == 2
+
+    # eval_loss through the kernels, and through the plain versions over
+    # the same batches (a fresh loader's first pass is in the same order)
+    zero_counts()
+    loss_k = nn.eval_loss(dev)
+    n = counts()
+    assert n["k1"] > 0 and n["k3"] > 0 and n["k1"] == n["k3"], n
+    plain, sizes = [], []
+    with torch.no_grad():
+        for batch in NN(exp, "cuda").data_loader.get_batch(
+                tcfg["batch_size"], dev, train=False, labels=True,
+                tail_shrink=nn.tail_shrink):
+            X = torch.from_numpy(batch["X"]).cuda()
+            y = torch.from_numpy(batch["y"]).cuda().long()
+            plain.append(plain_dev_loss(nn.params, nn.state, nn.mcfg, X, y,
+                                        float(batch["n_real"]))[0].item())
+            sizes.append(max(1, len(batch["utts"])))
+    loss_p = sum(v / s for v, s in zip(plain, sizes)) / len(plain)
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"eval_loss({dev}): {loss_k:.6f} through K1 eval and K3 "
+          f"({n['k3']} batches), {loss_p:.6f} through the plain versions "
+          f"({rel:.3e} apart, tol {EVAL_TOL})", flush=True)
+    assert np.isfinite(loss_k) and rel <= EVAL_TOL, "eval_loss disagrees"
+
+    # the decode pipeline: the dev split at depth 1, 2, 2, 1
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    nn.predict(dev)
+    rates = {"greedy": {1: [], 2: []}, "beam": {1: [], 2: []}}
+    for depth in (1, 2, 2, 1):
+        tcfg["extras"]["decode_pipeline"] = depth
+        rates["greedy"][depth].append(N_DEV / timed(
+            lambda: nn.predict(dev))[1])
+        rates["beam"][depth].append(N_DEV / timed(
+            lambda: nn.decode_beam_set(dev, N_BEAM, K_BEAM))[1])
+    idle = {}
+    for depth in (1, 2):
+        tcfg["extras"]["decode_pipeline"] = depth
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            wall = timed(lambda: nn.predict(dev))[1] * 1e3
+        idle[depth] = 1 - device_busy(prof)[0] / wall
+    tcfg["extras"]["decode_pipeline"] = None
+
+    def fmt(v):
+        return "/".join(f"{x:.1f}" for x in v)
+
+    print(f"decode pipeline over the {N_DEV} dev utts, utts/s at depth 1 | "
+          f"2, two passes each ({smi}): predict {fmt(rates['greedy'][1])} "
+          f"| {fmt(rates['greedy'][2])}, decode_beam_set "
+          f"{fmt(rates['beam'][1])} | {fmt(rates['beam'][2])}; device idle "
+          f"share of predict under torch.profiler {idle[1]:.3f} | "
+          f"{idle[2]:.3f}", flush=True)
+
+    # a preempted epoch and its resume
+    edit_train_cfg(exp, lambda c: c.update(checkpoint_steps=4))
+    nn = NN(exp, "cuda")
+    epoch, stop_after = nn.max_epoch + 1, 5
+    n_total = sum(1 for _ in nn.data_loader.get_batch(
+        tcfg["batch_size"], train_set, train=True, labels=True, epoch=epoch,
+        tail_shrink=nn.tail_shrink))
+    assert n_total > stop_after + 1, n_total
+    step = nn.train_step
+    seen = []
+
+    def stop_soon(batch, seed):
+        seen.append(seed)
+        if len(seen) == stop_after:
+            nn.request_preempt()
+        return step(batch, seed)
+
+    nn.train_step = stop_soon
+    try:
+        nn.train_epoch(train_set, epoch=epoch)
+    except PreemptedError as e:
+        print(f"preemption: {e}", flush=True)
+    else:
+        raise AssertionError("request_preempt() did not stop the epoch")
+    extra = load_checkpoint(os.path.join(exp, "seq2seq_inflight.npz"))["extra"]
+    assert (int(extra["epoch"]), int(extra["step"]), int(extra["g"])) == (
+        epoch, stop_after, 1), extra
+    nn = NN(exp, "cuda")
+    assert nn.inflight_resume == (epoch, stop_after) and nn.max_epoch == 2
+    zero_counts()
+    with counting(NN, "train_step") as steps:
+        loss = nn.train_epoch(train_set, epoch=epoch)
+    n = counts()
+    assert steps[0] == n_total - stop_after, (steps[0], n_total)
+    assert all(n[k] == steps[0] for k in ("k1t", "k2", "k3", "k4")), n
+    nn.save(epoch)
+    nn = NN(exp, "cuda")
+    assert nn.max_epoch == epoch and nn.inflight_resume is None
+    print(f"  a fresh NN resumed epoch {epoch} at batch {stop_after} of "
+          f"{n_total}, trained the other {steps[0]} (loss {loss:.4f}), and "
+          f"seq2seq_{epoch}.model.npz loads", flush=True)
+    assert np.isfinite(loss)
+
+    # the options that live outside the kernels, all at once
+    def options(c):
+        c["checkpoint_steps"] = 0
+        c["extras"].update(label_smoothing=0.1, random_out=0.1)
+        c["data"]["spec_augment"] = {"freq_masks": 2, "freq_width": 3,
+                                     "time_masks": 2, "time_width": 40}
+        c["optimizer"].update(grad_noise_eta=0.01, moments_dtype="bfloat16")
+
+    edit_train_cfg(exp, options)
+    os.remove(os.path.join(exp, "seq2seq_inflight.npz"))
+    nn, notes = quiet(lambda _: NN(exp, "cuda"), None)
+    assert "optimizer state not restored" in notes   # another chain's state
+    zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = [nn.train_epoch(train_set, epoch=epoch + 1 + i) for i in (0, 1)]
+    dt = time.perf_counter() - t0
+    n = counts()
+    assert all(n[k] > 0 for k in ("k1t", "k2", "k3", "k4")), n
+    assert all(np.isfinite(losses)) and losses[1] <= 1.02 * losses[0], losses
+    nn.save(epoch + 2)
+    mu = tree_leaves(nn.opt_state[3][1])
+    assert mu and all(t.dtype == torch.bfloat16 for t in mu)
+    saved = load_checkpoint(os.path.join(
+        exp, f"seq2seq_{epoch + 2}.model.npz"))["opt"]
+    for a, t in zip(tree_leaves(saved[3][1]), mu):
+        a = torch.from_numpy(a)
+        # NPZ holds bfloat16 values as float32, as ast_tpu's checkpoints
+        assert torch.equal(a.bfloat16().float(), a)
+        assert torch.equal(a.bfloat16(), t.cpu())
+    back, notes = quiet(lambda _: NN(exp, "cuda"), None)
+    assert "optimizer state not restored" not in notes
+    assert all(t.dtype == torch.bfloat16
+               for t in tree_leaves(back.opt_state[3][1]))
+    assert int(back.opt_state[2]["count"]) == int(back.opt_state[3][0]) > 0
+    print(f"  two epochs under label_smoothing 0.1, random_out 0.1, "
+          f"spec_augment, grad_noise_eta 0.01 and moments_dtype bfloat16: "
+          f"losses {[round(v, 4) for v in losses]}, "
+          f"{2 * N_TRAIN / dt:.1f} utts/s ({smi}); launches {n}; the saved "
+          f"mu leaves are bfloat16 values and load as bfloat16", flush=True)
+    return dict(eval_loss=loss_k, eval_rel_err=rel, pipeline=rates,
+                idle=idle)
 
 
 # kernel-name fragments -> group, first match wins
@@ -1300,7 +1652,6 @@ def step_profile(nn, batch, reps):
     end of every span that started before it, so the groups add up to
     the busy time."""
     import torch
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     nn.train_step(batch, 0)
@@ -1312,6 +1663,18 @@ def step_profile(nn, batch, reps):
             nn.train_step(batch, 1 + i)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3 / reps
+    busy, groups = device_busy(prof)
+    return (wall, busy / reps,
+            sorted(((g, ms / reps) for g, ms in groups.items()),
+                   key=lambda kv: -kv[1]))
+
+
+def device_busy(prof):
+    """(device busy ms, {kernel group: busy ms}) of a torch.profiler
+    trace: the union of the device spans, each kernel counted for the part
+    of its span past the end of every span that started before it."""
+    from torch.autograd import DeviceType
+
     spans = sorted((e.time_range.start, e.time_range.end, e.name)
                    for e in prof.events() if e.device_type == DeviceType.CUDA)
     busy, end, groups = 0.0, -np.inf, {}
@@ -1320,9 +1683,8 @@ def step_profile(nn, batch, reps):
         busy += own
         end = max(end, b)
         g = next((g for k, g in KERNEL_GROUPS if k in name), "other torch")
-        groups[g] = groups.get(g, 0.0) + own / 1e3 / reps
-    return (wall, busy / 1e3 / reps,
-            sorted(groups.items(), key=lambda kv: -kv[1]))
+        groups[g] = groups.get(g, 0.0) + own / 1e3
+    return busy / 1e3, groups
 
 
 def step_split(nn, batch, reps):
@@ -1427,6 +1789,8 @@ def main():
               f"served batches {units}", flush=True)
         results.update(check_train_kernels(cfg, device))
         train_launches, train = run_train_slice(root, smi)
+        run_beam_cli(train["exp"], smi)
+        run_trainer_machinery(train["exp"], smi)
     launches.update({k: v for k, v in train_launches.items() if k != "k5"})
     units.update({k: train["steps"] for k in ("k1t", "k2", "k3", "k4")})
 

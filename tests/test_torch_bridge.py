@@ -28,9 +28,10 @@ from tests.conftest import TINY_MODEL_CFG
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _mcfg():
+def _mcfg(bn=True):
     m = jax.tree.map(lambda x: x, TINY_MODEL_CFG)
     m["rnn_config"] = dict(m["rnn_config"], dec_vocab_size=12)
+    m["cnn_config"] = dict(m["cnn_config"], bn=bn)
     return m
 
 
@@ -55,6 +56,16 @@ def test_flat_keys_match_jax_flatten(jax_model):
                        jax_ckpt._flatten({"params": params, "state": state}))
     # and back: flat -> torch trees -> flat is the identity
     _assert_flat_equal(to_flat(*from_flat(to_flat(tp, ts))), to_flat(tp, ts))
+    # bn: false -- a conv bias, and an empty dict a layer in the BN state
+    params, state = jax_seq2seq.init_model(jax.random.PRNGKey(0),
+                                           _mcfg(bn=False))
+    params, state = (jax.tree.map(np.asarray, t) for t in (params, state))
+    tp, ts = from_jax_numpy(params, state)
+    want = jax_ckpt._flatten({"params": params, "state": state})
+    assert "state/cnn_bn/0/__emptydict__" in want
+    assert "params/cnn/0/b" in want and "params/cnn/0/bn_gamma" not in want
+    _assert_flat_equal(to_flat(tp, ts), want)
+    _assert_flat_equal(to_flat(*from_flat(to_flat(tp, ts))), want)
 
 
 def test_port_init_has_jax_shapes(jax_model):
@@ -65,6 +76,23 @@ def test_port_init_has_jax_shapes(jax_model):
     for k in ref:
         assert mine[k].shape == np.shape(ref[k]), k
         assert mine[k].dtype == np.asarray(ref[k]).dtype, k
+
+
+def test_port_init_follows_bn():
+    """``cnn_config.bn: false``: a conv bias, no BatchNorm leaves and an
+    empty state a layer, as ast_tpu's init_model."""
+    params, state = jax_seq2seq.init_model(jax.random.PRNGKey(0),
+                                           _mcfg(bn=False))
+    ref = jax_ckpt._flatten({"params": jax.tree.map(np.asarray, params),
+                             "state": state})
+    tp, ts = seq2seq.init_model(_mcfg(bn=False), seed=0)
+    assert ts["cnn_bn"] == [{}, {}]
+    mine = to_flat(tp, ts)
+    assert sorted(mine) == sorted(ref)
+    for k in ref:
+        assert mine[k].shape == np.shape(ref[k]), k
+        assert mine[k].dtype == np.asarray(ref[k]).dtype, k
+    assert not np.asarray(mine["params/cnn/1/b"]).any()      # zero bias
 
 
 def test_jax_checkpoint_loads_in_port(tmp_path, jax_model):
@@ -129,6 +157,7 @@ def test_port_imports_no_jax():
     code = ("import importlib, pkgutil, sys\n"
             "import ast_tpu_torch, ast_tpu_torch.cli.infer, "
             "ast_tpu_torch.ops.beam, ast_tpu_torch.cli.train, "
+            "ast_tpu_torch.cli.beam, ast_tpu_torch.utils.profiling, "
             "ast_tpu_torch.train.trainer, ast_tpu_torch.data.dataloader, "
             "ast_tpu_torch.eval.bleu\n"
             "for m in pkgutil.walk_packages(ast_tpu_torch.__path__, "

@@ -66,6 +66,26 @@ def test_conv_frontend_matches_jax(model):
                            torch.from_numpy(X))
     np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
                                atol=ATOL)
+    # bn: false -- a bias in BatchNorm's place and an empty state a layer
+    mcfg = _mcfg()
+    mcfg["cnn_config"] = dict(mcfg["cnn_config"], bn=False)
+    params, state = jax_seq2seq.init_model(jax.random.PRNGKey(3), mcfg)
+    rng = np.random.RandomState(2)
+    cnn = [dict(jax.tree.map(np.asarray, p),
+                b=rng.randn(*p["b"].shape).astype(np.float32))
+           for p in params["cnn"]]
+    assert state["cnn_bn"] == [{}, {}] and "bn_gamma" not in cnn[0]
+    tp, ts = from_jax_numpy({"cnn": cnn}, state)
+    for train in (False, True):
+        ref, ref_state = jax_conv_frontend(cnn, state["cnn_bn"],
+                                           mcfg["cnn_config"],
+                                           jnp.asarray(X), train)
+        got, got_state = conv_frontend(tp["cnn"], ts["cnn_bn"],
+                                       mcfg["cnn_config"],
+                                       torch.from_numpy(X), train)
+        np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
+                                   atol=ATOL)
+        assert got_state == list(ref_state) == [{}, {}]
 
 
 def test_stacked_lstm_reference_matches_interpret_kernel():
