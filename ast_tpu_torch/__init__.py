@@ -1,9 +1,11 @@
 """ast_tpu_torch — the PyTorch + CUDA (Hopper) port of ast_tpu's serving
 and training paths.
 
-Serving: loose ``(T, 13)`` feature files go through the conv front-end,
-the fused biLSTM encoder and fused greedy or beam decoding, and come out
-as text (``python -m ast_tpu_torch.cli.infer``).  Training: bucketed
+Serving: loose audio (WAV, SPHERE, ``.npy``; MFCC + CMVN on the device)
+or ``(T, 13)`` feature files go through the conv front-end, the fused
+biLSTM encoder and fused greedy or beam decoding, and come out as text
+(``python -m ast_tpu_torch.cli.infer``); ``cli.export_model`` writes a
+serving directory that ``cli.serve`` answers HTTP requests from.  Training: bucketed
 batches go through the same front-end and encoder in train mode, the
 fused scheduled-sampling decoder, a CE loss, their fused backwards and
 AMSGrad, epoch by epoch with greedy dev BLEU

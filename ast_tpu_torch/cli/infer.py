@@ -1,20 +1,24 @@
-"""Decode loose feature files with a trained experiment, on a GPU.
+"""Decode loose audio / feature files with a trained experiment, on a GPU.
 
-``python -m ast_tpu_torch.cli.infer -m <exp_dir> a.npy b.npy ...
-[--beam N,K] [-w W] [--batch B] [--stop-limit S] [-o out.txt]
-[--ckpt F] [--device cuda|cpu]``
+``python -m ast_tpu_torch.cli.infer -m <exp_dir> utt1.wav utt2.sph a.npy
+... [--beam N,K] [-w W] [--cmvn utt|none|<stats.pkl>] [--batch B]
+[--stop-limit S] [-o out.txt] [--ckpt F] [--device cuda|cpu]``
 
-The counterpart of ``ast_tpu/cli/infer.py`` for precomputed ``(T, 13)``
-``.npy`` features: inputs are bucketed by padded length (multiples of
-``buckets_width``, capped at the training length), each bucket is decoded
-in batches -- greedy, cut at each row's first EOS, or beam with the
-``score/(len-2)^W`` rerank -- and ``utt<TAB>text`` lines come out in
-input order.  On ``--device cuda`` every kernel of the path is a
-hand-written CUDA kernel; ``--device cpu`` runs their plain versions.
+The counterpart of ``ast_tpu/cli/infer.py``: each input is read (WAV /
+SPHERE audio, 1-D ``.npy`` audio, or a precomputed ``(T, 13)`` ``.npy``
+feature matrix), audio goes through the MFCC front-end
+(``ops/fbank.py``) on ``--device`` and CMVN, inputs are bucketed by
+padded length (multiples of ``buckets_width``, capped at the training
+length), each bucket is decoded in batches -- greedy, cut at each row's
+first EOS, or beam with the ``score/(len-2)^W`` rerank -- and
+``utt<TAB>text`` lines come out in input order.  On ``--device cuda``
+every kernel of the path is a hand-written CUDA kernel; ``--device cpu``
+runs their plain versions.
 """
 
 import argparse
 import os
+import pickle
 
 import numpy as np
 import torch
@@ -23,35 +27,66 @@ from ast_tpu_torch.config import Config
 from ast_tpu_torch.symbols import SYMBOLS
 from ast_tpu_torch.checkpoint import latest_checkpoint, load_checkpoint
 from ast_tpu_torch.detok import dec_i2w, get_hyps
+from ast_tpu_torch.data import wav_loader
 from ast_tpu_torch.models import seq2seq
 from ast_tpu_torch.ops import beam as beam_ops
+from ast_tpu_torch.ops.fbank import (
+    MfccExtractor, apply_cmvn, compute_cmvn_stats)
 from ast_tpu_torch.params import from_jax_numpy, torch_device
 
-AUDIO_TODO = ("audio input needs the fbank front-end and the wav/sph "
-              "loader, which are not ported yet (ROADMAP.md queue 1, "
-              "'fbank / wav input'); pass (T, 13) .npy features")
 
-
-def _read_features(path):
+def _read_input(path, mfcc, cmvn_mode, cmvn_stats, utt2spk, utt):
     """One file -> float32 (T, n_ceps) features."""
-    if not path.endswith(".npy"):
-        raise NotImplementedError(f"{path}: {AUDIO_TODO}")
-    x = np.load(path).astype(np.float32)
-    if x.ndim != 2:
-        raise NotImplementedError(f"{path}: shape {x.shape}: {AUDIO_TODO}")
-    return x
+    if path.endswith(".npy"):
+        x = np.load(path).astype(np.float32)
+        if x.ndim == 2:          # precomputed features, used as-is
+            return x
+        if x.ndim != 1:
+            raise ValueError(f"{path}: expected 1-D audio or 2-D "
+                             f"features, got shape {x.shape}")
+        audio, rate = x, None
+    elif path.endswith(".sph"):
+        audio, rate = wav_loader.read_sph(path, with_rate=True)
+    else:
+        audio, rate = wav_loader.read_wav(path, with_rate=True)
+    want = mfcc.cfg.sample_rate
+    if rate is not None and rate != want:
+        raise ValueError(
+            f"{path}: sample rate {rate} != model front-end rate {want}; "
+            "resample offline (the experiment was trained on "
+            f"{want} Hz features)")
+    feats = mfcc(audio).cpu().numpy()
+    if cmvn_mode == "none":
+        return feats
+    if cmvn_mode == "utt":
+        stats = compute_cmvn_stats([feats])
+    else:
+        spk = utt2spk.get(utt, utt)
+        if spk not in cmvn_stats:
+            raise KeyError(
+                f"{path}: no CMVN stats for speaker {spk!r} in the "
+                "provided stats file (and no utt2spk entry); use "
+                "--cmvn utt for per-utterance normalization")
+        stats = cmvn_stats[spk]
+    return np.asarray(apply_cmvn(feats, stats), np.float32)
 
 
 def main(argv=None):
     parser = argparse.ArgumentParser(
-        description="Decode loose (T, 13) .npy feature files")
+        description="Decode loose audio/feature files")
     parser.add_argument("-m", "--cfg_path", required=True)
     parser.add_argument("inputs", nargs="+",
-                        help="2-D (T, n_ceps) .npy feature files")
+                        help=".wav/.sph audio, 1-D .npy audio, or "
+                             "2-D (T, n_ceps) .npy features")
     parser.add_argument("--beam", default=None, metavar="N,K",
                         help="beam decode at N,K (default: greedy)")
     parser.add_argument("-w", "--W", type=float, default=0.6,
                         help="beam length-norm weight (default 0.6)")
+    parser.add_argument("--cmvn", default="utt",
+                        help="'utt' (per-utterance stats, default), "
+                             "'none', or a path to a cmvn.stats pickle "
+                             "({'utt2spk': ..., 'stats': ...}, the "
+                             "wav-mode training layout)")
     parser.add_argument("--batch", type=int, default=None,
                         help="max decode batch (default: train batch_size)")
     parser.add_argument("--stop-limit", type=int, default=None,
@@ -94,6 +129,16 @@ def main(argv=None):
     width_b = int(data_cfg["buckets_width"])
     max_sp = (int(data_cfg["buckets_num"]) + 1) * width_b
 
+    cmvn_stats, utt2spk = {}, {}
+    if args.cmvn not in ("utt", "none"):
+        # a stats file the user names, in the layout the wav-mode
+        # trainer reads
+        with open(args.cmvn, "rb") as f:
+            blob = pickle.load(f)
+        cmvn_stats = blob.get("stats", blob)
+        utt2spk = blob.get("utt2spk", {})
+
+    mfcc = MfccExtractor(device=device)
     feats, seen = [], {}
     for path in args.inputs:
         utt = os.path.splitext(os.path.basename(path))[0]
@@ -102,7 +147,9 @@ def main(argv=None):
             utt = f"{utt}#{seen[utt]}"
         else:
             seen[utt] = 0
-        feats.append((utt, _read_features(path)))
+        with torch.inference_mode():
+            feats.append((utt, _read_input(path, mfcc, args.cmvn,
+                                           cmvn_stats, utt2spk, utt)))
 
     groups = {}
     for utt, x in feats:

@@ -13,6 +13,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -43,6 +44,10 @@ _SIGNATURES = {
 }
 
 _lib = None
+# held while the library is built and loaded: the server's warm-up and
+# request threads may make their first kernel call at once, and two
+# builds in one process would share the object directory and .tmp.so
+_lib_lock = threading.Lock()
 # set by the first build in this process: seconds, library path, log
 last_build = {}
 
@@ -102,15 +107,19 @@ def library_path():
 
 
 def library():
-    """The loaded kernel library (built on first call)."""
+    """The loaded kernel library (built on first call; one build per
+    process, however many threads ask for it at once)."""
     global _lib
-    if _lib is None:
-        lib = ctypes.CDLL(str(library_path()))
-        for name, argtypes in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        _lib = lib
+    if _lib is not None:
+        return _lib
+    with _lib_lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(library_path()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
     return _lib
 
 

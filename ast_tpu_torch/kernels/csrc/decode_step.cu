@@ -85,6 +85,8 @@
 #include <cooperative_groups.h>
 #include <math.h>
 
+#include <mutex>
+
 #include "common.cuh"
 
 namespace cg = cooperative_groups;
@@ -746,24 +748,29 @@ __global__ void __launch_bounds__(THREADS)
   attention_body<ATTN_BWD>(a, x);
 }
 
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  }
-  return sms;
+// The launch state below is shared by every host thread of the process
+// (a server decodes several batches at once, and ctypes calls run without
+// Python's lock): the cluster sizes chosen so far, each device's SM count
+// and each kernel's shared-memory opt-in.  g_mu guards all of it.
+std::mutex g_mu;
+constexpr int MAX_DEVICES = 64;
+
+// The SMs of device `dev`; g_mu held.
+int sm_count(int dev) {
+  static int sms[MAX_DEVICES] = {};
+  if (sms[dev] == 0)
+    cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount, dev);
+  return sms[dev];
 }
 
-// A cluster size chosen for a launch shape, kept for the next launch of
-// the same shape and for ast_cluster_choices.  kind: a product's PROD_*
-// mode (a wave's + 3), or 4 + the attention's ATTN_* mode; rows: a
+// A cluster size chosen for a launch shape on a device, kept for the next
+// launch of the same shape and for ast_cluster_choices.  kind: a product's
+// PROD_* mode (a wave's + 3), or 4 + the attention's ATTN_* mode; rows: a
 // product block's rows (0 for attention).
 struct ClusterChoice {
   const void* k;
   size_t smem;
-  int blocks, limit, cs, kind, rows;
+  int blocks, limit, cs, kind, rows, dev;
 };
 constexpr int MAX_CHOICES = 1024;
 ClusterChoice g_choices[MAX_CHOICES];
@@ -774,19 +781,19 @@ int g_n_choices = 0;
 // block asks for is at least EXCLUSIVE_SMEM), so that no SM runs two
 // blocks of a launch while another idles: at 4 blocks a cluster only 30
 // clusters fit the H100's GPCs, so 32 column slices take clusters of 3.
-// Cached per (kernel, shared memory, blocks, limit).
+// Cached per (kernel, shared memory, blocks, limit, device); g_mu held.
 template <typename Kernel>
 int cluster_size(Kernel kernel, size_t smem, int blocks, int limit, int kind,
-                 int rows) {
+                 int rows, int dev) {
   for (int i = 0; i < g_n_choices; ++i) {
     const ClusterChoice& e = g_choices[i];
     if (e.k == (const void*)kernel && e.smem == smem && e.blocks == blocks &&
-        e.limit == limit)
+        e.limit == limit && e.dev == dev)
       return e.cs;
   }
   int cs = min(MAX_CLUSTER, max(1, limit));
   for (; cs > 1; --cs) {
-    if (blocks * cs > sm_count()) continue;
+    if (blocks * cs > sm_count(dev)) continue;
     cudaLaunchConfig_t cfg = {};
     cfg.gridDim = dim3(blocks * cs);
     cfg.blockDim = dim3(THREADS);
@@ -806,26 +813,34 @@ int cluster_size(Kernel kernel, size_t smem, int blocks, int limit, int kind,
   cudaGetLastError();  // a refused query leaves no error behind
   if (g_n_choices < MAX_CHOICES)
     g_choices[g_n_choices++] = ClusterChoice{
-        (const void*)kernel, smem, blocks, limit, cs, kind, rows};
+        (const void*)kernel, smem, blocks, limit, cs, kind, rows, dev};
   return cs;
 }
 
 // kernel<<<(slices * cs, grid_y), THREADS, bytes>>>(args...) as a
 // programmatic dependent launch in clusters of cs blocks along x, cs
-// chosen by cluster_size for slices * grid_y clusters.  *opted: the
-// dynamic shared memory this kernel has been opted in for.
+// chosen by cluster_size for slices * grid_y clusters, on the calling
+// thread's current device.  opted[dev]: the dynamic shared memory this
+// kernel has been opted in for on device dev (an attribute of a device's
+// copy of the function).
 template <typename... KArgs, typename... Args>
 cudaError_t launch_clustered(void (*kernel)(KArgs...), size_t* opted,
                              int kind, int rows, size_t bytes, int slices,
                              int grid_y, int limit, cudaStream_t s,
                              const Args&... args) {
-  if (bytes > *opted) {
-    STEP_RETURN_IF_ERR(cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes));
-    *opted = bytes;
+  int dev = 0;
+  STEP_RETURN_IF_ERR(cudaGetDevice(&dev));
+  if (dev >= MAX_DEVICES) return cudaErrorInvalidDevice;
+  int cs;
+  {
+    std::lock_guard<std::mutex> lock(g_mu);
+    if (bytes > opted[dev]) {
+      STEP_RETURN_IF_ERR(cudaFuncSetAttribute(
+          kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes));
+      opted[dev] = bytes;
+    }
+    cs = cluster_size(kernel, bytes, slices * grid_y, limit, kind, rows, dev);
   }
-  const int cs =
-      cluster_size(kernel, bytes, slices * grid_y, limit, kind, rows);
   return launch_ex(kernel, dim3(slices * cs, grid_y), dim3(THREADS), bytes,
                    cs, s, args...);
 }
@@ -836,20 +851,20 @@ template <int TR, int RGN, int MODE, typename... Extra>
 cudaError_t launch_prod_tile(const Prod& a, int col_blocks, cudaStream_t s,
                              const Extra&... extra) {
   using S = ProdShape<TR, RGN>;
-  static size_t opted = 0;  // of this (tile, mode)'s one kernel
+  static size_t opted[MAX_DEVICES] = {};  // of this (tile, mode)'s kernel
   int ktot = 0;
   for (int i = 0; i < a.nseg; ++i) ktot += a.seg[i].K;
   const int row_chunks = (a.R + S::RB - 1) / S::RB;
   if constexpr (MODE == PROD_CELL_TRAIN)
-    return launch_clustered(prod_train_kernel<TR, RGN>, &opted, MODE, S::RB,
+    return launch_clustered(prod_train_kernel<TR, RGN>, opted, MODE, S::RB,
                             S::BYTES, col_blocks, row_chunks, ktot / KT, s, a,
                             extra...);
   else if constexpr (MODE == PROD_BWD)
-    return launch_clustered(prod_bwd_kernel<TR, RGN>, &opted, MODE, S::RB,
+    return launch_clustered(prod_bwd_kernel<TR, RGN>, opted, MODE, S::RB,
                             S::BYTES, col_blocks, row_chunks, ktot / KT, s, a,
                             extra...);
   else
-    return launch_clustered(prod_kernel<TR, RGN, MODE == PROD_CELL>, &opted,
+    return launch_clustered(prod_kernel<TR, RGN, MODE == PROD_CELL>, opted,
                             MODE, S::RB, S::BYTES, col_blocks, row_chunks,
                             ktot / KT, s, a);
 }
@@ -877,9 +892,9 @@ template <int TR, int RGN, int MODE, typename Extra>
 cudaError_t launch_wave_tile(const Wave<Extra>& w, int cols, int tiles,
                              cudaStream_t s) {
   using S = ProdShape<TR, RGN>;
-  static size_t opted = 0;  // of this (tile, mode)'s one kernel
+  static size_t opted[MAX_DEVICES] = {};  // of this (tile, mode)'s kernel
   const int row_chunks = (w.p[0].R + S::RB - 1) / S::RB;
-  return launch_clustered(wave_kernel<TR, RGN, MODE, Extra>, &opted, MODE + 3,
+  return launch_clustered(wave_kernel<TR, RGN, MODE, Extra>, opted, MODE + 3,
                           S::RB, S::BYTES, cols, row_chunks, tiles, s, w);
 }
 
@@ -912,11 +927,11 @@ template <int MODE, typename... KArgs, typename... Extra>
 cudaError_t launch_attention_mode(void (*kernel)(KArgs...), const Attn& a,
                                   int B, cudaStream_t s,
                                   const Extra&... extra) {
-  static size_t opted = 0;  // of this mode's one kernel
+  static size_t opted[MAX_DEVICES] = {};  // of this mode's one kernel
   size_t bytes =
       ((size_t)2 * a.N * a.H + (size_t)a.N * a.T + 2 * a.N) * sizeof(float);
   if (bytes < EXCLUSIVE_SMEM) bytes = EXCLUSIVE_SMEM;
-  return launch_clustered(kernel, &opted, 4 + MODE, 0, bytes, B, 1, a.T, s,
+  return launch_clustered(kernel, opted, 4 + MODE, 0, bytes, B, 1, a.T, s,
                           a, extra...);
 }
 
@@ -1048,6 +1063,7 @@ cudaError_t launch_attention_bwd(const float* enc, const float* alphas,
 // memory in KB, the cluster size, and clusters * size (the SMs a launch
 // fills).  Writes up to `cap` records to out; returns how many exist.
 AST_EXPORT int ast_cluster_choices(int* out, int cap) {
+  std::lock_guard<std::mutex> lock(ast::g_mu);
   const int n = ast::g_n_choices;
   for (int i = 0; i < n && i < cap; ++i) {
     const ast::ClusterChoice& e = ast::g_choices[i];

@@ -24,12 +24,15 @@ def torch_device(name):
     return dev
 
 
-def tree_map(fn, tree):
-    """Apply ``fn`` to every leaf of a nested dict/list tree."""
+def tree_map(fn, tree, is_leaf=None):
+    """Apply ``fn`` to every leaf of a nested dict/list tree; a node for
+    which ``is_leaf`` holds is a leaf."""
+    if is_leaf is not None and is_leaf(tree):
+        return fn(tree)
     if isinstance(tree, dict):
-        return {k: tree_map(fn, v) for k, v in tree.items()}
+        return {k: tree_map(fn, v, is_leaf) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return [tree_map(fn, v) for v in tree]
+        return [tree_map(fn, v, is_leaf) for v in tree]
     if tree is None:
         return None
     return fn(tree)

@@ -94,8 +94,38 @@ Phases, each printing a line:
    label_smoothing 0.1, random_out 0.1, spec_augment, grad_noise_eta 0.01
    and moments_dtype bfloat16 together: finite, falling-or-level loss,
    K1 train / K2 / K3 / K4 launched, the saved first moment bfloat16
-   values that load as bfloat16.  Phases 7 and 8 set every count to 0
-   before each path and read it after.
+   values that load as bfloat16;
+9. serving over HTTP, on phase 4's experiment:
+   ast_tpu_torch.cli.export_model --batch 32 --beam 5,5 (the default
+   ladder of 400 / 800 / 1,200 / 1,680 frames: 8 entries) and a second,
+   greedy directory with --quantize int8; ast_tpu_torch.cli.serve
+   --warmup --batch-window-ms 5 as a subprocess, ready on /healthz; the
+   64 feature files as binary .npy bodies from one client, greedy then
+   beam, each reply's ids bit-equal to the in-process K1 + K5 (or K1 +
+   K6 and the rerank) decode of the same row padded to the chosen
+   entry's frames, its text the port's detokenisation of them, the beam
+   score equal; the same 64 from 8 client threads, each text the
+   sequential one's or a search that parted from it at a near-tie
+   (another row count tiles the kernels' sums another way), counted:
+   greedy, every token within TOK_TOL of its step's largest logit under
+   the plain step; beam, the winner's length-normalised score recomputed
+   by the plain step along its tokens within SCORE_TOL of the reply's,
+   and reproduced exactly by an in-process K1 + K6 call of 1-8 copies
+   of the row (the row counts a call of 8 clients holds), its scores
+   printed beside the plain beam's on the CPU (the gap to the
+   sequential winner is printed: a search that parted early is not
+   bounded by the tie); requests/s, latency p50 / p90 / p99, device
+   calls and batch_occupancy of each run, /stats with 0 errors and its
+   kernel_launches: the server process's K1 and K5 (greedy) or K6
+   (beam) counts rise in every run, by at most one a device call; 8 seeded 1-12 s audio vectors through /decode and
+   /decode_batch, the card's fbank within 1e-3 of the CPU's (PyTorch's
+   TF32 default for matmuls, which the server keeps, asserted off), the
+   replies equal to the in-process decode of the card's features; SIGTERM
+   while a 4-call /decode_batch is in flight: 200, exit 0; the int8
+   server's 64 greedy replies, their share of texts equal to f32's, K1
+   and K5 launched in its process too.  Phases 7-9 set every count to 0
+   before each path and read it after (phase 9's in-process counts are
+   its reference decodes').
 
 Then a JSON line with each kernel's count, error and times, and last
 {"ok": true, "device": {...}}.  A kernel's count ("launches") is the
@@ -1627,6 +1657,427 @@ def run_trainer_machinery(exp, smi):
                 idle=idle)
 
 
+# the decode kernels' keys in the server's /stats kernel_launches
+KERNEL_KEYS = ("k1", "k5", "k6")
+
+
+def http_post(url, body, timeout=120):
+    """POST a JSON body, or one .npy blob for an ndarray; (status, reply)."""
+    import urllib.error
+    import urllib.request
+
+    if isinstance(body, np.ndarray):
+        buf = io.BytesIO()
+        np.save(buf, body)
+        data, ctype = buf.getvalue(), "application/octet-stream"
+    else:
+        data, ctype = json.dumps(body).encode(), "application/json"
+    req = urllib.request.Request(url, data=data,
+                                 headers={"Content-Type": ctype})
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as r:
+            return r.status, json.loads(r.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+def http_get(url, timeout=30):
+    import urllib.request
+
+    with urllib.request.urlopen(url, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def start_server(serving_dir, log_path, window_ms=5, ready_s=600):
+    """ast_tpu_torch.cli.serve as a subprocess on a free port, --warmup:
+    (process, base url, seconds until /healthz said ready)."""
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    log = open(log_path, "w")
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ast_tpu_torch.cli.serve", "-d", serving_dir,
+         "--port", str(port), "--warmup", "--batch-window-ms",
+         str(window_ms)], cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
+    log.close()
+    base = f"http://127.0.0.1:{port}"
+    while True:
+        try:
+            health = http_get(base + "/healthz", timeout=5)
+            assert health["ok"], health
+            if health["ready"]:
+                return proc, base, time.perf_counter() - t0
+        except OSError:
+            pass
+        if proc.poll() is not None or time.perf_counter() - t0 > ready_s:
+            with open(log_path) as f:
+                raise AssertionError(f"server not ready (exit "
+                                     f"{proc.poll()}): {f.read()[-3000:]}")
+        time.sleep(0.2)
+
+
+def stop_server(proc, timeout=120):
+    """SIGTERM, wait for the drain; the exit code."""
+    import signal
+
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+    try:
+        return proc.wait(timeout=timeout)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=timeout)
+
+
+def client_run(base, bodies, clients):
+    """POST every (path, body) of ``bodies`` to /decode from ``clients``
+    threads, each taking every clients-th; (replies in order, seconds,
+    each request's latency)."""
+    import threading
+
+    out, lat = [None] * len(bodies), [0.0] * len(bodies)
+
+    def client(c):
+        for i in range(c, len(bodies), clients):
+            t = time.perf_counter()
+            out[i] = http_post(base + bodies[i][0], bodies[i][1])
+            lat[i] = time.perf_counter() - t
+
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+        assert not t.is_alive(), "a client hung"
+    dt = time.perf_counter() - t0
+    bad = [r for r in out if r[0] != 200]
+    assert not bad, f"{len(bad)} requests failed: {bad[:2]}"
+    return [r[1] for r in out], dt, lat
+
+
+def run_serving(exp, paths, root, smi, tf32_default):
+    """Phase 9: export es_en_20h (f32 and int8), serve it over HTTP from a
+    subprocess, and hold the replies to in-process decodes."""
+    import threading
+
+    import torch
+
+    from ast_tpu_torch import Config, SYMBOLS
+    from ast_tpu_torch.checkpoint import load_checkpoint
+    from ast_tpu_torch.cli import export_model
+    from ast_tpu_torch.detok import dec_i2w, ids_to_text
+    from ast_tpu_torch.models import seq2seq
+    from ast_tpu_torch.ops import beam as beam_ops
+    from ast_tpu_torch.ops import fused_infer
+    from ast_tpu_torch.ops.fbank import (
+        MfccExtractor, apply_cmvn, compute_cmvn_stats, num_frames)
+    from ast_tpu_torch.params import from_jax_numpy
+
+    assert tf32_default is False, (
+        "torch.backends.cuda.matmul.allow_tf32 defaults to True here: the "
+        "server's fbank and conv products would not be float32")
+    dirs = {"f32": os.path.join(root, "serving"),
+            "q8": os.path.join(root, "serving_q8")}
+    quiet(export_model.main, ["-m", exp, "-o", dirs["f32"], "--batch",
+                              str(B), "--beam", f"{N_BEAM},{K_BEAM}"])
+    quiet(export_model.main, ["-m", exp, "-o", dirs["q8"], "--batch",
+                              str(B), "--quantize", "int8"])
+    with open(os.path.join(dirs["f32"], "manifest.json")) as f:
+        entries = json.load(f)["entries"]
+    ladder = sorted({e["frames"] for e in entries})
+    assert ladder == [400, 800, 1200, 1680] and len(entries) == 8, entries
+
+    cfg = Config(exp)
+    mcfg, dec_key = cfg.model, cfg.train["data"]["dec_key"]
+    i2w = dec_i2w(cfg.train)
+    device = torch.device("cuda")
+    snap = load_checkpoint(os.path.join(exp, "seq2seq_1.model.npz"))
+    params, state = from_jax_numpy(snap["params"], snap["state"], device)
+    beam = beam_ops.make_beam_decoder(mcfg, N_BEAM, K_BEAM, STOP)
+
+    def text(ids):
+        return ids_to_text(ids, lambda i: i2w[i].decode(), dec_key)
+
+    def padded(xs, T):
+        X = np.zeros((len(xs), T, 13), np.float32)
+        for j, x in enumerate(xs):
+            X[j, :min(T, len(x))] = x[:T]
+        return torch.from_numpy(X).to(device)
+
+    def entry_T(x):
+        return next((T for T in ladder if T >= len(x)), ladder[-1])
+
+    def cut(row):
+        eos = np.nonzero(row == SYMBOLS.EOS_ID)[0]
+        return (row[:eos[0]] if eos.size else row).tolist()
+
+    def strip(h):
+        h = [int(i) for i in h]
+        if h and h[0] == SYMBOLS.GO_ID:
+            h = h[1:]
+        if h and h[-1] == SYMBOLS.EOS_ID:
+            h = h[:-1]
+        return h
+
+    zero_counts()
+    with torch.inference_mode():
+        w = seq2seq.decode_weights(params)
+
+        def greedy_ids(xs, T):
+            preds = seq2seq.predict_greedy(params, state, mcfg, padded(xs, T),
+                                           STOP, w)[0].cpu().numpy()
+            return [cut(p) for p in preds]
+
+        def beam_rows(x, nb=1, on=(params, state, w)):
+            """The reranked winner (ids, score) of each of ``nb`` copies
+            of x in one beam call: K1 + K6 on the card, the plain
+            versions on the CPU."""
+            p, st, ww = on
+            X = padded([x] * nb, entry_T(x)).to(p["cnn"][0]["w"].device)
+            hyps, scores, lengths = (a.cpu().numpy()
+                                     for a in beam(p, st, X, ww))
+            out = []
+            for r in range(nb):
+                best = beam_ops.rerank_hypothesis(
+                    [(hyps[r, n, :lengths[r, n]].tolist(),
+                      float(scores[r, n])) for n in range(N_BEAM)], 0.6)[0]
+                out.append((strip(best[0]), float(best[1])))
+            return out
+
+        def beam_best(x):
+            return beam_rows(x)[0]
+
+        def rescore(x, ids):
+            """The beam's length-normalised score of the hypothesis GO +
+            ids (+ EOS unless it ran to the stop limit), by the plain
+            decoder step on one row."""
+            enc, h, c = seq2seq.encode(params, state, mcfg,
+                                       padded([x], entry_T(x)), w)
+            toks = ids + ([SYMBOLS.EOS_ID] if len(ids) < STOP else [])
+            ht = enc.new_zeros((1, w["ctx_w"].shape[1]))
+            word, total = SYMBOLS.GO_ID, 0.0
+            for t in toks:
+                logits, h, c, ht = fused_infer.decode_step_reference(
+                    w, enc, h, c, ht, torch.tensor([word], device=device))
+                total += float(torch.log_softmax(logits, -1)[0, t])
+                word = t
+            return total / max(1, len(toks) - 1) ** 0.6
+
+        feats = [np.load(p) for p in paths]
+        want_g = [greedy_ids([x], entry_T(x))[0] for x in feats]
+        want_b = [beam_best(x) for x in feats]
+    ref_counts = counts()
+
+    proc, base, warm_s = start_server(dirs["f32"],
+                                      os.path.join(root, "serve.log"))
+    report, stats = {}, [http_get(base + "/stats")]
+    try:
+        health = http_get(base + "/healthz")
+        print(f"serving: {len(entries)} entries ({ladder} frames, greedy "
+              f"and beam {N_BEAM},{K_BEAM}, batch {B}); server ready after "
+              f"{warm_s:.1f} s, its warm-up {health['warmup']['seconds']:.1f}"
+              f" s ({smi})", flush=True)
+        runs = {}
+        for mode, q in (("greedy", "?mode=greedy"),
+                        ("beam", "?mode=beam&w=0.6")):
+            bodies = [("/decode" + q, x) for x in feats]
+            for clients in (1, 8):
+                runs[mode, clients] = client_run(base, bodies, clients)
+                stats.append(http_get(base + "/stats"))
+        # sequential replies: bit-equal to the in-process kernel decode of
+        # the same row padded to the chosen entry's frames
+        for i, (g, (b_ids, b_score)) in enumerate(zip(want_g, want_b)):
+            rg, rb = runs["greedy", 1][0][i], runs["beam", 1][0][i]
+            assert rg["ids"] == g and rg["text"] == text(g), (i, rg, g)
+            assert rg["artifact"].startswith(f"greedy_B{B}_T{entry_T(feats[i])}")
+            assert rb["ids"] == b_ids and rb["text"] == text(b_ids), (i, rb)
+            assert rb["score"] == b_score, (i, rb["score"], b_score)
+        # the server's own launches: every run went through K1 and its
+        # mode's decode kernel, at most once each a device call
+        for k, (mode, clients) in enumerate(runs):
+            before, after = stats[k], stats[k + 1]
+            launched = {n: after["kernel_launches"][n]
+                        - before["kernel_launches"][n] for n in KERNEL_KEYS}
+            calls = after["device_calls"] - before["device_calls"]
+            used, unused = ("k5", "k6") if mode == "greedy" else ("k6", "k5")
+            assert 0 < launched["k1"] <= calls and \
+                0 < launched[used] <= calls and launched[unused] == 0, (
+                    mode, launched, calls)
+            runs[mode, clients] += (launched,)
+        # concurrent replies: the sequential ones, or near-ties
+        ties = {"greedy": 0, "beam": 0}
+        p_cpu, s_cpu = from_jax_numpy(snap["params"], snap["state"],
+                                      torch.device("cpu"))
+        with torch.inference_mode():
+            plain = (p_cpu, s_cpu, seq2seq.decode_weights(p_cpu))
+            for i, x in enumerate(feats):
+                seq_g, conc_g = runs["greedy", 1][0][i], runs["greedy", 8][0][i]
+                if conc_g["text"] != seq_g["text"]:
+                    # a greedy path of the model: every token within
+                    # TOK_TOL of its step's largest logit
+                    enc, h0, c0 = seq2seq.encode(
+                        params, state, mcfg, padded([x], entry_T(x)), w)
+                    ids = conc_g["ids"] + [SYMBOLS.EOS_ID]
+                    ids = (ids + [SYMBOLS.PAD_ID] * STOP)[:STOP]
+                    short, _ = fused_infer.greedy_follow(
+                        enc, h0, c0, w, torch.tensor([ids], device=device))
+                    assert float(short.max()) <= TOK_TOL, (i, float(
+                        short.max()))
+                    ties["greedy"] += 1
+                seq_b, conc_b = runs["beam", 1][0][i], runs["beam", 8][0][i]
+                if conc_b["text"] != seq_b["text"]:
+                    # a search that parted from the sequential one at a
+                    # near-tie: its winner must be a hypothesis of the
+                    # model whose length-normalised score, recomputed by
+                    # the plain step along its tokens, is the reply's
+                    got = rescore(x, conc_b["ids"])
+                    assert abs(got - conc_b["score"]) <= SCORE_TOL, (
+                        i, got, conc_b["score"])
+                    # the witness that row tiling parted them: some row
+                    # count a call of 8 clients can hold (1-8), at some
+                    # row of it, gives K1 + K6 the concurrent winner
+                    # exactly, and one row gives the sequential one
+                    conc = (conc_b["ids"], conc_b["score"])
+                    seq = (seq_b["ids"], seq_b["score"])
+                    at = {nb: beam_rows(x, nb) for nb in range(1, 9)}
+                    conc_at = [nb for nb, rows in at.items() if conc in rows]
+                    seq_at = [nb for nb, rows in at.items() if seq in rows]
+                    ids_p, score_p = beam_rows(x, on=plain)[0]
+                    which = {tuple(seq[0]): "the sequential",
+                             tuple(conc[0]): "the concurrent"}.get(
+                                 tuple(ids_p), "a third")
+                    print(f"  beam row {i} parted under 8 clients: "
+                          f"sequential score {seq[1]:.6f}, concurrent "
+                          f"{conc[1]:.6f} (plain-step rescoring "
+                          f"{got:.6f}); K1 + K6 gives the concurrent "
+                          f"winner at {conc_at} rows, the sequential at "
+                          f"{seq_at}; the plain beam on the CPU "
+                          f"{score_p:.6f}, its winner {which}", flush=True)
+                    assert conc_at and 1 in seq_at, (i, conc_at, seq_at)
+                    ties["beam"] += 1
+                    ties["beam_gap"] = max(ties.get("beam_gap", 0.0), abs(
+                        conc_b["score"] - seq_b["score"]))
+
+        # audio: 1-12 s of seeded 8 kHz audio, fbank on the card
+        rng = np.random.default_rng(9)
+        audio = [(rng.standard_normal(int(n)) * 0.1).astype(np.float32)
+                 for n in rng.integers(8000, 96000, 8)]
+        card, host = MfccExtractor(device=device), MfccExtractor()
+        fb_err, cmvn = 0.0, []
+        with torch.inference_mode():
+            for a in audio:
+                got = card(a).cpu().numpy()
+                fb_err = max(fb_err, float(np.abs(got - host(a).numpy()).max()))
+                cmvn.append(np.asarray(apply_cmvn(
+                    got, compute_cmvn_stats([got])), np.float32))
+            assert fb_err <= 1e-3, f"card fbank {fb_err} from the CPU's"
+            single = [http_post(base + "/decode?mode=greedy", a)
+                      for a in audio[:4]]
+            status, bulk = http_post(base + "/decode_batch", {
+                "batch": [{"audio": a.tolist()} for a in audio[4:]],
+                "mode": "greedy"})
+            assert status == 200, bulk
+            for (status, r), a, f in zip(single, audio, cmvn):
+                assert status == 200, r
+                assert r["frames"] == num_frames(card.cfg, len(a)) == len(f)
+                assert r["ids"] == greedy_ids([f], entry_T(f))[0], r
+            # /decode_batch: rows grouped by entry, in input order
+            groups = {}
+            for j, f in enumerate(cmvn[4:]):
+                groups.setdefault(entry_T(f), []).append(j)
+            for T, idx in groups.items():
+                got_ids = greedy_ids([cmvn[4 + j] for j in idx], T)
+                for j, ids in zip(idx, got_ids):
+                    assert bulk["results"][j]["ids"] == ids, (j, T)
+        stats.append(http_get(base + "/stats"))
+        audio_launched = {n: stats[-1]["kernel_launches"][n]
+                          - stats[-2]["kernel_launches"][n]
+                          for n in KERNEL_KEYS}
+        assert audio_launched["k1"] > 0 and audio_launched["k5"] > 0, (
+            audio_launched)
+
+        # SIGTERM while a request is in flight (a 4-call beam batch, the
+        # signal sent once its first call has ended): 200, then exit 0
+        inflight = [None]
+        stack = padded(feats + feats, ladder[-1]).cpu().numpy()
+        calls0 = http_get(base + "/stats")["device_calls"]
+
+        def long_request():
+            inflight[0] = http_post(base + "/decode_batch?mode=beam", stack)
+            inflight.append(time.perf_counter())
+
+        t = threading.Thread(target=long_request)
+        t.start()
+        deadline = time.perf_counter() + 120
+        while http_get(base + "/stats")["device_calls"] == calls0:
+            assert time.perf_counter() < deadline and t.is_alive()
+            time.sleep(0.005)
+        t_term = time.perf_counter()
+        rc = stop_server(proc)
+        t.join(timeout=120)
+        assert inflight[0] is not None and inflight[0][0] == 200, inflight
+        assert inflight[1] > t_term, "the request ended before SIGTERM"
+        assert rc == 0, f"the server exited {rc} after SIGTERM"
+    finally:
+        stop_server(proc)
+    final = stats[-1]
+    assert final["errors"] == 0, final
+
+    # the int8 directory: the same 64 greedy requests
+    proc, base_q8, warm_q8 = start_server(dirs["q8"],
+                                          os.path.join(root, "serve_q8.log"))
+    try:
+        q8_before = http_get(base_q8 + "/stats")["kernel_launches"]
+        q8, q8_dt, _ = client_run(base_q8, [("/decode?mode=greedy", x)
+                                            for x in feats], 1)
+        q8_stats = http_get(base_q8 + "/stats")
+        assert q8_stats["errors"] == 0
+        q8_launched = {n: q8_stats["kernel_launches"][n] - q8_before[n]
+                       for n in KERNEL_KEYS}
+        assert q8_launched["k1"] > 0 and q8_launched["k5"] > 0, q8_launched
+        assert stop_server(proc) == 0
+    finally:
+        stop_server(proc)
+    same_q8 = sum(a["text"] == b["text"]
+                  for a, b in zip(q8, runs["greedy", 1][0])) / len(feats)
+
+    for k, (mode, clients) in enumerate(runs):
+        replies, dt, lat, launched = runs[mode, clients]
+        before, after = stats[k], stats[k + 1]
+        calls = after["device_calls"] - before["device_calls"]
+        occ = (after["rows_decoded"] - before["rows_decoded"]) / (B * calls)
+        p50, p90, p99 = np.percentile(lat, [50, 90, 99]) * 1e3
+        report[f"{mode}_{clients}"] = dict(
+            req_per_s=len(feats) / dt, p50_ms=p50, p90_ms=p90, p99_ms=p99,
+            device_calls=calls, batch_occupancy=occ)
+        print(f"  {mode}, {clients} client{'s' if clients > 1 else ''}: "
+              f"{len(feats) / dt:.1f} requests/s, latency p50 {p50:.1f} / "
+              f"p90 {p90:.1f} / p99 {p99:.1f} ms, {calls} device calls, "
+              f"batch_occupancy {occ:.4f}, the server's launches "
+              f"{launched} ({smi})", flush=True)
+    lat = final.get("latency_s", {})
+    print(f"  /stats: {final['requests']} requests, {final['errors']} "
+          f"errors, {final['device_calls']} device calls, batch_occupancy "
+          f"{final['batch_occupancy']}, latency p50 {lat.get('p50')} / p90 "
+          f"{lat.get('p90')} / p99 {lat.get('p99')} s; sequential replies "
+          f"bit-equal to in-process K1+K5 / K1+K6; concurrent near-ties "
+          f"{ties}; card fbank within {fb_err:.2e} of the CPU's; SIGTERM "
+          f"with a request in flight: 200, exit 0", flush=True)
+    print(f"  int8 directory: {len(feats) / q8_dt:.1f} greedy requests/s, "
+          f"ready after {warm_q8:.1f} s, {same_q8:.3f} of the texts equal "
+          f"to f32's, the server's launches {q8_launched}; audio bodies' "
+          f"launches {audio_launched}; the in-process reference decodes' "
+          f"{ref_counts}", flush=True)
+    return report
+
+
 # kernel-name fragments -> group, first match wins
 KERNEL_GROUPS = (("cell_bwd_kernel", "encoder cell backward"),
                  ("EncCell", "encoder cell waves"),
@@ -1759,6 +2210,8 @@ def main():
         return 2
     from ast_tpu_torch.kernels import build
 
+    # the server subprocess of phase 9 runs with PyTorch's default
+    tf32_default = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     smi = subprocess.run(
@@ -1791,6 +2244,7 @@ def main():
         train_launches, train = run_train_slice(root, smi)
         run_beam_cli(train["exp"], smi)
         run_trainer_machinery(train["exp"], smi)
+        run_serving(exp, paths, root, smi, tf32_default)
     launches.update({k: v for k, v in train_launches.items() if k != "k5"})
     units.update({k: train["steps"] for k in ("k1t", "k2", "k3", "k4")})
 

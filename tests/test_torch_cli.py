@@ -1,12 +1,15 @@
 """ast_tpu_torch.cli.infer vs ast_tpu.cli.infer on one tiny experiment.
 
 A checkpoint saved by ast_tpu is decoded by both CLIs from the same .npy
-files (several duration buckets, a truncated over-long input and a
-duplicate basename); greedy and beam text must be identical.
+feature files (several duration buckets, a truncated over-long input and
+a duplicate basename) and from audio files (.wav, .sph, 1-D .npy) under
+each --cmvn mode; greedy and beam text must be identical.
 """
 
 import os
+import pickle
 import shutil
+import wave
 
 import jax
 import numpy as np
@@ -67,12 +70,99 @@ def test_cli_cuda_requires_a_gpu(experiment):
         infer.main(["-m", exp, "--device", "cuda", paths[0]])
 
 
-def test_cli_rejects_audio(experiment, tmp_path):
+def _write_wav(path, audio, rate=8000):
+    pcm = np.clip(audio * 32768.0, -32768, 32767).astype("<i2")
+    with wave.open(str(path), "wb") as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(rate)
+        w.writeframes(pcm.tobytes())
+    return str(path)
+
+
+def _write_sph(path, audio, rate=8000):
+    pcm = np.clip(audio * 32768.0, -32768, 32767).astype(">i2")
+    header = (f"NIST_1A\n   1024\nsample_rate -i {rate}\n"
+              "channel_count -i 1\nsample_n_bytes -i 2\n"
+              f"sample_count -i {len(pcm)}\nsample_byte_format -s2 10\n"
+              "sample_coding -s3 pcm\nend_head\n").encode("ascii")
+    with open(path, "wb") as f:
+        f.write(header + b" " * (1024 - len(header)) + pcm.tobytes())
+    return str(path)
+
+
+@pytest.fixture(scope="module")
+def audio_inputs(tmp_path_factory):
+    """A .wav, a big-endian PCM .sph, a 1-D .npy and the committed
+    embedded-shorten .sph: 0.75-2 s of 8 kHz audio, under the tiny
+    experiment's 250-frame cap."""
+    root = tmp_path_factory.mktemp("torch_cli_audio")
+    rng = np.random.RandomState(5)
+    npy = str(root / "c.npy")
+    np.save(npy, (rng.randn(16000) * 0.1).astype(np.float32))
+    fixture = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "fixtures", "shorten", "fisher_like.sph")
+    return [_write_wav(root / "a.wav", rng.randn(12000) * 0.1),
+            _write_sph(str(root / "b.sph"), rng.randn(8000) * 0.1),
+            npy, fixture]
+
+
+@pytest.mark.parametrize("cmvn", ["utt", "none", "pkl"])
+@pytest.mark.parametrize("extra", [[], ["--beam", "3,3"]],
+                         ids=["greedy", "beam"])
+def test_cli_audio_matches_ast_tpu(experiment, audio_inputs, tmp_path,
+                                   cmvn, extra):
+    """.wav, .sph (PCM and embedded-shorten) and 1-D .npy audio through
+    each package's MFCC front-end and CMVN, then decoding: the same
+    lines."""
     exp, _ = experiment
+    if cmvn == "pkl":
+        rng = np.random.RandomState(2)
+        stats = {spk: {"mean": rng.randn(13).astype(np.float32),
+                       "std": (1 + rng.rand(13)).astype(np.float32)}
+                 for spk in ("s1", "s2", "fisher_like")}
+        path = tmp_path / "cmvn.stats"
+        with open(path, "wb") as f:
+            pickle.dump({"utt2spk": {"a": "s1", "b": "s2", "c": "s1"},
+                         "stats": stats}, f)
+        cmvn = str(path)
+    argv = ["-m", exp, "--batch", "2", "--cmvn", cmvn] + extra
+    ref = jax_infer.main(argv + audio_inputs)
+    got = infer.main(argv + ["--device", "cpu"] + audio_inputs)
+    assert list(got) == ["a", "b", "c", "fisher_like"]
+    assert got == ref
+    assert any(got.values())
+
+
+def test_cli_audio_cmvn_speaker_missing(experiment, audio_inputs,
+                                        tmp_path):
+    exp, _ = experiment
+    path = tmp_path / "cmvn.stats"
+    with open(path, "wb") as f:
+        pickle.dump({"utt2spk": {}, "stats": {}}, f)
+    argv = ["-m", exp, "--cmvn", str(path), audio_inputs[0]]
+    with pytest.raises(KeyError) as got:
+        infer.main(argv + ["--device", "cpu"])
+    with pytest.raises(KeyError) as want:
+        jax_infer.main(argv)
+    assert got.value.args == want.value.args
+
+
+def test_cli_rejects_audio(experiment, tmp_path):
+    """Audio the front-end cannot take: another sample rate (ast_tpu's
+    message), a 3-D .npy, a file that is no WAV."""
+    exp, _ = experiment
+    wrong_rate = _write_wav(tmp_path / "r.wav", np.zeros(8000), rate=16000)
+    with pytest.raises(ValueError, match="sample rate 16000") as got:
+        infer.main(["-m", exp, "--device", "cpu", wrong_rate])
+    with pytest.raises(ValueError) as want:
+        jax_infer.main(["-m", exp, wrong_rate])
+    assert str(got.value) == str(want.value)
+    cube = tmp_path / "a.npy"
+    np.save(cube, np.zeros((2, 3, 4), np.float32))
+    with pytest.raises(ValueError, match="expected 1-D audio or 2-D"):
+        infer.main(["-m", exp, "--device", "cpu", str(cube)])
     wav = tmp_path / "a.wav"
     wav.write_bytes(b"RIFF")
-    audio = tmp_path / "a.npy"
-    np.save(audio, np.zeros(8000, np.float32))
-    for path in (wav, audio):
-        with pytest.raises(NotImplementedError, match="fbank"):
-            infer.main(["-m", exp, "--device", "cpu", str(path)])
+    with pytest.raises((wave.Error, EOFError)):
+        infer.main(["-m", exp, "--device", "cpu", str(wav)])
