@@ -9,14 +9,19 @@ serving directory that ``cli.serve`` answers HTTP requests from.  Training: buck
 batches go through the same front-end and encoder in train mode, the
 fused scheduled-sampling decoder, a CE loss, their fused backwards and
 AMSGrad, epoch by epoch with greedy dev BLEU
-(``python -m ast_tpu_torch.cli.train``).  Every Pallas kernel on those
+(``python -m ast_tpu_torch.cli.train``).  Transfer: ``cli.copy_params``
+copies a donor's encoder / attention / decoder into a new experiment,
+averages checkpoints or writes the reference's Chainer format, and
+``eval.wer`` scores an ASR side.  Every Pallas kernel on those
 paths is a hand-written CUDA kernel here (``kernels/csrc``); each sits
 beside a plain PyTorch version that CPU tensors take.
 
 The JAX package ``ast_tpu`` is the reference this port is tested
 against.  The port imports neither JAX nor any module of ``ast_tpu``: it
 keeps its own copies of what it shares with it (``config``, ``symbols``,
-``eval.bleu``), so an experiment directory means the same to both.
+``eval.bleu``, ``eval.wer``, ``eval.metrics``, ``train.chainer_import``),
+so an experiment directory, a reference Chainer checkpoint included,
+means the same to both.
 Parameters, BN state and optimizer state keep ast_tpu's layout
 and its flat-NPZ checkpoint format, so weights and runs move both ways.
 """

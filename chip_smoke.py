@@ -125,7 +125,23 @@ Phases, each printing a line:
    server's 64 greedy replies, their share of texts equal to f32's, K1
    and K5 launched in its process too.  Phases 7-9 set every count to 0
    before each path and read it after (phase 9's in-process counts are
-   its reference decodes').
+   its reference decodes');
+10. the pretrain -> transfer -> fine-tune workflow through the CLIs: a
+   donor shaped as experiments/asr_gpfr (the globalphone loader, its own
+   600-entry vocab, 64 train / 16 dev utterances) trained two epochs
+   through ast_tpu_torch.cli.train; ast_tpu_torch.cli.copy_params
+   --groups enc,attn into a fresh es_en_20h experiment over phase 6's
+   data, the copied leaves and BN state bit-equal to the donor's on the
+   card and no optimizer state saved; one epoch with optimizer.freeze
+   ["cnn", "enc"]: every frozen leaf bit-equal to the donor's, every
+   other param leaf moved; --average last:2 equal to NumPy's float64
+   mean of epochs 0 and 1, then cli.beam --ckpt on it; --export-chainer
+   into a directory that holds only the configs and the .model, whose
+   cli.beam pickle, BLEU and .en bytes equal the .npz directory's, and
+   one cli.train epoch there resumed at the .model's epoch; the donor's
+   dev greedy hypotheses scored by python -m ast_tpu_torch.eval.wer
+   against an sclite trn reference.  Every count is set to 0 before the
+   phase, and every kernel must launch in it.
 
 Then a JSON line with each kernel's count, error and times, and last
 {"ok": true, "device": {...}}.  A kernel's count ("launches") is the
@@ -178,6 +194,7 @@ ENC_SEED, DEC_SEED = 2 ** 31 - 1000, 1234567
 BWD_TOL = 1e-3          # relative to max|plain| (reverse-time sums)
 EVAL_TOL = 1e-4         # the dev loss, kernels against plain, relative
 N_TRAIN, N_DEV = 96, 32
+N_ASR, N_ASR_DEV, ASR_VOCAB = 64, 16, 600       # phase 10's donor
 # (utterances, T') of the partial-batch decode checks, at T' of the
 # infer CLI's length buckets (multiples of 20): with greedy R = B rows
 # and beam R = 5 B, these reach every row tiling of decode_step.cu's
@@ -320,13 +337,13 @@ def make_experiment(root, seed=0):
     return exp, cfg, paths
 
 
-def write_vocab(path):
-    """A 1098-entry BPE vocab pickle (every third word a joiner); returns
-    its words, id 4 onwards."""
+def write_vocab(path, size=VOCAB, stem="w"):
+    """A ``size``-entry BPE vocab pickle of words ``<stem><i>`` (every
+    third a joiner); returns its words, id 4 onwards."""
     from ast_tpu_torch import SYMBOLS
 
-    words = [(f"w{i}@@" if i % 3 == 0 else f"w{i}").encode()
-             for i in range(VOCAB - SYMBOLS.N_SPECIAL)]
+    words = [(f"{stem}{i}@@" if i % 3 == 0 else f"{stem}{i}").encode()
+             for i in range(size - SYMBOLS.N_SPECIAL)]
     w2i = {w: i for i, w in enumerate(SYMBOLS.START_VOCAB + words)}
     vocab = {"bpe_w": {"w2i": w2i, "i2w": {i: w for w, i in w2i.items()},
                        "freq": {w: 1 for w in words}}}
@@ -2078,6 +2095,233 @@ def run_serving(exp, paths, root, smi, tf32_default):
     return report
 
 
+def make_asr_experiment(root, seed=7):
+    """Phase 10's donor: experiments/asr_gpfr's model_cfg and train_cfg
+    (the globalphone loader: every utterance's features in one pickled
+    dict) with paths rewritten, its own ASR_VOCAB-entry vocab, N_ASR /
+    N_ASR_DEV utterances of 100-1,200 frames with Zipf-like targets of
+    5-40 tokens, and an sclite trn reference of the dev split."""
+    exp = os.path.join(root, "asr_exp")
+    data = os.path.join(root, "asr_data")
+    refs = os.path.join(data, "refs")
+    os.makedirs(exp)
+    gpfr = os.path.join(REPO, "experiments", "asr_gpfr")
+    shutil.copy(os.path.join(gpfr, "model_cfg.json"), exp)
+    with open(os.path.join(gpfr, "train_cfg.json")) as f:
+        train_cfg = json.load(f)
+    words = write_vocab(os.path.join(root, "asr.vocab"), ASR_VOCAB, "f")
+    rng = np.random.default_rng(seed)
+    zipf = 1.0 / np.arange(1, len(words) + 1)
+    zipf /= zipf.sum()
+    dev = train_cfg["dev_set"]
+    sets = {train_cfg["train_set"]: N_ASR, dev: N_ASR_DEV}
+    speech, map_dict, info = {}, {}, {}
+    for set_key, n in sets.items():
+        speech[set_key], map_dict[set_key], info[set_key] = {}, {}, {}
+        for i in range(n):
+            utt = f"{set_key}_utt{i:03d}"
+            T = int(rng.integers(100, 1200))
+            speech[set_key][utt] = rng.standard_normal((T, 13)).astype(
+                np.float32)
+            toks = [words[j] for j in rng.choice(
+                len(words), int(rng.integers(5, 41)), p=zipf)]
+            map_dict[set_key][utt] = {"bpe_w": toks}
+            info[set_key][utt] = {"sp": T, "bpe_w": len(toks)}
+    os.makedirs(os.path.join(refs, dev))
+    for name, obj in (("data.dict", speech), ("bpe_map.dict", map_dict),
+                      ("info.dict", info)):
+        with open(os.path.join(data, name), "wb") as f:
+            pickle.dump(obj, f)
+    utts = sorted(map_dict[dev])
+    text = {u: " ".join(w.decode() for w in map_dict[dev][u]["bpe_w"])
+            .replace("@@ ", "") for u in utts}
+    with open(os.path.join(refs, dev, "eval.ids"), "w") as f:
+        f.write("\n".join(utts) + "\n")
+    with open(os.path.join(refs, dev, "ref.en0"), "w") as f:
+        f.write("".join(text[u] + "\n" for u in utts))
+    with open(os.path.join(data, f"{dev}.clean.wer"), "w") as f:
+        f.write("".join(f"{text[u]} ({u})\n" for u in utts))
+    train_cfg["data"].update(
+        speech_path=os.path.join(data, "data.dict"),
+        map_path=os.path.join(data, "bpe_map.dict"),
+        vocab_path=os.path.join(root, "asr.vocab"),
+        info_path=os.path.join(data, "info.dict"), refs_path=refs)
+    with open(os.path.join(exp, "train_cfg.json"), "w") as f:
+        json.dump(train_cfg, f)
+    return exp
+
+
+def cuda_tree(snap, device):
+    """A checkpoint's params and BN state as flat {key: tensor on the
+    card}."""
+    import torch
+
+    from ast_tpu_torch.checkpoint import flatten
+    from ast_tpu_torch.params import from_jax_numpy
+
+    params, state = from_jax_numpy(snap["params"], snap.get("state") or {},
+                                   device)
+    flat = flatten({"params": params, "state": state}, leaf=lambda t: t)
+    return {k: v for k, v in flat.items() if torch.is_tensor(v)}
+
+
+def run_transfer(root, st_src, smi, device="cuda"):
+    """Phase 10: the pretrain -> transfer -> fine-tune workflow through
+    the CLIs.  ``st_src``: phase 6's experiment, whose data a fresh
+    es_en_20h experiment takes."""
+    import torch
+
+    from ast_tpu_torch.checkpoint import (
+        checkpoint_path, flatten, latest_checkpoint, load_checkpoint)
+    from ast_tpu_torch.cli import beam, copy_params, train
+    from ast_tpu_torch.eval.bleu import Eval
+    from ast_tpu_torch.train.trainer import NN
+
+    dev_ = torch.device(device)
+
+    def sync():
+        if dev_.type == "cuda":
+            torch.cuda.synchronize()
+
+    def timed(main, argv):
+        sync()
+        t0 = time.perf_counter()
+        res, out = quiet(main, argv + ["--device", device])
+        sync()
+        return res, out, time.perf_counter() - t0
+
+    def rates(out):
+        return [float(v) for v in re.findall(
+            r"train throughput = ([0-9.]+) utts/sec", out)]
+
+    t_phase = time.perf_counter()
+    zero_counts()
+    donor = make_asr_experiment(root)
+    _, out, _ = timed(train.main, ["-m", donor, "-e", "2"])
+    donor_rates = rates(out)
+    donor_ckpt, donor_epoch = latest_checkpoint(donor)
+    assert donor_epoch == 2, donor_ckpt
+
+    # the target: es_en_20h's train_cfg over phase 6's data, encoder and
+    # conv front-end frozen for the fine-tune
+    st = os.path.join(root, "transfer_st")
+    os.makedirs(st)
+    shutil.copy(os.path.join(st_src, "model_cfg.json"), st)
+    with open(os.path.join(REPO, "experiments", "es_en_20h",
+                           "train_cfg.json")) as f:
+        st_cfg = json.load(f)
+    with open(os.path.join(st_src, "train_cfg.json")) as f:
+        src_data = json.load(f)["data"]
+    st_cfg["data"].update({k: src_data[k] for k in (
+        "speech_path", "map_path", "vocab_path", "info_path", "refs_path")})
+    st_cfg["optimizer"]["freeze"] = ["cnn", "enc"]
+    with open(os.path.join(st, "train_cfg.json"), "w") as f:
+        json.dump(st_cfg, f)
+    dev = st_cfg["dev_set"]
+
+    _, out, copy_s = timed(copy_params.main, ["--src", donor, "--dst", st,
+                                              "--groups", "enc,attn"])
+    assert "encoder conv weights match donor: True" in out, out
+    donor_t = cuda_tree(load_checkpoint(donor_ckpt), dev_)
+    start = load_checkpoint(checkpoint_path(st, 0))
+    assert "opt" not in start
+    start_t = cuda_tree(start, dev_)
+    copied = [k for k in start_t if k.split("/")[1] in ("cnn", "enc", "attn")
+              or k.startswith("state/")]
+    assert copied and all(torch.equal(start_t[k], donor_t[k])
+                          for k in copied), "copied leaves differ"
+
+    _, out, _ = timed(train.main, ["-m", st, "-e", "1"])
+    tune_rates = rates(out)
+    assert "epoch: 1" in out, out
+    tuned_t = cuda_tree(load_checkpoint(checkpoint_path(st, 1)), dev_)
+    frozen = [k for k in tuned_t if k.split("/")[:2] in (
+        ["params", "cnn"], ["params", "enc"])]
+    trained = [k for k in tuned_t
+               if k.startswith("params/") and k not in frozen]
+    assert frozen and all(torch.equal(tuned_t[k], donor_t[k])
+                          for k in frozen), "a frozen leaf moved"
+    still = [k for k in trained if torch.equal(tuned_t[k], start_t[k])]
+    assert trained and not still, f"leaves that did not move: {still}"
+    with open(os.path.join(st, "dev.log")) as f:
+        tune_bleu = float(f.read().split(", ")[-1])
+
+    avg, _, avg_s = timed(copy_params.main,
+                          ["--src", st, "--average", "last:2"])
+    got = flatten(load_checkpoint(avg))
+    e0, e1 = (flatten({k: load_checkpoint(checkpoint_path(st, e))[k]
+                       for k in ("params", "state")}) for e in (0, 1))
+    assert sorted(got) == sorted(e0)
+    for k, a in e0.items():
+        if a.dtype == np.float32:
+            mean = ((a.astype(np.float64) + e1[k]) / 2).astype(np.float32)
+            assert np.array_equal(got[k], mean), f"average differs at {k}"
+    def beam_args(exp):
+        return ["-m", exp, "-n", str(N_BEAM), "-k", str(K_BEAM), "-w",
+                "0.6", "-s", dev]
+    avg_bleu, _, _ = timed(beam.main, beam_args(st) + ["--ckpt", avg])
+
+    chainer_dir = os.path.join(root, "transfer_chainer")
+    os.makedirs(chainer_dir)
+    for name in ("model_cfg.json", "train_cfg.json"):
+        shutil.copy(os.path.join(st, name), chainer_dir)
+    model = os.path.join(chainer_dir, "seq2seq_1.model")
+    _, _, export_s = timed(copy_params.main,
+                           ["--src", st, "--export-chainer", model])
+    assert os.path.exists(model) and not os.path.exists(model + ".npz")
+    stem = f"{dev}_beam_N-{N_BEAM}_K-{K_BEAM}"
+    decoded = []
+    for exp in (st, chainer_dir):
+        bleu, _, _ = timed(beam.main, beam_args(exp))
+        with open(os.path.join(exp, f"{stem}.p"), "rb") as f, open(
+                os.path.join(exp, f"{stem}_W-0.60.en"), "rb") as g:
+            decoded.append((bleu, pickle.load(f), g.read()))
+    assert decoded[0] == decoded[1], "the Chainer directory decodes otherwise"
+    _, out, _ = timed(train.main, ["-m", chainer_dir, "-e", "1"])
+    with open(os.path.join(chainer_dir, "train.log")) as f:
+        resumed = [line.split(", ")[0] for line in f.read().splitlines()]
+    assert "epoch: 2" in out and resumed == ["2"], (out, resumed)
+
+    # the donor's dev greedy hypotheses, scored by the WER CLI
+    nn = NN(donor, device)
+    tcfg = nn.cfg.train
+    refs = os.path.join(tcfg["data"]["refs_path"], tcfg["dev_set"])
+    hyp_path = os.path.join(root, "asr_dev_hyps.txt")
+    Eval(refs, 1).write_to_file(
+        nn.data_loader.get_hyps(nn.predict(tcfg["dev_set"])), hyp_path)
+    trn = os.path.join(os.path.dirname(tcfg["data"]["map_path"]),
+                       f"{tcfg['dev_set']}.clean.wer")
+    res = subprocess.run(
+        [sys.executable, "-m", "ast_tpu_torch.eval.wer", trn, hyp_path,
+         "--ids", os.path.join(refs, "eval.ids")], cwd=REPO,
+        capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    wer = re.search(r"^%WER ([0-9.]+) \[ \d+ / (\d+),.*\]$", res.stdout,
+                    re.M)
+    assert wer and int(wer.group(2)) > 0, res.stdout
+    n = counts()
+    wall = time.perf_counter() - t_phase
+    print(f"transfer ({N_ASR} / {N_ASR_DEV} asr_gpfr-shaped donor utts, "
+          f"es_en_20h target; {smi}): donor 2 epochs {donor_rates} utts/s, "
+          f"copy_params enc,attn {copy_s:.2f} s ({len(copied)} leaves "
+          f"bit-equal to the donor's on {dev_}), fine-tune 1 epoch with "
+          f"cnn, enc frozen {tune_rates} utts/s ({len(frozen)} frozen leaves "
+          f"bit-equal to the donor's, all {len(trained)} others moved), dev "
+          f"BLEU {tune_bleu:.2f}; --average last:2 {avg_s:.2f} s, equal to "
+          f"the float64 mean, beam {N_BEAM},{K_BEAM} BLEU {avg_bleu:.2f} "
+          f"through --ckpt; --export-chainer {export_s:.2f} s, its "
+          f"directory's beam hypotheses bit-equal to the .npz's and "
+          f"cli.train resumed it at epoch 2; donor dev greedy, python -m "
+          f"ast_tpu_torch.eval.wer: {wer.group(0)}; launches {n}; "
+          f"{wall:.1f} s", flush=True)
+    if dev_.type == "cuda":
+        for k, v in n.items():
+            assert v > 0, f"the transfer path never launched {k}"
+    return dict(donor_utts_per_s=donor_rates, tune_utts_per_s=tune_rates,
+                wer=float(wer.group(1)), bleu=tune_bleu, avg_bleu=avg_bleu,
+                seconds=wall, launches=n)
+
+
 # kernel-name fragments -> group, first match wins
 KERNEL_GROUPS = (("cell_bwd_kernel", "encoder cell backward"),
                  ("EncCell", "encoder cell waves"),
@@ -2245,6 +2489,7 @@ def main():
         run_beam_cli(train["exp"], smi)
         run_trainer_machinery(train["exp"], smi)
         run_serving(exp, paths, root, smi, tf32_default)
+        run_transfer(root, train["exp"], smi)
     launches.update({k: v for k, v in train_launches.items() if k != "k5"})
     units.update({k: train["steps"] for k in ("k1t", "k2", "k3", "k4")})
 

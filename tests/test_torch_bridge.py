@@ -153,17 +153,22 @@ def test_detok_matches_ast_tpu(dec_key):
 
 def test_port_imports_no_jax():
     """Importing every module of the port, and the scripts that drive it
-    on the card, loads no JAX and no module of ast_tpu."""
+    on the card (chip_smoke, ab_kernels, profile_decode and the port's
+    two learning scripts), loads no JAX and no module of ast_tpu."""
     code = ("import importlib, pkgutil, sys\n"
             "import ast_tpu_torch, ast_tpu_torch.cli.infer, "
             "ast_tpu_torch.ops.beam, ast_tpu_torch.cli.train, "
             "ast_tpu_torch.cli.beam, ast_tpu_torch.utils.profiling, "
             "ast_tpu_torch.train.trainer, ast_tpu_torch.data.dataloader, "
-            "ast_tpu_torch.eval.bleu\n"
+            "ast_tpu_torch.eval.bleu, ast_tpu_torch.eval.wer, "
+            "ast_tpu_torch.eval.metrics, ast_tpu_torch.cli.copy_params, "
+            "ast_tpu_torch.train.chainer_import, ast_tpu_torch.checkpoint\n"
             "for m in pkgutil.walk_packages(ast_tpu_torch.__path__, "
             "'ast_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
             "import ab_kernels, chip_smoke, profile_decode\n"
+            "sys.path.insert(0, 'scripts')\n"
+            "import torch_synthetic_train, torch_transfer_ab\n"
             "bad = [m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'ast_tpu')]\n"
             "assert not bad, bad\n")
