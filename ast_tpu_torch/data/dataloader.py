@@ -9,9 +9,11 @@ with replacement and zeroed), tail-batch shrinking, curriculum order and
 per-bucket target lengths.  Every batch of a bucket has one shape: speech
 padded to the bucket's frame width, targets ``[GO] + ids[:max_pred-2] +
 [EOS]`` padded to the bucket's target length, and the batch padded with
-all-zero / all-PAD rows.  Not ported (ROADMAP.md queue 1): feature packs,
-the device feature cache, text-encoder mode, wav input and grouped runs
-for multi-step dispatch.
+all-zero / all-PAD rows.  The Fisher loader reads a split's
+``<set>.pack`` (:mod:`ast_tpu_torch.data.feature_pack`) when there is
+one; ``features: wav`` takes :class:`ast_tpu_torch.data.wav_loader.
+WavDataLoader`.  Not ported (ROADMAP.md queue 1): the device feature
+cache, text-encoder mode and grouped runs for multi-step dispatch.
 """
 
 import os
@@ -22,6 +24,7 @@ import numpy as np
 
 from ast_tpu_torch.symbols import SYMBOLS
 from ast_tpu_torch.data import buckets as prep_buckets
+from ast_tpu_torch.data.feature_pack import FeaturePack
 from ast_tpu_torch.detok import get_hyps
 from ast_tpu_torch.utils.seeding import stable_seed
 
@@ -115,11 +118,13 @@ class DataLoader:
 
     def get_batch(self, batch_size, set_key, train, labels=False,
                   pad_batch=True, curriculum=False, epoch=None,
-                  tail_shrink=0):
+                  tail_shrink=0, _skip_speech=False):
         """Generator of batch dicts {"X": (B, T, D) f32, "y": (B, U) i32
         (with ``labels``), "utts", "n_real", "bucket", "rows",
         "frame_len"}; ``ast_tpu``'s ``get_batch`` with ``group_runs=1``
-        and no index cache."""
+        and no index cache.  ``_skip_speech``: no ``X`` (``None``) and no
+        frame dropout -- so no draw of the dropout RNG -- and
+        ``"X_rows"``: B; the raw-audio loader assembles its own speech."""
         if epoch is not None:
             tag = f"{self.seed}|{set_key}|{epoch}"
             py_rng = random.Random(tag)
@@ -149,15 +154,20 @@ class DataLoader:
             if pad_batch and tail_shrink > 0 and len(utts) < b_size:
                 B = self.tail_rows(len(utts), b_size, tail_shrink)
             frame_len = np.zeros((B,), dtype=np.int32)
-            feats = [self._load_speech(u, set_key, max_sp) for u in utts]
-            X = np.zeros((B, T, feats[0].shape[1]), dtype=np.float32)
-            for j, x in enumerate(feats):
-                if drop:
-                    x = self._drop_frames(x, rate, np_rng)
-                X[j, :len(x)] = x
-                frame_len[j] = min(len(x), T)
+            X = None
+            if not _skip_speech:
+                feats = [self._load_speech(u, set_key, max_sp)
+                         for u in utts]
+                X = np.zeros((B, T, feats[0].shape[1]), dtype=np.float32)
+                for j, x in enumerate(feats):
+                    if drop:
+                        x = self._drop_frames(x, rate, np_rng)
+                    X[j, :len(x)] = x
+                    frame_len[j] = min(len(x), T)
             batch = {"X": X, "utts": list(utts), "n_real": len(utts),
                      "bucket": b, "rows": B, "frame_len": frame_len}
+            if _skip_speech:
+                batch["X_rows"] = B
             if labels:
                 batch["y"] = self._targets(set_key, utts, b, B)
             yield batch
@@ -195,13 +205,27 @@ class DataLoader:
 
 class FisherDataLoader(DataLoader):
     """Fisher: per-utterance ``.npy`` features on disk, cached in RAM
-    after the first read."""
+    after the first read; or, when ``<speech_path>/<set_key>.pack``
+    exists (``prep_data pack-features``), the split's rows served from
+    that one memory-mapped file."""
 
     def __init__(self, data_cfg, model_dir, seed="seed"):
         super().__init__(data_cfg, model_dir, seed)
         self._cache = {}
+        self._packs = {}
+
+    def _pack_for(self, set_key):
+        if set_key not in self._packs:
+            path = os.path.join(self.data_cfg["speech_path"],
+                                f"{set_key}.pack")
+            self._packs[set_key] = (FeaturePack(path)
+                                    if os.path.exists(path) else None)
+        return self._packs[set_key]
 
     def _load_speech(self, utt, set_key, max_sp):
+        pack = self._pack_for(set_key)
+        if pack is not None and utt in pack:
+            return pack.get(utt, max_rows=max_sp)
         key = (set_key, utt)
         if key not in self._cache:
             sp_path = os.path.join(self.data_cfg["speech_path"], set_key)
@@ -228,12 +252,14 @@ class GlobalPhoneDataLoader(DataLoader):
 
 
 def make_dataloader(train_cfg, model_dir):
-    """Loader by ``data.dataloader`` ("fisher" or "globalphone")."""
+    """Loader by ``data.dataloader`` ("fisher" or "globalphone") and
+    ``data.features`` ("wav": raw audio and CMVN stats, featurized in the
+    train step)."""
     data_cfg = train_cfg["data"]
     seed = train_cfg.get("seed", "seed")
     if data_cfg.get("features", "precomputed") == "wav":
-        raise NotImplementedError(
-            "wav input is not ported (ROADMAP.md queue 1)")
+        from ast_tpu_torch.data.wav_loader import WavDataLoader
+        return WavDataLoader(data_cfg, model_dir, seed)
     if data_cfg.get("dataloader") == "globalphone":
         return GlobalPhoneDataLoader(data_cfg, model_dir, seed)
     return FisherDataLoader(data_cfg, model_dir, seed)

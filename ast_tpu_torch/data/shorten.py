@@ -1,15 +1,17 @@
-"""Shorten v2 (embedded-SPHERE) lossless audio decoder — pure Python.
+"""Shorten v2 (embedded-SPHERE) lossless audio codec.
 
-The port's copy of the decoder in ``ast_tpu/data/shorten.py``: the LDC
+The port's copy of ``ast_tpu/data/shorten.py``: the LDC
 Fisher Spanish tapes are SPHERE files whose waveform section is
 compressed with *shorten v2* ("sample_coding: ulaw,embedded-shorten-v2"),
 which the reference pipeline decodes with the external sph2pipe binary
 (reference: linking_files/fisher/kaldi/local/fsp_data_prep.sh:37-41).
 It decodes the whole bitstream -- Rice-coded residuals, fixed linear
 predictors DIFF0-3, quantized LPC, block mean offsets, bitshift,
-verbatim chunks -- and serializes the samples back to the file's bytes.
-``ast_tpu``'s encoder (test fixtures) and its native C++ decoder are not
-copied: this module is the port's only decoder.
+verbatim chunks -- and serializes the samples back to the file's bytes;
+``decode`` runs the port's native C++ decoder
+(:mod:`ast_tpu_torch.native`) and keeps this Python one as its
+reference (``_force_python=True``).  ``encode`` writes such streams
+(test tapes; byte-equal to ``ast_tpu``'s encoder).
 
 Format (Robinson 1994, CUED/F-INFENG/TR.156; shorten-2.x/3.x stream):
 
@@ -221,6 +223,63 @@ class _BitReader:
         return (u >> 1) ^ -(u & 1)
 
 
+class _BitWriter:
+    __slots__ = ("chunks",)
+
+    def __init__(self):
+        self.chunks = []
+
+    def uvar(self, v, k):
+        q = v >> k
+        self.chunks.append(np.zeros(q, dtype=np.uint8))
+        one = np.ones(1, dtype=np.uint8)
+        self.chunks.append(one)
+        if k:
+            low = np.array([(v >> (k - 1 - i)) & 1 for i in range(k)],
+                           dtype=np.uint8)
+            self.chunks.append(low)
+
+    def var(self, v, k):
+        # sign in the LSB: u = (v >= 0) ? v << 1 : ((-v - 1) << 1) | 1
+        u = (v << 1) if v >= 0 else (((-v - 1) << 1) | 1)
+        self.uvar(u, k + 1)
+
+    def vars(self, e, k):
+        """``var(v, k)`` for every v of the int array ``e`` at once: the
+        same bits, assembled without a Python loop over samples."""
+        e = np.asarray(e, dtype=np.int64)
+        if not len(e):
+            return
+        u = np.where(e >= 0, e << 1, ((-e - 1) << 1) | 1)
+        n = k + 1
+        q = u >> n
+        ends = np.cumsum(q + 1 + n)
+        starts = ends - (q + 1 + n)
+        bits = np.zeros(int(ends[-1]), dtype=np.uint8)
+        bits[starts + q] = 1                  # the unary part's one
+        low = (u[:, None] >> np.arange(n - 1, -1, -1)[None, :]) & 1
+        pos = (starts + q + 1)[:, None] + np.arange(n)[None, :]
+        bits[pos.ravel()] = low.ravel()
+        self.chunks.append(bits)
+
+    def ulong(self, v):
+        k = max(int(v).bit_length() - 3, 0) if v else 0
+        # any k decodes; pick one that keeps the unary part short
+        while (v >> k) > 31:
+            k += 1
+        self.uvar(k, ULONGSIZE)
+        self.uvar(v, k)
+
+    def tobytes(self):
+        bits = (np.concatenate(self.chunks) if self.chunks
+                else np.zeros(0, dtype=np.uint8))
+        # pad to a 32-bit word boundary like the original's word IO
+        pad = (-len(bits)) % 32
+        if pad:
+            bits = np.concatenate([bits, np.zeros(pad, dtype=np.uint8)])
+        return np.packbits(bits).tobytes()
+
+
 # ---------------------------------------------------------------------------
 # decoder
 # ---------------------------------------------------------------------------
@@ -248,7 +307,7 @@ class ShortenStream:
         self.verbatim = verbatim    # bytes (in stream order)
 
 
-def decode(data, max_samples=None):
+def decode(data, max_samples=None, _force_python=False):
     """Decode a shorten v2 (or v1) stream.
 
     ``data``: bytes starting at the ``ajkg`` magic.  Returns
@@ -256,7 +315,24 @@ def decode(data, max_samples=None):
     values.  ``max_samples``: optional early stop after that many
     per-channel samples (segment reads don't pay for the whole tape).
 
+    Runs the native decoder (``ast_tpu_torch/native/shorten_dec.cc``);
+    this Python path (``_force_python=True``) is its reference, held
+    equal to it on every predictor and option case, the path of a
+    machine without ``g++``, and the one that reports a malformed
+    stream.
     """
+    if not _force_python:
+        from ast_tpu_torch import native
+        try:
+            out = native.shn_decode(data, max_samples)
+        except ValueError:
+            # a malformed stream: the Python decoder below raises with
+            # the reference's message
+            out = None
+        if out is not None:
+            ftype, samples, verbatim = out
+            return ShortenStream(ftype, samples.shape[1],
+                                 samples.astype(np.int64), verbatim)
     if data[:4] != MAGIC:
         raise ValueError("shorten: bad magic (expected 'ajkg')")
     version = data[4]
@@ -455,3 +531,210 @@ def _alaw_code(s, t):
     if t == TYPE_AU3:
         return _nearest_code(s, _SIGNMAG_IN)
     return _nearest_code(s, _ALAW_EXPAND)
+
+
+def bytes_to_samples(raw, ftype, nchan):
+    """Original file sample bytes -> internal values (n, nchan)."""
+    if ftype == TYPE_U8:
+        s = np.frombuffer(raw, dtype=np.uint8).astype(np.int64)
+    elif ftype == TYPE_S8:
+        s = np.frombuffer(raw, dtype=np.int8).astype(np.int64)
+    elif ftype == TYPE_S16HL:
+        s = np.frombuffer(raw, dtype=">i2").astype(np.int64)
+    elif ftype == TYPE_S16LH:
+        s = np.frombuffer(raw, dtype="<i2").astype(np.int64)
+    elif ftype == TYPE_U16HL:
+        s = np.frombuffer(raw, dtype=">u2").astype(np.int64)
+    elif ftype == TYPE_U16LH:
+        s = np.frombuffer(raw, dtype="<u2").astype(np.int64)
+    elif ftype in (TYPE_AU1, TYPE_AU2, TYPE_AU3):
+        s = _SIGNMAG_IN[np.frombuffer(raw, dtype=np.uint8)]
+    elif ftype == TYPE_ULAW:
+        s = _ULAW_EXPAND[np.frombuffer(raw, dtype=np.uint8)]
+    elif ftype == TYPE_ALAW:
+        s = _ALAW_EXPAND[np.frombuffer(raw, dtype=np.uint8)]
+    else:
+        raise ValueError(f"shorten: unsupported type {ftype}")
+    n = (len(s) // nchan) * nchan
+    return s[:n].reshape(-1, nchan)
+
+
+def samples_to_float(stream):
+    """Decoded internal values -> float32 audio in [-1, 1], (n, nchan)."""
+    s = stream.samples
+    t = stream.ftype
+    if t in (TYPE_S16HL, TYPE_S16LH):
+        return (s / 32768.0).astype(np.float32)
+    if t in (TYPE_U16HL, TYPE_U16LH):
+        return ((s - 32768.0) / 32768.0).astype(np.float32)
+    if t == TYPE_U8:
+        return ((s - 128.0) / 128.0).astype(np.float32)
+    if t == TYPE_S8:
+        return (s / 128.0).astype(np.float32)
+    if t == TYPE_ULAW:
+        return (s / 32768.0).astype(np.float32)
+    if t == TYPE_ALAW:
+        return (s / 32768.0).astype(np.float32)
+    if t in (TYPE_AU1, TYPE_AU2, TYPE_AU3):
+        # sign-magnitude internal values: expand through the code table
+        codes = samples_to_bytes(stream)
+        u = np.frombuffer(codes, dtype=np.uint8)
+        lin = (_ALAW_EXPAND if t == TYPE_AU3 else _ULAW_EXPAND)[u]
+        return (lin.reshape(s.shape) / 32768.0).astype(np.float32)
+    raise ValueError(f"shorten: unsupported type {t}")
+
+
+# ---------------------------------------------------------------------------
+# encoder (fixture generation / tests; spec-complete v2 writer)
+# ---------------------------------------------------------------------------
+
+def _best_resn(e):
+    """Rice parameter minimizing the block's coded size."""
+    a = np.abs(e.astype(np.float64))
+    mean = a.mean() if len(a) else 0.0
+    k0 = max(int(np.log2(mean + 1)) if mean >= 1 else 0, 0)
+    best_k, best_bits = 0, None
+    u = np.where(e >= 0, e.astype(np.int64) << 1,
+                 ((-e.astype(np.int64) - 1) << 1) | 1)
+    for k in range(max(0, k0 - 2), k0 + 4):
+        bits = int((u >> (k + 1)).sum()) + len(e) * (k + 2)
+        if best_bits is None or bits < best_bits:
+            best_k, best_bits = k, bits
+    return best_k, best_bits
+
+
+def encode(samples, ftype, blocksize=DEFAULT_BLOCK_SIZE, nmean=4,
+           use_qlpc=False, verbatim=None, version=2, bitshift=0,
+           predictors=None):
+    """Encode interleaved samples ((n, nchan) ints in the type's
+    internal domain, or raw bytes) to a shorten v2 stream.
+
+    Independent of :func:`decode` (separate arithmetic paths) so
+    round-trip tests are meaningful; additionally validated by
+    libavcodec decoding its output bit-exact (linear types).
+    ``verbatim``: optional bytes emitted as an FN_VERBATIM chunk before
+    the first sample block (how embedded headers ride along).
+    ``bitshift``: emit FN_BITSHIFT and code samples>>bitshift (samples
+    must be multiples of 2**bitshift for losslessness).
+    """
+    if isinstance(samples, (bytes, bytearray)):
+        raise TypeError("pass internal-domain samples; use "
+                        "bytes_to_samples first")
+    samples = np.asarray(samples, dtype=np.int64)
+    if samples.ndim == 1:
+        samples = samples[:, None]
+    if bitshift:
+        if np.any(samples & ((1 << bitshift) - 1)):
+            raise ValueError(
+                f"bitshift={bitshift} requires samples divisible by "
+                f"{1 << bitshift}")
+        samples = samples >> bitshift
+    n, nchan = samples.shape
+
+    w = _BitWriter()
+    maxnlpc = 2 if use_qlpc else 0
+    w.ulong(ftype)
+    w.ulong(nchan)
+    w.ulong(blocksize)
+    w.ulong(maxnlpc)
+    w.ulong(nmean)
+    w.ulong(0)  # nskip
+
+    mean0 = 0x80 if ftype == TYPE_U8 else (
+        0x8000 if ftype in (TYPE_U16HL, TYPE_U16LH) else 0)
+    offset = [[mean0] * max(1, nmean) for _ in range(nchan)]
+    nwrap = max(NWRAP, maxnlpc)
+    hist = [np.zeros(nwrap, dtype=np.int64) for _ in range(nchan)]
+
+    if verbatim:
+        w.uvar(FN_VERBATIM, FNSIZE)
+        w.uvar(len(verbatim), VERBATIM_CKSIZE_SIZE)
+        for b in verbatim:
+            w.uvar(b, VERBATIM_BYTE_SIZE)
+    if bitshift:
+        w.uvar(FN_BITSHIFT, FNSIZE)
+        w.uvar(bitshift, BITSHIFTSIZE)
+
+    pos = 0
+    cur_bs = blocksize
+    while pos < n:
+        take = min(cur_bs, n - pos)
+        if take != cur_bs:
+            w.uvar(FN_BLOCKSIZE, FNSIZE)
+            w.ulong(take)
+            cur_bs = take
+        for chan in range(nchan):
+            buf = samples[pos:pos + take, chan]
+            h = hist[chan]
+
+            if nmean == 0:
+                coffset = offset[chan][0]
+            else:
+                s = (0 if version < 2 else nmean // 2) + sum(offset[chan])
+                if version < 2:
+                    coffset = _cdiv(s, nmean)
+                else:
+                    coffset = _rounded_shift_down(_cdiv(s, nmean), bitshift)
+
+            if not buf.any() and coffset == 0:
+                w.uvar(FN_ZERO, FNSIZE)
+                resid, cmd = None, FN_ZERO
+            else:
+                # candidate residuals for DIFF0..3 (+ QLPC if enabled)
+                prev = np.concatenate([h[-3:], buf])
+                cands = {}
+                cands[FN_DIFF0] = buf - coffset
+                cands[FN_DIFF1] = prev[3:] - prev[2:-1]
+                cands[FN_DIFF2] = (prev[3:] - 2 * prev[2:-1]
+                                   + prev[1:-2])
+                cands[FN_DIFF3] = (prev[3:] - 3 * (prev[2:-1]
+                                   - prev[1:-2]) - prev[:-3])
+                if use_qlpc:
+                    # fixed order-2 quantized predictor (encoder
+                    # freedom; exercises the decoder's QLPC path)
+                    qlpc = [int(round(1.8 * (1 << LPCQUANT))),
+                            int(round(-0.85 * (1 << LPCQUANT)))]
+                    qlpc = [max(min(q, (1 << 15) - 1), -(1 << 15))
+                            for q in qlpc]
+                    ph = [int(h[-1]) - coffset, int(h[-2]) - coffset]
+                    e = np.empty(take, dtype=np.int64)
+                    vprev = ph
+                    for i in range(take):
+                        acc = V2LPC_QOFFSET
+                        acc += qlpc[0] * vprev[0] + qlpc[1] * vprev[1]
+                        pred = acc >> LPCQUANT
+                        v = int(buf[i]) - coffset
+                        e[i] = v - pred
+                        vprev = [v, vprev[0]]
+                    cands[FN_QLPC] = e
+                if predictors is not None:
+                    cands = {c: e for c, e in cands.items()
+                             if c in predictors}
+                best_cmd, best_cost, best_e, best_k = None, None, None, 0
+                for cmdc, e in cands.items():
+                    k, bits = _best_resn(e)
+                    if best_cost is None or bits < best_cost:
+                        best_cmd, best_cost, best_e, best_k = (
+                            cmdc, bits, e, k)
+                cmd, resid = best_cmd, best_e
+                w.uvar(cmd, FNSIZE)
+                w.uvar(best_k, ENERGYSIZE)
+                if cmd == FN_QLPC:
+                    w.uvar(2, LPCQSIZE)
+                    w.var(qlpc[0], LPCQUANT)
+                    w.var(qlpc[1], LPCQUANT)
+                w.vars(resid, best_k)
+
+            if nmean > 0:
+                s = (0 if version < 2 else take // 2) + int(buf.sum())
+                offset[chan] = offset[chan][1:] + [
+                    _cdiv(s, take) if version < 2
+                    else _cdiv(s, take) << bitshift]
+            if take >= nwrap:
+                hist[chan] = buf[-nwrap:].copy()
+            else:
+                hist[chan] = np.concatenate([h, buf])[-nwrap:]
+        pos += take
+
+    w.uvar(FN_QUIT, FNSIZE)
+    return MAGIC + bytes([version]) + w.tobytes()

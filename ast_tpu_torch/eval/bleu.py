@@ -1,6 +1,7 @@
 """Corpus BLEU scoring and the file-based eval protocol of the dev
 decode: the port's own copy of ``ast_tpu/eval/bleu.py`` (``Eval``,
-``corpus_bleu`` and their helpers, same names and behaviour), so the
+``corpus_bleu``, ``export_meteor_refs`` and their helpers, same names
+and behaviour), so the
 port imports nothing of ``ast_tpu``.
 
 Multi-reference corpus BLEU with Lin & Och (2004) add-one smoothing
@@ -97,6 +98,28 @@ def _read_ref_files(path, n_evals):
                   encoding="utf-8") as f:
             refs.append([line.rstrip("\n") for line in f])
     return refs
+
+
+def export_meteor_refs(refs_dir, n_evals, out_path=None):
+    """Write the METEOR multi-reference file from ``ref.en0..N-1``.
+
+    The reference's eval dirs ship a ``meteor_4refs.en`` alongside the
+    per-system ref files (reference: data/fisher/refs/*/meteor_4refs.en):
+    for each utterance in ``eval.ids`` order, its N references appear as
+    N consecutive lines — the layout ``meteor -r N`` expects.  Returns
+    the output path.
+    """
+    refs = _read_ref_files(refs_dir, n_evals)
+    if len({len(r) for r in refs}) != 1:
+        raise ValueError(
+            f"ref.en0..{n_evals - 1} in {refs_dir} disagree on line count")
+    if out_path is None:
+        out_path = os.path.join(refs_dir, f"meteor_{n_evals}refs.en")
+    with open(out_path, "w", encoding="utf-8") as out:
+        for lines in zip(*refs):
+            for line in lines:
+                out.write(line + "\n")
+    return out_path
 
 
 class Eval:

@@ -53,11 +53,18 @@ def require_train_variant(mcfg, train_cfg):
     """The gate of the ported training path: the decode gate's variant,
     plus the options the fused train kernels and the ported trainer
     implement (no output dropout -- ``seq2seq.py``'s fused-decoder
-    condition --, float32, one step per dispatch, host-fed precomputed
-    features).  ``train_cfg`` is ``Config(...).train``.  Raises
-    NotImplementedError for anything else, on every device."""
+    condition --, float32, one step per dispatch, host-fed features or
+    audio).  ``train_cfg`` is ``Config(...).train``.  Raises
+    NotImplementedError for anything else, on every device, and
+    ``ast_tpu``'s ValueError for ``hbm_cache`` over audio."""
     require_decode_variant(mcfg)
     extras, data = train_cfg["extras"], train_cfg["data"]
+    if (extras.get("hbm_cache", False)
+            and data.get("features", "precomputed") == "wav"):
+        raise ValueError(
+            "extras.hbm_cache needs precomputed features "
+            "(data.features='wav' ships raw audio; the MFCC "
+            "already runs on device in that mode)")
     refused = [name for name, bad in (
         ("dropout.out", mcfg["dropout"].get("out", 0) > 0),
         ("compute_dtype", extras.get("compute_dtype",
@@ -67,7 +74,6 @@ def require_train_variant(mcfg, train_cfg):
         ("hbm_cache", bool(extras.get("hbm_cache", False))),
         ("transfer_dtype", extras.get("transfer_dtype",
                                       "float32") != "float32"),
-        ("wav features", data.get("features", "precomputed") == "wav"),
     ) if bad]
     if refused:
         raise NotImplementedError(

@@ -21,7 +21,11 @@ cuDNN's conv backward sum with atomics, in no fixed order.
 ``forward_loss`` runs the conv front-end, K1 (train), K3 and the loss,
 autograd runs K4, K2 and the weight-gradient GEMMs; the update is added
 to the parameters in place.  Losses stay on the device until the epoch's
-end.
+end.  With ``data.features: "wav"`` a batch carries raw audio and CMVN
+statistics instead of features: every step, ``eval_loss`` and the
+decodes first make the normalised MFCC features on the trainer's device
+(``ops.fbank.MfccExtractor``, then ``(f - mean) / std`` a row), as
+``ast_tpu`` does inside its jitted step.
 
 Every ``checkpoint_steps`` batches, and when :meth:`NN.request_preempt`
 was called (the train CLI wires SIGTERM to it), the epoch writes
@@ -52,6 +56,7 @@ from ast_tpu_torch.checkpoint import (
 from ast_tpu_torch.data.dataloader import make_dataloader
 from ast_tpu_torch.models import seq2seq
 from ast_tpu_torch.ops import beam as beam_ops
+from ast_tpu_torch.ops.fbank import MfccExtractor
 from ast_tpu_torch.ops.fused_infer import require_train_variant
 from ast_tpu_torch.params import torch_device, tree_map
 from ast_tpu_torch.train.optimizer import (
@@ -216,6 +221,10 @@ class NN:
                   f"{', '.join(ignored)}", flush=True)
         self.seed = stable_seed(tcfg["seed"], bits=31)
         self.data_loader = make_dataloader(tcfg, self.model_dir)
+        # features: wav -- the loader ships audio, the step featurizes
+        self.wav_mode = tcfg["data"].get("features", "precomputed") == "wav"
+        self._mfcc = (MfccExtractor(self.data_loader.mfcc_cfg, self.device)
+                      if self.wav_mode else None)
         self.params, self.state = seq2seq.init_model(
             self.mcfg, seed=self.seed, device=self.device)
         self.opt, self.opt_state = build_optimizer(
@@ -279,10 +288,13 @@ class NN:
     # batches
     # ------------------------------------------------------------------
     def _device_batch(self, batch, labels=True):
-        """A host batch with ``X`` (and ``y`` with ``labels``) as tensors
-        on the device: through pinned memory and an asynchronous copy on a
-        card.  A batch already there passes through."""
-        if torch.is_tensor(batch["X"]):
+        """A host batch with ``X`` -- in wav mode ``audio``, ``cmvn_mean``
+        and ``cmvn_std`` -- (and ``y`` with ``labels``) as tensors on the
+        device: through pinned memory and an asynchronous copy on a card.
+        A batch already there passes through."""
+        speech = (("audio", "cmvn_mean", "cmvn_std") if self.wav_mode
+                  else ("X",))
+        if torch.is_tensor(batch[speech[0]]):
             return batch
         cuda = self.device.type == "cuda"
 
@@ -292,10 +304,19 @@ class NN:
                 t = t.pin_memory()
             return t.to(self.device, non_blocking=cuda)
 
-        out = dict(batch, X=put(batch["X"]))
+        out = dict(batch, **{k: put(batch[k]) for k in speech})
         if labels:
             out["y"] = put(batch["y"]).long()
         return out
+
+    def features(self, batch):
+        """A device batch's features (B, T, D): its ``X``, or in wav mode
+        its audio's MFCC normalised by each row's CMVN statistics."""
+        if not self.wav_mode:
+            return batch["X"]
+        feats = self._mfcc(batch["audio"])
+        return ((feats - batch["cmvn_mean"][:, None, :])
+                / batch["cmvn_std"][:, None, :])
 
     def _prefetch(self, gen, labels):
         workers = max(1, int(self.cfg.train["extras"].get(
@@ -318,7 +339,8 @@ class NN:
         tcfg = self.cfg.train
         extras = tcfg["extras"]
         batch = self._device_batch(batch)
-        X, y = batch["X"], batch["y"]
+        # featurized first: the draws take T from the features' shape
+        X, y = self.features(batch), batch["y"]
         draws = seq2seq.make_draws(
             seed, X, y.shape[1] - 1, extras["teach_ratio"],
             extras["speech_noise"], random_out=extras["random_out"],
@@ -434,7 +456,7 @@ class NN:
             enc_w = seq2seq.encoder_weights(self.params)
             for batch in self._prefetch(gen, labels=True):
                 loss, _ = seq2seq.forward_loss(
-                    self.params, self.state, self.mcfg, batch["X"],
+                    self.params, self.state, self.mcfg, self.features(batch),
                     batch["y"], float(batch["n_real"]), train=False,
                     enc_w=enc_w)
                 losses.append(loss)
@@ -462,7 +484,7 @@ class NN:
                 batch_size, set_key, train=False, labels=False,
                 tail_shrink=self.tail_shrink)
             for batch in self._prefetch(gen, labels=False):
-                inflight.append((batch, decode(batch["X"])))
+                inflight.append((batch, decode(self.features(batch))))
                 if len(inflight) >= depth:
                     drain()
             while inflight:

@@ -141,7 +141,30 @@ Phases, each printing a line:
    one cli.train epoch there resumed at the .model's epoch; the donor's
    dev greedy hypotheses scored by python -m ast_tpu_torch.eval.wer
    against an sclite trn reference.  Every count is set to 0 before the
-   phase, and every kernel must launch in it.
+   phase, and every kernel must launch in it;
+11. from raw tapes to a trained model: a raw tree written from a seed --
+   N_CONV two-channel 8 kHz tapes of CONV_S s (tape 0 embedded-shorten
+   SPHERE by the port's shorten.encode, its encode time printed and kept
+   out of the recipe's, the others mu-law SPHERE), LDC .tdf transcript
+   tables and a translations file (the AST side) from AUDIO_WORDS-word
+   lists, about 300 utterances of 1-12 s; the native and the Python
+   shorten decoders in MB/s; ast_tpu_torch.cli.prep_data fisher-recipe
+   --device cuda twice, with --wav and without, each stage's seconds;
+   the two trees' text side byte-equal, the features tree's .npy files
+   within 1e-3 of the CPU fbank + CMVN of the same audio, a wav-mode
+   batch featurized and normalised on the card within 1e-3 of the
+   features tree's batch of the same utterances, validate --deep with 0
+   errors and 0 warnings on both; the train buckets of 8+ utterances by
+   --buckets_num; one step at B=32 near FRAMES frames split by CUDA
+   events into fbank + CMVN and the rest, beside a features-mode step on
+   the same utterances, and the host-to-device bytes of each; cli.train
+   -e 2 on the wav tree (falling loss, two dev.log rows, K1 train, K2,
+   K3, K4, K1 eval and K5 launched), cli.beam -n 5 -k 5 on its dev split
+   (K1 eval, K6); pack-features on the features tree's train split and
+   an epoch read from the pack alone; prep_data bnf --device cuda on an
+   nnet2 net shaped as a Kaldi BNF net (splice +-4, p-norm layers, a
+   42-dim bottleneck) within 1e-4 of --device cpu.  PyTorch's TF32 for
+   matmuls is asserted off.
 
 Then a JSON line with each kernel's count, error and times, and last
 {"ok": true, "device": {...}}.  A kernel's count ("launches") is the
@@ -195,6 +218,11 @@ BWD_TOL = 1e-3          # relative to max|plain| (reverse-time sums)
 EVAL_TOL = 1e-4         # the dev loss, kernels against plain, relative
 N_TRAIN, N_DEV = 96, 32
 N_ASR, N_ASR_DEV, ASR_VOCAB = 64, 16, 600       # phase 10's donor
+# phase 11's raw corpus: tapes, seconds a tape, sample rate, words a
+# second, the size of each side's word list and the recipe's BPE merges
+# (V lands near es_en_20h's 1,098 on it)
+N_CONV, CONV_S, RATE, WORDS_PER_S = 6, 240, 8000, 3.0
+AUDIO_WORDS, AUDIO_MERGES = 1100, 1500
 # (utterances, T') of the partial-batch decode checks, at T' of the
 # infer CLI's length buckets (multiples of 20): with greedy R = B rows
 # and beam R = 5 B, these reach every row tiling of decode_step.cu's
@@ -2322,6 +2350,512 @@ def run_transfer(root, st_src, smi, device="cuda"):
                 seconds=wall, launches=n)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: from raw tapes to a trained model
+# ---------------------------------------------------------------------------
+
+class StampedOut(io.StringIO):
+    """A stdout that keeps (perf_counter time, text) of every line
+    written, so a CLI's log lines time its stages."""
+
+    def __init__(self):
+        super().__init__()
+        self.lines = []
+
+    def write(self, s):
+        now = time.perf_counter()
+        self.lines.extend((now, ln) for ln in s.splitlines() if ln.strip())
+        return super().write(s)
+
+
+def pseudo_words(rng, n, max_syllables=4):
+    """``n`` distinct words of 1 to ``max_syllables - 1`` syllables."""
+    syl = [c + v for c in "bcdfghjklmnprstvwy" for v in "aeiou"] + [
+        "th", "sh", "er", "ing", "ed", "ly"]
+    out = set()
+    while len(out) < n:
+        k = int(rng.integers(1, max_syllables))
+        out.add("".join(syl[i] for i in rng.integers(0, len(syl), k)))
+    return sorted(out)
+
+
+def speechlike(rng, n, scale):
+    """Integer PCM: a tone under a slow envelope, plus noise."""
+    t = np.arange(n)
+    f = rng.uniform(15.0, 40.0)
+    x = (scale * np.sin(t / f) * (0.5 + 0.5 * np.sin(t / rng.uniform(
+        200.0, 900.0)) ** 2) + rng.standard_normal(n) * scale * 0.05)
+    return np.round(x).astype(np.int64)
+
+
+def sph_header(n, channels, coding, n_bytes=1):
+    """A 1024-byte NIST SPHERE header of ``n`` samples a channel."""
+    body = "".join(f"{k} {t} {v}\n" for k, (t, v) in {
+        "channel_count": ("-i", channels), "sample_count": ("-i", n),
+        "sample_rate": ("-i", RATE), "sample_n_bytes": ("-i", n_bytes),
+        "sample_coding": (f"-s{len(coding)}", coding)}.items())
+    return ("NIST_1A\n   1024\n" + body + "end_head\n").encode().ljust(
+        1024, b" ")
+
+
+def tdf_row(call, chan, start, end, words):
+    return (f"{call}.sph\t{chan}\t{start}\t{end}\tspk{chan}\tfemale\tnative"
+            f"\t{words}\t0\t0\t-1")
+
+
+TDF_HEADER = (
+    "file;unicode\tchannel;int\tstart;float\tend;float\tspeaker;unicode"
+    "\tspeakerType;unicode\tspeakerDialect;unicode\ttranscript;unicode"
+    "\tsection;int\tturn;int\tsegment;int\n"
+    ";;MM sectionTypes\t[None, None]\n"
+    ";;MM sectionBoundaries\t[0.0, 9999999.0]\n")
+
+
+def write_audio_corpus(root, seed=11):
+    """Phase 11's raw tree under ``root``: N_CONV two-channel 8 kHz tapes
+    of CONV_S seconds (tape 0 embedded-shorten SPHERE written by the
+    port's shorten.encode, the others mu-law SPHERE), one LDC ``.tdf``
+    table each (Spanish-like transcripts, some markup) and a
+    ``translations`` file (the AST side): each side speaks utterances of
+    1-12 s with 0.5-5.5 s between them, about WORDS_PER_S words a second
+    drawn from a Zipf-like list of AUDIO_WORDS words.  Returns (the
+    shorten stream, its tape's samples, encode seconds, utterances)."""
+    from ast_tpu_torch.data import shorten as sh
+
+    rng = np.random.default_rng(seed)
+    audio, tdf = os.path.join(root, "audio"), os.path.join(root, "tdf")
+    os.makedirs(audio)
+    os.makedirs(tdf)
+    es, en = (pseudo_words(rng, AUDIO_WORDS) for _ in range(2))
+    p = 1.0 / np.arange(1, AUDIO_WORDS + 1) ** 0.3
+    p /= p.sum()
+    n = CONV_S * RATE
+    trans, n_utts = [], 0
+    stream = encode_s = tape = None
+    for ci in range(N_CONV):
+        call = f"fsp_{ci:02d}"
+        pcm = np.stack([speechlike(rng, n, 6000.0),
+                        speechlike(rng, n, 3000.0)], axis=1)
+        codes = np.stack([sh._nearest_code(pcm[:, c], sh._ULAW_EXPAND)
+                          for c in (0, 1)], axis=1)
+        if ci == 0:
+            t0 = time.perf_counter()
+            stream = sh.encode(sh._SIGNMAG_IN[codes], sh.TYPE_AU1, nmean=4)
+            encode_s = time.perf_counter() - t0
+            tape = codes
+            body = sph_header(n, 2, "ulaw,embedded-shorten-v2") + stream
+        else:
+            body = sph_header(n, 2, "ulaw") + codes.tobytes()
+        with open(os.path.join(audio, f"{call}.sph"), "wb") as f:
+            f.write(body)
+        rows = []
+        for side in (0, 1):
+            t = float(rng.uniform(0.2, 2.0))
+            while True:
+                dur = float(rng.uniform(1.0, 12.0))
+                s0, s1 = round(t, 2), round(t + dur, 2)
+                if s1 > CONV_S - 0.1:
+                    break
+                k = max(1, int(dur * WORDS_PER_S))
+                words = " ".join(es[i] for i in rng.choice(AUDIO_WORDS, k,
+                                                           p=p))
+                if n_utts % 7 == 3:
+                    words += " <laugh>ja ja</laugh>"
+                rows.append((s0, tdf_row(call, side, s0, s1, words)))
+                utt = (f"{call}-{'AB'[side]}-{int(s0 * 100):06d}-"
+                       f"{int(s1 * 100):06d}")
+                trans.append(f"{utt}\t" + " ".join(
+                    en[i] for i in rng.choice(AUDIO_WORDS, k, p=p)))
+                n_utts += 1
+                t = s1 + float(rng.uniform(0.5, 5.5))
+        with open(os.path.join(tdf, f"{call}.tdf"), "w") as f:
+            f.write(TDF_HEADER + "\n".join(r for _, r in sorted(rows))
+                    + "\n")
+    with open(os.path.join(root, "translations"), "w") as f:
+        f.write("\n".join(trans) + "\n")
+    return stream, tape, encode_s, n_utts
+
+
+def run_recipe(raw, out, wav, device="cuda"):
+    """``prep_data fisher-recipe`` over the raw tree through the CLI:
+    (seconds of each stage from its log line's time, total seconds)."""
+    from ast_tpu_torch.cli import prep_data
+
+    argv = ["fisher-recipe", "--audio_dir", os.path.join(raw, "audio"),
+            "--tdf_dir", os.path.join(raw, "tdf"), "--translations",
+            os.path.join(raw, "translations"), "--out", out, "--merges",
+            str(AUDIO_MERGES), "--buckets_num", "20", "--buckets_width",
+            "80", "--batch_size", str(B), "--device", device] + (
+                ["--wav"] if wav else [])
+    stamped = StampedOut()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stamped):
+        prep_data.main(argv)
+    total = time.perf_counter() - t0
+    names = {"[tdf]": "tdf-to-text", "[1/6]": "extract-segments",
+             "[2-3/6]": "mfcc+cmvn", "[4/6]": "bpe+dicts+refs",
+             "[5/6]": "configs", "[6/6]": "validate"}
+    stages, last = {}, t0
+    for when, line in stamped.lines:
+        key = line.split(" ", 1)[0]
+        if key in names:
+            name = names[key]
+            if key == "[2-3/6]":
+                name += " " + line.split()[1].rstrip(":")
+            stages[name] = when - last
+            last = when
+    assert "experiment ready" in stamped.getvalue(), stamped.getvalue()
+    return stages, total
+
+
+def text_side_equal(wav_out, feat_out):
+    """The two recipe trees' text side: every file of text/ and data/
+    and model_cfg.json byte-equal, train_cfg.json equal but for
+    data.features and the root; returns the number of files compared."""
+    n = 0
+    for sub in ("text", "data"):
+        for d, _, files in os.walk(os.path.join(wav_out, sub)):
+            for f in files:
+                rel = os.path.relpath(os.path.join(d, f), wav_out)
+                with open(os.path.join(wav_out, rel), "rb") as a, open(
+                        os.path.join(feat_out, rel), "rb") as b:
+                    assert a.read() == b.read(), f"{rel} differs"
+                n += 1
+    cfgs = []
+    for out in (wav_out, feat_out):
+        with open(os.path.join(out, "exp", "model_cfg.json"), "rb") as f:
+            cfgs.append(f.read())
+        with open(os.path.join(out, "exp", "train_cfg.json")) as f:
+            text = f.read().replace(out, "<root>")
+        cfg = json.loads(text)
+        cfg["data"].pop("features", None)
+        cfgs.append(cfg)
+    assert cfgs[0] == cfgs[2] and cfgs[1] == cfgs[3]
+    return n + 2
+
+
+def check_features_on_cpu(wav_out, feat_out, sets):
+    """The features tree's .npy files against the CPU fbank + CMVN (stats
+    per speaker from the CPU's own features) of the wav tree's audio:
+    (files, largest difference)."""
+    from ast_tpu_torch.ops.fbank import MfccExtractor, compute_cmvn_stats
+
+    with open(os.path.join(wav_out, "speech", "cmvn.stats"), "rb") as f:
+        utt2spk = pickle.load(f)["utt2spk"]
+    ext = MfccExtractor(device="cpu")
+    worst, n = 0.0, 0
+    for c in sets:
+        d = os.path.join(wav_out, "speech", c)
+        feats = {f[:-4]: ext(np.load(os.path.join(d, f))[None])[0].numpy()
+                 for f in sorted(os.listdir(d))}
+        by_spk = {}
+        for u, x in feats.items():
+            by_spk.setdefault(utt2spk[u], []).append(x)
+        stats = {s: compute_cmvn_stats(xs) for s, xs in by_spk.items()}
+        for u, x in feats.items():
+            s = stats[utt2spk[u]]
+            want = (x - s["mean"]) / s["std"]
+            got = np.load(os.path.join(feat_out, "speech", c, f"{u}.npy"))
+            assert got.shape == want.shape, u
+            worst = max(worst, float(np.abs(got - want).max()))
+            n += 1
+    return n, worst
+
+
+def nnet2_bnf_text(rng, d_in=13, splice=4, hidden=(1000, 1000), group=5,
+                   bnf_dim=42):
+    """A text-format nnet2 net shaped as a Kaldi BNF net: splice
+    +-``splice``, a fixed (LDA-like) affine, p-norm hidden layers with
+    Normalize, and the ``bnf_dim`` bottleneck affine."""
+    def mat(m):
+        return "[\n" + "\n".join(" ".join(f"{v:.7e}" for v in row)
+                                 for row in m) + " ]"
+
+    def vec(v):
+        return "[ " + " ".join(f"{x:.7e}" for x in v) + " ]"
+
+    ctx = " ".join(str(c) for c in range(-splice, splice + 1))
+    d = d_in * (2 * splice + 1)
+    parts = [f"<SpliceComponent> <InputDim> {d_in} <Context> [ {ctx} ] "
+             f"<ConstComponentDim> 0 </SpliceComponent>",
+             f"<FixedAffineComponent> <LinearParams> "
+             f"{mat(rng.standard_normal((d, d)) / np.sqrt(d))} <BiasParams> "
+             f"{vec(rng.standard_normal(d) * 0.1)} </FixedAffineComponent>"]
+    for h in hidden:
+        parts.append(
+            f"<AffineComponentPreconditionedOnline> <LearningRate> 0.001 "
+            f"<LinearParams> {mat(rng.standard_normal((h, d)) / np.sqrt(d))}"
+            f" <BiasParams> {vec(rng.standard_normal(h) * 0.1)} <RankIn> 20"
+            f" <RankOut> 80 </AffineComponentPreconditionedOnline>")
+        d = h // group
+        parts += [f"<PnormComponent> <InputDim> {h} <OutputDim> {d} <P> 2 "
+                  f"</PnormComponent>",
+                  f"<NormalizeComponent> <Dim> {d} <ValueAvg> [ 1 2 ] "
+                  f"<DerivAvg> [ 3 ] <Count> 5 </NormalizeComponent>"]
+    parts.append(f"<AffineComponent> <LinearParams> "
+                 f"{mat(rng.standard_normal((bnf_dim, d)) / np.sqrt(d))} "
+                 f"<BiasParams> {vec(rng.standard_normal(bnf_dim))} "
+                 f"</AffineComponent>")
+    return (f"<Nnet> <NumComponents> {len(parts)} <Components>\n"
+            + "\n".join(parts) + "\n</Components> </Nnet>\n")
+
+
+def features_busy(nn, batch, reps):
+    """Device busy ms a call of ``nn.features`` on a device batch, and the
+    busy ms a call by kernel name, largest first, from ``reps`` calls
+    under torch.profiler (after one warm-up call)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with torch.no_grad():
+        nn.features(batch)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                nn.features(batch)
+            torch.cuda.synchronize()
+    busy, _ = device_busy(prof)
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            by_name[e.name[:40]] = by_name.get(e.name[:40], 0.0) + (
+                e.time_range.end - e.time_range.start) / 1e3 / reps
+    return busy / reps, sorted(by_name.items(), key=lambda kv: -kv[1])
+
+
+def host_bytes(batch, keys):
+    return sum(np.asarray(batch[k]).nbytes for k in keys)
+
+
+def run_audio_corpus(root, smi):
+    """Phase 11: synthetic raw tapes and LDC transcripts -> prep_data
+    fisher-recipe (wav and features modes) -> checks of both trees ->
+    cli.train on audio, cli.beam, an epoch from a .pack, prep_data bnf."""
+    import torch
+
+    from ast_tpu_torch import native
+    from ast_tpu_torch.cli import beam, prep_data, train
+    from ast_tpu_torch.data import shorten as sh
+    from ast_tpu_torch.data.feature_pack import FeaturePack
+    from ast_tpu_torch.train.trainer import NN
+
+    assert not torch.backends.cuda.matmul.allow_tf32, "TF32 matmuls are on"
+    t_phase = time.perf_counter()
+    zero_counts()
+    raw = os.path.join(root, "audio_raw")
+    stream, tape, encode_s, n_utts = write_audio_corpus(raw)
+    mb = tape.nbytes / 1e6
+    t0 = time.perf_counter()
+    assert native.library() is not None, "no g++: the native readers are off"
+    build_s = time.perf_counter() - t0        # g++, unless built before
+    t0 = time.perf_counter()
+    st = sh.decode(stream)
+    native_s = time.perf_counter() - t0
+    assert np.array_equal(st.samples, sh._SIGNMAG_IN[tape])
+    head = 20 * RATE                    # the Python decoder on 20 s of it
+    t0 = time.perf_counter()
+    st_py = sh.decode(stream, max_samples=head, _force_python=True)
+    py_s = time.perf_counter() - t0
+    assert np.array_equal(st_py.samples, st.samples[:len(st_py.samples)])
+    rate_c, rate_py = mb / native_s, st_py.samples.size / 1e6 / py_s
+    print(f"audio corpus: {N_CONV} two-channel 8 kHz tapes of {CONV_S} s, "
+          f"{n_utts} utterances of 1-12 s, {AUDIO_WORDS}-word lists; tape 0 "
+          f"embedded-shorten ({len(stream) / 1e6:.2f} MB for {mb:.2f} MB of "
+          f"mu-law samples), encoded by shorten.encode in {encode_s:.2f} s "
+          f"(not in the recipe's time); the native readers' library "
+          f"{build_s:.2f} s to build and load; decode: native {rate_c:.1f} "
+          f"MB/s ({native_s:.3f} s, the whole tape), Python {rate_py:.2f} "
+          f"MB/s ({py_s:.2f} s, its first 20 s): native "
+          f"{rate_c / rate_py:.0f}x",
+          flush=True)
+
+    outs, times = {}, {}
+    for mode in ("wav", "features"):
+        out = os.path.join(root, f"audio_{mode}")
+        stages, total = run_recipe(raw, out, mode == "wav")
+        outs[mode], times[mode] = out, total
+        print(f"  prep_data fisher-recipe{' --wav' if mode == 'wav' else ''}"
+              f" --device cuda: {total:.2f} s = " + ", ".join(
+                  f"{k} {v:.2f}" for k, v in stages.items()), flush=True)
+    wav_out, feat_out = outs["wav"], outs["features"]
+    wav_exp, feat_exp = (os.path.join(o, "exp") for o in (wav_out, feat_out))
+    with open(os.path.join(wav_exp, "train_cfg.json")) as f:
+        tcfg = json.load(f)
+    sets = (tcfg["train_set"], tcfg["dev_set"])
+    with open(tcfg["data"]["info_path"], "rb") as f:
+        info = pickle.load(f)
+    with open(tcfg["data"]["vocab_path"], "rb") as f:
+        V = len(pickle.load(f)["bpe_w"]["w2i"])
+    n_files = text_side_equal(wav_out, feat_out)
+    n_feats, feat_err = check_features_on_cpu(wav_out, feat_out, sets)
+    assert feat_err <= 1e-3, f"features differ from the CPU's by {feat_err}"
+    frames = [e["sp"] for e in info[sets[0]].values()]
+    fill = {}
+    for nb in range(20, 9, -1):
+        counts_b = np.bincount(np.minimum(np.asarray(frames) // 80, nb - 1),
+                               minlength=nb)
+        used = counts_b[counts_b > 0]
+        fill[nb] = (int((used >= 8).sum()), len(used),
+                    int((np.asarray(frames) > (nb + 1) * 80).sum()))
+    print(f"  trees: {len(info[sets[0]])} train / {len(info[sets[1]])} dev "
+          f"utterances, V = {V}, max_pred {tcfg['data']['max_pred']}; the "
+          f"text side byte-equal ({n_files} files); {n_feats} feature files "
+          f"within {feat_err:.2e} of the CPU fbank + CMVN; train buckets of "
+          f"8+ utterances / used / utterances cut, by --buckets_num (width "
+          f"80): " + ", ".join(f"{k}: {a}/{b}/{c}" for k, (a, b, c) in
+                               fill.items() if k % 2 == 0)
+          + f"; every used bucket at 8+ and none cut from --buckets_num "
+          f"{min(k for k, (a, b, c) in fill.items() if a == b and not c)}",
+          flush=True)
+    for exp in (wav_exp, feat_exp):
+        _, out = quiet(prep_data.main, ["validate", exp, "--deep"])
+        assert out.rstrip().endswith("0 errors, 0 warnings"), out
+
+    # one batch: featurized on the card against the features tree's
+    from ast_tpu_torch.data.dataloader import make_dataloader
+    with open(os.path.join(feat_exp, "train_cfg.json")) as f:
+        fcfg = json.load(f)
+    nn = NN(wav_exp, "cuda")
+    wav_b = next(nn.data_loader.get_batch(B, sets[0], train=False,
+                                          labels=True, epoch=1))
+    feat_b = next(make_dataloader(fcfg, feat_exp).get_batch(
+        B, sets[0], train=False, labels=True, epoch=1))
+    assert wav_b["utts"] == feat_b["utts"]
+    assert np.array_equal(wav_b["frame_len"], feat_b["frame_len"])
+    with torch.no_grad():
+        X = nn.features(nn._device_batch(wav_b)).cpu().numpy()
+    assert X.shape == feat_b["X"].shape, (X.shape, feat_b["X"].shape)
+    real = wav_b["frame_len"][:wav_b["n_real"]]
+    batch_err = max(float(np.abs(X[j, :L] - feat_b["X"][j, :L]).max())
+                    for j, L in enumerate(real))
+    assert batch_err <= 1e-3, f"card features differ by {batch_err}"
+    print(f"  validate --deep: 0 errors, 0 warnings on both trees; a "
+          f"{wav_b['n_real']}-utterance batch featurized and normalised on "
+          f"the card within {batch_err:.2e} of the features tree's",
+          flush=True)
+
+    # the step: wav mode beside features mode, on the same utterances, in
+    # B rows (no tail shrinking) at the bucket nearest FRAMES frames
+    order = list(nn.data_loader.get_batch(B, sets[0], train=True,
+                                          labels=True, epoch=1))
+    wav_s = min(order, key=lambda b: abs(b["n_frames"] - FRAMES))
+    feat_s = next(b for b in make_dataloader(fcfg, feat_exp).get_batch(
+        B, sets[0], train=True, labels=True, epoch=1)
+        if b["utts"] == wav_s["utts"])
+    nn_f = NN(feat_exp, "cuda")
+    wav_dev, feat_dev = nn._device_batch(wav_s), nn_f._device_batch(feat_s)
+    split = step_split(nn, wav_dev, 5)
+    fbank_busy, fbank_groups = features_busy(nn, wav_dev, 10)
+    turns = [tuple(cuda_ms(lambda m=m, b=b: m.train_step(b, 0), 5)
+                   for m, b in ((nn, wav_dev), (nn_f, feat_dev)))
+             for _ in range(2)]
+    del nn, nn_f
+    wav_bytes = host_bytes(wav_s, ("audio", "cmvn_mean", "cmvn_std", "y"))
+    feat_bytes = host_bytes(feat_s, ("X", "y"))
+    print(f"  one step (B={wav_s['rows']}, {wav_s['n_real']} utterances, "
+          f"{wav_s['n_frames']} frames, U={wav_s['y'].shape[1]}; {smi}): wav "
+          f"mode {split['step']:.2f} ms = fbank + CMVN {split['features']:.3f}"
+          f" + the rest {split['step'] - split['features']:.2f}; in turns, "
+          f"wav / features mode " + ", ".join(f"{w:.2f} / {f:.2f}"
+                                                for w, f in turns)
+          + f" ms; host to device {wav_bytes / 1e6:.2f} MB a "
+          f"step (audio, CMVN rows, targets) against {feat_bytes / 1e6:.2f} "
+          f"MB (features, targets); fbank + CMVN alone, 10 calls under "
+          f"torch.profiler: device busy {fbank_busy:.3f} ms a call ("
+          + ", ".join(f"{k} {v:.3f}" for k, v in fbank_groups[:4]) + ")",
+          flush=True)
+
+    # train on audio, beam-decode, an epoch from a pack, BNF
+    zero_counts()
+    t0 = time.perf_counter()
+    _, report = quiet(train.main, ["-m", wav_exp, "-e", "2", "--device",
+                                   "cuda"])
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    rates = [float(v) for v in re.findall(
+        r"train throughput = ([0-9.]+) utts/sec", report)]
+    with open(os.path.join(wav_exp, "train.log")) as f:
+        losses = [float(line.split(", ")[1]) for line in f]
+    with open(os.path.join(wav_exp, "dev.log")) as f:
+        bleus = [line.strip() for line in f]
+    n_train = counts()
+    assert len(losses) == 2 and all(np.isfinite(losses)), losses
+    assert losses[1] < losses[0], f"the loss did not fall: {losses}"
+    assert len(bleus) == 2 and len(rates) == 2, (bleus, rates)
+    for k in ("k1t", "k2", "k3", "k4", "k1", "k5"):
+        assert n_train[k] > 0, f"training on audio never launched {k}"
+    zero_counts()
+    t0 = time.perf_counter()
+    bleu, _ = quiet(beam.main, ["-m", wav_exp, "-n", str(N_BEAM), "-k",
+                                str(K_BEAM), "-w", "0.6", "-s", sets[1],
+                                "--device", "cuda"])
+    torch.cuda.synchronize()
+    beam_s = time.perf_counter() - t0
+    n_beam = counts()
+    assert n_beam["k1"] > 0 and n_beam["k6"] > 0, n_beam
+    with open(os.path.join(wav_exp, f"{sets[1]}_beam_N-{N_BEAM}_K-{K_BEAM}"
+                           f"_W-0.60.en")) as f:
+        assert len(f.read().splitlines()) == len(info[sets[1]])
+    print(f"  cli.train -e 2 on audio ({smi}): train.log losses {losses}, "
+          f"dev.log {bleus}; train {rates} utts/s; {train_s:.1f} s; launches"
+          f" {n_train}; cli.beam -n {N_BEAM} -k {K_BEAM} on {sets[1]}: BLEU "
+          f"{bleu:.2f}, {len(info[sets[1]]) / beam_s:.1f} utts/s over the "
+          f"call, launches {n_beam}", flush=True)
+
+    speech = os.path.join(feat_out, "speech")
+    pack = os.path.join(speech, f"{sets[0]}.pack")
+    _, msg = quiet(prep_data.main, ["pack-features",
+                                    os.path.join(speech, sets[0]), pack])
+    os.rename(os.path.join(speech, sets[0]),
+              os.path.join(speech, sets[0] + ".unpacked"))
+    zero_counts()
+    with counting(FeaturePack, "get") as gets:
+        _, report = quiet(train.main, ["-m", feat_exp, "-e", "1",
+                                       "--device", "cuda"])
+    n_pack = counts()
+    with open(os.path.join(feat_exp, "train.log")) as f:
+        pack_loss = [float(line.split(", ")[1]) for line in f]
+    assert len(pack_loss) == 1 and np.isfinite(pack_loss[0]), pack_loss
+    assert gets[0] >= len(info[sets[0]]), gets[0]
+    assert n_pack["k1t"] > 0 and n_pack["k5"] > 0, n_pack
+
+    rng = np.random.default_rng(3)
+    net = os.path.join(root, "bnf.nnet2.txt")
+    with open(net, "w") as f:
+        f.write(nnet2_bnf_text(rng))
+    dev_feats = os.path.join(speech, sets[1])
+    bnf_s = {}
+    for device in ("cuda", "cpu"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        quiet(prep_data.main, ["bnf", dev_feats, os.path.join(
+            root, f"bnf_{device}"), "--model", net, "--device", device])
+        torch.cuda.synchronize()
+        bnf_s[device] = time.perf_counter() - t0
+    bnf_err, n_bnf = 0.0, 0
+    for f in os.listdir(os.path.join(root, "bnf_cpu")):
+        a = np.load(os.path.join(root, "bnf_cuda", f))
+        b = np.load(os.path.join(root, "bnf_cpu", f))
+        assert a.shape == b.shape and a.shape[1] == 42, a.shape
+        bnf_err = max(bnf_err, float(np.abs(a - b).max()))
+        n_bnf += 1
+    assert bnf_err <= 1e-4, f"BNF on the card differs by {bnf_err}"
+    wall = time.perf_counter() - t_phase
+    print(f"  {msg.strip()}; one epoch of the features tree from it: loss "
+          f"{pack_loss[0]:.4f}, {gets[0]} pack reads, launches {n_pack}; "
+          f"prep_data bnf (splice +-4, p-norm 1000 -> 200 twice, 42-dim "
+          f"bottleneck) on {n_bnf} dev files: cuda {bnf_s['cuda']:.2f} s, "
+          f"cpu {bnf_s['cpu']:.2f} s, within {bnf_err:.2e}; phase "
+          f"{wall:.1f} s", flush=True)
+    return dict(encode_s=encode_s, recipe_s=times, V=V, feat_err=feat_err,
+                batch_err=batch_err, split=split, turns=turns,
+                wav_bytes=wav_bytes, feat_bytes=feat_bytes, losses=losses,
+                utts_per_s=rates, bnf_err=bnf_err, seconds=wall,
+                launches={k: n_train[k] + n_beam[k] for k in n_train})
+
+
 # kernel-name fragments -> group, first match wins
 KERNEL_GROUPS = (("cell_bwd_kernel", "encoder cell backward"),
                  ("EncCell", "encoder cell waves"),
@@ -2384,15 +2918,16 @@ def device_busy(prof):
 
 def step_split(nn, batch, reps):
     """Mean device time (ms) of ``nn.train_step`` on ``batch`` and of the
-    parts of it that run in K1 train, K2, K3, K4 and the optimizer's
-    update, from CUDA events recorded around each (after one warm-up
-    step)."""
+    parts of it that run in K1 train, K2, K3, K4, the optimizer's update
+    and, in wav mode, the fbank + CMVN (``features``), from CUDA events
+    recorded around each (after one warm-up step)."""
     import torch
 
     from ast_tpu_torch.ops import fused_decoder as fd
     from ast_tpu_torch.ops import fused_lstm as fl
 
-    spans = {k: [] for k in ("k1t", "k2", "k3", "k4", "opt", "step")}
+    spans = {k: [] for k in ("k1t", "k2", "k3", "k4", "opt", "step",
+                             "features")}
 
     def timed(key, fn):
         def run(*args, **kw):
@@ -2411,6 +2946,8 @@ def step_split(nn, batch, reps):
     patches = [(fl, "fused_stacked_lstm_train", "k1t"),
                (fl, "encoder_backward", "k2"), (fd, "decoder_forward", "k3"),
                (fd, "decoder_backward", "k4"), (nn.opt, "update", "opt")]
+    if nn.wav_mode:
+        patches.append((nn, "features", "features"))
     saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
     nn.train_step(batch, 0)
     try:
@@ -2490,6 +3027,7 @@ def main():
         run_trainer_machinery(train["exp"], smi)
         run_serving(exp, paths, root, smi, tf32_default)
         run_transfer(root, train["exp"], smi)
+        run_audio_corpus(root, smi)
     launches.update({k: v for k, v in train_launches.items() if k != "k5"})
     units.update({k: train["steps"] for k in ("k1t", "k2", "k3", "k4")})
 

@@ -151,11 +151,12 @@ def test_detok_matches_ast_tpu(dec_key):
         "u": jax_ids_to_text(ids, lookup, dec_key).split()}
 
 
-def test_port_imports_no_jax():
+def test_port_imports_no_jax(tmp_path):
     """Importing every module of the port, and the scripts that drive it
     on the card (chip_smoke, ab_kernels, profile_decode and the port's
-    two learning scripts), loads no JAX and no module of ast_tpu."""
-    code = ("import importlib, pkgutil, sys\n"
+    two learning scripts), loads no JAX and no module of ast_tpu; nor
+    does the corpus preparation build its native library on import."""
+    code = ("import importlib, os, pkgutil, sys\n"
             "import ast_tpu_torch, ast_tpu_torch.cli.infer, "
             "ast_tpu_torch.ops.beam, ast_tpu_torch.cli.train, "
             "ast_tpu_torch.cli.beam, ast_tpu_torch.utils.profiling, "
@@ -163,6 +164,15 @@ def test_port_imports_no_jax():
             "ast_tpu_torch.eval.bleu, ast_tpu_torch.eval.wer, "
             "ast_tpu_torch.eval.metrics, ast_tpu_torch.cli.copy_params, "
             "ast_tpu_torch.train.chainer_import, ast_tpu_torch.checkpoint\n"
+            "import ast_tpu_torch.cli.prep_data, ast_tpu_torch.native, "
+            "ast_tpu_torch.data.recipe, ast_tpu_torch.data.wav_loader, "
+            "ast_tpu_torch.data.transcripts, ast_tpu_torch.data.bpe, "
+            "ast_tpu_torch.data.vocab, ast_tpu_torch.data.preprocess, "
+            "ast_tpu_torch.data.kaldi_ark, ast_tpu_torch.data.feature_pack, "
+            "ast_tpu_torch.data.validate, ast_tpu_torch.data.shorten, "
+            "ast_tpu_torch.ops.bnf, ast_tpu_torch.ops.fbank\n"
+            "from pathlib import Path\n"
+            "ast_tpu_torch.native.BUILD_DIR = Path(sys.argv[1])\n"
             "for m in pkgutil.walk_packages(ast_tpu_torch.__path__, "
             "'ast_tpu_torch.'):\n"
             "    importlib.import_module(m.name)\n"
@@ -171,9 +181,13 @@ def test_port_imports_no_jax():
             "import torch_synthetic_train, torch_transfer_ab\n"
             "bad = [m for m in sys.modules "
             "if m.split('.')[0] in ('jax', 'jaxlib', 'ast_tpu')]\n"
-            "assert not bad, bad\n")
+            "assert not bad, bad\n"
+            "assert ast_tpu_torch.native._lib is None\n"
+            "assert not os.path.exists(sys.argv[1])\n")
     env = dict(os.environ, PYTHONPATH=REPO)
-    res = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
-                         capture_output=True, text=True, timeout=120)
+    res = subprocess.run([sys.executable, "-c", code,
+                          str(tmp_path / "native_build")], cwd=REPO,
+                         env=env, capture_output=True, text=True,
+                         timeout=120)
     assert res.returncode == 0, res.stderr
 
