@@ -11,7 +11,10 @@ BLEU against the references and written to
 ``<set>_beam_N-<n>_K-<k>_W-<w>.en``.  ``--ckpt`` decodes that checkpoint
 file instead of the latest epoch's and tags both files with its name.
 On ``--device cuda`` every kernel of the path is a hand-written CUDA
-kernel; ``--device cpu`` runs their plain versions.
+kernel; ``--device cpu`` runs their plain versions.  ``--save-attn``
+pickles each hypothesis's attention history too, (hyp, score,
+history), as ``ast_tpu`` does; its frontier loop is the plain one on
+either device, as in ``ast_tpu``.
 """
 
 import argparse
@@ -36,16 +39,13 @@ def main(argv=None):
                         help="decode from this checkpoint file instead "
                              "of the latest epoch")
     parser.add_argument("--save-attn", action="store_true",
-                        help="not ported: raises NotImplementedError")
+                        help="pickle per-hypothesis attention history "
+                             "alongside (hyp, score), as the reference "
+                             "beam entries do")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda; cpu runs the "
                              "plain PyTorch versions of the kernels)")
     args = parser.parse_args(argv)
-    if args.save_attn:
-        raise NotImplementedError(
-            "--save-attn is not ported: the attention history comes from "
-            "ast_tpu's scan-path frontier loop, not from a kernel "
-            "(ROADMAP.md queue 1, scan-path variants)")
 
     cfg_path = args.cfg_path
     N, K, W = int(args.N), int(args.K), float(args.W)
@@ -67,7 +67,8 @@ def main(argv=None):
             beam = pickle.load(f)
     else:
         print("Computing beam results (batched on device)")
-        beam = nn.decode_beam_set(set_key, N=N, K=K)
+        beam = nn.decode_beam_set(set_key, N=N, K=K,
+                                  save_attn=args.save_attn)
         with open(beam_path, "wb") as f:
             pickle.dump(beam, f)
 

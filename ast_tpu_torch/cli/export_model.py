@@ -8,9 +8,9 @@ The counterpart of ``ast_tpu/cli/export_model.py``: loads the
 experiment's latest checkpoint (or ``--ckpt``) and writes the port's
 serving directory (``serving.py``): the weights once, optionally int8,
 the model config, greedy -- and with ``--beam`` beam -- entries for each
-frame count of the ladder, ``vocab.json`` and ``manifest.json``.  A model
-variant the decode kernels do not implement fails here, with the decode
-gate's message.  ``--platforms`` and ``--native-kernels`` (``ast_tpu``'s
+frame count of the ladder, ``vocab.json`` and ``manifest.json``.  Every
+model variant exports; the server decodes each as ``models.seq2seq``
+routes it.  ``--platforms`` and ``--native-kernels`` (``ast_tpu``'s
 StableHLO lowering targets) are accepted and ignored: the server runs
 the kernels whenever it runs on the card.
 """
@@ -24,7 +24,6 @@ from ast_tpu_torch.config import Config
 from ast_tpu_torch.detok import dec_i2w
 from ast_tpu_torch.models import seq2seq
 from ast_tpu_torch.ops import beam as beam_ops
-from ast_tpu_torch.ops.fused_infer import require_decode_variant
 from ast_tpu_torch.params import tree_map
 
 
@@ -85,7 +84,6 @@ def main(argv=None):
 
     cfg = Config(args.cfg_path)
     mcfg = cfg.model
-    require_decode_variant(mcfg)
     dtype = args.dtype or cfg.train["extras"].get("compute_dtype",
                                                   "float32")
     if dtype != "float32":

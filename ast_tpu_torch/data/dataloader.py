@@ -9,11 +9,15 @@ with replacement and zeroed), tail-batch shrinking, curriculum order and
 per-bucket target lengths.  Every batch of a bucket has one shape: speech
 padded to the bucket's frame width, targets ``[GO] + ids[:max_pred-2] +
 [EOS]`` padded to the bucket's target length, and the batch padded with
-all-zero / all-PAD rows.  The Fisher loader reads a split's
-``<set>.pack`` (:mod:`ast_tpu_torch.data.feature_pack`) when there is
-one; ``features: wav`` takes :class:`ast_tpu_torch.data.wav_loader.
-WavDataLoader`.  Not ported (ROADMAP.md queue 1): the device feature
-cache, text-encoder mode and grouped runs for multi-step dispatch.
+all-zero / all-PAD rows.  In text-encoder mode (``enc_key`` other than
+``"sp"``) the source is the utterance's ``enc_key`` tokens as int32 ids
+(UNK for a word the vocabulary lacks), PAD-padded to the bucket's width
+and bucketed by their count, which is the row's ``frame_len``.  The
+Fisher loader reads a split's ``<set>.pack``
+(:mod:`ast_tpu_torch.data.feature_pack`) when there is one; ``features:
+wav`` takes :class:`ast_tpu_torch.data.wav_loader.WavDataLoader`.  Not
+ported (ROADMAP.md queue 1): the device feature cache and grouped runs
+for multi-step dispatch.
 """
 
 import os
@@ -37,9 +41,6 @@ class DataLoader:
     """Shared bucketing, batching and detokenisation."""
 
     def __init__(self, data_cfg, model_dir, seed="seed"):
-        if data_cfg.get("enc_key", "sp") != "sp":
-            raise NotImplementedError(
-                "text-encoder mode is not ported (ROADMAP.md queue 1)")
         self.data_cfg = data_cfg
         self.model_dir = model_dir
         self.seed = seed
@@ -51,9 +52,13 @@ class DataLoader:
             self.vocab = pickle.load(f)
         with open(data_cfg["info_path"], "rb") as f:
             self.info = pickle.load(f)
+        # speech buckets on frame counts, text-encoder mode on source
+        # token counts
+        self.enc_key = data_cfg.get("enc_key", "sp")
+        self.text_mode = self.enc_key != "sp"
         self.buckets = prep_buckets.buckets_main(
             model_dir, data_cfg["buckets_num"], data_cfg["buckets_width"],
-            key="sp", scale=data_cfg["train_scale"], seed="haha",
+            key=self.enc_key, scale=data_cfg["train_scale"], seed="haha",
             info_dict=self.info)
         self.n_utts = {k: sum(len(b) for b in v["buckets"])
                        for k, v in self.buckets.items()}
@@ -119,7 +124,8 @@ class DataLoader:
     def get_batch(self, batch_size, set_key, train, labels=False,
                   pad_batch=True, curriculum=False, epoch=None,
                   tail_shrink=0, _skip_speech=False):
-        """Generator of batch dicts {"X": (B, T, D) f32, "y": (B, U) i32
+        """Generator of batch dicts {"X": (B, T, D) f32 (text-encoder
+        mode: (B, T) int32 ids), "y": (B, U) i32
         (with ``labels``), "utts", "n_real", "bucket", "rows",
         "frame_len"}; ``ast_tpu``'s ``get_batch`` with ``group_runs=1``
         and no index cache.  ``_skip_speech``: no ``X`` (``None``) and no
@@ -155,7 +161,15 @@ class DataLoader:
                 B = self.tail_rows(len(utts), b_size, tail_shrink)
             frame_len = np.zeros((B,), dtype=np.int32)
             X = None
-            if not _skip_speech:
+            if self.text_mode and not _skip_speech:
+                w2i = self.vocab[self.enc_key]["w2i"]
+                X = np.full((B, T), SYMBOLS.PAD_ID, dtype=np.int32)
+                for j, u in enumerate(utts):
+                    ids = [w2i.get(w, SYMBOLS.UNK_ID)
+                           for w in self.map[set_key][u][self.enc_key]][:T]
+                    X[j, :len(ids)] = ids
+                    frame_len[j] = len(ids)
+            elif not _skip_speech:
                 feats = [self._load_speech(u, set_key, max_sp)
                          for u in utts]
                 X = np.zeros((B, T, feats[0].shape[1]), dtype=np.float32)

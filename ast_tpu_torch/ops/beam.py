@@ -2,22 +2,29 @@
 
 The counterpart of ``ast_tpu/ops/beam.py``: the decoder keeps the same
 ``(hyps, scores, lengths)`` contract, with the frontier loop in the K6
-kernel (``ops/fused_infer.beam_decode_fused``), and hypotheses are
-reranked by ``score / (len - 2)^W`` on the host.
+kernel (``ops/fused_infer.beam_decode_fused``) for the variant
+``infer_variant_ok`` admits and without ``return_attn``; otherwise the
+same frontier loop (``fused_infer.beam_reference``) runs over
+``seq2seq.plain_step`` as plain PyTorch on the caller's device, as
+``ast_tpu`` runs its XLA loop.  Hypotheses are reranked by
+``score / (len - 2)^W`` on the host.
 """
 
 from ast_tpu_torch.models import seq2seq
 from ast_tpu_torch.ops.fused_infer import (
-    beam_decode_fused, require_decode_variant)
+    beam_decode_fused, beam_reference, infer_variant_ok)
 
 
-def make_beam_decoder(mcfg, N, K, stop_limit):
-    """Build ``(params, state, X, w=None) -> (hyps, scores, lengths)``;
-    ``w`` is ``seq2seq.decode_weights(params)``, made per call when not
-    given.
+def make_beam_decoder(mcfg, N, K, stop_limit, return_attn=False):
+    """Build ``(params, state, X, w=None, enc_mask=None) -> (hyps,
+    scores, lengths)``; ``w`` is ``seq2seq.decode_weights(params)``,
+    made per call when not given; ``enc_mask`` (B, T')
+    (``seq2seq.make_enc_mask``) masks the attention.
 
     hyps: (B, N, stop_limit+1) int32 token ids beginning with GO;
-    scores: (B, N) summed log-probs; lengths: (B, N) valid token counts."""
+    scores: (B, N) summed log-probs; lengths: (B, N) valid token counts.
+    ``return_attn``: also the attention history (B, N, stop_limit+1, T')
+    of each hypothesis (``fused_infer.beam_reference``)."""
     V = mcfg["rnn_config"]["dec_vocab_size"]
     if K > V:
         raise ValueError(
@@ -25,15 +32,22 @@ def make_beam_decoder(mcfg, N, K, stop_limit):
             f"({V} tokens) — at most V continuations exist per step")
     if N < 1 or K < 1:
         raise ValueError(f"beam sizes must be >= 1 (got N={N}, K={K})")
-    require_decode_variant(mcfg)
 
-    def decode(params, state, X, w=None):
+    def decode(params, state, X, w=None, enc_mask=None):
         if w is None:
             w = seq2seq.decode_weights(params)
         enc_states, dec_h0, dec_c0 = seq2seq.encode(params, state, mcfg, X,
                                                     w)
-        return beam_decode_fused(enc_states, dec_h0, dec_c0, w, N, K,
-                                 stop_limit)
+        if not return_attn and infer_variant_ok(mcfg, enc_mask):
+            return beam_decode_fused(enc_states, dec_h0, dec_c0, w, N, K,
+                                     stop_limit)
+        rows_mask = (None if enc_mask is None
+                     else enc_mask.repeat_interleave(N, dim=0))
+        return beam_reference(enc_states, dec_h0, dec_c0, w, N, K,
+                              stop_limit,
+                              step=seq2seq.plain_step(params, mcfg,
+                                                      rows_mask),
+                              return_attn=return_attn)
 
     return decode
 

@@ -52,11 +52,13 @@ _TILE_K, _TILE_N = 32, 64
 _SMEM_BYTES = 227 * 1024
 
 
-def _emb_mask(rate, seed, t, B, E, device):
+def embed_drop_mask(rate, seed, t, B, E, device):
+    """Keep-mask of step t's embedding dropout, (B, E)."""
     return drop_mask((B, E), rate, seed + 2 * t, row_axis=0, device=device)
 
 
-def _rnn_mask(rate, seed, t, l, L, B, H, device):
+def rnn_drop_mask(rate, seed, t, l, L, B, H, device):
+    """Keep-mask of step t's LSTM layer l output dropout, (B, H)."""
     return drop_mask((B, H), rate, seed + 2 * (t * L + l) + 1, row_axis=0,
                      device=device)
 
@@ -92,7 +94,8 @@ def decoder_forward_reference(enc, h0, c0, w, y_in, coins, seed, drop_emb,
             sel = y_in[t].long() if coin[t] else prev
         emb = w["embed"][sel]
         if drop_emb > 0:
-            keep = _emb_mask(drop_emb, seed, t, B, emb.shape[1], enc.device)
+            keep = embed_drop_mask(drop_emb, seed, t, B, emb.shape[1],
+                                   enc.device)
             emb = torch.where(keep, emb / (1.0 - drop_emb), 0.0)
         x = torch.cat([emb, ht], dim=-1)
         acts, xs = [], []
@@ -102,7 +105,7 @@ def decoder_forward_reference(enc, h0, c0, w, y_in, coins, seed, drop_emb,
             a, h[l], c[l] = lstm_gate_acts(z, c[l], H)
             x = h[l]
             if drop_rnn > 0:
-                keep = _rnn_mask(drop_rnn, seed, t, l, L, B, H, enc.device)
+                keep = rnn_drop_mask(drop_rnn, seed, t, l, L, B, H, enc.device)
                 x = torch.where(keep, x / (1.0 - drop_rnn), 0.0)
             acts.append(a)
             xs.append(x)
@@ -158,7 +161,7 @@ def decoder_backward_reference(res, ht, enc, c0, w, d_ht, seed, drop_emb,
         dz_t = [None] * L
         for l in reversed(range(L)):
             if drop_rnn > 0:
-                keep = _rnn_mask(drop_rnn, seed, t, l, L, B, H, enc.device)
+                keep = rnn_drop_mask(drop_rnn, seed, t, l, L, B, H, enc.device)
                 cons = torch.where(keep, cons * (1.0 / (1.0 - drop_rnn)), 0.0)
             c_prev = res["c_all"][t - 1, l] if t > 0 else c0[l]
             dz, dc[l] = lstm_gates_backward(res["acts"][t, l],
@@ -171,7 +174,7 @@ def decoder_backward_reference(res, ht, enc, c0, w, d_ht, seed, drop_emb,
         dx0 = dz_t[0] @ w["wx0"].t()
         d_emb, dht = dx0[:, :E], dx0[:, E:]
         if drop_emb > 0:
-            keep = _emb_mask(drop_emb, seed, t, B, E, enc.device)
+            keep = embed_drop_mask(drop_emb, seed, t, B, E, enc.device)
             d_emb = torch.where(keep, d_emb * (1.0 / (1.0 - drop_emb)), 0.0)
         for k, v in zip(names, (torch.stack(dz_t), d_pre, d_scores, d_cv,
                                 d_q, d_emb)):

@@ -6,7 +6,10 @@ and ``beam_decode_fused``.  A CUDA tensor runs the hand kernels
 of ``decode_step.cu``); a CPU tensor runs the
 plain versions :func:`greedy_reference` and :func:`beam_reference`,
 written from ast_tpu's XLA decode loops (``seq2seq.predict_greedy``'s
-``lax.while_loop`` and ``ops/beam.py``'s frontier loop).
+``lax.while_loop`` and ``ops/beam.py``'s frontier loop).  The same two
+loops, given ``models.seq2seq.plain_step``, are the decoders of every
+variant the kernels do not take (:func:`infer_variant_ok`), on any
+device, and ``beam_reference`` alone keeps attention histories.
 
 ``w`` is the packed decoder weight dict of
 ``models.seq2seq.pack_decoder_weights``: ast_tpu's layout without the
@@ -29,44 +32,42 @@ _DECODE_TILE = 32
 _SMEM_BYTES = 227 * 1024
 
 
-def require_decode_variant(mcfg):
-    """The one gate of the ported decode path (the counterpart of
-    ``infer_variant_ok`` plus the fused-encoder gate of ``encode``):
-    speech input, biLSTM encoder without ln / rnn_relu / linear_proj, one
-    attention head with input feeding, no blockwise attention.  Raises
-    NotImplementedError for anything else, on every device."""
+def infer_variant_ok(mcfg, enc_mask=None):
+    """Whether greedy and beam decoding run K5 / K6 (``ast_tpu``'s
+    ``infer_variant_ok``, less its TPU-only switches): one attention
+    head with input feeding, no LayerNorm, no rnn_relu, no blockwise
+    attention, no encoder mask.  For any other model both decoders run
+    ``ast_tpu``'s XLA loops as plain PyTorch on the caller's device,
+    a CUDA device included: ``ast_tpu`` has no Pallas kernel for those
+    variants either.  With ``models.seq2seq.use_fused_encoder`` and
+    ``use_fused_decoder`` these are the only places where a CUDA tensor
+    takes a plain version.  One predicate for both decoders, so they
+    cannot part on a variant."""
     rnn = mcfg["rnn_config"]
-    if not (rnn.get("bi_rnn", False) and not rnn.get("ln", False)
+    return (enc_mask is None and rnn.get("n_attn", 1) == 1
+            and rnn.get("feed_attn", True) and not rnn.get("ln", False)
             and not rnn.get("rnn_relu", False)
-            and not rnn.get("linear_proj", False)
-            and rnn.get("n_attn", 1) == 1 and rnn.get("feed_attn", True)
-            and not rnn.get("attn_block_size", 0)
-            and not rnn.get("enc_vocab_size", 0)):
-        raise NotImplementedError(
-            "ast_tpu_torch decodes only the variant its kernels implement: "
-            "speech input, bi_rnn, no ln / rnn_relu / linear_proj, "
-            "n_attn == 1, feed_attn, no attn_block_size (see ROADMAP.md, "
-            "'the variants the gate refuses')")
+            and not rnn.get("attn_block_size", 0))
 
 
-def require_train_variant(mcfg, train_cfg):
-    """The gate of the ported training path: the decode gate's variant,
-    plus the options the fused train kernels and the ported trainer
-    implement (no output dropout -- ``seq2seq.py``'s fused-decoder
-    condition --, float32, one step per dispatch, host-fed features or
-    audio).  ``train_cfg`` is ``Config(...).train``.  Raises
-    NotImplementedError for anything else, on every device, and
-    ``ast_tpu``'s ValueError for ``hbm_cache`` over audio."""
-    require_decode_variant(mcfg)
+def require_train_variant(train_cfg):
+    """The options the ported trainer refuses: bfloat16 compute,
+    several steps a dispatch, the device feature cache and narrow
+    transfer dtypes.  Every model variant trains (the routing of
+    ``models.seq2seq``).  ``train_cfg`` is ``Config(...).train``.
+    Raises NotImplementedError naming what is refused, on every device,
+    and ``ast_tpu``'s ValueError for ``hbm_cache`` over audio or text."""
     extras, data = train_cfg["extras"], train_cfg["data"]
-    if (extras.get("hbm_cache", False)
-            and data.get("features", "precomputed") == "wav"):
-        raise ValueError(
-            "extras.hbm_cache needs precomputed features "
-            "(data.features='wav' ships raw audio; the MFCC "
-            "already runs on device in that mode)")
+    if extras.get("hbm_cache", False):
+        if data.get("features", "precomputed") == "wav":
+            raise ValueError(
+                "extras.hbm_cache needs precomputed features "
+                "(data.features='wav' ships raw audio; the MFCC "
+                "already runs on device in that mode)")
+        if data.get("enc_key", "sp") != "sp":
+            raise ValueError("extras.hbm_cache: text-encoder mode "
+                             "has no feature block to cache")
     refused = [name for name, bad in (
-        ("dropout.out", mcfg["dropout"].get("out", 0) > 0),
         ("compute_dtype", extras.get("compute_dtype",
                                      "float32") != "float32"),
         ("steps_per_dispatch", int(extras.get("steps_per_dispatch", 1))
@@ -77,9 +78,9 @@ def require_train_variant(mcfg, train_cfg):
     ) if bad]
     if refused:
         raise NotImplementedError(
-            f"ast_tpu_torch trains only the variant its kernels implement; "
+            f"ast_tpu_torch does not train these options; "
             f"not ported: {', '.join(refused)} (see ROADMAP.md queue 1, "
-            f"items 1 and 2)")
+            f"the feed options and bf16)")
 
 
 # ---------------------------------------------------------------------------
@@ -88,8 +89,10 @@ def require_train_variant(mcfg, train_cfg):
 
 def decode_step_reference(w, enc_rows, h, c, ht, tok):
     """One decoder step for R rows (``seq2seq.decode_step`` in eval
-    mode).  enc_rows (R, T, H), h/c (L, R, H), ht (R, A), tok (R,).
-    Returns (logits (R, V), h, c, ht)."""
+    mode, for the variant K5 / K6 take).  enc_rows (R, T, H), h/c (L, R,
+    H), ht (R, A), tok (R,).  Returns (logits (R, V), h, c, ht, alphas
+    (R, T)) -- the contract of the ``step`` that :func:`greedy_reference`
+    and :func:`beam_reference` take."""
     L, _, H = h.shape
     x = torch.cat([w["embed"][tok], ht], dim=-1)
     new_h, new_c = [], []
@@ -99,15 +102,28 @@ def decode_step_reference(w, enc_rows, h, c, ht, tok):
         x, c_l = lstm_gates(z, c[l], H)
         new_h.append(x)
         new_c.append(c_l)
-    ht, _ = luong_attention(enc_rows, x, w["wa"], w["wa_b"], w["ctx_w"],
-                            w["ctx_b"])
+    ht, alphas = luong_attention(enc_rows, x, [(w["wa"], w["wa_b"])],
+                                 w["ctx_w"], w["ctx_b"])
     logits = ht @ w["out_w"] + w["out_b"]
-    return logits, torch.stack(new_h), torch.stack(new_c), ht
+    return logits, torch.stack(new_h), torch.stack(new_c), ht, alphas
 
 
-def greedy_reference(enc, h0, c0, w, stop_limit):
+def _plain_step(w, step):
+    """``step``, or the K5 / K6 variant's step over ``w`` (looked up at
+    call time)."""
+    if step is not None:
+        return step
+    return lambda *args: decode_step_reference(w, *args)
+
+
+def greedy_reference(enc, h0, c0, w, stop_limit, step=None):
     """Greedy decode with early exit once every row has produced EOS;
-    unvisited steps stay PAD.  Returns preds (B, stop_limit) int32."""
+    unvisited steps stay PAD (``ast_tpu``'s ``predict_greedy`` while
+    loop).  ``step``: the decoder step (see
+    :func:`decode_step_reference`; ``models.seq2seq.plain_step`` for any
+    variant), by default the one over ``w``.  Returns preds (B,
+    stop_limit) int32."""
+    step = _plain_step(w, step)
     B = enc.shape[0]
     out = torch.full((B, stop_limit), SYMBOLS.PAD_ID, dtype=torch.int32,
                      device=enc.device)
@@ -116,23 +132,24 @@ def greedy_reference(enc, h0, c0, w, stop_limit):
     fin = torch.zeros(B, dtype=torch.bool, device=enc.device)
     h, c = h0, c0
     ht = enc.new_zeros((B, w["ctx_w"].shape[1]))
-    for step in range(stop_limit):
+    for t in range(stop_limit):
         if bool(fin.all()):
             break
-        logits, h, c, ht = decode_step_reference(w, enc, h, c, ht, word)
+        logits, h, c, ht, _ = step(enc, h, c, ht, word)
         word = torch.argmax(logits, dim=-1)
-        out[:, step] = word.to(torch.int32)
+        out[:, t] = word.to(torch.int32)
         fin |= word == SYMBOLS.EOS_ID
     return out
 
 
-def greedy_follow(enc, h0, c0, w, preds):
+def greedy_follow(enc, h0, c0, w, preds, step=None):
     """The plain decoder stepped along a given greedy decode ``preds``
     (B, stop_limit), e.g. a kernel's: each row is fed its own given
-    tokens.  Returns (short (B, stop_limit): how far each given token's
-    logit falls below the step's largest, 0 for the argmax; n_run: the
-    steps a greedy decode runs on this path, after which every given
-    token must be PAD)."""
+    tokens; ``step`` as in :func:`greedy_reference`.  Returns (short (B,
+    stop_limit): how far each given token's logit falls below the step's
+    largest, 0 for the argmax; n_run: the steps a greedy decode runs on
+    this path, after which every given token must be PAD)."""
+    step_fn = _plain_step(w, step)
     B, stop_limit = preds.shape
     short = torch.zeros((B, stop_limit), device=enc.device)
     word = torch.full((B,), SYMBOLS.GO_ID, dtype=torch.long,
@@ -140,12 +157,12 @@ def greedy_follow(enc, h0, c0, w, preds):
     fin = torch.zeros(B, dtype=torch.bool, device=enc.device)
     h, c = h0, c0
     ht = enc.new_zeros((B, w["ctx_w"].shape[1]))
-    for step in range(stop_limit):
+    for t in range(stop_limit):
         if bool(fin.all()):
-            return short, step
-        logits, h, c, ht = decode_step_reference(w, enc, h, c, ht, word)
-        word = preds[:, step].long()
-        short[:, step] = (logits.amax(dim=-1)
+            return short, t
+        logits, h, c, ht, _ = step_fn(enc, h, c, ht, word)
+        word = preds[:, t].long()
+        short[:, t] = (logits.amax(dim=-1)
                           - logits.gather(1, word[:, None])[:, 0])
         fin |= word == SYMBOLS.EOS_ID
     return short, stop_limit
@@ -163,10 +180,10 @@ class _BeamState:
     decoder state of the R = B * N rows, scores, finished flags and the
     last tokens, with the plain decoder step and the candidate scores."""
 
-    def __init__(self, enc, h0, c0, w, N, K):
+    def __init__(self, enc, h0, c0, w, N, K, step=None):
         B = enc.shape[0]
         dev = enc.device
-        self.w, self.N, self.K = w, N, K
+        self.step, self.N, self.K = _plain_step(w, step), N, K
         self.enc = enc.repeat_interleave(N, dim=0)
         self.h = h0.repeat_interleave(N, dim=1)
         self.c = c0.repeat_interleave(N, dim=1)
@@ -184,9 +201,8 @@ class _BeamState:
         with the score unchanged for a finished slot -- and the N * K
         candidate scores (B, N * K))."""
         B, N = self.scores.shape
-        logits, self.h2, self.c2, self.ht2 = decode_step_reference(
-            self.w, self.enc, self.h, self.c, self.ht,
-            self.last.reshape(B * N))
+        logits, self.h2, self.c2, self.ht2, self.alphas = self.step(
+            self.enc, self.h, self.c, self.ht, self.last.reshape(B * N))
         logp = torch.log_softmax(logits, dim=-1).reshape(B, N, -1)
         top_logp, top_tok = _topk(logp, self.K)
         fin = self.finished[..., None]
@@ -212,18 +228,25 @@ class _BeamState:
         return p_fin
 
 
-def beam_reference(enc, h0, c0, w, N, K, stop_limit, trace=False):
+def beam_reference(enc, h0, c0, w, N, K, stop_limit, trace=False,
+                   step=None, return_attn=False):
     """Batched beam search (``ops/beam.py``'s frontier loop).
 
     Returns (hyps (B, N, stop_limit+1) int32 starting with GO, scores
     (B, N), lengths (B, N) int32).  With ``trace`` also returns the
     per-step chosen tokens, parent slots and validity (stop_limit, B, N)
     -- EOS, identity and 0 after the loop ends, as the kernel streams
-    them."""
-    B = enc.shape[0]
+    them.  ``step`` as in :func:`greedy_reference`.  With
+    ``return_attn`` also returns each hypothesis's attention history
+    (B, N, stop_limit+1, T): at a token's position the first head's
+    alphas of the step that produced it, gathered through the parents
+    as the tokens are; the GO position and those past the length 0."""
+    B, T = enc.shape[:2]
     dev = enc.device
     max_len = stop_limit + 1
-    st = _BeamState(enc, h0, c0, w, N, K)
+    st = _BeamState(enc, h0, c0, w, N, K, step)
+    attn = (torch.zeros((B, N, max_len, T), device=dev) if return_attn
+            else None)
     tokens = torch.full((B, N, max_len), SYMBOLS.PAD_ID, dtype=torch.int32,
                         device=dev)
     tokens[:, :, 0] = SYMBOLS.GO_ID
@@ -234,7 +257,7 @@ def beam_reference(enc, h0, c0, w, N, K, stop_limit, trace=False):
                         device=dev)
     par_tr = slot.to(torch.int32).expand(stop_limit, B, N).clone()
     val_tr = torch.zeros((stop_limit, B, N), dtype=torch.int32, device=dev)
-    for step in range(stop_limit):
+    for t in range(stop_limit):
         if bool(st.finished.all()):
             break
         _, _, top_tok, cand = st.candidates()
@@ -247,20 +270,29 @@ def beam_reference(enc, h0, c0, w, N, K, stop_limit, trace=False):
         write = (pos == p_len[..., None]) & ~p_fin[..., None]
         tokens = torch.where(write, tok[..., None].to(torch.int32), p_tokens)
         lengths = p_len + (~p_fin).to(torch.int32)
+        if return_attn:
+            sel = st.alphas.reshape(B, N, T).gather(
+                1, parent[..., None].expand(-1, -1, T))
+            p_attn = attn.gather(
+                1, parent[..., None, None].expand(-1, -1, max_len, T))
+            attn = torch.where(write[..., None], sel[:, :, None, :], p_attn)
         if trace:
-            tok_tr[step] = tok.to(torch.int32)
-            par_tr[step] = parent.to(torch.int32)
-            val_tr[step] = (~p_fin).to(torch.int32)
+            tok_tr[t] = tok.to(torch.int32)
+            par_tr[t] = parent.to(torch.int32)
+            val_tr[t] = (~p_fin).to(torch.int32)
     if trace:
         return tokens, st.scores, lengths, tok_tr, par_tr, val_tr
+    if return_attn:
+        return tokens, st.scores, lengths, attn
     return tokens, st.scores, lengths
 
 
-def beam_follow(enc, h0, c0, w, N, K, tok, par, val):
+def beam_follow(enc, h0, c0, w, N, K, tok, par, val, step=None):
     """The plain beam step along a given search's per-step streams tok,
     par (parent slot) and val (stop_limit, B, N), e.g. a kernel's: each
     step recomputes the candidates of the given frontier and holds the
-    given selection against them.
+    given selection against them; ``step`` as in
+    :func:`greedy_reference`.
 
     Returns (scores (B, N): the given hypotheses' summed log-probs under
     the plain step; topk_short (stop_limit, B): how far a chosen token's
@@ -272,41 +304,41 @@ def beam_follow(enc, h0, c0, w, N, K, tok, par, val):
     finished -- anything but EOS, the identity parent and valid 0)."""
     stop_limit, B, _ = tok.shape
     dev = enc.device
-    st = _BeamState(enc, h0, c0, w, N, K)
+    st = _BeamState(enc, h0, c0, w, N, K, step)
     slot = torch.arange(N, device=dev)
     topk_short = torch.zeros((stop_limit, B), device=dev)
     sel_err = torch.zeros((stop_limit, B), device=dev)
     bad = torch.zeros((stop_limit, B), dtype=torch.bool, device=dev)
-    for step in range(stop_limit):
+    for t in range(stop_limit):
         if bool(st.finished.all()):
-            bad[step:] = ((tok[step:] != SYMBOLS.EOS_ID) | (par[step:] != slot)
-                          | (val[step:] != 0)).any(dim=-1)
+            bad[t:] = ((tok[t:] != SYMBOLS.EOS_ID) | (par[t:] != slot)
+                       | (val[t:] != 0)).any(dim=-1)
             break
         logp, top_logp, _, cand = st.candidates()
         best = _topk(cand, N)[0]
-        parent, t, v = par[step].long(), tok[step].long(), val[step]
+        parent, tk, v = par[t].long(), tok[t].long(), val[t]
         p_fin = st.finished.gather(1, parent)
         lp = logp.gather(1, parent[..., None].expand(-1, -1, logp.shape[-1]))
-        lp = lp.gather(2, t[..., None])[..., 0]
+        lp = lp.gather(2, tk[..., None])[..., 0]
         # earlier slots holding the same parent (and the same token); a
         # frozen parent's first pick is its k = 0 candidate, later picks
         # its NEG_INF ones
         same = ((parent[:, :, None] == parent[:, None, :])
                 & (slot[:, None] > slot[None, :]))
         rank = same.sum(dim=-1)
-        twice = (same & (t[:, :, None] == t[:, None, :])).any(dim=-1)
+        twice = (same & (tk[:, :, None] == tk[:, None, :])).any(dim=-1)
         frozen_lp = torch.where(rank == 0, 0.0, NEG_INF)
         chosen = st.scores.gather(1, parent) + torch.where(p_fin, frozen_lp,
                                                            lp)
         kth = top_logp[..., -1].gather(1, parent)
-        topk_short[step] = torch.where(p_fin, 0.0, kth - lp).clamp(
+        topk_short[t] = torch.where(p_fin, 0.0, kth - lp).clamp(
             min=0).amax(dim=1)
-        sel_err[step] = (torch.sort(chosen, dim=1, descending=True).values
-                         - best).abs().amax(dim=1)
-        bad[step] = torch.where(
-            p_fin, (t != SYMBOLS.EOS_ID) | (v != 0) | (rank >= K),
+        sel_err[t] = (torch.sort(chosen, dim=1, descending=True).values
+                      - best).abs().amax(dim=1)
+        bad[t] = torch.where(
+            p_fin, (tk != SYMBOLS.EOS_ID) | (v != 0) | (rank >= K),
             (v != 1) | twice).any(dim=1)
-        st.advance(parent, t, chosen)
+        st.advance(parent, tk, chosen)
     return st.scores, topk_short, sel_err, bad
 
 

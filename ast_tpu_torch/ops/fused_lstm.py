@@ -38,7 +38,7 @@ from ast_tpu_torch.kernels import build
 from ast_tpu_torch.ops.dropout import drop_mask, drop_threshold
 from ast_tpu_torch.ops.fused_infer import put_transposed
 from ast_tpu_torch.ops.lstm import (
-    lstm_gate_acts, lstm_gates, lstm_gates_backward)
+    layernorm, lstm_gate_acts, lstm_gates, lstm_gates_backward)
 
 # the input-axis tile of the kernels' products: H must be a multiple
 ENCODER_TILE = 32
@@ -138,15 +138,30 @@ def _enc_mask(rate, seed, t, l, L, D2, B, H, device):
                      global_rows=B, device=device)
 
 
+def _transform(x, ln, l, relu):
+    """The scan encoder's output transforms of layer ``l``: LayerNorm
+    (``ln[l]`` = (g, b), each (D2, H)), then ReLU."""
+    if ln is not None:
+        g, bias = ln[l]
+        x = layernorm(x, g[:, None, :], bias[:, None, :])
+    return torch.relu(x) if relu else x
+
+
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
 
 def stacked_lstm_reference(x0_proj, wx_rest, wh, b, train=False, seed=0,
-                           rate=0.0):
+                           rate=0.0, ln=None, relu=False):
     """Plain PyTorch recurrence; same contract as
     :func:`fused_stacked_lstm` (eval) and :func:`fused_stacked_lstm_train`
-    (``train=True``: also returns acts, c_all, h_pre, x_drop)."""
+    (``train=True``: also returns acts, c_all, h_pre, x_drop).
+
+    It is also ``ast_tpu``'s scan encoder, which runs the variants K1
+    does not take: ``ln`` (one ``(g, b)`` pair of (D2, H) a layer) and
+    ``relu`` transform each layer's output after its dropout, in that
+    order, and what the layer above and ``outs`` receive is the
+    transformed output; the carried state stays the cell's own."""
     T, D2, B, H4 = x0_proj.shape
     H = H4 // 4
     L = wh.shape[0]
@@ -161,13 +176,14 @@ def stacked_lstm_reference(x0_proj, wx_rest, wh, b, train=False, seed=0,
             z = z + torch.bmm(h[l], wh[l]) + b[l][:, None, :]
             if not train:
                 h[l], c[l] = lstm_gates(z, c[l], H)
-                x = h[l]
+                x = _transform(h[l], ln, l, relu)
                 continue
             a, h[l], c[l] = lstm_gate_acts(z, c[l], H)
             x = h[l]
             if rate > 0:
                 keep = _enc_mask(rate, seed, t, l, L, D2, B, H, z.device)
                 x = torch.where(keep, x * _inv_keep(rate), 0.0)
+            x = _transform(x, ln, l, relu)
             for r, v in zip(res, (a, c[l], h[l], x)):
                 r.append(v)
         outs.append(x)

@@ -1,7 +1,9 @@
 """LSTM gate math on packed pre-activations, gate order [i, f, g, o]
-(the counterpart of ``ast_tpu/ops/lstm.py`` ``lstm_gates``), and its
+(the counterpart of ``ast_tpu/ops/lstm.py`` ``lstm_gates``), its
 backward as the fused kernels' bodies write it (``ast_tpu/ops/
-fused_lstm.py`` ``_bwd_kernel``)."""
+fused_lstm.py`` ``_bwd_kernel``), and the scan path's per-layer output
+transforms: inverted hash dropout and LayerNorm (``ast_tpu/models/
+seq2seq.py`` ``_layernorm``)."""
 
 import torch
 
@@ -34,3 +36,17 @@ def lstm_gates_backward(acts, c_new, c_prev, dh, dc_in):
 def lstm_gates(z, c, hidden):
     """z: (..., 4H) pre-activations, c: (..., H) -> (h_new, c_new)."""
     return lstm_gate_acts(z, c, hidden)[1:]
+
+
+def layernorm(x, g, b, eps=1e-6):
+    """LayerNorm over the last axis with population variance, eps 1e-6
+    (``ast_tpu``'s ``_layernorm``)."""
+    mean = x.mean(dim=-1, keepdim=True)
+    var = x.var(dim=-1, correction=0, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + eps) * g + b
+
+
+def dropout(x, keep, rate):
+    """Inverted dropout with a given keep-mask (``ops.dropout.drop_mask``):
+    kept values divided by ``1 - rate``, the others 0."""
+    return torch.where(keep, x / (1.0 - rate), 0.0)

@@ -19,7 +19,9 @@ epoch replays the same draws.  The gradients need not be bit-equal
 between runs on a GPU: the embedding gradient's ``index_add_`` and
 cuDNN's conv backward sum with atomics, in no fixed order.
 ``forward_loss`` runs the conv front-end, K1 (train), K3 and the loss,
-autograd runs K4, K2 and the weight-gradient GEMMs; the update is added
+autograd runs K4, K2 and the weight-gradient GEMMs -- or, for a model
+variant ``ast_tpu`` runs on its scan path, the plain encoder or decoder
+in their place (``models.seq2seq``'s routing); the update is added
 to the parameters in place.  Losses stay on the device until the epoch's
 end.  With ``data.features: "wav"`` a batch carries raw audio and CMVN
 statistics instead of features: every step, ``eval_loss`` and the
@@ -37,7 +39,7 @@ batches.  Either package resumes the other's snapshot.
 
 Not ported (ROADMAP.md queue 1): multi-step dispatch
 (``steps_per_dispatch``), the device feature cache, narrow transfer
-dtypes, rematerialisation, data parallelism and ``save_attn``.
+dtypes, rematerialisation and data parallelism.
 """
 
 import collections
@@ -210,7 +212,7 @@ class NN:
         self.model_dir = self.cfg.model["model_dir"]
         self.mcfg = self.cfg.model
         tcfg = self.cfg.train
-        require_train_variant(self.mcfg, tcfg)
+        require_train_variant(tcfg)
         ignored = [name for name, on in (
             ("extras.remat", tcfg["extras"].get("remat", False)),
             ("parallel", any(tcfg["parallel"].get(k, d) != d for k, d in
@@ -324,11 +326,14 @@ class NN:
         return Prefetcher(gen, lambda b: self._device_batch(b, labels),
                           depth=2 * workers, workers=workers)
 
-    def _decode_pipeline_depth(self):
+    def _decode_pipeline_depth(self, heavy_outputs=False):
         """Decode batches kept in flight before the copy to the host that
-        waits for the oldest: ``extras.decode_pipeline``, 2 when unset."""
+        waits for the oldest: ``extras.decode_pipeline``; when unset 2,
+        or 1 for ``heavy_outputs`` (beam attention histories)."""
         depth = self.cfg.train["extras"].get("decode_pipeline")
-        return 2 if depth is None else max(1, int(depth))
+        if depth is None:
+            return 1 if heavy_outputs else 2
+        return max(1, int(depth))
 
     # ------------------------------------------------------------------
     # training
@@ -466,7 +471,8 @@ class NN:
         vals = torch.stack(losses).cpu().numpy()
         return float(sum(v / s for v, s in zip(vals, sizes)) / len(vals))
 
-    def _decode_set(self, set_key, batch_size, decode, collect):
+    def _decode_set(self, set_key, batch_size, decode, collect,
+                    heavy_outputs=False):
         """Run ``decode(X)`` over a split's batches, keeping
         ``decode_pipeline`` of them in flight: the copy to the host waits
         for its batch, so ``collect(batch, output on the host)`` of one
@@ -478,7 +484,7 @@ class NN:
             batch, out = inflight.popleft()
             collect(batch, [a.cpu().numpy() for a in out])
 
-        depth = self._decode_pipeline_depth()
+        depth = self._decode_pipeline_depth(heavy_outputs)
         with torch.inference_mode():
             gen = self.data_loader.get_batch(
                 batch_size, set_key, train=False, labels=False,
@@ -491,8 +497,9 @@ class NN:
                 drain()
 
     def predict(self, set_key):
-        """Greedy-decode a split (K1 eval + K5): [(utt, ids)] with each
-        row's full ``max_pred`` ids."""
+        """Greedy-decode a split (K1 eval + K5, or their plain stages for
+        a variant): [(utt, ids)] with each row's full ``max_pred``
+        ids."""
         tcfg = self.cfg.train
         stop_limit = tcfg["data"]["max_pred"]
         preds = []
@@ -510,15 +517,21 @@ class NN:
         self._decode_set(set_key, tcfg["batch_size"], decode, collect)
         return preds
 
-    def decode_beam_set(self, set_key, N, K, batch_size=None):
-        """Beam-decode a whole split (K1 eval + K6).  Returns {utt:
-        [(hyp_ids, score)]}: N hypotheses an utterance, ids from GO up to
-        each hypothesis's length."""
+    def decode_beam_set(self, set_key, N, K, batch_size=None,
+                        save_attn=False):
+        """Beam-decode a whole split (K1 eval + K6, or their plain stages
+        for a variant).  Returns {utt: [(hyp_ids, score)]}: N hypotheses
+        an utterance, ids from GO up to each hypothesis's length; with
+        ``save_attn`` {utt: [(hyp_ids, score, attn_history)]},
+        attn_history (len, T') float32, the attention of the step that
+        produced each token (the GO row 0) -- the reference's beam
+        entries -- from the plain frontier loop."""
         tcfg = self.cfg.train
         if batch_size is None:
             batch_size = tcfg["batch_size"]
         beam = beam_ops.make_beam_decoder(
-            self.mcfg, N=N, K=K, stop_limit=tcfg["data"]["max_pred"])
+            self.mcfg, N=N, K=K, stop_limit=tcfg["data"]["max_pred"],
+            return_attn=save_attn)
         results = {}
         with torch.inference_mode():
             w = seq2seq.decode_weights(self.params)   # once for the split
@@ -527,13 +540,19 @@ class NN:
             return beam(self.params, self.state, X, w)
 
         def collect(batch, out):
-            hyps, scores, lengths = out
+            hyps, scores, lengths = out[:3]
             for j, utt in enumerate(batch["utts"]):
-                results[utt] = [
-                    (hyps[j, n, :int(lengths[j, n])].tolist(),
-                     float(scores[j, n])) for n in range(hyps.shape[1])]
+                entries = []
+                for n in range(hyps.shape[1]):
+                    n_tok = int(lengths[j, n])
+                    e = (hyps[j, n, :n_tok].tolist(), float(scores[j, n]))
+                    if save_attn:
+                        e = e + (out[3][j, n, :n_tok],)
+                    entries.append(e)
+                results[utt] = entries
 
-        self._decode_set(set_key, batch_size, decode, collect)
+        self._decode_set(set_key, batch_size, decode, collect,
+                         heavy_outputs=save_attn)
         return results
 
     def save(self, epoch):

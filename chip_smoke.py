@@ -81,8 +81,8 @@ Phases, each printing a line:
    hypotheses that begin with GO, one .en line a reference line, a BLEU
    line, K1 eval and K6 launched; --resume launches no kernel and gives
    the same BLEU and .en bytes; --ckpt of phase 6's checkpoint writes the
-   _ckpt- files with equal text; --save-attn raises by name; beam utts/s
-   over the whole call;
+   _ckpt- files with equal text; beam utts/s over the whole call
+   (--save-attn: phase 12);
 8. the trainer's machinery on the same experiment: NN.eval_loss(dev)
    through K1 eval and K3 within 1e-4 relative of the same through the
    plain versions; predict and decode_beam_set at decode_pipeline 1 and
@@ -164,13 +164,42 @@ Phases, each printing a line:
    an epoch read from the pack alone; prep_data bnf --device cuda on an
    nnet2 net shaped as a Kaldi BNF net (splice +-4, p-norm layers, a
    42-dim bottleneck) within 1e-4 of --device cpu.  PyTorch's TF32 for
-   matmuls is asserted off.
+   matmuls is asserted off;
+12. the model variants ast_tpu runs on its XLA scan path, at es_en_20h
+   width with B=8 rows of 640 frames (T' 160), U=64, decodes to 60 steps:
+   ln, rnn_relu, linear_proj, bi_rnn false, n_attn 2, feed_attn false,
+   dropout.out 0.3, attn_block_size 32, a conv stack with max_pool and
+   leaky_relu, text-encoder input, and the default beside them.  For
+   each: the routing predicates equal VARIANT_STAGES (the stages that
+   run a kernel); every kernel counter read around one train step, one
+   greedy batch and one beam 5,5 batch, above 0 for a stage routed to
+   its kernel and 0 for a plain one; the card's loss within 1e-4 and
+   every parameter's gradient within 1e-4 of max|CPU| (BWD_TOL where K2
+   or K4 is on the path) of the same call on the CPU -- or, where float32
+   itself moves a gradient further (LayerNorm, the kinks of ReLU and max
+   pooling), the same step in float64 on the card and the CPU within
+   1e-9, the training kernels' plain versions in their place; greedy tokens
+   within TOK_TOL and beams (top-K, selection, scores) held along the
+   card's own path by the plain step on the CPU; ms a train step and
+   greedy utts/s.  K1 eval, K1 train and K2 at D2 = 1 (bi_rnn false, 512
+   units) against their plain versions at B=32, T' 160 and at
+   ENC_PARTIAL's batches, as in phases 3 and 5 (masks equal, REPEATS
+   more calls bit-equal, clusters), K1 eval against one cuDNN
+   torch.nn.LSTM.  cli.train -e 2 on phase 6's data for an ln +
+   rnn_relu model (no kernel launches) and a bi_rnn false + dropout.out
+   0.3 + n_attn 2 model (K1 train / K2 / K1 eval only): falling loss,
+   two dev.log rows; cli.beam --save-attn on the second: a history (len,
+   T') a hypothesis, rows past GO summing to 1 within 1e-5, no K6;
+   export_model + cli.serve of a linear_proj model: one request's ids
+   equal to the in-process decode.
 
 Then a JSON line with each kernel's count, error and times, and last
 {"ok": true, "device": {...}}.  A kernel's count ("launches") is the
 number of calls of its wrapper while its path was driven: K1 (eval), K5
 and K6 over the greedy and beam passes of phase 4 (not the warm-up), K1
-(train), K2, K3 and K4 over phase 6's two epochs; "launches_per_unit"
+(train), K2, K3 and K4 over phase 6's two epochs, and the one-direction
+rows (k1_d1, k1t_d1, k2_d1) over phase 12's bi_rnn false experiment
+(cli.train -e 2 and cli.beam --save-attn); "launches_per_unit"
 is that count over the served batches (K1 eval, K5, K6) or the train
 steps (K1 train, K2, K3, K4) of those runs.  Each call runs the whole
 kernel -- every step and layer, many CUDA launches.  "max_abs_err" is
@@ -186,8 +215,8 @@ shapes and, for K5 / K6, the steps the timed call ran; "bound_by" says
 which ("operations" or "bytes").  "library_ms" is one PyTorch call of
 the same function where one exists: for K1 eval two cuDNN torch.nn.LSTM
 calls, one per direction stack, on the conv output (so they include the
-hoisted layer-0 GEMM), checked against K1's outputs first; null for the
-others, which no one library call computes.  Any failure raises (exit
+hoisted layer-0 GEMM), checked against K1's outputs first (one call at
+D2 = 1); null for the others, which no one library call computes.  Any failure raises (exit
 code 1, no result line); with no CUDA device it exits 2.  The script
 checks that neither JAX nor any module of ast_tpu was imported.
 """
@@ -398,7 +427,7 @@ def eos_bias(enc, h0, c0, w):
     h, c, ht = h0, c0, enc.new_zeros((nb, w["ctx_w"].shape[1]))
     gaps = []
     for _ in range(STOP):
-        logits, h, c, ht = fused_infer.decode_step_reference(
+        logits, h, c, ht, _ = fused_infer.decode_step_reference(
             w, enc, h, c, ht, word)
         word = logits.argmax(dim=-1)
         gaps.append(logits.amax(dim=-1) - logits[:, SYMBOLS.EOS_ID])
@@ -633,9 +662,11 @@ def encoder_case(params, nb, t_enc, device):
     nb, 4H) and the model's (wx_rest, wh, b)."""
     import torch
 
+    from ast_tpu_torch.models import seq2seq
     from ast_tpu_torch.ops import fused_lstm
 
-    wxr, wh, b = fused_lstm.pack_encoder_weights(params["enc"]["lstm"])
+    wxr, wh, b = fused_lstm.pack_encoder_weights(
+        seq2seq.direction_stacked(params["enc"]["lstm"]))
     _, D2, _, H4 = wh.shape
     x0 = torch.from_numpy(np.random.default_rng(1000 * nb + t_enc)
                           .standard_normal((t_enc, D2, nb, H4))
@@ -685,8 +716,8 @@ def check_encoder_partial(args):
         f"K1 disagrees at {nb} rows, T' {t_enc}, {L} layers: {err}")
     check_repeats(lambda: fused_lstm.fused_stacked_lstm(*args), got,
                   f"K1 at {nb} rows, T' {t_enc}, {L} layers")
-    print(f"K1 partial batch of {nb} rows, T' {t_enc}, {L} layers: max abs "
-          f"err "
+    print(f"K1 batch of {nb} rows, T' {t_enc}, {L} layers, {args[0].shape[1]} "
+          f"direction(s): max abs err "
           f"{err:.3e}, {REPEATS} more calls bit-equal; clusters "
           f"{encoder_clusters(nb).get('encoder cell wave')}", flush=True)
     return err
@@ -743,8 +774,8 @@ def check_encoder_train_partial(x0, wxr, wh, b):
     check_repeats(lambda: fl.encoder_backward(*bwd), dz,
                   f"K2 at {nb} rows, T' {t_enc}")
     cl = encoder_clusters(nb)
-    print(f"K1 train / K2 partial batch of {nb} rows, T' {t_enc}, {L} "
-          f"layers: K1 train "
+    print(f"K1 train / K2 batch of {nb} rows, T' {t_enc}, {L} layers, "
+          f"{x0.shape[1]} direction(s): K1 train "
           f"max abs err {err1:.3e}, mask equal; K2 dz {rel:.3e} of "
           f"max|plain|; {REPEATS} more calls of each bit-equal; clusters "
           f"{ {k: v for k, v in cl.items() if k != 'encoder cell wave'} }",
@@ -780,10 +811,11 @@ def check_partial(params, state, mcfg, w, nb, t_enc, device):
 def cudnn_pair(params, state, mcfg, X):
     """K1's yardstick: per direction stack one cuDNN torch.nn.LSTM (3
     layers, the port's weights, b_ih = its bias, b_hh = 0), and its input,
-    the conv output (the reverse stack's time-reversed).  Returns
-    (lstms, inputs)."""
+    the conv output (the reverse stack's time-reversed); one of each for
+    a unidirectional encoder.  Returns (lstms, inputs)."""
     import torch
 
+    from ast_tpu_torch.models import seq2seq
     from ast_tpu_torch.ops.cnn import conv_frontend
 
     h_cnn, _ = conv_frontend(params["cnn"], state["cnn_bn"],
@@ -793,10 +825,10 @@ def cudnn_pair(params, state, mcfg, X):
         rev = torch.cat([seq[:1], seq[1:].flip(0)])
     else:
         rev = seq.flip(0)
-    layers = params["enc"]["lstm"]
-    H = layers[0]["wh"].shape[-2]
+    layers = seq2seq.direction_stacked(params["enc"]["lstm"])
+    H, D2 = layers[0]["wh"].shape[-2], layers[0]["wh"].shape[0]
     lstms = []
-    for d in range(2):
+    for d in range(D2):
         m = torch.nn.LSTM(seq.shape[-1], H, num_layers=len(layers)).to(
             seq.device)
         with torch.no_grad():
@@ -806,12 +838,12 @@ def cudnn_pair(params, state, mcfg, X):
                 getattr(m, f"bias_ih_l{l}").copy_(p["b"][d])
                 getattr(m, f"bias_hh_l{l}").zero_()
         lstms.append(m)
-    return lstms, (seq, rev.contiguous())
+    return lstms, (seq, rev.contiguous())[:D2]
 
 
 def cudnn_pair_err(lstms, xs, k1_out):
     """Largest difference of the cuDNN pair's outputs, final h and final c
-    from K1's (outs (T, 2, B, H), h_fin, c_fin (L, 2, B, H))."""
+    from K1's (outs (T, D2, B, H), h_fin, c_fin (L, D2, B, H))."""
     err = 0.0
     for d, (m, x) in enumerate(zip(lstms, xs)):
         y, (h, c) = m(x)
@@ -1472,7 +1504,7 @@ def counts():
 
 def run_beam_cli(exp, smi):
     """Phase 7: ast_tpu_torch.cli.beam over phase 6's dev split, with
-    --resume, --ckpt and --save-attn."""
+    --resume and --ckpt."""
     import torch
 
     from ast_tpu_torch import SYMBOLS, Config
@@ -1530,15 +1562,9 @@ def run_beam_cli(exp, smi):
     bleu3, _ = quiet(beam.main, args + ["--ckpt", ckpt])
     beams3, text3 = read("_ckpt-seq2seq_2.model")
     assert text3 == text and bleu3 == bleu and list(beams3) == list(beams)
-    try:
-        quiet(beam.main, args + ["--save-attn"])
-    except NotImplementedError as e:
-        assert "--save-attn" in str(e), e
-    else:
-        raise AssertionError("--save-attn did not raise")
     print(f"  --resume: K6 launched 0 times, the same BLEU and .en bytes; "
-          f"--ckpt seq2seq_2.model.npz: the _ckpt- files with equal text; "
-          f"--save-attn raises by name", flush=True)
+          f"--ckpt seq2seq_2.model.npz: the _ckpt- files with equal text "
+          f"(--save-attn: phase 12)", flush=True)
     return dict(utts_per_s=N_DEV / dt, launches=n)
 
 
@@ -1733,7 +1759,8 @@ def http_get(url, timeout=30):
         return json.loads(r.read())
 
 
-def start_server(serving_dir, log_path, window_ms=5, ready_s=600):
+def start_server(serving_dir, log_path, window_ms=5, ready_s=600,
+                 device="cuda"):
     """ast_tpu_torch.cli.serve as a subprocess on a free port, --warmup:
     (process, base url, seconds until /healthz said ready)."""
     import socket
@@ -1747,7 +1774,8 @@ def start_server(serving_dir, log_path, window_ms=5, ready_s=600):
     proc = subprocess.Popen(
         [sys.executable, "-m", "ast_tpu_torch.cli.serve", "-d", serving_dir,
          "--port", str(port), "--warmup", "--batch-window-ms",
-         str(window_ms)], cwd=REPO, stdout=log, stderr=subprocess.STDOUT)
+         str(window_ms), "--device", device], cwd=REPO, stdout=log,
+        stderr=subprocess.STDOUT)
     log.close()
     base = f"http://127.0.0.1:{port}"
     while True:
@@ -1909,7 +1937,7 @@ def run_serving(exp, paths, root, smi, tf32_default):
             ht = enc.new_zeros((1, w["ctx_w"].shape[1]))
             word, total = SYMBOLS.GO_ID, 0.0
             for t in toks:
-                logits, h, c, ht = fused_infer.decode_step_reference(
+                logits, h, c, ht, _ = fused_infer.decode_step_reference(
                     w, enc, h, c, ht, torch.tensor([word], device=device))
                 total += float(torch.log_softmax(logits, -1)[0, t])
                 word = t
@@ -2856,6 +2884,563 @@ def run_audio_corpus(root, smi):
                 launches={k: n_train[k] + n_beam[k] for k in n_train})
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the model variants, each stage routed as ast_tpu routes it
+# ---------------------------------------------------------------------------
+
+# phase 12's batch: B=8 rows (32 would not fit the phase's budget with the
+# plain stages' launches), FRAMES frames, decodes to PARTIAL_STOP steps
+VARIANT_ROWS = 8
+# the variants, each an edit of es_en_20h's model_cfg, with the stages
+# that run a kernel (the routing table: "enc" K1 / K2, "dec" K3 / K4,
+# "infer" K5 / K6; the rest plain PyTorch on the card, as ast_tpu runs
+# them on XLA)
+VARIANT_STAGES = {
+    "ln": set(), "rnn_relu": set(), "linear_proj": {"dec", "infer"},
+    "bi_rnn false": {"enc", "dec", "infer"}, "n_attn 2": {"enc"},
+    "feed_attn false": {"enc"}, "dropout.out 0.3": {"enc", "infer"},
+    "attn_block_size 32": {"enc"},
+    "max_pool + leaky_relu": {"enc", "dec", "infer"},
+    "text input": {"enc", "dec", "infer"},
+}
+# the kernels of each stage, in train steps and in decodes
+STAGE_KERNELS = {"enc": ("k1t", "k2"), "dec": ("k3", "k4")}
+
+
+def variant_cfg(mcfg, name):
+    """es_en_20h's ``mcfg`` with variant ``name``'s edit."""
+    import copy
+
+    m = copy.deepcopy(mcfg)
+    rnn, layers = m["rnn_config"], m["cnn_config"]["cnn_layers"]
+    if name in ("ln", "rnn_relu", "linear_proj"):
+        rnn[name] = True
+    elif name == "bi_rnn false":
+        rnn["bi_rnn"] = False
+    elif name == "n_attn 2":
+        rnn["n_attn"] = 2
+    elif name == "feed_attn false":
+        rnn["feed_attn"] = False
+    elif name == "dropout.out 0.3":
+        m["dropout"]["out"] = 0.3
+    elif name == "attn_block_size 32":
+        rnn["attn_block_size"] = 32
+    elif name == "max_pool + leaky_relu":
+        # layer 0 pools by 2 after its stride 2, layer 1 keeps the length:
+        # the same T' = T / 4
+        layers[0].update(max_pool=[3, 2], leaky_relu=True)
+        layers[1].update(stride=[1, 1], leaky_relu=True)
+    elif name == "text input":
+        E = rnn["embedding_units"]
+        rnn["enc_vocab_size"] = rnn["dec_vocab_size"]
+        layers[0].update(ksize=[layers[0]["ksize"][0], E], stride=[
+            layers[0]["stride"][0], E])
+    elif name != "default":
+        raise KeyError(name)
+    return m
+
+
+def check_launched(what, n, want):
+    """The kernels with a count above 0 in ``n`` are exactly ``want``."""
+    got = {k for k, v in n.items() if v > 0}
+    assert got == set(want), (f"{what}: launched {sorted(got)}, routed "
+                              f"{sorted(want)}")
+
+
+def check_routing(what, stages, n, kinds):
+    """The counts ``n`` of one train step (``kinds`` "train") or decode
+    ("greedy", "beam") against the stages routed to a kernel: a stage's
+    kernels above 0 when routed to one, 0 when plain; the other kernels
+    0."""
+    want = set()
+    if kinds == "train":
+        for stage, keys in STAGE_KERNELS.items():
+            if stage in stages:
+                want.update(keys)
+    else:
+        if "enc" in stages:
+            want.add("k1")
+        if "infer" in stages:
+            want.add("k5" if kinds == "greedy" else "k6")
+    check_launched(what, n, want)
+
+
+def variant_step(params, state, mcfg, X, y, draws):
+    """One train step's loss and parameter gradients (forward_loss and
+    autograd, as NN.train_step)."""
+    import torch
+
+    from ast_tpu_torch.models import seq2seq
+    from ast_tpu_torch.train.optimizer import tree_leaves
+
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss, _ = seq2seq.forward_loss(params, state, mcfg, X, y,
+                                   float(X.shape[0]), draws)
+    return loss.detach(), torch.autograd.grad(loss, leaves)
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The training kernels' wrappers (K1 train, K2, K3, K4) replaced by
+    their plain versions on every device, inside the block."""
+    from ast_tpu_torch.ops import fused_decoder as fd
+    from ast_tpu_torch.ops import fused_lstm as fl
+
+    def k1t(x0, wxr, wh, b, seed, rate):
+        return fl.stacked_lstm_reference(x0, wxr, wh, b, True, seed, rate)
+
+    patches = ((fl, "fused_stacked_lstm_train", k1t),
+               (fl, "encoder_backward", fl.encoder_backward_reference),
+               (fd, "decoder_forward", fd.decoder_forward_reference),
+               (fd, "decoder_backward", fd.decoder_backward_reference))
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    try:
+        for mod, name, fn in patches:
+            setattr(mod, name, fn)
+        yield
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+
+
+def grad_errs(got, want):
+    """Each gradient leaf's max |got - want| over the larger of its own
+    max |want| and 1e-3 of the largest leaf's: a leaf whose gradient is
+    zero but for rounding (a bias ahead of batch-statistics BN) is held
+    at that floor."""
+    floor = 1e-3 * max(float(w.abs().max()) for w in want)
+    return [float((g.to(w) - w).abs().max()) / max(float(w.abs().max()),
+                                                    floor)
+            for g, w in zip(got, want)]
+
+
+def variant_step_f64(params, state, mcfg, X, y, draws):
+    """The gradients of :func:`variant_step` in float64, on the device of
+    ``params`` (plain stages only: the kernels are float32)."""
+    import dataclasses
+
+    import torch
+
+    from ast_tpu_torch.params import tree_map
+
+    p64, s64 = (tree_map(lambda t: t.detach().double(), tree)
+                for tree in (params, state))
+    d64 = dataclasses.replace(
+        draws, noise=None if draws.noise is None else draws.noise.double())
+    torch.set_default_dtype(torch.float64)
+    try:
+        return variant_step(p64, s64, mcfg,
+                            X.double() if X.is_floating_point() else X, y,
+                            d64)[1]
+    finally:
+        torch.set_default_dtype(torch.float32)
+
+
+def variant_inputs(mcfg, device, seed=12):
+    """Phase 12's seeded batch: VARIANT_ROWS x FRAMES features (token ids
+    for text input), U_TRAIN targets, and the step's draws (dropout at
+    es_en_20h's rates, speech noise, every step teacher-forced so the
+    card and the CPU feed the same tokens), on the CPU."""
+    import torch
+
+    from ast_tpu_torch import SYMBOLS
+    from ast_tpu_torch.models import seq2seq
+
+    rng = np.random.default_rng(seed)
+    nb = VARIANT_ROWS
+    if mcfg["rnn_config"].get("enc_vocab_size", 0):
+        X = torch.from_numpy(rng.integers(
+            SYMBOLS.N_SPECIAL, mcfg["rnn_config"]["enc_vocab_size"],
+            (nb, FRAMES)).astype(np.int32))
+    else:
+        X = torch.from_numpy(rng.standard_normal((nb, FRAMES, 13)).astype(
+            np.float32))
+    V = mcfg["rnn_config"]["dec_vocab_size"]
+    y = np.full((nb, U_TRAIN), SYMBOLS.PAD_ID, np.int64)
+    for r in range(nb):
+        n = int(rng.integers(5, U_TRAIN - 1))
+        y[r, 0] = SYMBOLS.GO_ID
+        y[r, 1:n] = rng.integers(SYMBOLS.N_SPECIAL, V, n - 1)
+        y[r, n] = SYMBOLS.EOS_ID
+    draws = seq2seq.make_draws(seed, X, U_TRAIN - 1, 1.0, NOISE)
+    return X, torch.from_numpy(y), draws
+
+
+def draws_on(draws, device):
+    import dataclasses
+
+    return dataclasses.replace(
+        draws, coins=draws.coins.to(device),
+        noise=None if draws.noise is None else draws.noise.to(device))
+
+
+def run_variant(name, base, device, smi):
+    """Phase 12 for one variant: the routing of one train step, one
+    greedy batch and one beam 5,5 batch read from the kernel counters;
+    the card's loss and gradients against the same call on the CPU; the
+    card's greedy tokens and beams held along their own path by the
+    plain step on the CPU; ms a train step and greedy utts/s.  Returns
+    (ms a step, greedy utts/s)."""
+    import torch
+
+    from ast_tpu_torch import SYMBOLS
+    from ast_tpu_torch.models import seq2seq
+    from ast_tpu_torch.ops import beam as beam_ops
+    from ast_tpu_torch.ops import fused_infer
+    from ast_tpu_torch.params import tree_map
+
+    mcfg = variant_cfg(base, name)
+    stages = VARIANT_STAGES.get(name, {"enc", "dec", "infer"})
+    got_stages = {s for s, on in (
+        ("enc", seq2seq.use_fused_encoder(mcfg)),
+        ("dec", seq2seq.use_fused_decoder(mcfg)),
+        ("infer", fused_infer.infer_variant_ok(mcfg))) if on}
+    assert got_stages == stages, (name, got_stages, stages)
+    cpu = torch.device("cpu")
+    params, state = seq2seq.init_model(mcfg, seed=0, device=device)
+    p_cpu, s_cpu = (tree_map(lambda t: t.detach().to(cpu), tree)
+                    for tree in (params, state))
+    X, y, draws = variant_inputs(mcfg, device)
+    Xd, yd, dd = X.to(device), y.to(device), draws_on(draws, device)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    zero_counts()
+    loss, grads = variant_step(params, state, mcfg, Xd, yd, dd)
+    sync()
+    check_routing(f"{name}: train step", stages, counts(), "train")
+    t0 = time.perf_counter()
+    variant_step(params, state, mcfg, Xd, yd, dd)
+    sync()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    loss_c, grads_c = variant_step(p_cpu, s_cpu, mcfg, X, y, draws)
+    loss_rel = abs(loss.item() - loss_c.item()) / abs(loss_c.item())
+    # every gradient crosses plain stages only (1e-4), or also K2 / K4,
+    # whose bound against their plain versions is BWD_TOL
+    tol = 1e-4 if not stages & {"enc", "dec"} else BWD_TOL
+    names = leaf_names(params)
+    worst = max(zip(grad_errs(grads, grads_c), names))
+    assert loss_rel <= 1e-4, f"{name}: the card's loss is {loss_rel} apart"
+    note = ""
+    if worst[0] > tol:
+        # the float32 gradients of LayerNorm and of the kinks of ReLU and
+        # max pooling move by more than the bound under a change of
+        # summation order (the CPU's own float32 ones against float64
+        # too): the model then runs the same step in float64 on both
+        # devices -- the training kernels' plain versions in the kernels'
+        # place, the kernels being float32 and held to those versions in
+        # phases 5 and 12 -- and the two must agree
+        with plain_kernels():
+            g64 = variant_step_f64(params, state, mcfg, Xd, yd, dd)
+        c64 = variant_step_f64(p_cpu, s_cpu, mcfg, X, y, draws)
+        f64 = max(grad_errs(g64, c64))
+        spread = [max(grad_errs(f32, ref))
+                  for f32, ref in ((grads, g64), (grads_c, c64))]
+        assert f64 <= 1e-9, f"{name}: float64 gradients {f64:.3e} apart"
+        note = (f"; float32 itself moves these gradients by {spread[0]:.2e}"
+                f" on the card and {spread[1]:.2e} on the CPU (each against "
+                f"its float64 step), and in float64 the card's equal the "
+                f"CPU's within {f64:.2e}")
+    with torch.inference_mode():
+        w = seq2seq.decode_weights(params)
+        zero_counts()
+        preds, n_steps = seq2seq.predict_greedy(params, state, mcfg, Xd,
+                                                PARTIAL_STOP, w)
+        sync()
+        check_routing(f"{name}: greedy batch", stages, counts(), "greedy")
+        t0 = time.perf_counter()
+        seq2seq.predict_greedy(params, state, mcfg, Xd, PARTIAL_STOP, w)
+        sync()
+        greedy_rate = X.shape[0] / (time.perf_counter() - t0)
+        zero_counts()
+        beam_ops.make_beam_decoder(mcfg, N_BEAM, K_BEAM, PARTIAL_STOP)(
+            params, state, Xd, w)
+        sync()
+        check_routing(f"{name}: beam batch", stages, counts(), "beam")
+        # the beam's per-step streams along the card's own path
+        enc, h0, c0 = seq2seq.encode(params, state, mcfg, Xd, w)
+        if "infer" in stages:
+            tok, par, val, scores = fused_infer.beam_search_streams(
+                enc, h0, c0, w, N_BEAM, K_BEAM, PARTIAL_STOP)
+        else:
+            out = fused_infer.beam_reference(
+                enc, h0, c0, w, N_BEAM, K_BEAM, PARTIAL_STOP, trace=True,
+                step=seq2seq.plain_step(params, mcfg))
+            scores, tok, par, val = out[1], out[3], out[4], out[5]
+
+        w_c = seq2seq.decode_weights(p_cpu)
+        enc, h0, c0 = seq2seq.encode(p_cpu, s_cpu, mcfg, X, w_c)
+        step = seq2seq.plain_step(p_cpu, mcfg)
+        short, n_run = fused_infer.greedy_follow(enc, h0, c0, w_c,
+                                                 preds.cpu(), step)
+        pad_ok = bool((preds[:, n_run:] == SYMBOLS.PAD_ID).all())
+        f_scores, topk_short, sel_err, bad = fused_infer.beam_follow(
+            enc, h0, c0, w_c, N_BEAM, K_BEAM, tok.cpu(), par.cpu(),
+            val.cpu(), step)
+        score_err = float((f_scores - scores.cpu()).abs().max())
+    assert float(short.max()) <= TOK_TOL and pad_ok and n_run == int(
+        n_steps), (f"{name}: the greedy tokens disagree with the plain step: "
+                   f"{float(short.max())}, PAD {pad_ok}")
+    assert (float(topk_short.max()) <= TOK_TOL
+            and float(sel_err.max()) <= SCORE_TOL and not bool(bad.any())
+            and score_err <= SCORE_TOL), (
+        f"{name}: the beam disagrees with the plain step")
+    print(f"  {name}: kernels at {sorted(stages) or 'no stage'}; train "
+          f"step loss {loss.item():.4f} ({loss_rel:.2e} from the CPU's), "
+          f"worst gradient {worst[1]} {worst[0]:.2e} of max|CPU| (tol "
+          f"{tol}{note}); greedy {int(n_steps)} steps, every token within "
+          f"{float(short.max()):.2e} of the CPU step's best logit; beam "
+          f"top-K {float(topk_short.max()):.2e}, selection "
+          f"{float(sel_err.max()):.2e}, score {score_err:.2e}; "
+          f"{step_ms:.1f} ms a train step, greedy {greedy_rate:.1f} utts/s "
+          f"({smi})", flush=True)
+    return step_ms, greedy_rate
+
+
+def unidirectional_case(params, state, mcfg, nb, device):
+    """(x0_proj, wx_rest, wh, b) of a bi_rnn: false encoder (D2 = 1) on
+    ``nb`` rows of seeded features, from the model's own front-end."""
+    import torch
+
+    from ast_tpu_torch.models import seq2seq
+
+    X = torch.from_numpy(np.random.default_rng(21).standard_normal(
+        (nb, FRAMES, 13)).astype(np.float32)).to(device)
+    return seq2seq.encoder_inputs(params, state, mcfg, X)
+
+
+def check_unidirectional_kernels(mcfg, device):
+    """K1 eval, K1 train and K2 at D2 = 1 (bi_rnn: false, 512 units at
+    es_en_20h width) against their plain versions: at B rows and T' =
+    FRAMES / 4 within ENC_TOL (K2 BWD_TOL of max|plain|), masks equal to
+    the hash's, REPEATS more calls bit-equal, again at ENC_PARTIAL's
+    batches; the times, and for K1 eval one cuDNN torch.nn.LSTM of the
+    same stack.  Returns the three kernels' numbers."""
+    import torch
+
+    from ast_tpu_torch.models import seq2seq
+    from ast_tpu_torch.ops import fused_lstm as fl
+
+    params, state = seq2seq.init_model(mcfg, seed=0, device=device)
+    with torch.no_grad():
+        args = unidirectional_case(params, state, mcfg, B, device)
+        T_enc, D2, _, H4 = args[0].shape
+        assert D2 == 1 and H4 == 4 * mcfg["rnn_config"]["hidden_units"]
+        err = check_encoder_partial(args)
+        X = torch.from_numpy(np.random.default_rng(21).standard_normal(
+            (B, FRAMES, 13)).astype(np.float32)).to(device)
+        lstms, xs = cudnn_pair(params, state, mcfg, X)
+        lib_err = cudnn_pair_err(lstms, xs, fl.fused_stacked_lstm(*args))
+        print(f"  cuDNN torch.nn.LSTM of the same stack from the conv "
+              f"output: max abs err {lib_err:.3e} against K1 at D2 = 1",
+              flush=True)
+        assert lib_err <= ENC_TOL, "the cuDNN LSTM computes another function"
+        err1, err2 = check_encoder_train_partial(*args[:4])
+        for nb, t_enc in ENC_PARTIAL:
+            case = encoder_case(params, nb, t_enc, device)
+            err = max(err, check_encoder_partial(case))
+            e1, e2 = check_encoder_train_partial(*case)
+            err1, err2 = max(err1, e1), max(err2, e2)
+        dims = dict(T=T_enc, D2=1, B=B, H=H4 // 4, L=args[2].shape[0])
+        seed = ENC_SEED
+        targs = args[:4] + (seed, DROP)
+        got = fl.fused_stacked_lstm_train(*targs)
+        rng = np.random.default_rng(17)
+        cot = [torch.from_numpy(rng.standard_normal(tuple(t.shape)).astype(
+            np.float32) * 0.1).to(device) for t in got[:3]]
+        bwd = (got[3], got[4], args[1], args[2], *cot, seed, DROP)
+        return {
+            "k1_d1": dict(
+                max_abs_err=err, dims=dims,
+                ms=cuda_ms(lambda: fl.fused_stacked_lstm(*args), 5),
+                plain_ms=cuda_ms(lambda: fl.stacked_lstm_reference(*args), 2),
+                library_ms=cuda_ms(lambda: [m(x) for m, x in zip(lstms, xs)],
+                                   5)),
+            "k1t_d1": dict(
+                max_abs_err=err1, dims=dims,
+                ms=cuda_ms(lambda: fl.fused_stacked_lstm_train(*targs), 5),
+                plain_ms=cuda_ms(lambda: fl.stacked_lstm_reference(
+                    *args[:4], True, seed, DROP), 2)),
+            "k2_d1": dict(
+                max_abs_err=err2, dims=dims,
+                ms=cuda_ms(lambda: fl.encoder_backward(*bwd), 5),
+                plain_ms=cuda_ms(lambda: fl.encoder_backward_reference(*bwd),
+                                 2)),
+        }
+
+
+def variant_experiment(root, train_exp, name, edits):
+    """An experiment over phase 6's data with es_en_20h's train_cfg and
+    its model_cfg under ``edits`` (variant names)."""
+    from ast_tpu_torch import Config
+
+    exp = os.path.join(root, name)
+    os.makedirs(exp)
+    es_en = os.path.join(REPO, "experiments", "es_en_20h")
+    with open(os.path.join(es_en, "train_cfg.json")) as f:
+        tcfg = json.load(f)
+    tcfg["data"].update({k: Config(train_exp).train["data"][k] for k in (
+        "speech_path", "map_path", "vocab_path", "info_path", "refs_path")})
+    with open(os.path.join(exp, "train_cfg.json"), "w") as f:
+        json.dump(tcfg, f)
+    with open(os.path.join(es_en, "model_cfg.json")) as f:
+        mcfg = json.load(f)
+    for e in edits:
+        mcfg = variant_cfg(mcfg, e)
+    with open(os.path.join(exp, "model_cfg.json"), "w") as f:
+        json.dump(mcfg, f)
+    return exp
+
+
+def train_variant_cli(exp, smi, device):
+    """cli.train -e 2 on a variant experiment: two falling train.log
+    rows, two dev.log rows; the launch counts."""
+    from ast_tpu_torch.cli import train
+
+    zero_counts()
+    t0 = time.perf_counter()
+    quiet(train.main, ["-m", exp, "-e", "2", "--device", device])
+    dt = time.perf_counter() - t0
+    n = counts()
+    with open(os.path.join(exp, "train.log")) as f:
+        losses = [float(line.split(", ")[1]) for line in f]
+    with open(os.path.join(exp, "dev.log")) as f:
+        bleus = [line.strip() for line in f]
+    assert len(losses) == 2 and all(np.isfinite(losses)), losses
+    assert losses[1] < losses[0], f"{exp}: the loss did not fall: {losses}"
+    assert len(bleus) == 2, bleus
+    print(f"  cli.train -e 2 on {os.path.basename(exp)} ({N_TRAIN} train / "
+          f"{N_DEV} dev utts, {dt:.1f} s, {smi}): train.log {losses}, "
+          f"dev.log {bleus}; launches {n}", flush=True)
+    return n
+
+
+def run_variants(root, train_exp, smi, device="cuda"):
+    """Phase 12: the model variants ast_tpu runs on its scan path, at
+    es_en_20h width (es_en_20h's model_cfg from ``train_exp``): per
+    variant run_variant; K1 eval, K1 train and K2 at D2 = 1 against their
+    plain versions; cli.train -e 2 on two variant experiments over phase
+    6's data, cli.beam --save-attn, and export + serve of a linear_proj
+    model.  Returns (the D2 = 1 kernels' numbers, their launches on the
+    variant experiments' main path, the train steps and decoded batches
+    they ran in)."""
+    import torch
+
+    from ast_tpu_torch import SYMBOLS, Config
+    from ast_tpu_torch.checkpoint import save_checkpoint
+    from ast_tpu_torch.cli import beam, export_model
+    from ast_tpu_torch.models import seq2seq
+    from ast_tpu_torch.train.trainer import NN, to_numpy
+
+    t_phase = time.perf_counter()
+    dev_name, device = device, torch.device(device)
+    base = Config(train_exp).model
+    print(f"phase 12: the model variants at es_en_20h width, B="
+          f"{VARIANT_ROWS} rows of {FRAMES} frames (T' {FRAMES // 4}), "
+          f"U={U_TRAIN}, decodes to {PARTIAL_STOP} steps ({smi})", flush=True)
+    timing = {"default": run_variant("default", base, device, smi)}
+    for name in VARIANT_STAGES:
+        timing[name] = run_variant(name, base, device, smi)
+    results = check_unidirectional_kernels(
+        variant_cfg(base, "bi_rnn false"), device)
+
+    plain_exp = variant_experiment(root, train_exp, "variant_ln_relu",
+                                   ("ln", "rnn_relu"))
+    n = train_variant_cli(plain_exp, smi, dev_name)
+    check_launched("cli.train, ln + rnn_relu", n, ())
+    mixed = variant_experiment(root, train_exp, "variant_uni_out_heads",
+                               ("bi_rnn false", "dropout.out 0.3",
+                                "n_attn 2"))
+    # every decoded batch is encoded once (its K1 eval launch)
+    with counting(NN, "train_step") as steps, \
+            counting(seq2seq, "encode") as dev_batches:
+        n = train_variant_cli(mixed, smi, dev_name)
+    check_launched("cli.train, bi_rnn false + dropout.out + n_attn 2", n,
+                   ("k1t", "k2", "k1"))
+    launches = {"k1t_d1": n["k1t"], "k2_d1": n["k2"], "k1_d1": n["k1"]}
+    units = {"k1t_d1": steps[0], "k2_d1": steps[0]}
+
+    dev = Config(mixed).train["dev_set"]
+    zero_counts()
+    with counting(seq2seq, "encode") as beam_batches:
+        quiet(beam.main, ["-m", mixed, "-n", str(N_BEAM), "-k", str(K_BEAM),
+                          "-w", "0.6", "-s", dev, "--save-attn", "--device",
+                          dev_name])
+    n = counts()
+    check_launched("cli.beam --save-attn", n, ("k1",))
+    launches["k1_d1"] += n["k1"]
+    with open(os.path.join(mixed, f"{dev}_beam_N-{N_BEAM}_K-{K_BEAM}.p"),
+              "rb") as f:
+        beams = pickle.load(f)
+    assert len(beams) == N_DEV
+    worst = 0.0
+    for utt, entries in beams.items():
+        assert len(entries) == N_BEAM, utt
+        for ids, score, attn in entries:
+            assert ids[0] == SYMBOLS.GO_ID and np.isfinite(score), utt
+            assert attn.ndim == 2 and attn.shape[0] == len(ids), attn.shape
+            assert not attn[0].any(), "the GO row holds attention"
+            worst = max(worst, float(np.abs(attn[1:].sum(axis=1) - 1).max()))
+    assert worst <= 1e-5, f"an attention row sums to 1 +- {worst}"
+    print(f"  cli.beam --save-attn on {os.path.basename(mixed)}: {N_DEV} "
+          f"utterances x {N_BEAM} hypotheses, each with its history (len, "
+          f"T'), the GO row 0 and every other row summing to 1 within "
+          f"{worst:.2e}; launches K1 eval {n['k1']}, K6 {n['k6']}",
+          flush=True)
+    units["k1_d1"] = dev_batches[0] + beam_batches[0]
+
+    proj_exp = variant_experiment(root, train_exp, "variant_linear_proj",
+                                  ("linear_proj",))
+    mcfg = Config(proj_exp).model
+    params, state = seq2seq.init_model(mcfg, seed=3, device=device)
+    save_checkpoint(os.path.join(proj_exp, "seq2seq_1.model.npz"),
+                    to_numpy(params), to_numpy(state))
+    serving_dir = os.path.join(root, "serving_linear_proj")
+    quiet(export_model.main, ["-m", proj_exp, "-o", serving_dir, "--batch",
+                              str(VARIANT_ROWS), "--frames", str(FRAMES)])
+    speech = Config(proj_exp).train["data"]["speech_path"]
+    x = next(a for a in (np.load(os.path.join(speech, dev, f))
+                         for f in sorted(os.listdir(os.path.join(speech,
+                                                                 dev))))
+             if len(a) <= FRAMES)
+    X = np.zeros((1, FRAMES, 13), np.float32)
+    X[0, :len(x)] = x
+    with open(os.path.join(serving_dir, "manifest.json")) as f:
+        stop = int(json.load(f)["stop_limit"])
+    with torch.inference_mode():
+        pred = seq2seq.predict_greedy(params, state, mcfg,
+                                      torch.from_numpy(X).to(device),
+                                      stop)[0][0].cpu().numpy()
+    eos = np.nonzero(pred == SYMBOLS.EOS_ID)[0]
+    want = (pred[:eos[0]] if eos.size else pred).tolist()
+    proc, base_url, warm_s = start_server(
+        serving_dir, os.path.join(root, "serve_linear_proj.log"),
+        device=dev_name)
+    try:
+        before = http_get(base_url + "/stats")["kernel_launches"]
+        status, reply = http_post(base_url + "/decode?mode=greedy", x)
+        after = http_get(base_url + "/stats")["kernel_launches"]
+    finally:
+        rc = stop_server(proc)
+    assert status == 200 and reply["ids"] == want, (status, reply, want)
+    check_launched("cli.serve, linear_proj", {
+        k: after[k] - before[k] for k in KERNEL_KEYS}, ("k5",))
+    assert rc == 0, rc
+    print(f"  export_model + cli.serve of a linear_proj model: ready after "
+          f"{warm_s:.1f} s; one greedy request's ids equal the in-process "
+          f"decode ({len(want)} tokens), the server launched K5 and no K1 "
+          f"(its encoder is plain)", flush=True)
+    print(f"  ms a train step | greedy utts/s, B={VARIANT_ROWS} ({smi}): "
+          + "; ".join(f"{k} {v[0]:.1f} | {v[1]:.1f}"
+                      for k, v in timing.items()), flush=True)
+    print(f"phase 12: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return results, launches, units
+
+
 # kernel-name fragments -> group, first match wins
 KERNEL_GROUPS = (("cell_bwd_kernel", "encoder cell backward"),
                  ("EncCell", "encoder cell waves"),
@@ -3028,8 +3613,12 @@ def main():
         run_serving(exp, paths, root, smi, tf32_default)
         run_transfer(root, train["exp"], smi)
         run_audio_corpus(root, smi)
+        d1, d1_launches, d1_units = run_variants(root, train["exp"], smi)
     launches.update({k: v for k, v in train_launches.items() if k != "k5"})
     units.update({k: train["steps"] for k in ("k1t", "k2", "k3", "k4")})
+    results.update(d1)
+    launches.update(d1_launches)
+    units.update(d1_units)
 
     meta = {
         "k1": ("K1 fused biLSTM encoder", "k1_encoder.cu",
@@ -3046,11 +3635,17 @@ def main():
                "ast_tpu/ops/fused_infer.py:251"),
         "k6": ("K6 fused beam decode", "k6_beam.cu",
                "ast_tpu/ops/fused_infer.py:537"),
+        "k1_d1": ("K1 fused LSTM encoder, one direction (bi_rnn: false)",
+                  "k1_encoder.cu", "ast_tpu/ops/fused_lstm.py:275"),
+        "k1t_d1": ("K1 fused LSTM encoder, one direction, train mode",
+                   "k1_encoder.cu", "ast_tpu/ops/fused_lstm.py:275"),
+        "k2_d1": ("K2 fused LSTM encoder backward, one direction",
+                  "k2_encoder_bwd.cu", "ast_tpu/ops/fused_lstm.py:348"),
     }
     kernels = []
     for key, (name, src, replaces) in meta.items():
         r = results[key]
-        bound_ms, bound_by = bound(*kernel_cost(key, r["dims"]))
+        bound_ms, bound_by = bound(*kernel_cost(key.split("_")[0], r["dims"]))
         kernels.append(dict(
             name=name, route="cuda",
             source=f"ast_tpu_torch/kernels/csrc/{src}", replaces=replaces,
@@ -3059,7 +3654,8 @@ def main():
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
             library_ms=r.get("library_ms")))
-        unit = ("train step" if key in ("k1t", "k2", "k3", "k4")
+        unit = ("train step" if key in ("k1t", "k2", "k3", "k4", "k1t_d1",
+                                        "k2_d1")
                 else "served batch")
         print(f"{name}: {r['ms']:.3f} ms, bound {bound_ms:.3f} ms "
               f"({bound_by}; {bound_ms / r['ms']:.3f} of it reached), "

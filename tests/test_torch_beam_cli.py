@@ -11,6 +11,7 @@ import os
 import pickle
 
 import jax
+import numpy as np
 import pytest
 import torch
 
@@ -128,10 +129,27 @@ def test_ckpt_writes_tagged_files(experiment):
 
 
 def test_save_attn_is_refused_by_name(experiment):
-    exp = experiment[0]
-    with pytest.raises(NotImplementedError, match="--save-attn"):
-        beam.main(["-m", exp, "--device", "cpu", "--save-attn"] + ARGS)
-    assert not os.path.exists(_files(exp)[0])
+    """Once refused by name, ``--save-attn`` now pickles (hyp, score,
+    attention history (len, T')) entries equal to ast_tpu's: histories
+    within 1e-5, the GO row 0 and every other row a softmax; the BLEU
+    and the .en text stay those of the run without it."""
+    exp, _, ref_bleu, ref_beam, ref_text, _ = experiment
+    want_bleu = jax_beam.main(["-m", exp, "--save-attn"] + ARGS)
+    want, want_text, _ = _read(exp)
+    bleu = beam.main(["-m", exp, "--device", "cpu", "--save-attn"] + ARGS)
+    got, got_text, _ = _read(exp)
+    _assert_beams_equal({u: [e[:2] for e in v] for u, v in got.items()},
+                        {u: [e[:2] for e in v] for u, v in want.items()})
+    _assert_beams_equal({u: [e[:2] for e in v] for u, v in got.items()},
+                        ref_beam)
+    for utt in want:
+        for g, w in zip(got[utt], want[utt]):
+            assert g[2].shape == w[2].shape == (len(g[0]), w[2].shape[1])
+            np.testing.assert_allclose(g[2], w[2], rtol=0, atol=1e-5)
+            np.testing.assert_allclose(g[2][1:].sum(axis=1), 1.0, atol=1e-5)
+            assert not g[2][0].any()
+    assert f"{bleu:.2f}" == f"{want_bleu:.2f}" == f"{ref_bleu:.2f}"
+    assert got_text == want_text == ref_text
 
 
 def test_beam_cli_cuda_requires_a_gpu(experiment):

@@ -6,6 +6,7 @@ a duplicate basename) and from audio files (.wav, .sph, 1-D .npy) under
 each --cmvn mode; greedy and beam text must be identical.
 """
 
+import json
 import os
 import pickle
 import shutil
@@ -60,6 +61,33 @@ def test_cli_text_matches_ast_tpu(experiment, tmp_path, extra):
     with open(out_file) as f:
         lines = f.read().splitlines()
     assert [ln.split("\t")[0] for ln in lines] == list(ref)
+
+
+def test_cli_decodes_a_variant_like_ast_tpu(tmp_path):
+    """A model variant the decode kernels do not take (``ln``, two
+    heads): greedy and beam text through the routed plain loops equal
+    ast_tpu's."""
+    exp = make_tiny_experiment(str(tmp_path))
+    path = os.path.join(exp, "model_cfg.json")
+    with open(path) as f:
+        mcfg = json.load(f)
+    mcfg["rnn_config"].update(ln=True, n_attn=2)
+    with open(path, "w") as f:
+        json.dump(mcfg, f)
+    from ast_tpu.config import Config
+    params, state = jax_seq2seq.init_model(jax.random.PRNGKey(12),
+                                           Config(exp).model)
+    params["dec"]["out_b"] = params["dec"]["out_b"].at[2].add(-2.0)
+    jax_ckpt.save_checkpoint(os.path.join(exp, "seq2seq_1.model.npz"),
+                             params, state)
+    speech = os.path.join(str(tmp_path), "speech", "tiny_dev")
+    paths = [os.path.join(speech, f) for f in sorted(os.listdir(speech))
+             ][:3]
+    for extra in ([], ["--beam", "3,3", "-w", "0.6"]):
+        ref = jax_infer.main(["-m", exp, "--batch", "3"] + extra + paths)
+        got = infer.main(["-m", exp, "--batch", "3", "--device", "cpu"]
+                         + extra + paths)
+        assert got == ref and any(got.values())
 
 
 def test_cli_cuda_requires_a_gpu(experiment):

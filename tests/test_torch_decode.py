@@ -241,12 +241,30 @@ def test_cpu_tensors_take_the_plain_versions(model):
                                      {"attn_block_size": 8},
                                      {"bi_rnn": False}])
 def test_gate_refuses_unported_variants(model, variant):
-    _, _, X, tp, ts = model
-    with pytest.raises(NotImplementedError):
-        seq2seq.predict_greedy(tp, ts, _mcfg(**variant),
-                               torch.from_numpy(X), STOP)
-    with pytest.raises(NotImplementedError):
-        beam_ops.make_beam_decoder(_mcfg(**variant), 2, 2, STOP)
+    """The variants the decode gate once refused now decode, greedy and
+    beam, equal to ast_tpu (its Pallas kernels in interpret mode where it
+    runs them, its XLA loops elsewhere): tokens, lengths and n_steps
+    exactly, scores within 1e-5."""
+    X = model[2]
+    mcfg = _mcfg(**variant)
+    params, state = jax_seq2seq.init_model(jax.random.PRNGKey(3), mcfg)
+    params["dec"]["out_b"] = params["dec"]["out_b"].at[
+        SYMBOLS.EOS_ID].add(2.0)
+    tp, ts = from_jax_numpy(jax.tree.map(np.asarray, params),
+                            jax.tree.map(np.asarray, state))
+    x = torch.from_numpy(X)
+    ref, n_ref = jax_seq2seq.predict_greedy(params, state, mcfg,
+                                            jnp.asarray(X), STOP)
+    got, n_got = seq2seq.predict_greedy(tp, ts, mcfg, x, STOP)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    assert int(n_got) == int(n_ref)
+    ref = jax_beam.make_beam_decoder(mcfg, 2, 2, STOP)(params, state,
+                                                       jnp.asarray(X))
+    got = beam_ops.make_beam_decoder(mcfg, 2, 2, STOP)(tp, ts, x)
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(ref[0]))
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(ref[1]), rtol=0,
+                               atol=ATOL)
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(ref[2]))
 
 
 def test_beam_rejects_k_above_vocab():

@@ -609,6 +609,11 @@ def test_export_refusals_and_ignored_flags(dirs, tmp_path, capsys):
 
 
 def test_export_refuses_a_variant_the_kernels_lack(tmp_path):
+    """Once refused, a variant the decode kernels lack (``ln``) now
+    exports and serves: both packages export one ast_tpu checkpoint of
+    it, f32 with beam and int8 with the LayerNorm gains quantized, and
+    the port's server answers ast_tpu's (its plain decode loops, as
+    ast_tpu's XLA ones)."""
     exp = make_tiny_experiment(str(tmp_path))
     path = os.path.join(exp, "model_cfg.json")
     with open(path) as f:
@@ -616,8 +621,36 @@ def test_export_refuses_a_variant_the_kernels_lack(tmp_path):
     mcfg["rnn_config"]["ln"] = True
     with open(path, "w") as f:
         json.dump(mcfg, f)
-    with pytest.raises(NotImplementedError, match="decodes only the variant"):
-        export_model.main(["-m", exp, "-o", str(tmp_path / "out")])
+    params, state = jax_seq2seq.init_model(jax.random.PRNGKey(13),
+                                           JaxConfig(exp).model)
+    params["dec"]["out_b"] = params["dec"]["out_b"].at[2].add(-2.0)
+    rng = np.random.RandomState(0)
+    params["enc"]["ln"] = [{k: v + 0.3 * rng.randn(*v.shape)
+                            for k, v in ln.items()}
+                           for ln in params["enc"]["ln"]]
+    jax_ckpt.save_checkpoint(os.path.join(exp, "seq2seq_1.model.npz"),
+                             params, state)
+    common = ["-m", exp, "--batch", "2", "--frames", "60"]
+    q8 = ["--quantize", "int8", "--quantize-min-size", "16"]
+    speech = os.path.join(os.path.dirname(exp), "speech", "tiny_dev")
+    xs = [np.load(os.path.join(speech, f)).astype(np.float32)[:60]
+          for f in sorted(os.listdir(speech))[:2]]
+    for name, extra, modes in (("f32", ["--beam", "2,2"], ("greedy", "beam")),
+                               ("q8", q8, ("greedy",))):
+        want_dir = jax_export.main(common + extra + [
+            "--platforms", "cpu", "--dtype", "float32",
+            "-o", str(tmp_path / f"jax_{name}")])
+        got_dir = export_model.main(common + extra + [
+            "-o", str(tmp_path / f"port_{name}")])
+        if name == "q8":
+            z = np.load(os.path.join(got_dir, serving.WEIGHTS))
+            assert "params/enc/ln/0/g/__q8__" in z.files
+        port = serve.ArtifactServer(got_dir, device="cpu")
+        ref = jax_serve.ArtifactServer(want_dir)
+        for x in xs:
+            for mode in modes:
+                body = {"features": x, "mode": mode, "nbest": 2}
+                _assert_same(port.decode(dict(body)), ref.decode(dict(body)))
 
 
 def test_kernel_library_builds_once_under_threads(tmp_path, monkeypatch):

@@ -111,9 +111,12 @@ VARIANTS = {
 def test_chainer_conversions_match_ast_tpu(variant):
     """ast_to_chainer and chainer_to_ast give ast_tpu's arrays both ways,
     and the round trip is the identity, for every variant ast_tpu's
-    converter takes (the port's model gate refuses some of them)."""
+    converter takes; the port's init_model builds each of them with the
+    converted tree's leaves."""
     cnn, rnn = VARIANTS[variant]
     params, state = _jax_init(_mcfg(cnn, **rnn), seed=1)
+    built = [flatten(to_numpy(t)) for t in
+             seq2seq.init_model(_mcfg(cnn, **rnn), seed=1)]
     arrays = ci.ast_to_chainer(params, state)
     _assert_flat_equal(arrays, jax_ci.ast_to_chainer(params, state))
     assert ci.is_chainer_checkpoint(arrays)
@@ -122,6 +125,10 @@ def test_chainer_conversions_match_ast_tpu(variant):
     _assert_flat_equal(flatten(back), _jax_flat(jax_ci.chainer_to_ast(arrays)))
     _assert_trees_equal(back["params"], params)
     _assert_trees_equal(back["state"], state)
+    for got, want in zip(built, (flatten(back["params"]),
+                                 flatten(back["state"]))):
+        assert {k: np.shape(v) for k, v in got.items()} == \
+            {k: np.shape(v) for k, v in want.items()}
 
 
 def test_chainer_enc_only_layernorm_is_refused_as_ast_tpu():
