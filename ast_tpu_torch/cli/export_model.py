@@ -12,7 +12,10 @@ frame count of the ladder, ``vocab.json`` and ``manifest.json``.  Every
 model variant exports; the server decodes each as ``models.seq2seq``
 routes it.  ``--platforms`` and ``--native-kernels`` (``ast_tpu``'s
 StableHLO lowering targets) are accepted and ignored: the server runs
-the kernels whenever it runs on the card.
+the kernels whenever it runs on the card.  ``--dtype`` (default: the
+experiment's ``extras.compute_dtype``) is written to the manifest's
+``compute_dtype``, at which the server decodes; ``bfloat16`` takes the
+model the kernels take and refuses a scan-path variant by name.
 """
 
 import argparse
@@ -24,6 +27,8 @@ from ast_tpu_torch.config import Config
 from ast_tpu_torch.detok import dec_i2w
 from ast_tpu_torch.models import seq2seq
 from ast_tpu_torch.ops import beam as beam_ops
+from ast_tpu_torch.ops.bf16 import parse_dtype
+from ast_tpu_torch.ops.fused_infer import require_bf16_variant
 from ast_tpu_torch.params import tree_map
 
 
@@ -54,7 +59,7 @@ def main(argv=None):
     parser.add_argument("--dtype", default=None,
                         choices=["float32", "bfloat16"],
                         help="compute dtype (default: the experiment's "
-                             "compute_dtype); only float32 is ported")
+                             "compute_dtype)")
     parser.add_argument("--ckpt", default=None,
                         help="export this checkpoint file instead of the "
                              "latest epoch")
@@ -86,16 +91,14 @@ def main(argv=None):
     mcfg = cfg.model
     dtype = args.dtype or cfg.train["extras"].get("compute_dtype",
                                                   "float32")
-    if dtype != "float32":
-        raise NotImplementedError(
-            f"compute dtype {dtype}: the port decodes in float32 only "
-            "(bfloat16 is ROADMAP.md queue 1)")
+    require_bf16_variant(mcfg, parse_dtype(dtype))
     data_cfg = cfg.train["data"]
     stop_limit = args.stop_limit or int(data_cfg["max_pred"])
     if beam_nk:
         # the beam decoder's own checks (K <= V, N, K >= 1), before any
         # file is written
-        beam_ops.make_beam_decoder(mcfg, *beam_nk, stop_limit)
+        beam_ops.make_beam_decoder(mcfg, *beam_nk, stop_limit,
+                                   compute_dtype=parse_dtype(dtype))
     if args.frames:
         frames = [int(t) for t in args.frames.split(",")]
     else:
@@ -133,7 +136,7 @@ def main(argv=None):
                                               T, N, K, quant))
             print(f"entry {entries[-1]['file']}")
     mpath = serving.write_manifest(
-        out_dir, entries, mcfg, stop_limit, "float32",
+        out_dir, entries, mcfg, stop_limit, dtype,
         i2w=dec_i2w(cfg.train), dec_key=data_cfg["dec_key"],
         quantization=args.quantize)
     print(f"manifest: {mpath}")

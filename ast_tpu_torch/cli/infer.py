@@ -13,7 +13,9 @@ length), each bucket is decoded in batches -- greedy, cut at each row's
 first EOS, or beam with the ``score/(len-2)^W`` rerank -- and
 ``utt<TAB>text`` lines come out in input order.  On ``--device cuda``
 every kernel of the path is a hand-written CUDA kernel; ``--device cpu``
-runs their plain versions.
+runs their plain versions.  Decoding runs at the experiment's
+``extras.compute_dtype`` (bfloat16: K1 eval, K5 and K6 in their bf16
+mode), as ``ast_tpu``'s ``NN.compute_dtype``.
 """
 
 import argparse
@@ -30,6 +32,7 @@ from ast_tpu_torch.detok import dec_i2w, get_hyps
 from ast_tpu_torch.data import wav_loader
 from ast_tpu_torch.models import seq2seq
 from ast_tpu_torch.ops import beam as beam_ops
+from ast_tpu_torch.ops.bf16 import parse_dtype
 from ast_tpu_torch.ops.fbank import (
     MfccExtractor, apply_cmvn, compute_cmvn_stats)
 from ast_tpu_torch.params import from_jax_numpy, torch_device
@@ -112,6 +115,7 @@ def main(argv=None):
 
     cfg = Config(args.cfg_path)
     mcfg = cfg.model
+    dtype = parse_dtype(cfg.train["extras"].get("compute_dtype"))
     ckpt = args.ckpt or latest_checkpoint(cfg.model["model_dir"])[0]
     if ckpt is None:
         print("warning: no checkpoint found — decoding with random init")
@@ -163,10 +167,11 @@ def main(argv=None):
     if beam_nk is not None:
         decode = beam_ops.make_beam_decoder(mcfg, N=beam_nk[0],
                                             K=beam_nk[1],
-                                            stop_limit=stop_limit)
+                                            stop_limit=stop_limit,
+                                            compute_dtype=dtype)
     preds = {}
     with torch.inference_mode():
-        w = seq2seq.decode_weights(params)      # once for every batch
+        w = seq2seq.decode_weights(params, dtype)   # once for every batch
         for T in sorted(groups):
             items = groups[T]
             for i in range(0, len(items), batch_size):
@@ -187,8 +192,9 @@ def main(argv=None):
                         for j, (utt, _) in enumerate(chunk)}
                     preds.update(beam_ops.get_best_hyps(entries, args.W))
                 else:
-                    p = seq2seq.predict_greedy(params, state, mcfg, X,
-                                               stop_limit, w)[0].cpu().numpy()
+                    p = seq2seq.predict_greedy(
+                        params, state, mcfg, X, stop_limit, w,
+                        compute_dtype=dtype)[0].cpu().numpy()
                     for j, (utt, _) in enumerate(chunk):
                         # cut each file's ids at its own first EOS
                         eos = np.nonzero(p[j] == SYMBOLS.EOS_ID)[0]

@@ -8,9 +8,10 @@ The counterpart of ``ast_tpu/cli/serve.py``, behaviour for behaviour,
 over the directory ``cli/export_model.py`` writes (``serving.py``): no
 experiment directory, config pickle or checkpoint is read.  The model
 loads once per replica device -- weights, their decode pack
-(``seq2seq.decode_weights``) and the MFCC front-end -- and an entry is a
-(kind, batch, frames[, N, K]) shape over it: greedy runs K1 + K5, beam
-K1 + K6.
+(``seq2seq.decode_weights``, at the manifest's ``compute_dtype``) and
+the MFCC front-end -- and an entry is a (kind, batch, frames[, N, K])
+shape over it: greedy runs K1 + K5, beam K1 + K6, in their bf16 mode
+when the manifest says ``"bfloat16"``.
 
 Endpoints (JSON over HTTP, stdlib server):
 
@@ -83,6 +84,7 @@ from ast_tpu_torch.detok import ids_to_text
 from ast_tpu_torch.models import seq2seq
 from ast_tpu_torch.ops import fused_infer, fused_lstm
 from ast_tpu_torch.ops.beam import make_beam_decoder, rerank_hypothesis
+from ast_tpu_torch.ops.bf16 import parse_dtype
 from ast_tpu_torch.ops.fbank import (
     MfccExtractor, apply_cmvn, compute_cmvn_stats, num_frames)
 from ast_tpu_torch.params import torch_device
@@ -98,7 +100,10 @@ def kernel_launches():
     launches its kernel, never where it runs its plain version)."""
     return {"k1": fused_lstm.fused_stacked_lstm.launches,
             "k5": fused_infer.greedy_decode_fused.launches,
-            "k6": fused_infer.beam_search_streams.launches}
+            "k6": fused_infer.beam_search_streams.launches,
+            "k1_bf16": fused_lstm.fused_stacked_lstm.launches_bf16,
+            "k5_bf16": fused_infer.greedy_decode_fused.launches_bf16,
+            "k6_bf16": fused_infer.beam_search_streams.launches_bf16}
 
 
 @contextlib.contextmanager
@@ -285,15 +290,15 @@ class _MicroBatcher:
 
 
 class _Replica:
-    """The model on one device: weights, their decode pack and the MFCC
-    front-end, made once."""
+    """The model on one device: weights, their decode pack at the
+    compute dtype and the MFCC front-end, made once."""
 
-    def __init__(self, serving_dir, device):
+    def __init__(self, serving_dir, device, dtype):
         self.device = device
         self.mcfg, self.params, self.state = serving.load_model(
             serving_dir, device)
         with torch.inference_mode():
-            self.w = seq2seq.decode_weights(self.params)
+            self.w = seq2seq.decode_weights(self.params, dtype)
         self.mfcc = MfccExtractor(device=device)
         if device.type == "cuda":
             # made on the default stream; calls read them on their own
@@ -317,6 +322,7 @@ class ArtifactServer:
         with open(os.path.join(serving_dir, self.manifest["vocab"])) as f:
             self.vocab = json.load(f)
         self.stop_limit = int(self.manifest["stop_limit"])
+        self.dtype = parse_dtype(self.manifest.get("compute_dtype"))
         self.entries = {"greedy": [], "beam": []}
         self.artifacts = {}             # entry name -> entry
         for e in self.manifest["entries"]:
@@ -337,13 +343,14 @@ class ArtifactServer:
         self.models = {}
         for d in self.devices:
             if str(d) not in self.models:
-                self.models[str(d)] = _Replica(serving_dir, d)
+                self.models[str(d)] = _Replica(serving_dir, d, self.dtype)
         first = self.models[str(self.devices[0])]
         self.mfcc_cfg = first.mfcc.cfg
         # conv layer 0's kernel spans the whole feature axis (OIHW)
         self.feat_dim = int(first.params["cnn"][0]["w"].shape[3])
         self._beam = {(e["N"], e["K"]): make_beam_decoder(
-            first.mcfg, e["N"], e["K"], self.stop_limit)
+            first.mcfg, e["N"], e["K"], self.stop_limit,
+            compute_dtype=self.dtype)
             for e in self.entries["beam"]}
         self.stats = _Stats()
         # replica pool: ``inflight`` tokens a device, each with its own
@@ -433,7 +440,8 @@ class ArtifactServer:
                 if entry["kind"] == "greedy":
                     out = (seq2seq.predict_greedy(
                         rep.params, rep.state, rep.mcfg, Xt,
-                        self.stop_limit, rep.w)[0],)
+                        self.stop_limit, rep.w,
+                        compute_dtype=self.dtype)[0],)
                 else:
                     out = self._beam[(entry["N"], entry["K"])](
                         rep.params, rep.state, Xt, rep.w)

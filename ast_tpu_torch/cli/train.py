@@ -23,6 +23,7 @@ import os
 import signal
 
 from ast_tpu_torch.eval.bleu import Eval
+from ast_tpu_torch.ops.fused_infer import require_train_dtype
 from ast_tpu_torch.train.trainer import NN, PreemptedError
 
 
@@ -56,6 +57,7 @@ def main(argv=None):
     print(f"number of epochs={args.epochs:d}")
 
     nn = NN(args.cfg_path, args.device)
+    require_train_dtype(nn.cfg.train)   # bf16 decodes but does not train
     _install_preempt_handler(nn)
     tcfg = nn.cfg.train
     train_key, dev_key = tcfg["train_set"], tcfg["dev_set"]

@@ -33,12 +33,15 @@ _F = ctypes.c_float
 # c_void_p, so 64-bit addresses are never cut to an int)
 _SIGNATURES = {
     "k1_encoder_forward": [_P] * 8 + [_I] * 5 + [_P],
+    "k1_encoder_forward_bf16": [_P] * 8 + [_I] * 5 + [_P],
     "k1_encoder_forward_train": [_P] * 11 + [_I] * 5 + [_U, _U, _F, _P],
     "k2_encoder_backward": [_P] * 9 + [_I] * 5 + [_U, _U, _F, _P],
     "k3_decoder_forward": [_P] * 26 + [_I] * 8 + [_U, _U, _F, _U, _F, _P],
     "k4_decoder_backward": [_P] * 18 + [_I] * 7 + [_U, _U, _F, _U, _F, _P],
     "k5_greedy_decode": [_P] * 20 + [_I] * 8 + [_P],
+    "k5_greedy_decode_bf16": [_P] * 20 + [_I] * 8 + [_P],
     "k6_beam_decode": [_P] * 25 + [_I] * 10 + [_P],
+    "k6_beam_decode_bf16": [_P] * 25 + [_I] * 10 + [_P],
     # not a launch: fills records, returns their number (cluster_choices)
     "ast_cluster_choices": [_P, _I],
 }
@@ -148,11 +151,11 @@ def cluster_choices():
     return out
 
 
-def check_tensor(t, name, shape=None):
-    """Raise unless ``t`` is a contiguous float32 CUDA tensor of
+def check_tensor(t, name, shape=None, dtype=torch.float32):
+    """Raise unless ``t`` is a contiguous CUDA tensor of ``dtype`` and
     ``shape`` (when given)."""
-    if not t.is_cuda or t.dtype != torch.float32 or not t.is_contiguous():
-        raise ValueError(f"{name}: the kernel takes contiguous float32 CUDA "
+    if not t.is_cuda or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(f"{name}: the kernel takes contiguous {dtype} CUDA "
                          f"tensors (got {t.dtype} on {t.device}, "
                          f"contiguous={t.is_contiguous()})")
     if shape is not None and tuple(t.shape) != tuple(shape):

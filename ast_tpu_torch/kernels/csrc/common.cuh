@@ -11,13 +11,19 @@
 // products of one launch -- by the encoder (k1_encoder.cu,
 // k2_encoder_bwd.cu), whose cells (step t, layer l) with equal t + l do
 // not depend on one another.  Everything is float32 with FMA accumulation;
-// no library GEMM is called.
+// no library GEMM is called.  The eval products (K1 eval, K5, K6) also run
+// with bfloat16 weights (W = __nv_bfloat16, ast_tpu's compute_dtype
+// bfloat16): the packed matrices in bf16, each input value rounded to bf16
+// where the product reads it (__float2bfloat16_rn), and the sums in f32
+// FMAs -- a product of two bf16 values is exact in f32, so only the order
+// of the sum differs from ast_tpu's f32-accumulated bf16 dot.
 //
 // Every exported entry point launches on the caller's stream, never
 // synchronises, allocates nothing, and returns cudaGetLastError() as an
 // int (0 = every launch was accepted).
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -119,7 +125,7 @@ struct CellBwdArgs {
 
 // One product of decode_step.cu:  z = [seg0 | seg1 | seg2] @ W, W packed
 // as (column blocks, ktot, 64) with its columns zero-padded to a multiple
-// of 64.  A linear layer writes out = act(z + bias) (R, N), bias nullptr
+// of 64, in float32 or (the eval products) bfloat16, as the launch says.  A linear layer writes out = act(z + bias) (R, N), bias nullptr
 // = none.  A cell (N = H; packed column q * 16 + u of block cb is gate q
 // of unit 16 cb + u) takes the gates [i, f, g, o] of z + bias, c_out =
 // f * c_in[c_idx[r]] + i * g, out = h = o * tanh(c_out).  Every segment's
@@ -128,7 +134,7 @@ struct CellBwdArgs {
 struct Prod {
   Seg seg[3];
   int nseg;
-  const float* w;
+  const void* w;  // float or __nv_bfloat16, by the launch
   const float* bias;
   int R, N, act_tanh;
   float* out;
@@ -211,19 +217,22 @@ struct Wave {
 
 // The decoder weights of the decode step (decode_step.cu), the products'
 // matrices packed by ops/fused_infer.pack_step_weights as (column
-// blocks, K, 64): the cell's [wx; wh] of layer l (K = E + A + H for layer
-// 0, 2H after; packed column q * 16 + u of block cb is gate q of unit
-// 16 cb + u), one layer after another, and wa (H, H), ctx_w (2H, A),
-// out_w (A, V) with their columns padded to a multiple of 64.
-struct StepWeights {
+// blocks, K, 64) in W (float or __nv_bfloat16): the cell's [wx; wh] of
+// layer l (K = E + A + H for layer 0, 2H after; packed column q * 16 + u
+// of block cb is gate q of unit 16 cb + u), one layer after another, and
+// wa (H, H), ctx_w (2H, A), out_w (A, V) with their columns padded to a
+// multiple of 64.  The embedding and the biases are float32 (at bf16,
+// holding bf16-rounded values).
+template <typename W>
+struct StepWeightsT {
   const float* embed;    // (V, E)
-  const float* cell;     // the L packed cell matrices
+  const W* cell;         // the L packed cell matrices
   const float* bias;     // (L, 4H)
-  const float* wa;       // packed (H, H)
+  const W* wa;           // packed (H, H)
   const float* wa_b;     // (H)
-  const float* ctx_w;    // packed (2H, A)
+  const W* ctx_w;        // packed (2H, A)
   const float* ctx_b;    // (A)
-  const float* out_w;    // packed (A, V)
+  const W* out_w;        // packed (A, V)
   const float* out_b;    // (V)
   int L, H, E, A, V;
 };
@@ -248,8 +257,10 @@ struct DecoderStep {
 
 // The encoder's waves (decode_step.cu), programmatic dependent launches:
 // w.n <= MAX_WAVE_GROUPS cell products in eval or train mode (K1), or
-// linear products without bias (K2).
+// linear products without bias (K2); launch_cell_wave_bf16: eval cells
+// whose packed weights are bfloat16.
 cudaError_t launch_cell_wave(Wave<EncCell>& w, bool train, cudaStream_t s);
+cudaError_t launch_cell_wave_bf16(Wave<EncCell>& w, cudaStream_t s);
 cudaError_t launch_linear_wave(Wave<NoExtra>& w, cudaStream_t s);
 // The products and attention of decoder training (decode_step.cu), all
 // programmatic dependent launches.  A linear product, a cell product in
@@ -275,8 +286,12 @@ cudaError_t launch_attention_bwd(const float* enc, const float* alphas,
 // One decoder step for R rows, rows_per_utt of them per utterance of enc
 // (decode_step.cu): embedding gather + input feeding, the L-layer LSTM
 // stack, attention, ht = tanh(ctx([cv; h])), logits.  E, A and H must be
-// multiples of 32.  Every kernel returns at once while *done != 0.
-cudaError_t decode_step(const StepWeights& w, const float* enc, int T,
+// multiples of 32.  Every kernel returns at once while *done != 0.  W
+// (float or __nv_bfloat16) is the type of the products' matrices and of
+// the encoder states; at bf16 attention rounds its softmax weights to
+// bf16 before the context sum, as ast_tpu's _dot_c0 does.
+template <typename W>
+cudaError_t decode_step(const StepWeightsT<W>& w, const W* enc, int T,
                         int rows_per_utt, const DecoderStep& st, int R,
                         const int* done, cudaStream_t s);
 

@@ -82,10 +82,23 @@
 // lets its successor launch, so launch latency hides behind the previous
 // kernel's tail (K5 -12.7 %, K6 -2.6 % against plain launches, measured
 // on the H100 when this was chosen; PERF.md).
+//
+// bfloat16 (ast_tpu's compute_dtype bfloat16; K1 eval, K5, K6): the eval
+// products and attention are templates over W, the element type of the
+// packed matrices and of the encoder states.  At W = __nv_bfloat16 a
+// weight tile is one 4 KB bulk copy (8 KB in f32) and widens to f32 in
+// registers; each thread rounds the input values it staged to bf16
+// (__float2bfloat16_rn) before the tile is read, which are ast_tpu's
+// rounding points (_dot casts the left operand to the weight's dtype);
+// the sums stay f32 FMAs.  Attention reads bf16 encoder rows, keeps the
+// query and the softmax in f32, and rounds the normalised weights to
+// bf16 before the context sum (ast_tpu's _dot_c0).  A step then reads
+// half the bytes of weights and encoder states.
 #include <cooperative_groups.h>
 #include <math.h>
 
 #include <mutex>
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -115,6 +128,42 @@ constexpr int TC = 8;            // encoder rows in flight per context thread
 
 __device__ __forceinline__ float sigmoidf(float x) {
   return 1.f / (1.f + expf(-x));
+}
+
+template <typename W>
+constexpr bool IS_BF16 = std::is_same<W, __nv_bfloat16>::value;
+
+__device__ __forceinline__ float bf16_round(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// Four consecutive elements of W at p (16-byte aligned for float, 8 for
+// bf16) as f32.
+__device__ __forceinline__ float4 load4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// The same through the read-only cache: group i of four (encoder rows)
+__device__ __forceinline__ float4 ldg4(const float* p, long i) {
+  return __ldg(reinterpret_cast<const float4*>(p) + i);
+}
+
+__device__ __forceinline__ float4 ldg4(const __nv_bfloat16* p, long i) {
+  const uint2 u = __ldg(reinterpret_cast<const uint2*>(p) + i);
+  const float2 lo = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi = __bfloat1622float2(
+      *reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -188,14 +237,16 @@ __device__ __forceinline__ void cp_wait() {
 }
 
 // A block's tiles: a ring of 8 stages up to 32 rows (latency is what a
-// few rows run into), 4 up to 64, 3 from 128 (160 rows: 94 KB).
-template <int TR, int RGN>
+// few rows run into), 4 up to 64, 3 from 128 (160 rows: 94 KB); a stage
+// holds the f32 input rows and a weight tile of W.
+template <int TR, int RGN, typename W = float>
 struct ProdShape {
   static constexpr int KGN = 16 / RGN;     // input-axis groups
   static constexpr int RB = TR * RGN;      // rows of a block
   static constexpr int STAGES = RB <= 32 ? 8 : RB <= 64 ? 4 : 3;
   static constexpr int XS = RB * XLD;      // staged input floats
-  static constexpr int STAGE = XS + KT * NC;
+  static constexpr int WTILE = KT * NC * (int)sizeof(W);  // bytes
+  static constexpr int STAGE = XS + WTILE / (int)sizeof(float);
   static constexpr int RING = STAGES * STAGE;
   static constexpr int PART = KGN * RB * NC;
   static constexpr size_t NEED =
@@ -249,8 +300,9 @@ __device__ __forceinline__ void cell_bwd_element(const CellBwdArgs& a, int r,
 
 // ex: the CellTrainOut of PROD_CELL_TRAIN, the BwdEpilogue of PROD_BWD,
 // the EncCell of the wave's cells.  wave_cb: in a wave, the block's column
-// block within its product (else the block index gives it).
-template <int TR, int RGN, int MODE, typename Extra>
+// block within its product (else the block index gives it).  W: the
+// packed matrix's element type (bf16 only for the eval modes).
+template <int TR, int RGN, int MODE, typename W, typename Extra>
 __device__ __forceinline__ void prod_body(const Prod& a, const Extra& ex,
                                           int wave_cb = 0) {
   constexpr bool WAVE = MODE >= PROD_WAVE_CELL;
@@ -258,7 +310,7 @@ __device__ __forceinline__ void prod_body(const Prod& a, const Extra& ex,
       MODE == PROD_WAVE_CELL || MODE == PROD_WAVE_CELL_TRAIN;
   constexpr bool CELL =
       MODE == PROD_CELL || MODE == PROD_CELL_TRAIN || ENC_CELL;
-  using S = ProdShape<TR, RGN>;
+  using S = ProdShape<TR, RGN, W>;
   constexpr int KGN = S::KGN, RB = S::RB, STAGES = S::STAGES;
   grid_dep_wait();
   if (a.done && *a.done) return;  // every block of the launch alike
@@ -278,7 +330,7 @@ __device__ __forceinline__ void prod_body(const Prod& a, const Extra& ex,
   const int nch = ktot / KT;
   const int c_beg = rank * nch / cs;
   const int n_ch = (rank + 1) * nch / cs - c_beg;
-  const float* wb = a.w + (long)cb * ktot * NC;
+  const W* wb = static_cast<const W*>(a.w) + (long)cb * ktot * NC;
 
   // rows past R stay zero in every stage (no copy lands there)
   for (int i = tid; i < STAGES * (RB - rows) * XLD; i += THREADS) {
@@ -297,8 +349,8 @@ __device__ __forceinline__ void prod_body(const Prod& a, const Extra& ex,
     float* xs = smem + stage * S::STAGE;
     const int k = ch * KT;
     if (tid == 0) {
-      mbar_expect(&full[stage], KT * NC * 4);
-      bulk_copy(xs + S::XS, wb + (long)k * NC, KT * NC * 4, &full[stage]);
+      mbar_expect(&full[stage], S::WTILE);
+      bulk_copy(xs + S::XS, wb + (long)k * NC, S::WTILE, &full[stage]);
     }
     int s = 0, off = 0;
     while (k >= off + a.seg[s].K) off += a.seg[s++].K;
@@ -331,10 +383,23 @@ __device__ __forceinline__ void prod_body(const Prod& a, const Extra& ex,
       issue((i + STAGES - 1) % STAGES, c_beg + i + STAGES - 1);
     cp_commit();
     cp_wait<STAGES - 1>();  // this thread's rows of chunk i
+    float* xs = smem + (i % STAGES) * S::STAGE;
+    if constexpr (IS_BF16<W>) {
+      // the values this thread staged, rounded to bf16 in place
+      for (int e = tid; e < rows * (KT / 4); e += THREADS) {
+        float4* v = reinterpret_cast<float4*>(xs + (e / (KT / 4)) * XLD +
+                                              (e % (KT / 4)) * 4);
+        float4 x = *v;
+        x.x = bf16_round(x.x);
+        x.y = bf16_round(x.y);
+        x.z = bf16_round(x.z);
+        x.w = bf16_round(x.w);
+        *v = x;
+      }
+    }
     __syncthreads();        // everyone's
     mbar_wait(&full[i % STAGES], (unsigned)(i / STAGES) & 1u);
-    const float* xs = smem + (i % STAGES) * S::STAGE;
-    const float* ws = xs + S::XS;
+    const W* ws = reinterpret_cast<const W*>(xs + S::XS);
 #pragma unroll
     for (int j = 0; j < KT / 4 / KGN; ++j) {
       const int kk = (kg + j * KGN) * 4;
@@ -345,8 +410,7 @@ __device__ __forceinline__ void prod_body(const Prod& a, const Extra& ex,
                                                  kk);
 #pragma unroll
       for (int d = 0; d < 4; ++d) {
-        const float4 wv =
-            *reinterpret_cast<const float4*>(ws + (kk + d) * NC + cgp * 4);
+        const float4 wv = load4(ws + (kk + d) * NC + cgp * 4);
 #pragma unroll
         for (int p = 0; p < TR; ++p) {
           const float x = d == 0 ? xv[p].x
@@ -495,33 +559,33 @@ __device__ __forceinline__ void prod_body(const Prod& a, const Extra& ex,
   cluster.sync();  // no block leaves while another reads its partials
 }
 
-template <int TR, int RGN, bool CELL>
+template <int TR, int RGN, bool CELL, typename W>
 __global__ void __launch_bounds__(THREADS) prod_kernel(Prod a) {
-  prod_body<TR, RGN, CELL ? PROD_CELL : PROD_LINEAR>(a, NoExtra{});
+  prod_body<TR, RGN, CELL ? PROD_CELL : PROD_LINEAR, W>(a, NoExtra{});
 }
 
 template <int TR, int RGN>
 __global__ void __launch_bounds__(THREADS)
     prod_train_kernel(Prod a, CellTrainOut tr) {
-  prod_body<TR, RGN, PROD_CELL_TRAIN>(a, tr);
+  prod_body<TR, RGN, PROD_CELL_TRAIN, float>(a, tr);
 }
 
 template <int TR, int RGN>
 __global__ void __launch_bounds__(THREADS)
     prod_bwd_kernel(Prod a, BwdEpilogue e) {
-  prod_body<TR, RGN, PROD_BWD>(a, e);
+  prod_body<TR, RGN, PROD_BWD, float>(a, e);
 }
 
 // A wave: the cluster's slot among the launch's column blocks gives its
 // product (the first whose cb_end lies past it) and its column block
 // there.
-template <int TR, int RGN, int MODE, typename Extra>
+template <int TR, int RGN, int MODE, typename Extra, typename W>
 __global__ void __launch_bounds__(THREADS) wave_kernel(Wave<Extra> w) {
   const int slot = blockIdx.x / (int)cg::this_cluster().num_blocks();
   int g = 0;
   while (slot >= w.cb_end[g]) ++g;
-  prod_body<TR, RGN, MODE>(w.p[g], w.x[g],
-                           slot - (g ? w.cb_end[g - 1] : 0));
+  prod_body<TR, RGN, MODE, W>(w.p[g], w.x[g],
+                              slot - (g ? w.cb_end[g - 1] : 0));
 }
 
 // cv[b N + n] = softmax(enc[b] @ q[b N + n]) @ enc[b] for the N rows of
@@ -540,7 +604,7 @@ __global__ void __launch_bounds__(THREADS) wave_kernel(Wave<Extra> w) {
 // inner) is stored and takes the place of the softmax numerators, and cv
 // gets d_q = d_scores @ enc[b], not normalised.
 struct Attn {
-  const float* enc;  // (B, T, H)
+  const void* enc;   // (B, T, H), float or (eval) __nv_bfloat16
   const float* q;    // (B N, H)
   float* cv;         // (B N, H)
   int N, T, H;
@@ -556,9 +620,13 @@ struct AttnAux {
   float* t_out;
 };
 
-template <int MODE>
+// W: the encoder states' element type; at bf16 (eval only) the
+// normalised softmax weights are rounded to bf16 before the context sum,
+// which then needs no division.
+template <int MODE, typename W>
 __device__ __forceinline__ void attention_body(const Attn& a,
                                                const AttnAux& x) {
+  constexpr bool ROUND = IS_BF16<W>;
   grid_dep_wait();
   if (a.done && *a.done) return;
   grid_dep_launch();
@@ -576,8 +644,7 @@ __device__ __forceinline__ void attention_body(const Attn& a,
   float* S = reinterpret_cast<float*>(pc1 + N * H4);  // (N, tcf)
   float* mx = S + N * tcf;
   float* sm = mx + N;
-  const float4* E4 =
-      reinterpret_cast<const float4*>(a.enc + ((long)b * a.T + t0) * H);
+  const W* E4 = static_cast<const W*>(a.enc) + ((long)b * a.T + t0) * H;
   const int tid = threadIdx.x, lane = tid & 31, w = tid >> 5;
   constexpr int NW = THREADS / 32;
   const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
@@ -598,7 +665,7 @@ __device__ __forceinline__ void attention_body(const Attn& a,
         float4 ev[TU];
 #pragma unroll
         for (int u = 0; u < TU; ++u)
-          ev[u] = tb + u < tc ? __ldg(E4 + (long)(tb + u) * H4 + h) : zero;
+          ev[u] = tb + u < tc ? ldg4(E4, (long)(tb + u) * H4 + h) : zero;
 #pragma unroll
         for (int n = 0; n < NQ; ++n) {
           if (g + n < N) {
@@ -667,6 +734,15 @@ __device__ __forceinline__ void attention_body(const Attn& a,
       sum = warp_sum(sum);
       if (lane == 0) sm[n] = sum;
     }
+    if constexpr (ROUND) {
+      cluster.sync();
+      for (int n = w; n < N; n += NW) {
+        float z = 0.f;
+        for (int s = 0; s < cs; ++s) z += *cluster.map_shared_rank(sm + n, s);
+        for (int t = lane; t < tc; t += 32)
+          S[n * tcf + t] = bf16_round(S[n * tcf + t] / z);
+      }
+    }
   }
   __syncthreads();
   // unnormalised context partials: the two halves of the block take
@@ -682,7 +758,7 @@ __device__ __forceinline__ void attention_body(const Attn& a,
         float4 ev[TC];
 #pragma unroll
         for (int u = 0; u < TC; ++u)
-          ev[u] = t + 2 * u < tc ? __ldg(E4 + (long)(t + 2 * u) * H4 + h)
+          ev[u] = t + 2 * u < tc ? ldg4(E4, (long)(t + 2 * u) * H4 + h)
                                  : zero;
 #pragma unroll
         for (int u = 0; u < TC; ++u) {
@@ -712,14 +788,15 @@ __device__ __forceinline__ void attention_body(const Attn& a,
     if (h >= H) continue;
     float z = 0.f, v = 0.f;
     for (int s = 0; s < cs; ++s) {
-      if constexpr (MODE != ATTN_BWD) z += *cluster.map_shared_rank(sm + n, s);
+      if constexpr (MODE != ATTN_BWD && !ROUND)
+        z += *cluster.map_shared_rank(sm + n, s);
       const float* p0 = reinterpret_cast<const float*>(
           cluster.map_shared_rank(qs, s));
       const float* p1 = reinterpret_cast<const float*>(
           cluster.map_shared_rank(pc1, s));
       v += p0[n * H + h] + p1[n * H + h];
     }
-    if constexpr (MODE != ATTN_BWD) v *= 1.f / z;
+    if constexpr (MODE != ATTN_BWD && !ROUND) v *= 1.f / z;
     a.cv[((long)b * N + n) * H + h] = v;
   }
   if constexpr (MODE == ATTN_TRAIN) {
@@ -734,18 +811,21 @@ __device__ __forceinline__ void attention_body(const Attn& a,
   cluster.sync();
 }
 
-__global__ void __launch_bounds__(THREADS) attention_kernel(Attn a) {
-  attention_body<ATTN_EVAL>(a, AttnAux{});
+// One block an SM (every block asks for EXCLUSIVE_SMEM): registers up to
+// 255 a thread, so the scores' and context's loads in flight do not spill.
+template <typename W>
+__global__ void __launch_bounds__(THREADS, 1) attention_kernel(Attn a) {
+  attention_body<ATTN_EVAL, W>(a, AttnAux{});
 }
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
     attention_train_kernel(Attn a, AttnAux x) {
-  attention_body<ATTN_TRAIN>(a, x);
+  attention_body<ATTN_TRAIN, float>(a, x);
 }
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
     attention_bwd_kernel(Attn a, AttnAux x) {
-  attention_body<ATTN_BWD>(a, x);
+  attention_body<ATTN_BWD, float>(a, x);
 }
 
 // The launch state below is shared by every host thread of the process
@@ -847,11 +927,11 @@ cudaError_t launch_clustered(void (*kernel)(KArgs...), size_t* opted,
 
 // extra: the CellTrainOut of a PROD_CELL_TRAIN launch, the BwdEpilogue of
 // a PROD_BWD one, else nothing.
-template <int TR, int RGN, int MODE, typename... Extra>
+template <int TR, int RGN, int MODE, typename W, typename... Extra>
 cudaError_t launch_prod_tile(const Prod& a, int col_blocks, cudaStream_t s,
                              const Extra&... extra) {
-  using S = ProdShape<TR, RGN>;
-  static size_t opted[MAX_DEVICES] = {};  // of this (tile, mode)'s kernel
+  using S = ProdShape<TR, RGN, W>;
+  static size_t opted[MAX_DEVICES] = {};  // of this (tile, mode, W)'s kernel
   int ktot = 0;
   for (int i = 0; i < a.nseg; ++i) ktot += a.seg[i].K;
   const int row_chunks = (a.R + S::RB - 1) / S::RB;
@@ -864,43 +944,46 @@ cudaError_t launch_prod_tile(const Prod& a, int col_blocks, cudaStream_t s,
                             S::BYTES, col_blocks, row_chunks, ktot / KT, s, a,
                             extra...);
   else
-    return launch_clustered(prod_kernel<TR, RGN, MODE == PROD_CELL>, opted,
-                            MODE, S::RB, S::BYTES, col_blocks, row_chunks,
-                            ktot / KT, s, a);
+    return launch_clustered(prod_kernel<TR, RGN, MODE == PROD_CELL, W>,
+                            opted, MODE, S::RB, S::BYTES, col_blocks,
+                            row_chunks, ktot / KT, s, a);
 }
 
 // Rows per thread and row groups by R: all rows in one block up to 256,
 // the input quads of a tile split over KGN = 16 / RGN thread groups.
-template <int MODE, typename... Extra>
+template <int MODE, typename W = float, typename... Extra>
 cudaError_t launch_prod(const Prod& a, cudaStream_t s,
                         const Extra&... extra) {
   const int cols = MODE == PROD_CELL || MODE == PROD_CELL_TRAIN
                        ? a.N / UNITS
                        : (a.N + NC - 1) / NC;
   const int R = a.R;
-  if (R <= 16) return launch_prod_tile<4, 4, MODE>(a, cols, s, extra...);
-  if (R <= 32) return launch_prod_tile<8, 4, MODE>(a, cols, s, extra...);
-  if (R <= 64) return launch_prod_tile<8, 8, MODE>(a, cols, s, extra...);
-  if (R <= 128) return launch_prod_tile<8, 16, MODE>(a, cols, s, extra...);
-  if (R <= 160) return launch_prod_tile<10, 16, MODE>(a, cols, s, extra...);
-  return launch_prod_tile<16, 16, MODE>(a, cols, s, extra...);
+  if (R <= 16) return launch_prod_tile<4, 4, MODE, W>(a, cols, s, extra...);
+  if (R <= 32) return launch_prod_tile<8, 4, MODE, W>(a, cols, s, extra...);
+  if (R <= 64) return launch_prod_tile<8, 8, MODE, W>(a, cols, s, extra...);
+  if (R <= 128)
+    return launch_prod_tile<8, 16, MODE, W>(a, cols, s, extra...);
+  if (R <= 160)
+    return launch_prod_tile<10, 16, MODE, W>(a, cols, s, extra...);
+  return launch_prod_tile<16, 16, MODE, W>(a, cols, s, extra...);
 }
 
 // A wave in mode MODE at the row tiling <TR, RGN>: `cols` column blocks
 // over all its products, whose shortest input axis has `tiles` tiles.
-template <int TR, int RGN, int MODE, typename Extra>
+template <int TR, int RGN, int MODE, typename W, typename Extra>
 cudaError_t launch_wave_tile(const Wave<Extra>& w, int cols, int tiles,
                              cudaStream_t s) {
-  using S = ProdShape<TR, RGN>;
-  static size_t opted[MAX_DEVICES] = {};  // of this (tile, mode)'s kernel
+  using S = ProdShape<TR, RGN, W>;
+  static size_t opted[MAX_DEVICES] = {};  // of this (tile, mode, W)'s kernel
   const int row_chunks = (w.p[0].R + S::RB - 1) / S::RB;
-  return launch_clustered(wave_kernel<TR, RGN, MODE, Extra>, opted, MODE + 3,
-                          S::RB, S::BYTES, cols, row_chunks, tiles, s, w);
+  return launch_clustered(wave_kernel<TR, RGN, MODE, Extra, W>, opted,
+                          MODE + 3, S::RB, S::BYTES, cols, row_chunks, tiles,
+                          s, w);
 }
 
 // The wave's column blocks counted into cb_end, then launch_prod's row
 // tilings.
-template <int MODE, typename Extra>
+template <int MODE, typename W = float, typename Extra>
 cudaError_t launch_wave(Wave<Extra>& w, cudaStream_t s) {
   int cols = 0, tiles = 1 << 30;
   for (int g = 0; g < w.n; ++g) {
@@ -912,22 +995,24 @@ cudaError_t launch_wave(Wave<Extra>& w, cudaStream_t s) {
     tiles = min(tiles, ktot / KT);
   }
   const int R = w.p[0].R;
-  if (R <= 16) return launch_wave_tile<4, 4, MODE>(w, cols, tiles, s);
-  if (R <= 32) return launch_wave_tile<8, 4, MODE>(w, cols, tiles, s);
-  if (R <= 64) return launch_wave_tile<8, 8, MODE>(w, cols, tiles, s);
-  if (R <= 128) return launch_wave_tile<8, 16, MODE>(w, cols, tiles, s);
-  if (R <= 160) return launch_wave_tile<10, 16, MODE>(w, cols, tiles, s);
-  return launch_wave_tile<16, 16, MODE>(w, cols, tiles, s);
+  if (R <= 16) return launch_wave_tile<4, 4, MODE, W>(w, cols, tiles, s);
+  if (R <= 32) return launch_wave_tile<8, 4, MODE, W>(w, cols, tiles, s);
+  if (R <= 64) return launch_wave_tile<8, 8, MODE, W>(w, cols, tiles, s);
+  if (R <= 128) return launch_wave_tile<8, 16, MODE, W>(w, cols, tiles, s);
+  if (R <= 160) return launch_wave_tile<10, 16, MODE, W>(w, cols, tiles, s);
+  return launch_wave_tile<16, 16, MODE, W>(w, cols, tiles, s);
 }
 
-// Attention for B utterances of N rows each, in mode MODE; extra: the
-// AttnAux of the training modes.  Shared memory for one block per
-// utterance, the most any cluster size needs.
-template <int MODE, typename... KArgs, typename... Extra>
+// Attention for B utterances of N rows each, in mode MODE over encoder
+// states of W; extra: the AttnAux of the training modes.  Shared memory
+// for one block per utterance, the most any cluster size needs.
+template <int MODE, typename W, typename... KArgs, typename... Extra>
 cudaError_t launch_attention_mode(void (*kernel)(KArgs...), const Attn& a,
                                   int B, cudaStream_t s,
                                   const Extra&... extra) {
-  static size_t opted[MAX_DEVICES] = {};  // of this mode's one kernel
+  // of this (mode, W)'s one kernel: the two eval kernels share a
+  // signature, so W keeps their opt-ins apart
+  static size_t opted[MAX_DEVICES] = {};
   size_t bytes =
       ((size_t)2 * a.N * a.H + (size_t)a.N * a.T + 2 * a.N) * sizeof(float);
   if (bytes < EXCLUSIVE_SMEM) bytes = EXCLUSIVE_SMEM;
@@ -937,12 +1022,13 @@ cudaError_t launch_attention_mode(void (*kernel)(KArgs...), const Attn& a,
 
 }  // namespace
 
-cudaError_t decode_step(const StepWeights& w, const float* enc, int T,
+template <typename W>
+cudaError_t decode_step(const StepWeightsT<W>& w, const W* enc, int T,
                         int rows_per_utt, const DecoderStep& st, int R,
                         const int* done, cudaStream_t s) {
   const int H = w.H;
   const long H4 = 4L * H, RH = (long)R * H;
-  const float* cell_w = w.cell;
+  const W* cell_w = w.cell;
   for (int l = 0; l < w.L; ++l) {
     // inputs [emb | ht_prev | h_prev] (layer 0) or [h_below | h_prev];
     // the previous step's state at the parent row
@@ -968,7 +1054,7 @@ cudaError_t decode_step(const StepWeights& w, const float* enc, int T,
     a.c_idx = st.parent;
     a.c_out = st.c_out + l * RH;
     a.done = done;
-    STEP_RETURN_IF_ERR(launch_prod<PROD_CELL>(a, s));
+    STEP_RETURN_IF_ERR((launch_prod<PROD_CELL, W>(a, s)));
   }
   const float* top = st.h_out + (w.L - 1) * RH;
 
@@ -981,11 +1067,12 @@ cudaError_t decode_step(const StepWeights& w, const float* enc, int T,
   q.N = H;
   q.out = st.q;
   q.done = done;
-  STEP_RETURN_IF_ERR(launch_prod<PROD_LINEAR>(q, s));
+  STEP_RETURN_IF_ERR((launch_prod<PROD_LINEAR, W>(q, s)));
 
   const int N = rows_per_utt;
-  STEP_RETURN_IF_ERR(launch_attention_mode<ATTN_EVAL>(
-      attention_kernel, Attn{enc, st.q, st.cv, N, T, H, done}, R / N, s));
+  STEP_RETURN_IF_ERR((launch_attention_mode<ATTN_EVAL, W>(
+      attention_kernel<W>, Attn{enc, st.q, st.cv, N, T, H, done}, R / N,
+      s)));
 
   Prod c = {};
   c.seg[0] = Seg{st.cv, nullptr, H};
@@ -998,7 +1085,7 @@ cudaError_t decode_step(const StepWeights& w, const float* enc, int T,
   c.act_tanh = 1;
   c.out = st.ht_out;
   c.done = done;
-  STEP_RETURN_IF_ERR(launch_prod<PROD_LINEAR>(c, s));
+  STEP_RETURN_IF_ERR((launch_prod<PROD_LINEAR, W>(c, s)));
 
   Prod o = {};
   o.seg[0] = Seg{st.ht_out, nullptr, w.A};
@@ -1009,8 +1096,16 @@ cudaError_t decode_step(const StepWeights& w, const float* enc, int T,
   o.N = w.V;
   o.out = st.logits;
   o.done = done;
-  return launch_prod<PROD_LINEAR>(o, s);
+  return launch_prod<PROD_LINEAR, W>(o, s);
 }
+
+template cudaError_t decode_step<float>(const StepWeightsT<float>&,
+                                        const float*, int, int,
+                                        const DecoderStep&, int, const int*,
+                                        cudaStream_t);
+template cudaError_t decode_step<__nv_bfloat16>(
+    const StepWeightsT<__nv_bfloat16>&, const __nv_bfloat16*, int, int,
+    const DecoderStep&, int, const int*, cudaStream_t);
 
 cudaError_t launch_linear_prod(const Prod& a, cudaStream_t s) {
   return launch_prod<PROD_LINEAR>(a, s);
@@ -1018,17 +1113,21 @@ cudaError_t launch_linear_prod(const Prod& a, cudaStream_t s) {
 
 cudaError_t launch_cell_train_prod(const Prod& a, const CellTrainOut& tr,
                                    cudaStream_t s) {
-  return launch_prod<PROD_CELL_TRAIN>(a, s, tr);
+  return launch_prod<PROD_CELL_TRAIN, float>(a, s, tr);
 }
 
 cudaError_t launch_bwd_prod(const Prod& a, const BwdEpilogue& e,
                             cudaStream_t s) {
-  return launch_prod<PROD_BWD>(a, s, e);
+  return launch_prod<PROD_BWD, float>(a, s, e);
 }
 
 cudaError_t launch_cell_wave(Wave<EncCell>& w, bool train, cudaStream_t s) {
   return train ? launch_wave<PROD_WAVE_CELL_TRAIN>(w, s)
                : launch_wave<PROD_WAVE_CELL>(w, s);
+}
+
+cudaError_t launch_cell_wave_bf16(Wave<EncCell>& w, cudaStream_t s) {
+  return launch_wave<PROD_WAVE_CELL, __nv_bfloat16>(w, s);
 }
 
 cudaError_t launch_linear_wave(Wave<NoExtra>& w, cudaStream_t s) {
@@ -1038,7 +1137,7 @@ cudaError_t launch_linear_wave(Wave<NoExtra>& w, cudaStream_t s) {
 cudaError_t launch_attention_train(const float* enc, const float* q,
                                    float* cv, float* alphas, int R, int T,
                                    int H, cudaStream_t s) {
-  return launch_attention_mode<ATTN_TRAIN>(
+  return launch_attention_mode<ATTN_TRAIN, float>(
       attention_train_kernel, Attn{enc, q, cv, 1, T, H, nullptr}, R, s,
       AttnAux{nullptr, alphas});
 }
@@ -1047,7 +1146,7 @@ cudaError_t launch_attention_bwd(const float* enc, const float* alphas,
                                  const float* d_cv, float* d_scores,
                                  float* d_q, int R, int T, int H,
                                  cudaStream_t s) {
-  return launch_attention_mode<ATTN_BWD>(
+  return launch_attention_mode<ATTN_BWD, float>(
       attention_bwd_kernel, Attn{enc, d_cv, d_q, 1, T, H, nullptr}, R, s,
       AttnAux{alphas, d_scores});
 }

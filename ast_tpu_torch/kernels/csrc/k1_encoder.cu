@@ -29,6 +29,12 @@
 // t & 1 while layer l - 1, one step ahead, writes its slot (t + 1) & 1,
 // so two slots do; c is updated in place (one thread owns an element).
 // Train mode reads and writes the residual streams themselves.
+//
+// bfloat16 (eval only; ast_tpu's compute_dtype bfloat16): the packed
+// [wx; wh] in bf16, each product's inputs (the layer below's h and the
+// layer's own h) rounded to bf16 as the product reads them, the sums, the
+// bias (not rounded, as in ast_tpu), x0_proj, the state and the outputs in
+// f32 (decode_step.cu's products at W = __nv_bfloat16).
 #include "common.cuh"
 
 namespace {
@@ -41,7 +47,7 @@ using ast::Seg;
 // and the dropout.
 struct Encoder {
   const float* x0;
-  const float* w;
+  const void* w;  // float, or __nv_bfloat16 when bf16
   const float* b;
   float* outs;
   float* hbuf;
@@ -54,7 +60,7 @@ struct Encoder {
   int L, D2, B, H;
   unsigned seed, threshold;
   float keep_scale;
-  bool train;
+  bool train, bf16;
 };
 
 // The product of cell (t, l) in direction d.
@@ -89,21 +95,28 @@ void cell_group(const Encoder& e, int t, int l, int d, Prod* p, EncCell* x) {
     p->c_in = e.c + ld * BH;
     p->c_out = e.c + ld * BH;
   }
+  const char* wb = static_cast<const char*>(e.w);
+  const long esize = e.bf16 ? 2 : 4;
   if (l == 0) {
     p->seg[0] = Seg{h_prev, nullptr, H};
     p->nseg = 1;
-    p->w = e.w + d * H * H4;
+    p->w = wb + esize * (d * H * H4);
     x->pre = e.x0 + ((long)t * D2 + d) * e.B * H4;
   } else {
     p->seg[0] = Seg{x_in, nullptr, H};
     p->seg[1] = Seg{h_prev, nullptr, H};
     p->nseg = 2;
-    p->w = e.w + D2 * H * H4 + (ld - D2) * 2 * H * H4;
+    p->w = wb + esize * (D2 * H * H4 + (ld - D2) * 2 * H * H4);
   }
   p->bias = e.b + ld * H4;
   p->R = e.B;
   p->N = H;
   if (l == L - 1) x->y_out = e.outs + ((long)t * D2 + d) * BH;
+}
+
+cudaError_t launch(const Encoder& e, ast::Wave<EncCell>& w, cudaStream_t s) {
+  return e.bf16 ? ast::launch_cell_wave_bf16(w, s)
+                : ast::launch_cell_wave(w, e.train, s);
 }
 
 // cells: (t, l) pairs; wave i is cells[wave_start[i] .. wave_start[i + 1]).
@@ -117,17 +130,37 @@ int run_waves(const Encoder& e, const int* cells, const int* wave_start,
         cell_group(e, cells[2 * k], cells[2 * k + 1], d, &w.p[w.n],
                    &w.x[w.n]);
         if (++w.n == ast::MAX_WAVE_GROUPS) {  // a wide wave takes several
-          AST_RETURN_IF_ERR(ast::launch_cell_wave(w, e.train, s));
+          AST_RETURN_IF_ERR(launch(e, w, s));
           w.n = 0;
         }
       }
     }
-    if (w.n) AST_RETURN_IF_ERR(ast::launch_cell_wave(w, e.train, s));
+    if (w.n) AST_RETURN_IF_ERR(launch(e, w, s));
   }
   return (int)cudaGetLastError();
 }
 
 }  // namespace
+
+static int forward_eval(const float* x0, const void* w, const float* b,
+                        float* outs, float* hbuf, float* c, const int* cells,
+                        const int* wave_start, int n_waves, int L, int D2,
+                        int B, int H, bool bf16, void* stream) {
+  Encoder e = {};
+  e.bf16 = bf16;
+  e.x0 = x0;
+  e.w = w;
+  e.b = b;
+  e.outs = outs;
+  e.hbuf = hbuf;
+  e.c = c;
+  e.L = L;
+  e.D2 = D2;
+  e.B = B;
+  e.H = H;
+  return run_waves(e, cells, wave_start, n_waves,
+                   static_cast<cudaStream_t>(stream));
+}
 
 // x0:   (T, D2, B, 4H) layer-0 input projection
 // w:    the packed [wx; wh] of every (layer, direction) (see above)
@@ -142,19 +175,21 @@ AST_EXPORT int k1_encoder_forward(const float* x0, const float* w,
                                   float* c, const int* cells,
                                   const int* wave_start, int n_waves, int L,
                                   int D2, int B, int H, void* stream) {
-  Encoder e = {};
-  e.x0 = x0;
-  e.w = w;
-  e.b = b;
-  e.outs = outs;
-  e.hbuf = hbuf;
-  e.c = c;
-  e.L = L;
-  e.D2 = D2;
-  e.B = B;
-  e.H = H;
-  return run_waves(e, cells, wave_start, n_waves,
-                   static_cast<cudaStream_t>(stream));
+  return forward_eval(x0, w, b, outs, hbuf, c, cells, wave_start, n_waves,
+                      L, D2, B, H, false, stream);
+}
+
+// The same with the packed weights w in bfloat16 (everything else f32).
+AST_EXPORT int k1_encoder_forward_bf16(const float* x0,
+                                       const __nv_bfloat16* w,
+                                       const float* b, float* outs,
+                                       float* hbuf, float* c,
+                                       const int* cells,
+                                       const int* wave_start, int n_waves,
+                                       int L, int D2, int B, int H,
+                                       void* stream) {
+  return forward_eval(x0, w, b, outs, hbuf, c, cells, wave_start, n_waves,
+                      L, D2, B, H, true, stream);
 }
 
 // Train mode.  x0, w, b, outs and the schedule as above; residual

@@ -23,6 +23,12 @@
 // of a step reads it and returns at once after the last row's EOS, so the
 // host loop never synchronises.  Every launch is a programmatic dependent
 // launch.
+//
+// bfloat16 (k5_greedy_decode_bf16; ast_tpu's compute_dtype bfloat16): the
+// packed matrices and the encoder states in bf16, the embedding and the
+// biases f32 holding bf16 values, h, c, ht, the logits and the argmax in
+// f32 -- decode_step.cu's step at W = __nv_bfloat16, which reads half the
+// weight and encoder bytes a step.
 #include "common.cuh"
 
 namespace {
@@ -57,25 +63,19 @@ __global__ void greedy_argmax_kernel(const float* logits, int B, int V,
   }
 }
 
-}  // namespace
-
-// enc: (B, T, H); weights as in ast::StepWeights.
-// State, initialised by the caller: hbuf and cbuf (2, L, B, H) with h0 /
-// c0 in slot 0, htbuf (2, B, A) with 0 in slot 0, tok_in (B) = GO, fin
-// (B) = 0, done (1) = 0.  Scratch: q, cv (B, H), logits (B, V).
-// Output: tok_out (stop, B) int32.
-AST_EXPORT int k5_greedy_decode(
-    const float* enc, const float* embed, const float* cell,
-    const float* bias, const float* wa, const float* wa_b,
-    const float* ctx_w, const float* ctx_b, const float* out_w,
-    const float* out_b, float* hbuf,
-    float* cbuf, float* htbuf, int* tok_in, int* fin, int* done, float* q,
-    float* cv, float* logits, int* tok_out, int B, int T, int H, int L,
-    int E, int A, int V, int stop, void* stream) {
+template <typename W>
+int greedy_decode(const W* enc, const float* embed, const W* cell,
+                  const float* bias, const W* wa, const float* wa_b,
+                  const W* ctx_w, const float* ctx_b, const W* out_w,
+                  const float* out_b, float* hbuf, float* cbuf,
+                  float* htbuf, int* tok_in, int* fin, int* done, float* q,
+                  float* cv, float* logits, int* tok_out, int B, int T,
+                  int H, int L, int E, int A, int V, int stop,
+                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const ast::StepWeights w = {embed, cell,  bias,  wa, wa_b, ctx_w,
-                              ctx_b, out_w, out_b, L,  H,    E,
-                              A,     V};
+  const ast::StepWeightsT<W> w = {embed, cell,  bias,  wa, wa_b, ctx_w,
+                                  ctx_b, out_w, out_b, L,  H,    E,
+                                  A,     V};
   const long state = (long)L * B * H;
   for (int t = 0; t < stop; ++t) {
     const int i = t & 1, o = i ^ 1;
@@ -97,4 +97,38 @@ AST_EXPORT int k5_greedy_decode(
                                      done));
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// enc: (B, T, H); weights as in ast::StepWeightsT.
+// State, initialised by the caller: hbuf and cbuf (2, L, B, H) with h0 /
+// c0 in slot 0, htbuf (2, B, A) with 0 in slot 0, tok_in (B) = GO, fin
+// (B) = 0, done (1) = 0.  Scratch: q, cv (B, H), logits (B, V).
+// Output: tok_out (stop, B) int32.
+AST_EXPORT int k5_greedy_decode(
+    const float* enc, const float* embed, const float* cell,
+    const float* bias, const float* wa, const float* wa_b,
+    const float* ctx_w, const float* ctx_b, const float* out_w,
+    const float* out_b, float* hbuf,
+    float* cbuf, float* htbuf, int* tok_in, int* fin, int* done, float* q,
+    float* cv, float* logits, int* tok_out, int B, int T, int H, int L,
+    int E, int A, int V, int stop, void* stream) {
+  return greedy_decode(enc, embed, cell, bias, wa, wa_b, ctx_w, ctx_b, out_w,
+                       out_b, hbuf, cbuf, htbuf, tok_in, fin, done, q, cv,
+                       logits, tok_out, B, T, H, L, E, A, V, stop, stream);
+}
+
+// The same with enc, cell, wa, ctx_w and out_w in bfloat16.
+AST_EXPORT int k5_greedy_decode_bf16(
+    const __nv_bfloat16* enc, const float* embed, const __nv_bfloat16* cell,
+    const float* bias, const __nv_bfloat16* wa, const float* wa_b,
+    const __nv_bfloat16* ctx_w, const float* ctx_b,
+    const __nv_bfloat16* out_w, const float* out_b, float* hbuf,
+    float* cbuf, float* htbuf, int* tok_in, int* fin, int* done, float* q,
+    float* cv, float* logits, int* tok_out, int B, int T, int H, int L,
+    int E, int A, int V, int stop, void* stream) {
+  return greedy_decode(enc, embed, cell, bias, wa, wa_b, ctx_w, ctx_b, out_w,
+                       out_b, hbuf, cbuf, htbuf, tok_in, fin, done, q, cv,
+                       logits, tok_out, B, T, H, L, E, A, V, stop, stream);
 }

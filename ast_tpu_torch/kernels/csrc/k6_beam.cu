@@ -30,6 +30,12 @@
 // block of a step counts the utterances whose slots have all finished);
 // later steps stream EOS, identity parents and valid = 0.  Every launch
 // is a programmatic dependent launch.
+//
+// bfloat16 (k6_beam_decode_bf16; ast_tpu's compute_dtype bfloat16): the
+// packed matrices and the encoder states in bf16, the embedding and the
+// biases f32 holding bf16 values; h, c, ht, the logits, the log-softmax,
+// top-K and the scores in f32 (decode_step.cu's step at W =
+// __nv_bfloat16).
 #include <limits.h>
 #include <math.h>
 
@@ -180,9 +186,7 @@ __global__ void beam_step_kernel(const float* logits, int V, int N, int K,
   }
 }
 
-}  // namespace
-
-// enc: (B, T, H); weights as in ast::StepWeights; R = B * N.
+// enc: (B, T, H); weights as in ast::StepWeightsT<W>; R = B * N.
 // State, initialised by the caller: hbuf and cbuf (2, L, R, H) with h0 /
 // c0 (repeated N times per utterance) in slot 0, htbuf (2, R, A) with 0
 // in slot 0, tok_in (R) = GO, score (R) = 0 for slot 0 of each utterance
@@ -190,20 +194,20 @@ __global__ void beam_step_kernel(const float* logits, int V, int N, int K,
 // 0 .. R-1, count (2) = 0.  Scratch: q, cv (R, H), logits (R, V).
 // Outputs: tok_out, par_out, val_out (stop, R) int32; score holds the
 // final scores.
-AST_EXPORT int k6_beam_decode(
-    const float* enc, const float* embed, const float* cell,
-    const float* bias, const float* wa, const float* wa_b,
-    const float* ctx_w, const float* ctx_b, const float* out_w,
-    const float* out_b, float* hbuf,
-    float* cbuf, float* htbuf, int* tok_in, float* score, int* fin,
-    int* done, int* parent, int* count, float* q, float* cv, float* logits,
-    int* tok_out, int* par_out, int* val_out, int B, int N, int K, int T,
-    int H, int L, int E, int A, int V, int stop, void* stream) {
+template <typename W>
+int beam_decode(const W* enc, const float* embed, const W* cell,
+                const float* bias, const W* wa, const float* wa_b,
+                const W* ctx_w, const float* ctx_b, const W* out_w,
+                const float* out_b, float* hbuf, float* cbuf, float* htbuf,
+                int* tok_in, float* score, int* fin, int* done, int* parent,
+                int* count, float* q, float* cv, float* logits, int* tok_out,
+                int* par_out, int* val_out, int B, int N, int K, int T,
+                int H, int L, int E, int A, int V, int stop, void* stream) {
   if (N > 32) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const ast::StepWeights w = {embed, cell,  bias,  wa, wa_b, ctx_w,
-                              ctx_b, out_w, out_b, L,  H,    E,
-                              A,     V};
+  const ast::StepWeightsT<W> w = {embed, cell,  bias,  wa, wa_b, ctx_w,
+                                  ctx_b, out_w, out_b, L,  H,    E,
+                                  A,     V};
   const int R = B * N;
   const long state = (long)L * R * H;
   const size_t cand_bytes = (size_t)N * K * (sizeof(float) + sizeof(int));
@@ -229,4 +233,37 @@ AST_EXPORT int k6_beam_decode(
         par_out + off, val_out + off, count, done));
   }
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+AST_EXPORT int k6_beam_decode(
+    const float* enc, const float* embed, const float* cell,
+    const float* bias, const float* wa, const float* wa_b,
+    const float* ctx_w, const float* ctx_b, const float* out_w,
+    const float* out_b, float* hbuf,
+    float* cbuf, float* htbuf, int* tok_in, float* score, int* fin,
+    int* done, int* parent, int* count, float* q, float* cv, float* logits,
+    int* tok_out, int* par_out, int* val_out, int B, int N, int K, int T,
+    int H, int L, int E, int A, int V, int stop, void* stream) {
+  return beam_decode(enc, embed, cell, bias, wa, wa_b, ctx_w, ctx_b, out_w,
+                     out_b, hbuf, cbuf, htbuf, tok_in, score, fin, done,
+                     parent, count, q, cv, logits, tok_out, par_out, val_out,
+                     B, N, K, T, H, L, E, A, V, stop, stream);
+}
+
+// The same with enc, cell, wa, ctx_w and out_w in bfloat16.
+AST_EXPORT int k6_beam_decode_bf16(
+    const __nv_bfloat16* enc, const float* embed, const __nv_bfloat16* cell,
+    const float* bias, const __nv_bfloat16* wa, const float* wa_b,
+    const __nv_bfloat16* ctx_w, const float* ctx_b,
+    const __nv_bfloat16* out_w, const float* out_b, float* hbuf,
+    float* cbuf, float* htbuf, int* tok_in, float* score, int* fin,
+    int* done, int* parent, int* count, float* q, float* cv, float* logits,
+    int* tok_out, int* par_out, int* val_out, int B, int N, int K, int T,
+    int H, int L, int E, int A, int V, int stop, void* stream) {
+  return beam_decode(enc, embed, cell, bias, wa, wa_b, ctx_w, ctx_b, out_w,
+                     out_b, hbuf, cbuf, htbuf, tok_in, score, fin, done,
+                     parent, count, q, cv, logits, tok_out, par_out, val_out,
+                     B, N, K, T, H, L, E, A, V, stop, stream);
 }

@@ -24,6 +24,14 @@ counterparts of its conditions:
 
 The ``fused_encoder`` / ``fused_decoder`` / ``fused_infer`` config flags
 are ignored: no config turns a kernel off on the card.
+
+Decoding also runs at ``compute_dtype`` bfloat16 (``ast_tpu``'s
+``extras.compute_dtype``): :func:`decode_weights` packs the weights in
+bf16, the conv front-end's im2col products and the hoisted layer-0
+projection round their operands to bf16 and multiply in f32, K1 eval runs
+its bf16 mode, and the encoder states are rounded to bf16 before K5 / K6
+(``ops.bf16``).  The model variants routed to the scan path are refused
+there by name (``fused_infer.require_bf16_variant``).
 """
 
 import dataclasses
@@ -34,13 +42,15 @@ import torch
 
 from ast_tpu_torch.symbols import SYMBOLS
 from ast_tpu_torch.ops.attention import luong_attention
+from ast_tpu_torch.ops.bf16 import BF16, rounded
 from ast_tpu_torch.ops.cnn import BN_DECAY, BN_EPS, conv_frontend, conv_out_len
 from ast_tpu_torch.ops.dropout import drop_mask
+from ast_tpu_torch.ops.embedding import embedding_lookup
 from ast_tpu_torch.ops.fused_decoder import (
     W_NAMES, FusedDecoder, embed_drop_mask, rnn_drop_mask)
 from ast_tpu_torch.ops.fused_infer import (
     greedy_decode_fused, greedy_reference, infer_variant_ok,
-    pack_step_weights)
+    pack_step_weights, require_bf16_variant)
 from ast_tpu_torch.ops.fused_lstm import (
     ENCODER_TILE, FusedStackedLSTM, fused_stacked_lstm,
     pack_encoder_step_weights, pack_encoder_weights, stacked_lstm_reference)
@@ -191,18 +201,21 @@ def direction_stacked(layers):
 # encoder
 # ---------------------------------------------------------------------------
 
-def encoder_weights(params):
+def encoder_weights(params, dtype=torch.float32):
     """The encoder recurrence's weights as K1 takes them, (wx_rest, wh, b,
     packed): the direction-stacked layers and the layout its products
     read (``fused_lstm.pack_encoder_step_weights``; None at a width the
     kernel does not take, which only the plain version runs).  Made once
     per model for decoding (:func:`decode_weights`); None for a
     ``linear_proj`` encoder, whose layers run one by one on the scan
-    path."""
+    path.  ``dtype`` bf16: ``wx_rest``, ``wh`` and the pack in bf16, ``b``
+    f32 (``ast_tpu`` casts the two matrices only)."""
     if params["enc"]["proj"]:
         return None
     wx_rest, wh, b = pack_encoder_weights(
         direction_stacked(params["enc"]["lstm"]))
+    if dtype == BF16:
+        wx_rest, wh = wx_rest.to(BF16), wh.to(BF16)
     packed = None
     if wh.shape[2] % ENCODER_TILE == 0:
         packed = pack_encoder_step_weights(wx_rest, wh)
@@ -214,7 +227,7 @@ def _source(params, X):
     ids (B, T)) their embedding rows, without noise."""
     if X.is_floating_point():
         return X
-    return params["enc"]["embed"][X.long()]
+    return embedding_lookup(params["enc"]["embed"], X)
 
 
 def _direction_stack(seq, bi, rev_quirk=False):
@@ -230,7 +243,8 @@ def _direction_stack(seq, bi, rev_quirk=False):
     return torch.stack([seq, rev], dim=1)
 
 
-def encoder_inputs(params, state, mcfg, X, train=False, enc_w=None):
+def encoder_inputs(params, state, mcfg, X, train=False, enc_w=None,
+                   compute_dtype=torch.float32):
     """Conv front-end, direction stacking and the hoisted layer-0
     projection: everything of :func:`encode` before the recurrence of a
     stacked encoder.
@@ -240,18 +254,26 @@ def encoder_inputs(params, state, mcfg, X, train=False, enc_w=None):
     wx_rest, wh, b), the last three stacked here or, with ``enc_w``
     (:func:`encoder_weights`), taken from it together with the packed
     layout; with ``train`` (batch-statistics BatchNorm) also the new BN
-    state."""
+    state.  ``compute_dtype`` bf16 (eval): the conv products and the
+    layer-0 projection round their operands to bf16, x0_proj stays f32,
+    and the recurrence's matrices come in bf16."""
     rnn = mcfg["rnn_config"]
     h_cnn, cnn_state = conv_frontend(params["cnn"], state["cnn_bn"],
                                      mcfg["cnn_config"], _source(params, X),
-                                     train)
+                                     train, compute_dtype)
     xs = _direction_stack(h_cnn.transpose(0, 1), rnn["bi_rnn"],
                           rnn.get("ref_rev_quirk", False))
     layers = direction_stacked(params["enc"]["lstm"])
     # hoisted layer-0 projection: one large matmul for every step
-    x0_proj = torch.matmul(xs, layers[0]["wx"]).contiguous()
-    out = (x0_proj,) + (pack_encoder_weights(layers) if enc_w is None
-                        else tuple(enc_w))
+    wx0 = layers[0]["wx"]
+    if compute_dtype == BF16:
+        xs, wx0 = rounded(xs), rounded(wx0)
+    x0_proj = torch.matmul(xs, wx0).contiguous()
+    if enc_w is None:
+        enc_w = pack_encoder_weights(layers)
+        if compute_dtype == BF16:
+            enc_w = (enc_w[0].to(BF16), enc_w[1].to(BF16), enc_w[2])
+    out = (x0_proj,) + tuple(enc_w)
     if train:
         return out + ({"cnn_bn": cnn_state,
                        "enc_proj_bn": state["enc_proj_bn"]},)
@@ -341,33 +363,38 @@ def scan_encode(params, state, mcfg, X, train=False, seed=0):
     return encoder_outputs(*out[:3]) + (enc_in[4] if train else state,)
 
 
-def _encode_eval(params, state, mcfg, X, enc_w=None):
+def _encode_eval(params, state, mcfg, X, enc_w=None,
+                 compute_dtype=torch.float32):
     if not use_fused_encoder(mcfg):
         return scan_encode(params, state, mcfg, X)[:3]
     return encoder_outputs(*fused_stacked_lstm(*encoder_inputs(
-        params, state, mcfg, X, enc_w=enc_w)))
+        params, state, mcfg, X, enc_w=enc_w, compute_dtype=compute_dtype)))
 
 
-def encode(params, state, mcfg, X, w=None):
+def encode(params, state, mcfg, X, w=None, compute_dtype=torch.float32):
     """Conv front-end + encoder in eval mode, routed by
     :func:`use_fused_encoder`.
 
     X: (B, T, D) float32 or (B, T) token ids.  ``w``:
-    :func:`decode_weights` of ``params``, whose encoder weights are then
-    not packed again.  Returns (enc_states (B, T', H), dec_h0 (L, B, H),
-    dec_c0 (L, B, H))."""
+    :func:`decode_weights` of ``params`` at ``compute_dtype``, whose
+    encoder weights are then not packed again.  Returns (enc_states (B,
+    T', H), dec_h0 (L, B, H), dec_c0 (L, B, H)), all f32."""
+    if w is not None:
+        _check_weights_dtype(w, compute_dtype)
     return _encode_eval(params, state, mcfg, X,
-                        None if w is None else w["enc"])
+                        None if w is None else w["enc"], compute_dtype)
 
 
 # ---------------------------------------------------------------------------
 # decoder
 # ---------------------------------------------------------------------------
 
-def pack_decoder_weights(params):
+def pack_decoder_weights(params, dtype=torch.float32):
     """Decoder + attention params -> the dict the K5/K6 kernels and their
     plain versions take (ast_tpu's fused layout, no vocab padding; the
-    first attention head)."""
+    first attention head).  ``dtype`` bf16: every leaf cast to bf16,
+    biases and the embedding too, as ``ast_tpu``'s
+    ``pack_decoder_weights(params, bf16, Vp)``."""
     dec, attn = params["dec"], params["attn"]
     lstm = dec["lstm"]
     H = lstm[0]["wh"].shape[0]
@@ -383,20 +410,31 @@ def pack_decoder_weights(params):
         "ctx_w": attn["context"]["w"], "ctx_b": attn["context"]["b"],
         "out_w": dec["out_w"], "out_b": dec["out_b"],
     }
+    if dtype == BF16:
+        return {k: v.to(BF16).contiguous() for k, v in w.items()}
     return {k: v.contiguous() for k, v in w.items()}
 
 
-def decode_weights(params):
+def decode_weights(params, dtype=torch.float32):
     """The weights that greedy and beam decoding take:
     :func:`pack_decoder_weights` plus, under ``"step"``, the decode step
     kernels' layout (``fused_infer.pack_step_weights``) and, under
-    ``"enc"``, the encoder's (:func:`encoder_weights`).  Made once per
-    model -- a caller decoding many batches with the same params passes
-    it to every batch."""
-    w = pack_decoder_weights(params)
+    ``"enc"``, the encoder's (:func:`encoder_weights`), all at the
+    compute ``dtype``.  Made once per model -- a caller decoding many
+    batches with the same params passes it to every batch."""
+    w = pack_decoder_weights(params, dtype)
     w["step"] = pack_step_weights(w)
-    w["enc"] = encoder_weights(params)
+    w["enc"] = encoder_weights(params, dtype)
     return w
+
+
+def _check_weights_dtype(w, compute_dtype):
+    """Raise unless ``w`` (:func:`decode_weights`) was made at
+    ``compute_dtype``: bf16 or not."""
+    if (w["wh"].dtype == BF16) != (compute_dtype == BF16):
+        raise ValueError(f"decode weights in {w['wh'].dtype}, compute "
+                         f"dtype {compute_dtype}: make them with "
+                         f"decode_weights(params, {compute_dtype})")
 
 
 def init_decoder_carry(mcfg, dec_h0, dec_c0):
@@ -423,7 +461,7 @@ def decode_step(params, mcfg, enc_states, carry, token, drop=None,
     first head)."""
     rnn, rates, dec = mcfg["rnn_config"], mcfg["dropout"], params["dec"]
     B, dev = token.shape[0], enc_states.device
-    x = dec["embed"][token.long()]
+    x = embedding_lookup(dec["embed"], token)
     if drop is not None and rates["embed"] > 0:
         draws, t = drop
         x = dropout(x, embed_drop_mask(rates["embed"], draws.dec_seed, t, B,
@@ -476,16 +514,23 @@ def plain_step(params, mcfg, enc_mask=None):
 
 
 def predict_greedy(params, state, mcfg, X, stop_limit, w=None,
-                   enc_mask=None):
+                   enc_mask=None, compute_dtype=torch.float32):
     """Batched greedy decode: K5 when ``infer_variant_ok``, else the same
     loop over :func:`plain_step` (``ast_tpu``'s while loop).  Returns
     (preds (B, stop_limit) int32, n_steps 0-d int32): the steps until
     every row has produced its first EOS, capped at stop_limit.  ``w``:
-    :func:`decode_weights` of ``params``, made here when not given;
-    ``enc_mask`` (B, T') (:func:`make_enc_mask`)."""
+    :func:`decode_weights` of ``params`` at ``compute_dtype``, made here
+    when not given; ``enc_mask`` (B, T') (:func:`make_enc_mask`).  At
+    bf16 the encoder states are rounded to bf16 before K5, as in
+    ``ast_tpu``."""
+    require_bf16_variant(mcfg, compute_dtype,
+                         [] if enc_mask is None else ["enc_mask"])
     if w is None:
-        w = decode_weights(params)
-    enc_states, dec_h0, dec_c0 = encode(params, state, mcfg, X, w)
+        w = decode_weights(params, compute_dtype)
+    enc_states, dec_h0, dec_c0 = encode(params, state, mcfg, X, w,
+                                        compute_dtype)
+    if compute_dtype == BF16:
+        enc_states = enc_states.to(BF16)
     if infer_variant_ok(mcfg, enc_mask):
         preds = greedy_decode_fused(enc_states, dec_h0, dec_c0, w,
                                     stop_limit)

@@ -10,16 +10,24 @@ same frontier loop (``fused_infer.beam_reference``) runs over
 ``score / (len - 2)^W`` on the host.
 """
 
+import torch
+
 from ast_tpu_torch.models import seq2seq
+from ast_tpu_torch.ops.bf16 import BF16
 from ast_tpu_torch.ops.fused_infer import (
-    beam_decode_fused, beam_reference, infer_variant_ok)
+    beam_decode_fused, beam_reference, infer_variant_ok,
+    require_bf16_variant)
 
 
-def make_beam_decoder(mcfg, N, K, stop_limit, return_attn=False):
+def make_beam_decoder(mcfg, N, K, stop_limit, return_attn=False,
+                      compute_dtype=torch.float32):
     """Build ``(params, state, X, w=None, enc_mask=None) -> (hyps,
-    scores, lengths)``; ``w`` is ``seq2seq.decode_weights(params)``,
-    made per call when not given; ``enc_mask`` (B, T')
-    (``seq2seq.make_enc_mask``) masks the attention.
+    scores, lengths)``; ``w`` is ``seq2seq.decode_weights(params,
+    compute_dtype)``, made per call when not given; ``enc_mask`` (B, T')
+    (``seq2seq.make_enc_mask``) masks the attention.  At
+    ``compute_dtype`` bf16 the encoder runs at bf16 and its states are
+    rounded to bf16 before K6 (``ast_tpu``'s ``fused_decode``); the
+    variants and options of the plain frontier loop are refused there.
 
     hyps: (B, N, stop_limit+1) int32 token ids beginning with GO;
     scores: (B, N) summed log-probs; lengths: (B, N) valid token counts.
@@ -32,12 +40,18 @@ def make_beam_decoder(mcfg, N, K, stop_limit, return_attn=False):
             f"({V} tokens) — at most V continuations exist per step")
     if N < 1 or K < 1:
         raise ValueError(f"beam sizes must be >= 1 (got N={N}, K={K})")
+    require_bf16_variant(mcfg, compute_dtype,
+                         ["return_attn"] if return_attn else [])
 
     def decode(params, state, X, w=None, enc_mask=None):
+        if enc_mask is not None:
+            require_bf16_variant(mcfg, compute_dtype, ["enc_mask"])
         if w is None:
-            w = seq2seq.decode_weights(params)
+            w = seq2seq.decode_weights(params, compute_dtype)
         enc_states, dec_h0, dec_c0 = seq2seq.encode(params, state, mcfg, X,
-                                                    w)
+                                                    w, compute_dtype)
+        if compute_dtype == BF16:
+            enc_states = enc_states.to(BF16)
         if not return_attn and infer_variant_ok(mcfg, enc_mask):
             return beam_decode_fused(enc_states, dec_h0, dec_c0, w, N, K,
                                      stop_limit)

@@ -6,19 +6,28 @@ The counterpart of ``ast_tpu/ops/cnn.py``.  The shipped layer family
 runs in its im2col form (``_conv_frontend_matmul``): each layer a window
 gather of ``kh`` strided time slices followed by one ``(B*T',
 kh*C_in) @ (kh*C_in, C_out)`` matmul.  Any other stack, or
-``force_nchw``, runs the general NCHW convolution (``F.conv2d`` with
-stride, padding and dilation), as ``ast_tpu`` runs ``lax.conv``.  In
+``force_nchw``, runs the general NCHW convolution (stride, padding and
+dilation), as ``ast_tpu`` runs ``lax.conv``: an ``F.unfold`` window
+gather and one product (:func:`_conv2d`), whose backward -- ``F.fold``
+and GEMMs -- sums in a fixed order on a GPU, where ``F.conv2d``'s cuDNN
+backward does not (a training run then repeats bit for bit).  In
 eval mode BatchNorm (eps 2e-5) uses the running statistics; in train
 mode the batch statistics over every row and time step (padding
 included, population variance), and the running statistics move with
 decay 0.9.  Max pooling is ``lax.reduce_window``'s "SAME": ceil(T /
 stride) outputs, the input padded with -inf, ``total // 2`` frames
 before.  Weights stay OIHW.  This stage is plain PyTorch with autograd
-on every device: it has no Pallas counterpart on the TPU either.
+on every device: it has no Pallas counterpart on the TPU either.  At
+``compute_dtype`` bfloat16 the im2col family rounds the window and the
+weights to bf16 and multiplies in f32 (``ast_tpu``'s einsum with
+``preferred_element_type=float32``); BN, the activation and pooling stay
+f32, and the NCHW family runs in f32, as in ``ast_tpu``.
 """
 
 import torch
 import torch.nn.functional as F
+
+from ast_tpu_torch.ops.bf16 import BF16, rounded
 
 BN_DECAY = 0.9
 BN_EPS = 2e-5
@@ -77,7 +86,8 @@ def _activate(h, layer):
     return torch.relu(h)
 
 
-def _conv_frontend_matmul(params, state, cnn_config, X, train):
+def _conv_frontend_matmul(params, state, cnn_config, X, train,
+                          compute_dtype):
     h = X
     new_state = []
     for i, (p, s, layer) in enumerate(zip(params, state,
@@ -93,6 +103,8 @@ def _conv_frontend_matmul(params, state, cnn_config, X, train):
             w2 = w[:, 0].permute(1, 2, 0).reshape(-1, w.shape[0])
         else:
             w2 = w[..., 0].permute(2, 1, 0).reshape(-1, w.shape[0])
+        if compute_dtype == BF16:
+            win, w2 = rounded(win), rounded(w2)
         out = torch.matmul(win, w2)
         if "bn_gamma" in p:
             out, s = _batchnorm(p, s, out, (0, 1), (-1,), train)
@@ -106,13 +118,26 @@ def _conv_frontend_matmul(params, state, cnn_config, X, train):
     return h, new_state
 
 
+def _conv2d(h, w, stride, padding, dilation):
+    """``F.conv2d(h, w, stride=, padding=, dilation=)`` without a bias
+    as a window gather and one product: h (B, C, H, W), w (O, C, kh, kw)
+    -> (B, O, H', W')."""
+    B, _, Hh, Ww = h.shape
+    O, _, kh, kw = w.shape
+    cols = F.unfold(h, (kh, kw), dilation=dilation, padding=padding,
+                    stride=stride)                      # (B, C kh kw, L)
+    Ho = (Hh + 2 * padding[0] - dilation[0] * (kh - 1) - 1) // stride[0] + 1
+    Wo = (Ww + 2 * padding[1] - dilation[1] * (kw - 1) - 1) // stride[1] + 1
+    return (w.reshape(O, -1) @ cols).view(B, O, Ho, Wo)
+
+
 def _conv_frontend_nchw(params, state, cnn_config, X, train):
     h = X[:, None]                                      # (B, 1, T, D)
     new_state = []
     for p, s, layer in zip(params, state, cnn_config["cnn_layers"]):
         dil = layer.get("dilate", 1)
-        h = F.conv2d(h, p["w"], stride=tuple(layer["stride"]),
-                     padding=tuple(layer["pad"]), dilation=(dil, dil))
+        h = _conv2d(h, p["w"], tuple(layer["stride"]), tuple(layer["pad"]),
+                    (dil, dil))
         if "bn_gamma" in p:
             h, s = _batchnorm(p, s, h, (0, 2, 3), (1, -1, 1, 1), train)
         else:
@@ -126,13 +151,17 @@ def _conv_frontend_nchw(params, state, cnn_config, X, train):
     return h.transpose(1, 2).reshape(B, Tp, C * Wp), new_state
 
 
-def conv_frontend(params, state, cnn_config, X, train=False):
+def conv_frontend(params, state, cnn_config, X, train=False,
+                  compute_dtype=torch.float32):
     """X: (B, T, D) float32 -> ((B, T', C_out * W'), new BN state).  The
     new state is the old one in eval mode; in train mode it holds the
-    moved running statistics (detached: they take no gradient)."""
+    moved running statistics (detached: they take no gradient).
+    ``compute_dtype``: the im2col products' (see the module
+    docstring)."""
     if (im2col_eligible(cnn_config, X.shape[-1])
             and not cnn_config.get("force_nchw", False)):
-        return _conv_frontend_matmul(params, state, cnn_config, X, train)
+        return _conv_frontend_matmul(params, state, cnn_config, X, train,
+                                     compute_dtype)
     return _conv_frontend_nchw(params, state, cnn_config, X, train)
 
 

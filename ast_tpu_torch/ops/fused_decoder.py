@@ -21,7 +21,8 @@ them once per call: K3 the forward layout
 backward products (:func:`pack_backward_weights`).
 
 The selected inputs are int ids (``sel``), not one-hot rows: the
-embedding is a row gather and its gradient an ``index_add_``.  The
+embedding is a row gather, and its gradient the one-hot product of
+``ops.embedding.embedding_grad``, whose sum runs in a fixed order.  The
 post-dropout layer outputs ``x_drop`` are streamed, not regenerated.
 ``w`` is the dict of ``models.seq2seq.pack_decoder_weights`` (no vocab
 padding).  Dropout rates are the effective ones (0 outside training);
@@ -34,6 +35,7 @@ divides kept values by ``1 - p``, the backward multiplies by
 import torch
 
 from ast_tpu_torch.kernels import build
+from ast_tpu_torch.ops import embedding
 from ast_tpu_torch.ops.dropout import drop_mask, drop_threshold
 from ast_tpu_torch.ops.fused_infer import (
     STEP_ORDER, check_decoder_inputs, pack_step_weights, put_transposed)
@@ -244,7 +246,10 @@ def decoder_forward(enc, h0, c0, w, y_in, coins, seed, drop_emb, drop_rnn):
     if not enc.is_cuda:
         return decoder_forward_reference(enc, h0, c0, w, y_in, coins, seed,
                                          drop_emb, drop_rnn)
-    B, T, H, L, E, A, V = check_decoder_inputs(enc, h0, c0, w)
+    B, T, H, L, E, A, V, dt = check_decoder_inputs(enc, h0, c0, w)
+    if dt != torch.float32:
+        raise ValueError("K3 takes float32 weights (training at bfloat16 "
+                         "is not ported)")
     check_train_shapes(T, H, E, A)
     U = y_in.shape[0]
     for name, t, shape in (("y_in", y_in, (U, B)), ("coins", coins, (U,))):
@@ -378,11 +383,8 @@ class FusedDecoder(torch.autograd.Function):
         h_prev = torch.cat([h0[None], res["h_all"][:-1]])
         ht_prev = torch.cat([torch.zeros_like(ht[:1]), ht[:-1]])
         x0 = torch.cat([res["emb"], ht_prev], dim=-1)
-        E = w["embed"].shape[1]
-        # ids repeat within a batch: on the card the sum follows atomics,
-        # so its order (and the last bits) can differ between runs
-        d_embed = torch.zeros_like(w["embed"]).index_add_(
-            0, res["sel"].reshape(-1).long(), g["d_emb"].reshape(-1, E))
+        d_embed = embedding.embedding_grad(res["sel"], g["d_emb"],
+                                           w["embed"].shape[0])
         grads = {
             "wx0": ein("ubi,ubk->ik", x0, dz[:, 0]),
             "wx_rest": ein("ulbh,ulbk->lhk", x_drop[:, :-1], dz[:, 1:]),

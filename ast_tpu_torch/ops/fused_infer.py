@@ -16,6 +16,17 @@ device, and ``beam_reference`` alone keeps attention histories.
 TPU's vocab padding.  The kernels take it with the decode step's own
 layout under ``"step"`` (:func:`pack_step_weights`), which
 ``models.seq2seq.decode_weights`` adds once per model.
+
+bfloat16 (``extras.compute_dtype: "bfloat16"``): every leaf of ``w`` in
+bf16, biases and the embedding too, and the encoder states in bf16
+(``ast_tpu``'s ``pack_decoder_weights(params, bf16)`` and
+``enc.astype(bf16)``).  The step rounds to bf16 what ``ast_tpu``'s
+kernels round: ``[emb; ht_prev]``, each layer's h, the input of ``wa``,
+``[cv; x]`` and ``ht`` where the products read them, and the attention
+weights before the context sum; the query, scores, softmax,
+log-softmax, top-K and the beam scores stay f32, as do h, c and ht.  A
+CUDA tensor launches the bf16 entries (``k5_greedy_decode_bf16``,
+``k6_beam_decode_bf16``) or raises; nothing is widened to f32 quietly.
 """
 
 import torch
@@ -23,6 +34,7 @@ import torch
 from ast_tpu_torch.symbols import SYMBOLS
 from ast_tpu_torch.kernels import build
 from ast_tpu_torch.ops.attention import luong_attention
+from ast_tpu_torch.ops.bf16 import BF16, dot, rounded, widen
 from ast_tpu_torch.ops.lstm import lstm_gates
 
 NEG_INF = -1e30
@@ -50,13 +62,52 @@ def infer_variant_ok(mcfg, enc_mask=None):
             and not rnn.get("attn_block_size", 0))
 
 
+def require_bf16_variant(mcfg, dtype, what=()):
+    """Raise NotImplementedError naming the model variant, or ``what``
+    (further options of the caller, e.g. an encoder mask), when
+    ``dtype`` is bf16 and the path is one ``ast_tpu`` runs on its scan
+    path (the stages ``models.seq2seq`` routes to plain PyTorch), whose
+    bf16 mode is not ported: decoding at bf16 covers the variant the
+    kernels take."""
+    if dtype != BF16:
+        return
+    rnn = mcfg["rnn_config"]
+    refused = [name for name, on in (
+        ("ln", rnn.get("ln", False)),
+        ("rnn_relu", rnn.get("rnn_relu", False)),
+        ("linear_proj", rnn.get("linear_proj", False)),
+        ("n_attn", rnn.get("n_attn", 1) != 1),
+        ("feed_attn", not rnn.get("feed_attn", True)),
+        ("attn_block_size", bool(rnn.get("attn_block_size", 0))),
+    ) if on] + list(what)
+    if refused:
+        raise NotImplementedError(
+            f"compute_dtype bfloat16 decodes the model the kernels take; "
+            f"not ported at bfloat16: {', '.join(refused)} (see ROADMAP.md "
+            f"queue 1, bf16 on the scan path)")
+
+
+def require_train_dtype(train_cfg):
+    """Raise NotImplementedError naming ``compute_dtype`` unless it is
+    float32: the port decodes at bf16 but does not train at it.  Called
+    where training starts (``NN.train_epoch``, ``NN.eval_loss``,
+    ``cli.train``)."""
+    if train_cfg["extras"].get("compute_dtype", "float32") != "float32":
+        raise NotImplementedError(
+            "ast_tpu_torch does not train these options; not ported: "
+            "compute_dtype (bfloat16 decodes; see ROADMAP.md queue 1, "
+            "bf16 training)")
+
+
 def require_train_variant(train_cfg):
-    """The options the ported trainer refuses: bfloat16 compute,
-    several steps a dispatch, the device feature cache and narrow
-    transfer dtypes.  Every model variant trains (the routing of
-    ``models.seq2seq``).  ``train_cfg`` is ``Config(...).train``.
-    Raises NotImplementedError naming what is refused, on every device,
-    and ``ast_tpu``'s ValueError for ``hbm_cache`` over audio or text."""
+    """The options the ported trainer refuses: several steps a dispatch,
+    the device feature cache and narrow transfer dtypes
+    (``compute_dtype`` is refused where training starts,
+    :func:`require_train_dtype`).  Every model variant trains (the
+    routing of ``models.seq2seq``).  ``train_cfg`` is
+    ``Config(...).train``.  Raises NotImplementedError naming what is
+    refused, on every device, and ``ast_tpu``'s ValueError for
+    ``hbm_cache`` over audio or text."""
     extras, data = train_cfg["extras"], train_cfg["data"]
     if extras.get("hbm_cache", False):
         if data.get("features", "precomputed") == "wav":
@@ -68,8 +119,6 @@ def require_train_variant(train_cfg):
             raise ValueError("extras.hbm_cache: text-encoder mode "
                              "has no feature block to cache")
     refused = [name for name, bad in (
-        ("compute_dtype", extras.get("compute_dtype",
-                                     "float32") != "float32"),
         ("steps_per_dispatch", int(extras.get("steps_per_dispatch", 1))
          != 1),
         ("hbm_cache", bool(extras.get("hbm_cache", False))),
@@ -80,7 +129,7 @@ def require_train_variant(train_cfg):
         raise NotImplementedError(
             f"ast_tpu_torch does not train these options; "
             f"not ported: {', '.join(refused)} (see ROADMAP.md queue 1, "
-            f"the feed options and bf16)")
+            f"the feed options)")
 
 
 # ---------------------------------------------------------------------------
@@ -92,7 +141,10 @@ def decode_step_reference(w, enc_rows, h, c, ht, tok):
     mode, for the variant K5 / K6 take).  enc_rows (R, T, H), h/c (L, R,
     H), ht (R, A), tok (R,).  Returns (logits (R, V), h, c, ht, alphas
     (R, T)) -- the contract of the ``step`` that :func:`greedy_reference`
-    and :func:`beam_reference` take."""
+    and :func:`beam_reference` take.  With ``w`` and ``enc_rows`` in
+    bf16, the rounding points of the module docstring."""
+    if w["wh"].dtype == BF16:
+        return _decode_step_bf16(w, enc_rows, h, c, ht, tok)
     L, _, H = h.shape
     x = torch.cat([w["embed"][tok], ht], dim=-1)
     new_h, new_c = [], []
@@ -106,6 +158,39 @@ def decode_step_reference(w, enc_rows, h, c, ht, tok):
                                  w["ctx_w"], w["ctx_b"])
     logits = ht @ w["out_w"] + w["out_b"]
     return logits, torch.stack(new_h), torch.stack(new_c), ht, alphas
+
+
+def _decode_step_bf16(w, enc_rows, h, c, ht, tok):
+    """:func:`decode_step_reference` at bf16 (``ast_tpu``'s
+    ``_lstm_stack``, ``_step_core`` and ``_context_out``): each product's
+    left operand rounded to bf16 and multiplied in f32 (``ops.bf16.dot``),
+    biases bf16, the scores against the bf16 encoder rows with the f32
+    query, the softmax weights rounded before the context sum."""
+    L, _, H = h.shape
+    x = torch.cat([w["embed"][tok].float(), ht], dim=-1)
+    new_h, new_c = [], []
+    for l in range(L):
+        wx = w["wx0"] if l == 0 else w["wx_rest"][l - 1]
+        z = dot(x, wx) + dot(h[l], w["wh"][l]) + w["b"][l].float()
+        x, c_l = lstm_gates(z, c[l], H)
+        new_h.append(x)
+        new_c.append(c_l)
+    enc = enc_rows.float()
+    q = dot(x, w["wa"]) + w["wa_b"].float()
+    alphas = torch.softmax(torch.bmm(enc, q.unsqueeze(-1))[..., 0], dim=-1)
+    cv = torch.bmm(rounded(alphas).unsqueeze(1), enc)[:, 0]
+    ht = torch.tanh(dot(torch.cat([cv, x], dim=-1), w["ctx_w"])
+                    + w["ctx_b"].float())
+    logits = dot(ht, w["out_w"]) + w["out_b"].float()
+    return logits, torch.stack(new_h), torch.stack(new_c), ht, alphas
+
+
+def _state_zeros(enc, shape):
+    """Zeros for decoder state beside ``enc``: f32 when the encoder
+    states are bf16 (the state stays f32), else in their dtype."""
+    return torch.zeros(shape, device=enc.device,
+                       dtype=torch.float32 if enc.dtype == BF16
+                       else enc.dtype)
 
 
 def _plain_step(w, step):
@@ -131,7 +216,7 @@ def greedy_reference(enc, h0, c0, w, stop_limit, step=None):
                       device=enc.device)
     fin = torch.zeros(B, dtype=torch.bool, device=enc.device)
     h, c = h0, c0
-    ht = enc.new_zeros((B, w["ctx_w"].shape[1]))
+    ht = _state_zeros(enc, (B, w["ctx_w"].shape[1]))
     for t in range(stop_limit):
         if bool(fin.all()):
             break
@@ -156,7 +241,7 @@ def greedy_follow(enc, h0, c0, w, preds, step=None):
                       device=enc.device)
     fin = torch.zeros(B, dtype=torch.bool, device=enc.device)
     h, c = h0, c0
-    ht = enc.new_zeros((B, w["ctx_w"].shape[1]))
+    ht = _state_zeros(enc, (B, w["ctx_w"].shape[1]))
     for t in range(stop_limit):
         if bool(fin.all()):
             return short, t
@@ -187,7 +272,7 @@ class _BeamState:
         self.enc = enc.repeat_interleave(N, dim=0)
         self.h = h0.repeat_interleave(N, dim=1)
         self.c = c0.repeat_interleave(N, dim=1)
-        self.ht = enc.new_zeros((B * N, w["ctx_w"].shape[1]))
+        self.ht = _state_zeros(enc, (B * N, w["ctx_w"].shape[1]))
         self.scores = torch.full((B, N), NEG_INF, device=dev)
         self.scores[:, 0] = 0.0
         self.finished = torch.zeros((B, N), dtype=torch.bool, device=dev)
@@ -351,12 +436,15 @@ _WEIGHT_ORDER = ("embed", "wx0", "wx_rest", "wh", "b", "wa", "wa_b",
 
 
 def check_decoder_inputs(enc, h0, c0, w):
-    """Validate the kernel inputs; returns (B, T, H, L, E, A, V)."""
+    """Validate the kernel inputs: ``w``'s leaves and ``enc`` in one
+    dtype (f32, or bf16), the state f32.  Returns (B, T, H, L, E, A, V,
+    dtype)."""
     B, T, H = enc.shape
     L = h0.shape[0]
     V, E = w["embed"].shape
     A = w["ctx_w"].shape[1]
-    build.check_tensor(enc, "enc_states")
+    dt = BF16 if w["wh"].dtype == BF16 else torch.float32
+    build.check_tensor(enc, "enc_states", None, dt)
     build.check_tensor(h0, "dec_h0", (L, B, H))
     build.check_tensor(c0, "dec_c0", (L, B, H))
     shapes = {"embed": (V, E), "wx0": (E + A, 4 * H),
@@ -365,8 +453,8 @@ def check_decoder_inputs(enc, h0, c0, w):
               "ctx_w": (2 * H, A), "ctx_b": (A,), "out_w": (A, V),
               "out_b": (V,)}
     for k in _WEIGHT_ORDER:
-        build.check_tensor(w[k], k, shapes[k])
-    return B, T, H, L, E, A, V
+        build.check_tensor(w[k], k, shapes[k], dt)
+    return B, T, H, L, E, A, V, dt
 
 
 def _pack_columns(w, block):
@@ -408,7 +496,10 @@ def pack_step_weights(w):
     layout copy of the decoder weights (two strided copies a cell, no
     intermediate), made once per model for decoding
     (``models.seq2seq.decode_weights``) and once per forward call in
-    training, where the weights change every step."""
+    training, where the weights change every step.  The matrices keep
+    ``w``'s dtype (bf16: a 32-row tile is 4 KB); the embedding and the
+    biases, read a few rows a step, go to f32 (at bf16 holding the
+    rounded values)."""
     L, H = w["wh"].shape[0], w["wh"].shape[1]
     wxs = [w["wx0"]] + [w["wx_rest"][l] for l in range(L - 1)]
     cell = w["wh"].new_empty((4 * H * sum(wx.shape[0] + H for wx in wxs),))
@@ -420,20 +511,25 @@ def pack_step_weights(w):
         blk[:, :Kx].copy_(wx.view(Kx, 4, H // 16, 16).permute(2, 0, 1, 3))
         blk[:, Kx:].copy_(wh.view(H, 4, H // 16, 16).permute(2, 0, 1, 3))
         off += n
-    return {"embed": w["embed"], "cell": cell, "b": w["b"],
-            "wa": _pack_columns(w["wa"], 64), "wa_b": w["wa_b"],
-            "ctx_w": _pack_columns(w["ctx_w"], 64), "ctx_b": w["ctx_b"],
-            "out_w": _pack_columns(w["out_w"], 64), "out_b": w["out_b"]}
+    return {"embed": widen(w["embed"]), "cell": cell, "b": widen(w["b"]),
+            "wa": _pack_columns(w["wa"], 64), "wa_b": widen(w["wa_b"]),
+            "ctx_w": _pack_columns(w["ctx_w"], 64),
+            "ctx_b": widen(w["ctx_b"]),
+            "out_w": _pack_columns(w["out_w"], 64),
+            "out_b": widen(w["out_b"])}
 
 
 STEP_ORDER = ("embed", "cell", "b", "wa", "wa_b", "ctx_w", "ctx_b",
                "out_w", "out_b")
+# the packed products' matrices: in the compute dtype (the rest f32)
+_STEP_MATRICES = ("cell", "wa", "ctx_w", "out_w")
 
 
-def step_weights(w, H, L, E, A, V):
+def step_weights(w, H, L, E, A, V, dtype=torch.float32):
     """``w["step"]``, the packed form the decode step kernels take,
-    checked against the decoder's dims.  Raises ValueError if ``w`` lacks
-    it (make ``w`` with ``models.seq2seq.decode_weights``)."""
+    checked against the decoder's dims and ``dtype`` (its matrices').
+    Raises ValueError if ``w`` lacks it (make ``w`` with
+    ``models.seq2seq.decode_weights``)."""
     if "step" not in w:
         raise ValueError("the decode kernels take the weights of "
                          "seq2seq.decode_weights (packed once per model, "
@@ -445,7 +541,8 @@ def step_weights(w, H, L, E, A, V):
               "out_w": (-(-V // 64), A, 64), "out_b": (V,)}
     step = w["step"]
     for k in STEP_ORDER:
-        build.check_tensor(step[k], f"step {k}", shapes[k])
+        build.check_tensor(step[k], f"step {k}", shapes[k],
+                           dtype if k in _STEP_MATRICES else torch.float32)
     return step
 
 
@@ -469,10 +566,12 @@ def check_decode_shapes(B, T, H, E, A, N, K=1):
 def greedy_decode_fused(enc, dec_h0, dec_c0, w, stop_limit):
     """Greedy decode.  enc (B, T, H), dec_h0/c0 (L, B, H).  Returns preds
     (B, stop_limit) int32: each row's argmax chain, continued past its own
-    EOS, and PAD after the step where every row has finished."""
+    EOS, and PAD after the step where every row has finished.  ``w`` and
+    ``enc`` in bf16 run the bf16 mode; its launches count in
+    ``launches_bf16``."""
     if not enc.is_cuda:
         return greedy_reference(enc, dec_h0, dec_c0, w, stop_limit)
-    B, T, H, L, E, A, V = check_decoder_inputs(enc, dec_h0, dec_c0, w)
+    B, T, H, L, E, A, V, dt = check_decoder_inputs(enc, dec_h0, dec_c0, w)
     check_decode_shapes(B, T, H, E, A, 1)
     dev = enc.device
     i32 = dict(dtype=torch.int32, device=dev)
@@ -489,10 +588,15 @@ def greedy_decode_fused(enc, dec_h0, dec_c0, w, stop_limit):
     cv = torch.empty((B, H), device=dev)
     logits = torch.empty((B, V), device=dev)
     tok_out = torch.empty((stop_limit, B), **i32)
-    packed = step_weights(w, H, L, E, A, V)
+    packed = step_weights(w, H, L, E, A, V, dt)
     lib = build.library()
-    greedy_decode_fused.launches += 1
-    build.check_launch("k5_greedy_decode", lib.k5_greedy_decode(
+    if dt == BF16:
+        name, entry = "k5_greedy_decode_bf16", lib.k5_greedy_decode_bf16
+        greedy_decode_fused.launches_bf16 += 1
+    else:
+        name, entry = "k5_greedy_decode", lib.k5_greedy_decode
+        greedy_decode_fused.launches += 1
+    build.check_launch(name, entry(
         enc.data_ptr(), *(packed[k].data_ptr() for k in STEP_ORDER),
         hbuf.data_ptr(), cbuf.data_ptr(), htbuf.data_ptr(),
         tok_in.data_ptr(), fin.data_ptr(), done.data_ptr(), q.data_ptr(),
@@ -503,12 +607,15 @@ def greedy_decode_fused(enc, dec_h0, dec_c0, w, stop_limit):
 
 
 greedy_decode_fused.launches = 0
+greedy_decode_fused.launches_bf16 = 0
 
 
 def beam_search_streams(enc, dec_h0, dec_c0, w, N, K, stop_limit):
-    """Run the K6 kernel.  Returns its per-step streams tok, parent slot
-    and valid (stop_limit, B, N) int32, and the final scores (B, N)."""
-    B, T, H, L, E, A, V = check_decoder_inputs(enc, dec_h0, dec_c0, w)
+    """Run the K6 kernel (its bf16 entry for ``w`` and ``enc`` in bf16,
+    counted in ``launches_bf16``).  Returns its per-step streams tok,
+    parent slot and valid (stop_limit, B, N) int32, and the final scores
+    (B, N)."""
+    B, T, H, L, E, A, V, dt = check_decoder_inputs(enc, dec_h0, dec_c0, w)
     if not 1 <= N <= 32 or not 1 <= K <= V:
         raise ValueError(f"beam kernel takes 1 <= N <= 32 and 1 <= K <= V "
                          f"(got N={N}, K={K}, V={V})")
@@ -536,10 +643,15 @@ def beam_search_streams(enc, dec_h0, dec_c0, w, N, K, stop_limit):
     tok = torch.empty((stop_limit, R), **i32)
     par = torch.empty((stop_limit, R), **i32)
     valid = torch.empty((stop_limit, R), **i32)
-    packed = step_weights(w, H, L, E, A, V)
+    packed = step_weights(w, H, L, E, A, V, dt)
     lib = build.library()
-    beam_search_streams.launches += 1
-    build.check_launch("k6_beam_decode", lib.k6_beam_decode(
+    if dt == BF16:
+        name, entry = "k6_beam_decode_bf16", lib.k6_beam_decode_bf16
+        beam_search_streams.launches_bf16 += 1
+    else:
+        name, entry = "k6_beam_decode", lib.k6_beam_decode
+        beam_search_streams.launches += 1
+    build.check_launch(name, entry(
         enc.data_ptr(), *(packed[k].data_ptr() for k in STEP_ORDER),
         hbuf.data_ptr(), cbuf.data_ptr(), htbuf.data_ptr(),
         tok_in.data_ptr(), score.data_ptr(), fin.data_ptr(),
@@ -552,6 +664,7 @@ def beam_search_streams(enc, dec_h0, dec_c0, w, N, K, stop_limit):
 
 
 beam_search_streams.launches = 0
+beam_search_streams.launches_bf16 = 0
 
 
 def backtrack(tok, par, valid):

@@ -26,6 +26,13 @@ Train mode adds hash dropout at ``rate`` on every layer's output (mask
 seed ``seed + t*L + l`` over (D2, B, H)) and the residual streams
 acts (T, L, D2, B, 4H) ``[i|f|g|o]``, c_all, h_pre (pre-dropout) and
 x_drop (post-dropout) (T, L, D2, B, H).
+
+bfloat16 (eval mode; ``extras.compute_dtype: "bfloat16"``): ``wx_rest``
+and ``wh`` in bf16 select it.  As in ``ast_tpu``'s kernel, each layer's
+input and its h are rounded to bf16 where a product reads them and the
+products accumulate in f32; ``b`` (not cast), ``x0_proj``, the gates,
+the state and the outputs stay f32.  A CUDA tensor launches K1's bf16
+entry (``k1_encoder_forward_bf16``) or raises.
 """
 
 import ctypes
@@ -35,6 +42,7 @@ import numpy as np
 import torch
 
 from ast_tpu_torch.kernels import build
+from ast_tpu_torch.ops.bf16 import BF16, rounded
 from ast_tpu_torch.ops.dropout import drop_mask, drop_threshold
 from ast_tpu_torch.ops.fused_infer import put_transposed
 from ast_tpu_torch.ops.lstm import (
@@ -92,8 +100,9 @@ def pack_encoder_step_weights(wx_rest, wh):
     projected, 2H above -- as (H / 16 column blocks, K, 64), packed column
     q * 16 + u of block c being gate q of unit 16 c + u, so a block holds
     all four gates of its units and a tile of 32 input rows is one
-    contiguous 8 KB; layer 0's directions first, then (layer, direction)
-    above, in one flat buffer.  Three strided copies."""
+    contiguous 8 KB (4 KB in bf16: the buffer takes ``wh``'s dtype);
+    layer 0's directions first, then (layer, direction) above, in one
+    flat buffer.  Three strided copies."""
     L, D2, H, _ = wh.shape
     flat = wh.new_empty(((2 * L - 1) * D2 * H * 4 * H,))
     n0 = D2 * H * 4 * H
@@ -161,10 +170,20 @@ def stacked_lstm_reference(x0_proj, wx_rest, wh, b, train=False, seed=0,
     does not take: ``ln`` (one ``(g, b)`` pair of (D2, H) a layer) and
     ``relu`` transform each layer's output after its dropout, in that
     order, and what the layer above and ``outs`` receive is the
-    transformed output; the carried state stays the cell's own."""
+    transformed output; the carried state stays the cell's own.
+
+    With ``wx_rest`` / ``wh`` in bf16 (eval), the rounding points of the
+    module docstring."""
     T, D2, B, H4 = x0_proj.shape
     H = H4 // 4
     L = wh.shape[0]
+    if wh.dtype == BF16:
+        wx_rest, wh = wx_rest.float(), wh.float()
+
+        def bmm(v, w):
+            return torch.bmm(rounded(v), w)
+    else:
+        bmm = torch.bmm
     h = [x0_proj.new_zeros((D2, B, H))] * L
     c = [x0_proj.new_zeros((D2, B, H))] * L
     outs, acts, c_all, h_pre, x_drop = [], [], [], [], []
@@ -172,8 +191,8 @@ def stacked_lstm_reference(x0_proj, wx_rest, wh, b, train=False, seed=0,
         x = None
         res = ([], [], [], [])
         for l in range(L):
-            z = x0_proj[t] if l == 0 else torch.bmm(x, wx_rest[l - 1])
-            z = z + torch.bmm(h[l], wh[l]) + b[l][:, None, :]
+            z = x0_proj[t] if l == 0 else bmm(x, wx_rest[l - 1])
+            z = z + bmm(h[l], wh[l]) + b[l][:, None, :]
             if not train:
                 h[l], c[l] = lstm_gates(z, c[l], H)
                 x = _transform(h[l], ln, l, relu)
@@ -228,13 +247,13 @@ def encoder_backward_reference(acts, c_all, wx_rest, wh, douts, dh_fin,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def _check_weights(x0_proj, wx_rest, wh, b):
+def _check_weights(x0_proj, wx_rest, wh, b, dtype=torch.float32):
     T, D2, B, H4 = x0_proj.shape
     H = H4 // 4
     L = wh.shape[0]
     build.check_tensor(x0_proj, "x0_proj", (T, D2, B, 4 * H))
-    build.check_tensor(wx_rest, "wx_rest", (L - 1, D2, H, 4 * H))
-    build.check_tensor(wh, "wh", (L, D2, H, 4 * H))
+    build.check_tensor(wx_rest, "wx_rest", (L - 1, D2, H, 4 * H), dtype)
+    build.check_tensor(wh, "wh", (L, D2, H, 4 * H), dtype)
     build.check_tensor(b, "b", (L, D2, 4 * H))
     check_encoder_shapes(H)
     return T, L, D2, B, H
@@ -251,24 +270,35 @@ def check_encoder_shapes(H):
 def fused_stacked_lstm(x0_proj, wx_rest, wh, b, packed=None):
     """Encoder recurrence, eval mode.  Returns (outs, h_fin, c_fin).
     ``packed``: :func:`pack_encoder_step_weights` of the weights, for a
-    caller that keeps it over many calls; made here when not given."""
+    caller that keeps it over many calls; made here when not given.
+    ``wx_rest`` / ``wh`` (and ``packed``) in bf16 run the bf16 mode; the
+    f32 entry counts in ``launches``, the bf16 one in
+    ``launches_bf16``."""
     if not x0_proj.is_cuda:
         return stacked_lstm_reference(x0_proj, wx_rest, wh, b)
-    T, L, D2, B, H = _check_weights(x0_proj, wx_rest, wh, b)
+    bf16 = wh.dtype == BF16
+    wdt = BF16 if bf16 else torch.float32
+    T, L, D2, B, H = _check_weights(x0_proj, wx_rest, wh, b, wdt)
     dev = x0_proj.device
     if packed is None:
         w = pack_encoder_step_weights(wx_rest, wh)
     else:
         w = packed
-        build.check_tensor(w, "packed", ((2 * L - 1) * D2 * H * 4 * H,))
+        build.check_tensor(w, "packed", ((2 * L - 1) * D2 * H * 4 * H,),
+                           wdt)
     outs = torch.empty((T, D2, B, H), device=dev)
     # layer l's h at step t in slot t % 2; both start as the zero state
     hbuf = torch.zeros((2, L, D2, B, H), device=dev)
     c = torch.zeros((L, D2, B, H), device=dev)
     lib = build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
-    fused_stacked_lstm.launches += 1
-    build.check_launch("k1_encoder_forward", lib.k1_encoder_forward(
+    if bf16:
+        name, entry = "k1_encoder_forward_bf16", lib.k1_encoder_forward_bf16
+        fused_stacked_lstm.launches_bf16 += 1
+    else:
+        name, entry = "k1_encoder_forward", lib.k1_encoder_forward
+        fused_stacked_lstm.launches += 1
+    build.check_launch(name, entry(
         x0_proj.data_ptr(), w.data_ptr(), b.data_ptr(), outs.data_ptr(),
         hbuf.data_ptr(), c.data_ptr(), *_schedule_args(T, L),
         L, D2, B, H, stream))
@@ -276,6 +306,7 @@ def fused_stacked_lstm(x0_proj, wx_rest, wh, b, packed=None):
 
 
 fused_stacked_lstm.launches = 0
+fused_stacked_lstm.launches_bf16 = 0
 
 
 def fused_stacked_lstm_train(x0_proj, wx_rest, wh, b, seed, rate):

@@ -19,7 +19,10 @@ a record of the manifest with no file of its own: its ``file`` is a
 name in ``ast_tpu``'s artifact pattern (``greedy_B{B}_T{T}{_q8}``,
 ``beam_N{N}_K{K}_B{B}_T{T}{_q8}``), so a reply's ``artifact`` reads the
 same in both packages.  A server loads the weights once per device and
-decodes every entry with them.
+decodes every entry with them, at the manifest's ``compute_dtype``:
+at ``"bfloat16"`` the float32 weights (an int8 leaf dequantized to
+float32 first, as ``ast_tpu``'s artifact does) are rounded to bf16 once
+when the decode pack is made (``models.seq2seq.decode_weights``).
 """
 
 import json
@@ -98,7 +101,8 @@ def save_model(out_dir, mcfg, params, state):
 
 def load_model(serving_dir, device="cpu"):
     """(mcfg, params, state) of a serving directory, the weights float32
-    tensors on ``device``."""
+    tensors on ``device`` (the compute dtype's rounding comes with the
+    decode pack)."""
     with open(os.path.join(serving_dir, MODEL)) as f:
         mcfg = json.load(f)
     with np.load(os.path.join(serving_dir, WEIGHTS),

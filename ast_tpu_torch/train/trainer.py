@@ -15,9 +15,11 @@ device (:class:`Prefetcher`); the step's random numbers (SpecAugment
 masks, speech noise, dropout seeds, scheduled-sampling coins, target
 corruption) are drawn from generators seeded by
 ``stable_seed(f"{seed}|{epoch}|{batch}")``, so a rerun or a resumed
-epoch replays the same draws.  The gradients need not be bit-equal
-between runs on a GPU: the embedding gradient's ``index_add_`` and
-cuDNN's conv backward sum with atomics, in no fixed order.
+epoch replays the same draws, and on one card a run is bit-equal to the
+next from the same seed: every gradient sum runs in a fixed order (the
+kernels' reductions, cuBLAS GEMMs, and the embedding gradients as a
+one-hot product, ``ops.embedding``, where ``index_add_`` would sum with
+atomics).
 ``forward_loss`` runs the conv front-end, K1 (train), K3 and the loss,
 autograd runs K4, K2 and the weight-gradient GEMMs -- or, for a model
 variant ``ast_tpu`` runs on its scan path, the plain encoder or decoder
@@ -37,7 +39,12 @@ was called (the train CLI wires SIGTERM to it), the epoch writes
 ``(seed, set, epoch)``, so the next run skips exactly the consumed
 batches.  Either package resumes the other's snapshot.
 
-Not ported (ROADMAP.md queue 1): multi-step dispatch
+``extras.compute_dtype: "bfloat16"`` decodes at bf16 (``predict``,
+``decode_beam_set`` and so ``cli.train``'s dev decode, ``cli.beam``) with
+K1 eval, K5 and K6 in their bf16 mode; training at it is not ported, and
+``train_epoch`` / ``eval_loss`` refuse it by name.
+
+Not ported (ROADMAP.md queue 1): bf16 training, multi-step dispatch
 (``steps_per_dispatch``), the device feature cache, narrow transfer
 dtypes, rematerialisation and data parallelism.
 """
@@ -58,8 +65,10 @@ from ast_tpu_torch.checkpoint import (
 from ast_tpu_torch.data.dataloader import make_dataloader
 from ast_tpu_torch.models import seq2seq
 from ast_tpu_torch.ops import beam as beam_ops
+from ast_tpu_torch.ops.bf16 import parse_dtype
 from ast_tpu_torch.ops.fbank import MfccExtractor
-from ast_tpu_torch.ops.fused_infer import require_train_variant
+from ast_tpu_torch.ops.fused_infer import (
+    require_bf16_variant, require_train_dtype, require_train_variant)
 from ast_tpu_torch.params import torch_device, tree_map
 from ast_tpu_torch.train.optimizer import (
     build_optimizer, tree_leaves, tree_unflatten)
@@ -213,6 +222,10 @@ class NN:
         self.mcfg = self.cfg.model
         tcfg = self.cfg.train
         require_train_variant(tcfg)
+        # the dtype of decoding (ast_tpu's NN.compute_dtype); training
+        # refuses bf16 where it starts (require_train_dtype)
+        self.compute_dtype = parse_dtype(tcfg["extras"].get("compute_dtype"))
+        require_bf16_variant(self.mcfg, self.compute_dtype)
         ignored = [name for name, on in (
             ("extras.remat", tcfg["extras"].get("remat", False)),
             ("parallel", any(tcfg["parallel"].get(k, d) != d for k, d in
@@ -383,6 +396,7 @@ class NN:
         or the rest of it after an in-flight snapshot of this epoch;
         returns the mean over the batches trained of loss / real rows."""
         tcfg = self.cfg.train
+        require_train_dtype(tcfg)
         skip = 0
         if self.inflight_resume and self.inflight_resume[0] == epoch:
             skip = self.inflight_resume[1]
@@ -451,8 +465,9 @@ class NN:
     def eval_loss(self, set_key):
         """Teacher-forced loss on a split, nothing updated (K1 eval, K3
         with every step forced and no dropout): the mean over batches of
-        loss / real rows."""
+        loss / real rows.  Not at bf16 (the dev loss is training's)."""
         tcfg = self.cfg.train
+        require_train_dtype(tcfg)
         gen = self.data_loader.get_batch(
             tcfg["batch_size"], set_key, train=False, labels=True,
             tail_shrink=self.tail_shrink)
@@ -503,12 +518,13 @@ class NN:
         tcfg = self.cfg.train
         stop_limit = tcfg["data"]["max_pred"]
         preds = []
-        with torch.inference_mode():
-            w = seq2seq.decode_weights(self.params)   # once for the split
+        with torch.inference_mode():     # once for the split
+            w = seq2seq.decode_weights(self.params, self.compute_dtype)
 
         def decode(X):
-            return seq2seq.predict_greedy(self.params, self.state,
-                                          self.mcfg, X, stop_limit, w)[:1]
+            return seq2seq.predict_greedy(
+                self.params, self.state, self.mcfg, X, stop_limit, w,
+                compute_dtype=self.compute_dtype)[:1]
 
         def collect(batch, out):
             preds.extend(zip(batch["utts"],
@@ -531,10 +547,10 @@ class NN:
             batch_size = tcfg["batch_size"]
         beam = beam_ops.make_beam_decoder(
             self.mcfg, N=N, K=K, stop_limit=tcfg["data"]["max_pred"],
-            return_attn=save_attn)
+            return_attn=save_attn, compute_dtype=self.compute_dtype)
         results = {}
-        with torch.inference_mode():
-            w = seq2seq.decode_weights(self.params)   # once for the split
+        with torch.inference_mode():     # once for the split
+            w = seq2seq.decode_weights(self.params, self.compute_dtype)
 
         def decode(X):
             return beam(self.params, self.state, X, w)

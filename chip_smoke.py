@@ -192,6 +192,24 @@ Phases, each printing a line:
    T') a hypothesis, rows past GO summing to 1 within 1e-5, no K6;
    export_model + cli.serve of a linear_proj model: one request's ids
    equal to the in-process decode.
+13. bfloat16 decoding (extras.compute_dtype "bfloat16"), phase 3's model
+   and batch: K1 eval, K5 and K6 in their bf16 mode against their plain
+   bf16 versions on the card -- encoder states within BF16_ENC_TOL, K5
+   tokens along the kernel's own path within BF16_TOK_TOL of the plain
+   step's best logit, K6 held to the beam's rules with scores within
+   BF16_SCORE_TOL -- at B=32 and at the partial batches of BF16_PARTIAL
+   (K1 at ENC_PARTIAL's first two and ENC_EVAL_PARTIAL), REPEATS more
+   calls bit-equal, each timed beside its f32 mode in the same call, K1
+   beside two cuDNN torch.nn.LSTM in bf16; then cli.infer on phase 4's
+   64 files at bf16, greedy and beam (utts/s beside f32, the share of
+   utterances whose text equals the f32 decode), export_model --dtype
+   bfloat16 (and --quantize int8 of the bf16 experiment) and cli.serve:
+   one greedy and one beam request, ids equal to the in-process bf16
+   decode.  Then the determinism check: two NNs from one seed train two
+   epochs of phase 6's experiment and end with bit-equal parameters, BN
+   and optimizer state (one epoch of the NCHW conv family too), and one
+   train step's time with the embedding gradient's one-hot sum and with
+   index_add_ (before the repair), in turns.
 
 Then a JSON line with each kernel's count, error and times, and last
 {"ok": true, "device": {...}}.  A kernel's count ("launches") is the
@@ -199,7 +217,9 @@ number of calls of its wrapper while its path was driven: K1 (eval), K5
 and K6 over the greedy and beam passes of phase 4 (not the warm-up), K1
 (train), K2, K3 and K4 over phase 6's two epochs, and the one-direction
 rows (k1_d1, k1t_d1, k2_d1) over phase 12's bi_rnn false experiment
-(cli.train -e 2 and cli.beam --save-attn); "launches_per_unit"
+(cli.train -e 2 and cli.beam --save-attn), and the bf16 rows (k1_bf16,
+k5_bf16, k6_bf16) over phase 13's cli.infer passes at bf16;
+"launches_per_unit"
 is that count over the served batches (K1 eval, K5, K6) or the train
 steps (K1 train, K2, K3, K4) of those runs.  Each call runs the whole
 kernel -- every step and layer, many CUDA launches.  "max_abs_err" is
@@ -209,14 +229,18 @@ difference, and for the training kernels the largest difference over
 their output streams.  "ms" and "plain_ms" are phase 3's and phase 5's
 times.  "bound_ms" is the least time the card could take for the same
 call: the larger of its matrix products' FLOPs over 67 TFLOP/s (f32
-outside the tensor cores) and its bytes -- each input read once, each
-output written once -- over 3.35 TB/s, from kernel_cost at the call's
+outside the tensor cores; the bf16 rows over 989 TFLOP/s, bf16 dense)
+and its bytes -- each input read once, each output written once, the
+bf16 rows' matrices and encoder states at 2 bytes -- over 3.35 TB/s,
+from kernel_cost at the call's
 shapes and, for K5 / K6, the steps the timed call ran; "bound_by" says
 which ("operations" or "bytes").  "library_ms" is one PyTorch call of
 the same function where one exists: for K1 eval two cuDNN torch.nn.LSTM
 calls, one per direction stack, on the conv output (so they include the
 hoisted layer-0 GEMM), checked against K1's outputs first (one call at
-D2 = 1); null for the others, which no one library call computes.  Any failure raises (exit
+D2 = 1; in bf16 for k1_bf16); null for the others, which no one library
+call computes.  "f32_ms" (bf16 rows) is the f32 mode's time in the same
+call.  Any failure raises (exit
 code 1, no result line); with no CUDA device it exits 2.  The script
 checks that neither JAX nor any module of ast_tpu was imported.
 """
@@ -277,8 +301,8 @@ ENC_EVAL_PARTIAL = ((64, 140),)
 DEEP_ENCODER = (5, 64, 6, 9)
 REPEATS = 20
 # the H100 SXM's published peaks (NVIDIA's data sheet, 700 W): float32
-# outside the tensor cores, and HBM3
-PEAK_F32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+# outside the tensor cores, bf16 dense on the tensor cores, and HBM3
+PEAK_F32_FLOPS, PEAK_BF16_FLOPS, PEAK_BYTES = 67e12, 989e12, 3.35e12
 
 
 def kernel_cost(key, d):
@@ -287,24 +311,27 @@ def kernel_cost(key, d):
     B, H, L and, for the encoder, T and D2 (directions, H a direction's
     units), for the decoder T, E, A, V and U (K3, K4), n (the steps a K5 /
     K6 call ran), stop, N (K6) and n_logits (K3: the steps whose next
-    input is sampled, the only ones that compute logits).  Bytes count
-    each input read once and each output written once, 4 bytes an
-    element.  Elementwise work (gates, softmax, dropout, top-K) is left
-    out of the FLOPs."""
+    input is sampled, the only ones that compute logits); ``wbytes`` 2
+    for the bf16 mode of K1 eval, K5 and K6, whose weight matrices (and,
+    for K5 / K6, encoder states) are bf16.  Bytes count each input read
+    once and each output written once, 4 bytes an element but those.
+    Elementwise work (gates, softmax, dropout, top-K) is left out of the
+    FLOPs."""
     B, H, L = d["B"], d["H"], d["L"]
+    wb = d.get("wbytes", 4)
     if key in ("k1", "k1t", "k2"):
         T, D2 = d["T"], d["D2"]
         flops = 2 * T * D2 * B * 4 * H * H * (2 * L - 1)
-        w = (2 * L - 1) * D2 * H * 4 * H + L * D2 * 4 * H
+        mats, bias = (2 * L - 1) * D2 * H * 4 * H, L * D2 * 4 * H
         if key == "k2":
-            ins = w - L * D2 * 4 * H + T * L * D2 * B * 5 * H \
+            ins = mats + T * L * D2 * B * 5 * H \
                 + T * D2 * B * H + 2 * L * D2 * B * H
             outs = T * L * D2 * B * 4 * H
-        else:
-            ins = w + T * D2 * B * 4 * H
-            outs = T * D2 * B * H + (2 * L * D2 * B * H if key == "k1"
-                                     else T * L * D2 * B * 7 * H)
-        return flops, 4 * (ins + outs)
+            return flops, 4 * (ins + outs)
+        ins = bias + T * D2 * B * 4 * H
+        outs = T * D2 * B * H + (2 * L * D2 * B * H if key == "k1"
+                                 else T * L * D2 * B * 7 * H)
+        return flops, wb * mats + 4 * (ins + outs)
     T, E, A, V = d["T"], d["E"], d["A"], d["V"]
     cell = 4 * H * (E + A + H) + (L - 1) * 4 * H * 2 * H
     attn = H * H + 2 * T * H + 2 * H * A
@@ -329,12 +356,18 @@ def kernel_cost(key, d):
     flops = 2 * d["n"] * R * (cell + attn + A * V)
     outs = d["stop"] * R * (3 if key == "k6" else 1) + (R if key == "k6"
                                                           else 0)
-    return flops, 4 * (enc_state + dec_w + outs)
+    # the products' matrices and the encoder states in wbytes; the
+    # embedding, the biases and the state in f32
+    mats = ((E + A) * 4 * H + (2 * L - 1) * H * 4 * H + H * H + 2 * H * A
+            + A * V)
+    return flops, (wb * (mats + B * T * H)
+                   + 4 * (enc_state - B * T * H + dec_w - mats + outs))
 
 
-def bound(flops, nbytes):
-    """(bound_ms, bound_by): the larger of the two least times."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+def bound(flops, nbytes, peak=PEAK_F32_FLOPS):
+    """(bound_ms, bound_by): the larger of the two least times, the
+    products at ``peak`` FLOP/s."""
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -463,9 +496,9 @@ def with_eos_bias(w, beta):
     return w
 
 
-def check_greedy(enc, h0, c0, w, stop=STOP):
+def check_greedy(enc, h0, c0, w, stop=STOP, tok_tol=TOK_TOL):
     """K5 against its plain version, both free-running and stepped along
-    the kernel's own tokens: every kernel token within TOK_TOL of the
+    the kernel's own tokens: every kernel token within ``tok_tol`` of the
     plain step's largest logit, and PAD from the step after which every
     row has emitted EOS.  Returns (preds, numbers)."""
     from ast_tpu_torch import SYMBOLS
@@ -475,7 +508,7 @@ def check_greedy(enc, h0, c0, w, stop=STOP):
     ref = fused_infer.greedy_reference(enc, h0, c0, w, stop)
     short, n_run = fused_infer.greedy_follow(enc, h0, c0, w, tok)
     short = float(short.max())
-    assert short <= TOK_TOL, (
+    assert short <= tok_tol, (
         f"K5 chose a token whose logit is {short} below the plain step's "
         f"largest")
     assert (tok[:, n_run:] == SYMBOLS.PAD_ID).all(), (
@@ -485,16 +518,17 @@ def check_greedy(enc, h0, c0, w, stop=STOP):
                      rows_equal=int((tok == ref).all(dim=1).sum()))
 
 
-def check_beam(enc, h0, c0, w, stop=STOP):
+def check_beam(enc, h0, c0, w, stop=STOP, tok_tol=TOK_TOL,
+               score_tol=SCORE_TOL):
     """K6 against its plain version, free-running (utterances whose
     streams are equal must give equal hypotheses, lengths and scores) and
     stepped along the kernel's own streams, where every step of every
-    utterance is held to the beam's rules: chosen tokens within TOK_TOL of
-    their slot's top K, the chosen scores within SCORE_TOL of the best N
-    candidates, frozen slots continued by EOS with valid 0, no candidate
-    twice, and EOS / identity parents / valid 0 once every slot has
-    finished; final scores within SCORE_TOL.  Returns (valid stream,
-    numbers)."""
+    utterance is held to the beam's rules: chosen tokens within
+    ``tok_tol`` of their slot's top K, the chosen scores within
+    ``score_tol`` of the best N candidates, frozen slots continued by EOS
+    with valid 0, no candidate twice, and EOS / identity parents / valid
+    0 once every slot has finished; final scores within ``score_tol``.
+    Returns (valid stream, numbers)."""
     from ast_tpu_torch.ops import fused_infer
 
     k_tok, k_par, k_val, k_scores = fused_infer.beam_search_streams(
@@ -505,13 +539,13 @@ def check_beam(enc, h0, c0, w, stop=STOP):
         f"K6 streams break the beam's rules at (step, utterance) "
         f"{bad.nonzero().tolist()[:8]}")
     topk_short, sel_err = float(topk_short.max()), float(sel_err.max())
-    assert topk_short <= TOK_TOL, (
+    assert topk_short <= tok_tol, (
         f"K6 chose a token {topk_short} below its slot's top K")
-    assert sel_err <= SCORE_TOL, (
+    assert sel_err <= score_tol, (
         f"K6's selection is {sel_err} off the best N candidates")
     live = f_scores > fused_infer.NEG_INF / 2
     s_err = float((k_scores - f_scores).abs()[live].max())
-    assert s_err <= SCORE_TOL, f"K6 scores disagree: {s_err}"
+    assert s_err <= score_tol, f"K6 scores disagree: {s_err}"
 
     r_hyps, r_scores, r_lens, r_tok, r_par, r_val = \
         fused_infer.beam_reference(enc, h0, c0, w, N_BEAM, K_BEAM, stop,
@@ -524,7 +558,7 @@ def check_beam(enc, h0, c0, w, stop=STOP):
     assert (k_hyps[same] == r_hyps[same]).all(), "K6 hypotheses disagree"
     free_err = (float((k_scores - r_scores).abs()[same].max())
                 if same.any() else 0.0)
-    assert free_err <= SCORE_TOL, f"K6 scores disagree: {free_err}"
+    assert free_err <= score_tol, f"K6 scores disagree: {free_err}"
     return k_val, dict(
         score_err=max(s_err, free_err), topk_short=topk_short,
         sel_err=sel_err, utts_equal=int(same.sum()),
@@ -808,11 +842,12 @@ def check_partial(params, state, mcfg, w, nb, t_enc, device):
     return g, bm
 
 
-def cudnn_pair(params, state, mcfg, X):
+def cudnn_pair(params, state, mcfg, X, dtype=None):
     """K1's yardstick: per direction stack one cuDNN torch.nn.LSTM (3
     layers, the port's weights, b_ih = its bias, b_hh = 0), and its input,
     the conv output (the reverse stack's time-reversed); one of each for
-    a unidirectional encoder.  Returns (lstms, inputs)."""
+    a unidirectional encoder; in ``dtype`` (default f32).  Returns (lstms,
+    inputs)."""
     import torch
 
     from ast_tpu_torch.models import seq2seq
@@ -821,6 +856,8 @@ def cudnn_pair(params, state, mcfg, X):
     h_cnn, _ = conv_frontend(params["cnn"], state["cnn_bn"],
                              mcfg["cnn_config"], X)
     seq = h_cnn.transpose(0, 1).contiguous()              # (T', B, C)
+    if dtype is not None:
+        seq = seq.to(dtype)
     if mcfg["rnn_config"].get("ref_rev_quirk", False):
         rev = torch.cat([seq[:1], seq[1:].flip(0)])
     else:
@@ -829,14 +866,15 @@ def cudnn_pair(params, state, mcfg, X):
     H, D2 = layers[0]["wh"].shape[-2], layers[0]["wh"].shape[0]
     lstms = []
     for d in range(D2):
-        m = torch.nn.LSTM(seq.shape[-1], H, num_layers=len(layers)).to(
-            seq.device)
+        m = torch.nn.LSTM(seq.shape[-1], H, num_layers=len(layers),
+                          device=seq.device, dtype=seq.dtype)
         with torch.no_grad():
             for l, p in enumerate(layers):
                 getattr(m, f"weight_ih_l{l}").copy_(p["wx"][d].t())
                 getattr(m, f"weight_hh_l{l}").copy_(p["wh"][d].t())
                 getattr(m, f"bias_ih_l{l}").copy_(p["b"][d])
                 getattr(m, f"bias_hh_l{l}").zero_()
+        m.flatten_parameters()      # cuDNN's one weight buffer
         lstms.append(m)
     return lstms, (seq, rev.contiguous())[:D2]
 
@@ -3501,6 +3539,420 @@ def device_busy(prof):
     return busy / 1e3, groups
 
 
+# ---------------------------------------------------------------------------
+# phase 13: bfloat16 decoding (extras.compute_dtype: "bfloat16")
+# ---------------------------------------------------------------------------
+
+# K1 eval, K5 and K6 at bf16 against their plain bf16 versions on the
+# card.  Both round the same values to bf16 at the same points and sum in
+# f32, in another order: a value that falls within an f32 rounding of a
+# bf16 boundary rounds one bf16 ulp (2**-8 of it) apart in the two, and
+# the recurrences carry such steps on, so the two part by bf16's
+# precision, not f32's.  The bounds: encoder states (|h| < 1) within
+# BF16_ENC_TOL, one bf16 ulp at 1; a kernel token within BF16_TOK_TOL of
+# the plain step's best logit along the kernel's own tokens (logits of a
+# few units: a bf16 ulp of 4 is 1.6e-2); beam scores (sums of up to 175
+# log-probs) within BF16_SCORE_TOL.  (Measured on the H100: 4.4e-4,
+# 4.8e-4 and 9.4e-3 at B = 32.)
+BF16_ENC_TOL, BF16_TOK_TOL, BF16_SCORE_TOL = 3.9e-3, 1e-2, 5e-2
+# (utterances, T') of the bf16 partial-batch checks: R <= 16 greedy rows,
+# a beam of 25 rows, and 100 greedy / 320 beam rows (two row chunks)
+BF16_PARTIAL = ((5, 20), (64, 100))
+
+
+def bf16_counters():
+    """The bf16 entries' launch counts by their key in the kernels line."""
+    from ast_tpu_torch.ops import fused_infer, fused_lstm as fl
+
+    return {"k1_bf16": fl.fused_stacked_lstm.launches_bf16,
+            "k5_bf16": fused_infer.greedy_decode_fused.launches_bf16,
+            "k6_bf16": fused_infer.beam_search_streams.launches_bf16}
+
+
+def zero_bf16_counts():
+    from ast_tpu_torch.ops import fused_infer, fused_lstm as fl
+
+    for fn in (fl.fused_stacked_lstm, fused_infer.greedy_decode_fused,
+               fused_infer.beam_search_streams):
+        fn.launches_bf16 = 0
+
+
+def check_bf16_encoder(args, name):
+    """K1 eval at bf16 on ``args`` (x0_proj, bf16 wx_rest, bf16 wh, b[,
+    packed]) against its plain version within BF16_ENC_TOL and bit-equal
+    over REPEATS more calls; returns the max abs err."""
+    from ast_tpu_torch.ops import fused_lstm
+
+    got = fused_lstm.fused_stacked_lstm(*args)
+    ref = fused_lstm.stacked_lstm_reference(*args[:4])
+    err = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+    assert err <= BF16_ENC_TOL, f"K1 bf16 disagrees, {name}: {err}"
+    check_repeats(lambda: fused_lstm.fused_stacked_lstm(*args), got,
+                  f"K1 bf16, {name}")
+    return err
+
+
+def check_bf16_kernels(cfg, device):
+    """Phase 13, kernels: K1 eval, K5 and K6 at bf16 against their plain
+    bf16 versions at es_en_20h width (phase 3's model and batch), at
+    BF16_PARTIAL's batches too, REPEATS more calls bit-equal, each timed
+    beside its f32 mode in the same call, and K1 beside two cuDNN
+    torch.nn.LSTM in bf16."""
+    import torch
+
+    from ast_tpu_torch.models import seq2seq
+    from ast_tpu_torch.ops import fused_infer, fused_lstm
+
+    bf = torch.bfloat16
+    mcfg = cfg.model
+    params, state = seq2seq.init_model(mcfg, seed=0, device=device)
+    X = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (B, FRAMES, 13)).astype(np.float32)).to(device)
+    w, w32 = seq2seq.decode_weights(params, bf), seq2seq.decode_weights(params)
+    enc_in = seq2seq.encoder_inputs(params, state, mcfg, X, enc_w=w["enc"],
+                                    compute_dtype=bf)
+    enc_in32 = seq2seq.encoder_inputs(params, state, mcfg, X,
+                                      enc_w=w32["enc"])
+    assert enc_in[1].dtype == enc_in[4].dtype == bf
+    err = check_bf16_encoder(enc_in, f"{B} rows")
+    print(f"K1 encoder bf16: x0_proj {tuple(enc_in[0].shape)}, max abs err "
+          f"{err:.3e} against its plain bf16 version (tol {BF16_ENC_TOL}), "
+          f"{REPEATS} more calls bit-equal", flush=True)
+    for nb, t_enc in ENC_PARTIAL[:2] + ENC_EVAL_PARTIAL:
+        x0, wxr, wh, b = encoder_case(params, nb, t_enc, device)
+        e = check_bf16_encoder((x0, wxr.to(bf), wh.to(bf), b),
+                               f"{nb} rows, T' {t_enc}")
+        err = max(err, e)
+        print(f"  K1 bf16 at {nb} rows, T' {t_enc}: max abs err {e:.3e}",
+              flush=True)
+    lib_ms, lib_note = None, ""
+    try:
+        lstms, xs = cudnn_pair(params, state, mcfg, X, bf)
+        lib_ms = cuda_ms(lambda: [m(x) for m, x in zip(lstms, xs)], 5)
+    except RuntimeError as e:         # cuDNN without a bf16 LSTM
+        lib_note = f" (cuDNN LSTM in bf16 refused: {e})"
+    T_enc, D2, _, H4e = enc_in[0].shape
+    res = {"k1_bf16": dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: fused_lstm.fused_stacked_lstm(*enc_in), 5),
+        f32_ms=cuda_ms(lambda: fused_lstm.fused_stacked_lstm(*enc_in32), 5),
+        plain_ms=cuda_ms(
+            lambda: fused_lstm.stacked_lstm_reference(*enc_in[:4]), 2),
+        library_ms=lib_ms,
+        dims=dict(T=T_enc, D2=D2, B=B, H=H4e // 4, L=enc_in[2].shape[0],
+                  wbytes=2))}
+    print(f"  K1 bf16 {res['k1_bf16']['ms']:.3f} ms, f32 "
+          f"{res['k1_bf16']['f32_ms']:.3f} ms (same call); two cuDNN "
+          f"nn.LSTM in bf16 "
+          + (f"{lib_ms:.3f} ms" if lib_ms is not None else "none")
+          + lib_note, flush=True)
+
+    out = fused_lstm.stacked_lstm_reference(*enc_in[:4])
+    enc32, h0, c0 = seq2seq.encoder_outputs(*out)
+    enc = enc32.to(bf)
+    _, g = check_greedy(enc, h0, c0, w, STOP, BF16_TOK_TOL)
+    _, bm = check_beam(enc, h0, c0, w, STOP, BF16_TOK_TOL, BF16_SCORE_TOL)
+    check_repeats(lambda: fused_infer.greedy_decode_fused(enc, h0, c0, w,
+                                                          STOP),
+                  fused_infer.greedy_decode_fused(enc, h0, c0, w, STOP),
+                  "K5 bf16")
+    first = fused_infer.beam_search_streams(enc, h0, c0, w, N_BEAM, K_BEAM,
+                                            STOP)
+    check_repeats(lambda: fused_infer.beam_search_streams(
+        enc, h0, c0, w, N_BEAM, K_BEAM, STOP), first, "K6 bf16")
+    print(f"K5 greedy bf16: {B} rows, {g['steps']} of {STOP} steps, "
+          f"{g['rows_equal']} rows equal to the free-running plain bf16 "
+          f"decode, every token within {g['shortfall']:.3e} of the plain "
+          f"step's best logit (tol {BF16_TOK_TOL}); K6 beam bf16 "
+          f"{N_BEAM},{K_BEAM}: {bm['utts_equal']} utterances equal "
+          f"free-running, top-K shortfall {bm['topk_short']:.3e}, selection "
+          f"{bm['sel_err']:.3e}, score {bm['score_err']:.3e} (tol "
+          f"{BF16_SCORE_TOL}); {REPEATS} more calls of each bit-equal",
+          flush=True)
+    dec_dims = dict(B=B, T=enc.shape[1], H=enc.shape[2], L=h0.shape[0],
+                    E=w["embed"].shape[1], A=w["ctx_w"].shape[1],
+                    V=w["embed"].shape[0], stop=STOP, wbytes=2)
+    enc32c = enc32.contiguous()
+    res["k5_bf16"] = dict(
+        max_abs_err=g["shortfall"], rows_equal=g["rows_equal"],
+        ms=cuda_ms(lambda: fused_infer.greedy_decode_fused(
+            enc, h0, c0, w, STOP), 3),
+        f32_ms=cuda_ms(lambda: fused_infer.greedy_decode_fused(
+            enc32c, h0, c0, w32, STOP), 3),
+        plain_ms=cuda_ms(lambda: fused_infer.greedy_reference(
+            enc, h0, c0, w, STOP), 1),
+        dims=dict(dec_dims, n=g["steps"]))
+    res["k6_bf16"] = dict(
+        max_abs_err=bm["score_err"], utts_equal=bm["utts_equal"],
+        ms=cuda_ms(lambda: fused_infer.beam_decode_fused(
+            enc, h0, c0, w, N_BEAM, K_BEAM, STOP), 3),
+        f32_ms=cuda_ms(lambda: fused_infer.beam_decode_fused(
+            enc32c, h0, c0, w32, N_BEAM, K_BEAM, STOP), 3),
+        plain_ms=cuda_ms(lambda: fused_infer.beam_reference(
+            enc, h0, c0, w, N_BEAM, K_BEAM, STOP), 1),
+        dims=dict(dec_dims, n=bm["steps"], N=N_BEAM))
+    for nb, t_enc in BF16_PARTIAL:
+        Xp = torch.from_numpy(np.random.default_rng(nb).standard_normal(
+            (nb, 4 * t_enc, 13)).astype(np.float32)).to(device)
+        e32, ph0, pc0 = seq2seq.encode(params, state, mcfg, Xp, w, bf)
+        pe = e32.to(bf)
+        _, pg = check_greedy(pe, ph0, pc0, w, PARTIAL_STOP, BF16_TOK_TOL)
+        _, pb = check_beam(pe, ph0, pc0, w, PARTIAL_STOP, BF16_TOK_TOL,
+                           BF16_SCORE_TOL)
+        res["k5_bf16"]["max_abs_err"] = max(res["k5_bf16"]["max_abs_err"],
+                                            pg["shortfall"])
+        res["k6_bf16"]["max_abs_err"] = max(res["k6_bf16"]["max_abs_err"],
+                                            pb["score_err"])
+        print(f"  K5 / K6 bf16 partial batch of {nb} utterances, T' "
+              f"{t_enc}: greedy shortfall {pg['shortfall']:.3e}, beam "
+              f"top-K {pb['topk_short']:.3e}, score {pb['score_err']:.3e}",
+              flush=True)
+    for key in ("k1_bf16", "k5_bf16", "k6_bf16"):
+        r = res[key]
+        print(f"  {key}: {r['ms']:.3f} ms at bf16, {r['f32_ms']:.3f} ms at "
+              f"f32 ({r['ms'] / r['f32_ms']:.3f} of it), plain bf16 "
+              f"{r['plain_ms']:.2f} ms", flush=True)
+    return res
+
+
+def bf16_experiment(exp, root):
+    """Phase 4's experiment with extras.compute_dtype "bfloat16": its
+    configs and checkpoint in a directory of its own."""
+    bexp = os.path.join(root, "exp_bf16")
+    os.makedirs(bexp)
+    for f in ("model_cfg.json", "train_cfg.json", "seq2seq_1.model.npz"):
+        shutil.copy(os.path.join(exp, f), bexp)
+    edit_train_cfg(bexp, lambda c: c.setdefault("extras", {}).update(
+        compute_dtype="bfloat16"))
+    return bexp
+
+
+def run_bf16_serving(exp, paths, root, smi, device="cuda"):
+    """Phase 13, the entry points: cli.infer at bf16 on phase 4's 64
+    files, greedy and beam (utts/s beside f32 in the same phase, the
+    share of utterances whose text equals the f32 decode, the bf16
+    kernels' launches), then export_model --dtype bfloat16 and cli.serve:
+    one greedy and one beam request whose ids equal the in-process bf16
+    decode.  Returns the launches and served batches of the infer runs."""
+    import torch
+
+    from ast_tpu_torch import Config, SYMBOLS
+    from ast_tpu_torch.checkpoint import load_checkpoint
+    from ast_tpu_torch.cli import export_model, infer
+    from ast_tpu_torch.models import seq2seq
+    from ast_tpu_torch.ops import beam as beam_ops
+    from ast_tpu_torch.params import from_jax_numpy
+
+    bexp = bf16_experiment(exp, root)
+    texts, rates, batches = {}, {}, {}
+    for dt, e in (("float32", exp), ("bfloat16", bexp)):
+        for name, extra in (("greedy", []),
+                            ("beam", ["--beam", f"{N_BEAM},{K_BEAM}"])):
+            if dt == "bfloat16" and name == "greedy":
+                zero_bf16_counts()      # the bf16 main path starts here
+            sync(device)
+            t0 = time.perf_counter()
+            with counting(seq2seq, "encode") as calls:
+                texts[dt, name], _ = quiet(infer.main, [
+                    "-m", e, "--device", device] + extra + paths)
+            sync(device)
+            rates[dt, name] = len(paths) / (time.perf_counter() - t0)
+            batches[dt, name] = calls[0]
+    launches = bf16_counters()
+    for k, n in launches.items():
+        assert n > 0, f"the bf16 main path never launched {k}"
+    for name in ("greedy", "beam"):
+        b16 = texts["bfloat16", name]
+        assert len(b16) == len(paths) and any(b16.values()), name
+        same = sum(b16[u] == texts["float32", name][u] for u in b16)
+        # words before the two texts first part, over the f32 text's
+        prefix = []
+        for u in b16:
+            a, b = b16[u].split(), texts["float32", name][u].split()
+            n = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                     min(len(a), len(b)))
+            prefix.append(n / max(1, len(b)))
+        print(f"cli.infer bf16 {name}: {rates['bfloat16', name]:.1f} utts/s "
+              f"against {rates['float32', name]:.1f} at f32 ({smi}); "
+              f"{same} of {len(b16)} utterances' text equal to the f32 "
+              f"decode, the common prefix {np.mean(prefix):.3f} of the f32 "
+              f"text's words on average", flush=True)
+
+    serving_dir = os.path.join(root, "serving_bf16")
+    quiet(export_model.main, ["-m", exp, "-o", serving_dir, "--batch",
+                              str(B), "--frames", str(FRAMES), "--beam",
+                              f"{N_BEAM},{K_BEAM}", "--dtype", "bfloat16"])
+    serving_q8 = os.path.join(root, "serving_bf16_q8")
+    quiet(export_model.main, ["-m", bexp, "-o", serving_q8, "--batch",
+                              str(B), "--frames", str(FRAMES), "--quantize",
+                              "int8"])
+    for d in (serving_dir, serving_q8):
+        with open(os.path.join(d, "manifest.json")) as f:
+            assert json.load(f)["compute_dtype"] == "bfloat16", d
+    cfg = Config(exp)
+    snap = load_checkpoint(os.path.join(exp, "seq2seq_1.model.npz"))
+    params, state = from_jax_numpy(snap["params"], snap["state"],
+                                   torch.device(device))
+    x = next(a for a in (np.load(p) for p in paths) if len(a) <= FRAMES)
+    X = np.zeros((1, FRAMES, 13), np.float32)
+    X[0, :len(x)] = x
+    Xt = torch.from_numpy(X).to(torch.device(device))
+    bf = torch.bfloat16
+    with torch.inference_mode():
+        w = seq2seq.decode_weights(params, bf)
+        pred = seq2seq.predict_greedy(params, state, cfg.model, Xt, STOP, w,
+                                      compute_dtype=bf)[0][0].cpu().numpy()
+        hyps, scores, lengths = (a.cpu().numpy() for a in
+                                 beam_ops.make_beam_decoder(
+                                     cfg.model, N_BEAM, K_BEAM, STOP,
+                                     compute_dtype=bf)(params, state, Xt, w))
+    eos = np.nonzero(pred == SYMBOLS.EOS_ID)[0]
+    want_g = (pred[:eos[0]] if eos.size else pred).tolist()
+    best = beam_ops.rerank_hypothesis(
+        [(hyps[0, n, :lengths[0, n]].tolist(), float(scores[0, n]))
+         for n in range(N_BEAM)], 0.6)[0][0]
+    want_b = [int(i) for i in best[1:]]
+    if want_b and want_b[-1] == SYMBOLS.EOS_ID:
+        want_b = want_b[:-1]
+    proc, base_url, warm_s = start_server(
+        serving_dir, os.path.join(root, "serve_bf16.log"), device=device)
+    try:
+        before = http_get(base_url + "/stats")["kernel_launches"]
+        sg, rg = http_post(base_url + "/decode?mode=greedy", x)
+        sb, rb = http_post(base_url + "/decode?mode=beam", x)
+        after = http_get(base_url + "/stats")["kernel_launches"]
+    finally:
+        rc = stop_server(proc)
+    assert sg == 200 and rg["ids"] == want_g, (sg, rg, want_g)
+    assert sb == 200 and rb["ids"] == want_b, (sb, rb, want_b)
+    moved = {k: after[k] - before[k] for k in after}
+    check_launched("cli.serve bf16", moved, ("k1_bf16", "k5_bf16",
+                                             "k6_bf16"))
+    assert rc == 0, rc
+    print(f"  export_model --dtype bfloat16 (and int8 from the bf16 "
+          f"experiment: manifests say bfloat16) + cli.serve: ready after "
+          f"{warm_s:.1f} s; one greedy and one beam request, ids equal to "
+          f"the in-process bf16 decode ({len(want_g)} / {len(want_b)} "
+          f"tokens); the server launched {moved}", flush=True)
+    units = {"k1_bf16": batches["bfloat16", "greedy"]
+             + batches["bfloat16", "beam"],
+             "k5_bf16": batches["bfloat16", "greedy"],
+             "k6_bf16": batches["bfloat16", "beam"]}
+    return launches, units
+
+
+def sync(device):
+    """Wait for the card (a no-op on the CPU)."""
+    import torch
+
+    if device == "cuda":
+        torch.cuda.synchronize()
+
+
+def check_determinism(train_exp, root, smi, device="cuda"):
+    """Two NNs from one seed train two epochs of phase 6's experiment
+    (fresh directories, its configs) and must end with bit-equal
+    parameters, BN state and optimizer state; so must one epoch of the
+    NCHW conv family (force_nchw, whose backward is F.fold and GEMMs).
+    Then one step's time with the embedding gradient summed by the
+    one-hot product (the repair) and by index_add_ (as before it), in
+    turns in this call, and the two sums' own device time."""
+    import torch
+
+    from ast_tpu_torch.ops import embedding
+    from ast_tpu_torch.train.optimizer import tree_leaves
+    from ast_tpu_torch.train.trainer import NN
+
+    def run(tag, epochs, exp=train_exp, model_edit=None):
+        d = os.path.join(root, f"determinism_{tag}")
+        os.makedirs(d)
+        for f in ("model_cfg.json", "train_cfg.json"):
+            shutil.copy(os.path.join(exp, f), d)
+        if model_edit:
+            path = os.path.join(d, "model_cfg.json")
+            with open(path) as f:
+                mcfg = json.load(f)
+            model_edit(mcfg)
+            with open(path, "w") as f:
+                json.dump(mcfg, f)
+        nn = NN(d, device)
+        with contextlib.redirect_stdout(io.StringIO()):
+            for e in range(1, epochs + 1):
+                nn.train_epoch(nn.cfg.train["train_set"], epoch=e)
+        sync(device)
+        return nn
+
+    def leaves(nn):
+        return (tree_leaves(nn.params) + tree_leaves(nn.state)
+                + tree_leaves(nn.opt_state))
+
+    def same(x, y):
+        return torch.equal(x, y) if torch.is_tensor(x) else x == y
+
+    def index_add_grad(ids, d_rows, V):
+        return torch.zeros((V, d_rows.shape[-1]), device=d_rows.device,
+                           dtype=d_rows.dtype).index_add_(
+            0, ids.reshape(-1).long(), d_rows.reshape(ids.numel(), -1))
+
+    t0 = time.perf_counter()
+    a, b = run("a", 2), run("b", 2)
+    la, lb = leaves(a), leaves(b)
+    diff = [i for i, (x, y) in enumerate(zip(la, lb)) if not same(x, y)]
+    assert len(la) == len(lb) and not diff, (
+        f"two runs from one seed differ in {len(diff)} of {len(la)} "
+        f"leaves after two epochs")
+    def nchw(m):
+        m["cnn_config"]["force_nchw"] = True
+
+    na, nb = run("nchw_a", 1, model_edit=nchw), run("nchw_b", 1,
+                                                     model_edit=nchw)
+    assert all(same(x, y) for x, y in zip(leaves(na), leaves(nb))), (
+        "two runs of the NCHW conv family differ after one epoch")
+    repair = embedding.embedding_grad
+    embedding.embedding_grad = index_add_grad
+    try:
+        c, d = run("c", 1), run("d", 1)
+    finally:
+        embedding.embedding_grad = repair
+    before_equal = all(same(x, y) for x, y in zip(leaves(c), leaves(d)))
+    X, y = train_batch(torch.device(device))
+    batch = {"X": X.cpu().numpy(), "y": y.cpu().numpy(), "n_real": B,
+             "utts": [""] * B}
+    ms = {"one-hot": [], "index_add_": []}
+    for name in ("index_add_", "one-hot", "one-hot", "index_add_"):
+        embedding.embedding_grad = (index_add_grad if name == "index_add_"
+                                    else repair)
+        try:
+            ms[name].append(step_split(a, batch, 10)["step"])
+        finally:
+            embedding.embedding_grad = repair
+    # the sum alone, at the step's shapes: (U - 1) B rows of E
+    V, E = a.params["dec"]["embed"].shape
+    gen = np.random.default_rng(9)
+    ids = torch.from_numpy(gen.integers(0, V, (U_TRAIN - 1, B))).to(device)
+    d_rows = torch.from_numpy(gen.standard_normal(
+        (U_TRAIN - 1, B, E)).astype(np.float32)).to(device)
+    sum_ms = {n: cuda_ms(lambda f=f: f(ids, d_rows, V), 20)
+              for n, f in (("one-hot", repair),
+                           ("index_add_", index_add_grad))}
+    print(f"determinism: two NNs from one seed, two epochs of phase 6's "
+          f"experiment each: {len(la)} leaves of parameters, BN and "
+          f"optimizer state bit-equal, and one epoch of the NCHW conv "
+          f"family ({time.perf_counter() - t0:.1f} s); with index_add_ in "
+          f"the repair's place, one epoch's two runs "
+          f"{'were' if before_equal else 'were not'} bit-equal", flush=True)
+    print(f"  the embedding gradient's sum alone ({U_TRAIN - 1} x {B} rows, "
+          f"V {V}, E {E}): one-hot product {sum_ms['one-hot']:.4f} ms, "
+          f"index_add_ {sum_ms['index_add_']:.4f} ms", flush=True)
+    print(f"  one step (B={B}, {FRAMES} frames, U={U_TRAIN}; {smi}; CUDA "
+          f"events, turns index_add_ / one-hot / one-hot / index_add_): "
+          f"before the repair {np.mean(ms['index_add_']):.2f} ms "
+          f"{[round(v, 3) for v in ms['index_add_']]}, after "
+          f"{np.mean(ms['one-hot']):.2f} ms "
+          f"{[round(v, 3) for v in ms['one-hot']]}", flush=True)
+    return ms
+
+
 def step_split(nn, batch, reps):
     """Mean device time (ms) of ``nn.train_step`` on ``batch`` and of the
     parts of it that run in K1 train, K2, K3, K4, the optimizer's update
@@ -3614,6 +4066,14 @@ def main():
         run_transfer(root, train["exp"], smi)
         run_audio_corpus(root, smi)
         d1, d1_launches, d1_units = run_variants(root, train["exp"], smi)
+        t13 = time.perf_counter()
+        with torch.inference_mode():
+            results.update(check_bf16_kernels(cfg, device))
+        bf_launches, bf_units = run_bf16_serving(exp, paths, root, smi)
+        print(f"phase 13: {time.perf_counter() - t13:.1f} s", flush=True)
+        check_determinism(train["exp"], root, smi)
+    launches.update(bf_launches)
+    units.update(bf_units)
     launches.update({k: v for k, v in train_launches.items() if k != "k5"})
     units.update({k: train["steps"] for k in ("k1t", "k2", "k3", "k4")})
     results.update(d1)
@@ -3641,11 +4101,19 @@ def main():
                    "k1_encoder.cu", "ast_tpu/ops/fused_lstm.py:275"),
         "k2_d1": ("K2 fused LSTM encoder backward, one direction",
                   "k2_encoder_bwd.cu", "ast_tpu/ops/fused_lstm.py:348"),
+        "k1_bf16": ("K1 fused biLSTM encoder, bf16 (compute_dtype)",
+                    "k1_encoder.cu", "ast_tpu/ops/fused_lstm.py:275"),
+        "k5_bf16": ("K5 fused greedy decode, bf16 (compute_dtype)",
+                    "k5_greedy.cu", "ast_tpu/ops/fused_infer.py:251"),
+        "k6_bf16": ("K6 fused beam decode, bf16 (compute_dtype)",
+                    "k6_beam.cu", "ast_tpu/ops/fused_infer.py:537"),
     }
     kernels = []
     for key, (name, src, replaces) in meta.items():
         r = results[key]
-        bound_ms, bound_by = bound(*kernel_cost(key.split("_")[0], r["dims"]))
+        bound_ms, bound_by = bound(
+            *kernel_cost(key.split("_")[0], r["dims"]),
+            PEAK_BF16_FLOPS if key.endswith("bf16") else PEAK_F32_FLOPS)
         kernels.append(dict(
             name=name, route="cuda",
             source=f"ast_tpu_torch/kernels/csrc/{src}", replaces=replaces,
@@ -3653,7 +4121,8 @@ def main():
             launches_per_unit=launches[key] / units[key],
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
-            library_ms=r.get("library_ms")))
+            library_ms=r.get("library_ms"),
+            **({"f32_ms": r["f32_ms"]} if "f32_ms" in r else {})))
         unit = ("train step" if key in ("k1t", "k2", "k3", "k4", "k1t_d1",
                                         "k2_d1")
                 else "served batch")

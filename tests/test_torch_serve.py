@@ -325,7 +325,9 @@ def test_http_endpoints_and_bodies(dirs, servers):
         assert stats["latency_s"]["n"] == 6
         assert stats["latency_s"]["p50"] <= stats["latency_s"]["p99"]
         # the plain versions ran: no kernel launched
-        assert stats["kernel_launches"] == {"k1": 0, "k5": 0, "k6": 0}
+        assert stats["kernel_launches"] == {
+            "k1": 0, "k5": 0, "k6": 0, "k1_bf16": 0, "k5_bf16": 0,
+            "k6_bf16": 0}
 
 
 def test_http_stats_read_the_kernel_counters(dirs, monkeypatch):
@@ -339,9 +341,11 @@ def test_http_stats_read_the_kernel_counters(dirs, monkeypatch):
                       (fused_infer.greedy_decode_fused, 2),
                       (fused_infer.beam_search_streams, 1)):
             monkeypatch.setattr(fn, "launches", fn.launches + n)
+            # the bf16 entries' counters (compute_dtype bfloat16)
+            monkeypatch.setattr(fn, "launches_bf16", fn.launches_bf16 + 2 * n)
         after = _get(base + "/stats")["kernel_launches"]
     assert {k: after[k] - before[k] for k in after} == \
-        {"k1": 3, "k5": 2, "k6": 1}
+        {"k1": 3, "k5": 2, "k6": 1, "k1_bf16": 6, "k5_bf16": 4, "k6_bf16": 2}
 
 
 def _hit_all(base, bodies):
@@ -591,9 +595,11 @@ def test_cli_prefork_workers(dirs, servers):
 
 def test_export_refusals_and_ignored_flags(dirs, tmp_path, capsys):
     exp = dirs["exp"]
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        export_model.main(["-m", exp, "--dtype", "bfloat16",
-                           "-o", str(tmp_path / "a")])
+    # --dtype bfloat16 exports (once refused): the manifest's dtype
+    out = export_model.main(["-m", exp, "--dtype", "bfloat16",
+                             "-o", str(tmp_path / "a")])
+    with open(os.path.join(out, "manifest.json")) as f:
+        assert json.load(f)["compute_dtype"] == "bfloat16"
     with pytest.raises(ValueError, match="beam width K=99"):
         export_model.main(["-m", exp, "--beam", "2,99",
                            "-o", str(tmp_path / "b")])
