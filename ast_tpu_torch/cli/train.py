@@ -14,7 +14,9 @@ signal makes the epoch write ``seq2seq_inflight.npz`` at the next batch
 boundary and the run exit cleanly.  ``--profile`` writes a
 ``torch.profiler`` Chrome trace of the first training epoch into LOGDIR.
 On ``--device cuda`` every kernel of the path is a hand-written CUDA
-kernel; ``--device cpu`` runs their plain versions.
+kernel; ``--device cpu`` runs their plain versions.  With
+``extras.compute_dtype: "bfloat16"`` in ``train_cfg.json`` the steps, the
+dev loss and the dev decode run at bf16 (the kernels' bf16 modes).
 """
 
 import argparse
@@ -23,7 +25,6 @@ import os
 import signal
 
 from ast_tpu_torch.eval.bleu import Eval
-from ast_tpu_torch.ops.fused_infer import require_train_dtype
 from ast_tpu_torch.train.trainer import NN, PreemptedError
 
 
@@ -57,7 +58,6 @@ def main(argv=None):
     print(f"number of epochs={args.epochs:d}")
 
     nn = NN(args.cfg_path, args.device)
-    require_train_dtype(nn.cfg.train)   # bf16 decodes but does not train
     _install_preempt_handler(nn)
     tcfg = nn.cfg.train
     train_key, dev_key = tcfg["train_set"], tcfg["dev_set"]

@@ -35,15 +35,24 @@ _SIGNATURES = {
     "k1_encoder_forward": [_P] * 8 + [_I] * 5 + [_P],
     "k1_encoder_forward_bf16": [_P] * 8 + [_I] * 5 + [_P],
     "k1_encoder_forward_train": [_P] * 11 + [_I] * 5 + [_U, _U, _F, _P],
+    "k1_encoder_forward_train_bf16": [_P] * 13 + [_I] * 5
+    + [_U, _U, _F, _P],
     "k2_encoder_backward": [_P] * 9 + [_I] * 5 + [_U, _U, _F, _P],
+    "k2_encoder_backward_bf16": [_P] * 10 + [_I] * 5 + [_U, _U, _F, _P],
     "k3_decoder_forward": [_P] * 26 + [_I] * 8 + [_U, _U, _F, _U, _F, _P],
+    "k3_decoder_forward_bf16": [_P] * 30 + [_I] * 8
+    + [_U, _U, _F, _U, _F, _P],
     "k4_decoder_backward": [_P] * 18 + [_I] * 7 + [_U, _U, _F, _U, _F, _P],
+    "k4_decoder_backward_bf16": [_P] * 22 + [_I] * 7
+    + [_U, _U, _F, _U, _F, _P],
     "k5_greedy_decode": [_P] * 20 + [_I] * 8 + [_P],
     "k5_greedy_decode_bf16": [_P] * 20 + [_I] * 8 + [_P],
     "k6_beam_decode": [_P] * 25 + [_I] * 10 + [_P],
     "k6_beam_decode_bf16": [_P] * 25 + [_I] * 10 + [_P],
-    # not a launch: fills records, returns their number (cluster_choices)
+    # not launches: fills records, returns their number (cluster_choices);
+    # the rows of k2_encoder_backward_bf16's scratch
     "ast_cluster_choices": [_P, _I],
+    "k2_work_rows": [],
 }
 
 _lib = None

@@ -16,7 +16,11 @@
 // bfloat16): the packed matrices in bf16, each input value rounded to bf16
 // where the product reads it (__float2bfloat16_rn), and the sums in f32
 // FMAs -- a product of two bf16 values is exact in f32, so only the order
-// of the sum differs from ast_tpu's f32-accumulated bf16 dot.
+// of the sum differs from ast_tpu's f32-accumulated bf16 dot.  The
+// training kernels (K1 train, K2, K3, K4) have a bf16 mode too: the same
+// products at W = __nv_bfloat16, their residual streams stored in bf16
+// (ld_res / st_res below), and the f32 values a later product reads kept
+// in small f32 buffers beside the streams.
 //
 // Every exported entry point launches on the caller's stream, never
 // synchronises, allocates nothing, and returns cudaGetLastError() as an
@@ -95,6 +99,18 @@ static __device__ __forceinline__ int warp_argmax(const float* x, int V) {
   return bi < V ? bi : 0;
 }
 
+// A residual stream's element: float, or __nv_bfloat16 in the bf16 modes
+// of the training kernels, read widened to f32 and written rounded to
+// nearest even.
+static __device__ __forceinline__ float ld_res(const float* p) { return *p; }
+static __device__ __forceinline__ float ld_res(const __nv_bfloat16* p) {
+  return __bfloat162float(*p);
+}
+static __device__ __forceinline__ void st_res(float* p, float v) { *p = v; }
+static __device__ __forceinline__ void st_res(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
+
 // One input segment of a row-wise product.  Row r of the segment is
 // src + row(r) * K, with row(r) = idx ? idx[r] : r.
 struct Seg {
@@ -110,18 +126,24 @@ struct Seg {
 // values times keep_scale), dh = dh_carry + cons,
 //   dc = dc + dh * o * (1 - tanh(c)^2),  dz = [dc g i(1-i) |
 //   dc c_prev f(1-f) | dc i (1-g^2) | dh tanh(c) o(1-o)],  dc <- dc * f.
-// dh is read from rows of dh_ld floats (column 0 .. H-1).
-struct CellBwdArgs {
+// dh is read from rows of dh_ld floats (column 0 .. H-1).  T: the
+// residual streams' type (acts, c_new, c_prev, dz); at bf16 dz also goes
+// to dz_f32 unrounded, the f32 input of the product that reads it (which
+// rounds it again, as ast_tpu's dz.astype(bf16) does).
+template <typename T>
+struct CellBwdArgsT {
   const float* dh; int dh_ld;
-  const float* acts;      // (R, 4H)
-  const float* c_new;     // (R, H)
-  const float* c_prev;    // (R, H); nullptr = 0
+  const T* acts;          // (R, 4H)
+  const T* c_new;         // (R, H)
+  const T* c_prev;        // (R, H); nullptr = 0
   float* dc;              // (R, H) carry, in place
-  float* dz;              // (R, 4H)
+  T* dz;                  // (R, 4H)
+  float* dz_f32;          // (R, 4H), bf16 mode only
   unsigned seed, threshold;
   float keep_scale;
   int R, H;
 };
+using CellBwdArgs = CellBwdArgsT<float>;
 
 // One product of decode_step.cu:  z = [seg0 | seg1 | seg2] @ W, W packed
 // as (column blocks, ktot, 64) with its columns zero-padded to a multiple
@@ -130,7 +152,9 @@ struct CellBwdArgs {
 // of unit 16 cb + u) takes the gates [i, f, g, o] of z + bias, c_out =
 // f * c_in[c_idx[r]] + i * g, out = h = o * tanh(c_out).  Every segment's
 // K is a multiple of 32, every source 16-byte aligned; out and c_out must
-// not alias an input.  The launch returns at once while *done != 0.
+// not alias an input.  The launch returns at once while *done != 0.  At
+// W = __nv_bfloat16 a linear product also writes out16 (R, N), its output
+// rounded to bf16, unless it is nullptr (a training stream).
 struct Prod {
   Seg seg[3];
   int nseg;
@@ -142,18 +166,23 @@ struct Prod {
   const int* c_idx;  // nullptr = row r
   float* c_out;
   const int* done;
+  __nv_bfloat16* out16;
 };
 
 // The train mode of a cell product (a separate kernel, so the eval launch
 // is unchanged): acts (R, 4H) gets the post-activation gates [i|f|g|o],
 // Prod::out the pre-dropout h, and x_drop (R, H) the layer's output
 // x = drop_hash(r * H + j, seed) < threshold ? 0 : h / div (threshold 0:
-// x = h).
+// x = h).  At W = __nv_bfloat16 (K3's bf16 mode) the gates go to acts16
+// instead, c and h also to c16 / h16 (R, H), all in bf16 (Prod::c_out
+// and Prod::out are then the f32 state), and x_drop (f32) is the dropped
+// h that the products above read.
 struct CellTrainOut {
   float* acts;
   float* x_drop;
   unsigned seed, threshold;
   float div;
+  __nv_bfloat16 *acts16, *c16, *h16;
 };
 
 // The backward mode of a linear product (K4; no bias, no activation),
@@ -167,18 +196,23 @@ struct CellTrainOut {
 // values times inv), go to d_emb (R, E), and the
 // A columns after them, the input-feeding gradient, give the step
 // before's d_pre = (d_ht + z) (1 - ht^2) (R, A) -- unless d_pre is
-// nullptr (step 0).
-struct BwdEpilogue {
+// nullptr (step 0).  T: the streams' type (K4's bf16 mode: d_emb and
+// the cell backward's in bf16; d_pre is then f32, the input of the next
+// step's products, and d_pre_res its bf16 stream).
+template <typename T>
+struct BwdEpilogueT {
   int n_carry;
-  CellBwdArgs cell;
-  float* d_emb;
+  CellBwdArgsT<T> cell;
+  T* d_emb;
   int E, A;
   unsigned seed, threshold;
   float inv;
   const float* d_ht;
   const float* ht;
   float* d_pre;
+  T* d_pre_res;
 };
+using BwdEpilogue = BwdEpilogueT<float>;
 
 // What an encoder cell's epilogue adds to a cell product (K1; a kernel of
 // its own for eval and for train mode, so the decoders' cells compile
@@ -190,7 +224,10 @@ struct BwdEpilogue {
 // gates, Prod::out the pre-dropout h, and x_drop (R, H) the output
 // x = drop_hash(flat0 + r * H + j, seed) < threshold ? 0 : h * keep_scale
 // (threshold 0: x = h); flat0 places the rows in the mask's flat index
-// (the direction's d * B * H).
+// (the direction's d * B * H).  Train at W = __nv_bfloat16: the gates,
+// c, h and x go to the bf16 streams acts16, c16, h16 and x16 instead,
+// and Prod::out, Prod::c_out and x_drop are the f32 state (h, c and x)
+// that the next wave's products and epilogues read.
 struct EncCell {
   const float* pre;  // nullptr = none
   float* y_out;      // nullptr = none
@@ -198,6 +235,7 @@ struct EncCell {
   float* x_drop;
   unsigned seed, threshold, flat0;
   float keep_scale;
+  __nv_bfloat16 *acts16, *c16, *h16, *x16;
 };
 
 struct NoExtra {};
@@ -257,32 +295,58 @@ struct DecoderStep {
 
 // The encoder's waves (decode_step.cu), programmatic dependent launches:
 // w.n <= MAX_WAVE_GROUPS cell products in eval or train mode (K1), or
-// linear products without bias (K2); launch_cell_wave_bf16: eval cells
-// whose packed weights are bfloat16.
+// linear products without bias (K2); the _bf16 launchers: the same with
+// bfloat16 packed weights (EncCell's bf16 streams in train mode).
 cudaError_t launch_cell_wave(Wave<EncCell>& w, bool train, cudaStream_t s);
-cudaError_t launch_cell_wave_bf16(Wave<EncCell>& w, cudaStream_t s);
+cudaError_t launch_cell_wave_bf16(Wave<EncCell>& w, bool train,
+                                  cudaStream_t s);
 cudaError_t launch_linear_wave(Wave<NoExtra>& w, cudaStream_t s);
+cudaError_t launch_linear_wave_bf16(Wave<NoExtra>& w, cudaStream_t s);
 // The products and attention of decoder training (decode_step.cu), all
 // programmatic dependent launches.  A linear product, a cell product in
-// train mode, and a linear product in backward mode:
+// train mode, and a linear product in backward mode; the _bf16 launchers
+// take bfloat16 packed matrices (and Prod::out16, CellTrainOut's and
+// BwdEpilogueT's bf16 streams):
 cudaError_t launch_linear_prod(const Prod& a, cudaStream_t s);
 cudaError_t launch_cell_train_prod(const Prod& a, const CellTrainOut& tr,
                                    cudaStream_t s);
 cudaError_t launch_bwd_prod(const Prod& a, const BwdEpilogue& e,
                             cudaStream_t s);
+cudaError_t launch_linear_prod_bf16(const Prod& a, cudaStream_t s);
+cudaError_t launch_cell_train_prod_bf16(const Prod& a,
+                                        const CellTrainOut& tr,
+                                        cudaStream_t s);
+cudaError_t launch_bwd_prod_bf16(const Prod& a,
+                                 const BwdEpilogueT<__nv_bfloat16>& e,
+                                 cudaStream_t s);
 // cv[r] = softmax(enc[r] @ q[r]) @ enc[r] for the R rows of enc (R, T, H),
 // also writing the softmax weights to alphas (R, T); a cluster of blocks
-// per row splits T.
+// per row splits T.  The _bf16 one: enc and alphas in bf16, q f32, the
+// weights rounded to bf16 before the context sum (ast_tpu's _dot_c0), cv
+// f32 and rounded to cv16.
 cudaError_t launch_attention_train(const float* enc, const float* q,
                                    float* cv, float* alphas, int R, int T,
                                    int H, cudaStream_t s);
+cudaError_t launch_attention_train_bf16(const __nv_bfloat16* enc,
+                                        const float* q, float* cv,
+                                        __nv_bfloat16* cv16,
+                                        __nv_bfloat16* alphas, int R, int T,
+                                        int H, cudaStream_t s);
 // Its backward by the same clusters: d_alphas[t] = enc[r, t] . d_cv[r],
 // d_scores = alphas (d_alphas - <d_alphas, alphas>) (R, T), d_q =
-// d_scores @ enc[r] (R, H).
+// d_scores @ enc[r] (R, H).  The _bf16 one: enc, alphas and d_scores in
+// bf16, d_cv f32, d_scores rounded before the d_q sum, d_q f32 and
+// rounded to d_q16.
 cudaError_t launch_attention_bwd(const float* enc, const float* alphas,
                                  const float* d_cv, float* d_scores,
                                  float* d_q, int R, int T, int H,
                                  cudaStream_t s);
+cudaError_t launch_attention_bwd_bf16(const __nv_bfloat16* enc,
+                                      const __nv_bfloat16* alphas,
+                                      const float* d_cv,
+                                      __nv_bfloat16* d_scores, float* d_q,
+                                      __nv_bfloat16* d_q16, int R, int T,
+                                      int H, cudaStream_t s);
 // One decoder step for R rows, rows_per_utt of them per utterance of enc
 // (decode_step.cu): embedding gather + input feeding, the L-layer LSTM
 // stack, attention, ht = tanh(ctx([cv; h])), logits.  E, A and H must be

@@ -94,6 +94,17 @@
 // query and the softmax in f32, and rounds the normalised weights to
 // bf16 before the context sum (ast_tpu's _dot_c0).  A step then reads
 // half the bytes of weights and encoder states.
+//
+// The training modes (K1 train, K2, K3, K4) run at W = __nv_bfloat16 too,
+// for ast_tpu's bf16 training: the same products with bf16 weight tiles
+// and inputs rounded as they are staged, and epilogues that store the
+// residual streams in bf16 (ld_res / st_res) beside the f32 values the
+// next launch reads (the carried h, c and dropped h; a linear product's
+// Prod::out beside Prod::out16).  Train attention keeps the query f32
+// and rounds its normalised weights before the context sum; its backward
+// keeps d_cv f32 and rounds d_scores before the d_q sum (ast_tpu's _dot_t
+// widens enc, its _dot_c0 rounds the weights).  Every f32 mode is the
+// same code as before (each bf16 step sits behind if constexpr).
 #include <cooperative_groups.h>
 #include <math.h>
 
@@ -269,14 +280,16 @@ enum {
   PROD_WAVE_LINEAR = 6
 };
 
-// Element (r, j) of the cell backward `a` (CellBwdArgs, one group) given
+// Element (r, j) of the cell backward `a` (CellBwdArgsT, one group) given
 // the gradient `cons` arriving from above, before its dropout mask; the
 // thread that owns the element reads and writes its dc.  The encoder's
 // cell backward (k2_encoder_bwd.cu) is a kernel of its own with the same
 // arithmetic: sharing this function with it cost K2 1.7-2.0 % (H100,
-// same-call A/B).
-__device__ __forceinline__ void cell_bwd_element(const CellBwdArgs& a, int r,
-                                                 int j, float cons) {
+// same-call A/B).  T: the streams' type (bf16: read widened, dz stored
+// rounded and in f32 to dz_f32).
+template <typename T>
+__device__ __forceinline__ void cell_bwd_element(const CellBwdArgsT<T>& a,
+                                                 int r, int j, float cons) {
   const int H = a.H;
   const long H4 = 4L * H;
   if (a.threshold)
@@ -284,24 +297,37 @@ __device__ __forceinline__ void cell_bwd_element(const CellBwdArgs& a, int r,
                ? 0.f
                : cons * a.keep_scale;
   const float dh = a.dh[(long)r * a.dh_ld + j] + cons;
-  const float* ac = a.acts + (long)r * H4 + j;
-  const float ig = ac[0], fg = ac[H], gg = ac[2 * H], og = ac[3 * H];
-  const float tc = tanhf(a.c_new[(long)r * H + j]);
-  const float cp = a.c_prev ? a.c_prev[(long)r * H + j] : 0.f;
+  const T* ac = a.acts + (long)r * H4 + j;
+  const float ig = ld_res(ac), fg = ld_res(ac + H), gg = ld_res(ac + 2 * H),
+              og = ld_res(ac + 3 * H);
+  const float tc = tanhf(ld_res(a.c_new + (long)r * H + j));
+  const float cp = a.c_prev ? ld_res(a.c_prev + (long)r * H + j) : 0.f;
   float* dcp = a.dc + (long)r * H + j;
   const float dc = *dcp + dh * og * (1.f - tc * tc);
   *dcp = dc * fg;
-  float* dz = a.dz + (long)r * H4 + j;
-  dz[0] = dc * gg * ig * (1.f - ig);
-  dz[H] = dc * cp * fg * (1.f - fg);
-  dz[2 * H] = dc * ig * (1.f - gg * gg);
-  dz[3 * H] = dh * tc * og * (1.f - og);
+  const float d0 = dc * gg * ig * (1.f - ig);
+  const float d1 = dc * cp * fg * (1.f - fg);
+  const float d2 = dc * ig * (1.f - gg * gg);
+  const float d3 = dh * tc * og * (1.f - og);
+  T* dz = a.dz + (long)r * H4 + j;
+  st_res(dz, d0);
+  st_res(dz + H, d1);
+  st_res(dz + 2 * H, d2);
+  st_res(dz + 3 * H, d3);
+  if constexpr (IS_BF16<T>) {
+    float* dzf = a.dz_f32 + (long)r * H4 + j;
+    dzf[0] = d0;
+    dzf[H] = d1;
+    dzf[2 * H] = d2;
+    dzf[3 * H] = d3;
+  }
 }
 
-// ex: the CellTrainOut of PROD_CELL_TRAIN, the BwdEpilogue of PROD_BWD,
-// the EncCell of the wave's cells.  wave_cb: in a wave, the block's column
-// block within its product (else the block index gives it).  W: the
-// packed matrix's element type (bf16 only for the eval modes).
+// ex: the CellTrainOut of PROD_CELL_TRAIN, the BwdEpilogueT<W> of
+// PROD_BWD, the EncCell of the wave's cells.  wave_cb: in a wave, the
+// block's column block within its product (else the block index gives
+// it).  W: the packed matrix's element type, and in the training modes
+// the residual streams'.
 template <int TR, int RGN, int MODE, typename W, typename Extra>
 __device__ __forceinline__ void prod_body(const Prod& a, const Extra& ex,
                                           int wave_cb = 0) {
@@ -463,11 +489,13 @@ __device__ __forceinline__ void prod_body(const Prod& a, const Extra& ex,
           z = drop_hash((unsigned)(r * ex.E + m), ex.seed) < ex.threshold
                   ? 0.f
                   : z * ex.inv;
-        ex.d_emb[(long)r * ex.E + m] = z;
+        st_res(ex.d_emb + (long)r * ex.E + m, z);
       } else if (ex.d_pre) {
         const long i = (long)r * ex.A + m - ex.E;
         const float h = ex.ht[i];
-        ex.d_pre[i] = (ex.d_ht[i] + z) * (1.f - h * h);
+        const float d = (ex.d_ht[i] + z) * (1.f - h * h);
+        ex.d_pre[i] = d;
+        if constexpr (IS_BF16<W>) st_res(ex.d_pre_res + i, d);
       }
     }
     cluster.sync();  // no block leaves while another reads its partials
@@ -516,26 +544,47 @@ __device__ __forceinline__ void prod_body(const Prod& a, const Extra& ex,
       if constexpr (ENC_CELL) {
         float x = h;
         if constexpr (MODE == PROD_WAVE_CELL_TRAIN) {
-          float* ao = ex.acts + (long)r * 4 * H + j;
-          ao[0] = ig;
-          ao[H] = fg;
-          ao[2 * H] = gg;
-          ao[3 * H] = og;
+          if constexpr (IS_BF16<W>) {
+            __nv_bfloat16* ao = ex.acts16 + (long)r * 4 * H + j;
+            st_res(ao, ig);
+            st_res(ao + H, fg);
+            st_res(ao + 2 * H, gg);
+            st_res(ao + 3 * H, og);
+            st_res(ex.c16 + (long)r * H + j, c);
+            st_res(ex.h16 + (long)r * H + j, h);
+          } else {
+            float* ao = ex.acts + (long)r * 4 * H + j;
+            ao[0] = ig;
+            ao[H] = fg;
+            ao[2 * H] = gg;
+            ao[3 * H] = og;
+          }
           if (ex.threshold)
             x = drop_hash(ex.flat0 + (unsigned)(r * H + j), ex.seed) <
                         ex.threshold
                     ? 0.f
                     : h * ex.keep_scale;
           ex.x_drop[(long)r * H + j] = x;
+          if constexpr (IS_BF16<W>) st_res(ex.x16 + (long)r * H + j, x);
         }
         if (ex.y_out) ex.y_out[(long)r * H + j] = x;
       }
       if constexpr (MODE == PROD_CELL_TRAIN) {
-        float* ao = ex.acts + (long)r * 4 * H + j;
-        ao[0] = ig;
-        ao[H] = fg;
-        ao[2 * H] = gg;
-        ao[3 * H] = og;
+        if constexpr (IS_BF16<W>) {
+          __nv_bfloat16* ao = ex.acts16 + (long)r * 4 * H + j;
+          st_res(ao, ig);
+          st_res(ao + H, fg);
+          st_res(ao + 2 * H, gg);
+          st_res(ao + 3 * H, og);
+          st_res(ex.c16 + (long)r * H + j, c);
+          st_res(ex.h16 + (long)r * H + j, h);
+        } else {
+          float* ao = ex.acts + (long)r * 4 * H + j;
+          ao[0] = ig;
+          ao[H] = fg;
+          ao[2 * H] = gg;
+          ao[3 * H] = og;
+        }
         float xd = h;
         if (ex.threshold)
           xd = drop_hash((unsigned)(r * H + j), ex.seed) < ex.threshold
@@ -553,6 +602,8 @@ __device__ __forceinline__ void prod_body(const Prod& a, const Extra& ex,
         if (a.bias) y += a.bias[n];
         if (a.act_tanh) y = tanhf(y);
         a.out[(long)r * a.N + n] = y;
+        if constexpr (IS_BF16<W>)
+          if (a.out16) st_res(a.out16 + (long)r * a.N + n, y);
       }
     }
   }
@@ -564,16 +615,16 @@ __global__ void __launch_bounds__(THREADS) prod_kernel(Prod a) {
   prod_body<TR, RGN, CELL ? PROD_CELL : PROD_LINEAR, W>(a, NoExtra{});
 }
 
-template <int TR, int RGN>
+template <int TR, int RGN, typename W>
 __global__ void __launch_bounds__(THREADS)
     prod_train_kernel(Prod a, CellTrainOut tr) {
-  prod_body<TR, RGN, PROD_CELL_TRAIN, float>(a, tr);
+  prod_body<TR, RGN, PROD_CELL_TRAIN, W>(a, tr);
 }
 
-template <int TR, int RGN>
+template <int TR, int RGN, typename W>
 __global__ void __launch_bounds__(THREADS)
-    prod_bwd_kernel(Prod a, BwdEpilogue e) {
-  prod_body<TR, RGN, PROD_BWD, float>(a, e);
+    prod_bwd_kernel(Prod a, BwdEpilogueT<W> e) {
+  prod_body<TR, RGN, PROD_BWD, W>(a, e);
 }
 
 // A wave: the cluster's slot among the launch's column blocks gives its
@@ -604,7 +655,7 @@ __global__ void __launch_bounds__(THREADS) wave_kernel(Wave<Extra> w) {
 // inner) is stored and takes the place of the softmax numerators, and cv
 // gets d_q = d_scores @ enc[b], not normalised.
 struct Attn {
-  const void* enc;   // (B, T, H), float or (eval) __nv_bfloat16
+  const void* enc;   // (B, T, H), float or __nv_bfloat16
   const float* q;    // (B N, H)
   float* cv;         // (B N, H)
   int N, T, H;
@@ -613,19 +664,23 @@ struct Attn {
 
 enum { ATTN_EVAL = 0, ATTN_TRAIN = 1, ATTN_BWD = 2 };
 
-// Training's streams (B N, T): alphas, read by ATTN_BWD; and t_out,
-// ATTN_TRAIN's alphas or ATTN_BWD's d_scores.
-struct AttnAux {
-  const float* alphas;
-  float* t_out;
+// Training's streams (B N, T), in W: alphas, read by ATTN_BWD; and
+// t_out, ATTN_TRAIN's alphas or ATTN_BWD's d_scores.  cv_res (bf16
+// only): Attn::cv (ATTN_TRAIN's context, ATTN_BWD's d_q) rounded to bf16,
+// (B N, H).
+template <typename W>
+struct AttnAuxT {
+  const W* alphas;
+  W* t_out;
+  W* cv_res;
 };
 
-// W: the encoder states' element type; at bf16 (eval only) the
-// normalised softmax weights are rounded to bf16 before the context sum,
-// which then needs no division.
+// W: the encoder states' element type and the training streams'; at bf16
+// the normalised softmax weights (ATTN_BWD: d_scores) are rounded to bf16
+// before the context sum, which then needs no division.
 template <int MODE, typename W>
 __device__ __forceinline__ void attention_body(const Attn& a,
-                                               const AttnAux& x) {
+                                               const AttnAuxT<W>& x) {
   constexpr bool ROUND = IS_BF16<W>;
   grid_dep_wait();
   if (a.done && *a.done) return;
@@ -694,9 +749,10 @@ __device__ __forceinline__ void attention_body(const Attn& a,
   __syncthreads();
   if constexpr (MODE == ATTN_BWD) {
     for (int n = w; n < N; n += NW) {
-      const float* al = x.alphas + ((long)b * N + n) * a.T + t0;
+      const W* al = x.alphas + ((long)b * N + n) * a.T + t0;
       float p = 0.f;
-      for (int t = lane; t < tc; t += 32) p = fmaf(S[n * tcf + t], al[t], p);
+      for (int t = lane; t < tc; t += 32)
+        p = fmaf(S[n * tcf + t], ld_res(al + t), p);
       p = warp_sum(p);
       if (lane == 0) mx[n] = p;
     }
@@ -705,12 +761,12 @@ __device__ __forceinline__ void attention_body(const Attn& a,
       float inner = 0.f;
       for (int s = 0; s < cs; ++s)
         inner += *cluster.map_shared_rank(mx + n, s);
-      const float* al = x.alphas + ((long)b * N + n) * a.T + t0;
-      float* ds = x.t_out + ((long)b * N + n) * a.T + t0;
+      const W* al = x.alphas + ((long)b * N + n) * a.T + t0;
+      W* ds = x.t_out + ((long)b * N + n) * a.T + t0;
       for (int t = lane; t < tc; t += 32) {
-        const float v = al[t] * (S[n * tcf + t] - inner);
-        S[n * tcf + t] = v;
-        ds[t] = v;
+        const float v = ld_res(al + t) * (S[n * tcf + t] - inner);
+        S[n * tcf + t] = ROUND ? bf16_round(v) : v;
+        st_res(ds + t, v);
       }
     }
   } else {
@@ -798,14 +854,23 @@ __device__ __forceinline__ void attention_body(const Attn& a,
     }
     if constexpr (MODE != ATTN_BWD && !ROUND) v *= 1.f / z;
     a.cv[((long)b * N + n) * H + h] = v;
+    if constexpr (ROUND && MODE != ATTN_EVAL)
+      st_res(x.cv_res + ((long)b * N + n) * H + h, v);
   }
   if constexpr (MODE == ATTN_TRAIN) {
-    // this block's part of the normalised weights
+    // this block's part of the normalised weights (at bf16 S holds them,
+    // rounded)
     for (int i = tid; i < N * tc; i += THREADS) {
       const int n = i / tc, t = i % tc;
-      float z = 0.f;
-      for (int s = 0; s < cs; ++s) z += *cluster.map_shared_rank(sm + n, s);
-      x.t_out[((long)b * N + n) * a.T + t0 + t] = S[n * tcf + t] * (1.f / z);
+      W* out = x.t_out + ((long)b * N + n) * a.T + t0 + t;
+      if constexpr (ROUND) {
+        st_res(out, S[n * tcf + t]);
+      } else {
+        float z = 0.f;
+        for (int s = 0; s < cs; ++s)
+          z += *cluster.map_shared_rank(sm + n, s);
+        *out = S[n * tcf + t] * (1.f / z);
+      }
     }
   }
   cluster.sync();
@@ -815,17 +880,19 @@ __device__ __forceinline__ void attention_body(const Attn& a,
 // 255 a thread, so the scores' and context's loads in flight do not spill.
 template <typename W>
 __global__ void __launch_bounds__(THREADS, 1) attention_kernel(Attn a) {
-  attention_body<ATTN_EVAL, W>(a, AttnAux{});
+  attention_body<ATTN_EVAL, W>(a, AttnAuxT<W>{});
 }
 
+template <typename W>
 __global__ void __launch_bounds__(THREADS, 1)
-    attention_train_kernel(Attn a, AttnAux x) {
-  attention_body<ATTN_TRAIN, float>(a, x);
+    attention_train_kernel(Attn a, AttnAuxT<W> x) {
+  attention_body<ATTN_TRAIN, W>(a, x);
 }
 
+template <typename W>
 __global__ void __launch_bounds__(THREADS, 1)
-    attention_bwd_kernel(Attn a, AttnAux x) {
-  attention_body<ATTN_BWD, float>(a, x);
+    attention_bwd_kernel(Attn a, AttnAuxT<W> x) {
+  attention_body<ATTN_BWD, W>(a, x);
 }
 
 // The launch state below is shared by every host thread of the process
@@ -936,11 +1003,11 @@ cudaError_t launch_prod_tile(const Prod& a, int col_blocks, cudaStream_t s,
   for (int i = 0; i < a.nseg; ++i) ktot += a.seg[i].K;
   const int row_chunks = (a.R + S::RB - 1) / S::RB;
   if constexpr (MODE == PROD_CELL_TRAIN)
-    return launch_clustered(prod_train_kernel<TR, RGN>, opted, MODE, S::RB,
-                            S::BYTES, col_blocks, row_chunks, ktot / KT, s, a,
-                            extra...);
+    return launch_clustered(prod_train_kernel<TR, RGN, W>, opted, MODE,
+                            S::RB, S::BYTES, col_blocks, row_chunks,
+                            ktot / KT, s, a, extra...);
   else if constexpr (MODE == PROD_BWD)
-    return launch_clustered(prod_bwd_kernel<TR, RGN>, opted, MODE, S::RB,
+    return launch_clustered(prod_bwd_kernel<TR, RGN, W>, opted, MODE, S::RB,
                             S::BYTES, col_blocks, row_chunks, ktot / KT, s, a,
                             extra...);
   else
@@ -1126,20 +1193,54 @@ cudaError_t launch_cell_wave(Wave<EncCell>& w, bool train, cudaStream_t s) {
                : launch_wave<PROD_WAVE_CELL>(w, s);
 }
 
-cudaError_t launch_cell_wave_bf16(Wave<EncCell>& w, cudaStream_t s) {
-  return launch_wave<PROD_WAVE_CELL, __nv_bfloat16>(w, s);
+cudaError_t launch_cell_wave_bf16(Wave<EncCell>& w, bool train,
+                                  cudaStream_t s) {
+  using B16 = __nv_bfloat16;
+  return train ? launch_wave<PROD_WAVE_CELL_TRAIN, B16>(w, s)
+               : launch_wave<PROD_WAVE_CELL, B16>(w, s);
 }
 
 cudaError_t launch_linear_wave(Wave<NoExtra>& w, cudaStream_t s) {
   return launch_wave<PROD_WAVE_LINEAR>(w, s);
 }
 
+cudaError_t launch_linear_wave_bf16(Wave<NoExtra>& w, cudaStream_t s) {
+  return launch_wave<PROD_WAVE_LINEAR, __nv_bfloat16>(w, s);
+}
+
+cudaError_t launch_linear_prod_bf16(const Prod& a, cudaStream_t s) {
+  return launch_prod<PROD_LINEAR, __nv_bfloat16>(a, s);
+}
+
+cudaError_t launch_cell_train_prod_bf16(const Prod& a,
+                                        const CellTrainOut& tr,
+                                        cudaStream_t s) {
+  return launch_prod<PROD_CELL_TRAIN, __nv_bfloat16>(a, s, tr);
+}
+
+cudaError_t launch_bwd_prod_bf16(const Prod& a,
+                                 const BwdEpilogueT<__nv_bfloat16>& e,
+                                 cudaStream_t s) {
+  return launch_prod<PROD_BWD, __nv_bfloat16>(a, s, e);
+}
+
 cudaError_t launch_attention_train(const float* enc, const float* q,
                                    float* cv, float* alphas, int R, int T,
                                    int H, cudaStream_t s) {
   return launch_attention_mode<ATTN_TRAIN, float>(
-      attention_train_kernel, Attn{enc, q, cv, 1, T, H, nullptr}, R, s,
-      AttnAux{nullptr, alphas});
+      attention_train_kernel<float>, Attn{enc, q, cv, 1, T, H, nullptr}, R,
+      s, AttnAuxT<float>{nullptr, alphas, nullptr});
+}
+
+cudaError_t launch_attention_train_bf16(const __nv_bfloat16* enc,
+                                        const float* q, float* cv,
+                                        __nv_bfloat16* cv16,
+                                        __nv_bfloat16* alphas, int R, int T,
+                                        int H, cudaStream_t s) {
+  return launch_attention_mode<ATTN_TRAIN, __nv_bfloat16>(
+      attention_train_kernel<__nv_bfloat16>,
+      Attn{enc, q, cv, 1, T, H, nullptr}, R, s,
+      AttnAuxT<__nv_bfloat16>{nullptr, alphas, cv16});
 }
 
 cudaError_t launch_attention_bwd(const float* enc, const float* alphas,
@@ -1147,8 +1248,20 @@ cudaError_t launch_attention_bwd(const float* enc, const float* alphas,
                                  float* d_q, int R, int T, int H,
                                  cudaStream_t s) {
   return launch_attention_mode<ATTN_BWD, float>(
-      attention_bwd_kernel, Attn{enc, d_cv, d_q, 1, T, H, nullptr}, R, s,
-      AttnAux{alphas, d_scores});
+      attention_bwd_kernel<float>, Attn{enc, d_cv, d_q, 1, T, H, nullptr},
+      R, s, AttnAuxT<float>{alphas, d_scores, nullptr});
+}
+
+cudaError_t launch_attention_bwd_bf16(const __nv_bfloat16* enc,
+                                      const __nv_bfloat16* alphas,
+                                      const float* d_cv,
+                                      __nv_bfloat16* d_scores, float* d_q,
+                                      __nv_bfloat16* d_q16, int R, int T,
+                                      int H, cudaStream_t s) {
+  return launch_attention_mode<ATTN_BWD, __nv_bfloat16>(
+      attention_bwd_kernel<__nv_bfloat16>,
+      Attn{enc, d_cv, d_q, 1, T, H, nullptr}, R, s,
+      AttnAuxT<__nv_bfloat16>{alphas, d_scores, d_q16});
 }
 
 }  // namespace ast

@@ -30,11 +30,15 @@
 // so two slots do; c is updated in place (one thread owns an element).
 // Train mode reads and writes the residual streams themselves.
 //
-// bfloat16 (eval only; ast_tpu's compute_dtype bfloat16): the packed
-// [wx; wh] in bf16, each product's inputs (the layer below's h and the
-// layer's own h) rounded to bf16 as the product reads them, the sums, the
-// bias (not rounded, as in ast_tpu), x0_proj, the state and the outputs in
-// f32 (decode_step.cu's products at W = __nv_bfloat16).
+// bfloat16 (ast_tpu's compute_dtype bfloat16): the packed [wx; wh] in
+// bf16, each product's inputs (the layer below's output and the layer's
+// own h) rounded to bf16 as the product reads them, the sums, the bias
+// (not rounded, as in ast_tpu), x0_proj, the state and the outputs in f32
+// (decode_step.cu's products at W = __nv_bfloat16).  Train mode at bf16
+// stores the four residual streams in bf16 (ast_tpu's res_dtype =
+// wh.dtype; x_drop = round(h * keep_scale)); the recurrence carries f32
+// h, c and dropped h as eval mode carries h and c -- h and the dropped h
+// of step t in slot t & 1, c in place -- so h_fin and c_fin leave f32.
 #include "common.cuh"
 
 namespace {
@@ -44,18 +48,20 @@ using ast::Prod;
 using ast::Seg;
 
 // One encoder call.  Eval: hbuf, c.  Train: the residual streams, zero,
-// and the dropout.
+// and the dropout; train at bf16: the bf16 streams and hbuf, xbuf, c.
 struct Encoder {
   const float* x0;
   const void* w;  // float, or __nv_bfloat16 when bf16
   const float* b;
   float* outs;
   float* hbuf;
+  float* xbuf;
   float* c;
   float* acts;
   float* c_all;
   float* h_pre;
   float* x_drop;
+  __nv_bfloat16 *acts16, *c16, *h16, *x16;
   const float* zero;
   int L, D2, B, H;
   unsigned seed, threshold;
@@ -75,7 +81,23 @@ void cell_group(const Encoder& e, int t, int l, int d, Prod* p, EncCell* x) {
   *x = EncCell{};
   const float* x_in = nullptr;  // the layer below's output at step t
   const float* h_prev;
-  if (e.train) {
+  const long slots = (long)L * D2 * BH;  // one slot of hbuf / xbuf
+  if (e.train && e.bf16) {
+    if (l) x_in = e.xbuf + (t & 1) * slots + (ld - D2) * BH;
+    h_prev = e.hbuf + ((t - 1) & 1) * slots + ld * BH;
+    p->out = e.hbuf + (t & 1) * slots + ld * BH;
+    p->c_in = e.c + ld * BH;
+    p->c_out = e.c + ld * BH;
+    x->x_drop = e.xbuf + (t & 1) * slots + ld * BH;
+    x->acts16 = e.acts16 + (tl * D2 + d) * e.B * H4;
+    x->c16 = e.c16 + at;
+    x->h16 = e.h16 + at;
+    x->x16 = e.x16 + at;
+    x->seed = e.seed + (unsigned)tl;
+    x->threshold = e.threshold;
+    x->flat0 = (unsigned)(d * BH);
+    x->keep_scale = e.keep_scale;
+  } else if (e.train) {
     if (l) x_in = e.x_drop + at - D2 * BH;
     h_prev = t ? e.h_pre + before : e.zero + d * BH;
     p->out = e.h_pre + at;
@@ -88,7 +110,6 @@ void cell_group(const Encoder& e, int t, int l, int d, Prod* p, EncCell* x) {
     x->flat0 = (unsigned)(d * BH);
     x->keep_scale = e.keep_scale;
   } else {
-    const long slots = (long)L * D2 * BH;
     if (l) x_in = e.hbuf + (t & 1) * slots + (ld - D2) * BH;
     h_prev = e.hbuf + ((t - 1) & 1) * slots + ld * BH;
     p->out = e.hbuf + (t & 1) * slots + ld * BH;
@@ -115,7 +136,7 @@ void cell_group(const Encoder& e, int t, int l, int d, Prod* p, EncCell* x) {
 }
 
 cudaError_t launch(const Encoder& e, ast::Wave<EncCell>& w, cudaStream_t s) {
-  return e.bf16 ? ast::launch_cell_wave_bf16(w, s)
+  return e.bf16 ? ast::launch_cell_wave_bf16(w, e.train, s)
                 : ast::launch_cell_wave(w, e.train, s);
 }
 
@@ -222,6 +243,43 @@ AST_EXPORT int k1_encoder_forward_train(
   e.threshold = threshold;
   e.keep_scale = keep_scale;
   e.train = true;
+  return run_waves(e, cells, wave_start, n_waves,
+                   static_cast<cudaStream_t>(stream));
+}
+
+// Train mode at bf16: w the packed [wx; wh] in bfloat16; the residual
+// streams acts, c_all, h_pre, x_drop in bfloat16 (shapes as above); the
+// f32 state, zero on entry: hbuf and xbuf (2, L, D2, B, H) -- h and the
+// dropped output of step t in slot t % 2, the final h in slot (T - 1) % 2
+// after the call -- and c (L, D2, B, H), the final c after the call.
+AST_EXPORT int k1_encoder_forward_train_bf16(
+    const float* x0, const __nv_bfloat16* w, const float* b, float* outs,
+    __nv_bfloat16* acts, __nv_bfloat16* c_all, __nv_bfloat16* h_pre,
+    __nv_bfloat16* x_drop, float* hbuf, float* xbuf, float* c,
+    const int* cells, const int* wave_start, int n_waves, int L, int D2,
+    int B, int H, unsigned seed, unsigned threshold, float keep_scale,
+    void* stream) {
+  Encoder e = {};
+  e.x0 = x0;
+  e.w = w;
+  e.b = b;
+  e.outs = outs;
+  e.acts16 = acts;
+  e.c16 = c_all;
+  e.h16 = h_pre;
+  e.x16 = x_drop;
+  e.hbuf = hbuf;
+  e.xbuf = xbuf;
+  e.c = c;
+  e.L = L;
+  e.D2 = D2;
+  e.B = B;
+  e.H = H;
+  e.seed = seed;
+  e.threshold = threshold;
+  e.keep_scale = keep_scale;
+  e.train = true;
+  e.bf16 = true;
   return run_waves(e, cells, wave_start, n_waves,
                    static_cast<cudaStream_t>(stream));
 }

@@ -28,6 +28,15 @@
 // rewrites it.  Every launch is a programmatic dependent launch and waits
 // for the one before it before its first global access, so stream order
 // separates them.
+//
+// bfloat16 (ast_tpu's compute_dtype bfloat16): K1's residual streams
+// arrive in bf16 and are read widened; dz is computed in f32 and stored in
+// bf16 (ast_tpu's out_shape in acts.dtype), and also in f32 to a scratch
+// row of its wave group, which the wave's product reads and rounds to
+// bf16 as it stages it (ast_tpu's dz.astype(wh.dtype)) against the bf16
+// transposed weights; the carries, dc and the cotangents stay f32.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -35,20 +44,23 @@ namespace {
 constexpr int kThreads = 256;
 
 // One cell's backward, elementwise over (R, H); cons and dh are read from
-// rows of `ld` floats (column 0 .. H - 1).
+// rows of `ld` floats (column 0 .. H - 1).  T: the residual streams' type.
+template <typename T>
 struct BwdCell {
   const float* cons; int cons_ld;   // the gradient from above
   const float* dh; int dh_ld;       // the carried dh
-  const float* acts;                // (R, 4H)
-  const float* c_new;               // (R, H)
-  const float* c_prev;              // (R, H); nullptr = 0
+  const T* acts;                    // (R, 4H)
+  const T* c_new;                   // (R, H)
+  const T* c_prev;                  // (R, H); nullptr = 0
   float* dc;                        // (R, H) carry, in place
-  float* dz;                        // (R, 4H)
+  T* dz;                            // (R, 4H)
+  float* dz_f32;                    // (R, 4H), bf16 only: dz unrounded
   unsigned seed, flat0;             // the mask's seed and first flat index
 };
 
+template <typename T>
 struct BwdCells {
-  BwdCell g[ast::MAX_WAVE_GROUPS];
+  BwdCell<T> g[ast::MAX_WAVE_GROUPS];
   unsigned threshold;
   float keep_scale;
   int R, H;
@@ -59,10 +71,11 @@ struct BwdCells {
 // dh_carry + cons,
 //   dc = dc + dh * o * (1 - tanh(c)^2),  dz = [dc g i(1-i) |
 //   dc c_prev f(1-f) | dc i (1-g^2) | dh tanh(c) o(1-o)],  dc <- dc * f.
-__global__ void __launch_bounds__(kThreads) cell_bwd_kernel(BwdCells w) {
+template <typename T>
+__global__ void __launch_bounds__(kThreads) cell_bwd_kernel(BwdCells<T> w) {
   ast::grid_dep_wait();
   ast::grid_dep_launch();
-  const BwdCell& a = w.g[blockIdx.y];
+  const BwdCell<T>& a = w.g[blockIdx.y];
   const int H = w.H;
   const long idx = (long)blockIdx.x * kThreads + threadIdx.x;
   if (idx >= (long)w.R * H) return;
@@ -74,17 +87,113 @@ __global__ void __launch_bounds__(kThreads) cell_bwd_kernel(BwdCells w) {
                ? 0.f
                : cons * w.keep_scale;
   const float dh = a.dh[(long)r * a.dh_ld + j] + cons;
-  const float* ac = a.acts + (long)r * H4 + j;
-  const float ig = ac[0], fg = ac[H], gg = ac[2 * H], og = ac[3 * H];
-  const float tc = tanhf(a.c_new[idx]);
-  const float cp = a.c_prev ? a.c_prev[idx] : 0.f;
+  const T* ac = a.acts + (long)r * H4 + j;
+  const float ig = ast::ld_res(ac), fg = ast::ld_res(ac + H),
+              gg = ast::ld_res(ac + 2 * H), og = ast::ld_res(ac + 3 * H);
+  const float tc = tanhf(ast::ld_res(a.c_new + idx));
+  const float cp = a.c_prev ? ast::ld_res(a.c_prev + idx) : 0.f;
   const float dc = a.dc[idx] + dh * og * (1.f - tc * tc);
   a.dc[idx] = dc * fg;
-  float* dz = a.dz + (long)r * H4 + j;
-  dz[0] = dc * gg * ig * (1.f - ig);
-  dz[H] = dc * cp * fg * (1.f - fg);
-  dz[2 * H] = dc * ig * (1.f - gg * gg);
-  dz[3 * H] = dh * tc * og * (1.f - og);
+  const float d0 = dc * gg * ig * (1.f - ig);
+  const float d1 = dc * cp * fg * (1.f - fg);
+  const float d2 = dc * ig * (1.f - gg * gg);
+  const float d3 = dh * tc * og * (1.f - og);
+  T* dz = a.dz + (long)r * H4 + j;
+  ast::st_res(dz, d0);
+  ast::st_res(dz + H, d1);
+  ast::st_res(dz + 2 * H, d2);
+  ast::st_res(dz + 3 * H, d3);
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    float* dzf = a.dz_f32 + (long)r * H4 + j;
+    dzf[0] = d0;
+    dzf[H] = d1;
+    dzf[2 * H] = d2;
+    dzf[3 * H] = d3;
+  }
+}
+
+// The reverse waves, T the residual streams' type (float, or bf16 with
+// dz_work the (MAX_WAVE_GROUPS, B, 4H) f32 scratch of a launch's groups).
+template <typename T>
+int encoder_backward(const T* acts, const T* c_all, const T* w_t,
+                     const float* douts, float* carry, float* dc, T* dz,
+                     float* dz_work, const int* cells, const int* wave_start,
+                     int n_waves, int L, int D2, int B, int H, unsigned seed,
+                     unsigned threshold, float keep_scale, void* stream) {
+  constexpr bool BF = std::is_same<T, __nv_bfloat16>::value;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long H4 = 4L * H, BH = (long)B * H;
+  auto width = [H](int l) { return l ? 2 * H : H; };
+  // layer l's carry and transposed weights in direction d
+  auto carry_at = [=](int l, int d) {
+    return carry + (l ? D2 * BH + ((long)(l - 1) * D2 + d) * 2 * BH : d * BH);
+  };
+  auto weight_at = [=](int l, int d) {
+    const long blk = H4 * 64, b0 = (H + 63) / 64, b1 = (2 * H + 63) / 64;
+    return w_t + blk * (l ? D2 * b0 + ((long)(l - 1) * D2 + d) * b1 : d * b0);
+  };
+  BwdCells<T> cw = {};
+  cw.threshold = threshold;
+  cw.keep_scale = keep_scale;
+  cw.R = B;
+  cw.H = H;
+  ast::Wave<ast::NoExtra> pw;
+  pw.n = 0;
+  const unsigned blocks = (unsigned)((BH + kThreads - 1) / kThreads);
+  auto flush = [&]() -> cudaError_t {
+    if (pw.n == 0) return cudaSuccess;
+    cudaError_t err = ast::launch_ex(cell_bwd_kernel<T>, dim3(blocks, pw.n),
+                                     dim3(kThreads), 0, 1, s, cw);
+    if (err == cudaSuccess)
+      err = BF ? ast::launch_linear_wave_bf16(pw, s)
+               : ast::launch_linear_wave(pw, s);
+    pw.n = 0;
+    return err;
+  };
+  for (int i = 0; i < n_waves; ++i) {
+    for (int k = wave_start[i]; k < wave_start[i + 1]; ++k) {
+      const int t = cells[2 * k], l = cells[2 * k + 1];
+      const long tl = (long)t * L + l;
+      for (int d = 0; d < D2; ++d) {
+        const long at = (tl * D2 + d) * BH;  // in a (T, L, D2, B, H)
+        BwdCell<T>& c = cw.g[pw.n];
+        c = BwdCell<T>{};
+        if (l == L - 1) {
+          c.cons = douts + ((long)t * D2 + d) * BH;
+          c.cons_ld = H;
+        } else {
+          c.cons = carry_at(l + 1, d) + H;   // dx of the layer above
+          c.cons_ld = 2 * H;
+        }
+        c.dh = carry_at(l, d);
+        c.dh_ld = width(l);
+        c.acts = acts + at * 4;
+        c.c_new = c_all + at;
+        c.c_prev = t ? c_all + at - (long)L * D2 * BH : nullptr;
+        c.dc = dc + ((long)l * D2 + d) * BH;
+        c.dz = dz + at * 4;
+        if constexpr (BF) c.dz_f32 = dz_work + (long)pw.n * B * H4;
+        c.seed = seed + (unsigned)tl;
+        c.flat0 = (unsigned)(d * BH);
+
+        ast::Prod& g = pw.p[pw.n];
+        g = ast::Prod{};
+        if constexpr (BF)
+          g.seg[0] = ast::Seg{c.dz_f32, nullptr, (int)H4};
+        else
+          g.seg[0] = ast::Seg{c.dz, nullptr, (int)H4};
+        g.nseg = 1;
+        g.w = weight_at(l, d);
+        g.R = B;
+        g.N = width(l);
+        g.out = carry_at(l, d);
+        if (++pw.n == ast::MAX_WAVE_GROUPS)  // a wide wave takes several
+          AST_RETURN_IF_ERR(flush());
+      }
+    }
+    AST_RETURN_IF_ERR(flush());
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -104,71 +213,24 @@ AST_EXPORT int k2_encoder_backward(const float* acts, const float* c_all,
                                    int n_waves, int L, int D2, int B, int H,
                                    unsigned seed, unsigned threshold,
                                    float keep_scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long H4 = 4L * H, BH = (long)B * H;
-  auto width = [H](int l) { return l ? 2 * H : H; };
-  // layer l's carry and transposed weights in direction d
-  auto carry_at = [=](int l, int d) {
-    return carry + (l ? D2 * BH + ((long)(l - 1) * D2 + d) * 2 * BH : d * BH);
-  };
-  auto weight_at = [=](int l, int d) {
-    const long blk = H4 * 64, b0 = (H + 63) / 64, b1 = (2 * H + 63) / 64;
-    return w_t + blk * (l ? D2 * b0 + ((long)(l - 1) * D2 + d) * b1 : d * b0);
-  };
-  BwdCells cw = {};
-  cw.threshold = threshold;
-  cw.keep_scale = keep_scale;
-  cw.R = B;
-  cw.H = H;
-  ast::Wave<ast::NoExtra> pw;
-  pw.n = 0;
-  const unsigned blocks = (unsigned)((BH + kThreads - 1) / kThreads);
-  auto flush = [&]() -> cudaError_t {
-    if (pw.n == 0) return cudaSuccess;
-    cudaError_t err = ast::launch_ex(cell_bwd_kernel, dim3(blocks, pw.n),
-                                     dim3(kThreads), 0, 1, s, cw);
-    if (err == cudaSuccess) err = ast::launch_linear_wave(pw, s);
-    pw.n = 0;
-    return err;
-  };
-  for (int i = 0; i < n_waves; ++i) {
-    for (int k = wave_start[i]; k < wave_start[i + 1]; ++k) {
-      const int t = cells[2 * k], l = cells[2 * k + 1];
-      const long tl = (long)t * L + l;
-      for (int d = 0; d < D2; ++d) {
-        const long at = (tl * D2 + d) * BH;  // in a (T, L, D2, B, H)
-        BwdCell& c = cw.g[pw.n];
-        c = BwdCell{};
-        if (l == L - 1) {
-          c.cons = douts + ((long)t * D2 + d) * BH;
-          c.cons_ld = H;
-        } else {
-          c.cons = carry_at(l + 1, d) + H;   // dx of the layer above
-          c.cons_ld = 2 * H;
-        }
-        c.dh = carry_at(l, d);
-        c.dh_ld = width(l);
-        c.acts = acts + at * 4;
-        c.c_new = c_all + at;
-        c.c_prev = t ? c_all + at - (long)L * D2 * BH : nullptr;
-        c.dc = dc + ((long)l * D2 + d) * BH;
-        c.dz = dz + at * 4;
-        c.seed = seed + (unsigned)tl;
-        c.flat0 = (unsigned)(d * BH);
+  return encoder_backward<float>(acts, c_all, w_t, douts, carry, dc, dz,
+                                 nullptr, cells, wave_start, n_waves, L, D2,
+                                 B, H, seed, threshold, keep_scale, stream);
+}
 
-        ast::Prod& g = pw.p[pw.n];
-        g = ast::Prod{};
-        g.seg[0] = ast::Seg{c.dz, nullptr, (int)H4};
-        g.nseg = 1;
-        g.w = weight_at(l, d);
-        g.R = B;
-        g.N = width(l);
-        g.out = carry_at(l, d);
-        if (++pw.n == ast::MAX_WAVE_GROUPS)  // a wide wave takes several
-          AST_RETURN_IF_ERR(flush());
-      }
-    }
-    AST_RETURN_IF_ERR(flush());
-  }
-  return (int)cudaGetLastError();
+// The rows of k2_encoder_backward_bf16's dz_work, which the caller
+// allocates: one a product of a launch.
+AST_EXPORT int k2_work_rows() { return ast::MAX_WAVE_GROUPS; }
+
+// bf16: acts, c_all, w_t and dz in bfloat16 (the rest as above); dz_work:
+// (k2_work_rows(), B, 4H) f32 scratch.
+AST_EXPORT int k2_encoder_backward_bf16(
+    const __nv_bfloat16* acts, const __nv_bfloat16* c_all,
+    const __nv_bfloat16* w_t, const float* douts, float* carry, float* dc,
+    __nv_bfloat16* dz, float* dz_work, const int* cells,
+    const int* wave_start, int n_waves, int L, int D2, int B, int H,
+    unsigned seed, unsigned threshold, float keep_scale, void* stream) {
+  return encoder_backward<__nv_bfloat16>(
+      acts, c_all, w_t, douts, carry, dc, dz, dz_work, cells, wave_start,
+      n_waves, L, D2, B, H, seed, threshold, keep_scale, stream);
 }

@@ -30,6 +30,19 @@
 // host loop never synchronises.  8 launches a step, each a programmatic
 // dependent launch: every kernel waits for its predecessor before it
 // touches memory or returns.
+//
+// bfloat16 (ast_tpu's compute_dtype bfloat16; k3_decoder_forward_bf16):
+// the packed matrices and the encoder states in bf16 (the embedding and
+// biases f32, holding bf16 values), the products at W = __nv_bfloat16
+// rounding the inputs they stage, attention scoring against the f32
+// query and rounding its weights before the context sum.  The streams
+// (acts, c_all, h_all, alphas, q, cv, emb) are stored in bf16, ht in f32,
+// and not x_drop, which the backward regenerates from h_all (ast_tpu's
+// _fd_bwd).  What the next launch reads stays f32 in small buffers: h of
+// step t in slot t & 1 of hbuf, c in place, each layer's dropped h, the
+// step's q, cv and dropped embedding.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
@@ -37,12 +50,13 @@ namespace {
 // One block per row: the input id of step t -- the teacher's when
 // *coin_t, else the argmax of the row's logits of the step before (lowest
 // index among ties) -- and its embedding row with dropout (kept values /
-// div; threshold 0 = none).
+// div; threshold 0 = none), to emb_t and, at T = bf16, its stream emb_res.
+template <typename T>
 __global__ void select_embed_kernel(const int* y_t, const int* coin_t,
                                     const float* logits, int V, int* sel_t,
-                                    const float* embed, float* emb_t, int E,
-                                    unsigned seed, unsigned threshold,
-                                    float div) {
+                                    const float* embed, float* emb_t,
+                                    T* emb_res, int E, unsigned seed,
+                                    unsigned threshold, float div) {
   ast::grid_dep_wait();
   ast::grid_dep_launch();
   __shared__ int id_s;
@@ -62,7 +76,156 @@ __global__ void select_embed_kernel(const int* y_t, const int* coin_t,
       v = ast::drop_hash((unsigned)(r * E + e), seed) < threshold ? 0.f
                                                                   : v / div;
     emb_t[(long)r * E + e] = v;
+    if constexpr (std::is_same<T, __nv_bfloat16>::value)
+      ast::st_res(emb_res + (long)r * E + e, v);
   }
+}
+
+// The forward's streams and state.  f32: x_drop is the stream (U, L, B,
+// H); bf16: the streams are W and x_drop is each layer's dropped h (L, B,
+// H) of the step, beside hbuf (2, L, B, H), c (L, B, H, c0 on entry),
+// q_w, cv_w (B, H) and emb_w (B, E), all f32.
+template <typename W>
+struct Fwd {
+  const W* enc;
+  const float* embed;
+  const W *cell, *wa, *ctx_w, *out_w;
+  const float *bias, *wa_b, *ctx_b, *out_b;
+  const float *h0, *c0;
+  const int *y_in, *coins;
+  float* logits;
+  const float* ht0;
+  float* ht;
+  int* sel;
+  W *acts, *c_all, *h_all, *alphas, *q, *cv, *emb;
+  float* x_drop;
+  float *hbuf, *c, *q_w, *cv_w, *emb_w;
+  int B, T, H, L, E, A, V, U;
+  unsigned seed, thr_e;
+  float div_e;
+  unsigned thr_r;
+  float div_r;
+};
+
+template <typename W>
+int decoder_forward(const Fwd<W>& f, cudaStream_t s) {
+  constexpr bool BF = std::is_same<W, __nv_bfloat16>::value;
+  const int B = f.B, T = f.T, H = f.H, L = f.L, E = f.E, A = f.A, V = f.V,
+            U = f.U;
+  const long H4 = 4L * H, BH = (long)B * H;
+  for (int t = 0; t < U; ++t) {
+    // what the step's products read: f32 streams, or the bf16 mode's state
+    float *emb_t, *q_t, *cv_t;
+    const float* h_last = nullptr;  // h of the step before (t > 0)
+    if constexpr (BF) {
+      emb_t = f.emb_w;
+      q_t = f.q_w;
+      cv_t = f.cv_w;
+      h_last = f.hbuf + ((t - 1) & 1) * L * BH;
+    } else {
+      emb_t = f.emb + (long)t * B * E;
+      q_t = f.q + (long)t * BH;
+      cv_t = f.cv + (long)t * BH;
+      if (t) h_last = f.h_all + ((long)t - 1) * L * BH;
+    }
+    AST_RETURN_IF_ERR(ast::launch_ex(
+        select_embed_kernel<W>, dim3(B), dim3(128), 0, 1, s,
+        f.y_in + (long)t * B, f.coins + t, (const float*)f.logits, V,
+        f.sel + (long)t * B, f.embed, emb_t, f.emb + (long)t * B * E, E,
+        f.seed + 2u * t, f.thr_e, f.div_e));
+    const W* cell_w = f.cell;
+    for (int l = 0; l < L; ++l) {
+      const long tl = (long)t * L + l;
+      // inputs [emb | ht of the step before (0 at t = 0) | h_prev] (layer
+      // 0) or [x_drop of the layer below | h_prev]
+      ast::Prod a = {};
+      const ast::Seg hp = {(t ? h_last : f.h0) + l * BH, nullptr, H};
+      float* x_l = BF ? f.x_drop + l * BH : f.x_drop + tl * BH;
+      if (l == 0) {
+        a.seg[0] = ast::Seg{emb_t, nullptr, E};
+        a.seg[1] = ast::Seg{t ? f.ht + (long)(t - 1) * B * A : f.ht0,
+                            nullptr, A};
+        a.seg[2] = hp;
+        a.nseg = 3;
+      } else {
+        a.seg[0] = ast::Seg{x_l - BH, nullptr, H};
+        a.seg[1] = hp;
+        a.nseg = 2;
+      }
+      a.w = cell_w;
+      cell_w += (l == 0 ? E + A + H : 2 * H) * H4;
+      a.bias = f.bias + l * H4;
+      a.R = B;
+      a.N = H;
+      ast::CellTrainOut tr = {nullptr, x_l, f.seed + 2u * (unsigned)tl + 1u,
+                              f.thr_r, f.div_r};
+      if constexpr (BF) {
+        a.out = f.hbuf + (t & 1) * L * BH + l * BH;
+        a.c_in = f.c + l * BH;
+        a.c_out = f.c + l * BH;
+        tr.acts16 = f.acts + tl * B * H4;
+        tr.c16 = f.c_all + tl * BH;
+        tr.h16 = f.h_all + tl * BH;
+        AST_RETURN_IF_ERR(ast::launch_cell_train_prod_bf16(a, tr, s));
+      } else {
+        a.out = f.h_all + tl * BH;
+        a.c_in = t ? f.c_all + (tl - L) * BH : f.c0 + l * BH;
+        a.c_out = f.c_all + tl * BH;
+        tr.acts = f.acts + tl * B * H4;
+        AST_RETURN_IF_ERR(ast::launch_cell_train_prod(a, tr, s));
+      }
+    }
+    const float* top = BF ? f.x_drop + (long)(L - 1) * BH
+                          : f.x_drop + ((long)t * L + L - 1) * BH;
+    float* ht_t = f.ht + (long)t * B * A;
+
+    ast::Prod qa = {};
+    qa.seg[0] = ast::Seg{top, nullptr, H};
+    qa.nseg = 1;
+    qa.w = f.wa;
+    qa.bias = f.wa_b;
+    qa.R = B;
+    qa.N = H;
+    qa.out = q_t;
+    if constexpr (BF) {
+      qa.out16 = f.q + (long)t * BH;
+      AST_RETURN_IF_ERR(ast::launch_linear_prod_bf16(qa, s));
+      AST_RETURN_IF_ERR(ast::launch_attention_train_bf16(
+          f.enc, q_t, cv_t, f.cv + (long)t * BH, f.alphas + (long)t * B * T,
+          B, T, H, s));
+    } else {
+      AST_RETURN_IF_ERR(ast::launch_linear_prod(qa, s));
+      AST_RETURN_IF_ERR(ast::launch_attention_train(
+          f.enc, q_t, cv_t, f.alphas + (long)t * B * T, B, T, H, s));
+    }
+    ast::Prod ca = {};
+    ca.seg[0] = ast::Seg{cv_t, nullptr, H};
+    ca.seg[1] = ast::Seg{top, nullptr, H};
+    ca.nseg = 2;
+    ca.w = f.ctx_w;
+    ca.bias = f.ctx_b;
+    ca.R = B;
+    ca.N = A;
+    ca.act_tanh = 1;
+    ca.out = ht_t;
+    AST_RETURN_IF_ERR(BF ? ast::launch_linear_prod_bf16(ca, s)
+                         : ast::launch_linear_prod(ca, s));
+
+    if (t + 1 < U) {  // the argmax feed, skipped unless step t+1 samples
+      ast::Prod oa = {};
+      oa.seg[0] = ast::Seg{ht_t, nullptr, A};
+      oa.nseg = 1;
+      oa.w = f.out_w;
+      oa.bias = f.out_b;
+      oa.R = B;
+      oa.N = V;
+      oa.out = f.logits;
+      oa.done = f.coins + t + 1;
+      AST_RETURN_IF_ERR(BF ? ast::launch_linear_prod_bf16(oa, s)
+                           : ast::launch_linear_prod(oa, s));
+    }
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -89,86 +252,39 @@ AST_EXPORT int k3_decoder_forward(
     float* q, float* cv, float* emb, int B, int T, int H, int L, int E,
     int A, int V, int U, unsigned seed, unsigned thr_e, float div_e,
     unsigned thr_r, float div_r, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long H4 = 4L * H, BH = (long)B * H;
-  for (int t = 0; t < U; ++t) {
-    float* emb_t = emb + (long)t * B * E;
-    AST_RETURN_IF_ERR(ast::launch_ex(
-        select_embed_kernel, dim3(B), dim3(128), 0, 1, s, y_in + (long)t * B,
-        coins + t, (const float*)logits, V, sel + (long)t * B, embed, emb_t,
-        E, seed + 2u * t, thr_e, div_e));
-    const float* cell_w = cell;
-    for (int l = 0; l < L; ++l) {
-      const long tl = (long)t * L + l;
-      // inputs [emb | ht of the step before (0 at t = 0) | h_prev] (layer
-      // 0) or [x_drop of the layer below | h_prev]
-      ast::Prod a = {};
-      const ast::Seg hp = {t ? h_all + (tl - L) * BH : h0 + l * BH, nullptr,
-                           H};
-      if (l == 0) {
-        a.seg[0] = ast::Seg{emb_t, nullptr, E};
-        a.seg[1] = ast::Seg{t ? ht + (long)(t - 1) * B * A : ht0, nullptr,
-                            A};
-        a.seg[2] = hp;
-        a.nseg = 3;
-      } else {
-        a.seg[0] = ast::Seg{x_drop + (tl - 1) * BH, nullptr, H};
-        a.seg[1] = hp;
-        a.nseg = 2;
-      }
-      a.w = cell_w;
-      cell_w += (l == 0 ? E + A + H : 2 * H) * H4;
-      a.bias = bias + l * H4;
-      a.R = B;
-      a.N = H;
-      a.out = h_all + tl * BH;
-      a.c_in = t ? c_all + (tl - L) * BH : c0 + l * BH;
-      a.c_out = c_all + tl * BH;
-      const ast::CellTrainOut tr = {acts + tl * B * H4, x_drop + tl * BH,
-                                    seed + 2u * (unsigned)tl + 1u, thr_r,
-                                    div_r};
-      AST_RETURN_IF_ERR(ast::launch_cell_train_prod(a, tr, s));
-    }
-    const float* top = x_drop + ((long)t * L + L - 1) * BH;
-    float* q_t = q + (long)t * BH;
-    float* cv_t = cv + (long)t * BH;
-    float* ht_t = ht + (long)t * B * A;
+  Fwd<float> f = {enc,    embed,  cell, wa,    ctx_w, out_w, bias, wa_b,
+                  ctx_b,  out_b,  h0,   c0,    y_in,  coins, logits, ht0,
+                  ht,     sel,    acts, c_all, h_all, alphas, q,    cv,
+                  emb,    x_drop, nullptr, nullptr, nullptr, nullptr,
+                  nullptr, B,     T,    H,     L,     E,     A,    V,
+                  U,      seed,   thr_e, div_e, thr_r, div_r};
+  return decoder_forward(f, static_cast<cudaStream_t>(stream));
+}
 
-    ast::Prod qa = {};
-    qa.seg[0] = ast::Seg{top, nullptr, H};
-    qa.nseg = 1;
-    qa.w = wa;
-    qa.bias = wa_b;
-    qa.R = B;
-    qa.N = H;
-    qa.out = q_t;
-    AST_RETURN_IF_ERR(ast::launch_linear_prod(qa, s));
-    AST_RETURN_IF_ERR(ast::launch_attention_train(
-        enc, q_t, cv_t, alphas + (long)t * B * T, B, T, H, s));
-    ast::Prod ca = {};
-    ca.seg[0] = ast::Seg{cv_t, nullptr, H};
-    ca.seg[1] = ast::Seg{top, nullptr, H};
-    ca.nseg = 2;
-    ca.w = ctx_w;
-    ca.bias = ctx_b;
-    ca.R = B;
-    ca.N = A;
-    ca.act_tanh = 1;
-    ca.out = ht_t;
-    AST_RETURN_IF_ERR(ast::launch_linear_prod(ca, s));
-
-    if (t + 1 < U) {  // the argmax feed, skipped unless step t+1 samples
-      ast::Prod oa = {};
-      oa.seg[0] = ast::Seg{ht_t, nullptr, A};
-      oa.nseg = 1;
-      oa.w = out_w;
-      oa.bias = out_b;
-      oa.R = B;
-      oa.N = V;
-      oa.out = logits;
-      oa.done = coins + t + 1;
-      AST_RETURN_IF_ERR(ast::launch_linear_prod(oa, s));
-    }
-  }
-  return (int)cudaGetLastError();
+// bf16: enc and the packed matrices (cell, wa, ctx_w, out_w) in bfloat16,
+// embed and the biases f32 (bf16 values); the streams acts, c_all, h_all,
+// alphas, q, cv, emb in bfloat16 (shapes as above), ht f32, no x_drop
+// stream.  The f32 state: hbuf (2, L, B, H), c (L, B, H) holding c0 on
+// entry (the call's final c on exit), x_drop (L, B, H), q_w, cv_w (B, H),
+// emb_w (B, E).
+AST_EXPORT int k3_decoder_forward_bf16(
+    const __nv_bfloat16* enc, const float* embed, const __nv_bfloat16* cell,
+    const float* bias, const __nv_bfloat16* wa, const float* wa_b,
+    const __nv_bfloat16* ctx_w, const float* ctx_b,
+    const __nv_bfloat16* out_w, const float* out_b, const float* h0,
+    const int* y_in, const int* coins, float* logits, const float* ht0,
+    float* ht, int* sel, __nv_bfloat16* acts, __nv_bfloat16* c_all,
+    __nv_bfloat16* h_all, __nv_bfloat16* alphas, __nv_bfloat16* q,
+    __nv_bfloat16* cv, __nv_bfloat16* emb, float* hbuf, float* c,
+    float* x_drop, float* q_w, float* cv_w, float* emb_w, int B, int T,
+    int H, int L, int E, int A, int V, int U, unsigned seed, unsigned thr_e,
+    float div_e, unsigned thr_r, float div_r, void* stream) {
+  Fwd<__nv_bfloat16> f = {enc,    embed, cell,  wa,    ctx_w, out_w,  bias,
+                          wa_b,   ctx_b, out_b, h0,    nullptr, y_in, coins,
+                          logits, ht0,   ht,    sel,   acts,  c_all,  h_all,
+                          alphas, q,     cv,    emb,   x_drop, hbuf,  c,
+                          q_w,    cv_w,  emb_w, B,     T,     H,      L,
+                          E,      A,     V,     U,     seed,  thr_e,  div_e,
+                          thr_r,  div_r};
+  return decoder_forward(f, static_cast<cudaStream_t>(stream));
 }

@@ -37,20 +37,180 @@
 // the residuals; its epilogue writes the layer's carry and the layer
 // below's dz and dc, each element by one thread: no block of a launch
 // reads what another writes.
+//
+// bfloat16 (ast_tpu's compute_dtype bfloat16; k4_decoder_backward_bf16):
+// K3's bf16 streams (acts, c_all, alphas; c0 rounded to bf16, ast_tpu's
+// c_prev of step 0) read widened, the transposed matrices and the encoder
+// states in bf16, the products rounding d_pre, d_q and dz as they stage
+// them and the attention backward rounding d_scores before the d_q sum
+// (d_cv stays f32 against enc).  The output streams dz, d_pre, d_scores,
+// d_cv, d_q, d_emb are stored in bf16; what a later launch reads stays
+// f32 in small buffers beside them (each layer's dz (L, B, 4H), the
+// step's d_pre (B, A), d_cv and d_q (B, H)); dh0, dc0 f32.
+#include <type_traits>
+
 #include "common.cuh"
 
 namespace {
 
 // d_pre = d_ht (1 - ht^2) over n elements: the last step, which no
-// input-feeding gradient reaches.
+// input-feeding gradient reaches; at T = bf16 also to its stream d_pre_res.
+template <typename T>
 __global__ void head_kernel(const float* d_ht, const float* ht, float* d_pre,
-                            long n) {
+                            T* d_pre_res, long n) {
   ast::grid_dep_wait();
   ast::grid_dep_launch();
   const long i = (long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   const float h = ht[i];
-  d_pre[i] = d_ht[i] * (1.f - h * h);
+  const float d = d_ht[i] * (1.f - h * h);
+  d_pre[i] = d;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value)
+    ast::st_res(d_pre_res + i, d);
+}
+
+// The backward's inputs, streams and carries.  W: the streams' and the
+// packed matrices' type.  At bf16 dz_w (L, B, 4H), d_pre_w (B, A), d_cv_w
+// and d_q_w (B, H) hold the f32 values the next launches read.
+template <typename W>
+struct Bwd {
+  const W *acts, *c_all, *c0, *alphas;
+  const float *ht, *d_ht;
+  const W *enc, *w_cv, *w_top, *w_t;
+  float *dh, *dc;
+  W *dz, *d_pre, *d_scores, *d_cv, *d_q, *d_emb;
+  float *dz_w, *d_pre_w, *d_cv_w, *d_q_w;
+  int B, T, H, L, E, A, U;
+  unsigned seed, thr_e;
+  float inv_e;
+  unsigned thr_r;
+  float inv_r;
+};
+
+template <typename W>
+int decoder_backward(const Bwd<W>& p, cudaStream_t s) {
+  constexpr bool BF = std::is_same<W, __nv_bfloat16>::value;
+  const int B = p.B, T = p.T, H = p.H, L = p.L, E = p.E, A = p.A, U = p.U;
+  const long H4 = 4L * H, BH = (long)B * H, BA = (long)B * A;
+  auto width = [=](int l) { return H + (l ? H : E + A); };
+  // the f32 d_pre of step t, which its products read
+  auto d_pre_at = [&](long t) -> float* {
+    if constexpr (BF) return p.d_pre_w;
+    else return p.d_pre + t * BA;
+  };
+  // layer l's cell backward at step t, fed by the product above it
+  auto cell = [&](int t, int l) {
+    const long tl = (long)t * L + l;
+    ast::CellBwdArgsT<W> c = {};
+    c.dh = p.dh + l * BH;
+    c.dh_ld = H;
+    c.acts = p.acts + tl * B * H4;
+    c.c_new = p.c_all + tl * BH;
+    c.c_prev = t ? p.c_all + (tl - L) * BH : p.c0 + l * BH;
+    c.dc = p.dc + l * BH;
+    c.dz = p.dz + tl * B * H4;
+    if constexpr (BF) c.dz_f32 = p.dz_w + l * B * H4;
+    c.seed = p.seed + 2u * (unsigned)tl + 1u;
+    c.threshold = p.thr_r;
+    c.keep_scale = p.inv_r;
+    c.R = B;
+    c.H = H;
+    return c;
+  };
+  auto bwd_prod = [&](const ast::Prod& g, const ast::BwdEpilogueT<W>& e) {
+    if constexpr (BF) return ast::launch_bwd_prod_bf16(g, e, s);
+    else return ast::launch_bwd_prod(g, e, s);
+  };
+  if (U <= 0) return 0;
+  constexpr int kThreads = 256;
+  AST_RETURN_IF_ERR(ast::launch_ex(
+      head_kernel<W>, dim3((unsigned)((BA + kThreads - 1) / kThreads)),
+      dim3(kThreads), 0, 1, s, p.d_ht + (U - 1) * BA, p.ht + (U - 1) * BA,
+      d_pre_at(U - 1), p.d_pre + (U - 1) * BA, BA));
+  for (int t = U - 1; t >= 0; --t) {
+    float* d_pre_t = d_pre_at(t);
+    float *d_cv_t, *d_q_t;
+    if constexpr (BF) {
+      d_cv_t = p.d_cv_w;
+      d_q_t = p.d_q_w;
+    } else {
+      d_cv_t = p.d_cv + (long)t * BH;
+      d_q_t = p.d_q + (long)t * BH;
+    }
+
+    ast::Prod cv = {};
+    cv.seg[0] = ast::Seg{d_pre_t, nullptr, A};
+    cv.nseg = 1;
+    cv.w = p.w_cv;
+    cv.R = B;
+    cv.N = H;
+    cv.out = d_cv_t;
+    if constexpr (BF) {
+      cv.out16 = p.d_cv + (long)t * BH;
+      AST_RETURN_IF_ERR(ast::launch_linear_prod_bf16(cv, s));
+      AST_RETURN_IF_ERR(ast::launch_attention_bwd_bf16(
+          p.enc, p.alphas + (long)t * B * T, d_cv_t,
+          p.d_scores + (long)t * B * T, d_q_t, p.d_q + (long)t * BH, B, T,
+          H, s));
+    } else {
+      AST_RETURN_IF_ERR(ast::launch_linear_prod(cv, s));
+      AST_RETURN_IF_ERR(ast::launch_attention_bwd(
+          p.enc, p.alphas + (long)t * B * T, d_cv_t,
+          p.d_scores + (long)t * B * T, d_q_t, B, T, H, s));
+    }
+    // d_top = [d_q | d_pre] @ [wa^T ; ctx_w[H:]^T], into the top layer's
+    // cell backward
+    ast::Prod tp = {};
+    tp.seg[0] = ast::Seg{d_q_t, nullptr, H};
+    tp.seg[1] = ast::Seg{d_pre_t, nullptr, A};
+    tp.nseg = 2;
+    tp.w = p.w_top;
+    tp.R = B;
+    tp.N = H;
+    ast::BwdEpilogueT<W> te = {};
+    te.cell = cell(t, L - 1);
+    AST_RETURN_IF_ERR(bwd_prod(tp, te));
+
+    const W* w_l = p.w_t;
+    for (int l = 0; l < L - 1; ++l) w_l += H4 * ((width(l) + 63) / 64 * 64);
+    for (int l = L - 1; l >= 0; --l) {
+      // [dh carry | dx] = dz @ [wh^T | wx^T]: the carry to dh, dx into the
+      // cell backward of the layer below or, from layer 0, into d_emb and
+      // the step before's d_pre
+      ast::Prod g = {};
+      const long dz_at = ((long)t * L + l) * B * H4;
+      const float* dz_in;
+      if constexpr (BF) dz_in = p.dz_w + l * B * H4;
+      else dz_in = p.dz + dz_at;
+      g.seg[0] = ast::Seg{dz_in, nullptr, (int)H4};
+      g.nseg = 1;
+      g.w = w_l;
+      g.R = B;
+      g.N = width(l);
+      g.out = p.dh + l * BH;
+      ast::BwdEpilogueT<W> e = {};
+      e.n_carry = H;
+      if (l > 0) {
+        e.cell = cell(t, l - 1);
+        w_l -= H4 * ((width(l - 1) + 63) / 64 * 64);
+      } else {
+        e.d_emb = p.d_emb + (long)t * B * E;
+        e.E = E;
+        e.A = A;
+        e.seed = p.seed + 2u * t;
+        e.threshold = p.thr_e;
+        e.inv = p.inv_e;
+        if (t > 0) {
+          e.d_ht = p.d_ht + (t - 1) * BA;
+          e.ht = p.ht + (t - 1) * BA;
+          e.d_pre = d_pre_at(t - 1);
+          e.d_pre_res = p.d_pre + (t - 1) * BA;
+        }
+      }
+      AST_RETURN_IF_ERR(bwd_prod(g, e));
+    }
+  }
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -73,96 +233,34 @@ AST_EXPORT int k4_decoder_backward(
     float* d_scores, float* d_cv, float* d_q, float* d_emb, int B, int T,
     int H, int L, int E, int A, int U, unsigned seed, unsigned thr_e,
     float inv_e, unsigned thr_r, float inv_r, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const long H4 = 4L * H, BH = (long)B * H, BA = (long)B * A;
-  auto width = [=](int l) { return H + (l ? H : E + A); };
-  // layer l's cell backward at step t, fed by the product above it
-  auto cell = [=](int t, int l) {
-    const long tl = (long)t * L + l;
-    ast::CellBwdArgs c = {};
-    c.dh = dh + l * BH;
-    c.dh_ld = H;
-    c.acts = acts + tl * B * H4;
-    c.c_new = c_all + tl * BH;
-    c.c_prev = t ? c_all + (tl - L) * BH : c0 + l * BH;
-    c.dc = dc + l * BH;
-    c.dz = dz + tl * B * H4;
-    c.seed = seed + 2u * (unsigned)tl + 1u;
-    c.threshold = thr_r;
-    c.keep_scale = inv_r;
-    c.R = B;
-    c.H = H;
-    return c;
-  };
-  if (U <= 0) return 0;
-  constexpr int kThreads = 256;
-  AST_RETURN_IF_ERR(ast::launch_ex(
-      head_kernel, dim3((unsigned)((BA + kThreads - 1) / kThreads)),
-      dim3(kThreads), 0, 1, s, d_ht + (U - 1) * BA, ht + (U - 1) * BA,
-      d_pre + (U - 1) * BA, BA));
-  for (int t = U - 1; t >= 0; --t) {
-    float* d_pre_t = d_pre + t * BA;
-    float* d_cv_t = d_cv + (long)t * BH;
-    float* d_q_t = d_q + (long)t * BH;
+  Bwd<float> p = {acts,     c_all,   c0,   alphas,  ht,    d_ht,  enc,
+                  w_cv,     w_top,   w_t,  dh,      dc,    dz,    d_pre,
+                  d_scores, d_cv,    d_q,  d_emb,   nullptr, nullptr,
+                  nullptr,  nullptr, B,    T,       H,     L,     E,
+                  A,        U,       seed, thr_e,   inv_e, thr_r, inv_r};
+  return decoder_backward(p, static_cast<cudaStream_t>(stream));
+}
 
-    ast::Prod cv = {};
-    cv.seg[0] = ast::Seg{d_pre_t, nullptr, A};
-    cv.nseg = 1;
-    cv.w = w_cv;
-    cv.R = B;
-    cv.N = H;
-    cv.out = d_cv_t;
-    AST_RETURN_IF_ERR(ast::launch_linear_prod(cv, s));
-    AST_RETURN_IF_ERR(ast::launch_attention_bwd(
-        enc, alphas + (long)t * B * T, d_cv_t, d_scores + (long)t * B * T,
-        d_q_t, B, T, H, s));
-    // d_top = [d_q | d_pre] @ [wa^T ; ctx_w[H:]^T], into the top layer's
-    // cell backward
-    ast::Prod tp = {};
-    tp.seg[0] = ast::Seg{d_q_t, nullptr, H};
-    tp.seg[1] = ast::Seg{d_pre_t, nullptr, A};
-    tp.nseg = 2;
-    tp.w = w_top;
-    tp.R = B;
-    tp.N = H;
-    ast::BwdEpilogue te = {};
-    te.cell = cell(t, L - 1);
-    AST_RETURN_IF_ERR(ast::launch_bwd_prod(tp, te, s));
-
-    const float* w_l = w_t;
-    for (int l = 0; l < L - 1; ++l) w_l += H4 * ((width(l) + 63) / 64 * 64);
-    for (int l = L - 1; l >= 0; --l) {
-      // [dh carry | dx] = dz @ [wh^T | wx^T]: the carry to dh, dx into the
-      // cell backward of the layer below or, from layer 0, into d_emb and
-      // the step before's d_pre
-      ast::Prod g = {};
-      g.seg[0] = ast::Seg{dz + ((long)t * L + l) * B * H4, nullptr,
-                          (int)H4};
-      g.nseg = 1;
-      g.w = w_l;
-      g.R = B;
-      g.N = width(l);
-      g.out = dh + l * BH;
-      ast::BwdEpilogue e = {};
-      e.n_carry = H;
-      if (l > 0) {
-        e.cell = cell(t, l - 1);
-        w_l -= H4 * ((width(l - 1) + 63) / 64 * 64);
-      } else {
-        e.d_emb = d_emb + (long)t * B * E;
-        e.E = E;
-        e.A = A;
-        e.seed = seed + 2u * t;
-        e.threshold = thr_e;
-        e.inv = inv_e;
-        if (t > 0) {
-          e.d_ht = d_ht + (t - 1) * BA;
-          e.ht = ht + (t - 1) * BA;
-          e.d_pre = d_pre + (t - 1) * BA;
-        }
-      }
-      AST_RETURN_IF_ERR(ast::launch_bwd_prod(g, e, s));
-    }
-  }
-  return (int)cudaGetLastError();
+// bf16: acts, c_all, c0 (K3's c0 rounded), alphas, enc, the packed
+// transposed matrices and the output streams dz, d_pre, d_scores, d_cv,
+// d_q, d_emb in bfloat16 (shapes as above); ht, d_ht and the carries f32.
+// f32 scratch: dz_w (L, B, 4H), d_pre_w (B, A), d_cv_w and d_q_w (B, H).
+AST_EXPORT int k4_decoder_backward_bf16(
+    const __nv_bfloat16* acts, const __nv_bfloat16* c_all,
+    const __nv_bfloat16* c0, const __nv_bfloat16* alphas, const float* ht,
+    const float* d_ht, const __nv_bfloat16* enc, const __nv_bfloat16* w_cv,
+    const __nv_bfloat16* w_top, const __nv_bfloat16* w_t, float* dh,
+    float* dc, __nv_bfloat16* dz, __nv_bfloat16* d_pre,
+    __nv_bfloat16* d_scores, __nv_bfloat16* d_cv, __nv_bfloat16* d_q,
+    __nv_bfloat16* d_emb, float* dz_w, float* d_pre_w, float* d_cv_w,
+    float* d_q_w, int B, int T, int H, int L, int E, int A, int U,
+    unsigned seed, unsigned thr_e, float inv_e, unsigned thr_r,
+    float inv_r, void* stream) {
+  Bwd<__nv_bfloat16> p = {acts,  c_all,   c0,      alphas,  ht,    d_ht,
+                          enc,   w_cv,    w_top,   w_t,     dh,    dc,
+                          dz,    d_pre,   d_scores, d_cv,   d_q,   d_emb,
+                          dz_w,  d_pre_w, d_cv_w,  d_q_w,   B,     T,
+                          H,     L,       E,       A,       U,     seed,
+                          thr_e, inv_e,   thr_r,   inv_r};
+  return decoder_backward(p, static_cast<cudaStream_t>(stream));
 }

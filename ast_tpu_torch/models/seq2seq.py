@@ -25,13 +25,18 @@ counterparts of its conditions:
 The ``fused_encoder`` / ``fused_decoder`` / ``fused_infer`` config flags
 are ignored: no config turns a kernel off on the card.
 
-Decoding also runs at ``compute_dtype`` bfloat16 (``ast_tpu``'s
-``extras.compute_dtype``): :func:`decode_weights` packs the weights in
-bf16, the conv front-end's im2col products and the hoisted layer-0
-projection round their operands to bf16 and multiply in f32, K1 eval runs
-its bf16 mode, and the encoder states are rounded to bf16 before K5 / K6
-(``ops.bf16``).  The model variants routed to the scan path are refused
-there by name (``fused_infer.require_bf16_variant``).
+Decoding and training also run at ``compute_dtype`` bfloat16
+(``ast_tpu``'s ``extras.compute_dtype``; ``ops.bf16``): the conv
+front-end's im2col products and the hoisted layer-0 projection round
+their operands to bf16 and multiply in f32 (under autograd the rounding
+also rounds the gradients that reach the operands, as XLA's transpose of
+a bf16 product does); K1-K6 run their bf16 modes; the decoder takes its
+weights in bf16 (:func:`pack_decoder_weights`, :func:`decode_weights`)
+and the encoder states rounded to bf16; the loss logits are an f32
+product of the rounded ``ht`` and ``out_w`` plus the f32 ``out_b``.  The
+parameters, the BN state and the optimizer stay f32.  The model variants
+routed to the scan path are refused there by name
+(``fused_infer.require_bf16_variant``).
 """
 
 import dataclasses
@@ -50,7 +55,7 @@ from ast_tpu_torch.ops.fused_decoder import (
     W_NAMES, FusedDecoder, embed_drop_mask, rnn_drop_mask)
 from ast_tpu_torch.ops.fused_infer import (
     greedy_decode_fused, greedy_reference, infer_variant_ok,
-    pack_step_weights, require_bf16_variant)
+    pack_step_weights, require_bf16_variant, train_bf16_options)
 from ast_tpu_torch.ops.fused_lstm import (
     ENCODER_TILE, FusedStackedLSTM, fused_stacked_lstm,
     pack_encoder_step_weights, pack_encoder_weights, stacked_lstm_reference)
@@ -254,9 +259,11 @@ def encoder_inputs(params, state, mcfg, X, train=False, enc_w=None,
     wx_rest, wh, b), the last three stacked here or, with ``enc_w``
     (:func:`encoder_weights`), taken from it together with the packed
     layout; with ``train`` (batch-statistics BatchNorm) also the new BN
-    state.  ``compute_dtype`` bf16 (eval): the conv products and the
-    layer-0 projection round their operands to bf16, x0_proj stays f32,
-    and the recurrence's matrices come in bf16."""
+    state.  ``compute_dtype`` bf16: the conv products and the layer-0
+    projection round their operands to bf16, x0_proj stays f32, and the
+    recurrence's matrices come in bf16 -- in eval mode; with ``train``
+    they stay f32, for ``FusedStackedLSTM`` to cast (its ``dtype``), so
+    that their gradients are not rounded."""
     rnn = mcfg["rnn_config"]
     h_cnn, cnn_state = conv_frontend(params["cnn"], state["cnn_bn"],
                                      mcfg["cnn_config"], _source(params, X),
@@ -271,7 +278,7 @@ def encoder_inputs(params, state, mcfg, X, train=False, enc_w=None,
     x0_proj = torch.matmul(xs, wx0).contiguous()
     if enc_w is None:
         enc_w = pack_encoder_weights(layers)
-        if compute_dtype == BF16:
+        if compute_dtype == BF16 and not train:
             enc_w = (enc_w[0].to(BF16), enc_w[1].to(BF16), enc_w[2])
     out = (x0_proj,) + tuple(enc_w)
     if train:
@@ -616,12 +623,13 @@ def make_draws(seed, X, steps, teach_ratio, add_noise, random_out=0.0,
     return draws
 
 
-def encode_train(params, state, mcfg, X, draws):
+def encode_train(params, state, mcfg, X, draws, compute_dtype=torch.float32):
     """Conv front-end + encoder in train mode: SpecAugment masks, then
     speech noise (speech only), batch-statistics BatchNorm, hash dropout
     seeded by ``draws.enc_seed`` -- K1 forward and K2 backward when
-    :func:`use_fused_encoder`, else :func:`scan_encode` with autograd.
-    Returns (enc_states, dec_h0, dec_c0, new_state)."""
+    :func:`use_fused_encoder`, else :func:`scan_encode` with autograd
+    (f32 only).  Returns (enc_states, dec_h0, dec_c0, new_state), the
+    states f32 at either ``compute_dtype``."""
     if draws.spec is not None:
         X = apply_spec_masks(X, draws.spec)
     if draws.noise is not None:
@@ -629,21 +637,25 @@ def encode_train(params, state, mcfg, X, draws):
     if not use_fused_encoder(mcfg):
         return scan_encode(params, state, mcfg, X, True, draws.enc_seed)
     x0_proj, wx_rest, wh, b, new_state = encoder_inputs(
-        params, state, mcfg, X, train=True)
+        params, state, mcfg, X, train=True, compute_dtype=compute_dtype)
     out = FusedStackedLSTM.apply(x0_proj, wx_rest, wh, b, draws.enc_seed,
-                                 True, float(mcfg["dropout"]["rnn"]))
+                                 True, float(mcfg["dropout"]["rnn"]),
+                                 compute_dtype)
     return encoder_outputs(*out) + (new_state,)
 
 
 def sequence_loss(ht, out_w, out_b, target, n_real, label_smoothing=0.0,
-                  replace=None, rand_ids=None):
+                  replace=None, rand_ids=None, compute_dtype=torch.float32):
     """One (U*B, A) @ (A, V) logits GEMM, log-softmax and the PAD-masked
     cross-entropy summed over steps and rows, divided by ``n_real``.
 
     ``replace`` / ``rand_ids`` (see :class:`Draws`) corrupt the targets
     first: the PAD weight is the corrupted target's.  ``label_smoothing``
     eps mixes each token's loss as (1 - eps) * nll + eps * mean over the
-    vocabulary of -log p."""
+    vocabulary of -log p.  ``compute_dtype`` bf16: ``ht`` and ``out_w``
+    rounded to bf16 (their gradients too), ``out_b`` not."""
+    if compute_dtype == BF16:
+        ht, out_w = rounded(ht), rounded(out_w)
     return logits_loss(torch.matmul(ht, out_w) + out_b, target, n_real,
                        label_smoothing, replace, rand_ids)
 
@@ -692,7 +704,8 @@ def scan_decoder_loss(params, mcfg, enc, h0, c0, y, n_real, draws=None,
 
 
 def forward_loss(params, state, mcfg, X, y, n_real, draws=None, train=True,
-                 label_smoothing=0.0, enc_w=None, enc_mask=None):
+                 label_smoothing=0.0, enc_w=None, enc_mask=None,
+                 compute_dtype=torch.float32):
     """Sequence loss (``ast_tpu``'s ``forward_loss``), each stage routed
     (:func:`use_fused_encoder`, :func:`use_fused_decoder`).  X (B, T, D)
     or (B, T) token ids; y (B, U) int targets with GO / EOS, PAD-padded;
@@ -704,13 +717,20 @@ def forward_loss(params, state, mcfg, X, y, n_real, draws=None, train=True,
     (the dev loss): the eval-mode encoder (running statistics; ``enc_w``
     = :func:`encoder_weights` saves packing K1's weights per call), every
     step teacher-forced with no dropout, the plain cross-entropy;
-    ``draws`` is not read and the state comes back as it was."""
+    ``draws`` is not read and the state comes back as it was.
+
+    ``compute_dtype`` bf16 (the model the kernels take): the rounding
+    points of the module docstring; ``enc_w`` then at bf16."""
+    require_bf16_variant(mcfg, compute_dtype,
+                         train_bf16_options(mcfg, enc_mask))
     drop = mcfg["dropout"]
     yT = y.t()
     if train:
-        enc, h0, c0, new_state = encode_train(params, state, mcfg, X, draws)
+        enc, h0, c0, new_state = encode_train(params, state, mcfg, X, draws,
+                                              compute_dtype)
     else:
-        enc, h0, c0 = _encode_eval(params, state, mcfg, X, enc_w)
+        enc, h0, c0 = _encode_eval(params, state, mcfg, X, enc_w,
+                                   compute_dtype)
         new_state = state
     if not use_fused_decoder(mcfg, enc_mask):
         loss = scan_decoder_loss(params, mcfg, enc, h0, c0, y, n_real,
@@ -726,12 +746,13 @@ def forward_loss(params, state, mcfg, X, y, n_real, draws=None, train=True,
     else:
         coins = torch.ones(y_in.shape[0], dtype=torch.int32, device=X.device)
         seed, rates, corrupt = 0, (0.0, 0.0), {}
-    w = pack_decoder_weights(params)
-    ht, _ = FusedDecoder.apply(enc, h0, c0, *(w[k] for k in W_NAMES), y_in,
-                               coins, seed, *rates)
+    w = pack_decoder_weights(params, compute_dtype)
+    ht, _ = FusedDecoder.apply(enc.to(w["wh"].dtype), h0, c0,
+                               *(w[k] for k in W_NAMES), y_in, coins, seed,
+                               *rates)
     dec = params["dec"]
     loss = sequence_loss(ht, dec["out_w"], dec["out_b"], yT[1:], n_real,
-                         **corrupt)
+                         compute_dtype=compute_dtype, **corrupt)
     return loss, new_state
 
 

@@ -8,8 +8,11 @@ run them.
 tensors returns a bf16 result, which is not that function; here both
 operands are rounded to bf16 and multiplied in f32 (a product of two
 bf16 values is exact in f32, so only the order of the sum differs).
-Only decoding runs at bf16 in the port; training refuses it
-(``fused_infer.require_train_dtype``).
+Under autograd :func:`rounded` also rounds the gradient that reaches
+its input to bf16 (the cast's backward), as XLA's transpose of a bf16
+product converts each operand's cotangent to the operand's dtype.
+Decoding and training run at bf16 for the model the kernels take; a
+scan-path variant is refused (``fused_infer.require_bf16_variant``).
 """
 
 import torch

@@ -30,12 +30,30 @@ the mask seeds are ``seed + 2t`` for the embedding over (B, E) and
 ``seed + 2(t*L + l) + 1`` for LSTM layer l over (B, H).  The forward
 divides kept values by ``1 - p``, the backward multiplies by
 ``1 / (1 - p)``, as the TPU kernels do.
+
+bfloat16 (``extras.compute_dtype: "bfloat16"``): every leaf of ``w`` and
+``enc`` in bf16 select it (``ast_tpu``'s ``pack_decoder_weights(params,
+bf16)`` and ``enc.astype(bf16)``); h0, c0 and ``ht`` stay f32.  The
+forward rounds each product's left operand (``[emb; ht_prev]``, h, the
+dropped h, ``[cv; h_top]``, ``ht`` for the argmax logits), scores the
+encoder states against the unrounded query, rounds the attention weights
+before the context sum, adds the (bf16) biases in f32, and stores the
+streams of RES_NAMES_BF16 in bf16 -- not ``x_drop``: as in ``ast_tpu``
+the backward regenerates it as ``round(h) * inv_keep``.  The backward
+reads the streams widened, rounds ``d_pre``, ``d_q``, ``dz`` and
+``d_scores`` where its products read them (``c_prev`` of step 0 is the
+rounded ``c0``), stores its streams in bf16 and keeps dh0 / dc0 f32;
+the weight gradients and ``d_enc`` of :class:`FusedDecoder` reach their
+bf16 inputs rounded to bf16, as ``_fd_bwd`` casts them.  A CUDA tensor
+launches the bf16 entries (``k3_decoder_forward_bf16``,
+``k4_decoder_backward_bf16``) or raises.
 """
 
 import torch
 
 from ast_tpu_torch.kernels import build
 from ast_tpu_torch.ops import embedding
+from ast_tpu_torch.ops.bf16 import BF16, rounded, widen
 from ast_tpu_torch.ops.dropout import drop_mask, drop_threshold
 from ast_tpu_torch.ops.fused_infer import (
     STEP_ORDER, check_decoder_inputs, pack_step_weights, put_transposed)
@@ -46,6 +64,8 @@ W_NAMES = ("wx0", "wx_rest", "wh", "b", "wa", "wa_b", "ctx_w", "ctx_b",
 # the residual streams of the forward, besides ht
 RES_NAMES = ("sel", "acts", "c_all", "h_all", "x_drop", "alphas", "q", "cv",
              "emb")
+# at bf16 (x_drop is regenerated by the backward)
+RES_NAMES_BF16 = tuple(k for k in RES_NAMES if k != "x_drop")
 GRAD_NAMES = ("dz", "d_pre", "d_scores", "d_cv", "d_q", "d_emb", "dh0",
               "dc0")
 # the products' tiles (decode_step.cu): 32 input rows by 64 columns
@@ -65,6 +85,41 @@ def rnn_drop_mask(rate, seed, t, l, L, B, H, device):
                      device=device)
 
 
+def rnn_drop_masks(rate, seed, U, L, B, H, device):
+    """The keep-masks of every step and layer, (U, L, B, H): mask (t, l)
+    is :func:`rnn_drop_mask`'s."""
+    tl = torch.arange(U * L, dtype=torch.int64, device=device).view(
+        U, L, 1, 1)
+    return drop_mask((B, H), rate, seed + 2 * tl + 1, row_axis=0,
+                     device=device)
+
+
+def regen_x_drop(h_all, seed, rate):
+    """The post-dropout layer outputs (U, L, B, H) of the bf16 mode's
+    weight gradients, regenerated as ``ast_tpu``'s ``_fd_bwd`` does: the
+    widened bf16 ``h_all`` times ``1 / (1 - rate)`` where the forward's
+    mask kept it (not the forward's rounded ``h / (1 - rate)``)."""
+    if rate <= 0:
+        return h_all
+    U, L, B, H = h_all.shape
+    keep = rnn_drop_masks(rate, seed, U, L, B, H, h_all.device)
+    return torch.where(keep, h_all * (1.0 / (1.0 - rate)), 0.0)
+
+
+def res_names(dtype):
+    """The forward's streams at the weights' ``dtype``."""
+    return RES_NAMES_BF16 if dtype == BF16 else RES_NAMES
+
+
+def _plain_math(enc, w):
+    """(enc, w, lhs): the plain versions' operands in f32 and the rounding
+    of a product's left operand -- ``ops.bf16.rounded`` with bf16
+    weights, else none."""
+    if w["wh"].dtype != BF16:
+        return enc, w, lambda v: v
+    return (enc.float(), {k: v.float() for k, v in w.items()}, rounded)
+
+
 # ---------------------------------------------------------------------------
 # plain versions
 # ---------------------------------------------------------------------------
@@ -81,6 +136,8 @@ def decoder_forward_reference(enc, h0, c0, w, y_in, coins, seed, drop_emb,
     U, B = y_in.shape
     L, _, H = h0.shape
     A = w["ctx_w"].shape[1]
+    sdt = w["wh"].dtype
+    enc, w, lhs = _plain_math(enc, w)
     coin = [int(v) for v in coins.tolist()]
     if forced_ids is None and not coin[0]:
         raise ValueError("coins[0] must be 1: step 0 is teacher-forced")
@@ -103,7 +160,7 @@ def decoder_forward_reference(enc, h0, c0, w, y_in, coins, seed, drop_emb,
         acts, xs = [], []
         for l in range(L):
             wx = w["wx0"] if l == 0 else w["wx_rest"][l - 1]
-            z = x @ wx + h[l] @ w["wh"][l] + w["b"][l]
+            z = lhs(x) @ wx + lhs(h[l]) @ w["wh"][l] + w["b"][l]
             a, h[l], c[l] = lstm_gate_acts(z, c[l], H)
             x = h[l]
             if drop_rnn > 0:
@@ -111,25 +168,31 @@ def decoder_forward_reference(enc, h0, c0, w, y_in, coins, seed, drop_emb,
                 x = torch.where(keep, x / (1.0 - drop_rnn), 0.0)
             acts.append(a)
             xs.append(x)
-        q = x @ w["wa"] + w["wa_b"]
+        q = lhs(x) @ w["wa"] + w["wa_b"]
         alphas = torch.softmax(torch.bmm(enc, q[:, :, None])[..., 0], dim=-1)
-        cv = torch.bmm(alphas[:, None], enc)[:, 0]
-        ht = torch.tanh(torch.cat([cv, x], dim=-1) @ w["ctx_w"] + w["ctx_b"])
+        cv = torch.bmm(lhs(alphas)[:, None], enc)[:, 0]
+        ht = torch.tanh(lhs(torch.cat([cv, x], dim=-1)) @ w["ctx_w"]
+                        + w["ctx_b"])
         if forced_ids is None and t + 1 < U and not coin[t + 1]:
-            prev = torch.argmax(ht @ w["out_w"] + w["out_b"], dim=-1)
+            prev = torch.argmax(lhs(ht) @ w["out_w"] + w["out_b"], dim=-1)
         for k, v in zip(names, (sel.to(torch.int32), torch.stack(acts),
                                 torch.stack(c), torch.stack(h),
                                 torch.stack(xs), alphas, q, cv, emb, ht)):
             out[k].append(v)
     out = {k: torch.stack(v) for k, v in out.items()}
-    return out.pop("ht"), out
+    ht = out.pop("ht")
+    if sdt == BF16:
+        out = {k: out[k] if k == "sel" else out[k].to(BF16)
+               for k in RES_NAMES_BF16}
+    return ht, out
 
 
 def sampled_shortfall(ht, w, sel, coins):
     """How far each sampled input id (steps t with coins[t] == 0) falls
     below the largest logit of step t-1, from a forward's ``ht`` and
     ``sel``: 0 where the id is that step's argmax.  Returns (U, B)."""
-    logits = ht[:-1] @ w["out_w"] + w["out_b"]              # (U-1, B, V)
+    _, w, lhs = _plain_math(ht, w)
+    logits = lhs(ht[:-1]) @ w["out_w"] + w["out_b"]         # (U-1, B, V)
     short = (logits.amax(dim=-1)
              - logits.gather(2, sel[1:, :, None].long())[..., 0])
     sampled = (coins[1:] == 0)[:, None]
@@ -145,6 +208,11 @@ def decoder_backward_reference(res, ht, enc, c0, w, d_ht, seed, drop_emb,
     U, L, B, H4 = res["acts"].shape
     H = H4 // 4
     E = w["embed"].shape[1]
+    sdt = w["wh"].dtype
+    enc, w, lhs = _plain_math(enc, w)
+    res = {k: widen(v) for k, v in res.items() if k != "sel"}
+    if sdt == BF16:
+        c0 = rounded(c0)        # ast_tpu's c_prev of step 0: c0 in bf16
     dh = [torch.zeros_like(c0[0])] * L
     dc = [torch.zeros_like(c0[0])] * L
     dht = torch.zeros_like(ht[0])
@@ -152,14 +220,14 @@ def decoder_backward_reference(res, ht, enc, c0, w, d_ht, seed, drop_emb,
     out = {k: [] for k in names}
     for t in reversed(range(U)):
         d_pre = (d_ht[t] + dht) * (1.0 - ht[t] * ht[t])
-        d_ctx_in = d_pre @ w["ctx_w"].t()
+        d_ctx_in = lhs(d_pre) @ w["ctx_w"].t()
         d_cv, cons = d_ctx_in[:, :H], d_ctx_in[:, H:]
         alphas = res["alphas"][t]
         d_alphas = torch.bmm(enc, d_cv[:, :, None])[..., 0]
         d_scores = alphas * (d_alphas
                              - (d_alphas * alphas).sum(-1, keepdim=True))
-        d_q = torch.bmm(d_scores[:, None], enc)[:, 0]
-        cons = cons + d_q @ w["wa"].t()
+        d_q = torch.bmm(lhs(d_scores)[:, None], enc)[:, 0]
+        cons = cons + lhs(d_q) @ w["wa"].t()
         dz_t = [None] * L
         for l in reversed(range(L)):
             if drop_rnn > 0:
@@ -170,10 +238,10 @@ def decoder_backward_reference(res, ht, enc, c0, w, d_ht, seed, drop_emb,
                                             res["c_all"][t, l], c_prev,
                                             dh[l] + cons, dc[l])
             dz_t[l] = dz
-            dh[l] = dz @ w["wh"][l].t()
+            dh[l] = lhs(dz) @ w["wh"][l].t()
             if l > 0:
-                cons = dz @ w["wx_rest"][l - 1].t()
-        dx0 = dz_t[0] @ w["wx0"].t()
+                cons = lhs(dz) @ w["wx_rest"][l - 1].t()
+        dx0 = lhs(dz_t[0]) @ w["wx0"].t()
         d_emb, dht = dx0[:, :E], dx0[:, E:]
         if drop_emb > 0:
             keep = embed_drop_mask(drop_emb, seed, t, B, E, enc.device)
@@ -181,7 +249,7 @@ def decoder_backward_reference(res, ht, enc, c0, w, d_ht, seed, drop_emb,
         for k, v in zip(names, (torch.stack(dz_t), d_pre, d_scores, d_cv,
                                 d_q, d_emb)):
             out[k].append(v)
-    out = {k: torch.stack(v[::-1]) for k, v in out.items()}
+    out = {k: torch.stack(v[::-1]).to(sdt) for k, v in out.items()}
     out["dh0"], out["dc0"] = torch.stack(dh), torch.stack(dc)
     return out
 
@@ -242,14 +310,13 @@ def pack_backward_weights(w):
 def decoder_forward(enc, h0, c0, w, y_in, coins, seed, drop_emb, drop_rnn):
     """K3; the contract of :func:`decoder_forward_reference` without
     ``forced_ids``.  ``y_in`` (U, B) and ``coins`` (U,) are int32 on the
-    card; the kernel reads the coins itself (no host sync)."""
+    card; the kernel reads the coins itself (no host sync).  bf16 ``w``
+    and ``enc`` run the bf16 mode (streams of RES_NAMES_BF16 in bf16),
+    counted in ``launches_bf16``."""
     if not enc.is_cuda:
         return decoder_forward_reference(enc, h0, c0, w, y_in, coins, seed,
                                          drop_emb, drop_rnn)
     B, T, H, L, E, A, V, dt = check_decoder_inputs(enc, h0, c0, w)
-    if dt != torch.float32:
-        raise ValueError("K3 takes float32 weights (training at bfloat16 "
-                         "is not ported)")
     check_train_shapes(T, H, E, A)
     U = y_in.shape[0]
     for name, t, shape in (("y_in", y_in, (U, B)), ("coins", coins, (U,))):
@@ -260,38 +327,53 @@ def decoder_forward(enc, h0, c0, w, y_in, coins, seed, drop_emb, drop_rnn):
     dev = enc.device
     f32 = dict(device=dev)
     packed = pack_step_weights(w)
-    res = {"sel": torch.empty((U, B), dtype=torch.int32, device=dev),
-           "acts": torch.empty((U, L, B, 4 * H), **f32),
-           "c_all": torch.empty((U, L, B, H), **f32),
-           "h_all": torch.empty((U, L, B, H), **f32),
-           "x_drop": torch.empty((U, L, B, H), **f32),
-           "alphas": torch.empty((U, B, T), **f32),
-           "q": torch.empty((U, B, H), **f32),
-           "cv": torch.empty((U, B, H), **f32),
-           "emb": torch.empty((U, B, E), **f32)}
+    shapes = {"acts": (U, L, B, 4 * H), "c_all": (U, L, B, H),
+              "h_all": (U, L, B, H), "x_drop": (U, L, B, H),
+              "alphas": (U, B, T), "q": (U, B, H), "cv": (U, B, H),
+              "emb": (U, B, E)}
+    res = {"sel": torch.empty((U, B), dtype=torch.int32, device=dev)}
+    res.update({k: torch.empty(shapes[k], dtype=dt, device=dev)
+                for k in res_names(dt)[1:]})
     ht = torch.empty((U, B, A), **f32)
     # zero logits: a step that samples before any logits were computed
     # (coins[0] == 0, outside the contract) takes id 0
     logits = torch.zeros((B, V), **f32)
     ht0 = torch.zeros((B, A), **f32)
     lib = build.library()
-    decoder_forward.launches += 1
-    build.check_launch("k3_decoder_forward", lib.k3_decoder_forward(
-        enc.data_ptr(), *(packed[k].data_ptr() for k in STEP_ORDER),
-        h0.data_ptr(), c0.data_ptr(), y_in.data_ptr(), coins.data_ptr(),
-        logits.data_ptr(), ht0.data_ptr(), ht.data_ptr(),
-        *(res[k].data_ptr() for k in RES_NAMES),
-        B, T, H, L, E, A, V, U, seed & 0xFFFFFFFF,
-        drop_threshold(drop_emb), 1.0 - drop_emb, drop_threshold(drop_rnn),
-        1.0 - drop_rnn, torch.cuda.current_stream(dev).cuda_stream))
+    head = (enc.data_ptr(), *(packed[k].data_ptr() for k in STEP_ORDER),
+            h0.data_ptr())
+    ins = (y_in.data_ptr(), coins.data_ptr(), logits.data_ptr(),
+           ht0.data_ptr(), ht.data_ptr())
+    tail = (B, T, H, L, E, A, V, U, seed & 0xFFFFFFFF,
+            drop_threshold(drop_emb), 1.0 - drop_emb, drop_threshold(drop_rnn),
+            1.0 - drop_rnn, torch.cuda.current_stream(dev).cuda_stream)
+    if dt == torch.float32:
+        decoder_forward.launches += 1
+        build.check_launch("k3_decoder_forward", lib.k3_decoder_forward(
+            *head, c0.data_ptr(), *ins,
+            *(res[k].data_ptr() for k in RES_NAMES), *tail))
+        return ht, res
+    # the f32 state of the bf16 mode: h (two slots), c (from c0), each
+    # layer's dropped h, the step's q, cv and dropped embedding
+    state = (torch.empty((2, L, B, H), **f32), c0.clone(),
+             torch.empty((L, B, H), **f32), torch.empty((B, H), **f32),
+             torch.empty((B, H), **f32), torch.empty((B, E), **f32))
+    decoder_forward.launches_bf16 += 1
+    build.check_launch("k3_decoder_forward_bf16",
+                       lib.k3_decoder_forward_bf16(
+        *head, *ins, *(res[k].data_ptr() for k in RES_NAMES_BF16),
+        *(t.data_ptr() for t in state), *tail))
     return ht, res
 
 
 decoder_forward.launches = 0
+decoder_forward.launches_bf16 = 0
 
 
 def decoder_backward(res, ht, enc, c0, w, d_ht, seed, drop_emb, drop_rnn):
-    """K4; the contract of :func:`decoder_backward_reference`."""
+    """K4; the contract of :func:`decoder_backward_reference`.  bf16
+    streams, ``w`` and ``enc`` run the bf16 mode (the GRAD_NAMES streams
+    but dh0 / dc0 in bf16), counted in ``launches_bf16``."""
     if not enc.is_cuda:
         return decoder_backward_reference(res, ht, enc, c0, w, d_ht, seed,
                                           drop_emb, drop_rnn)
@@ -300,44 +382,62 @@ def decoder_backward(res, ht, enc, c0, w, d_ht, seed, drop_emb, drop_rnn):
     T = enc.shape[1]
     V, E = w["embed"].shape
     A = w["ctx_w"].shape[1]
-    build.check_tensor(enc, "enc_states", (B, T, H))
+    dt = BF16 if w["wh"].dtype == BF16 else torch.float32
+    build.check_tensor(enc, "enc_states", (B, T, H), dt)
     build.check_tensor(c0, "dec_c0", (L, B, H))
     build.check_tensor(ht, "ht", (U, B, A))
     build.check_tensor(d_ht, "d_ht", (U, B, A))
     for k, shape in (("acts", (U, L, B, 4 * H)), ("c_all", (U, L, B, H)),
                      ("alphas", (U, B, T))):
-        build.check_tensor(res[k], k, shape)
+        build.check_tensor(res[k], k, shape, dt)
     for k, shape in (("wx0", (E + A, 4 * H)), ("wx_rest", (L - 1, H, 4 * H)),
                      ("wh", (L, H, 4 * H)), ("wa", (H, H)),
                      ("ctx_w", (2 * H, A))):
-        build.check_tensor(w[k], k, shape)
+        build.check_tensor(w[k], k, shape, dt)
     check_train_shapes(T, H, E, A)
     dev = enc.device
     packed = pack_backward_weights(w)
     dh = torch.zeros((L, B, H), device=dev)     # carries, in place
     dc = torch.zeros((L, B, H), device=dev)
-    g = {"dz": torch.empty((U, L, B, 4 * H), device=dev),
-         "d_pre": torch.empty((U, B, A), device=dev),
-         "d_scores": torch.empty((U, B, T), device=dev),
-         "d_cv": torch.empty((U, B, H), device=dev),
-         "d_q": torch.empty((U, B, H), device=dev),
-         "d_emb": torch.empty((U, B, E), device=dev)}
+    sdt = dict(dtype=dt, device=dev)
+    g = {"dz": torch.empty((U, L, B, 4 * H), **sdt),
+         "d_pre": torch.empty((U, B, A), **sdt),
+         "d_scores": torch.empty((U, B, T), **sdt),
+         "d_cv": torch.empty((U, B, H), **sdt),
+         "d_q": torch.empty((U, B, H), **sdt),
+         "d_emb": torch.empty((U, B, E), **sdt)}
     lib = build.library()
-    decoder_backward.launches += 1
-    build.check_launch("k4_decoder_backward", lib.k4_decoder_backward(
-        res["acts"].data_ptr(), res["c_all"].data_ptr(), c0.data_ptr(),
-        res["alphas"].data_ptr(), ht.data_ptr(), d_ht.data_ptr(),
-        enc.data_ptr(), packed["cv"].data_ptr(), packed["top"].data_ptr(),
-        packed["layer"][0].data_ptr(), dh.data_ptr(), dc.data_ptr(),
-        *(g[k].data_ptr() for k in GRAD_NAMES[:6]),
-        B, T, H, L, E, A, U, seed & 0xFFFFFFFF, drop_threshold(drop_emb),
-        1.0 / (1.0 - drop_emb), drop_threshold(drop_rnn),
-        1.0 / (1.0 - drop_rnn), torch.cuda.current_stream(dev).cuda_stream))
+    ins = (res["acts"].data_ptr(), res["c_all"].data_ptr())
+    mid = (res["alphas"].data_ptr(), ht.data_ptr(), d_ht.data_ptr(),
+           enc.data_ptr(), packed["cv"].data_ptr(), packed["top"].data_ptr(),
+           packed["layer"][0].data_ptr(), dh.data_ptr(), dc.data_ptr(),
+           *(g[k].data_ptr() for k in GRAD_NAMES[:6]))
+    tail = (B, T, H, L, E, A, U, seed & 0xFFFFFFFF, drop_threshold(drop_emb),
+            1.0 / (1.0 - drop_emb), drop_threshold(drop_rnn),
+            1.0 / (1.0 - drop_rnn), torch.cuda.current_stream(dev).cuda_stream)
+    if dt == torch.float32:
+        decoder_backward.launches += 1
+        build.check_launch("k4_decoder_backward", lib.k4_decoder_backward(
+            *ins, c0.data_ptr(), *mid, *tail))
+    else:
+        # ast_tpu's c_prev of step 0 is c0 in bf16; the f32 values the
+        # next launches read: each layer's dz, the step's d_pre, d_cv, d_q
+        c0_16 = c0.to(BF16)
+        work = (torch.empty((L, B, 4 * H), device=dev),
+                torch.empty((B, A), device=dev),
+                torch.empty((B, H), device=dev),
+                torch.empty((B, H), device=dev))
+        decoder_backward.launches_bf16 += 1
+        build.check_launch("k4_decoder_backward_bf16",
+                           lib.k4_decoder_backward_bf16(
+            *ins, c0_16.data_ptr(), *mid, *(t.data_ptr() for t in work),
+            *tail))
     g["dh0"], g["dc0"] = dh, dc
     return g
 
 
 decoder_backward.launches = 0
+decoder_backward.launches_bf16 = 0
 
 
 # ---------------------------------------------------------------------------
@@ -351,7 +451,11 @@ class FusedDecoder(torch.autograd.Function):
     out_w, out_b, embed, y_in, coins, seed, drop_emb, drop_rnn)`` ->
     (ht (U, B, A), sel (U, B) int32, not differentiable).  ``out_w`` and
     ``out_b`` serve only the argmax feed and get no gradient here: theirs
-    comes from the loss logits outside."""
+    comes from the loss logits outside.  With bf16 weights and ``enc``
+    (the bf16 mode), the weight gradients and ``d_enc`` are f32 sums over
+    the widened streams, which reach their bf16 inputs rounded, and the
+    post-dropout layer outputs are regenerated as ``round(h) *
+    inv_keep`` (:func:`regen_x_drop`), as ``_fd_bwd`` does."""
 
     @staticmethod
     def forward(ctx, enc, h0, c0, *args):
@@ -359,8 +463,9 @@ class FusedDecoder(torch.autograd.Function):
         y_in, coins, seed, drop_emb, drop_rnn = args[11:]
         ht, res = decoder_forward(enc, h0, c0, w, y_in, coins, seed,
                                   drop_emb, drop_rnn)
+        ctx.names = res_names(w["wh"].dtype)
         ctx.save_for_backward(enc, h0, c0, ht, *args[:11],
-                              *(res[k] for k in RES_NAMES))
+                              *(res[k] for k in ctx.names))
         ctx.hyper = (seed, drop_emb, drop_rnn)
         ctx.mark_non_differentiable(res["sel"])
         return ht, res["sel"]
@@ -370,11 +475,17 @@ class FusedDecoder(torch.autograd.Function):
         saved = ctx.saved_tensors
         enc, h0, c0, ht = saved[:4]
         w = dict(zip(W_NAMES, saved[4:15]))
-        res = dict(zip(RES_NAMES, saved[15:]))
+        res = dict(zip(ctx.names, saved[15:]))
         g = decoder_backward(res, ht, enc, c0, w, d_ht.contiguous(),
                              *ctx.hyper)
         L = h0.shape[0]
-        x_drop, dz = res["x_drop"], g["dz"]
+        g = {k: widen(v) for k, v in g.items()}
+        res = {k: v if k == "sel" else widen(v) for k, v in res.items()}
+        dz = g["dz"]
+        if "x_drop" in res:
+            x_drop = res["x_drop"]
+        else:
+            x_drop = regen_x_drop(res["h_all"], ctx.hyper[0], ctx.hyper[2])
         h_top = x_drop[:, L - 1]
         ein = torch.einsum
         d_enc = (ein("ubt,ubh->bth", res["alphas"], g["d_cv"])
@@ -394,8 +505,11 @@ class FusedDecoder(torch.autograd.Function):
             "wa_b": g["d_q"].sum(dim=(0, 1)),
             "ctx_w": ein("ubc,uba->ca", ctx_in, g["d_pre"]),
             "ctx_b": g["d_pre"].sum(dim=(0, 1)),
-            "out_w": None, "out_b": None,
             "embed": d_embed,
         }
+        grads["out_w"] = grads["out_b"] = None
+        # f32; autograd casts each to its input's dtype, so in the bf16
+        # mode d_enc and the weight gradients reach the (f32) parameters
+        # rounded to bf16, as _fd_bwd casts them
         return ((d_enc, g["dh0"], g["dc0"])
                 + tuple(grads[k] for k in W_NAMES) + (None,) * 5)

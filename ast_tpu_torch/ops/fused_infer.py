@@ -34,7 +34,7 @@ import torch
 from ast_tpu_torch.symbols import SYMBOLS
 from ast_tpu_torch.kernels import build
 from ast_tpu_torch.ops.attention import luong_attention
-from ast_tpu_torch.ops.bf16 import BF16, dot, rounded, widen
+from ast_tpu_torch.ops.bf16 import BF16, dot, parse_dtype, rounded, widen
 from ast_tpu_torch.ops.lstm import lstm_gates
 
 NEG_INF = -1e30
@@ -67,8 +67,8 @@ def require_bf16_variant(mcfg, dtype, what=()):
     (further options of the caller, e.g. an encoder mask), when
     ``dtype`` is bf16 and the path is one ``ast_tpu`` runs on its scan
     path (the stages ``models.seq2seq`` routes to plain PyTorch), whose
-    bf16 mode is not ported: decoding at bf16 covers the variant the
-    kernels take."""
+    bf16 mode is not ported: decoding and training at bf16 cover the
+    variant the kernels take."""
     if dtype != BF16:
         return
     rnn = mcfg["rnn_config"]
@@ -82,29 +82,37 @@ def require_bf16_variant(mcfg, dtype, what=()):
     ) if on] + list(what)
     if refused:
         raise NotImplementedError(
-            f"compute_dtype bfloat16 decodes the model the kernels take; "
-            f"not ported at bfloat16: {', '.join(refused)} (see ROADMAP.md "
-            f"queue 1, bf16 on the scan path)")
+            f"compute_dtype bfloat16 decodes and trains the model the "
+            f"kernels take; not ported at bfloat16: {', '.join(refused)} "
+            f"(see ROADMAP.md queue 1, bf16 on the scan path)")
 
 
-def require_train_dtype(train_cfg):
-    """Raise NotImplementedError naming ``compute_dtype`` unless it is
-    float32: the port decodes at bf16 but does not train at it.  Called
-    where training starts (``NN.train_epoch``, ``NN.eval_loss``,
-    ``cli.train``)."""
-    if train_cfg["extras"].get("compute_dtype", "float32") != "float32":
-        raise NotImplementedError(
-            "ast_tpu_torch does not train these options; not ported: "
-            "compute_dtype (bfloat16 decodes; see ROADMAP.md queue 1, "
-            "bf16 training)")
+def train_bf16_options(mcfg, enc_mask=None):
+    """The further options that put a stage of training on the scan path,
+    for :func:`require_bf16_variant`: an encoder mask and output dropout
+    (the decoder's scan loss, ``models.seq2seq.use_fused_decoder``)."""
+    return [name for name, on in (
+        ("enc_mask", enc_mask is not None),
+        ("dropout.out", mcfg["dropout"].get("out", 0) > 0)) if on]
+
+
+def require_train_dtype(train_cfg, mcfg):
+    """Raise NotImplementedError naming the model variant when
+    ``compute_dtype`` is bf16 and a stage of training runs on the scan
+    path, whose bf16 mode is not ported; the model the kernels take
+    trains at bf16.  Called where training starts (``NN.train_epoch``,
+    ``NN.eval_loss``, ``cli.train``)."""
+    require_bf16_variant(
+        mcfg, parse_dtype(train_cfg["extras"].get("compute_dtype")),
+        train_bf16_options(mcfg))
 
 
 def require_train_variant(train_cfg):
     """The options the ported trainer refuses: several steps a dispatch,
-    the device feature cache and narrow transfer dtypes
-    (``compute_dtype`` is refused where training starts,
-    :func:`require_train_dtype`).  Every model variant trains (the
-    routing of ``models.seq2seq``).  ``train_cfg`` is
+    the device feature cache and narrow transfer dtypes (a scan-path
+    variant at ``compute_dtype`` bfloat16 is refused where training
+    starts, :func:`require_train_dtype`).  Every model variant trains
+    (the routing of ``models.seq2seq``).  ``train_cfg`` is
     ``Config(...).train``.  Raises NotImplementedError naming what is
     refused, on every device, and ``ast_tpu``'s ValueError for
     ``hbm_cache`` over audio or text."""

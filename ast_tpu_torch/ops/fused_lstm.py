@@ -27,12 +27,19 @@ seed ``seed + t*L + l`` over (D2, B, H)) and the residual streams
 acts (T, L, D2, B, 4H) ``[i|f|g|o]``, c_all, h_pre (pre-dropout) and
 x_drop (post-dropout) (T, L, D2, B, H).
 
-bfloat16 (eval mode; ``extras.compute_dtype: "bfloat16"``): ``wx_rest``
-and ``wh`` in bf16 select it.  As in ``ast_tpu``'s kernel, each layer's
-input and its h are rounded to bf16 where a product reads them and the
-products accumulate in f32; ``b`` (not cast), ``x0_proj``, the gates,
-the state and the outputs stay f32.  A CUDA tensor launches K1's bf16
-entry (``k1_encoder_forward_bf16``) or raises.
+bfloat16 (``extras.compute_dtype: "bfloat16"``): ``wx_rest`` and ``wh``
+in bf16 select it.  As in ``ast_tpu``'s kernels, each layer's input and
+its h are rounded to bf16 where a product reads them and the products
+accumulate in f32; ``b`` (not cast), ``x0_proj``, the gates, the state,
+``outs``, ``h_fin`` and ``c_fin`` stay f32.  In train mode the residual
+streams are stored in bf16 (``res_dtype = wh.dtype``; x_drop is
+``round(h * inv_keep)``); K2 reads them widened, computes ``dz`` in f32,
+stores it in bf16 and feeds its carries the rounded ``dz``.  The weight
+gradients are f32 sums over the bf16 streams and come back f32, not
+rounded (``FusedStackedLSTM``'s ``dtype``).  A CUDA tensor launches the
+bf16 entries (``k1_encoder_forward_bf16``,
+``k1_encoder_forward_train_bf16``, ``k2_encoder_backward_bf16``) or
+raises.
 """
 
 import ctypes
@@ -42,7 +49,7 @@ import numpy as np
 import torch
 
 from ast_tpu_torch.kernels import build
-from ast_tpu_torch.ops.bf16 import BF16, rounded
+from ast_tpu_torch.ops.bf16 import BF16, rounded, widen
 from ast_tpu_torch.ops.dropout import drop_mask, drop_threshold
 from ast_tpu_torch.ops.fused_infer import put_transposed
 from ast_tpu_torch.ops.lstm import (
@@ -172,11 +179,12 @@ def stacked_lstm_reference(x0_proj, wx_rest, wh, b, train=False, seed=0,
     order, and what the layer above and ``outs`` receive is the
     transformed output; the carried state stays the cell's own.
 
-    With ``wx_rest`` / ``wh`` in bf16 (eval), the rounding points of the
-    module docstring."""
+    With ``wx_rest`` / ``wh`` in bf16, the rounding points of the module
+    docstring, and in train mode the residual streams in bf16."""
     T, D2, B, H4 = x0_proj.shape
     H = H4 // 4
     L = wh.shape[0]
+    res_dtype = wh.dtype
     if wh.dtype == BF16:
         wx_rest, wh = wx_rest.float(), wh.float()
 
@@ -212,17 +220,26 @@ def stacked_lstm_reference(x0_proj, wx_rest, wh, b, train=False, seed=0,
     out = (torch.stack(outs), torch.stack(h), torch.stack(c))
     if not train:
         return out
-    return out + tuple(torch.stack(r) for r in (acts, c_all, h_pre, x_drop))
+    return out + tuple(torch.stack(r).to(res_dtype)
+                       for r in (acts, c_all, h_pre, x_drop))
 
 
 def encoder_backward_reference(acts, c_all, wx_rest, wh, douts, dh_fin,
-                               dc_fin, seed, rate):
+                               dc_fin, seed, rate, forced_dz=None):
     """Plain version of K2: the reverse-time pass giving ``dz`` (T, L,
     D2, B, 4H) at every cell's pre-activations, from the residuals, the
     cotangents of (outs, h_fin, c_fin) and the dropout ``rate`` the
-    forward ran with (the masks are regenerated from ``seed``)."""
+    forward ran with (the masks are regenerated from ``seed``).  With
+    bf16 residuals and weights: ``dz`` computed in f32 from the widened
+    streams, returned in bf16, and rounded where the carries' products
+    read it.  With ``forced_dz`` (e.g. a kernel's ``dz``) the carries'
+    products read it in place of this pass's own: each step of this
+    pass then starts where that one's did."""
     T, L, D2, B, H4 = acts.shape
     H = H4 // 4
+    res_dtype = acts.dtype
+    lhs = rounded if res_dtype == BF16 else (lambda v: v)
+    acts, c_all, wx_rest, wh = (widen(t) for t in (acts, c_all, wx_rest, wh))
     dh, dc = list(dh_fin), list(dc_fin)
     dz_all = []
     for t in reversed(range(T)):
@@ -236,11 +253,13 @@ def encoder_backward_reference(acts, c_all, wx_rest, wh, douts, dh_fin,
             dz, dc[l] = lstm_gates_backward(acts[t, l], c_all[t, l], c_prev,
                                             dh[l] + cons, dc[l])
             dz_t[l] = dz
-            dh[l] = torch.bmm(dz, wh[l].transpose(1, 2))
+            if forced_dz is not None:
+                dz = widen(forced_dz[t, l])
+            dh[l] = torch.bmm(lhs(dz), wh[l].transpose(1, 2))
             if l > 0:
-                cons = torch.bmm(dz, wx_rest[l - 1].transpose(1, 2))
+                cons = torch.bmm(lhs(dz), wx_rest[l - 1].transpose(1, 2))
         dz_all.append(torch.stack(dz_t))
-    return torch.stack(dz_all[::-1])
+    return torch.stack(dz_all[::-1]).to(res_dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -312,47 +331,71 @@ fused_stacked_lstm.launches_bf16 = 0
 def fused_stacked_lstm_train(x0_proj, wx_rest, wh, b, seed, rate):
     """Encoder recurrence, train mode: hash dropout at ``rate`` (0 keeps
     every element) and the residual streams.  Returns (outs, h_fin,
-    c_fin, acts, c_all, h_pre, x_drop)."""
+    c_fin, acts, c_all, h_pre, x_drop).  ``wx_rest`` / ``wh`` in bf16 run
+    the bf16 mode: the four streams in bf16, outs / h_fin / c_fin f32;
+    the f32 entry counts in ``launches``, the bf16 one in
+    ``launches_bf16``."""
     if not x0_proj.is_cuda:
         return stacked_lstm_reference(x0_proj, wx_rest, wh, b, True, seed,
                                       rate)
-    T, L, D2, B, H = _check_weights(x0_proj, wx_rest, wh, b)
+    bf16 = wh.dtype == BF16
+    rdt = BF16 if bf16 else torch.float32
+    T, L, D2, B, H = _check_weights(x0_proj, wx_rest, wh, b, rdt)
     dev = x0_proj.device
     w = pack_encoder_step_weights(wx_rest, wh)
     outs = torch.empty((T, D2, B, H), device=dev)
-    acts = torch.empty((T, L, D2, B, 4 * H), device=dev)
-    c_all, h_pre, x_drop = (torch.empty((T, L, D2, B, H), device=dev)
-                            for _ in range(3))
-    zero = torch.zeros((D2, B, H), device=dev)      # h and c before t = 0
+    acts = torch.empty((T, L, D2, B, 4 * H), dtype=rdt, device=dev)
+    c_all, h_pre, x_drop = (torch.empty((T, L, D2, B, H), dtype=rdt,
+                                        device=dev) for _ in range(3))
     lib = build.library()
-    fused_stacked_lstm_train.launches += 1
-    build.check_launch("k1_encoder_forward_train",
-                       lib.k1_encoder_forward_train(
-        x0_proj.data_ptr(), w.data_ptr(), b.data_ptr(),
-        outs.data_ptr(), acts.data_ptr(), c_all.data_ptr(),
-        h_pre.data_ptr(), x_drop.data_ptr(), zero.data_ptr(),
-        *_schedule_args(T, L), L, D2, B, H, seed & 0xFFFFFFFF,
-        drop_threshold(rate), _inv_keep(rate),
-        torch.cuda.current_stream(dev).cuda_stream))
-    return (outs, h_pre[-1].clone(), c_all[-1].clone(), acts, c_all, h_pre,
-            x_drop)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    drop = (seed & 0xFFFFFFFF, drop_threshold(rate), _inv_keep(rate))
+    if not bf16:
+        zero = torch.zeros((D2, B, H), device=dev)  # h and c before t = 0
+        fused_stacked_lstm_train.launches += 1
+        build.check_launch("k1_encoder_forward_train",
+                           lib.k1_encoder_forward_train(
+            x0_proj.data_ptr(), w.data_ptr(), b.data_ptr(),
+            outs.data_ptr(), acts.data_ptr(), c_all.data_ptr(),
+            h_pre.data_ptr(), x_drop.data_ptr(), zero.data_ptr(),
+            *_schedule_args(T, L), L, D2, B, H, *drop, stream))
+        return (outs, h_pre[-1].clone(), c_all[-1].clone(), acts, c_all,
+                h_pre, x_drop)
+    # the f32 state the recurrence carries: layer l's h and its dropped
+    # output at step t in slot t % 2 (both start as the zero state), c
+    hbuf = torch.zeros((2, L, D2, B, H), device=dev)
+    xbuf = torch.empty((2, L, D2, B, H), device=dev)
+    c = torch.zeros((L, D2, B, H), device=dev)
+    fused_stacked_lstm_train.launches_bf16 += 1
+    build.check_launch("k1_encoder_forward_train_bf16",
+                       lib.k1_encoder_forward_train_bf16(
+        x0_proj.data_ptr(), w.data_ptr(), b.data_ptr(), outs.data_ptr(),
+        acts.data_ptr(), c_all.data_ptr(), h_pre.data_ptr(),
+        x_drop.data_ptr(), hbuf.data_ptr(), xbuf.data_ptr(), c.data_ptr(),
+        *_schedule_args(T, L), L, D2, B, H, *drop, stream))
+    return outs, hbuf[(T - 1) % 2], c, acts, c_all, h_pre, x_drop
 
 
 fused_stacked_lstm_train.launches = 0
+fused_stacked_lstm_train.launches_bf16 = 0
 
 
 def encoder_backward(acts, c_all, wx_rest, wh, douts, dh_fin, dc_fin, seed,
                      rate):
-    """K2: ``dz`` (T, L, D2, B, 4H); see :func:`encoder_backward_reference`."""
+    """K2: ``dz`` (T, L, D2, B, 4H); see :func:`encoder_backward_reference`.
+    bf16 residuals and weights run the bf16 mode (``dz`` in bf16; the
+    cotangents and carries f32), counted in ``launches_bf16``."""
     if not acts.is_cuda:
         return encoder_backward_reference(acts, c_all, wx_rest, wh, douts,
                                           dh_fin, dc_fin, seed, rate)
     T, L, D2, B, H4 = acts.shape
     H = H4 // 4
-    build.check_tensor(acts, "acts", (T, L, D2, B, 4 * H))
-    build.check_tensor(c_all, "c_all", (T, L, D2, B, H))
-    build.check_tensor(wx_rest, "wx_rest", (L - 1, D2, H, 4 * H))
-    build.check_tensor(wh, "wh", (L, D2, H, 4 * H))
+    bf16 = acts.dtype == BF16
+    rdt = BF16 if bf16 else torch.float32
+    build.check_tensor(acts, "acts", (T, L, D2, B, 4 * H), rdt)
+    build.check_tensor(c_all, "c_all", (T, L, D2, B, H), rdt)
+    build.check_tensor(wx_rest, "wx_rest", (L - 1, D2, H, 4 * H), rdt)
+    build.check_tensor(wh, "wh", (L, D2, H, 4 * H), rdt)
     build.check_tensor(douts, "douts", (T, D2, B, H))
     build.check_tensor(dh_fin, "dh_fin", (L, D2, B, H))
     build.check_tensor(dc_fin, "dc_fin", (L, D2, B, H))
@@ -367,19 +410,29 @@ def encoder_backward(acts, c_all, wx_rest, wh, douts, dh_fin, dc_fin, seed,
     if L > 1:
         carry[n0:].view(L - 1, D2, B, 2 * H)[..., :H].copy_(dh_fin[1:])
     dc = dc_fin.clone()
-    dz = torch.empty((T, L, D2, B, 4 * H), device=dev)
+    dz = torch.empty((T, L, D2, B, 4 * H), dtype=rdt, device=dev)
     lib = build.library()
-    encoder_backward.launches += 1
-    build.check_launch("k2_encoder_backward", lib.k2_encoder_backward(
-        acts.data_ptr(), c_all.data_ptr(), w_t.data_ptr(), douts.data_ptr(),
-        carry.data_ptr(), dc.data_ptr(), dz.data_ptr(),
-        *_schedule_args(T, L, True), L, D2, B, H, seed & 0xFFFFFFFF,
-        drop_threshold(rate), _inv_keep(rate),
-        torch.cuda.current_stream(dev).cuda_stream))
+    args = (acts.data_ptr(), c_all.data_ptr(), w_t.data_ptr(),
+            douts.data_ptr(), carry.data_ptr(), dc.data_ptr(), dz.data_ptr())
+    tail = (*_schedule_args(T, L, True), L, D2, B, H, seed & 0xFFFFFFFF,
+            drop_threshold(rate), _inv_keep(rate),
+            torch.cuda.current_stream(dev).cuda_stream)
+    if not bf16:
+        encoder_backward.launches += 1
+        build.check_launch("k2_encoder_backward",
+                           lib.k2_encoder_backward(*args, *tail))
+        return dz
+    # the f32 dz of a launch's cells, which its product reads (rounded)
+    work = torch.empty((lib.k2_work_rows(), B, 4 * H), device=dev)
+    encoder_backward.launches_bf16 += 1
+    build.check_launch("k2_encoder_backward_bf16",
+                       lib.k2_encoder_backward_bf16(*args, work.data_ptr(),
+                                                    *tail))
     return dz
 
 
 encoder_backward.launches = 0
+encoder_backward.launches_bf16 = 0
 
 
 # ---------------------------------------------------------------------------
@@ -392,13 +445,22 @@ def _grad_or_zeros(g, like):
 
 class FusedStackedLSTM(torch.autograd.Function):
     """Differentiable fused encoder (``ast_tpu``'s ``fused_stacked_lstm``
-    custom VJP).  ``apply(x0_proj, wx_rest, wh, b, seed, train, rate)``
-    -> (outs, h_fin, c_fin).  When gradients are needed in eval mode the
-    forward still keeps its residuals, with rate 0."""
+    custom VJP).  ``apply(x0_proj, wx_rest, wh, b, seed, train, rate[,
+    dtype])`` -> (outs, h_fin, c_fin).  When gradients are needed in eval
+    mode the forward still keeps its residuals, with rate 0.
+
+    ``dtype`` bf16 (``compute_dtype``): ``wx_rest`` / ``wh`` come in f32
+    and are cast to bf16 here, so that their gradients -- f32 sums over
+    the bf16 streams -- reach them unrounded, as ``ast_tpu``'s custom VJP
+    returns them (autograd would round a gradient returned for a bf16
+    input to bf16)."""
 
     @staticmethod
-    def forward(ctx, x0_proj, wx_rest, wh, b, seed, train, rate):
+    def forward(ctx, x0_proj, wx_rest, wh, b, seed, train, rate,
+                dtype=torch.float32):
         rate = float(rate) if train else 0.0
+        if dtype == BF16:
+            wx_rest, wh = wx_rest.to(BF16), wh.to(BF16)
         if not train and not any(ctx.needs_input_grad[:4]):
             return fused_stacked_lstm(x0_proj, wx_rest, wh, b)
         (outs, h_fin, c_fin, acts, c_all, h_pre,
@@ -412,11 +474,15 @@ class FusedStackedLSTM(torch.autograd.Function):
     def backward(ctx, douts, dh_fin, dc_fin):
         wx_rest, wh, acts, c_all, h_pre, x_drop = ctx.saved_tensors
         dz = encoder_backward(
-            acts, c_all, wx_rest, wh, _grad_or_zeros(douts, x_drop[:, -1]),
-            _grad_or_zeros(dh_fin, h_pre[-1]),
-            _grad_or_zeros(dc_fin, c_all[-1]), ctx.seed, ctx.rate)
-        # weight gradients as time-batched GEMMs
+            acts, c_all, wx_rest, wh,
+            _grad_or_zeros(douts, widen(x_drop[:, -1])),
+            _grad_or_zeros(dh_fin, widen(h_pre[-1])),
+            _grad_or_zeros(dc_fin, widen(c_all[-1])), ctx.seed, ctx.rate)
+        # weight gradients as time-batched GEMMs, f32 sums (of the bf16
+        # streams' values at bf16)
+        dz, h_pre, x_drop = widen(dz), widen(h_pre), widen(x_drop)
         h_prev = torch.cat([torch.zeros_like(h_pre[:1]), h_pre[:-1]])
         dwh = torch.einsum("tldbh,tldbk->ldhk", h_prev, dz)
         dwx = torch.einsum("tldbh,tldbk->ldhk", x_drop[:, :-1], dz[:, 1:])
-        return (dz[:, 0], dwx, dwh, dz.sum(dim=(0, 3)), None, None, None)
+        return (dz[:, 0], dwx, dwh, dz.sum(dim=(0, 3)), None, None, None,
+                None)

@@ -39,14 +39,18 @@ was called (the train CLI wires SIGTERM to it), the epoch writes
 ``(seed, set, epoch)``, so the next run skips exactly the consumed
 batches.  Either package resumes the other's snapshot.
 
-``extras.compute_dtype: "bfloat16"`` decodes at bf16 (``predict``,
-``decode_beam_set`` and so ``cli.train``'s dev decode, ``cli.beam``) with
-K1 eval, K5 and K6 in their bf16 mode; training at it is not ported, and
-``train_epoch`` / ``eval_loss`` refuse it by name.
+``extras.compute_dtype: "bfloat16"`` trains and decodes at bf16 as
+``ast_tpu`` does: ``train_epoch`` and ``eval_loss`` run
+``forward_loss`` at bf16 (K1 train / eval, K2, K3, K4 in their bf16
+mode), ``predict``, ``decode_beam_set`` and so ``cli.train``'s dev decode
+and ``cli.beam`` decode with K1 eval, K5 and K6 at bf16; the parameters,
+BN state, optimizer and checkpoints stay f32.  A model variant on the
+scan path is refused at bf16 by name (``fused_infer.require_bf16_variant``
+when ``NN`` builds, ``require_train_dtype`` where training starts).
 
-Not ported (ROADMAP.md queue 1): bf16 training, multi-step dispatch
-(``steps_per_dispatch``), the device feature cache, narrow transfer
-dtypes, rematerialisation and data parallelism.
+Not ported (ROADMAP.md queue 1): bf16 on the scan path, multi-step
+dispatch (``steps_per_dispatch``), the device feature cache, narrow
+transfer dtypes, rematerialisation and data parallelism.
 """
 
 import collections
@@ -222,8 +226,7 @@ class NN:
         self.mcfg = self.cfg.model
         tcfg = self.cfg.train
         require_train_variant(tcfg)
-        # the dtype of decoding (ast_tpu's NN.compute_dtype); training
-        # refuses bf16 where it starts (require_train_dtype)
+        # the dtype of training and decoding (ast_tpu's NN.compute_dtype)
         self.compute_dtype = parse_dtype(tcfg["extras"].get("compute_dtype"))
         require_bf16_variant(self.mcfg, self.compute_dtype)
         ignored = [name for name, on in (
@@ -368,7 +371,8 @@ class NN:
         loss, new_state = seq2seq.forward_loss(
             self.params, self.state, self.mcfg, X, y,
             float(batch["n_real"]), draws,
-            label_smoothing=extras["label_smoothing"])
+            label_smoothing=extras["label_smoothing"],
+            compute_dtype=self.compute_dtype)
         leaves = tree_leaves(self.params)
         grads = torch.autograd.grad(loss, leaves)
         with torch.no_grad():
@@ -396,7 +400,7 @@ class NN:
         or the rest of it after an in-flight snapshot of this epoch;
         returns the mean over the batches trained of loss / real rows."""
         tcfg = self.cfg.train
-        require_train_dtype(tcfg)
+        require_train_dtype(tcfg, self.mcfg)
         skip = 0
         if self.inflight_resume and self.inflight_resume[0] == epoch:
             skip = self.inflight_resume[1]
@@ -465,20 +469,20 @@ class NN:
     def eval_loss(self, set_key):
         """Teacher-forced loss on a split, nothing updated (K1 eval, K3
         with every step forced and no dropout): the mean over batches of
-        loss / real rows.  Not at bf16 (the dev loss is training's)."""
+        loss / real rows, at ``compute_dtype``."""
         tcfg = self.cfg.train
-        require_train_dtype(tcfg)
+        require_train_dtype(tcfg, self.mcfg)
         gen = self.data_loader.get_batch(
             tcfg["batch_size"], set_key, train=False, labels=True,
             tail_shrink=self.tail_shrink)
         losses, sizes = [], []
         with torch.no_grad():
-            enc_w = seq2seq.encoder_weights(self.params)
+            enc_w = seq2seq.encoder_weights(self.params, self.compute_dtype)
             for batch in self._prefetch(gen, labels=True):
                 loss, _ = seq2seq.forward_loss(
                     self.params, self.state, self.mcfg, self.features(batch),
                     batch["y"], float(batch["n_real"]), train=False,
-                    enc_w=enc_w)
+                    enc_w=enc_w, compute_dtype=self.compute_dtype)
                 losses.append(loss)
                 sizes.append(max(1, len(batch["utts"])))
         if not losses:

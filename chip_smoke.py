@@ -210,6 +210,33 @@ Phases, each printing a line:
    and optimizer state (one epoch of the NCHW conv family too), and one
    train step's time with the embedding gradient's one-hot sum and with
    index_add_ (before the repair), in turns.
+14. bfloat16 training (extras.compute_dtype "bfloat16"), phase 5's model
+   and batch: K1 train, K2, K3 and K4 in their bf16 mode against their
+   plain bf16 versions on the card, along their own paths -- each output,
+   stream and gradient leaf within BF16_MAX_TOL of its own max|plain|:
+   K1's outputs and bf16 streams, h_fin / c_fin f32, its dropout zero
+   pattern the hash mask; K3 along its own ids (sampled ids within
+   BF16_TOK_TOL of the plain step's best logit) and its streams; K2 and
+   K4 fed the same streams and cotangents -- and one step at a time,
+   each product recomputed from the streams the kernel rounded its
+   operands into, within BF16_MAX_TOL and BF16_STEP_TOL of its
+   mean|plain| (K3 without dropout between its layers); at B=32, at
+   ENC_PARTIAL's / TRAIN_PARTIAL's batches and at D2 = 1 (bi_rnn false),
+   REPEATS more calls bit-equal; controls, which must fail the one-step
+   checks: the plain versions with one of ast_tpu's rounding points
+   dropped standing in for each kernel (K1's and K2's product operands,
+   K3's alphas, K4's d_scores unrounded); the whole bf16 step's gradient
+   of every leaf through the kernels and through the plain versions,
+   every leaf f32 and within BF16_MAX_TOL, the loss within
+   BF16_LOSS_TOL; no f32 training kernel launched; each kernel's time
+   beside its f32 mode's in the same call.  Then cli.train -e 2 at bf16
+   on phase 6's experiment: falling loss, two dev.log rows, only the bf16
+   training and decode kernels launched; NN.eval_loss at bf16 within
+   BF16_LOSS_TOL of the same through the plain versions; two NNs from
+   one seed end one bf16 epoch bit-equal; a train step at f32 and at
+   bf16 in turns (CUDA events split by kernel) and its peak memory
+   (torch.cuda.max_memory_allocated), with the peak of each span between
+   the fused Functions' forward and backward calls.
 
 Then a JSON line with each kernel's count, error and times, and last
 {"ok": true, "device": {...}}.  A kernel's count ("launches") is the
@@ -217,8 +244,10 @@ number of calls of its wrapper while its path was driven: K1 (eval), K5
 and K6 over the greedy and beam passes of phase 4 (not the warm-up), K1
 (train), K2, K3 and K4 over phase 6's two epochs, and the one-direction
 rows (k1_d1, k1t_d1, k2_d1) over phase 12's bi_rnn false experiment
-(cli.train -e 2 and cli.beam --save-attn), and the bf16 rows (k1_bf16,
-k5_bf16, k6_bf16) over phase 13's cli.infer passes at bf16;
+(cli.train -e 2 and cli.beam --save-attn), the bf16 rows (k1_bf16,
+k5_bf16, k6_bf16) over phase 13's cli.infer passes at bf16, and the bf16
+training rows (k1_train_bf16, k2_bf16, k3_bf16, k4_bf16) over phase 14's
+cli.train -e 2 at bf16;
 "launches_per_unit"
 is that count over the served batches (K1 eval, K5, K6) or the train
 steps (K1 train, K2, K3, K4) of those runs.  Each call runs the whole
@@ -226,12 +255,16 @@ kernel -- every step and layer, many CUDA launches.  "max_abs_err" is
 K1's largest state difference, K5's largest shortfall of a chosen
 token's logit below the plain step's best, K6's largest score
 difference, and for the training kernels the largest difference over
-their output streams.  "ms" and "plain_ms" are phase 3's and phase 5's
-times.  "bound_ms" is the least time the card could take for the same
-call: the larger of its matrix products' FLOPs over 67 TFLOP/s (f32
-outside the tensor cores; the bf16 rows over 989 TFLOP/s, bf16 dense)
-and its bytes -- each input read once, each output written once, the
-bf16 rows' matrices and encoder states at 2 bytes -- over 3.35 TB/s,
+their output streams (the bf16 training rows: the largest error along
+the kernel's path over each tensor's own max|plain|, held to
+BF16_MAX_TOL).  "ms" and "plain_ms" are phase 3's and phase 5's times
+(the bf16 rows' phase 13's and 14's).  "bound_ms" is the least time the
+card could take for the same call: the larger of its matrix products'
+FLOPs over 67 TFLOP/s (f32 outside the tensor cores; the bf16 rows over
+989 TFLOP/s, bf16 dense) and its bytes -- each input read once, each
+output written once, the bf16 rows' matrices, encoder states and
+(training rows) residual and gradient streams at 2 bytes -- over 3.35
+TB/s,
 from kernel_cost at the call's
 shapes and, for K5 / K6, the steps the timed call ran; "bound_by" says
 which ("operations" or "bytes").  "library_ms" is one PyTorch call of
@@ -312,54 +345,63 @@ def kernel_cost(key, d):
     units), for the decoder T, E, A, V and U (K3, K4), n (the steps a K5 /
     K6 call ran), stop, N (K6) and n_logits (K3: the steps whose next
     input is sampled, the only ones that compute logits); ``wbytes`` 2
-    for the bf16 mode of K1 eval, K5 and K6, whose weight matrices (and,
-    for K5 / K6, encoder states) are bf16.  Bytes count each input read
-    once and each output written once, 4 bytes an element but those.
-    Elementwise work (gates, softmax, dropout, top-K) is left out of the
-    FLOPs."""
+    for the bf16 modes: the weight matrices (for K5 / K6 the encoder
+    states too) and, for the training kernels, the encoder states and
+    every residual and gradient stream but ht, the cotangents and the
+    final states, which stay f32 (K3 at bf16 writes no x_drop).  Bytes
+    count each input read once and each output written once, 4 bytes an
+    element but those.  Elementwise work (gates, softmax, dropout, top-K)
+    is left out of the FLOPs."""
     B, H, L = d["B"], d["H"], d["L"]
     wb = d.get("wbytes", 4)
     if key in ("k1", "k1t", "k2"):
         T, D2 = d["T"], d["D2"]
         flops = 2 * T * D2 * B * 4 * H * H * (2 * L - 1)
         mats, bias = (2 * L - 1) * D2 * H * 4 * H, L * D2 * 4 * H
+        fins = 2 * L * D2 * B * H
         if key == "k2":
-            ins = mats + T * L * D2 * B * 5 * H \
-                + T * D2 * B * H + 2 * L * D2 * B * H
-            outs = T * L * D2 * B * 4 * H
-            return flops, 4 * (ins + outs)
+            streams = T * L * D2 * B * 5 * H + T * L * D2 * B * 4 * H
+            return flops, (wb * (mats + streams)
+                           + 4 * (T * D2 * B * H + fins))
         ins = bias + T * D2 * B * 4 * H
-        outs = T * D2 * B * H + (2 * L * D2 * B * H if key == "k1"
-                                 else T * L * D2 * B * 7 * H)
-        return flops, wb * mats + 4 * (ins + outs)
+        if key == "k1":
+            return flops, wb * mats + 4 * (ins + T * D2 * B * H + fins)
+        # train: the f32 mode's final states are copies of the streams'
+        return flops, (wb * (mats + T * L * D2 * B * 7 * H)
+                       + 4 * (ins + T * D2 * B * H
+                              + (fins if wb == 2 else 0)))
     T, E, A, V = d["T"], d["E"], d["A"], d["V"]
     cell = 4 * H * (E + A + H) + (L - 1) * 4 * H * 2 * H
     attn = H * H + 2 * T * H + 2 * H * A
     dec_w = (V * E + (E + A) * 4 * H + (2 * L - 1) * H * 4 * H + L * 4 * H
              + H * H + H + 2 * H * A + A + A * V + V)
     enc_state = B * T * H + 2 * L * B * H
+    # the products' matrices (wbytes; the embedding and biases f32)
+    mats = ((E + A) * 4 * H + (2 * L - 1) * H * 4 * H + H * H + 2 * H * A
+            + A * V)
     if key == "k3":
         U = d["U"]
         flops = 2 * U * B * (cell + attn) + 2 * d["n_logits"] * B * A * V
-        outs = U * B * (A + 1 + L * 7 * H + T + 2 * H + E)
-        return flops, 4 * (enc_state + dec_w + U * B + U + outs)
+        # ht, sel; acts, c, h (and at f32 x_drop), alphas, q, cv, emb
+        streams = U * B * (L * (6 if wb == 2 else 7) * H + T + 2 * H + E)
+        return flops, (wb * (mats + B * T * H + streams)
+                       + 4 * (enc_state - B * T * H + dec_w - mats + U * B
+                              + U + U * B * (A + 1)))
     if key == "k4":
         U = d["U"]
         flops = 2 * U * B * (2 * H * A + 2 * T * H + H * H
                              + (2 * L - 1) * 4 * H * H + 4 * H * (E + A))
-        ins = (U * L * B * 5 * H + L * B * H + U * B * T + 2 * U * B * A
-               + B * T * H + 2 * H * A + H * H + (2 * L - 1) * H * 4 * H
-               + (E + A) * 4 * H)
-        outs = U * B * (L * 4 * H + A + T + 2 * H + E) + 2 * L * B * H
-        return flops, 4 * (ins + outs)
+        mats = 2 * H * A + H * H + (2 * L - 1) * H * 4 * H + (E + A) * 4 * H
+        streams = (U * L * B * 5 * H + L * B * H + U * B * T + B * T * H
+                   + U * B * (L * 4 * H + A + T + 2 * H + E))
+        return flops, (wb * (mats + streams)
+                       + 4 * (2 * U * B * A + 2 * L * B * H))
     R = B * d.get("N", 1)
     flops = 2 * d["n"] * R * (cell + attn + A * V)
     outs = d["stop"] * R * (3 if key == "k6" else 1) + (R if key == "k6"
                                                           else 0)
     # the products' matrices and the encoder states in wbytes; the
     # embedding, the biases and the state in f32
-    mats = ((E + A) * 4 * H + (2 * L - 1) * H * 4 * H + H * H + 2 * H * A
-            + A * V)
     return flops, (wb * (mats + B * T * H)
                    + 4 * (enc_state - B * T * H + dec_w - mats + outs))
 
@@ -3020,19 +3062,31 @@ def variant_step(params, state, mcfg, X, y, draws):
 
 
 @contextlib.contextmanager
-def plain_kernels():
+def plain_kernels(sel=None, eval_encoder=False):
     """The training kernels' wrappers (K1 train, K2, K3, K4) replaced by
-    their plain versions on every device, inside the block."""
+    their plain versions on every device, inside the block; with ``sel``
+    (a K3 call's selected ids) the plain decoder forward takes those ids
+    as its inputs; with ``eval_encoder`` K1 eval's wrapper too."""
+    import functools
+
+    from ast_tpu_torch.models import seq2seq
     from ast_tpu_torch.ops import fused_decoder as fd
     from ast_tpu_torch.ops import fused_lstm as fl
 
     def k1t(x0, wxr, wh, b, seed, rate):
         return fl.stacked_lstm_reference(x0, wxr, wh, b, True, seed, rate)
 
+    def k1(x0, wxr, wh, b, packed=None):
+        return fl.stacked_lstm_reference(x0, wxr, wh, b)
+
     patches = ((fl, "fused_stacked_lstm_train", k1t),
                (fl, "encoder_backward", fl.encoder_backward_reference),
-               (fd, "decoder_forward", fd.decoder_forward_reference),
+               (fd, "decoder_forward", functools.partial(
+                   fd.decoder_forward_reference, forced_ids=sel)),
                (fd, "decoder_backward", fd.decoder_backward_reference))
+    if eval_encoder:
+        patches += ((fl, "fused_stacked_lstm", k1),
+                    (seq2seq, "fused_stacked_lstm", k1))
     saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
     try:
         for mod, name, fn in patches:
@@ -3953,6 +4007,738 @@ def check_determinism(train_exp, root, smi, device="cuda"):
     return ms
 
 
+# ---------------------------------------------------------------------------
+# phase 14: bfloat16 training (extras.compute_dtype: "bfloat16")
+# ---------------------------------------------------------------------------
+
+# K1 train, K2, K3 and K4 in their bf16 mode against their plain bf16
+# versions on the card.  As in phase 13 both round the same values to
+# bf16 at the same points and sum in f32 in another order, so they part
+# by one bf16 ulp where a value falls within an f32 rounding of a bf16
+# boundary, and a flip feeds the recurrence from there on: along each
+# one's own path they drift apart by about as much as a rounding point
+# dropped would move them (the mean errors, printed for the kernels and
+# the controls alike), so two checks.  (1) Along its own path each
+# output, stream and gradient leaf is within BF16_MAX_TOL of its own
+# max|plain| (bf16_errs' first measure): 2**-6, while a one-ulp flip of
+# its largest value reads 2**-8 to 2**-7 of it and a wrong row (the
+# alphas of another step, or zero) about 1.  (2) One step at a time
+# (k1_step_errs, k2_step_errs, k3_step_errs, k4_step_errs): each product
+# recomputed in f32 from the streams the kernel rounded its operands
+# into, so that only the order of a sum differs, is within BF16_MAX_TOL
+# of its max and BF16_STEP_TOL of its mean|plain| (the second measure);
+# a rounding point dropped moves about half the values by an ulp, and
+# the controls -- the plain versions with one dropped, standing in for
+# each kernel -- must fail it.  The step's loss and NN.eval_loss within
+# BF16_LOSS_TOL relative; K3's sampled ids within BF16_TOK_TOL of the
+# plain step's best logit.
+BF16_MAX_TOL = 2 ** -6
+BF16_STEP_TOL = 2 ** -16
+BF16_LOSS_TOL = 2 ** -16
+BF16_TRAIN_KEYS = ("k1_train_bf16", "k2_bf16", "k3_bf16", "k4_bf16")
+
+
+def train_counters():
+    """The training kernels' wrappers by their key in the kernels line
+    (f32 and bf16 modes count apart: ``launches``, ``launches_bf16``)."""
+    from ast_tpu_torch.ops import fused_decoder as fd
+    from ast_tpu_torch.ops import fused_lstm as fl
+
+    return dict(zip(BF16_TRAIN_KEYS, (fl.fused_stacked_lstm_train,
+                                      fl.encoder_backward,
+                                      fd.decoder_forward,
+                                      fd.decoder_backward)))
+
+
+def bf16_train_counts():
+    return {k: fn.launches_bf16 for k, fn in train_counters().items()}
+
+
+def f32_train_counts():
+    return {k: fn.launches for k, fn in train_counters().items()}
+
+
+def zero_train_counts():
+    for fn in train_counters().values():
+        fn.launches = fn.launches_bf16 = 0
+
+
+def bf16_errs(got, want):
+    """(max |got - want| / max |want|, mean |got - want| / mean |want|),
+    in f32."""
+    g, w = got.float(), want.float()
+    d, a = (g - w).abs(), w.abs()
+    return (float(d.max()) / max(float(a.max()), 1e-30),
+            float(d.mean()) / max(float(a.mean()), 1e-30))
+
+
+def worst_errs(pairs):
+    """The largest of each of :func:`bf16_errs`'s two measures over
+    ``pairs`` of (got, want)."""
+    return tuple(map(max, zip(*(bf16_errs(g, w) for g, w in pairs))))
+
+
+def worse(a, b):
+    return tuple(map(max, a, b))
+
+
+def show(errs):
+    """bf16_errs' (max, mean) along the path, then one step at a time."""
+    return (f"along its path max {errs[0]:.3e}, mean {errs[1]:.3e}; one "
+            f"step max {errs[2]:.3e}, mean {errs[3]:.3e}")
+
+
+def step_ok(errs):
+    return errs[0] <= BF16_MAX_TOL and errs[1] <= BF16_STEP_TOL
+
+
+def check(errs, what):
+    """``errs`` (along the path, one step) of a kernel against its plain
+    version: the path's max and one step's max and mean within their
+    bounds."""
+    assert errs[0] <= BF16_MAX_TOL and step_ok(errs[2:]), (
+        f"{what} disagrees: {show(errs)} (tol {BF16_MAX_TOL} of max|plain|,"
+        f" one step also {BF16_STEP_TOL} of mean|plain|)")
+
+
+def check_control(errs, what):
+    """A control -- a plain version with one of ast_tpu's rounding points
+    dropped, standing in for a kernel -- must fail the one-step check
+    that the kernel passes."""
+    assert not step_ok(errs[2:]), (
+        f"the one-step check cannot see {what}: {show(errs)}")
+
+
+@contextlib.contextmanager
+def patched(*patches):
+    """Each (object, name, value) of ``patches`` set inside the block."""
+    saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
+    try:
+        for obj, name, value in patches:
+            setattr(obj, name, value)
+        yield
+    finally:
+        for obj, name, value in saved:
+            setattr(obj, name, value)
+
+
+def unrounded_operand(shape):
+    """fused_decoder's plain versions with the left operand of ``shape``
+    left unrounded: at (B, T') K3's alphas before the context product
+    and K4's d_scores before d_q, one rounding point each."""
+    from ast_tpu_torch.ops import fused_decoder as fd
+
+    plain = fd._plain_math
+
+    def math(enc, w):
+        enc, w, lhs = plain(enc, w)
+        return enc, w, lambda v: v if tuple(v.shape) == shape else lhs(v)
+    return patched((fd, "_plain_math", math))
+
+
+def gate_acts(z):
+    """The LSTM gates' activations [i|f|g|o] of pre-activations ``z``."""
+    import torch
+
+    from ast_tpu_torch.ops.lstm import lstm_gate_acts
+
+    H = z.shape[-1] // 4
+    return lstm_gate_acts(z, torch.zeros_like(z[..., :H]), H)[0]
+
+
+def k1_step_errs(x0, wxr, wh, b, out):
+    """K1 train's gate activations against the same recomputed from its
+    own streams, every (step, layer) at once: each product reads the
+    bf16 stream its operand was rounded into (h_pre of the step before,
+    x_drop of the layer below; layer 0 adds x0_proj), in f32."""
+    import torch
+
+    acts, _, h_pre, x_drop = (s.float() for s in out[3:])
+    h_prev = torch.cat([torch.zeros_like(h_pre[:1]), h_pre[:-1]])
+    wxr, wh = wxr.float(), wh.float()
+    z = [x0 if l == 0 else
+         torch.einsum("tdbh,dhk->tdbk", x_drop[:, l - 1], wxr[l - 1])
+         for l in range(wh.shape[0])]
+    z = torch.stack([z[l] + torch.einsum("tdbh,dhk->tdbk", h_prev[:, l],
+                                         wh[l]) + b[l][:, None]
+                     for l in range(wh.shape[0])], dim=1)
+    return bf16_errs(out[3], gate_acts(z).to(out[3].dtype))
+
+
+def k2_step_errs(dz, bwd):
+    """K2's dz against the plain version whose carries read K2's own dz
+    (``forced_dz``)."""
+    from ast_tpu_torch.ops import fused_lstm as fl
+
+    return bf16_errs(dz, fl.encoder_backward_reference(*bwd, forced_dz=dz))
+
+
+def k3_step_errs(enc, h0, w, ht, res):
+    """K3 run without dropout between its layers (every product operand
+    is then a stream): its gates, query, alphas, context and ht against
+    the same recomputed from its streams and ht, every step at once."""
+    import torch
+
+    from ast_tpu_torch.ops.bf16 import rounded
+
+    f = {k: v.float() for k, v in w.items()}
+    enc = enc.float()
+    acts, h_all, emb, alphas, cv = (res[k].float() for k in (
+        "acts", "h_all", "emb", "alphas", "cv"))
+    L = h_all.shape[1]
+    x0 = torch.cat([emb, rounded(torch.cat([torch.zeros_like(ht[:1]),
+                                            ht[:-1]]))], dim=-1)
+    h_prev = torch.cat([rounded(h0)[None], h_all[:-1]])
+    z = torch.stack([(x0 @ f["wx0"] if l == 0
+                      else h_all[:, l - 1] @ f["wx_rest"][l - 1])
+                     + h_prev[:, l] @ f["wh"][l] + f["b"][l]
+                     for l in range(L)], dim=1)
+    top = h_all[:, L - 1]
+    q = top @ f["wa"] + f["wa_b"]
+    bf = res["q"].dtype
+    return worst_errs([
+        (res["acts"], gate_acts(z).to(bf)), (res["q"], q.to(bf)),
+        (res["alphas"], torch.softmax(torch.einsum("bth,ubh->ubt", enc, q),
+                                      dim=-1).to(bf)),
+        (res["cv"], torch.einsum("ubt,bth->ubh", alphas, enc).to(bf)),
+        (ht, torch.tanh(torch.cat([cv, top], dim=-1) @ f["ctx_w"]
+                        + f["ctx_b"]))])
+
+
+def k4_step_errs(enc, w, g, seed, drop_emb):
+    """K4's d_cv, d_q and d_emb against the same recomputed from its own
+    d_pre, d_scores and layer-0 dz streams, every step at once."""
+    import torch
+
+    from ast_tpu_torch.ops import fused_decoder as fd
+
+    f = {k: v.float() for k, v in w.items()}
+    enc = enc.float()
+    U, B, H = g["d_cv"].shape
+    E = f["embed"].shape[1]
+    d_emb = (g["dz"][:, 0].float() @ f["wx0"].t())[..., :E]
+    if drop_emb > 0:
+        keep = torch.stack([fd.embed_drop_mask(drop_emb, seed, t, B, E,
+                                               enc.device)
+                            for t in range(U)])
+        d_emb = torch.where(keep, d_emb * (1.0 / (1.0 - drop_emb)), 0.0)
+    bf = g["d_cv"].dtype
+    return worst_errs([
+        (g["d_cv"], (g["d_pre"].float() @ f["ctx_w"].t())[..., :H].to(bf)),
+        (g["d_q"], torch.einsum("ubt,bth->ubh", g["d_scores"].float(),
+                                enc).to(bf)),
+        (g["d_emb"], d_emb.to(bf))])
+
+
+def check_bf16_encoder_train(x0, wxr, wh, b, name, controls=False):
+    """K1 train and K2 at bf16 (``wxr`` / ``wh`` bf16) against their plain
+    bf16 versions along their paths (K1's f32 outputs and final states
+    and bf16 streams, its zero pattern the hash mask; K2 fed K1's
+    residuals and seeded cotangents) and one step at a time, both
+    bit-equal over REPEATS more calls.  With ``controls``, the plain
+    versions with their products' operands unrounded (K1: x and h; K2:
+    the carries' dz) stand in for the kernels and must fail the one-step
+    checks.  Returns (K1 errs, K2 errs, K1's outputs, the controls'
+    errs or None); each errs the worst (along the path, one step)."""
+    import torch
+
+    from ast_tpu_torch.ops import fused_lstm as fl
+
+    t_enc, _, nb, _ = x0.shape
+    seed = ENC_SEED + nb
+    args = (x0, wxr, wh, b, seed, DROP)
+    got = fl.fused_stacked_lstm_train(*args)
+    ref = fl.stacked_lstm_reference(x0, wxr, wh, b, True, seed, DROP)
+    assert [t.dtype for t in got] == [torch.float32] * 3 + [
+        torch.bfloat16] * 4, [t.dtype for t in got]
+    mask_ok, _ = hash_mask_equal(got[6], seed, DROP, x0.device)
+    assert mask_ok, f"K1 train bf16's dropout pattern differs, {name}"
+    err1 = (*worst_errs(zip(got, ref)), *k1_step_errs(x0, wxr, wh, b, got))
+    check(err1, f"K1 train bf16, {name}")
+    rng = np.random.default_rng(7000 + nb)
+    cot = [torch.from_numpy(rng.standard_normal(tuple(t.shape)).astype(
+        np.float32) * 0.1).to(x0.device) for t in got[:3]]
+    bwd = (got[3], got[4], wxr, wh, *cot, seed, DROP)
+    dz = fl.encoder_backward(*bwd)
+    assert dz.dtype == torch.bfloat16
+    dz_p = fl.encoder_backward_reference(*bwd)
+    err2 = (*bf16_errs(dz, dz_p), *k2_step_errs(dz, bwd))
+    check(err2, f"K2 bf16, {name}")
+    check_repeats(lambda: fl.fused_stacked_lstm_train(*args), got,
+                  f"K1 train bf16, {name}")
+    check_repeats(lambda: fl.encoder_backward(*bwd), dz, f"K2 bf16, {name}")
+    ctl = None
+    if controls:
+        with patched((fl, "rounded", lambda v: v)):
+            k1 = fl.stacked_lstm_reference(x0, wxr, wh, b, True, seed, DROP)
+            k2 = fl.encoder_backward_reference(*bwd)
+        ctl = ((*worst_errs(zip(k1, ref)), *k1_step_errs(x0, wxr, wh, b, k1)),
+               (*bf16_errs(k2, dz_p), *k2_step_errs(k2, bwd)))
+        check_control(ctl[0], "K1 train's products reading unrounded "
+                      "operands")
+        check_control(ctl[1], "K2's carries reading dz unrounded")
+    return err1, err2, got, ctl
+
+
+def check_bf16_decoder_train(enc, h0, c0, w, y_in, coins, seed, d_ht,
+                             name, controls=False):
+    """K3 and K4 at bf16 (``enc`` and ``w`` bf16) against their plain
+    bf16 versions along K3's own selected ids (sampled ids within
+    BF16_TOK_TOL of the plain step's best logit, the teacher's on forced
+    steps, ht and every stream within BF16_MAX_TOL), K4 fed K3's streams
+    and ``d_ht``; one step at a time K4 at DROP and K3 without dropout
+    between its layers; both bit-equal over REPEATS more calls.  With
+    ``controls``, the plain versions with the alphas (K3) and d_scores
+    (K4) unrounded stand in for the kernels and must fail the one-step
+    checks.  Returns (K3 errs, shortfall, K4 errs, K3's (ht, streams),
+    K4's streams, the controls' errs or None)."""
+    import torch
+
+    from ast_tpu_torch.ops import fused_decoder as fd
+
+    args = (enc, h0, c0, w, y_in, coins, seed, DROP, DROP)
+    ht_k, res_k = fd.decoder_forward(*args)
+    assert tuple(res_k) == fd.RES_NAMES_BF16 and ht_k.dtype == torch.float32
+    assert all(res_k[k].dtype == torch.bfloat16
+               for k in fd.RES_NAMES_BF16[1:])
+    sel = res_k["sel"]
+    ht_p, res_p = fd.decoder_forward_reference(*args, forced_ids=sel)
+    short = float(fd.sampled_shortfall(ht_p, w, sel, coins).max())
+    forced = coins.bool()
+    assert (sel[forced] == y_in[forced]).all(), f"K3 bf16 teacher ids, {name}"
+    assert short <= BF16_TOK_TOL, (
+        f"K3 bf16's sampled ids, {name}: shortfall {short}")
+
+    def path_errs(ht, res, ht_p, res_p):
+        return worst_errs([(ht, ht_p)] + [(res[k], res_p[k])
+                                          for k in fd.RES_NAMES_BF16[1:]])
+    # one step at a time: no dropout between the layers, so that every
+    # product's operand is a stream
+    args0 = args[:-1] + (0.0,)
+    fwd0 = fd.decoder_forward(*args0)
+    err3 = (*path_errs(ht_k, res_k, ht_p, res_p),
+            *k3_step_errs(enc, h0, w, *fwd0))
+    check(err3, f"K3 bf16, {name}")
+    bwd = (res_k, ht_k, enc, c0, w, d_ht, seed, DROP, DROP)
+    g_k = fd.decoder_backward(*bwd)
+    assert g_k["dh0"].dtype == g_k["dc0"].dtype == torch.float32
+    assert all(g_k[k].dtype == torch.bfloat16 for k in fd.GRAD_NAMES[:6])
+    g_p = fd.decoder_backward_reference(*bwd)
+    err4 = (*worst_errs((g_k[k], g_p[k]) for k in fd.GRAD_NAMES),
+            *k4_step_errs(enc, w, g_k, seed, DROP))
+    check(err4, f"K4 bf16, {name}")
+    check_repeats(lambda: fd.decoder_forward(*args), (ht_k, res_k),
+                  f"K3 bf16, {name}")
+    check_repeats(lambda: fd.decoder_backward(*bwd), g_k, f"K4 bf16, {name}")
+    ctl = None
+    if controls:
+        sel0 = fwd0[1]["sel"]
+        p0 = fd.decoder_forward_reference(*args0, forced_ids=sel0)
+        with unrounded_operand((enc.shape[0], enc.shape[1])):
+            k3 = fd.decoder_forward_reference(*args0, forced_ids=sel0)
+            k4 = fd.decoder_backward_reference(*bwd)
+        ctl = ((*path_errs(*k3, *p0), *k3_step_errs(enc, h0, w, *k3)),
+               (*worst_errs((k4[k], g_p[k]) for k in fd.GRAD_NAMES),
+                *k4_step_errs(enc, w, k4, seed, DROP)))
+        check_control(ctl[0], "K3 with its alphas unrounded")
+        check_control(ctl[1], "K4 with its d_scores unrounded")
+    return err3, short, err4, (ht_k, res_k), g_k, ctl
+
+
+def step_loss_bf16(params, state, mcfg, X, y, n_real, draws):
+    """The bf16 train step's loss from the public pieces that
+    ``seq2seq.forward_loss`` chains at ``compute_dtype`` bf16 (the
+    autograd Functions with f32 encoder weights cast inside, the decoder's
+    in bf16); returns (loss, K3's selected ids).  Under
+    ``plain_kernels(sel)`` the same with the plain versions."""
+    import torch
+
+    from ast_tpu_torch.models import seq2seq
+    from ast_tpu_torch.ops import fused_decoder as fd
+    from ast_tpu_torch.ops import fused_lstm as fl
+
+    bf = torch.bfloat16
+    x0, wxr, wh, b, _ = seq2seq.encoder_inputs(
+        params, state, mcfg, X * (1.0 + draws.noise), train=True,
+        compute_dtype=bf)
+    out = fl.FusedStackedLSTM.apply(x0, wxr, wh, b, draws.enc_seed, True,
+                                    DROP, bf)
+    enc, h0, c0 = seq2seq.encoder_outputs(*out)
+    w = seq2seq.pack_decoder_weights(params, bf)
+    y_in = y.t()[:-1].to(torch.int32).contiguous()
+    ht, sel = fd.FusedDecoder.apply(
+        enc.to(bf), h0, c0, *(w[k] for k in fd.W_NAMES), y_in, draws.coins,
+        draws.dec_seed, DROP, DROP)
+    dec = params["dec"]
+    return seq2seq.sequence_loss(ht, dec["out_w"], dec["out_b"], y.t()[1:],
+                                 n_real, compute_dtype=bf), sel
+
+
+def check_bf16_train_kernels(cfg, device):
+    """Phase 14, kernels: K1 train, K2, K3 and K4 at bf16 against their
+    plain bf16 versions on phase 5's batch at es_en_20h width, at
+    ENC_PARTIAL's / TRAIN_PARTIAL's batches and at D2 = 1 (bi_rnn false),
+    REPEATS more calls bit-equal; the whole step's gradient of every leaf
+    through the kernels and through the plain versions; each kernel's time
+    beside its f32 mode's in this call.  Only the bf16 entries launch
+    until the f32 times are taken."""
+    import torch
+
+    from ast_tpu_torch.models import seq2seq
+    from ast_tpu_torch.ops import fused_decoder as fd
+    from ast_tpu_torch.ops import fused_lstm as fl
+    from ast_tpu_torch.train.optimizer import tree_leaves
+
+    bf = torch.bfloat16
+    mcfg = cfg.model
+    zero_train_counts()
+    params, state = seq2seq.init_model(mcfg, seed=0, device=device)
+    X, y = train_batch(device)
+    n_real = float(B)
+    draws = seq2seq.make_draws(7, X, U_TRAIN - 1, TEACH, NOISE)
+    draws.enc_seed, draws.dec_seed = ENC_SEED, DEC_SEED
+    res = {}
+    with torch.no_grad():
+        x0, wxr, wh, b, _ = seq2seq.encoder_inputs(
+            params, state, mcfg, X * (1.0 + draws.noise), train=True,
+            compute_dtype=bf)
+        wxr16, wh16 = wxr.to(bf), wh.to(bf)
+        err1, err2, got, ctl_enc = check_bf16_encoder_train(
+            x0, wxr16, wh16, b, f"{B} rows", controls=True)
+        T_enc, D2 = x0.shape[:2]
+        enc_dims = dict(T=T_enc, D2=D2, B=B, H=x0.shape[3] // 4,
+                        L=wh.shape[0], wbytes=2)
+        ref = fl.stacked_lstm_reference(x0, wxr16, wh16, b, True, ENC_SEED,
+                                        DROP)
+        enc, h0, c0 = seq2seq.encoder_outputs(*ref[:3])
+        w = seq2seq.pack_decoder_weights(params, bf)
+        y_in = y.t()[:-1].to(torch.int32).contiguous()
+        # the loss's own cotangent at ht, along K3's ids
+        sel = fd.decoder_forward(enc.to(bf), h0, c0, w, y_in, draws.coins,
+                                 DEC_SEED, DROP, DROP)[1]["sel"]
+        ht = fd.decoder_forward_reference(enc.to(bf), h0, c0, w, y_in,
+                                          draws.coins, DEC_SEED, DROP, DROP,
+                                          forced_ids=sel)[0]
+    ht.requires_grad_(True)
+    loss = seq2seq.sequence_loss(ht, params["dec"]["out_w"],
+                                 params["dec"]["out_b"], y.t()[1:], n_real,
+                                 compute_dtype=bf)
+    d_ht = torch.autograd.grad(loss, ht)[0].contiguous()
+    with torch.no_grad():
+        err3, short, err4, fwd_k, bwd_k, ctl_dec = check_bf16_decoder_train(
+            enc.to(bf), h0, c0, w, y_in, draws.coins, DEC_SEED, d_ht,
+            f"{B} rows", controls=True)
+        n_sampled = int((draws.coins == 0).sum())
+        print(f"K1 train bf16: x0_proj {tuple(x0.shape)}, outputs and bf16 "
+              f"streams {show(err1)} (tol {BF16_MAX_TOL} of each tensor's "
+              f"max|plain|; one step also {BF16_STEP_TOL} of its "
+              f"mean|plain|), h_fin / c_fin f32, dropout zero pattern the "
+              f"hash mask; K2 bf16 dz {show(err2)}; K3 bf16 {U_TRAIN - 1} "
+              f"steps, {n_sampled} sampled, ids within {short:.3e} of the "
+              f"plain step's best logit (tol {BF16_TOK_TOL}), ht and "
+              f"streams {show(err3)}; K4 bf16 streams {show(err4)}; "
+              f"{REPEATS} more calls of each bit-equal", flush=True)
+        print(f"  controls, each failing the one-step check: plain K1 train "
+              f"with its products' operands unrounded {show(ctl_enc[0])}; "
+              f"plain K2 with its carries reading dz unrounded "
+              f"{show(ctl_enc[1])}; plain K3 with the alphas unrounded "
+              f"{show(ctl_dec[0])}; plain K4 with d_scores unrounded "
+              f"{show(ctl_dec[1])}", flush=True)
+        for nb, t_enc in ENC_PARTIAL:
+            p0, pr, ph, pb = encoder_case(params, nb, t_enc, device)
+            e1, e2, _, _ = check_bf16_encoder_train(
+                p0, pr.to(bf), ph.to(bf), pb, f"{nb} rows, T' {t_enc}")
+            err1, err2 = worse(err1, e1), worse(err2, e2)
+            print(f"  K1 train / K2 bf16 at {nb} rows, T' {t_enc}: "
+                  f"{show(e1)}; {show(e2)}", flush=True)
+        umcfg = variant_cfg(mcfg, "bi_rnn false")
+        uparams, ustate = seq2seq.init_model(umcfg, seed=0, device=device)
+        u0, ur, uh, ub = unidirectional_case(uparams, ustate, umcfg, B,
+                                             device)
+        e1, e2, _, _ = check_bf16_encoder_train(
+            u0, ur.to(bf), uh.to(bf), ub, f"D2 = 1, {B} rows")
+        err1, err2 = worse(err1, e1), worse(err2, e2)
+        print(f"  K1 train / K2 bf16 at D2 = 1 ({B} rows, T' "
+              f"{u0.shape[0]}, {uh.shape[2]} units): {show(e1)}; "
+              f"{show(e2)}", flush=True)
+        for nb, t_enc in TRAIN_PARTIAL:
+            rng = np.random.default_rng(100 + nb)
+            Xp = torch.from_numpy(rng.standard_normal(
+                (nb, 4 * t_enc, 13)).astype(np.float32)).to(device)
+            pe, ph0, pc0 = seq2seq.encode(params, state, mcfg, Xp)
+            U = len(TRAIN_PARTIAL_COINS)
+            py = torch.from_numpy(rng.integers(4, VOCAB, (U, nb)).astype(
+                np.int32)).to(device)
+            pcoins = torch.tensor(TRAIN_PARTIAL_COINS, dtype=torch.int32,
+                                  device=device)
+            pd = torch.from_numpy(rng.standard_normal(
+                (U, nb, w["ctx_w"].shape[1])).astype(np.float32)
+                * 0.1).to(device)
+            e3, sh, e4, _, _, _ = check_bf16_decoder_train(
+                pe.to(bf), ph0, pc0, w, py, pcoins, DEC_SEED + nb, pd,
+                f"{nb} rows, T' {t_enc}")
+            err3, err4 = worse(err3, e3), worse(err4, e4)
+            short = max(short, sh)
+            print(f"  K3 / K4 bf16 at {nb} rows, T' {t_enc}: ids {sh:.3e}, "
+                  f"streams {show(e3)}; K4 {show(e4)}", flush=True)
+
+    # the whole step: every parameter's gradient, kernels vs plain
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    loss_k, sel = step_loss_bf16(params, state, mcfg, X, y, n_real, draws)
+    g_k = torch.autograd.grad(loss_k, leaves)
+    with plain_kernels(sel):
+        loss_p, _ = step_loss_bf16(params, state, mcfg, X, y, n_real, draws)
+        g_p = torch.autograd.grad(loss_p, leaves)
+    with torch.no_grad():
+        loss_f = seq2seq.forward_loss(params, state, mcfg, X, y, n_real,
+                                      draws, compute_dtype=bf)[0].item()
+    names = leaf_names(params)
+    worst = max((bf16_errs(a, b)[0], n) for a, b, n in zip(g_k, g_p, names))
+    loss_err = abs(loss_k.item() - loss_p.item()) / abs(loss_p.item())
+    print(f"train step bf16: loss {loss_k.item():.6f} (plain "
+          f"{loss_p.item():.6f}, {loss_err:.3e} apart, tol {BF16_LOSS_TOL}; "
+          f"forward_loss {loss_f:.6f}); {len(leaves)} f32 parameter "
+          f"gradients, worst leaf {worst[1]} at {worst[0]:.3e} of its "
+          f"max|plain| (tol {BF16_MAX_TOL})", flush=True)
+    assert all(g.dtype == torch.float32 for g in g_k)
+    assert worst[0] <= BF16_MAX_TOL, (
+        f"the bf16 step's gradient of {worst[1]} disagrees: {worst[0]}")
+    assert loss_err <= BF16_LOSS_TOL, f"the bf16 step's loss: {loss_err}"
+    assert abs(loss_f - loss_k.item()) <= 1e-6 * abs(loss_k.item()), \
+        "forward_loss at bf16 disagrees with its pieces"
+    for p in leaves:
+        p.requires_grad_(False)
+    f32 = f32_train_counts()
+    assert not any(f32.values()), f"an f32 training kernel launched: {f32}"
+
+    # times: each kernel at bf16 beside its f32 mode, in this call, in
+    # turns
+    with torch.no_grad():
+        enc_args = (x0, wxr16, wh16, b, ENC_SEED, DROP)
+        enc_args32 = (x0, wxr, wh, b, ENC_SEED, DROP)
+        got32 = fl.fused_stacked_lstm_train(*enc_args32)
+        cot = [torch.zeros_like(t) for t in got32[:3]]
+        bwd = (got[3], got[4], wxr16, wh16, *cot, ENC_SEED, DROP)
+        bwd32 = (got32[3], got32[4], wxr, wh, *cot, ENC_SEED, DROP)
+        w32 = seq2seq.pack_decoder_weights(params)
+        dargs = (enc.to(bf), h0, c0, w, y_in, draws.coins, DEC_SEED, DROP,
+                 DROP)
+        dargs32 = (enc, h0, c0, w32, y_in, draws.coins, DEC_SEED, DROP, DROP)
+        ht32, res32 = fd.decoder_forward(*dargs32)
+        dbwd = (fwd_k[1], fwd_k[0], enc.to(bf), c0, w, d_ht, DEC_SEED, DROP,
+                DROP)
+        dbwd32 = (res32, ht32, enc, c0, w32, d_ht, DEC_SEED, DROP, DROP)
+        dec_dims = dict(B=B, T=enc.shape[1], H=enc.shape[2], L=h0.shape[0],
+                        E=w["embed"].shape[1], A=w["ctx_w"].shape[1],
+                        V=w["embed"].shape[0], U=U_TRAIN - 1, wbytes=2)
+        timed = {
+            "k1_train_bf16": (
+                lambda: fl.fused_stacked_lstm_train(*enc_args),
+                lambda: fl.fused_stacked_lstm_train(*enc_args32),
+                lambda: fl.stacked_lstm_reference(*enc_args[:4], True,
+                                                  ENC_SEED, DROP),
+                err1, enc_dims),
+            "k2_bf16": (lambda: fl.encoder_backward(*bwd),
+                        lambda: fl.encoder_backward(*bwd32),
+                        lambda: fl.encoder_backward_reference(*bwd), err2,
+                        enc_dims),
+            "k3_bf16": (lambda: fd.decoder_forward(*dargs),
+                        lambda: fd.decoder_forward(*dargs32),
+                        lambda: fd.decoder_forward_reference(*dargs), err3,
+                        dict(dec_dims, n_logits=n_sampled)),
+            "k4_bf16": (lambda: fd.decoder_backward(*dbwd),
+                        lambda: fd.decoder_backward(*dbwd32),
+                        lambda: fd.decoder_backward_reference(*dbwd), err4,
+                        dec_dims),
+        }
+        for key, (fn, fn32, plain, err, dims) in timed.items():
+            # in turns: f32, bf16, bf16, f32
+            t = [cuda_ms(f, 5) for f in (fn32, fn, fn, fn32)]
+            res[key] = dict(max_abs_err=err[0], ms=(t[1] + t[2]) / 2,
+                            f32_ms=(t[0] + t[3]) / 2,
+                            plain_ms=cuda_ms(plain, 2), dims=dims)
+            r = res[key]
+            print(f"  {key}: {r['ms']:.3f} ms at bf16, {r['f32_ms']:.3f} ms "
+                  f"at f32 ({r['ms'] / r['f32_ms']:.3f} of it), plain bf16 "
+                  f"{r['plain_ms']:.2f} ms", flush=True)
+    return res
+
+
+@contextlib.contextmanager
+def memory_spans(opt):
+    """Inside the block, the peak memory allocated in each span between
+    the fused Functions' forward and backward calls and the optimizer's
+    ``opt.update``, and inside each: yields a list that fills with (span,
+    peak bytes)."""
+    import torch
+
+    from ast_tpu_torch.ops.fused_decoder import FusedDecoder
+    from ast_tpu_torch.ops.fused_lstm import FusedStackedLSTM
+
+    spans, where = [], ["before encoder.forward"]
+
+    def mark(span):
+        spans.append((where[0], torch.cuda.max_memory_allocated()))
+        torch.cuda.reset_peak_memory_stats()
+        where[0] = span
+
+    def bracket(fn, name):
+        def run(*args, **kw):
+            mark(f"in {name}")
+            try:
+                return fn(*args, **kw)
+            finally:
+                mark(f"after {name}")
+        return run
+
+    fns = [(cls, m, f"{tag}.{m}") for cls, tag in ((FusedStackedLSTM,
+                                                    "encoder"),
+                                                   (FusedDecoder, "decoder"))
+           for m in ("forward", "backward")]
+    saved = [(cls, m, cls.__dict__[m]) for cls, m, _ in fns]
+    try:
+        for cls, m, name in fns:
+            setattr(cls, m, staticmethod(bracket(getattr(cls, m), name)))
+        with patched((opt, "update", bracket(opt.update, "optimizer"))):
+            torch.cuda.reset_peak_memory_stats()
+            yield spans
+            mark(None)
+    finally:
+        for cls, m, fn in saved:
+            setattr(cls, m, fn)
+
+
+def step_memory(nn, batch):
+    """(peak bytes allocated during one ``nn.train_step`` on ``batch``,
+    those above what was allocated before it, and each span of
+    :func:`memory_spans` with its peak above that)."""
+    import torch
+
+    nn.train_step(batch, 0)
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    with memory_spans(nn.opt) as spans:
+        nn.train_step(batch, 1)
+        torch.cuda.synchronize()
+    peak = max(p for _, p in spans)
+    return peak, peak - before, [(w, p - before) for w, p in spans]
+
+
+def run_bf16_training(train_exp, train_cfg, root, smi, device="cuda"):
+    """Phase 14, the entry points: cli.train -e 2 at compute_dtype
+    bfloat16 on phase 6's experiment, with ``train_cfg`` (phase 6's, as
+    it was before phase 8's options) and f32 beside it where timed
+    (falling loss, two dev.log rows;
+    K1 train / K2 / K3 / K4 bf16 launched and none of their f32 modes,
+    K1 eval and K5 bf16 in the dev decode and not their f32 modes);
+    NN.eval_loss at bf16 against the same through the plain versions; two
+    NNs from one seed end one bf16 epoch bit-equal; a train step's time
+    split by kernel and its peak memory at bf16 beside f32.  Returns the
+    bf16 training kernels' launches and the run's train steps."""
+    import torch
+
+    from ast_tpu_torch.cli import train
+    from ast_tpu_torch.train.optimizer import tree_leaves
+    from ast_tpu_torch.train.trainer import NN
+
+    def experiment(tag, dtype):
+        d = os.path.join(root, f"exp_{tag}")
+        os.makedirs(d)
+        shutil.copy(os.path.join(train_exp, "model_cfg.json"), d)
+        cfg = json.loads(json.dumps(train_cfg))
+        cfg.setdefault("extras", {})["compute_dtype"] = dtype
+        with open(os.path.join(d, "train_cfg.json"), "w") as f:
+            json.dump(cfg, f)
+        return d
+
+    bexp = experiment("train_bf16", "bfloat16")
+    zero_counts()
+    zero_train_counts()
+    zero_bf16_counts()
+    t0 = time.perf_counter()
+    with counting(NN, "train_step") as steps:
+        _, report = quiet(train.main, ["-m", bexp, "-e", "2", "--device",
+                                       device])
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = bf16_train_counts()
+    f32 = dict(f32_train_counts(), k1=all_counters()["k1"].launches,
+               k5=all_counters()["k5"].launches)
+    decode = bf16_counters()
+    with open(os.path.join(bexp, "train.log")) as f:
+        losses = [float(line.split(", ")[1]) for line in f]
+    with open(os.path.join(bexp, "dev.log")) as f:
+        bleus = [line.strip() for line in f]
+    rates = [float(v) for v in re.findall(
+        r"train throughput = ([0-9.]+) utts/sec", report)]
+    print(f"cli.train -e 2 at bf16 ({wall:.1f} s): train.log losses "
+          f"{losses}, dev.log {bleus}; train {rates} utts/s ({smi}); bf16 "
+          f"launches {launches}, decode {decode}; f32 launches {f32}",
+          flush=True)
+    assert len(losses) == 2 and all(np.isfinite(losses)), losses
+    assert losses[1] < losses[0], f"the bf16 loss did not fall: {losses}"
+    assert len(bleus) == 2
+    for k, n in launches.items():
+        assert n > 0, f"the bf16 training path never launched {k}"
+    assert decode["k1_bf16"] > 0 and decode["k5_bf16"] > 0, decode
+    assert not any(f32.values()), f"an f32 kernel launched: {f32}"
+
+    nn = NN(bexp, device)
+    dev_key = nn.cfg.train["dev_set"]
+    loss_k = nn.eval_loss(dev_key)
+    with plain_kernels(eval_encoder=True):
+        loss_p = nn.eval_loss(dev_key)
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"  NN.eval_loss at bf16 {loss_k:.6f} through the kernels, "
+          f"{loss_p:.6f} through the plain versions ({rel:.3e} apart, tol "
+          f"{BF16_LOSS_TOL})", flush=True)
+    assert np.isfinite(loss_k) and rel <= BF16_LOSS_TOL
+
+    def one_epoch(tag):
+        d = experiment(tag, "bfloat16")
+        run = NN(d, device)
+        with contextlib.redirect_stdout(io.StringIO()):
+            run.train_epoch(run.cfg.train["train_set"], epoch=1)
+        sync(device)
+        return (tree_leaves(run.params) + tree_leaves(run.state)
+                + tree_leaves(run.opt_state))
+
+    la, lb = one_epoch("bf16_a"), one_epoch("bf16_b")
+    same = all(torch.equal(x, y) if torch.is_tensor(x) else x == y
+               for x, y in zip(la, lb))
+    print(f"  two NNs from one seed, one bf16 epoch each: {len(la)} leaves "
+          f"of parameters, BN and optimizer state "
+          f"{'bit-equal' if same else 'DIFFER'}", flush=True)
+    assert len(la) == len(lb) and same, "bf16 training does not repeat"
+
+    X, y = train_batch(torch.device(device))
+    batch = {"X": X.cpu().numpy(), "y": y.cpu().numpy(), "n_real": B,
+             "utts": [""] * B}
+    nn32 = NN(experiment("train_f32", "float32"), device)
+    split, mem = {}, {}
+    for tag, run in (("f32", nn32), ("bf16", nn), ("bf16 ", nn),
+                     ("f32 ", nn32)):
+        split.setdefault(tag.strip(), []).append(step_split(run, batch, 5))
+        mem[tag.strip()] = step_memory(run, batch)
+    for tag in ("f32", "bf16"):
+        s = {k: np.mean([d[k] for d in split[tag]]) for k in split[tag][0]}
+        fwd, bwd = s["k1t"] + s["k3"], s["k2"] + s["k4"]
+        print(f"  one step at {tag} (B={B}, {FRAMES} frames, U={U_TRAIN}; "
+              f"{smi}; CUDA events, turns f32 / bf16 / bf16 / f32): "
+              f"{s['step']:.3f} ms = K1 train {s['k1t']:.3f} + K3 "
+              f"{s['k3']:.3f} + K4 {s['k4']:.3f} + K2 {s['k2']:.3f} + "
+              f"optimizer {s['opt']:.3f} + the rest "
+              f"{s['step'] - fwd - bwd - s['opt']:.3f}; peak memory "
+              f"{mem[tag][0] / 2 ** 20:.1f} MiB allocated, "
+              f"{mem[tag][1] / 2 ** 20:.1f} MiB of it the step's own; "
+              f"each span's own peak (MiB): " + ", ".join(
+                  f"{w} {p / 2 ** 20:.1f}" for w, p in mem[tag][2]),
+              flush=True)
+    return launches, steps[0]
+
+
 def step_split(nn, batch, reps):
     """Mean device time (ms) of ``nn.train_step`` on ``batch`` and of the
     parts of it that run in K1 train, K2, K3, K4, the optimizer's update
@@ -3978,6 +4764,7 @@ def step_split(nn, batch, reps):
         # a wrapper bumps its count under its module-level name, which is
         # this function while the patch holds
         run.launches = getattr(fn, "launches", 0)
+        run.launches_bf16 = getattr(fn, "launches_bf16", 0)
         return run
 
     patches = [(fl, "fused_stacked_lstm_train", "k1t"),
@@ -4060,6 +4847,9 @@ def main():
               f"served batches {units}", flush=True)
         results.update(check_train_kernels(cfg, device))
         train_launches, train = run_train_slice(root, smi)
+        # phase 6's train_cfg, before phase 8 turns its options on
+        with open(os.path.join(train["exp"], "train_cfg.json")) as f:
+            train_cfg6 = json.load(f)
         run_beam_cli(train["exp"], smi)
         run_trainer_machinery(train["exp"], smi)
         run_serving(exp, paths, root, smi, tf32_default)
@@ -4072,6 +4862,11 @@ def main():
         bf_launches, bf_units = run_bf16_serving(exp, paths, root, smi)
         print(f"phase 13: {time.perf_counter() - t13:.1f} s", flush=True)
         check_determinism(train["exp"], root, smi)
+        t14 = time.perf_counter()
+        results.update(check_bf16_train_kernels(cfg, device))
+        bt_launches, bt_steps = run_bf16_training(train["exp"], train_cfg6,
+                                                  root, smi)
+        print(f"phase 14: {time.perf_counter() - t14:.1f} s", flush=True)
     launches.update(bf_launches)
     units.update(bf_units)
     launches.update({k: v for k, v in train_launches.items() if k != "k5"})
@@ -4079,6 +4874,8 @@ def main():
     results.update(d1)
     launches.update(d1_launches)
     units.update(d1_units)
+    launches.update(bt_launches)
+    units.update({k: bt_steps for k in BF16_TRAIN_KEYS})
 
     meta = {
         "k1": ("K1 fused biLSTM encoder", "k1_encoder.cu",
@@ -4107,12 +4904,25 @@ def main():
                     "k5_greedy.cu", "ast_tpu/ops/fused_infer.py:251"),
         "k6_bf16": ("K6 fused beam decode, bf16 (compute_dtype)",
                     "k6_beam.cu", "ast_tpu/ops/fused_infer.py:537"),
+        "k1_train_bf16": ("K1 fused biLSTM encoder, train mode, bf16 "
+                          "(compute_dtype)", "k1_encoder.cu",
+                          "ast_tpu/ops/fused_lstm.py:275"),
+        "k2_bf16": ("K2 fused biLSTM encoder backward, bf16 "
+                    "(compute_dtype)", "k2_encoder_bwd.cu",
+                    "ast_tpu/ops/fused_lstm.py:348"),
+        "k3_bf16": ("K3 fused attention decoder, train forward, bf16 "
+                    "(compute_dtype)", "k3_decoder_fwd.cu",
+                    "ast_tpu/ops/fused_decoder.py:284"),
+        "k4_bf16": ("K4 fused attention decoder backward, bf16 "
+                    "(compute_dtype)", "k4_decoder_bwd.cu",
+                    "ast_tpu/ops/fused_decoder.py:484"),
     }
     kernels = []
     for key, (name, src, replaces) in meta.items():
         r = results[key]
+        cost_key = "k1t" if key == "k1_train_bf16" else key.split("_")[0]
         bound_ms, bound_by = bound(
-            *kernel_cost(key.split("_")[0], r["dims"]),
+            *kernel_cost(cost_key, r["dims"]),
             PEAK_BF16_FLOPS if key.endswith("bf16") else PEAK_F32_FLOPS)
         kernels.append(dict(
             name=name, route="cuda",
@@ -4124,7 +4934,7 @@ def main():
             library_ms=r.get("library_ms"),
             **({"f32_ms": r["f32_ms"]} if "f32_ms" in r else {})))
         unit = ("train step" if key in ("k1t", "k2", "k3", "k4", "k1t_d1",
-                                        "k2_d1")
+                                        "k2_d1") + BF16_TRAIN_KEYS
                 else "served batch")
         print(f"{name}: {r['ms']:.3f} ms, bound {bound_ms:.3f} ms "
               f"({bound_by}; {bound_ms / r['ms']:.3f} of it reached), "

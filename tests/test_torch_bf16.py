@@ -488,21 +488,20 @@ def test_export_and_serve_bf16(experiment, tmp_path, quantize):
 
 
 def test_training_refuses_bf16_by_name(experiment, tmp_path):
-    """compute_dtype bfloat16 decodes but does not train: NN builds,
-    train_epoch, eval_loss and cli.train refuse it by name; a scan-path
-    variant at bf16 is refused by NN and export_model by name."""
+    """compute_dtype bfloat16 trains the model the kernels take (it was
+    refused before bf16 training was ported; tests/test_torch_bf16_train.py
+    holds it to ast_tpu): NN builds, train_epoch and eval_loss give finite
+    losses and cli.train writes its log; a scan-path variant at bf16 is
+    still refused by NN and export_model by name."""
     exp = make_tiny_experiment(str(tmp_path))
     _set_bf16(exp)
     nn = NN(exp, "cpu")
     assert nn.compute_dtype == BF
-    for fn in (lambda: nn.train_epoch("tiny_train", epoch=1),
-               lambda: nn.eval_loss("tiny_dev")):
-        with pytest.raises(NotImplementedError,
-                           match="not ported: compute_dtype "):
-            fn()
-    with pytest.raises(NotImplementedError, match="compute_dtype"):
-        train_cli.main(["-m", exp, "-e", "1", "--device", "cpu"])
-    assert not os.path.exists(os.path.join(exp, "train.log"))
+    assert np.isfinite(nn.train_epoch("tiny_train", epoch=1))
+    assert np.isfinite(nn.eval_loss("tiny_dev"))
+    train_cli.main(["-m", exp, "-e", "1", "--device", "cpu"])
+    with open(os.path.join(exp, "train.log")) as f:
+        assert len(f.read().split()) >= 2
     path = os.path.join(exp, "model_cfg.json")
     with open(path) as f:
         mcfg = json.load(f)

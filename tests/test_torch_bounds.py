@@ -134,3 +134,55 @@ def test_pack_step_weights_layout():
         assert flat.shape[1] % 64 == 0 and flat.shape[1] - N < 64
         torch.testing.assert_close(flat[:, :N], w[k], rtol=0, atol=0)
         assert not flat[:, N:].any()
+
+
+def _nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+@pytest.mark.parametrize("key", ["k1t", "k2", "k3", "k4"])
+def test_kernel_cost_bytes_at_bf16_match_the_tensors(key):
+    """The bf16 training rows' bytes (``wbytes`` 2): each tensor the
+    kernel reads or writes once, at its own element size, counted from
+    the plain bf16 versions' inputs and outputs -- bf16 matrices, encoder
+    states and streams; f32 biases, embedding, x0_proj, ht, cotangents
+    and final states; int32 ids and coins."""
+    bf = torch.bfloat16
+    rng = np.random.default_rng(2)
+    if key in ("k1t", "k2"):
+        x0, b = _t(rng, T, 2, B, 4 * H_ENC), _t(rng, L, 2, 4 * H_ENC)
+        wxr = _t(rng, L - 1, 2, H_ENC, 4 * H_ENC).to(bf)
+        wh = _t(rng, L, 2, H_ENC, 4 * H_ENC).to(bf)
+        out = fl.stacked_lstm_reference(x0, wxr, wh, b, True, 7, 0.3)
+        dims = dict(T=T, D2=2, B=B, H=H_ENC, L=L, wbytes=2)
+        if key == "k1t":
+            want = _nbytes(x0, wxr, wh, b, *out)
+        else:
+            cot = [_t(rng, *t.shape) for t in out[:3]]
+            dz = fl.encoder_backward_reference(out[3], out[4], wxr, wh, *cot,
+                                               7, 0.3)
+            want = _nbytes(out[3], out[4], wxr, wh, *cot, dz)
+        assert chip_smoke.kernel_cost(key, dims)[1] == want
+        return
+    w = {k: v.to(bf) for k, v in _dec_weights(rng).items()}
+    mats = [w[k] for k in ("wx0", "wx_rest", "wh", "wa", "ctx_w", "out_w")]
+    small = [w[k].float() for k in ("embed", "b", "wa_b", "ctx_b", "out_b")]
+    enc = _t(rng, B, T_DEC, H, scale=1.0).to(bf)
+    h0, c0 = _t(rng, L, B, H), _t(rng, L, B, H)
+    y_in = torch.from_numpy(rng.integers(4, V, (U, B)).astype(np.int32))
+    coins = torch.tensor([1, 0, 1, 0, 0], dtype=torch.int32)
+    dims = dict(T=T_DEC, B=B, H=H, L=L, E=E, A=A, V=V, U=U, wbytes=2,
+                n_logits=int((coins[1:] == 0).sum()))
+    ht, res = fd.decoder_forward_reference(enc, h0, c0, w, y_in, coins, 11,
+                                           0.3, 0.3)
+    if key == "k3":
+        want = _nbytes(enc, h0, c0, *mats, *small, y_in, coins, ht,
+                       *res.values())
+    else:
+        d_ht = _t(rng, *ht.shape)
+        g = fd.decoder_backward_reference(res, ht, enc, c0, w, d_ht, 11, 0.3,
+                                          0.3)
+        # K4 reads c0 rounded to bf16 and no out_w
+        want = _nbytes(res["acts"], res["c_all"], c0.to(bf), res["alphas"],
+                       ht, d_ht, enc, *mats[:5], *g.values())
+    assert chip_smoke.kernel_cost(key, dims)[1] == want

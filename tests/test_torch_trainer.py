@@ -317,11 +317,10 @@ def test_nn_refuses_unported_options_by_name(tmp_path, name, edit):
     exp = _tiny(tmp_path)
     _edit_cfg(exp, edit)
     if name == "compute_dtype":
-        # bf16 decodes: NN builds, and training refuses it where it starts
+        # ported since: NN builds and trains at bf16, refusing nothing
         nn = NN(exp, "cpu")
-        with pytest.raises(NotImplementedError,
-                           match=f"not ported: {name} "):
-            nn.train_epoch("tiny_train", epoch=1)
+        assert nn.compute_dtype == torch.bfloat16
+        assert np.isfinite(nn.train_epoch("tiny_train", epoch=1))
         return
     with pytest.raises(NotImplementedError, match=f"not ported: {name} "):
         NN(exp, "cpu")
