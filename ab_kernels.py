@@ -16,7 +16,11 @@ inputs; dropout 0.3), and K1 train, K2, K3 and K4 again on the first 8
 and 16 rows of that batch (the sizes of the trainer's shrunk tail
 batches), each timed
 with CUDA events, mean of several calls
-after a warm-up, float32 with TF32 off; then one train step, the
+after a warm-up, float32 with TF32 off; every kernel's bf16 mode
+(compute_dtype bfloat16: K1 eval and train, K2, K3, K4, K5, K6) on the
+same inputs, and one K5 and one K6 call at bf16 split by kernel under
+torch.profiler (chip_smoke.decode_split: cells, q, ctx, logits,
+attention, selection, the rest, launch gaps); then one train step, the
 trainer's ``NN.train_step`` on chip_smoke's phase 5 batch (B=32, 640
 frames, U=64) of its synthetic es_en_20h training experiment, as the
 host's clock sees it around 10 steps that end in a synchronize, after two
@@ -39,12 +43,63 @@ import tempfile
 
 import chip_smoke as cs
 
+# the parts of chip_smoke.decode_split, as keys
+SPLIT = ("cells", "q", "ctx", "logits", "attention", "selection", "other",
+         "launch_gaps")
 ORDER = ("k1", "k1t", "k2", "k3", "k4", "k1t_b8", "k2_b8", "k3_b8", "k4_b8",
-         "k1t_b16", "k2_b16", "k3_b16", "k4_b16", "k5", "k6", "train_step",
-         "epoch1_utts_s", "epoch2_utts_s", "predict_utts_s",
+         "k1t_b16", "k2_b16", "k3_b16", "k4_b16", "k5", "k6", "k1_bf16",
+         "k1t_bf16", "k2_bf16", "k3_bf16", "k4_bf16", "k5_bf16", "k6_bf16",
+         *(f"{k}_bf16_{p}" for k in ("k5", "k6") for p in SPLIT),
+         "train_step", "epoch1_utts_s", "epoch2_utts_s", "predict_utts_s",
          "greedy_utts_s", "beam_utts_s")
 SLICE_PASSES = 3
 TRAIN_STEPS = 10
+
+
+def time_bf16(params, state, mcfg, X, enc, h0, c0, y_in, coins):
+    """The bf16 kernels (compute_dtype bfloat16) at the f32 kernels'
+    shapes and inputs, and one K5 and one K6 call at bf16 split by kernel
+    (chip_smoke.decode_split): {key: ms}."""
+    import torch
+
+    from ast_tpu_torch.models import seq2seq
+    from ast_tpu_torch.ops import fused_decoder as fd
+    from ast_tpu_torch.ops import fused_infer as fi
+    from ast_tpu_torch.ops import fused_lstm as fl
+
+    bf = torch.bfloat16
+    out = {}
+    w = seq2seq.decode_weights(params, bf)
+    enc_in = seq2seq.encoder_inputs(params, state, mcfg, X, enc_w=w["enc"],
+                                    compute_dtype=bf)
+    out["k1_bf16"] = cs.cuda_ms(lambda: fl.fused_stacked_lstm(*enc_in), 20)
+    x0, wxr, wh, b, _ = seq2seq.encoder_inputs(params, state, mcfg, X,
+                                               train=True, compute_dtype=bf)
+    tr = (x0, wxr.to(bf), wh.to(bf), b, 12345, cs.DROP)
+    res = fl.fused_stacked_lstm_train(*tr)
+    out["k1t_bf16"] = cs.cuda_ms(lambda: fl.fused_stacked_lstm_train(*tr),
+                                 10)
+    bwd = (res[3], res[4], tr[1], tr[2],
+           *(torch.randn_like(t) for t in res[:3]), 12345, cs.DROP)
+    out["k2_bf16"] = cs.cuda_ms(lambda: fl.encoder_backward(*bwd), 10)
+    enc16 = enc.to(bf).contiguous()
+    w_train = seq2seq.pack_decoder_weights(params, bf)
+    dec = (enc16, h0, c0, w_train, y_in, coins, 777, cs.DROP, cs.DROP)
+    ht, r = fd.decoder_forward(*dec)
+    out["k3_bf16"] = cs.cuda_ms(lambda: fd.decoder_forward(*dec), 10)
+    db = (r, ht, enc16, c0, w_train, torch.randn_like(ht), 777, cs.DROP,
+          cs.DROP)
+    out["k4_bf16"] = cs.cuda_ms(lambda: fd.decoder_backward(*db), 10)
+    calls = {
+        "k5_bf16": lambda: fi.greedy_decode_fused(enc16, h0, c0, w, cs.STOP),
+        "k6_bf16": lambda: fi.beam_decode_fused(
+            enc16, h0, c0, w, cs.N_BEAM, cs.K_BEAM, cs.STOP)}
+    for key, fn in calls.items():
+        out[key] = cs.cuda_ms(fn, 5 if key == "k5_bf16" else 3)
+        split = cs.decode_split(fn, h0.shape[0])
+        out.update({f"{key}_{p.replace(' ', '_')}": ms
+                    for p, ms in split.items()})
+    return out
 
 
 def time_tree(tree):
@@ -127,6 +182,8 @@ def time_tree(tree):
                 enc, h0, c0, w_dec, cs.STOP), 5)
             out["k6"] = cs.cuda_ms(lambda: fi.beam_decode_fused(
                 enc, h0, c0, w_dec, cs.N_BEAM, cs.K_BEAM, cs.STOP), 3)
+            out.update(time_bf16(params, state, mcfg, X, enc, h0, c0, y_in,
+                                 coins))
         nn = NN(cs.make_train_experiment(root)[0], "cuda")
         Xb, yb = cs.train_batch(dev)
         batch = {"X": Xb.cpu().numpy(), "y": yb.cpu().numpy(),
@@ -187,8 +244,8 @@ def main():
     for k in ORDER:
         p, c = mean["parent"][k], mean["change"][k]
         unit = "utts/s" if k.endswith("utts_s") else "ms"
-        print(f"{k}: parent {p:.3f} {unit}, change {c:.3f} {unit}, "
-              f"{(c / p - 1) * 100:+.1f} %")
+        print(f"{k}: parent {p:.3f} {unit}, change {c:.3f} {unit}"
+              + (f", {(c / p - 1) * 100:+.1f} %" if p else ""))
     return 0
 
 

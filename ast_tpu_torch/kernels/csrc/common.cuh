@@ -15,8 +15,10 @@
 // with bfloat16 weights (W = __nv_bfloat16, ast_tpu's compute_dtype
 // bfloat16): the packed matrices in bf16, each input value rounded to bf16
 // where the product reads it (__float2bfloat16_rn), and the sums in f32
-// FMAs -- a product of two bf16 values is exact in f32, so only the order
-// of the sum differs from ast_tpu's f32-accumulated bf16 dot.  The
+// -- FMAs for K1 eval, the tensor cores' mma.sync bf16 -> f32 for the
+// decode step of K5 and K6 (mma_prod_kernel) -- a product of two bf16
+// values is exact in f32, so only the order of the sum differs from
+// ast_tpu's f32-accumulated bf16 dot.  The
 // training kernels (K1 train, K2, K3, K4) have a bf16 mode too: the same
 // products at W = __nv_bfloat16, their residual streams stored in bf16
 // (ld_res / st_res below), and the f32 values a later product reads kept
@@ -147,7 +149,10 @@ using CellBwdArgs = CellBwdArgsT<float>;
 
 // One product of decode_step.cu:  z = [seg0 | seg1 | seg2] @ W, W packed
 // as (column blocks, ktot, 64) with its columns zero-padded to a multiple
-// of 64, in float32 or (the eval products) bfloat16, as the launch says.  A linear layer writes out = act(z + bias) (R, N), bias nullptr
+// of 64, in float32 or (the eval products) bfloat16, as the launch says
+// (the bf16 decode step's: each 32 x 64 tile of a block in the m16n8k16
+// B-fragment order, ops/fused_infer.pack_step_weights_mma).  A linear
+// layer writes out = act(z + bias) (R, N), bias nullptr
 // = none.  A cell (N = H; packed column q * 16 + u of block cb is gate q
 // of unit 16 cb + u) takes the gates [i, f, g, o] of z + bias, c_out =
 // f * c_in[c_idx[r]] + i * g, out = h = o * tanh(c_out).  Every segment's
@@ -255,7 +260,9 @@ struct Wave {
 
 // The decoder weights of the decode step (decode_step.cu), the products'
 // matrices packed by ops/fused_infer.pack_step_weights as (column
-// blocks, K, 64) in W (float or __nv_bfloat16): the cell's [wx; wh] of
+// blocks, K, 64) in W (float or __nv_bfloat16; at bf16 each 32 x 64 tile
+// in the tensor cores' B-fragment order, pack_step_weights_mma): the
+// cell's [wx; wh] of
 // layer l (K = E + A + H for layer 0, 2H after; packed column q * 16 + u
 // of block cb is gate q of unit 16 cb + u), one layer after another, and
 // wa (H, H), ctx_w (2H, A), out_w (A, V) with their columns padded to a

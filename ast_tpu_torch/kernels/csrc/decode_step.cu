@@ -86,14 +86,38 @@
 // bfloat16 (ast_tpu's compute_dtype bfloat16; K1 eval, K5, K6): the eval
 // products and attention are templates over W, the element type of the
 // packed matrices and of the encoder states.  At W = __nv_bfloat16 a
-// weight tile is one 4 KB bulk copy (8 KB in f32) and widens to f32 in
-// registers; each thread rounds the input values it staged to bf16
-// (__float2bfloat16_rn) before the tile is read, which are ast_tpu's
-// rounding points (_dot casts the left operand to the weight's dtype);
-// the sums stay f32 FMAs.  Attention reads bf16 encoder rows, keeps the
-// query and the softmax in f32, and rounds the normalised weights to
-// bf16 before the context sum (ast_tpu's _dot_c0).  A step then reads
-// half the bytes of weights and encoder states.
+// weight tile is one 4 KB bulk copy (8 KB in f32), and each input value
+// is rounded to bf16 (__float2bfloat16_rn) after it is staged and before
+// a product reads it, which are ast_tpu's rounding points (_dot casts the
+// left operand to the weight's dtype).  Attention reads bf16 encoder
+// rows, keeps the query and the softmax in f32, and rounds the
+// normalised weights to bf16 before the context sum (ast_tpu's _dot_c0).
+// A step then reads half the bytes of weights and encoder states.
+//
+// The decode step's products at bf16 (K5, K6: mma_prod_kernel, MMA in
+// prod_body) run on the tensor cores, mma.sync.aligned.m16n8k16 bf16 ->
+// f32 with the accumulators in registers.  Each thread rounds the f32
+// input values it staged into a bf16 tile of the block's RB rows (a
+// multiple of 16, zero past R) at an 80-byte row stride, so the 8 rows
+// an ldmatrix phase reads fall in distinct bank groups.  The weight
+// tiles are packed once per model in the B-fragment order
+// (ops/fused_infer.pack_step_weights_mma): a tile is still one 4 KB bulk
+// copy on the mbarrier ring, and each lane reads its fragments of both
+// 16-row k-steps with one conflict-free 16-byte load.  The 8 warps split
+// the block's RB / 16 row tiles and 8 column tiles of 8, two x four where
+// the row tiles are even (each input fragment feeds two products, and the
+// input tile is read 4 times, not 8), every k; so the partial sums are
+// one k-group of the same buffer, and the cluster reduction, the
+// epilogues, the row gather, PDL and the done flag are the FMA path's.
+// A product of two bf16 values is exact in f32, so only the order of the
+// sums differs.  mma.sync and not wgmma: a block's product is at most 256
+// rows x 64 columns x 384 inputs a launch, and the cycle split
+// (scripts/torch_prod_phases.py; PERF.md) puts a launch's time in its
+// tile pipeline's barriers, the rounding pass and the cluster epilogue
+// more than in the mma; wgmma would add the swizzled layouts and
+// descriptors for that small share.  K1 eval's waves keep FMAs on bf16
+// tiles (each weight quad widened to f32 in registers, the staged inputs
+// rounded in place).
 //
 // The training modes (K1 train, K2, K3, K4) run at W = __nv_bfloat16 too,
 // for ast_tpu's bf16 training: the same products with bf16 weight tiles
@@ -129,6 +153,10 @@ constexpr int KT = 32;           // input-axis tile
 constexpr int NC = 64;           // output columns per block
 constexpr int UNITS = NC / 4;    // hidden units per cell block
 constexpr int XLD = KT + 4;      // padded row of a staged input tile
+// padded row of the tensor-core product's bf16 input tile: 80 bytes, so
+// the 8 rows an ldmatrix phase reads start in 8 distinct 16-byte bank
+// groups
+constexpr int XLDA = KT + 8;
 constexpr int MAX_CLUSTER = 8;   // portable cluster size
 constexpr int NQ = 8;            // queries scored together in attention
 // shared memory a block asks for at least: more than half an SM's, so
@@ -161,6 +189,31 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   const float2 hi = __bfloat1622float2(
       *reinterpret_cast<const __nv_bfloat162*>(&u.y));
   return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
+// The four 8 x 8 bf16 matrices of an m16n8k16 A fragment from shared
+// memory: lane l gives the address of row l % 16, columns 8 (l / 16) ..
+// 8 (l / 16) + 7 of the 16 x 16 tile.
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], unsigned addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr)
+      : "memory");
+}
+
+// c += a (16 x 16, row) b (16 x 8, col), bf16 products summed in f32.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ unsigned bf16x2_bits(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&v);
 }
 
 // The same through the read-only cache: group i of four (encoder rows)
@@ -249,19 +302,23 @@ __device__ __forceinline__ void cp_wait() {
 
 // A block's tiles: a ring of 8 stages up to 32 rows (latency is what a
 // few rows run into), 4 up to 64, 3 from 128 (160 rows: 94 KB); a stage
-// holds the f32 input rows and a weight tile of W.
-template <int TR, int RGN, typename W = float>
+// holds the f32 input rows and a weight tile of W.  MMA (the decode
+// step's tensor-core product at bf16): one input-axis group, and after
+// the ring the bf16 input tile the warps' ldmatrix reads (RB rows of
+// XLDA).
+template <int TR, int RGN, typename W = float, bool MMA = false>
 struct ProdShape {
-  static constexpr int KGN = 16 / RGN;     // input-axis groups
+  static constexpr int KGN = MMA ? 1 : 16 / RGN;  // input-axis groups
   static constexpr int RB = TR * RGN;      // rows of a block
   static constexpr int STAGES = RB <= 32 ? 8 : RB <= 64 ? 4 : 3;
   static constexpr int XS = RB * XLD;      // staged input floats
   static constexpr int WTILE = KT * NC * (int)sizeof(W);  // bytes
   static constexpr int STAGE = XS + WTILE / (int)sizeof(float);
   static constexpr int RING = STAGES * STAGE;
+  static constexpr int ATILE = MMA ? RB * XLDA / 2 : 0;  // in floats
   static constexpr int PART = KGN * RB * NC;
   static constexpr size_t NEED =
-      (size_t)(RING > PART ? RING : PART) * sizeof(float);
+      (size_t)(RING + ATILE > PART ? RING + ATILE : PART) * sizeof(float);
   static constexpr size_t BYTES =
       NEED > EXCLUSIVE_SMEM ? NEED : EXCLUSIVE_SMEM;
 };
@@ -327,8 +384,11 @@ __device__ __forceinline__ void cell_bwd_element(const CellBwdArgsT<T>& a,
 // PROD_BWD, the EncCell of the wave's cells.  wave_cb: in a wave, the
 // block's column block within its product (else the block index gives
 // it).  W: the packed matrix's element type, and in the training modes
-// the residual streams'.
-template <int TR, int RGN, int MODE, typename W, typename Extra>
+// the residual streams'.  MMA: the decode step's bf16 product on the
+// tensor cores (mma_prod_kernel), its weight tiles packed in the
+// m16n8k16 B-fragment order (ops/fused_infer.pack_step_weights_mma).
+template <int TR, int RGN, int MODE, typename W, typename Extra,
+          bool MMA = false>
 __device__ __forceinline__ void prod_body(const Prod& a, const Extra& ex,
                                           int wave_cb = 0) {
   constexpr bool WAVE = MODE >= PROD_WAVE_CELL;
@@ -336,8 +396,11 @@ __device__ __forceinline__ void prod_body(const Prod& a, const Extra& ex,
       MODE == PROD_WAVE_CELL || MODE == PROD_WAVE_CELL_TRAIN;
   constexpr bool CELL =
       MODE == PROD_CELL || MODE == PROD_CELL_TRAIN || ENC_CELL;
-  using S = ProdShape<TR, RGN, W>;
+  using S = ProdShape<TR, RGN, W, MMA>;
   constexpr int KGN = S::KGN, RB = S::RB, STAGES = S::STAGES;
+  static_assert(!MMA || (IS_BF16<W> && RB % 16 == 0 &&
+                         (MODE == PROD_LINEAR || MODE == PROD_CELL)),
+                "the tensor-core product is the decode step's at bf16");
   grid_dep_wait();
   if (a.done && *a.done) return;  // every block of the launch alike
   grid_dep_launch();
@@ -358,10 +421,18 @@ __device__ __forceinline__ void prod_body(const Prod& a, const Extra& ex,
   const int n_ch = (rank + 1) * nch / cs - c_beg;
   const W* wb = static_cast<const W*>(a.w) + (long)cb * ktot * NC;
 
-  // rows past R stay zero in every stage (no copy lands there)
-  for (int i = tid; i < STAGES * (RB - rows) * XLD; i += THREADS) {
-    const int st = i / ((RB - rows) * XLD), j = i % ((RB - rows) * XLD);
-    smem[st * S::STAGE + rows * XLD + j] = 0.f;
+  // the bf16 input tile (MMA): RB rows of XLDA after the ring
+  __nv_bfloat16* at = reinterpret_cast<__nv_bfloat16*>(smem + S::RING);
+  if constexpr (MMA) {
+    // rows past R stay zero in the input tile (no rounding lands there)
+    unsigned* z = reinterpret_cast<unsigned*>(at + rows * XLDA);
+    for (int i = tid; i < (RB - rows) * XLDA / 2; i += THREADS) z[i] = 0u;
+  } else {
+    // rows past R stay zero in every stage (no copy lands there)
+    for (int i = tid; i < STAGES * (RB - rows) * XLD; i += THREADS) {
+      const int st = i / ((RB - rows) * XLD), j = i % ((RB - rows) * XLD);
+      smem[st * S::STAGE + rows * XLD + j] = 0.f;
+    }
   }
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) mbar_init(&full[s]);
@@ -400,8 +471,25 @@ __device__ __forceinline__ void prod_body(const Prod& a, const Extra& ex,
   for (int p = 0; p < TR; ++p)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[p][e] = 0.f;
+  // MMA: the block's MT = RB / 16 row tiles x 8 column tiles of 8 over
+  // WM x WN warps; warp (wm, wn) owns row tiles wm + WM i (i < MTW) and
+  // column tiles WM wn + j (j < WM), every k.  WM = 2 where MT is even:
+  // each input fragment then feeds two products, and the 8 warps read the
+  // input tile 4 times a tile instead of 8 (shared-memory bandwidth).
+  constexpr int MT = RB / 16;
+  constexpr int WM = MT % 2 == 0 ? 2 : 1, MTW = MT / WM;
+  float macc[MMA ? MTW * WM : 1][4];
+#pragma unroll
+  for (int m = 0; m < (MMA ? MTW * WM : 1); ++m)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) macc[m][e] = 0.f;
   const int cgp = tid & 15, g = tid >> 4;
   const int rg = g % RGN, kg = g / RGN;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int wm = warp % WM, wn = warp / WM;
+  // this lane's ldmatrix row address in the input tile (k-step 0, m 0)
+  const unsigned a_lane =
+      smem_addr(at) + ((lane & 15) * XLDA + (lane >> 4) * 8) * 2;
 
   for (int i = 0; i < n_ch; ++i) {
     __syncthreads();  // chunk i - 1's stage is free again
@@ -410,7 +498,17 @@ __device__ __forceinline__ void prod_body(const Prod& a, const Extra& ex,
     cp_commit();
     cp_wait<STAGES - 1>();  // this thread's rows of chunk i
     float* xs = smem + (i % STAGES) * S::STAGE;
-    if constexpr (IS_BF16<W>) {
+    if constexpr (MMA) {
+      // the values this thread staged, rounded to bf16 into the input
+      // tile (chunk i - 1's readers passed the barrier above)
+      for (int e = tid; e < rows * (KT / 4); e += THREADS) {
+        const int r = e / (KT / 4), f = e % (KT / 4);
+        const float4 x =
+            *reinterpret_cast<const float4*>(xs + r * XLD + f * 4);
+        *reinterpret_cast<uint2*>(at + r * XLDA + f * 4) =
+            make_uint2(bf16x2_bits(x.x, x.y), bf16x2_bits(x.z, x.w));
+      }
+    } else if constexpr (IS_BF16<W>) {
       // the values this thread staged, rounded to bf16 in place
       for (int e = tid; e < rows * (KT / 4); e += THREADS) {
         float4* v = reinterpret_cast<float4*>(xs + (e / (KT / 4)) * XLD +
@@ -426,6 +524,30 @@ __device__ __forceinline__ void prod_body(const Prod& a, const Extra& ex,
     __syncthreads();        // everyone's
     mbar_wait(&full[i % STAGES], (unsigned)(i / STAGES) & 1u);
     const W* ws = reinterpret_cast<const W*>(xs + S::XS);
+    if constexpr (MMA) {
+      // the warp's B fragments of both k-steps of the tile, one 16-byte
+      // load a lane and column tile: (b0, b1) of k 0-15, then of k 16-31
+      uint4 b[WM];
+#pragma unroll
+      for (int j = 0; j < WM; ++j)
+        b[j] = *reinterpret_cast<const uint4*>(
+            ws + ((WM * wn + j) * 32 + lane) * 8);
+#pragma unroll
+      for (int t = 0; t < MTW; ++t) {
+        const int m = wm + WM * t;
+        if (m * 16 >= rows) break;  // the warp alike: rows past R
+        unsigned fa[4];
+        ldmatrix_x4(fa, a_lane + m * 16 * XLDA * 2);
+#pragma unroll
+        for (int j = 0; j < WM; ++j)
+          mma_bf16(macc[t * WM + j], fa, b[j].x, b[j].y);
+        ldmatrix_x4(fa, a_lane + (m * 16 * XLDA + 16) * 2);
+#pragma unroll
+        for (int j = 0; j < WM; ++j)
+          mma_bf16(macc[t * WM + j], fa, b[j].z, b[j].w);
+      }
+      continue;
+    }
 #pragma unroll
     for (int j = 0; j < KT / 4 / KGN; ++j) {
       const int kk = (kg + j * KGN) * 4;
@@ -454,15 +576,32 @@ __device__ __forceinline__ void prod_body(const Prod& a, const Extra& ex,
   __syncthreads();  // the ring is read; its memory takes the partials
 
   // partial sums (KGN, RB, NC); a cell's four gates of a unit side by side
-  float* P = smem + kg * RB * NC;
+  if constexpr (MMA) {
+    // accumulator e of row tile m, column tile n: row 16 m + lane / 4 +
+    // 8 (e / 2), column 8 n + 2 (lane % 4) + e % 2
 #pragma unroll
-  for (int p = 0; p < TR; ++p)
+    for (int i = 0; i < MTW; ++i)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int col = cgp * 4 + e;
-      const int pc = CELL ? (col % UNITS) * 4 + col / UNITS : col;
-      P[(rg + RGN * p) * NC + pc] = acc[p][e];
-    }
+      for (int j = 0; j < WM; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int m = wm + WM * i, n = WM * wn + j;
+          const int col = n * 8 + (lane & 3) * 2 + (e & 1);
+          const int pc = CELL ? (col % UNITS) * 4 + col / UNITS : col;
+          smem[(m * 16 + (lane >> 2) + (e >> 1) * 8) * NC + pc] =
+              macc[i * WM + j][e];
+        }
+  } else {
+    float* P = smem + kg * RB * NC;
+#pragma unroll
+    for (int p = 0; p < TR; ++p)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int col = cgp * 4 + e;
+        const int pc = CELL ? (col % UNITS) * 4 + col / UNITS : col;
+        P[(rg + RGN * p) * NC + pc] = acc[p][e];
+      }
+  }
   cluster.sync();
 
   const int e0 = rank * rows / cs, e1 = (rank + 1) * rows / cs;
@@ -613,6 +752,13 @@ __device__ __forceinline__ void prod_body(const Prod& a, const Extra& ex,
 template <int TR, int RGN, bool CELL, typename W>
 __global__ void __launch_bounds__(THREADS) prod_kernel(Prod a) {
   prod_body<TR, RGN, CELL ? PROD_CELL : PROD_LINEAR, W>(a, NoExtra{});
+}
+
+// The decode step's products at bf16 (K5, K6) on the tensor cores.
+template <int TR, int RGN, bool CELL>
+__global__ void __launch_bounds__(THREADS) mma_prod_kernel(Prod a) {
+  prod_body<TR, RGN, CELL ? PROD_CELL : PROD_LINEAR, __nv_bfloat16, NoExtra,
+            true>(a, NoExtra{});
 }
 
 template <int TR, int RGN, typename W>
@@ -993,16 +1139,21 @@ cudaError_t launch_clustered(void (*kernel)(KArgs...), size_t* opted,
 }
 
 // extra: the CellTrainOut of a PROD_CELL_TRAIN launch, the BwdEpilogue of
-// a PROD_BWD one, else nothing.
-template <int TR, int RGN, int MODE, typename W, typename... Extra>
+// a PROD_BWD one, else nothing.  MMA: mma_prod_kernel.
+template <int TR, int RGN, int MODE, typename W, bool MMA, typename... Extra>
 cudaError_t launch_prod_tile(const Prod& a, int col_blocks, cudaStream_t s,
                              const Extra&... extra) {
-  using S = ProdShape<TR, RGN, W>;
-  static size_t opted[MAX_DEVICES] = {};  // of this (tile, mode, W)'s kernel
+  using S = ProdShape<TR, RGN, W, MMA>;
+  // of this (tile, mode, W, MMA)'s kernel
+  static size_t opted[MAX_DEVICES] = {};
   int ktot = 0;
   for (int i = 0; i < a.nseg; ++i) ktot += a.seg[i].K;
   const int row_chunks = (a.R + S::RB - 1) / S::RB;
-  if constexpr (MODE == PROD_CELL_TRAIN)
+  if constexpr (MMA)
+    return launch_clustered(mma_prod_kernel<TR, RGN, MODE == PROD_CELL>,
+                            opted, MODE, S::RB, S::BYTES, col_blocks,
+                            row_chunks, ktot / KT, s, a);
+  else if constexpr (MODE == PROD_CELL_TRAIN)
     return launch_clustered(prod_train_kernel<TR, RGN, W>, opted, MODE,
                             S::RB, S::BYTES, col_blocks, row_chunks,
                             ktot / KT, s, a, extra...);
@@ -1017,22 +1168,26 @@ cudaError_t launch_prod_tile(const Prod& a, int col_blocks, cudaStream_t s,
 }
 
 // Rows per thread and row groups by R: all rows in one block up to 256,
-// the input quads of a tile split over KGN = 16 / RGN thread groups.
-template <int MODE, typename W = float, typename... Extra>
+// the input quads of a tile split over KGN = 16 / RGN thread groups (MMA:
+// the same row tiles over the warps' m16n8 tiles).
+template <int MODE, typename W = float, bool MMA = false, typename... Extra>
 cudaError_t launch_prod(const Prod& a, cudaStream_t s,
                         const Extra&... extra) {
   const int cols = MODE == PROD_CELL || MODE == PROD_CELL_TRAIN
                        ? a.N / UNITS
                        : (a.N + NC - 1) / NC;
   const int R = a.R;
-  if (R <= 16) return launch_prod_tile<4, 4, MODE, W>(a, cols, s, extra...);
-  if (R <= 32) return launch_prod_tile<8, 4, MODE, W>(a, cols, s, extra...);
-  if (R <= 64) return launch_prod_tile<8, 8, MODE, W>(a, cols, s, extra...);
+  if (R <= 16)
+    return launch_prod_tile<4, 4, MODE, W, MMA>(a, cols, s, extra...);
+  if (R <= 32)
+    return launch_prod_tile<8, 4, MODE, W, MMA>(a, cols, s, extra...);
+  if (R <= 64)
+    return launch_prod_tile<8, 8, MODE, W, MMA>(a, cols, s, extra...);
   if (R <= 128)
-    return launch_prod_tile<8, 16, MODE, W>(a, cols, s, extra...);
+    return launch_prod_tile<8, 16, MODE, W, MMA>(a, cols, s, extra...);
   if (R <= 160)
-    return launch_prod_tile<10, 16, MODE, W>(a, cols, s, extra...);
-  return launch_prod_tile<16, 16, MODE, W>(a, cols, s, extra...);
+    return launch_prod_tile<10, 16, MODE, W, MMA>(a, cols, s, extra...);
+  return launch_prod_tile<16, 16, MODE, W, MMA>(a, cols, s, extra...);
 }
 
 // A wave in mode MODE at the row tiling <TR, RGN>: `cols` column blocks
@@ -1093,6 +1248,9 @@ template <typename W>
 cudaError_t decode_step(const StepWeightsT<W>& w, const W* enc, int T,
                         int rows_per_utt, const DecoderStep& st, int R,
                         const int* done, cudaStream_t s) {
+  // at bf16 the products run on the tensor cores (weights packed by
+  // ops/fused_infer.pack_step_weights_mma)
+  constexpr bool MMA = IS_BF16<W>;
   const int H = w.H;
   const long H4 = 4L * H, RH = (long)R * H;
   const W* cell_w = w.cell;
@@ -1121,7 +1279,7 @@ cudaError_t decode_step(const StepWeightsT<W>& w, const W* enc, int T,
     a.c_idx = st.parent;
     a.c_out = st.c_out + l * RH;
     a.done = done;
-    STEP_RETURN_IF_ERR((launch_prod<PROD_CELL, W>(a, s)));
+    STEP_RETURN_IF_ERR((launch_prod<PROD_CELL, W, MMA>(a, s)));
   }
   const float* top = st.h_out + (w.L - 1) * RH;
 
@@ -1134,7 +1292,7 @@ cudaError_t decode_step(const StepWeightsT<W>& w, const W* enc, int T,
   q.N = H;
   q.out = st.q;
   q.done = done;
-  STEP_RETURN_IF_ERR((launch_prod<PROD_LINEAR, W>(q, s)));
+  STEP_RETURN_IF_ERR((launch_prod<PROD_LINEAR, W, MMA>(q, s)));
 
   const int N = rows_per_utt;
   STEP_RETURN_IF_ERR((launch_attention_mode<ATTN_EVAL, W>(
@@ -1152,7 +1310,7 @@ cudaError_t decode_step(const StepWeightsT<W>& w, const W* enc, int T,
   c.act_tanh = 1;
   c.out = st.ht_out;
   c.done = done;
-  STEP_RETURN_IF_ERR((launch_prod<PROD_LINEAR, W>(c, s)));
+  STEP_RETURN_IF_ERR((launch_prod<PROD_LINEAR, W, MMA>(c, s)));
 
   Prod o = {};
   o.seg[0] = Seg{st.ht_out, nullptr, w.A};
@@ -1163,7 +1321,7 @@ cudaError_t decode_step(const StepWeightsT<W>& w, const W* enc, int T,
   o.N = w.V;
   o.out = st.logits;
   o.done = done;
-  return launch_prod<PROD_LINEAR, W>(o, s);
+  return launch_prod<PROD_LINEAR, W, MMA>(o, s);
 }
 
 template cudaError_t decode_step<float>(const StepWeightsT<float>&,

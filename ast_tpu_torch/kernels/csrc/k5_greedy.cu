@@ -28,7 +28,16 @@
 // packed matrices and the encoder states in bf16, the embedding and the
 // biases f32 holding bf16 values, h, c, ht, the logits and the argmax in
 // f32 -- decode_step.cu's step at W = __nv_bfloat16, which reads half the
-// weight and encoder bytes a step.
+// weight and encoder bytes a step and runs its products on the tensor
+// cores (mma.sync m16n8k16 bf16 -> f32 over weight tiles packed once per
+// model in the B-fragment order).  What bounds it then on the H100: the
+// chain of L + 5 dependent launches a step, not products.  A cell launch
+// at R = 32 spends about 11 us of its own (past the dependent-launch
+// wait): 4.9 in its 12-tile pipeline, of which 1.1 in mma, 2.8 filling
+// the 8-stage ring and 3.1 in the cluster barriers and the DSMEM
+// epilogue (scripts/torch_prod_phases.py; PERF.md).  Fewer,
+// longer launches (a persistent step kernel, or the step in one CUDA
+// graph) and a shallower ring are what would move it.
 #include "common.cuh"
 
 namespace {

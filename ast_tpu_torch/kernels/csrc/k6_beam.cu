@@ -35,7 +35,17 @@
 // packed matrices and the encoder states in bf16, the embedding and the
 // biases f32 holding bf16 values; h, c, ht, the logits, the log-softmax,
 // top-K and the scores in f32 (decode_step.cu's step at W =
-// __nv_bfloat16).
+// __nv_bfloat16).  Its products run on the tensor cores (mma.sync
+// m16n8k16 bf16 -> f32, weight tiles packed once per model in the
+// B-fragment order), which removes the FMA time that bound the R = 160
+// cells at f32.  What bounds it now: the cells, half of the call's
+// device time (27 us a launch, 40 at f32); a cell launch's own 21 us
+// past the dependent-launch wait: 11.5 in the 12-tile pipeline (the tile
+// barriers and the next tile's row gather 4.9, the rounding into the
+// bf16 tile 2.7, mma 3.2), 1.8 filling the ring and 7.6 in the cluster
+// barriers and the DSMEM epilogue (scripts/torch_prod_phases.py;
+// PERF.md); then the chain of L + 5 launches a step.  A deeper
+// ring did not help (PERF.md).
 #include <limits.h>
 #include <math.h>
 

@@ -55,7 +55,7 @@ from ast_tpu_torch.ops.fused_decoder import (
     W_NAMES, FusedDecoder, embed_drop_mask, rnn_drop_mask)
 from ast_tpu_torch.ops.fused_infer import (
     greedy_decode_fused, greedy_reference, infer_variant_ok,
-    pack_step_weights, require_bf16_variant, train_bf16_options)
+    pack_decode_step, require_bf16_variant, train_bf16_options)
 from ast_tpu_torch.ops.fused_lstm import (
     ENCODER_TILE, FusedStackedLSTM, fused_stacked_lstm,
     pack_encoder_step_weights, pack_encoder_weights, stacked_lstm_reference)
@@ -425,12 +425,13 @@ def pack_decoder_weights(params, dtype=torch.float32):
 def decode_weights(params, dtype=torch.float32):
     """The weights that greedy and beam decoding take:
     :func:`pack_decoder_weights` plus, under ``"step"``, the decode step
-    kernels' layout (``fused_infer.pack_step_weights``) and, under
-    ``"enc"``, the encoder's (:func:`encoder_weights`), all at the
-    compute ``dtype``.  Made once per model -- a caller decoding many
-    batches with the same params passes it to every batch."""
+    kernels' layout (``fused_infer.pack_decode_step``: at bf16 the
+    tensor-core tiles of ``pack_step_weights_mma``) and, under ``"enc"``,
+    the encoder's (:func:`encoder_weights`), all at the compute
+    ``dtype``.  Made once per model -- a caller decoding many batches
+    with the same params passes it to every batch."""
     w = pack_decoder_weights(params, dtype)
-    w["step"] = pack_step_weights(w)
+    w["step"] = pack_decode_step(w)
     w["enc"] = encoder_weights(params, dtype)
     return w
 

@@ -14,8 +14,10 @@ device, and ``beam_reference`` alone keeps attention histories.
 ``w`` is the packed decoder weight dict of
 ``models.seq2seq.pack_decoder_weights``: ast_tpu's layout without the
 TPU's vocab padding.  The kernels take it with the decode step's own
-layout under ``"step"`` (:func:`pack_step_weights`), which
-``models.seq2seq.decode_weights`` adds once per model.
+layout under ``"step"`` (:func:`pack_decode_step`: at f32
+:func:`pack_step_weights`, at bf16 the tensor-core tiles of
+:func:`pack_step_weights_mma`), which ``models.seq2seq.decode_weights``
+adds once per model.
 
 bfloat16 (``extras.compute_dtype: "bfloat16"``): every leaf of ``w`` in
 bf16, biases and the embedding too, and the encoder states in bf16
@@ -527,27 +529,109 @@ def pack_step_weights(w):
             "out_b": widen(w["out_b"])}
 
 
+# the tensor-core product's weight tile (decode_step.cu, MMA): 32 input
+# rows x 64 columns, 2,048 values in mma.sync m16n8k16's B-fragment order
+_MMA_TILE = _DECODE_TILE * 64
+
+
+def mma_tiles(m):
+    """(..., K, 64) -> (..., ceil(K / 32), 2048): each 32 x 64 tile of a
+    column block (rows past K zero) in the order the bf16 decode step's
+    warps read it.  For column tile ``nt`` (columns 8 nt .. 8 nt + 7),
+    lane ``l`` of a warp that multiplies it loads 8 values at offset
+    8 (32 nt + l): the m16n8k16 B fragments (b0, b1) of the tile's
+    k-steps 0 and 1, where register i of k-step ks holds rows
+    16 ks + 2 (l % 4) + 8 i + (0, 1) of column 8 nt + l // 4.  So tile row k = 16 ks + 8 i + 2 t + h, column
+    n = 8 nt + g sits at ((32 nt + 4 g + t) * 2 + ks) * 4 + 2 i + h: one
+    16-byte shared load a lane, 512 contiguous bytes a warp, no bank
+    conflict."""
+    *lead, K, n = m.shape
+    kt = -(-K // _DECODE_TILE)
+    if kt * _DECODE_TILE != K:
+        m = torch.cat([m, m.new_zeros((*lead, kt * _DECODE_TILE - K, n))],
+                      dim=-2)
+    d = len(lead) + 1
+    # (..., kt, ks, i, t, h, nt, g) -> (..., kt, nt, g, t, ks, i, h)
+    t = m.reshape(*lead, kt, 2, 2, 4, 2, 8, 8)
+    perm = list(range(d)) + [d + 4, d + 5, d + 2, d + 0, d + 1, d + 3]
+    return t.permute(*perm).reshape(*lead, kt, _MMA_TILE)
+
+
+def pack_step_weights_mma(w):
+    """The bf16 decode step's weights: :func:`pack_step_weights`' column
+    blocks with each 32 x 64 tile in :func:`mma_tiles`' order, so a tile
+    is still one contiguous 4 KB bulk copy and each warp reads its B
+    fragments straight from it.  The cell's layers as (tiles, 2048), one
+    layer after another; wa, ctx_w and out_w as (column blocks, K / 32,
+    2048).  Made once per model at bf16 (``models.seq2seq.decode_weights``)
+    for K5 and K6, whose products run on the tensor cores; K3's per-call
+    pack keeps :func:`pack_step_weights`' layout."""
+    step = pack_step_weights(w)
+    L, H = w["wh"].shape[0], w["wh"].shape[1]
+    cells, off = [], 0
+    # each layer's input width: E + A + H, then 2H
+    for K in [w["wx0"].shape[0] + H] + [2 * H] * (L - 1):
+        n = K * 4 * H
+        cells.append(mma_tiles(step["cell"][off:off + n].view(H // 16, K, 64))
+                     .reshape(-1, _MMA_TILE))
+        off += n
+    step["cell"] = torch.cat(cells)
+    for k in ("wa", "ctx_w", "out_w"):
+        step[k] = mma_tiles(step[k])
+    return step
+
+
+def pack_decode_step(w):
+    """The decode step kernels' layout of ``w`` (``w["step"]``): at bf16
+    the tensor-core tiles of :func:`pack_step_weights_mma`, else
+    :func:`pack_step_weights`."""
+    if w["wh"].dtype == BF16:
+        return pack_step_weights_mma(w)
+    return pack_step_weights(w)
+
+
 STEP_ORDER = ("embed", "cell", "b", "wa", "wa_b", "ctx_w", "ctx_b",
                "out_w", "out_b")
 # the packed products' matrices: in the compute dtype (the rest f32)
 _STEP_MATRICES = ("cell", "wa", "ctx_w", "out_w")
 
 
+def _step_shapes(H, L, E, A, V, mma):
+    """The shape of each leaf of ``w["step"]``: :func:`pack_step_weights`'
+    or, ``mma``, :func:`pack_step_weights_mma`'s."""
+    shapes = {"embed": (V, E), "b": (L, 4 * H), "wa_b": (H,),
+              "ctx_b": (A,), "out_b": (V,)}
+    mats = {"wa": (H, H), "ctx_w": (2 * H, A), "out_w": (A, V)}
+    if not mma:
+        shapes["cell"] = (4 * H * (E + A + H + (L - 1) * 2 * H),)
+        for k, (K, N) in mats.items():
+            shapes[k] = (-(-N // 64), K, 64)
+        return shapes
+    kt = [-(-K // _DECODE_TILE) for K in [E + A + H] + [2 * H] * (L - 1)]
+    shapes["cell"] = ((H // 16) * sum(kt), _MMA_TILE)
+    for k, (K, N) in mats.items():
+        shapes[k] = (-(-N // 64), -(-K // _DECODE_TILE), _MMA_TILE)
+    return shapes
+
+
 def step_weights(w, H, L, E, A, V, dtype=torch.float32):
     """``w["step"]``, the packed form the decode step kernels take,
-    checked against the decoder's dims and ``dtype`` (its matrices').
-    Raises ValueError if ``w`` lacks it (make ``w`` with
+    checked against the decoder's dims and ``dtype`` (its matrices'; at
+    bf16 in :func:`pack_step_weights_mma`'s tensor-core layout).  Raises
+    ValueError if ``w`` lacks it or holds another layout (make ``w`` with
     ``models.seq2seq.decode_weights``)."""
     if "step" not in w:
         raise ValueError("the decode kernels take the weights of "
                          "seq2seq.decode_weights (packed once per model, "
                          "under 'step')")
-    shapes = {"embed": (V, E),
-              "cell": (4 * H * (E + A + H + (L - 1) * 2 * H),),
-              "b": (L, 4 * H), "wa": (-(-H // 64), H, 64), "wa_b": (H,),
-              "ctx_w": (-(-A // 64), 2 * H, 64), "ctx_b": (A,),
-              "out_w": (-(-V // 64), A, 64), "out_b": (V,)}
     step = w["step"]
+    mma = dtype == BF16
+    if mma and step["cell"].dim() == 1:
+        raise ValueError("the bf16 decode kernels take the tensor-core "
+                         "layout of pack_step_weights_mma (made by "
+                         "seq2seq.decode_weights at bfloat16), not "
+                         "pack_step_weights' column blocks")
+    shapes = _step_shapes(H, L, E, A, V, mma)
     for k in STEP_ORDER:
         build.check_tensor(step[k], f"step {k}", shapes[k],
                            dtype if k in _STEP_MATRICES else torch.float32)

@@ -198,9 +198,12 @@ Phases, each printing a line:
    tokens along the kernel's own path within BF16_TOK_TOL of the plain
    step's best logit, K6 held to the beam's rules with scores within
    BF16_SCORE_TOL -- at B=32 and at the partial batches of BF16_PARTIAL
-   (K1 at ENC_PARTIAL's first two and ENC_EVAL_PARTIAL), REPEATS more
-   calls bit-equal, each timed beside its f32 mode in the same call, K1
-   beside two cuDNN torch.nn.LSTM in bf16; then cli.infer on phase 4's
+   (PARTIAL's: every row tiling of the tensor-core products; K1 at
+   ENC_PARTIAL's first two and ENC_EVAL_PARTIAL), REPEATS more calls
+   bit-equal at every size, each timed beside its f32 mode in the same
+   call, K1 beside two cuDNN torch.nn.LSTM in bf16; one K5 and one K6
+   call at bf16 split by kernel under torch.profiler (cells, q, ctx,
+   logits, attention, argmax or beam step); then cli.infer on phase 4's
    64 files at bf16, greedy and beam (utts/s beside f32, the share of
    utterances whose text equals the f32 decode), export_model --dtype
    bfloat16 (and --quantize int8 of the bf16 experiment) and cli.serve:
@@ -534,7 +537,7 @@ def with_eos_bias(w, beta):
     w = dict(w)
     w["out_b"] = w["out_b"].clone()
     w["out_b"][SYMBOLS.EOS_ID] += beta
-    w["step"] = fused_infer.pack_step_weights(w)
+    w["step"] = fused_infer.pack_decode_step(w)
     return w
 
 
@@ -3609,9 +3612,64 @@ def device_busy(prof):
 # log-probs) within BF16_SCORE_TOL.  (Measured on the H100: 4.4e-4,
 # 4.8e-4 and 9.4e-3 at B = 32.)
 BF16_ENC_TOL, BF16_TOK_TOL, BF16_SCORE_TOL = 3.9e-3, 1e-2, 5e-2
-# (utterances, T') of the bf16 partial-batch checks: R <= 16 greedy rows,
-# a beam of 25 rows, and 100 greedy / 320 beam rows (two row chunks)
-BF16_PARTIAL = ((5, 20), (64, 100))
+# (utterances, T') of the bf16 partial-batch checks: PARTIAL's, so the
+# tensor-core products meet every row tiling of launch_prod (greedy R =
+# 5, 11, 20, 64; beam R = 25, 55, 100, 320 in two 256-row chunks)
+BF16_PARTIAL = PARTIAL
+
+
+def decode_split(fn, layers):
+    """One call of ``fn`` (a K5 or K6 decode) under torch.profiler after
+    a warm-up call: {part: device ms} by kernel -- the L cells and the q,
+    ctx and logits linears told apart by their place in the step (the
+    product launches before attention are the cells, then q; after it
+    ctx, then logits), attention, the argmax or beam step, the rest
+    (torch ops, K6's backtrack) -- each kernel counted for the part of
+    its span past the end of every span that started before it (the
+    launches are programmatic dependent launches), and the launch gaps:
+    first start to last end less the busy time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans = [(e.time_range.start, e.time_range.end, e.name)
+             for e in prof.events() if e.device_type == DeviceType.CUDA]
+    assert spans, "torch.profiler saw no kernel on the card"
+    return split_spans(spans, layers)
+
+
+def split_spans(spans, layers):
+    """decode_split's parts of (start µs, end µs, kernel name) spans."""
+    spans = sorted(spans)
+    parts = dict.fromkeys(("cells", "q", "ctx", "logits", "attention",
+                           "selection", "other"), 0.0)
+    end, busy, pre, post = -np.inf, 0.0, 0, None
+    for a, b, name in spans:
+        own = max(0.0, b - max(a, end)) / 1e3
+        busy += own
+        end = max(end, b)
+        if "prod_kernel" in name:
+            if post is None:
+                part = "cells" if pre < layers else "q"
+                pre += 1
+            else:
+                part = "ctx" if post == 0 else "logits"
+                post += 1
+        elif "attention" in name:
+            part, post = "attention", 0
+        elif "argmax" in name or "beam_step" in name:
+            part, pre, post = "selection", 0, None
+        else:
+            part = "other"
+        parts[part] += own
+    parts["launch gaps"] = (end - spans[0][0]) / 1e3 - busy
+    return parts
 
 
 def bf16_counters():
@@ -3750,17 +3808,35 @@ def check_bf16_kernels(cfg, device):
             (nb, 4 * t_enc, 13)).astype(np.float32)).to(device)
         e32, ph0, pc0 = seq2seq.encode(params, state, mcfg, Xp, w, bf)
         pe = e32.to(bf)
-        _, pg = check_greedy(pe, ph0, pc0, w, PARTIAL_STOP, BF16_TOK_TOL)
+        ptok, pg = check_greedy(pe, ph0, pc0, w, PARTIAL_STOP, BF16_TOK_TOL)
         _, pb = check_beam(pe, ph0, pc0, w, PARTIAL_STOP, BF16_TOK_TOL,
                            BF16_SCORE_TOL)
         res["k5_bf16"]["max_abs_err"] = max(res["k5_bf16"]["max_abs_err"],
                                             pg["shortfall"])
         res["k6_bf16"]["max_abs_err"] = max(res["k6_bf16"]["max_abs_err"],
                                             pb["score_err"])
-        print(f"  K5 / K6 bf16 partial batch of {nb} utterances, T' "
-              f"{t_enc}: greedy shortfall {pg['shortfall']:.3e}, beam "
-              f"top-K {pb['topk_short']:.3e}, score {pb['score_err']:.3e}",
-              flush=True)
+        check_repeats(lambda: fused_infer.greedy_decode_fused(
+            pe, ph0, pc0, w, PARTIAL_STOP), ptok, f"K5 bf16, {nb} utterances")
+        check_repeats(lambda: fused_infer.beam_search_streams(
+            pe, ph0, pc0, w, N_BEAM, K_BEAM, PARTIAL_STOP),
+            fused_infer.beam_search_streams(pe, ph0, pc0, w, N_BEAM, K_BEAM,
+                                            PARTIAL_STOP),
+            f"K6 bf16, {nb} utterances")
+        print(f"  K5 / K6 bf16 partial batch of {nb} utterances (greedy "
+              f"{nb} rows, beam {nb * N_BEAM}), T' {t_enc}: greedy "
+              f"shortfall {pg['shortfall']:.3e}, beam top-K "
+              f"{pb['topk_short']:.3e}, score {pb['score_err']:.3e}; "
+              f"{REPEATS} more calls of each bit-equal", flush=True)
+    L = h0.shape[0]
+    for key, fn in (
+            ("k5_bf16", lambda: fused_infer.greedy_decode_fused(
+                enc, h0, c0, w, STOP)),
+            ("k6_bf16", lambda: fused_infer.beam_decode_fused(
+                enc, h0, c0, w, N_BEAM, K_BEAM, STOP))):
+        split = decode_split(fn, L)
+        print(f"  {key} split by kernel (torch.profiler, device ms of one "
+              f"call, {B} utterances): " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in split.items()), flush=True)
     for key in ("k1_bf16", "k5_bf16", "k6_bf16"):
         r = res[key]
         print(f"  {key}: {r['ms']:.3f} ms at bf16, {r['f32_ms']:.3f} ms at "

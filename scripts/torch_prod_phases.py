@@ -1,0 +1,191 @@
+#!/usr/bin/env python3
+"""Where a launch of the decode step's bf16 tensor-core product spends its
+cycles, on one NVIDIA GPU.
+
+    python3 scripts/torch_prod_phases.py
+
+Copies this checkout's ``ast_tpu_torch`` into ``build/prod_phases/`` and
+adds ``clock64()`` reads to ``decode_step.cu``'s product at bf16
+(``prod_body`` with MMA, the products of K5 and K6): thread 0 of every
+block adds, per launch, the cycles of each phase to a device array, by
+kind (cell or linear) and row tile.  Then one K5 and one K6 call at bf16
+at ``chip_smoke.py``'s shapes (es_en_20h width, B=32, 640 frames ->
+T'=160, stop 175, beam 5,5, seeded weights) print each kind's mean
+cycles a block-launch:
+
+  dep wait       entry to griddepcontrol.wait's return (programmatic
+                 dependent launch: overlaps the kernel before it)
+  prologue       barrier init and the ring's first tiles issued
+  loop top       each tile's block barrier and the next tile's issue
+  cp wait        cp.async.wait_group for the tile's input rows
+  round          the rounding into the bf16 tile and its block barrier
+  mbar wait      the weight tile's bulk copy (mbarrier)
+  mma            warp 0's ldmatrix + mma.sync over the tile
+  partials+sync  the partial sums to shared memory and cluster.sync
+  epilogue       the cluster's DSMEM reduction and the gate / bias math
+  final sync     the last cluster.sync
+
+and the card's SM clock beside them.  The clock reads slow the call (its
+instrumented time is printed; chip_smoke.py prints the plain one).
+Needs a CUDA device; exits 2 without one.
+"""
+
+import ctypes
+import os
+import shutil
+import subprocess
+import sys
+import tempfile
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+COPY = os.path.join(ROOT, "build", "prod_phases")
+PHASES = ("dep wait", "prologue", "loop top", "cp wait", "round",
+          "mbar wait", "mma", "partials+sync", "epilogue", "final sync")
+KINDS = 34        # (cell or linear) x row tile / 16 (1 .. 16)
+
+# (anchor in decode_step.cu, text that replaces it): each anchor must
+# occur once
+PATCH = (
+    ("namespace ast {\nnamespace {\n",
+     "namespace ast {\n__device__ unsigned long long g_prof[34][11];\n"
+     "namespace {\n"),
+    ("  grid_dep_wait();\n  if (a.done && *a.done) return;  // every block "
+     "of the launch alike\n  grid_dep_launch();\n",
+     "  const long long T0 = clock64();\n  grid_dep_wait();\n"
+     "  if (a.done && *a.done) return;  // every block of the launch alike\n"
+     "  grid_dep_launch();\n  const long long T1 = clock64();\n"
+     "  long long Tp, Tl, Tq, Te, tt, d_top = 0, d_cp = 0, d_conv = 0,\n"
+     "      d_mbar = 0, d_mma = 0;\n"),
+    ("    if (s < n_ch) issue(s, c_beg + s);\n    cp_commit();\n  }\n",
+     "    if (s < n_ch) issue(s, c_beg + s);\n    cp_commit();\n  }\n"
+     "  Tp = clock64();\n"),
+    ("  for (int i = 0; i < n_ch; ++i) {\n    __syncthreads();",
+     "  for (int i = 0; i < n_ch; ++i) {\n    tt = clock64();\n"
+     "    __syncthreads();"),
+    ("    cp_commit();\n    cp_wait<STAGES - 1>();  // this thread's rows of "
+     "chunk i\n",
+     "    cp_commit();\n    d_top += clock64() - tt;\n    tt = clock64();\n"
+     "    cp_wait<STAGES - 1>();\n    d_cp += clock64() - tt;\n"
+     "    tt = clock64();\n"),
+    ("    __syncthreads();        // everyone's\n"
+     "    mbar_wait(&full[i % STAGES], (unsigned)(i / STAGES) & 1u);\n",
+     "    __syncthreads();\n    d_conv += clock64() - tt;\n"
+     "    tt = clock64();\n"
+     "    mbar_wait(&full[i % STAGES], (unsigned)(i / STAGES) & 1u);\n"
+     "    d_mbar += clock64() - tt;\n    tt = clock64();\n"),
+    ("          mma_bf16(macc[t * WM + j], fa, b[j].z, b[j].w);\n      }\n"
+     "      continue;\n",
+     "          mma_bf16(macc[t * WM + j], fa, b[j].z, b[j].w);\n      }\n"
+     "      d_mma += clock64() - tt;\n      continue;\n"),
+    ("  __syncthreads();  // the ring is read; its memory takes the "
+     "partials\n",
+     "  __syncthreads();\n  Tl = clock64();\n"),
+    ("        P[(rg + RGN * p) * NC + pc] = acc[p][e];\n      }\n  }\n"
+     "  cluster.sync();\n",
+     "        P[(rg + RGN * p) * NC + pc] = acc[p][e];\n      }\n  }\n"
+     "  cluster.sync();\n  Tq = clock64();\n"),
+    ("      }\n    }\n  }\n  cluster.sync();  // no block leaves while "
+     "another reads its partials\n}\n",
+     "      }\n    }\n  }\n  Te = clock64();\n  cluster.sync();\n"
+     "  if constexpr (MMA) {\n    if (tid == 0) {\n"
+     "      unsigned long long* g = g_prof[(CELL ? 17 : 0) + RB / 16];\n"
+     "      const long long v[11] = {T1 - T0, Tp - T1, d_top, d_cp, d_conv,\n"
+     "          d_mbar, d_mma, Tq - Tl, Te - Tq, clock64() - Te, 1};\n"
+     "      for (int j = 0; j < 11; ++j)\n"
+     "        atomicAdd(g + j, (unsigned long long)v[j]);\n    }\n  }\n}\n"),
+)
+
+EXPORTS = """
+AST_EXPORT int ast_prof_read(unsigned long long* out) {
+  return (int)cudaMemcpyFromSymbol(out, ast::g_prof, sizeof(ast::g_prof));
+}
+
+AST_EXPORT int ast_prof_reset() {
+  static unsigned long long z[34][11] = {};
+  return (int)cudaMemcpyToSymbol(ast::g_prof, z, sizeof(z));
+}
+"""
+
+
+def instrumented_copy():
+    """``build/prod_phases/ast_tpu_torch`` with the clock reads patched
+    into its decode_step.cu."""
+    dst = os.path.join(COPY, "ast_tpu_torch")
+    shutil.rmtree(dst, ignore_errors=True)
+    shutil.copytree(os.path.join(ROOT, "ast_tpu_torch"), dst,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    path = os.path.join(dst, "kernels", "csrc", "decode_step.cu")
+    with open(path) as f:
+        src = f.read()
+    for old, new in PATCH:
+        assert src.count(old) == 1, f"anchor not found once: {old[:60]!r}"
+        src = src.replace(old, new)
+    with open(path, "w") as f:
+        f.write(src + EXPORTS)
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_prod_phases: no CUDA device available", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    instrumented_copy()
+    sys.path.insert(0, ROOT)
+    sys.path.insert(0, COPY)
+    import chip_smoke as cs
+    from ast_tpu_torch.kernels import build
+    from ast_tpu_torch.models import seq2seq
+    from ast_tpu_torch.ops import fused_infer as fi
+    from ast_tpu_torch.ops import fused_lstm as fl
+
+    assert build.__file__.startswith(COPY), build.__file__
+    lib = build.library()
+    lib.ast_prof_read.argtypes = [ctypes.c_void_p]
+    smi = ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm",
+           "--format=csv,noheader"]
+    dev, bf = torch.device("cuda"), torch.bfloat16
+    with tempfile.TemporaryDirectory() as root, torch.inference_mode():
+        _, cfg, _ = cs.make_experiment(root)
+        mcfg = cfg.model
+        params, state = seq2seq.init_model(mcfg, seed=0, device=dev)
+        X = torch.from_numpy(np.random.default_rng(2).standard_normal(
+            (cs.B, cs.FRAMES, 13)).astype(np.float32)).to(dev)
+        w = seq2seq.decode_weights(params, bf)
+        enc_in = seq2seq.encoder_inputs(params, state, mcfg, X,
+                                        enc_w=w["enc"], compute_dtype=bf)
+        enc32, h0, c0 = seq2seq.encoder_outputs(
+            *fl.stacked_lstm_reference(*enc_in[:4]))
+        enc = enc32.to(bf)
+        calls = {
+            "K5": lambda: fi.greedy_decode_fused(enc, h0, c0, w, cs.STOP),
+            "K6": lambda: fi.beam_decode_fused(enc, h0, c0, w, cs.N_BEAM,
+                                               cs.K_BEAM, cs.STOP)}
+        for name, fn in calls.items():
+            ms = cs.cuda_ms(fn, 1)
+            assert lib.ast_prof_reset() == 0
+            fn()
+            torch.cuda.synchronize()
+            buf = np.zeros((KINDS, 11), np.uint64)
+            assert lib.ast_prof_read(buf.ctypes.data) == 0
+            card = subprocess.run(smi, capture_output=True, text=True,
+                                  check=True).stdout.strip()
+            print(f"{name} at bf16, instrumented: {ms:.3f} ms a call "
+                  f"({card})", flush=True)
+            for kind in range(KINDS):
+                n = int(buf[kind, 10])
+                if n:
+                    mean = buf[kind, :10].astype(np.float64) / n
+                    print(f"  {'cell' if kind >= 17 else 'linear'} product, "
+                          f"{(kind % 17) * 16}-row tile: {n} block-launches;"
+                          f" cycles a block-launch: " + ", ".join(
+                              f"{p} {c:.0f}" for p, c in zip(PHASES, mean))
+                          + f"; total {mean.sum():.0f}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -265,8 +265,9 @@ def test_decode_slice_bf16_matches_composed_jax(model, reference):
 
 def test_decode_weights_bf16_layouts(model):
     """Every leaf of the bf16 decode pack is bf16; the step pack keeps
-    its matrices in bf16 and its embedding and biases in f32 holding the
-    rounded values; the encoder's matrices are bf16, its bias f32."""
+    its matrices in bf16, in the tensor-core tiles of
+    pack_step_weights_mma, and its embedding and biases in f32 holding
+    the rounded values; the encoder's matrices are bf16, its bias f32."""
     _, _, _, tp, _, _ = model
     w = seq2seq.decode_weights(tp, BF)
     assert all(w[k].dtype == BF for k in fused_infer._WEIGHT_ORDER)
@@ -276,8 +277,9 @@ def test_decode_weights_bf16_layouts(model):
         assert step[k].dtype == want, k
     assert torch.equal(step["out_b"], w["out_b"].float())
     w32 = seq2seq.decode_weights(tp)
+    assert step["cell"].dim() == 2
     assert torch.equal(step["cell"].float(),
-                       fused_infer.pack_step_weights(
+                       fused_infer.pack_step_weights_mma(
                            {k: v.float() if torch.is_tensor(v) else v
                             for k, v in w.items()})["cell"])
     assert w32["step"]["cell"].dtype == torch.float32
@@ -288,6 +290,27 @@ def test_decode_weights_bf16_layouts(model):
     with pytest.raises(ValueError, match="compute dtype"):
         seq2seq.predict_greedy(tp, None, _mcfg(), None, STOP, w32,
                                compute_dtype=BF)
+
+
+def test_bf16_decodes_from_mma_pack_as_before(model, reference):
+    """Greedy and beam on the CPU from the bf16 decode_weights (the
+    tensor-core step pack) give the tokens, lengths and scores they gave
+    with the column-block step pack, which are ast_tpu's."""
+    _, _, _, tp, _, _ = model
+    enc = torch.from_numpy(reference["enc"]).to(BF)
+    h0, c0 = (torch.from_numpy(reference[k]) for k in ("h0", "c0"))
+    w = seq2seq.decode_weights(tp, BF)
+    w_old = dict(w, step=fused_infer.pack_step_weights(w))
+    got = fused_infer.greedy_decode_fused(enc, h0, c0, w, STOP)
+    assert torch.equal(got, fused_infer.greedy_decode_fused(
+        enc, h0, c0, w_old, STOP))
+    np.testing.assert_array_equal(got.numpy(), reference["greedy"][0])
+    beam = fused_infer.beam_decode_fused(enc, h0, c0, w, N_BEAM, K_BEAM,
+                                         STOP)
+    old = fused_infer.beam_decode_fused(enc, h0, c0, w_old, N_BEAM, K_BEAM,
+                                        STOP)
+    assert all(torch.equal(a, b) for a, b in zip(beam, old))
+    np.testing.assert_array_equal(beam[0].numpy(), reference["beam"][0])
 
 
 @pytest.mark.parametrize("point", ["alphas", "biases", "operands", "enc"])

@@ -1,0 +1,392 @@
+"""The bf16 decode step's tensor-core weight layout, on the CPU.
+
+At bf16 the products of K5 and K6 (kernels/csrc/decode_step.cu,
+``mma_prod_kernel``) run ``mma.sync.aligned.m16n8k16`` on weight tiles
+that ``ops/fused_infer.pack_step_weights_mma`` lays out once per model:
+``pack_step_weights``' column blocks with each 32 x 64 tile in the
+B-fragment order the warps read.  Held here:
+
+- the pack unpacks bit-equal to the matrices it came from, at tiny dims
+  with ragged K (not a multiple of 32) and V (not of 64);
+- its index formula is the PTX m16n8k16 B-fragment map, modelled in
+  numpy from the ISA's fragment layout;
+- a numpy model of a block of the kernel -- its ldmatrix addresses, its
+  B loads at the pack's offsets, the ISA's A, B and C fragment layouts,
+  and its partial-sum index -- computes x @ W (within 1e-12 on float64
+  sums of bf16 values: only the order of the sums differs);
+- the f32 decode pack and K3's per-call pack (``pack_step_weights``, at
+  f32 and bf16) keep their column-block layout bit for bit;
+- ``step_weights`` refuses a bf16 step in the column-block layout.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from ast_tpu_torch.models import seq2seq
+from ast_tpu_torch.ops import fused_infer as fi
+from tests.conftest import TINY_MODEL_CFG
+
+BF = torch.bfloat16
+L = 2
+# (H, E, A, V): the tiny model's (K = E + A + H = 40 and V = 12 ragged),
+# and one that the kernels take with V ragged
+DIMS = {"tiny": (16, 8, 16, 12), "kernel": (32, 32, 64, 70)}
+
+
+def _weights(dims, seed=0):
+    """Decoder weights in bf16, from a seeded numpy draw."""
+    H, E, A, V = DIMS[dims]
+    rng = np.random.default_rng(seed)
+
+    def t(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(
+            np.float32)).to(BF)
+
+    return {"embed": t(V, E), "wx0": t(E + A, 4 * H),
+            "wx_rest": t(L - 1, H, 4 * H), "wh": t(L, H, 4 * H),
+            "b": t(L, 4 * H), "wa": t(H, H), "wa_b": t(H),
+            "ctx_w": t(2 * H, A), "ctx_b": t(A), "out_w": t(A, V),
+            "out_b": t(V)}
+
+
+def _cells(w):
+    """Each layer's [wx; wh] (K, 4H)."""
+    wxs = [w["wx0"]] + [w["wx_rest"][l] for l in range(L - 1)]
+    return [torch.cat([wx, wh]) for wx, wh in zip(wxs, w["wh"])]
+
+
+def column_blocks(m):
+    """numpy model of the column-block layout: (K, N) -> (ceil(N / 64),
+    K, 64), block c holding columns 64 c .. 64 c + 63, zero past N."""
+    K, N = m.shape
+    nb = -(-N // 64)
+    out = np.zeros((nb, K, 64), m.dtype)
+    for c in range(nb):
+        take = min(64, N - 64 * c)
+        out[c, :, :take] = m[:, 64 * c:64 * c + take]
+    return out
+
+
+def cell_blocks(cat, H):
+    """numpy model of a cell's layout: packed column q * 16 + u of block c
+    is gate q of unit 16 c + u."""
+    K = cat.shape[0]
+    out = np.zeros((H // 16, K, 64), cat.dtype)
+    for c in range(H // 16):
+        for q in range(4):
+            out[c, :, q * 16:q * 16 + 16] = cat[:, q * H + 16 * c:
+                                                 q * H + 16 * c + 16]
+    return out
+
+
+def old_layout(w):
+    """numpy model of pack_step_weights' matrices (as float32 arrays)."""
+    H = w["wh"].shape[1]
+    f = {k: w[k].float().numpy() for k in ("wa", "ctx_w", "out_w")}
+    return {"cell": np.concatenate([cell_blocks(c.float().numpy(), H).ravel()
+                                    for c in _cells(w)]),
+            "wa": column_blocks(f["wa"]), "ctx_w": column_blocks(f["ctx_w"]),
+            "out_w": column_blocks(f["out_w"])}
+
+
+def fragment_offset(k, n):
+    """Where row k, column n of a 32 x 64 tile lies in mma_tiles' order
+    (its docstring's formula): k = 16 ks + 8 i + 2 t + h, n = 8 nt + g
+    at ((32 nt + 4 g + t) * 2 + ks) * 4 + 2 i + h."""
+    ks, i, t, h = k // 16, k % 16 // 8, k % 8 // 2, k % 2
+    nt, g = n // 8, n % 8
+    return ((32 * nt + 4 * g + t) * 2 + ks) * 4 + 2 * i + h
+
+
+def unpack_tiles(t, K):
+    """numpy: (..., kt, 2048) tiles -> (..., K, 64) by fragment_offset."""
+    off = fragment_offset(np.arange(32)[:, None], np.arange(64)[None, :])
+    x = t[..., off]                                   # (..., kt, 32, 64)
+    return x.reshape(*t.shape[:-2], -1, 64)[..., :K, :]
+
+
+def unpack_step(step, w):
+    """The matrices of pack_step_weights_mma's ``step`` in
+    pack_step_weights' column-block layout (float32 numpy arrays)."""
+    H = w["wh"].shape[1]
+    out, cell, off = {}, [], 0
+    for c in _cells(w):
+        K = c.shape[0]
+        n = (H // 16) * -(-K // 32)
+        tiles = step["cell"][off:off + n].float().numpy()
+        cell.append(unpack_tiles(tiles.reshape(H // 16, -1, 2048), K).ravel())
+        off += n
+    out["cell"] = np.concatenate(cell)
+    for k in ("wa", "ctx_w", "out_w"):
+        out[k] = unpack_tiles(step[k].float().numpy(), w[k].shape[0])
+    return out
+
+
+def ptx_b_fragment(tile, nt, lane, ks):
+    """The ISA's m16n8k16 B fragment (.bf16, .col) of lane ``lane`` for
+    the 16 x 8 block of a 32 x 64 ``tile`` at k-step ``ks``, n-tile
+    ``nt``: registers b0, b1, each two elements, element j of b_i at row
+    2 (lane % 4) + j + 8 i and column lane // 4."""
+    g, t = lane // 4, lane % 4
+    return [[tile[16 * ks + 2 * t + j + 8 * i, 8 * nt + g] for j in (0, 1)]
+            for i in (0, 1)]
+
+
+@pytest.mark.parametrize("dims", list(DIMS))
+def test_mma_pack_unpacks_to_its_matrices(dims):
+    """Every matrix of the bf16 decode pack, unpacked, equals the matrix it
+    came from bit for bit (the padding rows and columns zero)."""
+    H, E, A, V = DIMS[dims]
+    w = _weights(dims)
+    step = fi.pack_step_weights_mma(w)
+    shapes = fi._step_shapes(H, L, E, A, V, mma=True)
+    for k in fi.STEP_ORDER:
+        assert tuple(step[k].shape) == shapes[k], k
+        assert step[k].dtype == (BF if k in fi._STEP_MATRICES
+                                 else torch.float32), k
+    un = unpack_step(step, w)
+    off = 0
+    for cat in _cells(w):
+        K = cat.shape[0]
+        blk = un["cell"][off:off + K * 4 * H].reshape(H // 16, K, 4, 16)
+        off += K * 4 * H
+        # gate q of unit 16 c + u at packed column q * 16 + u of block c
+        got = blk.transpose(1, 2, 0, 3).reshape(K, 4 * H)
+        np.testing.assert_array_equal(got, cat.float().numpy())
+    assert off == un["cell"].size
+    for k in ("wa", "ctx_w", "out_w"):
+        K, N = w[k].shape
+        flat = un[k].transpose(1, 0, 2).reshape(K, -1)
+        np.testing.assert_array_equal(flat[:, :N], w[k].float().numpy())
+        assert not flat[:, N:].any(), k
+    # the tiles past K (tiny: the cells' K = 40, 32) hold zeros
+    n_tiles = sum(-(-c.shape[0] // 32) for c in _cells(w)) * (H // 16)
+    assert step["cell"].shape[0] == n_tiles
+    nonzero = sum(int(m.count_nonzero()) for m in [
+        *_cells(w), w["wa"], w["ctx_w"], w["out_w"]])
+    assert sum(int(step[k].count_nonzero())
+               for k in fi._STEP_MATRICES) == nonzero
+
+
+def test_mma_tile_order_is_the_ptx_b_fragment_map():
+    """Lane l of a warp that multiplies column tile nt loads 8 values at
+    offset 8 (32 nt + l) of a tile: the ISA's B fragments (b0, b1) of
+    k-step 0, then of k-step 1."""
+    rng = np.random.default_rng(3)
+    tile = rng.permutation(32 * 64).reshape(32, 64)
+    packed = fi.mma_tiles(torch.from_numpy(tile)[None])[0, 0].numpy()
+    assert sorted(packed) == list(range(32 * 64))
+    for nt in range(8):
+        for lane in range(32):
+            got = packed[8 * (32 * nt + lane):8 * (32 * nt + lane) + 8]
+            want = [v for ks in (0, 1)
+                    for reg in ptx_b_fragment(tile, nt, lane, ks)
+                    for v in reg]
+            np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(unpack_tiles(packed[None], 32), tile)
+
+
+def ldmatrix_x4(a_tile, addr):
+    """The ISA's ldmatrix .m8n8.x4 .b16 over a tile of rows: lanes 8 j ..
+    8 j + 7 give the row addresses (row, column) of matrix j, and lane l
+    receives, as register j, elements 2 (l % 4) and 2 (l % 4) + 1 of
+    matrix j's row l // 4."""
+    regs = []
+    for lane in range(32):
+        regs.append([])
+        for j in range(4):
+            r, c = addr[8 * j + lane // 4]
+            regs[-1].append(a_tile[r, c + 2 * (lane % 4):c + 2 * (lane % 4)
+                                   + 2])
+    return regs
+
+
+def mma_m16n8k16(c, a_regs, b_regs):
+    """The ISA's mma .m16n8k16 .row .col .f32 .bf16: lane l = 4 g + t
+    holds a0 = A[g, 2t:2t+2], a1 = A[g+8, 2t:2t+2], a2 = A[g, 2t+8:2t+10],
+    a3 = A[g+8, 2t+8:2t+10]; b0 = B[2t:2t+2, g], b1 = B[2t+8:2t+10, g];
+    c0, c1 = C[g, 2t:2t+2], c2, c3 = C[g+8, 2t:2t+2].  Returns the lanes'
+    c + A B."""
+    A, B = np.zeros((16, 16)), np.zeros((16, 8))
+    for lane in range(32):
+        g, t = lane // 4, lane % 4
+        a = a_regs[lane]
+        A[g, 2 * t:2 * t + 2], A[g + 8, 2 * t:2 * t + 2] = a[0], a[1]
+        A[g, 2 * t + 8:2 * t + 10], A[g + 8, 2 * t + 8:2 * t + 10] = (a[2],
+                                                                      a[3])
+        b = b_regs[lane]
+        B[2 * t:2 * t + 2, g], B[2 * t + 8:2 * t + 10, g] = b[0], b[1]
+    D = A @ B
+    out = []
+    for lane in range(32):
+        g, t = lane // 4, lane % 4
+        out.append(c[lane] + np.concatenate([D[g, 2 * t:2 * t + 2],
+                                             D[g + 8, 2 * t:2 * t + 2]]))
+    return out
+
+
+def row_tile(R):
+    """The rows of a product block (decode_step.cu's launch_prod)."""
+    return next(rb for rb in (16, 32, 64, 128, 160, 256) if R <= rb)
+
+
+def kernel_block(x, packed, cell):
+    """numpy model of one block of mma_prod_kernel over all its k-tiles:
+    the input rows (zero past R) as the bf16 tile; the 8 warps as WM x WN
+    (WM = 2 where the block's 16-row tiles are even), warp (wm, wn)
+    taking row tiles wm + WM i and column tiles WM wn + j; each warp's
+    ldmatrix addresses and B loads as the kernel forms them, the ISA's
+    fragments, and the partial sums stored at the kernel's index.  x
+    (R, K) holds bf16 values; packed (K / 32, 2048).  Returns P (RB,
+    64)."""
+    R, K = x.shape
+    RB = row_tile(R)
+    MT = RB // 16
+    WM = 2 if MT % 2 == 0 else 1
+    acc = {}
+    for kt in range(K // 32):
+        a_tile = np.zeros((RB, 32))
+        a_tile[:R] = x[:, 32 * kt:32 * kt + 32]
+        ws = packed[kt]
+        for warp in range(8):
+            wm, wn = warp % WM, warp // WM
+            b = [[ws[8 * ((WM * wn + j) * 32 + lane):
+                     8 * ((WM * wn + j) * 32 + lane) + 8]
+                  for lane in range(32)] for j in range(WM)]
+            for i in range(MT // WM):
+                m = wm + WM * i
+                if m * 16 >= R:
+                    break
+                for ks in (0, 1):
+                    # a_lane: row lane % 16, column 8 (lane / 16), k-step ks
+                    addr = [(16 * m + lane % 16, 16 * ks + 8 * (lane // 16))
+                            for lane in range(32)]
+                    a = ldmatrix_x4(a_tile, addr)
+                    for j in range(WM):
+                        bk = [[bl[4 * ks:4 * ks + 2], bl[4 * ks + 2:4 * ks + 4]]
+                              for bl in b[j]]
+                        key = (warp, i, j)
+                        acc[key] = mma_m16n8k16(
+                            acc.get(key, [np.zeros(4)] * 32), a, bk)
+    P = np.zeros((RB, 64))
+    for (warp, i, j), lanes in acc.items():
+        wm, wn = warp % WM, warp // WM
+        m, n = wm + WM * i, WM * wn + j
+        for lane in range(32):
+            for e in range(4):
+                col = n * 8 + (lane & 3) * 2 + (e & 1)
+                pc = (col % 16) * 4 + col // 16 if cell else col
+                P[m * 16 + (lane >> 2) + (e >> 1) * 8, pc] = lanes[lane][e]
+    return P
+
+
+@pytest.mark.parametrize("R", [9, 25, 70, 150])
+@pytest.mark.parametrize("product", ["cell0", "cell1", "q", "logits"])
+def test_kernel_block_model_computes_x_at_w(product, R):
+    """The numpy model of a block of mma_prod_kernel, on the pack's tiles,
+    gives x @ W for its 64 columns: a cell's block its units' four gates
+    side by side (the epilogue's order), a linear's block its columns.
+    R ragged in the row tiles launch_prod takes: 9 rows of 16 (one row
+    tile: a warp a column tile), 25 of 32, 70 of 128 and 150 of 160 (two
+    warps a column tile, split by row tile)."""
+    H, E, A, V = DIMS["kernel"]
+    w = _weights("kernel")
+    step = fi.pack_step_weights_mma(w)
+    rng = np.random.default_rng(5)
+    if product.startswith("cell"):
+        l = int(product[4:])
+        cat = _cells(w)[l].double().numpy()
+        K = cat.shape[0]
+        first = sum(c.shape[0] // 32 for c in _cells(w)[:l]) * (H // 16)
+        tiles = step["cell"][first:first + (H // 16) * (K // 32)].view(
+            H // 16, K // 32, -1).double().numpy()
+        cb = 1
+        cols = [q * H + 16 * cb + u for u in range(16) for q in range(4)]
+    else:
+        name = {"q": "wa", "logits": "out_w"}[product]
+        cat = w[name].double().numpy()
+        K = cat.shape[0]
+        tiles = step[name].double().numpy()
+        cb = tiles.shape[0] - 1     # the last block: ragged columns
+        cols = list(range(64 * cb, min(64 * cb + 64, cat.shape[1])))
+    x = torch.from_numpy(rng.standard_normal((R, K)).astype(
+        np.float32)).to(BF).double().numpy()
+    P = kernel_block(x, tiles[cb], product.startswith("cell"))
+    want = x @ cat[:, cols]
+    np.testing.assert_allclose(P[:R, :len(cols)], want, rtol=1e-12,
+                               atol=1e-12)
+    assert not P[R:].any() and not P[:, len(cols):].any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_column_block_packs_unchanged(dtype):
+    """The f32 decode pack (decode_weights) and K3's per-call pack
+    (pack_step_weights, at f32 and at bf16) keep the column-block layout:
+    equal bit for bit to the numpy model of it."""
+    H, E, A, V = DIMS["kernel"]
+    w = _weights("kernel")
+    if dtype == "float32":
+        w = {k: v.float() for k, v in w.items()}
+    want = old_layout(w)
+    got = fi.pack_step_weights(w)
+    for k, v in want.items():
+        assert got[k].dtype == w["wh"].dtype, k
+        np.testing.assert_array_equal(got[k].float().numpy(), v)
+    assert fi.pack_decode_step(w)["cell"].shape == (
+        got["cell"].shape if dtype == "float32" else fi._step_shapes(
+            H, L, E, A, V, mma=True)["cell"])
+
+
+def test_f32_decode_weights_unchanged():
+    """decode_weights at f32 holds pack_step_weights' layout, equal to the
+    numpy model; at bf16 the tensor-core one, which unpacks to it."""
+    mcfg = dict(TINY_MODEL_CFG, rnn_config=dict(
+        TINY_MODEL_CFG["rnn_config"], dec_vocab_size=12))
+    tp, _ = seq2seq.init_model(mcfg, seed=1)
+    w32 = seq2seq.decode_weights(tp)
+    for k, v in old_layout(w32).items():
+        assert w32["step"][k].dtype == torch.float32
+        np.testing.assert_array_equal(w32["step"][k].numpy(), v)
+    w16 = seq2seq.decode_weights(tp, BF)
+    assert w16["step"]["cell"].dim() == 2
+    un = unpack_step(w16["step"], w16)
+    for k, v in old_layout(w16).items():
+        np.testing.assert_array_equal(un[k], v)
+
+
+def test_step_weights_refuses_bf16_column_blocks():
+    """A bf16 step in the column-block layout (pack_step_weights) is
+    refused by name, before any launch."""
+    H, E, A, V = DIMS["kernel"]
+    w = _weights("kernel")
+    w["step"] = fi.pack_step_weights(w)
+    with pytest.raises(ValueError, match="tensor-core layout"):
+        fi.step_weights(w, H, L, E, A, V, BF)
+
+
+def test_decode_split_tells_the_products_apart():
+    """chip_smoke's split of a profiled decode: within a step the product
+    launches before attention are the L cells, then q; after it ctx, then
+    logits; each kernel gets the part of its span past the end of those
+    before it (overlapping programmatic dependent launches), and the
+    gaps are the rest of the call's span."""
+    import chip_smoke
+
+    step = ["mma_prod_kernel<8, 4, true>"] * 2 + [
+        "mma_prod_kernel<8, 4, false>", "attention_kernel<bf16>",
+        "mma_prod_kernel<8, 4, false>", "mma_prod_kernel<8, 4, false>",
+        "greedy_argmax_kernel"]
+    spans, t = [], 0.0
+    for _ in range(2):
+        for i, name in enumerate(step):
+            # each span starts 1 µs before the previous one ends
+            spans.append((t - (1.0 if spans else 0.0), t + 10.0 * (i + 1),
+                          name))
+            t += 10.0 * (i + 1)
+        t += 5.0    # the next step's first span starts 4 µs after
+    parts = chip_smoke.split_spans(spans[::-1], layers=2)
+    ms = {k: round(v * 1e3, 6) for k, v in parts.items()}
+    assert ms == {"cells": 61.0, "q": 60.0, "ctx": 100.0, "logits": 120.0,
+                  "attention": 80.0, "selection": 140.0, "other": 0.0,
+                  "launch gaps": 4.0}, ms
