@@ -20,11 +20,16 @@ after a warm-up, float32 with TF32 off; every kernel's bf16 mode
 (compute_dtype bfloat16: K1 eval and train, K2, K3, K4, K5, K6) on the
 same inputs, and one K5 and one K6 call at bf16 split by kernel under
 torch.profiler (chip_smoke.decode_split: cells, q, ctx, logits,
-attention, selection, the rest, launch gaps); then one train step, the
+attention, selection, the rest, launch gaps), one K3 and one K4 call at
+bf16 by launch kind (chip_smoke.train_split: train cells, linears,
+d_top, layer backward, attention, select / head, the rest, launch gaps);
+then one train step, the
 trainer's ``NN.train_step`` on chip_smoke's phase 5 batch (B=32, 640
 frames, U=64) of its synthetic es_en_20h training experiment, as the
 host's clock sees it around 10 steps that end in a synchronize, after two
-warm-up steps; then that experiment's two first epochs through
+warm-up steps, and the same at compute_dtype bfloat16 (a second NN on
+that experiment with extras.compute_dtype set); then that experiment's
+two first epochs through
 ``NN.train_epoch`` (96 utterances, the trainer's own utts/s) and its dev
 split through ``NN.predict`` (32 utterances, the median of three passes
 after a warm-up); then chip_smoke's phase 4, the
@@ -46,11 +51,16 @@ import chip_smoke as cs
 # the parts of chip_smoke.decode_split, as keys
 SPLIT = ("cells", "q", "ctx", "logits", "attention", "selection", "other",
          "launch_gaps")
+# and of chip_smoke.train_split
+TRAIN_SPLIT = ("train_cells", "linears", "d_top", "layer_backward",
+               "attention", "select_head", "other", "launch_gaps")
 ORDER = ("k1", "k1t", "k2", "k3", "k4", "k1t_b8", "k2_b8", "k3_b8", "k4_b8",
          "k1t_b16", "k2_b16", "k3_b16", "k4_b16", "k5", "k6", "k1_bf16",
          "k1t_bf16", "k2_bf16", "k3_bf16", "k4_bf16", "k5_bf16", "k6_bf16",
          *(f"{k}_bf16_{p}" for k in ("k5", "k6") for p in SPLIT),
-         "train_step", "epoch1_utts_s", "epoch2_utts_s", "predict_utts_s",
+         *(f"{k}_bf16_{p}" for k in ("k3", "k4") for p in TRAIN_SPLIT),
+         "train_step", "train_step_bf16", "epoch1_utts_s", "epoch2_utts_s",
+         "predict_utts_s",
          "greedy_utts_s", "beam_utts_s")
 SLICE_PASSES = 3
 TRAIN_STEPS = 10
@@ -58,8 +68,9 @@ TRAIN_STEPS = 10
 
 def time_bf16(params, state, mcfg, X, enc, h0, c0, y_in, coins):
     """The bf16 kernels (compute_dtype bfloat16) at the f32 kernels'
-    shapes and inputs, and one K5 and one K6 call at bf16 split by kernel
-    (chip_smoke.decode_split): {key: ms}."""
+    shapes and inputs, one K5 and one K6 call at bf16 split by kernel
+    (chip_smoke.decode_split) and one K3 and one K4 call by launch kind
+    (chip_smoke.train_split): {key: ms}."""
     import torch
 
     from ast_tpu_torch.models import seq2seq
@@ -90,6 +101,10 @@ def time_bf16(params, state, mcfg, X, enc, h0, c0, y_in, coins):
     db = (r, ht, enc16, c0, w_train, torch.randn_like(ht), 777, cs.DROP,
           cs.DROP)
     out["k4_bf16"] = cs.cuda_ms(lambda: fd.decoder_backward(*db), 10)
+    for key, fn in (("k3_bf16", lambda: fd.decoder_forward(*dec)),
+                    ("k4_bf16", lambda: fd.decoder_backward(*db))):
+        out.update({f"{key}_{p.replace(' / ', '_').replace(' ', '_')}": ms
+                    for p, ms in cs.train_split(fn).items()})
     calls = {
         "k5_bf16": lambda: fi.greedy_decode_fused(enc16, h0, c0, w, cs.STOP),
         "k6_bf16": lambda: fi.beam_decode_fused(
@@ -184,18 +199,31 @@ def time_tree(tree):
                 enc, h0, c0, w_dec, cs.N_BEAM, cs.K_BEAM, cs.STOP), 3)
             out.update(time_bf16(params, state, mcfg, X, enc, h0, c0, y_in,
                                  coins))
-        nn = NN(cs.make_train_experiment(root)[0], "cuda")
+        train_exp = cs.make_train_experiment(root)[0]
+        nn = NN(train_exp, "cuda")
         Xb, yb = cs.train_batch(dev)
         batch = {"X": Xb.cpu().numpy(), "y": yb.cpu().numpy(),
                  "n_real": cs.B, "utts": [""] * cs.B}
-        for i in range(2):
-            nn.train_step(batch, i)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for i in range(TRAIN_STEPS):
-            nn.train_step(batch, 2 + i)
-        torch.cuda.synchronize()
-        out["train_step"] = (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+
+        def step_ms(nn):
+            for i in range(2):
+                nn.train_step(batch, i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(TRAIN_STEPS):
+                nn.train_step(batch, 2 + i)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
+
+        out["train_step"] = step_ms(nn)
+        cfg_path = os.path.join(train_exp, "train_cfg.json")
+        with open(cfg_path) as f:
+            saved_cfg = f.read()
+        cs.edit_train_cfg(train_exp, lambda c: c.setdefault(
+            "extras", {}).update(compute_dtype="bfloat16"))
+        out["train_step_bf16"] = step_ms(NN(train_exp, "cuda"))
+        with open(cfg_path, "w") as f:
+            f.write(saved_cfg)
         tcfg = nn.cfg.train
         for epoch in (1, 2):
             nn.timer.reset()

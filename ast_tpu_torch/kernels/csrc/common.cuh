@@ -15,9 +15,10 @@
 // with bfloat16 weights (W = __nv_bfloat16, ast_tpu's compute_dtype
 // bfloat16): the packed matrices in bf16, each input value rounded to bf16
 // where the product reads it (__float2bfloat16_rn), and the sums in f32
-// -- FMAs for K1 eval, the tensor cores' mma.sync bf16 -> f32 for the
-// decode step of K5 and K6 (mma_prod_kernel) -- a product of two bf16
-// values is exact in f32, so only the order of the sum differs from
+// -- FMAs for the encoder's waves (K1 eval), the tensor cores' mma.sync
+// bf16 -> f32 for every single product (the decode step of K5 and K6,
+// K3's and K4's products: the mma_prod_* kernels) -- a product of two
+// bf16 values is exact in f32, so only the order of the sum differs from
 // ast_tpu's f32-accumulated bf16 dot.  The
 // training kernels (K1 train, K2, K3, K4) have a bf16 mode too: the same
 // products at W = __nv_bfloat16, their residual streams stored in bf16
@@ -149,9 +150,10 @@ using CellBwdArgs = CellBwdArgsT<float>;
 
 // One product of decode_step.cu:  z = [seg0 | seg1 | seg2] @ W, W packed
 // as (column blocks, ktot, 64) with its columns zero-padded to a multiple
-// of 64, in float32 or (the eval products) bfloat16, as the launch says
-// (the bf16 decode step's: each 32 x 64 tile of a block in the m16n8k16
-// B-fragment order, ops/fused_infer.pack_step_weights_mma).  A linear
+// of 64, in float32 or bfloat16, as the launch says (at bf16 each 32 x 64
+// tile of a block in the m16n8k16 B-fragment order, ops/fused_infer.
+// mma_tiles: the decode step's and K3's pack_step_weights_mma, K4's
+// pack_backward_weights).  A linear
 // layer writes out = act(z + bias) (R, N), bias nullptr
 // = none.  A cell (N = H; packed column q * 16 + u of block cb is gate q
 // of unit 16 cb + u) takes the gates [i, f, g, o] of z + bias, c_out =
@@ -312,8 +314,9 @@ cudaError_t launch_linear_wave_bf16(Wave<NoExtra>& w, cudaStream_t s);
 // The products and attention of decoder training (decode_step.cu), all
 // programmatic dependent launches.  A linear product, a cell product in
 // train mode, and a linear product in backward mode; the _bf16 launchers
-// take bfloat16 packed matrices (and Prod::out16, CellTrainOut's and
-// BwdEpilogueT's bf16 streams):
+// take bfloat16 packed matrices in the B-fragment order and run on the
+// tensor cores (and Prod::out16, CellTrainOut's and BwdEpilogueT's bf16
+// streams):
 cudaError_t launch_linear_prod(const Prod& a, cudaStream_t s);
 cudaError_t launch_cell_train_prod(const Prod& a, const CellTrainOut& tr,
                                    cudaStream_t s);

@@ -94,30 +94,37 @@
 // normalised weights to bf16 before the context sum (ast_tpu's _dot_c0).
 // A step then reads half the bytes of weights and encoder states.
 //
-// The decode step's products at bf16 (K5, K6: mma_prod_kernel, MMA in
-// prod_body) run on the tensor cores, mma.sync.aligned.m16n8k16 bf16 ->
-// f32 with the accumulators in registers.  Each thread rounds the f32
-// input values it staged into a bf16 tile of the block's RB rows (a
+// Every single product at bf16 (prod_body with MMA) runs on the tensor
+// cores, mma.sync.aligned.m16n8k16 bf16 -> f32 with the accumulators in
+// registers: the decode step's cells and linears (K5, K6, mma_prod_kernel),
+// K3's train cell (mma_prod_train_kernel) and linears, and K4's backward
+// products (mma_prod_bwd_kernel) and d_cv linear.  Each thread rounds the
+// f32 input values it staged into a bf16 tile of the block's RB rows (a
 // multiple of 16, zero past R) at an 80-byte row stride, so the 8 rows
 // an ldmatrix phase reads fall in distinct bank groups.  The weight
-// tiles are packed once per model in the B-fragment order
-// (ops/fused_infer.pack_step_weights_mma): a tile is still one 4 KB bulk
+// tiles are packed in the B-fragment order (ops/fused_infer.mma_tiles:
+// once per model for decoding, pack_step_weights_mma; once per call in
+// training, K3 the same pack and K4's transposed matrices by
+// ops/fused_decoder.pack_backward_weights): a tile is still one 4 KB bulk
 // copy on the mbarrier ring, and each lane reads its fragments of both
 // 16-row k-steps with one conflict-free 16-byte load.  The 8 warps split
 // the block's RB / 16 row tiles and 8 column tiles of 8, two x four where
 // the row tiles are even (each input fragment feeds two products, and the
 // input tile is read 4 times, not 8), every k; so the partial sums are
-// one k-group of the same buffer, and the cluster reduction, the
-// epilogues, the row gather, PDL and the done flag are the FMA path's.
-// A product of two bf16 values is exact in f32, so only the order of the
-// sums differs.  mma.sync and not wgmma: a block's product is at most 256
-// rows x 64 columns x 384 inputs a launch, and the cycle split
+// one k-group of the same buffer (row 16 m + lane / 4 + 8 (e / 2), column
+// 8 n + 2 (lane % 4) + e % 2 of accumulator e; a cell's gates of a unit
+// side by side), and the cluster reduction, every mode's epilogue, the
+// row gather, PDL and the done flag are the FMA path's.  A product of two
+// bf16 values is exact in f32, so only the order of the sums differs.
+// mma.sync and not wgmma: a block's product is at most 256 rows x 64
+// columns x 2048 inputs a launch, and the cycle split
 // (scripts/torch_prod_phases.py; PERF.md) puts a launch's time in its
 // tile pipeline's barriers, the rounding pass and the cluster epilogue
 // more than in the mma; wgmma would add the swizzled layouts and
-// descriptors for that small share.  K1 eval's waves keep FMAs on bf16
-// tiles (each weight quad widened to f32 in registers, the staged inputs
-// rounded in place).
+// descriptors for that small share.  The encoder's waves (K1 eval, K1
+// train, K2) keep FMAs on bf16 tiles (each weight quad widened to f32 in
+// registers, the staged inputs rounded in place); no single product runs
+// FMAs at bf16.
 //
 // The training modes (K1 train, K2, K3, K4) run at W = __nv_bfloat16 too,
 // for ast_tpu's bf16 training: the same products with bf16 weight tiles
@@ -302,10 +309,9 @@ __device__ __forceinline__ void cp_wait() {
 
 // A block's tiles: a ring of 8 stages up to 32 rows (latency is what a
 // few rows run into), 4 up to 64, 3 from 128 (160 rows: 94 KB); a stage
-// holds the f32 input rows and a weight tile of W.  MMA (the decode
-// step's tensor-core product at bf16): one input-axis group, and after
-// the ring the bf16 input tile the warps' ldmatrix reads (RB rows of
-// XLDA).
+// holds the f32 input rows and a weight tile of W.  MMA (a tensor-core
+// product at bf16): one input-axis group, and after the ring the bf16
+// input tile the warps' ldmatrix reads (RB rows of XLDA).
 template <int TR, int RGN, typename W = float, bool MMA = false>
 struct ProdShape {
   static constexpr int KGN = MMA ? 1 : 16 / RGN;  // input-axis groups
@@ -384,9 +390,9 @@ __device__ __forceinline__ void cell_bwd_element(const CellBwdArgsT<T>& a,
 // PROD_BWD, the EncCell of the wave's cells.  wave_cb: in a wave, the
 // block's column block within its product (else the block index gives
 // it).  W: the packed matrix's element type, and in the training modes
-// the residual streams'.  MMA: the decode step's bf16 product on the
-// tensor cores (mma_prod_kernel), its weight tiles packed in the
-// m16n8k16 B-fragment order (ops/fused_infer.pack_step_weights_mma).
+// the residual streams'.  MMA: a single product at bf16 on the tensor
+// cores (the mma_prod_* kernels), its weight tiles packed in the m16n8k16
+// B-fragment order (ops/fused_infer.mma_tiles).
 template <int TR, int RGN, int MODE, typename W, typename Extra,
           bool MMA = false>
 __device__ __forceinline__ void prod_body(const Prod& a, const Extra& ex,
@@ -398,9 +404,8 @@ __device__ __forceinline__ void prod_body(const Prod& a, const Extra& ex,
       MODE == PROD_CELL || MODE == PROD_CELL_TRAIN || ENC_CELL;
   using S = ProdShape<TR, RGN, W, MMA>;
   constexpr int KGN = S::KGN, RB = S::RB, STAGES = S::STAGES;
-  static_assert(!MMA || (IS_BF16<W> && RB % 16 == 0 &&
-                         (MODE == PROD_LINEAR || MODE == PROD_CELL)),
-                "the tensor-core product is the decode step's at bf16");
+  static_assert(!MMA || (IS_BF16<W> && RB % 16 == 0 && !WAVE),
+                "the tensor-core product is the single products' at bf16");
   grid_dep_wait();
   if (a.done && *a.done) return;  // every block of the launch alike
   grid_dep_launch();
@@ -749,28 +754,49 @@ __device__ __forceinline__ void prod_body(const Prod& a, const Extra& ex,
   cluster.sync();  // no block leaves while another reads its partials
 }
 
+// The single products on FMAs: f32 only (at bf16 they run on the tensor
+// cores, below).
 template <int TR, int RGN, bool CELL, typename W>
 __global__ void __launch_bounds__(THREADS) prod_kernel(Prod a) {
+  static_assert(!IS_BF16<W>, "bf16 products run mma_prod_kernel");
   prod_body<TR, RGN, CELL ? PROD_CELL : PROD_LINEAR, W>(a, NoExtra{});
-}
-
-// The decode step's products at bf16 (K5, K6) on the tensor cores.
-template <int TR, int RGN, bool CELL>
-__global__ void __launch_bounds__(THREADS) mma_prod_kernel(Prod a) {
-  prod_body<TR, RGN, CELL ? PROD_CELL : PROD_LINEAR, __nv_bfloat16, NoExtra,
-            true>(a, NoExtra{});
 }
 
 template <int TR, int RGN, typename W>
 __global__ void __launch_bounds__(THREADS)
     prod_train_kernel(Prod a, CellTrainOut tr) {
+  static_assert(!IS_BF16<W>, "bf16 products run mma_prod_train_kernel");
   prod_body<TR, RGN, PROD_CELL_TRAIN, W>(a, tr);
 }
 
 template <int TR, int RGN, typename W>
 __global__ void __launch_bounds__(THREADS)
     prod_bwd_kernel(Prod a, BwdEpilogueT<W> e) {
+  static_assert(!IS_BF16<W>, "bf16 products run mma_prod_bwd_kernel");
   prod_body<TR, RGN, PROD_BWD, W>(a, e);
+}
+
+// The single products at bf16 on the tensor cores: the decode step's cells
+// and linears (K5, K6) and K3's linears; K3's train cell; K4's backward
+// products with their epilogue.
+template <int TR, int RGN, bool CELL>
+__global__ void __launch_bounds__(THREADS) mma_prod_kernel(Prod a) {
+  prod_body<TR, RGN, CELL ? PROD_CELL : PROD_LINEAR, __nv_bfloat16, NoExtra,
+            true>(a, NoExtra{});
+}
+
+template <int TR, int RGN>
+__global__ void __launch_bounds__(THREADS)
+    mma_prod_train_kernel(Prod a, CellTrainOut tr) {
+  prod_body<TR, RGN, PROD_CELL_TRAIN, __nv_bfloat16, CellTrainOut, true>(
+      a, tr);
+}
+
+template <int TR, int RGN>
+__global__ void __launch_bounds__(THREADS)
+    mma_prod_bwd_kernel(Prod a, BwdEpilogueT<__nv_bfloat16> e) {
+  prod_body<TR, RGN, PROD_BWD, __nv_bfloat16, BwdEpilogueT<__nv_bfloat16>,
+            true>(a, e);
 }
 
 // A wave: the cluster's slot among the launch's column blocks gives its
@@ -1139,7 +1165,7 @@ cudaError_t launch_clustered(void (*kernel)(KArgs...), size_t* opted,
 }
 
 // extra: the CellTrainOut of a PROD_CELL_TRAIN launch, the BwdEpilogue of
-// a PROD_BWD one, else nothing.  MMA: mma_prod_kernel.
+// a PROD_BWD one, else nothing.  MMA: the tensor-core kernels (bf16).
 template <int TR, int RGN, int MODE, typename W, bool MMA, typename... Extra>
 cudaError_t launch_prod_tile(const Prod& a, int col_blocks, cudaStream_t s,
                              const Extra&... extra) {
@@ -1149,7 +1175,15 @@ cudaError_t launch_prod_tile(const Prod& a, int col_blocks, cudaStream_t s,
   int ktot = 0;
   for (int i = 0; i < a.nseg; ++i) ktot += a.seg[i].K;
   const int row_chunks = (a.R + S::RB - 1) / S::RB;
-  if constexpr (MMA)
+  if constexpr (MMA && MODE == PROD_CELL_TRAIN)
+    return launch_clustered(mma_prod_train_kernel<TR, RGN>, opted, MODE,
+                            S::RB, S::BYTES, col_blocks, row_chunks,
+                            ktot / KT, s, a, extra...);
+  else if constexpr (MMA && MODE == PROD_BWD)
+    return launch_clustered(mma_prod_bwd_kernel<TR, RGN>, opted, MODE,
+                            S::RB, S::BYTES, col_blocks, row_chunks,
+                            ktot / KT, s, a, extra...);
+  else if constexpr (MMA)
     return launch_clustered(mma_prod_kernel<TR, RGN, MODE == PROD_CELL>,
                             opted, MODE, S::RB, S::BYTES, col_blocks,
                             row_chunks, ktot / KT, s, a);
@@ -1366,20 +1400,23 @@ cudaError_t launch_linear_wave_bf16(Wave<NoExtra>& w, cudaStream_t s) {
   return launch_wave<PROD_WAVE_LINEAR, __nv_bfloat16>(w, s);
 }
 
+// K3's and K4's products at bf16, on the tensor cores (their weights in
+// the B-fragment order: ops/fused_infer.pack_step_weights_mma,
+// ops/fused_decoder.pack_backward_weights)
 cudaError_t launch_linear_prod_bf16(const Prod& a, cudaStream_t s) {
-  return launch_prod<PROD_LINEAR, __nv_bfloat16>(a, s);
+  return launch_prod<PROD_LINEAR, __nv_bfloat16, true>(a, s);
 }
 
 cudaError_t launch_cell_train_prod_bf16(const Prod& a,
                                         const CellTrainOut& tr,
                                         cudaStream_t s) {
-  return launch_prod<PROD_CELL_TRAIN, __nv_bfloat16>(a, s, tr);
+  return launch_prod<PROD_CELL_TRAIN, __nv_bfloat16, true>(a, s, tr);
 }
 
 cudaError_t launch_bwd_prod_bf16(const Prod& a,
                                  const BwdEpilogueT<__nv_bfloat16>& e,
                                  cudaStream_t s) {
-  return launch_prod<PROD_BWD, __nv_bfloat16>(a, s, e);
+  return launch_prod<PROD_BWD, __nv_bfloat16, true>(a, s, e);
 }
 
 cudaError_t launch_attention_train(const float* enc, const float* q,

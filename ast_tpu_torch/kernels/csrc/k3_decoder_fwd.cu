@@ -34,7 +34,10 @@
 // bfloat16 (ast_tpu's compute_dtype bfloat16; k3_decoder_forward_bf16):
 // the packed matrices and the encoder states in bf16 (the embedding and
 // biases f32, holding bf16 values), the products at W = __nv_bfloat16
-// rounding the inputs they stage, attention scoring against the f32
+// rounding the inputs they stage, on the tensor cores (mma.sync bf16 ->
+// f32 over the B-fragment tiles of ops/fused_infer.pack_step_weights_mma,
+// packed once per call: the same tiles and kernels as K5 / K6 at bf16,
+// the cell with its train epilogue), attention scoring against the f32
 // query and rounding its weights before the context sum.  The streams
 // (acts, c_all, h_all, alphas, q, cv, emb) are stored in bf16, ht in f32,
 // and not x_drop, which the backward regenerates from h_all (ast_tpu's
@@ -262,11 +265,12 @@ AST_EXPORT int k3_decoder_forward(
 }
 
 // bf16: enc and the packed matrices (cell, wa, ctx_w, out_w) in bfloat16,
-// embed and the biases f32 (bf16 values); the streams acts, c_all, h_all,
-// alphas, q, cv, emb in bfloat16 (shapes as above), ht f32, no x_drop
-// stream.  The f32 state: hbuf (2, L, B, H), c (L, B, H) holding c0 on
-// entry (the call's final c on exit), x_drop (L, B, H), q_w, cv_w (B, H),
-// emb_w (B, E).
+// in ops/fused_infer.pack_step_weights_mma's tensor-core layout (the same
+// sizes and offsets), embed and the biases f32 (bf16 values); the
+// streams acts, c_all, h_all, alphas, q, cv, emb in bfloat16 (shapes as
+// above), ht f32, no x_drop stream.  The f32 state: hbuf (2, L, B, H),
+// c (L, B, H) holding c0 on entry (the call's final c on exit), x_drop
+// (L, B, H), q_w, cv_w (B, H), emb_w (B, E).
 AST_EXPORT int k3_decoder_forward_bf16(
     const __nv_bfloat16* enc, const float* embed, const __nv_bfloat16* cell,
     const float* bias, const __nv_bfloat16* wa, const float* wa_b,

@@ -42,11 +42,14 @@
 // K3's bf16 streams (acts, c_all, alphas; c0 rounded to bf16, ast_tpu's
 // c_prev of step 0) read widened, the transposed matrices and the encoder
 // states in bf16, the products rounding d_pre, d_q and dz as they stage
-// them and the attention backward rounding d_scores before the d_q sum
-// (d_cv stays f32 against enc).  The output streams dz, d_pre, d_scores,
-// d_cv, d_q, d_emb are stored in bf16; what a later launch reads stays
-// f32 in small buffers beside them (each layer's dz (L, B, 4H), the
-// step's d_pre (B, A), d_cv and d_q (B, H)); dh0, dc0 f32.
+// them, on the tensor cores (mma.sync bf16 -> f32 over the matrices'
+// B-fragment tiles, which pack_backward_weights lays out at bf16; the
+// epilogues the f32 mode's), and the attention backward rounding
+// d_scores before the d_q sum (d_cv stays f32 against enc).  The output
+// streams dz, d_pre, d_scores, d_cv, d_q, d_emb are stored in bf16; what
+// a later launch reads stays f32 in small buffers beside them (each
+// layer's dz (L, B, 4H), the step's d_pre (B, A), d_cv and d_q (B, H));
+// dh0, dc0 f32.
 #include <type_traits>
 
 #include "common.cuh"
@@ -242,8 +245,10 @@ AST_EXPORT int k4_decoder_backward(
 }
 
 // bf16: acts, c_all, c0 (K3's c0 rounded), alphas, enc, the packed
-// transposed matrices and the output streams dz, d_pre, d_scores, d_cv,
-// d_q, d_emb in bfloat16 (shapes as above); ht, d_ht and the carries f32.
+// transposed matrices (each (column blocks, K / 32, 2048) tiles in the
+// B-fragment order: the same sizes and offsets) and the output streams
+// dz, d_pre, d_scores, d_cv, d_q, d_emb in bfloat16 (shapes as above);
+// ht, d_ht and the carries f32.
 // f32 scratch: dz_w (L, B, 4H), d_pre_w (B, A), d_cv_w and d_q_w (B, H).
 AST_EXPORT int k4_decoder_backward_bf16(
     const __nv_bfloat16* acts, const __nv_bfloat16* c_all,

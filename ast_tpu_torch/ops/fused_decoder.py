@@ -15,10 +15,13 @@ differentiable call; its backward is K4, then ``d_enc`` and the weight
 gradients as time-batched GEMMs, as ``_fd_bwd`` does.
 
 The kernels' products read their weights as (column blocks, K, 64)
-tiles.  In training the weights change every step, so each wrapper packs
-them once per call: K3 the forward layout
-(``fused_infer.pack_step_weights``), K4 the transposed matrices of its
-backward products (:func:`pack_backward_weights`).
+tiles; at bf16, where they run on the tensor cores, each 32 x 64 tile in
+the m16n8k16 B-fragment order (``fused_infer.mma_tiles``).  In training
+the weights change every step, so each wrapper packs them once per call:
+K3 the decode step's layout (``fused_infer.pack_decode_step``:
+``pack_step_weights``, at bf16 ``pack_step_weights_mma``), K4 the
+transposed matrices of its backward products
+(:func:`pack_backward_weights`, at bf16 in the fragment order).
 
 The selected inputs are int ids (``sel``), not one-hot rows: the
 embedding is a row gather, and its gradient the one-hot product of
@@ -56,7 +59,8 @@ from ast_tpu_torch.ops import embedding
 from ast_tpu_torch.ops.bf16 import BF16, rounded, widen
 from ast_tpu_torch.ops.dropout import drop_mask, drop_threshold
 from ast_tpu_torch.ops.fused_infer import (
-    STEP_ORDER, check_decoder_inputs, pack_step_weights, put_transposed)
+    STEP_ORDER, check_decoder_inputs, pack_decode_step, put_transposed,
+    put_transposed_tiles)
 from ast_tpu_torch.ops.lstm import lstm_gate_acts, lstm_gates_backward
 
 W_NAMES = ("wx0", "wx_rest", "wh", "b", "wa", "wa_b", "ctx_w", "ctx_b",
@@ -284,7 +288,11 @@ def pack_backward_weights(w):
 
     A matrix goes in by one strided copy when its columns start and end on
     a block (8 copies at L = 3), with up to two more for a ragged edge.
-    Made once per backward call: the weights change every step."""
+    At bf16, where the products run on the tensor cores, each 32 x 64
+    tile in the B-fragment order (``fused_infer.put_transposed_tiles``,
+    the same copies): each view (column blocks, K / 32, 2048), the same
+    sizes and offsets (K, a multiple of 32, is A, H + A and 4H).  Made
+    once per backward call: the weights change every step."""
     L, H = w["wh"].shape[0], w["wh"].shape[1]
     A = w["ctx_w"].shape[1]
     wxs = [w["wx0"]] + [w["wx_rest"][l] for l in range(L - 1)]
@@ -293,17 +301,20 @@ def pack_backward_weights(w):
     ragged = any(N % _TILE_N for _, N in shapes)
     flat = (torch.zeros if ragged else torch.empty)(
         (sum(sizes),), dtype=w["wh"].dtype, device=w["wh"].device)
+    # a view's second axis counts K rows, or (bf16) tiles of 32 rows
+    k = _TILE_K if flat.dtype == BF16 else 1
+    put = put_transposed_tiles if k > 1 else put_transposed
     views, off = [], 0
     for (K, _), size in zip(shapes, sizes):
-        views.append(flat[off:off + size].view(-1, K, _TILE_N))
+        views.append(flat[off:off + size].view(-1, K // k, k * _TILE_N))
         off += size
     cv, top, layers = views[0], views[1], views[2:]
-    put_transposed(cv, 0, w["ctx_w"][:H])
-    put_transposed(top[:, :H], 0, w["wa"])
-    put_transposed(top[:, H:], 0, w["ctx_w"][H:])
+    put(cv, 0, w["ctx_w"][:H])
+    put(top[:, :H // k], 0, w["wa"])
+    put(top[:, H // k:], 0, w["ctx_w"][H:])
     for lay, wh, wx in zip(layers, w["wh"], wxs):
-        put_transposed(lay, 0, wh)
-        put_transposed(lay, H, wx)
+        put(lay, 0, wh)
+        put(lay, H, wx)
     return {"flat": flat, "cv": cv, "top": top, "layer": layers}
 
 
@@ -326,7 +337,7 @@ def decoder_forward(enc, h0, c0, w, y_in, coins, seed, drop_emb, drop_rnn):
                              f"CUDA tensor of shape {shape}")
     dev = enc.device
     f32 = dict(device=dev)
-    packed = pack_step_weights(w)
+    packed = pack_decode_step(w)
     shapes = {"acts": (U, L, B, 4 * H), "c_all": (U, L, B, H),
               "h_all": (U, L, B, H), "x_drop": (U, L, B, H),
               "alphas": (U, B, T), "q": (U, B, H), "cv": (U, B, H),

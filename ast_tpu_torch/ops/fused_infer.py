@@ -536,8 +536,9 @@ _MMA_TILE = _DECODE_TILE * 64
 
 def mma_tiles(m):
     """(..., K, 64) -> (..., ceil(K / 32), 2048): each 32 x 64 tile of a
-    column block (rows past K zero) in the order the bf16 decode step's
-    warps read it.  For column tile ``nt`` (columns 8 nt .. 8 nt + 7),
+    column block (rows past K zero) in the order the warps of a bf16
+    product (decode_step.cu, MMA) read it.  For column tile ``nt``
+    (columns 8 nt .. 8 nt + 7),
     lane ``l`` of a warp that multiplies it loads 8 values at offset
     8 (32 nt + l): the m16n8k16 B fragments (b0, b1) of the tile's
     k-steps 0 and 1, where register i of k-step ks holds rows
@@ -557,34 +558,93 @@ def mma_tiles(m):
     return t.permute(*perm).reshape(*lead, kt, _MMA_TILE)
 
 
+def put_transposed_tiles(out, n0, m):
+    """:func:`put_transposed` into :func:`mma_tiles`' order: m^T into
+    columns n0 .. n0 + n - 1 of ``out`` (..., column blocks, ceil(K /
+    32), 2048), m (..., n, K) with the same leading dims, rows past K
+    zero.  Whole blocks go in one permuted copy each; a ragged head or
+    tail through a zero block, added (``out`` must hold zeros there)."""
+    *lead, n, K = m.shape
+    kt = out.shape[-2]
+    if kt * _DECODE_TILE != K:
+        m = torch.nn.functional.pad(m, (0, kt * _DECODE_TILE - K))
+    d, i = len(lead), 0
+    while i < n:
+        blk, c = divmod(n0 + i, 64)
+        if c == 0 and n - i >= 64:
+            nb = (n - i) // 64
+            # column 64 b + 8 nt + g, row 32 kt + 16 ks + 8 i + 2 t + h:
+            # (..., b, nt, g, kt, ks, i, t, h) -> (..., b, kt, nt, g, t, ks,
+            # i, h), mma_tiles' order
+            src = (m[..., i:i + nb * 64, :].unflatten(d, (nb, 8, 8))
+                   .unflatten(d + 3, (kt, 2, 2, 4, 2)))
+            perm = list(range(d)) + [d + k for k in (0, 3, 1, 2, 6, 4, 5, 7)]
+            out[..., blk:blk + nb, :, :].unflatten(
+                -1, (8, 8, 4, 2, 2, 2)).copy_(src.permute(*perm))
+            i += nb * 64
+        else:
+            take = min(64 - c, n - i)
+            cols = m.new_zeros((*lead, kt * _DECODE_TILE, 64))
+            cols[..., c:c + take] = m[..., i:i + take, :].transpose(-1, -2)
+            out[..., blk, :, :] += mma_tiles(cols)
+            i += take
+
+
+def _cell_tiles(wx, wh, out):
+    """A cell's [wx; wh] (K, 4H) in :func:`pack_step_weights`' unit
+    blocks (gate q of unit 16 c + u at column q * 16 + u of block c) and
+    :func:`mma_tiles`' order, into ``out`` (H / 16, ceil(K / 32), 2048):
+    one permuted copy of the joined rows, zero past K."""
+    H, kt = wh.shape[0], out.shape[1]
+    cat = torch.cat([wx, wh])
+    cat = torch.nn.functional.pad(cat, (0, 0, 0, kt * _DECODE_TILE
+                                        - cat.shape[0]))
+    # column q H + 16 c + 8 u8 + g, row 32 kt + 16 ks + 8 i + 2 t + h:
+    # (kt, ks, i, t, h, q, c, u8, g) -> (c, kt, q, u8, g, t, ks, i, h),
+    # where the block's column 16 q + 8 u8 + g is column tile 2 q + u8
+    src = cat.view(kt, 2, 2, 4, 2, 4, H // 16, 2, 8).permute(
+        6, 0, 5, 7, 8, 3, 1, 2, 4)
+    out.view(src.shape).copy_(src)
+
+
 def pack_step_weights_mma(w):
     """The bf16 decode step's weights: :func:`pack_step_weights`' column
     blocks with each 32 x 64 tile in :func:`mma_tiles`' order, so a tile
     is still one contiguous 4 KB bulk copy and each warp reads its B
     fragments straight from it.  The cell's layers as (tiles, 2048), one
     layer after another; wa, ctx_w and out_w as (column blocks, K / 32,
-    2048).  Made once per model at bf16 (``models.seq2seq.decode_weights``)
-    for K5 and K6, whose products run on the tensor cores; K3's per-call
-    pack keeps :func:`pack_step_weights`' layout."""
-    step = pack_step_weights(w)
+    2048); each matrix packed from the weights by one permuted copy (a
+    cell's rows joined first).  At bf16 every single product runs on the
+    tensor cores: made once per model (``models.seq2seq.decode_weights``)
+    for K5 and K6, and once per call by K3
+    (``ops.fused_decoder.decoder_forward``), whose weights change every
+    step; at E, A and H multiples of 32 the offsets of its layers and
+    matrices are :func:`pack_step_weights`'."""
     L, H = w["wh"].shape[0], w["wh"].shape[1]
-    cells, off = [], 0
-    # each layer's input width: E + A + H, then 2H
-    for K in [w["wx0"].shape[0] + H] + [2 * H] * (L - 1):
-        n = K * 4 * H
-        cells.append(mma_tiles(step["cell"][off:off + n].view(H // 16, K, 64))
-                     .reshape(-1, _MMA_TILE))
-        off += n
-    step["cell"] = torch.cat(cells)
+    wxs = [w["wx0"]] + [w["wx_rest"][l] for l in range(L - 1)]
+    kts = [-(-(wx.shape[0] + H) // _DECODE_TILE) for wx in wxs]
+    cell = w["wh"].new_empty(((H // 16) * sum(kts), _MMA_TILE))
+    row = 0
+    for wx, wh, kt in zip(wxs, w["wh"], kts):
+        _cell_tiles(wx, wh, cell[row:row + (H // 16) * kt].view(
+            H // 16, kt, _MMA_TILE))
+        row += (H // 16) * kt
+    step = {k: widen(w[k]) for k in ("embed", "b", "wa_b", "ctx_b",
+                                     "out_b")}
+    step["cell"] = cell
     for k in ("wa", "ctx_w", "out_w"):
-        step[k] = mma_tiles(step[k])
+        K, N = w[k].shape
+        step[k] = (torch.zeros if N % 64 else torch.empty)(
+            (-(-N // 64), -(-K // _DECODE_TILE), _MMA_TILE),
+            dtype=w[k].dtype, device=w[k].device)
+        put_transposed_tiles(step[k], 0, w[k].t())
     return step
 
 
 def pack_decode_step(w):
-    """The decode step kernels' layout of ``w`` (``w["step"]``): at bf16
-    the tensor-core tiles of :func:`pack_step_weights_mma`, else
-    :func:`pack_step_weights`."""
+    """The decode step kernels' layout of ``w`` (``w["step"]``, and K3's
+    per-call pack): at bf16 the tensor-core tiles of
+    :func:`pack_step_weights_mma`, else :func:`pack_step_weights`."""
     if w["wh"].dtype == BF16:
         return pack_step_weights_mma(w)
     return pack_step_weights(w)

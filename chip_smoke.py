@@ -225,14 +225,19 @@ Phases, each printing a line:
    operands into, within BF16_MAX_TOL and BF16_STEP_TOL of its
    mean|plain| (K3 without dropout between its layers); at B=32, at
    ENC_PARTIAL's / TRAIN_PARTIAL's batches and at D2 = 1 (bi_rnn false),
-   REPEATS more calls bit-equal; controls, which must fail the one-step
-   checks: the plain versions with one of ast_tpu's rounding points
-   dropped standing in for each kernel (K1's and K2's product operands,
-   K3's alphas, K4's d_scores unrounded); the whole bf16 step's gradient
+   K3 and K4 also at TRAIN_WIDE's 100 to 200 rows (every row tiling of
+   their tensor-core products), REPEATS more calls bit-equal; controls,
+   which must fail the one-step checks: the plain versions with one of
+   ast_tpu's rounding points dropped standing in for each kernel (K1's
+   and K2's product operands, K3's alphas, K4's d_scores unrounded); the
+   whole bf16 step's gradient
    of every leaf through the kernels and through the plain versions,
    every leaf f32 and within BF16_MAX_TOL, the loss within
    BF16_LOSS_TOL; no f32 training kernel launched; each kernel's time
-   beside its f32 mode's in the same call.  Then cli.train -e 2 at bf16
+   beside its f32 mode's in the same call, and one K3 and one K4 call at
+   each dtype split by launch kind under torch.profiler (train cells,
+   linears, d_top, layer backward products, attention and its backward,
+   select / head, the rest, launch gaps).  Then cli.train -e 2 at bf16
    on phase 6's experiment: falling loss, two dev.log rows, only the bf16
    training and decode kernels launched; NN.eval_loss at bf16 within
    BF16_LOSS_TOL of the same through the plain versions; two NNs from
@@ -326,6 +331,10 @@ PARTIAL, PARTIAL_STOP = ((5, 20), (11, 60), (20, 100), (64, 140)), 60
 # input is sampled).
 TRAIN_PARTIAL = ((5, 20), (8, 60), (11, 100), (16, 140), (40, 60))
 TRAIN_PARTIAL_COINS = (1, 1, 0, 1, 0, 0, 1, 1, 0, 1, 1, 0)
+# (rows, T') past 64 rows, which a train_cfg's batch size may send: K3
+# and K4 at bf16 also at these, so that their tensor-core products meet
+# the 128-, 160- and 256-row tiles (phase 14)
+TRAIN_WIDE = ((100, 60), (150, 60), (200, 60))
 # (rows, T') of the encoder's partial-batch checks (K1 eval, K1 train,
 # K2): TRAIN_PARTIAL's, a T' below L + 1 (no wave holds every layer) and
 # an odd T' (the eval state's slot parity); for K1 eval, which the infer
@@ -3618,16 +3627,9 @@ BF16_ENC_TOL, BF16_TOK_TOL, BF16_SCORE_TOL = 3.9e-3, 1e-2, 5e-2
 BF16_PARTIAL = PARTIAL
 
 
-def decode_split(fn, layers):
-    """One call of ``fn`` (a K5 or K6 decode) under torch.profiler after
-    a warm-up call: {part: device ms} by kernel -- the L cells and the q,
-    ctx and logits linears told apart by their place in the step (the
-    product launches before attention are the cells, then q; after it
-    ctx, then logits), attention, the argmax or beam step, the rest
-    (torch ops, K6's backtrack) -- each kernel counted for the part of
-    its span past the end of every span that started before it (the
-    launches are programmatic dependent launches), and the launch gaps:
-    first start to last end less the busy time."""
+def profiled_spans(fn):
+    """One call of ``fn`` under torch.profiler after a warm-up call: its
+    device spans, [(start µs, end µs, kernel name)]."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -3641,7 +3643,20 @@ def decode_split(fn, layers):
     spans = [(e.time_range.start, e.time_range.end, e.name)
              for e in prof.events() if e.device_type == DeviceType.CUDA]
     assert spans, "torch.profiler saw no kernel on the card"
-    return split_spans(spans, layers)
+    return spans
+
+
+def decode_split(fn, layers):
+    """One call of ``fn`` (a K5 or K6 decode) under torch.profiler after
+    a warm-up call: {part: device ms} by kernel -- the L cells and the q,
+    ctx and logits linears told apart by their place in the step (the
+    product launches before attention are the cells, then q; after it
+    ctx, then logits), attention, the argmax or beam step, the rest
+    (torch ops, K6's backtrack) -- each kernel counted for the part of
+    its span past the end of every span that started before it (the
+    launches are programmatic dependent launches), and the launch gaps:
+    first start to last end less the busy time."""
+    return split_spans(profiled_spans(fn), layers)
 
 
 def split_spans(spans, layers):
@@ -3670,6 +3685,55 @@ def split_spans(spans, layers):
         parts[part] += own
     parts["launch gaps"] = (end - spans[0][0]) / 1e3 - busy
     return parts
+
+
+# the parts of a K3 or K4 call (train_split)
+TRAIN_PARTS = ("train cells", "linears", "d_top", "layer backward",
+               "attention", "select / head", "other")
+
+
+def train_split(fn):
+    """One call of ``fn`` (a K3 or K4 call) under torch.profiler after a
+    warm-up call: {part: device ms} by launch kind (train_split_spans)."""
+    return train_split_spans(profiled_spans(fn))
+
+
+def train_split_spans(spans):
+    """train_split's parts of (start µs, end µs, kernel name) spans: K3's
+    train cells (the cell products with the train epilogue), the linears
+    (K3's q, ctx and logits, K4's d_cv), K4's d_top (the first backward
+    product after each attention backward) and its layer backward
+    products, attention and its backward, select_embed / head, the rest
+    (the wrappers' packs and fills), each kernel counted for the part of
+    its span past the end of every span that started before it, and the
+    launch gaps: first start to last end less the busy time."""
+    spans = sorted(spans)
+    parts = dict.fromkeys(TRAIN_PARTS, 0.0)
+    end, busy, after_attn = -np.inf, 0.0, False
+    for a, b, name in spans:
+        own = max(0.0, b - max(a, end)) / 1e3
+        busy += own
+        end = max(end, b)
+        if "prod_train_kernel" in name:
+            part = "train cells"
+        elif "prod_bwd_kernel" in name:
+            part = "d_top" if after_attn else "layer backward"
+            after_attn = False
+        elif "prod_kernel" in name:
+            part = "linears"
+        elif "attention" in name:
+            part, after_attn = "attention", True
+        elif "select_embed" in name or "head_kernel" in name:
+            part = "select / head"
+        else:
+            part = "other"
+        parts[part] += own
+    parts["launch gaps"] = (end - spans[0][0]) / 1e3 - busy
+    return parts
+
+
+def show_split(parts):
+    return ", ".join(f"{k} {v:.3f}" for k, v in parts.items())
 
 
 def bf16_counters():
@@ -4453,11 +4517,12 @@ def step_loss_bf16(params, state, mcfg, X, y, n_real, draws):
 def check_bf16_train_kernels(cfg, device):
     """Phase 14, kernels: K1 train, K2, K3 and K4 at bf16 against their
     plain bf16 versions on phase 5's batch at es_en_20h width, at
-    ENC_PARTIAL's / TRAIN_PARTIAL's batches and at D2 = 1 (bi_rnn false),
-    REPEATS more calls bit-equal; the whole step's gradient of every leaf
-    through the kernels and through the plain versions; each kernel's time
-    beside its f32 mode's in this call.  Only the bf16 entries launch
-    until the f32 times are taken."""
+    ENC_PARTIAL's / TRAIN_PARTIAL's batches (K3 / K4 also TRAIN_WIDE's)
+    and at D2 = 1 (bi_rnn false), REPEATS more calls bit-equal; the whole
+    step's gradient of every leaf through the kernels and through the
+    plain versions; each kernel's time beside its f32 mode's in this
+    call, and K3's and K4's split by launch kind.  Only the bf16 entries
+    launch until the f32 times are taken."""
     import torch
 
     from ast_tpu_torch.models import seq2seq
@@ -4537,7 +4602,7 @@ def check_bf16_train_kernels(cfg, device):
         print(f"  K1 train / K2 bf16 at D2 = 1 ({B} rows, T' "
               f"{u0.shape[0]}, {uh.shape[2]} units): {show(e1)}; "
               f"{show(e2)}", flush=True)
-        for nb, t_enc in TRAIN_PARTIAL:
+        for nb, t_enc in TRAIN_PARTIAL + TRAIN_WIDE:
             rng = np.random.default_rng(100 + nb)
             Xp = torch.from_numpy(rng.standard_normal(
                 (nb, 4 * t_enc, 13)).astype(np.float32)).to(device)
@@ -4639,6 +4704,12 @@ def check_bf16_train_kernels(cfg, device):
             print(f"  {key}: {r['ms']:.3f} ms at bf16, {r['f32_ms']:.3f} ms "
                   f"at f32 ({r['ms'] / r['f32_ms']:.3f} of it), plain bf16 "
                   f"{r['plain_ms']:.2f} ms", flush=True)
+        # one K3 and one K4 call split by launch kind, each dtype
+        for key in ("k3_bf16", "k4_bf16"):
+            fn, fn32 = timed[key][:2]
+            print(f"  {key} by launch kind (device ms, torch.profiler): "
+                  f"bf16 {show_split(train_split(fn))}; f32 "
+                  f"{show_split(train_split(fn32))}", flush=True)
     return res
 
 

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""K5 and K6 at bf16 in two checkouts of the port, in turns, on one
-NVIDIA GPU: a quick A/B for a change to the decode step's kernels.
+"""K5, K6, K3 and K4 at bf16 in two checkouts of the port, in turns, on
+one NVIDIA GPU: a quick A/B for a change to the step kernels' products.
 
     python3 scripts/torch_decode_ab.py OTHER_DIR [THIS_DIR]
 
@@ -8,12 +8,15 @@ Runs ``--tree DIR`` as a fresh process for this checkout (THIS_DIR,
 default the one holding this script), OTHER_DIR, OTHER_DIR again and this
 checkout again.  The first run first holds this checkout's bf16 kernels
 to their plain versions (``chip_smoke.check_bf16_kernels``: K1 eval, K5
-and K6 at B=32 and at every ``BF16_PARTIAL`` batch, 20 repeats
-bit-equal).  Every run then times, at ``chip_smoke.py``'s shapes
-(es_en_20h width, B=32, 640 frames -> T'=160, stop 175, beam 5,5, seeded
-weights), one K5 and one K6 call at bf16 with CUDA events (mean of five
-after a warm-up) and splits one more of each by kernel under
-torch.profiler (``chip_smoke.decode_split``).  Only the port's public
+and K6 at B=32 and at every ``BF16_PARTIAL`` batch;
+``chip_smoke.check_bf16_decoder_train``: K3 and K4 at B=32 along K3's
+ids and one step at a time; 20 repeats bit-equal).  Every run then
+times, at ``chip_smoke.py``'s shapes (es_en_20h width, B=32, 640 frames
+-> T'=160, stop 175, beam 5,5, U=64 targets at teacher ratio 0.8,
+dropout 0.3, seeded weights), one K5, K6, K3 and K4 call at bf16 with
+CUDA events (mean of five after a warm-up) and splits one more of each
+under torch.profiler (``chip_smoke.decode_split`` by kernel,
+``chip_smoke.train_split`` by launch kind).  Only the port's public
 entry points are called, so any two checkouts compare; each builds its
 kernels into its own build/.  Needs a CUDA device; exits 2 without one.
 """
@@ -30,12 +33,13 @@ import chip_smoke as cs  # noqa: E402
 
 
 def run(tree, check):
-    """{"k5", "k6": ms, "k5_<part>", "k6_<part>": ms} for ``tree``."""
+    """{"k5", "k6", "k3", "k4": ms, "<key>_<part>": ms} for ``tree``."""
     sys.path.insert(0, tree)
     import numpy as np
     import torch
 
     from ast_tpu_torch.models import seq2seq
+    from ast_tpu_torch.ops import fused_decoder as fd
     from ast_tpu_torch.ops import fused_infer as fi
     from ast_tpu_torch.ops import fused_lstm as fl
 
@@ -65,6 +69,28 @@ def run(tree, check):
             out[key] = cs.cuda_ms(fn, 5)
             out.update({f"{key}_{p}": ms for p, ms in
                         cs.decode_split(fn, h0.shape[0]).items()})
+        rng = np.random.default_rng(3)
+        y = rng.integers(4, cs.VOCAB, (cs.U_TRAIN - 1, cs.B)).astype(np.int32)
+        coins = (rng.random(cs.U_TRAIN - 1) < cs.TEACH).astype(np.int32)
+        coins[0] = 1
+        y_in, coins = (torch.from_numpy(a).to(dev) for a in (y, coins))
+        w_train = seq2seq.pack_decoder_weights(params, bf)
+        d_ht = torch.from_numpy(rng.standard_normal(
+            (cs.U_TRAIN - 1, cs.B, w_train["ctx_w"].shape[1])).astype(
+            np.float32) * 0.1).to(dev)
+        dec = (enc, h0, c0, w_train, y_in, coins, cs.DEC_SEED, cs.DROP,
+               cs.DROP)
+        if check:
+            cs.check_bf16_decoder_train(*dec[:7], d_ht, f"{cs.B} rows")
+        ht, res = fd.decoder_forward(*dec)
+        db = (res, ht, enc, c0, w_train, d_ht, cs.DEC_SEED, cs.DROP,
+              cs.DROP)
+        calls = {"k3": lambda: fd.decoder_forward(*dec),
+                 "k4": lambda: fd.decoder_backward(*db)}
+        for key, fn in calls.items():
+            out[key] = cs.cuda_ms(fn, 5)
+            out.update({f"{key}_{p}": ms
+                        for p, ms in cs.train_split(fn).items()})
     return out
 
 

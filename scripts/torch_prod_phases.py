@@ -1,28 +1,36 @@
 #!/usr/bin/env python3
-"""Where a launch of the decode step's bf16 tensor-core product spends its
-cycles, on one NVIDIA GPU.
+"""Where a launch of a bf16 single product spends its cycles, on one
+NVIDIA GPU: the decode step's (K5, K6) and the training decoder's (K3's
+train cells and linears, K4's backward products and d_cv).
 
-    python3 scripts/torch_prod_phases.py
+    python3 scripts/torch_prod_phases.py [OTHER_DIR]
 
-Copies this checkout's ``ast_tpu_torch`` into ``build/prod_phases/`` and
-adds ``clock64()`` reads to ``decode_step.cu``'s product at bf16
-(``prod_body`` with MMA, the products of K5 and K6): thread 0 of every
-block adds, per launch, the cycles of each phase to a device array, by
-kind (cell or linear) and row tile.  Then one K5 and one K6 call at bf16
-at ``chip_smoke.py``'s shapes (es_en_20h width, B=32, 640 frames ->
-T'=160, stop 175, beam 5,5, seeded weights) print each kind's mean
-cycles a block-launch:
+Copies this checkout's ``ast_tpu_torch`` (and, given OTHER_DIR, that
+checkout's too, e.g. the parent unpacked by ``git archive``; each run in
+its own process) into ``build/prod_phases/`` and adds ``clock64()`` reads
+to ``decode_step.cu``'s product at bf16 (``prod_body`` outside the
+encoder's waves, on the tensor cores or on FMAs, whichever the checkout
+launches): thread 0 of every block adds, per launch, the cycles of each
+phase to a device array, by mode (linear, cell, train cell, backward)
+and row tile.  Then one call each at bf16 at ``chip_smoke.py``'s shapes
+(es_en_20h width, B=32, 640 frames -> T'=160, seeded weights): K5 and K6
+(stop 175, beam 5,5), K3 (U=64 targets, teacher ratio 0.8, dropout 0.3)
+and K4 (on K3's streams, a seeded cotangent); for each call, each kind's
+mean cycles a block-launch:
 
   dep wait       entry to griddepcontrol.wait's return (programmatic
                  dependent launch: overlaps the kernel before it)
   prologue       barrier init and the ring's first tiles issued
   loop top       each tile's block barrier and the next tile's issue
   cp wait        cp.async.wait_group for the tile's input rows
-  round          the rounding into the bf16 tile and its block barrier
+  round          the rounding (into the bf16 tile, or in place) and its
+                 block barrier
   mbar wait      the weight tile's bulk copy (mbarrier)
-  mma            warp 0's ldmatrix + mma.sync over the tile
+  mma / fma      warp 0's ldmatrix + mma.sync over the tile, or thread
+                 0's FMAs
   partials+sync  the partial sums to shared memory and cluster.sync
-  epilogue       the cluster's DSMEM reduction and the gate / bias math
+  epilogue       the cluster's DSMEM reduction and the epilogue (gates
+                 and streams, bias + tanh, or the backward's per column)
   final sync     the last cluster.sync
 
 and the card's SM clock beside them.  The clock reads slow the call (its
@@ -31,6 +39,7 @@ Needs a CUDA device; exits 2 without one.
 """
 
 import ctypes
+import hashlib
 import os
 import shutil
 import subprocess
@@ -40,16 +49,30 @@ import tempfile
 import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-COPY = os.path.join(ROOT, "build", "prod_phases")
+COPIES = os.path.join(ROOT, "build", "prod_phases")
 PHASES = ("dep wait", "prologue", "loop top", "cp wait", "round",
-          "mbar wait", "mma", "partials+sync", "epilogue", "final sync")
-KINDS = 34        # (cell or linear) x row tile / 16 (1 .. 16)
+          "mbar wait", "mma / fma", "partials+sync", "epilogue",
+          "final sync")
+MODES = ("linear", "cell", "train cell", "backward")
+KINDS = len(MODES) * 17       # mode x row tile / 16 (1 .. 16)
+
+# what thread 0 of a block adds up at the end of a bf16 single product
+RECORD = """  if constexpr (IS_BF16<W> && !WAVE) {
+    if (tid == 0) {
+      unsigned long long* g = g_prof[MODE * 17 + RB / 16];
+      const long long v[11] = {T1 - T0, Tp - T1, d_top, d_cp, d_conv,
+          d_mbar, d_mma, Tq - Tl, Te - Tq, clock64() - Te, 1};
+      for (int j = 0; j < 11; ++j)
+        atomicAdd(g + j, (unsigned long long)v[j]);
+    }
+  }
+"""
 
 # (anchor in decode_step.cu, text that replaces it): each anchor must
 # occur once
 PATCH = (
     ("namespace ast {\nnamespace {\n",
-     "namespace ast {\n__device__ unsigned long long g_prof[34][11];\n"
+     "namespace ast {\n__device__ unsigned long long g_prof[68][11];\n"
      "namespace {\n"),
     ("  grid_dep_wait();\n  if (a.done && *a.done) return;  // every block "
      "of the launch alike\n  grid_dep_launch();\n",
@@ -79,22 +102,24 @@ PATCH = (
      "      continue;\n",
      "          mma_bf16(macc[t * WM + j], fa, b[j].z, b[j].w);\n      }\n"
      "      d_mma += clock64() - tt;\n      continue;\n"),
-    ("  __syncthreads();  // the ring is read; its memory takes the "
-     "partials\n",
-     "  __syncthreads();\n  Tl = clock64();\n"),
+    # the FMA path's tile ends here
+    ("    }\n  }\n  __syncthreads();  // the ring is read; its memory takes "
+     "the partials\n",
+     "    }\n    d_mma += clock64() - tt;\n  }\n  __syncthreads();\n"
+     "  Tl = clock64();\n"),
     ("        P[(rg + RGN * p) * NC + pc] = acc[p][e];\n      }\n  }\n"
      "  cluster.sync();\n",
      "        P[(rg + RGN * p) * NC + pc] = acc[p][e];\n      }\n  }\n"
      "  cluster.sync();\n  Tq = clock64();\n"),
+    # the backward's epilogue returns early
+    ("    cluster.sync();  // no block leaves while another reads its "
+     "partials\n    return;\n",
+     "    Te = clock64();\n    cluster.sync();\n" + RECORD
+     + "    return;\n"),
     ("      }\n    }\n  }\n  cluster.sync();  // no block leaves while "
      "another reads its partials\n}\n",
-     "      }\n    }\n  }\n  Te = clock64();\n  cluster.sync();\n"
-     "  if constexpr (MMA) {\n    if (tid == 0) {\n"
-     "      unsigned long long* g = g_prof[(CELL ? 17 : 0) + RB / 16];\n"
-     "      const long long v[11] = {T1 - T0, Tp - T1, d_top, d_cp, d_conv,\n"
-     "          d_mbar, d_mma, Tq - Tl, Te - Tq, clock64() - Te, 1};\n"
-     "      for (int j = 0; j < 11; ++j)\n"
-     "        atomicAdd(g + j, (unsigned long long)v[j]);\n    }\n  }\n}\n"),
+     "      }\n    }\n  }\n  Te = clock64();\n  cluster.sync();\n" + RECORD
+     + "}\n"),
 )
 
 EXPORTS = """
@@ -103,18 +128,20 @@ AST_EXPORT int ast_prof_read(unsigned long long* out) {
 }
 
 AST_EXPORT int ast_prof_reset() {
-  static unsigned long long z[34][11] = {};
+  static unsigned long long z[68][11] = {};
   return (int)cudaMemcpyToSymbol(ast::g_prof, z, sizeof(z));
 }
 """
 
 
-def instrumented_copy():
-    """``build/prod_phases/ast_tpu_torch`` with the clock reads patched
-    into its decode_step.cu."""
-    dst = os.path.join(COPY, "ast_tpu_torch")
+def instrumented_copy(tree):
+    """A copy of ``tree``'s ``ast_tpu_torch`` under build/prod_phases/
+    with the clock reads patched into its decode_step.cu; returns the
+    directory that holds it."""
+    copy = os.path.join(COPIES, hashlib.sha256(tree.encode()).hexdigest()[:8])
+    dst = os.path.join(copy, "ast_tpu_torch")
     shutil.rmtree(dst, ignore_errors=True)
-    shutil.copytree(os.path.join(ROOT, "ast_tpu_torch"), dst,
+    shutil.copytree(os.path.join(tree, "ast_tpu_torch"), dst,
                     ignore=shutil.ignore_patterns("__pycache__"))
     path = os.path.join(dst, "kernels", "csrc", "decode_step.cu")
     with open(path) as f:
@@ -124,47 +151,70 @@ def instrumented_copy():
         src = src.replace(old, new)
     with open(path, "w") as f:
         f.write(src + EXPORTS)
+    return copy
 
 
-def main():
+def calls(cs, dev):
+    """{name: fn}: one K5, K6, K3 and K4 call at bf16 at chip_smoke's
+    shapes."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("torch_prod_phases: no CUDA device available", file=sys.stderr)
-        return 2
-    torch.backends.cuda.matmul.allow_tf32 = False
-    instrumented_copy()
-    sys.path.insert(0, ROOT)
-    sys.path.insert(0, COPY)
-    import chip_smoke as cs
-    from ast_tpu_torch.kernels import build
     from ast_tpu_torch.models import seq2seq
+    from ast_tpu_torch.ops import fused_decoder as fd
     from ast_tpu_torch.ops import fused_infer as fi
     from ast_tpu_torch.ops import fused_lstm as fl
 
-    assert build.__file__.startswith(COPY), build.__file__
+    bf = torch.bfloat16
+    root = tempfile.mkdtemp()
+    _, cfg, _ = cs.make_experiment(root)
+    mcfg = cfg.model
+    params, state = seq2seq.init_model(mcfg, seed=0, device=dev)
+    rng = np.random.default_rng(2)
+    X = torch.from_numpy(rng.standard_normal(
+        (cs.B, cs.FRAMES, 13)).astype(np.float32)).to(dev)
+    w = seq2seq.decode_weights(params, bf)
+    enc_in = seq2seq.encoder_inputs(params, state, mcfg, X,
+                                    enc_w=w["enc"], compute_dtype=bf)
+    enc32, h0, c0 = seq2seq.encoder_outputs(
+        *fl.stacked_lstm_reference(*enc_in[:4]))
+    enc = enc32.to(bf)
+    y = rng.integers(4, cs.VOCAB, (cs.U_TRAIN - 1, cs.B)).astype(np.int32)
+    coins = (rng.random(cs.U_TRAIN - 1) < cs.TEACH).astype(np.int32)
+    coins[0] = 1
+    y_in, coins = (torch.from_numpy(a).to(dev) for a in (y, coins))
+    w_train = seq2seq.pack_decoder_weights(params, bf)
+    dec = (enc, h0, c0, w_train, y_in, coins, 777, cs.DROP, cs.DROP)
+    ht, res = fd.decoder_forward(*dec)
+    d_ht = torch.from_numpy(rng.standard_normal(tuple(ht.shape)).astype(
+        np.float32) * 0.1).to(dev)
+    db = (res, ht, enc, c0, w_train, d_ht, 777, cs.DROP, cs.DROP)
+    shutil.rmtree(root, ignore_errors=True)
+    return {
+        "K5": lambda: fi.greedy_decode_fused(enc, h0, c0, w, cs.STOP),
+        "K6": lambda: fi.beam_decode_fused(enc, h0, c0, w, cs.N_BEAM,
+                                           cs.K_BEAM, cs.STOP),
+        "K3": lambda: fd.decoder_forward(*dec),
+        "K4": lambda: fd.decoder_backward(*db)}
+
+
+def run(tree):
+    """Instrument ``tree``, run the four calls, print each kind's phases."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    copy = instrumented_copy(tree)
+    sys.path.insert(0, ROOT)
+    sys.path.insert(0, copy)
+    import chip_smoke as cs
+    from ast_tpu_torch.kernels import build
+
+    assert build.__file__.startswith(copy), build.__file__
     lib = build.library()
     lib.ast_prof_read.argtypes = [ctypes.c_void_p]
     smi = ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm",
            "--format=csv,noheader"]
-    dev, bf = torch.device("cuda"), torch.bfloat16
-    with tempfile.TemporaryDirectory() as root, torch.inference_mode():
-        _, cfg, _ = cs.make_experiment(root)
-        mcfg = cfg.model
-        params, state = seq2seq.init_model(mcfg, seed=0, device=dev)
-        X = torch.from_numpy(np.random.default_rng(2).standard_normal(
-            (cs.B, cs.FRAMES, 13)).astype(np.float32)).to(dev)
-        w = seq2seq.decode_weights(params, bf)
-        enc_in = seq2seq.encoder_inputs(params, state, mcfg, X,
-                                        enc_w=w["enc"], compute_dtype=bf)
-        enc32, h0, c0 = seq2seq.encoder_outputs(
-            *fl.stacked_lstm_reference(*enc_in[:4]))
-        enc = enc32.to(bf)
-        calls = {
-            "K5": lambda: fi.greedy_decode_fused(enc, h0, c0, w, cs.STOP),
-            "K6": lambda: fi.beam_decode_fused(enc, h0, c0, w, cs.N_BEAM,
-                                               cs.K_BEAM, cs.STOP)}
-        for name, fn in calls.items():
+    with torch.inference_mode():
+        for name, fn in calls(cs, torch.device("cuda")).items():
             ms = cs.cuda_ms(fn, 1)
             assert lib.ast_prof_reset() == 0
             fn()
@@ -173,17 +223,36 @@ def main():
             assert lib.ast_prof_read(buf.ctypes.data) == 0
             card = subprocess.run(smi, capture_output=True, text=True,
                                   check=True).stdout.strip()
-            print(f"{name} at bf16, instrumented: {ms:.3f} ms a call "
-                  f"({card})", flush=True)
+            print(f"{name} at bf16 ({tree}), instrumented: {ms:.3f} ms a "
+                  f"call ({card})", flush=True)
             for kind in range(KINDS):
                 n = int(buf[kind, 10])
                 if n:
                     mean = buf[kind, :10].astype(np.float64) / n
-                    print(f"  {'cell' if kind >= 17 else 'linear'} product, "
+                    print(f"  {MODES[kind // 17]} product, "
                           f"{(kind % 17) * 16}-row tile: {n} block-launches;"
                           f" cycles a block-launch: " + ", ".join(
                               f"{p} {c:.0f}" for p, c in zip(PHASES, mean))
                           + f"; total {mean.sum():.0f}", flush=True)
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("torch_prod_phases: no CUDA device available", file=sys.stderr)
+        return 2
+    if sys.argv[1:2] == ["--tree"]:
+        run(os.path.abspath(sys.argv[2]))
+        return 0
+    trees = [ROOT] + [os.path.abspath(d) for d in sys.argv[1:2]]
+    for tree in trees:
+        res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              "--tree", tree], capture_output=True, text=True)
+        print(res.stdout, res.stderr[-4000:] if res.returncode else "",
+              flush=True)
+        if res.returncode:
+            return res.returncode
     return 0
 
 

@@ -1,10 +1,14 @@
-"""The bf16 decode step's tensor-core weight layout, on the CPU.
+"""The bf16 products' tensor-core weight layout, on the CPU.
 
-At bf16 the products of K5 and K6 (kernels/csrc/decode_step.cu,
-``mma_prod_kernel``) run ``mma.sync.aligned.m16n8k16`` on weight tiles
-that ``ops/fused_infer.pack_step_weights_mma`` lays out once per model:
-``pack_step_weights``' column blocks with each 32 x 64 tile in the
-B-fragment order the warps read.  Held here:
+At bf16 every single product of kernels/csrc/decode_step.cu runs
+``mma.sync.aligned.m16n8k16`` on weight tiles in the B-fragment order
+the warps read (``ops/fused_infer.mma_tiles``): K5's and K6's cells and
+linears (``mma_prod_kernel``) over ``pack_step_weights_mma``'s tiles,
+packed once per model; K3's train cells (``mma_prod_train_kernel``) and
+linears over the same pack, made once per call; K4's backward products
+(``mma_prod_bwd_kernel``) and d_cv linear over
+``ops/fused_decoder.pack_backward_weights``' transposed matrices, which
+at bf16 it lays out in the same order.  Held here:
 
 - the pack unpacks bit-equal to the matrices it came from, at tiny dims
   with ragged K (not a multiple of 32) and V (not of 64);
@@ -13,9 +17,16 @@ B-fragment order the warps read.  Held here:
 - a numpy model of a block of the kernel -- its ldmatrix addresses, its
   B loads at the pack's offsets, the ISA's A, B and C fragment layouts,
   and its partial-sum index -- computes x @ W (within 1e-12 on float64
-  sums of bf16 values: only the order of the sums differs);
-- the f32 decode pack and K3's per-call pack (``pack_step_weights``, at
-  f32 and bf16) keep their column-block layout bit for bit;
+  sums of bf16 values: only the order of the sums differs), for the
+  decode step's products, K3's train cells and K4's backward products,
+  whose partials its per-column epilogue reads summed over the cluster;
+- K4's bf16 pack unpacks bit-equal to ctx_w[:H]^T, [wa^T; ctx_w[H:]^T]
+  and each layer's [wh^T | wx^T], back to back at the f32 layout's
+  offsets, zero past the ragged columns; K3's bf16 pack is
+  ``pack_step_weights_mma``, with each layer where K3's loop looks;
+- the f32 decode pack and ``pack_step_weights`` (K3's per-call pack at
+  f32; at bf16 the column blocks ``pack_step_weights_mma`` tiles) keep
+  their column-block layout bit for bit;
 - ``step_weights`` refuses a bf16 step in the column-block layout.
 """
 
@@ -24,14 +35,19 @@ import pytest
 import torch
 
 from ast_tpu_torch.models import seq2seq
+from ast_tpu_torch.ops import fused_decoder as fd
 from ast_tpu_torch.ops import fused_infer as fi
 from tests.conftest import TINY_MODEL_CFG
 
 BF = torch.bfloat16
 L = 2
 # (H, E, A, V): the tiny model's (K = E + A + H = 40 and V = 12 ragged),
-# and one that the kernels take with V ragged
-DIMS = {"tiny": (16, 8, 16, 12), "kernel": (32, 32, 64, 70)}
+# and three that the kernels take with V ragged: K4's d_cv and d_top
+# columns (H = 32) ragged in the first two, its layer-0 columns (H + E +
+# A = 96) in the second; in the third, whole column blocks at an offset
+# (layer 0's wx^T from column H = 64) and a ragged tail
+DIMS = {"tiny": (16, 8, 16, 12), "kernel": (32, 32, 64, 70),
+        "ragged": (32, 32, 32, 40), "wide": (64, 32, 64, 40)}
 
 
 def _weights(dims, seed=0):
@@ -281,19 +297,61 @@ def kernel_block(x, packed, cell):
     return P
 
 
+def bwd_transposes(w):
+    """The transposed matrices of K4's products, (K, N) float64 numpy:
+    cv = ctx_w[:H]^T, top = [wa^T; ctx_w[H:]^T], each layer's [wh^T |
+    wx^T] (4H, H + E + A, then 2H)."""
+    H = w["wh"].shape[1]
+    f = {k: v.double() for k, v in w.items()}
+    wxs = [f["wx0"]] + [f["wx_rest"][l] for l in range(L - 1)]
+    mats = [f["ctx_w"][:H].t(), torch.cat([f["wa"].t(), f["ctx_w"][H:].t()])]
+    mats += [torch.cat([wh.t(), wx.t()], dim=1)
+             for wh, wx in zip(f["wh"], wxs)]
+    return [m.numpy() for m in mats]
+
+
+def bwd_epilogue_rows(P, cb, N, R):
+    """What PROD_BWD's per-column epilogue sums for column block cb: the
+    element (r, n) of column n = 64 cb + c < N reads partial (r, c) of
+    each k-group (one, on the tensor cores) of every block of the
+    cluster; P (cluster blocks, RB, 64).  Returns (R, columns)."""
+    ncol = min(64, N - 64 * cb)
+    return np.stack([[sum(P[s, r, c] for s in range(P.shape[0]))
+                      for c in range(ncol)] for r in range(R)])
+
+
+# the products a block of the tensor-core kernels runs: the decode step's
+# cells and linears (K3's linears too: the same pack and kernel), K3's
+# train cells (mma_prod_train_kernel, over K3's per-call pack of the
+# training weights), and K4's backward products (mma_prod_bwd_kernel)
+# and d_cv
+BLOCK_PRODUCTS = ["cell0", "cell1", "q", "logits", "train_cell0",
+                  "train_cell1", "bwd_cv", "bwd_top", "bwd_layer0",
+                  "bwd_layer1"]
+
+
 @pytest.mark.parametrize("R", [9, 25, 70, 150])
-@pytest.mark.parametrize("product", ["cell0", "cell1", "q", "logits"])
+@pytest.mark.parametrize("product", BLOCK_PRODUCTS)
 def test_kernel_block_model_computes_x_at_w(product, R):
-    """The numpy model of a block of mma_prod_kernel, on the pack's tiles,
-    gives x @ W for its 64 columns: a cell's block its units' four gates
-    side by side (the epilogue's order), a linear's block its columns.
-    R ragged in the row tiles launch_prod takes: 9 rows of 16 (one row
+    """The numpy model of a block of the tensor-core kernels, on the
+    pack's tiles, gives x @ W for its 64 columns: a cell's block its
+    units' four gates side by side (the epilogue's order), a linear's
+    block its columns.  K4's backward blocks split the input axis over a
+    cluster of 3 as its launches do, and the per-column epilogue's sum of
+    their partials gives dz @ W^T in the last, ragged column block.  R
+    ragged in the row tiles launch_prod takes: 9 rows of 16 (one row
     tile: a warp a column tile), 25 of 32, 70 of 128 and 150 of 160 (two
     warps a column tile, split by row tile)."""
-    H, E, A, V = DIMS["kernel"]
-    w = _weights("kernel")
-    step = fi.pack_step_weights_mma(w)
+    dims = "ragged" if product.startswith("bwd") else "kernel"
+    H, E, A, V = DIMS[dims]
+    w = _weights(dims)
+    train = product.startswith("train_")
+    if train:
+        product = product[len("train_"):]
+    # K3's per-call pack of its bf16 training weights, or the decode's
+    step = fd.pack_decode_step(w) if train else fi.pack_step_weights_mma(w)
     rng = np.random.default_rng(5)
+    cs = 1
     if product.startswith("cell"):
         l = int(product[4:])
         cat = _cells(w)[l].double().numpy()
@@ -304,26 +362,114 @@ def test_kernel_block_model_computes_x_at_w(product, R):
         cb = 1
         cols = [q * H + 16 * cb + u for u in range(16) for q in range(4)]
     else:
-        name = {"q": "wa", "logits": "out_w"}[product]
-        cat = w[name].double().numpy()
+        if product.startswith("bwd"):
+            pack = fd.pack_backward_weights(w)
+            i = {"bwd_cv": 0, "bwd_top": 1}.get(product)
+            if i is None:
+                i = 2 + int(product[len("bwd_layer"):])
+            cat = bwd_transposes(w)[i]
+            tiles = [pack["cv"], pack["top"], *pack["layer"]][i]
+            cs = 3
+        else:
+            name = {"q": "wa", "logits": "out_w"}[product]
+            cat = w[name].double().numpy()
+            tiles = step[name]
+        tiles = tiles.double().numpy()
         K = cat.shape[0]
-        tiles = step[name].double().numpy()
         cb = tiles.shape[0] - 1     # the last block: ragged columns
         cols = list(range(64 * cb, min(64 * cb + 64, cat.shape[1])))
     x = torch.from_numpy(rng.standard_normal((R, K)).astype(
         np.float32)).to(BF).double().numpy()
-    P = kernel_block(x, tiles[cb], product.startswith("cell"))
+    # block c of the cluster takes tiles [c n / cs, (c + 1) n / cs)
+    n = K // 32
+    P = np.stack([kernel_block(
+        x[:, 32 * (c * n // cs):32 * ((c + 1) * n // cs)],
+        tiles[cb][c * n // cs:(c + 1) * n // cs], product.startswith("cell"))
+        for c in range(cs)])
     want = x @ cat[:, cols]
-    np.testing.assert_allclose(P[:R, :len(cols)], want, rtol=1e-12,
-                               atol=1e-12)
-    assert not P[R:].any() and not P[:, len(cols):].any()
+    np.testing.assert_allclose(P.sum(axis=0)[:R, :len(cols)], want,
+                               rtol=1e-12, atol=1e-12)
+    if cs > 1:
+        np.testing.assert_allclose(
+            bwd_epilogue_rows(P, cb, cat.shape[1], R), want, rtol=1e-12,
+            atol=1e-12)
+    assert not P[:, R:].any() and not P[:, :, len(cols):].any()
+
+
+@pytest.mark.parametrize("dims", ["kernel", "ragged", "wide"])
+def test_backward_mma_pack_unpacks_to_transposes(dims):
+    """K4's pack at bf16: cv, top and each layer's matrix, unpacked from
+    the fragment order, equal ctx_w[:H]^T, [wa^T; ctx_w[H:]^T] and [wh^T |
+    wx^T] bit for bit, zero past the ragged columns; each (column blocks,
+    K / 32, 2048), back to back in ``flat`` at the f32 layout's offsets,
+    which k4_decoder_bwd.cu walks."""
+    w = _weights(dims)
+    p = fd.pack_backward_weights(w)
+    p32 = fd.pack_backward_weights({k: v.float() for k, v in w.items()})
+    views = [p["cv"], p["top"], *p["layer"]]
+    views32 = [p32["cv"], p32["top"], *p32["layer"]]
+    assert p["flat"].dtype == BF and p["flat"].numel() == p32["flat"].numel()
+    off = 0
+    for v, v32, m in zip(views, views32, bwd_transposes(w)):
+        K, N = m.shape
+        assert tuple(v.shape) == (-(-N // 64), K // 32, 2048)
+        assert v.is_contiguous() and v.numel() == v32.numel()
+        assert v.data_ptr() == p["flat"].data_ptr() + 2 * off
+        off += v.numel()
+        un = unpack_tiles(v.float().numpy(), K)        # (blocks, K, 64)
+        flat = un.transpose(1, 0, 2).reshape(K, -1)
+        np.testing.assert_array_equal(flat[:, :N], m)
+        assert not flat[:, N:].any()
+        # the column blocks the f32 mode keeps, tile by tile
+        np.testing.assert_array_equal(un, v32.numpy())
+    assert off == p["flat"].numel()
+    assert any(m.shape[1] % 64 for m in bwd_transposes(w))
+
+
+def test_k3_bf16_pack_is_the_decode_steps():
+    """K3 packs its bf16 training weights per call in the decode step's
+    tensor-core layout (pack_decode_step: pack_step_weights_mma), each
+    layer's tiles at the offset k3_decoder_fwd.cu's loop adds (K 4H
+    elements a layer, as in the column blocks); its f32 pack stays
+    pack_step_weights'."""
+    mcfg = dict(TINY_MODEL_CFG, rnn_config=dict(
+        TINY_MODEL_CFG["rnn_config"], hidden_units=32, embedding_units=32,
+        attn_units=64, dec_vocab_size=70))
+    tp, _ = seq2seq.init_model(mcfg, seed=2)
+    w = seq2seq.pack_decoder_weights(tp, BF)
+    H, E, A = w["wh"].shape[1], w["embed"].shape[1], w["ctx_w"].shape[1]
+    assert (H, E, A) == (32, 32, 64)
+    assert fd.pack_decode_step is fi.pack_decode_step
+    got = fd.pack_decode_step(w)
+    want = fi.pack_step_weights_mma(w)
+    for k in fi.STEP_ORDER:
+        assert got[k].dtype == want[k].dtype, k
+        assert torch.equal(got[k], want[k]), k
+    old = fi.pack_step_weights(w)
+    assert got["cell"].numel() == old["cell"].numel()
+    off = 0
+    for l, cat in enumerate(_cells(w)):
+        K = cat.shape[0]
+        assert K == (E + A + H if l == 0 else 2 * H) and K % 32 == 0
+        tiles = got["cell"].view(-1)[off:off + K * 4 * H].view(
+            H // 16, K // 32, 2048)
+        np.testing.assert_array_equal(
+            unpack_tiles(tiles.float().numpy(), K).ravel(),
+            old["cell"][off:off + K * 4 * H].float().numpy())
+        off += K * 4 * H
+    assert off == got["cell"].numel()
+    w32 = seq2seq.pack_decoder_weights(tp)
+    want32 = fi.pack_step_weights(w32)
+    for k, v in fd.pack_decode_step(w32).items():
+        assert torch.equal(v, want32[k]), k
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_column_block_packs_unchanged(dtype):
-    """The f32 decode pack (decode_weights) and K3's per-call pack
-    (pack_step_weights, at f32 and at bf16) keep the column-block layout:
-    equal bit for bit to the numpy model of it."""
+    """The f32 decode pack (decode_weights) and pack_step_weights (K3's
+    per-call pack at f32; at bf16 the column blocks that
+    pack_step_weights_mma tiles) keep the column-block layout: equal bit
+    for bit to the numpy model of it."""
     H, E, A, V = DIMS["kernel"]
     w = _weights("kernel")
     if dtype == "float32":
@@ -390,3 +536,37 @@ def test_decode_split_tells_the_products_apart():
     assert ms == {"cells": 61.0, "q": 60.0, "ctx": 100.0, "logits": 120.0,
                   "attention": 80.0, "selection": 140.0, "other": 0.0,
                   "launch gaps": 4.0}, ms
+
+
+def test_train_split_tells_the_launch_kinds_apart():
+    """chip_smoke's split of a profiled K3 or K4 call by launch kind: the
+    cell products with the train epilogue, the linears (K3's q, ctx and
+    logits, K4's d_cv), K4's d_top (the first backward product after an
+    attention backward) and layer backward products, attention of either
+    mode, select_embed / head, the rest; each kernel gets the part of its
+    span past the end of those before it, and the gaps are the rest of
+    the call's span."""
+    import chip_smoke
+
+    k4_step = ["mma_prod_kernel<8, 4, false>", "attention_bwd_kernel<bf16>",
+               "mma_prod_bwd_kernel<8, 4>", "mma_prod_bwd_kernel<8, 4>",
+               "mma_prod_bwd_kernel<8, 4>"]
+    k3_step = ["select_embed_kernel<bf16>", "mma_prod_train_kernel<8, 4>",
+               "mma_prod_train_kernel<8, 4>", "mma_prod_kernel<8, 4, false>",
+               "attention_train_kernel<bf16>", "mma_prod_kernel<8, 4, false>",
+               "mma_prod_kernel<8, 4, false>"]
+    names = (["head_kernel<bf16>"] + k4_step * 2
+             + ["vectorized_elementwise_kernel"] + k3_step)
+    spans, end = [], 0.0
+    for name in names:
+        # 10 µs each, starting 1 µs before the previous one ends; the
+        # elementwise kernel 3 µs after
+        start = end + 3.0 if "elementwise" in name else max(end - 1.0, 0.0)
+        spans.append((start, start + 10.0, name))
+        end = start + 10.0
+    parts = chip_smoke.train_split_spans(spans[::-1])
+    ms = {k: round(v * 1e3, 6) for k, v in parts.items()}
+    assert ms == {"train cells": 18.0, "linears": 45.0, "d_top": 18.0,
+                  "layer backward": 36.0, "attention": 27.0,
+                  "select / head": 19.0, "other": 10.0,
+                  "launch gaps": 3.0}, ms
