@@ -28,7 +28,10 @@ trainer's ``NN.train_step`` on chip_smoke's phase 5 batch (B=32, 640
 frames, U=64) of its synthetic es_en_20h training experiment, as the
 host's clock sees it around 10 steps that end in a synchronize, after two
 warm-up steps, and the same at compute_dtype bfloat16 (a second NN on
-that experiment with extras.compute_dtype set); then that experiment's
+that experiment with extras.compute_dtype set), each NN's steps also as
+the device sees them (chip_smoke.step_profile: 10 more steps under
+torch.profiler, the device's busy ms a step and the encoder kernels'
+share of it, which a busy host does not stretch); then that experiment's
 two first epochs through
 ``NN.train_epoch`` (96 utterances, the trainer's own utts/s) and its dev
 split through ``NN.predict`` (32 utterances, the median of three passes
@@ -59,7 +62,9 @@ ORDER = ("k1", "k1t", "k2", "k3", "k4", "k1t_b8", "k2_b8", "k3_b8", "k4_b8",
          "k1t_bf16", "k2_bf16", "k3_bf16", "k4_bf16", "k5_bf16", "k6_bf16",
          *(f"{k}_bf16_{p}" for k in ("k5", "k6") for p in SPLIT),
          *(f"{k}_bf16_{p}" for k in ("k3", "k4") for p in TRAIN_SPLIT),
-         "train_step", "train_step_bf16", "epoch1_utts_s", "epoch2_utts_s",
+         "train_step", "train_step_bf16", "train_step_busy",
+         "train_step_bf16_busy", "train_step_encoder",
+         "train_step_bf16_encoder", "epoch1_utts_s", "epoch2_utts_s",
          "predict_utts_s",
          "greedy_utts_s", "beam_utts_s")
 SLICE_PASSES = 3
@@ -215,13 +220,24 @@ def time_tree(tree):
             torch.cuda.synchronize()
             return (time.perf_counter() - t0) * 1e3 / TRAIN_STEPS
 
+        def step_busy(nn, key):
+            """The device's busy ms a step and the encoder's kernels' part
+            of it, under torch.profiler."""
+            _, busy, groups = cs.step_profile(nn, batch, TRAIN_STEPS)
+            out[f"{key}_busy"] = busy
+            out[f"{key}_encoder"] = sum(ms for g, ms in groups
+                                        if g.startswith("encoder"))
+
         out["train_step"] = step_ms(nn)
+        step_busy(nn, "train_step")
         cfg_path = os.path.join(train_exp, "train_cfg.json")
         with open(cfg_path) as f:
             saved_cfg = f.read()
         cs.edit_train_cfg(train_exp, lambda c: c.setdefault(
             "extras", {}).update(compute_dtype="bfloat16"))
-        out["train_step_bf16"] = step_ms(NN(train_exp, "cuda"))
+        nn16 = NN(train_exp, "cuda")
+        out["train_step_bf16"] = step_ms(nn16)
+        step_busy(nn16, "train_step_bf16")
         with open(cfg_path, "w") as f:
             f.write(saved_cfg)
         tcfg = nn.cfg.train

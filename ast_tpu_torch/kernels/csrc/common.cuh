@@ -10,15 +10,15 @@
 // k4_decoder_bwd.cu); and as a wave -- up to MAX_WAVE_GROUPS independent
 // products of one launch -- by the encoder (k1_encoder.cu,
 // k2_encoder_bwd.cu), whose cells (step t, layer l) with equal t + l do
-// not depend on one another.  Everything is float32 with FMA accumulation;
+// not depend on one another.  At float32 the products accumulate on FMAs;
 // no library GEMM is called.  The eval products (K1 eval, K5, K6) also run
 // with bfloat16 weights (W = __nv_bfloat16, ast_tpu's compute_dtype
 // bfloat16): the packed matrices in bf16, each input value rounded to bf16
 // where the product reads it (__float2bfloat16_rn), and the sums in f32
-// -- FMAs for the encoder's waves (K1 eval), the tensor cores' mma.sync
-// bf16 -> f32 for every single product (the decode step of K5 and K6,
-// K3's and K4's products: the mma_prod_* kernels) -- a product of two
-// bf16 values is exact in f32, so only the order of the sum differs from
+// on the tensor cores' mma.sync bf16 -> f32 for every product (the decode
+// step of K5 and K6, K3's and K4's products: the mma_prod_* kernels; the
+// encoder's waves of K1 and K2: mma_wave_kernel) -- a product of two bf16
+// values is exact in f32, so only the order of the sum differs from
 // ast_tpu's f32-accumulated bf16 dot.  The
 // training kernels (K1 train, K2, K3, K4) have a bf16 mode too: the same
 // products at W = __nv_bfloat16, their residual streams stored in bf16
@@ -304,8 +304,9 @@ struct DecoderStep {
 
 // The encoder's waves (decode_step.cu), programmatic dependent launches:
 // w.n <= MAX_WAVE_GROUPS cell products in eval or train mode (K1), or
-// linear products without bias (K2); the _bf16 launchers: the same with
-// bfloat16 packed weights (EncCell's bf16 streams in train mode).
+// linear products without bias (K2); the _bf16 launchers: the same on
+// the tensor cores, with bfloat16 packed weights in the B-fragment order
+// (EncCell's bf16 streams in train mode).
 cudaError_t launch_cell_wave(Wave<EncCell>& w, bool train, cudaStream_t s);
 cudaError_t launch_cell_wave_bf16(Wave<EncCell>& w, bool train,
                                   cudaStream_t s);

@@ -89,25 +89,33 @@
 // weight tile is one 4 KB bulk copy (8 KB in f32), and each input value
 // is rounded to bf16 (__float2bfloat16_rn) after it is staged and before
 // a product reads it, which are ast_tpu's rounding points (_dot casts the
-// left operand to the weight's dtype).  Attention reads bf16 encoder
-// rows, keeps the query and the softmax in f32, and rounds the
-// normalised weights to bf16 before the context sum (ast_tpu's _dot_c0).
-// A step then reads half the bytes of weights and encoder states.
+// left operand to the weight's dtype; K1 x[d].astype(wx_ref.dtype) and
+// h_s.astype(wh_ref.dtype), K2 dz[d].astype(wh_ref.dtype)).  Attention
+// reads bf16 encoder rows, keeps the query and the softmax in f32, and
+// rounds the normalised weights to bf16 before the context sum
+// (ast_tpu's _dot_c0).  A step then reads half the bytes of weights and
+// encoder states.
 //
-// Every single product at bf16 (prod_body with MMA) runs on the tensor
-// cores, mma.sync.aligned.m16n8k16 bf16 -> f32 with the accumulators in
+// Every product at bf16 (prod_body with MMA) runs on the tensor cores,
+// mma.sync.aligned.m16n8k16 bf16 -> f32 with the accumulators in
 // registers: the decode step's cells and linears (K5, K6, mma_prod_kernel),
-// K3's train cell (mma_prod_train_kernel) and linears, and K4's backward
-// products (mma_prod_bwd_kernel) and d_cv linear.  Each thread rounds the
-// f32 input values it staged into a bf16 tile of the block's RB rows (a
-// multiple of 16, zero past R) at an 80-byte row stride, so the 8 rows
-// an ldmatrix phase reads fall in distinct bank groups.  The weight
-// tiles are packed in the B-fragment order (ops/fused_infer.mma_tiles:
-// once per model for decoding, pack_step_weights_mma; once per call in
-// training, K3 the same pack and K4's transposed matrices by
-// ops/fused_decoder.pack_backward_weights): a tile is still one 4 KB bulk
-// copy on the mbarrier ring, and each lane reads its fragments of both
-// 16-row k-steps with one conflict-free 16-byte load.  The 8 warps split
+// K3's train cell (mma_prod_train_kernel) and linears, K4's backward
+// products (mma_prod_bwd_kernel) and d_cv linear, and the encoder's waves
+// (mma_wave_kernel): K1's eval and train cells and K2's linears.  Each
+// thread rounds the f32 input values it staged into a bf16 tile of the
+// block's RB rows (a multiple of 16, zero past R) in its own shared
+// memory, at an 80-byte row stride, so the 8 rows an ldmatrix phase reads
+// fall in distinct bank groups; the f32 rows in global memory (the eval
+// state's slots, train's dropped h, K2's f32 dz) are never rounded in
+// place.  The weight tiles are packed in the B-fragment order
+// (ops/fused_infer.mma_tiles) once per model for decoding (K5 and K6:
+// pack_step_weights_mma; K1 eval: ops/fused_lstm's
+// pack_encoder_step_weights) and once per call in training (K3: the same
+// step pack; K4: ops/fused_decoder.pack_backward_weights; K1 train and
+// K2: fused_lstm's pack_encoder_step_weights and
+// pack_encoder_backward_weights): a tile is still one 4 KB bulk copy on
+// the mbarrier ring, and each lane reads its fragments of both 16-row
+// k-steps with one conflict-free 16-byte load.  The 8 warps split
 // the block's RB / 16 row tiles and 8 column tiles of 8, two x four where
 // the row tiles are even (each input fragment feeds two products, and the
 // input tile is read 4 times, not 8), every k; so the partial sums are
@@ -121,10 +129,11 @@
 // (scripts/torch_prod_phases.py; PERF.md) puts a launch's time in its
 // tile pipeline's barriers, the rounding pass and the cluster epilogue
 // more than in the mma; wgmma would add the swizzled layouts and
-// descriptors for that small share.  The encoder's waves (K1 eval, K1
-// train, K2) keep FMAs on bf16 tiles (each weight quad widened to f32 in
-// registers, the staged inputs rounded in place); no single product runs
-// FMAs at bf16.
+// descriptors for that small share.  A wave's products split the input
+// axis over a cluster as the single ones do, so a block may own few tiles
+// (layer 0's cells have 8 at H = 256) and stores its partials all the
+// same.  No product runs FMAs at bf16, and none the tensor cores at f32
+// (prod_body's static_assert).
 //
 // The training modes (K1 train, K2, K3, K4) run at W = __nv_bfloat16 too,
 // for ast_tpu's bf16 training: the same products with bf16 weight tiles
@@ -184,7 +193,8 @@ __device__ __forceinline__ float bf16_round(float x) {
 }
 
 // Four consecutive elements of W at p (16-byte aligned for float, 8 for
-// bf16) as f32.
+// bf16) as f32.  (No product runs FMAs at bf16; the tensor-core
+// instantiations still compile the FMA loop they never reach.)
 __device__ __forceinline__ float4 load4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
@@ -390,9 +400,9 @@ __device__ __forceinline__ void cell_bwd_element(const CellBwdArgsT<T>& a,
 // PROD_BWD, the EncCell of the wave's cells.  wave_cb: in a wave, the
 // block's column block within its product (else the block index gives
 // it).  W: the packed matrix's element type, and in the training modes
-// the residual streams'.  MMA: a single product at bf16 on the tensor
-// cores (the mma_prod_* kernels), its weight tiles packed in the m16n8k16
-// B-fragment order (ops/fused_infer.mma_tiles).
+// the residual streams'.  MMA: a product at bf16 on the tensor cores (the
+// mma_* kernels), its weight tiles packed in the m16n8k16 B-fragment
+// order (ops/fused_infer.mma_tiles); at f32 FMAs.
 template <int TR, int RGN, int MODE, typename W, typename Extra,
           bool MMA = false>
 __device__ __forceinline__ void prod_body(const Prod& a, const Extra& ex,
@@ -404,8 +414,8 @@ __device__ __forceinline__ void prod_body(const Prod& a, const Extra& ex,
       MODE == PROD_CELL || MODE == PROD_CELL_TRAIN || ENC_CELL;
   using S = ProdShape<TR, RGN, W, MMA>;
   constexpr int KGN = S::KGN, RB = S::RB, STAGES = S::STAGES;
-  static_assert(!MMA || (IS_BF16<W> && RB % 16 == 0 && !WAVE),
-                "the tensor-core product is the single products' at bf16");
+  static_assert(MMA == IS_BF16<W> && (!MMA || RB % 16 == 0),
+                "bf16 products run on the tensor cores, f32 ones on FMAs");
   grid_dep_wait();
   if (a.done && *a.done) return;  // every block of the launch alike
   grid_dep_launch();
@@ -512,18 +522,6 @@ __device__ __forceinline__ void prod_body(const Prod& a, const Extra& ex,
             *reinterpret_cast<const float4*>(xs + r * XLD + f * 4);
         *reinterpret_cast<uint2*>(at + r * XLDA + f * 4) =
             make_uint2(bf16x2_bits(x.x, x.y), bf16x2_bits(x.z, x.w));
-      }
-    } else if constexpr (IS_BF16<W>) {
-      // the values this thread staged, rounded to bf16 in place
-      for (int e = tid; e < rows * (KT / 4); e += THREADS) {
-        float4* v = reinterpret_cast<float4*>(xs + (e / (KT / 4)) * XLD +
-                                              (e % (KT / 4)) * 4);
-        float4 x = *v;
-        x.x = bf16_round(x.x);
-        x.y = bf16_round(x.y);
-        x.z = bf16_round(x.z);
-        x.w = bf16_round(x.w);
-        *v = x;
       }
     }
     __syncthreads();        // everyone's
@@ -801,14 +799,28 @@ __global__ void __launch_bounds__(THREADS)
 
 // A wave: the cluster's slot among the launch's column blocks gives its
 // product (the first whose cb_end lies past it) and its column block
-// there.
+// there.  f32 only: at bf16 the waves run mma_wave_kernel.
 template <int TR, int RGN, int MODE, typename Extra, typename W>
 __global__ void __launch_bounds__(THREADS) wave_kernel(Wave<Extra> w) {
+  static_assert(!IS_BF16<W>, "bf16 waves run mma_wave_kernel");
   const int slot = blockIdx.x / (int)cg::this_cluster().num_blocks();
   int g = 0;
   while (slot >= w.cb_end[g]) ++g;
   prod_body<TR, RGN, MODE, W>(w.p[g], w.x[g],
                               slot - (g ? w.cb_end[g - 1] : 0));
+}
+
+// The encoder's waves at bf16 on the tensor cores: K1's eval and train
+// cells, K2's linears.  One block an SM (EXCLUSIVE_SMEM) told to ptxas:
+// without it, it held the 64-row waves to 64 registers and spilled.
+template <int TR, int RGN, int MODE, typename Extra>
+__global__ void __launch_bounds__(THREADS, 1)
+    mma_wave_kernel(Wave<Extra> w) {
+  const int slot = blockIdx.x / (int)cg::this_cluster().num_blocks();
+  int g = 0;
+  while (slot >= w.cb_end[g]) ++g;
+  prod_body<TR, RGN, MODE, __nv_bfloat16, Extra, true>(
+      w.p[g], w.x[g], slot - (g ? w.cb_end[g - 1] : 0));
 }
 
 // cv[b N + n] = softmax(enc[b] @ q[b N + n]) @ enc[b] for the N rows of
@@ -1226,20 +1238,26 @@ cudaError_t launch_prod(const Prod& a, cudaStream_t s,
 
 // A wave in mode MODE at the row tiling <TR, RGN>: `cols` column blocks
 // over all its products, whose shortest input axis has `tiles` tiles.
-template <int TR, int RGN, int MODE, typename W, typename Extra>
+// MMA: on the tensor cores (bf16).
+template <int TR, int RGN, int MODE, typename W, bool MMA, typename Extra>
 cudaError_t launch_wave_tile(const Wave<Extra>& w, int cols, int tiles,
                              cudaStream_t s) {
-  using S = ProdShape<TR, RGN, W>;
+  using S = ProdShape<TR, RGN, W, MMA>;
   static size_t opted[MAX_DEVICES] = {};  // of this (tile, mode, W)'s kernel
   const int row_chunks = (w.p[0].R + S::RB - 1) / S::RB;
-  return launch_clustered(wave_kernel<TR, RGN, MODE, Extra, W>, opted,
-                          MODE + 3, S::RB, S::BYTES, cols, row_chunks, tiles,
-                          s, w);
+  if constexpr (MMA)
+    return launch_clustered(mma_wave_kernel<TR, RGN, MODE, Extra>, opted,
+                            MODE + 3, S::RB, S::BYTES, cols, row_chunks,
+                            tiles, s, w);
+  else
+    return launch_clustered(wave_kernel<TR, RGN, MODE, Extra, W>, opted,
+                            MODE + 3, S::RB, S::BYTES, cols, row_chunks,
+                            tiles, s, w);
 }
 
 // The wave's column blocks counted into cb_end, then launch_prod's row
 // tilings.
-template <int MODE, typename W = float, typename Extra>
+template <int MODE, typename W = float, bool MMA = false, typename Extra>
 cudaError_t launch_wave(Wave<Extra>& w, cudaStream_t s) {
   int cols = 0, tiles = 1 << 30;
   for (int g = 0; g < w.n; ++g) {
@@ -1251,12 +1269,17 @@ cudaError_t launch_wave(Wave<Extra>& w, cudaStream_t s) {
     tiles = min(tiles, ktot / KT);
   }
   const int R = w.p[0].R;
-  if (R <= 16) return launch_wave_tile<4, 4, MODE, W>(w, cols, tiles, s);
-  if (R <= 32) return launch_wave_tile<8, 4, MODE, W>(w, cols, tiles, s);
-  if (R <= 64) return launch_wave_tile<8, 8, MODE, W>(w, cols, tiles, s);
-  if (R <= 128) return launch_wave_tile<8, 16, MODE, W>(w, cols, tiles, s);
-  if (R <= 160) return launch_wave_tile<10, 16, MODE, W>(w, cols, tiles, s);
-  return launch_wave_tile<16, 16, MODE, W>(w, cols, tiles, s);
+  if (R <= 16)
+    return launch_wave_tile<4, 4, MODE, W, MMA>(w, cols, tiles, s);
+  if (R <= 32)
+    return launch_wave_tile<8, 4, MODE, W, MMA>(w, cols, tiles, s);
+  if (R <= 64)
+    return launch_wave_tile<8, 8, MODE, W, MMA>(w, cols, tiles, s);
+  if (R <= 128)
+    return launch_wave_tile<8, 16, MODE, W, MMA>(w, cols, tiles, s);
+  if (R <= 160)
+    return launch_wave_tile<10, 16, MODE, W, MMA>(w, cols, tiles, s);
+  return launch_wave_tile<16, 16, MODE, W, MMA>(w, cols, tiles, s);
 }
 
 // Attention for B utterances of N rows each, in mode MODE over encoder
@@ -1385,11 +1408,14 @@ cudaError_t launch_cell_wave(Wave<EncCell>& w, bool train, cudaStream_t s) {
                : launch_wave<PROD_WAVE_CELL>(w, s);
 }
 
+// The encoder's waves at bf16, on the tensor cores (their weights in the
+// B-fragment order: ops/fused_lstm.pack_encoder_step_weights,
+// pack_encoder_backward_weights)
 cudaError_t launch_cell_wave_bf16(Wave<EncCell>& w, bool train,
                                   cudaStream_t s) {
   using B16 = __nv_bfloat16;
-  return train ? launch_wave<PROD_WAVE_CELL_TRAIN, B16>(w, s)
-               : launch_wave<PROD_WAVE_CELL, B16>(w, s);
+  return train ? launch_wave<PROD_WAVE_CELL_TRAIN, B16, true>(w, s)
+               : launch_wave<PROD_WAVE_CELL, B16, true>(w, s);
 }
 
 cudaError_t launch_linear_wave(Wave<NoExtra>& w, cudaStream_t s) {
@@ -1397,7 +1423,7 @@ cudaError_t launch_linear_wave(Wave<NoExtra>& w, cudaStream_t s) {
 }
 
 cudaError_t launch_linear_wave_bf16(Wave<NoExtra>& w, cudaStream_t s) {
-  return launch_wave<PROD_WAVE_LINEAR, __nv_bfloat16>(w, s);
+  return launch_wave<PROD_WAVE_LINEAR, __nv_bfloat16, true>(w, s);
 }
 
 // K3's and K4's products at bf16, on the tensor cores (their weights in

@@ -32,10 +32,15 @@
 //
 // bfloat16 (ast_tpu's compute_dtype bfloat16): the packed [wx; wh] in
 // bf16, each product's inputs (the layer below's output and the layer's
-// own h) rounded to bf16 as the product reads them, the sums, the bias
-// (not rounded, as in ast_tpu), x0_proj, the state and the outputs in f32
-// (decode_step.cu's products at W = __nv_bfloat16).  Train mode at bf16
-// stores the four residual streams in bf16 (ast_tpu's res_dtype =
+// own h) rounded to bf16 as the product stages them into its block's
+// shared tile (never in the f32 state it reads), the sums, the bias (not
+// rounded, as in ast_tpu), x0_proj, the state and the outputs in f32.
+// The waves run on the tensor cores (decode_step.cu's mma_wave_kernel:
+// mma.sync m16n8k16 bf16 -> f32), the pack in their B-fragment order: per
+// (layer, direction) (H / 16 column blocks, K / 32, 2048), the same
+// offsets as the f32 layout; a 32-row tile of layers above 0 lies in one
+// of their two input segments, H being a multiple of 32.  Train mode at
+// bf16 stores the four residual streams in bf16 (ast_tpu's res_dtype =
 // wh.dtype; x_drop = round(h * keep_scale)); the recurrence carries f32
 // h, c and dropped h as eval mode carries h and c -- h and the dropped h
 // of step t in slot t & 1, c in place -- so h_fin and c_fin leave f32.

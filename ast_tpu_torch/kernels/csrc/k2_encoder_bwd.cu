@@ -34,7 +34,12 @@
 // bf16 (ast_tpu's out_shape in acts.dtype), and also in f32 to a scratch
 // row of its wave group, which the wave's product reads and rounds to
 // bf16 as it stages it (ast_tpu's dz.astype(wh.dtype)) against the bf16
-// transposed weights; the carries, dc and the cotangents stay f32.
+// transposed weights; the carries, dc and the cotangents stay f32.  The
+// product runs on the tensor cores (decode_step.cu's mma_wave_kernel:
+// mma.sync m16n8k16 bf16 -> f32) over tiles in their B-fragment order
+// (pack_encoder_backward_weights at bf16: per (layer, direction)
+// (column blocks, 4H / 32, 2048), a ragged N through zero columns), its
+// per-column epilogue reading one partial a block of the cluster.
 #include <type_traits>
 
 #include "common.cuh"

@@ -213,8 +213,9 @@ def encoder_weights(params, dtype=torch.float32):
     kernel does not take, which only the plain version runs).  Made once
     per model for decoding (:func:`decode_weights`); None for a
     ``linear_proj`` encoder, whose layers run one by one on the scan
-    path.  ``dtype`` bf16: ``wx_rest``, ``wh`` and the pack in bf16, ``b``
-    f32 (``ast_tpu`` casts the two matrices only)."""
+    path.  ``dtype`` bf16: ``wx_rest``, ``wh`` and the pack in bf16 (the
+    pack in the tensor cores' tile order), ``b`` f32 (``ast_tpu`` casts the
+    two matrices only)."""
     if params["enc"]["proj"]:
         return None
     wx_rest, wh, b = pack_encoder_weights(

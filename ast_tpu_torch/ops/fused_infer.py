@@ -590,21 +590,30 @@ def put_transposed_tiles(out, n0, m):
             i += take
 
 
-def _cell_tiles(wx, wh, out):
-    """A cell's [wx; wh] (K, 4H) in :func:`pack_step_weights`' unit
-    blocks (gate q of unit 16 c + u at column q * 16 + u of block c) and
-    :func:`mma_tiles`' order, into ``out`` (H / 16, ceil(K / 32), 2048):
-    one permuted copy of the joined rows, zero past K."""
-    H, kt = wh.shape[0], out.shape[1]
-    cat = torch.cat([wx, wh])
-    cat = torch.nn.functional.pad(cat, (0, 0, 0, kt * _DECODE_TILE
-                                        - cat.shape[0]))
+def unit_tiles(w, out):
+    """Cell matrices ``w`` (..., K, 4H), K a multiple of 32, in
+    :func:`pack_step_weights`' unit blocks (gate q of unit 16 c + u at
+    column q * 16 + u of block c) and :func:`mma_tiles`' order, into
+    ``out`` (..., H / 16, K / 32, 2048): one permuted copy."""
+    *lead, K, H4 = w.shape
+    H, d = H4 // 4, len(lead)
     # column q H + 16 c + 8 u8 + g, row 32 kt + 16 ks + 8 i + 2 t + h:
     # (kt, ks, i, t, h, q, c, u8, g) -> (c, kt, q, u8, g, t, ks, i, h),
     # where the block's column 16 q + 8 u8 + g is column tile 2 q + u8
-    src = cat.view(kt, 2, 2, 4, 2, 4, H // 16, 2, 8).permute(
-        6, 0, 5, 7, 8, 3, 1, 2, 4)
-    out.view(src.shape).copy_(src)
+    src = w.unflatten(-1, (4, H // 16, 2, 8)).unflatten(
+        d, (K // _DECODE_TILE, 2, 2, 4, 2))
+    perm = list(range(d)) + [d + k for k in (6, 0, 5, 7, 8, 3, 1, 2, 4)]
+    out.unflatten(-1, (4, 2, 8, 4, 2, 2, 2)).copy_(src.permute(*perm))
+
+
+def _cell_tiles(wx, wh, out):
+    """A cell's [wx; wh] (K, 4H) through :func:`unit_tiles` into ``out``
+    (H / 16, ceil(K / 32), 2048): one permuted copy of the joined rows,
+    zero past K."""
+    kt = out.shape[1]
+    cat = torch.cat([wx, wh])
+    unit_tiles(torch.nn.functional.pad(
+        cat, (0, 0, 0, kt * _DECODE_TILE - cat.shape[0])), out)
 
 
 def pack_step_weights_mma(w):

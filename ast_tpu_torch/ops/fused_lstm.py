@@ -51,12 +51,16 @@ import torch
 from ast_tpu_torch.kernels import build
 from ast_tpu_torch.ops.bf16 import BF16, rounded, widen
 from ast_tpu_torch.ops.dropout import drop_mask, drop_threshold
-from ast_tpu_torch.ops.fused_infer import put_transposed
+from ast_tpu_torch.ops.fused_infer import (
+    put_transposed, put_transposed_tiles, unit_tiles)
 from ast_tpu_torch.ops.lstm import (
     layernorm, lstm_gate_acts, lstm_gates, lstm_gates_backward)
 
 # the input-axis tile of the kernels' products: H must be a multiple
 ENCODER_TILE = 32
+# a weight tile of the bf16 products, in the tensor cores' B-fragment
+# order (fused_infer.mma_tiles): 32 input rows x 64 columns
+_MMA_TILE = ENCODER_TILE * 64
 
 
 def pack_encoder_weights(enc_layers):
@@ -107,12 +111,27 @@ def pack_encoder_step_weights(wx_rest, wh):
     projected, 2H above -- as (H / 16 column blocks, K, 64), packed column
     q * 16 + u of block c being gate q of unit 16 c + u, so a block holds
     all four gates of its units and a tile of 32 input rows is one
-    contiguous 8 KB (4 KB in bf16: the buffer takes ``wh``'s dtype);
-    layer 0's directions first, then (layer, direction) above, in one
-    flat buffer.  Three strided copies."""
+    contiguous 8 KB; layer 0's directions first, then (layer, direction)
+    above, in one flat buffer.  Three strided copies.
+
+    In bf16 (the buffer takes ``wh``'s dtype) each (layer, direction) is
+    (H / 16, K / 32, 2048) instead: the same column blocks with each 32 x
+    64 tile (4 KB) in ``fused_infer.mma_tiles``' order, which the tensor
+    cores' waves read; the same offsets and size, H a multiple of 32
+    (:func:`check_encoder_shapes`).  Three permuted copies."""
     L, D2, H, _ = wh.shape
     flat = wh.new_empty(((2 * L - 1) * D2 * H * 4 * H,))
     n0 = D2 * H * 4 * H
+    if wh.dtype == BF16:
+        check_encoder_shapes(H)
+        kt = H // ENCODER_TILE
+        unit_tiles(wh[0], flat[:n0].view(D2, H // 16, kt, _MMA_TILE))
+        if L > 1:
+            # [wx; wh]: a tile lies in one of the two (H rows each)
+            rest = flat[n0:].view(L - 1, D2, H // 16, 2 * kt, _MMA_TILE)
+            unit_tiles(wx_rest, rest[..., :kt, :])
+            unit_tiles(wh[1:], rest[..., kt:, :])
+        return flat
 
     def by_unit(w):        # (..., K, 4H) -> (..., H / 16, K, 4, 16)
         return w.unflatten(-1, (4, H // 16, 16)).movedim(-2, -4)
@@ -131,17 +150,24 @@ def pack_encoder_backward_weights(wx_rest, wh):
     blocks, 4H, 64) with zero columns past N, so that dz @ it is the
     layer's [dh carry | dx]; layer 0's directions first, then (layer,
     direction) above, in one flat buffer.  Three strided copies when H is
-    a multiple of 64."""
+    a multiple of 64.  In bf16 each block is (4H / 32, 2048) instead, its
+    tiles in ``fused_infer.mma_tiles``' order for the tensor cores' waves
+    (``put_transposed_tiles``; a ragged block through a zero block): the
+    same offsets and size."""
     L, D2, H, H4 = wh.shape
     b0, b1 = -(-H // 64), -(-2 * H // 64)
     n0 = D2 * b0 * H4 * 64
     flat = (torch.zeros if H % 64 else torch.empty)(
         (n0 + (L - 1) * D2 * b1 * H4 * 64,), dtype=wh.dtype, device=wh.device)
-    put_transposed(flat[:n0].view(D2, b0, H4, 64), 0, wh[0])
+    put, block = put_transposed, (H4, 64)
+    if wh.dtype == BF16:
+        check_encoder_shapes(H)
+        put, block = put_transposed_tiles, (H4 // ENCODER_TILE, _MMA_TILE)
+    put(flat[:n0].view(D2, b0, *block), 0, wh[0])
     if L > 1:
-        rest = flat[n0:].view(L - 1, D2, b1, H4, 64)
-        put_transposed(rest, 0, wh[1:])
-        put_transposed(rest, H, wx_rest)
+        rest = flat[n0:].view(L - 1, D2, b1, *block)
+        put(rest, 0, wh[1:])
+        put(rest, H, wx_rest)
     return flat
 
 

@@ -199,9 +199,10 @@ Phases, each printing a line:
    step's best logit, K6 held to the beam's rules with scores within
    BF16_SCORE_TOL -- at B=32 and at the partial batches of BF16_PARTIAL
    (PARTIAL's: every row tiling of the tensor-core products; K1 at
-   ENC_PARTIAL's first two and ENC_EVAL_PARTIAL), REPEATS more calls
-   bit-equal at every size, each timed beside its f32 mode in the same
-   call, K1 beside two cuDNN torch.nn.LSTM in bf16; one K5 and one K6
+   ENC_PARTIAL's, ENC_EVAL_PARTIAL's and TRAIN_WIDE's, every row tiling
+   of its tensor-core waves, and on DEEP_ENCODER's stack), REPEATS more
+   calls bit-equal at every size, each timed beside its f32 mode in the
+   same call, K1 beside two cuDNN torch.nn.LSTM in bf16; one K5 and one K6
    call at bf16 split by kernel under torch.profiler (cells, q, ctx,
    logits, attention, argmax or beam step); then cli.infer on phase 4's
    64 files at bf16, greedy and beam (utts/s beside f32, the share of
@@ -225,8 +226,9 @@ Phases, each printing a line:
    operands into, within BF16_MAX_TOL and BF16_STEP_TOL of its
    mean|plain| (K3 without dropout between its layers); at B=32, at
    ENC_PARTIAL's / TRAIN_PARTIAL's batches and at D2 = 1 (bi_rnn false),
-   K3 and K4 also at TRAIN_WIDE's 100 to 200 rows (every row tiling of
-   their tensor-core products), REPEATS more calls bit-equal; controls,
+   all four also at TRAIN_WIDE's 100 to 200 rows (every row tiling of
+   their tensor-core products and waves), K1 train and K2 on
+   DEEP_ENCODER's stack, REPEATS more calls bit-equal; controls,
    which must fail the one-step checks: the plain versions with one of
    ast_tpu's rounding points dropped standing in for each kernel (K1's
    and K2's product operands, K3's alphas, K4's d_scores unrounded); the
@@ -774,6 +776,22 @@ def deep_encoder_case(device):
         for shape, scale in (((t_enc, 2, nb, 4 * H), 1.0),
                              ((L - 1, 2, H, 4 * H), 0.2),
                              ((L, 2, H, 4 * H), 0.2), ((L, 2, 4 * H), 0.1)))
+
+
+def bf16_encoder_cases(params, sizes, device):
+    """[(name, (x0_proj, wx_rest, wh, b) in bf16)] of the bf16 encoder
+    checks: encoder_case at each (rows, T') of ``sizes``, then
+    DEEP_ENCODER's stack."""
+    import torch
+
+    cases = [(f"{nb} rows, T' {t_enc}", encoder_case(params, nb, t_enc,
+                                                      device))
+             for nb, t_enc in sizes]
+    L, H, nb, t_enc = DEEP_ENCODER
+    cases.append((f"DEEP_ENCODER {L} layers, H {H}, {nb} rows, T' {t_enc}",
+                  deep_encoder_case(device)))
+    return [(name, (x0, wxr.to(torch.bfloat16), wh.to(torch.bfloat16), b))
+            for name, (x0, wxr, wh, b) in cases]
 
 
 def encoder_clusters(nb):
@@ -3771,9 +3789,10 @@ def check_bf16_encoder(args, name):
 def check_bf16_kernels(cfg, device):
     """Phase 13, kernels: K1 eval, K5 and K6 at bf16 against their plain
     bf16 versions at es_en_20h width (phase 3's model and batch), at
-    BF16_PARTIAL's batches too, REPEATS more calls bit-equal, each timed
-    beside its f32 mode in the same call, and K1 beside two cuDNN
-    torch.nn.LSTM in bf16."""
+    BF16_PARTIAL's batches too (K1 at ENC_PARTIAL's, ENC_EVAL_PARTIAL's
+    and TRAIN_WIDE's, and on DEEP_ENCODER's stack), REPEATS more calls
+    bit-equal, each timed beside its f32 mode in the same call, and K1
+    beside two cuDNN torch.nn.LSTM in bf16."""
     import torch
 
     from ast_tpu_torch.models import seq2seq
@@ -3794,13 +3813,13 @@ def check_bf16_kernels(cfg, device):
     print(f"K1 encoder bf16: x0_proj {tuple(enc_in[0].shape)}, max abs err "
           f"{err:.3e} against its plain bf16 version (tol {BF16_ENC_TOL}), "
           f"{REPEATS} more calls bit-equal", flush=True)
-    for nb, t_enc in ENC_PARTIAL[:2] + ENC_EVAL_PARTIAL:
-        x0, wxr, wh, b = encoder_case(params, nb, t_enc, device)
-        e = check_bf16_encoder((x0, wxr.to(bf), wh.to(bf), b),
-                               f"{nb} rows, T' {t_enc}")
+    # every row tiling of the tensor-core waves (16 to 256 rows), T' below
+    # L + 1 and odd, and a stack whose full waves take two launches
+    for name, args in bf16_encoder_cases(
+            params, ENC_PARTIAL + ENC_EVAL_PARTIAL + TRAIN_WIDE, device):
+        e = check_bf16_encoder(args, name)
         err = max(err, e)
-        print(f"  K1 bf16 at {nb} rows, T' {t_enc}: max abs err {e:.3e}",
-              flush=True)
+        print(f"  K1 bf16 at {name}: max abs err {e:.3e}", flush=True)
     lib_ms, lib_note = None, ""
     try:
         lstms, xs = cudnn_pair(params, state, mcfg, X, bf)
@@ -4517,12 +4536,12 @@ def step_loss_bf16(params, state, mcfg, X, y, n_real, draws):
 def check_bf16_train_kernels(cfg, device):
     """Phase 14, kernels: K1 train, K2, K3 and K4 at bf16 against their
     plain bf16 versions on phase 5's batch at es_en_20h width, at
-    ENC_PARTIAL's / TRAIN_PARTIAL's batches (K3 / K4 also TRAIN_WIDE's)
-    and at D2 = 1 (bi_rnn false), REPEATS more calls bit-equal; the whole
-    step's gradient of every leaf through the kernels and through the
-    plain versions; each kernel's time beside its f32 mode's in this
-    call, and K3's and K4's split by launch kind.  Only the bf16 entries
-    launch until the f32 times are taken."""
+    ENC_PARTIAL's / TRAIN_PARTIAL's and TRAIN_WIDE's batches, at D2 = 1
+    (bi_rnn false) and (K1 train, K2) on DEEP_ENCODER's stack, REPEATS
+    more calls bit-equal; the whole step's gradient of every leaf through
+    the kernels and through the plain versions; each kernel's time beside
+    its f32 mode's in this call, and K3's and K4's split by launch kind.
+    Only the bf16 entries launch until the f32 times are taken."""
     import torch
 
     from ast_tpu_torch.models import seq2seq
@@ -4585,13 +4604,15 @@ def check_bf16_train_kernels(cfg, device):
               f"{show(ctl_enc[1])}; plain K3 with the alphas unrounded "
               f"{show(ctl_dec[0])}; plain K4 with d_scores unrounded "
               f"{show(ctl_dec[1])}", flush=True)
-        for nb, t_enc in ENC_PARTIAL:
-            p0, pr, ph, pb = encoder_case(params, nb, t_enc, device)
-            e1, e2, _, _ = check_bf16_encoder_train(
-                p0, pr.to(bf), ph.to(bf), pb, f"{nb} rows, T' {t_enc}")
+        # every row tiling of the tensor-core waves (16 to 256 rows), T'
+        # below L + 1 and odd, and a stack whose full waves take two
+        # launches
+        for name, args in bf16_encoder_cases(
+                params, ENC_PARTIAL + TRAIN_WIDE, device):
+            e1, e2, _, _ = check_bf16_encoder_train(*args, name)
             err1, err2 = worse(err1, e1), worse(err2, e2)
-            print(f"  K1 train / K2 bf16 at {nb} rows, T' {t_enc}: "
-                  f"{show(e1)}; {show(e2)}", flush=True)
+            print(f"  K1 train / K2 bf16 at {name}: {show(e1)}; "
+                  f"{show(e2)}", flush=True)
         umcfg = variant_cfg(mcfg, "bi_rnn false")
         uparams, ustate = seq2seq.init_model(umcfg, seed=0, device=device)
         u0, ur, uh, ub = unidirectional_case(uparams, ustate, umcfg, B,

@@ -1,22 +1,25 @@
 #!/usr/bin/env python3
-"""Where a launch of a bf16 single product spends its cycles, on one
-NVIDIA GPU: the decode step's (K5, K6) and the training decoder's (K3's
-train cells and linears, K4's backward products and d_cv).
+"""Where a launch of a bf16 product spends its cycles, on one NVIDIA
+GPU: the decode step's (K5, K6), the training decoder's (K3's train
+cells and linears, K4's backward products and d_cv) and the encoder's
+waves (K1's eval and train cells, K2's linears).
 
     python3 scripts/torch_prod_phases.py [OTHER_DIR]
 
 Copies this checkout's ``ast_tpu_torch`` (and, given OTHER_DIR, that
 checkout's too, e.g. the parent unpacked by ``git archive``; each run in
 its own process) into ``build/prod_phases/`` and adds ``clock64()`` reads
-to ``decode_step.cu``'s product at bf16 (``prod_body`` outside the
-encoder's waves, on the tensor cores or on FMAs, whichever the checkout
-launches): thread 0 of every block adds, per launch, the cycles of each
-phase to a device array, by mode (linear, cell, train cell, backward)
-and row tile.  Then one call each at bf16 at ``chip_smoke.py``'s shapes
-(es_en_20h width, B=32, 640 frames -> T'=160, seeded weights): K5 and K6
-(stop 175, beam 5,5), K3 (U=64 targets, teacher ratio 0.8, dropout 0.3)
-and K4 (on K3's streams, a seeded cotangent); for each call, each kind's
-mean cycles a block-launch:
+to ``decode_step.cu``'s product at bf16 (``prod_body``, single or in a
+wave, on the tensor cores or on FMAs, whichever the checkout launches):
+thread 0 of every block adds, per launch, the cycles of each phase to a
+device array, by mode (linear, cell, train cell, backward, encoder cell
+wave, encoder train cell wave, wave linear) and row tile.  Then one call
+each at bf16 at ``chip_smoke.py``'s shapes (es_en_20h width, B=32, 640
+frames -> T'=160, seeded weights): K5 and K6 (stop 175, beam 5,5), K3
+(U=64 targets, teacher ratio 0.8, dropout 0.3), K4 (on K3's streams, a
+seeded cotangent), K1 eval (over ``decode_weights``' pack), K1 train
+(dropout 0.3) and K2 (on K1 train's streams, seeded cotangents); for
+each call, each kind's mean cycles a block-launch:
 
   dep wait       entry to griddepcontrol.wait's return (programmatic
                  dependent launch: overlaps the kernel before it)
@@ -53,11 +56,13 @@ COPIES = os.path.join(ROOT, "build", "prod_phases")
 PHASES = ("dep wait", "prologue", "loop top", "cp wait", "round",
           "mbar wait", "mma / fma", "partials+sync", "epilogue",
           "final sync")
-MODES = ("linear", "cell", "train cell", "backward")
+# decode_step.cu's PROD_* modes, in order
+MODES = ("linear", "cell", "train cell", "backward", "encoder cell wave",
+         "encoder train cell wave", "wave linear")
 KINDS = len(MODES) * 17       # mode x row tile / 16 (1 .. 16)
 
-# what thread 0 of a block adds up at the end of a bf16 single product
-RECORD = """  if constexpr (IS_BF16<W> && !WAVE) {
+# what thread 0 of a block adds up at the end of a bf16 product
+RECORD = """  if constexpr (IS_BF16<W>) {
     if (tid == 0) {
       unsigned long long* g = g_prof[MODE * 17 + RB / 16];
       const long long v[11] = {T1 - T0, Tp - T1, d_top, d_cp, d_conv,
@@ -72,7 +77,8 @@ RECORD = """  if constexpr (IS_BF16<W> && !WAVE) {
 # occur once
 PATCH = (
     ("namespace ast {\nnamespace {\n",
-     "namespace ast {\n__device__ unsigned long long g_prof[68][11];\n"
+     f"namespace ast {{\n__device__ unsigned long long g_prof[{KINDS}][11];"
+     "\n"
      "namespace {\n"),
     ("  grid_dep_wait();\n  if (a.done && *a.done) return;  // every block "
      "of the launch alike\n  grid_dep_launch();\n",
@@ -122,15 +128,15 @@ PATCH = (
      + "}\n"),
 )
 
-EXPORTS = """
-AST_EXPORT int ast_prof_read(unsigned long long* out) {
+EXPORTS = f"""
+AST_EXPORT int ast_prof_read(unsigned long long* out) {{
   return (int)cudaMemcpyFromSymbol(out, ast::g_prof, sizeof(ast::g_prof));
-}
+}}
 
-AST_EXPORT int ast_prof_reset() {
-  static unsigned long long z[68][11] = {};
+AST_EXPORT int ast_prof_reset() {{
+  static unsigned long long z[{KINDS}][11] = {{}};
   return (int)cudaMemcpyToSymbol(ast::g_prof, z, sizeof(z));
-}
+}}
 """
 
 
@@ -155,8 +161,8 @@ def instrumented_copy(tree):
 
 
 def calls(cs, dev):
-    """{name: fn}: one K5, K6, K3 and K4 call at bf16 at chip_smoke's
-    shapes."""
+    """{name: fn}: one K5, K6, K3, K4, K1 eval, K1 train and K2 call at
+    bf16 at chip_smoke's shapes."""
     import torch
 
     from ast_tpu_torch.models import seq2seq
@@ -188,13 +194,24 @@ def calls(cs, dev):
     d_ht = torch.from_numpy(rng.standard_normal(tuple(ht.shape)).astype(
         np.float32) * 0.1).to(dev)
     db = (res, ht, enc, c0, w_train, d_ht, 777, cs.DROP, cs.DROP)
+    x0, wxr, wh, b, _ = seq2seq.encoder_inputs(params, state, mcfg, X,
+                                               train=True, compute_dtype=bf)
+    tr = (x0, wxr.to(bf), wh.to(bf), b, 12345, cs.DROP)
+    streams = fl.fused_stacked_lstm_train(*tr)
+    bwd = (streams[3], streams[4], tr[1], tr[2],
+           *(torch.from_numpy(rng.standard_normal(tuple(t.shape)).astype(
+               np.float32) * 0.1).to(dev) for t in streams[:3]), 12345,
+           cs.DROP)
     shutil.rmtree(root, ignore_errors=True)
     return {
         "K5": lambda: fi.greedy_decode_fused(enc, h0, c0, w, cs.STOP),
         "K6": lambda: fi.beam_decode_fused(enc, h0, c0, w, cs.N_BEAM,
                                            cs.K_BEAM, cs.STOP),
         "K3": lambda: fd.decoder_forward(*dec),
-        "K4": lambda: fd.decoder_backward(*db)}
+        "K4": lambda: fd.decoder_backward(*db),
+        "K1 eval": lambda: fl.fused_stacked_lstm(*enc_in),
+        "K1 train": lambda: fl.fused_stacked_lstm_train(*tr),
+        "K2": lambda: fl.encoder_backward(*bwd)}
 
 
 def run(tree):

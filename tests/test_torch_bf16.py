@@ -196,11 +196,25 @@ def test_stacked_lstm_bf16_matches_interpret_kernel():
         assert g.dtype == torch.float32
         np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=0,
                                    atol=ATOL)
-    # and the bf16 pack keeps the weights' dtype
-    packed = fused_lstm.pack_encoder_step_weights(t[1].to(BF), t[2].to(BF))
+    # and the bf16 pack keeps the weights' dtype: the f32 pack's column
+    # blocks of the same values, each (layer, direction)'s in the tensor
+    # cores' tile order, at a width the kernels take (H = 16 is refused)
+    with pytest.raises(ValueError, match="multiple of 32"):
+        fused_lstm.pack_encoder_step_weights(t[1].to(BF), t[2].to(BF))
+    H = 32
+    wx, wh = (torch.from_numpy((rng.randn(*shape) * 0.3).astype(
+        np.float32)).to(BF) for shape in ((L - 1, D2, H, 4 * H),
+                                           (L, D2, H, 4 * H)))
+    packed = fused_lstm.pack_encoder_step_weights(wx, wh)
     assert packed.dtype == BF
-    assert torch.equal(packed.float(), fused_lstm.pack_encoder_step_weights(
-        t[1].to(BF).float(), t[2].to(BF).float()))
+    blocks = fused_lstm.pack_encoder_step_weights(wx.float(), wh.float())
+    assert packed.numel() == blocks.numel()
+    off = 0
+    for K in [H] * D2 + [2 * H] * (L - 1) * D2:
+        n = K * 4 * H
+        assert torch.equal(packed[off:off + n].float(), fused_infer.mma_tiles(
+            blocks[off:off + n].view(H // 16, K, 64)).view(-1))
+        off += n
 
 
 def test_encode_bf16_matches_composed_jax(model, reference):

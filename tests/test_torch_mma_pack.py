@@ -27,7 +27,16 @@ at bf16 it lays out in the same order.  Held here:
 - the f32 decode pack and ``pack_step_weights`` (K3's per-call pack at
   f32; at bf16 the column blocks ``pack_step_weights_mma`` tiles) keep
   their column-block layout bit for bit;
-- ``step_weights`` refuses a bf16 step in the column-block layout.
+- ``step_weights`` refuses a bf16 step in the column-block layout;
+- the encoder's waves (K1's eval and train cells, K2's linears;
+  ``mma_wave_kernel``): ``ops/fused_lstm``'s bf16 packs unpack to each
+  (layer, direction)'s [wx; wh] in unit blocks and [wh^T | wx^T] (zero
+  past N), at es_en_20h's width, ragged ones and a five-layer stack; the
+  block model over their tiles, at each (layer, direction)'s offset in
+  the flat pack, gives x @ W for a layer-0 cell, a two-segment cell above
+  it and K2's linear over a cluster of 3 at every row tiling; the f32
+  encoder packs and ``decode_weights``' f32 ``"enc"`` keep their layout
+  bit for bit, and its bf16 ``"enc"`` is the fragment-order pack.
 """
 
 import numpy as np
@@ -37,6 +46,7 @@ import torch
 from ast_tpu_torch.models import seq2seq
 from ast_tpu_torch.ops import fused_decoder as fd
 from ast_tpu_torch.ops import fused_infer as fi
+from ast_tpu_torch.ops import fused_lstm as fl
 from tests.conftest import TINY_MODEL_CFG
 
 BF = torch.bfloat16
@@ -570,3 +580,196 @@ def test_train_split_tells_the_launch_kinds_apart():
                   "layer backward": 36.0, "attention": 27.0,
                   "select / head": 19.0, "other": 10.0,
                   "launch gaps": 3.0}, ms
+
+
+# encoder widths (L, D2, H): es_en_20h's; H = 32 and 96, where K2's
+# layer-0 N = H leaves its last column block ragged (and 2H = 192 splits
+# a block between wh^T and wx^T); chip_smoke's DEEP_ENCODER stack, whose
+# full waves take two launches
+ENC_DIMS = {"es_en_20h": (3, 2, 256), "h32": (3, 2, 32), "h96": (3, 2, 96),
+            "deep": (5, 2, 64)}
+
+
+def _encoder(dims, seed=0):
+    """(wx_rest, wh) in bf16 from a seeded numpy draw."""
+    L_, D2, H = ENC_DIMS[dims]
+    rng = np.random.default_rng(seed)
+    return tuple(torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).to(BF) for shape in ((L_ - 1, D2, H, 4 * H),
+                                          (L_, D2, H, 4 * H)))
+
+
+def encoder_cells(wx_rest, wh):
+    """{(l, d): (offset in the forward pack, [wx; wh] (K, 4H))}: layer 0
+    (K = H, its input arrives projected) first, then (layer, direction)
+    above, where k1_encoder.cu's cell_group looks."""
+    L_, D2, H, H4 = wh.shape
+    out = {}
+    for l in range(L_):
+        for d in range(D2):
+            off = (d * H if l == 0
+                   else D2 * H + ((l - 1) * D2 + d) * 2 * H) * H4
+            out[l, d] = (off, torch.cat([wx_rest[l - 1, d], wh[l, d]])
+                         if l else wh[0, d])
+    return out
+
+
+def encoder_transposes(wx_rest, wh):
+    """{(l, d): (offset in the backward pack, [wh^T | wx^T] (4H, N))},
+    where k2_encoder_bwd.cu's weight_at looks."""
+    L_, D2, H, H4 = wh.shape
+    b0, b1 = -(-H // 64), -(-2 * H // 64)
+    out = {}
+    for l in range(L_):
+        for d in range(D2):
+            off = (d * b0 if l == 0
+                   else D2 * b0 + ((l - 1) * D2 + d) * b1) * H4 * 64
+            m = wh[l, d].t()
+            out[l, d] = (off, torch.cat([m, wx_rest[l - 1, d].t()], dim=1)
+                         if l else m)
+    return out
+
+
+@pytest.mark.parametrize("dims", list(ENC_DIMS))
+def test_encoder_mma_packs_unpack_to_their_matrices(dims):
+    """K1's and K2's bf16 packs, unpacked from the fragment order, give
+    each (layer, direction)'s [wx; wh] in unit blocks (gate q of unit
+    16 c + u at column q * 16 + u of block c) and [wh^T | wx^T] with zero
+    columns past N, bit for bit, at the f32 packs' offsets and size."""
+    L_, D2, H = ENC_DIMS[dims]
+    wx_rest, wh = _encoder(dims)
+    fwd = fl.pack_encoder_step_weights(wx_rest, wh)
+    bwd = fl.pack_encoder_backward_weights(wx_rest, wh)
+    assert fwd.dtype == bwd.dtype == BF
+    assert fwd.numel() == (2 * L_ - 1) * D2 * H * 4 * H
+    assert bwd.numel() == fl.pack_encoder_backward_weights(
+        wx_rest.float(), wh.float()).numel()
+    for off, cat in encoder_cells(wx_rest, wh).values():
+        K = cat.shape[0]
+        tiles = fwd[off:off + K * 4 * H].view(H // 16, K // 32, 2048)
+        blk = unpack_tiles(tiles.float().numpy(), K)
+        got = blk.reshape(H // 16, K, 4, 16).transpose(1, 2, 0, 3)
+        np.testing.assert_array_equal(got.reshape(K, 4 * H),
+                                      cat.float().numpy())
+    for off, m in encoder_transposes(wx_rest, wh).values():
+        K, N = m.shape
+        nb = -(-N // 64)
+        tiles = bwd[off:off + nb * K * 64].view(nb, K // 32, 2048)
+        flat = unpack_tiles(tiles.float().numpy(), K).transpose(
+            1, 0, 2).reshape(K, -1)
+        np.testing.assert_array_equal(flat[:, :N], m.float().numpy())
+        assert not flat[:, N:].any()
+
+
+# the encoder's wave products: a cell of layer 0 (one input segment, h),
+# a cell of layer 1 (two: the layer below's output, then h), K2's linear
+# of layer 0 (its last column block ragged) and of layer 1 (a block
+# stitched from wh^T's last and wx^T's first columns)
+ENC_PRODUCTS = ["cell0", "cell1", "bwd0", "bwd1"]
+
+
+@pytest.mark.parametrize("R", [9, 25, 70, 150, 200])
+@pytest.mark.parametrize("product", ENC_PRODUCTS)
+def test_encoder_wave_block_model_computes_x_at_w(product, R):
+    """The numpy model of a block of mma_wave_kernel, on the bf16 packs'
+    tiles of direction 1 at the offsets the host loops give a wave's
+    product, with the input axis split over a cluster of 3 as a wave's
+    launch splits it (one tile a block for layer 0's cells here): the
+    cluster's summed partials are x @ W -- a cell block's units' four
+    gates side by side, which the eval and train epilogues read -- and
+    for K2's linear the per-column sum of the wave's linear epilogue
+    over the cluster gives dz @ [wh^T | wx^T] in column block 1 (at H =
+    96 layer 0's last, ragged; layer 1's stitched from two matrices).
+    Every 32-row tile a block stages lies in one input segment.  R in
+    every row tiling of launch_wave: 9 rows of 16, 25 of 32, 70 of 128,
+    150 of 160, 200 of 256."""
+    wx_rest, wh = _encoder("h96")
+    H = wh.shape[2]
+    l, d, cb, cs = int(product[-1]), 1, 1, 3
+    rng = np.random.default_rng(R)
+    if product.startswith("cell"):
+        off, cat = encoder_cells(wx_rest, wh)[l, d]
+        K = cat.shape[0]
+        tiles = fl.pack_encoder_step_weights(wx_rest, wh)[
+            off:off + K * 4 * H].view(H // 16, K // 32, 2048)
+        cols = [q * H + 16 * cb + u for u in range(16) for q in range(4)]
+        segments = [H] * (l + 1)
+    else:
+        off, cat = encoder_transposes(wx_rest, wh)[l, d]
+        K, N = cat.shape
+        nb = -(-N // 64)
+        tiles = fl.pack_encoder_backward_weights(wx_rest, wh)[
+            off:off + nb * K * 64].view(nb, K // 32, 2048)
+        cols = list(range(64 * cb, min(64 * cb + 64, N)))
+        segments = [K]
+    bounds = np.cumsum([0] + segments)
+    x = torch.from_numpy(rng.standard_normal((R, K)).astype(np.float32)).to(
+        BF).double().numpy()
+    tiles, cat = tiles.double().numpy(), cat.double().numpy()
+    n = K // 32
+    parts = [range(c * n // cs, (c + 1) * n // cs) for c in range(cs)]
+    for part in parts:
+        assert len(part) >= 1
+        for k in part:      # the tile's rows within one segment
+            s = np.searchsorted(bounds, 32 * k, side="right")
+            assert 32 * k + 31 < bounds[s]
+    P = np.stack([kernel_block(x[:, 32 * p.start:32 * p.stop],
+                               tiles[cb][p.start:p.stop],
+                               product.startswith("cell")) for p in parts])
+    want = x @ cat[:, cols]
+    np.testing.assert_allclose(P.sum(axis=0)[:R, :len(cols)], want,
+                               rtol=1e-12, atol=1e-12)
+    if not product.startswith("cell"):
+        assert len(cols) == (32 if l == 0 else 64)
+        np.testing.assert_allclose(bwd_epilogue_rows(P, cb, N, R), want,
+                                   rtol=1e-12, atol=1e-12)
+    assert not P[:, R:].any() and not P[:, :, len(cols):].any()
+
+
+def encoder_column_blocks(wx_rest, wh):
+    """numpy model of the f32 encoder packs as they were before the bf16
+    ones took the fragment order: (forward, backward) flat arrays, each
+    (layer, direction)'s cell_blocks / column_blocks back to back."""
+    fwd = [cell_blocks(cat.numpy(), wh.shape[2]).ravel()
+           for _, cat in encoder_cells(wx_rest, wh).values()]
+    bwd = [column_blocks(m.numpy()).ravel()
+           for _, m in encoder_transposes(wx_rest, wh).values()]
+    return np.concatenate(fwd), np.concatenate(bwd)
+
+
+@pytest.mark.parametrize("dims", ["h32", "h96", "deep"])
+def test_f32_encoder_packs_unchanged(dims):
+    """pack_encoder_step_weights and pack_encoder_backward_weights at f32
+    keep their column-block layout bit for bit."""
+    wx_rest, wh = (t.float() for t in _encoder(dims))
+    fwd, bwd = encoder_column_blocks(wx_rest, wh)
+    got = fl.pack_encoder_step_weights(wx_rest, wh)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), fwd)
+    got = fl.pack_encoder_backward_weights(wx_rest, wh)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), bwd)
+
+
+def test_decode_weights_encoder_pack():
+    """decode_weights keeps K1 eval's pack under "enc": at bf16 the
+    fragment-order pack of the bf16 weights, which unpacks to the f32
+    layout of the same values; at f32 the column blocks, unchanged."""
+    mcfg = dict(TINY_MODEL_CFG, rnn_config=dict(
+        TINY_MODEL_CFG["rnn_config"], hidden_units=64, dec_vocab_size=12))
+    tp, _ = seq2seq.init_model(mcfg, seed=3)
+    wx_rest, wh, b, packed = seq2seq.decode_weights(tp, BF)["enc"]
+    H = wh.shape[2]
+    assert (H, packed.dtype, b.dtype) == (32, BF, torch.float32)
+    assert torch.equal(packed, fl.pack_encoder_step_weights(wx_rest, wh))
+    f32 = seq2seq.decode_weights(tp)["enc"]
+    assert f32[3].dtype == torch.float32
+    np.testing.assert_array_equal(
+        f32[3].numpy(), encoder_column_blocks(f32[0], f32[1])[0])
+    blocks = fl.pack_encoder_step_weights(wx_rest.float(), wh.float())
+    for off, cat in encoder_cells(wx_rest, wh).values():
+        K = cat.shape[0]
+        np.testing.assert_array_equal(
+            unpack_tiles(packed[off:off + K * 4 * H].view(
+                H // 16, K // 32, 2048).float().numpy(), K).ravel(),
+            blocks[off:off + K * 4 * H].numpy())
