@@ -15,11 +15,18 @@ all-zero / all-PAD rows.  In text-encoder mode (``enc_key`` other than
 and bucketed by their count, which is the row's ``frame_len``.  The
 Fisher loader reads a split's ``<set>.pack``
 (:mod:`ast_tpu_torch.data.feature_pack`) when there is one; ``features:
-wav`` takes :class:`ast_tpu_torch.data.wav_loader.WavDataLoader`.  Not
-ported (ROADMAP.md queue 1): the device feature cache and grouped runs
-for multi-step dispatch.
+wav`` takes :class:`ast_tpu_torch.data.wav_loader.WavDataLoader`.
+
+Two options of ``get_batch`` feed the trainer's feed options:
+``group_runs`` (``extras.steps_per_dispatch``) regroups the shuffled
+batch order into runs of same-bucket batches (:func:`_group_bucket_runs`),
+and ``index_cache`` (``extras.hbm_cache``) emits cache row indices and a
+frame-dropout mask in place of the feature block, drawing the dropout
+indices from the same stream as host assembly
+(:class:`ast_tpu_torch.data.device_cache.EpochFeatureCache`).
 """
 
+import collections
 import os
 import pickle
 import random
@@ -35,6 +42,25 @@ from ast_tpu_torch.utils.seeding import stable_seed
 
 def _round_up(x, m):
     return ((x + m - 1) // m) * m
+
+
+def _group_bucket_runs(batch_list, run_len):
+    """Permute a shuffled [(utts, bucket)] list into runs of up to
+    ``run_len`` consecutive same-bucket entries by pulling later
+    same-bucket entries forward (first-seen bucket order kept).
+    Deterministic in the input order; every entry appears once."""
+    pending, order = {}, []
+    for item in batch_list:
+        pending.setdefault(item[1], collections.deque()).append(item)
+        order.append(item[1])
+    out = []
+    for b in order:
+        q = pending[b]
+        for _ in range(run_len):
+            if not q:
+                break
+            out.append(q.popleft())
+    return out
 
 
 class DataLoader:
@@ -123,14 +149,27 @@ class DataLoader:
 
     def get_batch(self, batch_size, set_key, train, labels=False,
                   pad_batch=True, curriculum=False, epoch=None,
-                  tail_shrink=0, _skip_speech=False):
+                  group_runs=1, tail_shrink=0, _skip_speech=False,
+                  index_cache=None):
         """Generator of batch dicts {"X": (B, T, D) f32 (text-encoder
         mode: (B, T) int32 ids), "y": (B, U) i32
         (with ``labels``), "utts", "n_real", "bucket", "rows",
-        "frame_len"}; ``ast_tpu``'s ``get_batch`` with ``group_runs=1``
-        and no index cache.  ``_skip_speech``: no ``X`` (``None``) and no
-        frame dropout -- so no draw of the dropout RNG -- and
-        ``"X_rows"``: B; the raw-audio loader assembles its own speech."""
+        "frame_len"}; ``ast_tpu``'s ``get_batch``.
+
+        ``group_runs`` > 1: the shuffled batch order regrouped into runs
+        of up to that many same-bucket batches (:func:`_group_bucket_runs`),
+        a deterministic permutation, so a prefix of the stream still
+        names what an interrupted epoch consumed.  ``index_cache``: an
+        ``EpochFeatureCache`` of this split; a batch then has ``X`` None
+        and carries ``rows_idx`` (B,) int32 rows of
+        ``index_cache.bucket_array(bucket)`` (padding rows its
+        ``pad_row``) and ``drop_mask`` (B, T) uint8, 0 at the frames
+        frame dropout zeroes, drawn from the same stream with the same
+        counts as host assembly: the cache's rows times the mask are the
+        host batch's ``X`` bit for bit.  ``_skip_speech``: no ``X``
+        (``None``) and no frame dropout -- so no draw of the dropout RNG
+        -- and ``"X_rows"``: B; the raw-audio loader assembles its own
+        speech."""
         if epoch is not None:
             tag = f"{self.seed}|{set_key}|{epoch}"
             py_rng = random.Random(tag)
@@ -150,6 +189,8 @@ class DataLoader:
                 batch_list.append((bucket[i:i + b_size], b))
         if not curriculum:
             py_rng.shuffle(batch_list)
+        if group_runs > 1:
+            batch_list = _group_bucket_runs(batch_list, group_runs)
 
         rate = self.data_cfg.get("zero_input", 0)
         drop = train and rate > 0 and "train" in set_key
@@ -160,8 +201,21 @@ class DataLoader:
             if pad_batch and tail_shrink > 0 and len(utts) < b_size:
                 B = self.tail_rows(len(utts), b_size, tail_shrink)
             frame_len = np.zeros((B,), dtype=np.int32)
-            X = None
-            if self.text_mode and not _skip_speech:
+            X = rows_idx = drop_mask = None
+            if index_cache is not None and not _skip_speech:
+                # _drop_frames' draws over the length host assembly loads
+                rows_idx = np.full((B,), index_cache.pad_row(b),
+                                   dtype=np.int32)
+                drop_mask = np.ones((B, T), dtype=np.uint8)
+                for j, u in enumerate(utts):
+                    rows_idx[j] = index_cache.row_of[u]
+                    L = min(index_cache.true_len[u], max_sp)
+                    num_drop = int(rate * L) if drop else 0
+                    if num_drop > 0:
+                        drop_mask[j, np_rng.choice(np.arange(L),
+                                                   size=num_drop)] = 0
+                    frame_len[j] = min(L, T)
+            elif self.text_mode and not _skip_speech:
                 w2i = self.vocab[self.enc_key]["w2i"]
                 X = np.full((B, T), SYMBOLS.PAD_ID, dtype=np.int32)
                 for j, u in enumerate(utts):
@@ -180,6 +234,8 @@ class DataLoader:
                     frame_len[j] = min(len(x), T)
             batch = {"X": X, "utts": list(utts), "n_real": len(utts),
                      "bucket": b, "rows": B, "frame_len": frame_len}
+            if rows_idx is not None:
+                batch["rows_idx"], batch["drop_mask"] = rows_idx, drop_mask
             if _skip_speech:
                 batch["X_rows"] = B
             if labels:
@@ -219,12 +275,16 @@ class DataLoader:
 
 class FisherDataLoader(DataLoader):
     """Fisher: per-utterance ``.npy`` features on disk, cached in RAM
-    after the first read; or, when ``<speech_path>/<set_key>.pack``
-    exists (``prep_data pack-features``), the split's rows served from
-    that one memory-mapped file."""
+    after the first read (``cache_features``); or, when
+    ``<speech_path>/<set_key>.pack`` exists (``prep_data
+    pack-features``), the split's rows served from that one
+    memory-mapped file."""
 
-    def __init__(self, data_cfg, model_dir, seed="seed"):
+    def __init__(self, data_cfg, model_dir, seed="seed",
+                 cache_features=True):
         super().__init__(data_cfg, model_dir, seed)
+        # the host feature cache; off while a device cache reads the split
+        self.cache_features = cache_features
         self._cache = {}
         self._packs = {}
 
@@ -241,14 +301,16 @@ class FisherDataLoader(DataLoader):
         if pack is not None and utt in pack:
             return pack.get(utt, max_rows=max_sp)
         key = (set_key, utt)
-        if key not in self._cache:
-            sp_path = os.path.join(self.data_cfg["speech_path"], set_key)
-            path = os.path.join(sp_path, f"{utt}.npy")
-            if not os.path.exists(path):
-                path = os.path.join(sp_path, utt.split("_", 1)[0],
-                                    f"{utt}.npy")
-            self._cache[key] = np.load(path)[:max_sp].astype(np.float32)
-        return self._cache[key]
+        if key in self._cache:
+            return self._cache[key]
+        sp_path = os.path.join(self.data_cfg["speech_path"], set_key)
+        path = os.path.join(sp_path, f"{utt}.npy")
+        if not os.path.exists(path):
+            path = os.path.join(sp_path, utt.split("_", 1)[0], f"{utt}.npy")
+        x = np.load(path)[:max_sp].astype(np.float32)
+        if self.cache_features:
+            self._cache[key] = x
+        return x
 
 
 class GlobalPhoneDataLoader(DataLoader):

@@ -324,13 +324,17 @@ class WavDataLoader(FisherDataLoader):
 
     def get_batch(self, batch_size, set_key, train, labels=False,
                   pad_batch=True, curriculum=False, epoch=None,
-                  tail_shrink=0):
+                  group_runs=1, tail_shrink=0, index_cache=None):
+        if index_cache is not None:
+            # the trainer refuses hbm_cache with wav when it builds
+            raise ValueError("wav mode has no feature block to cache")
         D = self.mfcc_cfg.n_ceps
         num_b = self.buckets[set_key]["num_b"]
         width_b = self.buckets[set_key]["width_b"]
         for batch in super().get_batch(batch_size, set_key, train, labels,
                                        pad_batch, curriculum, epoch,
-                                       tail_shrink, _skip_speech=True):
+                                       group_runs, tail_shrink,
+                                       _skip_speech=True):
             b = batch["bucket"]
             T = (num_b + 1) * width_b if b == num_b - 1 else (b + 1) * width_b
             S = samples_for_frames(self.mfcc_cfg, T)

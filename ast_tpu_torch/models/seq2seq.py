@@ -15,12 +15,23 @@ counterparts of its conditions:
 - conv front-end: plain always (``ops.cnn``, im2col or NCHW);
 - encoder recurrence: K1 (eval / train) and K2 when
   :func:`use_fused_encoder`, else the scan encoder
-  (:func:`scan_encode`: ``ln``, ``rnn_relu``, ``linear_proj``);
-- training decoder: K3 / K4 when :func:`use_fused_decoder`, else the
-  scan loss (:func:`scan_decoder_loss` over :func:`decode_step`);
-- greedy and beam: K5 / K6 when ``fused_infer.infer_variant_ok``, else
-  the same loops over :func:`plain_step` (and beam's attention history,
-  ``return_attn``, always there).
+  (:func:`scan_encode`: ``ln``, ``rnn_relu``, ``linear_proj``, or units
+  a direction the kernels do not take);
+- training decoder: K3 / K4 when :func:`use_fused_decoder` at the call's
+  T', else the scan loss (:func:`scan_decoder_loss` over
+  :func:`decode_step`);
+- greedy and beam: K5 / K6 when :func:`use_fused_infer` at the call's
+  B, T', N and K, else the same loops over :func:`plain_step` (and
+  beam's attention history, ``return_attn``, always there).
+
+Each predicate is the variant's condition and, on a CUDA device, the
+kernels' shape gate (``fused_lstm.encoder_shapes_ok``,
+``fused_decoder.train_shapes_ok``, ``fused_infer.decode_shapes_ok``:
+the conditions under which the kernels raise), as ``ast_tpu`` gates its
+kernels by variant and chunk size; so a model of any width runs on the
+card, and a stage its kernels do not take runs plain, as on
+``ast_tpu``'s scan path.  A CPU tensor takes each kernel's plain version
+at any shape, as ``ast_tpu``'s interpret mode passes its alignment gate.
 
 The ``fused_encoder`` / ``fused_decoder`` / ``fused_infer`` config flags
 are ignored: no config turns a kernel off on the card.
@@ -35,8 +46,8 @@ weights in bf16 (:func:`pack_decoder_weights`, :func:`decode_weights`)
 and the encoder states rounded to bf16; the loss logits are an f32
 product of the rounded ``ht`` and ``out_w`` plus the f32 ``out_b``.  The
 parameters, the BN state and the optimizer stay f32.  The model variants
-routed to the scan path are refused there by name
-(``fused_infer.require_bf16_variant``).
+and the widths or shapes routed to the scan path are refused there by
+name (``fused_infer.require_bf16_variant``, ``require_bf16_shapes``).
 """
 
 import dataclasses
@@ -52,12 +63,14 @@ from ast_tpu_torch.ops.cnn import BN_DECAY, BN_EPS, conv_frontend, conv_out_len
 from ast_tpu_torch.ops.dropout import drop_mask
 from ast_tpu_torch.ops.embedding import embedding_lookup
 from ast_tpu_torch.ops.fused_decoder import (
-    W_NAMES, FusedDecoder, embed_drop_mask, rnn_drop_mask)
+    W_NAMES, FusedDecoder, embed_drop_mask, rnn_drop_mask,
+    train_shapes_ok, train_shapes_problem)
 from ast_tpu_torch.ops.fused_infer import (
-    greedy_decode_fused, greedy_reference, infer_variant_ok,
-    pack_decode_step, require_bf16_variant, train_bf16_options)
+    decode_shapes_ok, decode_shapes_problem, greedy_decode_fused,
+    greedy_reference, infer_variant_ok, on_card, pack_decode_step,
+    require_bf16_shapes, require_bf16_variant, train_bf16_options)
 from ast_tpu_torch.ops.fused_lstm import (
-    ENCODER_TILE, FusedStackedLSTM, fused_stacked_lstm,
+    FusedStackedLSTM, encoder_shapes_ok, fused_stacked_lstm,
     pack_encoder_step_weights, pack_encoder_weights, stacked_lstm_reference)
 from ast_tpu_torch.ops.lstm import dropout, layernorm, lstm_gates
 from ast_tpu_torch.ops.specaugment import (
@@ -69,28 +82,54 @@ from ast_tpu_torch.params import from_jax_numpy
 # routing
 # ---------------------------------------------------------------------------
 
-def use_fused_encoder(mcfg):
-    """Whether the encoder's recurrence runs K1 (eval and train) and K2:
-    ``ast_tpu``'s condition in ``encode`` (no LayerNorm, no rnn_relu) and
-    its ``linear_proj`` branch, less the TPU's chunk gate.  Otherwise the
-    recurrence is ``ast_tpu``'s scan as plain PyTorch on the caller's
-    device, a CUDA device included (:func:`scan_encode`): ``ast_tpu``
-    has no Pallas kernel for those variants either."""
+def use_fused_encoder(mcfg, device):
+    """Whether the encoder's recurrence on ``device`` runs K1 (eval and
+    train) and K2: ``ast_tpu``'s condition in ``encode`` (no LayerNorm,
+    no rnn_relu) and its ``linear_proj`` branch, and on a CUDA device the
+    kernels' shape gate (``fused_lstm.encoder_shapes_ok`` of the units a
+    direction), as ``ast_tpu`` gates its kernel by ``fused_chunk_size``
+    (``fused_infer.on_card``: a CPU tensor takes the kernels' plain
+    versions at any width).  Otherwise the recurrence is ``ast_tpu``'s
+    scan as plain PyTorch on the caller's device, a CUDA device included
+    (:func:`scan_encode`): ``ast_tpu`` takes its scan path there too."""
     rnn = mcfg["rnn_config"]
+    units = rnn["hidden_units"] // (2 if rnn["bi_rnn"] else 1)
     return not (rnn.get("ln", False) or rnn.get("rnn_relu", False)
-                or rnn.get("linear_proj", False))
+                or rnn.get("linear_proj", False)
+                or on_card(device) and not encoder_shapes_ok(units))
 
 
-def use_fused_decoder(mcfg, enc_mask=None):
-    """Whether the training decoder runs K3 / K4: ``ast_tpu``'s
-    ``_use_fused_decoder`` less the TPU's chunk gate, i.e. the variant
-    of ``fused_infer.infer_variant_ok`` without output dropout.
-    ``linear_proj`` is not excluded.  Otherwise the decoder is
-    ``ast_tpu``'s scan loss as plain PyTorch with autograd on the
-    caller's device, a CUDA device included
+def use_fused_decoder(mcfg, device, enc_mask=None, T=0):
+    """Whether the training decoder on ``device`` runs K3 / K4 on a call
+    over ``T`` encoder frames: ``ast_tpu``'s ``_use_fused_decoder``,
+    i.e. the variant of ``fused_infer.infer_variant_ok`` without output
+    dropout, and on a CUDA device the kernels' shape gate
+    (``fused_decoder.train_shapes_ok``; ``T`` 0 gates the widths alone)
+    in the place of its chunk gate.  ``linear_proj`` is not excluded.
+    Otherwise the decoder is ``ast_tpu``'s scan loss as plain PyTorch
+    with autograd on the caller's device, a CUDA device included
     (:func:`scan_decoder_loss`)."""
+    rnn = mcfg["rnn_config"]
     return (infer_variant_ok(mcfg, enc_mask)
-            and not mcfg["dropout"].get("out", 0) > 0)
+            and not mcfg["dropout"].get("out", 0) > 0
+            and not (on_card(device) and not train_shapes_ok(
+                T, rnn["hidden_units"], rnn["embedding_units"],
+                rnn["attn_units"])))
+
+
+def use_fused_infer(mcfg, device, B, T, N=1, K=1, enc_mask=None):
+    """Whether greedy (N = 1) or beam decoding of B utterances of T
+    encoder frames on ``device`` runs K5 / K6:
+    ``fused_infer.infer_variant_ok`` and on a CUDA device the kernels'
+    shape gate at this call's B, T, N and K
+    (``fused_infer.decode_shapes_ok``: ``ast_tpu``'s
+    ``_fused_infer_chunk`` and its beam's ``fused_chunk``).  Otherwise
+    the same loop runs over :func:`plain_step`."""
+    rnn = mcfg["rnn_config"]
+    return (infer_variant_ok(mcfg, enc_mask)
+            and not (on_card(device) and not decode_shapes_ok(
+                B, T, rnn["hidden_units"], rnn["embedding_units"],
+                rnn["attn_units"], N, K)))
 
 
 # ---------------------------------------------------------------------------
@@ -223,7 +262,7 @@ def encoder_weights(params, dtype=torch.float32):
     if dtype == BF16:
         wx_rest, wh = wx_rest.to(BF16), wh.to(BF16)
     packed = None
-    if wh.shape[2] % ENCODER_TILE == 0:
+    if encoder_shapes_ok(wh.shape[2]):
         packed = pack_encoder_step_weights(wx_rest, wh)
     return wx_rest, wh, b, packed
 
@@ -373,7 +412,7 @@ def scan_encode(params, state, mcfg, X, train=False, seed=0):
 
 def _encode_eval(params, state, mcfg, X, enc_w=None,
                  compute_dtype=torch.float32):
-    if not use_fused_encoder(mcfg):
+    if not use_fused_encoder(mcfg, X.device):
         return scan_encode(params, state, mcfg, X)[:3]
     return encoder_outputs(*fused_stacked_lstm(*encoder_inputs(
         params, state, mcfg, X, enc_w=enc_w, compute_dtype=compute_dtype)))
@@ -532,18 +571,22 @@ def predict_greedy(params, state, mcfg, X, stop_limit, w=None,
     when not given; ``enc_mask`` (B, T') (:func:`make_enc_mask`).  At
     bf16 the encoder states are rounded to bf16 before K5, as in
     ``ast_tpu``."""
-    require_bf16_variant(mcfg, compute_dtype,
-                         [] if enc_mask is None else ["enc_mask"])
     if w is None:
         w = decode_weights(params, compute_dtype)
+    _check_weights_dtype(w, compute_dtype)
+    require_bf16_variant(mcfg, compute_dtype,
+                         [] if enc_mask is None else ["enc_mask"], X.device)
     enc_states, dec_h0, dec_c0 = encode(params, state, mcfg, X, w,
                                         compute_dtype)
     if compute_dtype == BF16:
         enc_states = enc_states.to(BF16)
-    if infer_variant_ok(mcfg, enc_mask):
+    if use_fused_infer(mcfg, X.device, *enc_states.shape[:2],
+                       enc_mask=enc_mask):
         preds = greedy_decode_fused(enc_states, dec_h0, dec_c0, w,
                                     stop_limit)
     else:
+        require_bf16_shapes(compute_dtype, decode_shapes_problem(
+            *enc_states.shape, w["embed"].shape[1], w["ctx_w"].shape[1], 1))
         preds = greedy_reference(enc_states, dec_h0, dec_c0, w, stop_limit,
                                  plain_step(params, mcfg, enc_mask))
     is_eos = preds == SYMBOLS.EOS_ID
@@ -636,7 +679,7 @@ def encode_train(params, state, mcfg, X, draws, compute_dtype=torch.float32):
         X = apply_spec_masks(X, draws.spec)
     if draws.noise is not None:
         X = X * (1.0 + draws.noise)
-    if not use_fused_encoder(mcfg):
+    if not use_fused_encoder(mcfg, X.device):
         return scan_encode(params, state, mcfg, X, True, draws.enc_seed)
     x0_proj, wx_rest, wh, b, new_state = encoder_inputs(
         params, state, mcfg, X, train=True, compute_dtype=compute_dtype)
@@ -724,7 +767,7 @@ def forward_loss(params, state, mcfg, X, y, n_real, draws=None, train=True,
     ``compute_dtype`` bf16 (the model the kernels take): the rounding
     points of the module docstring; ``enc_w`` then at bf16."""
     require_bf16_variant(mcfg, compute_dtype,
-                         train_bf16_options(mcfg, enc_mask))
+                         train_bf16_options(mcfg, enc_mask), X.device)
     drop = mcfg["dropout"]
     yT = y.t()
     if train:
@@ -734,7 +777,10 @@ def forward_loss(params, state, mcfg, X, y, n_real, draws=None, train=True,
         enc, h0, c0 = _encode_eval(params, state, mcfg, X, enc_w,
                                    compute_dtype)
         new_state = state
-    if not use_fused_decoder(mcfg, enc_mask):
+    if not use_fused_decoder(mcfg, X.device, enc_mask, enc.shape[1]):
+        require_bf16_shapes(compute_dtype, train_shapes_problem(
+            enc.shape[1], enc.shape[2], mcfg["rnn_config"]["embedding_units"],
+            mcfg["rnn_config"]["attn_units"]))
         loss = scan_decoder_loss(params, mcfg, enc, h0, c0, y, n_real,
                                  draws if train else None, label_smoothing,
                                  enc_mask)

@@ -2,10 +2,10 @@
 
 The counterpart of ``ast_tpu/ops/beam.py``: the decoder keeps the same
 ``(hyps, scores, lengths)`` contract, with the frontier loop in the K6
-kernel (``ops/fused_infer.beam_decode_fused``) for the variant
-``infer_variant_ok`` admits and without ``return_attn``; otherwise the
-same frontier loop (``fused_infer.beam_reference``) runs over
-``seq2seq.plain_step`` as plain PyTorch on the caller's device, as
+kernel (``ops/fused_infer.beam_decode_fused``) for the variant and the
+shapes ``seq2seq.use_fused_infer`` admits and without ``return_attn``;
+otherwise the same frontier loop (``fused_infer.beam_reference``) runs
+over ``seq2seq.plain_step`` as plain PyTorch on the caller's device, as
 ``ast_tpu`` runs its XLA loop.  Hypotheses are reranked by
 ``score / (len - 2)^W`` on the host.
 """
@@ -15,8 +15,8 @@ import torch
 from ast_tpu_torch.models import seq2seq
 from ast_tpu_torch.ops.bf16 import BF16
 from ast_tpu_torch.ops.fused_infer import (
-    beam_decode_fused, beam_reference, infer_variant_ok,
-    require_bf16_variant)
+    beam_decode_fused, beam_reference, decode_shapes_problem,
+    require_bf16_shapes, require_bf16_variant)
 
 
 def make_beam_decoder(mcfg, N, K, stop_limit, return_attn=False,
@@ -44,17 +44,22 @@ def make_beam_decoder(mcfg, N, K, stop_limit, return_attn=False,
                          ["return_attn"] if return_attn else [])
 
     def decode(params, state, X, w=None, enc_mask=None):
-        if enc_mask is not None:
-            require_bf16_variant(mcfg, compute_dtype, ["enc_mask"])
+        require_bf16_variant(mcfg, compute_dtype,
+                             [] if enc_mask is None else ["enc_mask"],
+                             X.device)
         if w is None:
             w = seq2seq.decode_weights(params, compute_dtype)
         enc_states, dec_h0, dec_c0 = seq2seq.encode(params, state, mcfg, X,
                                                     w, compute_dtype)
         if compute_dtype == BF16:
             enc_states = enc_states.to(BF16)
-        if not return_attn and infer_variant_ok(mcfg, enc_mask):
+        if not return_attn and seq2seq.use_fused_infer(
+                mcfg, X.device, *enc_states.shape[:2], N, K, enc_mask):
             return beam_decode_fused(enc_states, dec_h0, dec_c0, w, N, K,
                                      stop_limit)
+        require_bf16_shapes(compute_dtype, decode_shapes_problem(
+            *enc_states.shape, w["embed"].shape[1], w["ctx_w"].shape[1], N,
+            K))
         rows_mask = (None if enc_mask is None
                      else enc_mask.repeat_interleave(N, dim=0))
         return beam_reference(enc_states, dec_h0, dec_c0, w, N, K,

@@ -262,19 +262,33 @@ def decoder_backward_reference(res, ht, enc, c0, w, d_ht, seed, drop_emb,
 # kernel wrappers
 # ---------------------------------------------------------------------------
 
-def check_train_shapes(T, H, E, A):
-    """Raise unless the training decoder's kernels take these shapes: E, A
-    and H multiples of the products' 32-wide input tiles, and the
-    attention's shared memory (one row's query, two context partials and
-    T scores) within a block's."""
+def train_shapes_problem(T, H, E, A):
+    """Why the training decoder's kernels do not take these shapes, or
+    None: E, A and H must be multiples of the products' 32-wide input
+    tiles, and the attention's shared memory (one row's query, two
+    context partials and T scores) within a block's."""
     if E % _TILE_K or A % _TILE_K or H % _TILE_K:
-        raise ValueError(f"training decoder kernels take E, A, H that are "
-                         f"multiples of {_TILE_K} (got {E}, {A}, {H})")
+        return (f"training decoder kernels take E, A, H that are "
+                f"multiples of {_TILE_K} (got {E}, {A}, {H})")
     attn = 4 * (2 * H + T + 2)
     if attn > _SMEM_BYTES:
-        raise ValueError(f"training attention needs {attn} bytes of shared "
-                         f"memory at T={T}, H={H}; a block has "
-                         f"{_SMEM_BYTES}")
+        return (f"training attention needs {attn} bytes of shared "
+                f"memory at T={T}, H={H}; a block has {_SMEM_BYTES}")
+    return None
+
+
+def train_shapes_ok(T, H, E, A):
+    """Whether K3 / K4 take these shapes (:func:`train_shapes_problem`):
+    the routing (``models.seq2seq.use_fused_decoder``) sends any other
+    call to the plain scan loss."""
+    return train_shapes_problem(T, H, E, A) is None
+
+
+def check_train_shapes(T, H, E, A):
+    """Raise unless :func:`train_shapes_ok`."""
+    problem = train_shapes_problem(T, H, E, A)
+    if problem:
+        raise ValueError(problem)
 
 
 def pack_backward_weights(w):

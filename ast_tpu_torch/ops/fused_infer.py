@@ -53,10 +53,11 @@ def infer_variant_ok(mcfg, enc_mask=None):
     attention, no encoder mask.  For any other model both decoders run
     ``ast_tpu``'s XLA loops as plain PyTorch on the caller's device,
     a CUDA device included: ``ast_tpu`` has no Pallas kernel for those
-    variants either.  With ``models.seq2seq.use_fused_encoder`` and
-    ``use_fused_decoder`` these are the only places where a CUDA tensor
-    takes a plain version.  One predicate for both decoders, so they
-    cannot part on a variant."""
+    variants either.  ``models.seq2seq.use_fused_infer`` adds the
+    kernels' shape gate (:func:`decode_shapes_ok`); with
+    ``use_fused_encoder`` and ``use_fused_decoder`` these are the only
+    places where a CUDA tensor takes a plain version.  One predicate for
+    both decoders, so they cannot part on a variant."""
     rnn = mcfg["rnn_config"]
     return (enc_mask is None and rnn.get("n_attn", 1) == 1
             and rnn.get("feed_attn", True) and not rnn.get("ln", False)
@@ -64,13 +65,46 @@ def infer_variant_ok(mcfg, enc_mask=None):
             and not rnn.get("attn_block_size", 0))
 
 
-def require_bf16_variant(mcfg, dtype, what=()):
-    """Raise NotImplementedError naming the model variant, or ``what``
-    (further options of the caller, e.g. an encoder mask), when
-    ``dtype`` is bf16 and the path is one ``ast_tpu`` runs on its scan
-    path (the stages ``models.seq2seq`` routes to plain PyTorch), whose
-    bf16 mode is not ported: decoding and training at bf16 cover the
-    variant the kernels take."""
+def kernel_width_problems(mcfg):
+    """The widths of ``mcfg`` that the kernels' shape gates turn away,
+    named: the encoder's units a direction
+    (``fused_lstm.encoder_shapes_ok``) and the decoder's E, A and H
+    (:func:`decode_shapes_ok`, the same 32-wide tiles as K3 / K4's).
+    ``models.seq2seq`` routes such a stage to its plain version."""
+    # fused_lstm imports this module
+    from ast_tpu_torch.ops.fused_lstm import ENCODER_TILE, encoder_shapes_ok
+    rnn = mcfg["rnn_config"]
+    hidden, E, A = (rnn["hidden_units"], rnn["embedding_units"],
+                    rnn["attn_units"])
+    units = hidden // (2 if rnn["bi_rnn"] else 1)
+    out = []
+    if not encoder_shapes_ok(units):
+        out.append(f"hidden_units {hidden} ({units} a direction, not a "
+                   f"multiple of {ENCODER_TILE})")
+    if not decode_shapes_ok(1, 0, hidden, E, A, 1):
+        out += [f"{name} {v} (not a multiple of {_DECODE_TILE})"
+                for name, v in (("embedding_units", E), ("attn_units", A))
+                if v % _DECODE_TILE]
+    return out
+
+
+def on_card(device):
+    """Whether ``device`` is a CUDA device, where the kernels run and so
+    where their shape gates route (``models.seq2seq``'s predicates): a
+    CPU tensor takes each kernel's plain version at any shape, as
+    ``ast_tpu``'s interpret mode passes its alignment gate."""
+    return device is not None and torch.device(device).type == "cuda"
+
+
+def require_bf16_variant(mcfg, dtype, what=(), device=None):
+    """Raise NotImplementedError naming the model variant, a width the
+    kernels do not take on ``device`` (:func:`kernel_width_problems`, on
+    a CUDA device), or ``what`` (further options of the caller, e.g. an
+    encoder mask), when ``dtype`` is bf16 and the path is one
+    ``ast_tpu`` runs on its scan path (the stages ``models.seq2seq``
+    routes to plain PyTorch), whose bf16 mode is not ported: decoding
+    and training at bf16 cover the variant and the widths the kernels
+    take."""
     if dtype != BF16:
         return
     rnn = mcfg["rnn_config"]
@@ -82,11 +116,25 @@ def require_bf16_variant(mcfg, dtype, what=()):
         ("feed_attn", not rnn.get("feed_attn", True)),
         ("attn_block_size", bool(rnn.get("attn_block_size", 0))),
     ) if on] + list(what)
+    if on_card(device):
+        refused += kernel_width_problems(mcfg)
     if refused:
         raise NotImplementedError(
             f"compute_dtype bfloat16 decodes and trains the model the "
             f"kernels take; not ported at bfloat16: {', '.join(refused)} "
             f"(see ROADMAP.md queue 1, bf16 on the scan path)")
+
+
+def require_bf16_shapes(dtype, problem):
+    """Raise NotImplementedError naming ``problem`` (a kernel's shape
+    gate's reason, e.g. :func:`decode_shapes_problem`) when ``dtype`` is
+    bf16: a call the gate sends to the plain loop is a scan-path call,
+    whose bf16 mode is not ported."""
+    if dtype == BF16 and problem:
+        raise NotImplementedError(
+            f"compute_dtype bfloat16 runs the shapes the kernels take; "
+            f"not ported at bfloat16: {problem} (see ROADMAP.md queue 1, "
+            f"bf16 on the scan path)")
 
 
 def train_bf16_options(mcfg, enc_mask=None):
@@ -98,26 +146,27 @@ def train_bf16_options(mcfg, enc_mask=None):
         ("dropout.out", mcfg["dropout"].get("out", 0) > 0)) if on]
 
 
-def require_train_dtype(train_cfg, mcfg):
-    """Raise NotImplementedError naming the model variant when
-    ``compute_dtype`` is bf16 and a stage of training runs on the scan
-    path, whose bf16 mode is not ported; the model the kernels take
-    trains at bf16.  Called where training starts (``NN.train_epoch``,
-    ``NN.eval_loss``, ``cli.train``)."""
+def require_train_dtype(train_cfg, mcfg, device=None):
+    """Raise NotImplementedError naming the model variant (or, on a CUDA
+    ``device``, the width) when ``compute_dtype`` is bf16 and a stage of
+    training runs on the scan path, whose bf16 mode is not ported; the
+    model the kernels take trains at bf16.  Called where training starts
+    (``NN.train_epoch``, ``NN.eval_loss``)."""
     require_bf16_variant(
         mcfg, parse_dtype(train_cfg["extras"].get("compute_dtype")),
-        train_bf16_options(mcfg))
+        train_bf16_options(mcfg), device)
 
 
 def require_train_variant(train_cfg):
-    """The options the ported trainer refuses: several steps a dispatch,
-    the device feature cache and narrow transfer dtypes (a scan-path
-    variant at ``compute_dtype`` bfloat16 is refused where training
-    starts, :func:`require_train_dtype`).  Every model variant trains
-    (the routing of ``models.seq2seq``).  ``train_cfg`` is
-    ``Config(...).train``.  Raises NotImplementedError naming what is
-    refused, on every device, and ``ast_tpu``'s ValueError for
-    ``hbm_cache`` over audio or text."""
+    """``ast_tpu``'s refusals of the feed options: ``hbm_cache`` over
+    audio (``data.features: "wav"``) or text (``enc_key`` other than
+    ``"sp"``), with its ValueErrors.  Every model variant trains (the
+    routing of ``models.seq2seq``), and so does every feed option:
+    several steps a dispatch, the device feature cache and narrow
+    transfer dtypes (``train.trainer.NN``); a scan-path variant at
+    ``compute_dtype`` bfloat16 is refused where training starts
+    (:func:`require_train_dtype`).  ``train_cfg`` is
+    ``Config(...).train``."""
     extras, data = train_cfg["extras"], train_cfg["data"]
     if extras.get("hbm_cache", False):
         if data.get("features", "precomputed") == "wav":
@@ -128,18 +177,6 @@ def require_train_variant(train_cfg):
         if data.get("enc_key", "sp") != "sp":
             raise ValueError("extras.hbm_cache: text-encoder mode "
                              "has no feature block to cache")
-    refused = [name for name, bad in (
-        ("steps_per_dispatch", int(extras.get("steps_per_dispatch", 1))
-         != 1),
-        ("hbm_cache", bool(extras.get("hbm_cache", False))),
-        ("transfer_dtype", extras.get("transfer_dtype",
-                                      "float32") != "float32"),
-    ) if bad]
-    if refused:
-        raise NotImplementedError(
-            f"ast_tpu_torch does not train these options; "
-            f"not ported: {', '.join(refused)} (see ROADMAP.md queue 1, "
-            f"the feed options)")
 
 
 # ---------------------------------------------------------------------------
@@ -707,21 +744,40 @@ def step_weights(w, H, L, E, A, V, dtype=torch.float32):
     return step
 
 
-def check_decode_shapes(B, T, H, E, A, N, K=1):
-    """Raise unless the decode step's kernels take these shapes: E, A, H
-    multiples of its 32-wide input tiles, attention's and the beam
-    selection's shared memory within a block's."""
+def decode_shapes_problem(B, T, H, E, A, N, K=1):
+    """Why K5 / K6 do not take these shapes, or None: a beam of 1 to 32
+    slots (K5 is N = 1), E, A, H multiples of the decode step's 32-wide
+    input tiles, attention's and the beam selection's shared memory
+    within a block's."""
+    if not 1 <= N <= 32:
+        return f"beam kernel takes 1 <= N <= 32 (got N={N})"
     if E % _DECODE_TILE or A % _DECODE_TILE or H % _DECODE_TILE:
-        raise ValueError(f"decode kernels take E, A, H that are multiples "
-                         f"of {_DECODE_TILE} (got {E}, {A}, {H})")
+        return (f"decode kernels take E, A, H that are multiples of "
+                f"{_DECODE_TILE} (got {E}, {A}, {H})")
     # attention: 2 N H + N T floats at most (one block per utterance)
     attn = 4 * (2 * N * H + N * T + 2 * N)
     if attn > _SMEM_BYTES:
-        raise ValueError(f"decode attention needs {attn} bytes of shared "
-                         f"memory at N={N}, T={T}, H={H}")
+        return (f"decode attention needs {attn} bytes of shared memory "
+                f"at N={N}, T={T}, H={H}")
     if 8 * N * K > 48 * 1024:
-        raise ValueError(f"beam selection keeps N * K = {N * K} candidates "
-                         f"in 48 KB of shared memory")
+        return (f"beam selection keeps N * K = {N * K} candidates in 48 "
+                f"KB of shared memory")
+    return None
+
+
+def decode_shapes_ok(B, T, H, E, A, N, K=1):
+    """Whether K5 (N = 1) or K6 take these shapes
+    (:func:`decode_shapes_problem`): greedy and beam decoding
+    (``models.seq2seq.predict_greedy``, ``ops.beam``) run the plain loop
+    for any other call, as ``ast_tpu`` runs its XLA loop."""
+    return decode_shapes_problem(B, T, H, E, A, N, K) is None
+
+
+def check_decode_shapes(B, T, H, E, A, N, K=1):
+    """Raise unless :func:`decode_shapes_ok`."""
+    problem = decode_shapes_problem(B, T, H, E, A, N, K)
+    if problem:
+        raise ValueError(problem)
 
 
 def greedy_decode_fused(enc, dec_h0, dec_c0, w, stop_limit):
@@ -777,9 +833,9 @@ def beam_search_streams(enc, dec_h0, dec_c0, w, N, K, stop_limit):
     parent slot and valid (stop_limit, B, N) int32, and the final scores
     (B, N)."""
     B, T, H, L, E, A, V, dt = check_decoder_inputs(enc, dec_h0, dec_c0, w)
-    if not 1 <= N <= 32 or not 1 <= K <= V:
-        raise ValueError(f"beam kernel takes 1 <= N <= 32 and 1 <= K <= V "
-                         f"(got N={N}, K={K}, V={V})")
+    if not 1 <= K <= V:
+        raise ValueError(f"beam kernel takes 1 <= K <= V (got K={K}, "
+                         f"V={V})")
     check_decode_shapes(B, T, H, E, A, N, K)
     dev = enc.device
     R = B * N

@@ -304,10 +304,18 @@ def _check_weights(x0_proj, wx_rest, wh, b, dtype=torch.float32):
     return T, L, D2, B, H
 
 
+def encoder_shapes_ok(H):
+    """Whether the encoder kernels take H units a direction: their
+    products walk the input axis in ENCODER_TILE-row tiles.  The routing
+    (``models.seq2seq.use_fused_encoder``) sends any other width to the
+    plain recurrence; :func:`check_encoder_shapes` raises where this is
+    False."""
+    return H % ENCODER_TILE == 0
+
+
 def check_encoder_shapes(H):
-    """Raise unless the encoder kernels take H units a direction: their
-    products walk the input axis in ENCODER_TILE-row tiles."""
-    if H % ENCODER_TILE:
+    """Raise unless :func:`encoder_shapes_ok`."""
+    if not encoder_shapes_ok(H):
         raise ValueError(f"encoder kernels take H that is a multiple of "
                          f"{ENCODER_TILE} (got {H})")
 

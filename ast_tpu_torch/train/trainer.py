@@ -45,12 +45,38 @@ batches.  Either package resumes the other's snapshot.
 mode), ``predict``, ``decode_beam_set`` and so ``cli.train``'s dev decode
 and ``cli.beam`` decode with K1 eval, K5 and K6 at bf16; the parameters,
 BN state, optimizer and checkpoints stay f32.  A model variant on the
-scan path is refused at bf16 by name (``fused_infer.require_bf16_variant``
-when ``NN`` builds, ``require_train_dtype`` where training starts).
+scan path, and on the card a width the kernels' shape gate sends there,
+is refused at bf16 by name (``fused_infer.require_bf16_variant`` when
+``NN`` builds, ``require_train_dtype`` where training starts).
 
-Not ported (ROADMAP.md queue 1): bf16 on the scan path, multi-step
-dispatch (``steps_per_dispatch``), the device feature cache, narrow
-transfer dtypes, rematerialisation and data parallelism.
+The feed options of ``ast_tpu``'s trainer, each as it works there:
+
+- ``extras.transfer_dtype`` ("bfloat16" / "float16"): training features
+  cross to the card in that dtype, rounded on the host as
+  ``ast_tpu``'s ``astype`` rounds (to nearest, ties to even), and the
+  step widens them to f32 before any compute; eval and decode ship f32.
+- ``extras.hbm_cache`` (with ``hbm_cache_dtype``): each split's
+  features live on the device (:mod:`ast_tpu_torch.data.device_cache`);
+  a train, eval or decode batch is a gather of cache rows times the
+  frame-dropout mask, so only indices, the mask and targets cross per
+  batch, and with an f32 cache every step is bit-equal to host feeding.
+- ``extras.steps_per_dispatch`` = G: the epoch's stream is regrouped
+  into runs of up to G same-bucket batches (the loader's
+  ``group_runs``); a full run crosses as one stacked pinned copy a
+  tensor and its G steps are issued back to back, shorter runs as single
+  steps.  Step i of a run has the seed of the batch's place in the
+  epoch, so the math is that of single steps over the grouped stream.
+  Snapshots and the preemption check fire at run boundaries; an
+  in-flight snapshot records G, and one of another G keeps its
+  parameters and restarts its epoch.
+- ``extras.remat``: ``forward_loss`` under
+  ``torch.utils.checkpoint.checkpoint`` (non-reentrant), so its
+  activations are recomputed in the backward instead of held across the
+  loss; the draws are made before it, so the recompute repeats K1 train
+  and K3 exactly and the gradients are bit-equal to a step without it.
+
+Not ported (ROADMAP.md queue 1): bf16 on the scan path and data
+parallelism (a ``parallel`` block prints "set and ignored").
 """
 
 import collections
@@ -61,12 +87,14 @@ import time
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from ast_tpu_torch.config import Config
 from ast_tpu_torch.checkpoint import (
     checkpoint_path, flatten, latest_checkpoint, load_checkpoint,
     save_checkpoint, unflatten)
 from ast_tpu_torch.data.dataloader import make_dataloader
+from ast_tpu_torch.data.device_cache import EpochFeatureCache, gather_batch
 from ast_tpu_torch.models import seq2seq
 from ast_tpu_torch.ops import beam as beam_ops
 from ast_tpu_torch.ops.bf16 import parse_dtype
@@ -213,6 +241,32 @@ class PreemptedError(RuntimeError):
     epoch at the same batch."""
 
 
+def _group_stream(gen, G):
+    """Chunk a batch stream into runs of consecutive batches of one
+    bucket and one row count, at most G long (``ast_tpu``'s
+    ``_group_stream``; the loader's ``group_runs`` order makes full runs
+    the common case).  Yields lists of 1..G host batches."""
+    buf = []
+    for b in gen:
+        if buf and (b["bucket"] != buf[0]["bucket"]
+                    or b["rows"] != buf[0]["rows"] or len(buf) == G):
+            yield buf
+            buf = []
+        buf.append(b)
+    if buf:
+        yield buf
+
+
+def _transfer_dtype(name):
+    """``extras.transfer_dtype`` -> the dtype train features cross in
+    (None: float32, as they are)."""
+    if name not in ("float32", "bfloat16", "float16"):
+        raise ValueError(f"extras.transfer_dtype={name!r}: use float32 | "
+                         "bfloat16 | float16")
+    return {"float32": None, "bfloat16": torch.bfloat16,
+            "float16": torch.float16}[name]
+
+
 class NN:
     """Model, optimizer and data of one experiment directory."""
 
@@ -225,18 +279,31 @@ class NN:
         self.model_dir = self.cfg.model["model_dir"]
         self.mcfg = self.cfg.model
         tcfg = self.cfg.train
+        extras = tcfg["extras"]
         require_train_variant(tcfg)
         # the dtype of training and decoding (ast_tpu's NN.compute_dtype)
-        self.compute_dtype = parse_dtype(tcfg["extras"].get("compute_dtype"))
-        require_bf16_variant(self.mcfg, self.compute_dtype)
-        ignored = [name for name, on in (
-            ("extras.remat", tcfg["extras"].get("remat", False)),
-            ("parallel", any(tcfg["parallel"].get(k, d) != d for k, d in
-                             (("data_axis", 0), ("model_axis", 1)))),
-        ) if on]
-        if ignored:
-            print(f"set and ignored (not ported, see ROADMAP.md queue 1): "
-                  f"{', '.join(ignored)}", flush=True)
+        self.compute_dtype = parse_dtype(extras.get("compute_dtype"))
+        require_bf16_variant(self.mcfg, self.compute_dtype,
+                             device=self.device)
+        if any(tcfg["parallel"].get(k, d) != d
+               for k, d in (("data_axis", 0), ("model_axis", 1))):
+            print("set and ignored (not ported, see ROADMAP.md queue 1): "
+                  "parallel", flush=True)
+        # the feed options (the module docstring)
+        self.transfer_dtype = _transfer_dtype(
+            extras.get("transfer_dtype", "float32"))
+        self.hbm_cache = bool(extras.get("hbm_cache", False))
+        cache_dtype = extras.get("hbm_cache_dtype", "float32")
+        if cache_dtype not in ("float32", "bfloat16"):
+            raise ValueError(f"extras.hbm_cache_dtype={cache_dtype!r}: "
+                             "float32 | bfloat16")
+        self.hbm_cache_dtype = parse_dtype(cache_dtype)
+        self._hbm_caches = {}
+        self.steps_per_dispatch = max(
+            1, int(extras.get("steps_per_dispatch", 1)))
+        self.remat = bool(extras.get("remat", False))
+        # host-to-device bytes of the last train epoch's batches
+        self.epoch_h2d_bytes = 0
         self.seed = stable_seed(tcfg["seed"], bits=31)
         self.data_loader = make_dataloader(tcfg, self.model_dir)
         # features: wav -- the loader ships audio, the step featurizes
@@ -270,13 +337,14 @@ class NN:
             if in_epoch >= 1 and in_epoch - 1 >= self.max_epoch:
                 self._load_snapshot(snap)
                 self.max_epoch = in_epoch - 1
-                if in_step > 0 and in_g != 1:
-                    # ast_tpu's stream at steps_per_dispatch = g is in
-                    # another order: its position means nothing here
+                cfg_g = self.steps_per_dispatch
+                if in_step > 0 and in_g != cfg_g:
+                    # the grouped stream's order depends on G: a position
+                    # in another G's stream names other batches
                     print(f"inflight snapshot was written with "
-                          f"steps_per_dispatch={in_g}, which is not "
-                          f"ported; restarting epoch {in_epoch} from the "
-                          f"beginning", flush=True)
+                          f"steps_per_dispatch={in_g} but the config "
+                          f"says {cfg_g}; restarting epoch {in_epoch} "
+                          f"from the beginning", flush=True)
                 elif in_step > 0:
                     self.inflight_resume = (in_epoch, in_step)
 
@@ -305,42 +373,109 @@ class NN:
     # ------------------------------------------------------------------
     # batches
     # ------------------------------------------------------------------
-    def _device_batch(self, batch, labels=True):
-        """A host batch with ``X`` -- in wav mode ``audio``, ``cmvn_mean``
-        and ``cmvn_std`` -- (and ``y`` with ``labels``) as tensors on the
-        device: through pinned memory and an asynchronous copy on a card.
-        A batch already there passes through."""
-        speech = (("audio", "cmvn_mean", "cmvn_std") if self.wav_mode
-                  else ("X",))
-        if torch.is_tensor(batch[speech[0]]):
-            return batch
-        cuda = self.device.type == "cuda"
+    def _speech_keys(self, batch):
+        """The keys of a host batch's speech: cache rows and dropout
+        mask (index mode), audio and CMVN statistics (wav mode), or
+        ``X``."""
+        if "rows_idx" in batch:
+            return ("rows_idx", "drop_mask")
+        if self.wav_mode:
+            return ("audio", "cmvn_mean", "cmvn_std")
+        return ("X",)
 
-        def put(a):
-            t = torch.from_numpy(np.ascontiguousarray(a))
-            if cuda:
-                t = t.pin_memory()
-            return t.to(self.device, non_blocking=cuda)
-
-        out = dict(batch, **{k: put(batch[k]) for k in speech})
-        if labels:
-            out["y"] = put(batch["y"]).long()
+    def _host_tensors(self, arrays, labels, narrow):
+        """Host arrays -> CPU tensors to copy: ``y`` as it is, ``X``
+        rounded to ``transfer_dtype`` when ``narrow`` (train features
+        only, never token ids), the rest as they are."""
+        out = {k: torch.from_numpy(np.ascontiguousarray(a))
+               for k, a in arrays.items() if labels or k != "y"}
+        X = out.get("X")
+        if (narrow and self.transfer_dtype is not None and X is not None
+                and X.is_floating_point()):
+            out["X"] = X.to(self.transfer_dtype)
         return out
 
-    def features(self, batch):
-        """A device batch's features (B, T, D): its ``X``, or in wav mode
-        its audio's MFCC normalised by each row's CMVN statistics."""
-        if not self.wav_mode:
-            return batch["X"]
-        feats = self._mfcc(batch["audio"])
-        return ((feats - batch["cmvn_mean"][:, None, :])
-                / batch["cmvn_std"][:, None, :])
+    def _put(self, tensors):
+        """CPU tensors -> the device: through pinned memory and an
+        asynchronous copy on a card.  Returns (tensors, bytes copied)."""
+        cuda = self.device.type == "cuda"
+        out, nbytes = {}, 0
+        for k, t in tensors.items():
+            nbytes += t.numel() * t.element_size()
+            if cuda:
+                t = t.pin_memory()
+            t = t.to(self.device, non_blocking=cuda)
+            out[k] = t.long() if k == "y" else t
+        return out, nbytes
 
-    def _prefetch(self, gen, labels):
+    def _device_batch(self, batch, labels=True, narrow=False, cache=None):
+        """A host batch with its speech (:meth:`_speech_keys`) and, with
+        ``labels``, ``y`` as tensors on the device; ``narrow``: ``X`` in
+        ``transfer_dtype`` (train batches); ``cache``: the
+        ``EpochFeatureCache`` an index-mode batch gathers from.  The
+        bytes copied are under ``h2d_bytes``.  A batch already there
+        passes through."""
+        keys = self._speech_keys(batch)
+        if torch.is_tensor(batch[keys[0]]):
+            return batch
+        arrays = {k: batch[k] for k in keys + ("y",) if k in batch}
+        dev, nbytes = self._put(self._host_tensors(arrays, labels, narrow))
+        out = dict(batch, h2d_bytes=nbytes, **dev)
+        if cache is not None:
+            out["cache"] = cache.bucket_array(batch["bucket"])
+        return out
+
+    def _device_run(self, batches, cache=None):
+        """A run of train batches (:func:`_group_stream`) on the device:
+        a full run of ``steps_per_dispatch`` > 1 as one stacked copy a
+        tensor, split into its steps' batches (``ast_tpu``'s
+        ``_device_group``), any other as single batches.  Returns
+        (step batches, bytes copied)."""
+        if len(batches) < max(2, self.steps_per_dispatch):
+            steps = [self._device_batch(b, True, narrow=True, cache=cache)
+                     for b in batches]
+            return steps, sum(b["h2d_bytes"] for b in steps)
+        keys = self._speech_keys(batches[0]) + ("y",)
+        stacked = {k: np.stack([b[k] for b in batches]) for k in keys}
+        dev, nbytes = self._put(self._host_tensors(stacked, True, True))
+        steps = []
+        for i, b in enumerate(batches):
+            step = dict(b, **{k: t[i] for k, t in dev.items()})
+            if cache is not None:
+                step["cache"] = cache.bucket_array(b["bucket"])
+            steps.append(step)
+        return steps, nbytes
+
+    def features(self, batch):
+        """A device batch's features (B, T, D) f32: its ``X`` (widened
+        from ``transfer_dtype``), the cache's rows times the dropout mask
+        (index mode), or in wav mode its audio's MFCC normalised by each
+        row's CMVN statistics."""
+        if "rows_idx" in batch:
+            return gather_batch(batch["cache"], batch["rows_idx"],
+                                batch["drop_mask"])
+        if self.wav_mode:
+            feats = self._mfcc(batch["audio"])
+            return ((feats - batch["cmvn_mean"][:, None, :])
+                    / batch["cmvn_std"][:, None, :])
+        X = batch["X"]
+        return X.float() if X.dtype in (torch.bfloat16, torch.float16) else X
+
+    def _prefetch(self, gen, prepare):
         workers = max(1, int(self.cfg.train["extras"].get(
             "prefetch_workers", 2)))
-        return Prefetcher(gen, lambda b: self._device_batch(b, labels),
-                          depth=2 * workers, workers=workers)
+        return Prefetcher(gen, prepare, depth=2 * workers, workers=workers)
+
+    def _cache(self, set_key):
+        """With ``hbm_cache``, the split's device feature cache, built at
+        its first use; else None."""
+        if self.hbm_cache and set_key not in self._hbm_caches:
+            cache = EpochFeatureCache(self.data_loader, set_key,
+                                      self.device, self.hbm_cache_dtype)
+            print(f"hbm_cache[{set_key}]: {cache.nbytes / 1e6:.0f} MB "
+                  f"resident", flush=True)
+            self._hbm_caches[set_key] = cache
+        return self._hbm_caches.get(set_key)
 
     def _decode_pipeline_depth(self, heavy_outputs=False):
         """Decode batches kept in flight before the copy to the host that
@@ -359,7 +494,7 @@ class NN:
         device)."""
         tcfg = self.cfg.train
         extras = tcfg["extras"]
-        batch = self._device_batch(batch)
+        batch = self._device_batch(batch, narrow=True)
         # featurized first: the draws take T from the features' shape
         X, y = self.features(batch), batch["y"]
         draws = seq2seq.make_draws(
@@ -368,11 +503,21 @@ class NN:
             vocab=self.mcfg["rnn_config"]["dec_vocab_size"],
             spec_cfg=tcfg["data"].get("spec_augment") or None,
             frame_len=batch.get("frame_len"))
-        loss, new_state = seq2seq.forward_loss(
-            self.params, self.state, self.mcfg, X, y,
-            float(batch["n_real"]), draws,
-            label_smoothing=extras["label_smoothing"],
-            compute_dtype=self.compute_dtype)
+
+        def loss_fn():
+            return seq2seq.forward_loss(
+                self.params, self.state, self.mcfg, X, y,
+                float(batch["n_real"]), draws,
+                label_smoothing=extras["label_smoothing"],
+                compute_dtype=self.compute_dtype)
+
+        if self.remat:
+            # the backward recomputes the forward from its inputs and
+            # the draws, kernel for kernel
+            loss, new_state = torch.utils.checkpoint.checkpoint(
+                loss_fn, use_reentrant=False)
+        else:
+            loss, new_state = loss_fn()
         leaves = tree_leaves(self.params)
         grads = torch.autograd.grad(loss, leaves)
         with torch.no_grad():
@@ -396,11 +541,13 @@ class NN:
                                  extras["weight_noise_sigma"], noise)
 
     def train_epoch(self, set_key, epoch=0):
-        """One epoch over ``set_key`` in the loader's order for ``epoch``,
-        or the rest of it after an in-flight snapshot of this epoch;
-        returns the mean over the batches trained of loss / real rows."""
+        """One epoch over ``set_key`` in the loader's order for ``epoch``
+        (grouped into runs at ``steps_per_dispatch``), or the rest of it
+        after an in-flight snapshot of this epoch; returns the mean over
+        the batches trained of loss / real rows."""
         tcfg = self.cfg.train
-        require_train_dtype(tcfg, self.mcfg)
+        require_train_dtype(tcfg, self.mcfg, self.device)
+        cache = self._cache(set_key)
         skip = 0
         if self.inflight_resume and self.inflight_resume[0] == epoch:
             skip = self.inflight_resume[1]
@@ -411,22 +558,31 @@ class NN:
         if wn_iter and epoch >= wn_iter and not skip:
             self.add_weight_noise(epoch)
 
+        G = self.steps_per_dispatch
         gen = self.data_loader.get_batch(
             tcfg["batch_size"], set_key, train=True, labels=True,
             curriculum=tcfg.get("curriculum", False), epoch=epoch,
-            tail_shrink=self.tail_shrink)
+            group_runs=G, tail_shrink=self.tail_shrink, index_cache=cache)
         if skip:
             gen = itertools.islice(gen, skip, None)
         ckpt_steps = tcfg.get("checkpoint_steps", 0)
         losses, sizes = [], []
         consumed = last_snap = skip
+        self.epoch_h2d_bytes = 0
         t0 = time.perf_counter()
-        for batch in self._prefetch(gen, labels=True):
-            # the step's seed is the batch's place in the whole epoch
-            losses.append(self.train_step(
-                batch, stable_seed(f"{self.seed}|{epoch}|{consumed}")))
-            sizes.append(max(1, len(batch["utts"])))
-            consumed += 1
+        # runs of G; single batches without _group_stream's look-ahead
+        runs = self._prefetch(
+            _group_stream(gen, G) if G > 1 else ([b] for b in gen),
+            lambda run: self._device_run(run, cache))
+        for steps, nbytes in runs:
+            # issued back to back: no step waits for the device
+            for i, batch in enumerate(steps):
+                # the step's seed is the batch's place in the whole epoch
+                losses.append(self.train_step(
+                    batch, stable_seed(f"{self.seed}|{epoch}|{consumed + i}")))
+                sizes.append(max(1, len(batch["utts"])))
+            consumed += len(steps)
+            self.epoch_h2d_bytes += nbytes
             if ckpt_steps and consumed - last_snap >= ckpt_steps:
                 self.save_inflight(epoch, consumed)
                 last_snap = consumed
@@ -455,13 +611,13 @@ class NN:
         return self._preempt
 
     def save_inflight(self, epoch, step):
-        """The mid-epoch snapshot, written atomically; ``g`` is
-        ``ast_tpu``'s steps per dispatch, always 1 here."""
+        """The mid-epoch snapshot, written atomically; ``g`` is the
+        steps per dispatch whose grouped stream ``step`` counts in."""
         save_checkpoint(
             os.path.join(self.model_dir, INFLIGHT), to_numpy(self.params),
             to_numpy(self.state), to_numpy(self.opt_state),
             extra={"epoch": np.int64(epoch), "step": np.int64(step),
-                   "g": np.int64(1)})
+                   "g": np.int64(self.steps_per_dispatch)})
 
     # ------------------------------------------------------------------
     # evaluation
@@ -471,14 +627,16 @@ class NN:
         with every step forced and no dropout): the mean over batches of
         loss / real rows, at ``compute_dtype``."""
         tcfg = self.cfg.train
-        require_train_dtype(tcfg, self.mcfg)
+        require_train_dtype(tcfg, self.mcfg, self.device)
+        cache = self._cache(set_key)
         gen = self.data_loader.get_batch(
             tcfg["batch_size"], set_key, train=False, labels=True,
-            tail_shrink=self.tail_shrink)
+            tail_shrink=self.tail_shrink, index_cache=cache)
         losses, sizes = [], []
         with torch.no_grad():
             enc_w = seq2seq.encoder_weights(self.params, self.compute_dtype)
-            for batch in self._prefetch(gen, labels=True):
+            for batch in self._prefetch(
+                    gen, lambda b: self._device_batch(b, True, cache=cache)):
                 loss, _ = seq2seq.forward_loss(
                     self.params, self.state, self.mcfg, self.features(batch),
                     batch["y"], float(batch["n_real"]), train=False,
@@ -504,11 +662,13 @@ class NN:
             collect(batch, [a.cpu().numpy() for a in out])
 
         depth = self._decode_pipeline_depth(heavy_outputs)
+        cache = self._cache(set_key)
         with torch.inference_mode():
             gen = self.data_loader.get_batch(
                 batch_size, set_key, train=False, labels=False,
-                tail_shrink=self.tail_shrink)
-            for batch in self._prefetch(gen, labels=False):
+                tail_shrink=self.tail_shrink, index_cache=cache)
+            for batch in self._prefetch(
+                    gen, lambda b: self._device_batch(b, False, cache=cache)):
                 inflight.append((batch, decode(self.features(batch))))
                 if len(inflight) >= depth:
                     drain()

@@ -169,7 +169,9 @@ Phases, each printing a line:
    width with B=8 rows of 640 frames (T' 160), U=64, decodes to 60 steps:
    ln, rnn_relu, linear_proj, bi_rnn false, n_attn 2, feed_attn false,
    dropout.out 0.3, attn_block_size 32, a conv stack with max_pool and
-   leaky_relu, text-encoder input, and the default beside them.  For
+   leaky_relu, text-encoder input, a model of widths the kernels' shape
+   gates turn away (hidden_units 80, 40 a direction, and embedding_units
+   100: every stage plain), and the default beside them.  For
    each: the routing predicates equal VARIANT_STAGES (the stages that
    run a kernel); every kernel counter read around one train step, one
    greedy batch and one beam 5,5 batch, above 0 for a stage routed to
@@ -181,7 +183,10 @@ Phases, each printing a line:
    1e-9, the training kernels' plain versions in their place; greedy tokens
    within TOK_TOL and beams (top-K, selection, scores) held along the
    card's own path by the plain step on the CPU; ms a train step and
-   greedy utts/s.  K1 eval, K1 train and K2 at D2 = 1 (bi_rnn false, 512
+   greedy utts/s.  A beam of 40 (cli.beam -n 40, past K6's 32) on the
+   default model: the plain frontier loop (K1 eval launched, K6 not), each
+   best hypothesis's score within SCORE_TOL of the plain step along its
+   tokens on the CPU.  K1 eval, K1 train and K2 at D2 = 1 (bi_rnn false, 512
    units) against their plain versions at B=32, T' 160 and at
    ENC_PARTIAL's batches, as in phases 3 and 5 (masks equal, REPEATS
    more calls bit-equal, clusters), K1 eval against one cuDNN
@@ -247,6 +252,22 @@ Phases, each printing a line:
    bf16 in turns (CUDA events split by kernel) and its peak memory
    (torch.cuda.max_memory_allocated), with the peak of each span between
    the fused Functions' forward and backward calls.
+15. the feed options and the epoch (the training headline's
+   configuration), es_en_20h's model: K1 train, K2, K3 and K4 against
+   their plain versions at the epoch's longest bucket (1,680 frames: T'
+   420, U 96) at B=32 and at an 8-row tail, at f32 and at bf16 (phase
+   5's and phase 14's tolerances, REPEATS more calls bit-equal); then on
+   scripts/torch_trainer_epoch_bench.py's corpus over EPOCH_SUBSET
+   (build_corpus; 160, 640 and 1,680 frames; zero_input 0.1), at bf16:
+   an hbm_cache epoch bit-equal to a host-fed one (losses, parameters,
+   BN and optimizer state), with the host-to-device bytes a step of
+   each; at steps_per_dispatch 4 an epoch preempted in its fifth step and
+   resumed in a fresh NN, bit-equal to the uninterrupted one; one step's
+   gradients with and without extras.remat bit-equal, each step's peak
+   memory; transfer_dtype bfloat16 / float16 and hbm_cache_dtype
+   bfloat16 epochs finite, with their bytes a step; the headline
+   configuration (bf16, B 32, G 4, hbm_cache) over two warm epochs:
+   utts/s and its kernels' launches (only the bf16 training kernels).
 
 Then a JSON line with each kernel's count, error and times, and last
 {"ok": true, "device": {...}}.  A kernel's count ("launches") is the
@@ -283,7 +304,9 @@ calls, one per direction stack, on the conv output (so they include the
 hoisted layer-0 GEMM), checked against K1's outputs first (one call at
 D2 = 1; in bf16 for k1_bf16); null for the others, which no one library
 call computes.  "f32_ms" (bf16 rows) is the f32 mode's time in the same
-call.  Any failure raises (exit
+call.  The bf16 training rows also carry "epoch_launches" and
+"epoch_launches_per_step": their counts over phase 15's headline epochs.
+Any failure raises (exit
 code 1, no result line); with no CUDA device it exits 2.  The script
 checks that neither JAX nor any module of ast_tpu was imported.
 """
@@ -1359,10 +1382,11 @@ def check_dev_loss(params, state, mcfg, X, y, n_real):
     return dict(max_abs_err=err, rel_err=rel)
 
 
-def check_train_partial(params, state, mcfg, nb, t_enc, device):
+def check_train_partial(params, state, mcfg, nb, t_enc, device,
+                        coins=TRAIN_PARTIAL_COINS):
     """K3 and K4 against their plain versions on a partial batch of
     ``nb`` rows of T' = ``t_enc`` (encoded from seeded features), random
-    teacher ids, TRAIN_PARTIAL_COINS and a random cotangent: K3 along its
+    teacher ids, ``coins`` (one a step) and a random cotangent: K3 along its
     own selected ids as in phase 5 (sampled ids within TOK_TOL of the
     plain step's best logit, streams within ENC_TOL), K4's streams within
     BWD_TOL of max|plain|, and both bit-equal over REPEATS more calls.
@@ -1378,11 +1402,10 @@ def check_train_partial(params, state, mcfg, nb, t_enc, device):
     enc, h0, c0 = seq2seq.encode(params, state, mcfg, X)
     assert enc.shape[1] == t_enc, (enc.shape, t_enc)
     w = seq2seq.pack_decoder_weights(params)
-    U = len(TRAIN_PARTIAL_COINS)
+    U = len(coins)
     y_in = torch.from_numpy(rng.integers(
         4, VOCAB, (U, nb)).astype(np.int32)).to(device)
-    coins = torch.tensor(TRAIN_PARTIAL_COINS, dtype=torch.int32,
-                         device=device)
+    coins = torch.tensor(coins, dtype=torch.int32, device=device)
     args = (enc, h0, c0, w, y_in, coins, DEC_SEED + nb, DROP, DROP)
     ht_k, res_k = fd.decoder_forward(*args)
     sel = res_k["sel"]
@@ -3012,6 +3035,9 @@ VARIANT_STAGES = {
     "attn_block_size 32": {"enc"},
     "max_pool + leaky_relu": {"enc", "dec", "infer"},
     "text input": {"enc", "dec", "infer"},
+    # widths the kernels' shape gates turn away: 40 units a direction,
+    # E = 100 (every stage plain, as ast_tpu's scan path)
+    "hidden_units 80 + embedding_units 100": set(),
 }
 # the kernels of each stage, in train steps and in decodes
 STAGE_KERNELS = {"enc": ("k1t", "k2"), "dec": ("k3", "k4")}
@@ -3040,6 +3066,8 @@ def variant_cfg(mcfg, name):
         # the same T' = T / 4
         layers[0].update(max_pool=[3, 2], leaky_relu=True)
         layers[1].update(stride=[1, 1], leaky_relu=True)
+    elif name == "hidden_units 80 + embedding_units 100":
+        rnn.update(hidden_units=80, embedding_units=100)
     elif name == "text input":
         E = rnn["embedding_units"]
         rnn["enc_vocab_size"] = rnn["dec_vocab_size"]
@@ -3216,9 +3244,11 @@ def run_variant(name, base, device, smi):
     mcfg = variant_cfg(base, name)
     stages = VARIANT_STAGES.get(name, {"enc", "dec", "infer"})
     got_stages = {s for s, on in (
-        ("enc", seq2seq.use_fused_encoder(mcfg)),
-        ("dec", seq2seq.use_fused_decoder(mcfg)),
-        ("infer", fused_infer.infer_variant_ok(mcfg))) if on}
+        ("enc", seq2seq.use_fused_encoder(mcfg, device)),
+        ("dec", seq2seq.use_fused_decoder(mcfg, device, T=FRAMES // 4)),
+        ("infer", seq2seq.use_fused_infer(mcfg, device, VARIANT_ROWS,
+                                          FRAMES // 4, N_BEAM, K_BEAM)))
+        if on}
     assert got_stages == stages, (name, got_stages, stages)
     cpu = torch.device("cpu")
     params, state = seq2seq.init_model(mcfg, seed=0, device=device)
@@ -3395,6 +3425,54 @@ def check_unidirectional_kernels(mcfg, device):
         }
 
 
+def check_wide_beam(mcfg, device, N=40, K=2, nb=2):
+    """A beam wider than K6 takes (``cli.beam -n 40``) on es_en_20h's
+    model: routed to the plain frontier loop (K1 eval launched, K6 not),
+    each utterance's best hypothesis's score that of the plain step run
+    along its tokens on the CPU, within SCORE_TOL."""
+    import torch
+
+    from ast_tpu_torch import SYMBOLS
+    from ast_tpu_torch.models import seq2seq
+    from ast_tpu_torch.ops import beam as beam_ops
+    from ast_tpu_torch.ops import fused_infer
+    from ast_tpu_torch.params import tree_map
+
+    X = variant_inputs(mcfg, device)[0][:nb]
+    t_enc = FRAMES // 4
+    assert not seq2seq.use_fused_infer(mcfg, device, nb, t_enc, N, K)
+    params, state = seq2seq.init_model(mcfg, seed=0, device=device)
+    decode = beam_ops.make_beam_decoder(mcfg, N, K, PARTIAL_STOP)
+    zero_counts()
+    with torch.inference_mode():
+        hyps, scores, lengths = decode(params, state, X.to(device))
+    check_launched(f"beam N={N}", counts(), ("k1",))
+    cpu = torch.device("cpu")
+    p_cpu, s_cpu = (tree_map(lambda t: t.detach().to(cpu), tree)
+                    for tree in (params, state))
+    assert hyps.shape == (nb, N, PARTIAL_STOP + 1)
+    err = 0.0
+    with torch.inference_mode():
+        w = seq2seq.decode_weights(p_cpu)
+        enc, h0, c0 = seq2seq.encode(p_cpu, s_cpu, mcfg, X, w)
+        for r in range(nb):
+            ids = hyps[r, 0, :int(lengths[r, 0])].tolist()
+            assert ids[0] == SYMBOLS.GO_ID, ids[:3]
+            h, c = h0[:, r:r + 1], c0[:, r:r + 1]
+            ht = enc.new_zeros((1, w["ctx_w"].shape[1]))
+            total = 0.0
+            for prev, t in zip(ids[:-1], ids[1:]):
+                logits, h, c, ht, _ = fused_infer.decode_step_reference(
+                    w, enc[r:r + 1], h, c, ht, torch.tensor([prev]))
+                total += float(torch.log_softmax(logits, -1)[0, t])
+            err = max(err, abs(total - float(scores[r, 0])))
+    assert err <= SCORE_TOL, f"beam N={N}: best scores {err} off the path"
+    print(f"  beam {N},{K} at {nb} utterances (cli.beam -n {N}): the plain "
+          f"frontier loop on the card (K1 eval launched, K6 not), each best "
+          f"hypothesis's score within {err:.2e} of the plain step along its "
+          f"tokens on the CPU", flush=True)
+
+
 def variant_experiment(root, train_exp, name, edits):
     """An experiment over phase 6's data with es_en_20h's train_cfg and
     its model_cfg under ``edits`` (variant names)."""
@@ -3467,6 +3545,7 @@ def run_variants(root, train_exp, smi, device="cuda"):
     timing = {"default": run_variant("default", base, device, smi)}
     for name in VARIANT_STAGES:
         timing[name] = run_variant(name, base, device, smi)
+    check_wide_beam(base, device)
     results = check_unidirectional_kernels(
         variant_cfg(base, "bi_rnn false"), device)
 
@@ -4907,6 +4986,249 @@ def run_bf16_training(train_exp, train_cfg, root, smi, device="cuda"):
     return launches, steps[0]
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the feed options and the epoch (the training headline's
+# configuration: es_en_20h's model, B=32, G=4, bf16, hbm_cache)
+# ---------------------------------------------------------------------------
+
+# the epoch benchmark's buckets that phase 15 trains on, at reduced counts:
+# 160 frames (four full 32-row batches and an 8-row tail: full runs of
+# G = 4), 640 (two and a tail) and 1,680 (T' 420, U 96: one and a tail)
+EPOCH_SUBSET = "1:136,7:72,19:40"
+EPOCH_T, EPOCH_U, EPOCH_TAIL = 420, 96, 8
+HEADLINE_G = 4
+
+
+def epoch_coins(steps, seed=15):
+    """Teacher coins of a ``steps``-step decode at TEACH, the first and
+    last steps forced (make_draws' rule)."""
+    rng = np.random.default_rng(seed)
+    c = (rng.random(steps) < TEACH).astype(int)
+    c[0] = c[-1] = 1
+    return tuple(int(v) for v in c)
+
+
+def check_epoch_shapes(cfg, device):
+    """K1 train / K2 / K3 / K4 against their plain versions at the
+    epoch's longest bucket (T' 420, U 96) at B = 32 and at an 8-row tail,
+    at f32 (ENC_TOL / BWD_TOL / TOK_TOL, REPEATS more calls bit-equal)
+    and at bf16 (BF16_MAX_TOL along the path and one step at a time,
+    BF16_STEP_TOL, BF16_TOK_TOL).  Returns {kernel: worst err}."""
+    import torch
+
+    from ast_tpu_torch.models import seq2seq
+
+    bf = torch.bfloat16
+    mcfg = cfg.model
+    params, state = seq2seq.init_model(mcfg, seed=0, device=device)
+    coins = epoch_coins(EPOCH_U - 1)
+    w16 = seq2seq.pack_decoder_weights(params, bf)
+    worst = {}
+    for nb in (B, EPOCH_TAIL):
+        x0, wxr, wh, b = encoder_case(params, nb, EPOCH_T, device)
+        e1, e2 = check_encoder_train_partial(x0, wxr, wh, b)
+        e3, e4 = check_train_partial(params, state, mcfg, nb, EPOCH_T,
+                                     device, coins)
+        f1, f2, _, _ = check_bf16_encoder_train(
+            x0, wxr.to(bf), wh.to(bf), b, f"{nb} rows, T' {EPOCH_T}")
+        rng = np.random.default_rng(200 + nb)
+        X = torch.from_numpy(rng.standard_normal(
+            (nb, 4 * EPOCH_T, 13)).astype(np.float32)).to(device)
+        enc, h0, c0 = seq2seq.encode(params, state, mcfg, X)
+        y_in = torch.from_numpy(rng.integers(
+            4, VOCAB, (EPOCH_U - 1, nb)).astype(np.int32)).to(device)
+        d_ht = torch.from_numpy(rng.standard_normal(
+            (EPOCH_U - 1, nb, w16["ctx_w"].shape[1])).astype(np.float32)
+            * 0.1).to(device)
+        f3, short, f4, _, _, _ = check_bf16_decoder_train(
+            enc.to(bf), h0, c0, w16, y_in,
+            torch.tensor(coins, dtype=torch.int32, device=device),
+            DEC_SEED + nb, d_ht, f"{nb} rows, T' {EPOCH_T}, U {EPOCH_U}")
+        for k, v in (("k1t", e1), ("k2", e2), ("k3", e3), ("k4", e4)):
+            worst[k] = max(worst.get(k, 0.0), v)
+        for k, v in zip(BF16_TRAIN_KEYS, (f1, f2, f3, f4)):
+            worst[k] = worse(worst[k], v) if k in worst else v
+        print(f"  bf16 at {nb} rows, T' {EPOCH_T}, U {EPOCH_U}: K1 train "
+              f"{show(f1)}; K2 {show(f2)}; K3 ids {short:.3e}, {show(f3)}; "
+              f"K4 {show(f4)}", flush=True)
+    return worst
+
+
+def feed_experiment(root, tag, **opts):
+    """A copy of the epoch benchmark's experiment over the phase's corpus
+    (root/corpus) in its own directory, with write_configs' options;
+    zero_input 0.1, so that frame dropout's mask is drawn."""
+    import torch_trainer_epoch_bench as eb
+
+    corpus = os.path.join(root, "corpus")
+    exp = eb.write_configs(corpus, B, opts.pop("g", 1), **opts)
+    d = os.path.join(root, f"feed_{tag}")
+    os.makedirs(d)
+    for f in ("model_cfg.json", "train_cfg.json"):
+        shutil.copy(os.path.join(exp, f), d)
+    edit_train_cfg(d, lambda c: c["data"].update(zero_input=0.1))
+    return d
+
+
+def run_feed_options(cfg, root, smi, device="cuda"):
+    """Phase 15: the feed options and the epoch.  The training kernels at
+    the epoch's longest shapes; on the epoch benchmark's corpus over
+    EPOCH_SUBSET (build_corpus, es_en_20h's model): an hbm_cache epoch
+    bit-equal to a host-fed one; at G = 4 a preempted and resumed epoch
+    bit-equal to an uninterrupted one; one step's gradients with and
+    without remat bit-equal, each step's peak memory; transfer_dtype
+    bfloat16 / float16 and hbm_cache_dtype bfloat16 epochs finite, with
+    their host-to-device bytes a step; the headline configuration's
+    utts/s and its kernels' launches.  Returns (the headline's launches
+    {bf16 training row: count}, its steps)."""
+    import torch
+
+    from ast_tpu_torch.train import trainer
+    from ast_tpu_torch.train.optimizer import tree_leaves
+
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import torch_trainer_epoch_bench as eb
+
+    t_phase = time.perf_counter()
+    print(f"phase 15: the feed options and the epoch ({smi})", flush=True)
+    with torch.inference_mode():
+        worst = check_epoch_shapes(cfg, device)
+    print(f"  K1 train / K2 / K3 / K4 at T' {EPOCH_T}, U {EPOCH_U}, "
+          f"{B} and {EPOCH_TAIL} rows: f32 max abs err K1 train "
+          f"{worst['k1t']:.3e}, K2 {worst['k2']:.3e}, K3 {worst['k3']:.3e}, "
+          f"K4 {worst['k4']:.3e}; bf16 "
+          + "; ".join(f"{k} {show(worst[k])}" for k in BF16_TRAIN_KEYS),
+          flush=True)
+
+    corpus = os.path.join(root, "corpus")
+    n_utts = eb.build_corpus(corpus, log=lambda *a: None,
+                             buckets=eb.parse_buckets(EPOCH_SUBSET))
+    train_set = "syn_train"
+
+    def state_of(nn):
+        return (tree_leaves(nn.params) + tree_leaves(nn.state)
+                + tree_leaves(nn.opt_state))
+
+    def equal(a, b):
+        return all(torch.equal(x, y) if torch.is_tensor(x) else x == y
+                   for x, y in zip(state_of(a), state_of(b)))
+
+    def epochs(exp, n=1, nn=None, first=1):
+        nn = nn or trainer.NN(exp, device)
+        with contextlib.redirect_stdout(io.StringIO()):
+            losses = [nn.train_epoch(train_set, epoch=e)
+                      for e in range(first, first + n)]
+        sync(device)
+        return nn, losses
+
+    # hbm_cache: bit-equal to host feeding (frame dropout on)
+    host, l_host = epochs(feed_experiment(root, "host", g=HEADLINE_G))
+    cached, l_cache = epochs(feed_experiment(root, "cache", g=HEADLINE_G,
+                                             hbm_cache=True))
+    steps = host.timer.n_steps
+    assert l_cache == l_host and equal(cached, host), \
+        "an hbm_cache epoch differs from host feeding"
+    print(f"  hbm_cache (bf16, G {HEADLINE_G}): one epoch of {n_utts} "
+          f"utterances, {steps} steps, losses and every parameter, BN and "
+          f"optimizer leaf bit-equal to host feeding; host-to-device "
+          f"{host.epoch_h2d_bytes / steps / 1e6:.3f} MB a step host-fed, "
+          f"{cached.epoch_h2d_bytes / steps / 1e6:.4f} MB cached "
+          f"({cached._hbm_caches[train_set].nbytes / 1e6:.1f} MB resident)",
+          flush=True)
+    del cached
+
+    # G = 4: preempted in its fifth step (so at the end of that step's
+    # run), resumed, bit-equal to `host`
+    exp = feed_experiment(root, "resume", g=HEADLINE_G)
+    nn1 = trainer.NN(exp, device)
+    step = nn1.train_step
+
+    def preempt_in_fifth(batch, seed, seen=[]):
+        seen.append(seed)
+        if len(seen) == 5:
+            nn1.request_preempt()
+        return step(batch, seed)
+
+    nn1.train_step = preempt_in_fifth
+    try:
+        epochs(exp, nn=nn1)
+        raise AssertionError("the preempted epoch did not stop")
+    except trainer.PreemptedError:
+        pass
+    nn2 = trainer.NN(exp, device)
+    at = nn2.inflight_resume
+    assert at[0] == 1 and 5 <= at[1] < 5 + HEADLINE_G, at
+    nn2, _ = epochs(exp, nn=nn2)
+    assert equal(nn2, host), "the resumed epoch differs from the whole one"
+    print(f"  G {HEADLINE_G}: an epoch preempted in its fifth step stops "
+          f"at the end of that step's run ({at[1]} steps), and resumed in a "
+          f"fresh NN ends bit-equal to the uninterrupted one", flush=True)
+    del nn1, nn2
+
+    # remat: one step's gradients bit-equal, and each step's peak
+    grads, peaks = {}, {}
+    for remat in (False, True):
+        nn = trainer.NN(feed_experiment(root, f"remat_{remat}",
+                                        remat=remat), device)
+        batch = next(b for b in nn.data_loader.get_batch(
+            B, train_set, train=True, labels=True, epoch=1)
+            if b["bucket"] == 19 and b["n_real"] == B)
+        orig = nn.opt.update
+
+        def update(g, st, params, remat=remat, orig=orig):
+            grads[remat] = [t.clone() for t in tree_leaves(g)]
+            return orig(g, st, params)
+
+        nn.opt.update = update
+        nn.train_step(batch, 0)           # warm
+        sync(device)
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        nn.train_step(batch, 1)
+        sync(device)
+        peaks[remat] = (torch.cuda.max_memory_allocated() - before) / 2**20
+        del nn
+    assert all(torch.equal(a, b) for a, b in zip(grads[False],
+                                                 grads[True])), \
+        "remat's gradients differ"
+    print(f"  remat: one step at {B} rows, T' {EPOCH_T}, U {EPOCH_U} "
+          f"(bf16): {len(grads[True])} gradients bit-equal with and "
+          f"without; step peak {peaks[False]:.1f} MiB without, "
+          f"{peaks[True]:.1f} MiB with ({smi})", flush=True)
+
+    # narrow transfers and a bf16 cache: finite epochs, bytes a step
+    for tag, opts in (("transfer_bf16", dict(transfer_dtype="bfloat16")),
+                      ("transfer_f16", dict(transfer_dtype="float16")),
+                      ("cache_bf16", dict(hbm_cache=True,
+                                          hbm_cache_dtype="bfloat16"))):
+        nn, losses = epochs(feed_experiment(root, tag, g=HEADLINE_G,
+                                            **opts))
+        assert np.isfinite(losses).all(), (tag, losses)
+        print(f"  {tag}: loss {losses[0]:.4f} (host f32 {l_host[0]:.4f}), "
+              f"{nn.epoch_h2d_bytes / nn.timer.n_steps / 1e6:.4f} MB "
+              f"host-to-device a step", flush=True)
+        del nn
+
+    # the headline configuration: utts/s over the reduced corpus, and the
+    # launches of its epochs
+    exp = feed_experiment(root, "headline", g=HEADLINE_G, hbm_cache=True)
+    nn, _ = epochs(exp)                   # cold: cache fill, first steps
+    cold_steps = nn.timer.n_steps
+    zero_train_counts()
+    t0 = time.perf_counter()
+    nn, losses = epochs(exp, 2, nn, first=2)
+    dt = time.perf_counter() - t0
+    n = bf16_train_counts()
+    head_steps = nn.timer.n_steps - cold_steps
+    assert all(n.values()) and not any(f32_train_counts().values()), n
+    print(f"  headline (bf16, B {B}, G {HEADLINE_G}, hbm_cache): "
+          f"{2 * n_utts / dt:.1f} utts/s over two warm epochs of "
+          f"{n_utts} utterances ({smi}); launches over its {head_steps} "
+          f"steps {n}", flush=True)
+    print(f"phase 15: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return n, head_steps
+
+
 def step_split(nn, batch, reps):
     """Mean device time (ms) of ``nn.train_step`` on ``batch`` and of the
     parts of it that run in K1 train, K2, K3, K4, the optimizer's update
@@ -5035,6 +5357,7 @@ def main():
         bt_launches, bt_steps = run_bf16_training(train["exp"], train_cfg6,
                                                   root, smi)
         print(f"phase 14: {time.perf_counter() - t14:.1f} s", flush=True)
+        ep_launches, ep_steps = run_feed_options(cfg, root, smi)
     launches.update(bf_launches)
     units.update(bf_units)
     launches.update({k: v for k, v in train_launches.items() if k != "k5"})
@@ -5100,7 +5423,10 @@ def main():
             max_abs_err=r["max_abs_err"], ms=r["ms"],
             plain_ms=r["plain_ms"], bound_ms=bound_ms, bound_by=bound_by,
             library_ms=r.get("library_ms"),
-            **({"f32_ms": r["f32_ms"]} if "f32_ms" in r else {})))
+            **({"f32_ms": r["f32_ms"]} if "f32_ms" in r else {}),
+            **({"epoch_launches": ep_launches[key],
+                "epoch_launches_per_step": ep_launches[key] / ep_steps}
+               if key in ep_launches else {})))
         unit = ("train step" if key in ("k1t", "k2", "k3", "k4", "k1t_d1",
                                         "k2_d1") + BF16_TRAIN_KEYS
                 else "served batch")

@@ -153,9 +153,10 @@ def test_detok_matches_ast_tpu(dec_key):
 
 def test_port_imports_no_jax(tmp_path):
     """Importing every module of the port, and the scripts that drive it
-    on the card (chip_smoke, ab_kernels, profile_decode and the port's
-    two learning scripts), loads no JAX and no module of ast_tpu; nor
-    does the corpus preparation build its native library on import."""
+    on the card (chip_smoke, ab_kernels, profile_decode, the port's two
+    learning scripts and its epoch benchmark), loads no JAX and no module
+    of ast_tpu (nor bench / __graft_entry__, which import JAX); nor does
+    the corpus preparation build its native library on import."""
     code = ("import importlib, os, pkgutil, sys\n"
             "import ast_tpu_torch, ast_tpu_torch.cli.infer, "
             "ast_tpu_torch.ops.beam, ast_tpu_torch.cli.train, "
@@ -179,8 +180,10 @@ def test_port_imports_no_jax(tmp_path):
             "import ab_kernels, chip_smoke, profile_decode\n"
             "sys.path.insert(0, 'scripts')\n"
             "import torch_synthetic_train, torch_transfer_ab\n"
+            "import torch_trainer_epoch_bench\n"
             "bad = [m for m in sys.modules "
-            "if m.split('.')[0] in ('jax', 'jaxlib', 'ast_tpu')]\n"
+            "if m.split('.')[0] in ('jax', 'jaxlib', 'ast_tpu', 'bench', "
+            "'__graft_entry__', 'trainer_epoch_bench')]\n"
             "assert not bad, bad\n"
             "assert ast_tpu_torch.native._lib is None\n"
             "assert not os.path.exists(sys.argv[1])\n")

@@ -11,6 +11,7 @@ whole step, as tests/test_fused_decoder.py: attention backward sums
 over the encoder axis in another order); optimizer state 1e-6.
 """
 
+import copy
 import os
 
 import jax
@@ -516,11 +517,17 @@ def test_train_gate_refuses_unported_options(tmp_path):
                                   moments_dtype="bfloat16")
     cfg.train["data"]["spec_augment"] = {"freq_masks": 1}
     require_train_variant(cfg.train)
-    # output dropout trains on the scan decoder now; the feed options
-    # are still refused by name
+    # output dropout trains on the scan decoder now, and the feed
+    # options are taken too; hbm_cache keeps ast_tpu's refusals of audio
+    # and text
     cfg.model["dropout"]["out"] = 0.2
     require_train_variant(cfg.train)
-    cfg.train["extras"]["steps_per_dispatch"] = 4
-    with pytest.raises(NotImplementedError,
-                       match="not ported: steps_per_dispatch .*ROADMAP"):
-        require_train_variant(cfg.train)
+    cfg.train["extras"].update(steps_per_dispatch=4, hbm_cache=True,
+                               transfer_dtype="bfloat16", remat=True)
+    require_train_variant(cfg.train)
+    for data, match in (({"features": "wav"}, "needs precomputed features"),
+                        ({"enc_key": "src"}, "text-encoder mode")):
+        bad = copy.deepcopy(cfg.train)
+        bad["data"].update(data)
+        with pytest.raises(ValueError, match=match):
+            require_train_variant(bad)

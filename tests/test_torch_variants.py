@@ -20,6 +20,7 @@ to the kernel path's by the last tests.
 import copy
 import os
 import pickle
+import re
 
 import jax
 import jax.numpy as jnp
@@ -146,12 +147,15 @@ def _inputs(name, rng):
 _CACHE = {}
 
 
-def _model(name):
+def _model(name, **rnn):
     """(mcfg, numpy params, numpy state, X, y, port params, port state):
     the port's seeded init, perturbed (BN variances kept positive, an
-    EOS bias that staggers the ends of greedy rows), for both packages."""
-    if name not in _CACHE:
+    EOS bias that staggers the ends of greedy rows), for both packages;
+    ``rnn`` edits its rnn_config (widths)."""
+    key = (name,) + tuple(sorted(rnn.items()))
+    if key not in _CACHE:
         mcfg = _mcfg(name)
+        mcfg["rnn_config"].update(rnn)
         rng = np.random.default_rng(sorted(VARIANTS).index(name)
                                     if name in VARIANTS else 99)
         params, state = (to_numpy(t) for t in seq2seq.init_model(mcfg, 5))
@@ -163,8 +167,8 @@ def _model(name):
                 s["bn_var"] = np.abs(s["bn_var"]) + 0.5
         X, y = _inputs(name, rng)
         tp, ts = from_jax_numpy(params, state)
-        _CACHE[name] = (mcfg, params, state, X, y, tp, ts)
-    return _CACHE[name]
+        _CACHE[key] = (mcfg, params, state, X, y, tp, ts)
+    return _CACHE[key]
 
 
 def _jnp(tree):
@@ -264,13 +268,14 @@ def test_routing_matches_ast_tpu(name, monkeypatch):
         ("dec", jax_seq2seq._use_fused_decoder(mcfg, None, enc, y,
                                                jnp.float32, None)),
         ("infer", jax_fused_infer.infer_variant_ok(mcfg))) if on}
+    # on CPU tensors, as ast_tpu in interpret mode: no shape gate
     got = {stage for stage, on in (
-        ("enc", seq2seq.use_fused_encoder(mcfg)),
-        ("dec", seq2seq.use_fused_decoder(mcfg)),
-        ("infer", fused_infer.infer_variant_ok(mcfg))) if on}
+        ("enc", seq2seq.use_fused_encoder(mcfg, "cpu")),
+        ("dec", seq2seq.use_fused_decoder(mcfg, "cpu")),
+        ("infer", seq2seq.use_fused_infer(mcfg, "cpu", B, 6))) if on}
     assert got == want == KERNEL_STAGES[name]
     mask = np.ones((B, 6), bool)
-    assert not seq2seq.use_fused_decoder(mcfg, torch.from_numpy(mask))
+    assert not seq2seq.use_fused_decoder(mcfg, "cpu", torch.from_numpy(mask))
     assert not fused_infer.infer_variant_ok(mcfg, torch.from_numpy(mask))
     assert not jax_seq2seq._use_fused_decoder(mcfg, None, enc, y,
                                               jnp.float32, mask)
@@ -692,3 +697,172 @@ def test_output_dropout_mask_is_a_new_stream():
         params, state)
     assert np.isfinite(loss.item())
     assert all(torch.isfinite(g).all() for g in grads)
+
+
+# ---------------------------------------------------------------------------
+# the kernels' shape gate: on a CUDA device a stage its kernels do not take
+# runs plain, as ast_tpu's chunk gates send it to the scan path
+# ---------------------------------------------------------------------------
+
+# es_en_20h's widths
+WIDE = dict(hidden_units=512, embedding_units=128, attn_units=512)
+T_WIDE = 160
+
+
+def _wide(**rnn):
+    m = _mcfg()
+    m["rnn_config"].update(WIDE, **rnn)
+    return m
+
+
+def _passes(check, *args):
+    try:
+        check(*args)
+    except ValueError:
+        return False
+    return True
+
+
+@pytest.mark.parametrize("rnn,stages", [
+    ({}, {"enc", "dec", "infer"}),
+    ({"hidden_units": 80}, set()),
+    ({"embedding_units": 100}, {"enc"}),
+    ({"attn_units": 200}, {"enc"}),
+    ({"hidden_units": 80, "bi_rnn": False}, set()),
+    ({"hidden_units": 64}, {"enc", "dec", "infer"}),
+])
+def test_shape_gate_routes_widths(rnn, stages):
+    """hidden_units 80 (40 a direction), embedding_units 100: on a CUDA
+    device each predicate routes its stage to the plain version exactly
+    where its kernel's check raises; on the CPU every stage takes its
+    kernel's plain version."""
+    mcfg = _wide(**rnn)
+    r = mcfg["rnn_config"]
+    H, E, A = r["hidden_units"], r["embedding_units"], r["attn_units"]
+    units = H // (2 if r["bi_rnn"] else 1)
+    checks = {
+        "enc": _passes(fused_lstm.check_encoder_shapes, units),
+        "dec": _passes(fused_decoder.check_train_shapes, T_WIDE, H, E, A),
+        "infer": _passes(fused_infer.check_decode_shapes, 8, T_WIDE, H, E,
+                         A, 1)}
+    routed = {
+        "enc": seq2seq.use_fused_encoder(mcfg, "cuda"),
+        "dec": seq2seq.use_fused_decoder(mcfg, "cuda", T=T_WIDE),
+        "infer": seq2seq.use_fused_infer(mcfg, "cuda", 8, T_WIDE)}
+    preds = {"enc": fused_lstm.encoder_shapes_ok(units),
+             "dec": fused_decoder.train_shapes_ok(T_WIDE, H, E, A),
+             "infer": fused_infer.decode_shapes_ok(8, T_WIDE, H, E, A, 1)}
+    assert {k for k, v in routed.items() if v} == stages
+    assert routed == checks == preds
+    assert (seq2seq.use_fused_encoder(mcfg, "cpu"),
+            seq2seq.use_fused_decoder(mcfg, "cpu", T=T_WIDE),
+            seq2seq.use_fused_infer(mcfg, "cpu", 8, T_WIDE)) == (
+                True, True, True)
+
+
+@pytest.mark.parametrize("B,T,N,K,ok", [
+    (8, T_WIDE, 5, 5, True),
+    (2, T_WIDE, 40, 2, False),      # cli.beam -n 40
+    (2, T_WIDE, 32, 5, True),
+    (1, 2000, 32, 1, False),        # attention past a block's memory
+    (1, 100, 32, 200, False),       # N * K candidates past 48 KB
+])
+def test_shape_gate_routes_beams(B, T, N, K, ok):
+    """K6's gate at the call's B, T', N and K: the predicate, the
+    routing and the kernel's check agree."""
+    mcfg = _wide()
+    dims = (B, T, WIDE["hidden_units"], WIDE["embedding_units"],
+            WIDE["attn_units"], N, K)
+    assert fused_infer.decode_shapes_ok(*dims) == ok
+    assert _passes(fused_infer.check_decode_shapes, *dims) == ok
+    assert seq2seq.use_fused_infer(mcfg, "cuda", B, T, N, K) == ok
+    assert seq2seq.use_fused_infer(mcfg, "cpu", B, T, N, K)
+
+
+def test_shape_gate_routes_the_training_decoder_by_T():
+    """The training decoder's gate is evaluated at the call's T': past a
+    block's shared memory for attention it routes to the scan loss."""
+    mcfg = _wide()
+    assert seq2seq.use_fused_decoder(mcfg, "cuda", T=56000)
+    assert not seq2seq.use_fused_decoder(mcfg, "cuda", T=58000)
+    assert seq2seq.use_fused_decoder(mcfg, "cpu", T=58000)
+
+
+@pytest.mark.parametrize("rnn,named", [
+    ({"hidden_units": 80}, "hidden_units 80 (40 a direction"),
+    ({"embedding_units": 100}, "embedding_units 100"),
+])
+def test_bf16_refuses_an_odd_width_by_name(rnn, named):
+    """At bf16 a stage the gate sends to the scan path is refused, naming
+    the width; f32 and the CPU's plain versions take it."""
+    mcfg = _wide(**rnn)
+    with pytest.raises(NotImplementedError, match=re.escape(named)):
+        fused_infer.require_bf16_variant(mcfg, torch.bfloat16,
+                                         device="cuda")
+    fused_infer.require_bf16_variant(mcfg, torch.float32, device="cuda")
+    fused_infer.require_bf16_variant(mcfg, torch.bfloat16, device="cpu")
+    problem = fused_infer.decode_shapes_problem(2, T_WIDE, 512, 128, 512,
+                                                40, 2)
+    with pytest.raises(NotImplementedError, match="N=40"):
+        fused_infer.require_bf16_shapes(torch.bfloat16, problem)
+    fused_infer.require_bf16_shapes(torch.float32, problem)
+
+
+def _refuse(*args, **kwargs):
+    raise AssertionError("a kernel wrapper was called")
+
+
+@pytest.mark.parametrize("rnn", [{"hidden_units": 80},
+                                 {"embedding_units": 100}])
+def test_odd_widths_take_the_plain_stages(rnn, monkeypatch):
+    """With the card's shape gate applied to CPU tensors, a model of 40
+    units a direction or E = 100 trains, greedy- and beam-decodes with no
+    kernel wrapper called, equal to ast_tpu's scan path on the same model:
+    greedy ids and beams exactly, scores and the train step's loss within
+    1e-5."""
+    mcfg, params, state, X, y, tp, ts = _model("default", **rnn)
+    monkeypatch.setattr(seq2seq, "on_card", lambda device: True)
+    for name in ("fused_stacked_lstm", "greedy_decode_fused"):
+        monkeypatch.setattr(seq2seq, name, _refuse)
+    monkeypatch.setattr(seq2seq.FusedStackedLSTM, "apply", _refuse)
+    monkeypatch.setattr(seq2seq.FusedDecoder, "apply", _refuse)
+    monkeypatch.setattr(beam_ops, "beam_decode_fused", _refuse)
+
+    want, want_n = jax.jit(lambda p, s, x: jax_seq2seq.predict_greedy(
+        p, s, mcfg, x, STOP))(_jnp(params), _jnp(state), jnp.asarray(X))
+    got, got_n = seq2seq.predict_greedy(tp, ts, mcfg, _x(X), STOP)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert int(got_n) == int(want_n)
+    want = jax_beam.make_beam_decoder(mcfg, N, K, STOP)(
+        _jnp(params), _jnp(state), jnp.asarray(X))
+    got = beam_ops.make_beam_decoder(mcfg, N, K, STOP)(tp, ts, _x(X))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]),
+                               rtol=0, atol=ATOL)
+    want_loss, _ = jax_seq2seq.forward_loss(
+        _jnp(params), _jnp(state), mcfg, jnp.asarray(X), jnp.asarray(y),
+        jax.random.PRNGKey(1), train=True, n_real=float(B), teach_ratio=1.0)
+    draws = seq2seq.Draws(None, 11, 12, torch.ones(U - 1, dtype=torch.int32))
+    got_loss, _ = seq2seq.forward_loss(tp, ts, mcfg, _x(X), _x(y).long(),
+                                       float(B), draws)
+    np.testing.assert_allclose(got_loss.item(), float(want_loss),
+                               rtol=ATOL)
+
+
+def test_wide_beam_takes_the_plain_loop(monkeypatch):
+    """A beam of N = 40 on a model the kernels take: with the card's gate
+    the frontier loop runs plain (K6 not called), equal to ast_tpu's beam
+    of the same width; a beam of N = 3 would take K6."""
+    widths = dict(hidden_units=64, embedding_units=32, attn_units=32)
+    mcfg, params, state, X, _, tp, ts = _model("default", **widths)
+    monkeypatch.setattr(seq2seq, "on_card", lambda device: True)
+    assert seq2seq.use_fused_infer(mcfg, "cpu", B, 6, N, K)
+    assert not seq2seq.use_fused_infer(mcfg, "cpu", B, 6, 40, 2)
+    monkeypatch.setattr(beam_ops, "beam_decode_fused", _refuse)
+    want = jax_beam.make_beam_decoder(mcfg, 40, 2, STOP)(
+        _jnp(params), _jnp(state), jnp.asarray(X))
+    got = beam_ops.make_beam_decoder(mcfg, 40, 2, STOP)(tp, ts, _x(X))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(want[2]))
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]),
+                               rtol=0, atol=ATOL)
