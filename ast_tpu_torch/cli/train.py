@@ -1,7 +1,20 @@
 """Train an experiment on a GPU.
 
 ``python -m ast_tpu_torch.cli.train -m <exp_dir> -e <epochs>
-[--profile LOGDIR] [--device cuda|cpu]``
+[--profile LOGDIR] [--device cuda|cpu] [--dist-backend nccl|gloo]``
+
+``torchrun --nproc-per-node N -m ast_tpu_torch.cli.train -m <exp_dir>
+-e <epochs>`` trains data-parallel over N processes, one a card
+(``train_cfg["parallel"]``, ``ast_tpu_torch.parallel``; several hosts:
+``torchrun``'s ``--nnodes`` and rendezvous flags).  The CLI reads
+``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
+``MASTER_PORT``; ``--device cuda`` is then ``cuda:LOCAL_RANK``, while an
+explicit ``--device cuda:0`` is taken as given (two ranks may share one
+card over gloo: ``--device cuda:0 --dist-backend gloo``).  The backend
+is NCCL for CUDA ranks and gloo for CPU ones unless ``--dist-backend``
+says which.  Every rank decodes its rows of the dev split and scores
+BLEU on the gathered whole; only rank 0 writes ``train.log``,
+``dev.log`` and checkpoints.
 
 The counterpart of ``ast_tpu/cli/train.py``, with the same epoch cycle:
 train one epoch, append ``epoch, loss`` to ``train.log``, greedy-decode
@@ -24,7 +37,10 @@ import contextlib
 import os
 import signal
 
+import torch
+
 from ast_tpu_torch.eval.bleu import Eval
+from ast_tpu_torch.parallel import default_backend, init_distributed
 from ast_tpu_torch.train.trainer import NN, PreemptedError
 
 
@@ -42,6 +58,25 @@ def _install_preempt_handler(nn):
         pass  # not the main thread (e.g. under a test runner)
 
 
+def launch(device, backend=None, env=None):
+    """Join the process group that ``torchrun`` (or another launcher)
+    describes in ``env`` (``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``,
+    ``MASTER_ADDR``, ``MASTER_PORT``) and return this rank's device: a
+    bare ``cuda`` becomes ``cuda:LOCAL_RANK`` under a launcher.  One
+    process joins nothing."""
+    env = os.environ if env is None else env
+    world = int(env.get("WORLD_SIZE", 1))
+    if device == "cuda" and "LOCAL_RANK" in env:
+        device = f"cuda:{int(env['LOCAL_RANK'])}"
+    if world > 1:
+        if torch.device(device).type == "cuda":
+            torch.cuda.set_device(torch.device(device))
+        init_distributed(
+            f"{env.get('MASTER_ADDR', 'localhost')}:{env['MASTER_PORT']}",
+            world, int(env["RANK"]), backend or default_backend(device))
+    return device
+
+
 def main(argv=None):
     parser = argparse.ArgumentParser(description="Train and evaluate model")
     parser.add_argument("-m", "--cfg_path", required=True,
@@ -52,12 +87,27 @@ def main(argv=None):
                         help="write a torch.profiler trace of the first "
                              "training epoch into LOGDIR")
     parser.add_argument("--device", default="cuda",
-                        help="torch device (default cuda; cpu runs the "
-                             "plain PyTorch versions of the kernels)")
+                        help="torch device (default cuda, under torchrun "
+                             "cuda:LOCAL_RANK; cpu runs the plain PyTorch "
+                             "versions of the kernels)")
+    parser.add_argument("--dist-backend", choices=("nccl", "gloo"),
+                        default=None,
+                        help="torch.distributed backend of a multi-process "
+                             "run (default nccl on CUDA, gloo on the CPU)")
     args = parser.parse_args(argv)
     print(f"number of epochs={args.epochs:d}")
+    device = launch(args.device, args.dist_backend)
+    try:
+        run(args, NN(args.cfg_path, device))
+        if torch.distributed.is_initialized():
+            torch.distributed.barrier()     # no rank leaves mid-exchange
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
 
-    nn = NN(args.cfg_path, args.device)
+
+def run(args, nn):
+    """The epochs of ``args`` (``main``'s) on the built ``nn``."""
     _install_preempt_handler(nn)
     tcfg = nn.cfg.train
     train_key, dev_key = tcfg["train_set"], tcfg["dev_set"]
@@ -81,8 +131,9 @@ def main(argv=None):
             print(str(e))
             print("exiting cleanly; rerun to resume mid-epoch")
             return
-        with open(nn.train_log, mode="a") as f:
-            f.write(f"{epoch:d}, {loss:.4f}\n")
+        if nn.primary:
+            with open(nn.train_log, mode="a") as f:
+                f.write(f"{epoch:d}, {loss:.4f}\n")
 
         # a SIGTERM between the batch loop and the dev decode: keep the
         # finished epoch (nothing else holds it when no in-epoch
@@ -95,8 +146,9 @@ def main(argv=None):
 
         hyps = nn.data_loader.get_hyps(nn.predict(dev_key))
         bleu = metrics.calc_bleu(hyps) * 100
-        with open(nn.dev_log, mode="a") as f:
-            f.write(f"{epoch:d}, {bleu:.2f}\n")
+        if nn.primary:
+            with open(nn.dev_log, mode="a") as f:
+                f.write(f"{epoch:d}, {bleu:.2f}\n")
         print(f"BLEU = {bleu:.2f}")
         print(f"train throughput = {nn.timer.items_per_sec:.1f} utts/sec")
         nn.timer.reset()

@@ -15,6 +15,11 @@ the loader draws the dropout indices from the same stream; and a 0/1
 float32 multiply is what host assembly does.  ``dtype`` bfloat16
 (``extras.hbm_cache_dtype``) halves the device memory and rounds each
 feature once on upload, so it is not bit-exact.
+
+Under data parallelism (``ast_tpu_torch.parallel``) every rank holds
+the whole cache of a split, as ``ast_tpu`` replicates it over its mesh;
+a batch's ``rows_idx`` and ``drop_mask`` are sliced to the rank's rows
+like any other batch array, and the gather runs on those.
 """
 
 import numpy as np

@@ -34,16 +34,16 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "k1_encoder_forward": [_P] * 8 + [_I] * 5 + [_P],
     "k1_encoder_forward_bf16": [_P] * 8 + [_I] * 5 + [_P],
-    "k1_encoder_forward_train": [_P] * 11 + [_I] * 5 + [_U, _U, _F, _P],
-    "k1_encoder_forward_train_bf16": [_P] * 13 + [_I] * 5
+    "k1_encoder_forward_train": [_P] * 11 + [_I] * 7 + [_U, _U, _F, _P],
+    "k1_encoder_forward_train_bf16": [_P] * 13 + [_I] * 7
     + [_U, _U, _F, _P],
-    "k2_encoder_backward": [_P] * 9 + [_I] * 5 + [_U, _U, _F, _P],
-    "k2_encoder_backward_bf16": [_P] * 10 + [_I] * 5 + [_U, _U, _F, _P],
-    "k3_decoder_forward": [_P] * 26 + [_I] * 8 + [_U, _U, _F, _U, _F, _P],
-    "k3_decoder_forward_bf16": [_P] * 30 + [_I] * 8
+    "k2_encoder_backward": [_P] * 9 + [_I] * 7 + [_U, _U, _F, _P],
+    "k2_encoder_backward_bf16": [_P] * 10 + [_I] * 7 + [_U, _U, _F, _P],
+    "k3_decoder_forward": [_P] * 26 + [_I] * 9 + [_U, _U, _F, _U, _F, _P],
+    "k3_decoder_forward_bf16": [_P] * 30 + [_I] * 9
     + [_U, _U, _F, _U, _F, _P],
-    "k4_decoder_backward": [_P] * 18 + [_I] * 7 + [_U, _U, _F, _U, _F, _P],
-    "k4_decoder_backward_bf16": [_P] * 22 + [_I] * 7
+    "k4_decoder_backward": [_P] * 18 + [_I] * 8 + [_U, _U, _F, _U, _F, _P],
+    "k4_decoder_backward_bf16": [_P] * 22 + [_I] * 8
     + [_U, _U, _F, _U, _F, _P],
     "k5_greedy_decode": [_P] * 20 + [_I] * 8 + [_P],
     "k5_greedy_decode_bf16": [_P] * 20 + [_I] * 8 + [_P],

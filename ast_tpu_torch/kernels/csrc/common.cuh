@@ -145,6 +145,7 @@ struct CellBwdArgsT {
   unsigned seed, threshold;
   float keep_scale;
   int R, H;
+  unsigned flat0;         // the mask's flat index of row 0: row_offset * H
 };
 using CellBwdArgs = CellBwdArgsT<float>;
 
@@ -179,17 +180,19 @@ struct Prod {
 // The train mode of a cell product (a separate kernel, so the eval launch
 // is unchanged): acts (R, 4H) gets the post-activation gates [i|f|g|o],
 // Prod::out the pre-dropout h, and x_drop (R, H) the layer's output
-// x = drop_hash(r * H + j, seed) < threshold ? 0 : h / div (threshold 0:
-// x = h).  At W = __nv_bfloat16 (K3's bf16 mode) the gates go to acts16
-// instead, c and h also to c16 / h16 (R, H), all in bf16 (Prod::c_out
-// and Prod::out are then the f32 state), and x_drop (f32) is the dropped
-// h that the products above read.
+// x = drop_hash(flat0 + r * H + j, seed) < threshold ? 0 : h / div
+// (threshold 0: x = h; flat0 = row_offset * H, the global index of the
+// launch's first row times H).  At W = __nv_bfloat16 (K3's bf16 mode) the
+// gates go to acts16 instead, c and h also to c16 / h16 (R, H), all in
+// bf16 (Prod::c_out and Prod::out are then the f32 state), and x_drop
+// (f32) is the dropped h that the products above read.
 struct CellTrainOut {
   float* acts;
   float* x_drop;
   unsigned seed, threshold;
   float div;
   __nv_bfloat16 *acts16, *c16, *h16;
+  unsigned flat0;
 };
 
 // The backward mode of a linear product (K4; no bias, no activation),
@@ -199,8 +202,9 @@ struct CellTrainOut {
 // them are the gradient arriving at the layer below.  With cell.dz set
 // they are H wide and the `cons` of that layer's cell backward `cell`
 // (CellBwdArgs), run here.  Else (layer 0's product) the next E columns,
-// through the step's embedding dropout mask (seed over (R, E), kept
-// values times inv), go to d_emb (R, E), and the
+// through the step's embedding dropout mask (seed over (R, E) from flat
+// index flat0 = row_offset * E, kept values times inv), go to d_emb (R,
+// E), and the
 // A columns after them, the input-feeding gradient, give the step
 // before's d_pre = (d_ht + z) (1 - ht^2) (R, A) -- unless d_pre is
 // nullptr (step 0).  T: the streams' type (K4's bf16 mode: d_emb and
@@ -212,7 +216,7 @@ struct BwdEpilogueT {
   CellBwdArgsT<T> cell;
   T* d_emb;
   int E, A;
-  unsigned seed, threshold;
+  unsigned seed, threshold, flat0;
   float inv;
   const float* d_ht;
   const float* ht;
@@ -231,10 +235,11 @@ using BwdEpilogue = BwdEpilogueT<float>;
 // gates, Prod::out the pre-dropout h, and x_drop (R, H) the output
 // x = drop_hash(flat0 + r * H + j, seed) < threshold ? 0 : h * keep_scale
 // (threshold 0: x = h); flat0 places the rows in the mask's flat index
-// (the direction's d * B * H).  Train at W = __nv_bfloat16: the gates,
-// c, h and x go to the bf16 streams acts16, c16, h16 and x16 instead,
-// and Prod::out, Prod::c_out and x_drop are the f32 state (h, c and x)
-// that the next wave's products and epilogues read.
+// over the global batch (d * global_rows * H + row_offset * H).  Train
+// at W = __nv_bfloat16: the gates, c, h and x go to the bf16 streams
+// acts16, c16, h16 and x16 instead, and Prod::out, Prod::c_out and
+// x_drop are the f32 state (h, c and x) that the next wave's products
+// and epilogues read.
 struct EncCell {
   const float* pre;  // nullptr = none
   float* y_out;      // nullptr = none

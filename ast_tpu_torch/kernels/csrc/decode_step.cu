@@ -366,7 +366,7 @@ __device__ __forceinline__ void cell_bwd_element(const CellBwdArgsT<T>& a,
   const int H = a.H;
   const long H4 = 4L * H;
   if (a.threshold)
-    cons = drop_hash((unsigned)(r * H + j), a.seed) < a.threshold
+    cons = drop_hash(a.flat0 + (unsigned)(r * H + j), a.seed) < a.threshold
                ? 0.f
                : cons * a.keep_scale;
   const float dh = a.dh[(long)r * a.dh_ld + j] + cons;
@@ -628,7 +628,8 @@ __device__ __forceinline__ void prod_body(const Prod& a, const Extra& ex,
         cell_bwd_element(ex.cell, r, m, z);
       } else if (m < ex.E) {
         if (ex.threshold)
-          z = drop_hash((unsigned)(r * ex.E + m), ex.seed) < ex.threshold
+          z = drop_hash(ex.flat0 + (unsigned)(r * ex.E + m), ex.seed) <
+                      ex.threshold
                   ? 0.f
                   : z * ex.inv;
         st_res(ex.d_emb + (long)r * ex.E + m, z);
@@ -729,7 +730,8 @@ __device__ __forceinline__ void prod_body(const Prod& a, const Extra& ex,
         }
         float xd = h;
         if (ex.threshold)
-          xd = drop_hash((unsigned)(r * H + j), ex.seed) < ex.threshold
+          xd = drop_hash(ex.flat0 + (unsigned)(r * H + j), ex.seed) <
+                       ex.threshold
                    ? 0.f
                    : h / ex.div;
         ex.x_drop[(long)r * H + j] = xd;

@@ -69,10 +69,20 @@ struct Encoder {
   __nv_bfloat16 *acts16, *c16, *h16, *x16;
   const float* zero;
   int L, D2, B, H;
+  int row_offset, global_rows;  // the rows' place in the global batch
   unsigned seed, threshold;
   float keep_scale;
   bool train, bf16;
 };
+
+// The dropout mask's flat index of direction d's first row: the mask runs
+// over the global batch's (D2, global_rows, H), of which this call holds
+// rows row_offset .. row_offset + B - 1 (ast_tpu's _drop_mask with
+// row_offset / global_rows), in uint32 arithmetic as the hash's.
+unsigned mask_flat0(const Encoder& e, int d) {
+  return ((unsigned)d * (unsigned)e.global_rows + (unsigned)e.row_offset) *
+         (unsigned)e.H;
+}
 
 // The product of cell (t, l) in direction d.
 void cell_group(const Encoder& e, int t, int l, int d, Prod* p, EncCell* x) {
@@ -100,7 +110,7 @@ void cell_group(const Encoder& e, int t, int l, int d, Prod* p, EncCell* x) {
     x->x16 = e.x16 + at;
     x->seed = e.seed + (unsigned)tl;
     x->threshold = e.threshold;
-    x->flat0 = (unsigned)(d * BH);
+    x->flat0 = mask_flat0(e, d);
     x->keep_scale = e.keep_scale;
   } else if (e.train) {
     if (l) x_in = e.x_drop + at - D2 * BH;
@@ -112,7 +122,7 @@ void cell_group(const Encoder& e, int t, int l, int d, Prod* p, EncCell* x) {
     x->x_drop = e.x_drop + at;
     x->seed = e.seed + (unsigned)tl;
     x->threshold = e.threshold;
-    x->flat0 = (unsigned)(d * BH);
+    x->flat0 = mask_flat0(e, d);
     x->keep_scale = e.keep_scale;
   } else {
     if (l) x_in = e.hbuf + (t & 1) * slots + (ld - D2) * BH;
@@ -222,14 +232,17 @@ AST_EXPORT int k1_encoder_forward_bf16(const float* x0,
 // streams, all (T, L, D2, B, .): acts (4H) [i|f|g|o], c_all, h_pre
 // (pre-dropout h), x_drop (post-dropout, the next layer's input and for
 // the top layer outs).  zero: (D2, B, H) zeros, the state before t = 0.
-// Dropout mask of layer l at step t: seed + t * L + l over (D2, B, H);
-// kept values times keep_scale = 1 / (1 - rate); threshold 0 = no dropout.
+// Dropout mask of layer l at step t: seed + t * L + l over (D2,
+// global_rows, H), of which the call's B rows are rows row_offset ..
+// row_offset + B - 1 (a data-parallel rank's shard; 0 and B for a whole
+// batch); kept values times keep_scale = 1 / (1 - rate); threshold 0 = no
+// dropout.
 AST_EXPORT int k1_encoder_forward_train(
     const float* x0, const float* w, const float* b, float* outs,
     float* acts, float* c_all, float* h_pre, float* x_drop,
     const float* zero, const int* cells, const int* wave_start, int n_waves,
-    int L, int D2, int B, int H, unsigned seed, unsigned threshold,
-    float keep_scale, void* stream) {
+    int L, int D2, int B, int H, int row_offset, int global_rows,
+    unsigned seed, unsigned threshold, float keep_scale, void* stream) {
   Encoder e = {};
   e.x0 = x0;
   e.w = w;
@@ -244,6 +257,8 @@ AST_EXPORT int k1_encoder_forward_train(
   e.D2 = D2;
   e.B = B;
   e.H = H;
+  e.row_offset = row_offset;
+  e.global_rows = global_rows;
   e.seed = seed;
   e.threshold = threshold;
   e.keep_scale = keep_scale;
@@ -262,8 +277,8 @@ AST_EXPORT int k1_encoder_forward_train_bf16(
     __nv_bfloat16* acts, __nv_bfloat16* c_all, __nv_bfloat16* h_pre,
     __nv_bfloat16* x_drop, float* hbuf, float* xbuf, float* c,
     const int* cells, const int* wave_start, int n_waves, int L, int D2,
-    int B, int H, unsigned seed, unsigned threshold, float keep_scale,
-    void* stream) {
+    int B, int H, int row_offset, int global_rows, unsigned seed,
+    unsigned threshold, float keep_scale, void* stream) {
   Encoder e = {};
   e.x0 = x0;
   e.w = w;
@@ -280,6 +295,8 @@ AST_EXPORT int k1_encoder_forward_train_bf16(
   e.D2 = D2;
   e.B = B;
   e.H = H;
+  e.row_offset = row_offset;
+  e.global_rows = global_rows;
   e.seed = seed;
   e.threshold = threshold;
   e.keep_scale = keep_scale;

@@ -123,7 +123,8 @@ template <typename T>
 int encoder_backward(const T* acts, const T* c_all, const T* w_t,
                      const float* douts, float* carry, float* dc, T* dz,
                      float* dz_work, const int* cells, const int* wave_start,
-                     int n_waves, int L, int D2, int B, int H, unsigned seed,
+                     int n_waves, int L, int D2, int B, int H,
+                     int row_offset, int global_rows, unsigned seed,
                      unsigned threshold, float keep_scale, void* stream) {
   constexpr bool BF = std::is_same<T, __nv_bfloat16>::value;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -179,7 +180,9 @@ int encoder_backward(const T* acts, const T* c_all, const T* w_t,
         c.dz = dz + at * 4;
         if constexpr (BF) c.dz_f32 = dz_work + (long)pw.n * B * H4;
         c.seed = seed + (unsigned)tl;
-        c.flat0 = (unsigned)(d * BH);
+        // K1's mask: over the global batch's (D2, global_rows, H)
+        c.flat0 = ((unsigned)d * (unsigned)global_rows +
+                   (unsigned)row_offset) * (unsigned)H;
 
         ast::Prod& g = pw.p[pw.n];
         g = ast::Prod{};
@@ -211,16 +214,19 @@ int encoder_backward(const T* acts, const T* c_all, const T* w_t,
 //        back; columns 0..H-1 hold dh_fin on entry.
 // dc (L, D2, B, H): dc_fin on entry.  dz (T, L, D2, B, 4H): output.
 // cells, wave_start, n_waves: the reverse wave schedule (host memory).
+// row_offset, global_rows: the rows' place in the global batch, as K1's.
 AST_EXPORT int k2_encoder_backward(const float* acts, const float* c_all,
                                    const float* w_t, const float* douts,
                                    float* carry, float* dc, float* dz,
                                    const int* cells, const int* wave_start,
                                    int n_waves, int L, int D2, int B, int H,
+                                   int row_offset, int global_rows,
                                    unsigned seed, unsigned threshold,
                                    float keep_scale, void* stream) {
   return encoder_backward<float>(acts, c_all, w_t, douts, carry, dc, dz,
                                  nullptr, cells, wave_start, n_waves, L, D2,
-                                 B, H, seed, threshold, keep_scale, stream);
+                                 B, H, row_offset, global_rows, seed,
+                                 threshold, keep_scale, stream);
 }
 
 // The rows of k2_encoder_backward_bf16's dz_work, which the caller
@@ -234,8 +240,10 @@ AST_EXPORT int k2_encoder_backward_bf16(
     const __nv_bfloat16* w_t, const float* douts, float* carry, float* dc,
     __nv_bfloat16* dz, float* dz_work, const int* cells,
     const int* wave_start, int n_waves, int L, int D2, int B, int H,
-    unsigned seed, unsigned threshold, float keep_scale, void* stream) {
+    int row_offset, int global_rows, unsigned seed, unsigned threshold,
+    float keep_scale, void* stream) {
   return encoder_backward<__nv_bfloat16>(
       acts, c_all, w_t, douts, carry, dc, dz, dz_work, cells, wave_start,
-      n_waves, L, D2, B, H, seed, threshold, keep_scale, stream);
+      n_waves, L, D2, B, H, row_offset, global_rows, seed, threshold,
+      keep_scale, stream);
 }

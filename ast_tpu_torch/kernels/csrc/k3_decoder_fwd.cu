@@ -52,14 +52,16 @@ namespace {
 
 // One block per row: the input id of step t -- the teacher's when
 // *coin_t, else the argmax of the row's logits of the step before (lowest
-// index among ties) -- and its embedding row with dropout (kept values /
-// div; threshold 0 = none), to emb_t and, at T = bf16, its stream emb_res.
+// index among ties) -- and its embedding row with dropout (the mask's
+// flat index of row 0 flat0 = row_offset * E; kept values / div;
+// threshold 0 = none), to emb_t and, at T = bf16, its stream emb_res.
 template <typename T>
 __global__ void select_embed_kernel(const int* y_t, const int* coin_t,
                                     const float* logits, int V, int* sel_t,
                                     const float* embed, float* emb_t,
                                     T* emb_res, int E, unsigned seed,
-                                    unsigned threshold, float div) {
+                                    unsigned flat0, unsigned threshold,
+                                    float div) {
   ast::grid_dep_wait();
   ast::grid_dep_launch();
   __shared__ int id_s;
@@ -76,8 +78,9 @@ __global__ void select_embed_kernel(const int* y_t, const int* coin_t,
   for (int e = threadIdx.x; e < E; e += blockDim.x) {
     float v = embed[(long)id * E + e];
     if (threshold)
-      v = ast::drop_hash((unsigned)(r * E + e), seed) < threshold ? 0.f
-                                                                  : v / div;
+      v = ast::drop_hash(flat0 + (unsigned)(r * E + e), seed) < threshold
+              ? 0.f
+              : v / div;
     emb_t[(long)r * E + e] = v;
     if constexpr (std::is_same<T, __nv_bfloat16>::value)
       ast::st_res(emb_res + (long)r * E + e, v);
@@ -108,6 +111,7 @@ struct Fwd {
   float div_e;
   unsigned thr_r;
   float div_r;
+  unsigned row0;  // the global index of row 0 (the dropout masks')
 };
 
 template <typename W>
@@ -135,7 +139,7 @@ int decoder_forward(const Fwd<W>& f, cudaStream_t s) {
         select_embed_kernel<W>, dim3(B), dim3(128), 0, 1, s,
         f.y_in + (long)t * B, f.coins + t, (const float*)f.logits, V,
         f.sel + (long)t * B, f.embed, emb_t, f.emb + (long)t * B * E, E,
-        f.seed + 2u * t, f.thr_e, f.div_e));
+        f.seed + 2u * t, f.row0 * (unsigned)E, f.thr_e, f.div_e));
     const W* cell_w = f.cell;
     for (int l = 0; l < L; ++l) {
       const long tl = (long)t * L + l;
@@ -162,6 +166,7 @@ int decoder_forward(const Fwd<W>& f, cudaStream_t s) {
       a.N = H;
       ast::CellTrainOut tr = {nullptr, x_l, f.seed + 2u * (unsigned)tl + 1u,
                               f.thr_r, f.div_r};
+      tr.flat0 = f.row0 * (unsigned)H;
       if constexpr (BF) {
         a.out = f.hbuf + (t & 1) * L * BH + l * BH;
         a.c_in = f.c + l * BH;
@@ -242,9 +247,10 @@ int decoder_forward(const Fwd<W>& f, cudaStream_t s) {
 // Outputs: ht (U, B, A); sel (U, B) int; acts (U, L, B, 4H); c_all, h_all
 // (pre-dropout), x_drop (U, L, B, H); alphas (U, B, T); q, cv (U, B, H);
 // emb (U, B, E).  Dropout: embedding mask seed + 2t over (B, E), layer l
-// mask seed + 2(t L + l) + 1 over (B, H); kept values divided by
-// div_e / div_r = 1 - rate; threshold 0 = none.  E, A and H must be
-// multiples of 32.
+// mask seed + 2(t L + l) + 1 over (B, H), each hashing the global row
+// row_offset + r (a data-parallel rank's shard; 0 for a whole batch);
+// kept values divided by div_e / div_r = 1 - rate; threshold 0 = none.
+// E, A and H must be multiples of 32.
 AST_EXPORT int k3_decoder_forward(
     const float* enc, const float* embed, const float* cell,
     const float* bias, const float* wa, const float* wa_b,
@@ -253,14 +259,15 @@ AST_EXPORT int k3_decoder_forward(
     const int* coins, float* logits, const float* ht0, float* ht, int* sel,
     float* acts, float* c_all, float* h_all, float* x_drop, float* alphas,
     float* q, float* cv, float* emb, int B, int T, int H, int L, int E,
-    int A, int V, int U, unsigned seed, unsigned thr_e, float div_e,
-    unsigned thr_r, float div_r, void* stream) {
+    int A, int V, int U, int row_offset, unsigned seed, unsigned thr_e,
+    float div_e, unsigned thr_r, float div_r, void* stream) {
   Fwd<float> f = {enc,    embed,  cell, wa,    ctx_w, out_w, bias, wa_b,
                   ctx_b,  out_b,  h0,   c0,    y_in,  coins, logits, ht0,
                   ht,     sel,    acts, c_all, h_all, alphas, q,    cv,
                   emb,    x_drop, nullptr, nullptr, nullptr, nullptr,
                   nullptr, B,     T,    H,     L,     E,     A,    V,
-                  U,      seed,   thr_e, div_e, thr_r, div_r};
+                  U,      seed,   thr_e, div_e, thr_r, div_r,
+                  (unsigned)row_offset};
   return decoder_forward(f, static_cast<cudaStream_t>(stream));
 }
 
@@ -281,14 +288,15 @@ AST_EXPORT int k3_decoder_forward_bf16(
     __nv_bfloat16* h_all, __nv_bfloat16* alphas, __nv_bfloat16* q,
     __nv_bfloat16* cv, __nv_bfloat16* emb, float* hbuf, float* c,
     float* x_drop, float* q_w, float* cv_w, float* emb_w, int B, int T,
-    int H, int L, int E, int A, int V, int U, unsigned seed, unsigned thr_e,
-    float div_e, unsigned thr_r, float div_r, void* stream) {
+    int H, int L, int E, int A, int V, int U, int row_offset, unsigned seed,
+    unsigned thr_e, float div_e, unsigned thr_r, float div_r,
+    void* stream) {
   Fwd<__nv_bfloat16> f = {enc,    embed, cell,  wa,    ctx_w, out_w,  bias,
                           wa_b,   ctx_b, out_b, h0,    nullptr, y_in, coins,
                           logits, ht0,   ht,    sel,   acts,  c_all,  h_all,
                           alphas, q,     cv,    emb,   x_drop, hbuf,  c,
                           q_w,    cv_w,  emb_w, B,     T,     H,      L,
                           E,      A,     V,     U,     seed,  thr_e,  div_e,
-                          thr_r,  div_r};
+                          thr_r,  div_r, (unsigned)row_offset};
   return decoder_forward(f, static_cast<cudaStream_t>(stream));
 }

@@ -88,6 +88,7 @@ struct Bwd {
   float inv_e;
   unsigned thr_r;
   float inv_r;
+  unsigned row0;  // the global index of row 0 (the dropout masks')
 };
 
 template <typename W>
@@ -118,6 +119,7 @@ int decoder_backward(const Bwd<W>& p, cudaStream_t s) {
     c.keep_scale = p.inv_r;
     c.R = B;
     c.H = H;
+    c.flat0 = p.row0 * (unsigned)H;
     return c;
   };
   auto bwd_prod = [&](const ast::Prod& g, const ast::BwdEpilogueT<W>& e) {
@@ -202,6 +204,7 @@ int decoder_backward(const Bwd<W>& p, cudaStream_t s) {
         e.A = A;
         e.seed = p.seed + 2u * t;
         e.threshold = p.thr_e;
+        e.flat0 = p.row0 * (unsigned)E;
         e.inv = p.inv_e;
         if (t > 0) {
           e.d_ht = p.d_ht + (t - 1) * BA;
@@ -226,21 +229,24 @@ int decoder_backward(const Bwd<W>& p, cudaStream_t s) {
 // wx^T] (4H, H + E + A for layer 0, 2H above), back to back.  Carries,
 // zero on entry: dh (L, B, H), dh0 on exit; dc (L, B, H), dc0 on exit.
 // Outputs: dz (U, L, B, 4H), d_pre (U, B, A), d_scores (U, B, T), d_cv,
-// d_q (U, B, H), d_emb (U, B, E).  Dropout as in K3, kept values times
-// inv_e / inv_r = 1 / (1 - rate).  E, A and H must be multiples of 32.
+// d_q (U, B, H), d_emb (U, B, E).  Dropout as in K3 (the masks of the
+// global rows row_offset + r), kept values times inv_e / inv_r =
+// 1 / (1 - rate).  E, A and H must be multiples of 32.
 AST_EXPORT int k4_decoder_backward(
     const float* acts, const float* c_all, const float* c0,
     const float* alphas, const float* ht, const float* d_ht,
     const float* enc, const float* w_cv, const float* w_top,
     const float* w_t, float* dh, float* dc, float* dz, float* d_pre,
     float* d_scores, float* d_cv, float* d_q, float* d_emb, int B, int T,
-    int H, int L, int E, int A, int U, unsigned seed, unsigned thr_e,
-    float inv_e, unsigned thr_r, float inv_r, void* stream) {
+    int H, int L, int E, int A, int U, int row_offset, unsigned seed,
+    unsigned thr_e, float inv_e, unsigned thr_r, float inv_r,
+    void* stream) {
   Bwd<float> p = {acts,     c_all,   c0,   alphas,  ht,    d_ht,  enc,
                   w_cv,     w_top,   w_t,  dh,      dc,    dz,    d_pre,
                   d_scores, d_cv,    d_q,  d_emb,   nullptr, nullptr,
                   nullptr,  nullptr, B,    T,       H,     L,     E,
-                  A,        U,       seed, thr_e,   inv_e, thr_r, inv_r};
+                  A,        U,       seed, thr_e,   inv_e, thr_r, inv_r,
+                  (unsigned)row_offset};
   return decoder_backward(p, static_cast<cudaStream_t>(stream));
 }
 
@@ -259,13 +265,14 @@ AST_EXPORT int k4_decoder_backward_bf16(
     __nv_bfloat16* d_scores, __nv_bfloat16* d_cv, __nv_bfloat16* d_q,
     __nv_bfloat16* d_emb, float* dz_w, float* d_pre_w, float* d_cv_w,
     float* d_q_w, int B, int T, int H, int L, int E, int A, int U,
-    unsigned seed, unsigned thr_e, float inv_e, unsigned thr_r,
-    float inv_r, void* stream) {
+    int row_offset, unsigned seed, unsigned thr_e, float inv_e,
+    unsigned thr_r, float inv_r, void* stream) {
   Bwd<__nv_bfloat16> p = {acts,  c_all,   c0,      alphas,  ht,    d_ht,
                           enc,   w_cv,    w_top,   w_t,     dh,    dc,
                           dz,    d_pre,   d_scores, d_cv,   d_q,   d_emb,
                           dz_w,  d_pre_w, d_cv_w,  d_q_w,   B,     T,
                           H,     L,       E,       A,       U,     seed,
-                          thr_e, inv_e,   thr_r,   inv_r};
+                          thr_e, inv_e,   thr_r,   inv_r,
+                          (unsigned)row_offset};
   return decoder_backward(p, static_cast<cudaStream_t>(stream));
 }

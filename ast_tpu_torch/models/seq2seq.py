@@ -36,6 +36,16 @@ at any shape, as ``ast_tpu``'s interpret mode passes its alignment gate.
 The ``fused_encoder`` / ``fused_decoder`` / ``fused_infer`` config flags
 are ignored: no config turns a kernel off on the card.
 
+Data parallelism (``ast_tpu_torch.parallel``): a rank's training step
+runs on its rows of the global batch.  :func:`make_draws` draws at the
+global batch's shape and keeps the rank's rows, and the draws carry the
+rows' place (``Draws.row_offset``, ``global_rows``), which every dropout
+mask hashes, as ``ast_tpu``'s kernels hash global row ids under
+``shard_map``; the ``mesh`` of :func:`forward_loss` makes the conv
+front-end's and ``linear_proj``'s batch-statistics BN the global
+batch's (``ops.cnn.batch_moments``).  The routing predicates see the
+local batch, as ``ast_tpu``'s gates see a shard's (``_n_data_shards``).
+
 Decoding and training also run at ``compute_dtype`` bfloat16
 (``ast_tpu``'s ``extras.compute_dtype``; ``ops.bf16``): the conv
 front-end's im2col products and the hoisted layer-0 projection round
@@ -59,7 +69,8 @@ import torch
 from ast_tpu_torch.symbols import SYMBOLS
 from ast_tpu_torch.ops.attention import luong_attention
 from ast_tpu_torch.ops.bf16 import BF16, rounded
-from ast_tpu_torch.ops.cnn import BN_DECAY, BN_EPS, conv_frontend, conv_out_len
+from ast_tpu_torch.ops.cnn import (
+    BN_DECAY, BN_EPS, batch_moments, conv_frontend, conv_out_len)
 from ast_tpu_torch.ops.dropout import drop_mask
 from ast_tpu_torch.ops.embedding import embedding_lookup
 from ast_tpu_torch.ops.fused_decoder import (
@@ -289,7 +300,7 @@ def _direction_stack(seq, bi, rev_quirk=False):
 
 
 def encoder_inputs(params, state, mcfg, X, train=False, enc_w=None,
-                   compute_dtype=torch.float32):
+                   compute_dtype=torch.float32, mesh=None):
     """Conv front-end, direction stacking and the hoisted layer-0
     projection: everything of :func:`encode` before the recurrence of a
     stacked encoder.
@@ -303,11 +314,12 @@ def encoder_inputs(params, state, mcfg, X, train=False, enc_w=None,
     projection round their operands to bf16, x0_proj stays f32, and the
     recurrence's matrices come in bf16 -- in eval mode; with ``train``
     they stay f32, for ``FusedStackedLSTM`` to cast (its ``dtype``), so
-    that their gradients are not rounded."""
+    that their gradients are not rounded.  ``mesh``: the data axis whose
+    global batch the BN statistics are (train mode)."""
     rnn = mcfg["rnn_config"]
     h_cnn, cnn_state = conv_frontend(params["cnn"], state["cnn_bn"],
                                      mcfg["cnn_config"], _source(params, X),
-                                     train, compute_dtype)
+                                     train, compute_dtype, mesh)
     xs = _direction_stack(h_cnn.transpose(0, 1), rnn["bi_rnn"],
                           rnn.get("ref_rev_quirk", False))
     layers = direction_stacked(params["enc"]["lstm"])
@@ -345,12 +357,15 @@ def encoder_outputs(outs, h_fin, c_fin):
             dec_c0)
 
 
-def _encode_proj(params, state, mcfg, h_cnn, cnn_state, train, seed):
+def _encode_proj(params, state, mcfg, h_cnn, cnn_state, train, seed,
+                 rows=(0, None), mesh=None):
     """The ``linear_proj`` encoder (``ast_tpu``'s ``_encode_proj``): one
     (bi)LSTM layer at a time over the full-width sequence, then Linear +
     BatchNorm (decay 0.9, eps 2e-5, running statistics in
-    ``enc_proj_bn``) + ReLU between layers; no reversal quirk.  Layer l's
-    dropout mask at step t has the seed ``seed + l T' + t``."""
+    ``enc_proj_bn``; the global batch's under ``mesh``) + ReLU between
+    layers; no reversal quirk.  Layer l's dropout mask at step t has the
+    seed ``seed + l T' + t``, over the global rows ``rows`` (row_offset,
+    global_rows)."""
     rnn = mcfg["rnn_config"]
     rate = float(mcfg["dropout"]["rnn"]) if train else 0.0
     seq = h_cnn.transpose(0, 1)                         # (T', B, C)
@@ -361,7 +376,8 @@ def _encode_proj(params, state, mcfg, h_cnn, cnn_state, train, seed):
         x0 = torch.matmul(_direction_stack(seq, rnn["bi_rnn"]), lp["wx"])
         outs, h_fin, c_fin = stacked_lstm_reference(
             x0, lp["wh"].new_zeros((0,) + tuple(lp["wh"].shape)),
-            lp["wh"][None], lp["b"][None], train, seed + l * Tp, rate)[:3]
+            lp["wh"][None], lp["b"][None], train, seed + l * Tp, rate,
+            row_offset=rows[0], global_rows=rows[1])[:3]
         layer_out = _join_directions(outs)              # (T', B, H)
         h0s.append(torch.cat(h_fin[0].unbind(0), dim=-1))
         c0s.append(torch.cat(c_fin[0].unbind(0), dim=-1))
@@ -370,7 +386,7 @@ def _encode_proj(params, state, mcfg, h_cnn, cnn_state, train, seed):
         pp, ps = params["enc"]["proj"][l], state["enc_proj_bn"][l]
         flat = layer_out.reshape(-1, layer_out.shape[-1]) @ pp["w"] + pp["b"]
         if train:
-            mean, var = flat.mean(dim=0), flat.var(dim=0, correction=0)
+            mean, var = batch_moments(flat, (0,), mesh)
             ps = {"bn_mean": (BN_DECAY * ps["bn_mean"]
                               + (1 - BN_DECAY) * mean).detach(),
                   "bn_var": (BN_DECAY * ps["bn_var"]
@@ -385,28 +401,30 @@ def _encode_proj(params, state, mcfg, h_cnn, cnn_state, train, seed):
             torch.stack(c0s), {"cnn_bn": cnn_state, "enc_proj_bn": proj_state})
 
 
-def scan_encode(params, state, mcfg, X, train=False, seed=0):
+def scan_encode(params, state, mcfg, X, train=False, seed=0,
+                rows=(0, None), mesh=None):
     """``ast_tpu``'s scan encoder as plain PyTorch with autograd, on X's
     device: the stacked recurrence with ``ln`` / ``rnn_relu``
     (``fused_lstm.stacked_lstm_reference``, K1's plain version) or the
-    ``linear_proj`` layers.  ``train``: batch-statistics BatchNorm and
-    hash dropout at ``dropout.rnn`` seeded by ``seed`` -- for the stacked
-    encoder the masks K1 draws.  Returns (enc_states, dec_h0, dec_c0,
-    new_state)."""
+    ``linear_proj`` layers.  ``train``: batch-statistics BatchNorm (the
+    global batch's under ``mesh``) and hash dropout at ``dropout.rnn``
+    seeded by ``seed`` over the global rows ``rows`` (row_offset,
+    global_rows) -- for the stacked encoder the masks K1 draws.  Returns
+    (enc_states, dec_h0, dec_c0, new_state)."""
     rnn = mcfg["rnn_config"]
     rate = float(mcfg["dropout"]["rnn"]) if train else 0.0
     if rnn.get("linear_proj", False):
         h_cnn, cnn_state = conv_frontend(
             params["cnn"], state["cnn_bn"], mcfg["cnn_config"],
-            _source(params, X), train)
+            _source(params, X), train, mesh=mesh)
         return _encode_proj(params, state, mcfg, h_cnn, cnn_state, train,
-                            seed)
-    enc_in = encoder_inputs(params, state, mcfg, X, train=train)
+                            seed, rows, mesh)
+    enc_in = encoder_inputs(params, state, mcfg, X, train=train, mesh=mesh)
     ln = None
     if rnn.get("ln", False):
         ln = [(p["g"], p["b"]) for p in params["enc"]["ln"]]
     out = stacked_lstm_reference(*enc_in[:4], train, seed, rate, ln,
-                                 rnn.get("rnn_relu", False))
+                                 rnn.get("rnn_relu", False), *rows)
     return encoder_outputs(*out[:3]) + (enc_in[4] if train else state,)
 
 
@@ -505,15 +523,16 @@ def decode_step(params, mcfg, enc_states, carry, token, drop=None,
     None in eval mode, else ``(draws, t)``: the step's dropout masks are
     K3's hash masks of step t under ``draws.dec_seed`` for the embedding
     and the LSTM outputs, and ``draws.out_seed(t)``'s over (B, V) for the
-    logits.  Returns (logits (B, V), new carry, alphas (B, T') of the
-    first head)."""
+    logits, each over the global rows from ``draws.row_offset``.  Returns
+    (logits (B, V), new carry, alphas (B, T') of the first head)."""
     rnn, rates, dec = mcfg["rnn_config"], mcfg["dropout"], params["dec"]
     B, dev = token.shape[0], enc_states.device
     x = embedding_lookup(dec["embed"], token)
     if drop is not None and rates["embed"] > 0:
         draws, t = drop
         x = dropout(x, embed_drop_mask(rates["embed"], draws.dec_seed, t, B,
-                                       x.shape[1], dev), rates["embed"])
+                                       x.shape[1], dev, draws.row_offset),
+                    rates["embed"])
     if rnn.get("feed_attn", True):
         x = torch.cat([x, carry["ht"]], dim=-1)
     L, H = len(dec["lstm"]), rnn["hidden_units"]
@@ -525,7 +544,8 @@ def decode_step(params, mcfg, enc_states, carry, token, drop=None,
         if drop is not None and rates["rnn"] > 0:
             draws, t = drop
             x = dropout(x, rnn_drop_mask(rates["rnn"], draws.dec_seed, t, l,
-                                         L, B, H, dev), rates["rnn"])
+                                         L, B, H, dev, draws.row_offset),
+                        rates["rnn"])
         if rnn.get("ln", False):
             x = layernorm(x, dec["ln"][l]["g"], dec["ln"][l]["b"])
         if rnn.get("rnn_relu", False):
@@ -542,7 +562,8 @@ def decode_step(params, mcfg, enc_states, carry, token, drop=None,
     if drop is not None and rate > 0:
         draws, t = drop
         keep = drop_mask(tuple(logits.shape), rate, draws.out_seed(t),
-                         row_axis=0, device=dev)
+                         row_axis=0, row_offset=draws.row_offset,
+                         device=dev)
         logits = dropout(logits, keep, rate)
     return (logits, {"h": torch.stack(new_h), "c": torch.stack(new_c),
                      "ht": ht}, alphas)
@@ -618,7 +639,11 @@ class Draws:
     (U-1, B) bool, the draw ``uniform > random_out``, and (U-1, B) int64
     ids uniform in [N_SPECIAL, V) -- a target that is no special symbol
     becomes its random id where the draw holds; spec (``spec_augment``,
-    else None): the SpecAugment masks' starts and widths."""
+    else None): the SpecAugment masks' starts and widths.  Per-row
+    draws are a data-parallel rank's rows of the global batch's, which
+    are rows ``row_offset .. row_offset + B - 1`` of ``global_rows``
+    (None: B, a whole batch); the dropout masks hash those global
+    rows."""
     noise: Optional[torch.Tensor]
     enc_seed: int
     dec_seed: int
@@ -626,6 +651,13 @@ class Draws:
     replace: Optional[torch.Tensor] = None
     rand_ids: Optional[torch.Tensor] = None
     spec: Optional[SpecMasks] = None
+    row_offset: int = 0
+    global_rows: Optional[int] = None
+
+    @property
+    def rows(self):
+        """(row_offset, global_rows), as the encoder's masks take them."""
+        return self.row_offset, self.global_rows
 
     def out_seed(self, t):
         """The hash seed of step t's output-dropout mask over (B, V),
@@ -637,55 +669,76 @@ class Draws:
 
 
 def make_draws(seed, X, steps, teach_ratio, add_noise, random_out=0.0,
-               vocab=0, spec_cfg=None, frame_len=None):
+               vocab=0, spec_cfg=None, frame_len=None, mesh=None):
     """Draws for one step from an int ``seed``: the noise from a
     generator on X's device, everything else from one on the host (no
     device sync), so a run is deterministic on one device.  The optional
     draws (``random_out`` with the vocabulary size ``vocab``; SpecAugment
     with its config block and the rows' true frame counts) come after
-    the others in the host stream, which is the same without them."""
+    the others in the host stream, which is the same without them.
+
+    ``mesh`` (``parallel.make_mesh``): X holds this rank's rows of a
+    global batch of ``mesh.data`` times as many; every per-row draw is
+    made at the global batch's shape and this rank's rows are kept, so
+    the ranks' draws together are one process's (``frame_len`` then the
+    global batch's).  The coins and seeds are shared."""
     host = torch.Generator().manual_seed(seed)
+    B = X.shape[0]
+    row_offset, rows = (0, B) if mesh is None else (mesh.rank * B,
+                                                      mesh.data * B)
+    shape = (rows,) + tuple(X.shape[1:])
+    mine = slice(row_offset, row_offset + B)
     noise = None
     if add_noise > 0 and X.is_floating_point():     # no noise on token ids
         dev = torch.Generator(device=X.device).manual_seed(seed)
-        noise = add_noise * torch.randn(X.shape, generator=dev,
-                                        device=X.device)
+        noise = add_noise * torch.randn(shape, generator=dev,
+                                        device=X.device)[mine]
     enc_seed, dec_seed = torch.randint(0, 2 ** 31 - 1, (2,),
                                        generator=host).tolist()
     idx = torch.arange(steps)
     coins = ((idx == 0) | (idx >= steps - 1)
              | (torch.rand(steps, generator=host) < teach_ratio))
     draws = Draws(noise, enc_seed, dec_seed,
-                  coins.to(torch.int32).to(X.device))
+                  coins.to(torch.int32).to(X.device), row_offset=row_offset,
+                  global_rows=None if mesh is None else rows)
     if random_out > 0:
-        B = X.shape[0]
-        draws.replace = (torch.rand((steps, B), generator=host)
-                         > random_out).to(X.device)
-        draws.rand_ids = torch.randint(SYMBOLS.N_SPECIAL, vocab, (steps, B),
-                                       generator=host).to(X.device)
+        draws.replace = (torch.rand((steps, rows), generator=host)
+                         > random_out)[:, mine].to(X.device)
+        draws.rand_ids = torch.randint(
+            SYMBOLS.N_SPECIAL, vocab, (steps, rows),
+            generator=host)[:, mine].to(X.device)
     if spec_cfg:
-        draws.spec = draw_spec_masks(host, X.shape, spec_cfg, frame_len, X)
+        if mesh is not None and frame_len is None:
+            raise ValueError("make_draws under a mesh takes the global "
+                             "batch's frame_len for SpecAugment")
+        spec = draw_spec_masks(host, shape, spec_cfg, frame_len, X)
+        draws.spec = SpecMasks(*([(s[mine], w[mine]) for s, w in masks]
+                                 for masks in (spec.freq, spec.time)))
     return draws
 
 
-def encode_train(params, state, mcfg, X, draws, compute_dtype=torch.float32):
+def encode_train(params, state, mcfg, X, draws, compute_dtype=torch.float32,
+                 mesh=None):
     """Conv front-end + encoder in train mode: SpecAugment masks, then
-    speech noise (speech only), batch-statistics BatchNorm, hash dropout
-    seeded by ``draws.enc_seed`` -- K1 forward and K2 backward when
-    :func:`use_fused_encoder`, else :func:`scan_encode` with autograd
-    (f32 only).  Returns (enc_states, dec_h0, dec_c0, new_state), the
-    states f32 at either ``compute_dtype``."""
+    speech noise (speech only), batch-statistics BatchNorm (the global
+    batch's under ``mesh``), hash dropout seeded by ``draws.enc_seed``
+    over the global rows ``draws.rows`` -- K1 forward and K2 backward
+    when :func:`use_fused_encoder`, else :func:`scan_encode` with
+    autograd (f32 only).  Returns (enc_states, dec_h0, dec_c0,
+    new_state), the states f32 at either ``compute_dtype``."""
     if draws.spec is not None:
         X = apply_spec_masks(X, draws.spec)
     if draws.noise is not None:
         X = X * (1.0 + draws.noise)
     if not use_fused_encoder(mcfg, X.device):
-        return scan_encode(params, state, mcfg, X, True, draws.enc_seed)
+        return scan_encode(params, state, mcfg, X, True, draws.enc_seed,
+                           draws.rows, mesh)
     x0_proj, wx_rest, wh, b, new_state = encoder_inputs(
-        params, state, mcfg, X, train=True, compute_dtype=compute_dtype)
+        params, state, mcfg, X, train=True, compute_dtype=compute_dtype,
+        mesh=mesh)
     out = FusedStackedLSTM.apply(x0_proj, wx_rest, wh, b, draws.enc_seed,
                                  True, float(mcfg["dropout"]["rnn"]),
-                                 compute_dtype)
+                                 compute_dtype, *draws.rows)
     return encoder_outputs(*out) + (new_state,)
 
 
@@ -750,7 +803,7 @@ def scan_decoder_loss(params, mcfg, enc, h0, c0, y, n_real, draws=None,
 
 def forward_loss(params, state, mcfg, X, y, n_real, draws=None, train=True,
                  label_smoothing=0.0, enc_w=None, enc_mask=None,
-                 compute_dtype=torch.float32):
+                 compute_dtype=torch.float32, mesh=None):
     """Sequence loss (``ast_tpu``'s ``forward_loss``), each stage routed
     (:func:`use_fused_encoder`, :func:`use_fused_decoder`).  X (B, T, D)
     or (B, T) token ids; y (B, U) int targets with GO / EOS, PAD-padded;
@@ -765,14 +818,20 @@ def forward_loss(params, state, mcfg, X, y, n_real, draws=None, train=True,
     ``draws`` is not read and the state comes back as it was.
 
     ``compute_dtype`` bf16 (the model the kernels take): the rounding
-    points of the module docstring; ``enc_w`` then at bf16."""
+    points of the module docstring; ``enc_w`` then at bf16.
+
+    Data parallelism: X and y are a rank's rows, ``draws`` its draws
+    (:func:`make_draws` with the ``mesh``), ``n_real`` the global
+    batch's real rows, so the loss is the rank's share of the global
+    loss and the ranks' gradients sum to one process's; ``mesh`` makes
+    the train-mode BN statistics the global batch's."""
     require_bf16_variant(mcfg, compute_dtype,
                          train_bf16_options(mcfg, enc_mask), X.device)
     drop = mcfg["dropout"]
     yT = y.t()
     if train:
         enc, h0, c0, new_state = encode_train(params, state, mcfg, X, draws,
-                                              compute_dtype)
+                                              compute_dtype, mesh)
     else:
         enc, h0, c0 = _encode_eval(params, state, mcfg, X, enc_w,
                                    compute_dtype)
@@ -787,17 +846,17 @@ def forward_loss(params, state, mcfg, X, y, n_real, draws=None, train=True,
         return loss, new_state
     y_in = yT[:-1].to(torch.int32).contiguous()
     if train:
-        coins, seed = draws.coins, draws.dec_seed
+        coins, seed, row0 = draws.coins, draws.dec_seed, draws.row_offset
         rates = float(drop["embed"]), float(drop["rnn"])
         corrupt = dict(label_smoothing=label_smoothing,
                        replace=draws.replace, rand_ids=draws.rand_ids)
     else:
         coins = torch.ones(y_in.shape[0], dtype=torch.int32, device=X.device)
-        seed, rates, corrupt = 0, (0.0, 0.0), {}
+        seed, row0, rates, corrupt = 0, 0, (0.0, 0.0), {}
     w = pack_decoder_weights(params, compute_dtype)
     ht, _ = FusedDecoder.apply(enc.to(w["wh"].dtype), h0, c0,
                                *(w[k] for k in W_NAMES), y_in, coins, seed,
-                               *rates)
+                               *rates, row0)
     dec = params["dec"]
     loss = sequence_loss(ht, dec["out_w"], dec["out_b"], yT[1:], n_real,
                          compute_dtype=compute_dtype, **corrupt)

@@ -14,7 +14,10 @@ backward does not (a training run then repeats bit for bit).  In
 eval mode BatchNorm (eps 2e-5) uses the running statistics; in train
 mode the batch statistics over every row and time step (padding
 included, population variance), and the running statistics move with
-decay 0.9.  Max pooling is ``lax.reduce_window``'s "SAME": ceil(T /
+decay 0.9; under data parallelism (a ``parallel.Mesh``) the batch
+statistics are the global batch's, as XLA computes them over
+``ast_tpu``'s sharded array (:func:`batch_moments`).  Max pooling is
+``lax.reduce_window``'s "SAME": ceil(T /
 stride) outputs, the input padded with -inf, ``total // 2`` frames
 before.  Weights stay OIHW.  This stage is plain PyTorch with autograd
 on every device: it has no Pallas counterpart on the TPU either.  At
@@ -23,6 +26,8 @@ weights to bf16 and multiplies in f32 (``ast_tpu``'s einsum with
 ``preferred_element_type=float32``); BN, the activation and pooling stay
 f32, and the NCHW family runs in f32, as in ``ast_tpu``.
 """
+
+import math
 
 import torch
 import torch.nn.functional as F
@@ -50,12 +55,29 @@ def im2col_eligible(cnn_config, in_dim):
                for l in layers[1:])
 
 
-def _batchnorm(p, s, h, axes, shape, train):
+def batch_moments(h, axes, mesh=None):
+    """Per-channel mean and population variance of ``h`` over ``axes``.
+    With a data ``mesh`` (``parallel.make_mesh``) they are the global
+    batch's: the local sums all-reduced for the mean, then the squared
+    deviations' for the variance (``jnp.var``'s two passes), through
+    ``torch.distributed.nn.functional.all_reduce``, whose backward
+    all-reduces the gradients; every rank gets the same values.  Without
+    one, the local batch's, as a single process computes them."""
+    if mesh is None:
+        return h.mean(dim=axes), h.var(dim=axes, correction=0)
+    from torch.distributed.nn.functional import all_reduce
+    n = mesh.data * math.prod(h.shape[a] for a in axes)
+    mean = all_reduce(h.sum(dim=axes, keepdim=True)) / n
+    var = all_reduce(((h - mean) ** 2).sum(dim=axes, keepdim=True)) / n
+    return mean.flatten(), var.flatten()
+
+
+def _batchnorm(p, s, h, axes, shape, train, mesh=None):
     """BatchNorm over ``axes`` of ``h``, the per-channel vectors viewed
-    as ``shape``.  Returns (h, the new state)."""
+    as ``shape``; in train mode the statistics of :func:`batch_moments`.
+    Returns (h, the new state)."""
     if train:
-        mean = h.mean(dim=axes)
-        var = h.var(dim=axes, correction=0)
+        mean, var = batch_moments(h, axes, mesh)
         s = {"bn_mean": (BN_DECAY * s["bn_mean"]
                          + (1 - BN_DECAY) * mean).detach(),
              "bn_var": (BN_DECAY * s["bn_var"]
@@ -87,7 +109,7 @@ def _activate(h, layer):
 
 
 def _conv_frontend_matmul(params, state, cnn_config, X, train,
-                          compute_dtype):
+                          compute_dtype, mesh):
     h = X
     new_state = []
     for i, (p, s, layer) in enumerate(zip(params, state,
@@ -107,7 +129,7 @@ def _conv_frontend_matmul(params, state, cnn_config, X, train,
             win, w2 = rounded(win), rounded(w2)
         out = torch.matmul(win, w2)
         if "bn_gamma" in p:
-            out, s = _batchnorm(p, s, out, (0, 1), (-1,), train)
+            out, s = _batchnorm(p, s, out, (0, 1), (-1,), train, mesh)
         else:
             out = out + p["b"]
         new_state.append(s)
@@ -131,7 +153,7 @@ def _conv2d(h, w, stride, padding, dilation):
     return (w.reshape(O, -1) @ cols).view(B, O, Ho, Wo)
 
 
-def _conv_frontend_nchw(params, state, cnn_config, X, train):
+def _conv_frontend_nchw(params, state, cnn_config, X, train, mesh):
     h = X[:, None]                                      # (B, 1, T, D)
     new_state = []
     for p, s, layer in zip(params, state, cnn_config["cnn_layers"]):
@@ -139,7 +161,8 @@ def _conv_frontend_nchw(params, state, cnn_config, X, train):
         h = _conv2d(h, p["w"], tuple(layer["stride"]), tuple(layer["pad"]),
                     (dil, dil))
         if "bn_gamma" in p:
-            h, s = _batchnorm(p, s, h, (0, 2, 3), (1, -1, 1, 1), train)
+            h, s = _batchnorm(p, s, h, (0, 2, 3), (1, -1, 1, 1), train,
+                              mesh)
         else:
             h = h + p["b"].view(1, -1, 1, 1)
         new_state.append(s)
@@ -152,17 +175,18 @@ def _conv_frontend_nchw(params, state, cnn_config, X, train):
 
 
 def conv_frontend(params, state, cnn_config, X, train=False,
-                  compute_dtype=torch.float32):
+                  compute_dtype=torch.float32, mesh=None):
     """X: (B, T, D) float32 -> ((B, T', C_out * W'), new BN state).  The
     new state is the old one in eval mode; in train mode it holds the
-    moved running statistics (detached: they take no gradient).
+    moved running statistics (detached: they take no gradient), of the
+    global batch under a data ``mesh`` (:func:`batch_moments`).
     ``compute_dtype``: the im2col products' (see the module
     docstring)."""
     if (im2col_eligible(cnn_config, X.shape[-1])
             and not cnn_config.get("force_nchw", False)):
         return _conv_frontend_matmul(params, state, cnn_config, X, train,
-                                     compute_dtype)
-    return _conv_frontend_nchw(params, state, cnn_config, X, train)
+                                     compute_dtype, mesh)
+    return _conv_frontend_nchw(params, state, cnn_config, X, train, mesh)
 
 
 def conv_out_len(cnn_config, t):

@@ -30,9 +30,12 @@ post-dropout layer outputs ``x_drop`` are streamed, not regenerated.
 ``w`` is the dict of ``models.seq2seq.pack_decoder_weights`` (no vocab
 padding).  Dropout rates are the effective ones (0 outside training);
 the mask seeds are ``seed + 2t`` for the embedding over (B, E) and
-``seed + 2(t*L + l) + 1`` for LSTM layer l over (B, H).  The forward
-divides kept values by ``1 - p``, the backward multiplies by
-``1 / (1 - p)``, as the TPU kernels do.
+``seed + 2(t*L + l) + 1`` for LSTM layer l over (B, H), each hashing the
+global row ``row_offset + r`` (``ast_tpu``'s ``row_offset``: a
+data-parallel rank's shard draws the rows one process over the whole
+batch draws; 0 for a whole batch).  The forward divides kept values by
+``1 - p``, the backward multiplies by ``1 / (1 - p)``, as the TPU
+kernels do.
 
 bfloat16 (``extras.compute_dtype: "bfloat16"``): every leaf of ``w`` and
 ``enc`` in bf16 select it (``ast_tpu``'s ``pack_decoder_weights(params,
@@ -78,27 +81,30 @@ _TILE_K, _TILE_N = 32, 64
 _SMEM_BYTES = 227 * 1024
 
 
-def embed_drop_mask(rate, seed, t, B, E, device):
-    """Keep-mask of step t's embedding dropout, (B, E)."""
-    return drop_mask((B, E), rate, seed + 2 * t, row_axis=0, device=device)
+def embed_drop_mask(rate, seed, t, B, E, device, row_offset=0):
+    """Keep-mask of step t's embedding dropout, (B, E), of the global
+    rows ``row_offset ..``."""
+    return drop_mask((B, E), rate, seed + 2 * t, row_axis=0,
+                     row_offset=row_offset, device=device)
 
 
-def rnn_drop_mask(rate, seed, t, l, L, B, H, device):
-    """Keep-mask of step t's LSTM layer l output dropout, (B, H)."""
+def rnn_drop_mask(rate, seed, t, l, L, B, H, device, row_offset=0):
+    """Keep-mask of step t's LSTM layer l output dropout, (B, H), of the
+    global rows ``row_offset ..``."""
     return drop_mask((B, H), rate, seed + 2 * (t * L + l) + 1, row_axis=0,
-                     device=device)
+                     row_offset=row_offset, device=device)
 
 
-def rnn_drop_masks(rate, seed, U, L, B, H, device):
+def rnn_drop_masks(rate, seed, U, L, B, H, device, row_offset=0):
     """The keep-masks of every step and layer, (U, L, B, H): mask (t, l)
     is :func:`rnn_drop_mask`'s."""
     tl = torch.arange(U * L, dtype=torch.int64, device=device).view(
         U, L, 1, 1)
     return drop_mask((B, H), rate, seed + 2 * tl + 1, row_axis=0,
-                     device=device)
+                     row_offset=row_offset, device=device)
 
 
-def regen_x_drop(h_all, seed, rate):
+def regen_x_drop(h_all, seed, rate, row_offset=0):
     """The post-dropout layer outputs (U, L, B, H) of the bf16 mode's
     weight gradients, regenerated as ``ast_tpu``'s ``_fd_bwd`` does: the
     widened bf16 ``h_all`` times ``1 / (1 - rate)`` where the forward's
@@ -106,7 +112,7 @@ def regen_x_drop(h_all, seed, rate):
     if rate <= 0:
         return h_all
     U, L, B, H = h_all.shape
-    keep = rnn_drop_masks(rate, seed, U, L, B, H, h_all.device)
+    keep = rnn_drop_masks(rate, seed, U, L, B, H, h_all.device, row_offset)
     return torch.where(keep, h_all * (1.0 / (1.0 - rate)), 0.0)
 
 
@@ -129,14 +135,15 @@ def _plain_math(enc, w):
 # ---------------------------------------------------------------------------
 
 def decoder_forward_reference(enc, h0, c0, w, y_in, coins, seed, drop_emb,
-                              drop_rnn, forced_ids=None):
+                              drop_rnn, forced_ids=None, row_offset=0):
     """Plain version of K3 over U steps.
 
     enc (B, T, H); h0 / c0 (L, B, H); y_in (U, B) teacher ids; coins (U,)
     with 1 = teacher-forced, and coins[0] == 1 (the first step has no
     prediction to feed).  With ``forced_ids`` (U, B), e.g. a kernel's
-    ``sel``, those ids are the inputs of every step instead.  Returns
-    (ht (U, B, A), dict of the streams RES_NAMES)."""
+    ``sel``, those ids are the inputs of every step instead.
+    ``row_offset``: the masks' global row of row 0.  Returns (ht (U, B,
+    A), dict of the streams RES_NAMES)."""
     U, B = y_in.shape
     L, _, H = h0.shape
     A = w["ctx_w"].shape[1]
@@ -158,7 +165,7 @@ def decoder_forward_reference(enc, h0, c0, w, y_in, coins, seed, drop_emb,
         emb = w["embed"][sel]
         if drop_emb > 0:
             keep = embed_drop_mask(drop_emb, seed, t, B, emb.shape[1],
-                                   enc.device)
+                                   enc.device, row_offset)
             emb = torch.where(keep, emb / (1.0 - drop_emb), 0.0)
         x = torch.cat([emb, ht], dim=-1)
         acts, xs = [], []
@@ -168,7 +175,8 @@ def decoder_forward_reference(enc, h0, c0, w, y_in, coins, seed, drop_emb,
             a, h[l], c[l] = lstm_gate_acts(z, c[l], H)
             x = h[l]
             if drop_rnn > 0:
-                keep = rnn_drop_mask(drop_rnn, seed, t, l, L, B, H, enc.device)
+                keep = rnn_drop_mask(drop_rnn, seed, t, l, L, B, H,
+                                     enc.device, row_offset)
                 x = torch.where(keep, x / (1.0 - drop_rnn), 0.0)
             acts.append(a)
             xs.append(x)
@@ -205,10 +213,11 @@ def sampled_shortfall(ht, w, sel, coins):
 
 
 def decoder_backward_reference(res, ht, enc, c0, w, d_ht, seed, drop_emb,
-                               drop_rnn):
+                               drop_rnn, row_offset=0):
     """Plain version of K4: from the forward's streams, ``ht`` and the
     cotangent ``d_ht`` (U, B, A), the per-step gradients of every
-    product's inputs.  Returns a dict of GRAD_NAMES."""
+    product's inputs, the masks those of the forward at ``row_offset``.
+    Returns a dict of GRAD_NAMES."""
     U, L, B, H4 = res["acts"].shape
     H = H4 // 4
     E = w["embed"].shape[1]
@@ -235,7 +244,8 @@ def decoder_backward_reference(res, ht, enc, c0, w, d_ht, seed, drop_emb,
         dz_t = [None] * L
         for l in reversed(range(L)):
             if drop_rnn > 0:
-                keep = rnn_drop_mask(drop_rnn, seed, t, l, L, B, H, enc.device)
+                keep = rnn_drop_mask(drop_rnn, seed, t, l, L, B, H,
+                                     enc.device, row_offset)
                 cons = torch.where(keep, cons * (1.0 / (1.0 - drop_rnn)), 0.0)
             c_prev = res["c_all"][t - 1, l] if t > 0 else c0[l]
             dz, dc[l] = lstm_gates_backward(res["acts"][t, l],
@@ -248,7 +258,8 @@ def decoder_backward_reference(res, ht, enc, c0, w, d_ht, seed, drop_emb,
         dx0 = lhs(dz_t[0]) @ w["wx0"].t()
         d_emb, dht = dx0[:, :E], dx0[:, E:]
         if drop_emb > 0:
-            keep = embed_drop_mask(drop_emb, seed, t, B, E, enc.device)
+            keep = embed_drop_mask(drop_emb, seed, t, B, E, enc.device,
+                                   row_offset)
             d_emb = torch.where(keep, d_emb * (1.0 / (1.0 - drop_emb)), 0.0)
         for k, v in zip(names, (torch.stack(dz_t), d_pre, d_scores, d_cv,
                                 d_q, d_emb)):
@@ -261,6 +272,13 @@ def decoder_backward_reference(res, ht, enc, c0, w, d_ht, seed, drop_emb,
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
+
+def _row_offset(row_offset):
+    """The masks' global row of row 0, as the kernels take it."""
+    if row_offset < 0:
+        raise ValueError(f"row_offset {row_offset} < 0")
+    return int(row_offset)
+
 
 def train_shapes_problem(T, H, E, A):
     """Why the training decoder's kernels do not take these shapes, or
@@ -332,7 +350,8 @@ def pack_backward_weights(w):
     return {"flat": flat, "cv": cv, "top": top, "layer": layers}
 
 
-def decoder_forward(enc, h0, c0, w, y_in, coins, seed, drop_emb, drop_rnn):
+def decoder_forward(enc, h0, c0, w, y_in, coins, seed, drop_emb, drop_rnn,
+                    row_offset=0):
     """K3; the contract of :func:`decoder_forward_reference` without
     ``forced_ids``.  ``y_in`` (U, B) and ``coins`` (U,) are int32 on the
     card; the kernel reads the coins itself (no host sync).  bf16 ``w``
@@ -340,7 +359,8 @@ def decoder_forward(enc, h0, c0, w, y_in, coins, seed, drop_emb, drop_rnn):
     counted in ``launches_bf16``."""
     if not enc.is_cuda:
         return decoder_forward_reference(enc, h0, c0, w, y_in, coins, seed,
-                                         drop_emb, drop_rnn)
+                                         drop_emb, drop_rnn,
+                                         row_offset=row_offset)
     B, T, H, L, E, A, V, dt = check_decoder_inputs(enc, h0, c0, w)
     check_train_shapes(T, H, E, A)
     U = y_in.shape[0]
@@ -369,9 +389,10 @@ def decoder_forward(enc, h0, c0, w, y_in, coins, seed, drop_emb, drop_rnn):
             h0.data_ptr())
     ins = (y_in.data_ptr(), coins.data_ptr(), logits.data_ptr(),
            ht0.data_ptr(), ht.data_ptr())
-    tail = (B, T, H, L, E, A, V, U, seed & 0xFFFFFFFF,
-            drop_threshold(drop_emb), 1.0 - drop_emb, drop_threshold(drop_rnn),
-            1.0 - drop_rnn, torch.cuda.current_stream(dev).cuda_stream)
+    tail = (B, T, H, L, E, A, V, U, _row_offset(row_offset),
+            seed & 0xFFFFFFFF, drop_threshold(drop_emb), 1.0 - drop_emb,
+            drop_threshold(drop_rnn), 1.0 - drop_rnn,
+            torch.cuda.current_stream(dev).cuda_stream)
     if dt == torch.float32:
         decoder_forward.launches += 1
         build.check_launch("k3_decoder_forward", lib.k3_decoder_forward(
@@ -395,13 +416,14 @@ decoder_forward.launches = 0
 decoder_forward.launches_bf16 = 0
 
 
-def decoder_backward(res, ht, enc, c0, w, d_ht, seed, drop_emb, drop_rnn):
+def decoder_backward(res, ht, enc, c0, w, d_ht, seed, drop_emb, drop_rnn,
+                     row_offset=0):
     """K4; the contract of :func:`decoder_backward_reference`.  bf16
     streams, ``w`` and ``enc`` run the bf16 mode (the GRAD_NAMES streams
     but dh0 / dc0 in bf16), counted in ``launches_bf16``."""
     if not enc.is_cuda:
         return decoder_backward_reference(res, ht, enc, c0, w, d_ht, seed,
-                                          drop_emb, drop_rnn)
+                                          drop_emb, drop_rnn, row_offset)
     U, L, B, H4 = res["acts"].shape
     H = H4 // 4
     T = enc.shape[1]
@@ -437,7 +459,8 @@ def decoder_backward(res, ht, enc, c0, w, d_ht, seed, drop_emb, drop_rnn):
            enc.data_ptr(), packed["cv"].data_ptr(), packed["top"].data_ptr(),
            packed["layer"][0].data_ptr(), dh.data_ptr(), dc.data_ptr(),
            *(g[k].data_ptr() for k in GRAD_NAMES[:6]))
-    tail = (B, T, H, L, E, A, U, seed & 0xFFFFFFFF, drop_threshold(drop_emb),
+    tail = (B, T, H, L, E, A, U, _row_offset(row_offset),
+            seed & 0xFFFFFFFF, drop_threshold(drop_emb),
             1.0 / (1.0 - drop_emb), drop_threshold(drop_rnn),
             1.0 / (1.0 - drop_rnn), torch.cuda.current_stream(dev).cuda_stream)
     if dt == torch.float32:
@@ -473,8 +496,10 @@ class FusedDecoder(torch.autograd.Function):
     """Differentiable fused decoder (``ast_tpu``'s ``fused_decoder_apply``).
 
     ``apply(enc, h0, c0, wx0, wx_rest, wh, b, wa, wa_b, ctx_w, ctx_b,
-    out_w, out_b, embed, y_in, coins, seed, drop_emb, drop_rnn)`` ->
-    (ht (U, B, A), sel (U, B) int32, not differentiable).  ``out_w`` and
+    out_w, out_b, embed, y_in, coins, seed, drop_emb, drop_rnn[,
+    row_offset])`` -> (ht (U, B, A), sel (U, B) int32, not
+    differentiable); ``row_offset``: the masks' global row of row 0 (a
+    data-parallel rank's shard).  ``out_w`` and
     ``out_b`` serve only the argmax feed and get no gradient here: theirs
     comes from the loss logits outside.  With bf16 weights and ``enc``
     (the bf16 mode), the weight gradients and ``d_enc`` are f32 sums over
@@ -485,13 +510,14 @@ class FusedDecoder(torch.autograd.Function):
     @staticmethod
     def forward(ctx, enc, h0, c0, *args):
         w = dict(zip(W_NAMES, args[:11]))
-        y_in, coins, seed, drop_emb, drop_rnn = args[11:]
+        y_in, coins, seed, drop_emb, drop_rnn = args[11:16]
+        row_offset = args[16] if len(args) > 16 else 0
         ht, res = decoder_forward(enc, h0, c0, w, y_in, coins, seed,
-                                  drop_emb, drop_rnn)
+                                  drop_emb, drop_rnn, row_offset=row_offset)
         ctx.names = res_names(w["wh"].dtype)
         ctx.save_for_backward(enc, h0, c0, ht, *args[:11],
                               *(res[k] for k in ctx.names))
-        ctx.hyper = (seed, drop_emb, drop_rnn)
+        ctx.hyper = (seed, drop_emb, drop_rnn, row_offset)
         ctx.mark_non_differentiable(res["sel"])
         return ht, res["sel"]
 
@@ -502,7 +528,7 @@ class FusedDecoder(torch.autograd.Function):
         w = dict(zip(W_NAMES, saved[4:15]))
         res = dict(zip(ctx.names, saved[15:]))
         g = decoder_backward(res, ht, enc, c0, w, d_ht.contiguous(),
-                             *ctx.hyper)
+                             *ctx.hyper[:3], row_offset=ctx.hyper[3])
         L = h0.shape[0]
         g = {k: widen(v) for k, v in g.items()}
         res = {k: v if k == "sel" else widen(v) for k, v in res.items()}
@@ -510,7 +536,8 @@ class FusedDecoder(torch.autograd.Function):
         if "x_drop" in res:
             x_drop = res["x_drop"]
         else:
-            x_drop = regen_x_drop(res["h_all"], ctx.hyper[0], ctx.hyper[2])
+            x_drop = regen_x_drop(res["h_all"], ctx.hyper[0], ctx.hyper[2],
+                                  ctx.hyper[3])
         h_top = x_drop[:, L - 1]
         ein = torch.einsum
         d_enc = (ein("ubt,ubh->bth", res["alphas"], g["d_cv"])
@@ -537,4 +564,4 @@ class FusedDecoder(torch.autograd.Function):
         # mode d_enc and the weight gradients reach the (f32) parameters
         # rounded to bf16, as _fd_bwd casts them
         return ((d_enc, g["dh0"], g["dc0"])
-                + tuple(grads[k] for k in W_NAMES) + (None,) * 5)
+                + tuple(grads[k] for k in W_NAMES) + (None,) * 6)

@@ -25,7 +25,13 @@ Layout (D2 directions, H units per direction):
 Train mode adds hash dropout at ``rate`` on every layer's output (mask
 seed ``seed + t*L + l`` over (D2, B, H)) and the residual streams
 acts (T, L, D2, B, 4H) ``[i|f|g|o]``, c_all, h_pre (pre-dropout) and
-x_drop (post-dropout) (T, L, D2, B, H).
+x_drop (post-dropout) (T, L, D2, B, H).  The train-mode calls also take
+``row_offset`` / ``global_rows`` (``ast_tpu``'s arguments): the B rows
+are rows ``row_offset .. row_offset + B - 1`` of a global batch of
+``global_rows`` and each mask is the global batch's (D2, global_rows, H)
+mask's rows, so that a data-parallel rank's shard (``ast_tpu_torch.
+parallel``) draws what one process over the whole batch draws.  The
+defaults, 0 and B, are a whole batch.
 
 bfloat16 (``extras.compute_dtype: "bfloat16"``): ``wx_rest`` and ``wh``
 in bf16 select it.  As in ``ast_tpu``'s kernels, each layer's input and
@@ -175,9 +181,11 @@ def _inv_keep(rate):
     return 1.0 / (1.0 - rate) if rate > 0 else 1.0
 
 
-def _enc_mask(rate, seed, t, l, L, D2, B, H, device):
+def _enc_mask(rate, seed, t, l, L, D2, B, H, device, row_offset=0,
+              global_rows=None):
     return drop_mask((D2, B, H), rate, seed + t * L + l, row_axis=1,
-                     global_rows=B, device=device)
+                     row_offset=row_offset, global_rows=global_rows or B,
+                     device=device)
 
 
 def _transform(x, ln, l, relu):
@@ -194,7 +202,8 @@ def _transform(x, ln, l, relu):
 # ---------------------------------------------------------------------------
 
 def stacked_lstm_reference(x0_proj, wx_rest, wh, b, train=False, seed=0,
-                           rate=0.0, ln=None, relu=False):
+                           rate=0.0, ln=None, relu=False, row_offset=0,
+                           global_rows=None):
     """Plain PyTorch recurrence; same contract as
     :func:`fused_stacked_lstm` (eval) and :func:`fused_stacked_lstm_train`
     (``train=True``: also returns acts, c_all, h_pre, x_drop).
@@ -204,6 +213,8 @@ def stacked_lstm_reference(x0_proj, wx_rest, wh, b, train=False, seed=0,
     ``relu`` transform each layer's output after its dropout, in that
     order, and what the layer above and ``outs`` receive is the
     transformed output; the carried state stays the cell's own.
+    ``row_offset`` / ``global_rows``: the masks' global rows (module
+    docstring).
 
     With ``wx_rest`` / ``wh`` in bf16, the rounding points of the module
     docstring, and in train mode the residual streams in bf16."""
@@ -234,7 +245,8 @@ def stacked_lstm_reference(x0_proj, wx_rest, wh, b, train=False, seed=0,
             a, h[l], c[l] = lstm_gate_acts(z, c[l], H)
             x = h[l]
             if rate > 0:
-                keep = _enc_mask(rate, seed, t, l, L, D2, B, H, z.device)
+                keep = _enc_mask(rate, seed, t, l, L, D2, B, H, z.device,
+                                 row_offset, global_rows)
                 x = torch.where(keep, x * _inv_keep(rate), 0.0)
             x = _transform(x, ln, l, relu)
             for r, v in zip(res, (a, c[l], h[l], x)):
@@ -251,7 +263,8 @@ def stacked_lstm_reference(x0_proj, wx_rest, wh, b, train=False, seed=0,
 
 
 def encoder_backward_reference(acts, c_all, wx_rest, wh, douts, dh_fin,
-                               dc_fin, seed, rate, forced_dz=None):
+                               dc_fin, seed, rate, forced_dz=None,
+                               row_offset=0, global_rows=None):
     """Plain version of K2: the reverse-time pass giving ``dz`` (T, L,
     D2, B, 4H) at every cell's pre-activations, from the residuals, the
     cotangents of (outs, h_fin, c_fin) and the dropout ``rate`` the
@@ -260,7 +273,8 @@ def encoder_backward_reference(acts, c_all, wx_rest, wh, douts, dh_fin,
     streams, returned in bf16, and rounded where the carries' products
     read it.  With ``forced_dz`` (e.g. a kernel's ``dz``) the carries'
     products read it in place of this pass's own: each step of this
-    pass then starts where that one's did."""
+    pass then starts where that one's did.  ``row_offset`` /
+    ``global_rows``: the masks' global rows, as the forward's."""
     T, L, D2, B, H4 = acts.shape
     H = H4 // 4
     res_dtype = acts.dtype
@@ -273,7 +287,8 @@ def encoder_backward_reference(acts, c_all, wx_rest, wh, douts, dh_fin,
         cons = douts[t]
         for l in reversed(range(L)):
             if rate > 0:
-                keep = _enc_mask(rate, seed, t, l, L, D2, B, H, acts.device)
+                keep = _enc_mask(rate, seed, t, l, L, D2, B, H, acts.device,
+                                 row_offset, global_rows)
                 cons = torch.where(keep, cons * _inv_keep(rate), 0.0)
             c_prev = c_all[t - 1, l] if t > 0 else torch.zeros_like(dc[l])
             dz, dc[l] = lstm_gates_backward(acts[t, l], c_all[t, l], c_prev,
@@ -291,6 +306,16 @@ def encoder_backward_reference(acts, c_all, wx_rest, wh, douts, dh_fin,
 # ---------------------------------------------------------------------------
 # kernel wrappers
 # ---------------------------------------------------------------------------
+
+def _global_rows(B, row_offset, global_rows):
+    """The global batch's rows (``global_rows``, default B), checked to
+    hold the call's rows ``row_offset .. row_offset + B - 1``."""
+    rows = B if global_rows is None else int(global_rows)
+    if row_offset < 0 or row_offset + B > rows:
+        raise ValueError(f"rows {row_offset} .. {row_offset + B - 1} lie "
+                         f"outside a global batch of {rows}")
+    return rows
+
 
 def _check_weights(x0_proj, wx_rest, wh, b, dtype=torch.float32):
     T, D2, B, H4 = x0_proj.shape
@@ -362,16 +387,19 @@ fused_stacked_lstm.launches = 0
 fused_stacked_lstm.launches_bf16 = 0
 
 
-def fused_stacked_lstm_train(x0_proj, wx_rest, wh, b, seed, rate):
+def fused_stacked_lstm_train(x0_proj, wx_rest, wh, b, seed, rate,
+                             row_offset=0, global_rows=None):
     """Encoder recurrence, train mode: hash dropout at ``rate`` (0 keeps
-    every element) and the residual streams.  Returns (outs, h_fin,
-    c_fin, acts, c_all, h_pre, x_drop).  ``wx_rest`` / ``wh`` in bf16 run
-    the bf16 mode: the four streams in bf16, outs / h_fin / c_fin f32;
-    the f32 entry counts in ``launches``, the bf16 one in
-    ``launches_bf16``."""
+    every element) over the global rows ``row_offset ..`` of a batch of
+    ``global_rows`` (module docstring) and the residual streams.  Returns
+    (outs, h_fin, c_fin, acts, c_all, h_pre, x_drop).  ``wx_rest`` /
+    ``wh`` in bf16 run the bf16 mode: the four streams in bf16, outs /
+    h_fin / c_fin f32; the f32 entry counts in ``launches``, the bf16 one
+    in ``launches_bf16``."""
     if not x0_proj.is_cuda:
         return stacked_lstm_reference(x0_proj, wx_rest, wh, b, True, seed,
-                                      rate)
+                                      rate, row_offset=row_offset,
+                                      global_rows=global_rows)
     bf16 = wh.dtype == BF16
     rdt = BF16 if bf16 else torch.float32
     T, L, D2, B, H = _check_weights(x0_proj, wx_rest, wh, b, rdt)
@@ -383,6 +411,7 @@ def fused_stacked_lstm_train(x0_proj, wx_rest, wh, b, seed, rate):
                                         device=dev) for _ in range(3))
     lib = build.library()
     stream = torch.cuda.current_stream(dev).cuda_stream
+    rows = (row_offset, _global_rows(B, row_offset, global_rows))
     drop = (seed & 0xFFFFFFFF, drop_threshold(rate), _inv_keep(rate))
     if not bf16:
         zero = torch.zeros((D2, B, H), device=dev)  # h and c before t = 0
@@ -392,7 +421,7 @@ def fused_stacked_lstm_train(x0_proj, wx_rest, wh, b, seed, rate):
             x0_proj.data_ptr(), w.data_ptr(), b.data_ptr(),
             outs.data_ptr(), acts.data_ptr(), c_all.data_ptr(),
             h_pre.data_ptr(), x_drop.data_ptr(), zero.data_ptr(),
-            *_schedule_args(T, L), L, D2, B, H, *drop, stream))
+            *_schedule_args(T, L), L, D2, B, H, *rows, *drop, stream))
         return (outs, h_pre[-1].clone(), c_all[-1].clone(), acts, c_all,
                 h_pre, x_drop)
     # the f32 state the recurrence carries: layer l's h and its dropped
@@ -406,7 +435,7 @@ def fused_stacked_lstm_train(x0_proj, wx_rest, wh, b, seed, rate):
         x0_proj.data_ptr(), w.data_ptr(), b.data_ptr(), outs.data_ptr(),
         acts.data_ptr(), c_all.data_ptr(), h_pre.data_ptr(),
         x_drop.data_ptr(), hbuf.data_ptr(), xbuf.data_ptr(), c.data_ptr(),
-        *_schedule_args(T, L), L, D2, B, H, *drop, stream))
+        *_schedule_args(T, L), L, D2, B, H, *rows, *drop, stream))
     return outs, hbuf[(T - 1) % 2], c, acts, c_all, h_pre, x_drop
 
 
@@ -415,13 +444,14 @@ fused_stacked_lstm_train.launches_bf16 = 0
 
 
 def encoder_backward(acts, c_all, wx_rest, wh, douts, dh_fin, dc_fin, seed,
-                     rate):
+                     rate, row_offset=0, global_rows=None):
     """K2: ``dz`` (T, L, D2, B, 4H); see :func:`encoder_backward_reference`.
     bf16 residuals and weights run the bf16 mode (``dz`` in bf16; the
     cotangents and carries f32), counted in ``launches_bf16``."""
     if not acts.is_cuda:
-        return encoder_backward_reference(acts, c_all, wx_rest, wh, douts,
-                                          dh_fin, dc_fin, seed, rate)
+        return encoder_backward_reference(
+            acts, c_all, wx_rest, wh, douts, dh_fin, dc_fin, seed, rate,
+            row_offset=row_offset, global_rows=global_rows)
     T, L, D2, B, H4 = acts.shape
     H = H4 // 4
     bf16 = acts.dtype == BF16
@@ -448,7 +478,8 @@ def encoder_backward(acts, c_all, wx_rest, wh, douts, dh_fin, dc_fin, seed,
     lib = build.library()
     args = (acts.data_ptr(), c_all.data_ptr(), w_t.data_ptr(),
             douts.data_ptr(), carry.data_ptr(), dc.data_ptr(), dz.data_ptr())
-    tail = (*_schedule_args(T, L, True), L, D2, B, H, seed & 0xFFFFFFFF,
+    tail = (*_schedule_args(T, L, True), L, D2, B, H, row_offset,
+            _global_rows(B, row_offset, global_rows), seed & 0xFFFFFFFF,
             drop_threshold(rate), _inv_keep(rate),
             torch.cuda.current_stream(dev).cuda_stream)
     if not bf16:
@@ -480,8 +511,10 @@ def _grad_or_zeros(g, like):
 class FusedStackedLSTM(torch.autograd.Function):
     """Differentiable fused encoder (``ast_tpu``'s ``fused_stacked_lstm``
     custom VJP).  ``apply(x0_proj, wx_rest, wh, b, seed, train, rate[,
-    dtype])`` -> (outs, h_fin, c_fin).  When gradients are needed in eval
-    mode the forward still keeps its residuals, with rate 0.
+    dtype[, row_offset, global_rows]])`` -> (outs, h_fin, c_fin).  When
+    gradients are needed in eval mode the forward still keeps its
+    residuals, with rate 0.  ``row_offset`` / ``global_rows``: the masks'
+    global rows (module docstring), for a data-parallel rank's shard.
 
     ``dtype`` bf16 (``compute_dtype``): ``wx_rest`` / ``wh`` come in f32
     and are cast to bf16 here, so that their gradients -- f32 sums over
@@ -491,17 +524,19 @@ class FusedStackedLSTM(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x0_proj, wx_rest, wh, b, seed, train, rate,
-                dtype=torch.float32):
+                dtype=torch.float32, row_offset=0, global_rows=None):
         rate = float(rate) if train else 0.0
         if dtype == BF16:
             wx_rest, wh = wx_rest.to(BF16), wh.to(BF16)
         if not train and not any(ctx.needs_input_grad[:4]):
             return fused_stacked_lstm(x0_proj, wx_rest, wh, b)
         (outs, h_fin, c_fin, acts, c_all, h_pre,
-         x_drop) = fused_stacked_lstm_train(x0_proj, wx_rest, wh, b, seed,
-                                            rate)
+         x_drop) = fused_stacked_lstm_train(
+             x0_proj, wx_rest, wh, b, seed, rate, row_offset=row_offset,
+             global_rows=global_rows)
         ctx.save_for_backward(wx_rest, wh, acts, c_all, h_pre, x_drop)
-        ctx.seed, ctx.rate = seed, rate
+        ctx.drop = (seed, rate)
+        ctx.rows = dict(row_offset=row_offset, global_rows=global_rows)
         return outs, h_fin, c_fin
 
     @staticmethod
@@ -511,12 +546,12 @@ class FusedStackedLSTM(torch.autograd.Function):
             acts, c_all, wx_rest, wh,
             _grad_or_zeros(douts, widen(x_drop[:, -1])),
             _grad_or_zeros(dh_fin, widen(h_pre[-1])),
-            _grad_or_zeros(dc_fin, widen(c_all[-1])), ctx.seed, ctx.rate)
+            _grad_or_zeros(dc_fin, widen(c_all[-1])), *ctx.drop,
+            **ctx.rows)
         # weight gradients as time-batched GEMMs, f32 sums (of the bf16
         # streams' values at bf16)
         dz, h_pre, x_drop = widen(dz), widen(h_pre), widen(x_drop)
         h_prev = torch.cat([torch.zeros_like(h_pre[:1]), h_pre[:-1]])
         dwh = torch.einsum("tldbh,tldbk->ldhk", h_prev, dz)
         dwx = torch.einsum("tldbh,tldbk->ldhk", x_drop[:, :-1], dz[:, 1:])
-        return (dz[:, 0], dwx, dwh, dz.sum(dim=(0, 3)), None, None, None,
-                None)
+        return (dz[:, 0], dwx, dwh, dz.sum(dim=(0, 3))) + (None,) * 6

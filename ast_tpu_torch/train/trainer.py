@@ -75,12 +75,31 @@ The feed options of ``ast_tpu``'s trainer, each as it works there:
   loss; the draws are made before it, so the recompute repeats K1 train
   and K3 exactly and the gradients are bit-equal to a step without it.
 
-Not ported (ROADMAP.md queue 1): bf16 on the scan path and data
-parallelism (a ``parallel`` block prints "set and ignored").
+Data parallelism (``train_cfg["parallel"]``, ``ast_tpu``'s mesh over
+``torch.distributed``, :mod:`ast_tpu_torch.parallel`): one process a
+card, started by ``torchrun`` or by the caller after
+``parallel.init_distributed``.  ``data_axis`` (0: every process) is the
+data axis; every rank builds the identical batch stream, keeps its rows
+of each batch (``shard_batch``: only they cross to its card; the cache
+of ``hbm_cache`` is whole on every rank) and runs the step on them with
+its draws of the global batch's (``seq2seq.make_draws``): dropout hashes
+global rows, BN takes the global batch's statistics, and the gradients
+are summed over the ranks in one flat all-reduce before the optimizer,
+so that parameters, optimizer and BN state stay bit-identical on every
+rank.  Tail batches shrink to multiples of 8 rows a rank; the eval
+streams are pinned (epoch 0) and ``eval_loss``, ``predict`` and
+``decode_beam_set`` return the whole split on every rank; preemption is
+agreed over the ranks every ``preempt_sync_steps`` batches; only rank 0
+writes.  One process makes no mesh and issues no collective.
+``model_axis`` above 1 (vocab tensor parallelism) is refused by name.
+
+Not ported (ROADMAP.md queue 1): bf16 on the scan path and the vocab
+tensor parallelism of ``parallel.model_axis``.
 """
 
 import collections
 import itertools
+import math
 import os
 import threading
 import time
@@ -101,6 +120,9 @@ from ast_tpu_torch.ops.bf16 import parse_dtype
 from ast_tpu_torch.ops.fbank import MfccExtractor
 from ast_tpu_torch.ops.fused_infer import (
     require_bf16_variant, require_train_dtype, require_train_variant)
+from ast_tpu_torch.parallel import (
+    all_reduce_grads, all_reduce_sum, any_rank, gather_rows, make_mesh,
+    replicate, shard_batch)
 from ast_tpu_torch.params import torch_device, tree_map
 from ast_tpu_torch.train.optimizer import (
     build_optimizer, tree_leaves, tree_unflatten)
@@ -241,6 +263,37 @@ class PreemptedError(RuntimeError):
     epoch at the same batch."""
 
 
+class CrossingGate:
+    """Fires when a counter crosses a multiple of ``every``
+    (``ast_tpu``'s): the batches consumed advance by runs of 1..G, so an
+    exact ``consumed % every == 0`` could be stepped over until the
+    epoch's end."""
+
+    def __init__(self, every, start=0):
+        self.every = max(1, int(every))
+        self.last = start // self.every
+
+    def crossed(self, consumed):
+        q = consumed // self.every
+        if q == self.last:
+            return False
+        self.last = q
+        return True
+
+
+def mesh_batch_size(batch_size):
+    """The rows every batch has, which the data axis must divide: the
+    batch size, or the gcd of per-bucket sizes (``ast_tpu``'s)."""
+    if not isinstance(batch_size, dict):
+        return int(batch_size)
+    sizes = [int(batch_size[k]) for k in ("max", "med", "min")
+             if k in batch_size]
+    if not sizes:
+        raise ValueError("batch_size dict must carry at least one of "
+                         f"'max'/'med'/'min' (got keys {sorted(batch_size)})")
+    return math.gcd(*sizes)
+
+
 def _group_stream(gen, G):
     """Chunk a batch stream into runs of consecutive batches of one
     bucket and one row count, at most G long (``ast_tpu``'s
@@ -285,10 +338,9 @@ class NN:
         self.compute_dtype = parse_dtype(extras.get("compute_dtype"))
         require_bf16_variant(self.mcfg, self.compute_dtype,
                              device=self.device)
-        if any(tcfg["parallel"].get(k, d) != d
-               for k, d in (("data_axis", 0), ("model_axis", 1))):
-            print("set and ignored (not ported, see ROADMAP.md queue 1): "
-                  "parallel", flush=True)
+        # the data axis over the process group (None: one process)
+        self.mesh = make_mesh(tcfg["parallel"],
+                              batch_size=mesh_batch_size(tcfg["batch_size"]))
         # the feed options (the module docstring)
         self.transfer_dtype = _transfer_dtype(
             extras.get("transfer_dtype", "float32"))
@@ -347,6 +399,8 @@ class NN:
                           f"from the beginning", flush=True)
                 elif in_step > 0:
                     self.inflight_resume = (in_epoch, in_step)
+        # every rank starts from rank 0's bytes
+        replicate((self.params, self.state, self.opt_state), self.mesh)
 
         for p in tree_leaves(self.params):
             p.requires_grad_(True)
@@ -354,9 +408,10 @@ class NN:
         self.dev_log = os.path.join(self.model_dir, "dev.log")
         self._preempt = False
         # tail batches pad to a repeated half of the batch size, kept a
-        # multiple of 8 rows (ast_tpu on one device)
-        self.tail_shrink = (8 if tcfg["extras"].get("shrink_tail_batches",
-                                                    True) else 0)
+        # multiple of 8 rows a rank (ast_tpu's 8 x data shards)
+        shards = 1 if self.mesh is None else self.mesh.data
+        self.tail_shrink = (8 * shards if tcfg["extras"].get(
+            "shrink_tail_batches", True) else 0)
         self.timer = StepTimer()
 
     def _load_snapshot(self, loaded):
@@ -410,15 +465,17 @@ class NN:
 
     def _device_batch(self, batch, labels=True, narrow=False, cache=None):
         """A host batch with its speech (:meth:`_speech_keys`) and, with
-        ``labels``, ``y`` as tensors on the device; ``narrow``: ``X`` in
-        ``transfer_dtype`` (train batches); ``cache``: the
-        ``EpochFeatureCache`` an index-mode batch gathers from.  The
-        bytes copied are under ``h2d_bytes``.  A batch already there
-        passes through."""
+        ``labels``, ``y`` as tensors on the device, this rank's rows of
+        them under a mesh (``utts``, ``n_real`` and ``frame_len`` stay
+        the global batch's); ``narrow``: ``X`` in ``transfer_dtype``
+        (train batches); ``cache``: the ``EpochFeatureCache`` an
+        index-mode batch gathers from.  The bytes copied are under
+        ``h2d_bytes``.  A batch already there passes through."""
         keys = self._speech_keys(batch)
         if torch.is_tensor(batch[keys[0]]):
             return batch
-        arrays = {k: batch[k] for k in keys + ("y",) if k in batch}
+        arrays = shard_batch({k: batch[k] for k in keys + ("y",)
+                              if k in batch}, self.mesh)
         dev, nbytes = self._put(self._host_tensors(arrays, labels, narrow))
         out = dict(batch, h2d_bytes=nbytes, **dev)
         if cache is not None:
@@ -436,7 +493,8 @@ class NN:
                      for b in batches]
             return steps, sum(b["h2d_bytes"] for b in steps)
         keys = self._speech_keys(batches[0]) + ("y",)
-        stacked = {k: np.stack([b[k] for b in batches]) for k in keys}
+        stacked = shard_batch({k: np.stack([b[k] for b in batches])
+                               for k in keys}, self.mesh, axis=1)
         dev, nbytes = self._put(self._host_tensors(stacked, True, True))
         steps = []
         for i, b in enumerate(batches):
@@ -462,8 +520,9 @@ class NN:
         return X.float() if X.dtype in (torch.bfloat16, torch.float16) else X
 
     def _prefetch(self, gen, prepare):
-        workers = max(1, int(self.cfg.train["extras"].get(
-            "prefetch_workers", 2)))
+        # one worker a rank when several processes share the host's cores
+        workers = 1 if self.mesh is not None else max(1, int(
+            self.cfg.train["extras"].get("prefetch_workers", 2)))
         return Prefetcher(gen, prepare, depth=2 * workers, workers=workers)
 
     def _cache(self, set_key):
@@ -491,7 +550,7 @@ class NN:
     # ------------------------------------------------------------------
     def train_step(self, batch, seed):
         """One update from a batch (host or device); returns the loss (on
-        device)."""
+        device; under a mesh this rank's share of it)."""
         tcfg = self.cfg.train
         extras = tcfg["extras"]
         batch = self._device_batch(batch, narrow=True)
@@ -502,14 +561,14 @@ class NN:
             extras["speech_noise"], random_out=extras["random_out"],
             vocab=self.mcfg["rnn_config"]["dec_vocab_size"],
             spec_cfg=tcfg["data"].get("spec_augment") or None,
-            frame_len=batch.get("frame_len"))
+            frame_len=batch.get("frame_len"), mesh=self.mesh)
 
         def loss_fn():
             return seq2seq.forward_loss(
                 self.params, self.state, self.mcfg, X, y,
                 float(batch["n_real"]), draws,
                 label_smoothing=extras["label_smoothing"],
-                compute_dtype=self.compute_dtype)
+                compute_dtype=self.compute_dtype, mesh=self.mesh)
 
         if self.remat:
             # the backward recomputes the forward from its inputs and
@@ -519,7 +578,8 @@ class NN:
         else:
             loss, new_state = loss_fn()
         leaves = tree_leaves(self.params)
-        grads = torch.autograd.grad(loss, leaves)
+        grads = all_reduce_grads(torch.autograd.grad(loss, leaves),
+                                 self.mesh)
         with torch.no_grad():
             updates, self.opt_state = self.opt.update(
                 tree_unflatten(self.params, grads), self.opt_state,
@@ -566,6 +626,12 @@ class NN:
         if skip:
             gen = itertools.islice(gen, skip, None)
         ckpt_steps = tcfg.get("checkpoint_steps", 0)
+        # several processes agree on the stop step, or the ones that run
+        # on wait in the next step's collectives: their flags are OR-ed
+        # every preempt_sync_steps batches, at the same batch on every
+        # rank (ast_tpu's CrossingGate)
+        gate = CrossingGate(tcfg["extras"].get("preempt_sync_steps",
+                                               ckpt_steps or 8), start=skip)
         losses, sizes = [], []
         consumed = last_snap = skip
         self.epoch_h2d_bytes = 0
@@ -586,7 +652,7 @@ class NN:
             if ckpt_steps and consumed - last_snap >= ckpt_steps:
                 self.save_inflight(epoch, consumed)
                 last_snap = consumed
-            if self._preempt:
+            if self._preempt_agreed(gate, consumed):
                 self.save_inflight(epoch, consumed)
                 raise PreemptedError(
                     f"preempted: epoch {epoch} snapshotted after "
@@ -596,9 +662,19 @@ class NN:
             self.save_inflight(epoch + 1, 0)
         if not losses:
             return 0.0
-        vals = torch.stack(losses).cpu().numpy()     # the epoch's one sync
+        # the ranks' shares summed; the epoch's one sync
+        vals = all_reduce_sum(torch.stack(losses), self.mesh).cpu().numpy()
         self.timer.add(time.perf_counter() - t0, sum(sizes), len(vals))
         return float(sum(v / s for v, s in zip(vals, sizes)) / len(vals))
+
+    def _preempt_agreed(self, gate, consumed):
+        """Whether the epoch stops after ``consumed`` batches: this
+        process's request, or under a mesh any rank's, read when
+        ``gate`` fires."""
+        if self.mesh is None:
+            return self._preempt
+        return gate.crossed(consumed) and any_rank(self._preempt, self.mesh,
+                                                   self.device)
 
     def request_preempt(self):
         """Ask the running epoch to snapshot and stop at the next batch
@@ -606,13 +682,22 @@ class NN:
         self._preempt = True
 
     def preempt_pending(self):
-        """Whether preemption was requested: the train CLI asks between
+        """Whether preemption was requested, under a mesh on any rank
+        (every rank asks at the same point): the train CLI asks between
         an epoch's phases."""
-        return self._preempt
+        return any_rank(self._preempt, self.mesh, self.device)
+
+    @property
+    def primary(self):
+        """Whether this process writes logs and checkpoints (rank 0)."""
+        return self.mesh is None or self.mesh.rank == 0
 
     def save_inflight(self, epoch, step):
-        """The mid-epoch snapshot, written atomically; ``g`` is the
-        steps per dispatch whose grouped stream ``step`` counts in."""
+        """The mid-epoch snapshot, written atomically (rank 0: every rank
+        holds the same state); ``g`` is the steps per dispatch whose
+        grouped stream ``step`` counts in."""
+        if not self.primary:
+            return
         save_checkpoint(
             os.path.join(self.model_dir, INFLIGHT), to_numpy(self.params),
             to_numpy(self.state), to_numpy(self.opt_state),
@@ -622,16 +707,24 @@ class NN:
     # ------------------------------------------------------------------
     # evaluation
     # ------------------------------------------------------------------
+    def _eval_epoch(self):
+        """The loader's epoch for an eval stream: pinned under a mesh, so
+        that every rank builds the identical stream (else the loader's
+        running generator)."""
+        return None if self.mesh is None else 0
+
     def eval_loss(self, set_key):
         """Teacher-forced loss on a split, nothing updated (K1 eval, K3
         with every step forced and no dropout): the mean over batches of
-        loss / real rows, at ``compute_dtype``."""
+        loss / real rows, at ``compute_dtype`` (under a mesh the ranks'
+        shares summed)."""
         tcfg = self.cfg.train
         require_train_dtype(tcfg, self.mcfg, self.device)
         cache = self._cache(set_key)
         gen = self.data_loader.get_batch(
             tcfg["batch_size"], set_key, train=False, labels=True,
-            tail_shrink=self.tail_shrink, index_cache=cache)
+            epoch=self._eval_epoch(), tail_shrink=self.tail_shrink,
+            index_cache=cache)
         losses, sizes = [], []
         with torch.no_grad():
             enc_w = seq2seq.encoder_weights(self.params, self.compute_dtype)
@@ -645,7 +738,7 @@ class NN:
                 sizes.append(max(1, len(batch["utts"])))
         if not losses:
             return 0.0
-        vals = torch.stack(losses).cpu().numpy()
+        vals = all_reduce_sum(torch.stack(losses), self.mesh).cpu().numpy()
         return float(sum(v / s for v, s in zip(vals, sizes)) / len(vals))
 
     def _decode_set(self, set_key, batch_size, decode, collect,
@@ -654,7 +747,9 @@ class NN:
         ``decode_pipeline`` of them in flight: the copy to the host waits
         for its batch, so ``collect(batch, output on the host)`` of one
         batch runs while the device decodes the next.  Outputs are
-        collected in the batches' order."""
+        collected in the batches' order.  Under a mesh each rank decodes
+        its rows and every rank collects the whole batch's outputs
+        (``parallel.gather_rows``)."""
         inflight = collections.deque()
 
         def drain():
@@ -666,10 +761,12 @@ class NN:
         with torch.inference_mode():
             gen = self.data_loader.get_batch(
                 batch_size, set_key, train=False, labels=False,
-                tail_shrink=self.tail_shrink, index_cache=cache)
+                epoch=self._eval_epoch(), tail_shrink=self.tail_shrink,
+                index_cache=cache)
             for batch in self._prefetch(
                     gen, lambda b: self._device_batch(b, False, cache=cache)):
-                inflight.append((batch, decode(self.features(batch))))
+                inflight.append((batch, gather_rows(
+                    decode(self.features(batch)), self.mesh)))
                 if len(inflight) >= depth:
                     drain()
             while inflight:
@@ -736,6 +833,9 @@ class NN:
         return results
 
     def save(self, epoch):
+        """The epoch's checkpoint (rank 0)."""
+        if not self.primary:
+            return
         save_checkpoint(checkpoint_path(self.model_dir, epoch),
                         to_numpy(self.params), to_numpy(self.state),
                         to_numpy(self.opt_state))

@@ -268,6 +268,24 @@ Phases, each printing a line:
    bfloat16 epochs finite, with their bytes a step; the headline
    configuration (bf16, B 32, G 4, hbm_cache) over two warm epochs:
    utts/s and its kernels' launches (only the bf16 training kernels).
+16. data parallelism (ast_tpu_torch.parallel over torch.distributed):
+   K1 train, K2, K3 and K4, f32 and bf16, on rows 16-31 of a 32-row
+   batch at row_offset 16 (a rank's shard) against their plain versions
+   at that offset (phase 5's and phase 14's bounds along the path),
+   every dropout mask bit-equal to the global batch's rows; NCCL at
+   world size 1 (a one-rank group: the gradient all-reduce, the eval
+   gather, replicate's broadcast, the preemption flag); two gloo ranks
+   sharing cuda:0 (gloo's all_reduce, broadcast and all_gather on CUDA
+   tensors checked first) train DP_EPOCHS epochs of es_en_20h (B = 32,
+   16 rows a rank, DP_SUBSET of the epoch benchmark's corpus) through
+   NN.train_epoch, then predict and beam-decode the dev split, beside
+   one process running the same: the first step's gradient within
+   DP_RTOL / DP_ATOL of one process's, the parameters' sha256 equal on
+   both ranks, parameters and BN state within the same bounds, both
+   ranks' decodes the whole split and equal, every kernel launched on
+   each rank; the gloo all-reduce's ms for the gradient and a step's ms,
+   two ranks on one card; torchrun --nproc-per-node 1 -m
+   ast_tpu_torch.cli.train -e 1 --dist-backend nccl (train.log, dev.log).
 
 Then a JSON line with each kernel's count, error and times, and last
 {"ok": true, "device": {...}}.  A kernel's count ("launches") is the
@@ -852,9 +870,11 @@ def check_encoder_partial(args):
     return err
 
 
-def hash_mask_equal(x_drop, seed, rate, device):
+def hash_mask_equal(x_drop, seed, rate, device, row_offset=0,
+                    global_rows=None):
     """(whether the zero pattern of K1 train's x_drop (T, L, D2, B, H) is
-    the torch hash mask's, the mask's dropped share)."""
+    the torch hash mask's, the mask's dropped share); ``row_offset`` /
+    ``global_rows``: the rows' place in a global batch (a shard's)."""
     import torch
 
     from ast_tpu_torch.ops.dropout import drop_mask
@@ -862,6 +882,7 @@ def hash_mask_equal(x_drop, seed, rate, device):
     T, L = x_drop.shape[:2]
     seeds = (seed + torch.arange(T * L, device=device)).view(T, L, 1, 1, 1)
     keep = drop_mask(tuple(x_drop.shape[2:]), rate, seeds, row_axis=1,
+                     row_offset=row_offset, global_rows=global_rows,
                      device=device)
     return (bool(((x_drop == 0) == ~keep).all()),
             float((~keep).float().mean()))
@@ -1920,6 +1941,9 @@ def start_server(serving_dir, log_path, window_ms=5, ready_s=600,
         except OSError:
             pass
         if proc.poll() is not None or time.perf_counter() - t0 > ready_s:
+            if proc.poll() is None:         # leave no server behind
+                proc.kill()
+                proc.wait(timeout=60)
             with open(log_path) as f:
                 raise AssertionError(f"server not ready (exit "
                                      f"{proc.poll()}): {f.read()[-3000:]}")
@@ -3131,8 +3155,10 @@ def plain_kernels(sel=None, eval_encoder=False):
     from ast_tpu_torch.ops import fused_decoder as fd
     from ast_tpu_torch.ops import fused_lstm as fl
 
-    def k1t(x0, wxr, wh, b, seed, rate):
-        return fl.stacked_lstm_reference(x0, wxr, wh, b, True, seed, rate)
+    def k1t(x0, wxr, wh, b, seed, rate, row_offset=0, global_rows=None):
+        return fl.stacked_lstm_reference(x0, wxr, wh, b, True, seed, rate,
+                                         row_offset=row_offset,
+                                         global_rows=global_rows)
 
     def k1(x0, wxr, wh, b, packed=None):
         return fl.stacked_lstm_reference(x0, wxr, wh, b)
@@ -4137,7 +4163,7 @@ def sync(device):
     """Wait for the card (a no-op on the CPU)."""
     import torch
 
-    if device == "cuda":
+    if torch.device(device).type == "cuda":
         torch.cuda.synchronize()
 
 
@@ -5229,6 +5255,449 @@ def run_feed_options(cfg, root, smi, device="cuda"):
     return n, head_steps
 
 
+# ---------------------------------------------------------------------------
+# phase 16: data parallel (ast_tpu_torch.parallel over torch.distributed)
+# ---------------------------------------------------------------------------
+
+# the shard the kernels are held at: rows [DP_OFFSET, B) of a B-row batch
+DP_OFFSET = 16
+DP_RANKS = 2
+# the two-rank run's corpus: buckets of the epoch benchmark's (160 and 640
+# frames), two full 32-row batches each, so that no tail batch is shrunk
+# to another row count at one process than at two; the dev split is
+# build_corpus' 8 utterances
+DP_SUBSET = "1:64,7:64"
+DP_EPOCHS = 2
+# parameters and BN state of two ranks against one process (the
+# sums over rows run in another order): tests/test_parallel.py's bounds
+DP_RTOL, DP_ATOL = 2e-4, 1e-5
+
+
+def check_row_offset_kernels(cfg, device):
+    """K1 train, K2, K3 and K4, f32 and bf16, on rows [DP_OFFSET, B) of a
+    B-row batch with ``row_offset`` DP_OFFSET (a data-parallel rank's
+    shard) against their plain versions at the same offset: f32 within
+    ENC_TOL (K1 train, K3 along its own ids, sampled ids within TOK_TOL)
+    and BWD_TOL of max|plain| (K2, K4); bf16 within BF16_MAX_TOL of each
+    tensor's max|plain| along the path.  Every dropout mask bit-equal to
+    the global batch's rows: K1's x_drop zero pattern, K3's dropped
+    embedding and layer outputs (f32) against the hash masks of the
+    whole batch, and K1's against a whole-batch K1 call's rows.  Returns
+    {key: worst error}."""
+    import torch
+
+    from ast_tpu_torch.models import seq2seq
+    from ast_tpu_torch.ops import fused_decoder as fd
+    from ast_tpu_torch.ops import fused_lstm as fl
+    from ast_tpu_torch.ops.dropout import drop_mask
+
+    bf = torch.bfloat16
+    mcfg = cfg.model
+    params, state = seq2seq.init_model(mcfg, seed=0, device=device)
+    off, nb, t_enc = DP_OFFSET, B - DP_OFFSET, FRAMES // 4
+    mine = slice(off, B)
+    x0, wxr, wh, b = encoder_case(params, B, t_enc, device)
+    x0s = x0[:, :, mine].contiguous()
+    seed = ENC_SEED + 16
+    whole = fl.fused_stacked_lstm_train(x0, wxr, wh, b, seed, DROP)[6]
+    out = {}
+    for dt in (torch.float32, bf):
+        w_x, w_h = wxr.to(dt), wh.to(dt)
+        got = fl.fused_stacked_lstm_train(x0s, w_x, w_h, b, seed, DROP, off, B)
+        ref = fl.stacked_lstm_reference(x0s, w_x, w_h, b, True, seed, DROP,
+                                        row_offset=off, global_rows=B)
+        assert hash_mask_equal(got[6], seed, DROP, device, off, B)[0], \
+            f"K1 train's masks at offset {off} ({dt}) are not the batch's"
+        if dt == torch.float32:
+            assert torch.equal(got[6] == 0, whole[:, :, :, mine] == 0)
+        rng = np.random.default_rng(7100)
+        cot = [torch.from_numpy(rng.standard_normal(tuple(t.shape)).astype(
+            np.float32) * 0.1).to(device) for t in got[:3]]
+        bwd = (got[3], got[4], w_x, w_h, *cot, seed, DROP)
+        dz = fl.encoder_backward(*bwd, off, B)
+        dz_p = fl.encoder_backward_reference(*bwd, row_offset=off,
+                                             global_rows=B)
+        if dt == torch.float32:
+            e1 = max(float((g - r).abs().max()) for g, r in zip(got, ref))
+            e2 = rel_err(dz, dz_p)[0]
+            assert e1 <= ENC_TOL and e2 <= BWD_TOL, (e1, e2)
+            out["k1t"], out["k2"] = e1, e2
+        else:
+            e1, e2 = worst_errs(zip(got, ref))[0], bf16_errs(dz, dz_p)[0]
+            assert e1 <= BF16_MAX_TOL and e2 <= BF16_MAX_TOL, (e1, e2)
+            out["k1_train_bf16"], out["k2_bf16"] = e1, e2
+        check_repeats(lambda: fl.encoder_backward(*bwd, off, B), dz,
+                      f"K2 at offset {off} ({dt})")
+
+    rng = np.random.default_rng(160)
+    X = torch.from_numpy(rng.standard_normal(
+        (B, FRAMES, 13)).astype(np.float32)).to(device)
+    enc, h0, c0 = seq2seq.encode(params, state, mcfg, X)
+    enc, h0, c0 = enc[mine], h0[:, mine], c0[:, mine]
+    coins = torch.tensor(TRAIN_PARTIAL_COINS, dtype=torch.int32,
+                         device=device)
+    U = coins.shape[0]
+    y_in = torch.from_numpy(rng.integers(4, VOCAB, (U, nb)).astype(
+        np.int32)).to(device)
+    dseed = DEC_SEED + 16
+    E, Hd = params["dec"]["embed"].shape[1], h0.shape[2]
+    Ld = h0.shape[0]
+    # the global batch's masks (fused_decoder's seeds), this shard's rows
+    t = torch.arange(U * Ld, device=device)
+    keep_e = drop_mask((B, E), DROP, (dseed + 2 * t[:U]).view(U, 1, 1),
+                       row_axis=0, device=device)[:, mine]
+    keep_r = drop_mask((B, Hd), DROP, (dseed + 2 * t + 1).view(U, Ld, 1, 1),
+                       row_axis=0, device=device)[:, :, mine]
+    for dt in (torch.float32, bf):
+        w = seq2seq.pack_decoder_weights(params, dt)
+        args = (enc.to(dt).contiguous(), h0.contiguous(), c0.contiguous(),
+                w, y_in, coins, dseed, DROP, DROP)
+        ht_k, res_k = fd.decoder_forward(*args, off)
+        sel = res_k["sel"]
+        ht_p, res_p = fd.decoder_forward_reference(*args, forced_ids=sel,
+                                                   row_offset=off)
+        short = float(fd.sampled_shortfall(ht_p, w, sel, coins).max())
+        d_ht = torch.from_numpy(rng.standard_normal(
+            tuple(ht_k.shape)).astype(np.float32) * 0.1).to(device)
+        bwd = (res_k, ht_k, args[0], args[2], w, d_ht, dseed, DROP, DROP)
+        g_k = fd.decoder_backward(*bwd, off)
+        g_p = fd.decoder_backward_reference(*bwd, off)
+        if dt == torch.float32:
+            assert torch.equal(res_k["emb"] == 0, ~keep_e), \
+                f"K3's embedding masks at offset {off} are not the batch's"
+            assert torch.equal(res_k["x_drop"] == 0, ~keep_r), \
+                f"K3's layer masks at offset {off} are not the batch's"
+            e3 = max([float((ht_k - ht_p).abs().max())]
+                     + [float((res_k[k] - res_p[k]).abs().max())
+                        for k in fd.RES_NAMES[1:]])
+            e4 = max(rel_err(g_k[k], g_p[k])[0] for k in fd.GRAD_NAMES)
+            assert short <= TOK_TOL and e3 <= ENC_TOL and e4 <= BWD_TOL, (
+                short, e3, e4)
+            out["k3"], out["k4"] = e3, e4
+        else:
+            e3 = worst_errs([(ht_k, ht_p)] + [
+                (res_k[k], res_p[k]) for k in fd.RES_NAMES_BF16[1:]])[0]
+            e4 = worst_errs((g_k[k], g_p[k]) for k in fd.GRAD_NAMES)[0]
+            assert (short <= BF16_TOK_TOL and e3 <= BF16_MAX_TOL
+                    and e4 <= BF16_MAX_TOL), (short, e3, e4)
+            # the dropped embedding rows: the global batch's mask
+            assert torch.equal(res_k["emb"].float() == 0, ~keep_e), \
+                f"K3 bf16's embedding masks at offset {off}"
+            out["k3_bf16"], out["k4_bf16"] = e3, e4
+        check_repeats(lambda: fd.decoder_backward(*bwd, off), g_k,
+                      f"K4 at offset {off} ({dt})")
+    print(f"  K1 train / K2 / K3 / K4 at row_offset {off} (rows {off}-{B - 1}"
+          f" of a {B}-row batch, T' {t_enc}, U {U}): masks bit-equal to the "
+          f"global batch's rows (K1 also to a whole-batch call's); f32 max "
+          f"abs err K1 train {out['k1t']:.3e}, K3 {out['k3']:.3e}, K2 "
+          f"{out['k2']:.3e} and K4 {out['k4']:.3e} of max|plain|; bf16 "
+          + ", ".join(f"{k} {out[k]:.3e}" for k in BF16_TRAIN_KEYS)
+          + " of max|plain| along the path", flush=True)
+    return out
+
+
+def gloo_cuda_probe(rank, world, device):
+    """all_reduce, broadcast and all_gather over gloo on CUDA tensors:
+    raises unless each gives the expected values on the card."""
+    import torch
+    import torch.distributed as dist
+
+    x = torch.full((1000,), float(rank + 1), device=device)
+    dist.all_reduce(x)
+    assert x.device == device and bool((x == world * (world + 1) / 2).all()), \
+        "gloo all_reduce on CUDA tensors"
+    y = torch.full((7,), float(rank), device=device)
+    dist.broadcast(y, src=0)
+    assert y.device == device and bool((y == 0).all()), "gloo broadcast"
+    parts = [torch.empty(3, dtype=torch.int32, device=device)
+             for _ in range(world)]
+    dist.all_gather(parts, torch.full((3,), rank, dtype=torch.int32,
+                                      device=device))
+    assert all(p.device == device and bool((p == r).all())
+               for r, p in enumerate(parts)), "gloo all_gather"
+
+
+def params_digest(nn):
+    """sha256 of every parameter leaf's bytes, in tree order."""
+    import hashlib
+
+    from ast_tpu_torch.train.optimizer import tree_leaves
+
+    h = hashlib.sha256()
+    for t in tree_leaves(nn.params):
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def dp_run(nn, epochs=DP_EPOCHS):
+    """Train ``epochs`` epochs of ``syn_train`` on ``nn``, then predict and
+    beam-decode ``syn_dev``.  Returns a record: the losses, the last
+    epoch's ms a step, the kernels' launches in training, the params, BN
+    state and digest, the decodes."""
+    import torch
+
+    from ast_tpu_torch.checkpoint import flatten
+    from ast_tpu_torch.train.trainer import to_numpy
+
+    zero_counts()
+    # the first step's gradient as the optimizer gets it (summed over the
+    # ranks under a mesh), and the parameters and BN state it made
+    grad1, params1, state1, update = {}, {}, {}, nn.opt.update
+
+    def first_update(g, st, params):
+        if not grad1:
+            grad1.update(flatten(to_numpy(g)))
+        elif not params1:
+            params1.update(flatten(to_numpy(params)))
+            state1.update(flatten(to_numpy(nn.state)))
+        return update(g, st, params)
+
+    nn.opt.update = first_update
+    losses, ms = [], 0.0
+    for e in range(1, epochs + 1):
+        steps0 = nn.timer.n_steps
+        sync(nn.device)
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            losses.append(nn.train_epoch("syn_train", epoch=e))
+        sync(nn.device)
+        ms = (time.perf_counter() - t0) * 1e3 / (nn.timer.n_steps - steps0)
+    nn.opt.update = update
+    rec = {"losses": losses, "ms_step": ms, "grad1": grad1,
+           "params1": params1, "state1": state1, "steps": nn.timer.n_steps,
+           "params": flatten(to_numpy(nn.params)),
+           "state": flatten(to_numpy(nn.state)),
+           "digest": params_digest(nn),
+           "preds": nn.predict("syn_dev"),
+           "beams": nn.decode_beam_set("syn_dev", N_BEAM, K_BEAM)}
+    rec["launches"] = counts()          # the epochs' and the decodes'
+    return rec
+
+
+def dp_rank(rank, world, port, exp, out, device):
+    """One rank of phase 16's data-parallel run: joins a gloo group of
+    ``world`` ranks on ``device`` (cuda:0 for both), checks that gloo
+    takes its tensors,
+    runs :func:`dp_run` through ``NN`` and times the gradient's
+    all-reduce; pickles its record to ``out.<rank>``."""
+    import torch
+    import torch.distributed as dist
+
+    from ast_tpu_torch import parallel
+    from ast_tpu_torch.train import trainer
+    from ast_tpu_torch.train.optimizer import tree_leaves
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(device)
+    parallel.init_distributed(f"localhost:{port}", world, rank, "gloo")
+    try:
+        gloo_cuda_probe(rank, world, device)
+        nn = trainer.NN(exp, device)
+        assert nn.mesh == parallel.Mesh(world, rank), nn.mesh
+        rec = dp_run(nn)
+        grads = [torch.randn_like(p) for p in tree_leaves(nn.params)]
+        reps, spans = 5, []
+        for i in range(reps + 2):
+            dist.barrier()
+            sync(device)
+            t0 = time.perf_counter()
+            parallel.all_reduce_grads(grads, nn.mesh)
+            sync(device)
+            spans.append(time.perf_counter() - t0)
+        rec["allreduce_ms"] = sum(spans[2:]) * 1e3 / reps
+        rec["grad_mb"] = sum(g.numel() * 4 for g in grads) / 1e6
+        with open(f"{out}.{rank}", "wb") as f:
+            pickle.dump(rec, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def check_nccl_one_rank(device):
+    """NCCL at world size 1 on the card: a one-rank group, and the data
+    parallel collectives on a one-rank mesh (the gradient all-reduce,
+    the eval gather, the broadcast of ``replicate``, ``any_rank``) give
+    their inputs back.  Returns the all-reduce's ms for ``n`` floats."""
+    import torch
+    import torch.distributed as dist
+
+    from ast_tpu_torch import parallel
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:"
+                            f"{free_port()}", world_size=1, rank=0)
+    try:
+        mesh = parallel.Mesh(1, 0)
+        g = [torch.randn(1000, 7, device=device),
+             torch.randn(5, device=device)]
+        out = parallel.all_reduce_grads([t.clone() for t in g], mesh)
+        assert all(torch.equal(a, b) for a, b in zip(out, g))
+        rows = parallel.gather_rows([g[0]], mesh)[0]
+        assert torch.equal(rows, g[0])
+        tree = {"a": g[0].clone(), "b": [g[1].to(torch.bfloat16)]}
+        parallel.replicate([tree], mesh)
+        assert torch.equal(tree["a"], g[0])
+        assert parallel.any_rank(True, mesh, device)
+        assert not parallel.any_rank(False, mesh, device)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_data_parallel(cfg, root, smi, device="cuda"):
+    """Phase 16: data parallelism.  The training kernels at a shard's row
+    offset (:func:`check_row_offset_kernels`); NCCL at world size 1
+    (:func:`check_nccl_one_rank`); two gloo ranks sharing cuda:0
+    (:func:`dp_rank`) train DP_EPOCHS epochs of es_en_20h (B = 32, 16
+    rows a rank) on DP_SUBSET, then predict and beam-decode the dev
+    split, against one process running the same: the parameters' sha256
+    equal on both ranks, parameters and BN state within DP_RTOL /
+    DP_ATOL of one process's, both ranks' decodes the whole split and
+    equal, the training kernels launched on each rank; the gloo
+    all-reduce's ms for the gradient and the two-rank step's ms (two
+    ranks on one card); then ``torchrun --nproc-per-node 1 -m
+    ast_tpu_torch.cli.train ... --dist-backend nccl`` for one epoch."""
+    import torch
+    import torch.multiprocessing as mp
+
+    from ast_tpu_torch.train import trainer
+
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import torch_trainer_epoch_bench as eb
+
+    t_phase = time.perf_counter()
+    print(f"phase 16: data parallel ({smi})", flush=True)
+    with torch.inference_mode():
+        errs = check_row_offset_kernels(cfg, torch.device(device))
+    check_nccl_one_rank(torch.device(device))
+    print("  NCCL at world size 1: a one-rank group's all-reduce, gather, "
+          "broadcast and flag agree with their inputs", flush=True)
+
+    corpus = os.path.join(root, "dp_corpus")
+    n_utts = eb.build_corpus(corpus, log=lambda *a: None,
+                             buckets=eb.parse_buckets(DP_SUBSET))
+    exps = {}
+    for tag in ("ranks", "single", "cli"):
+        d = os.path.join(root, f"dp_{tag}")
+        os.makedirs(d)
+        exp = eb.write_configs(corpus, B, 1, compute_dtype="float32")
+        for f in ("model_cfg.json", "train_cfg.json"):
+            shutil.copy(os.path.join(exp, f), d)
+        edit_train_cfg(d, lambda c: c["extras"].update(
+            shrink_tail_batches=False))
+        exps[tag] = d
+
+    out = os.path.join(root, "dp_rank")
+    t0 = time.perf_counter()
+    mp.spawn(dp_rank, args=(DP_RANKS, free_port(), exps["ranks"], out,
+                            "cuda:0" if device == "cuda" else device),
+             nprocs=DP_RANKS, join=True)
+    t_ranks = time.perf_counter() - t0
+    recs = []
+    for r in range(DP_RANKS):
+        with open(f"{out}.{r}", "rb") as f:
+            recs.append(pickle.load(f))
+    single = dp_run(trainer.NN(exps["single"], device))
+
+    assert len({r["digest"] for r in recs}) == 1, \
+        "the ranks' parameters differ"
+    # the first step's gradient (summed over the ranks) and the BN state
+    # it made within DP_RTOL / DP_ATOL of one process's; the parameters
+    # after the first and the last step are compared and their elements
+    # outside those bounds counted: AMSGrad divides each element's
+    # gradient by its own running size (lr g / (|g| + eps) at the first
+    # step), so where |g| sits near the f32 rounding of the row sums the
+    # step that element takes is set by the sums' order
+    worst, outside = {}, {}
+    for what in ("grad1", "state1", "params1", "params", "state"):
+        n_out = n_all = 0
+        for k, want in single[what].items():
+            if not isinstance(want, np.ndarray):
+                continue
+            got = recs[0][what][k]
+            out = ~np.isclose(got, want, rtol=DP_RTOL, atol=DP_ATOL)
+            n_out, n_all = n_out + int(out.sum()), n_all + out.size
+            worst[what] = max(worst.get(what, 0.0),
+                              float(np.abs(got - want).max()))
+            assert what not in ("grad1", "state1") or not out.any(), (
+                f"{what} {k}: two ranks differ from one process by "
+                f"{np.abs(got - want).max()}")
+        outside[what] = (n_out, n_all)
+    assert all(np.isclose(a, b, rtol=1e-5) for a, b in zip(
+        recs[0]["losses"], single["losses"])), (recs[0]["losses"],
+                                                single["losses"])
+    dev_utts = sorted(u for u, _ in single["preds"])
+    for r, rec in enumerate(recs):
+        assert sorted(u for u, _ in rec["preds"]) == dev_utts, r
+        assert sorted(rec["beams"]) == dev_utts, r
+        assert rec["preds"] == recs[0]["preds"], r
+        assert rec["beams"] == recs[0]["beams"], r
+        # a CPU rehearsal runs the plain versions
+        assert device == "cpu" or all(
+            rec["launches"][k] > 0 for k in ("k1t", "k2", "k3", "k4", "k1",
+                                             "k5", "k6")), rec["launches"]
+    # a row's ids up to its first EOS (past it: those of the rows that
+    # share its decode loop, a rank's, as under ast_tpu's shard_map)
+    hyp = {u: ids[:ids.index(2) + 1] if 2 in ids else ids
+           for u, ids in single["preds"]}
+    same_greedy = sum(hyp[u] == (ids[:ids.index(2) + 1] if 2 in ids
+                                 else ids) for u, ids in recs[0]["preds"])
+    same_beam = sum(recs[0]["beams"][u][0][0] == single["beams"][u][0][0]
+                    for u in dev_utts)
+    print(f"  two gloo ranks on cuda:0 (es_en_20h, {B} rows, "
+          f"{B // DP_RANKS} a rank, {n_utts} train utterances, "
+          f"{recs[0]['steps']} steps) against one process: parameter "
+          f"sha256 equal on both ranks; the first step's gradient within "
+          f"{worst['grad1']:.3e} and its BN state within "
+          f"{worst['state1']:.3e} (bounds rtol {DP_RTOL}, atol {DP_ATOL}); "
+          f"the parameters it made within {worst['params1']:.3e} "
+          f"({outside['params1'][0]} of {outside['params1'][1]} elements "
+          f"outside the bounds); after {recs[0]['steps']} steps params within "
+          f"{worst['params']:.3e}, {outside['params'][0]} of "
+          f"{outside['params'][1]} elements outside the bounds, BN state "
+          f"within {worst['state']:.3e} ({outside['state'][0]} of "
+          f"{outside['state'][1]} outside); losses "
+          f"{[round(v, 6) for v in recs[0]['losses']]} vs "
+          f"{[round(v, 6) for v in single['losses']]}; both ranks predict "
+          f"and beam-decode the whole dev split ({len(dev_utts)} "
+          f"utterances), equal on both, {same_greedy} greedy and "
+          f"{same_beam} beam bests equal to one process's; launches a "
+          f"rank {recs[0]['launches']}", flush=True)
+    print(f"  two ranks on one card over gloo ({smi}): gradient all-reduce "
+          f"{recs[0]['allreduce_ms']:.2f} ms a step ({recs[0]['grad_mb']:.1f}"
+          f" MB f32); a step {recs[0]['ms_step']:.2f} ms at {B // DP_RANKS} "
+          f"rows a rank against {single['ms_step']:.2f} ms at {B} rows in "
+          f"one process; the two-rank run {t_ranks:.1f} s with start-up",
+          flush=True)
+
+    # the CLI's launch path under torchrun, NCCL stated
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nproc-per-node",
+           "1", "--master-port", str(free_port()), "-m",
+           "ast_tpu_torch.cli.train", "-m", exps["cli"], "-e", "1",
+           "--dist-backend", "nccl"]
+    if device == "cpu":
+        cmd += ["--device", "cpu"]
+    t0 = time.perf_counter()
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                         cwd=REPO)
+    assert res.returncode == 0, res.stdout[-2000:] + res.stderr[-2000:]
+    with open(os.path.join(exps["cli"], "train.log")) as f:
+        rows = f.read().split()
+    assert len(rows) == 2 and os.path.exists(
+        os.path.join(exps["cli"], "dev.log")), rows
+    print(f"  torchrun --nproc-per-node 1 -m ast_tpu_torch.cli.train -e 1 "
+          f"--dist-backend nccl: exit 0 in {time.perf_counter() - t0:.1f} s, "
+          f"train.log {rows}, dev.log written", flush=True)
+    print(f"phase 16: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return errs
+
+
 def step_split(nn, batch, reps):
     """Mean device time (ms) of ``nn.train_step`` on ``batch`` and of the
     parts of it that run in K1 train, K2, K3, K4, the optimizer's update
@@ -5358,6 +5827,7 @@ def main():
                                                   root, smi)
         print(f"phase 14: {time.perf_counter() - t14:.1f} s", flush=True)
         ep_launches, ep_steps = run_feed_options(cfg, root, smi)
+        run_data_parallel(cfg, root, smi)
     launches.update(bf_launches)
     units.update(bf_units)
     launches.update({k: v for k, v in train_launches.items() if k != "k5"})

@@ -601,13 +601,13 @@ def _mutate(point, monkeypatch):
     elif point == "x_drop_as_fed_forward":
         regen = fused_decoder.regen_x_drop
         monkeypatch.setattr(fused_decoder, "regen_x_drop",
-                            lambda h, seed, rate: rounded(regen(h, seed,
-                                                                rate)))
+                            lambda h, seed, rate, *rows: rounded(
+                                regen(h, seed, rate, *rows)))
     elif point == "h_fin_c_fin_rounded":
         train = fused_lstm.fused_stacked_lstm_train
 
-        def from_streams(*args):
-            out = train(*args)
+        def from_streams(*args, **kw):
+            out = train(*args, **kw)
             return (out[0], out[5][-1].float(), out[4][-1].float()) + out[3:]
         monkeypatch.setattr(fused_lstm, "fused_stacked_lstm_train",
                             from_streams)

@@ -128,21 +128,31 @@ def _enc_inputs(T=6, L=3, D2=2, B=3, H=8):
 
 
 ENC_SEED = 2 ** 31 - 5      # seed + t*L + l passes 2**31
+# (row_offset, global_rows) of the training kernels' calls: a whole batch,
+# and the 3 rows at 5 .. 7 of an 11-row batch (a data-parallel shard's)
+ROW_CASES = ((0, None), (5, 11))
 
 
 def test_k1_train_reference_matches_interpret_kernel():
     args = _enc_inputs()
-    ref = jax_fl._forward(*(jnp.asarray(a) for a in args), ENC_SEED, True,
-                          0.3, True)
-    got = fused_lstm.fused_stacked_lstm_train(*(_t(a) for a in args),
-                                              ENC_SEED, 0.3)
-    for name, r, g in zip(("outs", "h_fin", "c_fin", "acts", "c_all",
-                           "h_pre", "x_drop"), ref, got):
-        np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=0,
-                                   atol=ATOL, err_msg=name)
-    x_drop = got[-1].numpy()
-    np.testing.assert_array_equal(x_drop == 0, np.asarray(ref[-1]) == 0)
-    assert 0.1 < (x_drop == 0).mean() < 0.5
+    for off, rows in ROW_CASES:
+        ref = jax_fl._forward(*(jnp.asarray(a) for a in args), ENC_SEED,
+                              True, 0.3, True, off, rows)
+        got = fused_lstm.fused_stacked_lstm_train(
+            *(_t(a) for a in args), ENC_SEED, 0.3, off, rows)
+        for name, r, g in zip(("outs", "h_fin", "c_fin", "acts", "c_all",
+                               "h_pre", "x_drop"), ref, got):
+            np.testing.assert_allclose(g.numpy(), np.asarray(r), rtol=0,
+                                       atol=ATOL, err_msg=f"{name} {off}")
+        x_drop = got[-1].numpy()
+        np.testing.assert_array_equal(x_drop == 0, np.asarray(ref[-1]) == 0)
+        assert 0.1 < (x_drop == 0).mean() < 0.5
+    # the shard's masks are the global batch's rows, not its own
+    shard = fused_lstm.fused_stacked_lstm_train(
+        *(_t(a) for a in args), ENC_SEED, 0.3, 5, 11)[-1]
+    whole = fused_lstm.fused_stacked_lstm_train(
+        *(_t(a) for a in args), ENC_SEED, 0.3)[-1]
+    assert not torch.equal(shard == 0, whole == 0)
     _counters_zero()
 
 
@@ -155,27 +165,29 @@ def test_k2_grads_match_jax(train):
     cot = (rng.randn(T, D2, B, H4 // 4).astype(np.float32),
            rng.randn(L, D2, B, H4 // 4).astype(np.float32),
            rng.randn(L, D2, B, H4 // 4).astype(np.float32))
+    for off, rows in ROW_CASES:
+        def f(x0, wx, wh, b):
+            return jax_fl.fused_stacked_lstm(x0, wx, wh, b, ENC_SEED, train,
+                                             0.3, True, off, rows)
 
-    def f(x0, wx, wh, b):
-        return jax_fl.fused_stacked_lstm(x0, wx, wh, b, ENC_SEED, train,
-                                         0.3, True)
+        _, vjp = jax.vjp(f, *(jnp.asarray(a) for a in args))
+        ref = vjp(tuple(jnp.asarray(c) for c in cot))
 
-    _, vjp = jax.vjp(f, *(jnp.asarray(a) for a in args))
-    ref = vjp(tuple(jnp.asarray(c) for c in cot))
-
-    ins = [_t(a).requires_grad_(True) for a in args]
-    out = fused_lstm.FusedStackedLSTM.apply(*ins, ENC_SEED, train, 0.3)
-    got = torch.autograd.grad(out, ins, [_t(c) for c in cot])
-    for name, r, g in zip(("dx0", "dwx", "dwh", "db"), ref, got):
-        np.testing.assert_allclose(g.numpy(), np.asarray(r), **ENC_GRAD,
-                                   err_msg=name)
-    # the hand-derived backward against plain autograd of the forward
-    plain = fused_lstm.stacked_lstm_reference(*ins, True, ENC_SEED,
-                                              0.3 if train else 0.0)[:3]
-    auto = torch.autograd.grad(plain, ins, [_t(c) for c in cot])
-    for name, a, g in zip(("dx0", "dwx", "dwh", "db"), auto, got):
-        np.testing.assert_allclose(g.numpy(), a.numpy(), **ENC_GRAD,
-                                   err_msg=name)
+        ins = [_t(a).requires_grad_(True) for a in args]
+        out = fused_lstm.FusedStackedLSTM.apply(*ins, ENC_SEED, train, 0.3,
+                                                torch.float32, off, rows)
+        got = torch.autograd.grad(out, ins, [_t(c) for c in cot])
+        for name, r, g in zip(("dx0", "dwx", "dwh", "db"), ref, got):
+            np.testing.assert_allclose(g.numpy(), np.asarray(r), **ENC_GRAD,
+                                       err_msg=f"{name} {off}")
+        # the hand-derived backward against plain autograd of the forward
+        plain = fused_lstm.stacked_lstm_reference(
+            *ins, True, ENC_SEED, 0.3 if train else 0.0, row_offset=off,
+            global_rows=rows)[:3]
+        auto = torch.autograd.grad(plain, ins, [_t(c) for c in cot])
+        for name, a, g in zip(("dx0", "dwx", "dwh", "db"), auto, got):
+            np.testing.assert_allclose(g.numpy(), a.numpy(), **ENC_GRAD,
+                                       err_msg=f"{name} {off}")
     _counters_zero()
 
 
@@ -211,23 +223,37 @@ def dec_inputs():
 def test_k3_reference_matches_interpret_kernel(dec_inputs):
     enc, h0, c0, w, y_in, coins = dec_inputs
     y_oh = jax.nn.one_hot(y_in, V, dtype=jnp.float32)
-    ht_r, res_r = jax_fd.decoder_forward(
-        jnp.asarray(enc), jnp.asarray(h0), jnp.asarray(c0),
-        {k: jnp.asarray(v) for k, v in w.items()}, y_oh,
-        jnp.asarray(coins), DEC_SEED, 0.3, 0.3, True, interpret=True)
     tw = {k: _t(v) for k, v in w.items()}
-    ht, res = fused_decoder.decoder_forward(
-        _t(enc), _t(h0), _t(c0), tw, _t(y_in), _t(coins), DEC_SEED, 0.3,
-        0.3)
-    np.testing.assert_allclose(ht.numpy(), np.asarray(ht_r), rtol=0,
-                               atol=ATOL)
-    for k in ("acts", "c_all", "h_all", "alphas", "q", "cv", "emb"):
-        np.testing.assert_allclose(res[k].numpy(), np.asarray(res_r[k]),
-                                   rtol=0, atol=ATOL, err_msg=k)
-    sel_ref = np.asarray(res_r["sel"]).argmax(-1)
-    np.testing.assert_array_equal(res["sel"].numpy(), sel_ref)
-    # the sampled steps fed something other than the teacher's ids
-    assert (sel_ref[coins == 0] != y_in[coins == 0]).any()
+    drops = {}
+    for off, _ in ROW_CASES:
+        ht_r, res_r = jax_fd.decoder_forward(
+            jnp.asarray(enc), jnp.asarray(h0), jnp.asarray(c0),
+            {k: jnp.asarray(v) for k, v in w.items()}, y_oh,
+            jnp.asarray(coins), DEC_SEED, 0.3, 0.3, True, interpret=True,
+            row_offset=off)
+        ht, res = fused_decoder.decoder_forward(
+            _t(enc), _t(h0), _t(c0), tw, _t(y_in), _t(coins), DEC_SEED, 0.3,
+            0.3, off)
+        np.testing.assert_allclose(ht.numpy(), np.asarray(ht_r), rtol=0,
+                                   atol=ATOL)
+        for k in ("acts", "c_all", "h_all", "alphas", "q", "cv", "emb"):
+            np.testing.assert_allclose(res[k].numpy(), np.asarray(res_r[k]),
+                                       rtol=0, atol=ATOL,
+                                       err_msg=f"{k} {off}")
+        # the masks exactly: the dropped embedding and layer outputs
+        np.testing.assert_array_equal(res["emb"].numpy() == 0,
+                                      np.asarray(res_r["emb"]) == 0)
+        U, L, B, H = res["x_drop"].shape
+        keep = np.stack([np.asarray(jax_fd._regen_masks(
+            U, (B, H), 0.3, DEC_SEED, 2 * l + 1, 2 * L, off))
+            for l in range(L)], axis=1)
+        np.testing.assert_array_equal(res["x_drop"].numpy() == 0, ~keep)
+        drops[off] = res["x_drop"] == 0
+        sel_ref = np.asarray(res_r["sel"]).argmax(-1)
+        np.testing.assert_array_equal(res["sel"].numpy(), sel_ref)
+        # the sampled steps fed something other than the teacher's ids
+        assert (sel_ref[coins == 0] != y_in[coins == 0]).any()
+    assert not torch.equal(*drops.values())
     _counters_zero()
 
 
@@ -239,36 +265,38 @@ def test_k4_grads_match_jax(dec_inputs):
         np.float32)
     y_oh = jax.nn.one_hot(y_in, V, dtype=jnp.float32)
 
-    def f(*a):
-        return jax_fd.fused_decoder_apply(*a, y_oh, jnp.asarray(coins),
-                                          DEC_SEED, 0.3, 0.3, True, True)
+    for off, _ in ROW_CASES:
+        def f(*a):
+            return jax_fd.fused_decoder_apply(*a, y_oh, jnp.asarray(coins),
+                                              DEC_SEED, 0.3, 0.3, True, True,
+                                              off)
 
-    _, vjp = jax.vjp(f, *(jnp.asarray(a) for a in
-                          [enc, h0, c0] + [w[k] for k in names]))
-    ref = vjp(jnp.asarray(d_ht))
+        _, vjp = jax.vjp(f, *(jnp.asarray(a) for a in
+                              [enc, h0, c0] + [w[k] for k in names]))
+        ref = vjp(jnp.asarray(d_ht))
 
-    ins = [_t(a).requires_grad_(True) for a in
-           [enc, h0, c0] + [w[k] for k in names]]
-    ht, sel = fused_decoder.FusedDecoder.apply(*ins, _t(y_in), _t(coins),
-                                               DEC_SEED, 0.3, 0.3)
-    got = torch.autograd.grad(ht, ins, _t(d_ht), allow_unused=True)
-    labels = ("enc", "h0", "c0") + names
-    for name, r, g, x in zip(labels, ref, got, ins):
-        g = torch.zeros_like(x) if g is None else g
-        np.testing.assert_allclose(g.numpy(), np.asarray(r), **DEC_GRAD,
-                                   err_msg=name)
-    # the hand-derived backward against plain autograd along the same
-    # inputs (the argmax feed itself takes no gradient)
-    tw = dict(zip(names, ins[3:]))
-    ht_p, _ = fused_decoder.decoder_forward_reference(
-        *ins[:3], tw, _t(y_in), _t(coins), DEC_SEED, 0.3, 0.3,
-        forced_ids=sel)
-    auto = torch.autograd.grad(ht_p, ins, _t(d_ht), allow_unused=True)
-    for name, a, g, x in zip(labels, auto, got, ins):
-        a = torch.zeros_like(x) if a is None else a
-        g = torch.zeros_like(x) if g is None else g
-        np.testing.assert_allclose(g.numpy(), a.numpy(), **DEC_GRAD,
-                                   err_msg=name)
+        ins = [_t(a).requires_grad_(True) for a in
+               [enc, h0, c0] + [w[k] for k in names]]
+        ht, sel = fused_decoder.FusedDecoder.apply(
+            *ins, _t(y_in), _t(coins), DEC_SEED, 0.3, 0.3, off)
+        got = torch.autograd.grad(ht, ins, _t(d_ht), allow_unused=True)
+        labels = ("enc", "h0", "c0") + names
+        for name, r, g, x in zip(labels, ref, got, ins):
+            g = torch.zeros_like(x) if g is None else g
+            np.testing.assert_allclose(g.numpy(), np.asarray(r), **DEC_GRAD,
+                                       err_msg=f"{name} {off}")
+        # the hand-derived backward against plain autograd along the same
+        # inputs (the argmax feed itself takes no gradient)
+        tw = dict(zip(names, ins[3:]))
+        ht_p, _ = fused_decoder.decoder_forward_reference(
+            *ins[:3], tw, _t(y_in), _t(coins), DEC_SEED, 0.3, 0.3,
+            forced_ids=sel, row_offset=off)
+        auto = torch.autograd.grad(ht_p, ins, _t(d_ht), allow_unused=True)
+        for name, a, g, x in zip(labels, auto, got, ins):
+            a = torch.zeros_like(x) if a is None else a
+            g = torch.zeros_like(x) if g is None else g
+            np.testing.assert_allclose(g.numpy(), a.numpy(), **DEC_GRAD,
+                                       err_msg=f"{name} {off}")
     _counters_zero()
 
 

@@ -293,6 +293,10 @@ def test_explicit_ckpt_skips_resume_scan(tmp_path):
 
 
 def test_ignored_options_are_named(tmp_path, capsys):
+    """No option is set and ignored any more: remat is ported, and a
+    ``parallel`` block is the data axis over the process group -- one
+    process refuses an explicit data axis of 4 (ast_tpu's make_mesh:
+    more than its devices) and names the unported model axis."""
     exp = _tiny(tmp_path)
     NN(exp, "cpu")
     assert "set and ignored" not in capsys.readouterr().out
@@ -301,12 +305,16 @@ def test_ignored_options_are_named(tmp_path, capsys):
         c["extras"]["remat"] = True
         c["parallel"] = {"data_axis": 4}
     _edit_cfg(exp, edit)
-    NN(exp, "cpu")
-    lines = [ln for ln in capsys.readouterr().out.splitlines()
-             if "set and ignored" in ln]
-    # remat is ported (forward_loss under torch.utils.checkpoint)
-    assert len(lines) == 1
-    assert "remat" not in lines[0] and "parallel" in lines[0]
+    with pytest.raises(ValueError, match="needs more than 1 devices"):
+        NN(exp, "cpu")
+    _edit_cfg(exp, lambda c: c.update(parallel={"data_axis": 1,
+                                                "model_axis": 2}))
+    with pytest.raises(ValueError, match="model_axis=2"):
+        NN(exp, "cpu")
+    _edit_cfg(exp, lambda c: c.update(parallel={"data_axis": 1}))
+    nn = NN(exp, "cpu")
+    assert nn.mesh is None and nn.remat
+    assert "set and ignored" not in capsys.readouterr().out
 
 
 @pytest.mark.parametrize("name,edit", [
