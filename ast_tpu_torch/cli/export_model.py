@@ -14,8 +14,8 @@ routes it.  ``--platforms`` and ``--native-kernels`` (``ast_tpu``'s
 StableHLO lowering targets) are accepted and ignored: the server runs
 the kernels whenever it runs on the card.  ``--dtype`` (default: the
 experiment's ``extras.compute_dtype``) is written to the manifest's
-``compute_dtype``, at which the server decodes; ``bfloat16`` takes the
-model the kernels take and refuses a scan-path variant by name.
+``compute_dtype``, at which the server decodes, any model variant at
+either dtype.
 """
 
 import argparse
@@ -28,7 +28,6 @@ from ast_tpu_torch.detok import dec_i2w
 from ast_tpu_torch.models import seq2seq
 from ast_tpu_torch.ops import beam as beam_ops
 from ast_tpu_torch.ops.bf16 import parse_dtype
-from ast_tpu_torch.ops.fused_infer import require_bf16_variant
 from ast_tpu_torch.params import tree_map
 
 
@@ -91,14 +90,14 @@ def main(argv=None):
     mcfg = cfg.model
     dtype = args.dtype or cfg.train["extras"].get("compute_dtype",
                                                   "float32")
-    require_bf16_variant(mcfg, parse_dtype(dtype))
+    compute_dtype = parse_dtype(dtype)     # before any file is written
     data_cfg = cfg.train["data"]
     stop_limit = args.stop_limit or int(data_cfg["max_pred"])
     if beam_nk:
         # the beam decoder's own checks (K <= V, N, K >= 1), before any
         # file is written
         beam_ops.make_beam_decoder(mcfg, *beam_nk, stop_limit,
-                                   compute_dtype=parse_dtype(dtype))
+                                   compute_dtype=compute_dtype)
     if args.frames:
         frames = [int(t) for t in args.frames.split(",")]
     else:

@@ -454,15 +454,19 @@ class ArtifactServer:
 
     def _call_rows(self, entry, xs):
         """Decode utterances ``xs`` (each ``(t, F)`` features or an
-        ``_Audio``, at most the entry's batch) in one call; returns
-        per-row output tuples."""
+        ``_Audio``, at most the entry's batch) in one call at the entry's
+        static batch, zero rows after them; returns the real rows' output
+        tuples.  A row's float sums then do not depend on how many
+        requests share its call (the GEMMs' blocking and algorithm are
+        chosen by their row count), so a batched row equals the request
+        decoded alone."""
         T, B = entry["frames"], entry["batch"]
         dev, stream = self._free.get()      # block until a token frees
         try:
             # width from the model, not from the first queued request: a
             # malformed request must not poison its batch mates (each
             # row is validated in decode() before submit)
-            X = np.zeros((len(xs), T, self.feat_dim), np.float32)
+            X = np.zeros((B, T, self.feat_dim), np.float32)
             for i, x in enumerate(xs):
                 if isinstance(x, _Audio):
                     x = self._audio_features(x, dev, stream)

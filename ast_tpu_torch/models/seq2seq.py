@@ -46,18 +46,28 @@ front-end's and ``linear_proj``'s batch-statistics BN the global
 batch's (``ops.cnn.batch_moments``).  The routing predicates see the
 local batch, as ``ast_tpu``'s gates see a shard's (``_n_data_shards``).
 
-Decoding and training also run at ``compute_dtype`` bfloat16
-(``ast_tpu``'s ``extras.compute_dtype``; ``ops.bf16``): the conv
-front-end's im2col products and the hoisted layer-0 projection round
-their operands to bf16 and multiply in f32 (under autograd the rounding
-also rounds the gradients that reach the operands, as XLA's transpose of
-a bf16 product does); K1-K6 run their bf16 modes; the decoder takes its
-weights in bf16 (:func:`pack_decoder_weights`, :func:`decode_weights`)
-and the encoder states rounded to bf16; the loss logits are an f32
-product of the rounded ``ht`` and ``out_w`` plus the f32 ``out_b``.  The
-parameters, the BN state and the optimizer stay f32.  The model variants
-and the widths or shapes routed to the scan path are refused there by
-name (``fused_infer.require_bf16_variant``, ``require_bf16_shapes``).
+Every variant decodes and trains at ``compute_dtype`` bfloat16 too
+(``ast_tpu``'s ``extras.compute_dtype``; ``ops.bf16``), each stage with
+the rounding points of its route in ``ast_tpu``.  On every route the
+conv front-end's im2col products and the hoisted layer-0 projection
+round their operands to bf16 and multiply in f32 (under autograd the
+rounding also rounds the gradients that reach the operands, as XLA's
+transpose of a bf16 product does).  The kernel stages: K1-K6 run their
+bf16 modes; the decoder takes its weights in bf16
+(:func:`pack_decoder_weights`, :func:`decode_weights`) and the encoder
+states rounded to bf16; the loss logits are an f32 product of the
+rounded ``ht`` and ``out_w`` plus the f32 ``out_b``.  The scan stages
+(``ast_tpu``'s XLA code): the stacked scan encoder multiplies a layer's
+rounded input by its rounded ``wx`` and keeps ``h @ wh`` in f32
+(``fused_lstm.stacked_lstm_reference``'s ``compute_dtype``);
+``linear_proj``'s layers, projections and BN run in f32 after the bf16
+conv, as ``ast_tpu``'s ``_encode_proj`` ignores the dtype;
+:func:`decode_step` rounds ``[emb; ht]`` and ``wx`` (``h @ wh`` f32), the
+attention's rounding points (``ops.attention``) and ``ht`` and
+``out_w`` for the logits, each at every step.  A kernel stage's f32
+outputs feed a scan stage as they are, and the scan encoder's states
+are rounded to bf16 for K3, K5 and K6.  The parameters, the BN state
+and the optimizer stay f32.
 """
 
 import dataclasses
@@ -68,18 +78,16 @@ import torch
 
 from ast_tpu_torch.symbols import SYMBOLS
 from ast_tpu_torch.ops.attention import luong_attention
-from ast_tpu_torch.ops.bf16 import BF16, rounded
+from ast_tpu_torch.ops.bf16 import BF16, rounded, scan_dot
 from ast_tpu_torch.ops.cnn import (
     BN_DECAY, BN_EPS, batch_moments, conv_frontend, conv_out_len)
 from ast_tpu_torch.ops.dropout import drop_mask
 from ast_tpu_torch.ops.embedding import embedding_lookup
 from ast_tpu_torch.ops.fused_decoder import (
-    W_NAMES, FusedDecoder, embed_drop_mask, rnn_drop_mask,
-    train_shapes_ok, train_shapes_problem)
+    W_NAMES, FusedDecoder, embed_drop_mask, rnn_drop_mask, train_shapes_ok)
 from ast_tpu_torch.ops.fused_infer import (
-    decode_shapes_ok, decode_shapes_problem, greedy_decode_fused,
-    greedy_reference, infer_variant_ok, on_card, pack_decode_step,
-    require_bf16_shapes, require_bf16_variant, train_bf16_options)
+    decode_shapes_ok, greedy_decode_fused, greedy_reference,
+    infer_variant_ok, on_card, pack_decode_step)
 from ast_tpu_torch.ops.fused_lstm import (
     FusedStackedLSTM, encoder_shapes_ok, fused_stacked_lstm,
     pack_encoder_step_weights, pack_encoder_weights, stacked_lstm_reference)
@@ -365,7 +373,9 @@ def _encode_proj(params, state, mcfg, h_cnn, cnn_state, train, seed,
     ``enc_proj_bn``; the global batch's under ``mesh``) + ReLU between
     layers; no reversal quirk.  Layer l's dropout mask at step t has the
     seed ``seed + l T' + t``, over the global rows ``rows`` (row_offset,
-    global_rows)."""
+    global_rows).  f32 at either compute dtype: ``ast_tpu``'s takes
+    ``compute_dtype`` and reads none of it (only the conv front-end
+    before it runs at bf16)."""
     rnn = mcfg["rnn_config"]
     rate = float(mcfg["dropout"]["rnn"]) if train else 0.0
     seq = h_cnn.transpose(0, 1)                         # (T', B, C)
@@ -402,36 +412,42 @@ def _encode_proj(params, state, mcfg, h_cnn, cnn_state, train, seed,
 
 
 def scan_encode(params, state, mcfg, X, train=False, seed=0,
-                rows=(0, None), mesh=None):
+                rows=(0, None), mesh=None, compute_dtype=torch.float32):
     """``ast_tpu``'s scan encoder as plain PyTorch with autograd, on X's
     device: the stacked recurrence with ``ln`` / ``rnn_relu``
-    (``fused_lstm.stacked_lstm_reference``, K1's plain version) or the
-    ``linear_proj`` layers.  ``train``: batch-statistics BatchNorm (the
-    global batch's under ``mesh``) and hash dropout at ``dropout.rnn``
-    seeded by ``seed`` over the global rows ``rows`` (row_offset,
-    global_rows) -- for the stacked encoder the masks K1 draws.  Returns
-    (enc_states, dec_h0, dec_c0, new_state)."""
+    (``fused_lstm.stacked_lstm_reference``, K1's plain version, at the
+    scan's rounding points) or the ``linear_proj`` layers.  ``train``:
+    batch-statistics BatchNorm (the global batch's under ``mesh``) and
+    hash dropout at ``dropout.rnn`` seeded by ``seed`` over the global
+    rows ``rows`` (row_offset, global_rows) -- for the stacked encoder
+    the masks K1 draws.  ``compute_dtype`` bf16: the scan path's rounding
+    points (module docstring).  Returns (enc_states, dec_h0, dec_c0,
+    new_state), the states f32."""
     rnn = mcfg["rnn_config"]
     rate = float(mcfg["dropout"]["rnn"]) if train else 0.0
     if rnn.get("linear_proj", False):
         h_cnn, cnn_state = conv_frontend(
             params["cnn"], state["cnn_bn"], mcfg["cnn_config"],
-            _source(params, X), train, mesh=mesh)
+            _source(params, X), train, compute_dtype, mesh)
         return _encode_proj(params, state, mcfg, h_cnn, cnn_state, train,
                             seed, rows, mesh)
-    enc_in = encoder_inputs(params, state, mcfg, X, train=train, mesh=mesh)
+    enc_w = pack_encoder_weights(direction_stacked(params["enc"]["lstm"]))
+    enc_in = encoder_inputs(params, state, mcfg, X, train, enc_w,
+                            compute_dtype, mesh)
     ln = None
     if rnn.get("ln", False):
         ln = [(p["g"], p["b"]) for p in params["enc"]["ln"]]
     out = stacked_lstm_reference(*enc_in[:4], train, seed, rate, ln,
-                                 rnn.get("rnn_relu", False), *rows)
+                                 rnn.get("rnn_relu", False), *rows,
+                                 compute_dtype)
     return encoder_outputs(*out[:3]) + (enc_in[4] if train else state,)
 
 
 def _encode_eval(params, state, mcfg, X, enc_w=None,
                  compute_dtype=torch.float32):
     if not use_fused_encoder(mcfg, X.device):
-        return scan_encode(params, state, mcfg, X)[:3]
+        return scan_encode(params, state, mcfg, X,
+                           compute_dtype=compute_dtype)[:3]
     return encoder_outputs(*fused_stacked_lstm(*encoder_inputs(
         params, state, mcfg, X, enc_w=enc_w, compute_dtype=compute_dtype)))
 
@@ -512,7 +528,7 @@ def init_decoder_carry(mcfg, dec_h0, dec_c0):
 
 
 def decode_step(params, mcfg, enc_states, carry, token, drop=None,
-                enc_mask=None):
+                enc_mask=None, compute_dtype=torch.float32):
     """One decoder step of any variant (``ast_tpu``'s ``decode_step``):
     embedding, input feeding (``feed_attn``), the L-layer LSTM with
     dropout, LayerNorm and ReLU on each layer's output as configured,
@@ -523,8 +539,10 @@ def decode_step(params, mcfg, enc_states, carry, token, drop=None,
     None in eval mode, else ``(draws, t)``: the step's dropout masks are
     K3's hash masks of step t under ``draws.dec_seed`` for the embedding
     and the LSTM outputs, and ``draws.out_seed(t)``'s over (B, V) for the
-    logits, each over the global rows from ``draws.row_offset``.  Returns
-    (logits (B, V), new carry, alphas (B, T') of the first head)."""
+    logits, each over the global rows from ``draws.row_offset``.
+    ``compute_dtype`` bf16: ``ast_tpu``'s scan-path rounding points (the
+    module docstring; ``enc_states`` f32 or bf16).  Returns (logits (B,
+    V), new carry, alphas (B, T') of the first head), f32."""
     rnn, rates, dec = mcfg["rnn_config"], mcfg["dropout"], params["dec"]
     B, dev = token.shape[0], enc_states.device
     x = embedding_lookup(dec["embed"], token)
@@ -538,7 +556,8 @@ def decode_step(params, mcfg, enc_states, carry, token, drop=None,
     L, H = len(dec["lstm"]), rnn["hidden_units"]
     new_h, new_c = [], []
     for l, lp in enumerate(dec["lstm"]):
-        z = x @ lp["wx"] + carry["h"][l] @ lp["wh"] + lp["b"]
+        z = (scan_dot(x, lp["wx"], compute_dtype) + carry["h"][l] @ lp["wh"]
+             + lp["b"])
         h, c = lstm_gates(z, carry["c"][l], H)
         x = h
         if drop is not None and rates["rnn"] > 0:
@@ -556,8 +575,8 @@ def decode_step(params, mcfg, enc_states, carry, token, drop=None,
     ht, alphas = luong_attention(
         enc_states, x, [(a["w"], a["b"]) for a in attn["wa"]],
         attn["context"]["w"], attn["context"]["b"], enc_mask,
-        rnn.get("attn_block_size", 0))
-    logits = ht @ dec["out_w"] + dec["out_b"]
+        rnn.get("attn_block_size", 0), compute_dtype)
+    logits = scan_dot(ht, dec["out_w"], compute_dtype) + dec["out_b"]
     rate = rates.get("out", 0)
     if drop is not None and rate > 0:
         draws, t = drop
@@ -569,47 +588,44 @@ def decode_step(params, mcfg, enc_states, carry, token, drop=None,
                      "ht": ht}, alphas)
 
 
-def plain_step(params, mcfg, enc_mask=None):
+def plain_step(params, mcfg, enc_mask=None, compute_dtype=torch.float32):
     """:func:`decode_step` in eval mode as the decode loops
     (``fused_infer.greedy_reference`` / ``beam_reference``) take it:
     ``(enc_rows, h, c, ht, tok) -> (logits, h, c, ht, alphas)``.
-    ``enc_mask``: (rows, T') for the rows the loop runs."""
+    ``enc_mask``: (rows, T') for the rows the loop runs;
+    ``compute_dtype``: the step's."""
     def step(enc, h, c, ht, tok):
         logits, carry, alphas = decode_step(
             params, mcfg, enc, {"h": h, "c": c, "ht": ht}, tok,
-            enc_mask=enc_mask)
+            enc_mask=enc_mask, compute_dtype=compute_dtype)
         return logits, carry["h"], carry["c"], carry["ht"], alphas
     return step
 
 
 def predict_greedy(params, state, mcfg, X, stop_limit, w=None,
                    enc_mask=None, compute_dtype=torch.float32):
-    """Batched greedy decode: K5 when ``infer_variant_ok``, else the same
-    loop over :func:`plain_step` (``ast_tpu``'s while loop).  Returns
-    (preds (B, stop_limit) int32, n_steps 0-d int32): the steps until
-    every row has produced its first EOS, capped at stop_limit.  ``w``:
-    :func:`decode_weights` of ``params`` at ``compute_dtype``, made here
-    when not given; ``enc_mask`` (B, T') (:func:`make_enc_mask`).  At
-    bf16 the encoder states are rounded to bf16 before K5, as in
+    """Batched greedy decode: K5 when :func:`use_fused_infer`, else the
+    same loop over :func:`plain_step` (``ast_tpu``'s while loop), at
+    either compute dtype.  Returns (preds (B, stop_limit) int32, n_steps
+    0-d int32): the steps until every row has produced its first EOS,
+    capped at stop_limit.  ``w``: :func:`decode_weights` of ``params`` at
+    ``compute_dtype``, made here when not given; ``enc_mask`` (B, T')
+    (:func:`make_enc_mask`).  At bf16 the encoder states are rounded to
+    bf16 before K5, and the plain loop's attention rounds them, as in
     ``ast_tpu``."""
     if w is None:
         w = decode_weights(params, compute_dtype)
     _check_weights_dtype(w, compute_dtype)
-    require_bf16_variant(mcfg, compute_dtype,
-                         [] if enc_mask is None else ["enc_mask"], X.device)
     enc_states, dec_h0, dec_c0 = encode(params, state, mcfg, X, w,
                                         compute_dtype)
-    if compute_dtype == BF16:
-        enc_states = enc_states.to(BF16)
     if use_fused_infer(mcfg, X.device, *enc_states.shape[:2],
                        enc_mask=enc_mask):
-        preds = greedy_decode_fused(enc_states, dec_h0, dec_c0, w,
-                                    stop_limit)
+        preds = greedy_decode_fused(enc_states.to(w["wh"].dtype), dec_h0,
+                                    dec_c0, w, stop_limit)
     else:
-        require_bf16_shapes(compute_dtype, decode_shapes_problem(
-            *enc_states.shape, w["embed"].shape[1], w["ctx_w"].shape[1], 1))
         preds = greedy_reference(enc_states, dec_h0, dec_c0, w, stop_limit,
-                                 plain_step(params, mcfg, enc_mask))
+                                 plain_step(params, mcfg, enc_mask,
+                                            compute_dtype))
     is_eos = preds == SYMBOLS.EOS_ID
     per_row = torch.where(is_eos.any(dim=1),
                           is_eos.int().argmax(dim=1) + 1, stop_limit)
@@ -724,15 +740,15 @@ def encode_train(params, state, mcfg, X, draws, compute_dtype=torch.float32,
     batch's under ``mesh``), hash dropout seeded by ``draws.enc_seed``
     over the global rows ``draws.rows`` -- K1 forward and K2 backward
     when :func:`use_fused_encoder`, else :func:`scan_encode` with
-    autograd (f32 only).  Returns (enc_states, dec_h0, dec_c0,
-    new_state), the states f32 at either ``compute_dtype``."""
+    autograd, each at ``compute_dtype``.  Returns (enc_states, dec_h0,
+    dec_c0, new_state), the states f32 at either ``compute_dtype``."""
     if draws.spec is not None:
         X = apply_spec_masks(X, draws.spec)
     if draws.noise is not None:
         X = X * (1.0 + draws.noise)
     if not use_fused_encoder(mcfg, X.device):
         return scan_encode(params, state, mcfg, X, True, draws.enc_seed,
-                           draws.rows, mesh)
+                           draws.rows, mesh, compute_dtype)
     x0_proj, wx_rest, wh, b, new_state = encoder_inputs(
         params, state, mcfg, X, train=True, compute_dtype=compute_dtype,
         mesh=mesh)
@@ -773,7 +789,8 @@ def logits_loss(logits, target, n_real, label_smoothing=0.0, replace=None,
 
 
 def scan_decoder_loss(params, mcfg, enc, h0, c0, y, n_real, draws=None,
-                      label_smoothing=0.0, enc_mask=None):
+                      label_smoothing=0.0, enc_mask=None,
+                      compute_dtype=torch.float32):
     """``ast_tpu``'s scan loss (``forward_loss``'s ``lax.scan``) as plain
     PyTorch with autograd, on enc's device: :func:`decode_step` over the
     U - 1 steps, each step's input the teacher's token where
@@ -781,7 +798,9 @@ def scan_decoder_loss(params, mcfg, enc, h0, c0, y, n_real, draws=None,
     logits (after output dropout), then the cross-entropy of
     :func:`logits_loss` with ``draws``' target corruption and
     ``label_smoothing``.  ``draws`` None: eval mode (every step forced,
-    no dropout, plain cross-entropy).  Returns the loss."""
+    no dropout, plain cross-entropy).  ``compute_dtype``: each step's
+    (:func:`decode_step`); the log-softmax and the cross-entropy f32.
+    Returns the loss."""
     yT = y.t()
     steps = yT.shape[0] - 1
     coins = [1] * steps if draws is None else draws.coins.tolist()
@@ -791,7 +810,7 @@ def scan_decoder_loss(params, mcfg, enc, h0, c0, y, n_real, draws=None,
         tok = yT[t] if coins[t] else prev
         lg, carry, _ = decode_step(params, mcfg, enc, carry, tok,
                                    None if draws is None else (draws, t),
-                                   enc_mask)
+                                   enc_mask, compute_dtype)
         if t + 1 < steps and not coins[t + 1]:
             prev = torch.argmax(lg, dim=-1)
         logits.append(lg)
@@ -817,16 +836,14 @@ def forward_loss(params, state, mcfg, X, y, n_real, draws=None, train=True,
     step teacher-forced with no dropout, the plain cross-entropy;
     ``draws`` is not read and the state comes back as it was.
 
-    ``compute_dtype`` bf16 (the model the kernels take): the rounding
-    points of the module docstring; ``enc_w`` then at bf16.
+    ``compute_dtype`` bf16: each stage at its route's rounding points
+    (the module docstring); ``enc_w`` then at bf16.
 
     Data parallelism: X and y are a rank's rows, ``draws`` its draws
     (:func:`make_draws` with the ``mesh``), ``n_real`` the global
     batch's real rows, so the loss is the rank's share of the global
     loss and the ranks' gradients sum to one process's; ``mesh`` makes
     the train-mode BN statistics the global batch's."""
-    require_bf16_variant(mcfg, compute_dtype,
-                         train_bf16_options(mcfg, enc_mask), X.device)
     drop = mcfg["dropout"]
     yT = y.t()
     if train:
@@ -837,12 +854,9 @@ def forward_loss(params, state, mcfg, X, y, n_real, draws=None, train=True,
                                    compute_dtype)
         new_state = state
     if not use_fused_decoder(mcfg, X.device, enc_mask, enc.shape[1]):
-        require_bf16_shapes(compute_dtype, train_shapes_problem(
-            enc.shape[1], enc.shape[2], mcfg["rnn_config"]["embedding_units"],
-            mcfg["rnn_config"]["attn_units"]))
         loss = scan_decoder_loss(params, mcfg, enc, h0, c0, y, n_real,
                                  draws if train else None, label_smoothing,
-                                 enc_mask)
+                                 enc_mask, compute_dtype)
         return loss, new_state
     y_in = yT[:-1].to(torch.int32).contiguous()
     if train:

@@ -6,17 +6,17 @@ kernel (``ops/fused_infer.beam_decode_fused``) for the variant and the
 shapes ``seq2seq.use_fused_infer`` admits and without ``return_attn``;
 otherwise the same frontier loop (``fused_infer.beam_reference``) runs
 over ``seq2seq.plain_step`` as plain PyTorch on the caller's device, as
-``ast_tpu`` runs its XLA loop.  Hypotheses are reranked by
-``score / (len - 2)^W`` on the host.
+``ast_tpu`` runs its XLA loop.  Both run at either compute dtype: at
+bfloat16 K6 takes the encoder states rounded to bf16, and the plain
+loop takes them f32 and its attention rounds them (``ast_tpu``'s
+``enc_tiled`` is not cast), with ``return_attn`` too.  Hypotheses are
+reranked by ``score / (len - 2)^W`` on the host.
 """
 
 import torch
 
 from ast_tpu_torch.models import seq2seq
-from ast_tpu_torch.ops.bf16 import BF16
-from ast_tpu_torch.ops.fused_infer import (
-    beam_decode_fused, beam_reference, decode_shapes_problem,
-    require_bf16_shapes, require_bf16_variant)
+from ast_tpu_torch.ops.fused_infer import beam_decode_fused, beam_reference
 
 
 def make_beam_decoder(mcfg, N, K, stop_limit, return_attn=False,
@@ -26,8 +26,8 @@ def make_beam_decoder(mcfg, N, K, stop_limit, return_attn=False,
     compute_dtype)``, made per call when not given; ``enc_mask`` (B, T')
     (``seq2seq.make_enc_mask``) masks the attention.  At
     ``compute_dtype`` bf16 the encoder runs at bf16 and its states are
-    rounded to bf16 before K6 (``ast_tpu``'s ``fused_decode``); the
-    variants and options of the plain frontier loop are refused there.
+    rounded to bf16 before K6 (``ast_tpu``'s ``fused_decode``), or go to
+    the plain frontier loop at bf16 as they are.
 
     hyps: (B, N, stop_limit+1) int32 token ids beginning with GO;
     scores: (B, N) summed log-probs; lengths: (B, N) valid token counts.
@@ -40,32 +40,23 @@ def make_beam_decoder(mcfg, N, K, stop_limit, return_attn=False,
             f"({V} tokens) — at most V continuations exist per step")
     if N < 1 or K < 1:
         raise ValueError(f"beam sizes must be >= 1 (got N={N}, K={K})")
-    require_bf16_variant(mcfg, compute_dtype,
-                         ["return_attn"] if return_attn else [])
 
     def decode(params, state, X, w=None, enc_mask=None):
-        require_bf16_variant(mcfg, compute_dtype,
-                             [] if enc_mask is None else ["enc_mask"],
-                             X.device)
         if w is None:
             w = seq2seq.decode_weights(params, compute_dtype)
         enc_states, dec_h0, dec_c0 = seq2seq.encode(params, state, mcfg, X,
                                                     w, compute_dtype)
-        if compute_dtype == BF16:
-            enc_states = enc_states.to(BF16)
         if not return_attn and seq2seq.use_fused_infer(
                 mcfg, X.device, *enc_states.shape[:2], N, K, enc_mask):
-            return beam_decode_fused(enc_states, dec_h0, dec_c0, w, N, K,
-                                     stop_limit)
-        require_bf16_shapes(compute_dtype, decode_shapes_problem(
-            *enc_states.shape, w["embed"].shape[1], w["ctx_w"].shape[1], N,
-            K))
+            return beam_decode_fused(enc_states.to(w["wh"].dtype), dec_h0,
+                                     dec_c0, w, N, K, stop_limit)
         rows_mask = (None if enc_mask is None
                      else enc_mask.repeat_interleave(N, dim=0))
         return beam_reference(enc_states, dec_h0, dec_c0, w, N, K,
                               stop_limit,
                               step=seq2seq.plain_step(params, mcfg,
-                                                      rows_mask),
+                                                      rows_mask,
+                                                      compute_dtype),
                               return_attn=return_attn)
 
     return decode

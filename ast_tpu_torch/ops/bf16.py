@@ -11,8 +11,15 @@ bf16 values is exact in f32, so only the order of the sum differs).
 Under autograd :func:`rounded` also rounds the gradient that reaches
 its input to bf16 (the cast's backward), as XLA's transpose of a bf16
 product converts each operand's cotangent to the operand's dtype.
-Decoding and training run at bf16 for the model the kernels take; a
-scan-path variant is refused (``fused_infer.require_bf16_variant``).
+
+Two sets of rounding points, as in ``ast_tpu``: the kernel path's
+(K1-K6's bf16 modes and their plain versions, where the weights are
+cast once and :func:`dot` rounds the left operand) and the scan path's
+(``models.seq2seq``'s plain stages: the scan encoder, ``linear_proj``,
+``decode_step``, attention), where the weights stay f32 and each bf16
+product rounds both of its operands where it reads them
+(:func:`scan_dot`) -- and ``h @ wh`` is not rounded at all.  Every model
+variant decodes and trains at bf16, each stage at its route's points.
 """
 
 import torch
@@ -32,8 +39,10 @@ def parse_dtype(name):
 
 
 def rounded(x):
-    """``x`` rounded to bf16 (round to nearest even), back in f32."""
-    return x.to(BF16).float()
+    """``x`` rounded to bf16 (round to nearest even), back in its own
+    dtype: f32, or f64 where a float64 run takes the bf16 function's
+    sums exactly."""
+    return x.to(BF16).to(x.dtype)
 
 
 def widen(x):
@@ -47,4 +56,14 @@ def dot(a, w):
     product."""
     if w.dtype == BF16:
         return rounded(a) @ w.float()
+    return a @ w
+
+
+def scan_dot(a, w, dtype):
+    """``a @ w`` at ``dtype`` on the scan path (``ast_tpu``'s
+    ``jnp.dot(a.astype(cd), w.astype(cd), preferred_element_type=f32)``):
+    at bf16 both operands rounded and the product taken in their own
+    dtype; else the plain product."""
+    if dtype == BF16:
+        return rounded(a) @ rounded(w)
     return a @ w

@@ -125,6 +125,10 @@ def _conv_frontend_matmul(params, state, cnn_config, X, train,
             w2 = w[:, 0].permute(1, 2, 0).reshape(-1, w.shape[0])
         else:
             w2 = w[..., 0].permute(2, 1, 0).reshape(-1, w.shape[0])
+        # row-major: a BLAS's product with a transposed right operand may
+        # sum a row in another order at another row position, and then a
+        # served utterance's result would depend on its batch mates
+        w2 = w2.contiguous()
         if compute_dtype == BF16:
             win, w2 = rounded(win), rounded(w2)
         out = torch.matmul(win, w2)

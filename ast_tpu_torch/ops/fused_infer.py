@@ -36,7 +36,7 @@ import torch
 from ast_tpu_torch.symbols import SYMBOLS
 from ast_tpu_torch.kernels import build
 from ast_tpu_torch.ops.attention import luong_attention
-from ast_tpu_torch.ops.bf16 import BF16, dot, parse_dtype, rounded, widen
+from ast_tpu_torch.ops.bf16 import BF16, dot, rounded, widen
 from ast_tpu_torch.ops.lstm import lstm_gates
 
 NEG_INF = -1e30
@@ -65,29 +65,6 @@ def infer_variant_ok(mcfg, enc_mask=None):
             and not rnn.get("attn_block_size", 0))
 
 
-def kernel_width_problems(mcfg):
-    """The widths of ``mcfg`` that the kernels' shape gates turn away,
-    named: the encoder's units a direction
-    (``fused_lstm.encoder_shapes_ok``) and the decoder's E, A and H
-    (:func:`decode_shapes_ok`, the same 32-wide tiles as K3 / K4's).
-    ``models.seq2seq`` routes such a stage to its plain version."""
-    # fused_lstm imports this module
-    from ast_tpu_torch.ops.fused_lstm import ENCODER_TILE, encoder_shapes_ok
-    rnn = mcfg["rnn_config"]
-    hidden, E, A = (rnn["hidden_units"], rnn["embedding_units"],
-                    rnn["attn_units"])
-    units = hidden // (2 if rnn["bi_rnn"] else 1)
-    out = []
-    if not encoder_shapes_ok(units):
-        out.append(f"hidden_units {hidden} ({units} a direction, not a "
-                   f"multiple of {ENCODER_TILE})")
-    if not decode_shapes_ok(1, 0, hidden, E, A, 1):
-        out += [f"{name} {v} (not a multiple of {_DECODE_TILE})"
-                for name, v in (("embedding_units", E), ("attn_units", A))
-                if v % _DECODE_TILE]
-    return out
-
-
 def on_card(device):
     """Whether ``device`` is a CUDA device, where the kernels run and so
     where their shape gates route (``models.seq2seq``'s predicates): a
@@ -96,77 +73,14 @@ def on_card(device):
     return device is not None and torch.device(device).type == "cuda"
 
 
-def require_bf16_variant(mcfg, dtype, what=(), device=None):
-    """Raise NotImplementedError naming the model variant, a width the
-    kernels do not take on ``device`` (:func:`kernel_width_problems`, on
-    a CUDA device), or ``what`` (further options of the caller, e.g. an
-    encoder mask), when ``dtype`` is bf16 and the path is one
-    ``ast_tpu`` runs on its scan path (the stages ``models.seq2seq``
-    routes to plain PyTorch), whose bf16 mode is not ported: decoding
-    and training at bf16 cover the variant and the widths the kernels
-    take."""
-    if dtype != BF16:
-        return
-    rnn = mcfg["rnn_config"]
-    refused = [name for name, on in (
-        ("ln", rnn.get("ln", False)),
-        ("rnn_relu", rnn.get("rnn_relu", False)),
-        ("linear_proj", rnn.get("linear_proj", False)),
-        ("n_attn", rnn.get("n_attn", 1) != 1),
-        ("feed_attn", not rnn.get("feed_attn", True)),
-        ("attn_block_size", bool(rnn.get("attn_block_size", 0))),
-    ) if on] + list(what)
-    if on_card(device):
-        refused += kernel_width_problems(mcfg)
-    if refused:
-        raise NotImplementedError(
-            f"compute_dtype bfloat16 decodes and trains the model the "
-            f"kernels take; not ported at bfloat16: {', '.join(refused)} "
-            f"(see ROADMAP.md queue 1, bf16 on the scan path)")
-
-
-def require_bf16_shapes(dtype, problem):
-    """Raise NotImplementedError naming ``problem`` (a kernel's shape
-    gate's reason, e.g. :func:`decode_shapes_problem`) when ``dtype`` is
-    bf16: a call the gate sends to the plain loop is a scan-path call,
-    whose bf16 mode is not ported."""
-    if dtype == BF16 and problem:
-        raise NotImplementedError(
-            f"compute_dtype bfloat16 runs the shapes the kernels take; "
-            f"not ported at bfloat16: {problem} (see ROADMAP.md queue 1, "
-            f"bf16 on the scan path)")
-
-
-def train_bf16_options(mcfg, enc_mask=None):
-    """The further options that put a stage of training on the scan path,
-    for :func:`require_bf16_variant`: an encoder mask and output dropout
-    (the decoder's scan loss, ``models.seq2seq.use_fused_decoder``)."""
-    return [name for name, on in (
-        ("enc_mask", enc_mask is not None),
-        ("dropout.out", mcfg["dropout"].get("out", 0) > 0)) if on]
-
-
-def require_train_dtype(train_cfg, mcfg, device=None):
-    """Raise NotImplementedError naming the model variant (or, on a CUDA
-    ``device``, the width) when ``compute_dtype`` is bf16 and a stage of
-    training runs on the scan path, whose bf16 mode is not ported; the
-    model the kernels take trains at bf16.  Called where training starts
-    (``NN.train_epoch``, ``NN.eval_loss``)."""
-    require_bf16_variant(
-        mcfg, parse_dtype(train_cfg["extras"].get("compute_dtype")),
-        train_bf16_options(mcfg), device)
-
-
 def require_train_variant(train_cfg):
     """``ast_tpu``'s refusals of the feed options: ``hbm_cache`` over
     audio (``data.features: "wav"``) or text (``enc_key`` other than
     ``"sp"``), with its ValueErrors.  Every model variant trains (the
     routing of ``models.seq2seq``), and so does every feed option:
     several steps a dispatch, the device feature cache and narrow
-    transfer dtypes (``train.trainer.NN``); a scan-path variant at
-    ``compute_dtype`` bfloat16 is refused where training starts
-    (:func:`require_train_dtype`).  ``train_cfg`` is
-    ``Config(...).train``."""
+    transfer dtypes (``train.trainer.NN``), at either compute dtype.
+    ``train_cfg`` is ``Config(...).train``."""
     extras, data = train_cfg["extras"], train_cfg["data"]
     if extras.get("hbm_cache", False):
         if data.get("features", "precomputed") == "wav":

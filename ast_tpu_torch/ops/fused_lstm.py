@@ -203,7 +203,7 @@ def _transform(x, ln, l, relu):
 
 def stacked_lstm_reference(x0_proj, wx_rest, wh, b, train=False, seed=0,
                            rate=0.0, ln=None, relu=False, row_offset=0,
-                           global_rows=None):
+                           global_rows=None, compute_dtype=torch.float32):
     """Plain PyTorch recurrence; same contract as
     :func:`fused_stacked_lstm` (eval) and :func:`fused_stacked_lstm_train`
     (``train=True``: also returns acts, c_all, h_pre, x_drop).
@@ -217,7 +217,13 @@ def stacked_lstm_reference(x0_proj, wx_rest, wh, b, train=False, seed=0,
     docstring).
 
     With ``wx_rest`` / ``wh`` in bf16, the rounding points of the module
-    docstring, and in train mode the residual streams in bf16."""
+    docstring (K1's), and in train mode the residual streams in bf16.
+    With f32 weights and ``compute_dtype`` bf16, ``ast_tpu``'s scan
+    encoder's rounding points instead: a layer above the first
+    multiplies its rounded input by its rounded ``wx`` (both rounded at
+    every step, as the scan body casts them, so each step's gradient is
+    rounded on its own) and accumulates in f32, while ``h @ wh`` stays
+    f32 -- K1 rounds ``wh`` and the scan does not."""
     T, D2, B, H4 = x0_proj.shape
     H = H4 // 4
     L = wh.shape[0]
@@ -225,10 +231,15 @@ def stacked_lstm_reference(x0_proj, wx_rest, wh, b, train=False, seed=0,
     if wh.dtype == BF16:
         wx_rest, wh = wx_rest.float(), wh.float()
 
-        def bmm(v, w):
+        def bmm_x(v, w):
             return torch.bmm(rounded(v), w)
+        bmm_h = bmm_x
+    elif compute_dtype == BF16:
+        def bmm_x(v, w):
+            return torch.bmm(rounded(v), rounded(w))
+        bmm_h = torch.bmm
     else:
-        bmm = torch.bmm
+        bmm_x = bmm_h = torch.bmm
     h = [x0_proj.new_zeros((D2, B, H))] * L
     c = [x0_proj.new_zeros((D2, B, H))] * L
     outs, acts, c_all, h_pre, x_drop = [], [], [], [], []
@@ -236,8 +247,8 @@ def stacked_lstm_reference(x0_proj, wx_rest, wh, b, train=False, seed=0,
         x = None
         res = ([], [], [], [])
         for l in range(L):
-            z = x0_proj[t] if l == 0 else bmm(x, wx_rest[l - 1])
-            z = z + bmm(h[l], wh[l]) + b[l][:, None, :]
+            z = x0_proj[t] if l == 0 else bmm_x(x, wx_rest[l - 1])
+            z = z + bmm_h(h[l], wh[l]) + b[l][:, None, :]
             if not train:
                 h[l], c[l] = lstm_gates(z, c[l], H)
                 x = _transform(h[l], ln, l, relu)

@@ -44,10 +44,11 @@ batches.  Either package resumes the other's snapshot.
 ``forward_loss`` at bf16 (K1 train / eval, K2, K3, K4 in their bf16
 mode), ``predict``, ``decode_beam_set`` and so ``cli.train``'s dev decode
 and ``cli.beam`` decode with K1 eval, K5 and K6 at bf16; the parameters,
-BN state, optimizer and checkpoints stay f32.  A model variant on the
-scan path, and on the card a width the kernels' shape gate sends there,
-is refused at bf16 by name (``fused_infer.require_bf16_variant`` when
-``NN`` builds, ``require_train_dtype`` where training starts).
+BN state, optimizer and checkpoints stay f32.  Every model variant, and
+on the card a width the kernels' shape gate sends to the plain stages,
+trains and decodes at bf16 too: its plain stages run ``ast_tpu``'s scan
+path at its bf16 rounding points (``models.seq2seq``), beside the
+kernel stages' bf16 modes.
 
 The feed options of ``ast_tpu``'s trainer, each as it works there:
 
@@ -93,8 +94,8 @@ agreed over the ranks every ``preempt_sync_steps`` batches; only rank 0
 writes.  One process makes no mesh and issues no collective.
 ``model_axis`` above 1 (vocab tensor parallelism) is refused by name.
 
-Not ported (ROADMAP.md queue 1): bf16 on the scan path and the vocab
-tensor parallelism of ``parallel.model_axis``.
+Not ported (ROADMAP.md queue 1): the vocab tensor parallelism of
+``parallel.model_axis``.
 """
 
 import collections
@@ -118,8 +119,7 @@ from ast_tpu_torch.models import seq2seq
 from ast_tpu_torch.ops import beam as beam_ops
 from ast_tpu_torch.ops.bf16 import parse_dtype
 from ast_tpu_torch.ops.fbank import MfccExtractor
-from ast_tpu_torch.ops.fused_infer import (
-    require_bf16_variant, require_train_dtype, require_train_variant)
+from ast_tpu_torch.ops.fused_infer import require_train_variant
 from ast_tpu_torch.parallel import (
     all_reduce_grads, all_reduce_sum, any_rank, gather_rows, make_mesh,
     replicate, shard_batch)
@@ -336,8 +336,6 @@ class NN:
         require_train_variant(tcfg)
         # the dtype of training and decoding (ast_tpu's NN.compute_dtype)
         self.compute_dtype = parse_dtype(extras.get("compute_dtype"))
-        require_bf16_variant(self.mcfg, self.compute_dtype,
-                             device=self.device)
         # the data axis over the process group (None: one process)
         self.mesh = make_mesh(tcfg["parallel"],
                               batch_size=mesh_batch_size(tcfg["batch_size"]))
@@ -606,7 +604,6 @@ class NN:
         after an in-flight snapshot of this epoch; returns the mean over
         the batches trained of loss / real rows."""
         tcfg = self.cfg.train
-        require_train_dtype(tcfg, self.mcfg, self.device)
         cache = self._cache(set_key)
         skip = 0
         if self.inflight_resume and self.inflight_resume[0] == epoch:
@@ -719,7 +716,6 @@ class NN:
         loss / real rows, at ``compute_dtype`` (under a mesh the ranks'
         shares summed)."""
         tcfg = self.cfg.train
-        require_train_dtype(tcfg, self.mcfg, self.device)
         cache = self._cache(set_key)
         gen = self.data_loader.get_batch(
             tcfg["batch_size"], set_key, train=False, labels=True,

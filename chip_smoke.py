@@ -102,19 +102,14 @@ Phases, each printing a line:
    --warmup --batch-window-ms 5 as a subprocess, ready on /healthz; the
    64 feature files as binary .npy bodies from one client, greedy then
    beam, each reply's ids bit-equal to the in-process K1 + K5 (or K1 +
-   K6 and the rerank) decode of the same row padded to the chosen
-   entry's frames, its text the port's detokenisation of them, the beam
-   score equal; the same 64 from 8 client threads, each text the
-   sequential one's or a search that parted from it at a near-tie
-   (another row count tiles the kernels' sums another way), counted:
-   greedy, every token within TOK_TOL of its step's largest logit under
-   the plain step; beam, the winner's length-normalised score recomputed
-   by the plain step along its tokens within SCORE_TOL of the reply's,
-   and reproduced exactly by an in-process K1 + K6 call of 1-8 copies
-   of the row (the row counts a call of 8 clients holds), its scores
-   printed beside the plain beam's on the CPU (the gap to the
-   sequential winner is printed: a search that parted early is not
-   bounded by the tie); requests/s, latency p50 / p90 / p99, device
+   K6 and the rerank) decode of the same row as row 0 of a call at the
+   entry's batch, padded to the chosen entry's frames (the server runs
+   every call at its entry's static batch, zero rows after the
+   requests), its text the port's detokenisation of them, the beam
+   score equal; the same 64 from 8 client threads, every reply
+   bit-equal to the sequential one (ids, text and score: a row's sums
+   depend neither on its batch mates nor on its place among them),
+   greedy and beam; requests/s, latency p50 / p90 / p99, device
    calls and batch_occupancy of each run, /stats with 0 errors and its
    kernel_launches: the server process's K1 and K5 (greedy) or K6
    (beam) counts rise in every run, by at most one a device call; 8 seeded 1-12 s audio vectors through /decode and
@@ -196,7 +191,33 @@ Phases, each printing a line:
    two dev.log rows; cli.beam --save-attn on the second: a history (len,
    T') a hypothesis, rows past GO summing to 1 within 1e-5, no K6;
    export_model + cli.serve of a linear_proj model: one request's ids
-   equal to the in-process decode.
+   equal to the in-process decode.  Then the bf16 pass (compute_dtype
+   bfloat16: the scan path's rounding points on the plain stages, the
+   kernels' bf16 modes on the kernel stages) over the default model and
+   every variant above: one train step, one greedy and one beam batch on
+   the card, the bf16 and f32 counters around each (a kernel stage
+   launches its bf16 entry and nothing else; the odd-width model no
+   kernel), the loss within BF16_LOSS_TOL of the same bf16 call's on the
+   CPU.  One comparison a variant, fixed by its stages: with a kernel
+   stage every gradient leaf within BF16_MAX_TOL of the CPU's in the
+   Frobenius norm (||card - CPU|| / ||CPU||) and the encoder outputs
+   within BF16_ENC_TOL; with none (ln, rnn_relu, the odd width: bf16's
+   rounding feeds their gradients through LayerNorm before a saturated
+   attention and ReLU's kinks, where one value rounding to the other
+   bf16 neighbour moves a leaf far) each leaf's and the encoder outputs'
+   distance from the float64-sum bf16 step (the same rounding points,
+   exact sums, on the CPU) within the larger of those bounds and
+   BF16_SPREAD times the CPU's float32-sum distance from it.  The
+   max-element distance from the CPU's step is printed beside.  Greedy
+   tokens and beams are held along the card's path by the CPU's bf16
+   step (K5 / K6's plain bf16 step, or the scan path's) on the card's
+   encoder outputs, within BF16_TOK_TOL and BF16_SCORE_TOL.  ms a train
+   step and greedy utts/s beside the f32
+   pass's.  cli.train -e 1 at bf16 on an ln + rnn_relu experiment and
+   cli.beam --save-attn on it (no kernel launched), export_model --dtype
+   bfloat16 + cli.serve of the linear_proj model (its server launches
+   K5's bf16 entry only): one request's ids equal to the in-process
+   bf16 decode.
 13. bfloat16 decoding (extras.compute_dtype "bfloat16"), phase 3's model
    and batch: K1 eval, K5 and K6 in their bf16 mode against their plain
    bf16 versions on the card -- encoder states within BF16_ENC_TOL, K5
@@ -2005,7 +2026,6 @@ def run_serving(exp, paths, root, smi, tf32_default):
     from ast_tpu_torch.detok import dec_i2w, ids_to_text
     from ast_tpu_torch.models import seq2seq
     from ast_tpu_torch.ops import beam as beam_ops
-    from ast_tpu_torch.ops import fused_infer
     from ast_tpu_torch.ops.fbank import (
         MfccExtractor, apply_cmvn, compute_cmvn_stats, num_frames)
     from ast_tpu_torch.params import from_jax_numpy
@@ -2036,7 +2056,9 @@ def run_serving(exp, paths, root, smi, tf32_default):
         return ids_to_text(ids, lambda i: i2w[i].decode(), dec_key)
 
     def padded(xs, T):
-        X = np.zeros((len(xs), T, 13), np.float32)
+        """``xs`` as the first rows of a B-row call, zero rows after
+        them: the server runs every call at its entry's static batch."""
+        X = np.zeros((max(B, len(xs)), T, 13), np.float32)
         for j, x in enumerate(xs):
             X[j, :min(T, len(x))] = x[:T]
         return torch.from_numpy(X).to(device)
@@ -2065,40 +2087,15 @@ def run_serving(exp, paths, root, smi, tf32_default):
                                            STOP, w)[0].cpu().numpy()
             return [cut(p) for p in preds]
 
-        def beam_rows(x, nb=1, on=(params, state, w)):
-            """The reranked winner (ids, score) of each of ``nb`` copies
-            of x in one beam call: K1 + K6 on the card, the plain
-            versions on the CPU."""
-            p, st, ww = on
-            X = padded([x] * nb, entry_T(x)).to(p["cnn"][0]["w"].device)
-            hyps, scores, lengths = (a.cpu().numpy()
-                                     for a in beam(p, st, X, ww))
-            out = []
-            for r in range(nb):
-                best = beam_ops.rerank_hypothesis(
-                    [(hyps[r, n, :lengths[r, n]].tolist(),
-                      float(scores[r, n])) for n in range(N_BEAM)], 0.6)[0]
-                out.append((strip(best[0]), float(best[1])))
-            return out
-
         def beam_best(x):
-            return beam_rows(x)[0]
-
-        def rescore(x, ids):
-            """The beam's length-normalised score of the hypothesis GO +
-            ids (+ EOS unless it ran to the stop limit), by the plain
-            decoder step on one row."""
-            enc, h, c = seq2seq.encode(params, state, mcfg,
-                                       padded([x], entry_T(x)), w)
-            toks = ids + ([SYMBOLS.EOS_ID] if len(ids) < STOP else [])
-            ht = enc.new_zeros((1, w["ctx_w"].shape[1]))
-            word, total = SYMBOLS.GO_ID, 0.0
-            for t in toks:
-                logits, h, c, ht, _ = fused_infer.decode_step_reference(
-                    w, enc, h, c, ht, torch.tensor([word], device=device))
-                total += float(torch.log_softmax(logits, -1)[0, t])
-                word = t
-            return total / max(1, len(toks) - 1) ** 0.6
+            """The reranked winner (ids, score) of x, row 0 of a K1 + K6
+            call at the entry's batch."""
+            hyps, scores, lengths = (a.cpu().numpy() for a in beam(
+                params, state, padded([x], entry_T(x)), w))
+            best = beam_ops.rerank_hypothesis(
+                [(hyps[0, n, :lengths[0, n]].tolist(), float(scores[0, n]))
+                 for n in range(N_BEAM)], 0.6)[0]
+            return strip(best[0]), float(best[1])
 
         feats = [np.load(p) for p in paths]
         want_g = [greedy_ids([x], entry_T(x))[0] for x in feats]
@@ -2141,59 +2138,17 @@ def run_serving(exp, paths, root, smi, tf32_default):
                 0 < launched[used] <= calls and launched[unused] == 0, (
                     mode, launched, calls)
             runs[mode, clients] += (launched,)
-        # concurrent replies: the sequential ones, or near-ties
-        ties = {"greedy": 0, "beam": 0}
-        p_cpu, s_cpu = from_jax_numpy(snap["params"], snap["state"],
-                                      torch.device("cpu"))
-        with torch.inference_mode():
-            plain = (p_cpu, s_cpu, seq2seq.decode_weights(p_cpu))
-            for i, x in enumerate(feats):
-                seq_g, conc_g = runs["greedy", 1][0][i], runs["greedy", 8][0][i]
-                if conc_g["text"] != seq_g["text"]:
-                    # a greedy path of the model: every token within
-                    # TOK_TOL of its step's largest logit
-                    enc, h0, c0 = seq2seq.encode(
-                        params, state, mcfg, padded([x], entry_T(x)), w)
-                    ids = conc_g["ids"] + [SYMBOLS.EOS_ID]
-                    ids = (ids + [SYMBOLS.PAD_ID] * STOP)[:STOP]
-                    short, _ = fused_infer.greedy_follow(
-                        enc, h0, c0, w, torch.tensor([ids], device=device))
-                    assert float(short.max()) <= TOK_TOL, (i, float(
-                        short.max()))
-                    ties["greedy"] += 1
-                seq_b, conc_b = runs["beam", 1][0][i], runs["beam", 8][0][i]
-                if conc_b["text"] != seq_b["text"]:
-                    # a search that parted from the sequential one at a
-                    # near-tie: its winner must be a hypothesis of the
-                    # model whose length-normalised score, recomputed by
-                    # the plain step along its tokens, is the reply's
-                    got = rescore(x, conc_b["ids"])
-                    assert abs(got - conc_b["score"]) <= SCORE_TOL, (
-                        i, got, conc_b["score"])
-                    # the witness that row tiling parted them: some row
-                    # count a call of 8 clients can hold (1-8), at some
-                    # row of it, gives K1 + K6 the concurrent winner
-                    # exactly, and one row gives the sequential one
-                    conc = (conc_b["ids"], conc_b["score"])
-                    seq = (seq_b["ids"], seq_b["score"])
-                    at = {nb: beam_rows(x, nb) for nb in range(1, 9)}
-                    conc_at = [nb for nb, rows in at.items() if conc in rows]
-                    seq_at = [nb for nb, rows in at.items() if seq in rows]
-                    ids_p, score_p = beam_rows(x, on=plain)[0]
-                    which = {tuple(seq[0]): "the sequential",
-                             tuple(conc[0]): "the concurrent"}.get(
-                                 tuple(ids_p), "a third")
-                    print(f"  beam row {i} parted under 8 clients: "
-                          f"sequential score {seq[1]:.6f}, concurrent "
-                          f"{conc[1]:.6f} (plain-step rescoring "
-                          f"{got:.6f}); K1 + K6 gives the concurrent "
-                          f"winner at {conc_at} rows, the sequential at "
-                          f"{seq_at}; the plain beam on the CPU "
-                          f"{score_p:.6f}, its winner {which}", flush=True)
-                    assert conc_at and 1 in seq_at, (i, conc_at, seq_at)
-                    ties["beam"] += 1
-                    ties["beam_gap"] = max(ties.get("beam_gap", 0.0), abs(
-                        conc_b["score"] - seq_b["score"]))
+        # concurrent replies: bit-equal to the sequential ones -- every
+        # call runs at the entry's batch, so a row's sums do not depend
+        # on its batch mates or its place among them
+        for mode in ("greedy", "beam"):
+            parted = [i for i, (a, b) in enumerate(zip(
+                runs[mode, 1][0], runs[mode, 8][0])) if a != b]
+            assert not parted, (
+                f"{mode}: {len(parted)} rows differ under 8 clients from "
+                f"the sequential replies, first {parted[0]}: "
+                f"{runs[mode, 1][0][parted[0]]} vs "
+                f"{runs[mode, 8][0][parted[0]]}")
 
         # audio: 1-12 s of seeded 8 kHz audio, fbank on the card
         rng = np.random.default_rng(9)
@@ -2297,8 +2252,10 @@ def run_serving(exp, paths, root, smi, tf32_default):
           f"errors, {final['device_calls']} device calls, batch_occupancy "
           f"{final['batch_occupancy']}, latency p50 {lat.get('p50')} / p90 "
           f"{lat.get('p90')} / p99 {lat.get('p99')} s; sequential replies "
-          f"bit-equal to in-process K1+K5 / K1+K6; concurrent near-ties "
-          f"{ties}; card fbank within {fb_err:.2e} of the CPU's; SIGTERM "
+          f"bit-equal to in-process K1+K5 / K1+K6 at the entry's batch, "
+          f"and the 8 clients' replies bit-equal to the sequential ones "
+          f"(greedy and beam); card fbank within {fb_err:.2e} of the "
+          f"CPU's; SIGTERM "
           f"with a request in flight: 200, exit 0", flush=True)
     print(f"  int8 directory: {len(feats) / q8_dt:.1f} greedy requests/s, "
           f"ready after {warm_q8:.1f} s, {same_q8:.3f} of the texts equal "
@@ -3127,9 +3084,9 @@ def check_routing(what, stages, n, kinds):
     check_launched(what, n, want)
 
 
-def variant_step(params, state, mcfg, X, y, draws):
+def variant_step(params, state, mcfg, X, y, draws, compute_dtype=None):
     """One train step's loss and parameter gradients (forward_loss and
-    autograd, as NN.train_step)."""
+    autograd, as NN.train_step), at ``compute_dtype`` (None: float32)."""
     import torch
 
     from ast_tpu_torch.models import seq2seq
@@ -3138,8 +3095,9 @@ def variant_step(params, state, mcfg, X, y, draws):
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
-    loss, _ = seq2seq.forward_loss(params, state, mcfg, X, y,
-                                   float(X.shape[0]), draws)
+    loss, _ = seq2seq.forward_loss(
+        params, state, mcfg, X, y, float(X.shape[0]), draws,
+        compute_dtype=compute_dtype or torch.float32)
     return loss.detach(), torch.autograd.grad(loss, leaves)
 
 
@@ -3192,12 +3150,24 @@ def grad_errs(got, want):
             for g, w in zip(got, want)]
 
 
-def variant_step_f64(params, state, mcfg, X, y, draws):
-    """The gradients of :func:`variant_step` in float64, on the device of
-    ``params`` (plain stages only: the kernels are float32)."""
-    import dataclasses
+def leaf_dists(got, want):
+    """Each gradient leaf's distance in the Frobenius norm, ||got - want||
+    over the larger of ||want|| and 1e-3 of the largest leaf's norm (the
+    floor of :func:`grad_errs`), on the CPU in float64."""
+    want = [w.detach().cpu().double() for w in want]
+    norms = [float(w.norm()) for w in want]
+    floor = 1e-3 * max(norms)
+    return [float((g.detach().cpu().double() - w).norm()) / max(n, floor)
+            for g, w, n in zip(got, want, norms)]
 
-    import torch
+
+def variant_step_f64(params, state, mcfg, X, y, draws, compute_dtype=None):
+    """The gradients of :func:`variant_step` in float64, on the device of
+    ``params`` (plain stages only: the kernels are float32); at
+    ``compute_dtype`` bf16 every rounding point still rounds to bf16 and
+    the rest runs in float64: the bf16 function with its sums taken
+    exactly."""
+    import dataclasses
 
     from ast_tpu_torch.params import tree_map
 
@@ -3205,13 +3175,10 @@ def variant_step_f64(params, state, mcfg, X, y, draws):
                 for tree in (params, state))
     d64 = dataclasses.replace(
         draws, noise=None if draws.noise is None else draws.noise.double())
-    torch.set_default_dtype(torch.float64)
-    try:
+    with float64_default():
         return variant_step(p64, s64, mcfg,
                             X.double() if X.is_floating_point() else X, y,
-                            d64)[1]
-    finally:
-        torch.set_default_dtype(torch.float32)
+                            d64, compute_dtype)[1]
 
 
 def variant_inputs(mcfg, device, seed=12):
@@ -3377,6 +3344,310 @@ def run_variant(name, base, device, smi):
           f"{step_ms:.1f} ms a train step, greedy {greedy_rate:.1f} utts/s "
           f"({smi})", flush=True)
     return step_ms, greedy_rate
+
+
+def check_routing_bf16(what, stages, kinds, device):
+    """The counts of one bf16 train step (``kinds`` "train") or decode
+    ("greedy", "beam") against the stages routed to a kernel: on the card
+    a stage's bf16 entries above 0 when routed to a kernel, every other
+    bf16 entry 0, and no f32 entry launched; on the CPU (the plain
+    versions) nothing."""
+    want = set()
+    if str(device).startswith("cuda"):
+        if kinds == "train":
+            want.update(k for stage, keys in (
+                ("enc", ("k1_train_bf16", "k2_bf16")),
+                ("dec", ("k3_bf16", "k4_bf16"))) if stage in stages
+                for k in keys)
+        else:
+            if "enc" in stages:
+                want.add("k1_bf16")
+            if "infer" in stages:
+                want.add("k5_bf16" if kinds == "greedy" else "k6_bf16")
+    check_launched(what, dict(bf16_counters(), **bf16_train_counts()), want)
+    f32 = {k: v for k, v in counts().items() if v}
+    assert not f32, f"{what}: f32 entries launched at bf16: {f32}"
+
+
+def zero_all_counts():
+    zero_counts()
+    zero_bf16_counts()
+    zero_train_counts()
+
+
+def run_variant_bf16(name, base, device, smi):
+    """Phase 12's bf16 pass for one variant (compute_dtype bfloat16: the
+    scan path's rounding points on its plain stages, the kernels' bf16
+    modes on its kernel stages): the routing of one train step, one
+    greedy batch and one beam 5,5 batch read from the bf16 and f32
+    counters; the card's loss against the same bf16 call on the CPU
+    within BF16_LOSS_TOL; its gradients and encoder outputs by the
+    comparison of the variant's stages (:func:`bf16_limits`); the card's
+    greedy tokens and beams held along their own path by the CPU's bf16
+    step (the K5 / K6 plain bf16 step where the variant decodes on them,
+    else the scan path's) on the card's encoder outputs, within
+    BF16_TOK_TOL and BF16_SCORE_TOL; ms a train step and greedy utts/s.
+    Returns (ms a step, greedy utts/s)."""
+    import torch
+
+    device = torch.device(device)
+    if device.type == "cuda":
+        # the CPU's reference calls route as the card's do (a width the
+        # kernels do not take runs the scan path on both: at bf16 its
+        # rounding is not K1's plain version's)
+        with card_routing():
+            return _run_variant_bf16(name, base, device, smi)
+    return _run_variant_bf16(name, base, device, smi)
+
+
+@contextlib.contextmanager
+def card_routing():
+    """``seq2seq``'s routing predicates apply the card's shape gate to
+    every device inside the block."""
+    from ast_tpu_torch.models import seq2seq
+
+    on_card = seq2seq.on_card
+    seq2seq.on_card = lambda device: True
+    try:
+        yield
+    finally:
+        seq2seq.on_card = on_card
+
+
+def bf16_limits(stages, cpu, exact):
+    """The bf16 pass's comparison, fixed by a variant's kernel ``stages``,
+    for readings whose CPU float32-sum values are ``cpu`` and whose
+    float64-sum values ``exact()`` gives: (the reference the card is held
+    to, ``bounds(cpu_dists, tol)`` -> each reading's bound, from the
+    CPU's own distances from that reference).  With a kernel stage the
+    reference is the CPU's call (the plain bf16 version in the kernel's
+    place) and every bound ``tol``.  With none it is the float64-sum
+    function, and each bound the larger of ``tol`` and BF16_SPREAD times
+    the CPU's distance: where bf16's rounding feeds an ill-conditioned
+    gradient, a value rounding to the other bf16 neighbour in one float32
+    sum and not in another moves a leaf past ``tol`` on any device, and
+    the card must then lie no further than the CPU does from the
+    exact-sum function."""
+    if stages:
+        return cpu, lambda dists, tol: [tol] * len(dists)
+    return exact(), lambda dists, tol: [max(tol, BF16_SPREAD * d)
+                                        for d in dists]
+
+
+def _run_variant_bf16(name, base, device, smi):
+    import torch
+
+    from ast_tpu_torch.models import seq2seq
+    from ast_tpu_torch.ops import beam as beam_ops
+    from ast_tpu_torch.ops import fused_infer
+    from ast_tpu_torch.params import tree_map
+
+    bf = torch.bfloat16
+    mcfg = variant_cfg(base, name)
+    stages = {s for s, on in (
+        ("enc", seq2seq.use_fused_encoder(mcfg, device)),
+        ("dec", seq2seq.use_fused_decoder(mcfg, device, T=FRAMES // 4)),
+        ("infer", seq2seq.use_fused_infer(mcfg, device, VARIANT_ROWS,
+                                          FRAMES // 4, N_BEAM, K_BEAM)))
+        if on}
+    if device.type == "cuda":
+        assert stages == VARIANT_STAGES.get(name, {"enc", "dec", "infer"})
+    cpu = torch.device("cpu")
+    params, state = seq2seq.init_model(mcfg, seed=0, device=device)
+    p_cpu, s_cpu = (tree_map(lambda t: t.detach().to(cpu), tree)
+                    for tree in (params, state))
+    X, y, draws = variant_inputs(mcfg, device)
+    Xd, yd, dd = X.to(device), y.to(device), draws_on(draws, device)
+
+    zero_all_counts()
+    loss, grads = variant_step(params, state, mcfg, Xd, yd, dd, bf)
+    sync(device)
+    check_routing_bf16(f"{name}: bf16 train step", stages, "train", device)
+    t0 = time.perf_counter()
+    variant_step(params, state, mcfg, Xd, yd, dd, bf)
+    sync(device)
+    step_ms = (time.perf_counter() - t0) * 1e3
+    loss_c, grads_c = variant_step(p_cpu, s_cpu, mcfg, X, y, draws, bf)
+    loss_rel = abs(loss.item() - loss_c.item()) / abs(loss_c.item())
+    assert loss_rel <= BF16_LOSS_TOL, f"{name}: bf16 loss {loss_rel} apart"
+    names = leaf_names(params)
+    worst_max = max(zip(grad_errs(grads, grads_c), names))
+    ref, bounds = bf16_limits(stages, grads_c, lambda: variant_step_f64(
+        p_cpu, s_cpu, mcfg, X, y, draws, bf))
+    dists = leaf_dists(grads, ref)
+    limits = bounds(leaf_dists(grads_c, ref), BF16_MAX_TOL)
+    worst = max(zip([d / m for d, m in zip(dists, limits)], dists, limits,
+                    names))
+    assert worst[0] <= 1, (
+        f"{name}: the card's bf16 gradient {worst[3]} lies {worst[1]:.3e} "
+        f"from the reference (bound {worst[2]:.3e})")
+    infer = "infer" in stages
+    with torch.inference_mode():
+        w = seq2seq.decode_weights(params, bf)
+        zero_all_counts()
+        preds, n_steps = seq2seq.predict_greedy(params, state, mcfg, Xd,
+                                                PARTIAL_STOP, w,
+                                                compute_dtype=bf)
+        sync(device)
+        check_routing_bf16(f"{name}: bf16 greedy batch", stages, "greedy",
+                           device)
+        t0 = time.perf_counter()
+        seq2seq.predict_greedy(params, state, mcfg, Xd, PARTIAL_STOP, w,
+                               compute_dtype=bf)
+        sync(device)
+        greedy_rate = X.shape[0] / (time.perf_counter() - t0)
+        zero_all_counts()
+        beam_ops.make_beam_decoder(mcfg, N_BEAM, K_BEAM, PARTIAL_STOP,
+                                   compute_dtype=bf)(params, state, Xd, w)
+        sync(device)
+        check_routing_bf16(f"{name}: bf16 beam batch", stages, "beam",
+                           device)
+        # the beam's per-step streams along the card's own path
+        enc = seq2seq.encode(params, state, mcfg, Xd, w, bf)
+        if infer and device.type == "cuda":
+            tok, par, val, scores = fused_infer.beam_search_streams(
+                enc[0].to(bf), enc[1], enc[2], w, N_BEAM, K_BEAM,
+                PARTIAL_STOP)
+        else:
+            out = fused_infer.beam_reference(
+                enc[0].to(bf) if infer else enc[0], enc[1], enc[2], w,
+                N_BEAM, K_BEAM, PARTIAL_STOP, trace=True, step=None
+                if infer else seq2seq.plain_step(params, mcfg,
+                                                 compute_dtype=bf))
+            scores, tok, par, val = out[1], out[3], out[4], out[5]
+        enc = tuple(t.cpu() for t in enc)
+        w_c = seq2seq.decode_weights(p_cpu, bf)
+        enc_c = seq2seq.encode(p_cpu, s_cpu, mcfg, X, w_c, bf)
+    ref, bounds = bf16_limits(stages, enc_c, lambda: encode_f64(
+        p_cpu, s_cpu, mcfg, X))
+    states = max_dist(enc, ref)
+    states_tol = bounds([max_dist(enc_c, ref)], BF16_ENC_TOL)[0]
+    assert states <= states_tol, (
+        f"{name}: the card's bf16 encoder outputs lie {states:.3e} from the "
+        f"reference (bound {states_tol:.3e})")
+    # the decoder a stage at a time, on the card's encoder outputs: the
+    # CPU's step (K5 / K6's plain bf16 step on the states rounded to bf16,
+    # or the scan path's) follows the card's decodes; with no kernel stage
+    # the float64-sum step follows them and the CPU's own
+    on_enc = (enc[0].to(bf) if infer else enc[0], enc[1], enc[2])
+    step = None if infer else seq2seq.plain_step(p_cpu, mcfg,
+                                                 compute_dtype=bf)
+    card_dec = (preds, n_steps, (tok, par, val, scores))
+    with torch.inference_mode():
+        if stages:
+            errs = decode_follow_errs(on_enc, w_c, *card_dec, step)
+            dec_tol = dict(BF16_DECODE_TOLS)
+        else:
+            cpu_dec = decode_on(on_enc, w_c, step)
+            errs, cpu_errs = exact_follow(p_cpu, mcfg, on_enc,
+                                          (card_dec, cpu_dec))
+            dec_tol = {k: max(t, BF16_SPREAD * cpu_errs[k])
+                       for k, t in BF16_DECODE_TOLS.items()}
+    assert errs["path"] and all(errs[k] <= t for k, t in dec_tol.items()), (
+        f"{name}: the card's bf16 decodes {errs}, bounds {dec_tol}")
+    shown = ", ".join(f"{k} {errs[k]:.2e} ({t:.2e})"
+                      for k, t in dec_tol.items())
+    ref_name = ("the CPU's" if stages else "the float64-sum step's, "
+                f"bound {BF16_SPREAD}x the CPU's distance or more")
+    print(f"  {name} at bf16: kernels at {sorted(stages) or 'no stage'} "
+          f"(bf16 entries only); train step loss {loss.item():.4f} "
+          f"({loss_rel:.2e} from the CPU's); gradients from {ref_name}: "
+          f"worst {worst[3]} {worst[1]:.2e} (bound {worst[2]:.2e}), "
+          f"max-element {worst_max[0]:.2e} of max|CPU| ({worst_max[1]}); "
+          f"encoder outputs {states:.2e} (bound {states_tol:.2e}); greedy "
+          f"{int(n_steps)} steps and beam {N_BEAM},{K_BEAM} along the "
+          f"card's path by {'the CPU' if stages else 'the float64-sum'} "
+          f"step on its encoder outputs (bound): {shown}; {step_ms:.1f} ms a "
+          f"train step, greedy {greedy_rate:.1f} utts/s ({smi})", flush=True)
+    return step_ms, greedy_rate
+
+
+def max_dist(got, want):
+    """max |got - want| over the tensors of two tuples (the encoder
+    states, h0, c0), each over the larger of 1 and its max |want| (the
+    cell state c0 is not bounded by 1), on the CPU."""
+    return max(float((g.cpu().double() - w.cpu().double()).abs().max())
+               / max(1.0, float(w.abs().max())) for g, w in zip(got, want))
+
+
+@contextlib.contextmanager
+def float64_default():
+    """Tensors made inside the block default to float64."""
+    import torch
+
+    torch.set_default_dtype(torch.float64)
+    try:
+        yield
+    finally:
+        torch.set_default_dtype(torch.float32)
+
+
+def decode_follow_errs(enc, w, preds, n_steps, beam, step):
+    """A greedy decode ``preds`` and a beam search's streams ``beam`` (tok,
+    par, val, scores), held along their own path by ``step`` on the
+    encoder outputs ``enc`` (enc, h0, c0) on the CPU: {"greedy": the
+    largest shortfall of a greedy token below the step's best logit,
+    "path": the greedy run ended where the step's would, PAD after, and
+    no beam step broke off, "topk", "selection", "score": beam_follow's}."""
+    from ast_tpu_torch import SYMBOLS
+    from ast_tpu_torch.ops import fused_infer
+
+    tok, par, val, scores = (t.cpu() for t in beam)
+    short, n_run = fused_infer.greedy_follow(*enc, w, preds.cpu(), step)
+    f_scores, topk, sel, bad = fused_infer.beam_follow(
+        *enc, w, N_BEAM, K_BEAM, tok, par, val, step)
+    return {"greedy": float(short.max()),
+            "path": bool((preds.cpu()[:, n_run:] == SYMBOLS.PAD_ID).all())
+            and n_run == int(n_steps) and not bool(bad.any()),
+            "topk": float(topk.max()), "selection": float(sel.max()),
+            "score": float((f_scores - scores.to(f_scores)).abs().max())}
+
+
+def decode_on(enc, w, step):
+    """The CPU's own greedy decode and beam search (streams) on the
+    encoder outputs ``enc`` by ``step``: (preds, n_steps, (tok, par, val,
+    scores)), as a card's decodes are given to :func:`decode_follow_errs`."""
+    from ast_tpu_torch.ops import fused_infer
+
+    preds = fused_infer.greedy_reference(*enc, w, PARTIAL_STOP, step)
+    n_steps = fused_infer.greedy_follow(*enc, w, preds, step)[1]
+    out = fused_infer.beam_reference(*enc, w, N_BEAM, K_BEAM, PARTIAL_STOP,
+                                     trace=True, step=step)
+    return preds, n_steps, (out[3], out[4], out[5], out[1])
+
+
+def exact_follow(params, mcfg, enc, decodes):
+    """:func:`decode_follow_errs` of each of ``decodes`` (preds, n_steps,
+    streams) by a plain-stage model's bf16 step in float64 (its sums
+    taken exactly) on the encoder outputs ``enc``, on the CPU."""
+    import torch
+
+    from ast_tpu_torch.models import seq2seq
+    from ast_tpu_torch.params import tree_map
+
+    with float64_default():
+        p64 = tree_map(lambda t: t.detach().cpu().double(), params)
+        step = seq2seq.plain_step(p64, mcfg, compute_dtype=torch.bfloat16)
+        enc64 = tuple(t.cpu().double() for t in enc)
+        w = {"ctx_w": p64["attn"]["context"]["w"]}
+        return [decode_follow_errs(enc64, w, *d, step) for d in decodes]
+
+
+def encode_f64(params, state, mcfg, X):
+    """A plain-stage model's bf16 encode in float64 with bf16's rounding
+    points (the bf16 function with its sums taken exactly), on
+    ``params``' device: (enc, h0, c0)."""
+    import torch
+
+    from ast_tpu_torch.models import seq2seq
+    from ast_tpu_torch.params import tree_map
+
+    with float64_default(), torch.inference_mode():
+        p64, s64 = (tree_map(lambda t: t.detach().double(), tree)
+                    for tree in (params, state))
+        return seq2seq.encode(
+            p64, s64, mcfg, X.double() if X.is_floating_point() else X, None,
+            torch.bfloat16)
 
 
 def unidirectional_case(params, state, mcfg, nb, device):
@@ -3571,6 +3842,11 @@ def run_variants(root, train_exp, smi, device="cuda"):
     timing = {"default": run_variant("default", base, device, smi)}
     for name in VARIANT_STAGES:
         timing[name] = run_variant(name, base, device, smi)
+    print(f"  f32 pass: {time.perf_counter() - t_phase:.1f} s", flush=True)
+    t_bf16 = time.perf_counter()
+    timing_bf16 = {name: run_variant_bf16(name, base, device, smi)
+                   for name in timing}
+    print(f"  bf16 pass: {time.perf_counter() - t_bf16:.1f} s", flush=True)
     check_wide_beam(base, device)
     results = check_unidirectional_kernels(
         variant_cfg(base, "bi_rnn false"), device)
@@ -3634,7 +3910,8 @@ def run_variants(root, train_exp, smi, device="cuda"):
                          for f in sorted(os.listdir(os.path.join(speech,
                                                                  dev))))
              if len(a) <= FRAMES)
-    X = np.zeros((1, FRAMES, 13), np.float32)
+    # row 0 of a call at the entry's batch, as the server runs it
+    X = np.zeros((VARIANT_ROWS, FRAMES, 13), np.float32)
     X[0, :len(x)] = x
     with open(os.path.join(serving_dir, "manifest.json")) as f:
         stop = int(json.load(f)["stop_limit"])
@@ -3661,11 +3938,126 @@ def run_variants(root, train_exp, smi, device="cuda"):
           f"{warm_s:.1f} s; one greedy request's ids equal the in-process "
           f"decode ({len(want)} tokens), the server launched K5 and no K1 "
           f"(its encoder is plain)", flush=True)
-    print(f"  ms a train step | greedy utts/s, B={VARIANT_ROWS} ({smi}): "
-          + "; ".join(f"{k} {v[0]:.1f} | {v[1]:.1f}"
-                      for k, v in timing.items()), flush=True)
+    run_variants_bf16_clis(root, train_exp, proj_exp, smi, dev_name)
+    print(f"  ms a train step | greedy utts/s, B={VARIANT_ROWS}, f32 / bf16 "
+          f"({smi}): " + "; ".join(
+              f"{k} {v[0]:.1f} / {timing_bf16[k][0]:.1f} | {v[1]:.1f} / "
+              f"{timing_bf16[k][1]:.1f}" for k, v in timing.items()),
+          flush=True)
     print(f"phase 12: {time.perf_counter() - t_phase:.1f} s", flush=True)
     return results, launches, units
+
+
+def set_compute_dtype(exp, dtype):
+    """``extras.compute_dtype`` of ``exp``'s train_cfg.json."""
+    path = os.path.join(exp, "train_cfg.json")
+    with open(path) as f:
+        tcfg = json.load(f)
+    tcfg.setdefault("extras", {})["compute_dtype"] = dtype
+    with open(path, "w") as f:
+        json.dump(tcfg, f)
+
+
+def run_variants_bf16_clis(root, train_exp, proj_exp, smi, device):
+    """Phase 12's entry points at compute_dtype bfloat16: cli.train -e 1
+    on an ln + rnn_relu experiment (every stage on the scan path: no
+    kernel launched), cli.beam --save-attn on it, and export_model
+    --dtype bfloat16 + cli.serve of phase 12's linear_proj model (its
+    encoder plain, K5 at bf16): one greedy request's ids equal to the
+    in-process bf16 decode of the same row at the entry's batch."""
+    import torch
+
+    from ast_tpu_torch import SYMBOLS, Config
+    from ast_tpu_torch.checkpoint import load_checkpoint
+    from ast_tpu_torch.cli import beam, export_model, train
+    from ast_tpu_torch.models import seq2seq
+    from ast_tpu_torch.params import from_jax_numpy
+
+    exp = variant_experiment(root, train_exp, "variant_ln_relu_bf16",
+                             ("ln", "rnn_relu"))
+    set_compute_dtype(exp, "bfloat16")
+    zero_all_counts()
+    t0 = time.perf_counter()
+    quiet(train.main, ["-m", exp, "-e", "1", "--device", device])
+    dt = time.perf_counter() - t0
+    with open(os.path.join(exp, "train.log")) as f:
+        losses = [float(line.split(", ")[1]) for line in f]
+    with open(os.path.join(exp, "dev.log")) as f:
+        bleus = [line.strip() for line in f]
+    assert len(losses) == 1 and np.isfinite(losses[0]), losses
+    assert len(bleus) == 1, bleus
+    check_routing_bf16("cli.train at bf16, ln + rnn_relu", set(), "train",
+                       device)
+    dev = Config(exp).train["dev_set"]
+    zero_all_counts()
+    quiet(beam.main, ["-m", exp, "-n", str(N_BEAM), "-k", str(K_BEAM),
+                      "-w", "0.6", "-s", dev, "--save-attn", "--device",
+                      device])
+    check_routing_bf16("cli.beam --save-attn at bf16", set(), "beam",
+                       device)
+    with open(os.path.join(exp, f"{dev}_beam_N-{N_BEAM}_K-{K_BEAM}.p"),
+              "rb") as f:
+        beams = pickle.load(f)
+    assert len(beams) == N_DEV
+    worst = 0.0
+    for utt, entries in beams.items():
+        assert len(entries) == N_BEAM, utt
+        for ids, score, attn in entries:
+            assert ids[0] == SYMBOLS.GO_ID and np.isfinite(score), utt
+            assert attn.ndim == 2 and attn.shape[0] == len(ids), attn.shape
+            assert not attn[0].any(), "the GO row holds attention"
+            worst = max(worst, float(np.abs(attn[1:].sum(axis=1) - 1).max()))
+    assert worst <= 1e-5, f"a bf16 attention row sums to 1 +- {worst}"
+    print(f"  cli.train -e 1 at bf16 on {os.path.basename(exp)} ({dt:.1f} "
+          f"s, {smi}): train.log {losses}, dev.log {bleus}, no kernel "
+          f"launched; cli.beam --save-attn at bf16: {N_DEV} utterances x "
+          f"{N_BEAM} hypotheses with histories, rows summing to 1 within "
+          f"{worst:.2e}", flush=True)
+
+    mcfg = Config(proj_exp).model
+    dev_t = torch.device(device)
+    snap = load_checkpoint(os.path.join(proj_exp, "seq2seq_1.model.npz"))
+    params, state = from_jax_numpy(snap["params"], snap["state"], dev_t)
+    serving_dir = os.path.join(root, "serving_linear_proj_bf16")
+    quiet(export_model.main, ["-m", proj_exp, "-o", serving_dir, "--batch",
+                              str(VARIANT_ROWS), "--frames", str(FRAMES),
+                              "--dtype", "bfloat16"])
+    with open(os.path.join(serving_dir, "manifest.json")) as f:
+        manifest = json.load(f)
+    assert manifest["compute_dtype"] == "bfloat16", manifest
+    speech = Config(proj_exp).train["data"]["speech_path"]
+    x = next(a for a in (np.load(os.path.join(speech, dev, f))
+                         for f in sorted(os.listdir(os.path.join(speech,
+                                                                 dev))))
+             if len(a) <= FRAMES)
+    # row 0 of a call at the entry's batch, as the server runs it
+    X = np.zeros((VARIANT_ROWS, FRAMES, 13), np.float32)
+    X[0, :len(x)] = x
+    with torch.inference_mode():
+        pred = seq2seq.predict_greedy(
+            params, state, mcfg, torch.from_numpy(X).to(dev_t),
+            int(manifest["stop_limit"]),
+            compute_dtype=torch.bfloat16)[0][0].cpu().numpy()
+    eos = np.nonzero(pred == SYMBOLS.EOS_ID)[0]
+    want = (pred[:eos[0]] if eos.size else pred).tolist()
+    proc, base_url, warm_s = start_server(
+        serving_dir, os.path.join(root, "serve_linear_proj_bf16.log"),
+        device=device)
+    try:
+        before = http_get(base_url + "/stats")["kernel_launches"]
+        status, reply = http_post(base_url + "/decode?mode=greedy", x)
+        after = http_get(base_url + "/stats")["kernel_launches"]
+    finally:
+        rc = stop_server(proc)
+    assert status == 200 and reply["ids"] == want, (status, reply, want)
+    moved = {k: after[k] - before[k] for k in after}
+    check_launched("cli.serve at bf16, linear_proj", moved,
+                   ("k5_bf16",) if dev_t.type == "cuda" else ())
+    assert rc == 0, rc
+    print(f"  export_model --dtype bfloat16 + cli.serve of the linear_proj "
+          f"model: ready after {warm_s:.1f} s; one greedy request's ids "
+          f"equal the in-process bf16 decode ({len(want)} tokens); the "
+          f"server launched {moved}", flush=True)
 
 
 # kernel-name fragments -> group, first match wins
@@ -3744,6 +4136,9 @@ def device_busy(prof):
 # log-probs) within BF16_SCORE_TOL.  (Measured on the H100: 4.4e-4,
 # 4.8e-4 and 9.4e-3 at B = 32.)
 BF16_ENC_TOL, BF16_TOK_TOL, BF16_SCORE_TOL = 3.9e-3, 1e-2, 5e-2
+# phase 12's bf16 pass: decode_follow_errs' readings and their bounds
+BF16_DECODE_TOLS = {"greedy": BF16_TOK_TOL, "topk": BF16_TOK_TOL,
+                    "selection": BF16_SCORE_TOL, "score": BF16_SCORE_TOL}
 # (utterances, T') of the bf16 partial-batch checks: PARTIAL's, so the
 # tensor-core products meet every row tiling of launch_prod (greedy R =
 # 5, 11, 20, 64; beam R = 25, 55, 100, 320 in two 256-row chunks)
@@ -4112,7 +4507,8 @@ def run_bf16_serving(exp, paths, root, smi, device="cuda"):
     params, state = from_jax_numpy(snap["params"], snap["state"],
                                    torch.device(device))
     x = next(a for a in (np.load(p) for p in paths) if len(a) <= FRAMES)
-    X = np.zeros((1, FRAMES, 13), np.float32)
+    # row 0 of a call at the entry's batch, as the server runs it
+    X = np.zeros((B, FRAMES, 13), np.float32)
     X[0, :len(x)] = x
     Xt = torch.from_numpy(X).to(torch.device(device))
     bf = torch.bfloat16
@@ -4299,6 +4695,10 @@ def check_determinism(train_exp, root, smi, device="cuda"):
 BF16_MAX_TOL = 2 ** -6
 BF16_STEP_TOL = 2 ** -16
 BF16_LOSS_TOL = 2 ** -16
+# phase 12's bf16 pass: how far the card's bf16 step of a variant with
+# no kernel stage may lie from the float64-sum bf16 step, as a multiple
+# of the CPU's float32-sum distance from it (bf16_limits)
+BF16_SPREAD = 4
 BF16_TRAIN_KEYS = ("k1_train_bf16", "k2_bf16", "k3_bf16", "k4_bf16")
 
 

@@ -22,7 +22,6 @@ products' left operands, the encoder states) moves the beam scores by
 more than 1e-4 (``test_each_rounding_point_matters``).
 """
 
-import contextlib
 import copy
 import json
 import os
@@ -35,6 +34,8 @@ import pytest
 import torch
 
 from ast_tpu.models import seq2seq as jax_seq2seq
+from ast_tpu.ops import attention as jax_attention
+from ast_tpu.ops import beam as jax_beam
 from ast_tpu.ops.cnn import conv_frontend as jax_conv_frontend
 from ast_tpu.ops.fused_decoder import round_up
 from ast_tpu.ops.fused_infer import beam_decode_fused as jax_beam_fused
@@ -56,6 +57,7 @@ from ast_tpu_torch.ops.cnn import conv_frontend
 from ast_tpu_torch.params import from_jax_numpy
 from ast_tpu_torch.train.trainer import NN
 from tests.conftest import TINY_MODEL_CFG, make_tiny_experiment
+from tests.test_torch_bf16_scan import _ExactBf16, torch_threads
 
 BF = torch.bfloat16
 V = 12
@@ -351,19 +353,46 @@ def test_each_rounding_point_matters(model, reference, monkeypatch, point):
     assert float(np.abs(scores.numpy() - r_scores).max()) > SCORE_TOL
 
 
-def test_bf16_refuses_scan_path_variants_by_name(model):
-    _, _, X, tp, ts, _ = model
-    for edit, name in (({"ln": True}, "ln"), ({"n_attn": 2}, "n_attn"),
-                       ({"attn_block_size": 8}, "attn_block_size")):
+def test_bf16_refuses_scan_path_variants_by_name(model, monkeypatch):
+    """Once refused by name at bf16, the scan-path variants (``ln``, two
+    attention heads, blockwise attention) decode at bf16 equal to
+    ast_tpu's bf16 decode of the same model (its scan path, its einsums
+    widened as tests/test_torch_bf16_scan.py runs them): greedy ids
+    exactly, beam hyps exactly and scores within SCORE_TOL; so does
+    ``return_attn`` on the kernels' model, with its histories within
+    ATOL."""
+    _, _, X, _, _, _ = model
+    for mod in (jax_seq2seq, jax_attention):
+        monkeypatch.setattr(mod, "jnp", _ExactBf16())
+    x = jnp.asarray(X)
+    for edit, seed in (({"ln": True}, 1), ({"n_attn": 2}, 2),
+                       ({"attn_block_size": 8}, 3), ({}, 4)):
         mcfg = _mcfg(**edit)
-        with pytest.raises(NotImplementedError, match=name):
-            seq2seq.predict_greedy(tp, ts, mcfg, torch.from_numpy(X), STOP,
-                                   compute_dtype=BF)
-        with pytest.raises(NotImplementedError, match=name):
-            beam_ops.make_beam_decoder(mcfg, 2, 2, STOP, compute_dtype=BF)
-    with pytest.raises(NotImplementedError, match="return_attn"):
-        beam_ops.make_beam_decoder(_mcfg(), 2, 2, STOP, return_attn=True,
-                                   compute_dtype=BF)
+        params, state = jax_seq2seq.init_model(jax.random.PRNGKey(seed),
+                                               mcfg)
+        tp, ts = from_jax_numpy(*(jax.tree.map(np.asarray, t)
+                                  for t in (params, state)))
+        return_attn = not edit
+        if edit:
+            want = jax_seq2seq.predict_greedy(params, state, mcfg, x, STOP,
+                                              compute_dtype=jnp.bfloat16)
+            got = seq2seq.predict_greedy(tp, ts, mcfg, torch.from_numpy(X),
+                                         STOP, compute_dtype=BF)
+            np.testing.assert_array_equal(got[0].numpy(),
+                                          np.asarray(want[0]))
+            assert int(got[1]) == int(want[1])
+        want = jax_beam.make_beam_decoder(
+            mcfg, 2, 2, STOP, compute_dtype=jnp.bfloat16,
+            return_attn=return_attn)(params, state, x)
+        got = beam_ops.make_beam_decoder(
+            mcfg, 2, 2, STOP, return_attn, compute_dtype=BF)(
+                tp, ts, torch.from_numpy(X))
+        np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+        np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]),
+                                   rtol=0, atol=SCORE_TOL)
+        if return_attn:
+            np.testing.assert_allclose(got[3].numpy(), np.asarray(want[3]),
+                                       rtol=0, atol=ATOL)
 
 
 # ---------------------------------------------------------------------------
@@ -524,12 +553,15 @@ def test_export_and_serve_bf16(experiment, tmp_path, quantize):
     assert abs(got_b["score"] - best[1]) <= SCORE_TOL
 
 
-def test_training_refuses_bf16_by_name(experiment, tmp_path):
-    """compute_dtype bfloat16 trains the model the kernels take (it was
-    refused before bf16 training was ported; tests/test_torch_bf16_train.py
-    holds it to ast_tpu): NN builds, train_epoch and eval_loss give finite
-    losses and cli.train writes its log; a scan-path variant at bf16 is
-    still refused by NN and export_model by name."""
+def test_training_refuses_bf16_by_name(tmp_path, monkeypatch):
+    """compute_dtype bfloat16 trains the model the kernels take
+    (tests/test_torch_bf16_train.py holds it to ast_tpu): NN builds,
+    train_epoch and eval_loss give finite losses and cli.train writes its
+    log.  A scan-path variant (``rnn_relu``), once refused by name, now
+    builds, evaluates to ast_tpu's NN's bf16 dev loss on the same
+    checkpoint (its einsums widened as tests/test_torch_bf16_scan.py runs
+    them) within 1e-5 relative, and exports a bf16 serving directory
+    whose server decodes as ``predict_greedy`` at bf16."""
     exp = make_tiny_experiment(str(tmp_path))
     _set_bf16(exp)
     nn = NN(exp, "cpu")
@@ -545,9 +577,34 @@ def test_training_refuses_bf16_by_name(experiment, tmp_path):
     mcfg["rnn_config"]["rnn_relu"] = True
     with open(path, "w") as f:
         json.dump(mcfg, f)
-    with pytest.raises(NotImplementedError, match="rnn_relu"):
-        NN(exp, "cpu")
-    with pytest.raises(NotImplementedError, match="rnn_relu"):
-        export_model.main(["-m", exp, "-o", str(tmp_path / "s")])
-    with contextlib.suppress(FileNotFoundError):
-        assert not os.listdir(tmp_path / "s")
+    with torch_threads(1):
+        _rnn_relu_bf16_matches_ast_tpu(exp, tmp_path, monkeypatch)
+
+
+def _rnn_relu_bf16_matches_ast_tpu(exp, tmp_path, monkeypatch):
+    nn = NN(exp, "cpu")
+    assert nn.compute_dtype == BF and nn.max_epoch == 1
+    for mod in (jax_seq2seq, jax_attention):
+        monkeypatch.setattr(mod, "jnp", _ExactBf16())
+    from ast_tpu.train.trainer import NN as JaxNN
+    ref = JaxNN(exp)
+    assert ref.max_epoch == 1 and ref.compute_dtype == jnp.bfloat16
+    want = ref.eval_loss("tiny_dev")
+    got = nn.eval_loss("tiny_dev")
+    assert abs(got - want) <= 1e-5 * abs(want), (got, want)
+    out = str(tmp_path / "s")
+    export_model.main(["-m", exp, "-o", out, "--batch", "1",
+                       "--frames", "400"])
+    with open(os.path.join(out, "manifest.json")) as f:
+        assert json.load(f)["compute_dtype"] == "bfloat16"
+    server = serve.ArtifactServer(out, device="cpu")
+    speech = os.path.join(str(tmp_path), "speech", "tiny_dev")
+    x = np.load(os.path.join(speech, sorted(os.listdir(speech))[0]))
+    X = np.zeros((1, 400, 13), np.float32)
+    X[0, :len(x)] = x[:400]
+    ids = seq2seq.predict_greedy(
+        nn.params, nn.state, nn.mcfg, torch.from_numpy(X),
+        int(server.manifest["stop_limit"]), compute_dtype=BF)[0][0].tolist()
+    eos = ids.index(SYMBOLS.EOS_ID) if SYMBOLS.EOS_ID in ids else len(ids)
+    got = server.decode({"features": x.astype(np.float32), "mode": "greedy"})
+    assert got["ids"] == ids[:eos]

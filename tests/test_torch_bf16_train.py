@@ -35,12 +35,14 @@ import pytest
 import torch
 
 from ast_tpu.models import seq2seq as jax_seq2seq
+from ast_tpu.ops import attention as jax_attention
 from ast_tpu.ops import fused_decoder as jax_fd
 from ast_tpu.ops import fused_lstm as jax_fl
 from ast_tpu.ops.cnn import conv_frontend as jax_conv_frontend
 from ast_tpu.ops.fused_decoder import round_up
 from ast_tpu.symbols import SYMBOLS
 from ast_tpu.train import checkpoint as jax_ckpt
+from ast_tpu.train.trainer import NN as JaxNN
 from ast_tpu_torch.checkpoint import flatten
 from ast_tpu_torch.cli import train as train_cli
 from ast_tpu_torch.models import seq2seq
@@ -50,6 +52,7 @@ from ast_tpu_torch.params import from_jax_numpy, tree_map
 from ast_tpu_torch.train.optimizer import tree_leaves
 from ast_tpu_torch.train.trainer import NN, to_numpy
 from tests.conftest import TINY_MODEL_CFG, make_tiny_experiment
+from tests.test_torch_bf16_scan import _ExactBf16, torch_threads
 
 BF = torch.bfloat16
 JBF = jnp.bfloat16
@@ -702,20 +705,28 @@ def test_cli_train_bf16_writes_logs_and_a_checkpoint_ast_tpu_loads(
     ({"rnn_config": {"rnn_relu": True}}, "rnn_relu"),
     ({"dropout": {"out": 0.3}}, "dropout.out"),
 ], ids=["rnn_relu", "dropout_out"])
-def test_scan_variant_bf16_refused_in_training(tmp_path, edits, name):
-    """A model variant that trains on the scan path stays refused at bf16
-    by name: NN refuses a scan encoder when it builds; the decoder's scan
-    loss (output dropout) is refused where training starts."""
-    exp = _bf16_experiment(tmp_path, **edits)
-    if name == "rnn_relu":
-        with pytest.raises(NotImplementedError, match=name):
-            NN(exp, "cpu")
-        return
-    nn = NN(exp, "cpu")
-    for fn in (lambda: nn.train_epoch("tiny_train", epoch=1),
-               lambda: nn.eval_loss("tiny_dev")):
-        with pytest.raises(NotImplementedError, match=name):
-            fn()
-    with pytest.raises(NotImplementedError, match=name):
+def test_scan_variant_bf16_refused_in_training(tmp_path, edits, name,
+                                               monkeypatch):
+    """A model variant that trains on the scan path, once refused at bf16
+    by name, now trains there: NN builds at bf16, cli.train trains an
+    epoch and writes its logs, and the dev loss at bf16 is ast_tpu's
+    NN's on the same checkpoint within 1e-5 relative (its einsums
+    widened as tests/test_torch_bf16_scan.py runs them, its kernel flags
+    set so that ``dropout.out``'s encoder is K1 in both)."""
+    rnn = dict(edits.get("rnn_config", {}), fused_encoder=True,
+               fused_decoder=True, fused_interpret=True)
+    exp = _bf16_experiment(tmp_path, **dict(edits, rnn_config=rnn))
+    with torch_threads(1):
+        assert NN(exp, "cpu").compute_dtype == BF
         train_cli.main(["-m", exp, "-e", "1", "--device", "cpu"])
-    assert not os.path.exists(os.path.join(exp, "train.log"))
+        for log in ("train.log", "dev.log"):
+            with open(os.path.join(exp, log)) as f:
+                assert len([r for r in f if r.strip()]) == 1, (name, log)
+        nn = NN(exp, "cpu")
+        assert nn.max_epoch == 1
+        for mod in (jax_seq2seq, jax_attention):
+            monkeypatch.setattr(mod, "jnp", _ExactBf16())
+        ref = JaxNN(exp)
+        assert ref.max_epoch == 1 and ref.compute_dtype == jnp.bfloat16
+        want, got = ref.eval_loss("tiny_dev"), nn.eval_loss("tiny_dev")
+    assert abs(got - want) <= 1e-5 * abs(want), (name, got, want)

@@ -33,6 +33,7 @@ import urllib.request
 import jax
 import numpy as np
 import pytest
+import torch
 
 from ast_tpu import serving as jax_serving
 from ast_tpu.cli import export_model as jax_export
@@ -219,6 +220,35 @@ def test_decode_batch_matches_ast_tpu(dirs, servers, mode):
         port.decode_batch({"batch": []})
 
 
+@pytest.mark.parametrize("threads", [1, 4])
+@pytest.mark.parametrize("mode", ["greedy", "beam"])
+def test_batch_mates_leave_a_row_bit_equal(dirs, servers, mode, threads):
+    """A row's outputs and response are bit-equal whether it is decoded
+    alone, beside one batch mate or through /decode_batch: every call
+    runs at the entry's static batch, so no row's float sums depend on
+    how many requests share its call (one and four BLAS threads)."""
+    port, _ = servers["f32"]
+    before = torch.get_num_threads()
+    torch.set_num_threads(threads)
+    try:
+        x, mate = dirs["xs"][0], dirs["xs"][2]
+        entry = port._pick_entry(mode, x)
+        assert entry["batch"] == 2
+        alone = port._call_rows(entry, [x])[0]
+        paired = port._call_rows(entry, [x, mate])[0]
+        for a, b in zip(alone, paired):
+            np.testing.assert_array_equal(a, b)
+        body = {"mode": mode, "nbest": 2}
+        single = port.decode(dict(body, features=x))
+        batch = port.decode_batch(dict(body, batch=[
+            {"features": mate}, {"features": x}]))["results"]
+        assert batch[1] == single
+        assert port.decode_batch(dict(body, batch=[
+            {"features": x}]))["results"][0] == single
+    finally:
+        torch.set_num_threads(before)
+
+
 # ---------------------------------------------------------------------------
 # over HTTP
 # ---------------------------------------------------------------------------
@@ -364,13 +394,15 @@ def _hit_all(base, bodies):
 
 
 def _count_runs(state, during=None):
-    """Wrap ``state._run``: the calls it sees, and ``during()`` inside
-    each."""
+    """Wrap ``state._run``: the requests of each call it sees (a call
+    runs at the entry's static batch, zero rows after its requests), and
+    ``during()`` inside each."""
     calls = []
     run = state._run
 
     def counted(entry, X, dev, stream):
-        calls.append(X.shape[0])
+        assert X.shape[0] == entry["batch"]
+        calls.append(int(np.abs(X).reshape(len(X), -1).any(axis=1).sum()))
         if during is not None:
             during()
         return run(entry, X, dev, stream)

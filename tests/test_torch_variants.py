@@ -20,7 +20,6 @@ to the kernel path's by the last tests.
 import copy
 import os
 import pickle
-import re
 
 import jax
 import jax.numpy as jnp
@@ -47,6 +46,7 @@ from ast_tpu_torch.params import from_flat, from_jax_numpy, to_flat, tree_map
 from ast_tpu_torch.train.optimizer import tree_leaves
 from ast_tpu_torch.train.trainer import to_numpy
 from tests.conftest import TINY_MODEL_CFG
+from tests.test_torch_bf16_scan import _ExactBf16
 
 V, B, U, STOP, N, K = 16, 3, 9, 10, 3, 3
 ATOL = 1e-5
@@ -792,20 +792,51 @@ def test_shape_gate_routes_the_training_decoder_by_T():
     ({"hidden_units": 80}, "hidden_units 80 (40 a direction"),
     ({"embedding_units": 100}, "embedding_units 100"),
 ])
-def test_bf16_refuses_an_odd_width_by_name(rnn, named):
-    """At bf16 a stage the gate sends to the scan path is refused, naming
-    the width; f32 and the CPU's plain versions take it."""
-    mcfg = _wide(**rnn)
-    with pytest.raises(NotImplementedError, match=re.escape(named)):
-        fused_infer.require_bf16_variant(mcfg, torch.bfloat16,
-                                         device="cuda")
-    fused_infer.require_bf16_variant(mcfg, torch.float32, device="cuda")
-    fused_infer.require_bf16_variant(mcfg, torch.bfloat16, device="cpu")
-    problem = fused_infer.decode_shapes_problem(2, T_WIDE, 512, 128, 512,
-                                                40, 2)
-    with pytest.raises(NotImplementedError, match="N=40"):
-        fused_infer.require_bf16_shapes(torch.bfloat16, problem)
-    fused_infer.require_bf16_shapes(torch.float32, problem)
+def test_bf16_refuses_an_odd_width_by_name(rnn, named, monkeypatch):
+    """Once refused at bf16 by name, a width the card's shape gate sends
+    to the plain stages now trains, greedy- and beam-decodes at bf16:
+    with the gate applied to CPU tensors and no kernel wrapper called,
+    equal to ast_tpu's scan path at bf16 on the same model (its einsums
+    widened as tests/test_torch_bf16_scan.py runs them) -- greedy ids
+    and beams exactly, scores within 1e-4, the train loss within 1e-5
+    relative."""
+    mcfg, params, state, X, y, tp, ts = _model("default", **rnn)
+    assert not (seq2seq.use_fused_encoder(mcfg, "cuda")
+                or seq2seq.use_fused_infer(mcfg, "cuda", B, 6)), named
+    for mod in (jax_seq2seq, jax_attention):
+        monkeypatch.setattr(mod, "jnp", _ExactBf16())
+    monkeypatch.setattr(seq2seq, "on_card", lambda device: True)
+    for name in ("fused_stacked_lstm", "greedy_decode_fused"):
+        monkeypatch.setattr(seq2seq, name, _refuse)
+    monkeypatch.setattr(seq2seq.FusedStackedLSTM, "apply", _refuse)
+    monkeypatch.setattr(seq2seq.FusedDecoder, "apply", _refuse)
+    monkeypatch.setattr(beam_ops, "beam_decode_fused", _refuse)
+    bf = torch.bfloat16
+
+    want, want_n = jax.jit(lambda p, s, x: jax_seq2seq.predict_greedy(
+        p, s, mcfg, x, STOP, compute_dtype=jnp.bfloat16))(
+            _jnp(params), _jnp(state), jnp.asarray(X))
+    got, got_n = seq2seq.predict_greedy(tp, ts, mcfg, _x(X), STOP,
+                                        compute_dtype=bf)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert int(got_n) == int(want_n)
+    want = jax_beam.make_beam_decoder(mcfg, N, K, STOP,
+                                      compute_dtype=jnp.bfloat16)(
+        _jnp(params), _jnp(state), jnp.asarray(X))
+    got = beam_ops.make_beam_decoder(mcfg, N, K, STOP, compute_dtype=bf)(
+        tp, ts, _x(X))
+    np.testing.assert_array_equal(got[0].numpy(), np.asarray(want[0]))
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]),
+                               rtol=0, atol=1e-4)
+    want_loss, _ = jax.jit(lambda p, s, x, t: jax_seq2seq.forward_loss(
+        p, s, mcfg, x, t, jax.random.PRNGKey(1), train=True,
+        n_real=float(B), teach_ratio=1.0, compute_dtype=jnp.bfloat16))(
+            _jnp(params), _jnp(state), jnp.asarray(X), jnp.asarray(y))
+    draws = seq2seq.Draws(None, 11, 12, torch.ones(U - 1, dtype=torch.int32))
+    got_loss, _ = seq2seq.forward_loss(tp, ts, mcfg, _x(X), _x(y).long(),
+                                       float(B), draws, compute_dtype=bf)
+    np.testing.assert_allclose(got_loss.item(), float(want_loss),
+                               rtol=ATOL)
 
 
 def _refuse(*args, **kwargs):
