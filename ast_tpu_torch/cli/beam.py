@@ -1,7 +1,13 @@
 """Beam-decode a split of an experiment on a GPU.
 
 ``python -m ast_tpu_torch.cli.beam -m <exp_dir> -n N -k K -s <set> -w W
-[--resume] [--ckpt F] [--device cuda|cpu]``
+[--resume] [--ckpt F] [--device cuda|cpu] [--dist-backend nccl|gloo]``
+
+``torchrun --nproc-per-node N -m ast_tpu_torch.cli.beam ...`` decodes
+over the experiment's ``parallel`` mesh (its data axis and vocab
+``model_axis``), one process a card, as ``cli.train`` runs it
+(``cli.train.launch``): every rank decodes its rows and holds the whole
+split's beams; rank 0 alone writes the pickle and the ``.en`` file.
 
 The counterpart of ``ast_tpu/cli/beam.py``: the split's beams (K1 eval
 and K6, batched) are pickled to ``<set>_beam_N-<n>_K-<k>.p`` as plain
@@ -21,6 +27,9 @@ import argparse
 import os
 import pickle
 
+import torch
+
+from ast_tpu_torch.cli.train import launch
 from ast_tpu_torch.eval.bleu import Eval
 from ast_tpu_torch.ops.beam import get_best_hyps
 from ast_tpu_torch.train.trainer import NN
@@ -43,15 +52,33 @@ def main(argv=None):
                              "alongside (hyp, score), as the reference "
                              "beam entries do")
     parser.add_argument("--device", default="cuda",
-                        help="torch device (default cuda; cpu runs the "
-                             "plain PyTorch versions of the kernels)")
+                        help="torch device (default cuda, under torchrun "
+                             "cuda:LOCAL_RANK; cpu runs the plain PyTorch "
+                             "versions of the kernels)")
+    parser.add_argument("--dist-backend", choices=("nccl", "gloo"),
+                        default=None,
+                        help="torch.distributed backend of a multi-process "
+                             "run (default nccl on CUDA, gloo on the CPU)")
     args = parser.parse_args(argv)
+    device = launch(args.device, args.dist_backend)
+    try:
+        bleu = run(args, device)
+        if torch.distributed.is_initialized():
+            torch.distributed.barrier()     # no rank leaves mid-exchange
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    return bleu
 
+
+def run(args, device):
+    """Decode, pickle, rerank and score ``args``' split on ``device``;
+    returns the BLEU."""
     cfg_path = args.cfg_path
     N, K, W = int(args.N), int(args.K), float(args.W)
     set_key = args.S
 
-    nn = NN(cfg_path, args.device, ckpt=args.ckpt)
+    nn = NN(cfg_path, device, ckpt=args.ckpt)
     refs_path = os.path.join(nn.cfg.train["data"]["refs_path"], set_key)
     metrics = Eval(refs_path, nn.cfg.train["data"]["n_evals"])
 
@@ -69,8 +96,9 @@ def main(argv=None):
         print("Computing beam results (batched on device)")
         beam = nn.decode_beam_set(set_key, N=N, K=K,
                                   save_attn=args.save_attn)
-        with open(beam_path, "wb") as f:
-            pickle.dump(beam, f)
+        if nn.primary:
+            with open(beam_path, "wb") as f:
+                pickle.dump(beam, f)
 
     preds = get_best_hyps(beam, W)
     hyps = nn.data_loader.get_hyps(preds.items())
@@ -79,8 +107,9 @@ def main(argv=None):
 
     out_fname = os.path.join(
         cfg_path, f"{set_key}_beam_N-{N}_K-{K}_W-{W:.2f}{tag}.en")
-    metrics.write_to_file(hyps, out_fname)
-    print(f"Predictions written to: {out_fname}")
+    if nn.primary:
+        metrics.write_to_file(hyps, out_fname)
+        print(f"Predictions written to: {out_fname}")
     return bleu
 
 

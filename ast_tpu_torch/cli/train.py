@@ -4,9 +4,11 @@
 [--profile LOGDIR] [--device cuda|cpu] [--dist-backend nccl|gloo]``
 
 ``torchrun --nproc-per-node N -m ast_tpu_torch.cli.train -m <exp_dir>
--e <epochs>`` trains data-parallel over N processes, one a card
-(``train_cfg["parallel"]``, ``ast_tpu_torch.parallel``; several hosts:
-``torchrun``'s ``--nnodes`` and rendezvous flags).  The CLI reads
+-e <epochs>`` trains over N processes, one a card, laid as the
+experiment's (data, model) mesh (``train_cfg["parallel"]``: a data
+axis, and with ``model_axis`` M > 1 the vocabulary split over M ranks;
+``ast_tpu_torch.parallel``; several hosts: ``torchrun``'s ``--nnodes``
+and rendezvous flags).  The CLI reads
 ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``MASTER_ADDR`` and
 ``MASTER_PORT``; ``--device cuda`` is then ``cuda:LOCAL_RANK``, while an
 explicit ``--device cuda:0`` is taken as given (two ranks may share one

@@ -95,6 +95,7 @@ from ast_tpu_torch.ops.lstm import dropout, layernorm, lstm_gates
 from ast_tpu_torch.ops.specaugment import (
     SpecMasks, apply_spec_masks, draw_spec_masks)
 from ast_tpu_torch.params import from_jax_numpy
+from ast_tpu_torch.parallel.tp import gathered_params, vocab_parallel_loss
 
 
 # ---------------------------------------------------------------------------
@@ -694,13 +695,15 @@ def make_draws(seed, X, steps, teach_ratio, add_noise, random_out=0.0,
     the others in the host stream, which is the same without them.
 
     ``mesh`` (``parallel.make_mesh``): X holds this rank's rows of a
-    global batch of ``mesh.data`` times as many; every per-row draw is
-    made at the global batch's shape and this rank's rows are kept, so
-    the ranks' draws together are one process's (``frame_len`` then the
-    global batch's).  The coins and seeds are shared."""
+    global batch of ``mesh.data`` times as many, at its data index;
+    every per-row draw is made at the global batch's shape and this
+    rank's rows are kept, so the data ranks' draws together are one
+    process's (``frame_len`` then the global batch's), and the ranks of
+    a model group draw alike.  The coins and seeds are shared; the
+    random target ids are drawn over the whole vocabulary."""
     host = torch.Generator().manual_seed(seed)
     B = X.shape[0]
-    row_offset, rows = (0, B) if mesh is None else (mesh.rank * B,
+    row_offset, rows = (0, B) if mesh is None else (mesh.data_index * B,
                                                       mesh.data * B)
     shape = (rows,) + tuple(X.shape[1:])
     mine = slice(row_offset, row_offset + B)
@@ -774,6 +777,17 @@ def sequence_loss(ht, out_w, out_b, target, n_real, label_smoothing=0.0,
                        label_smoothing, replace, rand_ids)
 
 
+def sharded_sequence_loss(ht, out_w, out_b, target, n_real, mesh=None,
+                          **kw):
+    """:func:`sequence_loss` with ``out_w`` and ``out_b`` this rank's
+    vocab shards on ``mesh``: ``parallel.tp.vocab_parallel_loss`` under a
+    model axis, else (no mesh, or a model axis of 1) :func:`sequence_loss`
+    itself, the one-process code.  ``kw``: :func:`sequence_loss`'s."""
+    if mesh is None or mesh.model == 1:
+        return sequence_loss(ht, out_w, out_b, target, n_real, **kw)
+    return vocab_parallel_loss(ht, out_w, out_b, target, n_real, mesh, **kw)
+
+
 def logits_loss(logits, target, n_real, label_smoothing=0.0, replace=None,
                 rand_ids=None):
     """:func:`sequence_loss` from the logits (U, B, V)."""
@@ -843,10 +857,22 @@ def forward_loss(params, state, mcfg, X, y, n_real, draws=None, train=True,
     (:func:`make_draws` with the ``mesh``), ``n_real`` the global
     batch's real rows, so the loss is the rank's share of the global
     loss and the ranks' gradients sum to one process's; ``mesh`` makes
-    the train-mode BN statistics the global batch's."""
+    the train-mode BN statistics the global batch's.
+
+    Vocab tensor parallelism (a ``mesh`` with a model axis; train mode):
+    ``params``' ``dec/embed``, ``dec/out_w`` and ``dec/out_b`` are this
+    rank's vocab shards (``parallel.mesh.shard_params``).  The stages
+    take them gathered whole (``parallel.tp.gathered_params``, whose
+    backward keeps this rank's slice of the whole gradient): K3 / K4
+    (``d_embed`` over the whole vocabulary) or the scan loss, which then
+    runs its logits and cross-entropy whole on every rank.  After K3 the
+    loss logits stay sharded: ``parallel.tp.vocab_parallel_loss``.  The
+    loss is the whole one on every rank of the model group."""
     drop = mcfg["dropout"]
     yT = y.t()
+    shards = params["dec"]
     if train:
+        params = gathered_params(params, mesh)
         enc, h0, c0, new_state = encode_train(params, state, mcfg, X, draws,
                                               compute_dtype, mesh)
     else:
@@ -871,22 +897,23 @@ def forward_loss(params, state, mcfg, X, y, n_real, draws=None, train=True,
     ht, _ = FusedDecoder.apply(enc.to(w["wh"].dtype), h0, c0,
                                *(w[k] for k in W_NAMES), y_in, coins, seed,
                                *rates, row0)
-    dec = params["dec"]
-    loss = sequence_loss(ht, dec["out_w"], dec["out_b"], yT[1:], n_real,
-                         compute_dtype=compute_dtype, **corrupt)
+    loss = sharded_sequence_loss(
+        ht, shards["out_w"], shards["out_b"], yT[1:], n_real,
+        mesh if train else None, compute_dtype=compute_dtype, **corrupt)
     return loss, new_state
 
 
 def weight_noise_targets(params):
     """The leaves that weight noise moves (``ast_tpu``'s
-    ``add_weight_noise``): the encoder's LSTM leaves, the decoder's, each
-    layer's by sorted name (b, wh, wx: the order JAX flattens a dict
-    in), then the decoder embedding."""
+    ``add_weight_noise``), as (path, leaf) pairs: the encoder's LSTM
+    leaves, the decoder's, each layer's by sorted name (b, wh, wx: the
+    order JAX flattens a dict in), then the decoder embedding."""
     out = []
-    for lstm in (params["enc"]["lstm"], params["dec"]["lstm"]):
-        for layer in lstm:
-            out.extend(layer[k] for k in sorted(layer))
-    return out + [params["dec"]["embed"]]
+    for part in ("enc", "dec"):
+        for i, layer in enumerate(params[part]["lstm"]):
+            out.extend((f"{part}/lstm/{i}/{k}", layer[k])
+                       for k in sorted(layer))
+    return out + [("dec/embed", params["dec"]["embed"])]
 
 
 def add_weight_noise(params, mean, sigma, noise):
@@ -899,6 +926,6 @@ def add_weight_noise(params, mean, sigma, noise):
         raise ValueError(f"weight noise: {len(noise)} noise tensors for "
                          f"{len(targets)} leaves")
     with torch.no_grad():
-        for p, n in zip(targets, noise):
+        for (_, p), n in zip(targets, noise):
             p.copy_(p + mean + sigma * n.to(p.device))
     return params

@@ -58,17 +58,22 @@ def im2col_eligible(cnn_config, in_dim):
 def batch_moments(h, axes, mesh=None):
     """Per-channel mean and population variance of ``h`` over ``axes``.
     With a data ``mesh`` (``parallel.make_mesh``) they are the global
-    batch's: the local sums all-reduced for the mean, then the squared
-    deviations' for the variance (``jnp.var``'s two passes), through
-    ``torch.distributed.nn.functional.all_reduce``, whose backward
-    all-reduces the gradients; every rank gets the same values.  Without
-    one, the local batch's, as a single process computes them."""
-    if mesh is None:
+    batch's: the local sums all-reduced over the data group for the
+    mean, then the squared deviations' for the variance (``jnp.var``'s
+    two passes), through ``torch.distributed.nn.functional.all_reduce``,
+    whose backward all-reduces the gradients over the same group; every
+    rank gets the same values.  The ranks of a model group hold the same
+    rows, so their copies are not summed.  Without a mesh, or with a
+    data axis of 1, the local batch's, as a single process computes
+    them."""
+    if mesh is None or mesh.data == 1:
         return h.mean(dim=axes), h.var(dim=axes, correction=0)
     from torch.distributed.nn.functional import all_reduce
     n = mesh.data * math.prod(h.shape[a] for a in axes)
-    mean = all_reduce(h.sum(dim=axes, keepdim=True)) / n
-    var = all_reduce(((h - mean) ** 2).sum(dim=axes, keepdim=True)) / n
+    group = mesh.data_group
+    mean = all_reduce(h.sum(dim=axes, keepdim=True), group=group) / n
+    var = all_reduce(((h - mean) ** 2).sum(dim=axes, keepdim=True),
+                     group=group) / n
     return mean.flatten(), var.flatten()
 
 

@@ -24,6 +24,14 @@ carried as initialised or loaded, and each step draws from a torch
 generator seeded from the run's seed and ``count``, so a resumed run
 draws what an uninterrupted one would.
 
+Under a model axis (``parallel.mesh``: ``dec/out_w``, ``dec/out_b`` and
+``dec/embed`` and their moments hold this rank's vocab shard) the chain
+is the one-process chain of the whole leaves: the global norm adds the
+shards' squared norms over the model group to the replicated leaves'
+(counted once), and the gradient noise draws the one-process stream
+over the whole leaves and keeps this rank's slices.  L2 and AMSGrad are
+elementwise and shard with their leaves.
+
 ``moments_dtype: "bfloat16"`` keeps AMSGrad's first moment in bfloat16
 as optax's ``mu_dtype`` does: the stored ``mu`` decays in bfloat16
 (``b1`` rounded to it), the new gradient is added in float32, the
@@ -33,8 +41,10 @@ for storage.  ``nu`` and ``nu_max`` stay float32.
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ast_tpu_torch.config import OPT_ADAM
+from ast_tpu_torch.parallel.mesh import spec_leaves
 from ast_tpu_torch.params import tree_map
 from ast_tpu_torch.utils.seeding import stable_seed
 
@@ -80,7 +90,7 @@ class Optimizer:
     """``update(grads, state, params) -> (updates, new_state)``, as an
     optax ``GradientTransformation``; the caller adds the updates."""
 
-    def __init__(self, opt_cfg, params, seed=0):
+    def __init__(self, opt_cfg, params, seed=0, mesh=None):
         mu_dtype = opt_cfg.get("moments_dtype") or "float32"
         if mu_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"optimizer.moments_dtype={mu_dtype!r}: "
@@ -98,6 +108,12 @@ class Optimizer:
         self.frozen = bool(opt_cfg.get("freeze", []))
         self.mask = freeze_mask(params, opt_cfg.get("freeze", []))
         self.trainable = tree_leaves(self.mask)
+        # the layout of each trainable leaf (parallel.mesh.leaf_spec; all
+        # replicated without a model axis)
+        self.mesh = mesh
+        self.specs = [spec for spec, m in zip(spec_leaves(params, mesh),
+                                              self.trainable) if m]
+        self.sharded = any("model" in spec for spec in self.specs)
 
     def _moments_like(self, params, dtype=torch.float32):
         """Zero moments of the trainable leaves, ``[]`` for frozen ones."""
@@ -129,14 +145,35 @@ class Optimizer:
         sigma = noise_sigma(self.noise_eta, self._noise_step)
         gen = torch.Generator(device=g[0].device).manual_seed(stable_seed(
             f"{self.seed}|grad_noise|{self._noise_step}"))
-        noise = torch.randn(sum(x.numel() for x in g), generator=gen,
-                            device=g[0].device)
-        noise = [n.view_as(x) for n, x in zip(
-            noise.split([x.numel() for x in g]), g)]
+        # the whole leaves' stream; a vocab shard keeps its slice of its
+        # leaf's
+        shapes = [self.mesh.full_shape(x.shape, spec) if self.sharded
+                  else x.shape for x, spec in zip(g, self.specs)]
+        sizes = [int(np.prod(s)) for s in shapes]
+        noise = torch.randn(sum(sizes), generator=gen, device=g[0].device)
+        noise = [n.view(shape) for n, shape in zip(noise.split(sizes),
+                                                   shapes)]
+        if self.sharded:
+            noise = [self.mesh.shard(n, spec)
+                     for n, spec in zip(noise, self.specs)]
         self._noise_step += 1
         self._noise_count = count + 1
         return (torch._foreach_add(g, noise, alpha=sigma),
                 {"count": self._noise_count, "key": link["key"]})
+
+    def _global_norm(self, g):
+        """The norm of the whole gradient: under a model axis the shards'
+        squared norms summed over the model group, plus the replicated
+        leaves' (the same on every rank of the group)."""
+        norms = torch._foreach_norm(g)
+        if not self.sharded:
+            return torch.linalg.vector_norm(torch.stack(norms))
+        sq = {True: [norms[0].new_zeros(())], False: [norms[0].new_zeros(())]}
+        for n, spec in zip(norms, self.specs):
+            sq["model" in spec].append(n * n)
+        part = torch.stack(sq[True]).sum()
+        dist.all_reduce(part, group=self.mesh.model_group)
+        return torch.sqrt(torch.stack(sq[False]).sum() + part)
 
     def update(self, grads, state, params):
         chain = state[0][0] if self.frozen else state
@@ -146,8 +183,7 @@ class Optimizer:
         if self.l2 > 0:
             g = torch._foreach_add(g, torch._foreach_mul(p, self.l2))
         if self.clip > 0:
-            norm = torch.linalg.vector_norm(torch.stack(
-                torch._foreach_norm(g)))
+            norm = self._global_norm(g)
             scale = torch.where(norm < self.clip, 1.0, self.clip / norm)
             g = torch._foreach_mul(g, scale)
         new_chain = [[] for _ in chain]
@@ -189,8 +225,10 @@ class Optimizer:
         return updates, ([[new_chain]] if self.frozen else new_chain)
 
 
-def build_optimizer(opt_cfg, params, seed=0):
+def build_optimizer(opt_cfg, params, seed=0, mesh=None):
     """Returns (optimizer, initial state), as ``ast_tpu``'s; ``seed``
-    (the run's, an int) seeds the gradient noise."""
-    opt = Optimizer(opt_cfg, params, seed)
+    (the run's, an int) seeds the gradient noise; ``mesh``
+    (``parallel.make_mesh``): the mesh whose vocab shards the updates
+    will be of (``params`` and the state whole)."""
+    opt = Optimizer(opt_cfg, params, seed, mesh)
     return opt, opt.init(params)

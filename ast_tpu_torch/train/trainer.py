@@ -92,10 +92,22 @@ streams are pinned (epoch 0) and ``eval_loss``, ``predict`` and
 ``decode_beam_set`` return the whole split on every rank; preemption is
 agreed over the ranks every ``preempt_sync_steps`` batches; only rank 0
 writes.  One process makes no mesh and issues no collective.
-``model_axis`` above 1 (vocab tensor parallelism) is refused by name.
 
-Not ported (ROADMAP.md queue 1): the vocab tensor parallelism of
-``parallel.model_axis``.
+Vocab tensor parallelism (``parallel.model_axis`` M > 1, ``ast_tpu``'s
+``model`` axis): the world is ``data x M`` ranks, rank r at data index
+``r // M``.  The parameters, BN state and optimizer state are built,
+loaded or resumed whole, broadcast from rank 0, then sliced
+(``parallel.shard_params``): each rank of a model group keeps 1/M of the
+vocabulary of ``dec/out_w``, ``dec/out_b``, ``dec/embed`` and their
+moments.  A step gathers them for the kernels and keeps the loss
+logits sharded (``seq2seq.forward_loss``); the gradients, the epoch's
+losses and the eval outputs are summed or gathered over the data group
+only; the optimizer's global norm and gradient noise are the whole
+leaves' (``train.optimizer``).  ``eval_loss``, ``predict`` and
+``decode_beam_set`` gather the weights once a call; ``save`` and the
+in-flight snapshot gather the shards on every rank, and rank 0 writes
+one process's flat NPZ, so a checkpoint of any ``model_axis`` (or of
+``ast_tpu``) loads at any other.
 """
 
 import collections
@@ -121,8 +133,8 @@ from ast_tpu_torch.ops.bf16 import parse_dtype
 from ast_tpu_torch.ops.fbank import MfccExtractor
 from ast_tpu_torch.ops.fused_infer import require_train_variant
 from ast_tpu_torch.parallel import (
-    all_reduce_grads, all_reduce_sum, any_rank, gather_rows, make_mesh,
-    replicate, shard_batch)
+    all_reduce_grads, all_reduce_sum, any_rank, gather_params, gather_rows,
+    leaf_spec, make_mesh, replicate, shard_batch, shard_params)
 from ast_tpu_torch.params import torch_device, tree_map
 from ast_tpu_torch.train.optimizer import (
     build_optimizer, tree_leaves, tree_unflatten)
@@ -336,9 +348,11 @@ class NN:
         require_train_variant(tcfg)
         # the dtype of training and decoding (ast_tpu's NN.compute_dtype)
         self.compute_dtype = parse_dtype(extras.get("compute_dtype"))
-        # the data axis over the process group (None: one process)
+        # the (data, model) mesh over the process group (None: one
+        # process)
         self.mesh = make_mesh(tcfg["parallel"],
-                              batch_size=mesh_batch_size(tcfg["batch_size"]))
+                              batch_size=mesh_batch_size(tcfg["batch_size"]),
+                              vocab=self.mcfg["rnn_config"]["dec_vocab_size"])
         # the feed options (the module docstring)
         self.transfer_dtype = _transfer_dtype(
             extras.get("transfer_dtype", "float32"))
@@ -363,7 +377,7 @@ class NN:
         self.params, self.state = seq2seq.init_model(
             self.mcfg, seed=self.seed, device=self.device)
         self.opt, self.opt_state = build_optimizer(
-            tcfg["optimizer"], self.params, seed=self.seed)
+            tcfg["optimizer"], self.params, seed=self.seed, mesh=self.mesh)
         self.max_epoch = 0
         explicit_ckpt = ckpt
         if explicit_ckpt is None:
@@ -397,8 +411,11 @@ class NN:
                           f"from the beginning", flush=True)
                 elif in_step > 0:
                     self.inflight_resume = (in_epoch, in_step)
-        # every rank starts from rank 0's bytes
+        # every rank starts from rank 0's bytes, then keeps its vocab
+        # shards
         replicate((self.params, self.state, self.opt_state), self.mesh)
+        self.params = shard_params(self.params, self.mesh)
+        self.opt_state = shard_params(self.opt_state, self.mesh)
 
         for p in tree_leaves(self.params):
             p.requires_grad_(True)
@@ -593,8 +610,13 @@ class NN:
         extras = self.cfg.train["extras"]
         gen = torch.Generator().manual_seed(
             stable_seed(f"{self.seed}|weight_noise|{epoch}"))
-        noise = [torch.randn(p.shape, generator=gen)
-                 for p in seq2seq.weight_noise_targets(self.params)]
+        # under a model axis a vocab-laid target is drawn whole, then
+        # sliced
+        noise = [torch.randn(p.shape, generator=gen) if self.mesh is None
+                 else self.mesh.shard(torch.randn(self.mesh.full_shape(
+                     p.shape, leaf_spec(path)), generator=gen),
+                     leaf_spec(path))
+                 for path, p in seq2seq.weight_noise_targets(self.params)]
         seq2seq.add_weight_noise(self.params, extras["weight_noise_mean"],
                                  extras["weight_noise_sigma"], noise)
 
@@ -689,15 +711,28 @@ class NN:
         """Whether this process writes logs and checkpoints (rank 0)."""
         return self.mesh is None or self.mesh.rank == 0
 
+    def whole_params(self):
+        """The parameters with every vocab shard gathered whole (no
+        autograd; every rank calls it at the same point): ``params``
+        itself without a model axis."""
+        with torch.no_grad():
+            return gather_params(self.params, self.mesh)
+
+    def _snapshot(self):
+        """(params, state, opt state) whole, as numpy trees: the shards
+        gathered on every rank of the model group."""
+        return (to_numpy(self.whole_params()), to_numpy(self.state),
+                to_numpy(gather_params(self.opt_state, self.mesh)))
+
     def save_inflight(self, epoch, step):
         """The mid-epoch snapshot, written atomically (rank 0: every rank
-        holds the same state); ``g`` is the steps per dispatch whose
-        grouped stream ``step`` counts in."""
+        holds the same state, or its vocab shards of it); ``g`` is the
+        steps per dispatch whose grouped stream ``step`` counts in."""
+        snap = self._snapshot()
         if not self.primary:
             return
         save_checkpoint(
-            os.path.join(self.model_dir, INFLIGHT), to_numpy(self.params),
-            to_numpy(self.state), to_numpy(self.opt_state),
+            os.path.join(self.model_dir, INFLIGHT), *snap,
             extra={"epoch": np.int64(epoch), "step": np.int64(step),
                    "g": np.int64(self.steps_per_dispatch)})
 
@@ -722,12 +757,13 @@ class NN:
             epoch=self._eval_epoch(), tail_shrink=self.tail_shrink,
             index_cache=cache)
         losses, sizes = [], []
+        params = self.whole_params()
         with torch.no_grad():
-            enc_w = seq2seq.encoder_weights(self.params, self.compute_dtype)
+            enc_w = seq2seq.encoder_weights(params, self.compute_dtype)
             for batch in self._prefetch(
                     gen, lambda b: self._device_batch(b, True, cache=cache)):
                 loss, _ = seq2seq.forward_loss(
-                    self.params, self.state, self.mcfg, self.features(batch),
+                    params, self.state, self.mcfg, self.features(batch),
                     batch["y"], float(batch["n_real"]), train=False,
                     enc_w=enc_w, compute_dtype=self.compute_dtype)
                 losses.append(loss)
@@ -775,12 +811,13 @@ class NN:
         tcfg = self.cfg.train
         stop_limit = tcfg["data"]["max_pred"]
         preds = []
+        params = self.whole_params()
         with torch.inference_mode():     # once for the split
-            w = seq2seq.decode_weights(self.params, self.compute_dtype)
+            w = seq2seq.decode_weights(params, self.compute_dtype)
 
         def decode(X):
             return seq2seq.predict_greedy(
-                self.params, self.state, self.mcfg, X, stop_limit, w,
+                params, self.state, self.mcfg, X, stop_limit, w,
                 compute_dtype=self.compute_dtype)[:1]
 
         def collect(batch, out):
@@ -806,11 +843,12 @@ class NN:
             self.mcfg, N=N, K=K, stop_limit=tcfg["data"]["max_pred"],
             return_attn=save_attn, compute_dtype=self.compute_dtype)
         results = {}
+        params = self.whole_params()
         with torch.inference_mode():     # once for the split
-            w = seq2seq.decode_weights(self.params, self.compute_dtype)
+            w = seq2seq.decode_weights(params, self.compute_dtype)
 
         def decode(X):
-            return beam(self.params, self.state, X, w)
+            return beam(params, self.state, X, w)
 
         def collect(batch, out):
             hyps, scores, lengths = out[:3]
@@ -829,9 +867,8 @@ class NN:
         return results
 
     def save(self, epoch):
-        """The epoch's checkpoint (rank 0)."""
+        """The epoch's checkpoint (rank 0; every rank gathers)."""
+        snap = self._snapshot()
         if not self.primary:
             return
-        save_checkpoint(checkpoint_path(self.model_dir, epoch),
-                        to_numpy(self.params), to_numpy(self.state),
-                        to_numpy(self.opt_state))
+        save_checkpoint(checkpoint_path(self.model_dir, epoch), *snap)

@@ -306,7 +306,26 @@ Phases, each printing a line:
    ranks' decodes the whole split and equal, every kernel launched on
    each rank; the gloo all-reduce's ms for the gradient and a step's ms,
    two ranks on one card; torchrun --nproc-per-node 1 -m
-   ast_tpu_torch.cli.train -e 1 --dist-backend nccl (train.log, dev.log).
+   ast_tpu_torch.cli.train -e 1 --dist-backend nccl (train.log, dev.log);
+17. vocab tensor parallelism (parallel.model_axis): two gloo ranks
+   sharing cuda:0 at data 1 x model 2 (dec/out_w, dec/out_b and
+   dec/embed split at 549 of VOCAB's 1,098 entries a rank) train
+   DP_EPOCHS epochs of phase 16's es_en_20h experiment, then eval_loss,
+   predict and beam-decode the dev split and save, beside one process
+   running the same: the first step's gradient (its shards gathered)
+   and BN state and the last step's optimizer state within DP_RTOL /
+   DP_ATOL, the losses and eval_loss within 1e-5, the replicated leaves
+   bit-equal on both ranks, the whole parameters against one process's
+   (where the first step's sign is sure, within the bounds; after the
+   last step at most TP_OUTSIDE of the elements outside), the decodes
+   equal on both ranks and to one process's decode of rank 0's
+   checkpoint, whose keys and shapes are one process's; K1 train, K2,
+   K3, K4, K1 eval, K5 and K6 launched on each rank; then the
+   vocab-parallel cross-entropy alone (B = 32, U = 64, A = 512,
+   V = 1,098, f32 and bf16, label smoothing and random_out on): loss
+   and d_ht against sequence_loss on the card, its ms against
+   sequence_loss's and the gloo all-reduce's ms for d_ht, two ranks on
+   one card.
 
 Then a JSON line with each kernel's count, error and times, and last
 {"ok": true, "device": {...}}.  A kernel's count ("launches") is the
@@ -5817,38 +5836,57 @@ def gloo_cuda_probe(rank, world, device):
                for r, p in enumerate(parts)), "gloo all_gather"
 
 
-def params_digest(nn):
-    """sha256 of every parameter leaf's bytes, in tree order."""
+def params_digest(nn, replicated_only=False):
+    """sha256 of every parameter leaf's bytes this rank holds, in tree
+    order (with ``replicated_only``, of the leaves no model axis
+    shards)."""
     import hashlib
 
-    from ast_tpu_torch.train.optimizer import tree_leaves
+    import torch
+
+    from ast_tpu_torch import parallel
+    from ast_tpu_torch.checkpoint import flatten
 
     h = hashlib.sha256()
-    for t in tree_leaves(nn.params):
-        h.update(t.detach().cpu().numpy().tobytes())
+    for k, t in flatten(nn.params, leaf=lambda t: t).items():
+        if torch.is_tensor(t) and not (replicated_only
+                                       and parallel.leaf_spec(k)):
+            h.update(t.detach().cpu().numpy().tobytes())
     return h.hexdigest()
 
 
-def dp_run(nn, epochs=DP_EPOCHS):
-    """Train ``epochs`` epochs of ``syn_train`` on ``nn``, then predict and
-    beam-decode ``syn_dev``.  Returns a record: the losses, the last
-    epoch's ms a step, the kernels' launches in training, the params, BN
-    state and digest, the decodes."""
+def dp_run(nn, epochs=DP_EPOCHS, eval_loss=False):
+    """Train ``epochs`` epochs of ``syn_train`` on ``nn``, then (with
+    ``eval_loss``) its dev loss, predict and beam-decode ``syn_dev``.
+    Returns a record: the losses, the last epoch's ms a step, the
+    kernels' launches in training and decoding, the params, BN state and
+    digest, the decodes.  Under a model axis every tree is whole (its
+    vocab shards gathered) and ``opt`` holds the optimizer state."""
     import torch
 
+    from ast_tpu_torch import parallel
     from ast_tpu_torch.checkpoint import flatten
     from ast_tpu_torch.train.trainer import to_numpy
 
+    def whole(tree):
+        # copies: on the CPU to_numpy shares the tensors' memory
+        with torch.no_grad():
+            return flatten(to_numpy(parallel.gather_params(tree, nn.mesh)),
+                           leaf=np.array)
+
     zero_counts()
     # the first step's gradient as the optimizer gets it (summed over the
-    # ranks under a mesh), and the parameters and BN state it made
-    grad1, params1, state1, update = {}, {}, {}, nn.opt.update
+    # ranks under a mesh) and the parameters it moved, and the parameters
+    # and BN state it made
+    grad1, params0, params1, state1 = {}, {}, {}, {}
+    update = nn.opt.update
 
     def first_update(g, st, params):
         if not grad1:
-            grad1.update(flatten(to_numpy(g)))
+            grad1.update(whole(g))
+            params0.update(whole(params))
         elif not params1:
-            params1.update(flatten(to_numpy(params)))
+            params1.update(whole(params))
             state1.update(flatten(to_numpy(nn.state)))
         return update(g, st, params)
 
@@ -5864,12 +5902,16 @@ def dp_run(nn, epochs=DP_EPOCHS):
         ms = (time.perf_counter() - t0) * 1e3 / (nn.timer.n_steps - steps0)
     nn.opt.update = update
     rec = {"losses": losses, "ms_step": ms, "grad1": grad1,
-           "params1": params1, "state1": state1, "steps": nn.timer.n_steps,
-           "params": flatten(to_numpy(nn.params)),
+           "params0": params0, "params1": params1, "state1": state1,
+           "steps": nn.timer.n_steps,
+           "params": whole(nn.params), "opt": whole(nn.opt_state),
            "state": flatten(to_numpy(nn.state)),
            "digest": params_digest(nn),
-           "preds": nn.predict("syn_dev"),
-           "beams": nn.decode_beam_set("syn_dev", N_BEAM, K_BEAM)}
+           "replicated": params_digest(nn, replicated_only=True)}
+    if eval_loss:
+        rec["eval_loss"] = nn.eval_loss("syn_dev")
+    rec.update(preds=nn.predict("syn_dev"),
+               beams=nn.decode_beam_set("syn_dev", N_BEAM, K_BEAM))
     rec["launches"] = counts()          # the epochs' and the decodes'
     return rec
 
@@ -6098,6 +6140,340 @@ def run_data_parallel(cfg, root, smi, device="cuda"):
     return errs
 
 
+# ---------------------------------------------------------------------------
+# phase 17: vocab tensor parallel (parallel.model_axis over torch.distributed)
+# ---------------------------------------------------------------------------
+
+TP_MODEL = 2
+# the vocab-parallel cross-entropy alone: es_en_20h's loss GEMM at U = 64
+TP_U, TP_A = 64, 512
+# its loss against sequence_loss's (relative), and d_ht's largest
+# difference over max|d_ht|: f32 sums in another order; at bf16 d_ht is
+# rounded to bf16 after the model group's sum, so where the partial
+# sums' order moves a value across a rounding point it moves by one
+# bf16 ulp, at most 2^-7 of the value
+TP_LOSS_RTOL = 1e-5
+TP_DHT_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -7}
+# The whole parameters against one process's, within DP_RTOL / DP_ATOL.
+# AMSGrad's first step is lr c h / (c |h| + eps), h = g + l2 p and c the
+# clip's scale: lr sign(h) wherever |h| is clear of the gradients'
+# difference d and of eps / c, and then two runs' steps part by at most
+# lr eps c d / (c h)^2.  So after the first step every element whose
+# one-process |h| exceeds TP_SIGN_MARGIN times both is held (the steps
+# then part by lr / TP_SIGN_MARGIN^2, a tenth of DP_ATOL); after the
+# last step (the flips' steps carried on through the moments) at most
+# TP_OUTSIDE of all elements, and of each vocab-split leaf's, lie
+# outside.  A sharded update of the wrong columns or rows moves whole
+# columns or rows, and at its first step.
+TP_SIGN_MARGIN = 32
+TP_OUTSIDE = {"all": 1e-3, "vocab leaf": 1e-2}
+
+
+def check_vocab_parallel_ce(mesh, device, reps=10):
+    """``parallel.tp.vocab_parallel_loss`` on this rank's vocab shards at
+    B = 32, U = TP_U, A = TP_A, V = VOCAB, f32 and bf16, with label
+    smoothing 0.1 and random_out's target corruption, against
+    ``seq2seq.sequence_loss`` over the whole vocabulary on the same
+    inputs (the same seeded tensors on every rank): the loss within
+    TP_LOSS_RTOL, d_ht (summed over the model group) and this rank's
+    slice of d_out_w within TP_DHT_TOL of their largest value.  Returns
+    {dtype: (loss rel err, d_ht err, ms of the vocab-parallel loss's
+    forward and backward, ms of sequence_loss's)} and the ms of the gloo
+    all-reduce of a d_ht-sized tensor."""
+    import torch
+    import torch.distributed as dist
+
+    from ast_tpu_torch import parallel
+    from ast_tpu_torch.models import seq2seq
+    from ast_tpu_torch.ops.bf16 import parse_dtype
+    from ast_tpu_torch.parallel import tp
+
+    gen = torch.Generator(device="cpu").manual_seed(17)
+    ht = torch.randn(TP_U, B, TP_A, generator=gen).to(device)
+    out_w = (torch.randn(TP_A, VOCAB, generator=gen)
+             * TP_A ** -0.5).to(device)
+    out_b = (torch.randn(VOCAB, generator=gen) * 0.1).to(device)
+    target = torch.randint(4, VOCAB, (TP_U, B), generator=gen).to(device)
+    target[TP_U // 2:, :B // 4] = 0                     # PAD tails
+    replace = (torch.rand(TP_U, B, generator=gen) > 0.9).to(device)
+    rand_ids = torch.randint(4, VOCAB, (TP_U, B), generator=gen).to(device)
+    kw = dict(label_smoothing=0.1, replace=replace, rand_ids=rand_ids)
+    spec = parallel.leaf_spec("dec/out_w")
+    w_m = mesh.shard(out_w, spec)
+    b_m = mesh.shard(out_b, parallel.leaf_spec("dec/out_b"))
+
+    def run(fn, *leaves):
+        leaves = [t.clone().requires_grad_(True) for t in leaves]
+        loss = fn(*leaves)
+        return [loss.detach()] + list(torch.autograd.grad(loss, leaves))
+
+    def timed(fn):
+        spans = []
+        for _ in range(reps + 2):
+            dist.barrier()
+            sync(device)
+            t0 = time.perf_counter()
+            fn()
+            sync(device)
+            spans.append(time.perf_counter() - t0)
+        return sum(spans[2:]) * 1e3 / reps
+
+    out = {}
+    for name in ("float32", "bfloat16"):
+        dt = parse_dtype(name)
+
+        def mine():
+            return run(lambda h, w, b: tp.vocab_parallel_loss(
+                h, w, b, target, float(B), mesh, compute_dtype=dt, **kw),
+                ht, w_m, b_m)
+
+        def whole():
+            return run(lambda h, w, b: seq2seq.sequence_loss(
+                h, w, b, target, float(B), compute_dtype=dt, **kw),
+                ht, out_w, out_b)
+
+        got, want = mine(), whole()
+        loss_err = abs(float(got[0]) - float(want[0])) / abs(float(want[0]))
+        dht_err = float((got[1] - want[1]).abs().max()
+                        / want[1].abs().max())
+        dw_want = mesh.shard(want[2], spec)
+        dw_err = float((got[2] - dw_want).abs().max()
+                       / dw_want.abs().max())
+        assert loss_err <= TP_LOSS_RTOL, (name, loss_err)
+        assert dht_err <= TP_DHT_TOL[name] and dw_err <= TP_DHT_TOL[name], \
+            (name, dht_err, dw_err)
+        out[name] = (loss_err, dht_err, timed(mine), timed(whole))
+    d_ht = torch.randn(TP_U, B, TP_A, device=device)
+    allreduce_ms = timed(lambda: dist.all_reduce(d_ht,
+                                                 group=mesh.model_group))
+    return out, allreduce_ms
+
+
+def tp_rank(rank, world, port, exp, out, device):
+    """One rank of phase 17's vocab-parallel run: joins a gloo group of
+    ``world`` ranks on ``device`` (cuda:0 for both), runs :func:`dp_run`
+    (with the dev loss) through ``NN`` on a data 1 x model TP_MODEL mesh,
+    saves the last epoch's checkpoint (rank 0 writes), then
+    :func:`check_vocab_parallel_ce`; pickles its record to
+    ``out.<rank>``."""
+    import torch
+    import torch.distributed as dist
+
+    from ast_tpu_torch import parallel
+    from ast_tpu_torch.train import trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    device = torch.device(device)
+    parallel.init_distributed(f"localhost:{port}", world, rank, "gloo")
+    try:
+        gloo_cuda_probe(rank, world, device)
+        nn = trainer.NN(exp, device)
+        assert nn.mesh == parallel.Mesh(1, rank, TP_MODEL), nn.mesh
+        rnn, Vm = nn.mcfg["rnn_config"], VOCAB // TP_MODEL
+        shards = {k: tuple(v.shape) for k, v in nn.params["dec"].items()
+                  if k in ("embed", "out_w", "out_b")}
+        assert shards == {"embed": (Vm, rnn["embedding_units"]),
+                          "out_w": (rnn["attn_units"], Vm),
+                          "out_b": (Vm,)}, shards
+        rec = dp_run(nn, eval_loss=True)
+        nn.save(DP_EPOCHS)
+        rec["ce"], rec["allreduce_ms"] = check_vocab_parallel_ce(nn.mesh,
+                                                                 device)
+        with open(f"{out}.{rank}", "wb") as f:
+            pickle.dump(rec, f)
+        dist.barrier()          # no rank leaves mid-exchange
+    finally:
+        dist.destroy_process_group()
+
+
+def run_vocab_parallel(root, smi, device="cuda"):
+    """Phase 17: vocab tensor parallelism.  Two gloo ranks sharing cuda:0
+    (:func:`tp_rank`) train DP_EPOCHS epochs of phase 16's es_en_20h
+    experiment (B = 32, all rows on both ranks, 549 of the 1,098 vocab
+    entries each), then eval_loss, predict and beam-decode the dev
+    split, against one process running the same (module docstring), and
+    run the vocab-parallel cross-entropy alone."""
+    import torch.multiprocessing as mp
+
+    from ast_tpu_torch import parallel
+    from ast_tpu_torch.train import trainer
+    from ast_tpu_torch.train.optimizer import EPS
+
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import torch_trainer_epoch_bench as eb
+
+    t_phase = time.perf_counter()
+    print(f"phase 17: vocab tensor parallel ({smi})", flush=True)
+    corpus = os.path.join(root, "tp_corpus")
+    n_utts = eb.build_corpus(corpus, log=lambda *a: None,
+                             buckets=eb.parse_buckets(DP_SUBSET))
+    exps = {}
+    for tag, model_axis in (("ranks", TP_MODEL), ("single", 1)):
+        d = os.path.join(root, f"tp_{tag}")
+        os.makedirs(d)
+        exp = eb.write_configs(corpus, B, 1, compute_dtype="float32")
+        for f in ("model_cfg.json", "train_cfg.json"):
+            shutil.copy(os.path.join(exp, f), d)
+
+        def edit(c, model_axis=model_axis):
+            c["extras"].update(shrink_tail_batches=False)
+            c["parallel"] = {"model_axis": model_axis}
+        edit_train_cfg(d, edit)
+        exps[tag] = d
+
+    out = os.path.join(root, "tp_rank")
+    t0 = time.perf_counter()
+    mp.spawn(tp_rank, args=(TP_MODEL, free_port(), exps["ranks"], out,
+                            "cuda:0" if device == "cuda" else device),
+             nprocs=TP_MODEL, join=True)
+    t_ranks = time.perf_counter() - t0
+    recs = []
+    for r in range(TP_MODEL):
+        with open(f"{out}.{r}", "rb") as f:
+            recs.append(pickle.load(f))
+    nn = trainer.NN(exps["single"], device)
+    single = dp_run(nn, eval_loss=True)
+    nn.save(DP_EPOCHS)
+
+    # the replicated leaves bit-equal on both ranks; the first step's
+    # gradient (shards gathered) and BN state, and the last step's
+    # optimizer state within DP_RTOL / DP_ATOL; the parameters' elements
+    # outside those bounds counted and held (TP_SIGN_MARGIN, TP_OUTSIDE)
+    # and the last BN state's counted (AMSGrad's normalised step takes
+    # lr sign(g) where |g| is near the rounding of the sums: phase 16)
+    assert len({r["replicated"] for r in recs}) == 1, \
+        "the ranks' replicated parameters differ"
+    assert recs[0]["digest"] != recs[1]["digest"]      # their vocab shards
+    worst, outside, leaf_out = {}, {}, {}
+    for what in ("grad1", "state1", "params1", "params", "opt", "state"):
+        n_out = n_all = 0
+        for k, want in single[what].items():
+            if not isinstance(want, np.ndarray) or want.dtype.kind != "f":
+                continue
+            for rec in recs:
+                got = rec[what][k]
+                assert got.shape == want.shape, (what, k, got.shape)
+                far = ~np.isclose(got, want, rtol=DP_RTOL, atol=DP_ATOL)
+                n_out, n_all = n_out + int(far.sum()), n_all + far.size
+                worst[what] = max(worst.get(what, 0.0),
+                                  float(np.abs(got - want).max()))
+                assert what not in ("grad1", "state1", "opt") \
+                    or not far.any(), (
+                    f"{what} {k}: the model axis differs from one process "
+                    f"by {np.abs(got - want).max()}")
+                if what == "params":
+                    o, a = leaf_out.get(k, (0, 0))
+                    leaf_out[k] = (o + int(far.sum()), a + far.size)
+        outside[what] = (n_out, n_all)
+    h = {k: single["grad1"][k] + nn.opt.l2 * p
+         for k, p in single["params0"].items()}
+    norm = np.sqrt(sum(np.sum(np.square(v, dtype=np.float64))
+                       for v in h.values()))
+    clip = min(1.0, nn.opt.clip / norm) if nn.opt.clip else 1.0
+    floor = TP_SIGN_MARGIN * max(worst["grad1"], EPS / clip)
+    n_sure = n_param = 0
+    for k, want in single["params1"].items():
+        sure = np.abs(h[k]) > floor
+        n_sure, n_param = n_sure + int(sure.sum()), n_param + sure.size
+        for rec in recs:
+            far = ~np.isclose(rec["params1"][k], want, rtol=DP_RTOL,
+                              atol=DP_ATOL)
+            assert not (far & sure).any(), (
+                f"params1 {k}: {int((far & sure).sum())} elements whose "
+                f"first step is sure differ from one process's")
+    n_out, n_all = outside["params"]
+    assert n_out <= TP_OUTSIDE["all"] * n_all, outside["params"]
+    for k, (o, a) in leaf_out.items():
+        assert not parallel.leaf_spec(k) \
+            or o <= TP_OUTSIDE["vocab leaf"] * a, (k, o, a)
+    most = sorted(((o / a, k) for k, (o, a) in leaf_out.items() if o),
+                  reverse=True)[:6]
+    for rec in recs:
+        assert all(np.isclose(a, b, rtol=1e-5) for a, b in zip(
+            rec["losses"], single["losses"])), (rec["losses"],
+                                                single["losses"])
+        assert np.isclose(rec["eval_loss"], single["eval_loss"],
+                          rtol=1e-5), (rec["eval_loss"], single["eval_loss"])
+        assert rec["preds"] == recs[0]["preds"]
+        assert rec["beams"] == recs[0]["beams"]
+        # a CPU rehearsal runs the plain versions
+        assert device == "cpu" or all(
+            rec["launches"][k] > 0 for k in ("k1t", "k2", "k3", "k4", "k1",
+                                             "k5", "k6")), rec["launches"]
+    # the decodes: one process decoding rank 0's checkpoint gives the
+    # ranks' ids and hypotheses (the same whole weights); rank 0's file
+    # holds one process's keys and shapes
+    name = f"seq2seq_{DP_EPOCHS}.model.npz"
+    with np.load(os.path.join(exps["ranks"], name)) as got, \
+            np.load(os.path.join(exps["single"], name)) as want:
+        assert sorted(got.files) == sorted(want.files)
+        assert all(got[k].shape == want[k].shape for k in want.files)
+    ckpt = trainer.NN(exps["single"], device,
+                      ckpt=os.path.join(exps["ranks"], name))
+    preds = ckpt.predict("syn_dev")
+    beams = ckpt.decode_beam_set("syn_dev", N_BEAM, K_BEAM)
+
+    def hyps(preds):
+        return {u: ids[:ids.index(2) + 1] if 2 in ids else ids
+                for u, ids in preds}
+    assert hyps(preds) == hyps(recs[0]["preds"]), "greedy ids differ"
+    assert sorted(beams) == sorted(recs[0]["beams"])
+    for u, want in beams.items():
+        got = recs[0]["beams"][u]
+        assert [h for h, _ in got] == [h for h, _ in want], u
+        assert np.allclose([s for _, s in got], [s for _, s in want],
+                           rtol=1e-5), u
+    same_greedy = sum(hyps(single["preds"])[u] == ids
+                      for u, ids in hyps(recs[0]["preds"]).items())
+    same_beam = sum(recs[0]["beams"][u][0][0] == single["beams"][u][0][0]
+                    for u in beams)
+    print(f"  two gloo ranks on cuda:0 (es_en_20h, {B} rows on both, "
+          f"model axis {TP_MODEL}: {VOCAB // TP_MODEL} of {VOCAB} vocab "
+          f"entries a rank, {n_utts} train utterances, {recs[0]['steps']} "
+          f"steps) against one process: replicated leaves bit-equal on "
+          f"both ranks; the first step's gradient within "
+          f"{worst['grad1']:.3e} and its BN state within "
+          f"{worst['state1']:.3e} (bounds rtol {DP_RTOL}, atol {DP_ATOL}); "
+          f"the parameters it made within {worst['params1']:.3e} "
+          f"({outside['params1'][0]} of {outside['params1'][1]} elements "
+          f"outside the bounds; all {n_sure} of {n_param} whose |g + l2 p| "
+          f"exceeds {floor:.2e}, their step's sign sure, within them); "
+          f"after {recs[0]['steps']} steps params within "
+          f"{worst['params']:.3e} ({outside['params'][0]} of "
+          f"{outside['params'][1]} outside, limit {TP_OUTSIDE['all']}; the "
+          f"most a leaf {[(k, f'{f:.2e}') for f, k in most]}, limit "
+          f"{TP_OUTSIDE['vocab leaf']} a vocab-split leaf), optimizer "
+          f"state within {worst['opt']:.3e} ({outside['opt'][0]} of "
+          f"{outside['opt'][1]} outside), BN state within "
+          f"{worst['state']:.3e} ({outside['state'][0]} of "
+          f"{outside['state'][1]} outside); "
+          f"losses {[round(v, 6) for v in recs[0]['losses']]} vs "
+          f"{[round(v, 6) for v in single['losses']]}, eval_loss "
+          f"{recs[0]['eval_loss']:.6f} vs {single['eval_loss']:.6f}; "
+          f"decodes equal on both ranks and to one process's decode of "
+          f"rank 0's checkpoint ({len(beams)} utterances; {same_greedy} "
+          f"greedy and {same_beam} beam bests equal to the one-process "
+          f"run's own); checkpoint keys and shapes one process's; "
+          f"launches a rank {recs[0]['launches']}", flush=True)
+    for name in ("float32", "bfloat16"):
+        loss_err, dht_err, ms, plain = recs[0]["ce"][name]
+        print(f"  vocab-parallel cross-entropy at {name} (B {B}, U {TP_U}, "
+              f"A {TP_A}, V {VOCAB}, {VOCAB // TP_MODEL} a rank; label "
+              f"smoothing, random_out): loss within {loss_err:.2e} "
+              f"(relative), d_ht within {dht_err:.2e} of max|d_ht| of "
+              f"sequence_loss's; forward + backward {ms:.3f} ms a rank "
+              f"against sequence_loss's {plain:.3f} ms ({smi}; two ranks "
+              f"on one card: a check, not a speed)", flush=True)
+    print(f"  gloo all-reduce of d_ht ({TP_U * B * TP_A * 4 / 1e6:.1f} MB "
+          f"f32) over the model group: {recs[0]['allreduce_ms']:.2f} ms "
+          f"({smi}; two ranks on one card); a two-rank step "
+          f"{recs[0]['ms_step']:.2f} ms against {single['ms_step']:.2f} ms "
+          f"in one process; the two-rank run {t_ranks:.1f} s with "
+          f"start-up", flush=True)
+    print(f"phase 17: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
 def step_split(nn, batch, reps):
     """Mean device time (ms) of ``nn.train_step`` on ``batch`` and of the
     parts of it that run in K1 train, K2, K3, K4, the optimizer's update
@@ -6228,6 +6604,7 @@ def main():
         print(f"phase 14: {time.perf_counter() - t14:.1f} s", flush=True)
         ep_launches, ep_steps = run_feed_options(cfg, root, smi)
         run_data_parallel(cfg, root, smi)
+        run_vocab_parallel(root, smi)
     launches.update(bf_launches)
     units.update(bf_units)
     launches.update({k: v for k, v in train_launches.items() if k != "k5"})

@@ -269,8 +269,10 @@ def test_weight_noise_matches_jax():
     tp, _ = from_jax_numpy(jax.tree.map(np.asarray, params), {})
     for p in tree_leaves(tp):
         p.requires_grad_(True)              # as the trainer holds them
-    assert [tuple(p.shape) for p in seq2seq.weight_noise_targets(tp)] == [
-        tuple(s) for s in shapes]
+    targets = seq2seq.weight_noise_targets(tp)
+    assert [tuple(p.shape) for _, p in targets] == [tuple(s) for s in shapes]
+    flat = flatten(tp, leaf=lambda t: t)
+    assert all(flat[path] is p for path, p in targets)
     seq2seq.add_weight_noise(tp, mean, sigma, noise)
     got = flatten(to_numpy(tp))
     ref = jax_ckpt._flatten(jax.tree.map(np.asarray, want))

@@ -88,32 +88,45 @@ def _edit(exp, fn, name="train_cfg.json"):
 
 # (world, batch, data_axis, model_axis, the port's outcome): "same" --
 # ast_tpu's mesh (or None) over the first `world` devices; "raise" --
-# both raise; else the port refuses what ast_tpu would build, and the
-# text names why (one process a card cannot leave a device idle, split
-# a batch unevenly, or shard the vocab)
+# both raise; "vocab" -- both raise for a vocab of VOCAB_ODD, ast_tpu as
+# it places the vocab shards; else the port refuses what ast_tpu would
+# build, and the text names why (one process a card cannot leave a
+# device idle or split a batch unevenly)
+VOCAB_ODD = 30
 MESH_CASES = [
     (1, 32, 0, 1, "same"), (2, 32, 0, 1, "same"), (4, 32, 0, 1, "same"),
     (8, 32, 0, 1, "same"), (2, 6, 2, 1, "same"), (8, 16, 8, 1, "same"),
     (1, 8, 4, 1, "raise"), (2, 8, 4, 1, "raise"), (8, 32, 16, 1, "raise"),
     (4, 6, 0, 1, "batch size 6"), (4, 8, 2, 1, "idle"),
-    (2, 7, 2, 1, "does not split"), (4, 32, 0, 2, "model_axis=2"),
-    (2, 32, 1, 2, "model_axis=2"),
+    (2, 7, 2, 1, "does not split"), (4, 32, 0, 2, "same"),
+    (2, 32, 1, 2, "same"), (8, 32, 0, 2, "same"), (4, 32, 0, 4, "same"),
+    (3, 32, 0, 2, "idle"), (2, 32, 2, 2, "raise"), (8, 32, 0, 4, "vocab"),
+    (2, 32, 1, 1, "idle"), (2, 3, 0, 1, "idle"),
 ]
 
 
 @pytest.mark.parametrize("world,batch,data_axis,model_axis,outcome",
                          MESH_CASES)
 def test_make_mesh_matches_jax(world, batch, data_axis, model_axis, outcome):
+    """Each rank's (data_index, model_index) is its device's place in
+    ast_tpu's ``Mesh.devices``."""
     cfg = {"data_axis": data_axis, "model_axis": model_axis}
+    devices = jax.devices()[:world]
     try:
-        want = jax_mesh.make_mesh(cfg, devices=jax.devices()[:world],
-                                  batch_size=batch)
+        want = jax_mesh.make_mesh(cfg, devices=devices, batch_size=batch)
     except ValueError:
         want = "raise"
     if outcome == "raise":
         assert want == "raise"
         with pytest.raises(ValueError, match="needs more than"):
             parallel.make_mesh(cfg, world, batch, rank=0)
+        return
+    if outcome == "vocab":
+        with pytest.raises(ValueError, match="divisible"):
+            jax_mesh.replicate({"dec": {"out_w": np.zeros(
+                (4, VOCAB_ODD), np.float32)}}, want)
+        with pytest.raises(ValueError, match=f"vocab of {VOCAB_ODD}"):
+            parallel.make_mesh(cfg, world, batch, rank=0, vocab=VOCAB_ODD)
         return
     if outcome != "same":
         assert want != "raise"          # ast_tpu builds it
@@ -124,8 +137,11 @@ def test_make_mesh_matches_jax(world, batch, data_axis, model_axis, outcome):
         got = parallel.make_mesh(cfg, world, batch, rank=rank)
         if want is None:
             assert got is None
-        else:
-            assert dict(want.shape) == got.shape and got.rank == rank
+            continue
+        assert dict(want.shape) == got.shape and got.rank == rank
+        place = np.argwhere(want.devices == devices[rank])
+        assert [tuple(p) for p in place] == [(got.data_index,
+                                              got.model_index)]
 
 
 @pytest.mark.parametrize("axis", [0, 1])

@@ -294,9 +294,9 @@ def test_explicit_ckpt_skips_resume_scan(tmp_path):
 
 def test_ignored_options_are_named(tmp_path, capsys):
     """No option is set and ignored any more: remat is ported, and a
-    ``parallel`` block is the data axis over the process group -- one
-    process refuses an explicit data axis of 4 (ast_tpu's make_mesh:
-    more than its devices) and names the unported model axis."""
+    ``parallel`` block is the (data, model) mesh over the process group
+    -- one process refuses an explicit data axis of 4 and a 1x2 mesh
+    (ast_tpu's make_mesh: more than its devices)."""
     exp = _tiny(tmp_path)
     NN(exp, "cpu")
     assert "set and ignored" not in capsys.readouterr().out
@@ -309,7 +309,8 @@ def test_ignored_options_are_named(tmp_path, capsys):
         NN(exp, "cpu")
     _edit_cfg(exp, lambda c: c.update(parallel={"data_axis": 1,
                                                 "model_axis": 2}))
-    with pytest.raises(ValueError, match="model_axis=2"):
+    with pytest.raises(ValueError, match="mesh 1x2 needs more than 1 "
+                                         "devices"):
         NN(exp, "cpu")
     _edit_cfg(exp, lambda c: c.update(parallel={"data_axis": 1}))
     nn = NN(exp, "cpu")
