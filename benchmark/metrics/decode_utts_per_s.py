@@ -1,0 +1,8 @@
+"""Utterances decoded in the window, over the window's whole time (from
+its start to the batch boundary that ends it, the device drained)."""
+
+
+def read(rec):
+    if "utts" not in rec or rec.get("kind") != "decode":
+        return None
+    return rec["utts"] / rec["window_s"]
