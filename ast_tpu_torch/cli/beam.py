@@ -1,7 +1,8 @@
 """Beam-decode a split of an experiment on a GPU.
 
 ``python -m ast_tpu_torch.cli.beam -m <exp_dir> -n N -k K -s <set> -w W
-[--resume] [--ckpt F] [--device cuda|cpu] [--dist-backend nccl|gloo]``
+[--resume] [--ckpt F] [--profile LOGDIR] [--device cuda|cpu]
+[--dist-backend nccl|gloo]``
 
 ``torchrun --nproc-per-node N -m ast_tpu_torch.cli.beam ...`` decodes
 over the experiment's ``parallel`` mesh (its data axis and vocab
@@ -20,10 +21,18 @@ On ``--device cuda`` every kernel of the path is a hand-written CUDA
 kernel; ``--device cpu`` runs their plain versions.  ``--save-attn``
 pickles each hypothesis's attention history too, (hyp, score,
 history), as ``ast_tpu`` does; its frontier loop is the plain one on
-either device, as in ``ast_tpu``.
+either device, as in ``ast_tpu``.  ``--profile LOGDIR`` traces the
+decode with ``torch.profiler`` (``utils.profiling.profile_trace``): a
+Chrome trace of the kernels with the decode's spans (``decode.pass``,
+``decode.setup``, ``decode.issue``, ``decode.drain_wait``,
+``decode.collect``, and the feed's ``feed.*``) in ``trace_<time>.json``,
+and in ``idle_by_span_<time>.json`` the device's idle time put down to
+the span the host was in, the idle time a feed worker was busy, and the
+spans' and counters' totals.
 """
 
 import argparse
+import contextlib
 import os
 import pickle
 
@@ -51,6 +60,9 @@ def main(argv=None):
                         help="pickle per-hypothesis attention history "
                              "alongside (hyp, score), as the reference "
                              "beam entries do")
+    parser.add_argument("--profile", default=None, metavar="LOGDIR",
+                        help="write a torch.profiler trace of the decode "
+                             "and its idle time by span into LOGDIR")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda, under torchrun "
                              "cuda:LOCAL_RANK; cpu runs the plain PyTorch "
@@ -94,8 +106,13 @@ def run(args, device):
             beam = pickle.load(f)
     else:
         print("Computing beam results (batched on device)")
-        beam = nn.decode_beam_set(set_key, N=N, K=K,
-                                  save_attn=args.save_attn)
+        trace = contextlib.nullcontext()
+        if args.profile:
+            from ast_tpu_torch.utils.profiling import profile_trace
+            trace = profile_trace(args.profile)
+        with trace:
+            beam = nn.decode_beam_set(set_key, N=N, K=K,
+                                      save_attn=args.save_attn)
         if nn.primary:
             with open(beam_path, "wb") as f:
                 pickle.dump(beam, f)

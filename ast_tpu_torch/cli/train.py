@@ -27,7 +27,10 @@ last one.  It resumes from the latest checkpoint (``max_epoch + 1``) or,
 after a run that SIGTERM stopped, in the middle of that run's epoch: the
 signal makes the epoch write ``seq2seq_inflight.npz`` at the next batch
 boundary and the run exit cleanly.  ``--profile`` writes a
-``torch.profiler`` Chrome trace of the first training epoch into LOGDIR.
+``torch.profiler`` Chrome trace of the first training epoch into LOGDIR,
+with the epoch's spans (``train.*``, ``feed.*``) beside the kernels,
+and ``idle_by_span_<time>.json``: the device's idle time put down to the
+span the host was in (``utils.profiling.idle_by_span``).
 On ``--device cuda`` every kernel of the path is a hand-written CUDA
 kernel; ``--device cpu`` runs their plain versions.  With
 ``extras.compute_dtype: "bfloat16"`` in ``train_cfg.json`` the steps, the
@@ -87,7 +90,8 @@ def main(argv=None):
                         help="number of epochs")
     parser.add_argument("--profile", default=None, metavar="LOGDIR",
                         help="write a torch.profiler trace of the first "
-                             "training epoch into LOGDIR")
+                             "training epoch and its idle time by span "
+                             "into LOGDIR")
     parser.add_argument("--device", default="cuda",
                         help="torch device (default cuda, under torchrun "
                              "cuda:LOCAL_RANK; cpu runs the plain PyTorch "

@@ -138,7 +138,8 @@ from ast_tpu_torch.parallel import (
 from ast_tpu_torch.params import torch_device, tree_map
 from ast_tpu_torch.train.optimizer import (
     build_optimizer, tree_leaves, tree_unflatten)
-from ast_tpu_torch.utils.profiling import StepTimer
+from ast_tpu_torch.utils.profiling import (
+    StepTimer, adopt_span, armed, count, current_span, span)
 from ast_tpu_torch.utils.seeding import stable_seed
 
 INFLIGHT = "seq2seq_inflight.npz"
@@ -182,7 +183,10 @@ class Prefetcher:
     and yield the results in the generator's exact order.  The generator
     (batch assembly) is pulled under a lock, one item at a time; only
     ``prepare`` runs concurrently.  An exception of the generator or of
-    ``prepare`` is raised at its item's place in the stream."""
+    ``prepare`` is raised at its item's place in the stream.  Spans:
+    ``feed.assemble`` (a pull of the generator) and ``feed.stage`` (one
+    ``prepare``) on the workers, under the span the Prefetcher was made
+    in; ``feed.wait`` where the consumer waits for its next item."""
 
     def __init__(self, gen, prepare, depth=2, workers=1):
         self._closed = False
@@ -195,12 +199,14 @@ class Prefetcher:
         self._gen = iter(gen)
         self._prepare = prepare
         self._depth = max(int(depth), int(workers))
+        self._parent = current_span()
         self.threads = [threading.Thread(target=self._worker, daemon=True)
                         for _ in range(max(1, int(workers)))]
         for t in self.threads:
             t.start()
 
     def _worker(self):
+        adopt_span(self._parent)
         while True:
             with self._cond:
                 while (not self._closed and not self._done_reading
@@ -211,7 +217,8 @@ class Prefetcher:
                     return
                 idx = self._next_read
                 try:
-                    item = next(self._gen)
+                    with span("feed.assemble"):
+                        item = next(self._gen)
                 except StopIteration:
                     self._done_reading = True
                     self._cond.notify_all()
@@ -223,7 +230,8 @@ class Prefetcher:
                     return
                 self._next_read += 1
             try:
-                out = self._prepare(item)
+                with span("feed.stage"):
+                    out = self._prepare(item)
             except BaseException as e:      # raised again by the consumer
                 out = e
             with self._cond:
@@ -233,7 +241,7 @@ class Prefetcher:
     def __iter__(self):
         try:
             while True:
-                with self._cond:
+                with span("feed.wait"), self._cond:
                     while (self._next_yield not in self._buf
                            and not (self._done_reading
                                     and self._next_yield >= self._next_read)
@@ -330,6 +338,16 @@ def _transfer_dtype(name):
                          "bfloat16 | float16")
     return {"float32": None, "bfloat16": torch.bfloat16,
             "float16": torch.float16}[name]
+
+
+def _count_frames(kind, batch, T):
+    """The ``<kind>.frames_real`` (the rows' ``frame_len``) and
+    ``<kind>.frames_padded`` (rows x T) counters of a batch, while the
+    spans are armed."""
+    frame_len = batch.get("frame_len")
+    if armed() and frame_len is not None:
+        count(f"{kind}.frames_real", int(np.sum(frame_len)))
+        count(f"{kind}.frames_padded", len(frame_len) * int(T))
 
 
 class NN:
@@ -476,6 +494,7 @@ class NN:
                 t = t.pin_memory()
             t = t.to(self.device, non_blocking=cuda)
             out[k] = t.long() if k == "y" else t
+        count("feed.h2d_bytes", nbytes)
         return out, nbytes
 
     def _device_batch(self, batch, labels=True, narrow=False, cache=None):
@@ -565,18 +584,27 @@ class NN:
     # ------------------------------------------------------------------
     def train_step(self, batch, seed):
         """One update from a batch (host or device); returns the loss (on
-        device; under a mesh this rank's share of it)."""
+        device; under a mesh this rank's share of it).  Spans:
+        ``train.step``, inside it ``train.draws``, ``train.forward``,
+        ``train.backward`` (with the gradients' all-reduce) and
+        ``train.optimizer``."""
+        with span("train.step", bucket=batch.get("bucket")):
+            return self._train_step(batch, seed)
+
+    def _train_step(self, batch, seed):
         tcfg = self.cfg.train
         extras = tcfg["extras"]
         batch = self._device_batch(batch, narrow=True)
-        # featurized first: the draws take T from the features' shape
-        X, y = self.features(batch), batch["y"]
-        draws = seq2seq.make_draws(
-            seed, X, y.shape[1] - 1, extras["teach_ratio"],
-            extras["speech_noise"], random_out=extras["random_out"],
-            vocab=self.mcfg["rnn_config"]["dec_vocab_size"],
-            spec_cfg=tcfg["data"].get("spec_augment") or None,
-            frame_len=batch.get("frame_len"), mesh=self.mesh)
+        with span("train.draws"):
+            # featurized first: the draws take T from the features' shape
+            X, y = self.features(batch), batch["y"]
+            draws = seq2seq.make_draws(
+                seed, X, y.shape[1] - 1, extras["teach_ratio"],
+                extras["speech_noise"], random_out=extras["random_out"],
+                vocab=self.mcfg["rnn_config"]["dec_vocab_size"],
+                spec_cfg=tcfg["data"].get("spec_augment") or None,
+                frame_len=batch.get("frame_len"), mesh=self.mesh)
+        _count_frames("train", batch, X.shape[1])
 
         def loss_fn():
             return seq2seq.forward_loss(
@@ -585,17 +613,19 @@ class NN:
                 label_smoothing=extras["label_smoothing"],
                 compute_dtype=self.compute_dtype, mesh=self.mesh)
 
-        if self.remat:
-            # the backward recomputes the forward from its inputs and
-            # the draws, kernel for kernel
-            loss, new_state = torch.utils.checkpoint.checkpoint(
-                loss_fn, use_reentrant=False)
-        else:
-            loss, new_state = loss_fn()
+        with span("train.forward"):
+            if self.remat:
+                # the backward recomputes the forward from its inputs and
+                # the draws, kernel for kernel
+                loss, new_state = torch.utils.checkpoint.checkpoint(
+                    loss_fn, use_reentrant=False)
+            else:
+                loss, new_state = loss_fn()
         leaves = tree_leaves(self.params)
-        grads = all_reduce_grads(torch.autograd.grad(loss, leaves),
-                                 self.mesh)
-        with torch.no_grad():
+        with span("train.backward"):
+            grads = all_reduce_grads(torch.autograd.grad(loss, leaves),
+                                     self.mesh)
+        with span("train.optimizer"), torch.no_grad():
             updates, self.opt_state = self.opt.update(
                 tree_unflatten(self.params, grads), self.opt_state,
                 self.params)
@@ -624,7 +654,13 @@ class NN:
         """One epoch over ``set_key`` in the loader's order for ``epoch``
         (grouped into runs at ``steps_per_dispatch``), or the rest of it
         after an in-flight snapshot of this epoch; returns the mean over
-        the batches trained of loss / real rows."""
+        the batches trained of loss / real rows.  Spans: ``train.epoch``
+        around it all, ``train.loss_sync`` around its one copy of the
+        losses to the host."""
+        with span("train.epoch", epoch=epoch):
+            return self._train_epoch(set_key, epoch)
+
+    def _train_epoch(self, set_key, epoch):
         tcfg = self.cfg.train
         cache = self._cache(set_key)
         skip = 0
@@ -682,7 +718,9 @@ class NN:
         if not losses:
             return 0.0
         # the ranks' shares summed; the epoch's one sync
-        vals = all_reduce_sum(torch.stack(losses), self.mesh).cpu().numpy()
+        with span("train.loss_sync"):
+            vals = all_reduce_sum(torch.stack(losses),
+                                  self.mesh).cpu().numpy()
         self.timer.add(time.perf_counter() - t0, sum(sizes), len(vals))
         return float(sum(v / s for v, s in zip(vals, sizes)) / len(vals))
 
@@ -781,12 +819,18 @@ class NN:
         batch runs while the device decodes the next.  Outputs are
         collected in the batches' order.  Under a mesh each rank decodes
         its rows and every rank collects the whole batch's outputs
-        (``parallel.gather_rows``)."""
+        (``parallel.gather_rows``).  Spans: ``decode.issue`` (a batch's
+        features and decode launched), ``decode.drain_wait`` (the copy
+        to the host that waits for the oldest batch) and
+        ``decode.collect``."""
         inflight = collections.deque()
 
         def drain():
             batch, out = inflight.popleft()
-            collect(batch, [a.cpu().numpy() for a in out])
+            with span("decode.drain_wait"):
+                out = [a.cpu().numpy() for a in out]
+            with span("decode.collect"):
+                collect(batch, out)
 
         depth = self._decode_pipeline_depth(heavy_outputs)
         cache = self._cache(set_key)
@@ -797,8 +841,11 @@ class NN:
                 index_cache=cache)
             for batch in self._prefetch(
                     gen, lambda b: self._device_batch(b, False, cache=cache)):
-                inflight.append((batch, gather_rows(
-                    decode(self.features(batch)), self.mesh)))
+                with span("decode.issue", bucket=batch["bucket"]):
+                    X = self.features(batch)
+                    _count_frames("decode", batch, X.shape[1])
+                    inflight.append((batch, gather_rows(decode(X),
+                                                        self.mesh)))
                 if len(inflight) >= depth:
                     drain()
             while inflight:
@@ -807,13 +854,19 @@ class NN:
     def predict(self, set_key):
         """Greedy-decode a split (K1 eval + K5, or their plain stages for
         a variant): [(utt, ids)] with each row's full ``max_pred``
-        ids."""
+        ids.  Spans: ``decode.pass`` around it, ``decode.setup`` around
+        the weights' gathering and packing."""
+        with span("decode.pass", set=set_key):
+            return self._predict(set_key)
+
+    def _predict(self, set_key):
         tcfg = self.cfg.train
         stop_limit = tcfg["data"]["max_pred"]
         preds = []
-        params = self.whole_params()
-        with torch.inference_mode():     # once for the split
-            w = seq2seq.decode_weights(params, self.compute_dtype)
+        with span("decode.setup"):
+            params = self.whole_params()
+            with torch.inference_mode():     # once for the split
+                w = seq2seq.decode_weights(params, self.compute_dtype)
 
         def decode(X):
             return seq2seq.predict_greedy(
@@ -835,17 +888,25 @@ class NN:
         ``save_attn`` {utt: [(hyp_ids, score, attn_history)]},
         attn_history (len, T') float32, the attention of the step that
         produced each token (the GO row 0) -- the reference's beam
-        entries -- from the plain frontier loop."""
+        entries -- from the plain frontier loop.  Spans: ``decode.pass``
+        around it, ``decode.setup`` around the beam builder and the
+        weights' gathering and packing."""
+        with span("decode.pass", set=set_key, N=N, K=K):
+            return self._decode_beam_set(set_key, N, K, batch_size,
+                                         save_attn)
+
+    def _decode_beam_set(self, set_key, N, K, batch_size, save_attn):
         tcfg = self.cfg.train
         if batch_size is None:
             batch_size = tcfg["batch_size"]
-        beam = beam_ops.make_beam_decoder(
-            self.mcfg, N=N, K=K, stop_limit=tcfg["data"]["max_pred"],
-            return_attn=save_attn, compute_dtype=self.compute_dtype)
         results = {}
-        params = self.whole_params()
-        with torch.inference_mode():     # once for the split
-            w = seq2seq.decode_weights(params, self.compute_dtype)
+        with span("decode.setup"):
+            beam = beam_ops.make_beam_decoder(
+                self.mcfg, N=N, K=K, stop_limit=tcfg["data"]["max_pred"],
+                return_attn=save_attn, compute_dtype=self.compute_dtype)
+            params = self.whole_params()
+            with torch.inference_mode():     # once for the split
+                w = seq2seq.decode_weights(params, self.compute_dtype)
 
         def decode(X):
             return beam(params, self.state, X, w)
