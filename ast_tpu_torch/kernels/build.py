@@ -49,10 +49,15 @@ _SIGNATURES = {
     "k5_greedy_decode_bf16": [_P] * 20 + [_I] * 8 + [_P],
     "k6_beam_decode": [_P] * 25 + [_I] * 10 + [_P],
     "k6_beam_decode_bf16": [_P] * 25 + [_I] * 10 + [_P],
+    # the optimizer: launch 1 (squares, counts), launch 2 (the update)
+    "opt_amsgrad_norm": [_P, _I, _F, _I] + [_P] * 4,
+    "opt_amsgrad_update": [_P, _I, _P, _F, _I] + [_P] * 5,
     # not launches: fills records, returns their number (cluster_choices);
-    # the rows of k2_encoder_backward_bf16's scratch
+    # the rows of k2_encoder_backward_bf16's scratch; the optimizer's
+    # partial sums a row for a tree of n leaves
     "ast_cluster_choices": [_P, _I],
     "k2_work_rows": [],
+    "opt_partials": [_I],
 }
 
 _lib = None

@@ -22,7 +22,18 @@ Its schedule and its state's layout are ``ast_tpu``'s; the noise itself
 is not: ``key`` (JAX's threefry key of the run's seed, uint32 (2,)) is
 carried as initialised or loaded, and each step draws from a torch
 generator seeded from the run's seed and ``count``, so a resumed run
-draws what an uninterrupted one would.
+draws what an uninterrupted one would.  The optimizer keeps ``count`` on
+the host beside the tensor (no device sync a step): ``init`` starts it at
+0, and :meth:`Optimizer.reset` reads it from a state that was loaded or
+replaced.
+
+:meth:`Optimizer.apply_` is the training step's call: the update added
+to the parameters, the parameters and the state written in place.  On
+CUDA tensors it is one hand-written pass in two launches
+(``ops/fused_optimizer.py``, ``kernels/csrc/opt_amsgrad.cu``), equal to
+the chain element for element given the same global norm; on CPU
+tensors it is :meth:`Optimizer.update` and an in-place add, the plain
+version.
 
 Under a model axis (``parallel.mesh``: ``dec/out_w``, ``dec/out_b`` and
 ``dec/embed`` and their moments hold this rank's vocab shard) the chain
@@ -44,6 +55,7 @@ import torch
 import torch.distributed as dist
 
 from ast_tpu_torch.config import OPT_ADAM
+from ast_tpu_torch.ops.fused_optimizer import AmsgradKernel, chain_consts
 from ast_tpu_torch.parallel.mesh import spec_leaves
 from ast_tpu_torch.params import tree_map
 from ast_tpu_torch.utils.seeding import stable_seed
@@ -88,7 +100,8 @@ def freeze_mask(params, freeze_list):
 
 class Optimizer:
     """``update(grads, state, params) -> (updates, new_state)``, as an
-    optax ``GradientTransformation``; the caller adds the updates."""
+    optax ``GradientTransformation``, the caller adding the updates; or
+    ``apply_(grads, state, params)``, in place."""
 
     def __init__(self, opt_cfg, params, seed=0, mesh=None):
         mu_dtype = opt_cfg.get("moments_dtype") or "float32"
@@ -98,11 +111,12 @@ class Optimizer:
         self.mu_dtype = getattr(torch, mu_dtype)
         self.noise_eta = opt_cfg.get("grad_noise_eta", 0)
         self.seed = seed
-        # the noise link's step, kept on the host beside the ``count``
-        # tensor it was read from (no device sync per step)
-        self._noise_step, self._noise_count = 0, None
+        # the noise link's step, kept on the host (no device sync a step)
+        self._noise_step = 0
         self.l2 = opt_cfg.get("l2", 0)
         self.clip = opt_cfg.get("grad_clip", 0)
+        # the noise link's place in the chain
+        self._noise_at = (self.l2 > 0) + (self.clip > 0)
         self.adam = opt_cfg.get("type", OPT_ADAM) == OPT_ADAM
         self.lr = opt_cfg["lr"] * opt_cfg.get("lr_scale", 1)
         self.frozen = bool(opt_cfg.get("freeze", []))
@@ -114,6 +128,8 @@ class Optimizer:
         self.specs = [spec for spec, m in zip(spec_leaves(params, mesh),
                                               self.trainable) if m]
         self.sharded = any("model" in spec for spec in self.specs)
+        # apply_'s kernel and the state links its table was built over
+        self._kernel, self._kernel_links = None, None
 
     def _moments_like(self, params, dtype=torch.float32):
         """Zero moments of the trainable leaves, ``[]`` for frozen ones."""
@@ -123,6 +139,7 @@ class Optimizer:
 
     def init(self, params):
         device = tree_leaves(params)[0].device
+        self._noise_step = 0
         chain = [[]] * ((self.l2 > 0) + (self.clip > 0))
         if self.noise_eta > 0:
             key = np.array([self.seed >> 32, self.seed & 0xFFFFFFFF],
@@ -137,11 +154,17 @@ class Optimizer:
         chain.append([])
         return [[chain]] if self.frozen else chain
 
-    def _add_noise(self, g, link):
-        """``g`` plus this step's noise, and the link's new state."""
-        count = link["count"]
-        if count is not self._noise_count:      # a fresh or loaded state
-            self._noise_step = int(count)
+    def reset(self, state):
+        """Take up ``state`` (loaded, or replaced by another's bytes) as
+        this optimizer's: the noise link's step is read from its
+        ``count`` (one device sync)."""
+        if self.noise_eta > 0:
+            chain = state[0][0] if self.frozen else state
+            self._noise_step = int(chain[self._noise_at]["count"])
+
+    def _noise(self, g):
+        """This step's gradient noise (leaves shaped as ``g``) and its
+        sigma; advances the link's step."""
         sigma = noise_sigma(self.noise_eta, self._noise_step)
         gen = torch.Generator(device=g[0].device).manual_seed(stable_seed(
             f"{self.seed}|grad_noise|{self._noise_step}"))
@@ -157,9 +180,13 @@ class Optimizer:
             noise = [self.mesh.shard(n, spec)
                      for n, spec in zip(noise, self.specs)]
         self._noise_step += 1
-        self._noise_count = count + 1
+        return noise, sigma
+
+    def _add_noise(self, g, link):
+        """``g`` plus this step's noise, and the link's new state."""
+        noise, sigma = self._noise(g)
         return (torch._foreach_add(g, noise, alpha=sigma),
-                {"count": self._noise_count, "key": link["key"]})
+                {"count": link["count"] + 1, "key": link["key"]})
 
     def _global_norm(self, g):
         """The norm of the whole gradient: under a model axis the shards'
@@ -171,9 +198,15 @@ class Optimizer:
         sq = {True: [norms[0].new_zeros(())], False: [norms[0].new_zeros(())]}
         for n, spec in zip(norms, self.specs):
             sq["model" in spec].append(n * n)
-        part = torch.stack(sq[True]).sum()
-        dist.all_reduce(part, group=self.mesh.model_group)
-        return torch.sqrt(torch.stack(sq[False]).sum() + part)
+        return self._sharded_norm(torch.stack(sq[False]).sum(),
+                                  torch.stack(sq[True]).sum())
+
+    def _sharded_norm(self, replicated, shards):
+        """The global norm from the replicated leaves' squares and this
+        rank's vocab shards' squares, those summed over the model
+        group."""
+        dist.all_reduce(shards, group=self.mesh.model_group)
+        return torch.sqrt(replicated + shards)
 
     def update(self, grads, state, params):
         chain = state[0][0] if self.frozen else state
@@ -224,6 +257,57 @@ class Optimizer:
             for x, m in zip(tree_leaves(grads), on)])
         return updates, ([[new_chain]] if self.frozen else new_chain)
 
+    def apply_(self, grads, state, params):
+        """:meth:`update` with its updates added to ``params``, in place:
+        the parameters and every tensor of ``state`` take their new
+        values (the trees and their tensors stay the same objects).
+        ``grads`` and ``params``: trees shaped like the parameters, or
+        their leaves in tree order.  CUDA tensors run the optimizer
+        kernel or raise; CPU tensors the foreach chain."""
+        g = tree_leaves(grads) if isinstance(grads, dict) else list(grads)
+        p = tree_leaves(params) if isinstance(params, dict) else list(params)
+        if not p[0].is_cuda:
+            # the trees update takes (parameter-shaped, as optax's)
+            updates, new = self.update(tree_unflatten(self.mask, g), state,
+                                       tree_unflatten(self.mask, p))
+            torch._foreach_add_(p, tree_leaves(updates))
+            for old, t in zip(tree_leaves(state), tree_leaves(new)):
+                if t is not old:
+                    old.copy_(t)
+            return
+        on = self.trainable
+        g = [x for x, m in zip(g, on) if m]
+        p = [x for x, m in zip(p, on) if m]
+        kernel = self._kernel_for(p, state[0][0] if self.frozen else state)
+        noise, sigma = self._noise(g) if self.noise_eta > 0 else (None, 0.0)
+        kernel(g, noise, sigma, self._combine if self.sharded else None)
+
+    def _combine(self, partials):
+        """The global norm from the kernel's partial sums of squares:
+        (2, blocks), row 0 the replicated leaves', row 1 the shards'."""
+        return self._sharded_norm(partials[0].sum(), partials[1].sum())
+
+    def _kernel_for(self, p, chain):
+        """The optimizer kernel over the trainable leaves ``p`` and the
+        state ``chain``: built at the first step, and again only for
+        another state or a tensor whose storage moved."""
+        links = (chain[-2] if self.adam else None,
+                 chain[self._noise_at] if self.noise_eta > 0 else None)
+        if (self._kernel is None or self._kernel.stale(p)
+                or any(a is not b for a, b in zip(links,
+                                                  self._kernel_links))):
+            adam, noise = links
+            self._kernel = AmsgradKernel(
+                p, None if adam is None else [tree_leaves(t)
+                                              for t in adam[1:]],
+                None if adam is None else adam[0],
+                None if noise is None else noise["count"],
+                ["model" in spec for spec in self.specs],
+                chain_consts(self.l2, self.clip, self.lr, B1, B2, EPS,
+                             self.mu_dtype == torch.bfloat16),
+                self.l2 > 0, self.clip > 0, self.noise_eta > 0)
+            self._kernel_links = links
+        return self._kernel
 
 def build_optimizer(opt_cfg, params, seed=0, mesh=None):
     """Returns (optimizer, initial state), as ``ast_tpu``'s; ``seed``

@@ -136,8 +136,7 @@ from ast_tpu_torch.parallel import (
     all_reduce_grads, all_reduce_sum, any_rank, gather_params, gather_rows,
     leaf_spec, make_mesh, replicate, shard_batch, shard_params)
 from ast_tpu_torch.params import torch_device, tree_map
-from ast_tpu_torch.train.optimizer import (
-    build_optimizer, tree_leaves, tree_unflatten)
+from ast_tpu_torch.train.optimizer import build_optimizer, tree_leaves
 from ast_tpu_torch.utils.profiling import (
     StepTimer, adopt_span, armed, count, current_span, span)
 from ast_tpu_torch.utils.seeding import stable_seed
@@ -434,6 +433,7 @@ class NN:
         replicate((self.params, self.state, self.opt_state), self.mesh)
         self.params = shard_params(self.params, self.mesh)
         self.opt_state = shard_params(self.opt_state, self.mesh)
+        self.opt.reset(self.opt_state)
 
         for p in tree_leaves(self.params):
             p.requires_grad_(True)
@@ -626,10 +626,7 @@ class NN:
             grads = all_reduce_grads(torch.autograd.grad(loss, leaves),
                                      self.mesh)
         with span("train.optimizer"), torch.no_grad():
-            updates, self.opt_state = self.opt.update(
-                tree_unflatten(self.params, grads), self.opt_state,
-                self.params)
-            torch._foreach_add_(leaves, tree_leaves(updates))
+            self.opt.apply_(grads, self.opt_state, leaves)
         self.state = new_state
         return loss.detach()
 

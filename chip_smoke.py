@@ -446,7 +446,13 @@ def kernel_cost(key, d):
     final states, which stay f32 (K3 at bf16 writes no x_drop).  Bytes
     count each input read once and each output written once, 4 bytes an
     element but those.  Elementwise work (gates, softmax, dropout, top-K)
-    is left out of the FLOPs."""
+    is left out of the FLOPs.  "opt", the optimizer kernel over ``n``
+    parameters: no products; launch 1 reads g and p, launch 2 reads g, p,
+    mu, nu and nu_max and writes p, mu, nu and nu_max (mu at
+    ``mu_bytes``)."""
+    if key == "opt":
+        n, mb = d["n"], d.get("mu_bytes", 4)
+        return 0, n * (8 + 16 + 12 + 2 * mb)
     B, H, L = d["B"], d["H"], d["L"]
     wb = d.get("wbytes", 4)
     if key in ("k1", "k1t", "k2"):
@@ -1381,6 +1387,85 @@ def check_train_kernels(cfg, device):
     return results
 
 
+def check_opt_kernel(cfg, device, reps=20):
+    """The optimizer kernel (``Optimizer.apply_`` on CUDA tensors) on
+    es_en_20h's parameters and optimizer: its global norm (launch 1)
+    against the foreach chain's own norm of g + l2 p, as a share of it
+    (their one difference is the order of summation: at most 1e-5); one
+    step against the chain's (``update`` and the add) from the same
+    state, the chain given the kernel's norm, largest difference over
+    the largest |update| (0: bit for bit); ``max_abs_err`` the larger of
+    the two.  The ms of a step of each (CUDA
+    events around ``reps`` steps issued back to back, so a step that the
+    host issues slower than the card runs it is timed at the host's
+    pace), and of ``torch.optim.Adam(fused=True, amsgrad=True)`` over the
+    same leaves (timed only: optax's AMSGrad keeps the maximum of the
+    bias-corrected second moment, which it does not).  Its launches a
+    train step are counted in phase 6's training run."""
+    import torch
+
+    from ast_tpu_torch.models import seq2seq
+    from ast_tpu_torch.train.optimizer import build_optimizer, tree_leaves
+
+    opt_cfg = {"type": 0, "lr": 1e-3, "l2": 1e-4, "grad_clip": 2}
+    gen = torch.Generator(device=device).manual_seed(5)
+    sides = {}
+    for side in ("kernel", "chain"):
+        params, _ = seq2seq.init_model(cfg.model, seed=3, device=device)
+        opt, state = build_optimizer(opt_cfg, params)
+        sides[side] = (tree_leaves(params), opt, [state])
+    leaves = sides["kernel"][0]
+    n = sum(p.numel() for p in leaves)
+    # gradients as the step's GEMMs leave them (contiguous), norm ~ 4:
+    # the clip (2) is active.  The chain's parameters keep init_model's
+    # layout, the kernel's are made contiguous at its first step (the
+    # values are the same)
+    g = [torch.randn(tuple(p.shape), generator=gen, device=device)
+         * (4.0 / n ** 0.5) for p in leaves]
+
+    def kernel():
+        p, opt, st = sides["kernel"]
+        opt.apply_(g, st[0], p)
+
+    def chain():
+        p, opt, st = sides["chain"]
+        updates, st[0] = opt.update(g, st[0], p)
+        torch._foreach_add_(p, tree_leaves(updates))
+
+    before = [p.clone() for p in leaves]
+    opt_c, opt_k = sides["chain"][1], sides["kernel"][1]
+    ref_norm = float(opt_c._global_norm(torch._foreach_add(
+        g, torch._foreach_mul(before, opt_c.l2))))
+    opt_c._global_norm = lambda g: opt_k._kernel.norm.clone()
+    kernel()
+    chain()
+    del opt_c._global_norm
+    norm_err = abs(float(opt_k._kernel.norm) - ref_norm) / ref_norm
+    assert ref_norm > opt_cfg["grad_clip"] and norm_err <= 1e-5, (
+        f"optimizer kernel's norm {float(opt_k._kernel.norm)} against "
+        f"the chain's {ref_norm}")
+    upd = max(float((a - b).abs().max()) for a, b in zip(leaves, before))
+    err = max(float((a - b).abs().max())
+              for a, b in zip(leaves, sides["chain"][0])) / upd
+    assert err == 0, f"optimizer kernel against the chain: {err:.3e}"
+    ms = cuda_ms(kernel, reps)
+    plain_ms = cuda_ms(chain, reps)
+    lib = [torch.nn.Parameter(p.detach().clone()) for p in leaves]
+    for x, gg in zip(lib, g):
+        # the fused Adam takes gradients laid out as their parameters
+        x.grad = torch.empty_like(x).copy_(gg)
+    adam = torch.optim.Adam(lib, lr=1e-3, amsgrad=True, fused=True)
+    library_ms = cuda_ms(adam.step, reps)
+    print(f"optimizer kernel: {ms:.3f} ms a step, foreach chain "
+          f"{plain_ms:.3f} ms, torch.optim.Adam(fused, amsgrad) "
+          f"{library_ms:.3f} ms; {n} parameters; its norm {ref_norm:.6f} "
+          f"within {norm_err:.2e} of the chain's, the step bit for bit "
+          f"the chain's given its norm", flush=True)
+    return {"opt": dict(dims={"n": n, "mu_bytes": 4},
+                        max_abs_err=max(err, norm_err), ms=ms,
+                        plain_ms=plain_ms, library_ms=library_ms)}
+
+
 def plain_dev_loss(params, state, mcfg, X, y, n_real):
     """``seq2seq.forward_loss(train=False)`` through the plain versions:
     (loss, the decoder call's arguments -- every step teacher-forced, no
@@ -1594,18 +1679,20 @@ def make_train_experiment(root, seed=5):
 
 def run_train_slice(root, smi, device="cuda"):
     """Phase 6: two epochs through ast_tpu_torch.cli.train, with launch
-    counts, then the checkpoint through cli.infer and one step's time."""
+    counts (the optimizer kernel's among them), then the checkpoint
+    through cli.infer and one step's time."""
     import torch
 
     from ast_tpu_torch.cli import infer, train
     from ast_tpu_torch.ops import fused_decoder as fd
     from ast_tpu_torch.ops import fused_infer, fused_lstm as fl
+    from ast_tpu_torch.ops.fused_optimizer import AmsgradKernel
     from ast_tpu_torch.train.trainer import NN
 
     exp, dev_paths = make_train_experiment(root)
     counters = {"k1t": fl.fused_stacked_lstm_train, "k2": fl.encoder_backward,
                 "k3": fd.decoder_forward, "k4": fd.decoder_backward,
-                "k5": fused_infer.greedy_decode_fused}
+                "k5": fused_infer.greedy_decode_fused, "opt": AmsgradKernel}
     for fn in counters.values():
         fn.launches = 0
     t0 = time.perf_counter()
@@ -5262,7 +5349,7 @@ def check_bf16_train_kernels(cfg, device):
 def memory_spans(opt):
     """Inside the block, the peak memory allocated in each span between
     the fused Functions' forward and backward calls and the optimizer's
-    ``opt.update``, and inside each: yields a list that fills with (span,
+    ``opt.apply_``, and inside each: yields a list that fills with (span,
     peak bytes)."""
     import torch
 
@@ -5293,7 +5380,7 @@ def memory_spans(opt):
     try:
         for cls, m, name in fns:
             setattr(cls, m, staticmethod(bracket(getattr(cls, m), name)))
-        with patched((opt, "update", bracket(opt.update, "optimizer"))):
+        with patched((opt, "apply_", bracket(opt.apply_, "optimizer"))):
             torch.cuda.reset_peak_memory_stats()
             yield spans
             mark(None)
@@ -5618,13 +5705,13 @@ def run_feed_options(cfg, root, smi, device="cuda"):
         batch = next(b for b in nn.data_loader.get_batch(
             B, train_set, train=True, labels=True, epoch=1)
             if b["bucket"] == 19 and b["n_real"] == B)
-        orig = nn.opt.update
+        orig = nn.opt.apply_
 
-        def update(g, st, params, remat=remat, orig=orig):
+        def apply_(g, st, params, remat=remat, orig=orig):
             grads[remat] = [t.clone() for t in tree_leaves(g)]
             return orig(g, st, params)
 
-        nn.opt.update = update
+        nn.opt.apply_ = apply_
         nn.train_step(batch, 0)           # warm
         sync(device)
         before = torch.cuda.memory_allocated()
@@ -5866,6 +5953,7 @@ def dp_run(nn, epochs=DP_EPOCHS, eval_loss=False):
 
     from ast_tpu_torch import parallel
     from ast_tpu_torch.checkpoint import flatten
+    from ast_tpu_torch.train.optimizer import tree_unflatten
     from ast_tpu_torch.train.trainer import to_numpy
 
     def whole(tree):
@@ -5879,18 +5967,19 @@ def dp_run(nn, epochs=DP_EPOCHS, eval_loss=False):
     # ranks under a mesh) and the parameters it moved, and the parameters
     # and BN state it made
     grad1, params0, params1, state1 = {}, {}, {}, {}
-    update = nn.opt.update
+    apply_ = nn.opt.apply_
 
-    def first_update(g, st, params):
+    def first_apply(g, st, params):
+        # the step passes the leaves; the trees hold the shards' paths
         if not grad1:
-            grad1.update(whole(g))
-            params0.update(whole(params))
+            grad1.update(whole(tree_unflatten(nn.params, list(g))))
+            params0.update(whole(nn.params))
         elif not params1:
-            params1.update(whole(params))
+            params1.update(whole(nn.params))
             state1.update(flatten(to_numpy(nn.state)))
-        return update(g, st, params)
+        return apply_(g, st, params)
 
-    nn.opt.update = first_update
+    nn.opt.apply_ = first_apply
     losses, ms = [], 0.0
     for e in range(1, epochs + 1):
         steps0 = nn.timer.n_steps
@@ -5900,7 +5989,7 @@ def dp_run(nn, epochs=DP_EPOCHS, eval_loss=False):
             losses.append(nn.train_epoch("syn_train", epoch=e))
         sync(nn.device)
         ms = (time.perf_counter() - t0) * 1e3 / (nn.timer.n_steps - steps0)
-    nn.opt.update = update
+    nn.opt.apply_ = apply_
     rec = {"losses": losses, "ms_step": ms, "grad1": grad1,
            "params0": params0, "params1": params1, "state1": state1,
            "steps": nn.timer.n_steps,
@@ -6476,9 +6565,9 @@ def run_vocab_parallel(root, smi, device="cuda"):
 
 def step_split(nn, batch, reps):
     """Mean device time (ms) of ``nn.train_step`` on ``batch`` and of the
-    parts of it that run in K1 train, K2, K3, K4, the optimizer's update
-    and, in wav mode, the fbank + CMVN (``features``), from CUDA events
-    recorded around each (after one warm-up step)."""
+    parts of it that run in K1 train, K2, K3, K4, the optimizer's step
+    (``apply_``) and, in wav mode, the fbank + CMVN (``features``), from
+    CUDA events recorded around each (after one warm-up step)."""
     import torch
 
     from ast_tpu_torch.ops import fused_decoder as fd
@@ -6504,7 +6593,7 @@ def step_split(nn, batch, reps):
 
     patches = [(fl, "fused_stacked_lstm_train", "k1t"),
                (fl, "encoder_backward", "k2"), (fd, "decoder_forward", "k3"),
-               (fd, "decoder_backward", "k4"), (nn.opt, "update", "opt")]
+               (fd, "decoder_backward", "k4"), (nn.opt, "apply_", "opt")]
     if nn.wav_mode:
         patches.append((nn, "features", "features"))
     saved = [(obj, name, getattr(obj, name)) for obj, name, _ in patches]
@@ -6581,6 +6670,7 @@ def main():
               f"utts/s, beam {N_BEAM},{K_BEAM} {rates['beam']:.1f} utts/s; "
               f"served batches {units}", flush=True)
         results.update(check_train_kernels(cfg, device))
+        results.update(check_opt_kernel(cfg, device))
         train_launches, train = run_train_slice(root, smi)
         # phase 6's train_cfg, before phase 8 turns its options on
         with open(os.path.join(train["exp"], "train_cfg.json")) as f:
@@ -6608,7 +6698,8 @@ def main():
     launches.update(bf_launches)
     units.update(bf_units)
     launches.update({k: v for k, v in train_launches.items() if k != "k5"})
-    units.update({k: train["steps"] for k in ("k1t", "k2", "k3", "k4")})
+    units.update({k: train["steps"]
+                  for k in ("k1t", "k2", "k3", "k4", "opt")})
     results.update(d1)
     launches.update(d1_launches)
     units.update(d1_units)
@@ -6654,6 +6745,9 @@ def main():
         "k4_bf16": ("K4 fused attention decoder backward, bf16 "
                     "(compute_dtype)", "k4_decoder_bwd.cu",
                     "ast_tpu/ops/fused_decoder.py:484"),
+        "opt": ("Optimizer step: L2, global-norm clip, AMSGrad and the "
+                "in-place update", "opt_amsgrad.cu",
+                "none: ast_tpu's Adam step is plain XLA (optax)"),
     }
     kernels = []
     for key, (name, src, replaces) in meta.items():
@@ -6675,7 +6769,7 @@ def main():
                 "epoch_launches_per_step": ep_launches[key] / ep_steps}
                if key in ep_launches else {})))
         unit = ("train step" if key in ("k1t", "k2", "k3", "k4", "k1t_d1",
-                                        "k2_d1") + BF16_TRAIN_KEYS
+                                        "k2_d1", "opt") + BF16_TRAIN_KEYS
                 else "served batch")
         print(f"{name}: {r['ms']:.3f} ms, bound {bound_ms:.3f} ms "
               f"({bound_by}; {bound_ms / r['ms']:.3f} of it reached), "

@@ -375,9 +375,12 @@ def test_noise_sigma_follows_ast_tpu_schedule():
                 assert abs(got.mean()) < 0.02 * want
     flat = flatten(to_numpy(state))
     assert int(flat["0/count"]) == 11 == int(jstate[0]["count"])
-    # a state loaded at step 11 goes on with step 11's draw
+    # a state loaded at step 11 (and taken up by reset) goes on with step
+    # 11's draw
     opt2, state2 = build_optimizer(opt_cfg, tp, seed=3)
-    u2, _ = opt2.update(tz, merge(state2, to_numpy(state), "opt"), tp)
+    loaded = merge(state2, to_numpy(state), "opt")
+    opt2.reset(loaded)
+    u2, _ = opt2.update(tz, loaded, tp)
     u1, _ = opt.update(tz, state, tp)
     assert torch.equal(u1["dec"]["out_w"], u2["dec"]["out_w"])
     np.testing.assert_allclose(float(u1["dec"]["out_w"].std()),

@@ -244,3 +244,69 @@ JOBS = {"collectives": collectives, "forward_loss": forward_loss,
 def arrays(flat):
     """The numpy leaves of a flattened tree."""
     return {k: v for k, v in flat.items() if isinstance(v, np.ndarray)}
+
+
+def opt_kernel_model_axis(rank, opt_cfg, seed, scales):
+    """The optimizer on the card at model axis 2 (``rank`` of two), or
+    with ``rank`` None one process's foreach chain on the whole tree:
+    steps of seeded gradients (norms about 2 x each of ``scales``) on a
+    toy tree of the model's names (V = 8 vocab entries); the whole
+    parameters and optimizer state after them (flat numpy), a digest of
+    the replicated leaves, the largest |update| and the kernel's steps."""
+    from ast_tpu_torch.ops.fused_optimizer import AmsgradKernel
+
+    device = torch.device("cuda")
+    V = 8
+    mesh = (None if rank is None
+            else parallel.make_mesh({"model_axis": 2}, vocab=V))
+    rng = np.random.default_rng(9)
+    shapes = {"cnn": [{"w": (4, 1, 3, 2)}], "enc": {"wx": (2, 7, 12)},
+              "dec": {"embed": (V, 3), "lstm": [{"b": (9,)}],
+                      "out_w": (5, V), "out_b": (V,)}}
+    whole = normal_tree(shapes, rng, device)
+    opt, state = trainer.build_optimizer(opt_cfg, whole, seed=seed,
+                                         mesh=mesh)
+    params = parallel.shard_params(whole, mesh)
+    state = parallel.shard_params(state, mesh)
+    n = sum(p.numel() for p in tree_leaves(whole))
+    n0 = AmsgradKernel.updates
+    max_update = 0.0
+    for scale in scales:
+        g = normal_tree(shapes, rng, device, 2.0 * scale / n ** 0.5)
+        g = tree_leaves(parallel.shard_params(g, mesh))
+        before = [p.clone() for p in tree_leaves(params)]
+        with torch.no_grad():
+            if rank is None:
+                updates, state = opt.update(g, state, params)
+                torch._foreach_add_(tree_leaves(params),
+                                    tree_leaves(updates))
+            else:
+                opt.apply_(g, state, params)
+        max_update = max(max_update, max(
+            float((p - b).abs().max())
+            for p, b in zip(tree_leaves(params), before)))
+    params = parallel.gather_params(params, mesh)
+    state = parallel.gather_params(state, mesh)
+    flat = flatten(trainer.to_numpy(params))
+    h = hashlib.sha256()
+    for k in sorted(flat):
+        if not parallel.leaf_spec(k):
+            h.update(flat[k].tobytes())
+    return {"params": flat, "opt": flatten(trainer.to_numpy(state)),
+            "replicated": h.hexdigest(), "max_update": max_update,
+            "kernel_updates": AmsgradKernel.updates - n0}
+
+
+def normal_tree(shapes, rng, device, scale=1.0):
+    """A float32 tree of normal draws times ``scale`` with ``shapes``'
+    structure, on ``device``."""
+    if isinstance(shapes, dict):
+        return {k: normal_tree(v, rng, device, scale)
+                for k, v in shapes.items()}
+    if isinstance(shapes, list):
+        return [normal_tree(v, rng, device, scale) for v in shapes]
+    return torch.from_numpy((rng.standard_normal(shapes) * scale).astype(
+        np.float32)).to(device)
+
+
+JOBS["opt_kernel_model_axis"] = opt_kernel_model_axis
