@@ -171,7 +171,7 @@ def main(argv=None):
                                             compute_dtype=dtype)
     preds = {}
     with torch.inference_mode():
-        w = seq2seq.decode_weights(params, dtype)   # once for every batch
+        w = seq2seq.decode_weights(params, dtype, mcfg)   # once a run
         for T in sorted(groups):
             items = groups[T]
             for i in range(0, len(items), batch_size):

@@ -298,7 +298,7 @@ class _Replica:
         self.mcfg, self.params, self.state = serving.load_model(
             serving_dir, device)
         with torch.inference_mode():
-            self.w = seq2seq.decode_weights(self.params, dtype)
+            self.w = seq2seq.decode_weights(self.params, dtype, self.mcfg)
         self.mfcc = MfccExtractor(device=device)
         if device.type == "cuda":
             # made on the default stream; calls read them on their own

@@ -39,16 +39,18 @@ _SIGNATURES = {
     + [_U, _U, _F, _P],
     "k2_encoder_backward": [_P] * 9 + [_I] * 7 + [_U, _U, _F, _P],
     "k2_encoder_backward_bf16": [_P] * 10 + [_I] * 7 + [_U, _U, _F, _P],
-    "k3_decoder_forward": [_P] * 26 + [_I] * 9 + [_U, _U, _F, _U, _F, _P],
+    "k3_decoder_forward": [_P] * 26 + [_I] * 9
+    + [_U, _U, _F, _U, _F, _I, _P],
     "k3_decoder_forward_bf16": [_P] * 30 + [_I] * 9
-    + [_U, _U, _F, _U, _F, _P],
-    "k4_decoder_backward": [_P] * 18 + [_I] * 8 + [_U, _U, _F, _U, _F, _P],
+    + [_U, _U, _F, _U, _F, _I, _P],
+    "k4_decoder_backward": [_P] * 18 + [_I] * 8
+    + [_U, _U, _F, _U, _F, _I, _P],
     "k4_decoder_backward_bf16": [_P] * 22 + [_I] * 8
-    + [_U, _U, _F, _U, _F, _P],
-    "k5_greedy_decode": [_P] * 20 + [_I] * 8 + [_P],
-    "k5_greedy_decode_bf16": [_P] * 20 + [_I] * 8 + [_P],
-    "k6_beam_decode": [_P] * 25 + [_I] * 10 + [_P],
-    "k6_beam_decode_bf16": [_P] * 25 + [_I] * 10 + [_P],
+    + [_U, _U, _F, _U, _F, _I, _P],
+    "k5_greedy_decode": [_P] * 20 + [_I] * 9 + [_P],
+    "k5_greedy_decode_bf16": [_P] * 20 + [_I] * 9 + [_P],
+    "k6_beam_decode": [_P] * 25 + [_I] * 11 + [_P],
+    "k6_beam_decode_bf16": [_P] * 25 + [_I] * 11 + [_P],
     # the optimizer: launch 1 (squares, counts), launch 2 (the update)
     "opt_amsgrad_norm": [_P, _I, _F, _I] + [_P] * 4,
     "opt_amsgrad_update": [_P, _I, _P, _F, _I] + [_P] * 5,

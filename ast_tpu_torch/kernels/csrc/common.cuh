@@ -272,7 +272,7 @@ struct Wave {
 // cell's [wx; wh] of
 // layer l (K = E + A + H for layer 0, 2H after; packed column q * 16 + u
 // of block cb is gate q of unit 16 cb + u), one layer after another, and
-// wa (H, H), ctx_w (2H, A), out_w (A, V) with their columns padded to a
+// wa (H, He), ctx_w (He + H, A), out_w (A, V) with their columns padded to a
 // multiple of 64.  The embedding and the biases are float32 (at bf16,
 // holding bf16-rounded values).
 template <typename W>
@@ -280,13 +280,14 @@ struct StepWeightsT {
   const float* embed;    // (V, E)
   const W* cell;         // the L packed cell matrices
   const float* bias;     // (L, 4H)
-  const W* wa;           // packed (H, H)
-  const float* wa_b;     // (H)
-  const W* ctx_w;        // packed (2H, A)
+  const W* wa;           // packed (H, He)
+  const float* wa_b;     // (He)
+  const W* ctx_w;        // packed (He + H, A)
   const float* ctx_b;    // (A)
   const W* out_w;        // packed (A, V)
   const float* out_b;    // (V)
   int L, H, E, A, V;
+  int He;                // the encoder states' width
 };
 
 // Per-step scratch and state of a decoder run over R rows.  Row r
@@ -301,8 +302,8 @@ struct DecoderStep {
   const float* c_in;   // (L, R, H)
   float* h_out;        // (L, R, H)
   float* c_out;        // (L, R, H)
-  float* q;            // (R, H) attention query
-  float* cv;           // (R, H) context vector
+  float* q;            // (R, He) attention query
+  float* cv;           // (R, He) context vector
   float* ht_out;       // (R, A)
   float* logits;       // (R, V)
 };

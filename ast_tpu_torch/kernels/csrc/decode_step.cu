@@ -1310,7 +1310,7 @@ cudaError_t decode_step(const StepWeightsT<W>& w, const W* enc, int T,
   // at bf16 the products run on the tensor cores (weights packed by
   // ops/fused_infer.pack_step_weights_mma)
   constexpr bool MMA = IS_BF16<W>;
-  const int H = w.H;
+  const int H = w.H, He = w.He;
   const long H4 = 4L * H, RH = (long)R * H;
   const W* cell_w = w.cell;
   for (int l = 0; l < w.L; ++l) {
@@ -1348,18 +1348,18 @@ cudaError_t decode_step(const StepWeightsT<W>& w, const W* enc, int T,
   q.w = w.wa;
   q.bias = w.wa_b;
   q.R = R;
-  q.N = H;
+  q.N = He;
   q.out = st.q;
   q.done = done;
   STEP_RETURN_IF_ERR((launch_prod<PROD_LINEAR, W, MMA>(q, s)));
 
   const int N = rows_per_utt;
   STEP_RETURN_IF_ERR((launch_attention_mode<ATTN_EVAL, W>(
-      attention_kernel<W>, Attn{enc, st.q, st.cv, N, T, H, done}, R / N,
+      attention_kernel<W>, Attn{enc, st.q, st.cv, N, T, He, done}, R / N,
       s)));
 
   Prod c = {};
-  c.seg[0] = Seg{st.cv, nullptr, H};
+  c.seg[0] = Seg{st.cv, nullptr, He};
   c.seg[1] = Seg{top, nullptr, H};
   c.nseg = 2;
   c.w = w.ctx_w;

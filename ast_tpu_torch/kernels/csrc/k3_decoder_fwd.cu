@@ -90,7 +90,9 @@ __global__ void select_embed_kernel(const int* y_t, const int* coin_t,
 // The forward's streams and state.  f32: x_drop is the stream (U, L, B,
 // H); bf16: the streams are W and x_drop is each layer's dropped h (L, B,
 // H) of the step, beside hbuf (2, L, B, H), c (L, B, H, c0 on entry),
-// q_w, cv_w (B, H) and emb_w (B, E), all f32.
+// q_w, cv_w (B, He) and emb_w (B, E), all f32.  He: the encoder states'
+// width, which the query, the context vector and ctx_w's first rows
+// take.
 template <typename W>
 struct Fwd {
   const W* enc;
@@ -112,14 +114,15 @@ struct Fwd {
   unsigned thr_r;
   float div_r;
   unsigned row0;  // the global index of row 0 (the dropout masks')
+  int He;
 };
 
 template <typename W>
 int decoder_forward(const Fwd<W>& f, cudaStream_t s) {
   constexpr bool BF = std::is_same<W, __nv_bfloat16>::value;
   const int B = f.B, T = f.T, H = f.H, L = f.L, E = f.E, A = f.A, V = f.V,
-            U = f.U;
-  const long H4 = 4L * H, BH = (long)B * H;
+            U = f.U, He = f.He;
+  const long H4 = 4L * H, BH = (long)B * H, BHe = (long)B * He;
   for (int t = 0; t < U; ++t) {
     // what the step's products read: f32 streams, or the bf16 mode's state
     float *emb_t, *q_t, *cv_t;
@@ -131,8 +134,8 @@ int decoder_forward(const Fwd<W>& f, cudaStream_t s) {
       h_last = f.hbuf + ((t - 1) & 1) * L * BH;
     } else {
       emb_t = f.emb + (long)t * B * E;
-      q_t = f.q + (long)t * BH;
-      cv_t = f.cv + (long)t * BH;
+      q_t = f.q + (long)t * BHe;
+      cv_t = f.cv + (long)t * BHe;
       if (t) h_last = f.h_all + ((long)t - 1) * L * BH;
     }
     AST_RETURN_IF_ERR(ast::launch_ex(
@@ -193,21 +196,21 @@ int decoder_forward(const Fwd<W>& f, cudaStream_t s) {
     qa.w = f.wa;
     qa.bias = f.wa_b;
     qa.R = B;
-    qa.N = H;
+    qa.N = He;
     qa.out = q_t;
     if constexpr (BF) {
-      qa.out16 = f.q + (long)t * BH;
+      qa.out16 = f.q + (long)t * BHe;
       AST_RETURN_IF_ERR(ast::launch_linear_prod_bf16(qa, s));
       AST_RETURN_IF_ERR(ast::launch_attention_train_bf16(
-          f.enc, q_t, cv_t, f.cv + (long)t * BH, f.alphas + (long)t * B * T,
-          B, T, H, s));
+          f.enc, q_t, cv_t, f.cv + (long)t * BHe, f.alphas + (long)t * B * T,
+          B, T, He, s));
     } else {
       AST_RETURN_IF_ERR(ast::launch_linear_prod(qa, s));
       AST_RETURN_IF_ERR(ast::launch_attention_train(
-          f.enc, q_t, cv_t, f.alphas + (long)t * B * T, B, T, H, s));
+          f.enc, q_t, cv_t, f.alphas + (long)t * B * T, B, T, He, s));
     }
     ast::Prod ca = {};
-    ca.seg[0] = ast::Seg{cv_t, nullptr, H};
+    ca.seg[0] = ast::Seg{cv_t, nullptr, He};
     ca.seg[1] = ast::Seg{top, nullptr, H};
     ca.nseg = 2;
     ca.w = f.ctx_w;
@@ -238,19 +241,20 @@ int decoder_forward(const Fwd<W>& f, cudaStream_t s) {
 
 }  // namespace
 
-// enc (B, T, H); embed (V, E); the products' weights as
+// enc (B, T, He); embed (V, E); the products' weights as
 // ops/fused_infer.pack_step_weights packs them: cell (the L layers'
-// [wx; wh] by hidden unit), wa, ctx_w and out_w as (column blocks, K, 64);
-// bias (L, 4H), wa_b (H), ctx_b (A), out_b (V); h0 / c0 (L, B, H).
+// [wx; wh] by hidden unit), wa (H, He), ctx_w (He + H, A) and out_w as
+// (column blocks, K, 64); bias (L, 4H), wa_b (He), ctx_b (A), out_b (V);
+// h0 / c0 (L, B, H).
 // y_in (U, B) teacher ids, coins (U) int (1 = teacher-forced, coins[0] ==
 // 1).  Scratch: logits (B, V) and ht0 (B, A), both zero on entry.
 // Outputs: ht (U, B, A); sel (U, B) int; acts (U, L, B, 4H); c_all, h_all
-// (pre-dropout), x_drop (U, L, B, H); alphas (U, B, T); q, cv (U, B, H);
+// (pre-dropout), x_drop (U, L, B, H); alphas (U, B, T); q, cv (U, B, He);
 // emb (U, B, E).  Dropout: embedding mask seed + 2t over (B, E), layer l
 // mask seed + 2(t L + l) + 1 over (B, H), each hashing the global row
 // row_offset + r (a data-parallel rank's shard; 0 for a whole batch);
 // kept values divided by div_e / div_r = 1 - rate; threshold 0 = none.
-// E, A and H must be multiples of 32.
+// E, A, H and He must be multiples of 32.
 AST_EXPORT int k3_decoder_forward(
     const float* enc, const float* embed, const float* cell,
     const float* bias, const float* wa, const float* wa_b,
@@ -260,14 +264,14 @@ AST_EXPORT int k3_decoder_forward(
     float* acts, float* c_all, float* h_all, float* x_drop, float* alphas,
     float* q, float* cv, float* emb, int B, int T, int H, int L, int E,
     int A, int V, int U, int row_offset, unsigned seed, unsigned thr_e,
-    float div_e, unsigned thr_r, float div_r, void* stream) {
+    float div_e, unsigned thr_r, float div_r, int He, void* stream) {
   Fwd<float> f = {enc,    embed,  cell, wa,    ctx_w, out_w, bias, wa_b,
                   ctx_b,  out_b,  h0,   c0,    y_in,  coins, logits, ht0,
                   ht,     sel,    acts, c_all, h_all, alphas, q,    cv,
                   emb,    x_drop, nullptr, nullptr, nullptr, nullptr,
                   nullptr, B,     T,    H,     L,     E,     A,    V,
                   U,      seed,   thr_e, div_e, thr_r, div_r,
-                  (unsigned)row_offset};
+                  (unsigned)row_offset, He};
   return decoder_forward(f, static_cast<cudaStream_t>(stream));
 }
 
@@ -277,7 +281,7 @@ AST_EXPORT int k3_decoder_forward(
 // streams acts, c_all, h_all, alphas, q, cv, emb in bfloat16 (shapes as
 // above), ht f32, no x_drop stream.  The f32 state: hbuf (2, L, B, H),
 // c (L, B, H) holding c0 on entry (the call's final c on exit), x_drop
-// (L, B, H), q_w, cv_w (B, H), emb_w (B, E).
+// (L, B, H), q_w, cv_w (B, He), emb_w (B, E).
 AST_EXPORT int k3_decoder_forward_bf16(
     const __nv_bfloat16* enc, const float* embed, const __nv_bfloat16* cell,
     const float* bias, const __nv_bfloat16* wa, const float* wa_b,
@@ -289,7 +293,7 @@ AST_EXPORT int k3_decoder_forward_bf16(
     __nv_bfloat16* cv, __nv_bfloat16* emb, float* hbuf, float* c,
     float* x_drop, float* q_w, float* cv_w, float* emb_w, int B, int T,
     int H, int L, int E, int A, int V, int U, int row_offset, unsigned seed,
-    unsigned thr_e, float div_e, unsigned thr_r, float div_r,
+    unsigned thr_e, float div_e, unsigned thr_r, float div_r, int He,
     void* stream) {
   Fwd<__nv_bfloat16> f = {enc,    embed, cell,  wa,    ctx_w, out_w,  bias,
                           wa_b,   ctx_b, out_b, h0,    nullptr, y_in, coins,
@@ -297,6 +301,6 @@ AST_EXPORT int k3_decoder_forward_bf16(
                           alphas, q,     cv,    emb,   x_drop, hbuf,  c,
                           q_w,    cv_w,  emb_w, B,     T,     H,      L,
                           E,      A,     V,     U,     seed,  thr_e,  div_e,
-                          thr_r,  div_r, (unsigned)row_offset};
+                          thr_r,  div_r, (unsigned)row_offset, He};
   return decoder_forward(f, static_cast<cudaStream_t>(stream));
 }

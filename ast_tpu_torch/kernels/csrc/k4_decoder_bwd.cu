@@ -4,9 +4,10 @@
 // fused_decoder_apply's VJP): walking t from U-1 to 0, the gradients of
 // every product's inputs -- d_pre = d_ht (1 - ht^2) with d_ht the loss's
 // cotangent plus the input-feeding gradient from step t+1; d_cv =
-// d_pre @ ctx_w[:H]^T; the attention backward against the row's own
-// encoder states (d_alphas, d_scores = alphas (d_alphas - <d_alphas,
-// alphas>), d_q); d_top = d_q @ wa^T + d_pre @ ctx_w[H:]^T; then per layer
+// d_pre @ ctx_w[:He]^T; the attention backward against the row's own
+// encoder states, He wide (d_alphas, d_scores = alphas (d_alphas -
+// <d_alphas, alphas>), d_q); d_top = d_q @ wa^T + d_pre @ ctx_w[He:]^T
+// (H wide); then per layer
 // the dropout mask on the arriving gradient, the gate backward with the
 // carried dh / dc, and dz @ [wh^T | wx^T]; layer 0's input gradient
 // splits into the embedding's (masked again) and the previous step's
@@ -27,7 +28,7 @@
 // once per call as (column blocks, K, 64); the input axis (4H for the
 // layer products) is split over a thread-block cluster and summed in
 // distributed shared memory.  [d_q | d_pre] share one product against
-// [wa^T ; ctx_w[H:]^T].  What a summed row feeds is elementwise, so it
+// [wa^T ; ctx_w[He:]^T].  What a summed row feeds is elementwise, so it
 // runs in the product's epilogue (BwdEpilogue) and not as launches of its
 // own: d_top's epilogue is the top layer's cell backward, layer l's
 // product ends in layer l-1's cell backward, and layer 0's in the
@@ -89,13 +90,16 @@ struct Bwd {
   unsigned thr_r;
   float inv_r;
   unsigned row0;  // the global index of row 0 (the dropout masks')
+  int He;         // the encoder states' width
 };
 
 template <typename W>
 int decoder_backward(const Bwd<W>& p, cudaStream_t s) {
   constexpr bool BF = std::is_same<W, __nv_bfloat16>::value;
-  const int B = p.B, T = p.T, H = p.H, L = p.L, E = p.E, A = p.A, U = p.U;
-  const long H4 = 4L * H, BH = (long)B * H, BA = (long)B * A;
+  const int B = p.B, T = p.T, H = p.H, L = p.L, E = p.E, A = p.A, U = p.U,
+            He = p.He;
+  const long H4 = 4L * H, BH = (long)B * H, BA = (long)B * A,
+             BHe = (long)B * He;
   auto width = [=](int l) { return H + (l ? H : E + A); };
   // the f32 d_pre of step t, which its products read
   auto d_pre_at = [&](long t) -> float* {
@@ -139,8 +143,8 @@ int decoder_backward(const Bwd<W>& p, cudaStream_t s) {
       d_cv_t = p.d_cv_w;
       d_q_t = p.d_q_w;
     } else {
-      d_cv_t = p.d_cv + (long)t * BH;
-      d_q_t = p.d_q + (long)t * BH;
+      d_cv_t = p.d_cv + (long)t * BHe;
+      d_q_t = p.d_q + (long)t * BHe;
     }
 
     ast::Prod cv = {};
@@ -148,25 +152,25 @@ int decoder_backward(const Bwd<W>& p, cudaStream_t s) {
     cv.nseg = 1;
     cv.w = p.w_cv;
     cv.R = B;
-    cv.N = H;
+    cv.N = He;
     cv.out = d_cv_t;
     if constexpr (BF) {
-      cv.out16 = p.d_cv + (long)t * BH;
+      cv.out16 = p.d_cv + (long)t * BHe;
       AST_RETURN_IF_ERR(ast::launch_linear_prod_bf16(cv, s));
       AST_RETURN_IF_ERR(ast::launch_attention_bwd_bf16(
           p.enc, p.alphas + (long)t * B * T, d_cv_t,
-          p.d_scores + (long)t * B * T, d_q_t, p.d_q + (long)t * BH, B, T,
-          H, s));
+          p.d_scores + (long)t * B * T, d_q_t, p.d_q + (long)t * BHe, B, T,
+          He, s));
     } else {
       AST_RETURN_IF_ERR(ast::launch_linear_prod(cv, s));
       AST_RETURN_IF_ERR(ast::launch_attention_bwd(
           p.enc, p.alphas + (long)t * B * T, d_cv_t,
-          p.d_scores + (long)t * B * T, d_q_t, B, T, H, s));
+          p.d_scores + (long)t * B * T, d_q_t, B, T, He, s));
     }
-    // d_top = [d_q | d_pre] @ [wa^T ; ctx_w[H:]^T], into the top layer's
+    // d_top = [d_q | d_pre] @ [wa^T ; ctx_w[He:]^T], into the top layer's
     // cell backward
     ast::Prod tp = {};
-    tp.seg[0] = ast::Seg{d_q_t, nullptr, H};
+    tp.seg[0] = ast::Seg{d_q_t, nullptr, He};
     tp.seg[1] = ast::Seg{d_pre_t, nullptr, A};
     tp.nseg = 2;
     tp.w = p.w_top;
@@ -223,15 +227,15 @@ int decoder_backward(const Bwd<W>& p, cudaStream_t s) {
 
 // Residuals of K3: acts (U, L, B, 4H), c_all (U, L, B, H), alphas (U, B,
 // T), ht (U, B, A); c0 (L, B, H); d_ht (U, B, A) the loss's cotangent;
-// enc (B, T, H).  Transposed weights, each packed as (column blocks, K,
-// 64) by ops/fused_decoder.pack_backward_weights: w_cv = ctx_w[:H]^T (A,
-// H), w_top = [wa^T ; ctx_w[H:]^T] (H + A, H), w_t: per layer [wh^T |
+// enc (B, T, He).  Transposed weights, each packed as (column blocks, K,
+// 64) by ops/fused_decoder.pack_backward_weights: w_cv = ctx_w[:He]^T (A,
+// He), w_top = [wa^T ; ctx_w[He:]^T] (He + A, H), w_t: per layer [wh^T |
 // wx^T] (4H, H + E + A for layer 0, 2H above), back to back.  Carries,
 // zero on entry: dh (L, B, H), dh0 on exit; dc (L, B, H), dc0 on exit.
 // Outputs: dz (U, L, B, 4H), d_pre (U, B, A), d_scores (U, B, T), d_cv,
-// d_q (U, B, H), d_emb (U, B, E).  Dropout as in K3 (the masks of the
+// d_q (U, B, He), d_emb (U, B, E).  Dropout as in K3 (the masks of the
 // global rows row_offset + r), kept values times inv_e / inv_r =
-// 1 / (1 - rate).  E, A and H must be multiples of 32.
+// 1 / (1 - rate).  E, A, H and He must be multiples of 32.
 AST_EXPORT int k4_decoder_backward(
     const float* acts, const float* c_all, const float* c0,
     const float* alphas, const float* ht, const float* d_ht,
@@ -239,14 +243,14 @@ AST_EXPORT int k4_decoder_backward(
     const float* w_t, float* dh, float* dc, float* dz, float* d_pre,
     float* d_scores, float* d_cv, float* d_q, float* d_emb, int B, int T,
     int H, int L, int E, int A, int U, int row_offset, unsigned seed,
-    unsigned thr_e, float inv_e, unsigned thr_r, float inv_r,
+    unsigned thr_e, float inv_e, unsigned thr_r, float inv_r, int He,
     void* stream) {
   Bwd<float> p = {acts,     c_all,   c0,   alphas,  ht,    d_ht,  enc,
                   w_cv,     w_top,   w_t,  dh,      dc,    dz,    d_pre,
                   d_scores, d_cv,    d_q,  d_emb,   nullptr, nullptr,
                   nullptr,  nullptr, B,    T,       H,     L,     E,
                   A,        U,       seed, thr_e,   inv_e, thr_r, inv_r,
-                  (unsigned)row_offset};
+                  (unsigned)row_offset, He};
   return decoder_backward(p, static_cast<cudaStream_t>(stream));
 }
 
@@ -255,7 +259,7 @@ AST_EXPORT int k4_decoder_backward(
 // B-fragment order: the same sizes and offsets) and the output streams
 // dz, d_pre, d_scores, d_cv, d_q, d_emb in bfloat16 (shapes as above);
 // ht, d_ht and the carries f32.
-// f32 scratch: dz_w (L, B, 4H), d_pre_w (B, A), d_cv_w and d_q_w (B, H).
+// f32 scratch: dz_w (L, B, 4H), d_pre_w (B, A), d_cv_w and d_q_w (B, He).
 AST_EXPORT int k4_decoder_backward_bf16(
     const __nv_bfloat16* acts, const __nv_bfloat16* c_all,
     const __nv_bfloat16* c0, const __nv_bfloat16* alphas, const float* ht,
@@ -266,13 +270,13 @@ AST_EXPORT int k4_decoder_backward_bf16(
     __nv_bfloat16* d_emb, float* dz_w, float* d_pre_w, float* d_cv_w,
     float* d_q_w, int B, int T, int H, int L, int E, int A, int U,
     int row_offset, unsigned seed, unsigned thr_e, float inv_e,
-    unsigned thr_r, float inv_r, void* stream) {
+    unsigned thr_r, float inv_r, int He, void* stream) {
   Bwd<__nv_bfloat16> p = {acts,  c_all,   c0,      alphas,  ht,    d_ht,
                           enc,   w_cv,    w_top,   w_t,     dh,    dc,
                           dz,    d_pre,   d_scores, d_cv,   d_q,   d_emb,
                           dz_w,  d_pre_w, d_cv_w,  d_q_w,   B,     T,
                           H,     L,       E,       A,       U,     seed,
                           thr_e, inv_e,   thr_r,   inv_r,
-                          (unsigned)row_offset};
+                          (unsigned)row_offset, He};
   return decoder_backward(p, static_cast<cudaStream_t>(stream));
 }

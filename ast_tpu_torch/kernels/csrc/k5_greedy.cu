@@ -79,12 +79,12 @@ int greedy_decode(const W* enc, const float* embed, const W* cell,
                   const float* out_b, float* hbuf, float* cbuf,
                   float* htbuf, int* tok_in, int* fin, int* done, float* q,
                   float* cv, float* logits, int* tok_out, int B, int T,
-                  int H, int L, int E, int A, int V, int stop,
+                  int H, int L, int E, int A, int V, int stop, int He,
                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const ast::StepWeightsT<W> w = {embed, cell,  bias,  wa, wa_b, ctx_w,
                                   ctx_b, out_w, out_b, L,  H,    E,
-                                  A,     V};
+                                  A,     V,     He};
   const long state = (long)L * B * H;
   for (int t = 0; t < stop; ++t) {
     const int i = t & 1, o = i ^ 1;
@@ -110,10 +110,10 @@ int greedy_decode(const W* enc, const float* embed, const W* cell,
 
 }  // namespace
 
-// enc: (B, T, H); weights as in ast::StepWeightsT.
+// enc: (B, T, He); weights as in ast::StepWeightsT.
 // State, initialised by the caller: hbuf and cbuf (2, L, B, H) with h0 /
 // c0 in slot 0, htbuf (2, B, A) with 0 in slot 0, tok_in (B) = GO, fin
-// (B) = 0, done (1) = 0.  Scratch: q, cv (B, H), logits (B, V).
+// (B) = 0, done (1) = 0.  Scratch: q, cv (B, He), logits (B, V).
 // Output: tok_out (stop, B) int32.
 AST_EXPORT int k5_greedy_decode(
     const float* enc, const float* embed, const float* cell,
@@ -122,10 +122,11 @@ AST_EXPORT int k5_greedy_decode(
     const float* out_b, float* hbuf,
     float* cbuf, float* htbuf, int* tok_in, int* fin, int* done, float* q,
     float* cv, float* logits, int* tok_out, int B, int T, int H, int L,
-    int E, int A, int V, int stop, void* stream) {
+    int E, int A, int V, int stop, int He, void* stream) {
   return greedy_decode(enc, embed, cell, bias, wa, wa_b, ctx_w, ctx_b, out_w,
                        out_b, hbuf, cbuf, htbuf, tok_in, fin, done, q, cv,
-                       logits, tok_out, B, T, H, L, E, A, V, stop, stream);
+                       logits, tok_out, B, T, H, L, E, A, V, stop, He,
+                       stream);
 }
 
 // The same with enc, cell, wa, ctx_w and out_w in bfloat16.
@@ -136,8 +137,9 @@ AST_EXPORT int k5_greedy_decode_bf16(
     const __nv_bfloat16* out_w, const float* out_b, float* hbuf,
     float* cbuf, float* htbuf, int* tok_in, int* fin, int* done, float* q,
     float* cv, float* logits, int* tok_out, int B, int T, int H, int L,
-    int E, int A, int V, int stop, void* stream) {
+    int E, int A, int V, int stop, int He, void* stream) {
   return greedy_decode(enc, embed, cell, bias, wa, wa_b, ctx_w, ctx_b, out_w,
                        out_b, hbuf, cbuf, htbuf, tok_in, fin, done, q, cv,
-                       logits, tok_out, B, T, H, L, E, A, V, stop, stream);
+                       logits, tok_out, B, T, H, L, E, A, V, stop, He,
+                       stream);
 }

@@ -196,12 +196,12 @@ __global__ void beam_step_kernel(const float* logits, int V, int N, int K,
   }
 }
 
-// enc: (B, T, H); weights as in ast::StepWeightsT<W>; R = B * N.
+// enc: (B, T, He); weights as in ast::StepWeightsT<W>; R = B * N.
 // State, initialised by the caller: hbuf and cbuf (2, L, R, H) with h0 /
 // c0 (repeated N times per utterance) in slot 0, htbuf (2, R, A) with 0
 // in slot 0, tok_in (R) = GO, score (R) = 0 for slot 0 of each utterance
 // and NEG_INF for the others, fin (R) = 0, done (1) = 0, parent (R) =
-// 0 .. R-1, count (2) = 0.  Scratch: q, cv (R, H), logits (R, V).
+// 0 .. R-1, count (2) = 0.  Scratch: q, cv (R, He), logits (R, V).
 // Outputs: tok_out, par_out, val_out (stop, R) int32; score holds the
 // final scores.
 template <typename W>
@@ -212,12 +212,13 @@ int beam_decode(const W* enc, const float* embed, const W* cell,
                 int* tok_in, float* score, int* fin, int* done, int* parent,
                 int* count, float* q, float* cv, float* logits, int* tok_out,
                 int* par_out, int* val_out, int B, int N, int K, int T,
-                int H, int L, int E, int A, int V, int stop, void* stream) {
+                int H, int L, int E, int A, int V, int stop, int He,
+                void* stream) {
   if (N > 32) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const ast::StepWeightsT<W> w = {embed, cell,  bias,  wa, wa_b, ctx_w,
                                   ctx_b, out_w, out_b, L,  H,    E,
-                                  A,     V};
+                                  A,     V,     He};
   const int R = B * N;
   const long state = (long)L * R * H;
   const size_t cand_bytes = (size_t)N * K * (sizeof(float) + sizeof(int));
@@ -255,11 +256,11 @@ AST_EXPORT int k6_beam_decode(
     float* cbuf, float* htbuf, int* tok_in, float* score, int* fin,
     int* done, int* parent, int* count, float* q, float* cv, float* logits,
     int* tok_out, int* par_out, int* val_out, int B, int N, int K, int T,
-    int H, int L, int E, int A, int V, int stop, void* stream) {
+    int H, int L, int E, int A, int V, int stop, int He, void* stream) {
   return beam_decode(enc, embed, cell, bias, wa, wa_b, ctx_w, ctx_b, out_w,
                      out_b, hbuf, cbuf, htbuf, tok_in, score, fin, done,
                      parent, count, q, cv, logits, tok_out, par_out, val_out,
-                     B, N, K, T, H, L, E, A, V, stop, stream);
+                     B, N, K, T, H, L, E, A, V, stop, He, stream);
 }
 
 // The same with enc, cell, wa, ctx_w and out_w in bfloat16.
@@ -271,9 +272,9 @@ AST_EXPORT int k6_beam_decode_bf16(
     float* cbuf, float* htbuf, int* tok_in, float* score, int* fin,
     int* done, int* parent, int* count, float* q, float* cv, float* logits,
     int* tok_out, int* par_out, int* val_out, int B, int N, int K, int T,
-    int H, int L, int E, int A, int V, int stop, void* stream) {
+    int H, int L, int E, int A, int V, int stop, int He, void* stream) {
   return beam_decode(enc, embed, cell, bias, wa, wa_b, ctx_w, ctx_b, out_w,
                      out_b, hbuf, cbuf, htbuf, tok_in, score, fin, done,
                      parent, count, q, cv, logits, tok_out, par_out, val_out,
-                     B, N, K, T, H, L, E, A, V, stop, stream);
+                     B, N, K, T, H, L, E, A, V, stop, He, stream);
 }

@@ -36,6 +36,33 @@ at any shape, as ``ast_tpu``'s interpret mode passes its alignment gate.
 The ``fused_encoder`` / ``fused_decoder`` / ``fused_infer`` config flags
 are ignored: no config turns a kernel off on the card.
 
+Optional keys beyond ``ast_tpu``'s (their defaults are its model):
+``rnn_config.enc_units`` (the encoder's units a direction, default
+``hidden_units // directions``), ``rnn_config.enc_stacking``
+(``"direction"``, the default: a stack a direction, joined at the top;
+``"joint"``: every layer above 0 reads both directions' outputs of the
+layer below, as a Listen-Attend-Spell listener), and a first conv layer
+of ``in_channels`` planes (``ops.cnn``).  The encoder states are then
+He = directions * ``enc_units`` wide, apart from the decoder's H: the
+attention's ``wa`` is (H, He) and its context layer reads ``[cv (He a
+head); h (H)]``.  The decoder starts from the encoder's final states
+where they are its shape (as many layers, He == H), else from zeros.
+
+A jointly stacked encoder (:func:`joint_encode`) runs layer by layer:
+the layer's input product over the whole sequence, one time-batched
+GEMM a direction, then K1 (train or eval) and, backward, K2 at one
+layer over both directions (:class:`JointLayer`).  Layer l's dropout
+masks are K1's at the seed ``enc_seed + l T'``: step t's mask over
+(directions, rows, units) has the seed ``enc_seed + l T' + t``.  At
+bf16 its input product and its gradients' products take bf16 operands
+on the tensor cores and give bf16 (``torch.matmul`` of bf16 tensors),
+the recurrence K1's / K2's bf16 modes.
+
+Spans and counters (``utils.profiling``): ``train.enc_layer`` around
+each joint layer's forward and backward; ``train.plain_stages`` counts a
+training step's stages that took their plain route (the encoder's scan,
+the decoder's scan loss).
+
 Data parallelism (``ast_tpu_torch.parallel``): a rank's training step
 runs on its rows of the global batch.  :func:`make_draws` draws at the
 global batch's shape and keeps the rank's rows, and the draws carry the
@@ -78,9 +105,10 @@ import torch
 
 from ast_tpu_torch.symbols import SYMBOLS
 from ast_tpu_torch.ops.attention import luong_attention
-from ast_tpu_torch.ops.bf16 import BF16, rounded, scan_dot
+from ast_tpu_torch.ops.bf16 import BF16, rounded, scan_dot, widen
 from ast_tpu_torch.ops.cnn import (
-    BN_DECAY, BN_EPS, batch_moments, conv_frontend, conv_out_len)
+    BN_DECAY, BN_EPS, batch_moments, conv_frontend, conv_out_dim,
+    conv_out_len, input_planes)
 from ast_tpu_torch.ops.dropout import drop_mask
 from ast_tpu_torch.ops.embedding import embedding_lookup
 from ast_tpu_torch.ops.fused_decoder import (
@@ -88,6 +116,7 @@ from ast_tpu_torch.ops.fused_decoder import (
 from ast_tpu_torch.ops.fused_infer import (
     decode_shapes_ok, greedy_decode_fused, greedy_reference,
     infer_variant_ok, on_card, pack_decode_step)
+from ast_tpu_torch.ops import fused_lstm
 from ast_tpu_torch.ops.fused_lstm import (
     FusedStackedLSTM, encoder_shapes_ok, fused_stacked_lstm,
     pack_encoder_step_weights, pack_encoder_weights, stacked_lstm_reference)
@@ -95,12 +124,40 @@ from ast_tpu_torch.ops.lstm import dropout, layernorm, lstm_gates
 from ast_tpu_torch.ops.specaugment import (
     SpecMasks, apply_spec_masks, draw_spec_masks)
 from ast_tpu_torch.params import from_jax_numpy
+from ast_tpu_torch.utils.profiling import count, span
 from ast_tpu_torch.parallel.tp import gathered_params, vocab_parallel_loss
 
 
 # ---------------------------------------------------------------------------
 # routing
 # ---------------------------------------------------------------------------
+
+def encoder_dims(mcfg):
+    """(directions, units a direction, stacking) of the encoder, with the
+    optional keys' defaults (module docstring)."""
+    rnn = mcfg["rnn_config"]
+    n_dirs = 2 if rnn["bi_rnn"] else 1
+    stacking = rnn.get("enc_stacking", "direction")
+    if stacking not in ("direction", "joint"):
+        raise ValueError(f"enc_stacking {stacking!r}: direction | joint")
+    if stacking == "joint" and any(rnn.get(k, False) for k in (
+            "ln", "rnn_relu", "linear_proj")):
+        raise ValueError("enc_stacking joint takes no ln, rnn_relu or "
+                         "linear_proj")
+    units = rnn.get("enc_units") or rnn["hidden_units"] // n_dirs
+    return n_dirs, int(units), stacking
+
+
+def enc_width(mcfg):
+    """He, the width of the encoder states the attention reads:
+    directions * ``enc_units`` where the config sets them, else
+    ``hidden_units`` (``ast_tpu``'s)."""
+    rnn = mcfg["rnn_config"]
+    if not rnn.get("enc_units"):
+        return rnn["hidden_units"]
+    n_dirs, units, _ = encoder_dims(mcfg)
+    return n_dirs * units
+
 
 def use_fused_encoder(mcfg, device):
     """Whether the encoder's recurrence on ``device`` runs K1 (eval and
@@ -113,7 +170,7 @@ def use_fused_encoder(mcfg, device):
     scan as plain PyTorch on the caller's device, a CUDA device included
     (:func:`scan_encode`): ``ast_tpu`` takes its scan path there too."""
     rnn = mcfg["rnn_config"]
-    units = rnn["hidden_units"] // (2 if rnn["bi_rnn"] else 1)
+    units = encoder_dims(mcfg)[1]
     return not (rnn.get("ln", False) or rnn.get("rnn_relu", False)
                 or rnn.get("linear_proj", False)
                 or on_card(device) and not encoder_shapes_ok(units))
@@ -134,7 +191,7 @@ def use_fused_decoder(mcfg, device, enc_mask=None, T=0):
             and not mcfg["dropout"].get("out", 0) > 0
             and not (on_card(device) and not train_shapes_ok(
                 T, rnn["hidden_units"], rnn["embedding_units"],
-                rnn["attn_units"])))
+                rnn["attn_units"], enc_width(mcfg))))
 
 
 def use_fused_infer(mcfg, device, B, T, N=1, K=1, enc_mask=None):
@@ -149,7 +206,7 @@ def use_fused_infer(mcfg, device, B, T, N=1, K=1, enc_mask=None):
     return (infer_variant_ok(mcfg, enc_mask)
             and not (on_card(device) and not decode_shapes_ok(
                 B, T, rnn["hidden_units"], rnn["embedding_units"],
-                rnn["attn_units"], N, K)))
+                rnn["attn_units"], N, K, enc_width(mcfg))))
 
 
 # ---------------------------------------------------------------------------
@@ -161,8 +218,11 @@ def init_model(mcfg, seed=0, device="cpu"):
     ``init_model`` for every variant: a direction axis on the encoder's
     LSTM leaves only when ``bi_rnn``; ``enc.proj`` and its BN state with
     ``linear_proj``; ``enc.ln`` / ``dec.ln`` with ``ln``; ``enc.embed``
-    with an ``enc_vocab_size``; ``n_attn`` heads and a ``(n_attn + 1) H``
-    context; a decoder input of E (+ A with ``feed_attn``).
+    with an ``enc_vocab_size``; ``n_attn`` heads (H, He) and an
+    ``n_attn He + H`` context; a decoder input of E (+ A with
+    ``feed_attn``); a first conv layer of ``in_channels`` planes; a
+    jointly stacked encoder's layers above 0 reading directions *
+    ``enc_units`` (module docstring).
     Distributions follow its initialisers (He-normal conv, Glorot-uniform
     input and orthogonal recurrent LSTM weights with forget bias 1,
     LeCun-normal projections, attention and output, N(0, 1)
@@ -171,8 +231,8 @@ def init_model(mcfg, seed=0, device="cpu"):
     rnn, cnn = mcfg["rnn_config"], mcfg["cnn_config"]
     hidden = rnn["hidden_units"]
     bi = rnn["bi_rnn"]
-    n_dirs = 2 if bi else 1
-    enc_units = hidden // n_dirs
+    n_dirs, enc_units, stacking = encoder_dims(mcfg)
+    He = enc_width(mcfg)
     E, A, V = rnn["embedding_units"], rnn["attn_units"], rnn["dec_vocab_size"]
     proj_mode = rnn.get("linear_proj", False)
 
@@ -188,7 +248,7 @@ def init_model(mcfg, seed=0, device="cpu"):
                     np.float32),
                 "wh": q.T.astype(np.float32), "b": b}
 
-    conv, conv_state, in_ch = [], [], 1
+    conv, conv_state, in_ch = [], [], input_planes(cnn)
     for layer in cnn["cnn_layers"]:
         out_ch = layer["out_channels"]
         kh, kw = layer["ksize"]
@@ -208,7 +268,8 @@ def init_model(mcfg, seed=0, device="cpu"):
 
     enc = []
     for l in range(rnn["enc_layers"]):
-        in_l = (cnn["cnn_layers"][-1]["out_channels"] if l == 0
+        in_l = (conv_out_dim(cnn) if l == 0
+                else n_dirs * enc_units if stacking == "joint"
                 else hidden if proj_mode else enc_units)
         dirs = [lstm(in_l, enc_units) for _ in range(n_dirs)]
         enc.append({k: np.stack([d[k] for d in dirs]) for k in dirs[0]}
@@ -216,10 +277,10 @@ def init_model(mcfg, seed=0, device="cpu"):
     dec = [lstm(E + (A if rnn.get("feed_attn", True) else 0) if l == 0
                 else hidden, hidden)
            for l in range(rnn["dec_layers"])]
-    heads = [{"w": normal((hidden, hidden), hidden ** -0.5),
-              "b": np.zeros(hidden, np.float32)}
+    heads = [{"w": normal((hidden, He), hidden ** -0.5),
+              "b": np.zeros(He, np.float32)}
              for _ in range(rnn.get("n_attn", 1))]
-    n_ctx = (len(heads) + 1) * hidden
+    n_ctx = len(heads) * He + hidden
     params = {
         "cnn": conv,
         "enc": {"lstm": enc, "proj": []},
@@ -265,7 +326,7 @@ def direction_stacked(layers):
 # encoder
 # ---------------------------------------------------------------------------
 
-def encoder_weights(params, dtype=torch.float32):
+def encoder_weights(params, dtype=torch.float32, mcfg=None):
     """The encoder recurrence's weights as K1 takes them, (wx_rest, wh, b,
     packed): the direction-stacked layers and the layout its products
     read (``fused_lstm.pack_encoder_step_weights``; None at a width the
@@ -274,8 +335,11 @@ def encoder_weights(params, dtype=torch.float32):
     ``linear_proj`` encoder, whose layers run one by one on the scan
     path.  ``dtype`` bf16: ``wx_rest``, ``wh`` and the pack in bf16 (the
     pack in the tensor cores' tile order), ``b`` f32 (``ast_tpu`` casts the
-    two matrices only)."""
-    if params["enc"]["proj"]:
+    two matrices only).  None too where ``mcfg`` stacks the encoder
+    jointly (:func:`encoder_dims`; None: the default stacking), whose
+    layers :func:`joint_encode` runs one by one."""
+    if params["enc"]["proj"] or (mcfg is not None
+                                 and encoder_dims(mcfg)[2] == "joint"):
         return None
     wx_rest, wh, b = pack_encoder_weights(
         direction_stacked(params["enc"]["lstm"]))
@@ -357,6 +421,18 @@ def _join_directions(outs):
     return torch.cat(parts, dim=-1)
 
 
+def decoder_start(mcfg, h0, c0):
+    """The decoder's initial (h, c), (L_dec, B, H): the encoder's final
+    states (L_enc, B, He) where they are that shape, else zeros (a
+    listener of other depth or width than its speller)."""
+    rnn = mcfg["rnn_config"]
+    L, H = rnn["dec_layers"], rnn["hidden_units"]
+    if h0.shape[0] == L and h0.shape[2] == H:
+        return h0, c0
+    shape = (L, h0.shape[1], H)
+    return h0.new_zeros(shape), c0.new_zeros(shape)
+
+
 def encoder_outputs(outs, h_fin, c_fin):
     """Recurrence outputs -> (enc_states (B, T', D2 H_e), dec_h0, dec_c0
     (L, B, D2 H_e)): the directions joined, for one or two."""
@@ -412,6 +488,160 @@ def _encode_proj(params, state, mcfg, h_cnn, cnn_state, train, seed,
             torch.stack(c0s), {"cnn_bn": cnn_state, "enc_proj_bn": proj_state})
 
 
+def _layer_operands(seq, wx, bi, dtype):
+    """A joint layer's input product's operands: its input by direction,
+    (D2, T' B, C) -- the sequence and, with ``bi``, the reversed one --
+    and ``wx`` (D2, C, 4He), both in bf16 at ``dtype`` bf16."""
+    Tp, B, C = seq.shape
+    xs = torch.stack([seq, seq.flip(0)] if bi else [seq]).reshape(
+        -1, Tp * B, C)
+    if dtype == BF16:
+        return xs.to(BF16), wx.to(BF16)
+    return xs, wx
+
+
+def _layer_proj(xs, wx_c, Tp):
+    """The input product, one GEMM a direction: (D2, T' B, C) @ (D2, C,
+    4He) -> (T', D2, B, 4He) f32, as K1 takes it."""
+    proj = torch.bmm(xs, wx_c).float()
+    return proj.unflatten(1, (Tp, -1)).transpose(0, 1).contiguous()
+
+
+def _undirection(dxs, Tp):
+    """The gradient of :func:`_layer_operands`' input: (D2, T' B, C) ->
+    (T', B, C), the reverse direction's flipped back and added."""
+    dxs = dxs.unflatten(1, (Tp, -1))
+    out = dxs[0]
+    if dxs.shape[0] == 2:
+        out = out + dxs[1].flip(0)
+    return out
+
+
+def _split_directions(d_y, D2):
+    """The gradient of :func:`_join_directions`: (T', B, D2 He) -> (T',
+    D2, B, He)."""
+    parts = d_y.chunk(D2, dim=-1)
+    if D2 == 2:
+        parts = (parts[0], parts[1].flip(0))
+    return torch.stack(parts, dim=1).contiguous()
+
+
+class JointLayer(torch.autograd.Function):
+    """One layer of a jointly stacked encoder in train mode, on K1 train
+    and K2 (their plain versions on the CPU).  ``apply(seq, wx, wh, b,
+    seed, rate, bi, dtype, row_offset, global_rows)``: ``seq`` (T', B, C)
+    the layer's input, ``wx`` (D2, C, 4He), ``wh`` (D2, He, 4He), ``b``
+    (D2, 4He) -> (y (T', B, D2 He), h_fin, c_fin (D2, B, He)).  Forward:
+    one input product (T' B, C) @ (C, 4He) a direction, then K1 train at
+    one layer over both directions (dropout at ``rate``, step t's mask
+    seed ``seed + t``).  Backward: K2, then the weight gradients and the
+    input's gradient as time-batched products.  ``dtype`` bf16: the
+    products' operands in bf16 (module docstring), K1 / K2 in their bf16
+    modes.  Each direction of work runs inside a ``train.enc_layer``
+    span."""
+
+    @staticmethod
+    def forward(ctx, seq, wx, wh, b, seed, rate, bi, dtype, row_offset=0,
+                global_rows=None):
+        with span("train.enc_layer"):
+            xs, wx_c = _layer_operands(seq, wx, bi, dtype)
+            proj = _layer_proj(xs, wx_c, seq.shape[0])
+            wh_k = wh[None].to(BF16 if dtype == BF16 else wh.dtype
+                               ).contiguous()
+            wx_rest = wh_k.new_zeros((0,) + tuple(wh_k.shape[1:]))
+            (outs, h_fin, c_fin, acts, c_all, h_pre,
+             x_drop) = fused_lstm.fused_stacked_lstm_train(
+                 proj, wx_rest, wh_k, b[None], seed, rate,
+                 row_offset=row_offset, global_rows=global_rows)
+        ctx.save_for_backward(seq, wx, wh_k, acts, c_all, h_pre)
+        ctx.hyper = (seed, rate, bi, dtype, row_offset, global_rows)
+        return _join_directions(outs), h_fin[0], c_fin[0]
+
+    @staticmethod
+    def backward(ctx, d_y, dh_fin, dc_fin):
+        seq, wx, wh_k, acts, c_all, h_pre = ctx.saved_tensors
+        seed, rate, bi, dtype, row_offset, global_rows = ctx.hyper
+        with span("train.enc_layer"):
+            D2, He = wh_k.shape[1], wh_k.shape[2]
+            like = widen(c_all[-1, 0])
+            dh = torch.zeros_like(like) if dh_fin is None else dh_fin
+            dc = torch.zeros_like(like) if dc_fin is None else dc_fin
+            douts = (torch.zeros(acts.shape[:1] + like.shape,
+                                 device=like.device) if d_y is None
+                     else _split_directions(d_y, D2))
+            dz = fused_lstm.encoder_backward(
+                acts, c_all, wh_k.new_zeros((0,) + tuple(wh_k.shape[1:])),
+                wh_k, douts, dh[None].contiguous(), dc[None].contiguous(),
+                seed, rate, row_offset=row_offset, global_rows=global_rows)
+            dz = dz[:, 0]                                # (T', D2, B, 4He)
+            h_prev = torch.cat([torch.zeros_like(h_pre[:1, 0]),
+                                h_pre[:-1, 0]])
+            xs, wx_c = _layer_operands(seq, wx, bi, dtype)
+            Tp = seq.shape[0]
+            # (D2, T' B, ...): a direction's steps and rows as one axis
+            by_dir = (lambda t: t.transpose(0, 1).flatten(1, 2).to(
+                xs.dtype))
+            dz_d, h_d = by_dir(dz), by_dir(h_prev)
+            dwh = torch.bmm(h_d.transpose(1, 2), dz_d)
+            dwx = torch.bmm(xs.transpose(1, 2), dz_d)
+            d_seq = _undirection(torch.bmm(dz_d, wx_c.transpose(1, 2))
+                                 .float(), Tp)
+            db = dz.sum(dim=(0, 2), dtype=torch.float32)
+        return (d_seq, dwx.float(), dwh.float(), db) + (None,) * 6
+
+
+def joint_encode(params, state, mcfg, X, train=False, seed=0,
+                 rows=(0, None), mesh=None, compute_dtype=torch.float32):
+    """A jointly stacked encoder (module docstring): the conv front-end,
+    then each layer's input product and recurrence over both directions
+    of the layer below's joined output.  Train mode: batch-statistics BN
+    (the global batch's under ``mesh``) and layer l's dropout at
+    ``dropout.rnn`` under the seed ``seed + l T'``, over the global rows
+    ``rows``.  On the kernels' route (:func:`use_fused_encoder`) train
+    mode runs :class:`JointLayer`, eval mode the input product and K1
+    eval; off it, :func:`stacked_lstm_reference` with autograd at the
+    scan path's rounding points.  Returns (enc_states (B, T', D2 He),
+    h_fin, c_fin (L, B, D2 He), new_state)."""
+    rnn = mcfg["rnn_config"]
+    bi = rnn["bi_rnn"]
+    rate = float(mcfg["dropout"]["rnn"]) if train else 0.0
+    h_cnn, cnn_state = conv_frontend(params["cnn"], state["cnn_bn"],
+                                     mcfg["cnn_config"], _source(params, X),
+                                     train, compute_dtype, mesh)
+    seq = h_cnn.transpose(0, 1)                         # (T', B, C)
+    Tp = seq.shape[0]
+    fused = use_fused_encoder(mcfg, X.device)
+    h0s, c0s = [], []
+    for l, lp in enumerate(direction_stacked(params["enc"]["lstm"])):
+        seed_l = seed + l * Tp
+        if train and fused:
+            seq, h_fin, c_fin = JointLayer.apply(
+                seq, lp["wx"], lp["wh"], lp["b"], seed_l, rate, bi,
+                compute_dtype, *rows)
+        else:
+            xs, wx_c = _layer_operands(seq, lp["wx"], bi, compute_dtype)
+            proj = _layer_proj(xs, wx_c, Tp)
+            wh = lp["wh"][None]
+            if fused:
+                wh = (wh.to(BF16) if compute_dtype == BF16 else wh
+                      ).contiguous()
+                outs, h_fin, c_fin = fused_stacked_lstm(
+                    proj, wh.new_zeros((0,) + tuple(wh.shape[1:])), wh,
+                    lp["b"][None])
+            else:
+                outs, h_fin, c_fin = stacked_lstm_reference(
+                    proj, wh.new_zeros((0,) + tuple(wh.shape[1:])), wh,
+                    lp["b"][None], train, seed_l, rate, row_offset=rows[0],
+                    global_rows=rows[1], compute_dtype=compute_dtype)[:3]
+            seq, h_fin, c_fin = _join_directions(outs), h_fin[0], c_fin[0]
+        h0s.append(torch.cat(h_fin.unbind(0), dim=-1))
+        c0s.append(torch.cat(c_fin.unbind(0), dim=-1))
+    new_state = ({"cnn_bn": cnn_state, "enc_proj_bn": state["enc_proj_bn"]}
+                 if train else state)
+    return (seq.transpose(0, 1).contiguous(), torch.stack(h0s),
+            torch.stack(c0s), new_state)
+
+
 def scan_encode(params, state, mcfg, X, train=False, seed=0,
                 rows=(0, None), mesh=None, compute_dtype=torch.float32):
     """``ast_tpu``'s scan encoder as plain PyTorch with autograd, on X's
@@ -446,11 +676,17 @@ def scan_encode(params, state, mcfg, X, train=False, seed=0,
 
 def _encode_eval(params, state, mcfg, X, enc_w=None,
                  compute_dtype=torch.float32):
-    if not use_fused_encoder(mcfg, X.device):
-        return scan_encode(params, state, mcfg, X,
+    if encoder_dims(mcfg)[2] == "joint":
+        out = joint_encode(params, state, mcfg, X,
                            compute_dtype=compute_dtype)[:3]
-    return encoder_outputs(*fused_stacked_lstm(*encoder_inputs(
-        params, state, mcfg, X, enc_w=enc_w, compute_dtype=compute_dtype)))
+    elif not use_fused_encoder(mcfg, X.device):
+        out = scan_encode(params, state, mcfg, X,
+                          compute_dtype=compute_dtype)[:3]
+    else:
+        out = encoder_outputs(*fused_stacked_lstm(*encoder_inputs(
+            params, state, mcfg, X, enc_w=enc_w,
+            compute_dtype=compute_dtype)))
+    return (out[0],) + decoder_start(mcfg, *out[1:])
 
 
 def encode(params, state, mcfg, X, w=None, compute_dtype=torch.float32):
@@ -497,17 +733,17 @@ def pack_decoder_weights(params, dtype=torch.float32):
     return {k: v.contiguous() for k, v in w.items()}
 
 
-def decode_weights(params, dtype=torch.float32):
+def decode_weights(params, dtype=torch.float32, mcfg=None):
     """The weights that greedy and beam decoding take:
     :func:`pack_decoder_weights` plus, under ``"step"``, the decode step
     kernels' layout (``fused_infer.pack_decode_step``: at bf16 the
     tensor-core tiles of ``pack_step_weights_mma``) and, under ``"enc"``,
-    the encoder's (:func:`encoder_weights`), all at the compute
-    ``dtype``.  Made once per model -- a caller decoding many batches
+    the encoder's (:func:`encoder_weights` of ``mcfg``), all at the
+    compute ``dtype``.  Made once per model -- a caller decoding many batches
     with the same params passes it to every batch."""
     w = pack_decoder_weights(params, dtype)
     w["step"] = pack_decode_step(w)
-    w["enc"] = encoder_weights(params, dtype)
+    w["enc"] = encoder_weights(params, dtype, mcfg)
     return w
 
 
@@ -615,7 +851,7 @@ def predict_greedy(params, state, mcfg, X, stop_limit, w=None,
     bf16 before K5, and the plain loop's attention rounds them, as in
     ``ast_tpu``."""
     if w is None:
-        w = decode_weights(params, compute_dtype)
+        w = decode_weights(params, compute_dtype, mcfg)
     _check_weights_dtype(w, compute_dtype)
     enc_states, dec_h0, dec_c0 = encode(params, state, mcfg, X, w,
                                         compute_dtype)
@@ -686,7 +922,7 @@ class Draws:
 
 
 def make_draws(seed, X, steps, teach_ratio, add_noise, random_out=0.0,
-               vocab=0, spec_cfg=None, frame_len=None, mesh=None):
+               vocab=0, spec_cfg=None, frame_len=None, mesh=None, planes=1):
     """Draws for one step from an int ``seed``: the noise from a
     generator on X's device, everything else from one on the host (no
     device sync), so a run is deterministic on one device.  The optional
@@ -700,7 +936,9 @@ def make_draws(seed, X, steps, teach_ratio, add_noise, random_out=0.0,
     rank's rows are kept, so the data ranks' draws together are one
     process's (``frame_len`` then the global batch's), and the ranks of
     a model group draw alike.  The coins and seeds are shared; the
-    random target ids are drawn over the whole vocabulary."""
+    random target ids are drawn over the whole vocabulary.  ``planes``:
+    the planes of a feature row, over whose bins the frequency masks
+    lie (``ops.specaugment``)."""
     host = torch.Generator().manual_seed(seed)
     B = X.shape[0]
     row_offset, rows = (0, B) if mesh is None else (mesh.data_index * B,
@@ -730,9 +968,10 @@ def make_draws(seed, X, steps, teach_ratio, add_noise, random_out=0.0,
         if mesh is not None and frame_len is None:
             raise ValueError("make_draws under a mesh takes the global "
                              "batch's frame_len for SpecAugment")
-        spec = draw_spec_masks(host, shape, spec_cfg, frame_len, X)
+        spec = draw_spec_masks(host, shape, spec_cfg, frame_len, X, planes)
         draws.spec = SpecMasks(*([(s[mine], w[mine]) for s, w in masks]
-                                 for masks in (spec.freq, spec.time)))
+                                 for masks in (spec.freq, spec.time)),
+                               planes)
     return draws
 
 
@@ -749,16 +988,22 @@ def encode_train(params, state, mcfg, X, draws, compute_dtype=torch.float32,
         X = apply_spec_masks(X, draws.spec)
     if draws.noise is not None:
         X = X * (1.0 + draws.noise)
-    if not use_fused_encoder(mcfg, X.device):
-        return scan_encode(params, state, mcfg, X, True, draws.enc_seed,
-                           draws.rows, mesh, compute_dtype)
-    x0_proj, wx_rest, wh, b, new_state = encoder_inputs(
-        params, state, mcfg, X, train=True, compute_dtype=compute_dtype,
-        mesh=mesh)
-    out = FusedStackedLSTM.apply(x0_proj, wx_rest, wh, b, draws.enc_seed,
-                                 True, float(mcfg["dropout"]["rnn"]),
-                                 compute_dtype, *draws.rows)
-    return encoder_outputs(*out) + (new_state,)
+    if encoder_dims(mcfg)[2] == "joint":
+        enc, h0, c0, new_state = joint_encode(
+            params, state, mcfg, X, True, draws.enc_seed, draws.rows, mesh,
+            compute_dtype)
+    elif not use_fused_encoder(mcfg, X.device):
+        enc, h0, c0, new_state = scan_encode(
+            params, state, mcfg, X, True, draws.enc_seed, draws.rows, mesh,
+            compute_dtype)
+    else:
+        x0_proj, wx_rest, wh, b, new_state = encoder_inputs(
+            params, state, mcfg, X, train=True, compute_dtype=compute_dtype,
+            mesh=mesh)
+        enc, h0, c0 = encoder_outputs(*FusedStackedLSTM.apply(
+            x0_proj, wx_rest, wh, b, draws.enc_seed, True,
+            float(mcfg["dropout"]["rnn"]), compute_dtype, *draws.rows))
+    return (enc,) + decoder_start(mcfg, h0, c0) + (new_state,)
 
 
 def sequence_loss(ht, out_w, out_b, target, n_real, label_smoothing=0.0,
@@ -879,7 +1124,11 @@ def forward_loss(params, state, mcfg, X, y, n_real, draws=None, train=True,
         enc, h0, c0 = _encode_eval(params, state, mcfg, X, enc_w,
                                    compute_dtype)
         new_state = state
-    if not use_fused_decoder(mcfg, X.device, enc_mask, enc.shape[1]):
+    fused_dec = use_fused_decoder(mcfg, X.device, enc_mask, enc.shape[1])
+    if train:
+        plain = (not use_fused_encoder(mcfg, X.device)) + (not fused_dec)
+        count("train.plain_stages", plain)
+    if not fused_dec:
         loss = scan_decoder_loss(params, mcfg, enc, h0, c0, y, n_real,
                                  draws if train else None, label_smoothing,
                                  enc_mask, compute_dtype)

@@ -43,7 +43,7 @@ def make_beam_decoder(mcfg, N, K, stop_limit, return_attn=False,
 
     def decode(params, state, X, w=None, enc_mask=None):
         if w is None:
-            w = seq2seq.decode_weights(params, compute_dtype)
+            w = seq2seq.decode_weights(params, compute_dtype, mcfg)
         enc_states, dec_h0, dec_c0 = seq2seq.encode(params, state, mcfg, X,
                                                     w, compute_dtype)
         if not return_attn and seq2seq.use_fused_infer(

@@ -19,7 +19,13 @@ statistics are the global batch's, as XLA computes them over
 ``ast_tpu``'s sharded array (:func:`batch_moments`).  Max pooling is
 ``lax.reduce_window``'s "SAME": ceil(T /
 stride) outputs, the input padded with -inf, ``total // 2`` frames
-before.  Weights stay OIHW.  This stage is plain PyTorch with autograd
+before.  Weights stay OIHW.  A stack whose first layer takes
+``in_channels`` C > 1 (``null`` is 1) reads each feature row as C planes
+of ``D / C`` bins, plane after plane (static, delta, delta-delta), on
+the NCHW route; ``plane_bins`` (the bins of a plane) then sizes the
+feature width that the stack leaves, ``C_out * W'``
+(:func:`conv_out_dim`), where a stack without it collapses the feature
+axis to one column.  This stage is plain PyTorch with autograd
 on every device: it has no Pallas counterpart on the TPU either.  At
 ``compute_dtype`` bfloat16 the im2col family rounds the window and the
 weights to bf16 and multiplies in f32 (``ast_tpu``'s einsum with
@@ -162,8 +168,37 @@ def _conv2d(h, w, stride, padding, dilation):
     return (w.reshape(O, -1) @ cols).view(B, O, Ho, Wo)
 
 
+def input_planes(cnn_config):
+    """The planes a feature row holds: the first layer's
+    ``in_channels`` (``null``: 1)."""
+    layers = cnn_config["cnn_layers"]
+    return int(layers[0].get("in_channels") or 1) if layers else 1
+
+
+def conv_out_dim(cnn_config):
+    """The feature width of the stack's output, ``C_out * W'``: ``W'``
+    follows ``plane_bins`` through each layer's kernel, stride and
+    padding along the feature axis; without ``plane_bins`` it is 1 (the
+    shipped family, whose first layer spans the whole row)."""
+    layers = cnn_config["cnn_layers"]
+    bins = cnn_config.get("plane_bins")
+    if bins is None:
+        return layers[-1]["out_channels"]
+    w = int(bins)
+    for layer in layers:
+        kw = (layer["ksize"][1] - 1) * layer.get("dilate", 1) + 1
+        w = (w + 2 * layer["pad"][1] - kw) // layer["stride"][1] + 1
+    return layers[-1]["out_channels"] * w
+
+
 def _conv_frontend_nchw(params, state, cnn_config, X, train, mesh):
-    h = X[:, None]                                      # (B, 1, T, D)
+    B, T, D = X.shape
+    C = input_planes(cnn_config)
+    if D % C:
+        raise ValueError(f"a feature row of {D} does not split into {C} "
+                         f"planes")
+    # (B, C, T, D / C)
+    h = X[:, None] if C == 1 else X.reshape(B, T, C, D // C).transpose(1, 2)
     new_state = []
     for p, s, layer in zip(params, state, cnn_config["cnn_layers"]):
         dil = layer.get("dilate", 1)
@@ -192,6 +227,7 @@ def conv_frontend(params, state, cnn_config, X, train=False,
     ``compute_dtype``: the im2col products' (see the module
     docstring)."""
     if (im2col_eligible(cnn_config, X.shape[-1])
+            and input_planes(cnn_config) == 1
             and not cnn_config.get("force_nchw", False)):
         return _conv_frontend_matmul(params, state, cnn_config, X, train,
                                      compute_dtype, mesh)

@@ -138,7 +138,7 @@ def decoder_forward_reference(enc, h0, c0, w, y_in, coins, seed, drop_emb,
                               drop_rnn, forced_ids=None, row_offset=0):
     """Plain version of K3 over U steps.
 
-    enc (B, T, H); h0 / c0 (L, B, H); y_in (U, B) teacher ids; coins (U,)
+    enc (B, T, He); h0 / c0 (L, B, H); y_in (U, B) teacher ids; coins (U,)
     with 1 = teacher-forced, and coins[0] == 1 (the first step has no
     prediction to feed).  With ``forced_ids`` (U, B), e.g. a kernel's
     ``sel``, those ids are the inputs of every step instead.
@@ -220,6 +220,7 @@ def decoder_backward_reference(res, ht, enc, c0, w, d_ht, seed, drop_emb,
     Returns a dict of GRAD_NAMES."""
     U, L, B, H4 = res["acts"].shape
     H = H4 // 4
+    He = enc.shape[2]
     E = w["embed"].shape[1]
     sdt = w["wh"].dtype
     enc, w, lhs = _plain_math(enc, w)
@@ -234,7 +235,7 @@ def decoder_backward_reference(res, ht, enc, c0, w, d_ht, seed, drop_emb,
     for t in reversed(range(U)):
         d_pre = (d_ht[t] + dht) * (1.0 - ht[t] * ht[t])
         d_ctx_in = lhs(d_pre) @ w["ctx_w"].t()
-        d_cv, cons = d_ctx_in[:, :H], d_ctx_in[:, H:]
+        d_cv, cons = d_ctx_in[:, :He], d_ctx_in[:, He:]
         alphas = res["alphas"][t]
         d_alphas = torch.bmm(enc, d_cv[:, :, None])[..., 0]
         d_scores = alphas * (d_alphas
@@ -280,41 +281,44 @@ def _row_offset(row_offset):
     return int(row_offset)
 
 
-def train_shapes_problem(T, H, E, A):
+def train_shapes_problem(T, H, E, A, He=None):
     """Why the training decoder's kernels do not take these shapes, or
-    None: E, A and H must be multiples of the products' 32-wide input
-    tiles, and the attention's shared memory (one row's query, two
-    context partials and T scores) within a block's."""
-    if E % _TILE_K or A % _TILE_K or H % _TILE_K:
-        return (f"training decoder kernels take E, A, H that are "
-                f"multiples of {_TILE_K} (got {E}, {A}, {H})")
-    attn = 4 * (2 * H + T + 2)
+    None: E, A, H and the encoder states' He (default H) must be
+    multiples of the products' 32-wide input tiles, and the attention's
+    shared memory (one row's query, two context partials and T scores)
+    within a block's."""
+    He = H if He is None else He
+    if E % _TILE_K or A % _TILE_K or H % _TILE_K or He % _TILE_K:
+        return (f"training decoder kernels take E, A, H, He that are "
+                f"multiples of {_TILE_K} (got {E}, {A}, {H}, {He})")
+    attn = 4 * (2 * He + T + 2)
     if attn > _SMEM_BYTES:
         return (f"training attention needs {attn} bytes of shared "
-                f"memory at T={T}, H={H}; a block has {_SMEM_BYTES}")
+                f"memory at T={T}, He={He}; a block has {_SMEM_BYTES}")
     return None
 
 
-def train_shapes_ok(T, H, E, A):
+def train_shapes_ok(T, H, E, A, He=None):
     """Whether K3 / K4 take these shapes (:func:`train_shapes_problem`):
     the routing (``models.seq2seq.use_fused_decoder``) sends any other
     call to the plain scan loss."""
-    return train_shapes_problem(T, H, E, A) is None
+    return train_shapes_problem(T, H, E, A, He) is None
 
 
-def check_train_shapes(T, H, E, A):
+def check_train_shapes(T, H, E, A, He=None):
     """Raise unless :func:`train_shapes_ok`."""
-    problem = train_shapes_problem(T, H, E, A)
+    problem = train_shapes_problem(T, H, E, A, He)
     if problem:
         raise ValueError(problem)
 
 
 def pack_backward_weights(w):
     """The transposed matrices of K4's products, each as (column blocks,
-    K, 64) with zero columns past N, views of one buffer (``flat``):
+    K, 64) with zero columns past N, views of one buffer (``flat``), He
+    the encoder states' width:
 
-      ``cv``    ctx_w[:H]^T              (A, H):      d_cv = d_pre @ cv
-      ``top``   [wa^T ; ctx_w[H:]^T]     (H + A, H):  d_top = [d_q | d_pre] @ top
+      ``cv``    ctx_w[:He]^T           (A, He):     d_cv = d_pre @ cv
+      ``top``   [wa^T ; ctx_w[He:]^T]  (He + A, H): d_top = [d_q|d_pre] @ top
       ``layer`` per layer [wh^T | wx^T]  (4H, H + E + A, or 2H above layer 0):
                 [dh_prev | dx] = dz @ layer[l]; back to back in ``flat``
 
@@ -323,12 +327,14 @@ def pack_backward_weights(w):
     At bf16, where the products run on the tensor cores, each 32 x 64
     tile in the B-fragment order (``fused_infer.put_transposed_tiles``,
     the same copies): each view (column blocks, K / 32, 2048), the same
-    sizes and offsets (K, a multiple of 32, is A, H + A and 4H).  Made
+    sizes and offsets (K, a multiple of 32, is A, He + A and 4H).  Made
     once per backward call: the weights change every step."""
     L, H = w["wh"].shape[0], w["wh"].shape[1]
+    He = w["wa"].shape[1]
     A = w["ctx_w"].shape[1]
     wxs = [w["wx0"]] + [w["wx_rest"][l] for l in range(L - 1)]
-    shapes = [(A, H), (H + A, H)] + [(4 * H, H + wx.shape[0]) for wx in wxs]
+    shapes = [(A, He), (He + A, H)] + [(4 * H, H + wx.shape[0])
+                                       for wx in wxs]
     sizes = [-(-N // _TILE_N) * K * _TILE_N for K, N in shapes]
     ragged = any(N % _TILE_N for _, N in shapes)
     flat = (torch.zeros if ragged else torch.empty)(
@@ -341,9 +347,9 @@ def pack_backward_weights(w):
         views.append(flat[off:off + size].view(-1, K // k, k * _TILE_N))
         off += size
     cv, top, layers = views[0], views[1], views[2:]
-    put(cv, 0, w["ctx_w"][:H])
-    put(top[:, :H // k], 0, w["wa"])
-    put(top[:, H // k:], 0, w["ctx_w"][H:])
+    put(cv, 0, w["ctx_w"][:He])
+    put(top[:, :He // k], 0, w["wa"])
+    put(top[:, He // k:], 0, w["ctx_w"][He:])
     for lay, wh, wx in zip(layers, w["wh"], wxs):
         put(lay, 0, wh)
         put(lay, H, wx)
@@ -361,8 +367,8 @@ def decoder_forward(enc, h0, c0, w, y_in, coins, seed, drop_emb, drop_rnn,
         return decoder_forward_reference(enc, h0, c0, w, y_in, coins, seed,
                                          drop_emb, drop_rnn,
                                          row_offset=row_offset)
-    B, T, H, L, E, A, V, dt = check_decoder_inputs(enc, h0, c0, w)
-    check_train_shapes(T, H, E, A)
+    B, T, H, L, E, A, V, dt, He = check_decoder_inputs(enc, h0, c0, w)
+    check_train_shapes(T, H, E, A, He)
     U = y_in.shape[0]
     for name, t, shape in (("y_in", y_in, (U, B)), ("coins", coins, (U,))):
         if (not t.is_cuda or t.dtype != torch.int32
@@ -374,7 +380,7 @@ def decoder_forward(enc, h0, c0, w, y_in, coins, seed, drop_emb, drop_rnn,
     packed = pack_decode_step(w)
     shapes = {"acts": (U, L, B, 4 * H), "c_all": (U, L, B, H),
               "h_all": (U, L, B, H), "x_drop": (U, L, B, H),
-              "alphas": (U, B, T), "q": (U, B, H), "cv": (U, B, H),
+              "alphas": (U, B, T), "q": (U, B, He), "cv": (U, B, He),
               "emb": (U, B, E)}
     res = {"sel": torch.empty((U, B), dtype=torch.int32, device=dev)}
     res.update({k: torch.empty(shapes[k], dtype=dt, device=dev)
@@ -391,7 +397,7 @@ def decoder_forward(enc, h0, c0, w, y_in, coins, seed, drop_emb, drop_rnn,
            ht0.data_ptr(), ht.data_ptr())
     tail = (B, T, H, L, E, A, V, U, _row_offset(row_offset),
             seed & 0xFFFFFFFF, drop_threshold(drop_emb), 1.0 - drop_emb,
-            drop_threshold(drop_rnn), 1.0 - drop_rnn,
+            drop_threshold(drop_rnn), 1.0 - drop_rnn, He,
             torch.cuda.current_stream(dev).cuda_stream)
     if dt == torch.float32:
         decoder_forward.launches += 1
@@ -402,8 +408,8 @@ def decoder_forward(enc, h0, c0, w, y_in, coins, seed, drop_emb, drop_rnn,
     # the f32 state of the bf16 mode: h (two slots), c (from c0), each
     # layer's dropped h, the step's q, cv and dropped embedding
     state = (torch.empty((2, L, B, H), **f32), c0.clone(),
-             torch.empty((L, B, H), **f32), torch.empty((B, H), **f32),
-             torch.empty((B, H), **f32), torch.empty((B, E), **f32))
+             torch.empty((L, B, H), **f32), torch.empty((B, He), **f32),
+             torch.empty((B, He), **f32), torch.empty((B, E), **f32))
     decoder_forward.launches_bf16 += 1
     build.check_launch("k3_decoder_forward_bf16",
                        lib.k3_decoder_forward_bf16(
@@ -426,11 +432,11 @@ def decoder_backward(res, ht, enc, c0, w, d_ht, seed, drop_emb, drop_rnn,
                                           drop_emb, drop_rnn, row_offset)
     U, L, B, H4 = res["acts"].shape
     H = H4 // 4
-    T = enc.shape[1]
+    T, He = enc.shape[1], enc.shape[2]
     V, E = w["embed"].shape
     A = w["ctx_w"].shape[1]
     dt = BF16 if w["wh"].dtype == BF16 else torch.float32
-    build.check_tensor(enc, "enc_states", (B, T, H), dt)
+    build.check_tensor(enc, "enc_states", (B, T, He), dt)
     build.check_tensor(c0, "dec_c0", (L, B, H))
     build.check_tensor(ht, "ht", (U, B, A))
     build.check_tensor(d_ht, "d_ht", (U, B, A))
@@ -438,10 +444,10 @@ def decoder_backward(res, ht, enc, c0, w, d_ht, seed, drop_emb, drop_rnn,
                      ("alphas", (U, B, T))):
         build.check_tensor(res[k], k, shape, dt)
     for k, shape in (("wx0", (E + A, 4 * H)), ("wx_rest", (L - 1, H, 4 * H)),
-                     ("wh", (L, H, 4 * H)), ("wa", (H, H)),
-                     ("ctx_w", (2 * H, A))):
+                     ("wh", (L, H, 4 * H)), ("wa", (H, He)),
+                     ("ctx_w", (He + H, A))):
         build.check_tensor(w[k], k, shape, dt)
-    check_train_shapes(T, H, E, A)
+    check_train_shapes(T, H, E, A, He)
     dev = enc.device
     packed = pack_backward_weights(w)
     dh = torch.zeros((L, B, H), device=dev)     # carries, in place
@@ -450,8 +456,8 @@ def decoder_backward(res, ht, enc, c0, w, d_ht, seed, drop_emb, drop_rnn,
     g = {"dz": torch.empty((U, L, B, 4 * H), **sdt),
          "d_pre": torch.empty((U, B, A), **sdt),
          "d_scores": torch.empty((U, B, T), **sdt),
-         "d_cv": torch.empty((U, B, H), **sdt),
-         "d_q": torch.empty((U, B, H), **sdt),
+         "d_cv": torch.empty((U, B, He), **sdt),
+         "d_q": torch.empty((U, B, He), **sdt),
          "d_emb": torch.empty((U, B, E), **sdt)}
     lib = build.library()
     ins = (res["acts"].data_ptr(), res["c_all"].data_ptr())
@@ -462,7 +468,8 @@ def decoder_backward(res, ht, enc, c0, w, d_ht, seed, drop_emb, drop_rnn,
     tail = (B, T, H, L, E, A, U, _row_offset(row_offset),
             seed & 0xFFFFFFFF, drop_threshold(drop_emb),
             1.0 / (1.0 - drop_emb), drop_threshold(drop_rnn),
-            1.0 / (1.0 - drop_rnn), torch.cuda.current_stream(dev).cuda_stream)
+            1.0 / (1.0 - drop_rnn), He,
+            torch.cuda.current_stream(dev).cuda_stream)
     if dt == torch.float32:
         decoder_backward.launches += 1
         build.check_launch("k4_decoder_backward", lib.k4_decoder_backward(
@@ -473,8 +480,8 @@ def decoder_backward(res, ht, enc, c0, w, d_ht, seed, drop_emb, drop_rnn,
         c0_16 = c0.to(BF16)
         work = (torch.empty((L, B, 4 * H), device=dev),
                 torch.empty((B, A), device=dev),
-                torch.empty((B, H), device=dev),
-                torch.empty((B, H), device=dev))
+                torch.empty((B, He), device=dev),
+                torch.empty((B, He), device=dev))
         decoder_backward.launches_bf16 += 1
         build.check_launch("k4_decoder_backward_bf16",
                            lib.k4_decoder_backward_bf16(

@@ -398,10 +398,10 @@ _WEIGHT_ORDER = ("embed", "wx0", "wx_rest", "wh", "b", "wa", "wa_b",
 
 def check_decoder_inputs(enc, h0, c0, w):
     """Validate the kernel inputs: ``w``'s leaves and ``enc`` in one
-    dtype (f32, or bf16), the state f32.  Returns (B, T, H, L, E, A, V,
-    dtype)."""
-    B, T, H = enc.shape
-    L = h0.shape[0]
+    dtype (f32, or bf16), the state f32; the encoder states He wide, the
+    decoder H.  Returns (B, T, H, L, E, A, V, dtype, He)."""
+    B, T, He = enc.shape
+    L, _, H = h0.shape
     V, E = w["embed"].shape
     A = w["ctx_w"].shape[1]
     dt = BF16 if w["wh"].dtype == BF16 else torch.float32
@@ -410,12 +410,12 @@ def check_decoder_inputs(enc, h0, c0, w):
     build.check_tensor(c0, "dec_c0", (L, B, H))
     shapes = {"embed": (V, E), "wx0": (E + A, 4 * H),
               "wx_rest": (L - 1, H, 4 * H), "wh": (L, H, 4 * H),
-              "b": (L, 4 * H), "wa": (H, H), "wa_b": (H,),
-              "ctx_w": (2 * H, A), "ctx_b": (A,), "out_w": (A, V),
+              "b": (L, 4 * H), "wa": (H, He), "wa_b": (He,),
+              "ctx_w": (He + H, A), "ctx_b": (A,), "out_w": (A, V),
               "out_b": (V,)}
     for k in _WEIGHT_ORDER:
         build.check_tensor(w[k], k, shapes[k], dt)
-    return B, T, H, L, E, A, V, dt
+    return B, T, H, L, E, A, V, dt, He
 
 
 def _pack_columns(w, block):
@@ -616,12 +616,14 @@ STEP_ORDER = ("embed", "cell", "b", "wa", "wa_b", "ctx_w", "ctx_b",
 _STEP_MATRICES = ("cell", "wa", "ctx_w", "out_w")
 
 
-def _step_shapes(H, L, E, A, V, mma):
+def _step_shapes(H, L, E, A, V, mma, He=None):
     """The shape of each leaf of ``w["step"]``: :func:`pack_step_weights`'
-    or, ``mma``, :func:`pack_step_weights_mma`'s."""
-    shapes = {"embed": (V, E), "b": (L, 4 * H), "wa_b": (H,),
+    or, ``mma``, :func:`pack_step_weights_mma`'s (``He``: the encoder
+    states' width, default H)."""
+    He = H if He is None else He
+    shapes = {"embed": (V, E), "b": (L, 4 * H), "wa_b": (He,),
               "ctx_b": (A,), "out_b": (V,)}
-    mats = {"wa": (H, H), "ctx_w": (2 * H, A), "out_w": (A, V)}
+    mats = {"wa": (H, He), "ctx_w": (He + H, A), "out_w": (A, V)}
     if not mma:
         shapes["cell"] = (4 * H * (E + A + H + (L - 1) * 2 * H),)
         for k, (K, N) in mats.items():
@@ -634,9 +636,10 @@ def _step_shapes(H, L, E, A, V, mma):
     return shapes
 
 
-def step_weights(w, H, L, E, A, V, dtype=torch.float32):
+def step_weights(w, H, L, E, A, V, dtype=torch.float32, He=None):
     """``w["step"]``, the packed form the decode step kernels take,
-    checked against the decoder's dims and ``dtype`` (its matrices'; at
+    checked against the decoder's dims (``He``: the encoder states',
+    default H) and ``dtype`` (its matrices'; at
     bf16 in :func:`pack_step_weights_mma`'s tensor-core layout).  Raises
     ValueError if ``w`` lacks it or holds another layout (make ``w`` with
     ``models.seq2seq.decode_weights``)."""
@@ -651,59 +654,62 @@ def step_weights(w, H, L, E, A, V, dtype=torch.float32):
                          "layout of pack_step_weights_mma (made by "
                          "seq2seq.decode_weights at bfloat16), not "
                          "pack_step_weights' column blocks")
-    shapes = _step_shapes(H, L, E, A, V, mma)
+    shapes = _step_shapes(H, L, E, A, V, mma, He)
     for k in STEP_ORDER:
         build.check_tensor(step[k], f"step {k}", shapes[k],
                            dtype if k in _STEP_MATRICES else torch.float32)
     return step
 
 
-def decode_shapes_problem(B, T, H, E, A, N, K=1):
+def decode_shapes_problem(B, T, H, E, A, N, K=1, He=None):
     """Why K5 / K6 do not take these shapes, or None: a beam of 1 to 32
-    slots (K5 is N = 1), E, A, H multiples of the decode step's 32-wide
-    input tiles, attention's and the beam selection's shared memory
-    within a block's."""
+    slots (K5 is N = 1), E, A, H and the encoder states' He (default H)
+    multiples of the decode step's 32-wide input tiles, attention's and
+    the beam selection's shared memory within a block's."""
+    He = H if He is None else He
     if not 1 <= N <= 32:
         return f"beam kernel takes 1 <= N <= 32 (got N={N})"
-    if E % _DECODE_TILE or A % _DECODE_TILE or H % _DECODE_TILE:
-        return (f"decode kernels take E, A, H that are multiples of "
-                f"{_DECODE_TILE} (got {E}, {A}, {H})")
-    # attention: 2 N H + N T floats at most (one block per utterance)
-    attn = 4 * (2 * N * H + N * T + 2 * N)
+    if (E % _DECODE_TILE or A % _DECODE_TILE or H % _DECODE_TILE
+            or He % _DECODE_TILE):
+        return (f"decode kernels take E, A, H, He that are multiples of "
+                f"{_DECODE_TILE} (got {E}, {A}, {H}, {He})")
+    # attention: 2 N He + N T floats at most (one block per utterance)
+    attn = 4 * (2 * N * He + N * T + 2 * N)
     if attn > _SMEM_BYTES:
         return (f"decode attention needs {attn} bytes of shared memory "
-                f"at N={N}, T={T}, H={H}")
+                f"at N={N}, T={T}, He={He}")
     if 8 * N * K > 48 * 1024:
         return (f"beam selection keeps N * K = {N * K} candidates in 48 "
                 f"KB of shared memory")
     return None
 
 
-def decode_shapes_ok(B, T, H, E, A, N, K=1):
+def decode_shapes_ok(B, T, H, E, A, N, K=1, He=None):
     """Whether K5 (N = 1) or K6 take these shapes
     (:func:`decode_shapes_problem`): greedy and beam decoding
     (``models.seq2seq.predict_greedy``, ``ops.beam``) run the plain loop
     for any other call, as ``ast_tpu`` runs its XLA loop."""
-    return decode_shapes_problem(B, T, H, E, A, N, K) is None
+    return decode_shapes_problem(B, T, H, E, A, N, K, He) is None
 
 
-def check_decode_shapes(B, T, H, E, A, N, K=1):
+def check_decode_shapes(B, T, H, E, A, N, K=1, He=None):
     """Raise unless :func:`decode_shapes_ok`."""
-    problem = decode_shapes_problem(B, T, H, E, A, N, K)
+    problem = decode_shapes_problem(B, T, H, E, A, N, K, He)
     if problem:
         raise ValueError(problem)
 
 
 def greedy_decode_fused(enc, dec_h0, dec_c0, w, stop_limit):
-    """Greedy decode.  enc (B, T, H), dec_h0/c0 (L, B, H).  Returns preds
+    """Greedy decode.  enc (B, T, He), dec_h0/c0 (L, B, H).  Returns preds
     (B, stop_limit) int32: each row's argmax chain, continued past its own
     EOS, and PAD after the step where every row has finished.  ``w`` and
     ``enc`` in bf16 run the bf16 mode; its launches count in
     ``launches_bf16``."""
     if not enc.is_cuda:
         return greedy_reference(enc, dec_h0, dec_c0, w, stop_limit)
-    B, T, H, L, E, A, V, dt = check_decoder_inputs(enc, dec_h0, dec_c0, w)
-    check_decode_shapes(B, T, H, E, A, 1)
+    B, T, H, L, E, A, V, dt, He = check_decoder_inputs(enc, dec_h0, dec_c0,
+                                                       w)
+    check_decode_shapes(B, T, H, E, A, 1, He=He)
     dev = enc.device
     i32 = dict(dtype=torch.int32, device=dev)
     # state ping-pongs between two slots a step
@@ -715,11 +721,11 @@ def greedy_decode_fused(enc, dec_h0, dec_c0, w, stop_limit):
     tok_in = torch.full((B,), SYMBOLS.GO_ID, **i32)
     fin = torch.zeros((B,), **i32)
     done = torch.zeros((1,), **i32)
-    q = torch.empty((B, H), device=dev)
-    cv = torch.empty((B, H), device=dev)
+    q = torch.empty((B, He), device=dev)
+    cv = torch.empty((B, He), device=dev)
     logits = torch.empty((B, V), device=dev)
     tok_out = torch.empty((stop_limit, B), **i32)
-    packed = step_weights(w, H, L, E, A, V, dt)
+    packed = step_weights(w, H, L, E, A, V, dt, He)
     lib = build.library()
     if dt == BF16:
         name, entry = "k5_greedy_decode_bf16", lib.k5_greedy_decode_bf16
@@ -732,7 +738,7 @@ def greedy_decode_fused(enc, dec_h0, dec_c0, w, stop_limit):
         hbuf.data_ptr(), cbuf.data_ptr(), htbuf.data_ptr(),
         tok_in.data_ptr(), fin.data_ptr(), done.data_ptr(), q.data_ptr(),
         cv.data_ptr(), logits.data_ptr(), tok_out.data_ptr(),
-        B, T, H, L, E, A, V, stop_limit,
+        B, T, H, L, E, A, V, stop_limit, He,
         torch.cuda.current_stream(dev).cuda_stream))
     return tok_out.t().contiguous()
 
@@ -746,11 +752,12 @@ def beam_search_streams(enc, dec_h0, dec_c0, w, N, K, stop_limit):
     counted in ``launches_bf16``).  Returns its per-step streams tok,
     parent slot and valid (stop_limit, B, N) int32, and the final scores
     (B, N)."""
-    B, T, H, L, E, A, V, dt = check_decoder_inputs(enc, dec_h0, dec_c0, w)
+    B, T, H, L, E, A, V, dt, He = check_decoder_inputs(enc, dec_h0, dec_c0,
+                                                       w)
     if not 1 <= K <= V:
         raise ValueError(f"beam kernel takes 1 <= K <= V (got K={K}, "
                          f"V={V})")
-    check_decode_shapes(B, T, H, E, A, N, K)
+    check_decode_shapes(B, T, H, E, A, N, K, He)
     dev = enc.device
     R = B * N
     i32 = dict(dtype=torch.int32, device=dev)
@@ -768,13 +775,13 @@ def beam_search_streams(enc, dec_h0, dec_c0, w, N, K, stop_limit):
     done = torch.zeros((1,), **i32)
     parent = torch.arange(R, **i32)
     count = torch.zeros((2,), **i32)
-    q = torch.empty((R, H), device=dev)
-    cv = torch.empty((R, H), device=dev)
+    q = torch.empty((R, He), device=dev)
+    cv = torch.empty((R, He), device=dev)
     logits = torch.empty((R, V), device=dev)
     tok = torch.empty((stop_limit, R), **i32)
     par = torch.empty((stop_limit, R), **i32)
     valid = torch.empty((stop_limit, R), **i32)
-    packed = step_weights(w, H, L, E, A, V, dt)
+    packed = step_weights(w, H, L, E, A, V, dt, He)
     lib = build.library()
     if dt == BF16:
         name, entry = "k6_beam_decode_bf16", lib.k6_beam_decode_bf16
@@ -788,7 +795,7 @@ def beam_search_streams(enc, dec_h0, dec_c0, w, N, K, stop_limit):
         tok_in.data_ptr(), score.data_ptr(), fin.data_ptr(),
         done.data_ptr(), parent.data_ptr(), count.data_ptr(), q.data_ptr(),
         cv.data_ptr(), logits.data_ptr(), tok.data_ptr(), par.data_ptr(),
-        valid.data_ptr(), B, N, K, T, H, L, E, A, V, stop_limit,
+        valid.data_ptr(), B, N, K, T, H, L, E, A, V, stop_limit, He,
         torch.cuda.current_stream(dev).cuda_stream))
     shape = (stop_limit, B, N)
     return tok.view(shape), par.view(shape), valid.view(shape), score

@@ -10,6 +10,10 @@ Each frequency mask zeroes a band of width ~ U{0..freq_width} channels;
 each time mask zeroes a span of width ~ U{0..time_width} frames placed
 within the row's real (unpadded) frame count; ``time_p`` > 0 also caps a
 time mask at ``floor(time_p * length)``.  Masked cells become 0.0.
+A feature row of P planes (the conv front-end's ``in_channels``:
+static, delta and delta-delta side by side) takes its frequency masks
+over the ``D / P`` bins of a plane, and each mask zeroes the same bins
+of every plane.
 
 Drawing is apart from applying: :func:`draw_spec_masks` makes each
 mask's per-row start and width from a host generator, and
@@ -28,9 +32,11 @@ import torch
 class SpecMasks:
     """Per mask a ``(start, width)`` pair of (B, 1) int64 tensors: the
     zeroed cells of row r are ``start[r] <= i < start[r] + width[r]``
-    along the feature axis (``freq``) or the time axis (``time``)."""
+    along the feature axis (``freq``; of each of the row's ``planes``
+    planes) or the time axis (``time``)."""
     freq: List[Tuple[torch.Tensor, torch.Tensor]]
     time: List[Tuple[torch.Tensor, torch.Tensor]]
+    planes: int = 1
 
 
 def frame_lengths(X):
@@ -58,12 +64,14 @@ def _draw_axis(gen, B, max_width, span, width_cap=None):
     return start, w
 
 
-def draw_spec_masks(gen, shape, cfg, lengths=None, X=None):
+def draw_spec_masks(gen, shape, cfg, lengths=None, X=None, planes=1):
     """Starts and widths of every mask for a (B, T, D) batch of
     ``shape`` from the host generator ``gen``.  ``lengths``: the rows'
     true frame counts, (B,) ints; without them they are inferred from
-    ``X`` (:func:`frame_lengths`)."""
+    ``X`` (:func:`frame_lengths`).  ``planes``: the frequency masks lie
+    in the ``D / planes`` bins of a plane."""
     B, T, D = shape
+    D //= planes
     n_f, f_w = int(cfg.get("freq_masks", 2)), int(cfg.get("freq_width", 6))
     n_t, t_w = int(cfg.get("time_masks", 2)), int(cfg.get("time_width", 40))
     t_p = float(cfg.get("time_p", 0.0))
@@ -75,7 +83,7 @@ def draw_spec_masks(gen, shape, cfg, lengths=None, X=None):
         lengths = torch.as_tensor(lengths).long().reshape(B, 1)
         cap = (t_p * lengths.float()).long() if t_p > 0 else None
         time = [_draw_axis(gen, B, t_w, lengths, cap) for _ in range(n_t)]
-    return SpecMasks(freq, time)
+    return SpecMasks(freq, time, planes)
 
 
 def _keep(masks, B, size, device):
@@ -91,8 +99,9 @@ def apply_spec_masks(X, masks):
     """X (B, T, D) with the cells of ``masks`` (:class:`SpecMasks`)
     zeroed."""
     B, T, D = X.shape
+    freq = _keep(masks.freq, B, D // masks.planes, X.device)
     keep = (_keep(masks.time, B, T, X.device)[:, :, None]
-            & _keep(masks.freq, B, D, X.device)[:, None, :])
+            & freq.repeat(1, masks.planes)[:, None, :])
     return X * keep.to(X.dtype)
 
 

@@ -130,6 +130,7 @@ from ast_tpu_torch.data.device_cache import EpochFeatureCache, gather_batch
 from ast_tpu_torch.models import seq2seq
 from ast_tpu_torch.ops import beam as beam_ops
 from ast_tpu_torch.ops.bf16 import parse_dtype
+from ast_tpu_torch.ops.cnn import input_planes
 from ast_tpu_torch.ops.fbank import MfccExtractor
 from ast_tpu_torch.ops.fused_infer import require_train_variant
 from ast_tpu_torch.parallel import (
@@ -586,7 +587,8 @@ class NN:
         """One update from a batch (host or device); returns the loss (on
         device; under a mesh this rank's share of it).  Spans:
         ``train.step``, inside it ``train.draws``, ``train.forward``,
-        ``train.backward`` (with the gradients' all-reduce) and
+        ``train.backward`` (with the gradients' all-reduce, inside it
+        ``train.all_reduce``) and
         ``train.optimizer``."""
         with span("train.step", bucket=batch.get("bucket")):
             return self._train_step(batch, seed)
@@ -603,7 +605,8 @@ class NN:
                 extras["speech_noise"], random_out=extras["random_out"],
                 vocab=self.mcfg["rnn_config"]["dec_vocab_size"],
                 spec_cfg=tcfg["data"].get("spec_augment") or None,
-                frame_len=batch.get("frame_len"), mesh=self.mesh)
+                frame_len=batch.get("frame_len"), mesh=self.mesh,
+                planes=input_planes(self.mcfg["cnn_config"]))
         _count_frames("train", batch, X.shape[1])
 
         def loss_fn():
@@ -623,8 +626,9 @@ class NN:
                 loss, new_state = loss_fn()
         leaves = tree_leaves(self.params)
         with span("train.backward"):
-            grads = all_reduce_grads(torch.autograd.grad(loss, leaves),
-                                     self.mesh)
+            grads = torch.autograd.grad(loss, leaves)
+            with span("train.all_reduce"):
+                grads = all_reduce_grads(grads, self.mesh)
         with span("train.optimizer"), torch.no_grad():
             self.opt.apply_(grads, self.opt_state, leaves)
         self.state = new_state
@@ -794,7 +798,8 @@ class NN:
         losses, sizes = [], []
         params = self.whole_params()
         with torch.no_grad():
-            enc_w = seq2seq.encoder_weights(params, self.compute_dtype)
+            enc_w = seq2seq.encoder_weights(params, self.compute_dtype,
+                                            self.mcfg)
             for batch in self._prefetch(
                     gen, lambda b: self._device_batch(b, True, cache=cache)):
                 loss, _ = seq2seq.forward_loss(
@@ -863,7 +868,8 @@ class NN:
         with span("decode.setup"):
             params = self.whole_params()
             with torch.inference_mode():     # once for the split
-                w = seq2seq.decode_weights(params, self.compute_dtype)
+                w = seq2seq.decode_weights(params, self.compute_dtype,
+                                           self.mcfg)
 
         def decode(X):
             return seq2seq.predict_greedy(
@@ -903,7 +909,8 @@ class NN:
                 return_attn=save_attn, compute_dtype=self.compute_dtype)
             params = self.whole_params()
             with torch.inference_mode():     # once for the split
-                w = seq2seq.decode_weights(params, self.compute_dtype)
+                w = seq2seq.decode_weights(params, self.compute_dtype,
+                                           self.mcfg)
 
         def decode(X):
             return beam(params, self.state, X, w)

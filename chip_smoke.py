@@ -326,6 +326,26 @@ Phases, each printing a line:
    and d_ht against sequence_loss on the card, its ms against
    sequence_loss's and the gloo all-reduce's ms for d_ht, two ranks on
    one card.
+19. LAS-6-1280's shapes (benchmark/configs/las_6_1280_bf16.json; run
+   alone with --las): K1 train and K2 at one layer over both directions
+   (B 64, T' 200, H 1,280, bf16: the jointly stacked listener's calls),
+   K3 and K4 at encoder states He = 2,560 wide against H = 1,280 (B 64,
+   T' 200, U 48, V 16,384, bf16) and again at He = H, each against its
+   plain version within BF16_MAX_TOL of each stream's max|plain| (K2
+   along the kernel's own dz, K4 from K3's streams); K3 one step at a
+   time, every step, within BF16_MAX_TOL / BF16_STEP_TOL (k3_step_errs,
+   the plain version with its alphas unrounded failing it), its sampled
+   ids within BF16_TOK_TOL of its own ht's best logit, and along its own
+   ids over all 48 steps within BF16_SPREAD times the distance between
+   the plain version on the card and on the host; K3, K4
+   (f32 and bf16), K5 and K6 (f32) at a small He != H (H 64, He 128)
+   within phase 5's and phase 3's tolerances (K3 at bf16 also one step
+   at a time); each row's ms beside its
+   plain version's and its bound (K3 / K4 counted with He apart from H:
+   benchmark/yardstick/kernel_cost_wide.py's terms); then one training
+   step of the LAS cell's longest bucket at B 64 (3,500 frames, U 144)
+   through seq2seq.forward_loss at bf16: its two times, the peak memory
+   and every gradient finite.
 
 Then a JSON line with each kernel's count, error and times, and last
 {"ok": true, "device": {...}}.  A kernel's count ("launches") is the
@@ -6612,6 +6632,258 @@ def step_split(nn, batch, reps):
             for k, v in spans.items()}
 
 
+# phase 19, LAS-6-1280's shapes (benchmark/configs/las_6_1280_bf16.json):
+# the listener's K1 train / K2 at one layer over both directions
+# (B, T', H) and the speller's K3 / K4 at encoder states He = 2 H wide
+# (B, T', H, He, E, A, V, U; the decoder's 2 layers), bf16; the same
+# kernels, K5 and K6 at f32 at a small He != H (B, T', H, He, E, A, V,
+# U); one whole training step at the cell's longest bucket (B, frames,
+# U) for its peak memory
+LAS_ENC = (64, 200, 1280)
+LAS_DEC = (64, 200, 1280, 2560, 512, 1280, 16384, 48)
+LAS_SMALL = (8, 30, 64, 128, 32, 64, 100, 12)
+LAS_STEP = (64, 3500, 144)
+# K3 at bf16 is held every step, one step at a time (k3_step_errs:
+# each product recomputed in f32 from the streams the kernel rounded its
+# operands into, within BF16_MAX_TOL of its max and BF16_STEP_TOL of its
+# mean), with its sampled ids within BF16_TOK_TOL of its own ht's best
+# logit; along its path (ht fed back, U steps) within BF16_MAX_TOL at
+# LAS_SMALL.  At LAS-6-1280's widths two versions that differ only in
+# the order of their f32 sums part along the path as ht is fed back, so
+# there the path is held to BF16_SPREAD times the distance between two
+# plain versions, the card's and the host's (the same rounding points,
+# other sum orders), along the same ids
+
+
+def _las_cfg(layers=6, units=1280, hidden=1280, E=512, A=1280, V=16384):
+    with open(os.path.join(REPO, "benchmark", "configs",
+                           "las_6_1280_bf16.json")) as f:
+        mcfg = json.load(f)["model_cfg"]
+    mcfg["rnn_config"].update(enc_layers=layers, enc_units=units,
+                              hidden_units=hidden, embedding_units=E,
+                              attn_units=A, dec_vocab_size=V)
+    return mcfg
+
+
+def _rel(got, want):
+    """The largest gap of each tensor pair over the plain one's largest
+    value, the worst of the pairs."""
+    return max(rel_err(g.float(), w.float())[0] for g, w in zip(got, want))
+
+
+def _las_decoder_rows(device, dims, dtype, tol, bwd_tol, host=False):
+    """K3 and K4 at ``dims`` (B, T', H, He, E, A, V, U) and ``dtype``
+    against their plain versions (K3 along its own sampled ids, K4 from
+    the same streams; at bf16 also K3 one step at a time, every step,
+    with a control that must fail that check); returns the two result
+    rows.  ``host``: the path's tolerance at bf16 is BF16_SPREAD times
+    the plain version's own distance from its run on the host."""
+    import torch
+
+    from ast_tpu_torch.models import seq2seq
+    from ast_tpu_torch.ops import fused_decoder as fd
+
+    Bn, Tp, H, He, E, A, V, U = dims
+    mcfg = _las_cfg(1, He // 2, H, E, A, V)
+    params, _ = seq2seq.init_model(mcfg, seed=4, device=device)
+    w = seq2seq.pack_decoder_weights(params, dtype)
+    g = torch.Generator(device=device).manual_seed(5)
+    # states like a listener's outputs: |h| < 1, dropped at 0.3
+    enc = (torch.tanh(torch.randn((Bn, Tp, He), generator=g, device=device))
+           / (1.0 - DROP)).to(dtype)
+    h0 = torch.zeros((2, Bn, H), device=device)
+    c0 = torch.zeros_like(h0)
+    y_in = torch.randint(4, V, (U, Bn), generator=g, device=device,
+                         dtype=torch.int32)
+    coins = torch.tensor([(TRAIN_PARTIAL_COINS * 16)[t] for t in range(U)],
+                         dtype=torch.int32, device=device)
+    coins[0] = 1
+    args = (enc, h0, c0, w, y_in, coins, DEC_SEED, DROP, DROP)
+    ht, res = fd.decoder_forward(*args)
+    sel = res["sel"]
+    ht_p, res_p = fd.decoder_forward_reference(*args, forced_ids=sel)
+    short = float(fd.sampled_shortfall(ht_p, w, sel, coins).max())
+    names = fd.res_names(w["wh"].dtype)[1:]
+
+    def path(ht_a, res_a, ht_b, res_b):
+        return {k: _rel([a], [b]) for k, a, b in zip(
+            ("ht",) + names, [ht_a] + [res_a[k] for k in names],
+            [ht_b] + [res_b[k] for k in names])}
+    each = path(ht, res, ht_p, res_p)
+    err3 = max(each.values())
+    k3 = dict(sampled_shortfall=short, streams=each)
+    ok3 = err3 <= tol
+    if dtype == torch.bfloat16:
+        # one step at a time: no dropout between the layers, so that
+        # every product's operand is a stream
+        args0 = args[:-1] + (0.0,)
+        ht0, res0 = fd.decoder_forward(*args0)
+        step = k3_step_errs(enc, h0, w, ht0, res0)
+        step_short = float(fd.sampled_shortfall(ht0, w, res0["sel"],
+                                                coins).max())
+        with unrounded_operand((Bn, Tp)):
+            ctl = fd.decoder_forward_reference(*args0,
+                                               forced_ids=res0["sel"])
+        ctl_step = k3_step_errs(enc, h0, w, *ctl)
+        k3.update(step_errs=step, step_tol=[BF16_MAX_TOL, BF16_STEP_TOL],
+                  step_shortfall=step_short, control_step_errs=ctl_step)
+        ok3 = (step_ok(step) and step_short <= BF16_TOK_TOL
+               and not step_ok(ctl_step))
+        if host:
+            cpu = torch.device("cpu")
+            ht_h, res_h = fd.decoder_forward_reference(
+                enc.to(cpu), h0.to(cpu), c0.to(cpu),
+                {k: v.to(cpu) for k, v in w.items()}, y_in.to(cpu),
+                coins.to(cpu), DEC_SEED, DROP, DROP, forced_ids=sel.to(cpu))
+            spread = path(ht_h, res_h, *(
+                (ht_p.to(cpu), {k: v.to(cpu) for k, v in res_p.items()})))
+            tol = max(tol, BF16_SPREAD * max(spread.values()))
+            k3["host_plain_streams"] = spread
+        ok3 = ok3 and err3 <= tol
+    d_ht = torch.randn(ht.shape, generator=g, device=device) * 1e-2
+    bwd = (res, ht, enc, c0, w, d_ht, DEC_SEED, DROP, DROP)
+    gk = fd.decoder_backward(*bwd)
+    gp = fd.decoder_backward_reference(*bwd)
+    each4 = {k: _rel([gk[k]], [gp[k]]) for k in fd.GRAD_NAMES}
+    err4 = max(each4.values())
+    wb = 2 if dtype == torch.bfloat16 else 4
+    d = dict(B=Bn, T=Tp, H=H, He=He, L=2, E=E, A=A, V=V, U=U, wbytes=wb)
+    rows = {}
+    for key, err, lim, ok, fn, plain in (
+            ("k3", err3, tol, ok3, lambda: fd.decoder_forward(*args),
+             lambda: fd.decoder_forward_reference(*args)),
+            ("k4", err4, bwd_tol, err4 <= bwd_tol,
+             lambda: fd.decoder_backward(*bwd),
+             lambda: fd.decoder_backward_reference(*bwd))):
+        rows[key] = dict(max_rel_err=err, tol=lim, ok=ok, ms=cuda_ms(fn, 3),
+                         plain_ms=cuda_ms(plain, 1), dims=dict(d))
+    rows["k3"].update(k3)
+    rows["k4"]["streams"] = each4
+    rows["k3"]["dims"]["n_logits"] = int((coins[1:] == 0).sum())
+    return rows
+
+
+def check_las_kernels(device):
+    """Phase 19: the kernels at LAS-6-1280's shapes against their plain
+    versions, their times and bounds (the cost of K3 / K4 with He apart
+    from H: benchmark/yardstick/kernel_cost_wide.py's terms), and one
+    whole training step of the cell's longest bucket; returns the rows
+    and the step's numbers."""
+    import torch
+
+    from ast_tpu_torch.models import seq2seq
+    from ast_tpu_torch.ops import fused_infer
+    from ast_tpu_torch.ops import fused_lstm as fl
+    from ast_tpu_torch.ops.bf16 import BF16
+    from ast_tpu_torch.train.optimizer import tree_leaves
+
+    sys.path.insert(0, REPO)
+    from benchmark.yardstick.kernel_cost_wide import kernel_cost_wide
+
+    rows, problems = {}, []
+    with torch.no_grad():
+        Bn, Tp, H = LAS_ENC
+        g = torch.Generator(device=device).manual_seed(3)
+        x0 = torch.randn((Tp, 2, Bn, 4 * H), generator=g,
+                         device=device) * 0.5
+        wh = (torch.randn((1, 2, H, 4 * H), generator=g, device=device)
+              * H ** -0.5).to(BF16)
+        wxr = wh.new_zeros((0, 2, H, 4 * H))
+        b = torch.zeros((1, 2, 4 * H), device=device)
+        b[..., H:2 * H] = 1.0
+        args = (x0, wxr, wh, b, ENC_SEED, DROP)
+        got = fl.fused_stacked_lstm_train(*args)
+        ref = fl.stacked_lstm_reference(*args[:4], True, ENC_SEED, DROP)
+        d = dict(B=Bn, H=H, L=1, T=Tp, D2=2, wbytes=2)
+        rows["k1t_las"] = dict(
+            max_rel_err=_rel(got, ref), tol=BF16_MAX_TOL, dims=d,
+            ms=cuda_ms(lambda: fl.fused_stacked_lstm_train(*args), 3),
+            plain_ms=cuda_ms(lambda: fl.stacked_lstm_reference(
+                *args[:4], True, ENC_SEED, DROP), 1))
+        douts = torch.randn((Tp, 2, Bn, H), generator=g,
+                            device=device) * 1e-2
+        zero = torch.zeros((1, 2, Bn, H), device=device)
+        bargs = (got[3], got[4], wxr, wh, douts, zero, zero, ENC_SEED, DROP)
+        dz = fl.encoder_backward(*bargs)
+        dz_p = fl.encoder_backward_reference(*bargs, forced_dz=dz)
+        rows["k2_las"] = dict(
+            max_rel_err=_rel([dz], [dz_p]), tol=BF16_MAX_TOL, dims=d,
+            ms=cuda_ms(lambda: fl.encoder_backward(*bargs), 3),
+            plain_ms=cuda_ms(lambda: fl.encoder_backward_reference(
+                *bargs), 1))
+        for key in ("k1t_las", "k2_las"):
+            flops, nbytes = kernel_cost(key.split("_")[0], rows[key]["dims"])
+            rows[key]["bound_ms"] = bound(flops, nbytes, PEAK_BF16_FLOPS)[0]
+        for dims, dtype, tol, bwd_tol, host, tag in (
+                (LAS_DEC, BF16, BF16_MAX_TOL, BF16_MAX_TOL, True, "las"),
+                (LAS_DEC[:3] + LAS_DEC[2:3] + LAS_DEC[4:], BF16,
+                 BF16_MAX_TOL, BF16_MAX_TOL, True, "las_he_h"),
+                (LAS_SMALL, BF16, BF16_MAX_TOL, BF16_MAX_TOL, False,
+                 "wide_bf16"),
+                (LAS_SMALL, torch.float32, ENC_TOL, BWD_TOL, False,
+                 "wide_f32")):
+            for key, row in _las_decoder_rows(device, dims, dtype, tol,
+                                              bwd_tol, host).items():
+                flops, nbytes = kernel_cost_wide(key, row["dims"])
+                row["bound_ms"] = bound(flops, nbytes, (
+                    PEAK_BF16_FLOPS if dtype == BF16
+                    else PEAK_F32_FLOPS))[0]
+                rows[f"{key}_{tag}"] = row
+        # K5 / K6 at He != H, f32, free-running and along their own
+        # tokens (check_greedy, check_beam)
+        Bn, Tp, H, He, E, A, V, _ = LAS_SMALL
+        mcfg = _las_cfg(1, He // 2, H, E, A, V)
+        params, _ = seq2seq.init_model(mcfg, seed=6, device=device)
+        w = seq2seq.decode_weights(params)
+        enc = torch.randn((Bn, Tp, He), generator=g, device=device)
+        h0 = torch.zeros((2, Bn, H), device=device)
+        _, rows["k5_wide_f32"] = check_greedy(enc, h0, h0, w, 40)
+        _, rows["k6_wide_f32"] = check_beam(enc, h0, h0, w, 40)
+    for key, row in rows.items():
+        if "tol" in row:
+            if not row.pop("ok", row["max_rel_err"] <= row["tol"]):
+                problems.append(key)
+            row["share"] = row["bound_ms"] / row["ms"]
+        print(f"LAS {key}: {json.dumps(row)}", flush=True)
+
+    # one training step of the cell's longest bucket at B 64
+    Bn, frames, U = LAS_STEP
+    mcfg = _las_cfg(V=16384)
+    params, state = seq2seq.init_model(mcfg, seed=0, device=device)
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    X = torch.randn((Bn, frames, 240), device=device)
+    y = torch.randint(4, mcfg["rnn_config"]["dec_vocab_size"], (Bn, U),
+                      device=device)
+    y[:, 0], y[:, -1] = 1, 2
+    spec = {"freq_masks": 2, "freq_width": 27, "time_masks": 2,
+            "time_width": 100, "time_p": 1.0}
+    draws = seq2seq.make_draws(11, X, U - 1, 0.8, 0, spec_cfg=spec,
+                               frame_len=[frames] * Bn, planes=3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step = {}
+    for rep in range(2):
+        t0 = time.perf_counter()
+        loss, _ = seq2seq.forward_loss(params, state, mcfg, X, y, float(Bn),
+                                       draws, label_smoothing=0.1,
+                                       compute_dtype=BF16)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+        step[f"s{rep}"] = time.perf_counter() - t0
+    step.update(loss=float(loss.detach()),
+                peak_gb=torch.cuda.max_memory_allocated()
+                / 1e9, params_m=sum(p.numel() for p in leaves) / 1e6,
+                grad_finite=all(bool(torch.isfinite(t).all())
+                                for t in grads),
+                dims=dict(B=Bn, frames=frames, U=U))
+    print(f"LAS step: {json.dumps(step)}", flush=True)
+    assert not problems, f"LAS kernels disagree with plain: {problems}"
+    assert step["grad_finite"], "LAS step: a gradient is not finite"
+    return rows, step
+
+
 def print_registers(log):
     """Each kernel's registers and spills, from the build's ptxas lines
     (the mangled name holds the source of a kernel in an anonymous
@@ -6631,36 +6903,10 @@ def print_registers(log):
                       f"{spill}")
 
 
-def main():
+def check_phases(device, smi, tf32_default):
+    """Phases 1-18; returns the kernels line's rows."""
     import torch
 
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device available", file=sys.stderr)
-        return 2
-    from ast_tpu_torch.kernels import build
-
-    # the server subprocess of phase 9 runs with PyTorch's default
-    tf32_default = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60).stdout.strip().splitlines()[0]
-    print(smi, flush=True)
-    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"{torch.cuda.get_device_name(0)}", flush=True)
-
-    t0 = time.perf_counter()
-    build.library()
-    built = build.last_build
-    print(f"build: {time.perf_counter() - t0:.1f} s"
-          + (f" (nvcc {built['seconds']:.1f} s, {built['path']})"
-             if built else " (library already built)"), flush=True)
-    if built:
-        print_registers(built["log"])
-
-    device = torch.device("cuda")
     with tempfile.TemporaryDirectory() as root:
         exp, cfg, paths = make_experiment(root)
         with torch.inference_mode():
@@ -6775,10 +7021,48 @@ def main():
               f"({bound_by}; {bound_ms / r['ms']:.3f} of it reached), "
               f"{launches[key] / units[key]:.2f} launches per {unit} "
               f"({smi})", flush=True)
+    return kernels
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    from ast_tpu_torch.kernels import build
+
+    # the server subprocess of phase 9 runs with PyTorch's default
+    tf32_default = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}", flush=True)
+
+    t0 = time.perf_counter()
+    build.library()
+    built = build.last_build
+    print(f"build: {time.perf_counter() - t0:.1f} s"
+          + (f" (nvcc {built['seconds']:.1f} s, {built['path']})"
+             if built else " (library already built)"), flush=True)
+    if built:
+        print_registers(built["log"])
+
+    device = torch.device("cuda")
+    # --las: phase 19 alone
+    kernels = ([] if "--las" in sys.argv[1:]
+               else check_phases(device, smi, tf32_default))
+    las_rows, las_step = check_las_kernels(device)
     loaded = [m for m in sys.modules
               if m.split(".")[0] in ("jax", "jaxlib", "ast_tpu")]
     assert not loaded, f"JAX or ast_tpu was imported: {loaded[:5]}"
-    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"kernels": kernels, "las": las_rows,
+                      "las_step": las_step}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

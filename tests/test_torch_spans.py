@@ -284,8 +284,11 @@ def test_train_epoch_records_every_span_and_counter(tmp_path, extras):
     for name, n in [("train.epoch", 1), ("train.loss_sync", 1),
                     ("train.step", steps), ("train.draws", steps),
                     ("train.forward", steps), ("train.backward", steps),
+                    ("train.all_reduce", steps),
                     ("train.optimizer", steps), ("feed.stage", len(runs))]:
         assert spans[name]["n"] == n, name
+    # every stage on its kernels' route (their plain versions on the CPU)
+    assert counters["train.plain_stages"] == 0
     assert spans["feed.wait"]["n"] >= len(runs)
     assert spans["feed.assemble"]["n"] > len(runs)
     assert counters["feed.h2d_bytes"] == nn.epoch_h2d_bytes > 0
@@ -296,7 +299,11 @@ def test_train_epoch_records_every_span_and_counter(tmp_path, extras):
     # the step's pieces lie inside it, the steps inside the epoch
     inside = RECORDER.totals(under="train.step")["spans"]
     assert inside.keys() == {"train.draws", "train.forward",
-                             "train.backward", "train.optimizer"}
+                             "train.backward", "train.all_reduce",
+                             "train.optimizer"}
+    assert RECORDER.totals(under="train.backward")["spans"].keys() == {
+        "train.all_reduce"}
+    inside.pop("train.all_reduce")
     assert RECORDER.totals(under="train.epoch")["spans"].keys() \
         == spans.keys() - {"train.epoch"}
     assert sum(inside[k]["s"] for k in inside) <= spans["train.step"]["s"]
